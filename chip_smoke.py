@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N] [--steps N]
+
+Phases (each raises on failure; the script exits non-zero):
+
+1. build the port's CUDA kernels from ``ratelimiter_tpu_torch/csrc``;
+2. hold each kernel bit-equal to its plain PyTorch version at the
+   serving geometry of the repo's benchmark config 3 (sliding window,
+   limit 100 per 60 s, 60 one-second sub-windows, count-min sketch d=4,
+   w=65536, batches of 4096 ids drawn Zipf(1.1) over 1M keys), sliding and
+   fixed, and time kernel, plain version and bound;
+3. drive the main path end to end — ``create_limiter(...,
+   device="cuda")``, launch/resolve of config-3 traffic across sub-window
+   rollovers, with a policy override and a reset — and hold every result
+   and the final state bit-identical to the same trace on the CPU (the
+   plain versions, which the CPU tests hold to the JAX package); again
+   with conservative update off; every kernel's launch count must move;
+   then profile a short CU run (device busy share, top device ops);
+4. start the port's server on 127.0.0.1 and check its answers to
+   ALLOW_HASHED, ALLOW_BATCH and HEALTH frames against an in-process
+   limiter on the same trace;
+5. print the kernel table as one JSON line, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
+
+Without a CUDA device it exits non-zero before printing any result.
+It imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: Config 3's serving shape (benchmarks/configs.py:7-11,141-143).
+LIMIT, WINDOW_S, SUB_WINDOWS, DEPTH, WIDTH = 100, 60.0, 60, 4, 65536
+BATCH, N_KEYS, ZIPF_A = 4096, 1_000_000, 1.1
+T0 = 1_700_000_000.0
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor op/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+KERNEL_ROWS = {
+    "window_estimate": "ratelimiter_tpu/ops/pallas_sketch.py:144",
+    "cu_update": "ratelimiter_tpu/ops/pallas_sketch.py:186",
+    "add_update": "ratelimiter_tpu/ops/pallas_sketch.py:224",
+}
+SOURCE = "ratelimiter_tpu_torch/csrc/sketch_kernels.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def zipf_ids(rng: np.random.Generator, shape) -> np.ndarray:
+    return rng.zipf(ZIPF_A, size=shape).astype(np.uint64) % np.uint64(N_KEYS)
+
+
+def device_ms(fn, torch, *, reps: int = 7) -> float:
+    """Median device time of one ``fn()`` call, in ms. The card is held
+    busy (``torch.cuda._sleep``) while the host enqueues the start event,
+    n calls and the end event, so the events time device work only, not
+    the host's launch rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    n = int(min(200, max(5, 4e-3 / max(host_s, 1e-7))))
+    cycles = int(2e9 * (2.5 * n * host_s + 2e-3))
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def config3(algorithm: str = "SLIDING_WINDOW", cu: bool = True):
+    from ratelimiter_tpu_torch import Algorithm, Config, SketchParams
+
+    return Config(algorithm=getattr(Algorithm, algorithm), limit=LIMIT,
+                  window=WINDOW_S,
+                  sketch=SketchParams(depth=DEPTH, width=WIDTH,
+                                      sub_windows=SUB_WINDOWS,
+                                      conservative_update=cu))
+
+
+# --------------------------------------------------------------- phase 2
+
+
+def check_kernels(torch, seed: int) -> dict:
+    """Each kernel against its plain version at config-3 shapes, sliding
+    and fixed; times and bounds. Launches made here do not count."""
+    from ratelimiter_tpu_torch.ops import hashing, sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(rng, BATCH)
+    h1, h2 = hashing.split_hash_dev(
+        hashing.splitmix64_dev(hashing.u64_to_tensor(ids, dev)), 0x5bd1e995)
+    # A state as after resets and traffic: negative cells included.
+    totals = torch.from_numpy(
+        rng.integers(-3, 300, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
+    boundary = torch.from_numpy(
+        rng.integers(-2, 200, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
+    cur = torch.from_numpy(
+        rng.integers(-3, 30, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
+    sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
+    p = int(T0 * 1e6) // sub_us
+    frac = torch.tensor(boundary_frac(p, p * sub_us + 377_123, sub_us),
+                        dtype=torch.float32, device=dev)
+    add = torch.from_numpy(
+        rng.integers(0, 3, size=BATCH).astype(np.int32)).to(dev)
+
+    # Cells the batch touches (the data-dependent part of the bounds).
+    cols = sc._columns(h1, h2, DEPTH, WIDTH)
+    touched = sum(int(torch.unique(cols[r]).numel()) for r in range(DEPTH))
+    cells = DEPTH * WIDTH
+
+    rows = {}
+    err = {"window_estimate": 0.0, "cu_update": 0.0, "add_update": 0.0}
+
+    def note(name, pairs):
+        """Record the largest |kernel - plain| over the outputs; raise
+        unless every output is bit-equal (the stated tolerance is 0)."""
+        for a, b in pairs:
+            torch.cuda.synchronize()
+            diff = float((a.double() - b.double()).abs().max())
+            err[name] = max(err[name], diff)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"(max abs err {diff})")
+    for bnd in (boundary, None):
+        mode = "sliding" if bnd is not None else "fixed"
+        fr = frac if bnd is not None else None
+        est = sc.window_estimate(totals, bnd, fr, h1, h2)
+        note("window_estimate",
+             [(est, sc.window_estimate_plain(totals, bnd, fr, h1, h2))])
+        target = torch.where(torch.rand(BATCH, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev) < 0.8,
+            torch.clamp_min(est, 0.0) + 1.0, torch.zeros((), device=dev))
+        got_t, got_c = totals.clone(), cur.clone()
+        sc.cu_update(got_t, got_c, bnd, fr, h1, h2, target)
+        ref_t, ref_c = totals.clone(), cur.clone()
+        sc.cu_update_plain(ref_t, ref_c, bnd, fr, h1, h2, target)
+        note("cu_update", [(got_t, ref_t), (got_c, ref_c)])
+        grown = int(((totals < 0) & (got_t > totals)).sum())
+        log(f"kernels[{mode}]: window_estimate and cu_update bit-equal to "
+            f"plain; {int((got_t != totals).sum())} cells raised, {grown} of "
+            f"them negative cells")
+    got_t, got_c, ref_t, ref_c = (x.clone() for x in (totals, cur, totals,
+                                                      cur))
+    sc.add_update(got_t, got_c, h1, h2, add)
+    sc.add_update_plain(ref_t, ref_c, h1, h2, add)
+    note("add_update", [(got_t, ref_t), (got_c, ref_c)])
+    log("kernels: add_update bit-equal to plain")
+
+    # Timing at the sliding (main-path) shapes.
+    t_buf, c_buf = totals.clone(), cur.clone()
+    target = torch.clamp_min(sc.window_estimate_plain(
+        totals, boundary, frac, h1, h2), 0.0) + 1.0
+    flat = (cols + torch.arange(DEPTH, device=dev)[:, None] * WIDTH
+            ).reshape(-1)
+    both = torch.cat([flat, flat + cells])
+    stacked = torch.zeros(2 * cells, dtype=torch.int32, device=dev)
+    vals2 = add.repeat(2 * DEPTH)
+    timing = {
+        "window_estimate": (
+            lambda: sc.window_estimate(totals, boundary, frac, h1, h2),
+            lambda: sc.window_estimate_plain(totals, boundary, frac, h1, h2),
+            None,
+            # h1, h2, est per key; totals and boundary per touched cell.
+            BATCH * (8 + 8 + 4) + touched * 4 * 2 + 4,
+            3 * DEPTH * BATCH),
+        "cu_update": (
+            lambda: sc.cu_update(t_buf, c_buf, boundary, frac, h1, h2,
+                                 target),
+            lambda: sc.cu_update_plain(t_buf, c_buf, boundary, frac, h1, h2,
+                                       target),
+            None,
+            # h1, h2, target per key; per cell: totals r+w, cur r+w, boundary.
+            BATCH * (8 + 8 + 4) + cells * (8 + 8 + 4) + 4,
+            DEPTH * BATCH + 6 * cells),
+        "add_update": (
+            lambda: sc.add_update(t_buf, c_buf, h1, h2, add),
+            lambda: sc.add_update_plain(t_buf, c_buf, h1, h2, add),
+            # One call computing both slabs' scatter-add: index_add_ over
+            # the two slabs laid side by side.
+            lambda: stacked.index_add_(0, both, vals2),
+            # h1, h2, add per key; touched cells of totals and cur r+w.
+            BATCH * (8 + 8 + 4) + touched * 8 * 2,
+            2 * DEPTH * BATCH),
+    }
+    for name, (kern, plain, lib, nbytes, ops) in timing.items():
+        ms = device_ms(kern, torch)
+        plain_ms = device_ms(plain, torch)
+        lib_ms = device_ms(lib, torch) if lib is not None else None
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": KERNEL_ROWS[name], "launches": 0,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "bytes": nbytes, "touched_cells": touched,
+        }
+        log(f"time {name}: kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, library "
+            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
+            f"bound {rows[name]['bound_ms'] * 1e3:.3f} us "
+            f"({rows[name]['bound_by']}, {nbytes} B)")
+    return rows
+
+
+# --------------------------------------------------------------- phase 3
+
+
+def _trace(seed: int, steps: int):
+    """Config-3 traffic: per step 4096 Zipf ids; every 8th step a
+    string-key batch holding an overridden key; one reset mid-trace; the
+    clock advancing 0.1 s per step (one rollover every 10 steps)."""
+    rng = np.random.default_rng(seed)
+    ids = zipf_ids(rng, (steps, BATCH))
+    keys = [f"user:{int(k)}" for k in zipf_ids(rng, 256)] + ["tenant:whale"] * 64
+    return ids, keys
+
+
+def drive(lim, ids, keys, *, inflight: int = 4):
+    """Run the trace through launch/resolve with up to ``inflight``
+    tickets outstanding; returns the BatchResults in launch order."""
+    pending, out = [], []
+    lim.set_override("tenant:whale", 40)
+    for step in range(ids.shape[0]):
+        if step == ids.shape[0] // 2:
+            while pending:
+                out.append(lim.resolve(pending.pop(0)))
+            lim.reset("tenant:whale")
+        if step % 8 == 7:
+            pending.append(lim.launch_batch(keys))
+        pending.append(lim.launch_ids(ids[step], wire=bool(step % 2)))
+        while len(pending) > inflight:
+            out.append(lim.resolve(pending.pop(0)))
+        lim.clock.advance(0.1)
+    while pending:
+        out.append(lim.resolve(pending.pop(0)))
+    return out
+
+
+def check_main_path(torch, seed: int, steps: int, cu: bool) -> dict:
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    cfg = config3(cu=cu)
+    ids, keys = _trace(seed, steps)
+    gpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                         device="cuda")
+    # Warm-up on a throwaway limiter (first-call costs), then the run.
+    warm = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                          device="cuda")
+    drive(warm, ids[:4], keys)
+    warm.close()
+    torch.cuda.synchronize()
+    sc.reset_launch_counts()
+    t = time.perf_counter()
+    got = drive(gpu, ids, keys)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = sc.launch_counts()
+    rollovers = int(gpu._host_period - int(T0 * 1e6) // gpu._sub_us)
+    _, gpu_arrays, _ = gpu.capture_state()
+    gpu.close()
+
+    cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                         device="cpu")
+    want = drive(cpu, ids, keys)
+    _, cpu_arrays, _ = cpu.capture_state()
+    cpu.close()
+    if len(got) != len(want):
+        raise AssertionError("result count differs")
+    decisions = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"batch {i}: {f} differs from the CPU run")
+        if (a.limits is None) != (b.limits is None) or (
+                a.limits is not None and not np.array_equal(a.limits,
+                                                            b.limits)):
+            raise AssertionError(f"batch {i}: limits differ")
+        decisions += len(a)
+    for k in ("cur", "slabs", "totals", "slab_period", "last_period"):
+        if not np.array_equal(gpu_arrays[k], cpu_arrays[k]):
+            raise AssertionError(f"final state {k} differs from the CPU run")
+    denied = sum(int((~r.allowed).sum()) for r in got)
+    if rollovers < 3:
+        raise AssertionError(f"only {rollovers} rollovers")
+    log(f"main path (cu={cu}): {len(got)} batches, {decisions} decisions, "
+        f"{denied} denied, {rollovers} rollovers, bit-identical to the CPU "
+        f"run; launches {counts}; {len(got) / wall:.1f} steps/s, "
+        f"{decisions / wall:.0f} decisions/s (wall {wall:.3f} s, "
+        f"launch/resolve with 4 in flight)")
+    return {"counts": counts, "steps_per_s": len(got) / wall,
+            "decisions_per_s": decisions / wall, "wall_s": wall,
+            "batches": len(got), "decisions": decisions,
+            "rollovers": rollovers}
+
+
+def profile_main_path(torch, seed: int, steps: int = 32) -> dict:
+    """Where a main-path step's time goes: ``torch.profiler`` over
+    ``steps`` CU batches after a warm-up. Device busy share is the union
+    of device-op intervals over the span from the first to the last; the
+    profiler's own overhead lengthens the span, so the share is a lower
+    bound on what an unprofiled run keeps the card busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    ids, keys = _trace(seed, 16 + steps)
+    lim = create_limiter(config3(), backend="sketch", clock=ManualClock(T0),
+                         device="cuda")
+    drive(lim, ids[:16], keys)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batches = len(drive(lim, ids[16:], keys))
+        torch.cuda.synchronize()
+    lim.close()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is not None and a <= cur[1]:
+            cur[1] = max(cur[1], b)
+            continue
+        if cur is not None:
+            busy += cur[1] - cur[0]
+        cur = [a, b]
+    busy += cur[1] - cur[0]
+    span = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    out = {"batches": batches, "device_busy_share": busy / span,
+           "device_us_per_batch": busy / batches,
+           "device_ops_per_batch": len(dev) / batches,
+           "top_device_us_per_batch": {k[:60]: v / batches for k, v in top}}
+    log(f"profile: {batches} batches, device busy {out['device_busy_share']:.3f} "
+        f"of the span, {out['device_us_per_batch']:.1f} us of device work "
+        f"and {out['device_ops_per_batch']:.0f} device ops per batch; top: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in
+                    out["top_device_us_per_batch"].items()))
+    return out
+
+
+# --------------------------------------------------------------- phase 4
+
+
+def check_server(torch, seed: int) -> None:
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.serving import protocol as p
+    from ratelimiter_tpu_torch.serving.server import run_server
+
+    cfg = config3()
+    served = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                            device="cuda")
+    mirror = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                            device="cuda")
+    rng = np.random.default_rng(seed + 1)
+
+    async def roundtrip(reader, writer, frame):
+        writer.write(frame)
+        await writer.drain()
+        length, type_, _ = p.parse_header(await reader.readexactly(13))
+        return type_, await reader.readexactly(length - 9)
+
+    async def main():
+        srv = await run_server(served, "127.0.0.1", 0)
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        try:
+            for i in range(4):
+                ids = zipf_ids(rng, 1024)
+                t, body = await roundtrip(reader, writer,
+                                          p.encode_allow_hashed(i, ids))
+                if t != p.T_RESULT_HASHED:
+                    raise AssertionError(f"ALLOW_HASHED answered type {t}")
+                got, want = p.parse_result_hashed(body), mirror.allow_ids(ids)
+                for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                    if not np.array_equal(getattr(got, f), getattr(want, f)):
+                        raise AssertionError(f"server {f} differs")
+                keys = [f"user:{int(k)}" for k in zipf_ids(rng, 64)]
+                t, body = await roundtrip(
+                    reader, writer, p.encode_allow_batch(10 + i, keys,
+                                                         [1] * 64))
+                if (t != p.T_RESULT_BATCH or p.parse_result_batch(body)
+                        != mirror.allow_batch(keys).results()):
+                    raise AssertionError("server ALLOW_BATCH differs")
+            t, body = await roundtrip(reader, writer,
+                                      p.encode_simple(p.T_HEALTH, 99))
+            serving, _, decisions = p.parse_health(body)
+            if t != p.T_HEALTH_R or not serving or decisions != 4 * 1088:
+                raise AssertionError(f"bad HEALTH answer {serving} {decisions}")
+        finally:
+            writer.close()
+            await writer.wait_closed()
+            await srv.shutdown()
+
+    asyncio.run(main())
+    served.close()
+    mirror.close()
+    log("server: ALLOW_HASHED x4 (1024 ids), ALLOW_BATCH x4 (64 keys) and "
+        "HEALTH answered, matching an in-process limiter")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=64)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from ratelimiter_tpu_torch.ops import _build, sketch_cuda
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    t = time.perf_counter()
+    _build.build_all(["sketch_kernels"])
+    sketch_cuda.build()
+    log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
+        f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    rows = check_kernels(torch, args.seed)
+    cu = check_main_path(torch, args.seed, args.steps, cu=True)
+    vanilla = check_main_path(torch, args.seed + 7, max(32, args.steps // 2),
+                              cu=False)
+    for name, need in (("window_estimate", cu), ("cu_update", cu),
+                       ("add_update", vanilla)):
+        if need["counts"][name] == 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    for name in rows:
+        rows[name]["launches"] = cu["counts"][name] + vanilla["counts"][name]
+    prof = profile_main_path(torch, args.seed)
+    check_server(torch, args.seed)
+
+    log(json.dumps({"main_path": {"card": card, "cu": cu,
+                                  "vanilla": vanilla, "profile": prof}}))
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

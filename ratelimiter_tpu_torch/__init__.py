@@ -1,0 +1,57 @@
+"""ratelimiter_tpu_torch — the PyTorch/CUDA port of ratelimiter_tpu.
+
+A second package beside the JAX one, which stays the reference: the same
+``Config``, the same operands and the same results, bit for bit. It
+imports ``torch`` and NumPy, never ``jax`` and nothing of
+``ratelimiter_tpu`` (the host modules it needs are copied in). The three
+table kernels of the windowed sketch step are hand-written CUDA for
+Hopper (``csrc/``); everything else is plain PyTorch.
+
+    from ratelimiter_tpu_torch import Algorithm, Config, create_limiter
+
+    lim = create_limiter(Config(algorithm=Algorithm.SLIDING_WINDOW,
+                                limit=100, window=60.0))   # device="cuda"
+    out = lim.allow_ids(ids)           # raw u64 ids -> BatchResult
+    out = lim.allow_batch(["a", "b"])  # string keys
+    lim.reset("a")
+
+Entry points run on the card unless asked for the CPU (``device="cpu"``),
+where the kernels' plain versions run.
+"""
+
+from ratelimiter_tpu_torch.core.types import Algorithm, Result, BatchResult
+from ratelimiter_tpu_torch.core.config import Config, SketchParams, DEFAULT_PREFIX
+from ratelimiter_tpu_torch.core.errors import (
+    RateLimiterError,
+    InvalidConfigError,
+    InvalidKeyError,
+    InvalidNError,
+    StorageUnavailableError,
+    ClosedError,
+)
+from ratelimiter_tpu_torch.core.clock import Clock, SystemClock, ManualClock
+from ratelimiter_tpu_torch.algorithms.base import RateLimiter
+from ratelimiter_tpu_torch.algorithms.factory import create_limiter
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Algorithm",
+    "Result",
+    "BatchResult",
+    "Config",
+    "SketchParams",
+    "DEFAULT_PREFIX",
+    "RateLimiterError",
+    "InvalidConfigError",
+    "InvalidKeyError",
+    "InvalidNError",
+    "StorageUnavailableError",
+    "ClosedError",
+    "Clock",
+    "SystemClock",
+    "ManualClock",
+    "RateLimiter",
+    "create_limiter",
+    "__version__",
+]

@@ -1,0 +1,111 @@
+"""The port's CUDA kernels and limiter on a card, against the plain
+versions on the same inputs (tolerance 0: bit-equal).
+
+Every test here carries the ``cuda`` marker and skips without a CUDA
+device. This file imports neither JAX nor the JAX package, so it runs on
+a GPU host without them; ``tests/conftest.py`` imports JAX, so run it
+there with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+The plain versions are held to the JAX package by the other
+``tests/test_torch_*.py`` files on the CPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from ratelimiter_tpu_torch import Algorithm, Config, ManualClock, SketchParams
+from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
+from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _slabs(rng, d, w, dev):
+    def slab(lo, hi):
+        return torch.from_numpy(
+            rng.integers(lo, hi, size=(d, w)).astype(np.int32)).to(dev)
+
+    return slab(-4, 4000), slab(-4, 4000), slab(-4, 40)
+
+
+@pytest.mark.parametrize("d,w,B", [(3, 128, 48), (4, 65536, 4096),
+                                   (1, 16, 1)])
+def test_kernels_bit_equal_to_plain(dev, d, w, B):
+    rng = np.random.default_rng(d * w + B)
+    totals, boundary, cur = _slabs(rng, d, w, dev)
+    h1 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B)).to(dev)
+    h2 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B) | 1).to(dev)
+    frac = torch.tensor(boundary_frac(100, 100 * 999_983 + 331_117, 999_983),
+                        dtype=torch.float32, device=dev)
+    sc.reset_launch_counts()
+    for bnd in (boundary, None):
+        est = sc.window_estimate(totals, bnd, frac, h1, h2)
+        assert torch.equal(est, sc.window_estimate_plain(totals, bnd, frac,
+                                                         h1, h2))
+        target = torch.clamp_min(est, 0.0) + 1.0
+        target[::3] = 0.0
+        a, c, a2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+        sc.cu_update(a, c, bnd, frac, h1, h2, target)
+        sc.cu_update_plain(a2, c2, bnd, frac, h1, h2, target)
+        assert torch.equal(a, a2) and torch.equal(c, c2)
+    add = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32)).to(dev)
+    a, c, a2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+    sc.add_update(a, c, h1, h2, add)
+    sc.add_update_plain(a2, c2, h1, h2, add)
+    torch.cuda.synchronize()
+    assert torch.equal(a, a2) and torch.equal(c, c2)
+    assert sc.launch_counts() == {"window_estimate": 2, "cu_update": 2,
+                                  "add_update": 1}
+
+
+def test_wrappers_refuse_mixed_devices(dev):
+    totals = torch.zeros((2, 64), dtype=torch.int32, device=dev)
+    h = torch.zeros(8, dtype=torch.int64)
+    with pytest.raises(ValueError, match="expected cuda"):
+        sc.window_estimate(totals, None, None, h, h)
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "FIXED_WINDOW"])
+@pytest.mark.parametrize("cu", [True, False])
+def test_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu):
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=7, window=6.0,
+                 sketch=SketchParams(depth=3, width=128, sub_windows=6,
+                                     conservative_update=cu))
+    gpu = SketchLimiter(cfg, ManualClock(1e6), device=dev)
+    cpu = SketchLimiter(cfg, ManualClock(1e6), device="cpu")
+    rng = np.random.default_rng(3)
+    for lim in (gpu, cpu):
+        lim.set_override("whale", 20)
+    for step in range(14):
+        ids = rng.integers(1, 24, size=48).astype(np.uint64)
+        ns = rng.integers(1, 3, size=48)
+        wire = bool(step % 2)
+        a = gpu.resolve(gpu.launch_ids(ids, ns, wire=wire))
+        b = cpu.resolve(cpu.launch_ids(ids, ns, wire=wire))
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        keys = ["whale"] * 6 + [f"k{i}" for i in range(6)]
+        for f in ("allowed", "remaining"):
+            np.testing.assert_array_equal(getattr(gpu.allow_batch(keys), f),
+                                          getattr(cpu.allow_batch(keys), f))
+        if step == 7:
+            gpu.reset("whale")
+            cpu.reset("whale")
+        gpu.clock.advance(0.75)
+        cpu.clock.advance(0.75)
+    ga, ca = gpu.capture_state()[1], cpu.capture_state()[1]
+    for k in ("cur", "slabs", "totals", "slab_period", "last_period"):
+        np.testing.assert_array_equal(ga[k], ca[k])
+    gpu.close()
+    cpu.close()

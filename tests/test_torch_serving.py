@@ -1,0 +1,184 @@
+"""The port's wire protocol and server against the JAX package's.
+
+The encoders must produce the same bytes as ratelimiter_tpu.serving.
+protocol for the same results; the in-process asyncio server must answer
+ALLOW_HASHED, ALLOW_BATCH, ALLOW_N, RESET and HEALTH frames with what an
+in-process limiter decides on the same trace; and importing every module
+of the port must load neither jax nor ratelimiter_tpu.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ratelimiter_tpu.core.types import BatchResult as JaxBatchResult
+from ratelimiter_tpu.core.types import Result as JaxResult
+from ratelimiter_tpu.serving import protocol as jp
+from ratelimiter_tpu_torch import Algorithm, Config, ManualClock, SketchParams
+from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
+from ratelimiter_tpu_torch.core.types import BatchResult, Result
+from ratelimiter_tpu_torch.serving import protocol as tp
+from ratelimiter_tpu_torch.serving.server import run_server
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _results(rng, n):
+    return [dict(allowed=bool(rng.random() < 0.5), limit=int(rng.integers(1, 500)),
+                 remaining=int(rng.integers(0, 500)),
+                 retry_after=float(rng.random() * 60),
+                 reset_at=1.7e9 + float(rng.random()), fail_open=bool(i == 3))
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("count", [0, 1, 7, 8, 13])
+def test_encoders_byte_identical_to_jax_protocol(count):
+    rng = np.random.default_rng(count)
+    rows = _results(rng, max(count, 1))
+    assert (tp.encode_result(5, Result(**rows[0]))
+            == jp.encode_result(5, JaxResult(**rows[0])))
+    assert (tp.encode_result_batch(6, 100, [Result(**r) for r in rows[:count]])
+            == jp.encode_result_batch(6, 100,
+                                      [JaxResult(**r) for r in rows[:count]]))
+    cols = dict(allowed=rng.random(count) < 0.5, limit=100,
+                remaining=rng.integers(0, 100, size=count).astype(np.int64),
+                retry_after=rng.random(count), reset_at=rng.random(count) + 1e9)
+    for fail_open in (False, True):
+        assert (tp.encode_result_hashed(7, BatchResult(**cols,
+                                                       fail_open=fail_open))
+                == jp.encode_result_hashed(7, JaxBatchResult(
+                    **cols, fail_open=fail_open)))
+    keys = [f"key-{i}-ключ" for i in range(count)]
+    ns = rng.integers(1, 9, size=count).tolist()
+    ids = rng.integers(0, 2 ** 63, size=count).astype(np.uint64)
+    assert (tp.encode_allow_batch(8, keys, ns)
+            == jp.encode_allow_batch(8, keys, ns))
+    assert (tp.encode_allow_hashed(9, ids, ns)
+            == jp.encode_allow_hashed(9, ids, ns))
+    assert tp.encode_allow_n(10, "k", 3) == jp.encode_allow_n(10, "k", 3)
+    assert tp.encode_reset(11, "k") == jp.encode_reset(11, "k")
+    assert tp.encode_ok(12) == jp.encode_ok(12)
+    assert (tp.encode_health(13, True, 1.5, 99)
+            == jp.encode_health(13, True, 1.5, 99))
+    assert (tp.encode_error(14, tp.E_INVALID_N, "bad n")
+            == jp.encode_error(14, jp.E_INVALID_N, "bad n"))
+    assert (tp.encode_simple(tp.T_HEALTH, 15)
+            == jp.encode_simple(jp.T_HEALTH, 15))
+
+
+@pytest.mark.parametrize("count", [5, 8, 21])
+def test_device_packed_hashed_reply_matches_jax_framing(count):
+    """A wire=True launch frames from the device-packed buffers; the bytes
+    equal the JAX encoder's for the same BatchResult."""
+    lim = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    ids = np.arange(count, dtype=np.uint64) % 3
+    res = lim.resolve(lim.launch_ids(ids, wire=True))
+    assert res.wire_packed is not None
+    plain = JaxBatchResult(allowed=res.allowed, limit=res.limit,
+                           remaining=res.remaining,
+                           retry_after=res.retry_after, reset_at=res.reset_at)
+    assert tp.encode_result_hashed(1, res) == jp.encode_result_hashed(1, plain)
+    lim.close()
+
+
+def _cfg():
+    return Config(algorithm=Algorithm.SLIDING_WINDOW, limit=5, window=6.0,
+                  sketch=SketchParams(depth=3, width=128, sub_windows=6))
+
+
+async def _roundtrip(reader, writer, frame):
+    writer.write(frame)
+    await writer.drain()
+    hdr = await reader.readexactly(tp.HEADER_SIZE)
+    length, type_, req_id = tp.parse_header(hdr)
+    return type_, req_id, await reader.readexactly(length - 9)
+
+
+def test_server_answers_frames_like_an_in_process_limiter():
+    served = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    mirror = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    rng = np.random.default_rng(1)
+
+    async def main():
+        srv = await run_server(served)
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        try:
+            for step in range(4):
+                ids = rng.integers(0, 20, size=64).astype(np.uint64)
+                ns = rng.integers(1, 3, size=64).astype(np.uint32)
+                t, rid, body = await _roundtrip(
+                    reader, writer, tp.encode_allow_hashed(step, ids, ns))
+                assert (t, rid) == (tp.T_RESULT_HASHED, step)
+                got = tp.parse_result_hashed(body)
+                want = mirror.allow_ids(ids, ns)
+                for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                    np.testing.assert_array_equal(getattr(got, f),
+                                                  getattr(want, f))
+                keys = [f"u{int(i)}" for i in rng.integers(0, 6, size=10)]
+                t, _, body = await _roundtrip(
+                    reader, writer, tp.encode_allow_batch(100 + step, keys,
+                                                          [1] * 10))
+                assert t == tp.T_RESULT_BATCH
+                assert tp.parse_result_batch(body) == mirror.allow_batch(
+                    keys).results()
+            t, _, body = await _roundtrip(reader, writer,
+                                          tp.encode_allow_n(200, "u1", 2))
+            assert tp.parse_result(body) == mirror.allow_n("u1", 2)
+            t, _, _ = await _roundtrip(reader, writer, tp.encode_reset(201, "u1"))
+            mirror.reset("u1")
+            assert t == tp.T_OK
+            t, _, body = await _roundtrip(reader, writer,
+                                          tp.encode_allow_n(202, "u1", 1))
+            assert tp.parse_result(body) == mirror.allow_n("u1", 1)
+            t, _, body = await _roundtrip(reader, writer,
+                                          tp.encode_simple(tp.T_HEALTH, 203))
+            serving, _, decisions = tp.parse_health(body)
+            assert t == tp.T_HEALTH_R and serving and decisions == 4 * 74 + 2
+            # A zero n is refused, and so is a traced frame.
+            t, _, body = await _roundtrip(reader, writer, tp.encode_allow_hashed(
+                204, np.arange(3, dtype=np.uint64), [1, 0, 1]))
+            assert t == tp.T_ERROR and tp.parse_error(body)[0] == tp.E_INVALID_N
+            traced = jp.with_trace(jp.encode_simple(jp.T_HEALTH, 205), 77)
+            t, _, body = await _roundtrip(reader, writer, traced)
+            assert (t == tp.T_ERROR
+                    and tp.parse_error(body)[0] == tp.E_INVALID_CONFIG)
+        finally:
+            writer.close()
+            await writer.wait_closed()
+            await srv.shutdown()
+
+    asyncio.run(main())
+    served.close()
+    mirror.close()
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, and chip_smoke.py, imported in a fresh
+    interpreter, leaves no jax/jaxlib/ratelimiter_tpu module loaded (exact
+    names or dotted children: ratelimiter_tpu_torch itself is fine)."""
+    code = r"""
+import importlib, importlib.util, pkgutil, sys
+import ratelimiter_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m.startswith("jaxlib.") or m == "ratelimiter_tpu"
+             or m.startswith("ratelimiter_tpu."))
+print(len(names), bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.split(" ", 1)
+    assert int(count) >= 15
+    assert bad.strip() == "[]"
