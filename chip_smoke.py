@@ -5,22 +5,33 @@
 
 Phases (each raises on failure; the script exits non-zero):
 
-1. build the port's CUDA kernels from ``ratelimiter_tpu_torch/csrc``;
-2. hold each kernel bit-equal to its plain PyTorch version at the
+1. build the port's CUDA kernels from ``ratelimiter_tpu_torch/csrc`` (one
+   nvcc per source, all started together);
+2. hold each kernel bit-equal to its plain PyTorch version and time
+   kernel, plain version and bound: the windowed sketch's three at the
    serving geometry of the repo's benchmark config 3 (sliding window,
    limit 100 per 60 s, 60 one-second sub-windows, count-min sketch d=4,
    w=65536, batches of 4096 ids drawn Zipf(1.1) over 1M keys), sliding and
-   fixed, and time kernel, plain version and bound;
-3. drive the main path end to end — ``create_limiter(...,
-   device="cuda")``, launch/resolve of config-3 traffic across sub-window
-   rollovers, with a policy override and a reset — and hold every result
-   and the final state bit-identical to the same trace on the CPU (the
-   plain versions, which the CPU tests hold to the JAX package); again
-   with conservative update off; every kernel's launch count must move;
-   then profile a short CU run (device busy share, top device ops);
-4. start the port's server on 127.0.0.1 and check its answers to
-   ALLOW_HASHED, ALLOW_BATCH and HEALTH frames against an in-process
-   limiter on the same trace;
+   fixed; the token bucket's two at d=4, w=65536, B=4096 on a debt slab
+   holding zeros, random debts and cells within 10^6 of 2^61, under three
+   decays;
+3. drive each main path end to end through ``create_limiter(...,
+   device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
+   override and a reset, and hold every result and the final state
+   bit-identical to the same trace on the CPU (the plain versions, which
+   the CPU tests hold to the JAX package). Each path's launch counts are
+   set to 0 just before it and read just after, and each of its kernels
+   must have launched. Windowed: config-3 traffic across sub-window
+   rollovers, with conservative update on and off, then a profile of a
+   short CU run. Token bucket: TB-c2, benchmark config 2's token-bucket
+   cell at its literal parameters (limit 20 per 10 s, 4096 string keys
+   per batch uniform over 10,000, +0.25 s per batch), and TB-zipf, config
+   3's traffic under a token bucket (limit 100 per 60 s, +0.1 s per
+   batch), then a profile of a short TB-zipf run;
+4. start the port's server on 127.0.0.1, once with the windowed limiter
+   and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
+   ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
+   the same trace;
 5. print the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -49,12 +60,18 @@ T0 = 1_700_000_000.0
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
+#: Benchmark config 2's token-bucket cell (benchmarks/configs.py:71-81).
+C2_LIMIT, C2_WINDOW_S, C2_KEYS, C2_ADVANCE = 20, 10.0, 10_000, 0.25
+
 KERNEL_ROWS = {
     "window_estimate": "ratelimiter_tpu/ops/pallas_sketch.py:144",
     "cu_update": "ratelimiter_tpu/ops/pallas_sketch.py:186",
     "add_update": "ratelimiter_tpu/ops/pallas_sketch.py:224",
+    "bucket_estimate": "ratelimiter_tpu/ops/pallas_sketch.py:270",
+    "bucket_update": "ratelimiter_tpu/ops/pallas_sketch.py:302",
 }
 SOURCE = "ratelimiter_tpu_torch/csrc/sketch_kernels.cu"
+BUCKET_SOURCE = "ratelimiter_tpu_torch/csrc/bucket_kernels.cu"
 
 
 def log(msg: str) -> None:
@@ -112,6 +129,52 @@ def config3(algorithm: str = "SLIDING_WINDOW", cu: bool = True):
                                       conservative_update=cu))
 
 
+def config2_bucket():
+    from ratelimiter_tpu_torch import Algorithm, Config, SketchParams
+
+    return Config(algorithm=Algorithm.TOKEN_BUCKET, limit=C2_LIMIT,
+                  window=C2_WINDOW_S,
+                  sketch=SketchParams(depth=DEPTH, width=WIDTH))
+
+
+def hold_equal(torch, err: dict, name: str, a, b) -> None:
+    """Record the largest |kernel - plain| of one output in ``err[name]``;
+    raise unless the two are bit-equal (the stated tolerance is 0)."""
+    torch.cuda.synchronize()
+    delta = a.double() - b.double() if a.is_floating_point() else a - b
+    diff = float(delta.abs().max())
+    err[name] = max(err[name], diff)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} differs from its plain version "
+                             f"(max abs err {diff})")
+
+
+def kernel_row(name, source, err, kern, plain, lib, nbytes, ops,
+               torch) -> dict:
+    """Time a kernel, its plain version and (where one exists) the one
+    PyTorch call computing the same function; bound = max(bytes over the
+    HBM rate, operations over the non-tensor peak)."""
+    ms = device_ms(kern, torch)
+    plain_ms = device_ms(plain, torch)
+    lib_ms = device_ms(lib, torch) if lib is not None else None
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    row = {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": KERNEL_ROWS[name], "launches": 0,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms, "bytes": nbytes,
+    }
+    log(f"time {name}: kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, library "
+        f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
+        f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+        f"{nbytes} B)")
+    return row
+
+
 # --------------------------------------------------------------- phase 2
 
 
@@ -149,15 +212,8 @@ def check_kernels(torch, seed: int) -> dict:
     err = {"window_estimate": 0.0, "cu_update": 0.0, "add_update": 0.0}
 
     def note(name, pairs):
-        """Record the largest |kernel - plain| over the outputs; raise
-        unless every output is bit-equal (the stated tolerance is 0)."""
         for a, b in pairs:
-            torch.cuda.synchronize()
-            diff = float((a.double() - b.double()).abs().max())
-            err[name] = max(err[name], diff)
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name} differs from its plain version "
-                                     f"(max abs err {diff})")
+            hold_equal(torch, err, name, a, b)
     for bnd in (boundary, None):
         mode = "sliding" if bnd is not None else "fixed"
         fr = frac if bnd is not None else None
@@ -220,24 +276,88 @@ def check_kernels(torch, seed: int) -> dict:
             2 * DEPTH * BATCH),
     }
     for name, (kern, plain, lib, nbytes, ops) in timing.items():
-        ms = device_ms(kern, torch)
-        plain_ms = device_ms(plain, torch)
-        lib_ms = device_ms(lib, torch) if lib is not None else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        rows[name] = {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": KERNEL_ROWS[name], "launches": 0,
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms, "bytes": nbytes, "touched_cells": touched,
-        }
-        log(f"time {name}: kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, library "
-            f"{'none' if lib_ms is None else f'{lib_ms * 1e3:.2f} us'}, "
-            f"bound {rows[name]['bound_ms'] * 1e3:.3f} us "
-            f"({rows[name]['bound_by']}, {nbytes} B)")
+        rows[name] = kernel_row(name, SOURCE, err[name], kern, plain, lib,
+                                nbytes, ops, torch)
+        rows[name]["touched_cells"] = touched
+    return rows
+
+
+def check_bucket_kernels(torch, seed: int) -> dict:
+    """The token bucket's kernels against their plain versions at d=4,
+    w=65536, B=4096 Zipf ids (repeated keys): a debt slab of zeros, random
+    debts and cells within 10^6 of 2^61 (some at the batch's own columns,
+    so the 2^61 clamp fires), decays of 0, a moderate value and more than
+    any cell; consumed holding zeros. Times and bounds at the moderate
+    decay. Launches made here do not count."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc, hashing
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    dev = torch.device("cuda")
+    cap = bc.DEBT_CAP
+    rng = np.random.default_rng(seed + 3)
+    ids = zipf_ids(rng, BATCH)
+    h1, h2 = hashing.split_hash_dev(
+        hashing.splitmix64_dev(hashing.u64_to_tensor(ids, dev)), 0x5bd1e995)
+    cols = sc._columns(h1, h2, DEPTH, WIDTH)
+
+    def slab():
+        x = rng.integers(0, 400_000_000, size=(DEPTH, WIDTH)).astype(np.int64)
+        x[rng.random((DEPTH, WIDTH)) < 0.4] = 0
+        hot = rng.random((DEPTH, WIDTH)) < 0.1
+        x[hot] = cap - rng.integers(0, 1_000_000, size=int(hot.sum()))
+        t = torch.from_numpy(x).to(dev)
+        t.scatter_(1, cols[:, :16], cap - 10)
+        return t
+
+    debt, acc = slab(), slab()
+    consumed = torch.from_numpy(np.where(
+        rng.random(BATCH) < 0.7, rng.integers(1, 3, size=BATCH) * 1_000_000,
+        0).astype(np.int64)).to(dev)
+    consumed[:16] = 1 << 41
+    touched = sum(int(torch.unique(cols[r]).numel()) for r in range(DEPTH))
+    cells = DEPTH * WIDTH
+    err = {"bucket_estimate": 0.0, "bucket_update": 0.0}
+
+    moderate = 3_333_337
+    for decay in (0, moderate, 1 << 62):
+        est = bc.bucket_estimate(debt, decay, h1, h2)
+        hold_equal(torch, err, "bucket_estimate", est,
+                   bc.bucket_estimate_plain(debt, decay, h1, h2))
+        got_d, got_a, ref_d, ref_a = (x.clone() for x in (debt, acc, debt,
+                                                          acc))
+        bc.bucket_update(got_d, got_a, decay, h1, h2, consumed)
+        bc.bucket_update_plain(ref_d, ref_a, decay, h1, h2, consumed)
+        hold_equal(torch, err, "bucket_update", got_d, ref_d)
+        hold_equal(torch, err, "bucket_update", got_a, ref_a)
+        log(f"kernels[bucket, decay {decay}]: bucket_estimate and "
+            f"bucket_update bit-equal to plain; {int((got_d == cap).sum())} "
+            f"debt and {int((got_a == cap).sum())} acc cells at 2^61, "
+            f"{int((got_d < debt).sum())} cells decayed")
+    d_buf, a_buf = debt.clone(), acc.clone()
+    timing = {
+        "bucket_estimate": (
+            lambda: bc.bucket_estimate(debt, moderate, h1, h2),
+            lambda: bc.bucket_estimate_plain(debt, moderate, h1, h2),
+            # h1, h2, est per key; debt per touched cell.
+            BATCH * (8 + 8 + 8) + touched * 8,
+            3 * DEPTH * BATCH),
+        "bucket_update": (
+            lambda: bc.bucket_update(d_buf, a_buf, moderate, h1, h2,
+                                     consumed),
+            lambda: bc.bucket_update_plain(d_buf, a_buf, moderate, h1, h2,
+                                           consumed),
+            # h1, h2, consumed per key; debt r+w at every cell (the decay
+            # reaches them all); acc r+w at the touched cells.
+            BATCH * (8 + 8 + 8) + cells * 16 + touched * 16,
+            3 * cells + 4 * DEPTH * BATCH),
+    }
+    rows = {}
+    for name, (kern, plain, nbytes, ops) in timing.items():
+        # No single PyTorch call computes either function (a decayed,
+        # clamped gather-min; a dense decay fused with a capped scatter).
+        rows[name] = kernel_row(name, BUCKET_SOURCE, err[name], kern, plain,
+                                None, nbytes, ops, torch)
+        rows[name]["touched_cells"] = touched
     return rows
 
 
@@ -245,97 +365,164 @@ def check_kernels(torch, seed: int) -> dict:
 
 
 def _trace(seed: int, steps: int):
-    """Config-3 traffic: per step 4096 Zipf ids; every 8th step a
-    string-key batch holding an overridden key; one reset mid-trace; the
-    clock advancing 0.1 s per step (one rollover every 10 steps)."""
+    """Config-3 traffic: per step 4096 Zipf ids, plus the string keys that
+    ``drive`` sends every 8th step (one of them overridden)."""
     rng = np.random.default_rng(seed)
     ids = zipf_ids(rng, (steps, BATCH))
     keys = [f"user:{int(k)}" for k in zipf_ids(rng, 256)] + ["tenant:whale"] * 64
-    return ids, keys
+    return list(ids), keys
 
 
-def drive(lim, ids, keys, *, inflight: int = 4):
-    """Run the trace through launch/resolve with up to ``inflight``
-    tickets outstanding; returns the BatchResults in launch order."""
+def _trace_c2(seed: int, steps: int):
+    """Config 2's traffic: per step 4096 string keys ``u:{i}``, i uniform
+    over 10,000 (benchmarks/configs.py:87-89)."""
+    rng = np.random.default_rng(seed)
+    batches = [[f"u:{int(i)}" for i in rng.integers(0, C2_KEYS, size=BATCH)]
+               for _ in range(steps)]
+    keys = [f"u:{int(i)}" for i in rng.integers(0, C2_KEYS, size=256)]
+    return batches, keys + ["tenant:whale"] * 64
+
+
+def drive(lim, batches, keys, *, advance: float = 0.1, inflight: int = 4):
+    """Run a trace through launch/resolve with up to ``inflight`` tickets
+    outstanding; returns the BatchResults in launch order. A batch is an
+    array of raw u64 ids (``launch_ids``, every other one wire-packed) or
+    a list of string keys (``launch_batch``); every 8th step also sends
+    ``keys``, one of which is overridden, and halfway through that key is
+    reset."""
     pending, out = [], []
     lim.set_override("tenant:whale", 40)
-    for step in range(ids.shape[0]):
-        if step == ids.shape[0] // 2:
+    for step, batch in enumerate(batches):
+        if step == len(batches) // 2:
             while pending:
                 out.append(lim.resolve(pending.pop(0)))
             lim.reset("tenant:whale")
         if step % 8 == 7:
             pending.append(lim.launch_batch(keys))
-        pending.append(lim.launch_ids(ids[step], wire=bool(step % 2)))
+        if isinstance(batch, list):
+            pending.append(lim.launch_batch(batch))
+        else:
+            pending.append(lim.launch_ids(batch, wire=bool(step % 2)))
         while len(pending) > inflight:
             out.append(lim.resolve(pending.pop(0)))
-        lim.clock.advance(0.1)
+        lim.clock.advance(advance)
     while pending:
         out.append(lim.resolve(pending.pop(0)))
     return out
 
 
-def check_main_path(torch, seed: int, steps: int, cu: bool) -> dict:
+def check_path(torch, name: str, cfg, batches, keys, advance: float,
+               counters, required, state_keys) -> dict:
+    """One main path on the card against the same trace on the CPU: every
+    result field and the final state bit-identical. ``counters`` are the
+    kernel modules whose launch counts are set to 0 just before the run
+    and read just after it; each kernel named in ``required`` must have
+    launched."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
-    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
-    cfg = config3(cu=cu)
-    ids, keys = _trace(seed, steps)
     gpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cuda")
     # Warm-up on a throwaway limiter (first-call costs), then the run.
     warm = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                           device="cuda")
-    drive(warm, ids[:4], keys)
+    drive(warm, batches[:4], keys, advance=advance)
     warm.close()
     torch.cuda.synchronize()
-    sc.reset_launch_counts()
+    for mod in counters:
+        mod.reset_launch_counts()
     t = time.perf_counter()
-    got = drive(gpu, ids, keys)
+    got = drive(gpu, batches, keys, advance=advance)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    counts = sc.launch_counts()
-    rollovers = int(gpu._host_period - int(T0 * 1e6) // gpu._sub_us)
-    _, gpu_arrays, _ = gpu.capture_state()
+    counts = {}
+    for mod in counters:
+        counts.update(mod.launch_counts())
+    _, gpu_arrays, extra = gpu.capture_state()
     gpu.close()
 
     cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cpu")
-    want = drive(cpu, ids, keys)
+    want = drive(cpu, batches, keys, advance=advance)
     _, cpu_arrays, _ = cpu.capture_state()
     cpu.close()
     if len(got) != len(want):
-        raise AssertionError("result count differs")
+        raise AssertionError(f"{name}: result count differs")
     decisions = 0
     for i, (a, b) in enumerate(zip(got, want)):
         for f in ("allowed", "remaining", "retry_after", "reset_at"):
-            if not np.array_equal(getattr(a, f), getattr(b, f)):
-                raise AssertionError(f"batch {i}: {f} differs from the CPU run")
+            x, y = getattr(a, f), getattr(b, f)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{name} batch {i}: {f} differs from "
+                                     f"the CPU run")
         if (a.limits is None) != (b.limits is None) or (
                 a.limits is not None and not np.array_equal(a.limits,
                                                             b.limits)):
-            raise AssertionError(f"batch {i}: limits differ")
+            raise AssertionError(f"{name} batch {i}: limits differ")
+        if not (np.isfinite(a.retry_after).all()
+                and np.isfinite(a.reset_at).all()
+                and (a.remaining >= 0).all()):
+            raise AssertionError(f"{name} batch {i}: malformed result")
         decisions += len(a)
-    for k in ("cur", "slabs", "totals", "slab_period", "last_period"):
+    for k in state_keys:
         if not np.array_equal(gpu_arrays[k], cpu_arrays[k]):
-            raise AssertionError(f"final state {k} differs from the CPU run")
+            raise AssertionError(f"{name}: final state {k} differs from the "
+                                 f"CPU run")
+    for k in required:
+        if counts[k] == 0:
+            raise AssertionError(f"{name}: {k} was not launched on the main "
+                                 f"path")
     denied = sum(int((~r.allowed).sum()) for r in got)
-    if rollovers < 3:
-        raise AssertionError(f"only {rollovers} rollovers")
-    log(f"main path (cu={cu}): {len(got)} batches, {decisions} decisions, "
-        f"{denied} denied, {rollovers} rollovers, bit-identical to the CPU "
-        f"run; launches {counts}; {len(got) / wall:.1f} steps/s, "
-        f"{decisions / wall:.0f} decisions/s (wall {wall:.3f} s, "
-        f"launch/resolve with 4 in flight)")
-    return {"counts": counts, "steps_per_s": len(got) / wall,
-            "decisions_per_s": decisions / wall, "wall_s": wall,
-            "batches": len(got), "decisions": decisions,
-            "rollovers": rollovers}
+    out = {"counts": counts, "steps_per_s": len(got) / wall,
+           "decisions_per_s": decisions / wall, "wall_s": wall,
+           "batches": len(got), "decisions": decisions, "denied": denied,
+           "extra": {k: v for k, v in extra.items() if k != "saved_at"}}
+    log(f"main path {name}: {len(got)} batches, {decisions} decisions, "
+        f"{denied} denied, bit-identical to the CPU run; launches {counts}; "
+        f"{out['steps_per_s']:.1f} steps/s, {out['decisions_per_s']:.0f} "
+        f"decisions/s (wall {wall:.3f} s, launch/resolve with 4 in flight)")
+    return out
 
 
-def profile_main_path(torch, seed: int, steps: int = 32) -> dict:
-    """Where a main-path step's time goes: ``torch.profiler`` over
-    ``steps`` CU batches after a warm-up. Device busy share is the union
+def check_main_path(torch, seed: int, steps: int, cu: bool) -> dict:
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    batches, keys = _trace(seed, steps)
+    out = check_path(torch, f"windowed cu={cu}", config3(cu=cu), batches,
+                     keys, 0.1, [sc],
+                     ("window_estimate", "cu_update") if cu
+                     else ("window_estimate", "add_update"),
+                     ("cur", "slabs", "totals", "slab_period", "last_period"))
+    sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
+    out["rollovers"] = int(out["extra"]["host_period"]
+                           - int(T0 * 1e6) // sub_us)
+    if out["rollovers"] < 3:
+        raise AssertionError(f"only {out['rollovers']} rollovers")
+    return out
+
+
+def check_bucket_path(torch, seed: int, cell: str, steps: int) -> dict:
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+
+    if cell == "TB-c2":
+        cfg = config2_bucket()
+        batches, keys = _trace_c2(seed, steps)
+        advance = C2_ADVANCE
+    else:
+        cfg = config3("TOKEN_BUCKET")
+        batches, keys = _trace(seed, steps)
+        advance = 0.1
+    out = check_path(torch, cell, cfg, batches, keys, advance, [bc],
+                     ("bucket_estimate", "bucket_update"),
+                     ("debt", "acc", "rem", "last"))
+    if cell == "TB-zipf" and out["denied"] == 0:
+        raise AssertionError("TB-zipf denied nothing: retry not exercised")
+    return out
+
+
+def profile_path(torch, name: str, cfg, batches, keys, advance: float,
+                 warm: int = 16) -> dict:
+    """Where a main-path step's time goes: ``torch.profiler`` over the
+    batches after ``warm`` warm-up ones. Device busy share is the union
     of device-op intervals over the span from the first to the last; the
     profiler's own overhead lengthens the span, so the share is a lower
     bound on what an unprofiled run keeps the card busy."""
@@ -343,14 +530,13 @@ def profile_main_path(torch, seed: int, steps: int = 32) -> dict:
 
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
-    ids, keys = _trace(seed, 16 + steps)
-    lim = create_limiter(config3(), backend="sketch", clock=ManualClock(T0),
+    lim = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cuda")
-    drive(lim, ids[:16], keys)
+    drive(lim, batches[:warm], keys, advance=advance)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        batches = len(drive(lim, ids[16:], keys))
+        n_batches = len(drive(lim, batches[warm:], keys, advance=advance))
         torch.cuda.synchronize()
     lim.close()
     dev = [e for e in prof.events()
@@ -371,13 +557,14 @@ def profile_main_path(torch, seed: int, steps: int = 32) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    out = {"batches": batches, "device_busy_share": busy / span,
-           "device_us_per_batch": busy / batches,
-           "device_ops_per_batch": len(dev) / batches,
-           "top_device_us_per_batch": {k[:60]: v / batches for k, v in top}}
-    log(f"profile: {batches} batches, device busy {out['device_busy_share']:.3f} "
-        f"of the span, {out['device_us_per_batch']:.1f} us of device work "
-        f"and {out['device_ops_per_batch']:.0f} device ops per batch; top: "
+    out = {"batches": n_batches, "device_busy_share": busy / span,
+           "device_us_per_batch": busy / n_batches,
+           "device_ops_per_batch": len(dev) / n_batches,
+           "top_device_us_per_batch": {k[:60]: v / n_batches for k, v in top}}
+    log(f"profile {name}: {n_batches} batches, device busy "
+        f"{out['device_busy_share']:.3f} of the span, "
+        f"{out['device_us_per_batch']:.1f} us of device work and "
+        f"{out['device_ops_per_batch']:.0f} device ops per batch; top: "
         + ", ".join(f"{k} {v:.1f} us" for k, v in
                     out["top_device_us_per_batch"].items()))
     return out
@@ -386,12 +573,14 @@ def profile_main_path(torch, seed: int, steps: int = 32) -> dict:
 # --------------------------------------------------------------- phase 4
 
 
-def check_server(torch, seed: int) -> None:
+def check_server(torch, seed: int, cfg, label: str) -> None:
+    """A server on 127.0.0.1:0 serving a limiter of ``cfg`` on the card
+    answers ALLOW_HASHED, ALLOW_BATCH, RESET, ALLOW_N and HEALTH frames as
+    an in-process mirror limiter decides the same trace."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
     from ratelimiter_tpu_torch.serving import protocol as p
     from ratelimiter_tpu_torch.serving.server import run_server
 
-    cfg = config3()
     served = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                             device="cuda")
     mirror = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
@@ -425,10 +614,19 @@ def check_server(torch, seed: int) -> None:
                 if (t != p.T_RESULT_BATCH or p.parse_result_batch(body)
                         != mirror.allow_batch(keys).results()):
                     raise AssertionError("server ALLOW_BATCH differs")
+            t, _ = await roundtrip(reader, writer, p.encode_reset(20, "user:1"))
+            mirror.reset("user:1")
+            if t != p.T_OK:
+                raise AssertionError(f"RESET answered type {t}")
+            t, body = await roundtrip(reader, writer,
+                                      p.encode_allow_n(21, "user:1", 3))
+            if t != p.T_RESULT or p.parse_result(body) != mirror.allow_n(
+                    "user:1", 3):
+                raise AssertionError("server ALLOW_N after RESET differs")
             t, body = await roundtrip(reader, writer,
                                       p.encode_simple(p.T_HEALTH, 99))
             serving, _, decisions = p.parse_health(body)
-            if t != p.T_HEALTH_R or not serving or decisions != 4 * 1088:
+            if t != p.T_HEALTH_R or not serving or decisions != 4 * 1088 + 1:
                 raise AssertionError(f"bad HEALTH answer {serving} {decisions}")
         finally:
             writer.close()
@@ -438,8 +636,9 @@ def check_server(torch, seed: int) -> None:
     asyncio.run(main())
     served.close()
     mirror.close()
-    log("server: ALLOW_HASHED x4 (1024 ids), ALLOW_BATCH x4 (64 keys) and "
-        "HEALTH answered, matching an in-process limiter")
+    log(f"server[{label}]: ALLOW_HASHED x4 (1024 ids), ALLOW_BATCH x4 (64 "
+        f"keys), RESET, ALLOW_N and HEALTH answered, matching an "
+        f"in-process limiter")
 
 
 def main(argv=None) -> int:
@@ -453,31 +652,44 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from ratelimiter_tpu_torch.ops import _build, sketch_cuda
+    from ratelimiter_tpu_torch.ops import _build, bucket_cuda, sketch_cuda
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
-    _build.build_all(["sketch_kernels"])
+    _build.build_all(["sketch_kernels", "bucket_kernels"])
     sketch_cuda.build()
+    bucket_cuda.build()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
     rows = check_kernels(torch, args.seed)
+    rows.update(check_bucket_kernels(torch, args.seed))
     cu = check_main_path(torch, args.seed, args.steps, cu=True)
     vanilla = check_main_path(torch, args.seed + 7, max(32, args.steps // 2),
                               cu=False)
-    for name, need in (("window_estimate", cu), ("cu_update", cu),
-                       ("add_update", vanilla)):
-        if need["counts"][name] == 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    tb_c2 = check_bucket_path(torch, args.seed + 11, "TB-c2", args.steps)
+    tb_zipf = check_bucket_path(torch, args.seed + 13, "TB-zipf",
+                                max(32, args.steps // 2))
     for name in rows:
-        rows[name]["launches"] = cu["counts"][name] + vanilla["counts"][name]
-    prof = profile_main_path(torch, args.seed)
-    check_server(torch, args.seed)
+        rows[name]["launches"] = sum(run["counts"].get(name, 0) for run in
+                                     (cu, vanilla, tb_c2, tb_zipf))
+    log(f"main paths on {card}: " + "; ".join(
+        f"{label} {run['steps_per_s']:.1f} steps/s, "
+        f"{run['decisions_per_s']:.0f} decisions/s"
+        for label, run in (("windowed CU", cu), ("windowed vanilla", vanilla),
+                           ("TB-c2", tb_c2), ("TB-zipf", tb_zipf))))
+    batches, keys = _trace(args.seed, 48)
+    prof = profile_path(torch, "windowed cu=True", config3(), batches, keys,
+                        0.1)
+    prof_tb = profile_path(torch, "TB-zipf", config3("TOKEN_BUCKET"),
+                           batches, keys, 0.1)
+    check_server(torch, args.seed, config3(), "windowed")
+    check_server(torch, args.seed, config2_bucket(), "TB-c2")
 
-    log(json.dumps({"main_path": {"card": card, "cu": cu,
-                                  "vanilla": vanilla, "profile": prof}}))
+    log(json.dumps({"main_path": {
+        "card": card, "cu": cu, "vanilla": vanilla, "profile": prof,
+        "TB-c2": tb_c2, "TB-zipf": tb_zipf, "profile_TB-zipf": prof_tb}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 A second package beside the JAX one, which stays the reference: the same
 ``Config``, the same operands and the same results, bit for bit. It
 imports ``torch`` and NumPy, never ``jax`` and nothing of
-``ratelimiter_tpu`` (the host modules it needs are copied in). The three
-table kernels of the windowed sketch step are hand-written CUDA for
-Hopper (``csrc/``); everything else is plain PyTorch.
+``ratelimiter_tpu`` (the host modules it needs are copied in). The table
+kernels of the windowed sketch step and of the sketched token bucket's
+are hand-written CUDA for Hopper (``csrc/``); everything else is plain
+PyTorch.
 
     from ratelimiter_tpu_torch import Algorithm, Config, create_limiter
 

@@ -1,1 +1,2 @@
-"""Limiter backends of the port (the windowed sketch in this slice)."""
+"""Limiter backends of the port (the windowed sketch and the sketched token
+bucket)."""

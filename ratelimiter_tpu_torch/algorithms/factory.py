@@ -1,10 +1,10 @@
 """Limiter factory — the port's constructor seam.
 
 The JAX package's ``create_limiter`` selects among exact, dense, sketch
-and mesh backends. This slice ports the windowed sketch only:
-``backend="sketch"`` with a SLIDING_WINDOW, FIXED_WINDOW or TPU_SKETCH
-config. Every other backend raises InvalidConfigError naming its ROADMAP
-item.
+and mesh backends. The port serves ``backend="sketch"``: the windowed
+sketch for a SLIDING_WINDOW, FIXED_WINDOW or TPU_SKETCH config, the
+sketched token bucket for a TOKEN_BUCKET one. Every other backend raises
+InvalidConfigError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from ratelimiter_tpu_torch.algorithms.base import RateLimiter
 from ratelimiter_tpu_torch.core.clock import Clock
 from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import InvalidConfigError
+from ratelimiter_tpu_torch.core.types import Algorithm
 
 BACKENDS = ("sketch",)
 
@@ -34,6 +35,12 @@ def create_limiter(config: Config, backend: str = "sketch",
     CPU with the kernels' plain versions). No I/O happens until the first
     decision."""
     if backend == "sketch":
+        if config.algorithm is Algorithm.TOKEN_BUCKET:
+            from ratelimiter_tpu_torch.algorithms.sketch import (
+                SketchTokenBucketLimiter,
+            )
+
+            return SketchTokenBucketLimiter(config, clock, device=device)
         from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
 
         return SketchLimiter(config, clock, device=device)

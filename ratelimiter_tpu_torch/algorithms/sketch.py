@@ -1,10 +1,15 @@
-"""SketchLimiter: the windowed count-min-sketch backend on PyTorch.
+"""The count-min-sketch backends on PyTorch.
 
-A port of the windowed ``SketchLimiter`` of
-``ratelimiter_tpu/algorithms/sketch.py``: approximate sliding- (or fixed-)
-window rate limiting over a count-min sketch with sub-window decay
-(ops/sketch_kernels.py). Memory is depth x width x ring counters,
-independent of key cardinality; collisions can only cause false denies.
+Ports of ``ratelimiter_tpu/algorithms/sketch.py``:
+
+* ``SketchLimiter``: approximate sliding- (or fixed-) window rate limiting
+  over a count-min sketch with sub-window decay (ops/sketch_kernels.py).
+  Memory is depth x width x ring counters, independent of key cardinality;
+* ``SketchTokenBucketLimiter``: TOKEN_BUCKET over a count-min sketch of
+  per-key debt (ops/bucket_kernels.py), sharing the windowed limiter's
+  shell and swapping its step, reset and result assembly.
+
+Collisions can only cause false denies in either.
 
 The hot path is split as in the JAX package:
 
@@ -21,11 +26,13 @@ steps in launch order, where the JAX package threads donated buffers.
 On ``device="cpu"`` (the tests) the same code runs eagerly on the CPU
 with the kernels' plain versions.
 
-Not ported in this slice (constructing such a config raises
-InvalidConfigError naming the ROADMAP item): the token bucket (A5), the
-heavy-hitter side table and the hierarchy (A6). The accuracy-envelope
-watchdog (mass budget, ``overload_policy``) is not ported either, so the
-"strict" policy is refused rather than silently ignored.
+Not ported yet (constructing such a config raises InvalidConfigError
+naming the ROADMAP item): the heavy-hitter side table and the hierarchy
+(A6). The windowed accuracy-envelope watchdog (mass budget,
+``overload_policy``) is not ported either, so the windowed limiter refuses
+the "strict" policy rather than silently ignoring it (the bucket has no
+watchdog in either package and ignores it). Neither limiter ports
+``update_limit``/``update_window``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import numpy as np
 import torch
 
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter, check_key, check_n
-from ratelimiter_tpu_torch.core.clock import Clock, to_micros
+from ratelimiter_tpu_torch.core.clock import MICROS, Clock, to_micros
 from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import (
     InvalidConfigError,
@@ -49,7 +56,7 @@ from ratelimiter_tpu_torch.core.types import (
     Result,
     batch_fail_open,
 )
-from ratelimiter_tpu_torch.ops import sketch_kernels
+from ratelimiter_tpu_torch.ops import bucket_kernels, sketch_kernels
 from ratelimiter_tpu_torch.ops.hashing import (
     hash_prefixed_u64,
     split_hash,
@@ -91,21 +98,32 @@ class SketchLimiter(RateLimiter):
             raise InvalidConfigError(
                 "overload_policy='strict' needs the mass-budget watchdog, "
                 "which is not ported yet")
-        self._device = resolve_device(device)
-        self._cuda = self._device.type == "cuda"
+        self._init_device(device)
         self._step = sketch_kernels.build_hashed_step(self.config)
         self._ids_step = sketch_kernels.build_hashed_step(self.config,
                                                           premix=True)
         _, self._reset_step, self._rollover = sketch_kernels.build_steps(
             self.config)
         self._state = sketch_kernels.init_state(self.config, self._device)
-        self._window_us = to_micros(self.config.window)
         self._sub_us = sketch_kernels.sketch_geometry(self.config)[1]
-        self._seed = self.config.sketch.seed
-        self._lock = threading.Lock()
         # Host mirror of state["last_period"]: drives rollover dispatches
         # and names the boundary slab (sketch_kernels module docstring).
         self._host_period = sketch_kernels._NEVER
+        self._init_policy()
+
+    def _init_device(self, device) -> None:
+        """The shell both sketch limiters share: device, hashing seed,
+        window and the dispatch lock."""
+        self._device = resolve_device(device)
+        self._cuda = self._device.type == "cuda"
+        self._window_us = to_micros(self.config.window)
+        self._seed = self.config.sketch.seed
+        self._lock = threading.Lock()
+
+    def _init_policy(self) -> None:
+        """Per-key limit overrides, resolved in the step; window scaling
+        is impossible on a shared sketch geometry, so only limits
+        override."""
         from ratelimiter_tpu_torch.policy import PolicyTable
 
         self._policy_table = PolicyTable(
@@ -164,6 +182,18 @@ class SketchLimiter(RateLimiter):
             self._rollover(self._state, p)
             self._host_period = p
 
+    def _step_kw(self) -> dict:
+        """Keyword operands of the step and reset callables: the windowed
+        ones read their period from the host mirror. Lock must be held."""
+        return {"period": self._host_period}
+
+    def _launch_finish(self, outs, now_us: int):
+        """Queue the result assembly behind the step (windowed form:
+        retry-after is the time to the window reset)."""
+        allowed, remaining, _est = outs
+        return sketch_kernels.finish_window(allowed, remaining, now_us,
+                                            self._window_us)
+
     # ------------------------------------------------------------ dispatch
 
     def _stage(self, arr: np.ndarray, dtype: np.dtype) -> torch.Tensor:
@@ -189,9 +219,8 @@ class SketchLimiter(RateLimiter):
             step = self._ids_step if premix else self._step
             h_dev = self._stage(h64p.view(np.int64), np.int64)
             n_dev = self._stage(nsp, np.int32)
-            allowed, remaining, _est = step(
-                self._state, h_dev, n_dev, now_us, self._policy_device(),
-                period=self._host_period)
+            outs = step(self._state, h_dev, n_dev, now_us,
+                        self._policy_device(), **self._step_kw())
             # Inside the lock: a concurrent set/delete_override rebuilds
             # the table's sorted views.
             if premix:
@@ -199,8 +228,7 @@ class SketchLimiter(RateLimiter):
                           if len(self._policy_table) else None)
             else:
                 limits = self._policy_limits(h64)
-        outs = sketch_kernels.finish_window(allowed, remaining, now_us,
-                                            self._window_us)
+        outs = self._launch_finish(outs, now_us)
         if wire:
             outs = sketch_kernels.pack_wire(*outs)
         t = DispatchTicket()
@@ -361,7 +389,7 @@ class SketchLimiter(RateLimiter):
                 self._state,
                 self._stage(h1.astype(np.int64), np.int64),
                 self._stage(h2.astype(np.int64), np.int64),
-                now_us, period=self._host_period)
+                now_us, **self._step_kw())
 
     def _close(self) -> None:
         self._state = {}
@@ -369,33 +397,43 @@ class SketchLimiter(RateLimiter):
     # ------------------------------------------------- state carried across
 
     _CKPT_KIND = "sketch"
+    #: Host mirrors that ride ``extra`` (each ``key`` mirrors ``self._key``):
+    #: the windowed step reads its period from the host.
+    _EXTRA_KEYS: tuple = ("host_period",)
 
     def capture_state(self):
         """``(kind, arrays, extra)`` in the JAX package's capture format:
         the state slabs as NumPy arrays plus the ``policy_*`` columns, and
-        ``host_period`` in extra. convert.py carries it across packages."""
+        (windowed) ``host_period`` in extra. convert.py carries it across
+        packages."""
         from ratelimiter_tpu_torch.convert import state_to_numpy
 
         self._check_open()
         with self._lock:
             arrays = state_to_numpy(self._state)
             arrays.update(self._policy_table.snapshot_arrays())
-            extra = {"saved_at": self.clock.now(),
-                     "host_period": int(self._host_period)}
+            extra = {"saved_at": self.clock.now()}
+            extra.update((k, int(getattr(self, "_" + k)))
+                         for k in self._EXTRA_KEYS)
         return self._CKPT_KIND, arrays, extra
 
     def restore_state(self, arrays: dict, extra: dict) -> None:
         """Replace state and overrides with captured ``arrays`` (from
-        either package's ``capture_state``); ``extra["host_period"]`` is
-        required, since the step reads its period from the host."""
+        either package's ``capture_state``) of this limiter's kind; the
+        host mirrors named in ``_EXTRA_KEYS`` are required in ``extra``."""
         from ratelimiter_tpu_torch.convert import state_from_numpy
 
         self._check_open()
-        if "host_period" not in extra:
-            raise InvalidConfigError("restore needs extra['host_period']")
+        for k in self._EXTRA_KEYS:
+            if k not in extra:
+                raise InvalidConfigError(f"restore needs extra[{k!r}]")
         arrays = dict(arrays)
         with self._lock:
             state = state_from_numpy(arrays, self._device)
+            if set(state) != set(self._state):
+                raise InvalidConfigError(
+                    f"state arrays {sorted(state)} do not fit this "
+                    f"limiter's {sorted(self._state)}")
             for k, v in state.items():
                 if tuple(v.shape) != tuple(self._state[k].shape):
                     raise InvalidConfigError(
@@ -405,4 +443,83 @@ class SketchLimiter(RateLimiter):
             self._policy_table.restore_arrays(arrays)
             self._policy_dev = None
             self._state = state
-            self._host_period = int(extra["host_period"])
+            for k in self._EXTRA_KEYS:
+                setattr(self, "_" + k, int(extra[k]))
+
+
+class SketchTokenBucketLimiter(SketchLimiter):
+    """TOKEN_BUCKET at unbounded key cardinality: a count-min sketch over
+    per-key *debt* (ops/bucket_kernels.py — the GCRA meter form of the
+    reference's ``tokenbucket.go:23-52``). Continuous fractional refill,
+    burst up to ``limit``, denial consumes nothing; overestimated debt can
+    only cause false denies, never over-admission.
+
+    Shares the SketchLimiter shell (hashing, padding, staging, locking,
+    launch/resolve, fail-open) and swaps the step, the reset and the result
+    assembly: no sub-window ring, no rollover — the decay is inside the
+    step, computed on the host from the state's host scalars."""
+
+    #: No ring, so no period (the JAX package records none either); the
+    #: decay's scalars ``rem`` and ``last`` are state arrays.
+    _EXTRA_KEYS = ()
+
+    def __init__(self, config: Config, clock: Optional[Clock] = None, *,
+                 device="cuda"):
+        RateLimiter.__init__(self, config, clock)
+        self._init_device(device)
+        self._step = bucket_kernels.build_hashed_step(self.config)
+        self._ids_step = bucket_kernels.build_hashed_step(self.config,
+                                                          premix=True)
+        _, self._reset_step = bucket_kernels.build_steps(self.config)
+        self._state = bucket_kernels.init_state(self.config, self._device)
+        self._init_policy()
+
+    def _policy_validate(self, limit: int, _window_us: int) -> None:
+        # Admission runs exact int64 micro-token cumsums: the same gate as
+        # the config's micro-unit accounting.
+        if limit * MICROS >= 2**42:
+            raise InvalidConfigError(
+                f"override limit {limit} too large for micro-unit batch "
+                "accounting (>= 2^42/1e6)")
+
+    def _sync_period(self, now_us: int) -> None:
+        """No ring, no rollover: the decay happens inside every step."""
+
+    def _step_kw(self) -> dict:
+        return {}
+
+    def _launch_finish(self, outs, now_us: int):
+        """Token-bucket result assembly: retry-after = deficit / refill
+        rate, computed exactly by the step; reset_at = now + window."""
+        allowed, remaining, retry_us = outs
+        return bucket_kernels.finish_bucket(allowed, remaining, retry_us,
+                                            now_us, self._window_us)
+
+    def debt_slab_stats(self) -> dict:
+        """Occupancy/collision visibility for the debt slab, as the JAX
+        package's: per row, the cells whose EFFECTIVE debt is positive
+        (stored debt above the decay the next step would apply), reduced
+        on the device so only ``d`` scalars come back. ``occupancy`` is
+        the max over rows; ``collision_p`` the product over rows — the
+        chance a fresh key lands on an occupied cell in every row, which
+        it takes for the min-over-rows read to overestimate its debt."""
+        d, w = self.config.sketch.depth, self.config.sketch.width
+        _, num, den = bucket_kernels._check_gates(self.config)
+        now_us = to_micros(self.clock.now())
+        with self._lock:
+            # Enqueued under the lock, so the reduction sees the state as
+            # of every launch before it (stream order), and no later one.
+            decay, _ = bucket_kernels._decay(self._state, now_us,
+                                             rate_num=num, rate_den=den)
+            live = (self._state["debt"] > decay).sum(1)
+        live_rows = live.cpu().numpy()
+        occ_rows = live_rows / float(w)
+        return {
+            "depth": int(d),
+            "width": int(w),
+            "cells": int(d * w),
+            "nonzero_cells": int(live_rows.sum()),
+            "occupancy_rows": [round(float(o), 6) for o in occ_rows],
+            "occupancy": round(float(occ_rows.max(initial=0.0)), 6),
+            "collision_p": round(float(np.prod(occ_rows)), 9),
+        }

@@ -13,13 +13,21 @@ never over-admits:
 3. keep only requests that fit under the final mask's own consumption,
    intersected with that mask.
 
-The JAX package runs the segment cumsum in f32 while the batch total is
-below 2^24 and otherwise in int32 through MXU limbs (``ops/scans.py``, a
-TPU cost trick). Both give the exact integer sums, so the port takes one
-exact int64 cumsum for every batch and casts the segment-relative value
-to f32 as the JAX exact path does; the comparisons that follow run in
-f32 exactly as there. ``ops/scans.py`` and ``ops/sortmerge.py`` are not
-ported: off the TPU the reference takes the direct-gather regime.
+Two dtypes of quantity, as in the JAX package:
+
+* f32 request counts (the windowed sketch). The JAX package runs the
+  segment cumsum in f32 while the batch total is below 2^24 and otherwise
+  in int32 through MXU limbs (``ops/scans.py``, a TPU cost trick). Both
+  give the exact integer sums, so the port takes one exact int64 cumsum
+  for every batch and casts the segment-relative value to f32 as the JAX
+  exact path does; the comparisons that follow run in f32 exactly as there.
+* int64 micro-units (the token bucket, 1 token = 10^6 units). The cumsum,
+  the comparisons, ``seen`` and ``consumed`` all stay int64, exact, as the
+  JAX package's integer branch. (Nothing here may promote them to a float:
+  f32 would round units past 2^24 and shift ``seen`` silently.)
+
+``ops/scans.py`` and ``ops/sortmerge.py`` are not ported: off the TPU the
+reference takes the direct-gather regime.
 """
 
 from __future__ import annotations
@@ -29,8 +37,9 @@ import torch
 
 def _segment_exclusive_cumsum(x: torch.Tensor,
                               seg_head: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumsum of non-negative integer-valued f32 ``x`` restarting
-    at each segment head, returned as f32. The global exclusive cumsum is
+    """Exclusive cumsum of non-negative integer-valued ``x`` (f32 or int64)
+    restarting at each segment head, in int64, returned in ``x``'s dtype.
+    The global exclusive cumsum is
     non-decreasing, so the running max of its head-masked values is each
     element's segment-head value."""
     xi = x.to(torch.int64)
@@ -45,12 +54,13 @@ def admit(sid: torch.Tensor, n_units: torch.Tensor, avail_units: torch.Tensor,
 
     Args:
         sid: int64[B] segment id per request (only equality matters).
-        n_units: f32[B] requested amount, integer-valued (0 = padding).
-        avail_units: f32[B] per-request available quota.
+        n_units: [B] requested amount, integer-valued (0 = padding): f32
+            request counts or int64 micro-units.
+        avail_units: [B] per-request available quota, in n_units' dtype.
         iters: fixpoint iterations.
 
-    Returns (in original request order) ``(allowed bool[B], seen f32[B],
-    consumed f32[B])``: ``seen`` is the free quota request i sees after
+    Returns (in original request order) ``(allowed bool[B], seen [B],
+    consumed [B])``, both in n_units' dtype: ``seen`` is the free quota request i sees after
     earlier allowed same-segment requests, before its own.
     """
     order = torch.sort(sid, stable=True).indices
@@ -62,19 +72,19 @@ def admit(sid: torch.Tensor, n_units: torch.Tensor, avail_units: torch.Tensor,
 
     allowed = torch.ones_like(seg_head)
     for _ in range(iters):
-        cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0.0),
+        cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0),
                                          seg_head)
         allowed = cons + nn <= av
     # Safety intersection: a subset of the last mask, checked against that
     # mask's own consumption -> never over-admits.
-    cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0.0), seg_head)
+    cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0), seg_head)
     allowed = allowed & (cons + nn <= av)
-    cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0.0), seg_head)
+    cons = _segment_exclusive_cumsum(torch.where(allowed, nn, 0), seg_head)
     seen = av - cons
 
     allowed_o = torch.empty_like(allowed)
     allowed_o[order] = allowed
     seen_o = torch.empty_like(seen)
     seen_o[order] = seen
-    consumed_o = torch.where(allowed_o, n_units, 0.0)
+    consumed_o = torch.where(allowed_o, n_units, 0)
     return allowed_o, seen_o, consumed_o

@@ -62,8 +62,9 @@ def sketch_geometry(cfg: Config) -> tuple[int, int, int, int, int]:
     that is <= the requested sketch.sub_windows."""
     if cfg.algorithm is Algorithm.TOKEN_BUCKET:
         raise InvalidConfigError(
-            "the sketched token bucket is not ported yet (ROADMAP A5); "
-            "the windowed sketch cannot serve a TOKEN_BUCKET config")
+            "the windowed sketch cannot serve a TOKEN_BUCKET config; "
+            "the sketched token bucket (SketchTokenBucketLimiter, "
+            "ops/bucket_kernels.py) does")
     if cfg.limit >= (1 << 24):
         raise InvalidConfigError(
             f"sketch backend requires limit < 2**24, got {cfg.limit}")

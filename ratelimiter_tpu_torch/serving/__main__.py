@@ -1,7 +1,9 @@
 """Server binary: ``python -m ratelimiter_tpu_torch.serving``.
 
-Serves the windowed count-min sketch on the card (``--device cuda``, the
-default; ``--device cpu`` runs the kernels' plain versions). Prints a line
+Serves a count-min-sketch limiter on the card (``--device cuda``, the
+default; ``--device cpu`` runs the kernels' plain versions): the windowed
+sketch, or with ``--algorithm token_bucket`` the sketched token bucket
+(``--sub-windows`` and ``--no-conservative-update`` do not apply to it). Prints a line
 starting with ``serving`` once it listens; SIGINT/SIGTERM stop it.
 """
 
@@ -14,7 +16,8 @@ import signal
 from ratelimiter_tpu_torch import Algorithm, Config, SketchParams, create_limiter
 from ratelimiter_tpu_torch.serving.server import RateLimitServer
 
-_ALGORITHMS = ("sliding_window", "fixed_window", "tpu_sketch")
+_ALGORITHMS = ("sliding_window", "fixed_window", "tpu_sketch",
+               "token_bucket")
 
 
 def parse_args(argv=None) -> argparse.Namespace:

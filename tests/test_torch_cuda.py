@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from ratelimiter_tpu_torch import Algorithm, Config, ManualClock, SketchParams
-from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
+from ratelimiter_tpu_torch.algorithms.sketch import (
+    SketchLimiter,
+    SketchTokenBucketLimiter,
+)
+from ratelimiter_tpu_torch.ops import bucket_cuda as bc
 from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
 
@@ -107,5 +111,72 @@ def test_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu):
     ga, ca = gpu.capture_state()[1], cpu.capture_state()[1]
     for k in ("cur", "slabs", "totals", "slab_period", "last_period"):
         np.testing.assert_array_equal(ga[k], ca[k])
+    gpu.close()
+    cpu.close()
+
+
+@pytest.mark.parametrize("d,w,B", [(3, 128, 48), (4, 65536, 4096),
+                                   (1, 16, 1)])
+def test_bucket_kernels_bit_equal_to_plain(dev, d, w, B):
+    """Debt holding zeros, random values and cells within 10^6 of 2^61;
+    repeated keys; decays of 0, a moderate value and more than any cell."""
+    rng = np.random.default_rng(d * w + B + 1)
+    cap = bc.DEBT_CAP
+
+    def slab():
+        x = rng.integers(0, 40_000_000, size=(d, w)).astype(np.int64)
+        x[rng.random((d, w)) < 0.3] = 0
+        hot = rng.random((d, w)) < 0.2
+        x[hot] = cap - rng.integers(0, 1_000_000, size=int(hot.sum()))
+        return torch.from_numpy(x).to(dev)
+
+    debt, acc = slab(), slab()
+    h1 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B)).to(dev)
+    h2 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B) | 1).to(dev)
+    h1[: B // 2] = h1[B // 2: 2 * (B // 2)]
+    h2[: B // 2] = h2[B // 2: 2 * (B // 2)]
+    consumed = torch.from_numpy(np.where(
+        rng.random(B) < 0.7, rng.integers(1, 1 << 42, size=B), 0)).to(dev)
+    bc.reset_launch_counts()
+    for decay in (0, 3_333_337, 1 << 62):
+        est = bc.bucket_estimate(debt, decay, h1, h2)
+        assert torch.equal(est, bc.bucket_estimate_plain(debt, decay, h1, h2))
+        a, c, a2, c2 = debt.clone(), acc.clone(), debt.clone(), acc.clone()
+        bc.bucket_update(a, c, decay, h1, h2, consumed)
+        bc.bucket_update_plain(a2, c2, decay, h1, h2, consumed)
+        torch.cuda.synchronize()
+        assert torch.equal(a, a2) and torch.equal(c, c2)
+    assert bc.launch_counts() == {"bucket_estimate": 3, "bucket_update": 3}
+
+
+def test_bucket_limiter_on_card_equals_limiter_on_cpu(dev):
+    cfg = Config(algorithm=Algorithm.TOKEN_BUCKET, limit=7, window=6.0,
+                 sketch=SketchParams(depth=3, width=128))
+    gpu = SketchTokenBucketLimiter(cfg, ManualClock(1e6), device=dev)
+    cpu = SketchTokenBucketLimiter(cfg, ManualClock(1e6), device="cpu")
+    rng = np.random.default_rng(4)
+    for lim in (gpu, cpu):
+        lim.set_override("whale", 20)
+    for step in range(14):
+        ids = rng.integers(1, 24, size=48).astype(np.uint64)
+        ns = rng.integers(1, 3, size=48)
+        wire = bool(step % 2)
+        a = gpu.resolve(gpu.launch_ids(ids, ns, wire=wire))
+        b = cpu.resolve(cpu.launch_ids(ids, ns, wire=wire))
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        keys = ["whale"] * 6 + [f"k{i}" for i in range(6)]
+        for f in ("allowed", "remaining", "retry_after"):
+            np.testing.assert_array_equal(getattr(gpu.allow_batch(keys), f),
+                                          getattr(cpu.allow_batch(keys), f))
+        if step == 7:
+            gpu.reset("whale")
+            cpu.reset("whale")
+        gpu.clock.advance(0.37)
+        cpu.clock.advance(0.37)
+    ga, ca = gpu.capture_state()[1], cpu.capture_state()[1]
+    for k in ("debt", "acc", "rem", "last"):
+        np.testing.assert_array_equal(ga[k], ca[k])
+    assert gpu.debt_slab_stats() == cpu.debt_slab_stats()
     gpu.close()
     cpu.close()

@@ -267,7 +267,7 @@ def test_create_limiter_defaults_to_the_card_and_raises_without_one(
 
 
 @pytest.mark.parametrize("cfg,match", [
-    (dict(algo="TOKEN_BUCKET"), "A5"),
+    (dict(algo="TOKEN_BUCKET"), "cannot serve a TOKEN_BUCKET"),
     (dict(hh_slots=16), "A6"),
     (dict(overload_policy="strict"), "watchdog"),
 ])
