@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N] [--steps N]
+    python3 chip_smoke.py --sweep    # time the tiled updates' launch shapes
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -14,7 +15,11 @@ Phases (each raises on failure; the script exits non-zero):
    w=65536, batches of 4096 ids drawn Zipf(1.1) over 1M keys), sliding and
    fixed; the token bucket's two at d=4, w=65536, B=4096 on a debt slab
    holding zeros, random debts and cells within 10^6 of 2^61, under three
-   decays;
+   decays; the two tiled updates (``cu_update``, ``bucket_update``) also on
+   a batch whose 4096 keys share one column and on 2^20 Zipf keys (where
+   their launch shape switches to clusters), and ``bucket_update`` with
+   ``clamp_acc`` on an ``acc`` slab holding cells above 2^61; the tile and
+   cluster each uses are logged;
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -34,6 +39,11 @@ Phases (each raises on failure; the script exits non-zero):
    the same trace;
 5. print the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
+
+``--sweep`` builds, then holds every (tile, cluster) of the two tiled
+updates bit-equal to the plain version and times it (config-3 batch, B = 0
+and the one-column batch), and every cluster at the chosen tile on larger
+batches, printing the results as one JSON line before the card's line.
 
 Without a CUDA device it exits non-zero before printing any result.
 It imports nothing of JAX or of the JAX package.
@@ -88,6 +98,15 @@ def card_line() -> str:
 
 def zipf_ids(rng: np.random.Generator, shape) -> np.ndarray:
     return rng.zipf(ZIPF_A, size=shape).astype(np.uint64) % np.uint64(N_KEYS)
+
+
+def device_keys(torch, ids: np.ndarray):
+    """(h1, h2) on the card for raw u64 ids, as the raw-id lane hashes
+    them (splitmix64, then the split with the sketch's seed)."""
+    from ratelimiter_tpu_torch.ops import hashing
+
+    return hashing.split_hash_dev(hashing.splitmix64_dev(
+        hashing.u64_to_tensor(ids, torch.device("cuda"))), 0x5bd1e995)
 
 
 def device_ms(fn, torch, *, reps: int = 7) -> float:
@@ -178,28 +197,32 @@ def kernel_row(name, source, err, kern, plain, lib, nbytes, ops,
 # --------------------------------------------------------------- phase 2
 
 
-def check_kernels(torch, seed: int) -> dict:
-    """Each kernel against its plain version at config-3 shapes, sliding
-    and fixed; times and bounds. Launches made here do not count."""
-    from ratelimiter_tpu_torch.ops import hashing, sketch_cuda as sc
+def window_state(torch, rng):
+    """A windowed state as after resets and traffic, negative cells
+    included, at config-3 geometry: totals, boundary, cur, and the
+    boundary weight 0.377 s into a sub-window."""
     from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    ids = zipf_ids(rng, BATCH)
-    h1, h2 = hashing.split_hash_dev(
-        hashing.splitmix64_dev(hashing.u64_to_tensor(ids, dev)), 0x5bd1e995)
-    # A state as after resets and traffic: negative cells included.
-    totals = torch.from_numpy(
-        rng.integers(-3, 300, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
-    boundary = torch.from_numpy(
-        rng.integers(-2, 200, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
-    cur = torch.from_numpy(
-        rng.integers(-3, 30, size=(DEPTH, WIDTH)).astype(np.int32)).to(dev)
+    def slab(lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, size=(
+            DEPTH, WIDTH)).astype(np.int32)).to("cuda")
+    totals, boundary, cur = slab(-3, 300), slab(-2, 200), slab(-3, 30)
     sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
     p = int(T0 * 1e6) // sub_us
     frac = torch.tensor(boundary_frac(p, p * sub_us + 377_123, sub_us),
-                        dtype=torch.float32, device=dev)
+                        dtype=torch.float32, device="cuda")
+    return totals, boundary, cur, frac
+
+
+def check_kernels(torch, seed: int) -> dict:
+    """Each kernel against its plain version at config-3 shapes, sliding
+    and fixed; times and bounds. Launches made here do not count."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    h1, h2 = device_keys(torch, zipf_ids(rng, BATCH))
+    totals, boundary, cur, frac = window_state(torch, rng)
     add = torch.from_numpy(
         rng.integers(0, 3, size=BATCH).astype(np.int32)).to(dev)
 
@@ -232,6 +255,21 @@ def check_kernels(torch, seed: int) -> dict:
         log(f"kernels[{mode}]: window_estimate and cu_update bit-equal to "
             f"plain; {int((got_t != totals).sum())} cells raised, {grown} of "
             f"them negative cells")
+    # The skewed extreme: all 4096 keys on one column of every row, so the
+    # shared-memory histogram's atomics all hit one entry.
+    o1, o2 = one_column(torch, h1, h2)
+    for bnd in (boundary, None):
+        fr = frac if bnd is not None else None
+        target = skewed_targets(torch, sc.window_estimate_plain(
+            totals, bnd, fr, o1, o2), seed)
+        got_t, got_c, ref_t, ref_c = (x.clone() for x in (totals, cur,
+                                                          totals, cur))
+        sc.cu_update(got_t, got_c, bnd, fr, o1, o2, target)
+        sc.cu_update_plain(ref_t, ref_c, bnd, fr, o1, o2, target)
+        note("cu_update", [(got_t, ref_t), (got_c, ref_c)])
+    log(f"kernels: cu_update bit-equal to plain on the one-column batch; "
+        f"tile {sc.tiling(WIDTH, BATCH)} (cells, "
+        f"cluster blocks)")
     got_t, got_c, ref_t, ref_c = (x.clone() for x in (totals, cur, totals,
                                                       cur))
     sc.add_update(got_t, got_c, h1, h2, add)
@@ -279,7 +317,88 @@ def check_kernels(torch, seed: int) -> dict:
         rows[name] = kernel_row(name, SOURCE, err[name], kern, plain, lib,
                                 nbytes, ops, torch)
         rows[name]["touched_cells"] = touched
+    tile, cluster = sc.tiling(WIDTH, BATCH)
+    one_target = skewed_targets(torch, sc.window_estimate_plain(
+        totals, boundary, frac, o1, o2), seed)
+    rows["cu_update"]["large_batch"] = large_batch(
+        torch, "cu_update", rng, seed,
+        lambda t, c, k1, k2, target, _: sc.cu_update(
+            t, c, boundary, frac, k1, k2, target),
+        lambda t, c, k1, k2, target, _: sc.cu_update_plain(
+            t, c, boundary, frac, k1, k2, target),
+        (totals, cur), lambda k1, k2: sc.window_estimate_plain(
+            totals, boundary, frac, k1, k2), err)
+    rows["cu_update"].update(
+        tile=tile, cluster=cluster,
+        moved_bytes=tiled_bytes(cells * (4 * 5), tile, cluster, 8 + 8 + 4),
+        one_column_ms=device_ms(lambda: sc.cu_update(
+            t_buf, c_buf, boundary, frac, o1, o2, one_target), torch))
+    log(f"time cu_update on the one-column batch: "
+        f"{rows['cu_update']['one_column_ms'] * 1e3:.2f} us")
     return rows
+
+
+#: A large batch: 2^20 Zipf ids (benchmark config 3's saturation run
+#: takes 2^22 a step, benchmarks/configs.py:136-137; 2^20 is the batch
+#: bound of the bucket's integer admission gate).
+LARGE_BATCH = 1 << 20
+
+
+def large_batch(torch, name, rng, seed, kern, plain, slabs, estimate,
+                err) -> dict:
+    """A tiled update on LARGE_BATCH keys, where the chosen launch shape
+    runs clusters: held bit-equal to its plain version, then timed beside
+    it. ``kern``/``plain`` take (slab, slab, h1, h2, target, consumed);
+    ``estimate`` gives the CU targets' base (None for the bucket)."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    k1, k2 = device_keys(torch, zipf_ids(rng, LARGE_BATCH))
+    target = (skewed_targets(torch, estimate(k1, k2), seed)
+              if estimate is not None else None)
+    used = torch.from_numpy(np.where(
+        rng.random(LARGE_BATCH) < 0.7,
+        rng.integers(1, 3, size=LARGE_BATCH) * 1_000_000,
+        0).astype(np.int64)).to("cuda")
+    got = [x.clone() for x in slabs]
+    ref = [x.clone() for x in slabs]
+    kern(*got, k1, k2, target, used)
+    plain(*ref, k1, k2, target, used)
+    for a, b in zip(got, ref):
+        hold_equal(torch, err, name, a, b)
+    out = {"batch": LARGE_BATCH,
+           "tile_cluster": list(sc.tiling(WIDTH, LARGE_BATCH)),
+           "ms": device_ms(lambda: kern(*got, k1, k2, target, used), torch),
+           "plain_ms": device_ms(lambda: plain(*ref, k1, k2, target, used),
+                                 torch)}
+    log(f"kernels: {name} bit-equal to plain on {LARGE_BATCH} Zipf keys; "
+        f"tile {tuple(out['tile_cluster'])}: kernel {out['ms'] * 1e3:.2f} "
+        f"us, plain {out['plain_ms'] * 1e3:.2f} us")
+    return out
+
+
+def one_column(torch, h1, h2):
+    """The batch's keys all moved to the column of its first key (h2 = 0
+    puts a key on column h1 & (w-1) in every row)."""
+    return torch.full_like(h1, int(h1[0])), torch.zeros_like(h2)
+
+
+def skewed_targets(torch, est, seed: int):
+    """CU targets above each key's estimate by 1 to 2, a fifth of them 0
+    (denied), so the per-column max decides."""
+    g = torch.Generator(device=est.device).manual_seed(seed)
+    u = torch.rand(est.shape, generator=g, device=est.device)
+    return torch.where(u < 0.8, torch.clamp_min(est, 0.0) + 1.0 + u,
+                       torch.zeros((), device=est.device))
+
+
+def tiled_bytes(slab_bytes: int, tile: int, cluster: int,
+                key_bytes: int) -> int:
+    """Bytes a tiled update moves at config-3 geometry: its slab traffic,
+    plus every cluster (every block when the cluster is 1) reading all
+    keys, ``key_bytes`` each (h1, h2 and the amount; from L2 after the
+    first read)."""
+    clusters = DEPTH * WIDTH // (tile * cluster)
+    return slab_bytes + clusters * BATCH * key_bytes
 
 
 def check_bucket_kernels(torch, seed: int) -> dict:
@@ -289,15 +408,13 @@ def check_bucket_kernels(torch, seed: int) -> dict:
     so the 2^61 clamp fires), decays of 0, a moderate value and more than
     any cell; consumed holding zeros. Times and bounds at the moderate
     decay. Launches made here do not count."""
-    from ratelimiter_tpu_torch.ops import bucket_cuda as bc, hashing
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
     dev = torch.device("cuda")
     cap = bc.DEBT_CAP
     rng = np.random.default_rng(seed + 3)
-    ids = zipf_ids(rng, BATCH)
-    h1, h2 = hashing.split_hash_dev(
-        hashing.splitmix64_dev(hashing.u64_to_tensor(ids, dev)), 0x5bd1e995)
+    h1, h2 = device_keys(torch, zipf_ids(rng, BATCH))
     cols = sc._columns(h1, h2, DEPTH, WIDTH)
 
     def slab():
@@ -333,6 +450,26 @@ def check_bucket_kernels(torch, seed: int) -> dict:
             f"bucket_update bit-equal to plain; {int((got_d == cap).sum())} "
             f"debt and {int((got_a == cap).sum())} acc cells at 2^61, "
             f"{int((got_d < debt).sum())} cells decayed")
+    # The one-column batch (every key on one histogram entry), and an acc
+    # slab above 2^61 (only a restore brings one) clamped with clamp_acc.
+    o1, o2 = one_column(torch, h1, h2)
+    over = acc.clone()
+    hot = torch.rand(over.shape, generator=torch.Generator(
+        device=dev).manual_seed(seed), device=dev) < 0.2
+    over[hot] += cap
+    for a_in, clamp, c1, c2 in ((acc, False, o1, o2), (over, True, h1, h2),
+                                (over, True, o1, o2)):
+        got_d, got_a, ref_d, ref_a = (x.clone() for x in (debt, a_in, debt,
+                                                          a_in))
+        bc.bucket_update(got_d, got_a, moderate, c1, c2, consumed, clamp)
+        bc.bucket_update_plain(ref_d, ref_a, moderate, c1, c2, consumed)
+        hold_equal(torch, err, "bucket_update", got_d, ref_d)
+        hold_equal(torch, err, "bucket_update", got_a, ref_a)
+    tile, cluster = sc.tiling(WIDTH, BATCH)
+    log(f"kernels[bucket]: bucket_update bit-equal to plain on the "
+        f"one-column batch and, with clamp_acc, on an acc slab with "
+        f"{int(hot.sum())} cells above 2^61; tile {(tile, cluster)} "
+        f"(cells, cluster blocks)")
     d_buf, a_buf = debt.clone(), acc.clone()
     timing = {
         "bucket_estimate": (
@@ -358,7 +495,132 @@ def check_bucket_kernels(torch, seed: int) -> dict:
         rows[name] = kernel_row(name, BUCKET_SOURCE, err[name], kern, plain,
                                 None, nbytes, ops, torch)
         rows[name]["touched_cells"] = touched
+    rows["bucket_update"]["large_batch"] = large_batch(
+        torch, "bucket_update", rng, seed,
+        lambda d_, a, k1, k2, _, used: bc.bucket_update(
+            d_, a, moderate, k1, k2, used),
+        lambda d_, a, k1, k2, _, used: bc.bucket_update_plain(
+            d_, a, moderate, k1, k2, used),
+        (debt, acc), None, err)
+    rows["bucket_update"].update(
+        tile=tile, cluster=cluster,
+        moved_bytes=tiled_bytes(cells * 16 + touched * 16, tile, cluster,
+                                8 + 8 + 8),
+        one_column_ms=device_ms(lambda: bc.bucket_update(
+            d_buf, a_buf, moderate, o1, o2, consumed), torch))
+    log(f"time bucket_update on the one-column batch: "
+        f"{rows['bucket_update']['one_column_ms'] * 1e3:.2f} us")
     return rows
+
+
+# --------------------------------------------------------- tile sweep
+
+
+SWEEP_TILES = (1024, 2048, 4096, 8192, 16384)
+SWEEP_CLUSTERS = (1, 2, 4, 8)
+#: Larger Zipf batches, swept at the chosen tile over every cluster: every
+#: block reads every key, so the scan grows with B and clusters pay off.
+SWEEP_BATCHES = (8192, 16384, 65536, 1 << 20)
+
+
+def sweep_tiles(torch, seed: int) -> list:
+    """The two tiled updates at config-3 geometry. Every (tile, cluster),
+    held bit-equal to the plain version on the config-3 batch and on the
+    one-column batch, then timed on the config-3 batch, on B = 0 (launch
+    and dense pass alone: the key scan costs the difference) and on the
+    one-column batch; then, at the chosen tile, every cluster on larger
+    Zipf batches, held bit-equal and timed. A tiling whose shared memory
+    does not fit a block is recorded with the launch's error."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    totals, boundary, cur, frac = window_state(torch, rng)
+    debt = torch.from_numpy(np.where(
+        rng.random((DEPTH, WIDTH)) < 0.4, 0,
+        rng.integers(0, 400_000_000, size=(DEPTH, WIDTH)))).to(dev)
+    acc = debt.flip(1).contiguous()
+
+    def batch_of(h1, h2):
+        """Keys with CU targets above their estimates and bucket amounts
+        of 1-2 tokens, 3 in 10 denied (0)."""
+        n = h1.shape[0]
+        consumed = torch.from_numpy(np.where(
+            rng.random(n) < 0.7, rng.integers(1, 3, size=n) * 1_000_000,
+            0).astype(np.int64)).to(dev)
+        return (h1, h2, skewed_targets(torch, sc.window_estimate_plain(
+            totals, boundary, frac, h1, h2), seed), consumed)
+
+    def zipf_keys(n):
+        return device_keys(torch, zipf_ids(rng, n))
+
+    h1, h2 = zipf_keys(BATCH)
+    batches = {"config3": batch_of(h1, h2),
+               "empty": batch_of(h1[:0], h2[:0]),
+               "one_column": batch_of(*one_column(torch, h1, h2))}
+    batches.update((n, batch_of(*zipf_keys(n))) for n in SWEEP_BATCHES)
+
+    def cu(state, batch, **kw):
+        a, b, target, _ = batches[batch]
+        fn = sc.cu_update if kw else sc.cu_update_plain
+        fn(state[0], state[1], boundary, frac, a, b, target, **kw)
+
+    def bucket(state, batch, **kw):
+        a, b, _, used = batches[batch]
+        fn = bc.bucket_update if kw else bc.bucket_update_plain
+        fn(state[0], state[1], 3_333_337, a, b, used, **kw)
+
+    def exact(name, run, slabs, batch, tile, cluster):
+        got = [x.clone() for x in slabs]
+        ref = [x.clone() for x in slabs]
+        run(got, batch, tile=tile, cluster=cluster)
+        run(ref, batch)
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, got, ref)):
+            raise AssertionError(f"{name} tile {tile} cluster {cluster} "
+                                 f"differs from its plain version on the "
+                                 f"{batch} batch")
+
+    out = []
+    for name, run, slabs in (("cu_update", cu, (totals, cur)),
+                             ("bucket_update", bucket, (debt, acc))):
+        buf = [x.clone() for x in slabs]
+        for tile in SWEEP_TILES:
+            for cluster in SWEEP_CLUSTERS:
+                if cluster * tile > WIDTH:
+                    continue
+                row = {"name": name, "tile": tile, "cluster": cluster,
+                       "batch": BATCH}
+                try:
+                    for batch in ("config3", "one_column"):
+                        exact(name, run, slabs, batch, tile, cluster)
+                except RuntimeError as exc:
+                    row["error"] = str(exc)
+                    log(f"sweep {name} tile {tile} cluster {cluster}: {exc}")
+                    out.append(row)
+                    continue
+                for batch in ("config3", "empty", "one_column"):
+                    row[f"{batch}_ms"] = device_ms(
+                        lambda: run(buf, batch, tile=tile, cluster=cluster),
+                        torch)
+                row["scan_ms"] = row["config3_ms"] - row["empty_ms"]
+                out.append(row)
+                log(f"sweep {name} tile {tile} cluster {cluster}: "
+                    + ", ".join(f"{k} {row[k] * 1e3:.2f} us" for k in
+                                ("config3_ms", "empty_ms", "scan_ms",
+                                 "one_column_ms")))
+        for n in SWEEP_BATCHES:
+            for cluster in SWEEP_CLUSTERS:
+                exact(name, run, slabs, n, sc.TILE, cluster)
+                row = {"name": name, "tile": sc.TILE, "cluster": cluster,
+                       "batch": n, "ms": device_ms(
+                           lambda: run(buf, n, tile=sc.TILE,
+                                       cluster=cluster), torch)}
+                out.append(row)
+                log(f"sweep {name} tile {sc.TILE} cluster {cluster} batch "
+                    f"{n}: {row['ms'] * 1e3:.2f} us")
+    return out
 
 
 # --------------------------------------------------------------- phase 3
@@ -645,6 +907,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--sweep", action="store_true",
+                    help="only build, then sweep the tiled updates' tile, "
+                         "cluster and batch sizes (one JSON line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -662,6 +927,12 @@ def main(argv=None) -> int:
     bucket_cuda.build()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    if args.sweep:
+        print(json.dumps({"card": card, "sweep": sweep_tiles(torch,
+                                                             args.seed)}))
+        print(card)
+        return 0
 
     rows = check_kernels(torch, args.seed)
     rows.update(check_bucket_kernels(torch, args.seed))

@@ -57,6 +57,7 @@ from ratelimiter_tpu_torch.core.types import (
     batch_fail_open,
 )
 from ratelimiter_tpu_torch.ops import bucket_kernels, sketch_kernels
+from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP
 from ratelimiter_tpu_torch.ops.hashing import (
     hash_prefixed_u64,
     split_hash,
@@ -187,6 +188,11 @@ class SketchLimiter(RateLimiter):
         ones read their period from the host mirror. Lock must be held."""
         return {"period": self._host_period}
 
+    def _launch_kw(self) -> dict:
+        """Keyword operands of the step callables alone. Lock must be
+        held."""
+        return {}
+
     def _launch_finish(self, outs, now_us: int):
         """Queue the result assembly behind the step (windowed form:
         retry-after is the time to the window reset)."""
@@ -220,7 +226,8 @@ class SketchLimiter(RateLimiter):
             h_dev = self._stage(h64p.view(np.int64), np.int64)
             n_dev = self._stage(nsp, np.int32)
             outs = step(self._state, h_dev, n_dev, now_us,
-                        self._policy_device(), **self._step_kw())
+                        self._policy_device(), **self._step_kw(),
+                        **self._launch_kw())
             # Inside the lock: a concurrent set/delete_override rebuilds
             # the table's sorted views.
             if premix:
@@ -445,6 +452,11 @@ class SketchLimiter(RateLimiter):
             self._state = state
             for k in self._EXTRA_KEYS:
                 setattr(self, "_" + k, int(extra[k]))
+            self._restored(arrays)
+
+    def _restored(self, arrays: dict) -> None:
+        """Note what the next step must know of restored ``arrays``. Lock
+        must be held."""
 
 
 class SketchTokenBucketLimiter(SketchLimiter):
@@ -472,6 +484,9 @@ class SketchTokenBucketLimiter(SketchLimiter):
                                                           premix=True)
         _, self._reset_step = bucket_kernels.build_steps(self.config)
         self._state = bucket_kernels.init_state(self.config, self._device)
+        # Set by a restore that brought acc cells above 2^61, which no step
+        # writes: the next step clamps every acc cell once (_launch_kw).
+        self._acc_over_cap = False
         self._init_policy()
 
     def _policy_validate(self, limit: int, _window_us: int) -> None:
@@ -487,6 +502,19 @@ class SketchTokenBucketLimiter(SketchLimiter):
 
     def _step_kw(self) -> dict:
         return {}
+
+    def _launch_kw(self) -> dict:
+        clamp, self._acc_over_cap = self._acc_over_cap, False
+        return {"clamp_acc": clamp}
+
+    def _restored(self, arrays: dict) -> None:
+        """Mark a restored ``acc`` holding cells above 2^61 (one NumPy max
+        on the host): the update reads ``acc`` only at touched cells, so
+        the next step clamps it densely, as the JAX kernel does every
+        step."""
+        acc = np.asarray(arrays.get("acc", ()), dtype=np.int64)
+        self._acc_over_cap = bool(
+            acc.size and int(acc.max()) > DEBT_CAP)
 
     def _launch_finish(self, outs, now_us: int):
         """Token-bucket result assembly: retry-after = deficit / refill

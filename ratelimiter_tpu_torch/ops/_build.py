@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source compiles on first use into
 ``ratelimiter_tpu_torch/_build/`` (listed in ``.gitignore``) as a shared
-library with a plain C interface, named by a digest of its source and
-flags, so an edited source never loads a stale build. The build writes to
+library with a plain C interface, named by a digest of its source, the
+``csrc/*.cuh`` headers and the flags, so an edited source or header never
+loads a stale build. The build writes to
 a temporary name and renames it into place, so concurrent processes that
 race to build the same source all load a complete file. Nothing is built
 when a module is imported: the first CUDA launch, or ``build_all``,
@@ -54,9 +55,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -17,13 +17,14 @@ Each wrapper counts its kernel launches in a plain integer attribute
 ``launch_counts`` and ``reset_launch_counts`` read and clear them.
 
 All arithmetic is int64 and exact, so no order of operations (rows in a
-thread, atomics in any order) can change a result. The scalar ``decay``
-arrives by value from the host (ops/bucket_kernels.py).
+thread, shared-memory atomics in any order) can change a result. The
+scalar ``decay`` arrives by value from the host (ops/bucket_kernels.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -33,6 +34,7 @@ from ratelimiter_tpu_torch.ops.sketch_cuda import (
     _columns,
     _raise_on,
     _stream,
+    tiling,
 )
 
 #: Debt and acc cells clamp here on every write, so debt arithmetic never
@@ -48,7 +50,8 @@ def _lib() -> ctypes.CDLL:
     if id(lib) not in _configured:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.rl_bucket_estimate.argtypes = [P, L, P, P, P, I, I, I, P]
-        lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, P]
+        lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, I, I, I,
+                                         P]
         for fn in (lib.rl_bucket_estimate, lib.rl_bucket_update):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
@@ -149,22 +152,33 @@ def bucket_estimate(debt: torch.Tensor, decay: int, h1: torch.Tensor,
 
 
 def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
-                  h1: torch.Tensor, h2: torch.Tensor,
-                  consumed: torch.Tensor) -> None:
+                  h1: torch.Tensor, h2: torch.Tensor, consumed: torch.Tensor,
+                  clamp_acc: bool = False, *, tile: Optional[int] = None,
+                  cluster: Optional[int] = None) -> None:
     """Replaces Pallas ``bucket_update`` (pallas_sketch.py:302-327);
     updates ``debt`` and ``acc`` in place (the JAX kernel aliases them).
 
-    Bound on an H100: ``debt`` read and written densely (the decay reaches
-    every cell, not only touched ones), 16 bytes per cell — 4.2 MB at d=4,
-    w=65536, about 1.25 us at 3.35 TB/s — plus ``acc`` at the touched
-    cells. Design: one dense launch over all d*w cells with 16-byte
-    accesses (``debt = min(max(0, debt - decay), CAP)``; ``acc`` is read
-    densely too, and written only where it exceeds CAP, which no state
-    the packages produce holds), then one thread per (key, row) with
-    ``consumed != 0`` does a 64-bit ``atomicAdd`` into both slabs and,
-    where the sum it produced passes CAP, an ``atomicMin`` to CAP. The
-    last adder of a cell whose total passes CAP always sees it pass, so
-    the final value is ``min(x + h, CAP)`` in any order (see the source)."""
+    Bound on an H100: ``debt`` read and written at every cell (the decay
+    reaches every cell, not only touched ones), 16 bytes per cell, plus
+    ``acc`` at the touched cells and the key operands — 4.4 MB at d=4,
+    w=65536, B=4096, about 1.3 us at 3.35 TB/s. Design: ONE launch of
+    (w/tile, d) blocks, each owning ``tile`` cells of one row
+    (csrc/tile_owner.cuh): a bulk asynchronous copy brings its ``debt``
+    tile into shared memory while its threads scan the keys (h1, h2 and
+    consumed loaded together) and add the ``consumed`` of those that land
+    in the tile into an exact int64 histogram h in shared memory (two
+    32-bit halves with a carry: 64-bit shared atomics are
+    compare-and-swap loops); then every cell gets ``debt = min(min(max(0,
+    debt - decay), CAP) + h, CAP)`` (no sum overflows: 2^61 + 2^62 <
+    2^63), and only cells with h != 0 read and write ``acc = min(acc + h,
+    CAP)``. Above ``sketch_cuda.CLUSTER_BATCH`` keys, clusters of
+    neighbouring tiles split one scan of the keys, as in ``cu_update``. No
+    global atomics, no scratch.
+
+    ``acc`` is not clamped densely: every state the step writes holds
+    ``acc <= CAP``. A restored state may not (the limiter marks one), and
+    ``clamp_acc=True`` then clamps every ``acc`` cell in this call, as the
+    plain version, and the JAX kernel, do on every call."""
     d, w, B = _check_common(debt, h1, h2)
     decay = _check_decay(decay)
     _check("acc", acc, torch.int64, (d, w), debt.device, align16=True)
@@ -173,9 +187,11 @@ def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
         return bucket_update_plain(debt, acc, decay, h1, h2, consumed)
     if debt.device.type != "cuda":
         raise ValueError(f"unsupported device {debt.device}")
+    tile, cluster = tiling(w, B, tile, cluster)
     err = _lib().rl_bucket_update(
         debt.data_ptr(), acc.data_ptr(), decay, h1.data_ptr(), h2.data_ptr(),
-        consumed.data_ptr(), B, d, w, _stream(debt))
+        consumed.data_ptr(), B, d, w, tile, cluster, int(clamp_acc),
+        _stream(debt))
     _raise_on(err, "bucket_update")
     bucket_update.launches += 1
 

@@ -135,12 +135,15 @@ def _advance(state: State, now_us: int, rem: int) -> None:
 
 
 def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, *,
-                 limit: int, rate_num: int, rate_den: int, iters: int):
+                 limit: int, rate_num: int, rate_den: int, iters: int,
+                 clamp_acc: bool = False):
     """One decision step over a padded batch, updating ``state`` in place.
 
     ``h1``/``h2`` int64[B] hash halves, ``n`` int32[B] request counts (0 =
     padding). Returns ``(allowed bool[B], remaining int64[B], retry_us
-    int64[B])``.
+    int64[B])``. ``clamp_acc`` asks the update to clamp every ``acc`` cell
+    at 2^61, after a restore that brought cells above it (the JAX kernel
+    does so on every call; ops/bucket_cuda.py).
 
     Policy overrides change a key's burst CAPACITY (``limit_k`` micro-
     tokens); the decay rate stays the global limit/window, since colliding
@@ -158,7 +161,7 @@ def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, *,
     n_units = n.to(torch.int64) * MICROS
     allowed, seen, consumed = admit(h1, n_units, avail, iters)
     bucket_cuda.bucket_update(state["debt"], state["acc"], decay, h1, h2,
-                              consumed)
+                              consumed, clamp_acc)
     _advance(state, now_us, rem)
     remaining = (seen - torch.where(allowed, n_units, 0)) // MICROS
     # Reference retry semantics (``tokenbucket.go:122-130``): time to refill
@@ -178,7 +181,7 @@ def _bucket_reset(state: State, h1, h2, now_us: int, *,
     debt = state["debt"]
     d, w = debt.shape
     debt.sub_(decay).clamp_min_(0)
-    est = bucket_cuda.bucket_estimate_plain(debt, 0, h1, h2)
+    est = bucket_cuda.bucket_estimate(debt, 0, h1, h2)
     # max(0, debt - hist(est)): integer subtractions in any order, then
     # one clamp.
     debt.view(-1).index_add_(0, bucket_cuda.flat_cells(h1, h2, d, w),

@@ -35,13 +35,21 @@ from ratelimiter_tpu_torch.ops import _build
 _SOURCE = "sketch_kernels"
 _configured = set()
 
+#: The launch shape of the two tiled updates (cu_update here,
+#: bucket_update in bucket_cuda.py), chosen by ``python3 chip_smoke.py
+#: --sweep`` on an H100 (PERF.md): each block owns TILE cells of a row;
+#: batches of more than CLUSTER_BATCH keys run in clusters of CLUSTER
+#: neighbouring tiles, which read the keys once per cluster instead of
+#: once per block but launch slower.
+TILE, CLUSTER, CLUSTER_BATCH = 2048, 8, 8192
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if id(lib) not in _configured:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rl_window_estimate.argtypes = [P, P, P, P, P, P, I, I, I, P]
-        lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
+        lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
         for fn in (lib.rl_window_estimate, lib.rl_cu_update,
                    lib.rl_add_update):
@@ -66,6 +74,18 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def tiling(w: int, B: int, tile: Optional[int] = None,
+           cluster: Optional[int] = None) -> tuple:
+    """The (tile, cluster) of a tiled update over rows of width ``w`` and
+    a batch of ``B`` keys: the chosen shape where none is given (the
+    sweep and the tests give one); the tile clamps to the row, the
+    cluster to the tiles in a row."""
+    tile = min(TILE if tile is None else tile, w)
+    if cluster is None:
+        cluster = CLUSTER if B > CLUSTER_BATCH else 1
+    return tile, min(cluster, w // tile)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
@@ -215,17 +235,28 @@ def window_estimate(totals: torch.Tensor, boundary: Optional[torch.Tensor],
 
 def cu_update(totals: torch.Tensor, cur: torch.Tensor,
               boundary: Optional[torch.Tensor], frac: Optional[torch.Tensor],
-              h1: torch.Tensor, h2: torch.Tensor, target: torch.Tensor) -> None:
+              h1: torch.Tensor, h2: torch.Tensor, target: torch.Tensor, *,
+              tile: Optional[int] = None,
+              cluster: Optional[int] = None) -> None:
     """Replaces Pallas ``cu_update`` (pallas_sketch.py:186-212); updates
     ``totals`` and ``cur`` in place (the JAX kernel aliases them).
 
-    Bound on an H100: the dense pass reads m, t, b and cur and writes t
-    and cur, 24 bytes per cell — 6.3 MB at d=4, w=65536, about 1.9 us at
-    3.35 TB/s. Design: a scatter-max launch (one thread per (key, row),
-    ``atomicMax`` on the int bits of the non-negative targets into a
-    zeroed f32 scratch) then one dense launch over all d*w cells with
-    16-byte accesses. The dense pass is not narrowed to touched columns:
-    after a reset an untouched cell can read below zero and must grow."""
+    Bound on an H100: ``totals`` and ``cur`` read and written and
+    ``boundary`` read at every cell, 20 bytes per cell, plus the key
+    operands — 5.3 MB at d=4, w=65536, B=4096, about 1.6 us at 3.35 TB/s.
+    Design: ONE launch of (w/tile, d) blocks, each owning ``tile`` cells
+    of one row (csrc/tile_owner.cuh): a bulk asynchronous copy brings its
+    ``totals``, ``cur`` and ``boundary`` tiles into shared memory while its
+    threads scan the keys (h1, h2 and target loaded together) and
+    ``atomicMax`` the int bits of the non-negative targets that land in
+    the tile into a shared-memory histogram; then every cell of the tile
+    gets ``delta = ceil(max(m - read, 0))``. Every block reads every key,
+    so the scan grows with B: above ``CLUSTER_BATCH`` keys the blocks of
+    ``CLUSTER`` neighbouring tiles split one scan and add into each
+    other's histograms through distributed shared memory (``tiling``). No
+    scratch, no memset, nothing allocated. The dense pass is not narrowed
+    to touched columns: after a reset an untouched cell can read below
+    zero and must grow."""
     d, w, B = _check_common(totals, h1, h2)
     _check("cur", cur, torch.int32, (d, w), totals.device, align16=True)
     _check("target", target, torch.float32, (B,), totals.device)
@@ -234,11 +265,11 @@ def cu_update(totals: torch.Tensor, cur: torch.Tensor,
         return cu_update_plain(totals, cur, boundary, frac, h1, h2, target)
     if totals.device.type != "cuda":
         raise ValueError(f"unsupported device {totals.device}")
-    m = torch.empty((d, w), dtype=torch.float32, device=totals.device)
+    tile, cluster = tiling(w, B, tile, cluster)
     err = _lib().rl_cu_update(
         totals.data_ptr(), cur.data_ptr(), _ptr(boundary),
         _ptr(frac) if boundary is not None else None, h1.data_ptr(),
-        h2.data_ptr(), target.data_ptr(), m.data_ptr(), B, d, w,
+        h2.data_ptr(), target.data_ptr(), B, d, w, tile, cluster,
         _stream(totals))
     _raise_on(err, "cu_update")
     cu_update.launches += 1

@@ -508,6 +508,42 @@ def test_bucket_restore_without_acc_and_refusals():
         win.close()
 
 
+@pytest.mark.parametrize("kernels", ["jnp", "pallas"])
+def test_bucket_restore_with_acc_above_cap_matches_jax(kernels):
+    """A captured state whose ``acc`` holds cells above 2^61 (no step
+    writes one; a restore can bring one) goes into both packages. The
+    JAX kernel clamps every acc cell on every step; the port's update
+    reads acc only at touched cells, so the restore marks the state and
+    the first step clamps it densely, then the mark clears."""
+    lj, lt = _pair(kernels)
+    try:
+        _drive(lj, lt, np.random.default_rng(11), 3)
+        _, arrays, extra = lj.capture_state()
+        rng = np.random.default_rng(12)
+        acc = np.asarray(arrays["acc"]).copy()
+        over = rng.random(acc.shape) < 0.2
+        acc[over] = CAP + rng.integers(1, 1 << 40, size=int(over.sum()))
+        arrays = dict(arrays, acc=acc)
+        assert not lt._acc_over_cap
+        lj._restore_loaded(dict(arrays), extra)
+        lt.restore_state(arrays, extra)
+        assert lt._acc_over_cap
+        _same_state(lj, lt)
+        ids = rng.integers(1, 24, size=48).astype(np.uint64)
+        _same(lj.allow_ids(ids), lt.allow_ids(ids))
+        assert not lt._acc_over_cap
+        _same_state(lj, lt)
+        assert lt.capture_state()[1]["acc"].max() == CAP
+        _drive(lj, lt, np.random.default_rng(13), 4)
+        _same_state(lj, lt)
+        # A state within the cap leaves the mark clear.
+        lt.restore_state(*lt.capture_state()[1:])
+        assert not lt._acc_over_cap
+    finally:
+        lj.close()
+        lt.close()
+
+
 def test_create_limiter_routes_token_bucket():
     lim = T.create_limiter(_cfg(T), backend="sketch", device="cpu")
     assert type(lim) is SketchTokenBucketLimiter

@@ -236,3 +236,18 @@ def test_plain_versions_do_not_count_launches():
                   torch.ones(B, dtype=torch.int32))
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
                                   "add_update": 0}
+
+
+@pytest.mark.parametrize("w,batch,given,want", [
+    (65536, 4096, {}, (sc.TILE, 1)),
+    (65536, sc.CLUSTER_BATCH, {}, (sc.TILE, 1)),
+    (65536, 2 * sc.CLUSTER_BATCH, {}, (sc.TILE, sc.CLUSTER)),
+    (16, 2 * sc.CLUSTER_BATCH, {}, (16, 1)),
+    (4 * sc.TILE, 1 << 20, {}, (sc.TILE, min(sc.CLUSTER, 4))),
+    (65536, 4096, {"tile": 16, "cluster": 4}, (16, 4)),
+])
+def test_tiled_updates_launch_shape(w, batch, given, want):
+    """cu_update's and bucket_update's launch shape: the tile clamps to the
+    row; clusters only above CLUSTER_BATCH keys (every block would read
+    every key) and never wider than the row's tiles."""
+    assert sc.tiling(w, batch, **given) == want
