@@ -15,7 +15,14 @@ Phases (each raises on failure; the script exits non-zero):
    w=65536, batches of 4096 ids drawn Zipf(1.1) over 1M keys), sliding and
    fixed; the token bucket's two at d=4, w=65536, B=4096 on a debt slab
    holding zeros, random debts and cells within 10^6 of 2^61, under three
-   decays; the two tiled updates (``cu_update``, ``bucket_update``) also on
+   decays; the two front kernels (``window_front``, ``bucket_front``, in
+   the rows of the TPU estimates they replace) on every output, on the
+   halves lane without a policy and on the raw-id lane with a 1024-row
+   policy table (shared memory) and a 2^14-row one (global memory), with
+   and without ``n``, timed on the raw-id lane with the 1024-row table
+   (the main path's form) and on the halves lane without ``n`` (the TPU
+   kernel's own function) at 64, 128 and 256 threads a block; the two
+   tiled updates (``cu_update``, ``bucket_update``) also on
    a batch whose 4096 keys share one column and on 2^20 Zipf keys (where
    their launch shape switches to clusters), and ``bucket_update`` with
    ``clamp_acc`` on an ``acc`` slab holding cells above 2^61; the tile and
@@ -26,9 +33,10 @@ Phases (each raises on failure; the script exits non-zero):
    bit-identical to the same trace on the CPU (the plain versions, which
    the CPU tests hold to the JAX package). Each path's launch counts are
    set to 0 just before it and read just after, and each of its kernels
-   must have launched. Windowed: config-3 traffic across sub-window
-   rollovers, with conservative update on and off, then a profile of a
-   short CU run. Token bucket: TB-c2, benchmark config 2's token-bucket
+   must have launched; the same trace then runs 4 more times on fresh
+   limiters, and the median, min and max steps/s of the 5 are printed.
+   Windowed: config-3 traffic across sub-window rollovers, with
+   conservative update on and off, then a profile of a short CU run. Token bucket: TB-c2, benchmark config 2's token-bucket
    cell at its literal parameters (limit 20 per 10 s, 4096 string keys
    per batch uniform over 10,000, +0.25 s per batch), and TB-zipf, config
    3's traffic under a token bucket (limit 100 per 60 s, +0.1 s per
@@ -44,6 +52,12 @@ Phases (each raises on failure; the script exits non-zero):
 updates bit-equal to the plain version and times it (config-3 batch, B = 0
 and the one-column batch), and every cluster at the chosen tile on larger
 batches, printing the results as one JSON line before the card's line.
+
+``--paths`` builds, then runs phase 3 alone and prints its results as one
+JSON line before the card's line. It reaches the port only through
+``create_limiter``, the limiters' public methods and the launch counters,
+so a copy of this script placed in an earlier checkout measures that
+checkout's package on the same card (parent and change in one call).
 
 Without a CUDA device it exits non-zero before printing any result.
 It imports nothing of JAX or of the JAX package.
@@ -201,7 +215,8 @@ def window_state(torch, rng):
     """A windowed state as after resets and traffic, negative cells
     included, at config-3 geometry: totals, boundary, cur, and the
     boundary weight 0.377 s into a sub-window."""
-    from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.sketch_kernels import frac_operands
 
     def slab(lo, hi):
         return torch.from_numpy(rng.integers(lo, hi, size=(
@@ -209,22 +224,141 @@ def window_state(torch, rng):
     totals, boundary, cur = slab(-3, 300), slab(-2, 200), slab(-3, 30)
     sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
     p = int(T0 * 1e6) // sub_us
-    frac = torch.tensor(boundary_frac(p, p * sub_us + 377_123, sub_us),
-                        dtype=torch.float32, device="cuda")
+    frac = sc.frac_plain(*frac_operands(p, p * sub_us + 377_123,
+                                        sub_us)).to("cuda")
     return totals, boundary, cur, frac
+
+
+def ring_boundary(torch, slab, stale: bool = False):
+    """The front's view of ``slab`` as config 3's boundary sub-window,
+    0.377 s into period p (the weight ``window_state`` gives), in a ring
+    of SUB_WINDOWS slots whose slot p % S holds period p - S (or, stale,
+    an older one)."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.sketch_kernels import frac_operands
+
+    sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
+    p = int(T0 * 1e6) // sub_us
+    slot = p % SUB_WINDOWS
+    periods = torch.full((SUB_WINDOWS,), -(1 << 40), dtype=torch.int64,
+                         device="cuda")
+    periods[slot] = p - SUB_WINDOWS - int(stale)
+    return sc.Boundary(slab, periods, slot, p - SUB_WINDOWS,
+                       *frac_operands(p, p * sub_us + 377_123, sub_us))
+
+
+#: The default policy capacity (PolicySpec.capacity) and a capacity whose
+#: key column is searched in global memory (above 4096 rows).
+POLICY_CAPACITY, LARGE_POLICY = 1024, 1 << 14
+SEED = 0x5BD1E995
+
+
+def policy_table(torch, ids: np.ndarray, capacity: int, limit: int):
+    """A device override table of ``capacity`` rows: 64 of the batch's
+    keys (raw ids, hashed as the raw-id lane hashes them) and 64 others,
+    each with its own limit below ``limit``, the rest PAD_KEY rows holding
+    ``limit``."""
+    from ratelimiter_tpu_torch.ops.hashing import split_hash, splitmix64
+    from ratelimiter_tpu_torch.ops.policy_kernels import (
+        empty_arrays,
+        pack_halves_host,
+    )
+
+    rng = np.random.default_rng(capacity)
+    q = np.unique(pack_halves_host(*split_hash(splitmix64(ids), SEED)))
+    keys = np.unique(np.concatenate([q[:: max(1, len(q) // 64)][:64],
+                                     rng.integers(-(1 << 63), (1 << 63) - 1,
+                                                  size=64, dtype=np.int64)]))
+    arrays = empty_arrays(capacity, {"limit": limit})
+    arrays["key"][:len(keys)] = keys
+    arrays["limit"][:len(keys)] = rng.integers(1, limit, size=len(keys))
+    return {k: torch.from_numpy(v).to("cuda") for k, v in arrays.items()}
+
+
+#: The front kernels' launch shapes timed in phase 2 (threads per block).
+FRONT_SHAPES = (64, 128, 256)
+#: The lane timed like the TPU kernel: halves given, no policy, no n.
+TPU_LANE = "halves, estimate only"
+
+
+def hold_front(torch, err: dict, name: str, got, want) -> None:
+    """Every output of a front kernel bit-equal to its plain version's
+    (None where the plain version gives None)."""
+    for a, b in zip(got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{name}: an output is missing")
+        if a is not None:
+            if a.dtype != b.dtype:
+                raise AssertionError(f"{name}: dtype {a.dtype} != {b.dtype}")
+            hold_equal(torch, err, name, a, b)
+
+
+def front_bytes(B: int, key_bytes: int, out_bytes: int, touched: int,
+                cell_bytes: int, capacity: int) -> int:
+    """A front's bytes: each key's staged key, n and outputs once, each
+    touched cell once, and the policy key column once."""
+    return B * (key_bytes + 4 + out_bytes) + touched * cell_bytes + capacity * 8
+
+
+def front_moved_bytes(nbytes: int, B: int, capacity: int) -> int:
+    """What the front's design moves beyond ``nbytes``: every block but
+    the first stages the key column into its shared memory again (from
+    L2 after the first read), ceil(B / FRONT_THREADS) blocks in all."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    return nbytes + (-(-B // sc.FRONT_THREADS) - 1) * capacity * 8
+
+
+def front_ops(B: int, capacity: int) -> int:
+    """A front's integer and f32 operations on the raw-id lane: two
+    splitmix64 rounds and the split (~20), per row a column, a read and a
+    min (4), the descent (2 per step) and the quota (~2)."""
+    return B * (20 + 4 * DEPTH + 2 * (capacity.bit_length()) + 2)
+
+
+def front_row(torch, name: str, kern, lanes: dict, tpu_bytes: int) -> dict:
+    """The front's timings beyond its kernel row: each lane (``kern(
+    lane_kwargs)``) at every launch shape (``sketch_cuda.FRONT_THREADS``
+    set for the timing, then restored), logged; the TPU kernel's own
+    function (``TPU_LANE``) at the chosen shape, and its bound
+    (``tpu_bytes`` over the HBM rate)."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    chosen = sc.FRONT_THREADS
+    shape_ms = {}
+    for lane, kw in lanes.items():
+        shape_ms[lane] = {}
+        for t in FRONT_SHAPES:
+            sc.FRONT_THREADS = t
+            try:
+                shape_ms[lane][t] = device_ms(lambda: kern(kw), torch)
+            finally:
+                sc.FRONT_THREADS = chosen
+        log(f"time {name} [{lane}]: " + ", ".join(
+            f"{t} threads {ms * 1e3:.2f} us"
+            for t, ms in shape_ms[lane].items()))
+    return {"threads": sc.FRONT_THREADS,
+            "shape_ms": {lane: {str(t): ms for t, ms in by.items()}
+                         for lane, by in shape_ms.items()},
+            "tpu_lane_ms": shape_ms[TPU_LANE][sc.FRONT_THREADS],
+            "tpu_lane_bound_ms": tpu_bytes / HBM_BYTES_PER_S * 1e3}
 
 
 def check_kernels(torch, seed: int) -> dict:
     """Each kernel against its plain version at config-3 shapes, sliding
     and fixed; times and bounds. Launches made here do not count."""
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.hashing import u64_to_tensor
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
-    h1, h2 = device_keys(torch, zipf_ids(rng, BATCH))
+    ids = zipf_ids(rng, BATCH)
+    h1, h2 = device_keys(torch, ids)
+    raw = u64_to_tensor(ids, dev)
     totals, boundary, cur, frac = window_state(torch, rng)
     add = torch.from_numpy(
         rng.integers(0, 3, size=BATCH).astype(np.int32)).to(dev)
+    n = add + 1
 
     # Cells the batch touches (the data-dependent part of the bounds).
     cols = sc._columns(h1, h2, DEPTH, WIDTH)
@@ -237,23 +371,47 @@ def check_kernels(torch, seed: int) -> dict:
     def note(name, pairs):
         for a, b in pairs:
             hold_equal(torch, err, name, a, b)
+
+    # The front: the halves lane without a policy (the TPU kernel's own
+    # function), and the raw-id lane with the default-capacity table (in
+    # shared memory) and a 2^14-row one (in global memory); sliding with
+    # a valid and a stale boundary, and fixed; with n and without (the
+    # reset's estimate-only form).
+    table = policy_table(torch, ids, POLICY_CAPACITY, LIMIT)
+    lanes = {"halves": dict(keys=(h1, h2)),
+             "raw ids + policy": dict(keys=raw, premix=True, seed=SEED,
+                                      policy=table),
+             "raw ids + 2^14 policy": dict(
+                 keys=raw, premix=True, seed=SEED,
+                 policy=policy_table(torch, ids, LARGE_POLICY, LIMIT))}
+    valid = ring_boundary(torch, boundary)
+    for b in (valid, ring_boundary(torch, boundary, stale=True), None):
+        for kw in lanes.values():
+            for nn in (n, None):
+                hold_front(torch, err, "window_estimate",
+                           sc.window_front(totals, n=nn, boundary=b,
+                                           limit=LIMIT, **kw),
+                           sc.window_front_plain(totals, n=nn, boundary=b,
+                                                 limit=LIMIT, **kw))
+    log(f"kernels: window_front bit-equal to plain on {len(lanes)} lanes "
+        f"x 3 boundary modes x with/without n; {FRONT_SHAPES} threads "
+        f"timed below, {sc.FRONT_THREADS} chosen")
     for bnd in (boundary, None):
         mode = "sliding" if bnd is not None else "fixed"
         fr = frac if bnd is not None else None
-        est = sc.window_estimate(totals, bnd, fr, h1, h2)
-        note("window_estimate",
-             [(est, sc.window_estimate_plain(totals, bnd, fr, h1, h2))])
+        est = torch.clamp_min(
+            sc.window_estimate_plain(totals, bnd, fr, h1, h2), 0.0)
         target = torch.where(torch.rand(BATCH, generator=torch.Generator(
             device=dev).manual_seed(seed), device=dev) < 0.8,
-            torch.clamp_min(est, 0.0) + 1.0, torch.zeros((), device=dev))
+            est + 1.0, torch.zeros((), device=dev))
         got_t, got_c = totals.clone(), cur.clone()
         sc.cu_update(got_t, got_c, bnd, fr, h1, h2, target)
         ref_t, ref_c = totals.clone(), cur.clone()
         sc.cu_update_plain(ref_t, ref_c, bnd, fr, h1, h2, target)
         note("cu_update", [(got_t, ref_t), (got_c, ref_c)])
         grown = int(((totals < 0) & (got_t > totals)).sum())
-        log(f"kernels[{mode}]: window_estimate and cu_update bit-equal to "
-            f"plain; {int((got_t != totals).sum())} cells raised, {grown} of "
+        log(f"kernels[{mode}]: cu_update bit-equal to plain; "
+            f"{int((got_t != totals).sum())} cells raised, {grown} of "
             f"them negative cells")
     # The skewed extreme: all 4096 keys on one column of every row, so the
     # shared-memory histogram's atomics all hit one entry.
@@ -286,14 +444,19 @@ def check_kernels(torch, seed: int) -> dict:
     both = torch.cat([flat, flat + cells])
     stacked = torch.zeros(2 * cells, dtype=torch.int32, device=dev)
     vals2 = add.repeat(2 * DEPTH)
+    main = dict(lanes["raw ids + policy"], n=n)
     timing = {
         "window_estimate": (
-            lambda: sc.window_estimate(totals, boundary, frac, h1, h2),
-            lambda: sc.window_estimate_plain(totals, boundary, frac, h1, h2),
+            lambda: sc.window_front(totals, boundary=valid, limit=LIMIT,
+                                    **main),
+            lambda: sc.window_front_plain(totals, boundary=valid,
+                                          limit=LIMIT, **main),
             None,
-            # h1, h2, est per key; totals and boundary per touched cell.
-            BATCH * (8 + 8 + 4) + touched * 4 * 2 + 4,
-            3 * DEPTH * BATCH),
+            # raw id and n in; h1, h2, est, avail, n_f out; totals and
+            # boundary per touched cell; the table's key column once.
+            front_bytes(BATCH, 8, 16 + 12, touched, 8, POLICY_CAPACITY)
+            + 4 + 8,
+            front_ops(BATCH, POLICY_CAPACITY)),
         "cu_update": (
             lambda: sc.cu_update(t_buf, c_buf, boundary, frac, h1, h2,
                                  target),
@@ -317,6 +480,16 @@ def check_kernels(torch, seed: int) -> dict:
         rows[name] = kernel_row(name, SOURCE, err[name], kern, plain, lib,
                                 nbytes, ops, torch)
         rows[name]["touched_cells"] = touched
+    rows["window_estimate"]["moved_bytes"] = front_moved_bytes(
+        rows["window_estimate"]["bytes"], BATCH, POLICY_CAPACITY)
+    rows["window_estimate"].update(front_row(
+        torch, "window_front", lambda kw: sc.window_front(
+            totals, boundary=valid, limit=LIMIT, **kw),
+        {TPU_LANE: lanes["halves"],
+         "raw ids": dict(keys=raw, premix=True, seed=SEED, n=n),
+         "raw ids + policy": main},
+        # h1, h2 in, est out (no n); totals and boundary per touched cell.
+        BATCH * (16 + 4) + touched * 8 + 4 + 8))
     tile, cluster = sc.tiling(WIDTH, BATCH)
     one_target = skewed_targets(torch, sc.window_estimate_plain(
         totals, boundary, frac, o1, o2), seed)
@@ -410,11 +583,16 @@ def check_bucket_kernels(torch, seed: int) -> dict:
     decay. Launches made here do not count."""
     from ratelimiter_tpu_torch.ops import bucket_cuda as bc
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.hashing import u64_to_tensor
 
     dev = torch.device("cuda")
     cap = bc.DEBT_CAP
     rng = np.random.default_rng(seed + 3)
-    h1, h2 = device_keys(torch, zipf_ids(rng, BATCH))
+    ids = zipf_ids(rng, BATCH)
+    h1, h2 = device_keys(torch, ids)
+    raw = u64_to_tensor(ids, dev)
+    n = torch.from_numpy(rng.integers(1, 4, size=BATCH).astype(
+        np.int32)).to(dev)
     cols = sc._columns(h1, h2, DEPTH, WIDTH)
 
     def slab():
@@ -436,18 +614,31 @@ def check_bucket_kernels(torch, seed: int) -> dict:
     err = {"bucket_estimate": 0.0, "bucket_update": 0.0}
 
     moderate = 3_333_337
+    # The front on the lanes and tables of the windowed one (above).
+    table = policy_table(torch, ids, POLICY_CAPACITY, LIMIT)
+    lanes = {"halves": dict(keys=(h1, h2)),
+             "raw ids + policy": dict(keys=raw, premix=True, seed=SEED,
+                                      policy=table),
+             "raw ids + 2^14 policy": dict(
+                 keys=raw, premix=True, seed=SEED,
+                 policy=policy_table(torch, ids, LARGE_POLICY, LIMIT))}
     for decay in (0, moderate, 1 << 62):
-        est = bc.bucket_estimate(debt, decay, h1, h2)
-        hold_equal(torch, err, "bucket_estimate", est,
-                   bc.bucket_estimate_plain(debt, decay, h1, h2))
+        for kw in lanes.values():
+            for nn in (n, None):
+                hold_front(torch, err, "bucket_estimate",
+                           bc.bucket_front(debt, decay, n=nn, limit=LIMIT,
+                                           **kw),
+                           bc.bucket_front_plain(debt, decay, n=nn,
+                                                 limit=LIMIT, **kw))
         got_d, got_a, ref_d, ref_a = (x.clone() for x in (debt, acc, debt,
                                                           acc))
         bc.bucket_update(got_d, got_a, decay, h1, h2, consumed)
         bc.bucket_update_plain(ref_d, ref_a, decay, h1, h2, consumed)
         hold_equal(torch, err, "bucket_update", got_d, ref_d)
         hold_equal(torch, err, "bucket_update", got_a, ref_a)
-        log(f"kernels[bucket, decay {decay}]: bucket_estimate and "
-            f"bucket_update bit-equal to plain; {int((got_d == cap).sum())} "
+        log(f"kernels[bucket, decay {decay}]: bucket_front ({len(lanes)} "
+            f"lanes, with/without n) and bucket_update bit-equal to plain; "
+            f"{int((got_d == cap).sum())} "
             f"debt and {int((got_a == cap).sum())} acc cells at 2^61, "
             f"{int((got_d < debt).sum())} cells decayed")
     # The one-column batch (every key on one histogram entry), and an acc
@@ -471,13 +662,16 @@ def check_bucket_kernels(torch, seed: int) -> dict:
         f"{int(hot.sum())} cells above 2^61; tile {(tile, cluster)} "
         f"(cells, cluster blocks)")
     d_buf, a_buf = debt.clone(), acc.clone()
+    main = dict(lanes["raw ids + policy"], n=n)
     timing = {
         "bucket_estimate": (
-            lambda: bc.bucket_estimate(debt, moderate, h1, h2),
-            lambda: bc.bucket_estimate_plain(debt, moderate, h1, h2),
-            # h1, h2, est per key; debt per touched cell.
-            BATCH * (8 + 8 + 8) + touched * 8,
-            3 * DEPTH * BATCH),
+            lambda: bc.bucket_front(debt, moderate, limit=LIMIT, **main),
+            lambda: bc.bucket_front_plain(debt, moderate, limit=LIMIT,
+                                          **main),
+            # raw id and n in; h1, h2, est, avail, n_units out; debt per
+            # touched cell; the table's key column once.
+            front_bytes(BATCH, 8, 16 + 24, touched, 8, POLICY_CAPACITY),
+            front_ops(BATCH, POLICY_CAPACITY)),
         "bucket_update": (
             lambda: bc.bucket_update(d_buf, a_buf, moderate, h1, h2,
                                      consumed),
@@ -490,11 +684,22 @@ def check_bucket_kernels(torch, seed: int) -> dict:
     }
     rows = {}
     for name, (kern, plain, nbytes, ops) in timing.items():
-        # No single PyTorch call computes either function (a decayed,
-        # clamped gather-min; a dense decay fused with a capped scatter).
+        # No single PyTorch call computes either function (hashing, a
+        # decayed gather-min and a table search; a dense decay fused with
+        # a capped scatter).
         rows[name] = kernel_row(name, BUCKET_SOURCE, err[name], kern, plain,
                                 None, nbytes, ops, torch)
         rows[name]["touched_cells"] = touched
+    rows["bucket_estimate"]["moved_bytes"] = front_moved_bytes(
+        rows["bucket_estimate"]["bytes"], BATCH, POLICY_CAPACITY)
+    rows["bucket_estimate"].update(front_row(
+        torch, "bucket_front", lambda kw: bc.bucket_front(
+            debt, moderate, limit=LIMIT, **kw),
+        {TPU_LANE: lanes["halves"],
+         "raw ids": dict(keys=raw, premix=True, seed=SEED, n=n),
+         "raw ids + policy": main},
+        # h1, h2 in, est out (no n); debt per touched cell.
+        BATCH * (16 + 8) + touched * 8))
     rows["bucket_update"]["large_batch"] = large_batch(
         torch, "bucket_update", rng, seed,
         lambda d_, a, k1, k2, _, used: bc.bucket_update(
@@ -673,6 +878,11 @@ def drive(lim, batches, keys, *, advance: float = 0.1, inflight: int = 4):
     return out
 
 
+#: Timed runs of each main path's trace (the first one is also checked
+#: and counted).
+REPEATS = 5
+
+
 def check_path(torch, name: str, cfg, batches, keys, advance: float,
                counters, required, state_keys) -> dict:
     """One main path on the card against the same trace on the CPU: every
@@ -734,14 +944,31 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
             raise AssertionError(f"{name}: {k} was not launched on the main "
                                  f"path")
     denied = sum(int((~r.allowed).sum()) for r in got)
-    out = {"counts": counts, "steps_per_s": len(got) / wall,
+    # The same trace again on fresh limiters, for the spread of the rate.
+    walls = [wall]
+    for _ in range(REPEATS - 1):
+        again = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                               device="cuda")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        drive(again, batches, keys, advance=advance)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        again.close()
+    rates = sorted(len(got) / w for w in walls)
+    wall = statistics.median(walls)
+    out = {"counts": counts, "steps_per_s": statistics.median(rates),
+           "steps_per_s_min": rates[0], "steps_per_s_max": rates[-1],
+           "steps_per_s_runs": [len(got) / w for w in walls],
            "decisions_per_s": decisions / wall, "wall_s": wall,
            "batches": len(got), "decisions": decisions, "denied": denied,
            "extra": {k: v for k, v in extra.items() if k != "saved_at"}}
     log(f"main path {name}: {len(got)} batches, {decisions} decisions, "
         f"{denied} denied, bit-identical to the CPU run; launches {counts}; "
-        f"{out['steps_per_s']:.1f} steps/s, {out['decisions_per_s']:.0f} "
-        f"decisions/s (wall {wall:.3f} s, launch/resolve with 4 in flight)")
+        f"{out['steps_per_s']:.1f} steps/s median of {REPEATS} runs (min "
+        f"{rates[0]:.1f}, max {rates[-1]:.1f}), "
+        f"{out['decisions_per_s']:.0f} decisions/s (launch/resolve with 4 "
+        f"in flight)")
     return out
 
 
@@ -910,6 +1137,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="only build, then sweep the tiled updates' tile, "
                          "cluster and batch sizes (one JSON line)")
+    ap.add_argument("--paths", action="store_true",
+                    help="only build, then drive and profile the main "
+                         "paths (phase 3, one JSON line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -934,8 +1164,9 @@ def main(argv=None) -> int:
         print(card)
         return 0
 
-    rows = check_kernels(torch, args.seed)
-    rows.update(check_bucket_kernels(torch, args.seed))
+    rows = {} if args.paths else check_kernels(torch, args.seed)
+    if not args.paths:
+        rows.update(check_bucket_kernels(torch, args.seed))
     cu = check_main_path(torch, args.seed, args.steps, cu=True)
     vanilla = check_main_path(torch, args.seed + 7, max(32, args.steps // 2),
                               cu=False)
@@ -955,12 +1186,16 @@ def main(argv=None) -> int:
                         0.1)
     prof_tb = profile_path(torch, "TB-zipf", config3("TOKEN_BUCKET"),
                            batches, keys, 0.1)
+    paths = {"card": card, "cu": cu, "vanilla": vanilla, "profile": prof,
+             "TB-c2": tb_c2, "TB-zipf": tb_zipf, "profile_TB-zipf": prof_tb}
+    if args.paths:
+        print(json.dumps({"main_path": paths}))
+        print(card)
+        return 0
     check_server(torch, args.seed, config3(), "windowed")
     check_server(torch, args.seed, config2_bucket(), "TB-c2")
 
-    log(json.dumps({"main_path": {
-        "card": card, "cu": cu, "vanilla": vanilla, "profile": prof,
-        "TB-c2": tb_c2, "TB-zipf": tb_zipf, "profile_TB-zipf": prof_tb}}))
+    log(json.dumps({"main_path": paths}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,18 @@
 // They replace the two Pallas kernels of the JAX package's bucket step
 // (ratelimiter_tpu/ops/pallas_sketch.py):
 //
-//   bucket_estimate  <- bucket_estimate / _bucket_estimate_kernel
+//   bucket_front     <- bucket_estimate / _bucket_estimate_kernel, with
+//                       the step's hashing, policy lookup, available quota
+//                       and request units around it
 //   bucket_update    <- bucket_update / _bucket_update_kernel
 //
 // The Pallas kernels grid sequentially over the d sketch rows and keep a
 // whole (w,) row in VMEM. Here blocks run in parallel and in no order.
-// bucket_estimate: one thread per key walks its rows in order.
+// bucket_front: one thread per key (front.cuh) hashes it, issues its d
+// debt loads, searches the policy table while they are in flight, folds
+// the decayed min over rows in row order and writes est, avail and the
+// request's micro-token units; launch-bound (~0.3 MB at B=4096, d=4), it
+// replaces ~50 launches of the step around the estimate with one.
 // bucket_update: one launch in which each block owns a tile of T cells of
 // one row (tile_owner.cuh): it bulk-copies its debt tile into shared
 // memory, builds the tile's exact int64 histogram of `consumed` in shared
@@ -37,45 +43,73 @@
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // the launch's cudaError_t (0 on success). Columns are (h1 + r*h2) & (w-1)
-// in uint32 arithmetic; h1/h2 arrive as int64 holding 0..2^32-1. The decay
+// in uint32 arithmetic; h1/h2 are int64 holding 0..2^32-1. The decay
 // arrives by value.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "front.cuh"
 #include "tile_owner.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr long long kCap = 1LL << 61;
+constexpr long long kMicros = 1000000;
 
-__device__ __forceinline__ uint32_t column(const int64_t* h1,
-                                           const int64_t* h2, int i, int r,
-                                           uint32_t mask) {
-  uint32_t a = static_cast<uint32_t>(h1[i]);
-  uint32_t b = static_cast<uint32_t>(h2[i]);
-  return (a + static_cast<uint32_t>(r) * b) & mask;
-}
+struct BucketFront {
+  const long long* debt;
+  long long decay;
+  rl_front::Keys keys;
+  const int32_t* n;       // nullptr: est only (the reset)
+  rl_front::Policy policy;
+  long long* est;         // min over rows of max(0, debt - decay)
+  long long* avail;       // max(limit * 10^6 - est, 0)
+  long long* n_units;     // n * 10^6
+  int B, d, w;
+};
 
-// One thread per key: walk the d rows in order, min-fold the decayed debt.
-__global__ void bucket_estimate_kernel(const long long* __restrict__ debt,
-                                       long long decay,
-                                       const int64_t* __restrict__ h1,
-                                       const int64_t* __restrict__ h2,
-                                       long long* __restrict__ est, int B,
-                                       int d, int w) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const uint32_t mask = static_cast<uint32_t>(w - 1);
-  long long acc = 0;
-  for (int r = 0; r < d; ++r) {
-    const size_t cell = static_cast<size_t>(r) * w + column(h1, h2, i, r, mask);
-    long long e = debt[cell] - decay;
-    e = e > 0 ? e : 0;
-    acc = (r == 0 || e < acc) ? e : acc;
+// Integers stay integers: every quantity is an exact int64 (limits are
+// below 2^42 / 10^6, debts in [0, 2^61], decay below 2^63).
+template <int kTable, int kDepth>
+__global__ void __launch_bounds__(rl_front::kMaxThreads)
+    bucket_front_kernel(const BucketFront a) {
+  constexpr int kRows = kDepth != 0 ? kDepth : rl_front::kMaxDepth;
+  extern __shared__ __align__(16) long long table[];
+  __shared__ __align__(8) uint64_t bar;
+  const long long* keys = rl_front::stage_table<kTable>(a.policy, table, &bar);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) {
+    rl_front::drain_table<kTable>(&bar);
+    return;
   }
-  est[i] = acc;
+  uint32_t h1, h2;
+  rl_front::halves(a.keys, i, h1, h2);
+  // Every cell load is issued before the policy search and the fold.
+  long long x[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d)
+      x[r] = __ldg(a.debt + rl_front::cell(h1, h2, r, a.w));
+  }
+  const int32_t n = a.n != nullptr ? __ldg(a.n + i) : 0;
+  const long long lim =
+      rl_front::policy_limit<kTable>(a.policy, keys, &bar, h1, h2);
+  long long est = 0;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d) {
+      long long e = x[r] - a.decay;
+      e = e > 0 ? e : 0;
+      est = (r == 0 || e < est) ? e : est;
+    }
+  }
+  a.est[i] = est;
+  if (a.n != nullptr) {
+    const long long avail = lim * kMicros - est;
+    a.avail[i] = avail > 0 ? avail : 0;
+    a.n_units[i] = static_cast<long long>(n) * kMicros;
+  }
 }
 
 __device__ __forceinline__ long long capped(long long x) {
@@ -176,25 +210,44 @@ __global__ void __launch_bounds__(rl_tile::kThreads)
   }
 }
 
-inline int blocks_for(long long n) {
-  return static_cast<int>((n + kThreads - 1) / kThreads);
-}
+// front.cuh's launch() picks the table mode and the depth build.
+struct BucketFrontKernel {
+  template <int kTable, int kDepth>
+  static void run(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                  const BucketFront& a) {
+    bucket_front_kernel<kTable, kDepth><<<grid, threads, smem, s>>>(a);
+  }
+};
 
 }  // namespace
 
 extern "C" {
 
-int rl_bucket_estimate(const void* debt, long long decay, const void* h1,
-                       const void* h2, void* est, int B, int d, int w,
-                       void* stream) {
-  if (B > 0) {
-    bucket_estimate_kernel<<<blocks_for(B), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(debt), decay,
-        static_cast<const int64_t*>(h1), static_cast<const int64_t*>(h2),
-        static_cast<long long*>(est), B, d, w);
-  }
-  return static_cast<int>(cudaGetLastError());
+// One launch of ceil(B / threads) blocks (one at B = 0). lane: 0 raw
+// ids (premix), 1 hashed, 2 halves given. pkey == nullptr: no policy
+// table; a key column of at most 4096 rows is staged in shared memory.
+int rl_bucket_front(const void* debt, long long decay, const void* h64,
+                    void* h1, void* h2, unsigned long long seed, int lane,
+                    const void* n, const void* pkey, const void* plimit,
+                    int P, long long limit, void* est, void* avail,
+                    void* n_units, int B, int d, int w, int threads,
+                    void* stream) {
+  BucketFront a;
+  a.debt = static_cast<const long long*>(debt);
+  a.decay = decay;
+  a.keys = {static_cast<const int64_t*>(h64), static_cast<int64_t*>(h1),
+            static_cast<int64_t*>(h2), seed, lane};
+  a.n = static_cast<const int32_t*>(n);
+  a.policy = {static_cast<const long long*>(pkey),
+              static_cast<const long long*>(plimit), P, limit};
+  a.est = static_cast<long long*>(est);
+  a.avail = static_cast<long long*>(avail);
+  a.n_units = static_cast<long long*>(n_units);
+  a.B = B;
+  a.d = d;
+  a.w = w;
+  return rl_front::launch<BucketFrontKernel>(
+      a, threads, static_cast<cudaStream_t>(stream));
 }
 
 // One launch of (w / tile, d) blocks in clusters of `cluster` tiles; runs

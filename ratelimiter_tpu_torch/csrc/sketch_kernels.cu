@@ -3,74 +3,135 @@
 // They replace the three Pallas kernels of the JAX package's decision step
 // (ratelimiter_tpu/ops/pallas_sketch.py):
 //
-//   window_estimate  <- window_estimate / _window_estimate_kernel
+//   window_front     <- window_estimate / _window_estimate_kernel, with
+//                       the step's hashing, boundary weight, policy lookup
+//                       and available quota around it
 //   cu_update        <- cu_update / _cu_update_kernel
 //   add_update       <- add_update / _add_update_kernel
 //
 // The Pallas kernels grid sequentially over the d sketch rows and keep a
 // whole (w,) row in VMEM. Here blocks run in parallel and in no order, so
-// each kernel is re-cut for that: one thread per key (estimate), one
-// thread per (key, row) with atomics (add_update's scatter), and for
-// cu_update one launch in which each block owns a tile of T cells of one
-// row (tile_owner.cuh): it bulk-copies its totals, cur and boundary tiles
-// into shared memory, builds the tile's per-column max of the targets in
-// shared memory while the copies are in flight, then writes every cell of
-// totals and cur. Bound on an H100 (cu_update): totals and cur read and
-// written and boundary read at every cell, 20 bytes a cell, plus the key
-// operands, ~5.3 MB at d=4, w=65536, B=4096, ~1.6 us at 3.35 TB/s; this
-// design moves that plus the keys' re-reads from L2 (every cluster reads
-// them all), and no scratch. The wrappers, their plain PyTorch versions
-// and the tile choice are in ratelimiter_tpu_torch/ops/sketch_cuda.py.
+// each kernel is re-cut for that. window_front: one thread per key
+// (front.cuh) hashes it, issues its 2*d cell loads (totals and boundary),
+// searches the policy table while they are in flight, folds the min over
+// rows in row order and writes est, avail and n_f. It needs ~0.25 MB at
+// B=4096, d=4 (bound ~0.07 us at 3.35 TB/s), so it is launch-bound, and
+// its design is about the launches it saves: the estimate alone used to
+// be one of ~50 launches that fed admission. add_update: one thread per
+// (key, row) with atomics. cu_update: one launch in which each block owns
+// a tile of T cells of one row (tile_owner.cuh): it bulk-copies its
+// totals, cur and boundary tiles into shared memory, builds the tile's
+// per-column max of the targets in shared memory while the copies are in
+// flight, then writes every cell of totals and cur. Bound on an H100
+// (cu_update): totals and cur read and written and boundary read at every
+// cell, 20 bytes a cell, plus the key operands, ~5.3 MB at d=4, w=65536,
+// B=4096, ~1.6 us at 3.35 TB/s; this design moves that plus the keys'
+// re-reads from L2 (every cluster reads them all), and no scratch. The
+// wrappers, their plain PyTorch versions and the launch shapes are in
+// ratelimiter_tpu_torch/ops/sketch_cuda.py.
 //
 // Rounding: the JAX reference computes the boundary-weighted window read
 // t + frac * b as ONE fused multiply-add (XLA contracts it when jitting on
-// the CPU). The kernels spell it __fmaf_rn(frac, b, t), and the library is
-// built with -fmad=false so that nvcc contracts nothing else.
+// the CPU), and frac = clip(1 - e/sub_us, 0, 1) as clip(fma(-e, rcp, 1))
+// with rcp the f32 reciprocal of sub_us. The kernels spell both with
+// __fmaf_rn, and the library is built with -fmad=false so that nvcc
+// contracts nothing else.
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
 // the launch's cudaError_t (0 on success). Columns are (h1 + r*h2) &
-// (w-1) in uint32 arithmetic; h1/h2 arrive as int64 holding 0..2^32-1.
+// (w-1) in uint32 arithmetic; h1/h2 are int64 holding 0..2^32-1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "front.cuh"
 #include "tile_owner.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ uint32_t column(const int64_t* h1,
-                                           const int64_t* h2, int i, int r,
-                                           uint32_t mask) {
-  uint32_t a = static_cast<uint32_t>(h1[i]);
-  uint32_t b = static_cast<uint32_t>(h2[i]);
-  return (a + static_cast<uint32_t>(r) * b) & mask;
+struct WindowFront {
+  const int32_t* totals;
+  const int32_t* boundary;       // nullptr: fixed window
+  const long long* slab_period;  // the boundary is valid when
+  long long want;                // slab_period[slot] == want (p - SW)
+  int slot;                      // p % S
+  float e;                       // f32(now_us - p*sub_us)
+  float rcp;                     // f32(1) / f32(sub_us)
+  rl_front::Keys keys;
+  const int32_t* n;              // nullptr: est and frac only (the reset)
+  rl_front::Policy policy;
+  float* est;                    // clamped at 0
+  float* frac;                   // 0-d; written with a boundary
+  float* avail;
+  float* n_f;
+  int B, d, w;
+};
+
+// clip(1 - e/sub_us, 0, 1) as XLA computes it, when the boundary slab
+// holds period p - SW (``held``); 0 when it is stale.
+__device__ __forceinline__ float boundary_weight(const WindowFront& a,
+                                                 long long held) {
+  const float f = fminf(fmaxf(__fmaf_rn(-a.e, a.rcp, 1.0f), 0.0f), 1.0f);
+  return held == a.want ? f : 0.0f;
 }
 
-// One thread per key: walk the d rows in order, min-fold the window read.
-__global__ void window_estimate_kernel(const int32_t* __restrict__ totals,
-                                       const int32_t* __restrict__ boundary,
-                                       const float* __restrict__ frac_ptr,
-                                       const int64_t* __restrict__ h1,
-                                       const int64_t* __restrict__ h2,
-                                       float* __restrict__ est, int B, int d,
-                                       int w) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  const uint32_t mask = static_cast<uint32_t>(w - 1);
-  const float frac = boundary != nullptr ? *frac_ptr : 0.0f;
-  float acc = 0.0f;
-  for (int r = 0; r < d; ++r) {
-    const size_t cell = static_cast<size_t>(r) * w + column(h1, h2, i, r, mask);
-    const float t = static_cast<float>(totals[cell]);
-    const float e = boundary != nullptr
-                        ? __fmaf_rn(frac, static_cast<float>(boundary[cell]), t)
-                        : t;
-    acc = r == 0 ? e : fminf(acc, e);
+template <int kTable, int kDepth>
+__global__ void __launch_bounds__(rl_front::kMaxThreads)
+    window_front_kernel(const WindowFront a) {
+  constexpr int kRows = kDepth != 0 ? kDepth : rl_front::kMaxDepth;
+  extern __shared__ __align__(16) long long table[];
+  __shared__ __align__(8) uint64_t bar;
+  const long long* keys = rl_front::stage_table<kTable>(a.policy, table, &bar);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool weighted = a.boundary != nullptr;
+  if (i >= a.B) {
+    // B = 0: thread 0 still writes frac.
+    if (i == 0 && weighted)
+      *a.frac = boundary_weight(a, a.slab_period[a.slot]);
+    rl_front::drain_table<kTable>(&bar);
+    return;
   }
-  est[i] = acc;
+  uint32_t h1, h2;
+  rl_front::halves(a.keys, i, h1, h2);
+  // Every load is issued before the policy search and the fold: the 2*d
+  // cells, n and the boundary slab's period (which only the fold needs).
+  int32_t t[kRows], b[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d) {
+      const size_t c = rl_front::cell(h1, h2, r, a.w);
+      t[r] = __ldg(a.totals + c);
+      b[r] = weighted ? __ldg(a.boundary + c) : 0;
+    }
+  }
+  const int32_t n = a.n != nullptr ? __ldg(a.n + i) : 0;
+  const long long held = weighted ? __ldg(a.slab_period + a.slot) : 0;
+  const long long lim =
+      rl_front::policy_limit<kTable>(a.policy, keys, &bar, h1, h2);
+  const float frac = weighted ? boundary_weight(a, held) : 0.0f;
+  if (i == 0 && weighted) *a.frac = frac;
+  // Min over rows in row order, then the clamp at 0.
+  float est = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d) {
+      const float tf = static_cast<float>(t[r]);
+      const float e =
+          weighted ? __fmaf_rn(frac, static_cast<float>(b[r]), tf) : tf;
+      est = r == 0 ? e : fminf(est, e);
+    }
+  }
+  est = est < 0.0f ? 0.0f : est;
+  a.est[i] = est;
+  if (a.n != nullptr) {
+    // Limits are < 2^24, exact in f32.
+    const float avail = static_cast<float>(lim) - est;
+    a.avail[i] = avail < 0.0f ? 0.0f : avail;
+    a.n_f[i] = static_cast<float>(n);
+  }
 }
 
 __device__ __forceinline__ int cu_delta(float m, int32_t t, int32_t b,
@@ -169,32 +230,62 @@ __global__ void add_update_kernel(int32_t* __restrict__ totals,
   const int r = j - i * d;
   const int32_t a = add[i];
   if (a == 0) return;
-  const size_t cell = static_cast<size_t>(r) * w +
-                      column(h1, h2, i, r, static_cast<uint32_t>(w - 1));
-  atomicAdd(totals + cell, a);
-  atomicAdd(cur + cell, a);
+  const size_t c = rl_front::cell(static_cast<uint32_t>(h1[i]),
+                                  static_cast<uint32_t>(h2[i]), r, w);
+  atomicAdd(totals + c, a);
+  atomicAdd(cur + c, a);
 }
 
 inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
+// front.cuh's launch() picks the table mode and the depth build.
+struct WindowFrontKernel {
+  template <int kTable, int kDepth>
+  static void run(dim3 grid, int threads, size_t smem, cudaStream_t s,
+                  const WindowFront& a) {
+    window_front_kernel<kTable, kDepth><<<grid, threads, smem, s>>>(a);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-int rl_window_estimate(const void* totals, const void* boundary,
-                       const void* frac, const void* h1, const void* h2,
-                       void* est, int B, int d, int w, void* stream) {
-  if (B > 0) {
-    window_estimate_kernel<<<blocks_for(B), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(totals),
-        static_cast<const int32_t*>(boundary),
-        static_cast<const float*>(frac), static_cast<const int64_t*>(h1),
-        static_cast<const int64_t*>(h2), static_cast<float*>(est), B, d, w);
-  }
-  return static_cast<int>(cudaGetLastError());
+// One launch of ceil(B / threads) blocks (one at B = 0). lane: 0 raw
+// ids (premix), 1 hashed, 2 halves given. pkey == nullptr: no policy
+// table; a key column of at most 4096 rows is staged in shared memory.
+int rl_window_front(const void* totals, const void* boundary,
+                    const void* slab_period, long long want, int slot,
+                    float e, float rcp, const void* h64, void* h1, void* h2,
+                    unsigned long long seed, int lane, const void* n,
+                    const void* pkey, const void* plimit, int P,
+                    long long limit, void* est, void* frac, void* avail,
+                    void* n_f, int B, int d, int w, int threads,
+                    void* stream) {
+  WindowFront a;
+  a.totals = static_cast<const int32_t*>(totals);
+  a.boundary = static_cast<const int32_t*>(boundary);
+  a.slab_period = static_cast<const long long*>(slab_period);
+  a.want = want;
+  a.slot = slot;
+  a.e = e;
+  a.rcp = rcp;
+  a.keys = {static_cast<const int64_t*>(h64), static_cast<int64_t*>(h1),
+            static_cast<int64_t*>(h2), seed, lane};
+  a.n = static_cast<const int32_t*>(n);
+  a.policy = {static_cast<const long long*>(pkey),
+              static_cast<const long long*>(plimit), P, limit};
+  a.est = static_cast<float*>(est);
+  a.frac = static_cast<float*>(frac);
+  a.avail = static_cast<float*>(avail);
+  a.n_f = static_cast<float*>(n_f);
+  a.B = B;
+  a.d = d;
+  a.w = w;
+  return rl_front::launch<WindowFrontKernel>(
+      a, threads, static_cast<cudaStream_t>(stream));
 }
 
 // One launch of (w / tile, d) blocks in clusters of `cluster` tiles; runs

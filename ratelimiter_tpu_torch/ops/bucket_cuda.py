@@ -1,10 +1,12 @@
 """The token bucket's table kernels: CUDA wrappers and plain versions.
 
-Each function here replaces one Pallas kernel of the JAX package
+Each wrapper here replaces one Pallas kernel of the JAX package
 (``ratelimiter_tpu/ops/pallas_sketch.py``) with a kernel written by hand
 for Hopper (``csrc/bucket_kernels.cu``, built by ``ops/_build.py`` and
 called through ctypes), beside a plain PyTorch version of the same
-function:
+function. ``bucket_front`` replaces ``bucket_estimate`` together with the
+step's ops around it (hashing, policy lookup, available quota, request
+units):
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -13,8 +15,9 @@ function:
   kernel bit-equal to its plain version on the card.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``bucket_estimate.launches``, ``bucket_update.launches``);
-``launch_counts`` and ``reset_launch_counts`` read and clear them.
+(``bucket_front.launches``, ``bucket_update.launches``); ``launch_counts``
+reads them under the names of the TPU kernels they replace and
+``reset_launch_counts`` clears them.
 
 All arithmetic is int64 and exact, so no order of operations (rows in a
 thread, shared-memory atomics in any order) can change a result. The
@@ -28,10 +31,17 @@ from typing import Optional
 
 import torch
 
-from ratelimiter_tpu_torch.ops import _build
+from ratelimiter_tpu_torch.core.clock import MICROS
+from ratelimiter_tpu_torch.ops import _build, sketch_cuda
+from ratelimiter_tpu_torch.ops.hashing import halves_dev
+from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
 from ratelimiter_tpu_torch.ops.sketch_cuda import (
     _check,
+    _check_front,
     _columns,
+    _key_args,
+    _policy_args,
+    _ptr,
     _raise_on,
     _stream,
     tiling,
@@ -49,10 +59,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if id(lib) not in _configured:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.rl_bucket_estimate.argtypes = [P, L, P, P, P, I, I, I, P]
+        U = ctypes.c_uint64
+        lib.rl_bucket_front.argtypes = [P, L, P, P, P, U, I, P, P, P, I, L,
+                                        P, P, P, I, I, I, I, P]
         lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, I, I, I,
                                          P]
-        for fn in (lib.rl_bucket_estimate, lib.rl_bucket_update):
+        for fn in (lib.rl_bucket_front, lib.rl_bucket_update):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
@@ -105,6 +117,24 @@ def bucket_estimate_plain(debt, decay: int, h1, h2) -> torch.Tensor:
     return est
 
 
+def bucket_front_plain(debt, decay: int, keys, n=None, *,
+                       premix: bool = False, seed: int = 0, policy=None,
+                       limit: int = 0) -> tuple:
+    """The bucket step's front as the step composed it before the front
+    kernel: the keys' halves (``halves_dev``), the decayed estimate, each
+    key's limit (``limits_dev``), the available quota ``max(limit * 10^6
+    - est, 0)`` and the request units ``n * 10^6``, all int64. Returns
+    ``(h1, h2, est, avail, n_units)``; the last two are None without
+    ``n``."""
+    h1, h2 = halves_dev(keys, premix, seed)
+    est = bucket_estimate_plain(debt, decay, h1, h2)
+    if n is None:
+        return h1, h2, est, None, None
+    cap = limits_dev(policy, h1, h2, limit) * MICROS
+    return (h1, h2, est, torch.clamp_min(cap - est, 0),
+            n.to(torch.int64) * MICROS)
+
+
 def bucket_update_plain(debt, acc, decay: int, h1, h2, consumed) -> None:
     """Decay and consume, in place, over EVERY cell: ``debt = min(max(0,
     debt - decay) + h, CAP)`` and ``acc = min(acc + h, CAP)``, where h is
@@ -126,29 +156,47 @@ def bucket_update_plain(debt, acc, decay: int, h1, h2, consumed) -> None:
 # --------------------------------------------------------------- wrappers
 
 
-def bucket_estimate(debt: torch.Tensor, decay: int, h1: torch.Tensor,
-                    h2: torch.Tensor) -> torch.Tensor:
-    """Replaces Pallas ``bucket_estimate`` (pallas_sketch.py:270-288).
+def bucket_front(debt: torch.Tensor, decay: int, keys,
+                 n: Optional[torch.Tensor] = None, *, premix: bool = False,
+                 seed: int = 0, policy=None, limit: int = 0) -> tuple:
+    """Replaces Pallas ``bucket_estimate`` (pallas_sketch.py:270-288) and
+    the step's ops around it: ``bucket_front_plain``'s function in one
+    launch. ``keys`` is an int64 (B,) tensor of finalized 64-bit hashes,
+    of raw ids (``premix=True``), or the pair (h1, h2); ``n`` None asks
+    for the estimate alone (the reset); ``policy`` the device table's
+    ``key``/``limit`` columns.
 
-    Bound on an H100: d*B random 8-byte reads (one 32-byte sector each)
-    plus the (B,) operands — about 0.2 MB at B=4096, d=4, a fraction of a
-    microsecond at 3.35 TB/s, so the kernel is launch-bound. Design: one
-    thread per key walks its d rows in order with a running int64 min
-    (the Pallas kernel's sequential row grid becomes a loop in the
-    thread); the decayed slab is never materialised."""
-    d, w, B = _check_common(debt, h1, h2)
+    Bound on an H100: each key's staged key, ``n`` and five int64 outputs
+    once, its touched debt cells, and the policy key column once, ~0.3 MB
+    at B=4096, d=4 with the default 1024-row table: ~0.09 us at
+    3.35 TB/s, so one launch is the cost.
+    Design (csrc/front.cuh): one thread per key hashes it, issues its d
+    debt loads, searches the policy table (staged in each block's shared
+    memory when it has at most 4096 rows) while they are in flight, folds
+    ``max(0, debt - decay)`` over rows in row order and writes est, avail
+    and n_units; the decayed slab is never materialised."""
+    d, w, B = _check_front(debt, "debt", torch.int64, keys, n, policy)
     decay = _check_decay(decay)
-    if debt.device.type == "cpu":
-        return bucket_estimate_plain(debt, decay, h1, h2)
-    if debt.device.type != "cuda":
-        raise ValueError(f"unsupported device {debt.device}")
-    est = torch.empty(B, dtype=torch.int64, device=debt.device)
-    err = _lib().rl_bucket_estimate(
-        debt.data_ptr(), decay, h1.data_ptr(), h2.data_ptr(), est.data_ptr(),
-        B, d, w, _stream(debt))
-    _raise_on(err, "bucket_estimate")
-    bucket_estimate.launches += 1
-    return est
+    dev = debt.device
+    if dev.type == "cpu":
+        return bucket_front_plain(debt, decay, keys, n, premix=premix,
+                                  seed=seed, policy=policy, limit=limit)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    h64, h1, h2, seed, lane = _key_args(keys, premix, seed, B, dev)
+    k = 1 if n is None else 3
+    out = torch.empty(k * B, dtype=torch.int64, device=dev)
+    est = out[:B]
+    avail, n_units = (None, None) if n is None else (out[B:2 * B],
+                                                    out[2 * B:])
+    err = _lib().rl_bucket_front(
+        debt.data_ptr(), decay, _ptr(h64), h1.data_ptr(), h2.data_ptr(),
+        seed, lane, _ptr(n), *_policy_args(policy), limit, est.data_ptr(),
+        _ptr(avail), _ptr(n_units), B, d, w, sketch_cuda.FRONT_THREADS,
+        _stream(debt))
+    _raise_on(err, "bucket_front")
+    bucket_front.launches += 1
+    return h1, h2, est, avail, n_units
 
 
 def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
@@ -196,16 +244,18 @@ def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
     bucket_update.launches += 1
 
 
-KERNELS = (bucket_estimate, bucket_update)
-for _fn in KERNELS:
+#: Each wrapper under the name of the TPU kernel it replaces.
+KERNELS = {"bucket_estimate": bucket_front, "bucket_update": bucket_update}
+for _fn in KERNELS.values():
     _fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """{TPU kernel name: launches of its replacement since the last
+    reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS.values():
         fn.launches = 0

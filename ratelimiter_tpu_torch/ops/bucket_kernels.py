@@ -25,11 +25,12 @@ integers (``_decay``); it reaches the kernels by value. No device value is
 read back, and no scalar launch is spent on it.
 
 PyTorch idiom: the step and the reset update the state dict IN PLACE
-(where the JAX package donates the buffers). The two table accesses go
-through ops/bucket_cuda.py: the hand-written CUDA kernels on a CUDA device,
-their plain versions on the CPU. The rest of the step (hashing, lookup,
-admit, retry and remaining, result assembly) and the whole reset are
-plain PyTorch, as the JAX package computes them outside any Pallas kernel.
+(where the JAX package donates the buffers). The step's front (hashing,
+estimate, policy lookup, available quota, request units) and its table
+update go through ops/bucket_cuda.py: the hand-written CUDA kernels on a
+CUDA device, their plain versions on the CPU. The rest of the step
+(admit, retry and remaining, result assembly) and the reset's decay and
+subtraction are plain PyTorch.
 
 Not ported: the hierarchy cascade (``hierarchy.tenants > 0`` raises,
 ROADMAP A6) and the scan runner ``_bucket_scan``/``build_scan``.
@@ -46,9 +47,8 @@ import torch
 from ratelimiter_tpu_torch.core.clock import MICROS, to_micros
 from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import InvalidConfigError
-from ratelimiter_tpu_torch.ops import bucket_cuda, policy_kernels
+from ratelimiter_tpu_torch.ops import bucket_cuda
 from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP as _DEBT_CAP
-from ratelimiter_tpu_torch.ops.hashing import split_hash_dev, splitmix64_dev
 from ratelimiter_tpu_torch.ops.segment import admit
 from ratelimiter_tpu_torch.ops.sketch_kernels import _PER_MICRO
 
@@ -134,12 +134,13 @@ def _advance(state: State, now_us: int, rem: int) -> None:
     state["last"].fill_(max(int(state["last"]), int(now_us)))
 
 
-def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, *,
-                 limit: int, rate_num: int, rate_den: int, iters: int,
-                 clamp_acc: bool = False):
+def _decide(state: State, keys, n, now_us: int, policy=None, *,
+            premix: bool, seed: int, limit: int, rate_num: int,
+            rate_den: int, iters: int, clamp_acc: bool = False):
     """One decision step over a padded batch, updating ``state`` in place.
 
-    ``h1``/``h2`` int64[B] hash halves, ``n`` int32[B] request counts (0 =
+    ``keys`` the staged int64[B] hashes (raw ids with ``premix``) or an
+    (h1, h2) pair of int64[B] halves, ``n`` int32[B] request counts (0 =
     padding). Returns ``(allowed bool[B], remaining int64[B], retry_us
     int64[B])``. ``clamp_acc`` asks the update to clamp every ``acc`` cell
     at 2^61, after a restore that brought cells above it (the JAX kernel
@@ -149,16 +150,9 @@ def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, *,
     tokens); the decay rate stays the global limit/window, since colliding
     keys share debt cells (the JAX package's documented divergence)."""
     decay, rem = _decay(state, now_us, rate_num=rate_num, rate_den=rate_den)
-    est = bucket_cuda.bucket_estimate(state["debt"], decay, h1, h2)
-    if policy is not None:
-        q = policy_kernels.pack_halves(h1, h2)
-        pidx, pfound = policy_kernels.lookup_i64(policy["key"], q)
-        cap = torch.where(pfound, policy["limit"][pidx].to(torch.int64),
-                          limit) * MICROS
-    else:
-        cap = limit * MICROS
-    avail = torch.clamp_min(cap - est, 0)                 # micro-tokens
-    n_units = n.to(torch.int64) * MICROS
+    h1, h2, _, avail, n_units = bucket_cuda.bucket_front(
+        state["debt"], decay, keys, n, premix=premix, seed=seed,
+        policy=policy, limit=limit)
     allowed, seen, consumed = admit(h1, n_units, avail, iters)
     bucket_cuda.bucket_update(state["debt"], state["acc"], decay, h1, h2,
                               consumed, clamp_acc)
@@ -171,6 +165,12 @@ def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, *,
     return allowed, remaining, retry_us
 
 
+def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, **kw):
+    """``_decide`` on given (h1, h2) halves."""
+    return _decide(state, (h1, h2), n, now_us, policy, premix=False, seed=0,
+                   **kw)
+
+
 def _bucket_reset(state: State, h1, h2, now_us: int, *,
                   rate_num: int, rate_den: int) -> None:
     """Per-key reset, in place: decay the whole slab, then subtract the
@@ -181,7 +181,7 @@ def _bucket_reset(state: State, h1, h2, now_us: int, *,
     debt = state["debt"]
     d, w = debt.shape
     debt.sub_(decay).clamp_min_(0)
-    est = bucket_cuda.bucket_estimate(debt, 0, h1, h2)
+    est = bucket_cuda.bucket_front(debt, 0, (h1, h2))[2]
     # max(0, debt - hist(est)): integer subtractions in any order, then
     # one clamp.
     debt.view(-1).index_add_(0, bucket_cuda.flat_cells(h1, h2, d, w),
@@ -221,16 +221,9 @@ def build_steps(cfg: Config) -> tuple[Callable, Callable]:
     return step, reset
 
 
-def _bucket_step_h64(state: State, h64, n, now_us: int, policy=None, *,
-                     seed: int, premix: bool, **step_kw):
-    h = splitmix64_dev(h64) if premix else h64
-    h1, h2 = split_hash_dev(h, seed)
-    return _bucket_step(state, h1, h2, n, now_us, policy, **step_kw)
-
-
 def build_hashed_step(cfg: Config, *, premix: bool = False) -> Callable:
     """``step(state, h64, n, now_us, policy=None)`` taking finalized 64-bit
     hashes (premix=False) or raw u64 ids (premix=True, splitmix64 runs
     in-step), each as an int64 tensor holding the bits."""
-    return partial(_bucket_step_h64, seed=cfg.sketch.seed, premix=premix,
+    return partial(_decide, seed=cfg.sketch.seed, premix=premix,
                    **_params(cfg))

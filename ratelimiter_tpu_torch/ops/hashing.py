@@ -101,3 +101,12 @@ def split_hash_dev(h64: torch.Tensor, seed: int = 0):
     h1 = h & _MASK32
     h2 = _shr(h, 32) | 1
     return h1, h2
+
+
+def halves_dev(keys, premix: bool, seed: int):
+    """(h1, h2) of a step's keys: an (h1, h2) pair as given, or an int64
+    tensor of finalized 64-bit hashes (raw ids when ``premix``: splitmix64
+    first) split with ``seed``."""
+    if isinstance(keys, tuple):
+        return keys
+    return split_hash_dev(splitmix64_dev(keys) if premix else keys, seed)

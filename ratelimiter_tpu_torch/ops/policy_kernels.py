@@ -44,6 +44,17 @@ def lookup_i64(table_keys: torch.Tensor, queries: torch.Tensor):
     return safe, found
 
 
+def limits_dev(policy, h1: torch.Tensor, h2: torch.Tensor,
+               default: int) -> torch.Tensor:
+    """Each key's limit, int64[B]: its override in the device table
+    ``policy`` (``key``/``limit`` columns), else ``default``; all
+    ``default`` when ``policy`` is None."""
+    if policy is None:
+        return torch.full_like(h1, default)
+    idx, found = lookup_i64(policy["key"], pack_halves(h1, h2))
+    return torch.where(found, policy["limit"][idx], default)
+
+
 def lookup_host(table_keys: np.ndarray, queries: np.ndarray,
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """NumPy twin of lookup_i64 (same contract) for host-side result

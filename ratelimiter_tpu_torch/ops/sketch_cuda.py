@@ -1,10 +1,13 @@
 """The windowed sketch's table kernels: CUDA wrappers and plain versions.
 
-Each function here replaces one Pallas kernel of the JAX package
+Each wrapper here replaces one Pallas kernel of the JAX package
 (``ratelimiter_tpu/ops/pallas_sketch.py``) with a kernel written by hand
 for Hopper (``csrc/sketch_kernels.cu``, built by ``ops/_build.py`` and
 called through ctypes), beside a plain PyTorch version of the same
-function:
+function. ``window_front`` replaces ``window_estimate`` together with the
+step's ops around it (hashing, boundary weight, policy lookup, available
+quota), which the JAX package's jit fuses and the port would otherwise
+launch one by one:
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -13,24 +16,31 @@ function:
   kernel bit-equal to its plain version on the card.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``window_estimate.launches`` ...); ``launch_counts`` and
-``reset_launch_counts`` read and clear them.
+(``window_front.launches`` ...); ``launch_counts`` reads them under the
+names of the TPU kernels they replace and ``reset_launch_counts`` clears
+them.
 
 Rounding. The JAX reference's window read ``f32(t) + frac * f32(b)``
 rounds once, as a fused multiply-add: XLA contracts it when it jits the
 step on the CPU, in the jnp path and in the Pallas interpret path alike.
 The kernels spell ``__fmaf_rn``; the plain versions compute the same
 correctly rounded FMA with ``fma_f32`` below, exactly for every input.
+So is the boundary weight ``clip(1 - e/sub_us, 0, 1)``, as
+``clip(fma(-e, rcp, 1), 0, 1)`` with ``rcp`` the f32 reciprocal of
+``sub_us`` (XLA turns the division by a constant into that product).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ratelimiter_tpu_torch.ops import _build
+from ratelimiter_tpu_torch.ops.hashing import halves_dev
+from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
 
 _SOURCE = "sketch_kernels"
 _configured = set()
@@ -43,15 +53,27 @@ _configured = set()
 #: once per block but launch slower.
 TILE, CLUSTER, CLUSTER_BATCH = 2048, 8, 8192
 
+#: Threads per block of the two front kernels (window_front here,
+#: bucket_front in bucket_cuda.py), read at every launch: one thread per
+#: key. ``chip_smoke.py`` times 64, 128 and 256 on the card.
+FRONT_THREADS = 128
+
+#: The front kernels' key lanes (csrc/front.cuh): raw u64 ids (splitmix64
+#: in the kernel), finalized 64-bit hashes, or the (h1, h2) halves given.
+LANE_PREMIX, LANE_HASHED, LANE_HALVES = 0, 1, 2
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if id(lib) not in _configured:
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.rl_window_estimate.argtypes = [P, P, P, P, P, P, I, I, I, P]
+        L, U, F = ctypes.c_int64, ctypes.c_uint64, ctypes.c_float
+        lib.rl_window_front.argtypes = [P, P, P, L, I, F, F, P, P, P, U, I,
+                                        P, P, P, I, L, P, P, P, P, I, I, I,
+                                        I, P]
         lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
-        for fn in (lib.rl_window_estimate, lib.rl_cu_update,
+        for fn in (lib.rl_window_front, lib.rl_cu_update,
                    lib.rl_add_update):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
@@ -125,6 +147,68 @@ def _check_frac(boundary, frac, d, w, device):
     _check("frac", frac, torch.float32, (), device)
 
 
+class Boundary(NamedTuple):
+    """The sliding window's boundary sub-window as the front reads it: the
+    ring slab at ``slot`` (``p % S``), valid when ``slab_period[slot] ==
+    want`` (``p - SW``), weighted by ``clip(fma(-e, rcp, 1), 0, 1)`` with
+    ``e = f32(now_us - p*sub_us)`` and ``rcp = f32(1) / f32(sub_us)``."""
+
+    slab: torch.Tensor
+    slab_period: torch.Tensor
+    slot: int
+    want: int
+    e: np.float32
+    rcp: np.float32
+
+
+def _check_front(slab, name: str, dtype, keys, n, policy) -> tuple:
+    """The operands both fronts share: the (d, w) slab, the keys (an int64
+    (B,) tensor, or an (h1, h2) pair), ``n`` and the policy table.
+    Returns (d, w, B)."""
+    if slab.dim() != 2:
+        raise ValueError(f"{name} must be (d, w), got {tuple(slab.shape)}")
+    d, w = slab.shape
+    if not 1 <= d <= 16:
+        raise ValueError(f"sketch depth must be in [1, 16], got {d}")
+    if w < 16 or w & (w - 1):
+        raise ValueError(f"sketch width must be a power of two >= 16, got {w}")
+    dev = slab.device
+    _check(name, slab, dtype, (d, w), dev, align16=True)
+    names = ("h1", "h2") if isinstance(keys, tuple) else ("h64",)
+    keys = keys if isinstance(keys, tuple) else (keys,)
+    B = keys[0].shape[0]
+    for k, t in zip(names, keys):
+        _check(k, t, torch.int64, (B,), dev)
+    if n is not None:
+        _check("n", n, torch.int32, (B,), dev)
+    if policy is not None:
+        P = policy["key"].shape[0]
+        if P < 2 or P & (P - 1):
+            raise ValueError(f"table capacity must be a power of two, got {P}")
+        _check("policy key", policy["key"], torch.int64, (P,), dev,
+               align16=True)
+        _check("policy limit", policy["limit"], torch.int64, (P,), dev)
+    return d, w, B
+
+
+def _key_args(keys, premix: bool, seed: int, B: int, device) -> tuple:
+    """(h64, h1, h2, seed, lane) for a front launch; h1 and h2 are the
+    given halves or new (B,) outputs."""
+    if isinstance(keys, tuple):
+        return None, keys[0], keys[1], 0, LANE_HALVES
+    h1, h2 = torch.empty((2, B), dtype=torch.int64, device=device).unbind()
+    return (keys, h1, h2, seed & 0xFFFFFFFFFFFFFFFF,
+            LANE_PREMIX if premix else LANE_HASHED)
+
+
+def _policy_args(policy) -> tuple:
+    """(key column, limit column, capacity) for a front launch."""
+    if policy is None:
+        return None, None, 0
+    return (policy["key"].data_ptr(), policy["limit"].data_ptr(),
+            policy["key"].shape[0])
+
+
 # ------------------------------------------------------------ plain forms
 
 
@@ -175,6 +259,40 @@ def window_estimate_plain(totals, boundary, frac, h1, h2) -> torch.Tensor:
     return est
 
 
+def frac_plain(e: np.float32, rcp: np.float32) -> torch.Tensor:
+    """The boundary weight ``clip(fma(-e, rcp, 1), 0, 1)``, a 0-d f32 CPU
+    tensor."""
+    return fma_f32(torch.tensor(-e), torch.tensor(rcp),
+                   torch.ones((), dtype=torch.float32)).clamp(0.0, 1.0)
+
+
+def window_front_plain(totals, keys, n=None, *, premix: bool = False,
+                       seed: int = 0, boundary: Optional[Boundary] = None,
+                       policy=None, limit: int = 0) -> tuple:
+    """The windowed step's front as the step composed it before the front
+    kernel: the keys' halves (``halves_dev``), the boundary weight (0 when
+    the slab is stale), the estimate clamped at 0, each key's limit
+    (``limits_dev``) and the available quota ``max(f32(limit) - est, 0)``.
+    Returns ``(h1, h2, est, frac, avail, n_f)``; ``frac`` is None without
+    a boundary, ``avail`` and ``n_f`` are None without ``n``."""
+    h1, h2 = halves_dev(keys, premix, seed)
+    slab = frac = None
+    if boundary is not None:
+        slab = boundary.slab
+        valid = boundary.slab_period[boundary.slot] == boundary.want
+        # An f32 value as a Python float is exact, and stays on the host.
+        frac = torch.where(valid, float(frac_plain(boundary.e, boundary.rcp)),
+                           0.0)
+    est = torch.clamp_min(window_estimate_plain(totals, slab, frac, h1, h2),
+                          0.0)
+    if n is None:
+        return h1, h2, est, frac, None, None
+    # Exact in f32: limits are < 2^24.
+    lim_f = limits_dev(policy, h1, h2, limit).to(torch.float32)
+    return (h1, h2, est, frac, torch.clamp_min(lim_f - est, 0.0),
+            n.to(torch.float32))
+
+
 def cu_update_plain(totals, cur, boundary, frac, h1, h2, target) -> None:
     """Conservative update, in place: per row, the max target per column,
     then over EVERY cell ``delta = ceil(max(m - read, 0))`` added to both
@@ -205,32 +323,64 @@ def add_update_plain(totals, cur, h1, h2, add) -> None:
 # --------------------------------------------------------------- wrappers
 
 
-def window_estimate(totals: torch.Tensor, boundary: Optional[torch.Tensor],
-                    frac: Optional[torch.Tensor], h1: torch.Tensor,
-                    h2: torch.Tensor) -> torch.Tensor:
-    """Replaces Pallas ``window_estimate`` (pallas_sketch.py:144-166).
+def window_front(totals: torch.Tensor, keys, n: Optional[torch.Tensor] = None,
+                 *, premix: bool = False, seed: int = 0,
+                 boundary: Optional[Boundary] = None, policy=None,
+                 limit: int = 0) -> tuple:
+    """Replaces Pallas ``window_estimate`` (pallas_sketch.py:144-166) and
+    the step's ops around it: ``window_front_plain``'s function in one
+    launch. ``keys`` is an int64 (B,) tensor of finalized 64-bit hashes,
+    of raw ids (``premix=True``), or the pair (h1, h2); ``n`` None asks
+    for the estimate alone (the reset); ``boundary`` None is a fixed
+    window; ``policy`` the device table's ``key``/``limit`` columns.
 
-    Bound on an H100: 2*d*B random 4-byte reads, one 32-byte sector each,
-    plus the (B,) operands — about 1.1 MB at B=4096, d=4, a fraction of a
-    microsecond at 3.35 TB/s, so the kernel is launch-bound. Design: one
-    thread per key walks its d rows in order (the Pallas kernel's
-    sequential row grid becomes a loop in the thread), so the min folds
-    in the reference's order and no (B, d) column matrix is written.
-    ``boundary=None`` means a fixed window: t alone, with no zero slab."""
-    d, w, B = _check_common(totals, h1, h2)
-    _check_frac(boundary, frac, d, w, totals.device)
-    if totals.device.type == "cpu":
-        return window_estimate_plain(totals, boundary, frac, h1, h2)
-    if totals.device.type != "cuda":
-        raise ValueError(f"unsupported device {totals.device}")
-    est = torch.empty(B, dtype=torch.float32, device=totals.device)
-    err = _lib().rl_window_estimate(
-        totals.data_ptr(), _ptr(boundary), _ptr(frac) if boundary is not None
-        else None, h1.data_ptr(), h2.data_ptr(), est.data_ptr(), B, d, w,
+    Bound on an H100: each key's staged key, ``n`` and five outputs once,
+    its touched cells of ``totals`` and the boundary, and the policy key
+    column once, ~0.25 MB at B=4096, d=4 with the default 1024-row table:
+    ~0.07 us at 3.35 TB/s, so one launch is the cost. Design
+    (csrc/front.cuh): one thread per key hashes it, issues all 2*d cell
+    loads, then searches the policy table (staged into shared memory by
+    one bulk copy per block when it has at most 4096 rows, so each of the
+    ceil(B / FRONT_THREADS) blocks reads the column again, from L2) while
+    they are in flight, folds the min over rows in row order (the Pallas
+    kernel's sequential row grid becomes a loop in the thread) and writes
+    est, avail and n_f; thread 0 writes ``frac``, which ``cu_update``
+    reads."""
+    d, w, B = _check_front(totals, "totals", torch.int32, keys, n, policy)
+    dev = totals.device
+    if boundary is not None:
+        S = boundary.slab_period.shape[0]
+        _check("boundary", boundary.slab, torch.int32, (d, w), dev,
+               align16=True)
+        _check("slab_period", boundary.slab_period, torch.int64, (S,), dev)
+        if not 0 <= boundary.slot < S:
+            raise ValueError(f"boundary slot {boundary.slot} outside the "
+                             f"ring of {S}")
+    if dev.type == "cpu":
+        return window_front_plain(totals, keys, n, premix=premix, seed=seed,
+                                  boundary=boundary, policy=policy,
+                                  limit=limit)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    h64, h1, h2, seed, lane = _key_args(keys, premix, seed, B, dev)
+    k = 1 if n is None else 3
+    out = torch.empty(k * B + 1, dtype=torch.float32, device=dev)
+    est, frac = out[:B], out[k * B]
+    avail, n_f = (None, None) if n is None else (out[B:2 * B],
+                                                out[2 * B:3 * B])
+    bnd = (boundary.slab.data_ptr(), boundary.slab_period.data_ptr(),
+           boundary.want, boundary.slot, float(boundary.e),
+           float(boundary.rcp)) if boundary is not None else (
+               None, None, 0, 0, 0.0, 0.0)
+    err = _lib().rl_window_front(
+        totals.data_ptr(), *bnd, _ptr(h64), h1.data_ptr(), h2.data_ptr(),
+        seed, lane, _ptr(n), *_policy_args(policy), limit, est.data_ptr(),
+        frac.data_ptr(), _ptr(avail), _ptr(n_f), B, d, w, FRONT_THREADS,
         _stream(totals))
-    _raise_on(err, "window_estimate")
-    window_estimate.launches += 1
-    return est
+    _raise_on(err, "window_front")
+    window_front.launches += 1
+    return (h1, h2, est, frac if boundary is not None else None, avail,
+            n_f)
 
 
 def cu_update(totals: torch.Tensor, cur: torch.Tensor,
@@ -298,16 +448,19 @@ def add_update(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     add_update.launches += 1
 
 
-KERNELS = (window_estimate, cu_update, add_update)
-for _fn in KERNELS:
+#: Each wrapper under the name of the TPU kernel it replaces.
+KERNELS = {"window_estimate": window_front, "cu_update": cu_update,
+           "add_update": add_update}
+for _fn in KERNELS.values():
     _fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """{TPU kernel name: launches of its replacement since the last
+    reset}."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS.values():
         fn.launches = 0

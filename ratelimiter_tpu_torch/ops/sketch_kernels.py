@@ -19,20 +19,24 @@ Design, as in the JAX package:
 PyTorch idiom: the state is a dict of tensors that the step, the reset and
 the rollover update IN PLACE (where the JAX package donates the buffers and
 gets new ones back). Stream order keeps consecutive steps sequential. The
-three table accesses go through ops/sketch_cuda.py: the hand-written CUDA
-kernels on a CUDA device, their plain versions on the CPU. The rest of the
-step (hashing, lookup, admit, result assembly) is plain PyTorch.
+step's front (hashing, boundary weight, estimate, policy lookup, available
+quota) and its two table updates go through ops/sketch_cuda.py: the
+hand-written CUDA kernels on a CUDA device, their plain versions on the
+CPU. The rest of the step (admit, the CU targets, remaining, result
+assembly) is plain PyTorch.
 
 Unlike the JAX step, which reads the period from ``state["last_period"]``,
 the port's step takes it from the host (``period=``, the limiter's mirror
 ``_host_period``, equal to it by construction): the boundary slab is then
 a zero-copy view ``slabs[period % S]`` and no device value is read back.
+The boundary weight's operands are host scalars too (``frac_operands``);
+the front kernel computes the weight itself.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -41,8 +45,7 @@ from ratelimiter_tpu_torch.core.clock import to_micros
 from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import InvalidConfigError
 from ratelimiter_tpu_torch.core.types import Algorithm
-from ratelimiter_tpu_torch.ops import policy_kernels, sketch_cuda
-from ratelimiter_tpu_torch.ops.hashing import split_hash_dev, splitmix64_dev
+from ratelimiter_tpu_torch.ops import sketch_cuda
 from ratelimiter_tpu_torch.ops.segment import admit
 
 State = Dict[str, torch.Tensor]
@@ -126,74 +129,54 @@ def _rollover(state: State, p: int, *, SW: int, S: int) -> None:
     state["last_period"].fill_(p)
 
 
-def boundary_frac(p: int, now_us: int, sub_us: int) -> float:
-    """The boundary sub-window's remaining-overlap weight at now_us,
-    ``clip(1 - elapsed/sub_us, 0, 1)`` in f32 as the JAX reference computes
-    it once XLA has compiled it: the division by the constant ``sub_us``
-    becomes a multiplication by its f32 reciprocal, and ``1 - e*r`` one
-    fused multiply-add. (So frac is not always a multiple of 2^-24.)"""
-    e = torch.tensor(np.float32(now_us - p * sub_us))
-    r = torch.tensor(np.float32(1.0) / np.float32(sub_us))
-    return float(sketch_cuda.fma_f32(-e, r, torch.tensor(np.float32(1.0)))
-                 .clamp(0.0, 1.0))
+def frac_operands(p: int, now_us: int, sub_us: int):
+    """(e, rcp) of the boundary weight at now_us in period p:
+    ``e = f32(now_us - p*sub_us)`` and ``rcp = f32(1) / f32(sub_us)``, NumPy
+    float32 scalars."""
+    return (np.float32(now_us - p * sub_us),
+            np.float32(1.0) / np.float32(sub_us))
 
 
-def _boundary_weight(state: State, p: int, now_us: int, *, sub_us: int,
-                     SW: int, S: int, weighted: bool):
-    """(frac, boundary) for the sliding-window boundary sub-window:
-    ``frac`` a 0-d f32 tensor (0 when the slab at ``p % S`` is not period
-    p-SW), ``boundary`` a view of that ring slab; (None, None) in fixed
+def _boundary(state: State, p: int, now_us: int, *, sub_us: int, SW: int,
+              S: int, weighted: bool) -> Optional[sketch_cuda.Boundary]:
+    """The sliding-window boundary sub-window for the front: the ring slab
+    at ``p % S`` (a view), valid when it holds period p-SW; None in fixed
     mode."""
     if not weighted:
-        return None, None
-    b_idx = p % S
-    valid = state["slab_period"][b_idx] == p - SW
-    frac = valid.to(torch.float32) * boundary_frac(p, now_us, sub_us)
-    return frac, state["slabs"][b_idx]
+        return None
+    slot = p % S
+    return sketch_cuda.Boundary(state["slabs"][slot], state["slab_period"],
+                                slot, p - SW,
+                                *frac_operands(p, now_us, sub_us))
 
 
-def _estimate(state: State, h1, h2, p: int, now_us: int, *, sub_us: int,
-              SW: int, S: int, weighted: bool):
-    """Min-over-rows window estimate at each key's columns, clamped at 0
-    (the direct regime of the JAX package's _estimate, through the
-    window_estimate kernel). Returns (est, frac, boundary)."""
-    frac, boundary = _boundary_weight(state, p, now_us, sub_us=sub_us,
-                                      SW=SW, S=S, weighted=weighted)
-    est = sketch_cuda.window_estimate(state["totals"], boundary, frac, h1, h2)
-    return torch.clamp_min(est, 0.0), frac, boundary
-
-
-def _sketch_step(state: State, h1, h2, n, now_us: int, policy=None, *,
-                 period: int, limit: int, sub_us: int, SW: int, S: int,
-                 iters: int, weighted: bool, conservative: bool):
+def _decide(state: State, keys, n, now_us: int, policy=None, *,
+            premix: bool, seed: int, period: int, limit: int, sub_us: int,
+            SW: int, S: int, iters: int, weighted: bool,
+            conservative: bool):
     """One decision step over a padded batch, updating ``state`` in place.
 
-    ``h1``/``h2`` int64[B] hash halves, ``n`` int32[B] request counts (0 =
+    ``keys`` the staged int64[B] hashes (raw ids with ``premix``) or an
+    (h1, h2) pair of int64[B] halves, ``n`` int32[B] request counts (0 =
     padding), ``now_us`` the batch timestamp. Precondition (host-enforced
     by the limiter's _sync_period): ``period`` is state's last_period.
     Returns ``(allowed bool[B], remaining int32[B], est f32[B])``."""
     # Clamp defends against clock skew backwards, as in the reference.
     now_us = max(now_us, period * sub_us)
-    est, frac, boundary = _estimate(state, h1, h2, period, now_us,
-                                    sub_us=sub_us, SW=SW, S=S,
-                                    weighted=weighted)
-    if policy is not None:
-        q = policy_kernels.pack_halves(h1, h2)
-        pidx, pfound = policy_kernels.lookup_i64(policy["key"], q)
-        lim_f = torch.where(pfound, policy["limit"][pidx],
-                            limit).to(torch.float32)
-    else:
-        lim_f = float(limit)     # exact in f32: limits are < 2^24
-    avail = torch.clamp_min(lim_f - est, 0.0)
-    n_f = n.to(torch.float32)
+    bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
+                    weighted=weighted)
+    h1, h2, est, frac, avail, n_f = sketch_cuda.window_front(
+        state["totals"], keys, n, premix=premix, seed=seed, boundary=bnd,
+        policy=policy, limit=limit)
     allowed, seen, _ = admit(h1, n_f, avail, iters)
 
     if conservative:
         # Raise each touched cell only as high as the largest single-key
         # post-batch target that maps to it; denied requests target 0.
         target = torch.where(allowed, est + (avail - seen) + n_f, 0.0)
-        sketch_cuda.cu_update(state["totals"], state["cur"], boundary, frac,
-                              h1, h2, target)
+        sketch_cuda.cu_update(state["totals"], state["cur"],
+                              None if bnd is None else bnd.slab, frac, h1,
+                              h2, target)
     else:
         add = torch.where(allowed, n, torch.zeros_like(n)).to(torch.int32)
         sketch_cuda.add_update(state["totals"], state["cur"], h1, h2, add)
@@ -204,15 +187,24 @@ def _sketch_step(state: State, h1, h2, n, now_us: int, policy=None, *,
     return allowed, remaining, est
 
 
+def _sketch_step(state: State, h1, h2, n, now_us: int, policy=None, **kw):
+    """``_decide`` on given (h1, h2) halves."""
+    return _decide(state, (h1, h2), n, now_us, policy, premix=False, seed=0,
+                   **kw)
+
+
 def _sketch_reset(state: State, h1, h2, now_us: int, *, period: int,
                   sub_us: int, SW: int, S: int, weighted: bool) -> None:
     """Per-key reset, in place: subtract the key's current min-estimate
     from all its cells in both ``cur`` and ``totals`` (cells may go
     transiently negative; reads clamp at 0 and the next rollover heals).
-    The subtraction is the add_update kernel with negated amounts."""
+    The estimate is the front's (without ``n``), the subtraction the
+    add_update kernel with negated amounts."""
     now_us = max(now_us, period * sub_us)
-    est, _, _ = _estimate(state, h1, h2, period, now_us, sub_us=sub_us,
-                          SW=SW, S=S, weighted=weighted)
+    bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
+                    weighted=weighted)
+    est = sketch_cuda.window_front(state["totals"], (h1, h2),
+                                   boundary=bnd)[2]
     sub = torch.floor(est).to(torch.int32)
     sketch_cuda.add_update(state["totals"], state["cur"], h1, h2, -sub)
 
@@ -272,20 +264,12 @@ def build_steps(cfg: Config) -> tuple[Callable, Callable, Callable]:
     return step, reset, rollover
 
 
-def _sketch_step_h64(state: State, h64, n, now_us: int, policy=None, *,
-                     period: int, seed: int, premix: bool, **step_kw):
-    h = splitmix64_dev(h64) if premix else h64
-    h1, h2 = split_hash_dev(h, seed)
-    return _sketch_step(state, h1, h2, n, now_us, policy, period=period,
-                        **step_kw)
-
-
 def build_hashed_step(cfg: Config, *, premix: bool = False) -> Callable:
     """``step(state, h64, n, now_us, policy=None, *, period)`` taking
     finalized 64-bit hashes (premix=False) or raw u64 ids (premix=True,
     splitmix64 runs in-step), each as an int64 tensor holding the bits."""
     check_ported(cfg)
-    return partial(_sketch_step_h64, seed=cfg.sketch.seed, premix=premix,
+    return partial(_decide, seed=cfg.sketch.seed, premix=premix,
                    **_step_kw(cfg))
 
 

@@ -219,7 +219,8 @@ def test_bucket_estimate_plain_matches_pallas_and_jnp(seed, decay):
     rng = np.random.default_rng(seed)
     debt = _debt(rng, near_cap=seed == 2)
     h1, h2 = _hashes(rng)
-    got = bc.bucket_estimate(_t(debt), decay, _th(h1), _th(h2)).numpy()
+    got = bc.bucket_estimate_plain(_t(debt), decay, _th(h1),
+                                   _th(h2)).numpy()
     want = np.asarray(_jit_est(jnp.asarray(debt), jnp.int64(decay),
                                jnp.asarray(h1), jnp.asarray(h2)))
     np.testing.assert_array_equal(got, want)
@@ -271,19 +272,19 @@ def test_bucket_wrappers_check_operands():
     debt = _t(_debt(rng))
     h1, h2 = (_th(h) for h in _hashes(rng))
     with pytest.raises(TypeError):
-        bc.bucket_estimate(debt.to(torch.int32), 0, h1, h2)
+        bc.bucket_front(debt.to(torch.int32), 0, (h1, h2))
     with pytest.raises(ValueError, match="decay"):
-        bc.bucket_estimate(debt, -1, h1, h2)
+        bc.bucket_front(debt, -1, (h1, h2))
     with pytest.raises(ValueError, match="contiguous"):
         bc.bucket_update(debt, debt.clone(), 0, h1, h2,
                          torch.zeros(2 * B, dtype=torch.int64)[::2])
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        bc.bucket_estimate(torch.empty((D, W), dtype=torch.int64, device=meta),
-                           0, torch.empty(B, dtype=torch.int64, device=meta),
-                           torch.empty(B, dtype=torch.int64, device=meta))
+        bc.bucket_front(torch.empty((D, W), dtype=torch.int64, device=meta),
+                        0, (torch.empty(B, dtype=torch.int64, device=meta),
+                            torch.empty(B, dtype=torch.int64, device=meta)))
     bc.reset_launch_counts()
-    bc.bucket_estimate(debt, 0, h1, h2)
+    bc.bucket_front(debt, 0, (h1, h2))
     bc.bucket_update(debt, debt.clone(), 0, h1, h2,
                      torch.zeros(B, dtype=torch.int64))
     assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0}

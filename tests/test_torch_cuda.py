@@ -22,7 +22,9 @@ from ratelimiter_tpu_torch.algorithms.sketch import (
 )
 from ratelimiter_tpu_torch.ops import bucket_cuda as bc
 from ratelimiter_tpu_torch.ops import sketch_cuda as sc
-from ratelimiter_tpu_torch.ops.sketch_kernels import boundary_frac
+from ratelimiter_tpu_torch.ops.hashing import split_hash, splitmix64
+from ratelimiter_tpu_torch.ops.policy_kernels import PAD_KEY, pack_halves_host
+from ratelimiter_tpu_torch.ops.sketch_kernels import frac_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +35,17 @@ def dev():
         pytest.skip("needs a CUDA device: the hand-written kernels have no "
                     "CPU mode")
     return torch.device("cuda")
+
+
+def _valid_boundary(slab, slot: int = 0, stale: bool = False):
+    """A boundary for ``slab`` 0.331117 s into a 999,983 us sub-window of
+    period 100 of a 4-slot ring (a stale slab holds another period)."""
+    p, sub_us = 100, 999_983
+    periods = torch.full((4,), -(1 << 40), dtype=torch.int64,
+                         device=slab.device)
+    periods[slot] = p - 4 - int(stale)
+    return sc.Boundary(slab, periods, slot, p - 4,
+                       *frac_operands(p, p * sub_us + 331_117, sub_us))
 
 
 def _slabs(rng, d, w, dev):
@@ -50,14 +63,17 @@ def test_kernels_bit_equal_to_plain(dev, d, w, B):
     totals, boundary, cur = _slabs(rng, d, w, dev)
     h1 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B)).to(dev)
     h2 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B) | 1).to(dev)
-    frac = torch.tensor(boundary_frac(100, 100 * 999_983 + 331_117, 999_983),
-                        dtype=torch.float32, device=dev)
     sc.reset_launch_counts()
-    for bnd in (boundary, None):
-        est = sc.window_estimate(totals, bnd, frac, h1, h2)
-        assert torch.equal(est, sc.window_estimate_plain(totals, bnd, frac,
-                                                         h1, h2))
-        target = torch.clamp_min(est, 0.0) + 1.0
+    for b in (_valid_boundary(boundary), None):
+        _, _, est, frac, _, _ = sc.window_front(totals, (h1, h2), boundary=b)
+        _, _, want, want_frac, _, _ = sc.window_front_plain(
+            totals, (h1, h2), boundary=b)
+        assert torch.equal(est, want)
+        assert (frac is None) == (want_frac is None)
+        if frac is not None:
+            assert torch.equal(frac, want_frac)
+        bnd = None if b is None else b.slab
+        target = est + 1.0
         target[::3] = 0.0
         a, c, a2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
         sc.cu_update(a, c, bnd, frac, h1, h2, target)
@@ -77,7 +93,7 @@ def test_wrappers_refuse_mixed_devices(dev):
     totals = torch.zeros((2, 64), dtype=torch.int32, device=dev)
     h = torch.zeros(8, dtype=torch.int64)
     with pytest.raises(ValueError, match="expected cuda"):
-        sc.window_estimate(totals, None, None, h, h)
+        sc.window_front(totals, (h, h))
 
 
 @pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "FIXED_WINDOW"])
@@ -139,7 +155,7 @@ def test_bucket_kernels_bit_equal_to_plain(dev, d, w, B):
         rng.random(B) < 0.7, rng.integers(1, 1 << 42, size=B), 0)).to(dev)
     bc.reset_launch_counts()
     for decay in (0, 3_333_337, 1 << 62):
-        est = bc.bucket_estimate(debt, decay, h1, h2)
+        est = bc.bucket_front(debt, decay, (h1, h2))[2]
         assert torch.equal(est, bc.bucket_estimate_plain(debt, decay, h1, h2))
         a, c, a2, c2 = debt.clone(), acc.clone(), debt.clone(), acc.clone()
         bc.bucket_update(a, c, decay, h1, h2, consumed)
@@ -224,8 +240,8 @@ def test_tiled_updates_bit_equal_to_plain(dev, w, kind, tiling):
     B = h1.shape[0]
     totals, boundary, cur = _slabs(rng, d, w, dev)
     totals[:, 3], boundary[:, 3] = -2, -1
-    frac = torch.tensor(boundary_frac(100, 100 * 999_983 + 331_117, 999_983),
-                        dtype=torch.float32, device=dev)
+    frac = sc.frac_plain(*frac_operands(100, 100 * 999_983 + 331_117,
+                                        999_983)).to(dev)
     sc.reset_launch_counts()
     bc.reset_launch_counts()
     for bnd in (boundary, None):
@@ -316,3 +332,174 @@ def test_bucket_limiter_restore_above_cap_on_card_equals_cpu(dev):
     assert ga["acc"].max() == bc.DEBT_CAP
     gpu.close()
     cpu.close()
+
+
+# ------------------------------------------------------------- the fronts
+
+
+_SEED = 0x5BD1E995
+_INV_C1 = pow(0xBF58476D1CE4E5B9, -1, 1 << 64)
+_INV_C2 = pow(0x94D049BB133111EB, -1, 1 << 64)
+_M64 = (1 << 64) - 1
+
+
+def _unmix(x: int) -> int:
+    """The inverse of splitmix64 on one u64 (each xorshift undone to its
+    fixpoint, each multiplier by its inverse mod 2^64)."""
+    def unshift(y, s):
+        z = y
+        for _ in range(64 // s + 1):
+            z = y ^ (z >> s)
+        return z
+    x = unshift(x, 31) * _INV_C2 & _M64
+    x = unshift(x, 27) * _INV_C1 & _M64
+    return (unshift(x, 30) - 0x9E3779B97F4A7C15) & _M64
+
+
+def _front_keys(rng, lane: str, B: int, pad_query: bool, dev):
+    """Keys of one lane (raw ids, hashes, or the halves they split into)
+    with the sketch seed, repeated keys among them, and (``pad_query``)
+    key 0 on the halves whose packed query is PAD_KEY. Returns the
+    operand, ``premix`` and the packed queries (host)."""
+    ids = rng.integers(0, 1 << 63, size=B, dtype=np.int64).view(np.uint64)
+    ids[: B // 2] = ids[B // 2: 2 * (B // 2)]
+    if pad_query and B:
+        # The split hash 0xFFFFFFFF_7FFFFFFF: h1 = 0x7FFFFFFF and h2 =
+        # 0xFFFFFFFF, so (h1 << 32) | h2 == PAD_KEY.
+        h = _unmix(0xFFFFFFFF7FFFFFFF) ^ _SEED
+        ids[0] = _unmix(h) if lane == "premix" else h
+    h64 = splitmix64(ids) if lane == "premix" else ids
+    h1, h2 = split_hash(h64, _SEED)
+    q = pack_halves_host(h1, h2)
+    if lane == "halves":
+        keys = (torch.from_numpy(h1.astype(np.int64)).to(dev),
+                torch.from_numpy(h2.astype(np.int64)).to(dev))
+    else:
+        keys = torch.from_numpy(ids.view(np.int64)).to(dev)
+    return keys, lane == "premix", q
+
+
+def _front_policy(rng, kind: str, q: np.ndarray, P: int, dev):
+    """A device table of capacity P: none, sparse (a few of the batch's
+    keys and random ones, padded with PAD_KEY), or full (P real keys, the
+    batch's largest among them, so the last row is hit)."""
+    if kind == "none":
+        return None
+    real = np.unique(q[q != PAD_KEY])
+    if kind == "full":
+        mine = real[-(P // 2):]
+        top = mine[-1] if len(mine) else PAD_KEY - 1
+        fill = np.setdiff1d(rng.integers(-(1 << 63), top, size=4 * P,
+                                         dtype=np.int64), mine)
+        keys = np.sort(np.concatenate([fill[:P - len(mine)], mine]))
+    else:
+        keys = np.unique(np.concatenate([real[: P // 8], rng.integers(
+            -(1 << 63), PAD_KEY, size=P // 8, dtype=np.int64)]))
+        keys = np.concatenate([keys, np.full(P - len(keys), PAD_KEY,
+                                             dtype=np.int64)])
+    limits = np.full(P, 100, dtype=np.int64)
+    limits[keys != PAD_KEY] = rng.integers(1, 1 << 20, size=int(
+        (keys != PAD_KEY).sum()))
+    return {"key": torch.from_numpy(keys).to(dev),
+            "limit": torch.from_numpy(limits).to(dev)}
+
+
+def _same(got, want) -> bool:
+    return all((a is None and b is None) or (
+        a is not None and b is not None and a.dtype == b.dtype
+        and torch.equal(a, b)) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("lane", ["premix", "hashed", "halves"])
+def test_fronts_bit_equal_to_plain(dev, lane):
+    """window_front and bucket_front against their plain versions on
+    every output, for each policy table (none, sparse, full with its last
+    row hit, sparse with a PAD_KEY query) in shared memory (1024 rows) and
+    in global memory (2^14 rows), at B = 0, 1, 4096 and 2^20; windowed
+    sliding with a valid and a stale boundary and fixed; bucket decays of
+    0, a moderate value and more than any cell on debts near 2^61; and
+    the estimate-only form (the resets). One launch per call."""
+    for policy in ("none", "sparse", "full", "pad"):
+        for B in (0, 1, 4096, 1 << 20):
+            _check_fronts(dev, lane, policy, B)
+
+
+def _check_fronts(dev, lane, policy, B):
+    d, w = 4, 65536
+    rng = np.random.default_rng(B + len(lane) * 7 + len(policy))
+    keys, premix, q = _front_keys(rng, lane, B, policy == "pad", dev)
+    n = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32)).to(dev)
+    totals, boundary, _ = _slabs(rng, d, w, dev)
+    debt = torch.from_numpy(np.where(
+        rng.random((d, w)) < 0.3, 0,
+        rng.integers(0, 1 << 40, size=(d, w)))).to(dev)
+    debt[:, ::5] = bc.DEBT_CAP - 7
+    sc.reset_launch_counts()
+    bc.reset_launch_counts()
+    calls = 0
+    for P in ((1024,) if policy == "none" else (1024, 1 << 14)):
+        pol = _front_policy(rng, policy, q, P, dev)
+        kw = dict(premix=premix, seed=_SEED, policy=pol, limit=100)
+        for b in (_valid_boundary(boundary, slot=2),
+                  _valid_boundary(boundary, slot=2, stale=True), None):
+            for args in ((n,), ()):
+                got = sc.window_front(totals, keys, *args, boundary=b, **kw)
+                want = sc.window_front_plain(totals, keys, *args,
+                                             boundary=b, **kw)
+                torch.cuda.synchronize()
+                assert _same(got, want)
+                calls += 1
+        for decay in (0, 3_333_337, 1 << 62):
+            for args in ((n,), ()):
+                got = bc.bucket_front(debt, decay, keys, *args, **kw)
+                want = bc.bucket_front_plain(debt, decay, keys, *args, **kw)
+                torch.cuda.synchronize()
+                assert _same(got, want)
+    assert sc.launch_counts()["window_estimate"] == calls
+    assert bc.launch_counts()["bucket_estimate"] == calls
+
+
+def test_front_launch_shapes_bit_equal(dev, monkeypatch):
+    """The block sizes chip_smoke.py times (64, 128, 256, set through
+    ``sketch_cuda.FRONT_THREADS``) give the same outputs."""
+    for threads in (64, 128, 256):
+        monkeypatch.setattr(sc, "FRONT_THREADS", threads)
+        rng = np.random.default_rng(threads)
+        keys, _, q = _front_keys(rng, "premix", 4096, True, dev)
+        n = torch.ones(4096, dtype=torch.int32, device=dev)
+        totals, boundary, _ = _slabs(rng, 4, 65536, dev)
+        pol = _front_policy(rng, "sparse", q, 1024, dev)
+        kw = dict(premix=True, seed=_SEED, policy=pol, limit=100)
+        b = _valid_boundary(boundary)
+        assert _same(sc.window_front(totals, keys, n, boundary=b, **kw),
+                     sc.window_front_plain(totals, keys, n, boundary=b,
+                                           **kw))
+        debt = torch.from_numpy(rng.integers(0, 1 << 40,
+                                             size=(4, 65536))).to(dev)
+        assert _same(bc.bucket_front(debt, 77, keys, n, **kw),
+                     bc.bucket_front_plain(debt, 77, keys, n, **kw))
+
+
+def test_fronts_at_other_depths_bit_equal(dev):
+    """The fronts' generic build (any depth but the shipped 4: 1, 3, 5
+    and 16) against the plain versions, with a policy table and a PAD_KEY
+    query."""
+    for d in (1, 3, 5, 16):
+        _check_depth(dev, d)
+
+
+def _check_depth(dev, d):
+    rng = np.random.default_rng(d)
+    keys, _, q = _front_keys(rng, "premix", 4096, True, dev)
+    n = torch.from_numpy(rng.integers(0, 4, size=4096).astype(
+        np.int32)).to(dev)
+    totals, boundary, _ = _slabs(rng, d, 1024, dev)
+    debt = torch.from_numpy(rng.integers(0, 1 << 40, size=(d, 1024))).to(dev)
+    kw = dict(premix=True, seed=_SEED, limit=100,
+              policy=_front_policy(rng, "pad", q, 1024, dev))
+    for b in (_valid_boundary(boundary), None):
+        assert _same(sc.window_front(totals, keys, n, boundary=b, **kw),
+                     sc.window_front_plain(totals, keys, n, boundary=b, **kw))
+    for decay in (0, 1 << 39):
+        assert _same(bc.bucket_front(debt, decay, keys, n, **kw),
+                     bc.bucket_front_plain(debt, decay, keys, n, **kw))

@@ -31,7 +31,8 @@ def _frac(elapsed_us: int, sub_us: int = 1_000_000) -> np.float32:
     """The limiter's boundary weight after ``elapsed_us`` of the period
     (tests/test_torch_ops.py holds it to the JAX reference's)."""
     p = 100
-    return np.float32(tsk.boundary_frac(p, p * sub_us + elapsed_us, sub_us))
+    return np.float32(sc.frac_plain(*tsk.frac_operands(
+        p, p * sub_us + elapsed_us, sub_us)))
 
 
 def _inputs(seed: int, lo: int = -4, hi: int = 4000):
@@ -86,7 +87,7 @@ def test_window_estimate_plain_matches_pallas_and_jnp(seed, weighted):
     _, totals, boundary, _, h1, h2 = _inputs(seed)
     elapsed = 123_457 + 100_003 * seed
     frac = _frac(elapsed)
-    got = sc.window_estimate(
+    got = sc.window_estimate_plain(
         _t(totals), _t(boundary) if weighted else None,
         torch.tensor(frac) if weighted else None, _th(h1), _th(h2)).numpy()
     bop = boundary if weighted else np.zeros_like(boundary)
@@ -153,8 +154,9 @@ def test_fma_rounding_pinned_to_the_jax_reference():
     # One key per cell of row 0 reads exactly the dense combine there.
     h1 = np.arange(W, dtype=np.uint32)
     h2 = np.full(W, 1, np.uint32)
-    got = sc.window_estimate(_t(totals[:1].copy()), _t(boundary[:1].copy()),
-                             torch.tensor(frac), _th(h1), _th(h2)).numpy()
+    got = sc.window_estimate_plain(
+        _t(totals[:1].copy()), _t(boundary[:1].copy()), torch.tensor(frac),
+        _th(h1), _th(h2)).numpy()
     np.testing.assert_array_equal(got, ref[0])
     assert (got != two_roundings[0])[differs[0]].all()
 
@@ -211,10 +213,10 @@ def test_fma_f32_is_correctly_rounded(case):
 def test_wrappers_check_operands_and_never_fall_back():
     _, totals, boundary, cur, h1, h2 = _inputs(2)
     with pytest.raises(TypeError):
-        sc.window_estimate(_t(totals.astype(np.int64)), None, None, _th(h1),
-                           _th(h2))
+        sc.window_front(_t(totals.astype(np.int64)), (_th(h1), _th(h2)))
     with pytest.raises(ValueError, match="frac is required"):
-        sc.window_estimate(_t(totals), _t(boundary), None, _th(h1), _th(h2))
+        sc.cu_update(_t(totals), _t(cur), _t(boundary), None, _th(h1),
+                     _th(h2), torch.zeros(B, dtype=torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         sc.add_update(_t(totals), _t(cur), _th(h1), _th(h2),
                       torch.zeros(2 * B, dtype=torch.int32)[::2])
@@ -222,16 +224,15 @@ def test_wrappers_check_operands_and_never_fall_back():
     # and no plain fallback: the wrapper raises.
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        sc.window_estimate(torch.empty((D, W), dtype=torch.int32,
-                                       device=meta), None, None,
-                           torch.empty(B, dtype=torch.int64, device=meta),
-                           torch.empty(B, dtype=torch.int64, device=meta))
+        sc.window_front(torch.empty((D, W), dtype=torch.int32, device=meta),
+                        (torch.empty(B, dtype=torch.int64, device=meta),
+                         torch.empty(B, dtype=torch.int64, device=meta)))
 
 
 def test_plain_versions_do_not_count_launches():
     sc.reset_launch_counts()
     _, totals, boundary, cur, h1, h2 = _inputs(3)
-    sc.window_estimate(_t(totals), None, None, _th(h1), _th(h2))
+    sc.window_front(_t(totals), (_th(h1), _th(h2)))
     sc.add_update(_t(totals), _t(cur), _th(h1), _th(h2),
                   torch.ones(B, dtype=torch.int32))
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,

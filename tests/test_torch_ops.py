@@ -24,6 +24,7 @@ from ratelimiter_tpu.ops.segment import admit as jax_admit
 from ratelimiter_tpu_torch.native import bulk_hash_u64
 from ratelimiter_tpu_torch.ops import hashing as th
 from ratelimiter_tpu_torch.ops import policy_kernels as tpk
+from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 from ratelimiter_tpu_torch.ops import sketch_kernels as tsk
 from ratelimiter_tpu_torch.ops.segment import admit
 
@@ -140,7 +141,9 @@ def test_pack_halves_matches_jax_and_host():
 @pytest.mark.parametrize("sub_us", [1_000_000, 999_983, 7, 1 << 20])
 def test_boundary_frac_matches_jax_reference(sub_us):
     """XLA compiles the reference's ``1 - elapsed/sub_us`` as an FMA with
-    the f32 reciprocal; boundary_frac reproduces it for every elapsed."""
+    the f32 reciprocal; the port's boundary weight (``frac_plain`` of
+    ``frac_operands``, what the front computes) reproduces it for every
+    elapsed."""
     S = SW = 4
     p = 100
     state = {"slabs": jnp.zeros((S, 1, 16), jnp.int32),
@@ -152,7 +155,7 @@ def test_boundary_frac_matches_jax_reference(sub_us):
                               [0, 1, sub_us - 1]])
     for e in elapsed:
         now = p * sub_us + int(e)
-        assert (np.float32(tsk.boundary_frac(p, now, sub_us))
+        assert (np.float32(sc.frac_plain(*tsk.frac_operands(p, now, sub_us)))
                 == np.float32(f(state, jnp.int64(now))))
 
 
