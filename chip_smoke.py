@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--steps N]
     python3 chip_smoke.py --sweep    # time the tiled updates' launch shapes
+    python3 chip_smoke.py --admit-sweep   # time the admission routine's shapes
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -26,7 +27,15 @@ Phases (each raises on failure; the script exits non-zero):
    a batch whose 4096 keys share one column and on 2^20 Zipf keys (where
    their launch shape switches to clusters), and ``bucket_update`` with
    ``clamp_acc`` on an ``acc`` slab holding cells above 2^61; the tile and
-   cluster each uses are logged;
+   cluster each uses are logged; the three backs of the step (``add_back``,
+   the vanilla step's admission, scatter and remaining in one launch, in
+   the row of the TPU ``add_update``; ``window_admit`` and
+   ``bucket_admit``, the admission launches ahead of ``cu_update`` and
+   ``bucket_update``) on the config-3 batch, 4096 keys all on one key,
+   keys sharing h1 but not h2, B = 0, B = ``ADMIT_CAPACITY`` and the next
+   pad above it, where the wrappers
+   run the composed back (plain admission on the card, then the
+   standalone ``add_update`` kernel) and the launch counts must show it;
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -36,11 +45,15 @@ Phases (each raises on failure; the script exits non-zero):
    must have launched; the same trace then runs 4 more times on fresh
    limiters, and the median, min and max steps/s of the 5 are printed.
    Windowed: config-3 traffic across sub-window rollovers, with
-   conservative update on and off, then a profile of a short CU run. Token bucket: TB-c2, benchmark config 2's token-bucket
+   conservative update on and off, then a profile of a short CU and a
+   short vanilla run. Token bucket: TB-c2, benchmark config 2's token-bucket
    cell at its literal parameters (limit 20 per 10 s, 4096 string keys
    per batch uniform over 10,000, +0.25 s per batch), and TB-zipf, config
    3's traffic under a token bucket (limit 100 per 60 s, +0.1 s per
-   batch), then a profile of a short TB-zipf run;
+   batch), then a profile of a short TB-zipf run. Each profile counts the
+   device ops per batch and fails if a sort or scan op (the plain
+   admission's) still runs on a path whose batches fit one admission
+   launch;
 4. start the port's server on 127.0.0.1, once with the windowed limiter
    and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
    ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
@@ -52,6 +65,12 @@ Phases (each raises on failure; the script exits non-zero):
 updates bit-equal to the plain version and times it (config-3 batch, B = 0
 and the one-column batch), and every cluster at the chosen tile on larger
 batches, printing the results as one JSON line before the card's line.
+
+``--admit-sweep`` builds, then times the admission routine alone
+(``csrc/admit_bench.cu``) at the block shapes and sort digit widths of
+``ADMIT_SWEEP`` and beside its first design, each held bit-equal to
+``segment.admit`` first, printing the results as one JSON line before the
+card's line.
 
 ``--paths`` builds, then runs phase 3 alone and prints its results as one
 JSON line before the card's line. It reaches the port only through
@@ -91,8 +110,13 @@ KERNEL_ROWS = {
     "window_estimate": "ratelimiter_tpu/ops/pallas_sketch.py:144",
     "cu_update": "ratelimiter_tpu/ops/pallas_sketch.py:186",
     "add_update": "ratelimiter_tpu/ops/pallas_sketch.py:224",
+    "add_back": "ratelimiter_tpu/ops/pallas_sketch.py:224",
     "bucket_estimate": "ratelimiter_tpu/ops/pallas_sketch.py:270",
     "bucket_update": "ratelimiter_tpu/ops/pallas_sketch.py:302",
+    # The admission launches replace no TPU kernel: the reference's
+    # in-batch admission, a jitted JAX function.
+    "window_admit": "ratelimiter_tpu/ops/segment.py:90",
+    "bucket_admit": "ratelimiter_tpu/ops/segment.py:90",
 }
 SOURCE = "ratelimiter_tpu_torch/csrc/sketch_kernels.cu"
 BUCKET_SOURCE = "ratelimiter_tpu_torch/csrc/bucket_kernels.cu"
@@ -174,8 +198,9 @@ def hold_equal(torch, err: dict, name: str, a, b) -> None:
     """Record the largest |kernel - plain| of one output in ``err[name]``;
     raise unless the two are bit-equal (the stated tolerance is 0)."""
     torch.cuda.synchronize()
-    delta = a.double() - b.double() if a.is_floating_point() else a - b
-    diff = float(delta.abs().max())
+    delta = (a.double() - b.double() if a.is_floating_point()
+             else a.to(torch.int64) - b.to(torch.int64))
+    diff = float(delta.abs().max()) if delta.numel() else 0.0
     err[name] = max(err[name], diff)
     if not torch.equal(a, b):
         raise AssertionError(f"{name} differs from its plain version "
@@ -718,6 +743,168 @@ def check_bucket_kernels(torch, seed: int) -> dict:
     return rows
 
 
+#: The step's admission fixpoint rounds (Config.max_batch_admission_iters).
+ITERS = 4
+
+
+def back_batches(rng) -> dict:
+    """The admission launches' batches: the config-3 batch (4096 Zipf
+    ids), 4096 requests all for one key (one segment of 4096, the skewed
+    extreme), the config-3 ids with h1 cut to 6 bits (``check_backs``:
+    keys that share h1 but not h2, so admission's groups are not the
+    scatter's keys), none, ``ADMIT_CAPACITY`` Zipf ids and the limiter's
+    next pad above it."""
+    from ratelimiter_tpu_torch.algorithms.sketch import _pad_size
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    ids = zipf_ids(rng, BATCH)
+    return {"config3": ids, "one key": np.full(BATCH, ids[0]),
+            "shared h1": ids, "empty": ids[:0],
+            "capacity": zipf_ids(rng, sc.ADMIT_CAPACITY),
+            "above capacity": zipf_ids(rng, _pad_size(sc.ADMIT_CAPACITY + 1))}
+
+
+def back_row(torch, name: str, source: str, err: float, batches: dict,
+             nbytes: int, ops: int) -> dict:
+    """A back's row: timed on the config-3 batch (``batches[name]`` maps
+    each batch to its (kernel, plain) callables), and every other batch
+    timed beside it."""
+    kern, plain = batches["config3"]
+    row = kernel_row(name, source, err, kern, plain, None, nbytes, ops,
+                     torch)
+    row["batches"] = {}
+    for label, (k, p) in batches.items():
+        ms = row["ms"] if label == "config3" else device_ms(k, torch)
+        plain_ms = (row["plain_ms"] if label == "config3"
+                    else device_ms(p, torch))
+        row["batches"][label] = {"ms": ms, "plain_ms": plain_ms}
+        log(f"time {name} [{label}]: {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us")
+    return row
+
+
+def back_calls(sc, bc, t, c, h1, h2, n, n_f, avail, est, units, b_avail,
+               rate_num, rate_den) -> dict:
+    """{back: (kernel call, plain call)} on one batch's operands (the
+    vanilla back on its own copies ``t``/``c`` of the slabs)."""
+    return {
+        "add_back": (
+            lambda: sc.add_back(t, c, h1, h2, n, n_f, avail, ITERS),
+            lambda: sc.add_back_plain(t, c, h1, h2, n, n_f, avail, ITERS)),
+        "window_admit": (
+            lambda: sc.window_admit(h1, est, n_f, avail, ITERS),
+            lambda: sc.window_admit_plain(h1, est, n_f, avail, ITERS)),
+        "bucket_admit": (
+            lambda: bc.bucket_admit(h1, units, b_avail, ITERS, rate_num,
+                                    rate_den),
+            lambda: bc.bucket_admit_plain(h1, units, b_avail, ITERS,
+                                          rate_num, rate_den)),
+    }
+
+
+def check_backs(torch, seed: int) -> dict:
+    """The three backs of the step against their plain versions on every
+    batch of ``back_batches``, from the fronts' outputs on a windowed state
+    and a debt slab at config-3 geometry (request counts 0-3, 0 being
+    padding); the launch counts must show the fused form up to
+    ``ADMIT_CAPACITY`` keys and the composed one above it. Times and bounds
+    on the config-3 batch. Launches made here do not count."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    totals, boundary, cur, _ = window_state(torch, rng)
+    valid = ring_boundary(torch, boundary)
+    debt = torch.from_numpy(rng.integers(0, 100_000_000, size=(
+        DEPTH, WIDTH)).astype(np.int64)).to(dev)
+    rate_num, rate_den = 5, 3          # config 3's refill under TOKEN_BUCKET
+    err = {"add_back": 0.0, "window_admit": 0.0, "bucket_admit": 0.0}
+    timed = {name: {} for name in err}
+    info = {}
+    for label, ids in back_batches(rng).items():
+        B = len(ids)
+        h1, h2 = device_keys(torch, ids)
+        if label == "shared h1":
+            h1 = h1 & 63
+        n = torch.from_numpy(rng.integers(0, 4, size=B).astype(
+            np.int32)).to(dev)
+        # A limit above the slab's counts, so that avail varies per key and
+        # hot keys meet it within the batch.
+        _, _, est, _, avail, n_f = sc.window_front(
+            totals, (h1, h2), n, boundary=valid, limit=4 * LIMIT)
+        _, _, _, b_avail, units = bc.bucket_front(debt, 0, (h1, h2), n,
+                                                  limit=LIMIT)
+        fused = B <= sc.ADMIT_CAPACITY
+        sc.reset_launch_counts()
+        bc.reset_launch_counts()
+        t, c, t2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+        got = sc.add_back(t, c, h1, h2, n, n_f, avail, ITERS)
+        want = sc.add_back_plain(t2, c2, h1, h2, n, n_f, avail, ITERS)
+        for a, b in zip([*got, t, c], [*want, t2, c2]):
+            hold_equal(torch, err, "add_back", a, b)
+        for a, b in zip(sc.window_admit(h1, est, n_f, avail, ITERS),
+                        sc.window_admit_plain(h1, est, n_f, avail, ITERS)):
+            hold_equal(torch, err, "window_admit", a, b)
+        for a, b in zip(
+                bc.bucket_admit(h1, units, b_avail, ITERS, rate_num,
+                                rate_den),
+                bc.bucket_admit_plain(h1, units, b_avail, ITERS, rate_num,
+                                      rate_den)):
+            hold_equal(torch, err, "bucket_admit", a, b)
+        counts = {**sc.launch_counts(), "bucket admit": bc.launch_counts()[
+            "admit"]}
+        want_counts = {"add_update": 1, "add_back": int(fused),
+                       "admit": int(fused), "bucket admit": int(fused)}
+        if any(counts[k] != v for k, v in want_counts.items()):
+            raise AssertionError(f"backs at B={B}: launch counts {counts}, "
+                                 f"expected {want_counts}")
+        allowed = want[0]
+        info[label] = {"batch": B, "form": "fused" if fused else "composed",
+                       "allowed": int(allowed.sum()),
+                       "denied": int((~allowed).sum())}
+        log(f"kernels: add_back, window_admit and bucket_admit bit-equal to "
+            f"plain on the {label} batch (B={B}, {info[label]['form']} "
+            f"form, {info[label]['allowed']} allowed, "
+            f"{info[label]['denied']} denied; launches {counts})")
+        for name, pair in back_calls(sc, bc, totals.clone(), cur.clone(),
+                                     h1, h2, n, n_f, avail, est, units,
+                                     b_avail, rate_num, rate_den).items():
+            timed[name][label] = pair
+        if label == "config3":
+            # Cells the admitted amounts reach (the scatter's data-
+            # dependent bytes): both slabs read and written there.
+            changed = int((t2 != totals).sum())
+    B = BATCH
+    ops = B * (6 * (ITERS + 2) + 40)
+    rows = {
+        # h1, h2, n, n_f, avail in; allowed, remaining out; the cells the
+        # admitted amounts reach, in totals and cur, read and written.
+        "add_back": back_row(torch, "add_back", SOURCE, err["add_back"],
+                             timed["add_back"],
+                             B * (8 + 8 + 4 + 4 + 4 + 1 + 4) + changed * 16,
+                             ops + 2 * DEPTH * B),
+        # h1, est, n_f, avail in; target, allowed, remaining out.
+        "window_admit": back_row(torch, "window_admit", SOURCE,
+                                 err["window_admit"], timed["window_admit"],
+                                 B * (8 + 4 + 4 + 4 + 4 + 1 + 4), ops),
+        # h1, n_units, avail in; allowed, consumed, remaining, retry out.
+        "bucket_admit": back_row(torch, "bucket_admit", BUCKET_SOURCE,
+                                 err["bucket_admit"], timed["bucket_admit"],
+                                 B * (8 + 8 + 8 + 1 + 8 + 8 + 8), ops),
+    }
+    # What each design reads twice: the admission reads h1 and the
+    # quantity and avail once each (coalesced, staged in shared memory);
+    # the epilogue, in batch order, reads the quantity again, avail again
+    # (window_admit) and h1 again (add_back).
+    again = {"add_back": 4 + 8, "window_admit": 4 + 4, "bucket_admit": 8}
+    for name, row in rows.items():
+        row["batch_info"] = info
+        row["moved_bytes"] = row["bytes"] + B * again[name]
+    rows["add_back"]["changed_cells"] = changed
+    return rows
+
+
 # --------------------------------------------------------- tile sweep
 
 
@@ -828,6 +1015,91 @@ def sweep_tiles(torch, seed: int) -> list:
     return out
 
 
+#: The admission routine's sweep (``--admit-sweep``): (design, threads,
+#: keys a thread, sort digit bits, int64) as csrc/admit_bench.cu builds
+#: them. Design 0 is the routine, design 1 its first form (sorting the
+#: 64-bit keys themselves).
+ADMIT_SWEEP = (
+    [(0, t, i, 5, q) for q in (0, 1) for t, i in (
+        (64, 4), (256, 4), (1024, 4), (512, 8), (256, 16), (1024, 8),
+        (512, 16))]
+    + [(0, t, i, 4, q) for q in (0, 1) for t, i in ((512, 8), (1024, 8))]
+    + [(1, 1024, 4, 4, 0), (1, 512, 8, 4, 0)])
+
+
+def admit_sweep(torch, seed: int) -> list:
+    """The admission routine alone (csrc/admit_bench.cu) at every block
+    shape and digit width of ``ADMIT_SWEEP``, at B = the shape's capacity,
+    on Zipf ids, on one key and on distinct keys, from the fronts'
+    outputs as ``check_backs`` makes them: held bit-equal to
+    ``segment.admit`` on the card (allowed and seen), then timed."""
+    import ctypes
+
+    from ratelimiter_tpu_torch.ops import _build
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.segment import admit
+
+    lib = ctypes.CDLL(_build.compile_source("admit_bench"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rl_admit_bench.argtypes = [I, I, I, I, I, P, P, P, P, P, I, I, P]
+    lib.rl_admit_bench.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 9)
+    totals, boundary, _, _ = window_state(torch, rng)
+    valid = ring_boundary(torch, boundary)
+    debt = torch.from_numpy(rng.integers(0, 100_000_000, size=(
+        DEPTH, WIDTH)).astype(np.int64)).to(dev)
+    batches = {}
+    for B in sorted({t * i for _, t, i, _, _ in ADMIT_SWEEP}):
+        zipf = zipf_ids(rng, B)
+        for label, ids in (("zipf", zipf), ("one key", np.full(B, zipf[0])),
+                           ("distinct", np.arange(B, dtype=np.uint64))):
+            h1, h2 = device_keys(torch, ids)
+            n = torch.from_numpy(rng.integers(0, 4, size=B).astype(
+                np.int32)).to(dev)
+            _, _, _, _, avail, n_f = sc.window_front(
+                totals, (h1, h2), n, boundary=valid, limit=4 * LIMIT)
+            _, _, _, b_avail, units = bc.bucket_front(debt, 0, (h1, h2), n,
+                                                      limit=LIMIT)
+            batches[B, label] = (h1, (n_f, avail), (units, b_avail))
+    out = []
+    for design, threads, items, bits, int64 in ADMIT_SWEEP:
+        B = threads * items
+        for label in ("zipf", "one key", "distinct"):
+            h1, *quantities = batches[B, label]
+            q, avail = quantities[int64]
+            seen = torch.empty_like(q)
+            allowed = torch.empty(B, dtype=torch.bool, device=dev)
+
+            def call():
+                err = lib.rl_admit_bench(
+                    design, threads, items, bits, int64, h1.data_ptr(),
+                    q.data_ptr(), avail.data_ptr(), seen.data_ptr(),
+                    allowed.data_ptr(), B, ITERS,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"admit_bench: CUDA error {err}")
+
+            call()
+            want_allowed, want_seen, _ = admit(h1, q, avail, ITERS)
+            torch.cuda.synchronize()
+            if not (torch.equal(allowed, want_allowed)
+                    and torch.equal(seen, want_seen)):
+                raise AssertionError(f"admit_bench design {design} "
+                                     f"{threads}x{items} bits {bits} "
+                                     f"int64 {int64} on {label} keys "
+                                     f"differs from segment.admit")
+            row = {"design": design, "threads": threads, "items": items,
+                   "bits": bits, "int64": int64, "batch": B, "keys": label,
+                   "ms": device_ms(call, torch)}
+            out.append(row)
+            log(f"admit sweep: design {design} {threads}x{items} bits "
+                f"{bits} {'int64' if int64 else 'f32'} B={B} {label}: "
+                f"{row['ms'] * 1e3:.2f} us")
+    return out
+
+
 # --------------------------------------------------------------- phase 3
 
 
@@ -884,12 +1156,13 @@ REPEATS = 5
 
 
 def check_path(torch, name: str, cfg, batches, keys, advance: float,
-               counters, required, state_keys) -> dict:
+               counters, required, state_keys, strict: bool = True) -> dict:
     """One main path on the card against the same trace on the CPU: every
     result field and the final state bit-identical. ``counters`` are the
     kernel modules whose launch counts are set to 0 just before the run
     and read just after it; each kernel named in ``required`` must have
-    launched."""
+    launched (unless ``strict`` is off and the package counts no such
+    kernel: an earlier checkout measured with ``--paths``)."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     gpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
@@ -940,7 +1213,7 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
             raise AssertionError(f"{name}: final state {k} differs from the "
                                  f"CPU run")
     for k in required:
-        if counts[k] == 0:
+        if counts.get(k, 0) == 0 and (strict or k in counts):
             raise AssertionError(f"{name}: {k} was not launched on the main "
                                  f"path")
     denied = sum(int((~r.allowed).sum()) for r in got)
@@ -972,15 +1245,17 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
     return out
 
 
-def check_main_path(torch, seed: int, steps: int, cu: bool) -> dict:
+def check_main_path(torch, seed: int, steps: int, cu: bool,
+                    strict: bool = True) -> dict:
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
     batches, keys = _trace(seed, steps)
     out = check_path(torch, f"windowed cu={cu}", config3(cu=cu), batches,
                      keys, 0.1, [sc],
-                     ("window_estimate", "cu_update") if cu
-                     else ("window_estimate", "add_update"),
-                     ("cur", "slabs", "totals", "slab_period", "last_period"))
+                     ("window_estimate", "admit", "cu_update") if cu
+                     else ("window_estimate", "add_back"),
+                     ("cur", "slabs", "totals", "slab_period", "last_period"),
+                     strict)
     sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
     out["rollovers"] = int(out["extra"]["host_period"]
                            - int(T0 * 1e6) // sub_us)
@@ -989,7 +1264,8 @@ def check_main_path(torch, seed: int, steps: int, cu: bool) -> dict:
     return out
 
 
-def check_bucket_path(torch, seed: int, cell: str, steps: int) -> dict:
+def check_bucket_path(torch, seed: int, cell: str, steps: int,
+                      strict: bool = True) -> dict:
     from ratelimiter_tpu_torch.ops import bucket_cuda as bc
 
     if cell == "TB-c2":
@@ -1001,11 +1277,16 @@ def check_bucket_path(torch, seed: int, cell: str, steps: int) -> dict:
         batches, keys = _trace(seed, steps)
         advance = 0.1
     out = check_path(torch, cell, cfg, batches, keys, advance, [bc],
-                     ("bucket_estimate", "bucket_update"),
-                     ("debt", "acc", "rem", "last"))
+                     ("bucket_estimate", "admit", "bucket_update"),
+                     ("debt", "acc", "rem", "last"), strict)
     if cell == "TB-zipf" and out["denied"] == 0:
         raise AssertionError("TB-zipf denied nothing: retry not exercised")
     return out
+
+
+#: Substrings of the device kernels behind torch.sort, torch.cumsum and
+#: torch.cummax (CUB's radix sort and scan, ATen's scan kernels).
+SCAN_OPS = ("sort", "scan", "cummax", "cumsum")
 
 
 def profile_path(torch, name: str, cfg, batches, keys, advance: float,
@@ -1046,16 +1327,22 @@ def profile_path(torch, name: str, cfg, batches, keys, advance: float,
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # The plain admission's sort and scans (torch.sort, cumsum, cummax):
+    # none should run where every batch fits one admission launch.
+    scans = sorted({k[:80] for k in by_name
+                    if any(w in k.lower() for w in SCAN_OPS)})
     out = {"batches": n_batches, "device_busy_share": busy / span,
            "device_us_per_batch": busy / n_batches,
            "device_ops_per_batch": len(dev) / n_batches,
-           "top_device_us_per_batch": {k[:60]: v / n_batches for k, v in top}}
+           "top_device_us_per_batch": {k[:60]: v / n_batches for k, v in top},
+           "sort_or_scan_ops": scans}
     log(f"profile {name}: {n_batches} batches, device busy "
         f"{out['device_busy_share']:.3f} of the span, "
         f"{out['device_us_per_batch']:.1f} us of device work and "
         f"{out['device_ops_per_batch']:.0f} device ops per batch; top: "
         + ", ".join(f"{k} {v:.1f} us" for k, v in
-                    out["top_device_us_per_batch"].items()))
+                    out["top_device_us_per_batch"].items())
+        + f"; sort or scan ops: {scans or 'none'}")
     return out
 
 
@@ -1130,6 +1417,19 @@ def check_server(torch, seed: int, cfg, label: str) -> None:
         f"in-process limiter")
 
 
+def row_launches(name: str, windowed, bucket) -> int:
+    """A kernel row's launches over the main paths' runs: the standalone
+    ``add_update`` is the TPU name's count less the fused back's, each
+    admission launch counts as ``admit`` in its family's module."""
+    if name == "add_update":
+        return sum(r["counts"]["add_update"] - r["counts"]["add_back"]
+                   for r in windowed)
+    if name in ("window_admit", "bucket_admit"):
+        runs = windowed if name == "window_admit" else bucket
+        return sum(r["counts"]["admit"] for r in runs)
+    return sum(r["counts"].get(name, 0) for r in (*windowed, *bucket))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1137,6 +1437,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sweep", action="store_true",
                     help="only build, then sweep the tiled updates' tile, "
                          "cluster and batch sizes (one JSON line)")
+    ap.add_argument("--admit-sweep", action="store_true",
+                    help="only build, then time the admission routine "
+                         "(csrc/admit_bench.cu) over block shapes and sort "
+                         "digit widths (one JSON line)")
     ap.add_argument("--paths", action="store_true",
                     help="only build, then drive and profile the main "
                          "paths (phase 3, one JSON line)")
@@ -1163,19 +1467,28 @@ def main(argv=None) -> int:
                                                              args.seed)}))
         print(card)
         return 0
+    if args.admit_sweep:
+        print(json.dumps({"card": card, "admit_sweep": admit_sweep(
+            torch, args.seed)}))
+        print(card)
+        return 0
 
     rows = {} if args.paths else check_kernels(torch, args.seed)
     if not args.paths:
         rows.update(check_bucket_kernels(torch, args.seed))
-    cu = check_main_path(torch, args.seed, args.steps, cu=True)
+        rows.update(check_backs(torch, args.seed))
+    strict = not args.paths
+    cu = check_main_path(torch, args.seed, args.steps, cu=True,
+                         strict=strict)
     vanilla = check_main_path(torch, args.seed + 7, max(32, args.steps // 2),
-                              cu=False)
-    tb_c2 = check_bucket_path(torch, args.seed + 11, "TB-c2", args.steps)
+                              cu=False, strict=strict)
+    tb_c2 = check_bucket_path(torch, args.seed + 11, "TB-c2", args.steps,
+                              strict)
     tb_zipf = check_bucket_path(torch, args.seed + 13, "TB-zipf",
-                                max(32, args.steps // 2))
+                                max(32, args.steps // 2), strict)
     for name in rows:
-        rows[name]["launches"] = sum(run["counts"].get(name, 0) for run in
-                                     (cu, vanilla, tb_c2, tb_zipf))
+        rows[name]["launches"] = row_launches(name, (cu, vanilla),
+                                              (tb_c2, tb_zipf))
     log(f"main paths on {card}: " + "; ".join(
         f"{label} {run['steps_per_s']:.1f} steps/s, "
         f"{run['decisions_per_s']:.0f} decisions/s"
@@ -1184,10 +1497,21 @@ def main(argv=None) -> int:
     batches, keys = _trace(args.seed, 48)
     prof = profile_path(torch, "windowed cu=True", config3(), batches, keys,
                         0.1)
+    prof_vanilla = profile_path(torch, "windowed cu=False",
+                                config3(cu=False), batches, keys, 0.1)
     prof_tb = profile_path(torch, "TB-zipf", config3("TOKEN_BUCKET"),
                            batches, keys, 0.1)
     paths = {"card": card, "cu": cu, "vanilla": vanilla, "profile": prof,
-             "TB-c2": tb_c2, "TB-zipf": tb_zipf, "profile_TB-zipf": prof_tb}
+             "profile_vanilla": prof_vanilla, "TB-c2": tb_c2,
+             "TB-zipf": tb_zipf, "profile_TB-zipf": prof_tb}
+    if strict:
+        # Every batch of these traces fits one admission launch.
+        for label, p in (("windowed CU", prof), ("windowed vanilla",
+                                                 prof_vanilla),
+                         ("TB-zipf", prof_tb)):
+            if p["sort_or_scan_ops"]:
+                raise AssertionError(f"{label}: the plain admission still "
+                                     f"runs: {p['sort_or_scan_ops']}")
     if args.paths:
         print(json.dumps({"main_path": paths}))
         print(card)

@@ -1,13 +1,19 @@
 // Hand-written Hopper kernels for the windowed count-min sketch step.
 //
 // They replace the three Pallas kernels of the JAX package's decision step
-// (ratelimiter_tpu/ops/pallas_sketch.py):
+// (ratelimiter_tpu/ops/pallas_sketch.py), and the step's ops around them:
 //
 //   window_front     <- window_estimate / _window_estimate_kernel, with
 //                       the step's hashing, boundary weight, policy lookup
 //                       and available quota around it
 //   cu_update        <- cu_update / _cu_update_kernel
-//   add_update       <- add_update / _add_update_kernel
+//   add_back         <- add_update / _add_update_kernel, with the step's
+//                       admission (ops/segment.admit), add amounts and
+//                       remaining around it: the vanilla step's back
+//   add_update       <- add_update / _add_update_kernel alone (the reset,
+//                       and batches above the admission capacity)
+//   window_admit     <- the CU step's admission, targets and remaining
+//                       (ahead of cu_update; replaces no TPU kernel)
 //
 // The Pallas kernels grid sequentially over the d sketch rows and keep a
 // whole (w,) row in VMEM. Here blocks run in parallel and in no order, so
@@ -17,25 +23,38 @@
 // rows in row order and writes est, avail and n_f. It needs ~0.25 MB at
 // B=4096, d=4 (bound ~0.07 us at 3.35 TB/s), so it is launch-bound, and
 // its design is about the launches it saves: the estimate alone used to
-// be one of ~50 launches that fed admission. add_update: one thread per
-// (key, row) with atomics. cu_update: one launch in which each block owns
-// a tile of T cells of one row (tile_owner.cuh): it bulk-copies its
-// totals, cur and boundary tiles into shared memory, builds the tile's
-// per-column max of the targets in shared memory while the copies are in
-// flight, then writes every cell of totals and cur. Bound on an H100
-// (cu_update): totals and cur read and written and boundary read at every
-// cell, 20 bytes a cell, plus the key operands, ~5.3 MB at d=4, w=65536,
-// B=4096, ~1.6 us at 3.35 TB/s; this design moves that plus the keys'
-// re-reads from L2 (every cluster reads them all), and no scratch. The
-// wrappers, their plain PyTorch versions and the launch shapes are in
-// ratelimiter_tpu_torch/ops/sketch_cuda.py.
+// be one of ~50 launches that fed admission. add_back and window_admit:
+// ONE block holds the whole batch and runs the admission routine
+// (admit.cuh: keys to group ids through a shared-memory hash table, a
+// block radix sort of the ids, then iters + 2 segmented block scans),
+// then an epilogue in batch order (coalesced) that writes the results;
+// add_back also scatter-adds the admitted amounts into totals and cur with
+// global atomics, one per run of one (h1, h2) in the sorted batch, row and
+// slab, carrying the run's admitted total (integer adds commute, so any
+// order gives the reference's histogram; at 4096 keys over 65536 columns
+// a shared-memory histogram would not help). Their bound is ~0.2 MB at
+// B=4096 (~0.06 us), far below one launch: the design replaces the ~85
+// launches of the plain admission and epilogue with one, on one SM.
+// add_update: one thread per (key, row) with atomics. cu_update: one
+// launch in which each block owns a tile of T cells of one row
+// (tile_owner.cuh): it bulk-copies its totals, cur and boundary tiles into
+// shared memory, builds the tile's per-column max of the targets in
+// shared memory while the copies are in flight, then writes every cell of
+// totals and cur. Bound on an H100 (cu_update): totals and cur read and
+// written and boundary read at every cell, 20 bytes a cell, plus the key
+// operands, ~5.3 MB at d=4, w=65536, B=4096, ~1.6 us at 3.35 TB/s; this
+// design moves that plus the keys' re-reads from L2 (every cluster reads
+// them all), and no scratch. The wrappers, their plain PyTorch versions
+// and the launch shapes are in ratelimiter_tpu_torch/ops/sketch_cuda.py.
 //
 // Rounding: the JAX reference computes the boundary-weighted window read
 // t + frac * b as ONE fused multiply-add (XLA contracts it when jitting on
 // the CPU), and frac = clip(1 - e/sub_us, 0, 1) as clip(fma(-e, rcp, 1))
 // with rcp the f32 reciprocal of sub_us. The kernels spell both with
 // __fmaf_rn, and the library is built with -fmad=false so that nvcc
-// contracts nothing else.
+// contracts nothing else: the CU target (est + (avail - seen)) + n_f and
+// remaining floor(seen - used) are separate f32 roundings, as in the
+// reference (ratelimiter_tpu/ops/sketch_kernels.py:432,534-535).
 //
 // Interface: plain C, loaded with ctypes. Every function launches on the
 // given stream, does not synchronise, allocates nothing, and returns
@@ -45,6 +64,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "admit.cuh"
 #include "front.cuh"
 #include "tile_owner.cuh"
 
@@ -236,6 +256,124 @@ __global__ void add_update_kernel(int32_t* __restrict__ totals,
   atomicAdd(cur + c, a);
 }
 
+// The vanilla step's back (rl_add_back): admission, then each key's
+// admitted amount scatter-added into totals and cur at each row's column,
+// and allowed and remaining.
+struct AddBack {
+  int32_t* totals;
+  int32_t* cur;
+  const int64_t* h1;
+  const int64_t* h2;
+  const int32_t* n;      // the request counts; the amounts added
+  const float* n_f;      // f32(n), as the front wrote it: admission's n
+  const float* avail;
+  bool* allowed;
+  int32_t* remaining;
+  int B, d, w, iters;
+};
+
+// int32(max(floor(seen - used), 0)), used = n_f where allowed else 0.
+__device__ __forceinline__ int32_t remaining_of(float seen, float used) {
+  return static_cast<int32_t>(fmaxf(floorf(seen - used), 0.0f));
+}
+
+template <class S>
+__global__ void __launch_bounds__(S::kThreads)
+    add_back_kernel(const AddBack a) {
+  constexpr int kBlock = S::kThreads, kItems = S::kItems;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
+  rl_admit::Sorted<float, kItems> s;
+  rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  // The scatter, in sorted order. Admission groups on h1 alone, but the
+  // columns take (h1, h2), and two keys may share h1: so a run is a
+  // stretch of one segment with one h2. Each run's admitted n is summed
+  // (int32 adds wrap, so the sum's low 32 bits are what the reference's
+  // adds leave) and added by one atomic per row and slab at the run's
+  // last request. Runs meet across threads through the neighbours' h2.
+  __shared__ unsigned long long edge_h2[2][kBlock];  // first, last
+  unsigned long long h2[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = s.idx[k];
+    h2[k] = i < a.B ? static_cast<unsigned long long>(__ldg(a.h2 + i)) : 0ull;
+  }
+  edge_h2[0][threadIdx.x] = h2[0];
+  edge_h2[1][threadIdx.x] = h2[kItems - 1];
+  __syncthreads();
+  const unsigned long long before =
+      threadIdx.x > 0 ? edge_h2[1][threadIdx.x - 1] : h2[0];
+  const unsigned long long after = threadIdx.x + 1 < kBlock
+                                       ? edge_h2[0][threadIdx.x + 1]
+                                       : h2[kItems - 1];
+  rl_admit::Seg seg[kItems];
+  bool last[kItems];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = s.idx[k];
+    const unsigned long long prev = k > 0 ? h2[k - 1] : before;
+    const unsigned long long next = k + 1 < kItems ? h2[k + 1] : after;
+    last[k] = s.tail[k] || h2[k] != next;
+    seg[k].v = i < a.B && s.allowed[k]
+                   ? static_cast<unsigned long long>(
+                         static_cast<long long>(__ldg(a.n + i)))
+                   : 0ull;
+    seg[k].head = s.head[k] || h2[k] != prev;
+  }
+  typename S::Scan(tmp.scan).InclusiveScan(seg, seg, rl_admit::SegSum());
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = s.idx[k];
+    const int32_t add = static_cast<int32_t>(static_cast<uint32_t>(seg[k].v));
+    if (!last[k] || i >= a.B || add == 0) continue;
+    const uint32_t h1 = static_cast<uint32_t>(__ldg(a.h1 + i));
+    for (int r = 0; r < a.d; ++r) {
+      const size_t c =
+          rl_front::cell(h1, static_cast<uint32_t>(h2[k]), r, a.w);
+      atomicAdd(a.totals + c, add);
+      atomicAdd(a.cur + c, add);
+    }
+  }
+  // In batch order: coalesced reads and writes.
+  for (int i = threadIdx.x; i < a.B; i += kBlock) {
+    const bool ok = tmp.u.out.allowed[i];
+    a.allowed[i] = ok;
+    a.remaining[i] =
+        remaining_of(tmp.u.out.seen[i], ok ? __ldg(a.n_f + i) : 0.0f);
+  }
+}
+
+// The CU step's admission (rl_window_admit): admission, then per key the
+// CU target where((est + (avail - seen)) + n_f, 0), allowed and remaining.
+struct WindowAdmit {
+  const int64_t* h1;
+  const float* est;
+  const float* n_f;
+  const float* avail;
+  float* target;
+  bool* allowed;
+  int32_t* remaining;
+  int B, iters;
+};
+
+template <class S>
+__global__ void __launch_bounds__(S::kThreads)
+    window_admit_kernel(const WindowAdmit a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
+  rl_admit::Sorted<float, S::kItems> s;
+  rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
+    const bool ok = tmp.u.out.allowed[i];
+    const float seen = tmp.u.out.seen[i];
+    const float n_f = __ldg(a.n_f + i);
+    a.allowed[i] = ok;
+    a.remaining[i] = remaining_of(seen, ok ? n_f : 0.0f);
+    a.target[i] =
+        ok ? (__ldg(a.est + i) + (__ldg(a.avail + i) - seen)) + n_f : 0.0f;
+  }
+}
+
 inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }
@@ -247,6 +385,19 @@ struct WindowFrontKernel {
                   const WindowFront& a) {
     window_front_kernel<kTable, kDepth><<<grid, threads, smem, s>>>(a);
   }
+};
+
+// admit.cuh's launch() picks the block shape.
+struct AddBackKernel {
+  using Q = float;
+  template <class S>
+  static auto fn() { return &add_back_kernel<S>; }
+};
+
+struct WindowAdmitKernel {
+  using Q = float;
+  template <class S>
+  static auto fn() { return &window_admit_kernel<S>; }
 };
 
 }  // namespace
@@ -316,6 +467,49 @@ int rl_add_update(void* totals, void* cur, const void* h1, const void* h2,
         static_cast<const int32_t*>(add), B, d, w);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
+// keys; one block at B = 0 too).
+int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
+                const void* n, const void* n_f, const void* avail,
+                void* allowed, void* remaining, int B, int d, int w,
+                int iters, void* stream) {
+  if (d < 1 || w < 16 || (w & (w - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  AddBack a;
+  a.totals = static_cast<int32_t*>(totals);
+  a.cur = static_cast<int32_t*>(cur);
+  a.h1 = static_cast<const int64_t*>(h1);
+  a.h2 = static_cast<const int64_t*>(h2);
+  a.n = static_cast<const int32_t*>(n);
+  a.n_f = static_cast<const float*>(n_f);
+  a.avail = static_cast<const float*>(avail);
+  a.allowed = static_cast<bool*>(allowed);
+  a.remaining = static_cast<int32_t*>(remaining);
+  a.B = B;
+  a.d = d;
+  a.w = w;
+  a.iters = iters;
+  return rl_admit::launch<AddBackKernel>(a,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+int rl_window_admit(const void* h1, const void* est, const void* n_f,
+                    const void* avail, void* target, void* allowed,
+                    void* remaining, int B, int iters, void* stream) {
+  WindowAdmit a;
+  a.h1 = static_cast<const int64_t*>(h1);
+  a.est = static_cast<const float*>(est);
+  a.n_f = static_cast<const float*>(n_f);
+  a.avail = static_cast<const float*>(avail);
+  a.target = static_cast<float*>(target);
+  a.allowed = static_cast<bool*>(allowed);
+  a.remaining = static_cast<int32_t*>(remaining);
+  a.B = B;
+  a.iters = iters;
+  return rl_admit::launch<WindowAdmitKernel>(
+      a, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

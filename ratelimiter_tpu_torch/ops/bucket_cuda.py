@@ -6,7 +6,9 @@ for Hopper (``csrc/bucket_kernels.cu``, built by ``ops/_build.py`` and
 called through ctypes), beside a plain PyTorch version of the same
 function. ``bucket_front`` replaces ``bucket_estimate`` together with the
 step's ops around it (hashing, policy lookup, available quota, request
-units):
+units), and ``bucket_admit`` runs the step's in-batch admission, consumed,
+remaining and retry in one launch ahead of ``bucket_update`` (over the
+block-level routine of ``csrc/admit.cuh``; it replaces no TPU kernel):
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -15,9 +17,9 @@ units):
   kernel bit-equal to its plain version on the card.
 
 Each wrapper counts its kernel launches in a plain integer attribute
-(``bucket_front.launches``, ``bucket_update.launches``); ``launch_counts``
-reads them under the names of the TPU kernels they replace and
-``reset_launch_counts`` clears them.
+(``bucket_front.launches`` ...); ``launch_counts`` reads them under the
+names of the TPU kernels they replace, and the admission launch's as
+``admit``; ``reset_launch_counts`` clears them.
 
 All arithmetic is int64 and exact, so no order of operations (rows in a
 thread, shared-memory atomics in any order) can change a result. The
@@ -35,8 +37,11 @@ from ratelimiter_tpu_torch.core.clock import MICROS
 from ratelimiter_tpu_torch.ops import _build, sketch_cuda
 from ratelimiter_tpu_torch.ops.hashing import halves_dev
 from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
+from ratelimiter_tpu_torch.ops.segment import admit
 from ratelimiter_tpu_torch.ops.sketch_cuda import (
+    ADMIT_CAPACITY,
     _check,
+    _check_back,
     _check_front,
     _columns,
     _key_args,
@@ -64,7 +69,9 @@ def _lib() -> ctypes.CDLL:
                                         P, P, P, I, I, I, I, P]
         lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, I, I, I,
                                          P]
-        for fn in (lib.rl_bucket_front, lib.rl_bucket_update):
+        lib.rl_bucket_admit.argtypes = [P, P, P, P, P, P, P, L, L, I, I, P]
+        for fn in (lib.rl_bucket_front, lib.rl_bucket_update,
+                   lib.rl_bucket_admit):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
@@ -151,6 +158,24 @@ def bucket_update_plain(debt, acc, decay: int, h1, h2, consumed) -> None:
     acc.view(-1).index_add_(0, flat, vals)
     debt.clamp_max_(DEBT_CAP)
     acc.clamp_max_(DEBT_CAP)
+
+
+def bucket_admit_plain(h1, n_units, avail, iters: int, rate_num: int,
+                       rate_den: int) -> tuple:
+    """The bucket step's admission and results, all int64: ``segment.
+    admit`` of ``n_units`` against ``avail`` grouped on h1, ``consumed =
+    where(allowed, n_units, 0)``, ``remaining = (seen - consumed) //
+    10^6`` and ``retry_us = where(allowed, 0, -((-deficit * rate_den) //
+    rate_num))`` with ``deficit = max(n_units - seen, 0)`` (torch's floor
+    division; the product wraps as int64 does). Reference semantics of
+    retry: ``tokenbucket.go:122-130``, the time to refill the deficit,
+    ceil'd to whole microseconds. Returns ``(allowed, consumed, remaining,
+    retry_us)``."""
+    allowed, seen, consumed = admit(h1, n_units, avail, iters)
+    remaining = (seen - consumed) // MICROS
+    deficit = torch.clamp_min(n_units - seen, 0)
+    retry_us = torch.where(allowed, 0, -((-deficit * rate_den) // rate_num))
+    return allowed, consumed, remaining, retry_us
 
 
 # --------------------------------------------------------------- wrappers
@@ -244,15 +269,57 @@ def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
     bucket_update.launches += 1
 
 
-#: Each wrapper under the name of the TPU kernel it replaces.
-KERNELS = {"bucket_estimate": bucket_front, "bucket_update": bucket_update}
+def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
+                 avail: torch.Tensor, iters: int, rate_num: int,
+                 rate_den: int) -> tuple:
+    """The bucket step's admission and results (``bucket_admit_plain``'s
+    function; the JAX step's ``segment.admit`` and its remaining and retry
+    expressions) in one launch ahead of ``bucket_update``, which needs
+    every ``consumed`` of the batch in each of its tiles. Returns
+    ``(allowed, consumed, remaining, retry_us)``.
+
+    Bound on an H100: h1, n_units and avail in, the four outputs out,
+    ~0.2 MB at B=4096: ~0.06 us at 3.35 TB/s, far below one launch.
+    Design: the windowed backs' block (csrc/admit.cuh) in int64, with an
+    epilogue that writes the four outputs in batch order
+    (floor divisions and wrapping products spelled as torch computes
+    them). It replaces the ~90 launches of the composed admission and
+    results with one. Above ``ADMIT_CAPACITY`` keys the plain version runs
+    on the card."""
+    B = _check_back(h1, {"n_units": (n_units, torch.int64),
+                         "avail": (avail, torch.int64)}, iters)
+    if not (0 < rate_num < (1 << 63) and 0 < rate_den < (1 << 63)):
+        raise ValueError(f"rate {rate_num}/{rate_den} must be positive "
+                         f"int64 values")
+    dev = h1.device
+    if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
+        return bucket_admit_plain(h1, n_units, avail, iters, rate_num,
+                                  rate_den)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    allowed = torch.empty(B, dtype=torch.bool, device=dev)
+    consumed, remaining, retry_us = torch.empty(
+        (3, B), dtype=torch.int64, device=dev).unbind()
+    err = _lib().rl_bucket_admit(
+        h1.data_ptr(), n_units.data_ptr(), avail.data_ptr(),
+        allowed.data_ptr(), consumed.data_ptr(), remaining.data_ptr(),
+        retry_us.data_ptr(), rate_num, rate_den, B, iters, _stream(h1))
+    _raise_on(err, "bucket_admit")
+    bucket_admit.launches += 1
+    return allowed, consumed, remaining, retry_us
+
+
+#: Each wrapper under the name of the TPU kernel it replaces, and the
+#: admission launch, which replaces no TPU kernel, as ``admit``.
+KERNELS = {"bucket_estimate": bucket_front, "bucket_update": bucket_update,
+           "admit": bucket_admit}
 for _fn in KERNELS.values():
     _fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{TPU kernel name: launches of its replacement since the last
-    reset}."""
+    """{TPU kernel name (or ``admit``): launches of its replacement since
+    the last reset}."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 

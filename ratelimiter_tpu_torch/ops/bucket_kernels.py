@@ -27,10 +27,10 @@ read back, and no scalar launch is spent on it.
 PyTorch idiom: the step and the reset update the state dict IN PLACE
 (where the JAX package donates the buffers). The step's front (hashing,
 estimate, policy lookup, available quota, request units) and its table
-update go through ops/bucket_cuda.py: the hand-written CUDA kernels on a
-CUDA device, their plain versions on the CPU. The rest of the step
-(admit, retry and remaining, result assembly) and the reset's decay and
-subtraction are plain PyTorch.
+update go through ops/bucket_cuda.py, and so does its admission with
+consumed, remaining and retry (``bucket_admit``): the hand-written CUDA
+kernels on a CUDA device, their plain versions on the CPU. Result
+assembly and the reset's decay and subtraction are plain PyTorch.
 
 Not ported: the hierarchy cascade (``hierarchy.tenants > 0`` raises,
 ROADMAP A6) and the scan runner ``_bucket_scan``/``build_scan``.
@@ -49,7 +49,6 @@ from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import InvalidConfigError
 from ratelimiter_tpu_torch.ops import bucket_cuda
 from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP as _DEBT_CAP
-from ratelimiter_tpu_torch.ops.segment import admit
 from ratelimiter_tpu_torch.ops.sketch_kernels import _PER_MICRO
 
 State = Dict[str, torch.Tensor]
@@ -153,15 +152,11 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
     h1, h2, _, avail, n_units = bucket_cuda.bucket_front(
         state["debt"], decay, keys, n, premix=premix, seed=seed,
         policy=policy, limit=limit)
-    allowed, seen, consumed = admit(h1, n_units, avail, iters)
+    allowed, consumed, remaining, retry_us = bucket_cuda.bucket_admit(
+        h1, n_units, avail, iters, rate_num, rate_den)
     bucket_cuda.bucket_update(state["debt"], state["acc"], decay, h1, h2,
                               consumed, clamp_acc)
     _advance(state, now_us, rem)
-    remaining = (seen - torch.where(allowed, n_units, 0)) // MICROS
-    # Reference retry semantics (``tokenbucket.go:122-130``): time to refill
-    # the deficit, ceil'd to whole microseconds (int64 floor division).
-    deficit = torch.clamp_min(n_units - seen, 0)
-    retry_us = torch.where(allowed, 0, -((-deficit * rate_den) // rate_num))
     return allowed, remaining, retry_us
 
 

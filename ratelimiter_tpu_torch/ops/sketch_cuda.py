@@ -7,7 +7,11 @@ called through ctypes), beside a plain PyTorch version of the same
 function. ``window_front`` replaces ``window_estimate`` together with the
 step's ops around it (hashing, boundary weight, policy lookup, available
 quota), which the JAX package's jit fuses and the port would otherwise
-launch one by one:
+launch one by one. The back of the step is one launch too: ``add_back``
+(the vanilla step: admission, the ``add_update`` scatter and remaining)
+and ``window_admit`` (the CU step's admission, targets and remaining,
+ahead of ``cu_update``), both over the block-level admission routine of
+``csrc/admit.cuh``:
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -17,8 +21,10 @@ launch one by one:
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``window_front.launches`` ...); ``launch_counts`` reads them under the
-names of the TPU kernels they replace and ``reset_launch_counts`` clears
-them.
+names of the TPU kernels they replace (``add_update``: both of its forms,
+the fused back and the standalone scatter), the fused back alone as
+``add_back``, and the admission launch, which replaces no TPU kernel, as
+``admit``; ``reset_launch_counts`` clears them.
 
 Rounding. The JAX reference's window read ``f32(t) + frac * f32(b)``
 rounds once, as a fused multiply-add: XLA contracts it when it jits the
@@ -41,6 +47,7 @@ import torch
 from ratelimiter_tpu_torch.ops import _build
 from ratelimiter_tpu_torch.ops.hashing import halves_dev
 from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
+from ratelimiter_tpu_torch.ops.segment import admit
 
 _SOURCE = "sketch_kernels"
 _configured = set()
@@ -58,6 +65,15 @@ TILE, CLUSTER, CLUSTER_BATCH = 2048, 8, 8192
 #: key. ``chip_smoke.py`` times 64, 128 and 256 on the card.
 FRONT_THREADS = 128
 
+#: The most keys one admission launch holds (``kMaxCapacity`` in
+#: csrc/admit.cuh): one block of 1024 threads, 8 keys a thread, whose
+#: shared-memory hash table (two 8-byte slots a key, 128 KB) is the
+#: largest power of two that fits a block. Batches above it take the plain
+#: admission on the card and the standalone ``add_update`` (``add_back``),
+#: or the plain admission before ``cu_update`` (``window_admit``); PERF.md
+#: has the times behind this size.
+ADMIT_CAPACITY = 8192
+
 #: The front kernels' key lanes (csrc/front.cuh): raw u64 ids (splitmix64
 #: in the kernel), finalized 64-bit hashes, or the (h1, h2) halves given.
 LANE_PREMIX, LANE_HASHED, LANE_HALVES = 0, 1, 2
@@ -73,8 +89,12 @@ def _lib() -> ctypes.CDLL:
                                         I, P]
         lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
+        lib.rl_add_back.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
+                                    P]
+        lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, I, I, P]
         for fn in (lib.rl_window_front, lib.rl_cu_update,
-                   lib.rl_add_update):
+                   lib.rl_add_update, lib.rl_add_back,
+                   lib.rl_window_admit):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
@@ -320,6 +340,45 @@ def add_update_plain(totals, cur, h1, h2, add) -> None:
     cur.view(-1).index_add_(0, flat, vals)
 
 
+def _remaining(seen, allowed, n_f) -> torch.Tensor:
+    """The windowed step's ``int32(max(floor(seen - where(allowed, n_f,
+    0)), 0))``."""
+    return torch.clamp_min(
+        torch.floor(seen - torch.where(allowed, n_f, 0.0)),
+        0.0).to(torch.int32)
+
+
+def _vanilla_back(scatter, totals, cur, h1, h2, n, n_f, avail,
+                  iters: int) -> tuple:
+    """The vanilla step's back as composed ops: ``admit``, the admitted
+    amounts through ``scatter`` (``add_update_plain`` or the standalone
+    kernel), and remaining."""
+    allowed, seen, _ = admit(h1, n_f, avail, iters)
+    scatter(totals, cur, h1, h2,
+            torch.where(allowed, n, torch.zeros_like(n)).to(torch.int32))
+    return allowed, _remaining(seen, allowed, n_f)
+
+
+def add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters: int) -> tuple:
+    """The vanilla step from the front's outputs to its results, in place
+    on ``totals`` and ``cur``: in-batch admission of ``n_f`` against
+    ``avail`` (``segment.admit``, grouped on h1), ``where(allowed, n, 0)``
+    added at each key's column of every row (``add_update_plain``), and
+    ``remaining``. Returns ``(allowed bool[B], remaining int32[B])``."""
+    return _vanilla_back(add_update_plain, totals, cur, h1, h2, n, n_f,
+                         avail, iters)
+
+
+def window_admit_plain(h1, est, n_f, avail, iters: int) -> tuple:
+    """The CU step's admission: ``segment.admit``, then the CU targets
+    ``where(allowed, (est + (avail - seen)) + n_f, 0)`` and
+    ``remaining``. Returns ``(target f32[B], allowed bool[B], remaining
+    int32[B])``."""
+    allowed, seen, _ = admit(h1, n_f, avail, iters)
+    target = torch.where(allowed, est + (avail - seen) + n_f, 0.0)
+    return target, allowed, _remaining(seen, allowed, n_f)
+
+
 # --------------------------------------------------------------- wrappers
 
 
@@ -448,19 +507,119 @@ def add_update(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     add_update.launches += 1
 
 
-#: Each wrapper under the name of the TPU kernel it replaces.
-KERNELS = {"window_estimate": window_front, "cu_update": cu_update,
-           "add_update": add_update}
-for _fn in KERNELS.values():
+def _check_back(h1, operands: dict, iters: int) -> int:
+    """The admission operands: ``h1`` int64 (B,) and each of
+    ``operands`` (name: (tensor, dtype)) a contiguous (B,) tensor on
+    h1's device. Returns B."""
+    B = h1.shape[0] if h1.dim() == 1 else -1
+    _check("h1", h1, torch.int64, (B,), h1.device)
+    for name, (t, dtype) in operands.items():
+        _check(name, t, dtype, (B,), h1.device)
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    return B
+
+
+def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
+             h2: torch.Tensor, n: torch.Tensor, n_f: torch.Tensor,
+             avail: torch.Tensor, iters: int) -> tuple:
+    """Replaces Pallas ``add_update`` (pallas_sketch.py:224-245) with the
+    vanilla step's ops around it (the JAX step's ``segment.admit``, its
+    add amounts and remaining, ratelimiter_tpu/ops/sketch_kernels.py:374,
+    450-456,534-535): ``add_back_plain``'s function in one launch, in
+    place on ``totals`` and ``cur``. Returns ``(allowed, remaining)``.
+
+    Bound on an H100: h1, h2, n, n_f and avail in, the touched cells of
+    ``totals`` and ``cur`` read and written, allowed and remaining out,
+    ~0.2 MB at B=4096, d=4: ~0.06 us at 3.35 TB/s, far below one launch.
+    Design (csrc/admit.cuh): ONE block holds the batch (up to
+    ``ADMIT_CAPACITY`` keys), gives each key a group id through a hash
+    table of h1 in shared memory, sorts (id, batch index) with a stable
+    block radix sort, runs the ``iters + 2`` segmented sums as block scans
+    in int64 (fewer once a round finds a fixed point), adds each key's
+    admitted total into both slabs with one global atomic per row and
+    slab (per run of one (h1, h2) in the sorted batch: keys may share
+    h1), and writes allowed and remaining in batch order. It replaces the
+    ~85 launches of the composed back with one; its time is the single
+    block's sort and scans. Above ``ADMIT_CAPACITY`` keys the back runs
+    composed on the card: the plain admission, then the standalone
+    ``add_update`` kernel."""
+    d, w, B = _check_common(totals, h1, h2)
+    _check("cur", cur, torch.int32, (d, w), totals.device, align16=True)
+    _check_back(h1, {"n": (n, torch.int32), "n_f": (n_f, torch.float32),
+                     "avail": (avail, torch.float32)}, iters)
+    dev = totals.device
+    if dev.type == "cpu":
+        return add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if B > ADMIT_CAPACITY:
+        return _vanilla_back(add_update, totals, cur, h1, h2, n, n_f, avail,
+                             iters)
+    allowed = torch.empty(B, dtype=torch.bool, device=dev)
+    remaining = torch.empty(B, dtype=torch.int32, device=dev)
+    err = _lib().rl_add_back(
+        totals.data_ptr(), cur.data_ptr(), h1.data_ptr(), h2.data_ptr(),
+        n.data_ptr(), n_f.data_ptr(), avail.data_ptr(), allowed.data_ptr(),
+        remaining.data_ptr(), B, d, w, iters, _stream(totals))
+    _raise_on(err, "add_back")
+    add_back.launches += 1
+    return allowed, remaining
+
+
+def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
+                 avail: torch.Tensor, iters: int) -> tuple:
+    """The CU step's admission, CU targets and remaining
+    (``window_admit_plain``'s function; the JAX step's ``segment.admit``
+    and ratelimiter_tpu/ops/sketch_kernels.py:374,432,534-535) in one
+    launch ahead of ``cu_update``, which needs every target of the batch
+    in each of its tiles. Returns ``(target, allowed, remaining)``.
+
+    Bound on an H100: h1, est, n_f and avail in, target, allowed and
+    remaining out, ~0.1 MB at B=4096: ~0.03 us at 3.35 TB/s, far below
+    one launch. Design: ``add_back``'s block (csrc/admit.cuh) with an
+    epilogue that writes the three outputs in batch order. It
+    replaces the ~85 launches of the composed admission, targets and
+    remaining with one. Above ``ADMIT_CAPACITY`` keys the plain version
+    runs on the card."""
+    B = _check_back(h1, {"est": (est, torch.float32),
+                         "n_f": (n_f, torch.float32),
+                         "avail": (avail, torch.float32)}, iters)
+    dev = h1.device
+    if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
+        return window_admit_plain(h1, est, n_f, avail, iters)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    target = torch.empty(B, dtype=torch.float32, device=dev)
+    allowed = torch.empty(B, dtype=torch.bool, device=dev)
+    remaining = torch.empty(B, dtype=torch.int32, device=dev)
+    err = _lib().rl_window_admit(
+        h1.data_ptr(), est.data_ptr(), n_f.data_ptr(), avail.data_ptr(),
+        target.data_ptr(), allowed.data_ptr(), remaining.data_ptr(), B,
+        iters, _stream(h1))
+    _raise_on(err, "window_admit")
+    window_admit.launches += 1
+    return target, allowed, remaining
+
+
+#: Each wrapper under the name of the TPU kernel it replaces (both forms
+#: of add_update under its name), the fused back alone as ``add_back``,
+#: and the admission launch, which replaces no TPU kernel, as ``admit``.
+KERNELS = {"window_estimate": (window_front,), "cu_update": (cu_update,),
+           "add_update": (add_back, add_update), "add_back": (add_back,),
+           "admit": (window_admit,)}
+WRAPPERS = (window_front, cu_update, add_update, add_back, window_admit)
+for _fn in WRAPPERS:
     _fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{TPU kernel name: launches of its replacement since the last
-    reset}."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """{TPU kernel name (or ``add_back``, ``admit``): launches of its
+    replacement since the last reset}."""
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in WRAPPERS:
         fn.launches = 0

@@ -20,10 +20,10 @@ PyTorch idiom: the state is a dict of tensors that the step, the reset and
 the rollover update IN PLACE (where the JAX package donates the buffers and
 gets new ones back). Stream order keeps consecutive steps sequential. The
 step's front (hashing, boundary weight, estimate, policy lookup, available
-quota) and its two table updates go through ops/sketch_cuda.py: the
-hand-written CUDA kernels on a CUDA device, their plain versions on the
-CPU. The rest of the step (admit, the CU targets, remaining, result
-assembly) is plain PyTorch.
+quota) and its back (admission, the CU targets or the vanilla table
+update, remaining; then ``cu_update`` on the CU step) go through
+ops/sketch_cuda.py: the hand-written CUDA kernels on a CUDA device, their
+plain versions on the CPU. Result assembly is plain PyTorch.
 
 Unlike the JAX step, which reads the period from ``state["last_period"]``,
 the port's step takes it from the host (``period=``, the limiter's mirror
@@ -46,7 +46,6 @@ from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import InvalidConfigError
 from ratelimiter_tpu_torch.core.types import Algorithm
 from ratelimiter_tpu_torch.ops import sketch_cuda
-from ratelimiter_tpu_torch.ops.segment import admit
 
 State = Dict[str, torch.Tensor]
 
@@ -168,22 +167,17 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
     h1, h2, est, frac, avail, n_f = sketch_cuda.window_front(
         state["totals"], keys, n, premix=premix, seed=seed, boundary=bnd,
         policy=policy, limit=limit)
-    allowed, seen, _ = admit(h1, n_f, avail, iters)
-
     if conservative:
         # Raise each touched cell only as high as the largest single-key
         # post-batch target that maps to it; denied requests target 0.
-        target = torch.where(allowed, est + (avail - seen) + n_f, 0.0)
+        target, allowed, remaining = sketch_cuda.window_admit(
+            h1, est, n_f, avail, iters)
         sketch_cuda.cu_update(state["totals"], state["cur"],
                               None if bnd is None else bnd.slab, frac, h1,
                               h2, target)
     else:
-        add = torch.where(allowed, n, torch.zeros_like(n)).to(torch.int32)
-        sketch_cuda.add_update(state["totals"], state["cur"], h1, h2, add)
-
-    remaining = torch.clamp_min(
-        torch.floor(seen - torch.where(allowed, n_f, 0.0)),
-        0.0).to(torch.int32)
+        allowed, remaining = sketch_cuda.add_back(
+            state["totals"], state["cur"], h1, h2, n, n_f, avail, iters)
     return allowed, remaining, est
 
 

@@ -287,7 +287,10 @@ def test_bucket_wrappers_check_operands():
     bc.bucket_front(debt, 0, (h1, h2))
     bc.bucket_update(debt, debt.clone(), 0, h1, h2,
                      torch.zeros(B, dtype=torch.int64))
-    assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0}
+    units = torch.full((B,), 1_000_000, dtype=torch.int64)
+    bc.bucket_admit(h1, units, units, 4, NUM, DEN)
+    assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
+                                  "admit": 0}
 
 
 # -------------------------------------------------------- result assembly

@@ -86,7 +86,8 @@ def test_kernels_bit_equal_to_plain(dev, d, w, B):
     torch.cuda.synchronize()
     assert torch.equal(a, a2) and torch.equal(c, c2)
     assert sc.launch_counts() == {"window_estimate": 2, "cu_update": 2,
-                                  "add_update": 1}
+                                  "add_update": 1, "add_back": 0,
+                                  "admit": 0}
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -162,7 +163,8 @@ def test_bucket_kernels_bit_equal_to_plain(dev, d, w, B):
         bc.bucket_update_plain(a2, c2, decay, h1, h2, consumed)
         torch.cuda.synchronize()
         assert torch.equal(a, a2) and torch.equal(c, c2)
-    assert bc.launch_counts() == {"bucket_estimate": 3, "bucket_update": 3}
+    assert bc.launch_counts() == {"bucket_estimate": 3, "bucket_update": 3,
+                                  "admit": 0}
 
 
 def test_bucket_limiter_on_card_equals_limiter_on_cpu(dev):
@@ -503,3 +505,81 @@ def _check_depth(dev, d):
     for decay in (0, 1 << 39):
         assert _same(bc.bucket_front(debt, decay, keys, n, **kw),
                      bc.bucket_front_plain(debt, decay, keys, n, **kw))
+
+
+# ------------------------------------------------------ the step's backs
+
+
+def _back_keys(rng, kind: str, B: int):
+    """int64 (B,) h1 values: Zipf ids' low halves, one key for the whole
+    batch, or "wide" values (the halves lane takes h1 from a caller) whose
+    low 32 bits collide across different high bits, with the all-ones
+    value (the hash table's empty mark) among them."""
+    if kind == "one key":
+        return np.full(B, 0x1234567, dtype=np.int64)
+    if kind == "wide":
+        h = rng.integers(0, 16, size=B) + (rng.integers(0, 3, size=B) << 32)
+        h[::7] = -1
+        return h.astype(np.int64)
+    return (rng.zipf(1.1, size=B) % 1_000_003).astype(np.int64)
+
+
+def _back_operands(rng, kind: str, B: int, dev):
+    h1 = torch.from_numpy(_back_keys(rng, kind, B)).to(dev)
+    h2 = torch.from_numpy(rng.integers(0, 2 ** 32, size=B) | 1).to(dev)
+    n = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32)).to(dev)
+    avail = torch.from_numpy((rng.integers(0, 40, size=B)
+                              + rng.random(B)).astype(np.float32)).to(dev)
+    est = torch.from_numpy((rng.random(B) * 30).astype(np.float32)).to(dev)
+    return h1, h2, n, n.to(torch.float32), avail, est
+
+
+@pytest.mark.parametrize("B,kind", [
+    (0, "zipf"), (1, "zipf"), (8, "zipf"), (4096, "zipf"), (4096, "one key"),
+    (4096, "wide"), (sc.ADMIT_CAPACITY, "zipf"),
+    (2 * sc.ADMIT_CAPACITY, "zipf")])
+@pytest.mark.parametrize("iters", [1, 4])
+def test_backs_bit_equal_to_plain(dev, B, kind, iters):
+    """add_back, window_admit and bucket_admit against their plain versions
+    on mixed request counts (0 is padding); up to ADMIT_CAPACITY keys each
+    is ONE launch, above it (the limiter's next pad) the composed back:
+    the plain admission on the card and the standalone add_update."""
+    rng = np.random.default_rng(B + iters + len(kind))
+    h1, h2, n, n_f, avail, est = _back_operands(rng, kind, B, dev)
+    totals, _, cur = _slabs(rng, 4, 65536, dev)
+    sc.reset_launch_counts()
+    bc.reset_launch_counts()
+    a, c, a2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+    got = sc.add_back(a, c, h1, h2, n, n_f, avail, iters)
+    want = sc.add_back_plain(a2, c2, h1, h2, n, n_f, avail, iters)
+    torch.cuda.synchronize()
+    assert _same([*got, a, c], [*want, a2, c2])
+    assert _same(sc.window_admit(h1, est, n_f, avail, iters),
+                 sc.window_admit_plain(h1, est, n_f, avail, iters))
+    units = n.to(torch.int64) * 1_000_000 + (n > 2).to(torch.int64)
+    b_avail = (avail.double() * 1e6).to(torch.int64)
+    assert _same(bc.bucket_admit(h1, units, b_avail, iters, 5, 3),
+                 bc.bucket_admit_plain(h1, units, b_avail, iters, 5, 3))
+    fused = int(B <= sc.ADMIT_CAPACITY)
+    assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
+                                  "add_update": 1, "add_back": fused,
+                                  "admit": fused}
+    assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
+                                  "admit": fused}
+
+
+def test_bucket_admit_wrapping_retry_on_card(dev):
+    """A deficit whose product with rate_den wraps int64, floor divisions
+    of negative values, and int64 units past 2^24: the kernel's uint64
+    arithmetic gives torch's bits."""
+    rng = np.random.default_rng(17)
+    B = 512
+    h1 = torch.from_numpy(rng.integers(0, 24, size=B)).to(dev)
+    units = torch.from_numpy(rng.integers(0, 1 << 41, size=B)).to(dev)
+    units[::5] = 3 * ((1 << 24) + 1)
+    avail = torch.from_numpy(rng.integers(0, 1 << 42, size=B)).to(dev)
+    for num, den in ((7, 6), (3, (1 << 62) + 11), (1, 1)):
+        for iters in (1, 4):
+            assert _same(bc.bucket_admit(h1, units, avail, iters, num, den),
+                         bc.bucket_admit_plain(h1, units, avail, iters, num,
+                                               den))

@@ -235,8 +235,13 @@ def test_plain_versions_do_not_count_launches():
     sc.window_front(_t(totals), (_th(h1), _th(h2)))
     sc.add_update(_t(totals), _t(cur), _th(h1), _th(h2),
                   torch.ones(B, dtype=torch.int32))
+    n = torch.ones(B, dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.float32)
+    sc.add_back(_t(totals), _t(cur), _th(h1), _th(h2), n, ones, ones, 4)
+    sc.window_admit(_th(h1), ones, ones, ones, 4)
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
-                                  "add_update": 0}
+                                  "add_update": 0, "add_back": 0,
+                                  "admit": 0}
 
 
 @pytest.mark.parametrize("w,batch,given,want", [
