@@ -57,7 +57,21 @@ Phases (each raises on failure; the script exits non-zero):
 4. start the port's server on 127.0.0.1, once with the windowed limiter
    and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
    ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
-   the same trace;
+   the same trace; then serve each again with the micro-batcher at its
+   defaults (4096 / 200 us / 8 in flight) to a child process: 8
+   connections, each pipelining 48 frames (8 in flight), ALLOW_HASHED of
+   512 Zipf(1.1) ids with every 8th an ALLOW_BATCH of 64 string keys, a
+   RESET halfway, then HEALTH and METRICS. A recording proxy logs each
+   window the batcher launches (arrays and ``now``); every frame's answer
+   must be bit-identical to a CPU replay of those windows, the final
+   state to the replay's, HEALTH must count every decision, METRICS must
+   show fewer dispatches than frames, every kernel of the path must have
+   launched, and as many admission launches as updates (no composed
+   back). The same traffic is then served once more straight over a
+   limiter on the system clock, without the proxy, as
+   ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
+   through the door, frames a dispatch and p50/p99 frame latency of both
+   runs are printed side by side;
 5. print the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -87,9 +101,12 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import multiprocessing
+import queue
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1417,8 +1434,467 @@ def check_server(torch, seed: int, cfg, label: str) -> None:
         f"in-process limiter")
 
 
+# ---------------------------------------------- phase 4: the door's batcher
+
+#: The door run: connections, frames per connection, raw ids per
+#: ALLOW_HASHED frame, string keys per ALLOW_BATCH frame (every
+#: DOOR_STRING_EVERY-th frame of a connection), frames each connection
+#: keeps in flight.
+DOOR_CONNS, DOOR_FRAMES, DOOR_IDS, DOOR_KEYS = 8, 48, 512, 64
+DOOR_STRING_EVERY, DOOR_DEPTH = 8, 8
+
+
+class RecordingLimiter:
+    """A thin proxy over the served limiter: before each launch or reset
+    it sets the limiter's ManualClock to the wall clock's progress since
+    ``t0``, passes that ``now`` explicitly, and logs the call's arrays and
+    ``now`` in the order the calls reach the limiter (the order of the
+    state updates on the card: every thread enqueues on the default
+    stream, under this proxy's lock). It also sums the launches' wall
+    time and the launching thread's CPU time."""
+
+    def __init__(self, inner, t0: float):
+        self.inner = inner
+        self.config = inner.config
+        self.clock = inner.clock
+        self.pipelined = inner.pipelined
+        self.log: list = []
+        self.launch_wall_s = self.launch_cpu_s = 0.0
+        self._t0 = t0
+        self._start = time.perf_counter()
+        self._lock = threading.Lock()
+
+    def _now(self) -> float:
+        now = self._t0 + (time.perf_counter() - self._start)
+        self.clock.set(now)
+        return now
+
+    def _timed(self, launch, *args, **kw):
+        t, cpu = time.perf_counter(), time.thread_time()
+        ticket = launch(*args, **kw)
+        self.launch_wall_s += time.perf_counter() - t
+        self.launch_cpu_s += time.thread_time() - cpu
+        return ticket
+
+    def launch_ids(self, ids, ns=None, *, wire: bool = False):
+        with self._lock:
+            now = self._now()
+            ticket = self._timed(self.inner.launch_ids, ids, ns, now=now,
+                                 wire=wire)
+            self.log.append(("ids", np.array(ids), np.array(ns), now))
+        return ticket
+
+    def launch_batch(self, keys, ns=None):
+        with self._lock:
+            now = self._now()
+            ticket = self._timed(self.inner.launch_batch, keys, ns, now=now)
+            self.log.append(("keys", list(keys), list(ns), now))
+        return ticket
+
+    def reset(self, key: str) -> None:
+        with self._lock:
+            now = self._now()
+            self.inner.reset(key)
+            self.log.append(("reset", key, None, now))
+
+    def resolve(self, ticket):
+        return self.inner.resolve(ticket)
+
+    def allow_ids(self, ids, ns=None):
+        """Marks the raw-id lane (the batcher looks for it)."""
+        return self.resolve(self.launch_ids(ids, ns))
+
+
+def door_keys(rng, space: str, n: int) -> list:
+    if space == "c2":
+        return [f"u:{int(i)}" for i in rng.integers(0, C2_KEYS, size=n)]
+    return [f"user:{int(k)}" for k in zipf_ids(rng, n)]
+
+
+async def _door_conn(port: int, c: int, frames: int, n_ids: int,
+                     n_keys: int, depth: int, space: str, seed: int):
+    """One client connection: ``frames`` decision frames sent pipelined
+    (at most ``depth`` unanswered), replies read as they come, by request
+    id. Connection 0 also sends a RESET halfway."""
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    rng = np.random.default_rng(seed * 1000 + c)
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    window = asyncio.Semaphore(depth)
+    sent: dict = {}
+    out = {"hashed": [], "strings": [], "latency": [], "inversions": 0,
+           "errors": []}
+    n_replies = frames + (1 if c == 0 else 0)
+
+    async def read_replies():
+        last = -1
+        for _ in range(n_replies):
+            length, type_, rid = p.parse_header(await reader.readexactly(13))
+            body = await reader.readexactly(length - 9)
+            t = time.perf_counter()
+            kind, payload, t0 = sent.pop(rid)
+            window.release()
+            # Request ids rise in send order: a smaller one than seen
+            # before is a reply overtaken by a later frame's.
+            out["inversions"] += rid < last
+            last = max(last, rid)
+            if type_ == p.T_ERROR:
+                out["errors"].append(p.parse_error(body))
+                continue
+            if kind == "reset":
+                continue
+            out["latency"].append(t - t0)
+            if kind == "hashed":
+                res = p.parse_result_hashed(body)
+                out["hashed"].append((payload, np.array(res.allowed),
+                                      np.array(res.remaining),
+                                      np.array(res.retry_after),
+                                      np.array(res.reset_at), res.fail_open))
+            else:
+                out["strings"].append((payload, [
+                    (r.allowed, r.remaining, r.retry_after, r.reset_at,
+                     r.fail_open) for r in p.parse_result_batch(body)]))
+
+    reading = asyncio.ensure_future(read_replies())
+    rid = 0
+    for i in range(frames):
+        await window.acquire()
+        rid += 1
+        if i % DOOR_STRING_EVERY == DOOR_STRING_EVERY - 1:
+            keys = door_keys(rng, space, n_keys)
+            sent[rid] = ("strings", keys, time.perf_counter())
+            writer.write(p.encode_allow_batch(rid, keys, [1] * n_keys))
+        else:
+            ids = zipf_ids(rng, n_ids)
+            sent[rid] = ("hashed", ids, time.perf_counter())
+            writer.write(p.encode_allow_hashed(rid, ids))
+        if c == 0 and i == frames // 2:
+            await window.acquire()
+            rid += 1
+            sent[rid] = ("reset", None, time.perf_counter())
+            writer.write(p.encode_reset(rid, door_keys(rng, space, 1)[0]))
+        await writer.drain()
+    await reading
+    writer.close()
+    await writer.wait_closed()
+    return out
+
+
+async def _door_clients(port: int, conns: int, frames: int, n_ids: int,
+                        n_keys: int, depth: int, space: str, seed: int):
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    t, cpu = time.perf_counter(), time.process_time()
+    outs = await asyncio.gather(*(
+        _door_conn(port, c, frames, n_ids, n_keys, depth, space, seed)
+        for c in range(conns)))
+    wall, cpu = time.perf_counter() - t, time.process_time() - cpu
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(p.encode_simple(p.T_HEALTH, 1)
+                 + p.encode_simple(p.T_METRICS, 2))
+    replies = {}
+    for _ in range(2):
+        length, type_, rid = p.parse_header(await reader.readexactly(13))
+        replies[rid] = (type_, await reader.readexactly(length - 9))
+    writer.close()
+    await writer.wait_closed()
+    if replies[1][0] != p.T_HEALTH_R or replies[2][0] != p.T_METRICS_R:
+        raise AssertionError(f"control frames answered {replies}")
+    return {"conns": outs, "wall_s": wall, "client_cpu_s": cpu,
+            "health": p.parse_health(replies[1][1]),
+            "metrics": p.parse_metrics(replies[2][1])}
+
+
+def door_client(port: int, conns: int, frames: int, n_ids: int,
+                n_keys: int, depth: int, space: str, seed: int,
+                out) -> None:
+    """The door's client, run in a child process: ``conns`` connections
+    pipelining ALLOW_HASHED and ALLOW_BATCH frames, then HEALTH and
+    METRICS on one more; puts everything it read on ``out``."""
+    out.put(asyncio.run(_door_clients(port, conns, frames, n_ids, n_keys,
+                                      depth, space, seed)))
+
+
+def _collect(proc, q, timeout: float):
+    """The child's result (read before it is joined)."""
+    deadline = time.time() + timeout
+    while True:
+        try:
+            return q.get(timeout=0.5)
+        except queue.Empty:
+            if not proc.is_alive():
+                raise AssertionError(f"door client exited with "
+                                     f"{proc.exitcode} before its result")
+            if time.time() > deadline:
+                raise AssertionError("door client timed out")
+
+
+def replay_windows(cfg, log: list):
+    """Every recorded window (and reset) again, in order, on a CPU limiter
+    of the port at the recorded ``now``s; returns the results (None for a
+    reset) and the limiter."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                         device="cpu")
+    outs = []
+    for kind, a, ns, now in log:
+        cpu.clock.set(now)
+        if kind == "ids":
+            outs.append(cpu.resolve(cpu.launch_ids(a, ns, now=now,
+                                                   wire=True)))
+        elif kind == "keys":
+            outs.append(cpu.resolve(cpu.launch_batch(a, ns, now=now)))
+        else:
+            cpu.reset(a)
+            outs.append(None)
+    return outs, cpu
+
+
+def _hold_door_frames(name: str, log, replayed, conns, n_ids: int,
+                      n_keys: int) -> None:
+    """Each frame's answer against its rows of the replayed window. A
+    hashed window is its frames' ids in arrival order (whole frames:
+    ``n_ids`` <= 2*max_batch), found by their bytes; the string windows
+    together are the string frames' keys in arrival order (the fill may
+    cut a frame between two windows)."""
+    hashed: dict = {}
+    strings: dict = {}
+    for out in conns:
+        for row in out["hashed"]:
+            hashed.setdefault(row[0].tobytes(), []).append(row)
+        for keys, rows in out["strings"]:
+            strings.setdefault(tuple(keys), []).append(rows)
+    n_hashed = sum(map(len, hashed.values()))
+    n_strings = sum(map(len, strings.values()))
+    fields = ("allowed", "remaining", "retry_after", "reset_at")
+    key_stream, str_rows = [], []
+    for (kind, a, _, _), res in zip(log, replayed):
+        if kind == "keys":
+            key_stream += a
+            str_rows += [(bool(res.allowed[i]), int(res.remaining[i]),
+                          float(res.retry_after[i]), float(res.reset_at[i]),
+                          res.fail_open) for i in range(len(a))]
+        if kind != "ids":
+            continue
+        if len(a) % n_ids:
+            raise AssertionError(f"{name}: a hashed window of {len(a)} rows "
+                                 f"is not whole frames")
+        for off in range(0, len(a), n_ids):
+            got = hashed.get(a[off:off + n_ids].tobytes())
+            if not got:
+                raise AssertionError(f"{name}: window rows {off}+ match no "
+                                     f"frame")
+            row = got.pop()
+            want = res.rows(off, n_ids)
+            for f, x in zip(fields, row[1:5]):
+                y = getattr(want, f)
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    raise AssertionError(f"{name}: a frame's {f} differs "
+                                         f"from the CPU replay")
+            if row[5] != want.fail_open:
+                raise AssertionError(f"{name}: fail_open differs")
+    for off in range(0, len(key_stream), n_keys):
+        got = strings.get(tuple(key_stream[off:off + n_keys]))
+        if not got:
+            raise AssertionError(f"{name}: string rows {off}+ match no frame")
+        if got.pop() != str_rows[off:off + n_keys]:
+            raise AssertionError(f"{name}: a string frame differs from the "
+                                 f"CPU replay")
+    left = sum(map(len, hashed.values())) + sum(map(len, strings.values()))
+    if left or not n_hashed or not n_strings:
+        raise AssertionError(f"{name}: {left} of {n_hashed} hashed and "
+                             f"{n_strings} string frames were in no window")
+
+
+def metric_value(text: str, sample: str) -> float:
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split()[-1])
+    raise AssertionError(f"{sample} not in the METRICS text")
+
+
+def serve_door(limiter, *, seed: int, space: str, conns: int, frames: int,
+               n_ids: int, n_keys: int, depth: int, counters=(),
+               server_kw=None) -> dict:
+    """The port's server over ``limiter`` with the micro-batcher at its
+    defaults (``server_kw`` overrides them), driven by ``door_client`` in
+    a child process; the launch counts of ``counters`` are set to 0 once
+    the server listens. Returns what the client read, plus the server's
+    CPU seconds."""
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+
+    async def main():
+        srv = RateLimitServer(limiter, "127.0.0.1", 0, registry=Registry(),
+                              **(server_kw or {}))
+        await srv.start()
+        for mod in counters:
+            mod.reset_launch_counts()
+        proc = ctx.Process(target=door_client, args=(
+            srv.port, conns, frames, n_ids, n_keys, depth, space, seed, q))
+        proc.start()
+        cpu = time.process_time()
+        try:
+            got = await asyncio.get_running_loop().run_in_executor(
+                None, _collect, proc, q, 600.0)
+            got["server_cpu_s"] = time.process_time() - cpu
+            return got
+        finally:
+            await srv.shutdown()
+            proc.join(30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+
+    return asyncio.run(main())
+
+
+def _door_readings(name: str, got: dict) -> dict:
+    """Frames, decisions, dispatches and latency of one door run; fails on
+    an error reply, a HEALTH count that misses decisions, or no
+    coalescing."""
+    errors = [e for out in got["conns"] for e in out["errors"]]
+    if errors:
+        raise AssertionError(f"{name}: error replies {errors[:3]}")
+    n_frames = sum(len(o["hashed"]) + len(o["strings"])
+                   for o in got["conns"])
+    decisions = sum(len(r[0]) for o in got["conns"] for r in o["hashed"]) \
+        + sum(len(r[0]) for o in got["conns"] for r in o["strings"])
+    dispatches = metric_value(got["metrics"],
+                              "rate_limiter_server_batch_size_count")
+    if got["health"][2] != decisions:
+        raise AssertionError(f"{name}: HEALTH counts {got['health'][2]} "
+                             f"decisions, not {decisions}")
+    if not dispatches < n_frames:
+        raise AssertionError(f"{name}: {dispatches:g} dispatches for "
+                             f"{n_frames} frames")
+    lat = np.array([t for o in got["conns"] for t in o["latency"]])
+    return {"frames": n_frames, "decisions": decisions,
+            "dispatches": int(dispatches),
+            "frames_per_dispatch": n_frames / dispatches,
+            "decisions_per_s": decisions / got["wall_s"],
+            "wall_s": got["wall_s"],
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def time_door(cfg, label: str, *, seed: int = 0, space: str = "zipf",
+              conns: int = DOOR_CONNS, frames: int = DOOR_FRAMES,
+              n_ids: int = DOOR_IDS, n_keys: int = DOOR_KEYS,
+              depth: int = DOOR_DEPTH) -> dict:
+    """The door as ``python -m ratelimiter_tpu_torch.serving`` runs it: the
+    server straight over a limiter on the card and the system clock, no
+    recording proxy, driven by the same client as ``check_door``. Only
+    timed; ``check_door`` holds the answers."""
+    from ratelimiter_tpu_torch import create_limiter
+
+    served = create_limiter(cfg, backend="sketch", device="cuda")
+    try:
+        got = serve_door(served, seed=seed, space=space, conns=conns,
+                         frames=frames, n_ids=n_ids, n_keys=n_keys,
+                         depth=depth)
+    finally:
+        served.close()
+    out = _door_readings(f"door[{label}, unproxied]", got)
+    log(f"door[{label}] unproxied on cuda: {out['frames']} frames in "
+        f"{out['dispatches']} dispatches ({out['frames_per_dispatch']:.2f} "
+        f"frames a dispatch); {out['decisions_per_s']:.0f} decisions/s, "
+        f"frame latency p50 {out['p50_ms']:.2f} ms p99 "
+        f"{out['p99_ms']:.2f} ms over {out['wall_s']:.3f} s")
+    return out
+
+
+def check_door(torch, cfg, label: str, *, device: str = "cuda",
+               seed: int = 0, space: str = "zipf", conns: int = DOOR_CONNS,
+               frames: int = DOOR_FRAMES, n_ids: int = DOOR_IDS,
+               n_keys: int = DOOR_KEYS, depth: int = DOOR_DEPTH,
+               counters=(), required=(), same=None, server_kw=None) -> dict:
+    """The port's server over ``cfg`` (``serve_door``) through a
+    ``RecordingLimiter``. Every frame's answer must be bit-identical to a
+    CPU replay of the windows the batcher launched, the final state to
+    the replay's, HEALTH must count every decision, METRICS must show
+    fewer dispatches than frames (one for each window launched), and each
+    kernel in ``required`` must have launched; ``same`` names two counts
+    that must be equal (an admission launch for every update: no composed
+    back). Returns the door's readings, which include the proxy's own
+    cost (a lock, a copy of each window's arrays, a clock set and two
+    timer reads per launch); ``time_door`` times the door without it."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    served = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                            device=device)
+    rec = RecordingLimiter(served, T0)
+    got = serve_door(rec, seed=seed, space=space, conns=conns,
+                     frames=frames, n_ids=n_ids, n_keys=n_keys, depth=depth,
+                     counters=counters, server_kw=server_kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = {}
+    for mod in counters:
+        counts.update(mod.launch_counts())
+    _, served_arrays, _ = served.capture_state()
+    served.close()
+    name = f"door[{label}]"
+    out = _door_readings(name, got)
+    replayed, cpu = replay_windows(cfg, rec.log)
+    _hold_door_frames(name, rec.log, replayed, got["conns"], n_ids, n_keys)
+    _, cpu_arrays, _ = cpu.capture_state()
+    cpu.close()
+    for k, v in cpu_arrays.items():
+        if not np.array_equal(served_arrays[k], v):
+            raise AssertionError(f"{name}: final state {k} differs from the "
+                                 f"CPU replay")
+    windows = sum(kind != "reset" for kind, *_ in rec.log)
+    if out["dispatches"] != windows:
+        raise AssertionError(f"{name}: {out['dispatches']} dispatches for "
+                             f"{windows} windows launched")
+    for k in required:
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"{name}: {k} was not launched")
+    if same is not None and counts[same[0]] != counts[same[1]]:
+        raise AssertionError(f"{name}: {counts[same[0]]} {same[0]} "
+                             f"launches for {counts[same[1]]} {same[1]}: "
+                             f"the composed back ran")
+
+    def mean_ms(family: str) -> float:
+        return 1e3 * (metric_value(got["metrics"], family + "_sum")
+                      / metric_value(got["metrics"], family + "_count"))
+
+    out.update({
+        "counts": counts,
+        "inversions": sum(o["inversions"] for o in got["conns"]),
+        "resets": sum(kind == "reset" for kind, *_ in rec.log),
+        "launch_ms_mean": mean_ms("rate_limiter_pipeline_launch_seconds"),
+        "resolve_ms_mean": mean_ms("rate_limiter_pipeline_resolve_seconds"),
+        "dispatch_ms_mean": mean_ms("rate_limiter_server_dispatch_seconds"),
+        "limiter_launch_ms_mean": 1e3 * rec.launch_wall_s / windows,
+        "limiter_launch_cpu_ms_mean": 1e3 * rec.launch_cpu_s / windows,
+        "server_cpu_s": got["server_cpu_s"],
+        "client_cpu_s": got["client_cpu_s"]})
+    log(f"{name} on {device}: {conns} connections, {out['frames']} frames "
+        f"({out['decisions']} decisions) in {out['dispatches']} dispatches "
+        f"({out['frames_per_dispatch']:.2f} frames a dispatch), every frame "
+        f"bit-identical to a CPU replay of the windows; "
+        f"{out['decisions_per_s']:.0f} decisions/s, frame latency p50 "
+        f"{out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms, "
+        f"{out['inversions']} replies out of order; per window launch "
+        f"{out['launch_ms_mean']:.3f} ms (the limiter's "
+        f"{out['limiter_launch_ms_mean']:.3f} ms, of which the launching "
+        f"thread's CPU {out['limiter_launch_cpu_ms_mean']:.3f} ms), resolve "
+        f"{out['resolve_ms_mean']:.3f} ms, dispatch (launch to answer) "
+        f"{out['dispatch_ms_mean']:.3f} ms; CPU seconds over the "
+        f"{out['wall_s']:.3f} s run: server {out['server_cpu_s']:.3f}, "
+        f"client {out['client_cpu_s']:.3f}; launches {counts}")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
-    """A kernel row's launches over the main paths' runs: the standalone
+    """A kernel row's launches over the main paths' runs and the door's
+    (each counted from 0 just before it and read just after): the standalone
     ``add_update`` is the TPU name's count less the fused back's, each
     admission launch counts as ``admit`` in its family's module."""
     if name == "add_update":
@@ -1486,9 +1962,6 @@ def main(argv=None) -> int:
                               strict)
     tb_zipf = check_bucket_path(torch, args.seed + 13, "TB-zipf",
                                 max(32, args.steps // 2), strict)
-    for name in rows:
-        rows[name]["launches"] = row_launches(name, (cu, vanilla),
-                                              (tb_c2, tb_zipf))
     log(f"main paths on {card}: " + "; ".join(
         f"{label} {run['steps_per_s']:.1f} steps/s, "
         f"{run['decisions_per_s']:.0f} decisions/s"
@@ -1518,6 +1991,36 @@ def main(argv=None) -> int:
         return 0
     check_server(torch, args.seed, config3(), "windowed")
     check_server(torch, args.seed, config2_bucket(), "TB-c2")
+    door_cu = check_door(
+        torch, config3(), "windowed CU", seed=args.seed + 17,
+        counters=[sketch_cuda],
+        required=("window_estimate", "admit", "cu_update"),
+        same=("admit", "cu_update"))
+    door_tb = check_door(
+        torch, config2_bucket(), "TB-c2", seed=args.seed + 19, space="c2",
+        counters=[bucket_cuda],
+        required=("bucket_estimate", "admit", "bucket_update"),
+        same=("admit", "bucket_update"))
+    bare_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
+    bare_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
+                        space="c2")
+    log(f"door on {card} (through the recording proxy | unproxied): "
+        + "; ".join(
+            f"{label} {d['decisions_per_s']:.0f} | "
+            f"{b['decisions_per_s']:.0f} decisions/s, "
+            f"{d['frames_per_dispatch']:.2f} | "
+            f"{b['frames_per_dispatch']:.2f} frames a dispatch, frame "
+            f"latency p50 {d['p50_ms']:.2f} | {b['p50_ms']:.2f} ms, p99 "
+            f"{d['p99_ms']:.2f} | {b['p99_ms']:.2f} ms"
+            for label, d, b in (("windowed CU", door_cu, bare_cu),
+                                ("TB-c2", door_tb, bare_tb))))
+    for name in rows:
+        rows[name]["launches"] = row_launches(
+            name, (cu, vanilla, door_cu), (tb_c2, tb_zipf, door_tb))
+    paths["door_windowed_CU"] = door_cu
+    paths["door_TB-c2"] = door_tb
+    paths["door_unproxied_windowed_CU"] = bare_cu
+    paths["door_unproxied_TB-c2"] = bare_tb
 
     log(json.dumps({"main_path": paths}))
     print(json.dumps({"kernels": list(rows.values())}))

@@ -32,7 +32,8 @@ naming the ROADMAP item): the heavy-hitter side table and the hierarchy
 ``overload_policy``) is not ported either, so the windowed limiter refuses
 the "strict" policy rather than silently ignoring it (the bucket has no
 watchdog in either package and ignores it). Neither limiter ports
-``update_limit``/``update_window``.
+``update_limit``/``update_window``. Both port the failure injection
+(``inject_failure``/``heal``) the serving tier's failure paths need.
 """
 
 from __future__ import annotations
@@ -120,6 +121,9 @@ class SketchLimiter(RateLimiter):
         self._window_us = to_micros(self.config.window)
         self._seed = self.config.sketch.seed
         self._lock = threading.Lock()
+        #: Set by inject_failure: every launch raises it (under the lock)
+        #: until heal().
+        self._injected_failure: Optional[Exception] = None
 
     def _init_policy(self) -> None:
         """Per-key limit overrides, resolved in the step; window scaling
@@ -221,6 +225,8 @@ class SketchLimiter(RateLimiter):
         nsp = np.zeros(padded, dtype=np.int32)
         nsp[:b] = ns
         with self._lock:
+            if self._injected_failure is not None:
+                raise self._injected_failure
             self._sync_period(now_us)
             step = self._ids_step if premix else self._step
             h_dev = self._stage(h64p.view(np.int64), np.int64)
@@ -400,6 +406,18 @@ class SketchLimiter(RateLimiter):
 
     def _close(self) -> None:
         self._state = {}
+
+    # ---------------------------------------------------- fault injection
+
+    def inject_failure(self, exc: Optional[Exception] = None) -> None:
+        """Make every launch fail with ``exc`` until ``heal``: fail-open
+        configs answer with fail-open results, fail-closed ones raise
+        StorageUnavailableError (``_launch_guarded``)."""
+        self._injected_failure = exc if exc is not None else RuntimeError(
+            "injected backend failure")
+
+    def heal(self) -> None:
+        self._injected_failure = None
 
     # ------------------------------------------------- state carried across
 

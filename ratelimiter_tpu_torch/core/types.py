@@ -83,7 +83,10 @@ class BatchResult:
     #: i64[3*padded], padded)`` when the dispatch was launched
     #: ``wire=True`` (sketch_kernels.pack_wire):
     #: protocol.encode_result_hashed frames straight from these with
-    #: slices instead of re-bit-packing the allow mask.
+    #: slices instead of re-bit-packing the allow mask. A 4-tuple
+    #: ``(bits, words, padded, row_off)`` is the row-window form
+    #: produced by ``rows()``: the same buffers, framing the
+    #: ``row_off``-based sub-range.
     wire_packed: "tuple | None" = None
 
     def __len__(self) -> int:
@@ -103,9 +106,42 @@ class BatchResult:
     def results(self) -> list[Result]:
         return [self.result(i) for i in range(len(self))]
 
+    def rows(self, off: int, count: int) -> "BatchResult":
+        """A contiguous row-range view of this result (the micro-batcher's
+        per-frame slice of a coalesced window): all arrays are NumPy
+        views, and device-packed wire buffers ride along in the
+        row-offset form ``(bits, words, padded, off)`` so the wire
+        encoder still frames the sub-range from them
+        (protocol.encode_result_hashed_views). ``fail_open`` is the
+        window's: a frame coalesced with a failed-open neighbour reports
+        that some answers may be fabricated."""
+        wp = self.wire_packed
+        if wp is not None:
+            bits, words, padded = wp[0], wp[1], wp[2]
+            base = wp[3] if len(wp) > 3 else 0
+            wp = (bits, words, padded, base + off)
+        return BatchResult(
+            allowed=self.allowed[off:off + count],
+            limit=self.limit,
+            remaining=self.remaining[off:off + count],
+            retry_after=self.retry_after[off:off + count],
+            reset_at=self.reset_at[off:off + count],
+            fail_open=self.fail_open,
+            limits=(self.limits[off:off + count]
+                    if self.limits is not None else None),
+            wire_packed=wp,
+        )
+
     @property
     def allow_count(self) -> int:
         return int(np.sum(self.allowed))
+
+
+def fail_open_result(limit: int, reset_at: float) -> Result:
+    """Backend down with fail_open: allowed, remaining 0 (reference
+    ``result.go:29-38``, ``tokenbucket.go:103-110``)."""
+    return Result(allowed=True, limit=limit, remaining=0, retry_after=0.0,
+                  reset_at=reset_at, fail_open=True)
 
 
 def batch_fail_open(n: int, limit: int, reset_at: float) -> BatchResult:

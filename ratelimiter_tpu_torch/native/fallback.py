@@ -1,13 +1,13 @@
 """NumPy bulk string hasher, a copy of ``ratelimiter_tpu/native/fallback.py``:
-bit-identical to the JAX package's C++ hasher (hasher.cpp there).
+the plain twin of the C++ hasher (``hasher.cpp``), bit for bit.
 
 Fully vectorized over the batch: the per-key variable-length byte streams are
 gathered into a dense (n, W) little-endian uint64 lane matrix and the
 multiply-rotate rounds run column-wise, masked by each key's lane count, so
 cost is O(n * max_lanes) vector ops with no Python-level per-key loop.
 
-The algorithm contract lives in the JAX package's hasher.cpp; the CPU
-tests hold this copy to it.
+tests/test_torch_hasher.py holds the C++ hasher to this twin and to the
+JAX package's hasher.
 """
 
 from __future__ import annotations

@@ -70,8 +70,9 @@ FRONT_THREADS = 128
 #: shared-memory hash table (two 8-byte slots a key, 128 KB) is the
 #: largest power of two that fits a block. Batches above it take the plain
 #: admission on the card and the standalone ``add_update`` (``add_back``),
-#: or the plain admission before ``cu_update`` (``window_admit``); PERF.md
-#: has the times behind this size.
+#: or the plain admission before ``cu_update`` (``window_admit``). PERF.md
+#: §6 ("Admission capacity and block shapes") has the times behind this
+#: size.
 ADMIT_CAPACITY = 8192
 
 #: The front kernels' key lanes (csrc/front.cuh): raw u64 ids (splitmix64

@@ -13,6 +13,7 @@ Requests:
     ALLOW_N       (1): u32 n, u16 key_len, key utf-8
     RESET         (2): u16 key_len, key utf-8
     HEALTH        (3): -
+    METRICS       (4): -
     ALLOW_BATCH   (5): u32 count, then count x {u32 n, u16 key_len, key}
     ALLOW_HASHED (11): u32 count | u64 ids[count] | u32 ns[count] — raw
                        u64 ids, splitmix64 and the (h1, h2) split run on
@@ -23,6 +24,7 @@ Responses:
                          i64 remaining, f64 retry_after, f64 reset_at
     OK            (130): -
     HEALTH        (131): u8 status, f64 uptime_s, u64 decisions_total
+    METRICS_R     (132): u32 len, Prometheus text utf-8
     RESULT_BATCH  (133): i64 limit (the DEFAULT limit), u32 count, then
                          count x {u8 flags, i64 remaining, f64 retry,
                          f64 reset}
@@ -60,12 +62,14 @@ MAX_KEY_LEN = 4096
 T_ALLOW_N = 1
 T_RESET = 2
 T_HEALTH = 3
+T_METRICS = 4
 T_ALLOW_BATCH = 5
 T_ALLOW_HASHED = 11
 
 T_RESULT = 129
 T_OK = 130
 T_HEALTH_R = 131
+T_METRICS_R = 132
 T_RESULT_BATCH = 133
 T_RESULT_HASHED = 136
 T_ERROR = 255
@@ -243,6 +247,17 @@ def parse_health(body: bytes) -> Tuple[bool, float, int]:
     return bool(status), uptime, decisions
 
 
+def encode_metrics(req_id: int, text: str) -> bytes:
+    tb = text.encode("utf-8")
+    body = _U32.pack(len(tb)) + tb
+    return _HDR.pack(1 + 8 + len(body), T_METRICS_R, req_id) + body
+
+
+def parse_metrics(body: bytes) -> str:
+    (n,) = _U32.unpack_from(body)
+    return body[_U32.size:_U32.size + n].decode("utf-8")
+
+
 def encode_error(req_id: int, code: int, msg: str) -> bytes:
     mb = msg.encode("utf-8")[:65535]
     body = _ERROR_HEAD.pack(code, len(mb)) + mb
@@ -254,7 +269,11 @@ def parse_error(body: bytes) -> Tuple[int, str]:
     return code, body[_ERROR_HEAD.size:_ERROR_HEAD.size + msg_len].decode("utf-8")
 
 
-def encode_result_batch(req_id: int, limit: int, results) -> bytes:
+def encode_result_batch_views(req_id: int, limit: int, results) -> list:
+    """T_RESULT_BATCH frame as a writev-style buffer list: frame header and
+    batch head as one bytes object, then each 25-byte result record as
+    its own buffer. The door hands the list to ``transport.writelines``;
+    ``encode_result_batch`` joins it for the one-buffer form."""
     n = len(results)
     body_len = _BATCH_RES_HEAD.size + n * _BATCH_RES_ITEM.size
     parts = [_HDR.pack(1 + 8 + body_len, T_RESULT_BATCH, req_id)
@@ -263,7 +282,11 @@ def encode_result_batch(req_id: int, limit: int, results) -> bytes:
         flags = (1 if r.allowed else 0) | (2 if r.fail_open else 0)
         parts.append(_BATCH_RES_ITEM.pack(flags, r.remaining, r.retry_after,
                                           r.reset_at))
-    return b"".join(parts)
+    return parts
+
+
+def encode_result_batch(req_id: int, limit: int, results) -> bytes:
+    return b"".join(encode_result_batch_views(req_id, limit, results))
 
 
 def parse_result_batch(body: bytes):
@@ -280,29 +303,63 @@ def parse_result_batch(body: bytes):
 
 
 def encode_result_hashed(req_id: int, res: BatchResult) -> bytes:
-    """Columnar response from a BatchResult. Results launched with
-    ``wire=True`` carry the device-packed buffers (``wire_packed``) and
-    frame from slices of them; others pack the mask here."""
+    """Columnar response from a BatchResult, as one bytes frame. Results
+    launched with ``wire=True`` carry the device-packed buffers
+    (``wire_packed``) and frame through ``encode_result_hashed_views``;
+    others pack the mask here."""
+    if res.wire_packed is not None:
+        return b"".join(bytes(v)
+                        for v in encode_result_hashed_views(req_id, res))
     b = len(res)
     flags = 2 if res.fail_open else 0
-    nb = (b + 7) // 8
-    wp = res.wire_packed
-    if wp is not None:
-        bits_arr, words, padded = wp[0], wp[1], wp[2]
-        bits = bytearray(bits_arr[:nb].tobytes())
-        if b & 7 and nb:
-            # Zero the pad rows' bits in the final partial byte.
-            bits[-1] &= (1 << (b & 7)) - 1
-        cols = (words[:b].tobytes() + words[padded:padded + b].tobytes()
-                + words[2 * padded:2 * padded + b].tobytes())
-    else:
-        bits = np.packbits(np.asarray(res.allowed, dtype=bool),
-                           bitorder="little").tobytes()
-        cols = (np.ascontiguousarray(res.remaining, dtype="<i8").tobytes()
-                + np.ascontiguousarray(res.retry_after, dtype="<f8").tobytes()
-                + np.ascontiguousarray(res.reset_at, dtype="<f8").tobytes())
-    body = _HASHED_RES_HEAD.pack(flags, res.limit, b) + bytes(bits) + cols
+    bits = np.packbits(np.asarray(res.allowed, dtype=bool),
+                       bitorder="little")
+    body = (_HASHED_RES_HEAD.pack(flags, res.limit, b) + bits.tobytes()
+            + np.ascontiguousarray(res.remaining, dtype="<i8").tobytes()
+            + np.ascontiguousarray(res.retry_after, dtype="<f8").tobytes()
+            + np.ascontiguousarray(res.reset_at, dtype="<f8").tobytes())
     return _HDR.pack(1 + 8 + len(body), T_RESULT_HASHED, req_id) + body
+
+
+def encode_result_hashed_views(req_id: int, res: BatchResult) -> list:
+    """T_RESULT_HASHED frame as a writev-style buffer list: header and
+    allow-mask bytes in one bytes object, then the three value columns as
+    memoryviews over the device-fetched ``wire_packed`` words. The single
+    source of the packed framing (pad-bit masking, column offsets,
+    the row-window form of ``BatchResult.rows``). Results without packed
+    buffers take the one-buffer encode."""
+    wp = res.wire_packed
+    if wp is None:
+        return [encode_result_hashed(req_id, res)]
+    b = len(res)
+    flags = 2 if res.fail_open else 0
+    bits_arr, words, padded = wp[0], wp[1], wp[2]
+    # Row-window form: frame the sub-range [off, off+b) of a coalesced
+    # window's buffers. The mask is a byte slice when the frame starts
+    # on a byte boundary of the window, and a re-pack of just this
+    # frame's bits otherwise.
+    off = wp[3] if len(wp) > 3 else 0
+    nb = (b + 7) // 8
+    lo = off >> 3
+    if off & 7 == 0:
+        bits = bytearray(bits_arr[lo:lo + nb].tobytes())
+        if b & 7 and nb:
+            # Zero the trailing bits of the final partial byte (pad rows
+            # or the next frame's rows) so frame bytes are deterministic.
+            bits[-1] &= (1 << (b & 7)) - 1
+    else:
+        chunk = np.asarray(bits_arr[lo:(off + b + 7) >> 3])
+        rows_bits = np.unpackbits(chunk, bitorder="little")[
+            off - 8 * lo:off - 8 * lo + b]
+        bits = bytearray(np.packbits(rows_bits, bitorder="little").tobytes())
+    body_len = _HASHED_RES_HEAD.size + nb + 24 * b
+    head = (_HDR.pack(1 + 8 + body_len, T_RESULT_HASHED, req_id)
+            + _HASHED_RES_HEAD.pack(flags, res.limit, b) + bytes(bits))
+    return [head,
+            memoryview(words[off:off + b]).cast("B"),
+            memoryview(words[padded + off:padded + off + b]).cast("B"),
+            memoryview(words[2 * padded + off:2 * padded + off + b])
+            .cast("B")]
 
 
 def parse_result_hashed(body: bytes) -> BatchResult:

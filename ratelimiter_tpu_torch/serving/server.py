@@ -1,13 +1,24 @@
-"""A minimal asyncio TCP front door for the port's limiter.
+"""The port's rate-limit service: an asyncio TCP door over a micro-batcher.
 
-It speaks the frame subset of serving/protocol.py. Each decision frame is
-one ``launch_*`` and one ``resolve`` of the limiter, run back to back in
-the loop's default thread executor so the event loop never blocks on the
-card; frames on one connection are answered in order, connections run
-concurrently. There is no micro-batcher, native door, HTTP, gRPC, DCN,
-fleet, audit or tracing in this slice (the JAX package's server has
-them); frames that carry the JAX protocol's trace, deadline or forward
-extension bits are answered with E_INVALID_CONFIG.
+A copy of the socket door of ``ratelimiter_tpu/serving/server.py``,
+trimmed to the frames this slice serves:
+
+* every decision frame from every connection funnels into ONE
+  MicroBatcher (serving/batcher.py), so concurrent clients share device
+  dispatches, with up to ``inflight`` launches in flight;
+* ALLOW_N, ALLOW_HASHED and ALLOW_BATCH take the zero-task path: the
+  frame is queued into the batcher and its reply is written from the
+  future's done callback. Replies carry request ids and may return out
+  of order: clients pipeline, the server coalesces;
+* RESET, HEALTH and METRICS (Prometheus text of the door's registry) run
+  as one task each. Reset is not batched: it is rare, and its semantics
+  are "take effect before any later decision", which the limiter's lock
+  gives; it runs in the loop's default executor;
+* a connection whose write buffer passes WRITE_BUFFER_LIMIT is dropped.
+
+Frames carrying the JAX protocol's trace, deadline or forward extension
+bits are answered with E_INVALID_CONFIG. The policy frames, HTTP, gRPC,
+the shared-memory lane, the native door and the fleet are not ported.
 """
 
 from __future__ import annotations
@@ -15,28 +26,43 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from functools import partial
 from typing import Optional
 
-import numpy as np
-
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
-from ratelimiter_tpu_torch.core.errors import InvalidNError
+from ratelimiter_tpu_torch.observability import metrics as m
 from ratelimiter_tpu_torch.serving import protocol as p
+from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
 
 log = logging.getLogger("ratelimiter_tpu_torch")
+
+# A connection whose transport write buffer grows past this is a slow
+# reader that keeps pipelining: drop it rather than buffer without bound
+# (the read side is already frame-capped by the protocol).
+WRITE_BUFFER_LIMIT = 8 * 1024 * 1024
 
 
 class RateLimitServer:
     def __init__(self, limiter: RateLimiter, host: str = "127.0.0.1",
-                 port: int = 0):
+                 port: int = 0, *, max_batch: int = 4096,
+                 max_delay: float = 200e-6,
+                 dispatch_timeout: Optional[float] = None,
+                 inflight: int = 8,
+                 registry: Optional[m.Registry] = None):
         self.limiter = limiter
         self.host = host
         self.port = port
-        self.decisions_total = 0
+        self.registry = registry if registry is not None else m.DEFAULT
+        self.batcher = MicroBatcher(
+            limiter, max_batch=max_batch, max_delay=max_delay,
+            dispatch_timeout=dispatch_timeout, inflight=inflight,
+            registry=self.registry)
         self._server: Optional[asyncio.AbstractServer] = None
         self._started_at = time.time()
         self._serving = False
-        self._conns: set = set()
+        self._conn_tasks: set = set()
+
+    # ----------------------------------------------------------- lifecycle
 
     async def start(self) -> None:
         self._server = await asyncio.start_server(self._handle_conn,
@@ -46,78 +72,73 @@ class RateLimitServer:
         self._serving = True
 
     async def shutdown(self) -> None:
+        """Graceful: stop accepting, answer what is in flight (drain the
+        batcher), then close the connections and the batcher."""
         self._serving = False
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
-        for t in list(self._conns):
+        await self.batcher.drain()
+        for t in list(self._conn_tasks):
             t.cancel()
-        if self._conns:
-            await asyncio.gather(*self._conns, return_exceptions=True)
+        await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
+        self.batcher.close()
 
     async def serve_forever(self) -> None:
         if self._server is None:
             await self.start()
-        async with self._server:
-            await self._server.serve_forever()
+        await self._server.serve_forever()
 
-    # ------------------------------------------------------------ frames
-
-    def _decide_hashed(self, ids: np.ndarray, ns: np.ndarray):
-        lim = self.limiter
-        return lim.resolve(lim.launch_ids(ids, ns.astype(np.int64),
-                                          wire=True))
-
-    def _decide_keys(self, keys, ns):
-        lim = self.limiter
-        return lim.resolve(lim.launch_batch(keys, ns))
-
-    async def _answer(self, type_: int, req_id: int, body: bytes) -> bytes:
-        loop = asyncio.get_running_loop()
-        if type_ < 128 and type_ & p.REQUEST_FLAGS:
-            return p.encode_error(
-                req_id, p.E_INVALID_CONFIG,
-                f"request type {type_:#x} carries a frame extension (trace, "
-                f"deadline or forward) that this server does not serve")
-        try:
-            if type_ == p.T_ALLOW_HASHED:
-                ids, ns = p.parse_allow_hashed(body)
-                if ids.shape[0] and int(ns.min()) <= 0:
-                    raise InvalidNError("n must be a positive integer")
-                res = await loop.run_in_executor(None, self._decide_hashed,
-                                                 ids, ns)
-                self.decisions_total += len(res)
-                return p.encode_result_hashed(req_id, res)
-            if type_ == p.T_ALLOW_BATCH:
-                keys, ns = p.parse_allow_batch(body)
-                res = await loop.run_in_executor(None, self._decide_keys,
-                                                 keys, ns)
-                self.decisions_total += len(res)
-                return p.encode_result_batch(req_id, self.limiter.config.limit,
-                                             res.results())
-            if type_ == p.T_ALLOW_N:
-                key, n = p.parse_allow_n(body)
-                res = await loop.run_in_executor(None, self._decide_keys,
-                                                 [key], [n])
-                self.decisions_total += 1
-                return p.encode_result(req_id, res.result(0))
-            if type_ == p.T_RESET:
-                key = p.parse_reset(body)
-                await loop.run_in_executor(None, self.limiter.reset, key)
-                return p.encode_ok(req_id)
-            if type_ == p.T_HEALTH:
-                return p.encode_health(req_id, self._serving,
-                                       time.time() - self._started_at,
-                                       self.decisions_total)
-            return p.encode_error(req_id, p.E_INTERNAL,
-                                  f"unknown request type {type_}")
-        except Exception as exc:  # answered on the wire, connection lives
-            return p.encode_error(req_id, p.code_for(exc), str(exc))
+    # ---------------------------------------------------------- connection
 
     async def _handle_conn(self, reader: asyncio.StreamReader,
                            writer: asyncio.StreamWriter) -> None:
+        write_lock = asyncio.Lock()
+        req_tasks: set = set()
         task = asyncio.current_task()
-        self._conns.add(task)
+        self._conn_tasks.add(task)
+
+        def check_backpressure() -> None:
+            transport = writer.transport
+            if transport.get_write_buffer_size() > WRITE_BUFFER_LIMIT:
+                log.warning(
+                    "dropping slow-reader connection (%d bytes buffered)",
+                    transport.get_write_buffer_size())
+                transport.abort()
+
+        def write_vec(bufs) -> None:
+            # Done-callback writer: never blocks the loop; broken pipes
+            # surface in the reader loop, which owns teardown. Callbacks
+            # cannot await drain(), so a client that pipelines but reads
+            # slowly is cut off past WRITE_BUFFER_LIMIT instead.
+            try:
+                writer.writelines(bufs)
+                check_backpressure()
+            except (ConnectionResetError, BrokenPipeError, RuntimeError):
+                pass
+
+        def complete_allow(req_id: int, fut: asyncio.Future) -> None:
+            exc = fut.exception()
+            if exc is not None:
+                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+            else:
+                write_vec([p.encode_result(req_id, fut.result())])
+
+        def complete_hashed(req_id: int, fut: asyncio.Future) -> None:
+            exc = fut.exception()
+            if exc is not None:
+                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+            else:
+                write_vec(p.encode_result_hashed_views(req_id, fut.result()))
+
+        def complete_batch(req_id: int, agg: asyncio.Future) -> None:
+            exc = agg.exception()
+            if exc is not None:
+                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+            else:
+                write_vec(p.encode_result_batch_views(
+                    req_id, self.limiter.config.limit, agg.result()))
+
         try:
             while True:
                 try:
@@ -129,20 +150,91 @@ class RateLimitServer:
                 except p.ProtocolError as exc:
                     log.warning("protocol error, dropping connection: %s", exc)
                     break
-                writer.write(await self._answer(type_, req_id, body))
-                await writer.drain()
+                if type_ < 128 and type_ & p.REQUEST_FLAGS:
+                    write_vec([p.encode_error(
+                        req_id, p.E_INVALID_CONFIG,
+                        f"request type {type_:#x} carries a frame extension "
+                        f"(trace, deadline or forward) that this server "
+                        f"does not serve")])
+                    continue
+                if type_ == p.T_ALLOW_N:
+                    try:
+                        key, n = p.parse_allow_n(body)
+                        fut = self.batcher.submit_nowait(key, n)
+                    except Exception as exc:
+                        write_vec([p.encode_error(req_id, p.code_for(exc),
+                                                  str(exc))])
+                        continue
+                    fut.add_done_callback(partial(complete_allow, req_id))
+                    continue
+                if type_ == p.T_ALLOW_HASHED:
+                    try:
+                        ids, ns = p.parse_allow_hashed(body)
+                        fut = self.batcher.submit_hashed_nowait(ids, ns)
+                    except Exception as exc:
+                        write_vec([p.encode_error(req_id, p.code_for(exc),
+                                                  str(exc))])
+                        continue
+                    fut.add_done_callback(partial(complete_hashed, req_id))
+                    continue
+                if type_ == p.T_ALLOW_BATCH:
+                    try:
+                        keys, ns = p.parse_allow_batch(body)
+                        futs = self.batcher.submit_many_nowait(zip(keys, ns))
+                    except Exception as exc:
+                        write_vec([p.encode_error(req_id, p.code_for(exc),
+                                                  str(exc))])
+                        continue
+                    agg = asyncio.gather(*futs)
+                    agg.add_done_callback(partial(complete_batch, req_id))
+                    continue
+                # Control frames (rare): one task each.
+                t = asyncio.ensure_future(self._handle_frame(
+                    type_, req_id, body, writer, write_lock))
+                req_tasks.add(t)
+                t.add_done_callback(req_tasks.discard)
         finally:
-            self._conns.discard(task)
+            if req_tasks:
+                await asyncio.gather(*list(req_tasks), return_exceptions=True)
             writer.close()
             try:
                 await writer.wait_closed()
             except (ConnectionResetError, BrokenPipeError):
                 pass
+            self._conn_tasks.discard(task)
+
+    async def _handle_frame(self, type_: int, req_id: int, body: bytes,
+                            writer: asyncio.StreamWriter,
+                            write_lock: asyncio.Lock) -> None:
+        try:
+            if type_ == p.T_RESET:
+                key = p.parse_reset(body)
+                # Off the event loop: reset takes the limiter lock.
+                await asyncio.get_running_loop().run_in_executor(
+                    None, self.limiter.reset, key)
+                out = p.encode_ok(req_id)
+            elif type_ == p.T_HEALTH:
+                out = p.encode_health(
+                    req_id, self._serving, time.time() - self._started_at,
+                    self.batcher.decisions_total)
+            elif type_ == p.T_METRICS:
+                out = p.encode_metrics(req_id, self.registry.render())
+            else:
+                out = p.encode_error(req_id, p.E_INTERNAL,
+                                     f"unknown request type {type_}")
+        except Exception as exc:  # answered on the wire, connection lives
+            out = p.encode_error(req_id, p.code_for(exc), str(exc))
+        async with write_lock:
+            try:
+                writer.write(out)
+                await writer.drain()
+            except (ConnectionResetError, BrokenPipeError):
+                pass
 
 
 async def run_server(limiter: RateLimiter, host: str = "127.0.0.1",
-                     port: int = 0) -> RateLimitServer:
+                     port: int = 0, **kw) -> RateLimitServer:
     """Start and return a server (test/embedding convenience)."""
-    srv = RateLimitServer(limiter, host, port)
+    srv = RateLimitServer(limiter, host, port, **kw)
     await srv.start()
     return srv

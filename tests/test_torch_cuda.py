@@ -583,3 +583,74 @@ def test_bucket_admit_wrapping_retry_on_card(dev):
             assert _same(bc.bucket_admit(h1, units, avail, iters, num, den),
                          bc.bucket_admit_plain(h1, units, avail, iters, num,
                                                den))
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_reset_between_inflight_windows_on_card(dev, algo):
+    """A reset issued from another thread (as the door's executor issues
+    it) between two launched, unresolved windows lands between them in
+    stream order: the card is held busy so both windows are still queued
+    when the reset enqueues, and results and state equal the same
+    sequence on the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=7, window=6.0,
+                 sketch=SketchParams(depth=3, width=128, sub_windows=6))
+    cls = (SketchTokenBucketLimiter if algo == "TOKEN_BUCKET"
+           else SketchLimiter)
+    gpu = cls(cfg, ManualClock(1e6), device=dev)
+    cpu = cls(cfg, ManualClock(1e6), device="cpu")
+    ids = np.array([5] * 12 + list(range(12)), dtype=np.uint64)
+    key = np.array([_unmix(int(h)) for h in gpu._hash(["whale"])],
+                   dtype=np.uint64)
+    whale = np.concatenate([key.repeat(9), ids])
+    want = [cpu.allow_ids(whale)]
+    cpu.reset("whale")
+    want.append(cpu.allow_ids(whale))
+    with ThreadPoolExecutor(1) as other:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e8))           # ~0.1 s of device time
+        first = gpu.launch_ids(whale, wire=True)
+        other.submit(gpu.reset, "whale").result()
+        second = gpu.launch_ids(whale)
+        got = [gpu.resolve(first), gpu.resolve(second)]
+    for a, b in zip(got, want):
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    # The reset freed the whale's quota for the second window.
+    assert not want[0].allowed[:9].all() and want[1].allowed[:7].all()
+    ga, ca = gpu.capture_state()[1], cpu.capture_state()[1]
+    for k in ca:
+        np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+    gpu.close()
+    cpu.close()
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_door_on_card_matches_cpu_replay(dev, algo):
+    """The port's server on the card with the micro-batcher at its
+    defaults, driven by 4 pipelining connections from a child process
+    (chip_smoke.check_door): every frame's answer and the final state
+    bit-identical to a CPU replay of the windows it launched, fewer
+    dispatches than frames, an admission launch for every update."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=20, window=2.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4))
+    if algo == "TOKEN_BUCKET":
+        kw = dict(counters=[bc], space="c2",
+                  required=("bucket_estimate", "admit", "bucket_update"),
+                  same=("admit", "bucket_update"))
+    else:
+        kw = dict(counters=[sc],
+                  required=("window_estimate", "admit", "cu_update"),
+                  same=("admit", "cu_update"))
+    out = chip_smoke.check_door(torch, cfg, algo, conns=4, frames=24,
+                                n_ids=512, n_keys=64, **kw)
+    assert out["dispatches"] < out["frames"] == 96

@@ -1,10 +1,15 @@
 """The port's wire protocol and server against the JAX package's.
 
 The encoders must produce the same bytes as ratelimiter_tpu.serving.
-protocol for the same results; the in-process asyncio server must answer
-ALLOW_HASHED, ALLOW_BATCH, ALLOW_N, RESET and HEALTH frames with what an
-in-process limiter decides on the same trace; and importing every module
-of the port must load neither jax nor ratelimiter_tpu.
+protocol for the same results (the writev-style view encoders too, on a
+coalesced window's rows at offsets 0, 3, 8 and 13); the in-process
+asyncio server must answer ALLOW_HASHED, ALLOW_BATCH, ALLOW_N, RESET,
+HEALTH and METRICS frames with what an in-process limiter decides on the
+same trace; pipelined connections through its micro-batcher, whose
+replies come out of order, must get exactly what a replay of the
+windows it launched decides (``chip_smoke.check_door`` at a small size,
+on the CPU); and importing every module of the port must load neither
+jax nor ratelimiter_tpu.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import sys
 import numpy as np
 import pytest
 
+import ratelimiter_tpu_torch as T
 from ratelimiter_tpu.core.types import BatchResult as JaxBatchResult
 from ratelimiter_tpu.core.types import Result as JaxResult
 from ratelimiter_tpu.serving import protocol as jp
@@ -24,9 +30,13 @@ from ratelimiter_tpu_torch import Algorithm, Config, ManualClock, SketchParams
 from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
 from ratelimiter_tpu_torch.core.types import BatchResult, Result
 from ratelimiter_tpu_torch.serving import protocol as tp
+from ratelimiter_tpu_torch.observability.metrics import Registry
 from ratelimiter_tpu_torch.serving.server import run_server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402  (its door check, run here on the CPU)
 
 
 def _results(rng, n):
@@ -85,6 +95,44 @@ def test_device_packed_hashed_reply_matches_jax_framing(count):
                            retry_after=res.retry_after, reset_at=res.reset_at)
     assert tp.encode_result_hashed(1, res) == jp.encode_result_hashed(1, plain)
     lim.close()
+
+
+@pytest.mark.parametrize("off", [0, 3, 8, 13])
+def test_view_encoders_byte_identical_to_jax_at_row_offsets(off):
+    """Frames cut from one device-packed window at row offset ``off``
+    (the mask re-packed where ``off`` is not a multiple of 8) frame to the
+    JAX view encoder's bytes; so do the batch views."""
+    lim = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    ids = np.arange(48, dtype=np.uint64) % 7
+    win = lim.resolve(lim.launch_ids(ids, wire=True))
+    jwin = JaxBatchResult(allowed=win.allowed, limit=win.limit,
+                          remaining=win.remaining,
+                          retry_after=win.retry_after,
+                          reset_at=win.reset_at,
+                          wire_packed=win.wire_packed)
+    for count in (1, 5, 8, 21, 48 - off):
+        got, want = win.rows(off, count), jwin.rows(off, count)
+        assert got.wire_packed[3] == want.wire_packed[3] == off
+        tv = tp.encode_result_hashed_views(off + count, got)
+        jv = jp.encode_result_hashed_views(off + count, want)
+        assert [bytes(v) for v in tv] == [bytes(v) for v in jv]
+        assert (tp.encode_result_hashed(1, got)
+                == jp.encode_result_hashed(1, want))
+        # A second cut of a cut adds the offsets.
+        assert got.rows(1, 0).wire_packed[3] == off + 1
+    rows = [Result(**r) for r in _results(np.random.default_rng(off), 9)]
+    jrows = [JaxResult(**vars(r)) for r in rows]
+    assert (tp.encode_result_batch_views(3, 100, rows)
+            == jp.encode_result_batch_views(3, 100, jrows))
+    lim.close()
+
+
+def test_metrics_encoding_matches_jax():
+    text = "# HELP x a\n# TYPE x counter\nx{k=\"ключ\"} 3\n"
+    assert tp.encode_metrics(4, text) == jp.encode_metrics(4, text)
+    frame = tp.encode_metrics(4, text)
+    assert tp.parse_metrics(frame[tp.HEADER_SIZE:]) == text
+    assert (tp.T_METRICS, tp.T_METRICS_R) == (jp.T_METRICS, jp.T_METRICS_R)
 
 
 def _cfg():
@@ -158,6 +206,130 @@ def test_server_answers_frames_like_an_in_process_limiter():
     mirror.close()
 
 
+async def _read_reply(reader):
+    length, type_, req_id = tp.parse_header(
+        await reader.readexactly(tp.HEADER_SIZE))
+    return type_, req_id, await reader.readexactly(length - 9)
+
+
+def test_replies_out_of_order_and_metrics_frame():
+    """Frames wait in the batcher's coalescing window (50 ms here) while a
+    HEALTH frame sent after them is answered at once: replies carry
+    request ids and come out of order. METRICS returns the door's
+    registry as Prometheus text."""
+    served = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    mirror = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    reg = Registry()
+
+    async def main():
+        srv = await run_server(served, max_delay=0.05, registry=reg)
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        try:
+            ids = np.arange(12, dtype=np.uint64) % 5
+            writer.write(tp.encode_allow_hashed(1, ids)
+                         + tp.encode_allow_hashed(2, ids)
+                         + tp.encode_simple(tp.T_HEALTH, 3))
+            replies = [await _read_reply(reader) for _ in range(3)]
+            assert replies[0][:2] == (tp.T_HEALTH_R, 3)
+            assert tp.parse_health(replies[0][2])[2] == 0
+            # Both frames were one window: answered in order within it.
+            want = mirror.allow_ids(np.concatenate([ids, ids]))
+            for (t, rid, body), rows in zip(replies[1:], (want.rows(0, 12),
+                                                          want.rows(12, 12))):
+                assert t == tp.T_RESULT_HASHED
+                got = tp.parse_result_hashed(body)
+                np.testing.assert_array_equal(got.allowed, rows.allowed)
+                np.testing.assert_array_equal(got.remaining, rows.remaining)
+            writer.write(tp.encode_simple(tp.T_METRICS, 4))
+            t, rid, body = await _read_reply(reader)
+            assert (t, rid) == (tp.T_METRICS_R, 4)
+            text = tp.parse_metrics(body)
+            assert text == reg.render()
+            assert "rate_limiter_server_batch_size_count 1\n" in text
+            assert ('rate_limiter_server_batch_size_bucket{le="32"} 1\n'
+                    in text)
+            assert "rate_limiter_pipeline_inflight 0\n" in text
+        finally:
+            writer.close()
+            await writer.wait_closed()
+            await srv.shutdown()
+
+    asyncio.run(main())
+    served.close()
+    mirror.close()
+
+
+def test_slow_reader_is_dropped(monkeypatch):
+    """A client that pipelines frames but never reads is cut off once the
+    connection's write buffer passes WRITE_BUFFER_LIMIT (lowered to 64 KiB
+    here), instead of buffering replies without bound. The client's
+    receive buffer is capped, so the ~12 MB of replies cannot all wait in
+    the kernel's buffers."""
+    import socket
+    import time
+
+    from ratelimiter_tpu_torch.serving import server as door
+
+    monkeypatch.setattr(door, "WRITE_BUFFER_LIMIT", 64 * 1024)
+    served = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    ids = np.arange(4096, dtype=np.uint64)
+    frames, reply = 128, tp.HEADER_SIZE + 13 + 512 + 24 * 4096
+
+    async def main():
+        srv = await run_server(served, registry=Registry())
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 16384)
+        sock.connect(("127.0.0.1", srv.port))
+        reader, writer = await asyncio.open_connection(sock=sock)
+        try:
+            for i in range(frames):
+                writer.write(tp.encode_allow_hashed(i, ids))
+            try:
+                await writer.drain()
+            except ConnectionResetError:
+                pass
+            # Read nothing until the server has let go of the connection.
+            deadline = time.monotonic() + 120
+            while srv._conn_tasks and time.monotonic() < deadline:
+                await asyncio.sleep(0.05)
+            dropped = not srv._conn_tasks
+            got = 0
+            try:
+                while True:
+                    chunk = await asyncio.wait_for(reader.read(1 << 20), 10)
+                    if not chunk:
+                        break
+                    got += len(chunk)
+            except ConnectionResetError:
+                pass
+            return dropped, got
+        finally:
+            writer.close()
+            await srv.shutdown()
+
+    dropped, got = asyncio.run(main())
+    assert dropped and got < frames * reply
+    served.close()
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_pipelined_connections_through_the_batcher_match_a_replay(algo):
+    """chip_smoke.py's door check at a small size on the CPU: 4 pipelining
+    connections (ALLOW_HASHED and ALLOW_BATCH frames, a RESET, HEALTH,
+    METRICS) from a child process; every frame's answer bit-identical to
+    a replay of the recorded windows, the final state too, and fewer
+    dispatches than frames."""
+    cfg = T.Config(algorithm=getattr(T.Algorithm, algo), limit=20,
+                   window=2.0, sketch=T.SketchParams(depth=4, width=4096,
+                                                     sub_windows=4))
+    out = chip_smoke.check_door(
+        None, cfg, algo, device="cpu", conns=4, frames=24, n_ids=64,
+        n_keys=16, space="c2" if algo == "TOKEN_BUCKET" else "zipf",
+        server_kw=dict(max_batch=256))
+    assert out["dispatches"] < out["frames"] == 96
+    assert out["resets"] == 1 and out["decisions"] == 4 * (21 * 64 + 3 * 16)
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter, leaves no jax/jaxlib/ratelimiter_tpu module loaded (exact
@@ -180,5 +352,5 @@ print(len(names), bad)
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 18
     assert bad.strip() == "[]"
