@@ -72,7 +72,26 @@ Phases (each raises on failure; the script exits non-zero):
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
    through the door, frames a dispatch and p50/p99 frame latency of both
    runs are printed side by side;
-5. print the kernel table as one JSON line, the card's name and power
+5. durable and live-reconfigured serving at config 3's full geometry,
+   each part against a CPU limiter of the port driven with the same
+   operations (the CPU port is held to the JAX package by the tests):
+   live ``update_window`` 60 -> 45 -> 120 s and ``update_limit`` 100 -> 50
+   -> 200 on config 3 and the limit 20 -> 10 -> 40 on TB-c2, each with 4
+   tickets in flight (every decision, and every slab right after each
+   update, bit-equal; the update's lock hold and the migration's device
+   time printed); the mass-budget watchdog past config 3's budget of
+   2 * 100 * 65536 with requests of n = 100 on fresh ids, 8192 a batch
+   (larger n and batches than config 3's traffic, so the run crosses it
+   in seconds), under "strict" (the same deny-all batches and overload
+   periods as the CPU) and "warn" (one warning per offending
+   sub-window); and ``python -m ratelimiter_tpu_torch.serving --device
+   cuda --snapshot-dir D`` seeded, driven, killed with SIGKILL, restarted
+   and compared with a CPU recovery of a copy of D
+   (``check_durable_door``), then stopped with SIGTERM. The launch counts
+   of the live and watchdog runs are set to 0 just before each and read
+   just after; the recovery seconds, the snapshot's capture lock hold and
+   its size are printed;
+6. print the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--sweep`` builds, then holds every (tile, cluster) of the two tiled
@@ -101,8 +120,10 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import logging
 import multiprocessing
 import queue
+import signal
 import statistics
 import subprocess
 import sys
@@ -1892,11 +1913,692 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     return out
 
 
+# ------------------------- phase 5: live reconfiguration and durable serving
+
+
+class TimedLock:
+    """A limiter's lock that records how long each acquisition held it
+    (``with`` only, as the limiters take it)."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.holds: list = []
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.holds.append(time.perf_counter() - self._t)
+        self._lock.release()
+
+
+def _same_results(name: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: result count differs")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            x, y = getattr(a, f), getattr(b, f)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                raise AssertionError(f"{name} batch {i}: {f} differs from "
+                                     f"the CPU run")
+        if a.limit != b.limit:
+            raise AssertionError(f"{name} batch {i}: limit differs")
+
+
+def _same_state(name: str, gpu, cpu, keys) -> None:
+    _, ga, ge = gpu.capture_state()
+    _, ca, ce = cpu.capture_state()
+    for k in keys + ("policy_keys", "policy_limits", "policy_scales"):
+        if ga[k].dtype != ca[k].dtype or not np.array_equal(ga[k], ca[k]):
+            raise AssertionError(f"{name}: state {k} differs from the CPU "
+                                 f"run")
+    if ge.get("host_period") != ce.get("host_period"):
+        raise AssertionError(f"{name}: host_period differs")
+
+
+WINDOW_STATE = ("cur", "slabs", "totals", "slab_period", "last_period")
+BUCKET_STATE = ("debt", "acc", "rem", "last")
+
+
+def live_drive(lim, batches, keys, plan: dict, *, advance: float,
+               on_update=None, inflight: int = 4):
+    """``drive`` with live updates: at each step in ``plan`` (step ->
+    (method, argument)) the update runs with ``inflight`` tickets
+    outstanding, then ``on_update(lim, step)``. Every 8th step also sends
+    ``keys`` (one overridden); the step after the first update resets the
+    overridden key. Returns the results in launch order."""
+    pending, out = [], []
+    lim.set_override("tenant:whale", 40)
+    first = min(plan)
+    for step, batch in enumerate(batches):
+        if step in plan:
+            if len(pending) != inflight:
+                raise AssertionError("update without tickets in flight")
+            name, arg = plan[step]
+            getattr(lim, name)(arg)
+            if on_update is not None:
+                on_update(lim, step)
+        if step == first + 1:
+            lim.reset("tenant:whale")
+        if step % 8 == 7:
+            pending.append(lim.launch_batch(keys))
+        if isinstance(batch, list):
+            pending.append(lim.launch_batch(batch))
+        else:
+            pending.append(lim.launch_ids(batch, wire=bool(step % 2)))
+        while len(pending) > inflight:
+            out.append(lim.resolve(pending.pop(0)))
+        lim.clock.advance(advance)
+    while pending:
+        out.append(lim.resolve(pending.pop(0)))
+    return out
+
+
+#: Config 3's live updates: window 60 -> 45 s (0.75 s sub-windows, which
+#: do not line up with the old 1 s ones) -> 120 s, limit 100 -> 50 -> 200.
+LIVE_PLAN = {8: ("update_window", 45.0), 16: ("update_limit", 50),
+             24: ("update_window", 120.0), 32: ("update_limit", 200)}
+#: TB-c2's: the limit lowered (the debt clamps), then raised.
+LIVE_PLAN_TB = {8: ("update_limit", 10), 16: ("update_limit", 40)}
+
+
+def check_live(torch, cfg, name: str, batches, keys, plan: dict,
+               advance: float, state_keys) -> dict:
+    """One live-update run on the card against the same run on the CPU:
+    every decision (those of tickets launched before an update included)
+    and, right after each update, every state slab bit-equal. Returns
+    each update's lock hold on the card, in ms (the longest acquisition
+    the update made, through a TimedLock)."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    cpu = create_limiter(cfg, clock=ManualClock(T0), device="cpu")
+    states = {}
+    want = live_drive(cpu, batches, keys, plan, advance=advance,
+                      on_update=lambda lim, step: states.__setitem__(
+                          step, lim.capture_state()))
+
+    def hold_state(lim, step):
+        # The capture waits for the stream: the state after the update.
+        _, ga, ge = lim.capture_state()
+        _, ca, ce = states[step]
+        for k in state_keys + ("policy_keys", "policy_limits"):
+            if ga[k].dtype != ca[k].dtype or not np.array_equal(ga[k], ca[k]):
+                raise AssertionError(f"{name}: state {k} after "
+                                     f"{plan[step]} differs from the CPU run")
+        if ge.get("host_period") != ce.get("host_period"):
+            raise AssertionError(f"{name}: host_period after {plan[step]} "
+                                 f"differs")
+
+    gpu = create_limiter(cfg, clock=ManualClock(T0), device="cuda")
+    timed = TimedLock(gpu._lock)
+    gpu._lock = timed
+    holds: dict = {}
+
+    def timed_update(method):
+        def run(arg):
+            before = len(timed.holds)
+            method(arg)
+            holds.setdefault(f"{method.__name__}({arg:g})", 1e3 * max(
+                timed.holds[before:]))
+        return run
+
+    for m in ("update_window", "update_limit"):
+        setattr(gpu, m, timed_update(getattr(gpu, m)))
+    got = live_drive(gpu, batches, keys, plan, advance=advance,
+                     on_update=hold_state)
+    _same_results(name, got, want)
+    _same_state(name, gpu, cpu, state_keys)
+    gpu.close()
+    cpu.close()
+    return holds
+
+
+def migration_ms(torch) -> dict:
+    """Device time of the ring migration alone at config 3's geometry, on
+    a ring filled with Zipf traffic: 60 -> 45 s and 45 -> 120 s."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    lim = create_limiter(config3(), clock=ManualClock(T0), device="cuda")
+    batches, _ = _trace(5, 40)
+    for ids in batches:
+        lim.allow_ids(ids)
+        lim.clock.advance(0.25)
+    now_us = int(lim.clock.now() * 1e6)
+    c60 = config3()
+    c45 = dataclasses.replace(c60, window=45.0)
+    c120 = dataclasses.replace(c60, window=120.0)
+    state = dict(lim._state)
+    out = {}
+    for label, a, b in (("60->45", c60, c45), ("45->120", c45, c120)):
+        migrate = sk.build_migrate(a, b)
+        src = state
+        if label == "45->120":
+            src = sk.build_migrate(c60, c45)(state, now_us)
+        out[label] = device_ms(lambda: migrate(src, now_us), torch, reps=5)
+    lim.close()
+    return out
+
+
+def check_live_updates(torch, seed: int) -> dict:
+    """Phase 5.1: live update_window/update_limit on config 3 and
+    update_limit on TB-c2, with 4 tickets in flight, against the CPU."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    batches, keys = _trace(seed + 23, 40)
+    tb_batches, tb_keys = _trace_c2(seed + 29, 24)
+    torch.cuda.synchronize()
+    for mod in (sc, bc):
+        mod.reset_launch_counts()
+    holds = check_live(torch, config3(), "live config 3", batches, keys,
+                       LIVE_PLAN, 0.1, WINDOW_STATE)
+    holds_tb = check_live(torch, config2_bucket(), "live TB-c2", tb_batches,
+                          tb_keys, LIVE_PLAN_TB, C2_ADVANCE, BUCKET_STATE)
+    torch.cuda.synchronize()
+    counts = {"windowed": sc.launch_counts(), "bucket": bc.launch_counts()}
+    for k in ("window_estimate", "admit", "cu_update", "add_update"):
+        if counts["windowed"][k] == 0:
+            raise AssertionError(f"live config 3: {k} was not launched")
+    for k in ("bucket_estimate", "admit", "bucket_update"):
+        if counts["bucket"][k] == 0:
+            raise AssertionError(f"live TB-c2: {k} was not launched")
+    mig = migration_ms(torch)
+    out = {"lock_hold_ms": holds, "lock_hold_ms_TB-c2": holds_tb,
+           "migration_device_ms": mig,
+           "windowed": {"counts": counts["windowed"]},
+           "bucket": {"counts": counts["bucket"]}}
+    log(f"live updates on {card_line()}: config 3 window 60->45->120 s, "
+        f"limit 100->50->200, "
+        f"TB-c2 limit 20->10->40, each with 4 tickets in flight: every "
+        f"decision and every slab after each update bit-equal to the CPU "
+        f"run; lock held {holds} ms (TB-c2 {holds_tb}); the migration "
+        f"alone {mig} device ms (config 3's 63 MB ring)")
+    return out
+
+
+#: The watchdog run: requests of n = the limit on fresh Zipf-free ids,
+#: 8192 a batch (the one-launch admission capacity), 4 in flight: CU
+#: admits each fresh key whose cells are not yet all occupied, so the
+#: admitted in-window mass passes 2 * 100 * 65536 within ~25 batches.
+WATCH_BATCH, WATCH_STEPS = 8192, 32
+
+
+def _watch_drive(lim, logs):
+    pending, out = [], []
+    n = np.full(WATCH_BATCH, lim.config.limit, dtype=np.int64)
+    for step in range(WATCH_STEPS):
+        ids = np.arange(step * WATCH_BATCH, (step + 1) * WATCH_BATCH,
+                        dtype=np.uint64) * np.uint64(2654435761)
+        pending.append(lim.launch_ids(ids, n))
+        while len(pending) > 4:
+            out.append(lim.resolve(pending.pop(0)))
+        # A tight step while the ring fills, then across sub-windows.
+        lim.clock.advance(0.02 if step < 24 else 0.3)
+    while pending:
+        out.append(lim.resolve(pending.pop(0)))
+    return out, {"overload_periods": lim.overload_periods,
+                 "mass": lim.in_window_admitted_mass(),
+                 "budget": lim.mass_budget, "warnings": list(logs)}
+
+
+class _Warnings(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.records: list = []
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+
+def check_watchdog(torch) -> dict:
+    """Phase 5.2: config 3 past its mass budget under "strict" (deny-all
+    batches) and "warn" (one warning per offending sub-window), on the
+    card against the CPU."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    logger = logging.getLogger("ratelimiter_tpu_torch")
+    out = {}
+    torch.cuda.synchronize()
+    sc.reset_launch_counts()
+    for policy in ("strict", "warn"):
+        base = config3()
+        cfg = dataclasses.replace(base, sketch=dataclasses.replace(
+            base.sketch, overload_policy=policy))
+        runs = []
+        for device in ("cuda", "cpu"):
+            handler = _Warnings()
+            logger.addHandler(handler)
+            try:
+                lim = create_limiter(cfg, clock=ManualClock(T0),
+                                     device=device)
+                runs.append(_watch_drive(lim, handler.records))
+                lim.close()
+            finally:
+                logger.removeHandler(handler)
+        (got, g), (want, c) = runs
+        _same_results(f"watchdog {policy}", got, want)
+        if g != c:
+            raise AssertionError(f"watchdog {policy}: ledger {g} differs "
+                                 f"from the CPU run's {c}")
+        denied_all = [i for i, r in enumerate(got) if not r.allowed.any()]
+        if policy == "strict" and not (denied_all and g["overload_periods"]):
+            raise AssertionError(f"strict watchdog denied no whole batch: {g}")
+        if policy == "warn" and (g["mass"] <= g["budget"]
+                                 or g["overload_periods"] < 2):
+            raise AssertionError(f"warn watchdog: the run did not cross the "
+                                 f"budget in two sub-windows: {g}")
+        if policy == "warn" and (denied_all or len(g["warnings"])
+                                 != g["overload_periods"]):
+            raise AssertionError(f"warn watchdog: {len(denied_all)} deny-all "
+                                 f"batches, {len(g['warnings'])} warnings for "
+                                 f"{g['overload_periods']} periods")
+        out[policy] = {"deny_all_batches": denied_all,
+                       "overload_periods": g["overload_periods"],
+                       "admitted_mass": g["mass"], "budget": g["budget"],
+                       "warnings": len(g["warnings"])}
+    torch.cuda.synchronize()
+    out["counts"] = sc.launch_counts()
+    for k in ("window_estimate", "admit", "cu_update"):
+        if out["counts"][k] == 0:
+            raise AssertionError(f"watchdog: {k} was not launched")
+    log(f"watchdog on {card_line()}, config 3 (d=4, w=65536, budget "
+        f"{out['strict']['budget']}; {WATCH_STEPS} batches of "
+        f"{WATCH_BATCH} fresh ids at n=100, +0.02 s then +0.3 s a batch, 4 "
+        f"in flight): strict denied whole batches "
+        f"{out['strict']['deny_all_batches']} over "
+        f"{out['strict']['overload_periods']} periods; warn warned "
+        f"{out['warn']['warnings']} times for "
+        f"{out['warn']['overload_periods']} periods at mass "
+        f"{out['warn']['admitted_mass']}; both bit-equal to the CPU run")
+    return out
+
+
+# -- 5.3: crash and recovery through the door ----------------------------
+
+class ServerProcess:
+    """``python -m ratelimiter_tpu_torch.serving`` as a child process; its
+    output is read by a thread, its port taken from the ``serving`` line
+    and the recovery from the ``recovered`` line."""
+
+    def __init__(self, args: list, timeout: float = 300.0):
+        import os
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "ratelimiter_tpu_torch.serving",
+             "--port", "0", *args], cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: "queue.Queue" = queue.Queue()
+        self.output: list = []
+        threading.Thread(target=self._read, daemon=True).start()
+        self.recovered = None
+        deadline = time.time() + timeout
+        while True:
+            try:
+                line = self.lines.get(timeout=max(0.1, deadline - time.time()))
+            except queue.Empty:
+                self.kill()
+                raise AssertionError("server did not start: "
+                                     + "".join(self.output[-20:]))
+            if line is None:
+                raise AssertionError("server exited: "
+                                     + "".join(self.output[-20:]))
+            if line.startswith("recovered:"):
+                self.recovered = line.strip()
+            if line.startswith("serving"):
+                self.port = int(line.split(" on ")[1].split()[0]
+                                .rsplit(":", 1)[1])
+                return
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.output.append(line)
+            self.lines.put(line)
+        self.lines.put(None)
+
+    def recovery_s(self) -> float:
+        return float(self.recovered.rsplit(" in ", 1)[1].split()[0])
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+    def terminate(self) -> int:
+        self.proc.send_signal(signal.SIGTERM)
+        return self.proc.wait(timeout=120)
+
+
+class DoorClient:
+    """A blocking client: one frame out, its reply back."""
+
+    def __init__(self, port: int):
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+        self.rid = 0
+
+    def _read(self, n: int) -> bytes:
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            if not chunk:
+                raise AssertionError("server closed the connection")
+            buf += chunk
+        return buf
+
+    def call(self, encode, *args):
+        from ratelimiter_tpu_torch.serving import protocol as p
+
+        self.rid += 1
+        self.sock.sendall(encode(self.rid, *args))
+        length, type_, rid = p.parse_header(self._read(13))
+        body = self._read(length - 9)
+        if rid != self.rid:
+            raise AssertionError(f"reply to {rid}, expected {self.rid}")
+        if type_ == p.T_ERROR:
+            raise AssertionError(f"server error {p.parse_error(body)}")
+        return type_, body
+
+    def close(self):
+        self.sock.close()
+
+
+def _door_frames(rng, n_ids: int, frames: int):
+    """ALLOW_HASHED frames of Zipf ids with every third an ALLOW_BATCH of
+    string keys around the overridden and reset ones."""
+    out = []
+    for i in range(frames):
+        if i % 3 == 2:
+            keys = ([f"user:{int(k)}" for k in zipf_ids(rng, 56)]
+                    + ["vip", "vip2", "seeded", "k:reset", "k:reset2"] * 2)
+            out.append(("keys", keys[:64]))
+        else:
+            out.append(("ids", zipf_ids(rng, n_ids)))
+    return out
+
+
+def _send(client, frame):
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    kind, payload = frame
+    t0 = time.time()
+    if kind == "ids":
+        type_, body = client.call(p.encode_allow_hashed, payload)
+        res = p.parse_result_hashed(body)
+        out = (res.allowed, res.remaining, res.retry_after, res.reset_at)
+    else:
+        type_, body = client.call(p.encode_allow_batch, payload,
+                                  [1] * len(payload))
+        rs = p.parse_result_batch(body)
+        out = tuple(np.array([getattr(r, f) for r in rs]) for f in
+                    ("allowed", "remaining", "retry_after", "reset_at"))
+    return out, (t0, time.time())
+
+
+def _hold_against_twin(name, got, bracket, want, window_s: float) -> None:
+    """allowed and remaining bit-equal to the twin; retry_after and
+    reset_at follow the server's clock, which the twin does not share, so
+    they are held to the frame's send/receive bracket instead."""
+    allowed, remaining, retry, reset_at = got
+    if not (np.array_equal(allowed, want.allowed)
+            and np.array_equal(remaining, want.remaining)):
+        raise AssertionError(f"{name}: decisions differ from the CPU twin")
+    lo, hi = bracket[0] - 1e-3, bracket[1] + 1e-3
+    now = reset_at - retry
+    if not (((now >= lo) & (now <= hi)) | allowed).all() or (
+            retry[allowed] != 0).any():
+        raise AssertionError(f"{name}: retry_after outside the frame's time")
+    if not ((reset_at - window_s <= hi) & (reset_at >= lo)).all():
+        raise AssertionError(f"{name}: reset_at outside the frame's window")
+
+
+def _snapshot_file(client, d: str):
+    """T_SNAPSHOT, then the snapshot's file: (id, arrays, meta, MB)."""
+    import os
+
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    type_, body = client.call(lambda rid: p.encode_simple(p.T_SNAPSHOT, rid))
+    if type_ != p.T_SNAPSHOT_R:
+        raise AssertionError(f"SNAPSHOT answered type {type_}")
+    snap_id, wal_seq, _ = p.parse_snapshot_r(body)
+    path = os.path.join(d, f"snap-{snap_id:08d}-000.npz")
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays.pop("__ratelimiter_tpu_meta__")).decode())
+    return snap_id, wal_seq, arrays, meta, os.path.getsize(path) / 2**20
+
+
+def _policy(client, type_, key):
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    t, body = client.call(lambda rid: p.encode_policy_key(type_, rid, key))
+    return p.parse_policy_r(body)
+
+
+def check_durable_door(cfg, *, device: str = "cuda", seed: int = 0,
+                       n_ids: int = BATCH, limit1: int = 80,
+                       window1: float = 45.0) -> dict:
+    """Phase 5.3: the durable server binary (``--snapshot-dir``) killed
+    and recovered, against a CPU twin's recovery of the same directory.
+
+    1. The directory is seeded with a WAL of ``update_limit(limit1)``,
+       ``update_window(window1)`` and an override, written in-process (no
+       snapshot), as a live update would leave it.
+    2. The server starts on it with ``cfg``'s limit and window and must
+       recover to ``limit1``/``window1`` (a migration on its device).
+    3. Hashed and string frames, POLICY_SET, RESET and SNAPSHOT; then
+       POLICY_SET, POLICY_DEL, one RESET and frames the crash loses;
+       SIGKILL; the directory is copied.
+    4. The server restarts with ``limit1``/``window1`` (a snapshot restores
+       only under its own config) and takes a SNAPSHOT: its file must be
+       bit-equal to a CPU port limiter's recovery of the copy, run in the
+       sub-window the server replayed the RESET in (the file's
+       ``host_period``). The RESET's result depends on that period alone
+       while the ring's boundary slab is empty, i.e. within ``window1`` of
+       the first frame, which the check asserts.
+    5. Frames one at a time (one per window, so the CPU twin sees the same
+       batches): decisions bit-equal to the twin's; a SNAPSHOT's
+       ``totals`` (invariant under rollovers within the window) equal to
+       the twin's; more frames, SIGTERM, and the final snapshot's
+       ``totals`` equal to the twin's: a graceful stop loses nothing.
+    """
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from ratelimiter_tpu_torch import (
+        ManualClock,
+        PersistenceSpec,
+        create_limiter,
+    )
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+    from ratelimiter_tpu_torch.persistence import PersistenceManager
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    rng = np.random.default_rng(seed + 31)
+    root = tempfile.mkdtemp(prefix="durable-door-")
+    d, copy = os.path.join(root, "live"), os.path.join(root, "copy")
+    cfg1 = dataclasses.replace(cfg, limit=limit1, window=window1)
+
+    def boot(directory, config, clock):
+        spec = PersistenceSpec(dir=directory, snapshot_interval=3600.0)
+        mgr = PersistenceManager(spec, registry=Registry())
+        lim = mgr.wrap(create_limiter(config, clock=clock, device="cpu"))
+        mgr.attach([lim])
+        return mgr, lim
+
+    mgr, lim = boot(d, cfg, ManualClock(T0))
+    mgr.recover()
+    lim.update_limit(limit1)
+    lim.update_window(window1)
+    lim.set_override("seeded", 7)
+    mgr.wal.close()
+    lim.close()
+
+    geo = ["--depth", str(cfg.sketch.depth), "--width",
+           str(cfg.sketch.width), "--sub-windows",
+           str(cfg.sketch.sub_windows), "--device", device,
+           "--snapshot-dir", d, "--snapshot-interval", "3600",
+           "--wal-fsync", "always"]
+    servers = []
+    try:
+        srv = ServerProcess(["--limit", str(cfg.limit), "--window",
+                             str(cfg.window)] + geo)
+        servers.append(srv)
+        if "no snapshot found, replayed 3 WAL record(s)" not in srv.recovered:
+            raise AssertionError(f"first start: {srv.recovered}")
+        c = DoorClient(srv.port)
+        if _policy(c, p.T_POLICY_GET, "k") != (False, limit1, 1.0):
+            raise AssertionError("the seeded update_limit was not recovered")
+        t_first = time.time()
+        for frame in _door_frames(rng, n_ids, 9):
+            _send(c, frame)
+        t, body = c.call(p.encode_policy_set, "vip", 9)
+        if p.parse_policy_r(body) != (True, 9, 1.0):
+            raise AssertionError("POLICY_SET answered wrongly")
+        c.call(p.encode_reset, "k:reset")
+        snap1, seq1, _, _, mb = _snapshot_file(c, d)
+        _, body = c.call(lambda rid: p.encode_simple(p.T_METRICS, rid))
+        capture_ms = 1e3 * metric_value(
+            p.parse_metrics(body), "rate_limiter_snapshot_capture_seconds")
+        c.call(p.encode_policy_set, "vip2", 11)
+        _, body = c.call(lambda rid: p.encode_policy_key(p.T_POLICY_DEL,
+                                                        rid, "vip"))
+        if not p.parse_policy_r(body)[0]:
+            raise AssertionError("POLICY_DEL found no override")
+        c.call(p.encode_reset, "k:reset2")
+        for frame in _door_frames(rng, n_ids, 3):   # lost with the crash
+            _send(c, frame)
+        c.close()
+        srv.kill()
+        shutil.copytree(d, copy)
+
+        srv = ServerProcess(["--limit", str(limit1), "--window",
+                             str(window1)] + geo)
+        servers.append(srv)
+        want_rec = (f"restored snapshot {snap1}, replayed 3 WAL record(s) "
+                    f"past seq {seq1}")
+        if want_rec not in srv.recovered:
+            raise AssertionError(f"restart: {srv.recovered}")
+        c = DoorClient(srv.port)
+        for key, want in (("vip", (False, limit1, 1.0)),
+                          ("vip2", (True, 11, 1.0)),
+                          ("seeded", (True, 7, 1.0))):
+            if _policy(c, p.T_POLICY_GET, key) != want:
+                raise AssertionError(f"override {key} not recovered")
+        _, _, arrays, meta, _ = _snapshot_file(c, d)
+
+        # The CPU twin recovers the copy in the sub-window the server
+        # replayed the RESET in.
+        _, sub_us, SW, S, _ = sk.sketch_geometry(cfg1)
+        hp = int(meta["host_period"])
+        twin_mgr, twin = boot(copy, cfg1,
+                              ManualClock((hp * sub_us + sub_us // 2) / 1e6))
+        report = twin_mgr.recover()
+        if report.replayed != 3 or report.apply_errors:
+            raise AssertionError(f"CPU twin recovery: {report.summary()}")
+        if int(arrays["slab_period"][hp % S]) == hp - SW:
+            raise AssertionError("the boundary slab was live at the replay: "
+                                 "the run outlasted the window")
+        _, twin_arrays, twin_extra = twin.capture_state()
+        for k in WINDOW_STATE + ("policy_keys", "policy_limits",
+                                 "policy_scales"):
+            if (arrays[k].dtype != twin_arrays[k].dtype
+                    or not np.array_equal(arrays[k], twin_arrays[k])):
+                raise AssertionError(f"recovered {k} differs from the CPU "
+                                     f"twin's recovery")
+        if twin_extra["host_period"] != hp:
+            raise AssertionError("recovered host_period differs")
+
+        alone_ms = []
+
+        def serial(frames, label, latencies=alone_ms):
+            for i, frame in enumerate(frames):
+                got, bracket = _send(c, frame)
+                want = (twin.allow_ids(frame[1]) if frame[0] == "ids"
+                        else twin.allow_batch(frame[1]))
+                _hold_against_twin(f"{label} frame {i}", got, bracket, want,
+                                   window1)
+                latencies.append(1e3 * (bracket[1] - bracket[0]))
+
+        serial(_door_frames(rng, n_ids, 6), "after recovery")
+        _, _, arrays, _, _ = _snapshot_file(c, d)
+        if not np.array_equal(arrays["totals"],
+                              twin.capture_state()[1]["totals"]):
+            raise AssertionError("totals after recovery differ from the twin")
+        # One hashed frame sent while another connection's SNAPSHOT holds
+        # the limiter lock for its capture: its latency beside the frames
+        # sent alone (a reading, not a check).
+        snap_client = DoorClient(srv.port)
+        taker = threading.Thread(target=_snapshot_file, args=(snap_client, d))
+        taker.start()
+        time.sleep(0.01)
+        during_ms = []
+        serial([("ids", zipf_ids(rng, n_ids))], "during a snapshot",
+               during_ms)
+        taker.join()
+        snap_client.close()
+        serial(_door_frames(rng, n_ids, 3), "before SIGTERM")
+        if time.time() - t_first > 0.8 * window1:
+            raise AssertionError("the run outlasted the window the "
+                                 "comparison relies on")
+        c.close()
+        if srv.terminate() != 0:
+            raise AssertionError("SIGTERM: the server did not exit cleanly")
+        from ratelimiter_tpu_torch.persistence import read_manifest
+
+        last = read_manifest(d)["snapshots"][-1]
+        with np.load(os.path.join(d, last["files"][0])) as z:
+            final_totals = z["totals"]
+        if not np.array_equal(final_totals, twin.capture_state()[1]["totals"]):
+            raise AssertionError("the SIGTERM snapshot lost decisions")
+        twin_mgr.stop(final_snapshot=False)
+        twin.close()
+        out = {"recovery_s": srv.recovery_s(), "capture_lock_ms": capture_ms,
+               "snapshot_mb": mb, "snapshots": last["id"],
+               "recovered": srv.recovered,
+               "frame_ms_alone": statistics.median(alone_ms),
+               "frame_ms_during_snapshot": during_ms[0]}
+    finally:
+        for s in servers:
+            s.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"durable door on {where}: seeded WAL recovered (limit "
+        f"{cfg.limit}->{limit1}, window {cfg.window:g}->{window1:g} s); "
+        f"SIGKILL after SNAPSHOT + POLICY_SET/DEL + RESET; restart recovered "
+        f"in {out['recovery_s']:.3f} s ({out['recovered']}), state "
+        f"bit-equal to the CPU twin's recovery, decisions after it too; "
+        f"SIGTERM lost nothing; snapshot {mb:.1f} MB, capture lock hold "
+        f"{capture_ms:.2f} ms; a frame sent during a snapshot answered in "
+        f"{out['frame_ms_during_snapshot']:.2f} ms, frames sent alone in "
+        f"{out['frame_ms_alone']:.2f} ms (median)")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
-    """A kernel row's launches over the main paths' runs and the door's
-    (each counted from 0 just before it and read just after): the standalone
-    ``add_update`` is the TPU name's count less the fused back's, each
-    admission launch counts as ``admit`` in its family's module."""
+    """A kernel row's launches over the main paths' runs, the door's and
+    phase 5's (each counted from 0 just before it and read just after):
+    the standalone ``add_update`` is the TPU name's count less the fused
+    back's, each admission launch counts as ``admit`` in its family's
+    module."""
     if name == "add_update":
         return sum(r["counts"]["add_update"] - r["counts"]["add_back"]
                    for r in windowed)
@@ -2014,9 +2716,26 @@ def main(argv=None) -> int:
             f"{d['p99_ms']:.2f} | {b['p99_ms']:.2f} ms"
             for label, d, b in (("windowed CU", door_cu, bare_cu),
                                 ("TB-c2", door_tb, bare_tb))))
+    live = check_live_updates(torch, args.seed)
+    watch = check_watchdog(torch)
+    durable = check_durable_door(config3(), device="cuda", seed=args.seed)
+    log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
+        f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
+        f"{live['lock_hold_ms_TB-c2']}); strict deny-all batches "
+        f"{watch['strict']['deny_all_batches']}, overload periods "
+        f"{watch['strict']['overload_periods']}; recovery "
+        f"{durable['recovery_s']:.3f} s, snapshot capture lock hold "
+        f"{durable['capture_lock_ms']:.2f} ms, snapshot "
+        f"{durable['snapshot_mb']:.1f} MB; a frame during a snapshot "
+        f"{durable['frame_ms_during_snapshot']:.2f} ms against "
+        f"{durable['frame_ms_alone']:.2f} ms alone")
     for name in rows:
         rows[name]["launches"] = row_launches(
-            name, (cu, vanilla, door_cu), (tb_c2, tb_zipf, door_tb))
+            name, (cu, vanilla, door_cu, live["windowed"], watch),
+            (tb_c2, tb_zipf, door_tb, live["bucket"]))
+    paths["live"] = live
+    paths["watchdog"] = watch
+    paths["durable_door"] = durable
     paths["door_windowed_CU"] = door_cu
     paths["door_TB-c2"] = door_tb
     paths["door_unproxied_windowed_CU"] = bare_cu

@@ -15,13 +15,24 @@ PyTorch.
     out = lim.allow_ids(ids)           # raw u64 ids -> BatchResult
     out = lim.allow_batch(["a", "b"])  # string keys
     lim.reset("a")
+    lim.update_limit(200)              # live, state kept
+    lim.update_window(45.0)            # ring migrated on the device
+
+Durable serving (a WAL of every mutation, background snapshots, crash
+recovery) is ``persistence.PersistenceManager``; the server binary turns
+it on with ``--snapshot-dir``.
 
 Entry points run on the card unless asked for the CPU (``device="cpu"``),
 where the kernels' plain versions run.
 """
 
 from ratelimiter_tpu_torch.core.types import Algorithm, Result, BatchResult
-from ratelimiter_tpu_torch.core.config import Config, SketchParams, DEFAULT_PREFIX
+from ratelimiter_tpu_torch.core.config import (
+    Config,
+    SketchParams,
+    PersistenceSpec,
+    DEFAULT_PREFIX,
+)
 from ratelimiter_tpu_torch.core.errors import (
     RateLimiterError,
     InvalidConfigError,
@@ -29,6 +40,7 @@ from ratelimiter_tpu_torch.core.errors import (
     InvalidNError,
     StorageUnavailableError,
     ClosedError,
+    CheckpointError,
 )
 from ratelimiter_tpu_torch.core.clock import Clock, SystemClock, ManualClock
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
@@ -42,6 +54,7 @@ __all__ = [
     "BatchResult",
     "Config",
     "SketchParams",
+    "PersistenceSpec",
     "DEFAULT_PREFIX",
     "RateLimiterError",
     "InvalidConfigError",
@@ -49,6 +62,7 @@ __all__ = [
     "InvalidNError",
     "StorageUnavailableError",
     "ClosedError",
+    "CheckpointError",
     "Clock",
     "SystemClock",
     "ManualClock",

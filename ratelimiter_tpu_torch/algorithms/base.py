@@ -1,7 +1,8 @@
 """The RateLimiter contract — a copy of ``ratelimiter_tpu/algorithms/base.py``
 trimmed to what the port's backends serve (the scalar and batched API,
-launch/resolve, per-key overrides). Dynamic limit/window updates, the
-hierarchy surface and checkpoint files are not ported yet.
+launch/resolve, per-key overrides, dynamic limit/window updates and the
+checkpoint seam). The hierarchy surface (ROADMAP A6) and ``sub_limiters``
+(the mesh, A8) are not ported.
 
 Parity with reference ``internal/ratelimiter/interface.go:76-145`` plus the
 TPU-native first-class batched call. Semantic decisions (SURVEY.md §2.4, each
@@ -35,7 +36,12 @@ import numpy as np
 
 from ratelimiter_tpu_torch.core.clock import Clock, SystemClock
 from ratelimiter_tpu_torch.core.config import Config
-from ratelimiter_tpu_torch.core.errors import ClosedError, InvalidKeyError, InvalidNError
+from ratelimiter_tpu_torch.core.errors import (
+    ClosedError,
+    InvalidConfigError,
+    InvalidKeyError,
+    InvalidNError,
+)
 from ratelimiter_tpu_torch.core.types import BatchResult, Result
 
 
@@ -88,6 +94,68 @@ class RateLimiter(abc.ABC):
         if not self._closed:
             self._closed = True
             self._close()
+
+    def update_limit(self, new_limit: int) -> None:
+        """Change the limit without losing state.
+
+        Semantics: takes effect for every subsequent decision; quota
+        already consumed stands. For the token bucket the refill rate
+        (limit/window) and capacity both change. Policy overrides pin
+        ABSOLUTE limits, so only non-overridden keys move."""
+        from dataclasses import replace
+
+        self._check_open()
+        new_cfg = replace(self.config, limit=new_limit)
+        new_cfg.validate()
+        table = getattr(self, "_policy_table", None)
+        if table is not None:
+            table.validate_rebase(new_cfg.limit, new_cfg.window)
+        self._apply_config(new_cfg)
+        self.config = new_cfg
+        if table is not None:
+            table.rebase(new_cfg.limit, new_cfg.window)
+
+    def update_window(self, new_window: float) -> None:
+        """Change the window without losing state: backends that support
+        this migrate their state to the new time geometry.
+
+        Semantics: takes effect for every subsequent decision. Consumed
+        quota is re-bucketed onto the new geometry conservatively —
+        counts never expire earlier than they would have under either
+        window, so a migration can only err toward denying, never toward
+        over-admission. For the token bucket the refill rate
+        (limit/window) changes; accumulated debt stands."""
+        self._check_open()
+        from dataclasses import replace
+
+        table = getattr(self, "_policy_table", None)
+        if table is not None and table.has_window_scaled:
+            raise InvalidConfigError(
+                "update_window with window-scaled overrides present is not "
+                "supported (per-key grids cannot be re-bucketed uniformly); "
+                "delete the scaled overrides first")
+        new_cfg = replace(self.config, window=float(new_window))
+        new_cfg.validate()
+        if table is not None:
+            # BEFORE migrating state: an entry the backend cannot decide
+            # exactly under the new window is refused up front.
+            table.validate_rebase(new_cfg.limit, new_cfg.window)
+        self._apply_window(new_cfg)
+        self.config = new_cfg
+        if table is not None:
+            table.rebase(new_cfg.limit, new_cfg.window)
+
+    def _apply_window(self, new_cfg: Config) -> None:
+        """Backend hook: migrate state onto the new window geometry."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support dynamic window updates")
+
+    def _apply_config(self, new_cfg: Config) -> None:
+        """Backend hook: rebuild the steps / derived constants / stored
+        levels for the new config. The base raises so an unimplemented
+        backend fails loudly."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support dynamic limit updates")
 
     # -- batched API -----------------------------
 
@@ -237,9 +305,19 @@ class RateLimiter(abc.ABC):
         ``checkpoint.save_state``. The contract that makes async
         snapshotting (persistence/snapshotter.py) safe: everything
         needing the limiter's lock happens INSIDE this call; the caller
-        serializes and writes off-lock."""
+        serializes and writes off-lock. ``save()`` is capture + write in
+        one blocking call (the manual checkpoint surface)."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support state capture")
+
+    def save(self, path: str) -> None:
+        """Blocking snapshot to ``path`` (.npz): capture under the lock,
+        then a crash-atomic write (checkpoint.save_state). Format and
+        staleness contract: ratelimiter_tpu_torch/checkpoint.py."""
+        from ratelimiter_tpu_torch.checkpoint import save_state
+
+        kind, arrays, extra = self.capture_state()
+        save_state(path, kind, self.config, arrays, extra)
 
     # -- implementation hooks ---------------------------------------------
 

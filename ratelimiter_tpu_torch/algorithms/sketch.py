@@ -26,18 +26,26 @@ steps in launch order, where the JAX package threads donated buffers.
 On ``device="cpu"`` (the tests) the same code runs eagerly on the CPU
 with the kernels' plain versions.
 
+The windowed limiter runs the JAX package's accuracy-envelope watchdog:
+admitted in-window mass is tracked on the host against
+``SketchParams.mass_budget``; past it the limiter warns once per
+sub-window (``overload_policy="warn"``) or also denies every new batch
+until history expires (``"strict"``). The bucket has no watchdog in
+either package. Both limiters take live ``update_limit``/``update_window``
+(the windowed ring migrates on its device, ops/sketch_kernels.py
+``build_migrate``; the bucket clamps its debt there) and ``save``/
+``restore`` checkpoint files (checkpoint.py), and both port the failure
+injection (``inject_failure``/``heal``) the serving tier's failure paths
+need.
+
 Not ported yet (constructing such a config raises InvalidConfigError
 naming the ROADMAP item): the heavy-hitter side table and the hierarchy
-(A6). The windowed accuracy-envelope watchdog (mass budget,
-``overload_policy``) is not ported either, so the windowed limiter refuses
-the "strict" policy rather than silently ignoring it (the bucket has no
-watchdog in either package and ignores it). Neither limiter ports
-``update_limit``/``update_window``. Both port the failure injection
-(``inject_failure``/``heal``) the serving tier's failure paths need.
+(A6), and with them ``consumer_stats`` and the DCN bookkeeping.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import List, Optional
 
@@ -48,6 +56,7 @@ from ratelimiter_tpu_torch.algorithms.base import RateLimiter, check_key, check_
 from ratelimiter_tpu_torch.core.clock import MICROS, Clock, to_micros
 from ratelimiter_tpu_torch.core.config import Config
 from ratelimiter_tpu_torch.core.errors import (
+    CheckpointError,
     InvalidConfigError,
     StorageUnavailableError,
 )
@@ -67,6 +76,8 @@ from ratelimiter_tpu_torch.ops.hashing import (
 from ratelimiter_tpu_torch.ops.policy_kernels import pack_halves_host
 
 _MIN_PAD = 8
+
+log = logging.getLogger("ratelimiter_tpu_torch")
 
 
 def _pad_size(n: int) -> int:
@@ -96,10 +107,6 @@ class SketchLimiter(RateLimiter):
     def __init__(self, config: Config, clock: Optional[Clock] = None, *,
                  device="cuda"):
         super().__init__(config, clock)
-        if self.config.sketch.overload_policy == "strict":
-            raise InvalidConfigError(
-                "overload_policy='strict' needs the mass-budget watchdog, "
-                "which is not ported yet")
         self._init_device(device)
         self._step = sketch_kernels.build_hashed_step(self.config)
         self._ids_step = sketch_kernels.build_hashed_step(self.config,
@@ -111,6 +118,15 @@ class SketchLimiter(RateLimiter):
         # Host mirror of state["last_period"]: drives rollover dispatches
         # and names the boundary slab (sketch_kernels module docstring).
         self._host_period = sketch_kernels._NEVER
+        # Accuracy-envelope watchdog: admitted in-window mass vs the
+        # geometry's calibrated budget (SketchParams.mass_budget). Host
+        # integers only — no device cost.
+        self._ring_sw = sketch_kernels.sketch_geometry(self.config)[2]
+        self._mass_budget = self.config.sketch.mass_budget(self.config.limit)
+        self._strict = self.config.sketch.overload_policy == "strict"
+        self._period_mass: dict = {}
+        self._warned_period = -1
+        self.overload_periods = 0
         self._init_policy()
 
     def _init_device(self, device) -> None:
@@ -124,6 +140,12 @@ class SketchLimiter(RateLimiter):
         #: Set by inject_failure: every launch raises it (under the lock)
         #: until heal().
         self._injected_failure: Optional[Exception] = None
+        # Offered mass of launched-but-unresolved tickets: the strict
+        # overload gate counts it AS IF fully admitted (see
+        # _over_budget_locked) so a deep in-flight window cannot slip
+        # inflight*max_batch of admissions past the accuracy budget —
+        # pessimism errs toward denying, strict mode's direction.
+        self._inflight_mass = 0
 
     def _init_policy(self) -> None:
         """Per-key limit overrides, resolved in the step; window scaling
@@ -197,12 +219,13 @@ class SketchLimiter(RateLimiter):
         held."""
         return {}
 
-    def _launch_finish(self, outs, now_us: int):
+    def _launch_finish(self, outs, now_us: int, window_us: int):
         """Queue the result assembly behind the step (windowed form:
-        retry-after is the time to the window reset)."""
+        retry-after is the time to the window reset). ``window_us`` is
+        the one the step ran under, read under the lock."""
         allowed, remaining, _est = outs
         return sketch_kernels.finish_window(allowed, remaining, now_us,
-                                            self._window_us)
+                                            window_us)
 
     # ------------------------------------------------------------ dispatch
 
@@ -228,6 +251,12 @@ class SketchLimiter(RateLimiter):
             if self._injected_failure is not None:
                 raise self._injected_failure
             self._sync_period(now_us)
+            if self._strict and self._over_budget_locked(now_us):
+                # Strict overload policy: REJECT new admissions (no state
+                # write, no launch) while admitted in-window mass exceeds
+                # the geometry's accuracy budget. Clears as history ages
+                # out of the ring.
+                return DispatchTicket(result=self._deny_all(b, now_us))
             step = self._ids_step if premix else self._step
             h_dev = self._stage(h64p.view(np.int64), np.int64)
             n_dev = self._stage(nsp, np.int32)
@@ -241,7 +270,9 @@ class SketchLimiter(RateLimiter):
                           if len(self._policy_table) else None)
             else:
                 limits = self._policy_limits(h64)
-        outs = self._launch_finish(outs, now_us)
+            self._inflight_mass += int(ns.sum())
+            window_us = self._window_us
+        outs = self._launch_finish(outs, now_us, window_us)
         if wire:
             outs = sketch_kernels.pack_wire(*outs)
         t = DispatchTicket()
@@ -263,13 +294,31 @@ class SketchLimiter(RateLimiter):
         t.now_us = now_us
         t.t_sec = t_sec
         t.padded = padded
+        t.inflight = True
         return t
+
+    def _retire_ticket(self, t: DispatchTicket, admitted: int) -> None:
+        """Once per launched ticket: in ONE lock acquisition, swap the
+        ticket's offered mass out of the strict gate's in-flight
+        pessimism for its actual admitted mass. A two-step swap would open
+        a window where the batch counts as neither, letting a concurrent
+        launch slip past the budget."""
+        if not t.inflight:
+            return
+        t.inflight = False
+        with self._lock:
+            self._inflight_mass -= int(t.ns.sum())
+            self._note_mass_locked(admitted, t.now_us)
 
     def _resolve_ticket(self, t: DispatchTicket) -> BatchResult:
         if t.result is not None:
             return t.result
-        if t.event is not None:
-            t.event.synchronize()
+        try:
+            if t.event is not None:
+                t.event.synchronize()
+        except BaseException:
+            self._retire_ticket(t, 0)
+            raise
         b = t.b
         if t.wire:
             bits, words = (o.numpy() for o in t.outs)
@@ -293,6 +342,7 @@ class SketchLimiter(RateLimiter):
                 reset_at=reset_at[:b],
                 limits=t.limits,
             )
+        self._retire_ticket(t, int(t.ns[res.allowed].sum()))
         t.result = res
         t.outs = t.staged = t.event = None
         return res
@@ -384,6 +434,94 @@ class SketchLimiter(RateLimiter):
         """Decide a batch of pre-hashed uint64 keys: launch + resolve."""
         return self.resolve(self.launch_hashed(h64, ns, now=now))
 
+    # ------------------------------------------------- accuracy envelope
+
+    def _over_budget_locked(self, now_us: int) -> bool:
+        """Prune + check the admitted-mass ledger; counts/warns once per
+        offending sub-window. Launched-but-unresolved tickets count at
+        their full offered mass (pessimistic — their true admitted mass
+        replaces the estimate at resolve), so the pipeline's in-flight
+        window cannot slip admissions past the budget. Lock must be
+        held."""
+        p = now_us // self._sub_us
+        if self._period_mass:
+            p = max(p, max(self._period_mass))
+        low = p - self._ring_sw
+        for q in [q for q in self._period_mass if q <= low]:
+            del self._period_mass[q]
+        mass = sum(self._period_mass.values()) + self._inflight_mass
+        if mass <= self._mass_budget:
+            return False
+        if p > self._warned_period:
+            self._warned_period = p
+            self.overload_periods += 1
+            log.warning(
+                "sketch overload (strict): admitted in-window mass %d "
+                "exceeds the d=%d w=%d budget of %d — rejecting new "
+                "admissions until history expires; size the geometry "
+                "with SketchParams.for_load", mass,
+                self.config.sketch.depth, self.config.sketch.width,
+                self._mass_budget)
+        return True
+
+    def _deny_all(self, b: int, now_us: int) -> BatchResult:
+        """Uniform denial batch for the strict overload path. Retry
+        points at the next sub-window boundary: mass drains one
+        sub-window at a time, so that is when admission could resume."""
+        retry = ((now_us // self._sub_us + 1) * self._sub_us
+                 - now_us) / MICROS
+        cur_ws = (now_us // self._window_us) * self._window_us
+        reset_at = (cur_ws + self._window_us) / MICROS
+        return BatchResult(
+            allowed=np.zeros(b, dtype=bool),
+            limit=self.config.limit,
+            remaining=np.zeros(b, dtype=np.int64),
+            retry_after=np.full(b, retry, dtype=np.float64),
+            reset_at=np.full(b, reset_at, dtype=np.float64),
+        )
+
+    def _note_mass_locked(self, admitted: int, now_us: int) -> None:
+        """Track admitted in-window mass against the geometry's calibrated
+        budget (SketchParams.mass_budget): collision error — and with it
+        the false-deny rate — scales with this mass, so exceeding the
+        budget means the geometry is undersized for the offered load.
+        Warns loudly once per sub-window while overloaded. Lock must be
+        held (_retire_ticket pairs it with the in-flight bookkeeping)."""
+        p = now_us // self._sub_us
+        # Clamp forward like the step clamps now_us: after a backward
+        # clock step the ledger would otherwise keep "future" periods
+        # alive past pruning.
+        if self._period_mass:
+            p = max(p, max(self._period_mass))
+        self._period_mass[p] = self._period_mass.get(p, 0) + admitted
+        low = p - self._ring_sw
+        for q in [q for q in self._period_mass if q <= low]:
+            del self._period_mass[q]
+        mass = sum(self._period_mass.values())
+        if mass > self._mass_budget and p > self._warned_period:
+            self._warned_period = p
+            self.overload_periods += 1
+            log.warning(
+                "sketch geometry undersized: admitted in-window mass "
+                "%d exceeds the d=%d w=%d budget of %d at limit=%d — "
+                "collision error is at the ~1%% false-deny level and "
+                "grows with load; size the geometry with "
+                "SketchParams.for_load(limit=%d, "
+                "expected_window_mass=%d)",
+                mass, self.config.sketch.depth, self.config.sketch.width,
+                self._mass_budget, self.config.limit, self.config.limit,
+                mass)
+
+    def in_window_admitted_mass(self) -> int:
+        """Admitted requests currently counted inside the sliding window
+        (the quantity SketchParams.mass_budget bounds)."""
+        with self._lock:
+            return sum(self._period_mass.values())
+
+    @property
+    def mass_budget(self) -> int:
+        return self._mass_budget
+
     def _allow_batch(self, keys: list, ns: np.ndarray, now: float) -> BatchResult:
         return self.resolve(self._launch_guarded(self._hash(keys), ns, now))
 
@@ -406,6 +544,52 @@ class SketchLimiter(RateLimiter):
 
     def _close(self) -> None:
         self._state = {}
+
+    # ------------------------------------------------- dynamic config
+
+    def _apply_config(self, new_cfg: Config) -> None:
+        """Dynamic limit: the geometry is unchanged, so the state tensors
+        carry over; only the steps (which bake the limit) are swapped."""
+        step = sketch_kernels.build_hashed_step(new_cfg)
+        ids_step = sketch_kernels.build_hashed_step(new_cfg, premix=True)
+        steps = sketch_kernels.build_steps(new_cfg)
+        with self._lock:
+            self._step, self._ids_step = step, ids_step
+            _, self._reset_step, self._rollover = steps
+            self._mass_budget = new_cfg.sketch.mass_budget(new_cfg.limit)
+
+    def _apply_window(self, new_cfg: Config) -> None:
+        """Dynamic window: migrate the ring onto the new sub-window
+        geometry on the state's device (sketch_kernels.build_migrate —
+        conservative re-bucketing, never over-admits), swap the steps and
+        re-bucket the watchdog's period ledger by wall time. Under the
+        lock, so the migration is enqueued after every launch before it
+        and ahead of every launch after it: tickets already in flight
+        resolve to their pre-migration answers."""
+        migrate = sketch_kernels.build_migrate(self.config, new_cfg)
+        step = sketch_kernels.build_hashed_step(new_cfg)
+        ids_step = sketch_kernels.build_hashed_step(new_cfg, premix=True)
+        steps = sketch_kernels.build_steps(new_cfg)
+        _, new_sub, new_sw, _, _ = sketch_kernels.sketch_geometry(new_cfg)
+        now_us = to_micros(self.clock.now())
+        with self._lock:
+            old_sub = self._sub_us
+            self._state = migrate(self._state, now_us)
+            self._step, self._ids_step = step, ids_step
+            _, self._reset_step, self._rollover = steps
+            self._window_us = to_micros(new_cfg.window)
+            self._sub_us = new_sub
+            self._ring_sw = new_sw
+            self._host_period = now_us // new_sub
+            self._period_mass = self._remap_mass(old_sub, new_sub)
+            self._warned_period = -1
+
+    def _remap_mass(self, old_sub: int, new_sub: int) -> dict:
+        merged: dict = {}
+        for p, mass in self._period_mass.items():
+            q = ((p + 1) * old_sub - 1) // new_sub
+            merged[q] = merged.get(q, 0) + mass
+        return merged
 
     # ---------------------------------------------------- fault injection
 
@@ -476,6 +660,23 @@ class SketchLimiter(RateLimiter):
         """Note what the next step must know of restored ``arrays``. Lock
         must be held."""
 
+    def restore(self, path: str) -> None:
+        """Replace state and overrides with the checkpoint file at
+        ``path`` (either package's ``save``, checkpoint.py). Catch-up for
+        elapsed time is automatic: the next dispatch's rollover (or
+        token-bucket decay) advances the restored state to 'now'. A file
+        of another kind, config or array set raises CheckpointError."""
+        from ratelimiter_tpu_torch.checkpoint import load_state
+
+        self._check_open()
+        arrays, meta = load_state(path, self._CKPT_KIND, self.config)
+        extra = {k: meta.get(k, getattr(self, "_" + k))
+                 for k in self._EXTRA_KEYS}
+        try:
+            self.restore_state(arrays, extra)
+        except InvalidConfigError as exc:
+            raise CheckpointError(f"{path}: {exc}") from exc
+
 
 class SketchTokenBucketLimiter(SketchLimiter):
     """TOKEN_BUCKET at unbounded key cardinality: a count-min sketch over
@@ -502,6 +703,10 @@ class SketchTokenBucketLimiter(SketchLimiter):
                                                           premix=True)
         _, self._reset_step = bucket_kernels.build_steps(self.config)
         self._state = bucket_kernels.init_state(self.config, self._device)
+        # The mass watchdog (and with it overload_policy="strict") is a
+        # windowed-sketch concept; debt decays continuously
+        # (_note_mass_locked).
+        self._strict = False
         # Set by a restore that brought acc cells above 2^61, which no step
         # writes: the next step clamps every acc cell once (_launch_kw).
         self._acc_over_cap = False
@@ -534,12 +739,59 @@ class SketchTokenBucketLimiter(SketchLimiter):
         self._acc_over_cap = bool(
             acc.size and int(acc.max()) > DEBT_CAP)
 
-    def _launch_finish(self, outs, now_us: int):
+    def _launch_finish(self, outs, now_us: int, window_us: int):
         """Token-bucket result assembly: retry-after = deficit / refill
         rate, computed exactly by the step; reset_at = now + window."""
         allowed, remaining, retry_us = outs
         return bucket_kernels.finish_bucket(allowed, remaining, retry_us,
-                                            now_us, self._window_us)
+                                            now_us, window_us)
+
+    def _note_mass_locked(self, admitted: int, now_us: int) -> None:
+        """No mass watchdog for the debt sketch: debt decays continuously
+        (no sub-window ring to bucket mass into) and overestimated debt
+        self-corrects as it drains; the windowed calibration does not
+        transfer."""
+
+    def in_window_admitted_mass(self) -> int:
+        raise NotImplementedError(
+            "the admitted-mass watchdog applies to windowed sketches "
+            "only (debt decays continuously; see _note_mass_locked)")
+
+    @property
+    def mass_budget(self) -> int:
+        raise NotImplementedError(
+            "the admitted-mass watchdog applies to windowed sketches "
+            "only (debt decays continuously; see _note_mass_locked)")
+
+    def _apply_config(self, new_cfg: Config) -> None:
+        """Dynamic limit: refill rate (limit/window) and capacity both
+        change; the debt slab carries over, CLAMPED to the new capacity on
+        its device. The sub-micro-token decay remainder is denominated in
+        the old rate fraction, so it resets (forfeits < 1 micro-token of
+        accrued refill, toward denying)."""
+        step = bucket_kernels.build_hashed_step(new_cfg)
+        ids_step = bucket_kernels.build_hashed_step(new_cfg, premix=True)
+        steps = bucket_kernels.build_steps(new_cfg)
+        cap = new_cfg.limit * MICROS
+        with self._lock:
+            self._step, self._ids_step = step, ids_step
+            _, self._reset_step = steps
+            self._state["debt"] = torch.clamp_max(self._state["debt"], cap)
+            self._state["rem"] = torch.zeros((), dtype=torch.int64)
+
+    def _apply_window(self, new_cfg: Config) -> None:
+        """Dynamic window for the debt sketch: the window only sets the
+        refill rate (limit/window), so the steps swap and accumulated
+        debt stands (it now drains at the new rate). The decay remainder
+        is denominated in the old rate fraction, so it resets."""
+        step = bucket_kernels.build_hashed_step(new_cfg)
+        ids_step = bucket_kernels.build_hashed_step(new_cfg, premix=True)
+        steps = bucket_kernels.build_steps(new_cfg)
+        with self._lock:
+            self._step, self._ids_step = step, ids_step
+            _, self._reset_step = steps
+            self._window_us = to_micros(new_cfg.window)
+            self._state["rem"] = torch.zeros((), dtype=torch.int64)
 
     def debt_slab_stats(self) -> dict:
         """Occupancy/collision visibility for the debt slab, as the JAX

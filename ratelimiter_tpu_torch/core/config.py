@@ -3,9 +3,10 @@
 A copy of ``ratelimiter_tpu/core/config.py`` (the port keeps its own copy
 of every host module it needs and imports nothing of the JAX package),
 trimmed to the fields this slice serves or must refuse; a ``Config`` built
-from them means the same in both packages. The dense, persistence and mesh
-specs and the sketch sizing helpers come back with the slices that serve
-them (ROADMAP).
+from them means the same in both packages. Left out: the dense spec
+(ROADMAP A7), the mesh spec (A8), ``SketchParams.hh_promote_fraction``
+and ``for_load`` (A6); checkpoint.config_fingerprint puts the JAX
+defaults of the first two in its digest, so a snapshot carries across.
 
 Parity with reference ``internal/ratelimiter/config.go`` and the Config struct
 (``interface.go:46-70``): algorithm, limit, window, key prefix, fail-open,
@@ -53,10 +54,13 @@ class SketchParams:
     #: keys); 0 disables. Not ported yet (ROADMAP A6): the sketch backend
     #: refuses a config that sets it.
     hh_slots: int = 0
-    #: What to do when the admitted in-window mass exceeds the geometry's
-    #: calibrated budget: "warn" or "strict" (reject admissions while over
-    #: budget). The port has no mass-budget watchdog yet: it serves "warn"
-    #: without the warning and refuses "strict".
+    #: What to do when the admitted in-window mass exceeds this geometry's
+    #: calibrated budget (``mass_budget`` — the point where collision
+    #: error passes ~1% false denies):
+    #:   "warn"   (default) log loudly once per sub-window and keep
+    #:            serving (accuracy silently degrades with load);
+    #:   "strict" additionally REJECT new admissions while over budget.
+    #: Either way ``overload_periods`` counts offending sub-windows.
     overload_policy: str = "warn"
     #: Hot-loop kernel implementation. Kept so that configs stay
     #: interchangeable with the JAX package, where it selects between the
@@ -89,6 +93,13 @@ class SketchParams:
             raise InvalidConfigError(
                 f"sketch kernels must be 'auto', 'pallas' or 'jnp', "
                 f"got {self.kernels!r}")
+
+    def mass_budget(self, limit: int) -> int:
+        """In-window admitted mass this geometry absorbs before collision
+        error reaches ~1% false denies (the calibrated 1% anchor: mean
+        cell load of 2x limit). The windowed limiter tracks admitted mass
+        at runtime and warns (or, strict, denies) past this."""
+        return int(2.0 * limit * self.width)
 
 
 @dataclass(frozen=True)
@@ -131,6 +142,73 @@ class PolicySpec:
 
 
 @dataclass(frozen=True)
+class PersistenceSpec:
+    """Durability subsystem configuration (persistence/).
+
+    When ``dir`` is set, the limiter stack gains a write-ahead log for
+    every non-decision mutation (policy overrides, resets, dynamic
+    limit/window updates) plus background snapshots, and recovery on
+    startup replays the WAL suffix past the newest snapshot's watermark.
+    ``dir=None`` (the default) disables the subsystem.
+
+    Excluded from the checkpoint config fingerprint: these are operational
+    knobs, not state geometry — a snapshot taken at one cadence must
+    restore under another.
+    """
+
+    #: Directory holding WAL segments, snapshots, and the manifest.
+    #: None disables persistence.
+    dir: Optional[str] = None
+    #: Seconds between background snapshots (the crash-window bound on
+    #: lost decisions).
+    snapshot_interval: float = 30.0
+    #: Also snapshot after this many WAL mutations (0 = interval only).
+    snapshot_after_mutations: int = 0
+    #: Snapshots retained on disk (older ones + their WAL prefix are
+    #: pruned after each successful snapshot).
+    retain: int = 3
+    #: WAL fsync policy: "always" (fsync every append), "interval" (at most
+    #: every ``wal_fsync_interval`` seconds), "never" (leave it to the OS;
+    #: a power loss may drop the tail).
+    wal_fsync: str = "always"
+    wal_fsync_interval: float = 0.05
+    #: WAL segment rotation threshold, bytes.
+    wal_max_bytes: int = 64 << 20
+
+    @property
+    def enabled(self) -> bool:
+        return self.dir is not None
+
+    def validate(self) -> None:
+        if self.dir is not None and not isinstance(self.dir, str):
+            raise InvalidConfigError(
+                f"persistence dir must be a path string or None, "
+                f"got {self.dir!r}")
+        if not (self.snapshot_interval > 0):
+            raise InvalidConfigError(
+                f"snapshot_interval must be > 0, "
+                f"got {self.snapshot_interval!r}")
+        if self.snapshot_after_mutations < 0:
+            raise InvalidConfigError(
+                f"snapshot_after_mutations must be >= 0, "
+                f"got {self.snapshot_after_mutations!r}")
+        if self.retain < 1:
+            raise InvalidConfigError(
+                f"retain must be >= 1, got {self.retain!r}")
+        if self.wal_fsync not in ("always", "interval", "never"):
+            raise InvalidConfigError(
+                f"wal_fsync must be 'always', 'interval' or 'never', "
+                f"got {self.wal_fsync!r}")
+        if not (self.wal_fsync_interval > 0):
+            raise InvalidConfigError(
+                f"wal_fsync_interval must be > 0, "
+                f"got {self.wal_fsync_interval!r}")
+        if self.wal_max_bytes < 4096:
+            raise InvalidConfigError(
+                f"wal_max_bytes must be >= 4096, got {self.wal_max_bytes!r}")
+
+
+@dataclass(frozen=True)
 class Config:
     """User-facing limiter configuration (reference ``interface.go:46-70``).
 
@@ -149,6 +227,9 @@ class Config:
         sketch: CMS geometry.
         policy: per-key override table geometry (the policy engine,
             consulted inside the decision step).
+        persistence: durability subsystem knobs (WAL + background
+            snapshots; disabled unless ``persistence.dir`` is set). Not
+            part of the checkpoint fingerprint.
         hierarchy: the tenant cascade; not ported yet, so a config that
             enables it is refused by the sketch backend.
     """
@@ -161,6 +242,7 @@ class Config:
     max_batch_admission_iters: int = 4
     sketch: SketchParams = field(default_factory=SketchParams)
     policy: PolicySpec = field(default_factory=PolicySpec)
+    persistence: PersistenceSpec = field(default_factory=PersistenceSpec)
     hierarchy: HierarchySpec = field(default_factory=HierarchySpec)
 
     def validate(self) -> None:
@@ -182,6 +264,7 @@ class Config:
                 f"got {self.max_batch_admission_iters}")
         self.sketch.validate()
         self.policy.validate()
+        self.persistence.validate()
 
     def with_defaults(self) -> "Config":
         """Non-mutating defaulting (reference ``config.go:54-67``): returns a

@@ -54,3 +54,10 @@ class ClosedError(RateLimiterError, RuntimeError):
     Reference: ``ErrClosed`` (``errors.go:19``) — defined, never used. Here
     every public method checks it.
     """
+
+
+class CheckpointError(RateLimiterError, RuntimeError):
+    """Raised when a checkpoint cannot be loaded: wrong format version,
+    wrong limiter kind, or a snapshot taken under a different config
+    (fingerprint mismatch) — restoring it would silently reinterpret the
+    state arrays."""

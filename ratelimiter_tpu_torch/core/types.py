@@ -175,7 +175,7 @@ class DispatchTicket:
     """
 
     __slots__ = ("outs", "b", "limit", "limits", "ns", "now_us", "t_sec",
-                 "padded", "result", "wire", "event", "staged")
+                 "padded", "result", "wire", "event", "staged", "inflight")
 
     def __init__(self, result: "BatchResult | None" = None):
         self.outs = None        # host-side (pinned on CUDA) result tensors
@@ -187,6 +187,9 @@ class DispatchTicket:
         self.t_sec = 0.0
         self.padded = 0
         self.result = result    # set once resolved (or pre-resolved)
+        #: True from launch until resolve retires the ticket's offered
+        #: mass from the overload watchdog's in-flight count (once).
+        self.inflight = False
         self.wire = False       # outs are packed (bits, words) wire buffers
         self.event = None       # CUDA event recorded behind the copies
         self.staged = None      # staged input tensors, alive until resolve

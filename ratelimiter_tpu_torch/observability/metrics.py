@@ -1,7 +1,7 @@
 """Thread-safe metrics registry with Prometheus text exposition.
 
 A copy of ``ratelimiter_tpu/observability/metrics.py`` trimmed to what
-the port's micro-batcher and door register: counters, gauges and
+the port's micro-batcher, door and persistence register: counters, gauges and
 histograms with labels, a registry with scrape-time collect hooks, and
 the classic Prometheus text format (no OpenMetrics exemplars). For the
 same observations ``Registry.render`` gives the JAX registry's text byte
@@ -21,6 +21,16 @@ LATENCY_BUCKETS = (1e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3,
 
 #: Batch-size buckets for the micro-batcher (powers of two up to 64K).
 BATCH_BUCKETS = tuple(float(1 << i) for i in range(17))
+
+#: Snapshot wall-time buckets, seconds (multi-GiB sketch rings serialized
+#: off-lock). Families using them, all registered by persistence/ under
+#: the JAX package's names: rate_limiter_snapshot_duration_seconds plus
+#: rate_limiter_last_snapshot_timestamp_seconds,
+#: rate_limiter_snapshot_capture_seconds, rate_limiter_snapshots_total,
+#: rate_limiter_snapshot_failures_total, rate_limiter_wal_records_total,
+#: rate_limiter_wal_bytes_total and rate_limiter_wal_seq.
+SNAPSHOT_DURATION_BUCKETS = (1e-3, 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.25,
+                             0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
 
 def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:

@@ -31,6 +31,13 @@ the port's step takes it from the host (``period=``, the limiter's mirror
 a zero-copy view ``slabs[period % S]`` and no device value is read back.
 The boundary weight's operands are host scalars too (``frac_operands``);
 the front kernel computes the weight itself.
+
+A live ``update_window`` re-buckets the ring onto the new sub-window
+geometry (``build_migrate``). It is plain PyTorch on the state's device:
+the JAX package's migration is jitted ``jnp`` too, not a Pallas kernel.
+Left out: the heavy-hitter and hierarchy branches of the JAX migration
+(their configs are refused, ROADMAP A6) and the scan runner
+``build_scan``.
 """
 
 from __future__ import annotations
@@ -271,3 +278,69 @@ def policy_tensors(host: Dict[str, np.ndarray], device) -> dict:
     """Device copy of the override table's key and limit columns."""
     return {"key": torch.from_numpy(host["key"]).to(device),
             "limit": torch.from_numpy(host["limit"]).to(device)}
+
+
+def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
+                    So: int, sub_n: int, SWn: int, Sn: int) -> State:
+    """Re-bucket ring state onto a new sub-window geometry (dynamic window
+    updates), returning new state tensors on the state's device. Every old
+    sub-window's mass is attributed to the LAST new period its time span
+    overlaps, so nothing expires earlier than it would have under either
+    window — migration can only err toward denying, never over-admission.
+    Mass mapped past the new window's tail (an old window longer than the
+    new one) drops into the boundary-or-older region and ages out exactly
+    like native history.
+
+    The JAX package's int32 arithmetic is kept: the ring contraction is a
+    masked sum with an int32 accumulator (``tensordot`` of int32 wraps
+    there; CUDA has no integer matmul), the scatters are ``index_add_``
+    and an int64 ``amax`` scatter, and ``//``/``%`` floor as jnp's do
+    (``_NEVER`` slots make ``(sp + 1) * sub_o`` very negative; they are
+    masked out, but their slot must still be a valid index)."""
+    p_last = state["last_period"]
+    p_now = now_us // sub_n
+    sp = state["slab_period"]                              # (So,)
+    valid = (sp >= p_last - SWo) & (sp <= p_last - 1)
+    q = torch.div((sp + 1) * sub_o - 1, sub_n,
+                  rounding_mode="floor")                   # last overlapped
+    to_cur = valid & (q >= p_now)
+    in_ring = valid & (q < p_now) & (q >= p_now - SWn)
+    slot = torch.remainder(q, Sn)
+    slabs, cur = state["slabs"], state["cur"]
+
+    def masked(mask):
+        return slabs * mask.view(-1, 1, 1).to(slabs.dtype)
+
+    new_slabs = torch.zeros((Sn,) + tuple(slabs.shape[1:]),
+                            dtype=slabs.dtype, device=slabs.device)
+    new_slabs.index_add_(0, slot, masked(in_ring))
+    # dtype pinned: an int32 sum must stay int32, as in the JAX package.
+    new_cur = cur + masked(to_cur).sum(0, dtype=cur.dtype)
+    periods_n = torch.full((Sn,), _NEVER, dtype=torch.int64,
+                           device=sp.device)
+    periods_n.scatter_reduce_(
+        0, slot, torch.where(in_ring, q, torch.full_like(q, _NEVER)),
+        "amax", include_self=True)
+    in_window = ((periods_n >= p_now - SWn + 1)
+                 & (periods_n <= p_now - 1)).to(torch.int32)
+    totals_n = ((new_slabs * in_window.view(-1, 1, 1))
+                .sum(0, dtype=torch.int32) + new_cur)
+    return {"cur": new_cur, "slabs": new_slabs, "totals": totals_n,
+            "slab_period": periods_n,
+            "last_period": torch.full((), p_now, dtype=torch.int64,
+                                      device=sp.device)}
+
+
+def build_migrate(old_cfg: Config, new_cfg: Config) -> Callable:
+    """``migrate(state, now_us) -> state`` moving ring state from
+    old_cfg's window geometry to new_cfg's, on the state's device.
+    Limit/depth/width must match (only the window changes)."""
+    check_ported(old_cfg)
+    check_ported(new_cfg)
+    _, sub_o, SWo, So, _ = sketch_geometry(old_cfg)
+    _, sub_n, SWn, Sn, _ = sketch_geometry(new_cfg)
+    if (old_cfg.sketch.depth, old_cfg.sketch.width) != (
+            new_cfg.sketch.depth, new_cfg.sketch.width):
+        raise InvalidConfigError("window migration cannot change geometry")
+    return partial(_migrate_window, sub_o=sub_o, SWo=SWo, So=So,
+                   sub_n=sub_n, SWn=SWn, Sn=Sn)

@@ -4,9 +4,10 @@
 One PolicyTable per limiter instance. The table owns the entry store and
 the *host* form of the device arrays (the sorted ``key`` column and each
 entry's absolute ``limit``); the backend places them on its device. The
-JAX package's table also derives per-key windows and token-bucket rates,
-and supports rebasing on ``update_limit``; the port's windowed sketch
-needs neither yet.
+JAX package's table also derives per-key token-bucket rates for its
+exact and dense backends, which the port does not serve (ROADMAP A7).
+``update_limit``/``update_window`` rebase the table (``validate_rebase``
+before any state moves, ``rebase`` after).
 
 Thread model: the OWNING LIMITER serializes mutations and dispatches
 under its own lock (set/delete happen rarely; dispatches read a
@@ -19,7 +20,10 @@ an override a backend cannot decide exactly is refused loudly, never
 silently misdecided (the same posture as ops/dense_kernels._check_gates).
 
 Overrides ride the captured state as the ``policy_*`` columns
-(snapshot_arrays/restore_arrays below), so they carry across packages.
+(snapshot_arrays/restore_arrays below), so they carry across packages,
+and are the write-ahead log's main cargo (persistence/): with
+persistence enabled every set/delete is logged before it is
+acknowledged and recovers exactly across a crash.
 """
 
 from __future__ import annotations
@@ -148,6 +152,33 @@ class PolicyTable:
         self._invalidate()
         return True
 
+    def validate_rebase(self, new_limit: int, new_window: float) -> None:
+        """Re-run every entry's backend gates against a PROSPECTIVE new
+        base (limit, window) — callers check this BEFORE migrating state,
+        so a window change that would push an existing override past an
+        overflow gate is refused up front, never silently misdecided."""
+        if self._validator is None:
+            return
+        w_us = to_micros(new_window)
+        for key, ov in self._entries.items():
+            eff_w = max(1, int(round(w_us * ov.window_scale)))
+            try:
+                self._validator(ov.limit, eff_w)
+            except InvalidConfigError as exc:
+                raise InvalidConfigError(
+                    f"override for {key!r} is not representable under the "
+                    f"new window {new_window:g}s: {exc}") from exc
+
+    def rebase(self, new_limit: int, new_window: float) -> None:
+        """Re-derive defaults and effective windows after a dynamic
+        limit/window update. Entries pin ABSOLUTE limits, so only the
+        default columns and the window-derived values move. Callers run
+        ``validate_rebase`` first (before any state migration)."""
+        self._base_limit = int(new_limit)
+        self._base_window_s = float(new_window)
+        self._base_window_us = to_micros(new_window)
+        self._invalidate()
+
     def load(self, keys, limits, scales) -> None:
         """Replace all entries (checkpoint restore). Re-runs full set-time
         validation so a snapshot can never smuggle in an entry this
@@ -178,6 +209,10 @@ class PolicyTable:
 
     def __len__(self) -> int:
         return len(self._entries)
+
+    @property
+    def has_window_scaled(self) -> bool:
+        return any(ov.window_scale != 1.0 for ov in self._entries.values())
 
     # -------------------------------------------------------- host arrays
 

@@ -10,6 +10,18 @@ defaults). Before it listens it builds and loads the CUDA kernels (on
 the card) and the C++ bulk hasher, so no client frame pays a build; then
 it prints a line starting with ``serving``. SIGINT/SIGTERM stop it
 gracefully (the batcher drains first).
+
+``--snapshot-dir DIR`` turns on the durability subsystem (persistence/):
+a write-ahead log of every mutation (policy frames, RESET, dynamic
+limit/window updates), background snapshots every ``--snapshot-interval``
+seconds (and after ``--snapshot-after-mutations`` mutations), and on
+start a recovery from the newest snapshot plus the WAL replayed past it,
+before the door listens (a ``recovered`` line precedes ``serving``). The
+SNAPSHOT frame takes one on demand. A crash loses the decisions made
+after the last snapshot, by design (under-counting); a SIGTERM takes a
+final snapshot and loses nothing. Boot with the limit and window the
+snapshot was taken under: a snapshot refuses to restore under another
+config (checkpoint.py fingerprint). The JAX binary's flags and defaults.
 """
 
 from __future__ import annotations
@@ -19,7 +31,13 @@ import asyncio
 import signal
 import time
 
-from ratelimiter_tpu_torch import Algorithm, Config, SketchParams, create_limiter
+from ratelimiter_tpu_torch import (
+    Algorithm,
+    Config,
+    PersistenceSpec,
+    SketchParams,
+    create_limiter,
+)
 from ratelimiter_tpu_torch.serving.server import RateLimitServer
 
 _ALGORITHMS = ("sliding_window", "fixed_window", "tpu_sketch",
@@ -60,6 +78,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="launches kept in flight on the card, overlapping "
                          "host staging and result copies with device "
                          "work; 1 restores launch-then-wait")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="enable the durability subsystem: write-ahead "
+                         "log for mutations (policy/reset/config) plus "
+                         "background snapshots in this directory; on "
+                         "start, state recovers from the newest snapshot "
+                         "+ WAL replay. Off by default")
+    ap.add_argument("--snapshot-interval", type=float, default=30.0,
+                    help="seconds between background snapshots (bounds "
+                         "the decisions lost to kill -9 at one interval "
+                         "of traffic, in the under-counting direction)")
+    ap.add_argument("--snapshot-after-mutations", type=int, default=0,
+                    help="also snapshot after this many WAL mutations "
+                         "(0 = interval only)")
+    ap.add_argument("--snapshot-retain", type=int, default=3,
+                    help="snapshots kept on disk; older ones and their "
+                         "WAL prefix are pruned")
+    ap.add_argument("--wal-fsync", default="always",
+                    choices=["always", "interval", "never"],
+                    help="WAL durability: fsync every mutation (default), "
+                         "at most every 50ms, or never (OS flushing only)")
     return ap.parse_args(argv)
 
 
@@ -69,7 +107,13 @@ def build_config(args: argparse.Namespace) -> Config:
         window=args.window, fail_open=args.fail_open,
         sketch=SketchParams(
             depth=args.depth, width=args.width, sub_windows=args.sub_windows,
-            conservative_update=not args.no_conservative_update))
+            conservative_update=not args.no_conservative_update),
+        persistence=PersistenceSpec(
+            dir=args.snapshot_dir,
+            snapshot_interval=args.snapshot_interval,
+            snapshot_after_mutations=args.snapshot_after_mutations,
+            retain=args.snapshot_retain,
+            wal_fsync=args.wal_fsync))
 
 
 def prewarm(device) -> float:
@@ -93,21 +137,37 @@ def prewarm(device) -> float:
 
 
 async def _serve(args: argparse.Namespace) -> None:
-    limiter = create_limiter(build_config(args), backend="sketch",
-                             device=args.device)
+    cfg = build_config(args)
+    limiter = create_limiter(cfg, backend="sketch", device=args.device)
     built_s = prewarm(limiter.device)
+    persist = None
+    if cfg.persistence.enabled:
+        from ratelimiter_tpu_torch.persistence import PersistenceManager
+
+        # The JAX binary's order: wrap (outermost), attach, recover before
+        # the door listens, then start the background snapshots.
+        persist = PersistenceManager(cfg.persistence)
+        limiter = persist.wrap(limiter)
+        persist.attach([limiter])
+        t = time.perf_counter()
+        report = persist.recover()
+        print(f"recovered: {report.summary()} in "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        persist.start()
     server = RateLimitServer(
         limiter, args.host, args.port, max_batch=args.max_batch,
         max_delay=args.max_delay_us * 1e-6,
         dispatch_timeout=(args.dispatch_timeout_ms * 1e-3
                           if args.dispatch_timeout_ms is not None else None),
-        inflight=args.inflight)
+        inflight=args.inflight,
+        snapshot=persist.snapshot_now if persist is not None else None)
     await server.start()
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    print(f"serving {args.algorithm} limit={args.limit}/{args.window:g}s "
+    print(f"serving {args.algorithm} "
+          f"limit={limiter.config.limit}/{limiter.config.window:g}s "
           f"on {args.host}:{server.port} device={limiter.device} "
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)",
@@ -116,6 +176,10 @@ async def _serve(args: argparse.Namespace) -> None:
         await stop.wait()
     finally:
         await server.shutdown()
+        if persist is not None:
+            # After the drain, before close: the final snapshot captures
+            # every answered decision — a graceful shutdown loses nothing.
+            persist.stop()
         limiter.close()
 
 

@@ -15,6 +15,11 @@ Requests:
     HEALTH        (3): -
     METRICS       (4): -
     ALLOW_BATCH   (5): u32 count, then count x {u32 n, u16 key_len, key}
+    POLICY_SET    (7): u8 flags (bit0 limit given), i64 limit,
+                       f64 window_scale, u16 key_len, key utf-8
+    POLICY_GET    (8): u16 key_len, key utf-8
+    POLICY_DEL    (9): u16 key_len, key utf-8
+    SNAPSHOT     (10): -
     ALLOW_HASHED (11): u32 count | u64 ids[count] | u32 ns[count] — raw
                        u64 ids, splitmix64 and the (h1, h2) split run on
                        the device
@@ -28,6 +33,8 @@ Responses:
     RESULT_BATCH  (133): i64 limit (the DEFAULT limit), u32 count, then
                          count x {u8 flags, i64 remaining, f64 retry,
                          f64 reset}
+    POLICY_R      (134): u8 found, i64 limit, f64 window_scale
+    SNAPSHOT_R    (135): u64 snapshot_id, u64 wal_seq, f64 duration_s
     RESULT_HASHED (136): u8 batch_flags (bit1 fail_open), i64 limit,
                          u32 count, u8 allowed_bits[ceil(count/8)]
                          (little-endian bit order), then COLUMNAR
@@ -64,6 +71,10 @@ T_RESET = 2
 T_HEALTH = 3
 T_METRICS = 4
 T_ALLOW_BATCH = 5
+T_POLICY_SET = 7
+T_POLICY_GET = 8
+T_POLICY_DEL = 9
+T_SNAPSHOT = 10
 T_ALLOW_HASHED = 11
 
 T_RESULT = 129
@@ -71,6 +82,8 @@ T_OK = 130
 T_HEALTH_R = 131
 T_METRICS_R = 132
 T_RESULT_BATCH = 133
+T_POLICY_R = 134
+T_SNAPSHOT_R = 135
 T_RESULT_HASHED = 136
 T_ERROR = 255
 
@@ -383,3 +396,63 @@ def parse_result_hashed(body: bytes) -> BatchResult:
     return BatchResult(allowed=allowed, limit=limit, remaining=remaining,
                        retry_after=retry, reset_at=reset,
                        fail_open=bool(flags & 2))
+
+
+# ----------------------------------------------------- policy overrides
+
+_POLICY_SET_HEAD = struct.Struct("<BqdH")  # flags, limit, window_scale, key_len
+_POLICY_R_BODY = struct.Struct("<Bqd")     # found, limit, window_scale
+
+
+def encode_policy_set(req_id: int, key: str, limit=None,
+                      window_scale: float = 1.0) -> bytes:
+    kb = key.encode("utf-8")
+    flags = 1 if limit is not None else 0
+    body = _POLICY_SET_HEAD.pack(flags, limit if limit is not None else 0,
+                                 float(window_scale), len(kb)) + kb
+    return _HDR.pack(1 + 8 + len(body), T_POLICY_SET, req_id) + body
+
+
+def parse_policy_set(body: bytes):
+    """-> (key, limit | None, window_scale)."""
+    flags, limit, scale, key_len = _POLICY_SET_HEAD.unpack_from(body)
+    if key_len > MAX_KEY_LEN or len(body) != _POLICY_SET_HEAD.size + key_len:
+        raise ProtocolError("bad POLICY_SET body")
+    key = body[_POLICY_SET_HEAD.size:].decode("utf-8")
+    return key, (limit if flags & 1 else None), scale
+
+
+def encode_policy_key(type_: int, req_id: int, key: str) -> bytes:
+    """POLICY_GET / POLICY_DEL share the RESET body shape."""
+    kb = key.encode("utf-8")
+    body = _KEYLEN.pack(len(kb)) + kb
+    return _HDR.pack(1 + 8 + len(body), type_, req_id) + body
+
+
+def encode_policy_r(req_id: int, found: bool, limit: int,
+                    window_scale: float) -> bytes:
+    body = _POLICY_R_BODY.pack(1 if found else 0, limit, float(window_scale))
+    return _HDR.pack(1 + 8 + len(body), T_POLICY_R, req_id) + body
+
+
+def parse_policy_r(body: bytes):
+    """-> (found, limit, window_scale)."""
+    found, limit, scale = _POLICY_R_BODY.unpack(body)
+    return bool(found), limit, scale
+
+
+# ------------------------------------------------- durability snapshots
+
+_SNAPSHOT_R_BODY = struct.Struct("<QQd")  # snapshot_id, wal_seq, duration_s
+
+
+def encode_snapshot_r(req_id: int, snapshot_id: int, wal_seq: int,
+                      duration_s: float) -> bytes:
+    body = _SNAPSHOT_R_BODY.pack(snapshot_id, wal_seq, float(duration_s))
+    return _HDR.pack(1 + 8 + len(body), T_SNAPSHOT_R, req_id) + body
+
+
+def parse_snapshot_r(body: bytes) -> Tuple[int, int, float]:
+    """-> (snapshot_id, wal_seq, duration_s)."""
+    snapshot_id, wal_seq, duration = _SNAPSHOT_R_BODY.unpack(body)
+    return snapshot_id, wal_seq, duration

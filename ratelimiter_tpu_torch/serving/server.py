@@ -10,15 +10,21 @@ trimmed to the frames this slice serves:
   frame is queued into the batcher and its reply is written from the
   future's done callback. Replies carry request ids and may return out
   of order: clients pipeline, the server coalesces;
-* RESET, HEALTH and METRICS (Prometheus text of the door's registry) run
-  as one task each. Reset is not batched: it is rare, and its semantics
-  are "take effect before any later decision", which the limiter's lock
-  gives; it runs in the loop's default executor;
+* RESET, HEALTH, METRICS (Prometheus text of the door's registry), the
+  policy frames (POLICY_SET/GET/DEL, answered with POLICY_R) and SNAPSHOT
+  run as one task each. Reset and the policy mutations are not batched:
+  they are rare, and their semantics are "take effect before any later
+  decision", which the limiter's lock gives; they run in the loop's
+  default executor, and so does SNAPSHOT (``snapshot=``, the persistence
+  manager's ``snapshot_now``: its capture takes the limiter lock and its
+  write fsyncs). Without ``snapshot`` SNAPSHOT is answered with
+  E_INVALID_CONFIG;
 * a connection whose write buffer passes WRITE_BUFFER_LIMIT is dropped.
 
 Frames carrying the JAX protocol's trace, deadline or forward extension
-bits are answered with E_INVALID_CONFIG. The policy frames, HTTP, gRPC,
-the shared-memory lane, the native door and the fleet are not ported.
+bits are answered with E_INVALID_CONFIG. HTTP, gRPC, the shared-memory
+lane, the native door, leases and the fleet are not ported (ROADMAP
+A13, A8); neither are the JAX door's audit events.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import asyncio
 import logging
 import time
 from functools import partial
-from typing import Optional
+from typing import Callable, Optional
 
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
 from ratelimiter_tpu_torch.observability import metrics as m
@@ -48,8 +54,12 @@ class RateLimitServer:
                  max_delay: float = 200e-6,
                  dispatch_timeout: Optional[float] = None,
                  inflight: int = 8,
-                 registry: Optional[m.Registry] = None):
+                 registry: Optional[m.Registry] = None,
+                 snapshot: Optional[Callable[[], dict]] = None):
         self.limiter = limiter
+        #: Durability trigger (the persistence manager's snapshot_now);
+        #: None answers SNAPSHOT with E_INVALID_CONFIG.
+        self.snapshot = snapshot
         self.host = host
         self.port = port
         self.registry = registry if registry is not None else m.DEFAULT
@@ -203,6 +213,33 @@ class RateLimitServer:
                 pass
             self._conn_tasks.discard(task)
 
+    async def _handle_policy(self, type_: int, req_id: int,
+                             body: bytes) -> bytes:
+        """Tiered-override management: SET stores an override, GET reads
+        it, DEL returns the key to the default tier. All answer POLICY_R.
+        Mutations run off the event loop, like reset (they take the
+        limiter lock and, with persistence, append to the WAL)."""
+        loop = asyncio.get_running_loop()
+        if type_ == p.T_POLICY_SET:
+            key, limit, scale = p.parse_policy_set(body)
+            ov = await loop.run_in_executor(
+                None, lambda: self.limiter.set_override(
+                    key, limit, window_scale=scale))
+            return p.encode_policy_r(req_id, True, ov.limit,
+                                     ov.window_scale)
+        key = p.parse_reset(body)
+        if type_ == p.T_POLICY_GET:
+            ov = self.limiter.get_override(key)
+            if ov is None:
+                return p.encode_policy_r(
+                    req_id, False, self.limiter.config.limit, 1.0)
+            return p.encode_policy_r(req_id, True, ov.limit,
+                                     ov.window_scale)
+        existed = await loop.run_in_executor(
+            None, self.limiter.delete_override, key)
+        return p.encode_policy_r(req_id, bool(existed),
+                                 self.limiter.config.limit, 1.0)
+
     async def _handle_frame(self, type_: int, req_id: int, body: bytes,
                             writer: asyncio.StreamWriter,
                             write_lock: asyncio.Lock) -> None:
@@ -213,6 +250,23 @@ class RateLimitServer:
                 await asyncio.get_running_loop().run_in_executor(
                     None, self.limiter.reset, key)
                 out = p.encode_ok(req_id)
+            elif type_ in (p.T_POLICY_SET, p.T_POLICY_GET, p.T_POLICY_DEL):
+                out = await self._handle_policy(type_, req_id, body)
+            elif type_ == p.T_SNAPSHOT:
+                if self.snapshot is None:
+                    out = p.encode_error(
+                        req_id, p.E_INVALID_CONFIG,
+                        "persistence not enabled on this server "
+                        "(--snapshot-dir)")
+                else:
+                    # Off the event loop: capture takes the limiter lock
+                    # and the write fsyncs.
+                    entry = await asyncio.get_running_loop(
+                        ).run_in_executor(None, self.snapshot)
+                    out = p.encode_snapshot_r(
+                        req_id, int(entry.get("id", 0)),
+                        int(entry.get("wal_seq", 0)),
+                        float(entry.get("duration_s", 0.0)))
             elif type_ == p.T_HEALTH:
                 out = p.encode_health(
                     req_id, self._serving, time.time() - self._started_at,

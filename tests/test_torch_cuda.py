@@ -654,3 +654,122 @@ def test_door_on_card_matches_cpu_replay(dev, algo):
     out = chip_smoke.check_door(torch, cfg, algo, conns=4, frames=24,
                                 n_ids=512, n_keys=64, **kw)
     assert out["dispatches"] < out["frames"] == 96
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_live_updates_with_tickets_in_flight_on_card(dev, algo):
+    """update_window (the ring migration, on the card) and update_limit
+    (the bucket's debt clamp, on the card) with tickets in flight: every
+    result and the state after each update equal the same sequence on the
+    CPU, and the state tensors stay on the card."""
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=9, window=6.0,
+                 sketch=SketchParams(depth=3, width=256, sub_windows=6))
+    cls = (SketchTokenBucketLimiter if algo == "TOKEN_BUCKET"
+           else SketchLimiter)
+    gpu = cls(cfg, ManualClock(1e6), device=dev)
+    cpu = cls(cfg, ManualClock(1e6), device="cpu")
+    rng = np.random.default_rng(3)
+    updates = [("update_window", 4.5), ("update_limit", 4),
+               ("update_window", 13.0), ("update_limit", 20)]
+    for name, arg in updates:
+        pending = []
+        for _ in range(3):
+            ids = rng.integers(0, 40, 64).astype(np.uint64)
+            pending.append((gpu.launch_ids(ids), cpu.launch_ids(ids)))
+        torch.cuda._sleep(int(2e7))          # keep them queued
+        getattr(gpu, name)(arg)
+        getattr(cpu, name)(arg)
+        for tg, tc in pending:
+            a, b = gpu.resolve(tg), cpu.resolve(tc)
+            for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        ga, ca = gpu.capture_state()[1], cpu.capture_state()[1]
+        for k in ca:
+            np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+        for k in ("debt", "acc", "cur", "slabs", "totals"):
+            if k in gpu._state:
+                assert gpu._state[k].device.type == "cuda", k
+        gpu.clock.advance(0.8)
+        cpu.clock.advance(0.8)
+    gpu.close()
+    cpu.close()
+
+
+def test_migrate_window_on_card_equals_cpu(dev):
+    """The migration's scatters (index_add_ over int32, an int64 amax
+    scatter) and floor division on the card, on a ring holding _NEVER
+    slots and negative cells, equal the CPU's."""
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    old = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=9, window=60.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=60))
+    new = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=9, window=45.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=60))
+    rng = np.random.default_rng(7)
+    p_last = 1_700_000_000
+    periods = rng.choice(np.concatenate([np.arange(p_last - 62, p_last + 1),
+                                         [sk._NEVER] * 8]), 60)
+    state = {
+        "cur": rng.integers(-9, 90, (4, 4096)).astype(np.int32),
+        "slabs": rng.integers(-9, 90, (60, 4, 4096)).astype(np.int32),
+        "totals": rng.integers(-9, 900, (4, 4096)).astype(np.int32),
+        "slab_period": periods.astype(np.int64),
+        "last_period": np.asarray(p_last, np.int64),
+    }
+    migrate = sk.build_migrate(old, new)
+    now_us = p_last * 1_000_000 + 400_000
+    want = migrate({k: torch.from_numpy(v) for k, v in state.items()},
+                   now_us)
+    got = migrate({k: torch.from_numpy(v).to(dev)
+                   for k, v in state.items()}, now_us)
+    for k in want:
+        assert got[k].device.type == "cuda", k
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_persistent_wrapper_keeps_the_kernel_path(dev, tmp_path):
+    """Behind the persistence wrapper the micro-batcher still takes the
+    raw-id lane: the same frames launch the same kernels, as many times,
+    with and without the wrapper."""
+    import asyncio
+
+    from ratelimiter_tpu_torch import PersistenceSpec
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.persistence import PersistenceManager
+    from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
+
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=9, window=6.0,
+                 sketch=SketchParams(depth=3, width=256, sub_windows=6))
+    frames = [np.arange(i * 64, i * 64 + 64, dtype=np.uint64) % 50
+              for i in range(6)]
+
+    async def serve(lim):
+        b = MicroBatcher(lim, registry=Registry())
+        assert b._hashed_lane
+        outs = await asyncio.gather(*(
+            b.submit_hashed_nowait(f, np.ones(64, np.int64))
+            for f in frames))
+        await b.drain()
+        b.close()
+        return outs
+
+    counts, results = [], []
+    for wrap in (False, True):
+        lim = SketchLimiter(cfg, ManualClock(1e6), device=dev)
+        mgr = None
+        if wrap:
+            mgr = PersistenceManager(PersistenceSpec(dir=str(tmp_path)),
+                                     registry=Registry())
+            lim = mgr.wrap(lim)
+            mgr.attach([lim])
+            mgr.recover()
+        torch.cuda.synchronize()
+        sc.reset_launch_counts()
+        results.append(asyncio.run(serve(lim)))
+        torch.cuda.synchronize()
+        counts.append(sc.launch_counts())
+        if mgr is not None:
+            mgr.stop(final_snapshot=False)
+        lim.close()
+    assert counts[0] == counts[1] and counts[0]["window_estimate"] > 0
+    assert sum(len(r.allowed) for r in results[0]) == 6 * 64

@@ -82,6 +82,104 @@ def test_encoders_byte_identical_to_jax_protocol(count):
             == jp.encode_simple(jp.T_HEALTH, 15))
 
 
+@pytest.mark.parametrize("key", ["vip", "ключ-" * 40, ""])
+def test_control_frames_byte_identical_to_jax_protocol(key):
+    """POLICY_SET/GET/DEL/R and SNAPSHOT/SNAPSHOT_R: the port's bytes are
+    the JAX encoders', and each parser reads the other's frames."""
+    for limit in (None, 7, 2**40):
+        for scale in (1.0, 2.5):
+            a = tp.encode_policy_set(3, key, limit, scale)
+            assert a == jp.encode_policy_set(3, key, limit, scale)
+            assert (tp.parse_policy_set(a[tp.HEADER_SIZE:])
+                    == jp.parse_policy_set(a[tp.HEADER_SIZE:])
+                    == (key, limit, scale))
+    for t_t, t_j in ((tp.T_POLICY_GET, jp.T_POLICY_GET),
+                     (tp.T_POLICY_DEL, jp.T_POLICY_DEL)):
+        assert t_t == t_j
+        assert (tp.encode_policy_key(t_t, 4, key)
+                == jp.encode_policy_key(t_j, 4, key))
+    for found, limit, scale in ((True, 9, 1.0), (False, 100, 0.5)):
+        r = tp.encode_policy_r(5, found, limit, scale)
+        assert r == jp.encode_policy_r(5, found, limit, scale)
+        assert tp.parse_policy_r(r[tp.HEADER_SIZE:]) == (found, limit, scale)
+    assert (tp.encode_simple(tp.T_SNAPSHOT, 6)
+            == jp.encode_simple(jp.T_SNAPSHOT, 6))
+    r = tp.encode_snapshot_r(7, 12, 345, 0.125)
+    assert r == jp.encode_snapshot_r(7, 12, 345, 0.125)
+    assert jp.parse_snapshot_r(r[tp.HEADER_SIZE:]) == (12, 345, 0.125)
+    assert (tp.T_POLICY_R, tp.T_SNAPSHOT_R) == (jp.T_POLICY_R,
+                                                jp.T_SNAPSHOT_R)
+
+
+def test_policy_and_snapshot_frames_in_process(tmp_path):
+    """The door answers POLICY_SET/GET/DEL as the limiter's override table
+    moves, the overrides steer later decisions, SNAPSHOT without
+    persistence gets the JAX door's E_INVALID_CONFIG, and with
+    ``snapshot=`` it answers SNAPSHOT_R."""
+    served = SketchLimiter(_cfg(), ManualClock(1e6), device="cpu")
+    calls = []
+
+    def snap():
+        calls.append(1)
+        return {"id": 4, "wal_seq": 17, "duration_s": 0.5}
+
+    async def main(snapshot):
+        srv = await run_server(served, snapshot=snapshot)
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        try:
+            out = []
+            for frame in (tp.encode_policy_set(1, "vip", 2),
+                          tp.encode_policy_key(tp.T_POLICY_GET, 2, "vip"),
+                          tp.encode_allow_batch(3, ["vip"] * 3, [1] * 3),
+                          tp.encode_policy_key(tp.T_POLICY_DEL, 4, "vip"),
+                          tp.encode_policy_key(tp.T_POLICY_DEL, 5, "vip"),
+                          tp.encode_policy_key(tp.T_POLICY_GET, 6, "vip"),
+                          tp.encode_policy_set(7, "big", 1 << 24),
+                          tp.encode_simple(tp.T_SNAPSHOT, 8)):
+                out.append(await _roundtrip(reader, writer, frame))
+            return out
+        finally:
+            writer.close()
+            await writer.wait_closed()
+            await srv.shutdown()
+
+    out = asyncio.run(main(None))
+    limit = served.config.limit
+    assert [o[0] for o in out] == [tp.T_POLICY_R] * 2 + [tp.T_RESULT_BATCH] + [
+        tp.T_POLICY_R] * 3 + [tp.T_ERROR] * 2
+    assert tp.parse_policy_r(out[0][2]) == (True, 2, 1.0)
+    assert tp.parse_policy_r(out[1][2]) == (True, 2, 1.0)
+    assert [r.allowed for r in tp.parse_result_batch(out[2][2])] == [
+        True, True, False]
+    assert tp.parse_policy_r(out[3][2]) == (True, limit, 1.0)
+    assert tp.parse_policy_r(out[4][2]) == (False, limit, 1.0)
+    assert tp.parse_policy_r(out[5][2]) == (False, limit, 1.0)
+    assert tp.parse_error(out[6][2])[0] == tp.E_INVALID_CONFIG
+    assert tp.parse_error(out[7][2]) == (
+        tp.E_INVALID_CONFIG,
+        "persistence not enabled on this server (--snapshot-dir)")
+    out = asyncio.run(main(snap))
+    assert out[-1][0] == tp.T_SNAPSHOT_R and calls == [1]
+    assert tp.parse_snapshot_r(out[-1][2]) == (4, 17, 0.5)
+    served.close()
+
+
+def test_durable_door_killed_and_recovered():
+    """chip_smoke.py's crash-and-recovery check at a small size on the CPU:
+    ``python -m ratelimiter_tpu_torch.serving --snapshot-dir D`` recovers
+    a seeded WAL (limit and window updates, an override), serves frames,
+    POLICY_SET/DEL, RESET and SNAPSHOT, is killed with SIGKILL, restarts
+    to state bit-equal to a CPU recovery of a copy of D with the decisions
+    after it equal too, and loses nothing to a SIGTERM."""
+    cfg = T.Config(algorithm=T.Algorithm.SLIDING_WINDOW, limit=20,
+                   window=60.0, sketch=T.SketchParams(depth=2, width=1024,
+                                                      sub_windows=60))
+    out = chip_smoke.check_durable_door(cfg, device="cpu", n_ids=64,
+                                        limit1=15, window1=45.0)
+    assert "replayed 3 WAL record(s) past seq 5" in out["recovered"]
+    assert out["snapshots"] == 5 and out["snapshot_mb"] > 0
+
+
 @pytest.mark.parametrize("count", [5, 8, 21])
 def test_device_packed_hashed_reply_matches_jax_framing(count):
     """A wire=True launch frames from the device-packed buffers; the bytes
@@ -340,6 +438,11 @@ import ratelimiter_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("checkpoint", "observability.decorators", "persistence",
+             "persistence.wal", "persistence.snapshotter",
+             "persistence.recover", "persistence.manager"):
+    assert pkg.__name__ + "." + name in names, name
+print(*names, file=sys.stderr)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
@@ -352,5 +455,6 @@ print(len(names), bad)
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 18
+    assert int(count) >= 27
     assert bad.strip() == "[]"
+    assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
