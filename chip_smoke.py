@@ -36,6 +36,15 @@ Phases (each raises on failure; the script exits non-zero):
    pad above it, where the wrappers
    run the composed back (plain admission on the card, then the
    standalone ``add_update`` kernel) and the launch counts must show it;
+   the heavy-hitter side table's kernels (the side-table builds of
+   ``window_front``, ``window_admit`` and ``add_back``, and
+   ``hh_update``) at config-3 shapes with 256 slots (the observatory
+   deployment's ``--hh-slots 256``) and 2^22 (the most the config
+   accepts), on the config-3 batch over a pre-seeded owner table, 4096
+   requests on one slot, a batch holding keys whose h1 is 0, B = 0,
+   B = ``ADMIT_CAPACITY`` and the next pad above it; each side-table
+   build timed in turns with its build without the side table on the
+   same operands, ``hh_update`` a kernel row of its own;
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -46,7 +55,12 @@ Phases (each raises on failure; the script exits non-zero):
    limiters, and the median, min and max steps/s of the 5 are printed.
    Windowed: config-3 traffic across sub-window rollovers, with
    conservative update on and off, then a profile of a short CU and a
-   short vanilla run. Token bucket: TB-c2, benchmark config 2's token-bucket
+   short vanilla run; then config 3 with the side table (256 slots,
+   threshold 50), CU and vanilla, with a hot string key promoted and
+   then reset halfway and a 61 s jump (every owner idles out, then hot
+   keys promote again), every ``hh_*`` array held too and its steps/s
+   printed beside the path without the side table, and a profile of a
+   short CU run. Token bucket: TB-c2, benchmark config 2's token-bucket
    cell at its literal parameters (limit 20 per 10 s, 4096 string keys
    per batch uniform over 10,000, +0.25 s per batch), and TB-zipf, config
    3's traffic under a token bucket (limit 100 per 60 s, +0.1 s per
@@ -67,7 +81,10 @@ Phases (each raises on failure; the script exits non-zero):
    state to the replay's, HEALTH must count every decision, METRICS must
    show fewer dispatches than frames, every kernel of the path must have
    launched, and as many admission launches as updates (no composed
-   back). The same traffic is then served once more straight over a
+   back); the windowed CU door runs again with ``--hh-slots 256``, where
+   METRICS must also show the side table's consumer gauges equal to the
+   served limiter's ``consumer_stats``. The same traffic is then served
+   once more straight over a
    limiter on the system clock, without the proxy, as
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
    through the door, frames a dispatch and p50/p99 frame latency of both
@@ -76,7 +93,8 @@ Phases (each raises on failure; the script exits non-zero):
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
    live ``update_window`` 60 -> 45 -> 120 s and ``update_limit`` 100 -> 50
-   -> 200 on config 3 and the limit 20 -> 10 -> 40 on TB-c2, each with 4
+   -> 200 on config 3 (also with the side table, ``hh_*`` held) and the
+   limit 20 -> 10 -> 40 on TB-c2, each with 4
    tickets in flight (every decision, and every slab right after each
    update, bit-equal; the update's lock hold and the migration's device
    time printed); the mass-budget watchdog past config 3's budget of
@@ -105,7 +123,8 @@ batches, printing the results as one JSON line before the card's line.
 ``segment.admit`` first, printing the results as one JSON line before the
 card's line.
 
-``--paths`` builds, then runs phase 3 alone and prints its results as one
+``--paths`` builds, then runs phase 3 alone, without the side-table paths
+(which an earlier checkout may not serve), and prints its results as one
 JSON line before the card's line. It reaches the port only through
 ``create_limiter``, the limiters' public methods and the launch counters,
 so a copy of this script placed in an earlier checkout measures that
@@ -155,7 +174,15 @@ KERNEL_ROWS = {
     # in-batch admission, a jitted JAX function.
     "window_admit": "ratelimiter_tpu/ops/segment.py:90",
     "bucket_admit": "ratelimiter_tpu/ops/segment.py:90",
+    # Nor does the side table's update: jnp ops in the reference's step.
+    "hh_update": "ratelimiter_tpu/ops/sketch_kernels.py:487",
 }
+#: The side table of the documented observatory deployment
+#: (docs/EXAMPLES.md:533, ``--hh-slots 256``) and the largest the config
+#: accepts (ratelimiter_tpu/core/config.py:95-100).
+HH_SLOTS, HH_SLOTS_MAX = 256, 1 << 22
+HH_STATE = ("hh_owner", "hh_owner2", "hh_cur", "hh_slabs", "hh_totals",
+            "hh_last")
 SOURCE = "ratelimiter_tpu_torch/csrc/sketch_kernels.cu"
 BUCKET_SOURCE = "ratelimiter_tpu_torch/csrc/bucket_kernels.cu"
 
@@ -222,6 +249,16 @@ def config3(algorithm: str = "SLIDING_WINDOW", cu: bool = True):
                   sketch=SketchParams(depth=DEPTH, width=WIDTH,
                                       sub_windows=SUB_WINDOWS,
                                       conservative_update=cu))
+
+
+def config3_hh(cu: bool = True):
+    """Config 3 with the side table as the observatory deployment runs it:
+    256 slots, the default promotion fraction 0.5 (threshold 50)."""
+    import dataclasses
+
+    c = config3(cu=cu)
+    return dataclasses.replace(c, sketch=dataclasses.replace(
+        c.sketch, hh_slots=HH_SLOTS))
 
 
 def config2_bucket():
@@ -943,6 +980,231 @@ def check_backs(torch, seed: int) -> dict:
     return rows
 
 
+def side_batches(rng, K: int) -> dict:
+    """The side-table kernels' batches as (h1, h2) int64 on the card: the
+    config-3 batch (4096 Zipf ids), 4096 requests on one slot (keys h1 =
+    5 + j*K: claim contention, ties by h1), the config-3 batch with every
+    64th key's h1 set to 0, none, ``ADMIT_CAPACITY`` Zipf ids and the
+    limiter's next pad above it."""
+    import torch
+
+    from ratelimiter_tpu_torch.algorithms.sketch import _pad_size
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    def zipf(B):
+        return device_keys(torch, zipf_ids(rng, B))
+
+    h1, h2 = zipf(BATCH)
+    zero = h1.clone()
+    zero[::64] = 0
+    slot = torch.from_numpy(5 + K * rng.integers(0, 999, size=BATCH)).to(
+        "cuda")
+    return {"config3": (h1, h2), "one slot": (slot, h2),
+            "h1 zero": (zero, h2), "empty": (h1[:0], h2[:0]),
+            "capacity": zipf(sc.ADMIT_CAPACITY),
+            "above capacity": zipf(_pad_size(sc.ADMIT_CAPACITY + 1))}
+
+
+def side_state(torch, rng, h1, K: int) -> dict:
+    """A side table at config-3 ring depth holding owners for a third of
+    the config-3 batch's keys (the hottest among them) and random owners
+    elsewhere, in-window counts and idle clocks."""
+    dev = torch.device("cuda")
+    owner = torch.zeros(K, dtype=torch.int64, device=dev)
+    own = h1[: BATCH // 3]
+    owner[own & (K - 1)] = own
+    spare = torch.arange(K, device=dev) % 7 == 3
+    owner[spare & (owner == 0)] = 0x9E3779B9
+    return {"hh_owner": owner,
+            "hh_owner2": torch.where(owner != 0, 0x2545F491, 0),
+            "hh_cur": torch.randint(-2, 30, (K,), dtype=torch.int32,
+                                    device=dev),
+            "hh_slabs": torch.randint(-2, 60, (SUB_WINDOWS, K),
+                                      dtype=torch.int32, device=dev),
+            "hh_totals": torch.randint(-2, 90, (K,), dtype=torch.int32,
+                                       device=dev),
+            "hh_last": torch.full((K,), -(1 << 40), dtype=torch.int64,
+                                  device=dev)}
+
+
+def side_calls(sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period):
+    """The four side-table kernels on one batch: {name: (kernel call,
+    plain call, the kernel's build without the side table on the same
+    operands, or None)}, and the operands hh_update takes."""
+    front = dict(n=n, boundary=bnd, limit=LIMIT, hh=side)
+    _, _, est, frac, avail, n_f, (mine, _, _) = sc.window_front_plain(
+        totals, (h1, h2), **front)
+    t, c, t2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+    _, allowed, _, target_pr = sc.window_admit_plain(h1, est, n_f, avail,
+                                                     ITERS, mine)
+    g = {k: v.clone() for k, v in hh.items()}
+    p = {k: v.clone() for k, v in hh.items()}
+    plain_front = dict(front, hh=None)
+    return {
+        "window_front": (
+            lambda: sc.window_front(totals, (h1, h2), **front),
+            lambda: sc.window_front_plain(totals, (h1, h2), **front),
+            lambda: sc.window_front(totals, (h1, h2), **plain_front)),
+        "window_admit": (
+            lambda: sc.window_admit(h1, est, n_f, avail, ITERS, mine),
+            lambda: sc.window_admit_plain(h1, est, n_f, avail, ITERS, mine),
+            lambda: sc.window_admit(h1, est, n_f, avail, ITERS)),
+        "add_back": (
+            lambda: (*sc.add_back(t, c, h1, h2, n, n_f, avail, ITERS, est,
+                                  mine), t, c),
+            lambda: (*sc.add_back_plain(t2, c2, h1, h2, n, n_f, avail, ITERS,
+                                        est, mine), t2, c2),
+            lambda: sc.add_back(t2, c2, h1, h2, n, n_f, avail, ITERS)),
+        "hh_update": (
+            lambda: (sc.hh_update(g, h1, h2, n, allowed, mine, target_pr,
+                                  thresh=thresh, period=period),
+                     *g.values())[1:],
+            lambda: (sc.hh_update_plain(p, h1, h2, n, allowed, mine,
+                                        target_pr, thresh=thresh,
+                                        period=period), *p.values())[1:],
+            None),
+    }, (est, allowed, mine, target_pr)
+
+
+def _flat(out):
+    """A kernel's outputs as a flat list of tensors (the front's seventh
+    element is a tuple)."""
+    flat = []
+    for x in out:
+        if isinstance(x, tuple):
+            flat.extend(x)
+        elif x is not None:
+            flat.append(x)
+    return flat
+
+
+def check_side_table(torch, seed: int) -> dict:
+    """The side table's four kernels against their plain versions at
+    config-3 shapes with K = 256 and 2^22 slots on every ``side_batches``
+    batch: ``window_front``, ``window_admit`` and ``add_back`` in their
+    side-table builds and ``hh_update``, every output and every slab and
+    ``hh_*`` tensor bit-equal; the launch counts must show the fused
+    backs up to ``ADMIT_CAPACITY`` keys, the composed ones above it, and
+    ``hh_update`` at every size. Times and bounds on the config-3 batch
+    (the side-table forms beside the rows of their kernels, hh_update a
+    row of its own). Launches made here do not count."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    rng = np.random.default_rng(seed + 31)
+    totals, boundary, cur, _ = window_state(torch, rng)
+    bnd = ring_boundary(torch, boundary)
+    sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
+    period = int(T0 * 1e6) // sub_us
+    thresh = max(1.0, LIMIT * 0.5)
+    err = {"window_front": 0.0, "window_admit": 0.0, "add_back": 0.0,
+           "hh_update": 0.0}
+    timed, info = {}, {}
+    for K in (HH_SLOTS, HH_SLOTS_MAX):
+        batches = side_batches(rng, K)
+        hh = side_state(torch, rng, batches["config3"][0], K)
+        side = sc.SideTable(hh["hh_owner"], hh["hh_totals"],
+                            hh["hh_slabs"][period % SUB_WINDOWS])
+        for label, (h1, h2) in batches.items():
+            B = h1.shape[0]
+            n = torch.from_numpy(rng.integers(0, 4, size=B).astype(
+                np.int32)).to("cuda")
+            calls, (est, allowed, mine, target_pr) = side_calls(
+                sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period)
+            sc.reset_launch_counts()
+            for name, (kern, plain, _) in calls.items():
+                got, want = _flat(kern()), _flat(plain())
+                if len(got) != len(want):
+                    raise AssertionError(f"{name}: outputs missing")
+                for a, b in zip(got, want):
+                    hold_equal(torch, err, name, a, b)
+            fused = int(B <= sc.ADMIT_CAPACITY)
+            counts = sc.launch_counts()
+            want_counts = {"window_estimate": 1, "admit": fused,
+                           "add_back": fused, "add_update": 1,
+                           "hh_update": 1}
+            if any(counts[k] != v for k, v in want_counts.items()):
+                raise AssertionError(f"side table at K={K}, B={B}: launch "
+                                     f"counts {counts}, expected "
+                                     f"{want_counts}")
+            plain_hh = {k: v.clone() for k, v in hh.items()}
+            sc.hh_update_plain(plain_hh, h1, h2, n, allowed, mine,
+                               target_pr, thresh=thresh, period=period)
+            changed = {k: int((plain_hh[k] != hh[k]).sum())
+                       for k in ("hh_owner", "hh_cur", "hh_last")}
+            info[f"K={K} {label}"] = {
+                "batch": B, "form": "fused" if fused else "composed",
+                "owned": int(mine.sum()), "allowed": int(allowed.sum()),
+                "slots_named": int(torch.unique(h1 & (K - 1)).numel()),
+                "claimed": changed["hh_owner"], "counted": changed["hh_cur"],
+                "touched": changed["hh_last"]}
+            log(f"kernels: the side table's window_front, window_admit, "
+                f"add_back and hh_update bit-equal to plain at K={K} on the "
+                f"{label} batch (B={B}, {info[f'K={K} {label}']})")
+            if label == "config3":
+                timed[K] = (calls, dict(info[f"K={K} {label}"],
+                                        keys=(h1, h2),
+                                        written=allowed & ~mine & (n > 0)),
+                            B)
+    rows = {}
+    calls, bi, B = timed[HH_SLOTS]
+    slots = bi["slots_named"]
+    h1, h2 = bi.pop("keys")
+    cols = sc._columns(h1, h2, DEPTH, WIDTH)
+    touched = sum(int(torch.unique(cols[r]).numel()) for r in range(DEPTH))
+    written = bi.pop("written")
+    reached = sum(int(torch.unique(cols[r][written]).numel())
+                  for r in range(DEPTH))
+    # Each form's bytes, its side-table part last: the front (halves and
+    # n in; est, avail, n_f out; totals and boundary per touched cell;
+    # the slot's owner, total and boundary per named slot; mine, est_cms,
+    # est_hh out), window_admit (h1, est, n_f, avail, mine in; target,
+    # allowed, remaining, target_pr out), add_back (h1, h2, n, n_f, avail,
+    # est, mine in; allowed, remaining, target_pr out; the cells the
+    # unowned admitted keys reach, in totals and cur, read and written).
+    side_bytes = {
+        "window_front": B * (8 + 8 + 4 + 12) + touched * 8 + 12
+        + slots * (8 + 4 + 4) + B * (1 + 4 + 4),
+        "window_admit": B * (8 + 4 + 4 + 4 + 4 + 1 + 4) + B * (1 + 4),
+        "add_back": B * (8 + 8 + 4 + 4 + 4 + 1 + 4) + reached * 16
+        + B * (4 + 1 + 4)}
+    for name, nbytes in side_bytes.items():
+        kern, plain, base = calls[name]
+        # In turns: without the side table, with it, with it, without.
+        base_ms = [device_ms(base, torch)]
+        ms = [device_ms(kern, torch), device_ms(kern, torch)]
+        base_ms.append(device_ms(base, torch))
+        plain_ms = device_ms(plain, torch)
+        rows[name] = {"ms": statistics.mean(ms), "ms_runs": ms,
+                      "without_side_table_ms": statistics.mean(base_ms),
+                      "without_side_table_ms_runs": base_ms,
+                      "plain_ms": plain_ms, "bytes": nbytes,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "K": HH_SLOTS,
+                      "max_abs_err": err[name],
+                      "lane": "halves, n, valid boundary, no policy"}
+        log(f"time {name} [side table, K={HH_SLOTS}, halves lane]: kernel "
+            f"{ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us, without the side "
+            f"table {base_ms[0] * 1e3:.2f} / {base_ms[1] * 1e3:.2f} us, "
+            f"plain {plain_ms * 1e3:.2f} us")
+    # hh_update: each key's h1, h2, n, allowed, mine and target_pr once;
+    # the owner read at each named slot, hh_last written where touched,
+    # hh_cur and hh_totals read and written where counted, the owner pair
+    # written where claimed.
+    nbytes = (B * (8 + 8 + 4 + 1 + 1 + 4) + slots * 8 + bi["touched"] * 8
+              + bi["counted"] * 16 + bi["claimed"] * 16)
+    kern, plain, _ = calls["hh_update"]
+    row = kernel_row("hh_update", SOURCE, err["hh_update"], kern, plain,
+                     None, nbytes, B * 12, torch)
+    row.update(K=HH_SLOTS, batch_info=info)
+    kern, plain, _ = timed[HH_SLOTS_MAX][0]["hh_update"]
+    row[f"K={HH_SLOTS_MAX}"] = {"ms": device_ms(kern, torch),
+                                "plain_ms": device_ms(plain, torch)}
+    log(f"time hh_update [K={HH_SLOTS_MAX}]: kernel "
+        f"{row[f'K={HH_SLOTS_MAX}']['ms'] * 1e3:.2f} us, plain "
+        f"{row[f'K={HH_SLOTS_MAX}']['plain_ms'] * 1e3:.2f} us")
+    return {"hh_update": row, "side_forms": rows}
+
+
 # --------------------------------------------------------- tile sweep
 
 
@@ -1160,20 +1422,24 @@ def _trace_c2(seed: int, steps: int):
     return batches, keys + ["tenant:whale"] * 64
 
 
-def drive(lim, batches, keys, *, advance: float = 0.1, inflight: int = 4):
+def drive(lim, batches, keys, *, advance: float = 0.1, inflight: int = 4,
+          reset_key: str = "tenant:whale", jump=None):
     """Run a trace through launch/resolve with up to ``inflight`` tickets
     outstanding; returns the BatchResults in launch order. A batch is an
     array of raw u64 ids (``launch_ids``, every other one wire-packed) or
     a list of string keys (``launch_batch``); every 8th step also sends
-    ``keys``, one of which is overridden, and halfway through that key is
-    reset."""
+    ``keys``, one of which ("tenant:whale") is overridden, and halfway
+    through ``reset_key`` is reset. ``jump`` (step, seconds) advances the
+    clock that much more before that step."""
     pending, out = [], []
     lim.set_override("tenant:whale", 40)
     for step, batch in enumerate(batches):
+        if jump is not None and step == jump[0]:
+            lim.clock.advance(jump[1])
         if step == len(batches) // 2:
             while pending:
                 out.append(lim.resolve(pending.pop(0)))
-            lim.reset("tenant:whale")
+            lim.reset(reset_key)
         if step % 8 == 7:
             pending.append(lim.launch_batch(keys))
         if isinstance(batch, list):
@@ -1194,15 +1460,18 @@ REPEATS = 5
 
 
 def check_path(torch, name: str, cfg, batches, keys, advance: float,
-               counters, required, state_keys, strict: bool = True) -> dict:
+               counters, required, state_keys, strict: bool = True,
+               drive_kw=None) -> dict:
     """One main path on the card against the same trace on the CPU: every
     result field and the final state bit-identical. ``counters`` are the
     kernel modules whose launch counts are set to 0 just before the run
     and read just after it; each kernel named in ``required`` must have
     launched (unless ``strict`` is off and the package counts no such
-    kernel: an earlier checkout measured with ``--paths``)."""
+    kernel: an earlier checkout measured with ``--paths``). ``drive_kw``
+    goes to every ``drive``."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
+    drive_kw = drive_kw or {}
     gpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cuda")
     # Warm-up on a throwaway limiter (first-call costs), then the run.
@@ -1214,18 +1483,20 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
     for mod in counters:
         mod.reset_launch_counts()
     t = time.perf_counter()
-    got = drive(gpu, batches, keys, advance=advance)
+    got = drive(gpu, batches, keys, advance=advance, **drive_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     counts = {}
     for mod in counters:
         counts.update(mod.launch_counts())
     _, gpu_arrays, extra = gpu.capture_state()
+    stats = (gpu.consumer_stats(k=5) if getattr(gpu, "has_hh", False)
+             else None)
     gpu.close()
 
     cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cpu")
-    want = drive(cpu, batches, keys, advance=advance)
+    want = drive(cpu, batches, keys, advance=advance, **drive_kw)
     _, cpu_arrays, _ = cpu.capture_state()
     cpu.close()
     if len(got) != len(want):
@@ -1262,7 +1533,7 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
                                device="cuda")
         torch.cuda.synchronize()
         t = time.perf_counter()
-        drive(again, batches, keys, advance=advance)
+        drive(again, batches, keys, advance=advance, **drive_kw)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         again.close()
@@ -1274,6 +1545,8 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
            "decisions_per_s": decisions / wall, "wall_s": wall,
            "batches": len(got), "decisions": decisions, "denied": denied,
            "extra": {k: v for k, v in extra.items() if k != "saved_at"}}
+    if stats is not None:
+        out["consumer_stats"] = stats
     log(f"main path {name}: {len(got)} batches, {decisions} decisions, "
         f"{denied} denied, bit-identical to the CPU run; launches {counts}; "
         f"{out['steps_per_s']:.1f} steps/s median of {REPEATS} runs (min "
@@ -1299,6 +1572,58 @@ def check_main_path(torch, seed: int, steps: int, cu: bool,
                            - int(T0 * 1e6) // sub_us)
     if out["rollovers"] < 3:
         raise AssertionError(f"only {out['rollovers']} rollovers")
+    return out
+
+
+#: The side-table path's string key: 128 requests every 8th step, past
+#: the promotion threshold (50) in its first batch, so that the reset
+#: halfway is a reset of a promoted key.
+HOT_KEY = "user:hot"
+
+
+def check_hh_path(torch, seed: int, steps: int, cu: bool) -> dict:
+    """The side-table path (config 3 with 256 slots, ``config3_hh``) end
+    to end against the CPU on config-3 traffic, with an override, a
+    reset of a promoted key halfway and a 61 s jump at three quarters
+    (every owner idles out at the next rollover, then hot keys promote
+    again): every result and every state array, ``hh_*`` included,
+    bit-identical. Every kernel of the path must have launched, with an
+    admission launch per update (no plain version ran on the card)."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.hashing import split_hash
+
+    batches, keys = _trace(seed, steps)
+    keys = keys + [HOT_KEY] * 128
+    cfg = config3_hh(cu=cu)
+    drive_kw = {"reset_key": HOT_KEY, "jump": (3 * steps // 4, 61.0)}
+    # The hot key is promoted before its reset: the same trace up to it.
+    probe = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                           device="cpu")
+    drive(probe, batches[:steps // 2], keys, advance=0.1)
+    h1 = int(split_hash(probe._hash([HOT_KEY]), SEED)[0][0])
+    owner = probe.capture_state()[1]["hh_owner"]
+    promoted = int(owner[h1 & (HH_SLOTS - 1)]) == h1
+    probe.close()
+    if not promoted:
+        raise AssertionError(f"{HOT_KEY} is not promoted before its reset")
+    out = check_path(
+        torch, f"windowed cu={cu} hh_slots={HH_SLOTS}", cfg, batches, keys,
+        0.1, [sc], ("window_estimate", "admit", "cu_update", "hh_update")
+        if cu else ("window_estimate", "add_back", "hh_update"),
+        WINDOW_STATE + HH_STATE, drive_kw=drive_kw)
+    counts = out["counts"]
+    # The reset's two standalone add_update launches (the sketch's part
+    # and the cell's) and its front are the only launches besides steps.
+    fused = (counts["admit"] == counts["cu_update"] if cu else True)
+    if (not fused or counts["add_update"] - counts["add_back"] != 2
+            or counts["hh_update"] != counts["window_estimate"] - 1):
+        raise AssertionError(f"side-table path: launch counts {counts} "
+                             f"(a composed back, or a step without "
+                             f"hh_update)")
+    log(f"side table: {HOT_KEY} promoted before its reset; consumers "
+        f"tracked at the end {out['consumer_stats']['occupied']}, top "
+        f"{[c['in_window'] for c in out['consumer_stats']['top']]}")
     return out
 
 
@@ -1525,6 +1850,14 @@ class RecordingLimiter:
         """Marks the raw-id lane (the batcher looks for it)."""
         return self.resolve(self.launch_ids(ids, ns))
 
+    @property
+    def has_hh(self) -> bool:
+        """The server registers the side table's gauges by this."""
+        return getattr(self.inner, "has_hh", False)
+
+    def consumer_stats(self, k: int = 10) -> dict:
+        return self.inner.consumer_stats(k)
+
 
 def door_keys(rng, space: str, n: int) -> list:
     if space == "c2":
@@ -1728,6 +2061,24 @@ def _hold_door_frames(name: str, log, replayed, conns, n_ids: int,
                              f"{n_strings} string frames were in no window")
 
 
+def hold_consumer_gauges(name: str, text: str, stats: dict) -> dict:
+    """The side table's gauges in a METRICS text read after the last
+    decision: the tracked consumers and the rank 1-5 masses (0 past the
+    list) equal to the served limiter's ``consumer_stats(k=5)`` then."""
+    tracked = metric_value(
+        text, 'rate_limiter_hh_tracked_consumers{shard="0",slice="0"}')
+    top = [metric_value(text, f'rate_limiter_top_consumer_mass{{rank='
+                              f'"{r}",shard="0",slice="0"}}')
+           for r in range(1, 6)]
+    want = [float(c["in_window"]) for c in stats["top"]]
+    want += [0.0] * (5 - len(want))
+    if tracked != stats["occupied"] or top != want:
+        raise AssertionError(f"{name}: METRICS shows {tracked:g} tracked "
+                             f"consumers and top masses {top}; the limiter "
+                             f"{stats['occupied']} and {want}")
+    return {"hh_tracked": int(tracked), "hh_top_mass": top}
+
+
 def metric_value(text: str, sample: str) -> float:
     for line in text.splitlines():
         if line.startswith(sample + " "):
@@ -1858,9 +2209,12 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     for mod in counters:
         counts.update(mod.launch_counts())
     _, served_arrays, _ = served.capture_state()
+    stats = served.consumer_stats(k=5)
     served.close()
     name = f"door[{label}]"
     out = _door_readings(name, got)
+    if stats["slots"]:
+        out.update(hold_consumer_gauges(name, got["metrics"], stats))
     replayed, cpu = replay_windows(cfg, rec.log)
     _hold_door_frames(name, rec.log, replayed, got["conns"], n_ids, n_keys)
     _, cpu_arrays, _ = cpu.capture_state()
@@ -2097,11 +2451,15 @@ def check_live_updates(torch, seed: int) -> dict:
         mod.reset_launch_counts()
     holds = check_live(torch, config3(), "live config 3", batches, keys,
                        LIVE_PLAN, 0.1, WINDOW_STATE)
+    holds_hh = check_live(torch, config3_hh(), "live config 3 hh",
+                          batches, keys + [HOT_KEY] * 128, LIVE_PLAN, 0.1,
+                          WINDOW_STATE + HH_STATE)
     holds_tb = check_live(torch, config2_bucket(), "live TB-c2", tb_batches,
                           tb_keys, LIVE_PLAN_TB, C2_ADVANCE, BUCKET_STATE)
     torch.cuda.synchronize()
     counts = {"windowed": sc.launch_counts(), "bucket": bc.launch_counts()}
-    for k in ("window_estimate", "admit", "cu_update", "add_update"):
+    for k in ("window_estimate", "admit", "cu_update", "add_update",
+              "hh_update"):
         if counts["windowed"][k] == 0:
             raise AssertionError(f"live config 3: {k} was not launched")
     for k in ("bucket_estimate", "admit", "bucket_update"):
@@ -2109,6 +2467,7 @@ def check_live_updates(torch, seed: int) -> dict:
             raise AssertionError(f"live TB-c2: {k} was not launched")
     mig = migration_ms(torch)
     out = {"lock_hold_ms": holds, "lock_hold_ms_TB-c2": holds_tb,
+           "lock_hold_ms_hh": holds_hh,
            "migration_device_ms": mig,
            "windowed": {"counts": counts["windowed"]},
            "bucket": {"counts": counts["bucket"]}}
@@ -2116,7 +2475,9 @@ def check_live_updates(torch, seed: int) -> dict:
         f"limit 100->50->200, "
         f"TB-c2 limit 20->10->40, each with 4 tickets in flight: every "
         f"decision and every slab after each update bit-equal to the CPU "
-        f"run; lock held {holds} ms (TB-c2 {holds_tb}); the migration "
+        f"run, and the same on config 3 with {HH_SLOTS} side-table slots "
+        f"(hh_* included); lock held {holds} ms (TB-c2 {holds_tb}, side "
+        f"table {holds_hh}); the migration "
         f"alone {mig} device ms (config 3's 63 MB ring)")
     return out
 
@@ -2655,6 +3016,12 @@ def main(argv=None) -> int:
     if not args.paths:
         rows.update(check_bucket_kernels(torch, args.seed))
         rows.update(check_backs(torch, args.seed))
+        side = check_side_table(torch, args.seed)
+        rows["hh_update"] = side["hh_update"]
+        for name, row in (("window_front", "window_estimate"),
+                          ("window_admit", "window_admit"),
+                          ("add_back", "add_back")):
+            rows[row]["side_table_form"] = side["side_forms"][name]
     strict = not args.paths
     cu = check_main_path(torch, args.seed, args.steps, cu=True,
                          strict=strict)
@@ -2691,6 +3058,25 @@ def main(argv=None) -> int:
         print(json.dumps({"main_path": paths}))
         print(card)
         return 0
+    cu_hh = check_hh_path(torch, args.seed, args.steps, cu=True)
+    vanilla_hh = check_hh_path(torch, args.seed + 7,
+                               max(32, args.steps // 2), cu=False)
+    prof_hh = profile_path(torch, f"windowed cu=True hh_slots={HH_SLOTS}",
+                           config3_hh(), batches, keys, 0.1)
+    if prof_hh["sort_or_scan_ops"]:
+        raise AssertionError(f"side-table path: the plain admission still "
+                             f"runs: {prof_hh['sort_or_scan_ops']}")
+    paths.update({"cu_hh": cu_hh, "vanilla_hh": vanilla_hh,
+                  "profile_hh": prof_hh})
+    log(f"side-table paths on {card} (hh_slots={HH_SLOTS} | without): "
+        + "; ".join(
+            f"{label} {h['steps_per_s']:.1f} | {b['steps_per_s']:.1f} "
+            f"steps/s (median of {REPEATS}; min {h['steps_per_s_min']:.1f} "
+            f"| {b['steps_per_s_min']:.1f}, max {h['steps_per_s_max']:.1f} "
+            f"| {b['steps_per_s_max']:.1f})"
+            for label, h, b in (("windowed CU", cu_hh, cu),
+                                ("windowed vanilla", vanilla_hh,
+                                 vanilla))))
     check_server(torch, args.seed, config3(), "windowed")
     check_server(torch, args.seed, config2_bucket(), "TB-c2")
     door_cu = check_door(
@@ -2703,6 +3089,11 @@ def main(argv=None) -> int:
         counters=[bucket_cuda],
         required=("bucket_estimate", "admit", "bucket_update"),
         same=("admit", "bucket_update"))
+    door_hh = check_door(
+        torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
+        seed=args.seed + 37, counters=[sketch_cuda],
+        required=("window_estimate", "admit", "cu_update", "hh_update"),
+        same=("admit", "cu_update"))
     bare_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
     bare_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
                         space="c2")
@@ -2731,12 +3122,14 @@ def main(argv=None) -> int:
         f"{durable['frame_ms_alone']:.2f} ms alone")
     for name in rows:
         rows[name]["launches"] = row_launches(
-            name, (cu, vanilla, door_cu, live["windowed"], watch),
+            name, (cu, vanilla, cu_hh, vanilla_hh, door_cu, door_hh,
+                   live["windowed"], watch),
             (tb_c2, tb_zipf, door_tb, live["bucket"]))
     paths["live"] = live
     paths["watchdog"] = watch
     paths["durable_door"] = durable
     paths["door_windowed_CU"] = door_cu
+    paths["door_windowed_CU_hh"] = door_hh
     paths["door_TB-c2"] = door_tb
     paths["door_unproxied_windowed_CU"] = bare_cu
     paths["door_unproxied_TB-c2"] = bare_tb

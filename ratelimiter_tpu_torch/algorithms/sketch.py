@@ -38,9 +38,12 @@ either package. Both limiters take live ``update_limit``/``update_window``
 injection (``inject_failure``/``heal``) the serving tier's failure paths
 need.
 
-Not ported yet (constructing such a config raises InvalidConfigError
-naming the ROADMAP item): the heavy-hitter side table and the hierarchy
-(A6), and with them ``consumer_stats`` and the DCN bookkeeping.
+The windowed limiter serves the heavy-hitter side table
+(``SketchParams.hh_slots > 0``, ops/sketch_kernels.py) and reads it out
+as ``consumer_stats``; the token bucket ignores ``hh_slots``, as in the
+JAX package. Not ported yet (constructing such a config raises
+InvalidConfigError naming the ROADMAP item): the hierarchy (A6), and the
+DCN bookkeeping (A8).
 """
 
 from __future__ import annotations
@@ -549,7 +552,8 @@ class SketchLimiter(RateLimiter):
 
     def _apply_config(self, new_cfg: Config) -> None:
         """Dynamic limit: the geometry is unchanged, so the state tensors
-        carry over; only the steps (which bake the limit) are swapped."""
+        carry over; only the steps (which bake the limit and the side
+        table's promotion threshold) are swapped."""
         step = sketch_kernels.build_hashed_step(new_cfg)
         ids_step = sketch_kernels.build_hashed_step(new_cfg, premix=True)
         steps = sketch_kernels.build_steps(new_cfg)
@@ -659,6 +663,52 @@ class SketchLimiter(RateLimiter):
     def _restored(self, arrays: dict) -> None:
         """Note what the next step must know of restored ``arrays``. Lock
         must be held."""
+
+    # ----------------------------------------------------- introspection
+
+    def memory_bytes(self) -> int:
+        """Bytes held by the state tensors (the sketch's and, when on, the
+        side table's): constant in key cardinality. The side table's two
+        owner columns are int64 here, twice the JAX package's uint32."""
+        return sum(v.numel() * v.element_size()
+                   for v in self._state.values())
+
+    @property
+    def has_hh(self) -> bool:
+        """Whether the heavy-hitter side table is configured
+        (SketchParams.hh_slots > 0)."""
+        return "hh_owner" in self._state
+
+    def consumer_stats(self, k: int = 10) -> dict:
+        """Top-K consumer analytics off the heavy-hitter side table, the
+        JAX package's dict: the promoted hot keys' exact in-window counts,
+        read only (scrape cadence, never the decide path). The lock is
+        held while copies of the three columns are enqueued (stream order:
+        the state as of every launch before, none after); the copies come
+        to the host after it. Consumers are their (h1, h2) pair as one
+        64-bit hex token, ``(owner << 32) | owner2`` — irreversible, yet
+        stable across scrapes. ``{"slots": 0, ...}`` without a side
+        table."""
+        if "hh_owner" not in self._state:
+            return {"slots": 0, "occupied": 0, "top": []}
+        with self._lock:
+            refs = [self._state[k].clone()
+                    for k in ("hh_owner", "hh_owner2", "hh_totals")]
+        owner, owner2, totals = (t.cpu().numpy() for t in refs)
+        live = (owner != 0) & (totals > 0)
+        idx = np.nonzero(live)[0]
+        order = idx[np.argsort(totals[idx], kind="stable")[::-1]][:max(0, k)]
+        total_mass = int(totals[live].sum())
+        return {
+            "slots": int(owner.shape[0]),
+            "occupied": int((owner != 0).sum()),
+            "tracked_mass": total_mass,
+            "top": [{
+                "consumer": f"{(int(owner[i]) << 32) | int(owner2[i]):016x}",
+                "in_window": int(totals[i]),
+                "share": round(int(totals[i]) / max(1, total_mass), 6),
+            } for i in order],
+        }
 
     def restore(self, path: str) -> None:
         """Replace state and overrides with the checkpoint file at

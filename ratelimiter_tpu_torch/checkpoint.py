@@ -9,7 +9,9 @@ format version, a backend kind tag, and a **config fingerprint** — restore
 refuses a snapshot taken under a different algorithm/limit/window/geometry
 (the arrays would be reinterpreted silently otherwise). The format, the
 meta key and the fingerprint are the JAX package's, byte for byte, so a
-file saved by either package restores in the other.
+file saved by either package restores in the other, the heavy-hitter side
+table's ``hh_*`` arrays included (uint32 owners, as there; a file without
+``hh_owner2`` restores it as zeros, convert.py).
 
 Staleness semantics:
 
@@ -43,12 +45,10 @@ FORMAT_VERSION = 1
 _META_KEY = "__ratelimiter_tpu_meta__"
 _tmp_counter = itertools.count()
 
-#: Fields of the JAX package's Config that the port's lacks, at the JAX
-#: defaults, which are what every config the port serves means: the
-#: dense backend's spec (ROADMAP A7) and the heavy-hitter promotion
-#: fraction (A6; the port refuses ``hh_slots > 0``).
+#: The field of the JAX package's Config that the port's lacks, at the
+#: JAX default, which is what every config the port serves means: the
+#: dense backend's spec (ROADMAP A7).
 _JAX_DENSE = {"capacity": 1 << 16}
-_JAX_HH_PROMOTE_FRACTION = 0.5
 
 
 def config_fingerprint(config: Config) -> str:
@@ -62,7 +62,6 @@ def config_fingerprint(config: Config) -> str:
     fields = asdict(config)
     fields.pop("persistence", None)
     fields["sketch"].pop("kernels", None)
-    fields["sketch"]["hh_promote_fraction"] = _JAX_HH_PROMOTE_FRACTION
     fields["dense"] = dict(_JAX_DENSE)
     if not fields["hierarchy"].get("tenants"):
         fields.pop("hierarchy")

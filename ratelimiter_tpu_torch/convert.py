@@ -11,10 +11,14 @@ a sketch moves between the packages as::
     torch_limiter.restore_state(arrays, extra)      # uses state_from_numpy
 
 and back with ``state_to_numpy``, in the JAX package's restore format.
-Two array sets carry across: the windowed sketch's and the token
-bucket's. The bucket's ``acc`` may be absent (checkpoints from before the
-JAX package added it) and then restores as zeros, as there. Heavy-hitter
-(``hh_*``) and hierarchy (``tn_*``, ``hier_*``) arrays are refused.
+Three array sets carry across: the windowed sketch's, the windowed
+sketch's with the heavy-hitter side table (``hh_*``), and the token
+bucket's. The side table's owner columns are uint32 at this boundary, as
+in the JAX package and its snapshots, and int64 holding the same values
+on the port's device. ``hh_owner2`` and the bucket's ``acc`` may be
+absent (checkpoints from before the JAX package added them) and then
+restore as zeros, as there. Hierarchy (``tn_*``, ``hier_*``) arrays are
+refused.
 """
 
 from __future__ import annotations
@@ -35,6 +39,19 @@ STATE_DTYPES = {
     "last_period": np.int64,
 }
 
+#: The side table's state arrays and their dtypes at the NumPy boundary.
+HH_DTYPES = {
+    "hh_owner": np.uint32,
+    "hh_owner2": np.uint32,
+    "hh_cur": np.int32,
+    "hh_slabs": np.int32,
+    "hh_totals": np.int32,
+    "hh_last": np.int64,
+}
+
+#: Held as int64 on the port's device (torch.uint32 supports few ops).
+_OWNER_KEYS = ("hh_owner", "hh_owner2")
+
 #: The token bucket's state arrays and their dtypes.
 BUCKET_DTYPES = {
     "debt": np.int64,
@@ -54,8 +71,14 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.T
     policy table restores them); any other array set is refused, as is a
     wrong dtype."""
     keys = {k for k in arrays if not k.startswith("policy_")}
+    with_hh = {**STATE_DTYPES, **HH_DTYPES}
     if keys == set(STATE_DTYPES):
         dtypes = STATE_DTYPES
+    elif keys | {"hh_owner2"} == set(with_hh):
+        dtypes = with_hh
+        if "hh_owner2" not in keys:
+            arrays = dict(arrays, hh_owner2=np.zeros_like(
+                np.asarray(arrays["hh_owner"])))
     elif keys | {"acc"} == set(BUCKET_DTYPES):
         dtypes = BUCKET_DTYPES
         if "acc" not in keys:
@@ -63,21 +86,29 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.T
     else:
         raise InvalidConfigError(
             f"state arrays {sorted(keys)} are neither the windowed sketch's "
-            f"{sorted(STATE_DTYPES)} nor the token bucket's "
-            f"{sorted(BUCKET_DTYPES)} (the heavy-hitter table and the "
-            f"hierarchy are not ported yet, ROADMAP A6)")
+            f"{sorted(STATE_DTYPES)} (with or without the side table's "
+            f"{sorted(HH_DTYPES)}) nor the token bucket's "
+            f"{sorted(BUCKET_DTYPES)} (the hierarchy is not ported yet, "
+            f"ROADMAP A6)")
     out = {}
     for k, dt in dtypes.items():
         a = np.asarray(arrays[k])
         if a.dtype != dt:
             raise InvalidConfigError(f"state array {k} is {a.dtype}, "
                                      f"expected {np.dtype(dt)}")
-        t = torch.from_numpy(np.array(a, copy=True))
+        a = a.astype(np.int64) if k in _OWNER_KEYS else np.array(a, copy=True)
+        t = torch.from_numpy(a)
         out[k] = t if k in _HOST_KEYS else t.to(device)
     return out
 
 
 def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Captured NumPy arrays from the port's state dict (the inverse)."""
-    keys = BUCKET_DTYPES if "debt" in state else STATE_DTYPES
-    return {k: state[k].detach().cpu().numpy().copy() for k in keys}
+    if "debt" in state:
+        dtypes = BUCKET_DTYPES
+    elif "hh_owner" in state:
+        dtypes = {**STATE_DTYPES, **HH_DTYPES}
+    else:
+        dtypes = STATE_DTYPES
+    return {k: state[k].detach().cpu().numpy().astype(dt)
+            for k, dt in dtypes.items()}

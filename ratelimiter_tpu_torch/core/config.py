@@ -4,9 +4,9 @@ A copy of ``ratelimiter_tpu/core/config.py`` (the port keeps its own copy
 of every host module it needs and imports nothing of the JAX package),
 trimmed to the fields this slice serves or must refuse; a ``Config`` built
 from them means the same in both packages. Left out: the dense spec
-(ROADMAP A7), the mesh spec (A8), ``SketchParams.hh_promote_fraction``
-and ``for_load`` (A6); checkpoint.config_fingerprint puts the JAX
-defaults of the first two in its digest, so a snapshot carries across.
+(ROADMAP A7), the mesh spec (A8) and ``SketchParams.for_load``;
+checkpoint.config_fingerprint puts the JAX defaults of the first two in
+its digest, so a snapshot carries across.
 
 Parity with reference ``internal/ratelimiter/config.go`` and the Config struct
 (``interface.go:46-70``): algorithm, limit, window, key prefix, fail-open,
@@ -50,10 +50,14 @@ class SketchParams:
     #: (SURVEY.md hard part #3).
     conservative_update: bool = True
     seed: int = 0x5bd1e995
-    #: Heavy-hitter exact side table (private per-key ring cells for hot
-    #: keys); 0 disables. Not ported yet (ROADMAP A6): the sketch backend
-    #: refuses a config that sets it.
+    #: Heavy-hitter exact side table: keys whose in-window estimate crosses
+    #: ``hh_promote_fraction * limit`` are promoted into a direct-mapped
+    #: table of ``hh_slots`` private per-key ring cells (exact counts, no
+    #: collision error) and stop feeding the shared sketch. 0 disables.
+    #: The windowed sketch serves it (ops/sketch_kernels.py); the token
+    #: bucket ignores it, as in the JAX package.
     hh_slots: int = 0
+    hh_promote_fraction: float = 0.5
     #: What to do when the admitted in-window mass exceeds this geometry's
     #: calibrated budget (``mass_budget`` — the point where collision
     #: error passes ~1% false denies):
@@ -85,6 +89,10 @@ class SketchParams:
             raise InvalidConfigError(
                 f"hh_slots must be 0 or a power of two in [16, 2^22], "
                 f"got {self.hh_slots}")
+        if not (0.0 < self.hh_promote_fraction <= 1.0):
+            raise InvalidConfigError(
+                f"hh_promote_fraction must be in (0, 1], "
+                f"got {self.hh_promote_fraction}")
         if self.overload_policy not in ("warn", "strict"):
             raise InvalidConfigError(
                 f"overload_policy must be 'warn' or 'strict', "

@@ -14,6 +14,18 @@
 //                       and batches above the admission capacity)
 //   window_admit     <- the CU step's admission, targets and remaining
 //                       (ahead of cu_update; replaces no TPU kernel)
+//   hh_update        <- the heavy-hitter side table's update (owned
+//                       counts, promotion claims, idle clock), which the
+//                       reference computes with jnp ops
+//                       (ratelimiter_tpu/ops/sketch_kernels.py:487-532;
+//                       replaces no TPU kernel)
+//
+// With the side table on (hh_slots > 0), window_front, add_back and
+// window_admit run a compile-time variant (a kHH template flag): the front
+// also reads each key's slot (mine = owner == h1; the owned part of the
+// estimate), the backs leave owned keys out of the sketch writes and
+// write the promotion targets. The builds without the flag are the code
+// the step ran before the side table was ported.
 //
 // The Pallas kernels grid sequentially over the d sketch rows and keep a
 // whole (w,) row in VMEM. Here blocks run in parallel and in no order, so
@@ -83,10 +95,21 @@ struct WindowFront {
   rl_front::Keys keys;
   const int32_t* n;              // nullptr: est and frac only (the reset)
   rl_front::Policy policy;
-  float* est;                    // clamped at 0
+  float* est;                    // clamped at 0 (plus the owned part)
   float* frac;                   // 0-d; written with a boundary
   float* avail;
   float* n_f;
+  // The side table (kHH builds): slot owners (int64 holding a u32 h1, 0
+  // free), in-window totals and the boundary column (nullptr in fixed
+  // mode) of K slots (a power of two); per key mine and the estimate's
+  // two parts.
+  const long long* hh_owner;
+  const int32_t* hh_totals;
+  const int32_t* hh_slab;
+  int K;
+  bool* mine;
+  float* est_cms;
+  float* est_hh;
   int B, d, w;
 };
 
@@ -98,7 +121,7 @@ __device__ __forceinline__ float boundary_weight(const WindowFront& a,
   return held == a.want ? f : 0.0f;
 }
 
-template <int kTable, int kDepth>
+template <int kTable, int kDepth, bool kHH>
 __global__ void __launch_bounds__(rl_front::kMaxThreads)
     window_front_kernel(const WindowFront a) {
   constexpr int kRows = kDepth != 0 ? kDepth : rl_front::kMaxDepth;
@@ -129,6 +152,15 @@ __global__ void __launch_bounds__(rl_front::kMaxThreads)
   }
   const int32_t n = a.n != nullptr ? __ldg(a.n + i) : 0;
   const long long held = weighted ? __ldg(a.slab_period + a.slot) : 0;
+  // The key's side-table slot, loaded with the cells.
+  long long owner = 0;
+  int32_t hh_t = 0, hh_b = 0;
+  if constexpr (kHH) {
+    const uint32_t sid = h1 & static_cast<uint32_t>(a.K - 1);
+    owner = __ldg(a.hh_owner + sid);
+    hh_t = __ldg(a.hh_totals + sid);
+    hh_b = weighted ? __ldg(a.hh_slab + sid) : 0;
+  }
   const long long lim =
       rl_front::policy_limit<kTable>(a.policy, keys, &bar, h1, h2);
   const float frac = weighted ? boundary_weight(a, held) : 0.0f;
@@ -145,6 +177,19 @@ __global__ void __launch_bounds__(rl_front::kMaxThreads)
     }
   }
   est = est < 0.0f ? 0.0f : est;
+  if constexpr (kHH) {
+    // est + where(mine, max(est_hh, 0), 0), est_hh = fma(frac, f32(hh_b),
+    // f32(hh_t)) as XLA fuses it (f32(hh_t) in fixed mode).
+    const bool mine = owner == static_cast<long long>(h1);
+    const float tf = static_cast<float>(hh_t);
+    const float raw =
+        weighted ? __fmaf_rn(frac, static_cast<float>(hh_b), tf) : tf;
+    const float part = mine ? fmaxf(raw, 0.0f) : 0.0f;
+    a.mine[i] = mine;
+    a.est_cms[i] = est;
+    a.est_hh[i] = part;
+    est = est + part;
+  }
   a.est[i] = est;
   if (a.n != nullptr) {
     // Limits are < 2^24, exact in f32.
@@ -267,8 +312,11 @@ struct AddBack {
   const int32_t* n;      // the request counts; the amounts added
   const float* n_f;      // f32(n), as the front wrote it: admission's n
   const float* avail;
+  const float* est;      // kHH: the front's estimate
+  const bool* mine;      // kHH: owned by the side table (not scattered)
   bool* allowed;
   int32_t* remaining;
+  float* target_pr;      // kHH: the promotion targets
   int B, d, w, iters;
 };
 
@@ -277,7 +325,15 @@ __device__ __forceinline__ int32_t remaining_of(float seen, float used) {
   return static_cast<int32_t>(fmaxf(floorf(seen - used), 0.0f));
 }
 
-template <class S>
+// A request's post-batch target (est + (avail - seen)) + n_f: the CU
+// target where allowed, and the side table's promotion target
+// where(allowed, ..., est) (ratelimiter_tpu/ops/sketch_kernels.py:496).
+__device__ __forceinline__ float post_batch(float est, float avail,
+                                            float seen, float n_f) {
+  return (est + (avail - seen)) + n_f;
+}
+
+template <class S, bool kHH>
 __global__ void __launch_bounds__(S::kThreads)
     add_back_kernel(const AddBack a) {
   constexpr int kBlock = S::kThreads, kItems = S::kItems;
@@ -314,10 +370,11 @@ __global__ void __launch_bounds__(S::kThreads)
     const unsigned long long prev = k > 0 ? h2[k - 1] : before;
     const unsigned long long next = k + 1 < kItems ? h2[k + 1] : after;
     last[k] = s.tail[k] || h2[k] != next;
-    seg[k].v = i < a.B && s.allowed[k]
-                   ? static_cast<unsigned long long>(
-                         static_cast<long long>(__ldg(a.n + i)))
-                   : 0ull;
+    bool written = i < a.B && s.allowed[k];
+    if constexpr (kHH) written = written && !a.mine[i];
+    seg[k].v = written ? static_cast<unsigned long long>(
+                             static_cast<long long>(__ldg(a.n + i)))
+                       : 0ull;
     seg[k].head = s.head[k] || h2[k] != prev;
   }
   typename S::Scan(tmp.scan).InclusiveScan(seg, seg, rl_admit::SegSum());
@@ -340,6 +397,12 @@ __global__ void __launch_bounds__(S::kThreads)
     a.allowed[i] = ok;
     a.remaining[i] =
         remaining_of(tmp.u.out.seen[i], ok ? __ldg(a.n_f + i) : 0.0f);
+    if constexpr (kHH) {
+      const float est = __ldg(a.est + i);
+      a.target_pr[i] = ok ? post_batch(est, __ldg(a.avail + i),
+                                       tmp.u.out.seen[i], __ldg(a.n_f + i))
+                          : est;
+    }
   }
 }
 
@@ -350,13 +413,15 @@ struct WindowAdmit {
   const float* est;
   const float* n_f;
   const float* avail;
+  const bool* mine;      // kHH: owned keys target 0
   float* target;
   bool* allowed;
   int32_t* remaining;
+  float* target_pr;      // kHH: the promotion targets
   int B, iters;
 };
 
-template <class S>
+template <class S, bool kHH>
 __global__ void __launch_bounds__(S::kThreads)
     window_admit_kernel(const WindowAdmit a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -369,8 +434,110 @@ __global__ void __launch_bounds__(S::kThreads)
     const float n_f = __ldg(a.n_f + i);
     a.allowed[i] = ok;
     a.remaining[i] = remaining_of(seen, ok ? n_f : 0.0f);
-    a.target[i] =
-        ok ? (__ldg(a.est + i) + (__ldg(a.avail + i) - seen)) + n_f : 0.0f;
+    if constexpr (kHH) {
+      const float est = __ldg(a.est + i);
+      const float v = post_batch(est, __ldg(a.avail + i), seen, n_f);
+      a.target[i] = ok && !a.mine[i] ? v : 0.0f;
+      a.target_pr[i] = ok ? v : est;
+    } else {
+      a.target[i] =
+          ok ? (__ldg(a.est + i) + (__ldg(a.avail + i) - seen)) + n_f : 0.0f;
+    }
+  }
+}
+
+// The side table's update (rl_hh_update): ONE block walks the batch in
+// four passes with a barrier between them. A slot changes only where the
+// batch names it, so no pass sweeps the K slots.
+struct HHUpdate {
+  long long* owner;               // int64 holding u32 h1; 0 free
+  long long* owner2;              // the owner's h2
+  int32_t* cur;
+  int32_t* totals;
+  long long* last;                // the slot's last touched period
+  unsigned long long* claims;     // scratch (2, K), zero between launches:
+                                  // claims, then the winners' h2
+  const int64_t* h1;
+  const int64_t* h2;
+  const int32_t* n;
+  const bool* allowed;
+  const bool* mine;
+  const float* target_pr;
+  float thresh;
+  long long p;
+  int B, K;
+};
+
+constexpr int kHHThreads = 1024;
+
+// Request i's claim on its free slot, when it is a candidate: not owned,
+// the slot free (its owner as before the step: ownership is written only
+// in pass 3) and target_pr >= f32(thresh); the claim packs
+// ceil(clip(target_pr, 0, 2^30)) above the zero-extended h1.
+__device__ __forceinline__ bool hh_claim(const HHUpdate& a, int i,
+                                         uint32_t h1, uint32_t sid,
+                                         bool mine,
+                                         unsigned long long& packed) {
+  const float tp = a.target_pr[i];
+  if (mine || a.owner[sid] != 0 || !(tp >= a.thresh)) return false;
+  const float mass = ceilf(fminf(fmaxf(tp, 0.0f), 1073741824.0f));
+  packed = (static_cast<unsigned long long>(static_cast<long long>(mass))
+            << 32) |
+           h1;
+  return true;
+}
+
+__global__ void __launch_bounds__(kHHThreads)
+    hh_update_kernel(const HHUpdate a) {
+  unsigned long long* claims = a.claims;
+  unsigned long long* h2w = a.claims + a.K;
+  const uint32_t mask = static_cast<uint32_t>(a.K - 1);
+  // 1. Owned counts (int32 adds wrap, as the reference's histogram), the
+  //    idle clock, and each candidate's claim.
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
+    const uint32_t h1 = static_cast<uint32_t>(a.h1[i]);
+    const uint32_t sid = h1 & mask;
+    const bool mine = a.mine[i];
+    if (mine && a.allowed[i]) {
+      const int32_t v = a.n[i];
+      if (v != 0) {
+        atomicAdd(a.cur + sid, v);
+        atomicAdd(a.totals + sid, v);
+      }
+    }
+    unsigned long long packed;
+    const bool cand = hh_claim(a, i, h1, sid, mine, packed);
+    if (mine || cand) a.last[sid] = a.p;
+    if (cand) atomicMax(claims + sid, packed);
+  }
+  __syncthreads();
+  // 2. The winners' h2: a candidate whose claim is its slot's (equal
+  //    claims mean equal h1; keys sharing h1 take the larger h2).
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
+    const uint32_t h1 = static_cast<uint32_t>(a.h1[i]);
+    const uint32_t sid = h1 & mask;
+    unsigned long long packed;
+    if (hh_claim(a, i, h1, sid, a.mine[i], packed) &&
+        packed == __ldcg(claims + sid))
+      atomicMax(h2w + sid, static_cast<unsigned long long>(a.h2[i]));
+  }
+  __syncthreads();
+  // 3. Ownership: a slot with a claim was free (claims come only from
+  //    candidates); it takes the claim's h1 and the winner's h2.
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
+    const uint32_t sid = static_cast<uint32_t>(a.h1[i]) & mask;
+    const unsigned long long c = __ldcg(claims + sid);
+    if ((c & 0xFFFFFFFFull) != 0) {
+      a.owner[sid] = static_cast<long long>(c & 0xFFFFFFFFull);
+      a.owner2[sid] = static_cast<long long>(__ldcg(h2w + sid));
+    }
+  }
+  __syncthreads();
+  // 4. The scratch back to zero where this batch wrote it.
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
+    const uint32_t sid = static_cast<uint32_t>(a.h1[i]) & mask;
+    claims[sid] = 0;
+    h2w[sid] = 0;
   }
 }
 
@@ -378,26 +545,35 @@ inline int blocks_for(long long n) {
   return static_cast<int>((n + kThreads - 1) / kThreads);
 }
 
-// front.cuh's launch() picks the table mode and the depth build.
+// front.cuh's launch() picks the table mode and the depth build; the
+// side table's operands pick the kHH build.
 struct WindowFrontKernel {
   template <int kTable, int kDepth>
   static void run(dim3 grid, int threads, size_t smem, cudaStream_t s,
                   const WindowFront& a) {
-    window_front_kernel<kTable, kDepth><<<grid, threads, smem, s>>>(a);
+    if (a.hh_owner != nullptr) {
+      window_front_kernel<kTable, kDepth, true><<<grid, threads, smem, s>>>(
+          a);
+    } else {
+      window_front_kernel<kTable, kDepth, false>
+          <<<grid, threads, smem, s>>>(a);
+    }
   }
 };
 
 // admit.cuh's launch() picks the block shape.
+template <bool kHH>
 struct AddBackKernel {
   using Q = float;
   template <class S>
-  static auto fn() { return &add_back_kernel<S>; }
+  static auto fn() { return &add_back_kernel<S, kHH>; }
 };
 
+template <bool kHH>
 struct WindowAdmitKernel {
   using Q = float;
   template <class S>
-  static auto fn() { return &window_admit_kernel<S>; }
+  static auto fn() { return &window_admit_kernel<S, kHH>; }
 };
 
 }  // namespace
@@ -407,14 +583,20 @@ extern "C" {
 // One launch of ceil(B / threads) blocks (one at B = 0). lane: 0 raw
 // ids (premix), 1 hashed, 2 halves given. pkey == nullptr: no policy
 // table; a key column of at most 4096 rows is staged in shared memory.
+// hh_owner == nullptr: no side table.
 int rl_window_front(const void* totals, const void* boundary,
                     const void* slab_period, long long want, int slot,
                     float e, float rcp, const void* h64, void* h1, void* h2,
                     unsigned long long seed, int lane, const void* n,
                     const void* pkey, const void* plimit, int P,
                     long long limit, void* est, void* frac, void* avail,
-                    void* n_f, int B, int d, int w, int threads,
+                    void* n_f, const void* hh_owner, const void* hh_totals,
+                    const void* hh_slab, int K, void* mine, void* est_cms,
+                    void* est_hh, int B, int d, int w, int threads,
                     void* stream) {
+  if (hh_owner != nullptr && (K < 1 || (K & (K - 1)) ||
+                              (hh_slab == nullptr) != (boundary == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   WindowFront a;
   a.totals = static_cast<const int32_t*>(totals);
   a.boundary = static_cast<const int32_t*>(boundary);
@@ -432,6 +614,13 @@ int rl_window_front(const void* totals, const void* boundary,
   a.frac = static_cast<float*>(frac);
   a.avail = static_cast<float*>(avail);
   a.n_f = static_cast<float*>(n_f);
+  a.hh_owner = static_cast<const long long*>(hh_owner);
+  a.hh_totals = static_cast<const int32_t*>(hh_totals);
+  a.hh_slab = static_cast<const int32_t*>(hh_slab);
+  a.K = K;
+  a.mine = static_cast<bool*>(mine);
+  a.est_cms = static_cast<float*>(est_cms);
+  a.est_hh = static_cast<float*>(est_hh);
   a.B = B;
   a.d = d;
   a.w = w;
@@ -470,10 +659,12 @@ int rl_add_update(void* totals, void* cur, const void* h1, const void* h2,
 }
 
 // One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
-// keys; one block at B = 0 too).
+// keys; one block at B = 0 too). mine == nullptr: no side table (est and
+// target_pr unused).
 int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
                 const void* n, const void* n_f, const void* avail,
-                void* allowed, void* remaining, int B, int d, int w,
+                const void* est, const void* mine, void* allowed,
+                void* remaining, void* target_pr, int B, int d, int w,
                 int iters, void* stream) {
   if (d < 1 || w < 16 || (w & (w - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -485,31 +676,74 @@ int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
   a.n = static_cast<const int32_t*>(n);
   a.n_f = static_cast<const float*>(n_f);
   a.avail = static_cast<const float*>(avail);
+  a.est = static_cast<const float*>(est);
+  a.mine = static_cast<const bool*>(mine);
   a.allowed = static_cast<bool*>(allowed);
   a.remaining = static_cast<int32_t*>(remaining);
+  a.target_pr = static_cast<float*>(target_pr);
   a.B = B;
   a.d = d;
   a.w = w;
   a.iters = iters;
-  return rl_admit::launch<AddBackKernel>(a,
-                                         static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mine != nullptr) return rl_admit::launch<AddBackKernel<true>>(a, s);
+  return rl_admit::launch<AddBackKernel<false>>(a, s);
 }
 
+// mine == nullptr: no side table (target_pr unused).
 int rl_window_admit(const void* h1, const void* est, const void* n_f,
-                    const void* avail, void* target, void* allowed,
-                    void* remaining, int B, int iters, void* stream) {
+                    const void* avail, const void* mine, void* target,
+                    void* allowed, void* remaining, void* target_pr, int B,
+                    int iters, void* stream) {
   WindowAdmit a;
   a.h1 = static_cast<const int64_t*>(h1);
   a.est = static_cast<const float*>(est);
   a.n_f = static_cast<const float*>(n_f);
   a.avail = static_cast<const float*>(avail);
+  a.mine = static_cast<const bool*>(mine);
   a.target = static_cast<float*>(target);
   a.allowed = static_cast<bool*>(allowed);
   a.remaining = static_cast<int32_t*>(remaining);
+  a.target_pr = static_cast<float*>(target_pr);
   a.B = B;
   a.iters = iters;
-  return rl_admit::launch<WindowAdmitKernel>(
-      a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mine != nullptr)
+    return rl_admit::launch<WindowAdmitKernel<true>>(a, s);
+  return rl_admit::launch<WindowAdmitKernel<false>>(a, s);
+}
+
+// One launch of one block (kHHThreads threads, fewer for a small batch;
+// one warp at B = 0). claims: the (2, K) scratch, zero on entry and on
+// return.
+int rl_hh_update(void* owner, void* owner2, void* cur, void* totals,
+                 void* last, void* claims, const void* h1, const void* h2,
+                 const void* n, const void* allowed, const void* mine,
+                 const void* target_pr, float thresh, long long p, int B,
+                 int K, void* stream) {
+  if (B < 0 || K < 1 || (K & (K - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  HHUpdate a;
+  a.owner = static_cast<long long*>(owner);
+  a.owner2 = static_cast<long long*>(owner2);
+  a.cur = static_cast<int32_t*>(cur);
+  a.totals = static_cast<int32_t*>(totals);
+  a.last = static_cast<long long*>(last);
+  a.claims = static_cast<unsigned long long*>(claims);
+  a.h1 = static_cast<const int64_t*>(h1);
+  a.h2 = static_cast<const int64_t*>(h2);
+  a.n = static_cast<const int32_t*>(n);
+  a.allowed = static_cast<const bool*>(allowed);
+  a.mine = static_cast<const bool*>(mine);
+  a.target_pr = static_cast<const float*>(target_pr);
+  a.thresh = thresh;
+  a.p = p;
+  a.B = B;
+  a.K = K;
+  const int threads =
+      B >= kHHThreads ? kHHThreads : (B > 32 ? (B + 31) / 32 * 32 : 32);
+  hh_update_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

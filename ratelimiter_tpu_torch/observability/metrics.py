@@ -181,6 +181,16 @@ class Registry:
             if fn not in self._collect_hooks:
                 self._collect_hooks.append(fn)
 
+    def remove_collect_hook(self, fn) -> None:
+        """Unregister a collect hook (no-op if absent). Owners of hooked
+        resources call it on close: a leftover hook would keep the closed
+        backend alive and run against it on every scrape."""
+        with self._lock:
+            try:
+                self._collect_hooks.remove(fn)
+            except ValueError:
+                pass
+
     def render(self) -> str:
         with self._lock:
             hooks = list(self._collect_hooks)
@@ -197,6 +207,47 @@ class Registry:
         for m in metrics:
             lines.extend(m.render())
         return "\n".join(lines) + "\n"
+
+
+class ConsumerGauges:
+    """The heavy-hitter side table's top-K consumer gauges, refreshed by a
+    scrape-time collect hook (a K-slot device fetch per scrape, never on
+    the decide path), as the JAX package's metrics decorator registers
+    them (ratelimiter_tpu/observability/decorators.py:377-438):
+    ``rate_limiter_hh_tracked_consumers`` (occupied slots) and
+    ``rate_limiter_top_consumer_mass`` by rank 1-5, labelled ``shard``
+    and ``slice`` (one unit: slice "0"). Every rank is written each
+    scrape, so a rank the list no longer reaches drops to 0 rather than
+    keep a departed heavy hitter's mass. ``close`` unhooks it."""
+
+    def __init__(self, limiter, registry: Registry, shard: str = "0"):
+        self.limiter = limiter
+        self.registry = registry
+        self._shard = str(shard)
+        self._top = registry.gauge(
+            "rate_limiter_top_consumer_mass",
+            "In-window admitted mass of the rank-N hottest tracked "
+            "consumer (heavy-hitter side table; identities on "
+            "/debug/audit)")
+        self._occupied = registry.gauge(
+            "rate_limiter_hh_tracked_consumers",
+            "Occupied heavy-hitter slots (promoted hot keys "
+            "currently tracked exactly)")
+        registry.add_collect_hook(self.collect)
+
+    def collect(self) -> None:
+        st = self.limiter.consumer_stats(k=5)
+        self._occupied.set(float(st["occupied"]), shard=self._shard,
+                           slice="0")
+        top = st["top"]
+        for rank in range(1, 6):
+            mass = (float(top[rank - 1]["in_window"])
+                    if rank <= len(top) else 0.0)
+            self._top.set(mass, shard=self._shard, slice="0",
+                          rank=str(rank))
+
+    def close(self) -> None:
+        self.registry.remove_collect_hook(self.collect)
 
 
 #: Process-default registry.

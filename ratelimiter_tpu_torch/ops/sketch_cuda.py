@@ -19,12 +19,21 @@ ahead of ``cu_update``), both over the block-level admission routine of
   versions bit-equal to the JAX package, and ``chip_smoke.py`` holds each
   kernel bit-equal to its plain version on the card.
 
+With the heavy-hitter side table (``hh_slots > 0``) the front also reads
+each key's slot (``SideTable``), the two backs mask owned keys out of the
+sketch writes and return the promotion targets, and ``hh_update`` (which
+replaces no TPU kernel: the reference's side-table update is jnp,
+ratelimiter_tpu/ops/sketch_kernels.py:487-532) counts owned keys and
+promotes new ones. Each of those is a compile-time variant of its kernel,
+so the step without the side table runs the same machine code as before.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``window_front.launches`` ...); ``launch_counts`` reads them under the
 names of the TPU kernels they replace (``add_update``: both of its forms,
 the fused back and the standalone scatter), the fused back alone as
-``add_back``, and the admission launch, which replaces no TPU kernel, as
-``admit``; ``reset_launch_counts`` clears them.
+``add_back``, the admission launch, which replaces no TPU kernel, as
+``admit``, and the side table's update as ``hh_update``;
+``reset_launch_counts`` clears them.
 
 Rounding. The JAX reference's window read ``f32(t) + frac * f32(b)``
 rounds once, as a fused multiply-add: XLA contracts it when it jits the
@@ -86,16 +95,18 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         L, U, F = ctypes.c_int64, ctypes.c_uint64, ctypes.c_float
         lib.rl_window_front.argtypes = [P, P, P, L, I, F, F, P, P, P, U, I,
-                                        P, P, P, I, L, P, P, P, P, I, I, I,
-                                        I, P]
+                                        P, P, P, I, L, P, P, P, P, P, P, P,
+                                        I, P, P, P, I, I, I, I, P]
         lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
-        lib.rl_add_back.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
-                                    P]
-        lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, I, I, P]
+        lib.rl_add_back.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I,
+                                    I, I, I, P]
+        lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, P]
+        lib.rl_hh_update.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, F,
+                                     L, I, I, P]
         for fn in (lib.rl_window_front, lib.rl_cu_update,
                    lib.rl_add_update, lib.rl_add_back,
-                   lib.rl_window_admit):
+                   lib.rl_window_admit, lib.rl_hh_update):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
@@ -180,6 +191,41 @@ class Boundary(NamedTuple):
     want: int
     e: np.float32
     rcp: np.float32
+
+
+class SideTable(NamedTuple):
+    """The heavy-hitter side table as the front reads it: ``owner`` int64
+    (K,) (each slot's owner h1, 0..2^32-1, 0 marking a free slot; int64
+    because torch.uint32 supports few ops), ``totals`` int32 (K,), and
+    ``slab`` int32 (K,), the side table's boundary sub-window
+    ``hh_slabs[p % S]`` (a view; None in fixed mode), weighted by the
+    front's ``frac`` as the sketch's boundary slab is. K is a power of
+    two; a key's slot is ``h1 & (K-1)``."""
+
+    owner: torch.Tensor
+    totals: torch.Tensor
+    slab: Optional[torch.Tensor]
+
+
+#: The side table's state arrays (the windowed state dict's ``hh_*``).
+HH_KEYS = ("hh_owner", "hh_owner2", "hh_cur", "hh_slabs", "hh_totals",
+           "hh_last")
+
+
+def _check_side(hh: SideTable, weighted: bool, device) -> int:
+    """The side table's operands; returns K."""
+    K = hh.owner.shape[0] if hh.owner.dim() == 1 else 0
+    if K < 1 or K & (K - 1):
+        raise ValueError(f"side table slots must be a power of two, got "
+                         f"{tuple(hh.owner.shape)}")
+    _check("hh owner", hh.owner, torch.int64, (K,), device)
+    _check("hh totals", hh.totals, torch.int32, (K,), device)
+    if (hh.slab is not None) != weighted:
+        raise ValueError("the side table's boundary column goes with the "
+                         "sketch's boundary slab")
+    if hh.slab is not None:
+        _check("hh boundary", hh.slab, torch.int32, (K,), device)
+    return K
 
 
 def _check_front(slab, name: str, dtype, keys, n, policy) -> tuple:
@@ -287,15 +333,34 @@ def frac_plain(e: np.float32, rcp: np.float32) -> torch.Tensor:
                    torch.ones((), dtype=torch.float32)).clamp(0.0, 1.0)
 
 
+def side_estimate_plain(hh: SideTable, h1, frac) -> tuple:
+    """Each key's side-table part of the estimate (the JAX step's
+    ratelimiter_tpu/ops/sketch_kernels.py:342-358): ``mine`` (its slot's
+    owner is its h1) and ``where(mine, max(est_hh, 0), 0)`` with
+    ``est_hh = fma(frac, f32(slab[sid]), f32(totals[sid]))``, or
+    ``f32(totals[sid])`` in fixed mode (XLA fuses the read as it fuses
+    the sketch's)."""
+    sid = h1 & (hh.owner.shape[0] - 1)
+    mine = hh.owner[sid] == h1
+    t = hh.totals[sid].float()
+    raw = t if hh.slab is None else fma_f32(frac, hh.slab[sid].float(), t)
+    return mine, torch.where(mine, torch.clamp_min(raw, 0.0), 0.0)
+
+
 def window_front_plain(totals, keys, n=None, *, premix: bool = False,
                        seed: int = 0, boundary: Optional[Boundary] = None,
-                       policy=None, limit: int = 0) -> tuple:
+                       policy=None, limit: int = 0,
+                       hh: Optional[SideTable] = None) -> tuple:
     """The windowed step's front as the step composed it before the front
     kernel: the keys' halves (``halves_dev``), the boundary weight (0 when
     the slab is stale), the estimate clamped at 0, each key's limit
     (``limits_dev``) and the available quota ``max(f32(limit) - est, 0)``.
     Returns ``(h1, h2, est, frac, avail, n_f)``; ``frac`` is None without
-    a boundary, ``avail`` and ``n_f`` are None without ``n``."""
+    a boundary, ``avail`` and ``n_f`` are None without ``n``. With the
+    side table ``hh`` the estimate is the sketch's plus each owned key's
+    side-table part (``side_estimate_plain``), and a seventh element
+    ``(mine, est_cms, est_hh)`` holds the two parts apart (the reset
+    subtracts each from its own table)."""
     h1, h2 = halves_dev(keys, premix, seed)
     slab = frac = None
     if boundary is not None:
@@ -306,12 +371,17 @@ def window_front_plain(totals, keys, n=None, *, premix: bool = False,
                            0.0)
     est = torch.clamp_min(window_estimate_plain(totals, slab, frac, h1, h2),
                           0.0)
+    side = ()
+    if hh is not None:
+        mine, est_hh = side_estimate_plain(hh, h1, frac)
+        side = ((mine, est, est_hh),)
+        est = est + est_hh
     if n is None:
-        return h1, h2, est, frac, None, None
+        return (h1, h2, est, frac, None, None, *side)
     # Exact in f32: limits are < 2^24.
     lim_f = limits_dev(policy, h1, h2, limit).to(torch.float32)
     return (h1, h2, est, frac, torch.clamp_min(lim_f - est, 0.0),
-            n.to(torch.float32))
+            n.to(torch.float32), *side)
 
 
 def cu_update_plain(totals, cur, boundary, frac, h1, h2, target) -> None:
@@ -350,34 +420,91 @@ def _remaining(seen, allowed, n_f) -> torch.Tensor:
 
 
 def _vanilla_back(scatter, totals, cur, h1, h2, n, n_f, avail,
-                  iters: int) -> tuple:
+                  iters: int, est=None, mine=None) -> tuple:
     """The vanilla step's back as composed ops: ``admit``, the admitted
-    amounts through ``scatter`` (``add_update_plain`` or the standalone
-    kernel), and remaining."""
+    amounts of keys the side table does not own (``mine``) through
+    ``scatter`` (``add_update_plain`` or the standalone kernel), and
+    remaining; with ``mine``, also the promotion targets."""
     allowed, seen, _ = admit(h1, n_f, avail, iters)
+    written = allowed if mine is None else allowed & ~mine
     scatter(totals, cur, h1, h2,
-            torch.where(allowed, n, torch.zeros_like(n)).to(torch.int32))
-    return allowed, _remaining(seen, allowed, n_f)
+            torch.where(written, n, torch.zeros_like(n)).to(torch.int32))
+    remaining = _remaining(seen, allowed, n_f)
+    if mine is None:
+        return allowed, remaining
+    return (allowed, remaining,
+            torch.where(allowed, est + (avail - seen) + n_f, est))
 
 
-def add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters: int) -> tuple:
+def add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters: int,
+                   est=None, mine=None) -> tuple:
     """The vanilla step from the front's outputs to its results, in place
     on ``totals`` and ``cur``: in-batch admission of ``n_f`` against
     ``avail`` (``segment.admit``, grouped on h1), ``where(allowed, n, 0)``
     added at each key's column of every row (``add_update_plain``), and
-    ``remaining``. Returns ``(allowed bool[B], remaining int32[B])``."""
+    ``remaining``. Returns ``(allowed bool[B], remaining int32[B])``.
+    With the side table's ``mine`` (and the front's ``est``), owned keys
+    write nothing to the sketch (ratelimiter_tpu/ops/sketch_kernels.py:
+    450) and a third element holds the promotion targets
+    ``where(allowed, (est + (avail - seen)) + n_f, est)`` (:496)."""
     return _vanilla_back(add_update_plain, totals, cur, h1, h2, n, n_f,
-                         avail, iters)
+                         avail, iters, est, mine)
 
 
-def window_admit_plain(h1, est, n_f, avail, iters: int) -> tuple:
+def window_admit_plain(h1, est, n_f, avail, iters: int,
+                       mine=None) -> tuple:
     """The CU step's admission: ``segment.admit``, then the CU targets
     ``where(allowed, (est + (avail - seen)) + n_f, 0)`` and
     ``remaining``. Returns ``(target f32[B], allowed bool[B], remaining
-    int32[B])``."""
+    int32[B])``. With the side table's ``mine``, owned keys target 0
+    (ratelimiter_tpu/ops/sketch_kernels.py:432) and a fourth element
+    holds the promotion targets ``where(allowed, ..., est)`` (:496)."""
     allowed, seen, _ = admit(h1, n_f, avail, iters)
-    target = torch.where(allowed, est + (avail - seen) + n_f, 0.0)
-    return target, allowed, _remaining(seen, allowed, n_f)
+    v = est + (avail - seen) + n_f
+    written = allowed if mine is None else allowed & ~mine
+    out = (torch.where(written, v, 0.0), allowed,
+           _remaining(seen, allowed, n_f))
+    if mine is None:
+        return out
+    return (*out, torch.where(allowed, v, est))
+
+
+def hh_update_plain(state, h1, h2, n, allowed, mine, target_pr, *,
+                    thresh: float, period: int) -> None:
+    """The side table's update, in place on ``state``'s ``hh_*`` tensors,
+    as the JAX step computes it (ratelimiter_tpu/ops/sketch_kernels.py:
+    487-532, dense (K,) passes): owned keys' admitted counts added to
+    ``hh_cur`` and ``hh_totals`` (int32, wrapping); candidates (not
+    owned, slot free, ``target_pr >= f32(thresh)``) claim their slot by
+    a max of ``(ceil(clip(target_pr, 0, 2^30)) << 32) | h1``, the
+    winner's h2 by a second max over the requests whose value equals
+    their slot's claim; a free slot with a claim takes its owner and
+    owner2; and ``hh_last = period`` at every slot an owned key or a
+    candidate named."""
+    owner, owner2 = state["hh_owner"], state["hh_owner2"]
+    K = owner.shape[0]
+    sid = h1 & (K - 1)
+    hist = torch.zeros(K, dtype=torch.int32, device=h1.device).index_add_(
+        0, sid, torch.where(allowed & mine, n, torch.zeros_like(n)))
+    cand = ~mine & (owner[sid] == 0) & (
+        target_pr >= float(np.float32(thresh)))
+    mass = torch.ceil(torch.clamp(target_pr, 0.0, float(1 << 30))).to(
+        torch.int64)
+    packed = torch.where(cand, (mass << 32) | h1, 0)
+    touched = torch.zeros(K, dtype=torch.int32, device=h1.device).index_add_(
+        0, sid, (mine | cand).to(torch.int32)) > 0
+    claims = torch.zeros(K, dtype=torch.int64, device=h1.device)
+    claims.scatter_reduce_(0, sid, packed, "amax")
+    winner = cand & (packed == claims[sid])
+    h2w = torch.zeros(K, dtype=torch.int64, device=h1.device)
+    h2w.scatter_reduce_(0, sid, torch.where(winner, h2, 0), "amax")
+    claim_owner = claims & 0xFFFFFFFF
+    newly = (owner == 0) & (claim_owner != 0)
+    owner.copy_(torch.where(newly, claim_owner, owner))
+    owner2.copy_(torch.where(newly, h2w, owner2))
+    state["hh_cur"] += hist
+    state["hh_totals"] += hist
+    state["hh_last"].masked_fill_(touched, period)
 
 
 # --------------------------------------------------------------- wrappers
@@ -386,7 +513,7 @@ def window_admit_plain(h1, est, n_f, avail, iters: int) -> tuple:
 def window_front(totals: torch.Tensor, keys, n: Optional[torch.Tensor] = None,
                  *, premix: bool = False, seed: int = 0,
                  boundary: Optional[Boundary] = None, policy=None,
-                 limit: int = 0) -> tuple:
+                 limit: int = 0, hh: Optional[SideTable] = None) -> tuple:
     """Replaces Pallas ``window_estimate`` (pallas_sketch.py:144-166) and
     the step's ops around it: ``window_front_plain``'s function in one
     launch. ``keys`` is an int64 (B,) tensor of finalized 64-bit hashes,
@@ -405,7 +532,13 @@ def window_front(totals: torch.Tensor, keys, n: Optional[torch.Tensor] = None,
     they are in flight, folds the min over rows in row order (the Pallas
     kernel's sequential row grid becomes a loop in the thread) and writes
     est, avail and n_f; thread 0 writes ``frac``, which ``cu_update``
-    reads."""
+    reads.
+
+    With the side table ``hh`` (a compile-time variant of the kernel) each
+    thread also loads its key's slot owner, side-table total and boundary
+    cell with the others, and adds the owned part to the estimate before
+    the quota; the seventh output ``(mine, est_cms, est_hh)`` is
+    ``window_front_plain``'s. Three more loads and 9 bytes out a key."""
     d, w, B = _check_front(totals, "totals", torch.int32, keys, n, policy)
     dev = totals.device
     if boundary is not None:
@@ -416,14 +549,15 @@ def window_front(totals: torch.Tensor, keys, n: Optional[torch.Tensor] = None,
         if not 0 <= boundary.slot < S:
             raise ValueError(f"boundary slot {boundary.slot} outside the "
                              f"ring of {S}")
+    K = 0 if hh is None else _check_side(hh, boundary is not None, dev)
     if dev.type == "cpu":
         return window_front_plain(totals, keys, n, premix=premix, seed=seed,
                                   boundary=boundary, policy=policy,
-                                  limit=limit)
+                                  limit=limit, hh=hh)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     h64, h1, h2, seed, lane = _key_args(keys, premix, seed, B, dev)
-    k = 1 if n is None else 3
+    k = (1 if n is None else 3) + (0 if hh is None else 2)
     out = torch.empty(k * B + 1, dtype=torch.float32, device=dev)
     est, frac = out[:B], out[k * B]
     avail, n_f = (None, None) if n is None else (out[B:2 * B],
@@ -432,15 +566,24 @@ def window_front(totals: torch.Tensor, keys, n: Optional[torch.Tensor] = None,
            boundary.want, boundary.slot, float(boundary.e),
            float(boundary.rcp)) if boundary is not None else (
                None, None, 0, 0, 0.0, 0.0)
+    side = ()
+    hh_args = (None, None, None, 0, None, None, None)
+    if hh is not None:
+        mine = torch.empty(B, dtype=torch.bool, device=dev)
+        est_cms, est_hh = out[(k - 2) * B:(k - 1) * B], out[(k - 1) * B:k * B]
+        side = ((mine, est_cms, est_hh),)
+        hh_args = (hh.owner.data_ptr(), hh.totals.data_ptr(), _ptr(hh.slab),
+                   K, mine.data_ptr(), est_cms.data_ptr(),
+                   est_hh.data_ptr())
     err = _lib().rl_window_front(
         totals.data_ptr(), *bnd, _ptr(h64), h1.data_ptr(), h2.data_ptr(),
         seed, lane, _ptr(n), *_policy_args(policy), limit, est.data_ptr(),
-        frac.data_ptr(), _ptr(avail), _ptr(n_f), B, d, w, FRONT_THREADS,
-        _stream(totals))
+        frac.data_ptr(), _ptr(avail), _ptr(n_f), *hh_args, B, d, w,
+        FRONT_THREADS, _stream(totals))
     _raise_on(err, "window_front")
     window_front.launches += 1
     return (h1, h2, est, frac if boundary is not None else None, avail,
-            n_f)
+            n_f, *side)
 
 
 def cu_update(totals: torch.Tensor, cur: torch.Tensor,
@@ -523,7 +666,9 @@ def _check_back(h1, operands: dict, iters: int) -> int:
 
 def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
              h2: torch.Tensor, n: torch.Tensor, n_f: torch.Tensor,
-             avail: torch.Tensor, iters: int) -> tuple:
+             avail: torch.Tensor, iters: int,
+             est: Optional[torch.Tensor] = None,
+             mine: Optional[torch.Tensor] = None) -> tuple:
     """Replaces Pallas ``add_update`` (pallas_sketch.py:224-245) with the
     vanilla step's ops around it (the JAX step's ``segment.admit``, its
     add amounts and remaining, ratelimiter_tpu/ops/sketch_kernels.py:374,
@@ -544,32 +689,47 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     ~85 launches of the composed back with one; its time is the single
     block's sort and scans. Above ``ADMIT_CAPACITY`` keys the back runs
     composed on the card: the plain admission, then the standalone
-    ``add_update`` kernel."""
+    ``add_update`` kernel.
+
+    With the side table's ``mine`` (and ``est``), a compile-time variant
+    leaves owned keys out of the scatter and also writes the promotion
+    targets, returned third (``add_back_plain``)."""
     d, w, B = _check_common(totals, h1, h2)
     _check("cur", cur, torch.int32, (d, w), totals.device, align16=True)
-    _check_back(h1, {"n": (n, torch.int32), "n_f": (n_f, torch.float32),
-                     "avail": (avail, torch.float32)}, iters)
+    operands = {"n": (n, torch.int32), "n_f": (n_f, torch.float32),
+                "avail": (avail, torch.float32)}
+    if (est is None) != (mine is None):
+        raise ValueError("the side table's mine goes with est")
+    if mine is not None:
+        operands.update(est=(est, torch.float32), mine=(mine, torch.bool))
+    _check_back(h1, operands, iters)
     dev = totals.device
     if dev.type == "cpu":
-        return add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters)
+        return add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters,
+                              est, mine)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if B > ADMIT_CAPACITY:
         return _vanilla_back(add_update, totals, cur, h1, h2, n, n_f, avail,
-                             iters)
+                             iters, est, mine)
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     remaining = torch.empty(B, dtype=torch.int32, device=dev)
+    target_pr = (None if mine is None
+                 else torch.empty(B, dtype=torch.float32, device=dev))
     err = _lib().rl_add_back(
         totals.data_ptr(), cur.data_ptr(), h1.data_ptr(), h2.data_ptr(),
-        n.data_ptr(), n_f.data_ptr(), avail.data_ptr(), allowed.data_ptr(),
-        remaining.data_ptr(), B, d, w, iters, _stream(totals))
+        n.data_ptr(), n_f.data_ptr(), avail.data_ptr(), _ptr(est),
+        _ptr(mine), allowed.data_ptr(), remaining.data_ptr(),
+        _ptr(target_pr), B, d, w, iters, _stream(totals))
     _raise_on(err, "add_back")
     add_back.launches += 1
-    return allowed, remaining
+    return (allowed, remaining) if mine is None else (allowed, remaining,
+                                                      target_pr)
 
 
 def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
-                 avail: torch.Tensor, iters: int) -> tuple:
+                 avail: torch.Tensor, iters: int,
+                 mine: Optional[torch.Tensor] = None) -> tuple:
     """The CU step's admission, CU targets and remaining
     (``window_admit_plain``'s function; the JAX step's ``segment.admit``
     and ratelimiter_tpu/ops/sketch_kernels.py:374,432,534-535) in one
@@ -582,41 +742,129 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
     epilogue that writes the three outputs in batch order. It
     replaces the ~85 launches of the composed admission, targets and
     remaining with one. Above ``ADMIT_CAPACITY`` keys the plain version
-    runs on the card."""
-    B = _check_back(h1, {"est": (est, torch.float32),
-                         "n_f": (n_f, torch.float32),
-                         "avail": (avail, torch.float32)}, iters)
+    runs on the card.
+
+    With the side table's ``mine``, a compile-time variant targets 0 for
+    owned keys and also writes the promotion targets, returned fourth
+    (``window_admit_plain``)."""
+    operands = {"est": (est, torch.float32), "n_f": (n_f, torch.float32),
+                "avail": (avail, torch.float32)}
+    if mine is not None:
+        operands["mine"] = (mine, torch.bool)
+    B = _check_back(h1, operands, iters)
     dev = h1.device
     if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
-        return window_admit_plain(h1, est, n_f, avail, iters)
+        return window_admit_plain(h1, est, n_f, avail, iters, mine)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    target = torch.empty(B, dtype=torch.float32, device=dev)
+    out = torch.empty((1 if mine is None else 2) * B, dtype=torch.float32,
+                      device=dev)
+    target, target_pr = out[:B], (None if mine is None else out[B:])
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     remaining = torch.empty(B, dtype=torch.int32, device=dev)
     err = _lib().rl_window_admit(
         h1.data_ptr(), est.data_ptr(), n_f.data_ptr(), avail.data_ptr(),
-        target.data_ptr(), allowed.data_ptr(), remaining.data_ptr(), B,
-        iters, _stream(h1))
+        _ptr(mine), target.data_ptr(), allowed.data_ptr(),
+        remaining.data_ptr(), _ptr(target_pr), B, iters, _stream(h1))
     _raise_on(err, "window_admit")
     window_admit.launches += 1
-    return target, allowed, remaining
+    if mine is None:
+        return target, allowed, remaining
+    return target, allowed, remaining, target_pr
+
+
+#: The side table's claim scratch of each (device, K, stream): (2, K)
+#: int64, the slots' claims then the winners' h2, zero between launches
+#: (``hh_update`` clears the slots it touched before it ends).
+_HH_SCRATCH: dict = {}
+
+
+def _hh_scratch(device, K: int, stream: int) -> torch.Tensor:
+    key = (str(device), K, stream)
+    t = _HH_SCRATCH.get(key)
+    if t is None:
+        t = _HH_SCRATCH[key] = torch.zeros((2, K), dtype=torch.int64,
+                                           device=device)
+    return t
+
+
+def hh_update(state: dict, h1: torch.Tensor, h2: torch.Tensor,
+              n: torch.Tensor, allowed: torch.Tensor, mine: torch.Tensor,
+              target_pr: torch.Tensor, *, thresh: float,
+              period: int) -> None:
+    """The side table's update (``hh_update_plain``'s function) in one
+    launch, in place on ``state``'s ``hh_*`` tensors. It replaces no TPU
+    kernel: the JAX step computes it with jnp ops
+    (ratelimiter_tpu/ops/sketch_kernels.py:487-532), in dense passes over
+    all K slots.
+
+    Bound on an H100: each key's h1, h2, n, allowed, mine and target_pr
+    read once (26 bytes), and at each slot the batch names its owner
+    read, ``hh_cur``/``hh_totals`` read and written, ``hh_last`` and (on
+    a claim) the owner pair written: ~0.15 MB at B=4096, ~0.04 us at
+    3.35 TB/s, whatever K is. Design: only slots the batch names can
+    change, so the kernel never sweeps K. ONE block walks the batch four
+    times, a barrier between passes: (1) owned counts by ``atomicAdd``
+    into both tables, ``hh_last`` at every slot an owned key or a
+    candidate names, and each candidate's packed (mass, h1) by a 64-bit
+    ``atomicMax`` into a per-slot scratch (``_hh_scratch``); (2) each
+    candidate whose value equals its slot's claim ``atomicMax``es its h2
+    into the scratch's second row; (3) each slot with a claim takes its
+    owner and owner2 (every request of the slot writes the same pair);
+    (4) the scratch is cleared at the slots the batch named, so it is
+    zero for the next launch without a memset of K. The owner a key's
+    candidacy reads is the one before the step in every pass: ownership
+    is written only in pass 3. One block keeps the passes' barriers
+    cheap; the launch is the cost at serving batch sizes."""
+    owner = state["hh_owner"]
+    K = owner.shape[0] if owner.dim() == 1 else 0
+    if K < 1 or K & (K - 1):
+        raise ValueError(f"side table slots must be a power of two, got "
+                         f"{tuple(owner.shape)}")
+    dev = owner.device
+    for name, dtype in (("hh_owner", torch.int64), ("hh_owner2", torch.int64),
+                        ("hh_cur", torch.int32), ("hh_totals", torch.int32),
+                        ("hh_last", torch.int64)):
+        _check(name, state[name], dtype, (K,), dev)
+    B = _check_back(h1, {"h2": (h2, torch.int64), "n": (n, torch.int32),
+                         "allowed": (allowed, torch.bool),
+                         "mine": (mine, torch.bool),
+                         "target_pr": (target_pr, torch.float32)}, 1)
+    if h1.device != dev:
+        raise ValueError(f"h1 is on {h1.device}, expected {dev}")
+    if dev.type == "cpu":
+        return hh_update_plain(state, h1, h2, n, allowed, mine, target_pr,
+                               thresh=thresh, period=period)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    stream = _stream(owner)
+    err = _lib().rl_hh_update(
+        owner.data_ptr(), state["hh_owner2"].data_ptr(),
+        state["hh_cur"].data_ptr(), state["hh_totals"].data_ptr(),
+        state["hh_last"].data_ptr(), _hh_scratch(dev, K, stream).data_ptr(),
+        h1.data_ptr(), h2.data_ptr(), n.data_ptr(), allowed.data_ptr(),
+        mine.data_ptr(), target_pr.data_ptr(), float(np.float32(thresh)),
+        period, B, K, stream)
+    _raise_on(err, "hh_update")
+    hh_update.launches += 1
 
 
 #: Each wrapper under the name of the TPU kernel it replaces (both forms
 #: of add_update under its name), the fused back alone as ``add_back``,
-#: and the admission launch, which replaces no TPU kernel, as ``admit``.
+#: and the admission launch and the side table's update, which replace
+#: no TPU kernel, as ``admit`` and ``hh_update``.
 KERNELS = {"window_estimate": (window_front,), "cu_update": (cu_update,),
            "add_update": (add_back, add_update), "add_back": (add_back,),
-           "admit": (window_admit,)}
-WRAPPERS = (window_front, cu_update, add_update, add_back, window_admit)
+           "admit": (window_admit,), "hh_update": (hh_update,)}
+WRAPPERS = (window_front, cu_update, add_update, add_back, window_admit,
+            hh_update)
 for _fn in WRAPPERS:
     _fn.launches = 0
 
 
 def launch_counts() -> dict:
-    """{TPU kernel name (or ``add_back``, ``admit``): launches of its
-    replacement since the last reset}."""
+    """{TPU kernel name (or ``add_back``, ``admit``, ``hh_update``):
+    launches of its replacement since the last reset}."""
     return {name: sum(fn.launches for fn in fns)
             for name, fns in KERNELS.items()}
 

@@ -32,12 +32,27 @@ a zero-copy view ``slabs[period % S]`` and no device value is read back.
 The boundary weight's operands are host scalars too (``frac_operands``);
 the front kernel computes the weight itself.
 
-A live ``update_window`` re-buckets the ring onto the new sub-window
-geometry (``build_migrate``). It is plain PyTorch on the state's device:
-the JAX package's migration is jitted ``jnp`` too, not a Pallas kernel.
-Left out: the heavy-hitter and hierarchy branches of the JAX migration
-(their configs are refused, ROADMAP A6) and the scan runner
-``build_scan``.
+The heavy-hitter side table (``hh_slots`` = K > 0) is a direct-mapped
+table of private per-key ring cells for promoted hot keys (``hh_*``
+state, slot ``h1 & (K-1)``, identity h1, sharing the sketch's period
+clock): an owned key's new traffic counts exactly in its cell and not in
+the sketch, and its estimate is the sketch's plus its cell's; an unowned
+key whose post-batch target crosses ``max(1, limit * hh_promote_fraction)``
+claims its free slot (the hottest candidate wins, ties by h1); a slot
+idle for a whole window is freed at rollover. On the device the slot
+owners are int64 holding 0..2^32-1 (uint32 in the JAX package and at the
+NumPy boundary, convert.py). The step's front reads the table, its back
+masks owned keys out of the sketch writes, and ``hh_update`` does the
+rest (ops/sketch_cuda.py); the JAX package runs the jnp reference for
+this config (its Pallas path is off with a side table), so the port's
+kernels are held to that.
+
+A live ``update_window`` re-buckets the ring (and the side table's)
+onto the new sub-window geometry (``build_migrate``). It is plain
+PyTorch on the state's device, as the rollover is: the JAX package's
+migration and rollover are jitted ``jnp`` too, not Pallas kernels. Left
+out: the hierarchy branches (its configs are refused, ROADMAP A6) and
+the scan runner ``build_scan``.
 """
 
 from __future__ import annotations
@@ -87,11 +102,7 @@ def sketch_geometry(cfg: Config) -> tuple[int, int, int, int, int]:
 
 
 def check_ported(cfg: Config) -> None:
-    """Refuse the parts of the sketch that this slice does not port."""
-    if cfg.sketch.hh_slots:
-        raise InvalidConfigError(
-            "the heavy-hitter side table (hh_slots > 0) is not ported yet "
-            "(ROADMAP A6)")
+    """Refuse the parts of the sketch that the port does not serve yet."""
     if cfg.hierarchy.enabled:
         raise InvalidConfigError(
             "the hierarchy cascade (hierarchy.tenants > 0) is not ported "
@@ -105,7 +116,7 @@ def init_state(cfg: Config, device) -> State:
     check_ported(cfg)
     _, _, _, S, _ = sketch_geometry(cfg)
     d, w = cfg.sketch.depth, cfg.sketch.width
-    return {
+    state = {
         "cur": torch.zeros((d, w), dtype=torch.int32, device=device),
         "slabs": torch.zeros((S, d, w), dtype=torch.int32, device=device),
         "totals": torch.zeros((d, w), dtype=torch.int32, device=device),
@@ -114,6 +125,32 @@ def init_state(cfg: Config, device) -> State:
         "last_period": torch.full((), _NEVER, dtype=torch.int64,
                                   device=device),
     }
+    K = cfg.sketch.hh_slots
+    if K:
+        # The owners (hh_owner: h1; hh_owner2: its h2, captured at claim
+        # time for the JAX package's DCN export) are uint32 there, int64
+        # holding the same values here. 0 marks a free slot, so a key
+        # whose h1 is 0 never claims one.
+        state.update({
+            "hh_owner": torch.zeros((K,), dtype=torch.int64, device=device),
+            "hh_owner2": torch.zeros((K,), dtype=torch.int64, device=device),
+            "hh_cur": torch.zeros((K,), dtype=torch.int32, device=device),
+            "hh_slabs": torch.zeros((S, K), dtype=torch.int32,
+                                    device=device),
+            "hh_totals": torch.zeros((K,), dtype=torch.int32, device=device),
+            "hh_last": torch.full((K,), _NEVER, dtype=torch.int64,
+                                  device=device),
+        })
+    return state
+
+
+def _masked_sum(slabs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sum over the ring axis of the slabs ``mask`` (S,) keeps, with an
+    int32 accumulator (the JAX package's int32 ``tensordot``, which
+    wraps; CUDA has no integer matmul)."""
+    shape = (-1,) + (1,) * (slabs.dim() - 1)
+    return (slabs * mask.to(slabs.dtype).view(shape)).sum(
+        0, dtype=slabs.dtype)
 
 
 def _rollover(state: State, p: int, *, SW: int, S: int) -> None:
@@ -128,10 +165,18 @@ def _rollover(state: State, p: int, *, SW: int, S: int) -> None:
     periods = state["slab_period"]
     # Fully-in-window flushed periods: [p-SW+1, p-1]. (The boundary period
     # p-SW is read weighted at estimate time; period p is `cur`.)
-    in_window = ((periods >= p - SW + 1) & (periods <= p - 1)).to(torch.int32)
-    state["totals"].copy_((state["slabs"] * in_window.view(S, 1, 1))
-                          .sum(0, dtype=torch.int32))
+    in_window = (periods >= p - SW + 1) & (periods <= p - 1)
+    state["totals"].copy_(_masked_sum(state["slabs"], in_window))
     state["cur"].zero_()
+    if "hh_owner" in state:
+        # The side table rides the same clock: flush, recompute, and free
+        # slots idle a whole window (their in-window counts are zero).
+        state["hh_slabs"].index_copy_(0, slot, state["hh_cur"].unsqueeze(0))
+        state["hh_totals"].copy_(_masked_sum(state["hh_slabs"], in_window))
+        idle = state["hh_last"] <= p - SW
+        state["hh_owner"].masked_fill_(idle, 0)
+        state["hh_owner2"].masked_fill_(idle, 0)
+        state["hh_cur"].zero_()
     state["last_period"].fill_(p)
 
 
@@ -156,35 +201,56 @@ def _boundary(state: State, p: int, now_us: int, *, sub_us: int, SW: int,
                                 *frac_operands(p, now_us, sub_us))
 
 
+def _side(state: State, p: int, *, S: int,
+          weighted: bool) -> Optional[sketch_cuda.SideTable]:
+    """The side table as the front reads it (None without one): its
+    boundary column is the view ``hh_slabs[p % S]``, valid with the
+    sketch's boundary (the front's frac carries that)."""
+    if "hh_owner" not in state:
+        return None
+    return sketch_cuda.SideTable(
+        state["hh_owner"], state["hh_totals"],
+        state["hh_slabs"][p % S] if weighted else None)
+
+
 def _decide(state: State, keys, n, now_us: int, policy=None, *,
             premix: bool, seed: int, period: int, limit: int, sub_us: int,
             SW: int, S: int, iters: int, weighted: bool,
-            conservative: bool):
+            conservative: bool, hh_thresh: float = 0.0):
     """One decision step over a padded batch, updating ``state`` in place.
 
     ``keys`` the staged int64[B] hashes (raw ids with ``premix``) or an
     (h1, h2) pair of int64[B] halves, ``n`` int32[B] request counts (0 =
     padding), ``now_us`` the batch timestamp. Precondition (host-enforced
     by the limiter's _sync_period): ``period`` is state's last_period.
-    Returns ``(allowed bool[B], remaining int32[B], est f32[B])``."""
+    With a side table in ``state``, ``hh_thresh`` is its promotion
+    threshold. Returns ``(allowed bool[B], remaining int32[B], est
+    f32[B])``."""
     # Clamp defends against clock skew backwards, as in the reference.
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
                     weighted=weighted)
-    h1, h2, est, frac, avail, n_f = sketch_cuda.window_front(
+    side = _side(state, period, S=S, weighted=weighted)
+    h1, h2, est, frac, avail, n_f, *parts = sketch_cuda.window_front(
         state["totals"], keys, n, premix=premix, seed=seed, boundary=bnd,
-        policy=policy, limit=limit)
+        policy=policy, limit=limit, hh=side)
+    # Owned keys (mine) count in their side-table cell, not the sketch.
+    mine = parts[0][0] if parts else None
     if conservative:
         # Raise each touched cell only as high as the largest single-key
         # post-batch target that maps to it; denied requests target 0.
-        target, allowed, remaining = sketch_cuda.window_admit(
-            h1, est, n_f, avail, iters)
+        target, allowed, remaining, *target_pr = sketch_cuda.window_admit(
+            h1, est, n_f, avail, iters, mine)
         sketch_cuda.cu_update(state["totals"], state["cur"],
                               None if bnd is None else bnd.slab, frac, h1,
                               h2, target)
     else:
-        allowed, remaining = sketch_cuda.add_back(
-            state["totals"], state["cur"], h1, h2, n, n_f, avail, iters)
+        allowed, remaining, *target_pr = sketch_cuda.add_back(
+            state["totals"], state["cur"], h1, h2, n, n_f, avail, iters,
+            None if mine is None else est, mine)
+    if mine is not None:
+        sketch_cuda.hh_update(state, h1, h2, n, allowed, mine, target_pr[0],
+                              thresh=hh_thresh, period=period)
     return allowed, remaining, est
 
 
@@ -200,14 +266,25 @@ def _sketch_reset(state: State, h1, h2, now_us: int, *, period: int,
     from all its cells in both ``cur`` and ``totals`` (cells may go
     transiently negative; reads clamp at 0 and the next rollover heals).
     The estimate is the front's (without ``n``), the subtraction the
-    add_update kernel with negated amounts."""
+    add_update kernel with negated amounts. With a side table, the
+    sketch loses the sketch's part of the estimate only and an owned
+    key's cell its own part, each floored, as in the reference; the
+    cell's subtraction is the same kernel on the (1, K) table, whose
+    row-0 column is the slot ``h1 & (K-1)``."""
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
                     weighted=weighted)
-    est = sketch_cuda.window_front(state["totals"], (h1, h2),
-                                   boundary=bnd)[2]
+    side = _side(state, period, S=S, weighted=weighted)
+    out = sketch_cuda.window_front(state["totals"], (h1, h2), boundary=bnd,
+                                   hh=side)
+    est = out[2] if side is None else out[6][1]
     sub = torch.floor(est).to(torch.int32)
     sketch_cuda.add_update(state["totals"], state["cur"], h1, h2, -sub)
+    if side is not None:
+        K = state["hh_owner"].shape[0]
+        sub_hh = torch.floor(out[6][2]).to(torch.int32)
+        sketch_cuda.add_update(state["hh_totals"].view(1, K),
+                               state["hh_cur"].view(1, K), h1, h2, -sub_hh)
 
 
 def finish_window(allowed, remaining, now_us: int, window_us: int):
@@ -244,12 +321,22 @@ def pack_wire(allowed, remaining, retry, reset):
     return _pack_bits(allowed), words
 
 
+def _hh_threshold(cfg: Config) -> float:
+    """The side table's promotion threshold in requests (the JAX package's
+    ``_hh_params``), 0 when the side table is disabled. The step compares
+    targets with it as f32."""
+    if not cfg.sketch.hh_slots:
+        return 0.0
+    return max(1.0, float(cfg.limit) * cfg.sketch.hh_promote_fraction)
+
+
 def _step_kw(cfg: Config) -> dict:
     _, sub_us, SW, S, limit = sketch_geometry(cfg)
     return dict(limit=limit, sub_us=sub_us, SW=SW, S=S,
                 iters=cfg.max_batch_admission_iters,
                 weighted=cfg.algorithm is not Algorithm.FIXED_WINDOW,
-                conservative=cfg.sketch.conservative_update)
+                conservative=cfg.sketch.conservative_update,
+                hh_thresh=_hh_threshold(cfg))
 
 
 def build_steps(cfg: Config) -> tuple[Callable, Callable, Callable]:
@@ -296,7 +383,12 @@ def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
     there; CUDA has no integer matmul), the scatters are ``index_add_``
     and an int64 ``amax`` scatter, and ``//``/``%`` floor as jnp's do
     (``_NEVER`` slots make ``(sp + 1) * sub_o`` very negative; they are
-    masked out, but their slot must still be a valid index)."""
+    masked out, but their slot must still be a valid index).
+
+    The side table's ring and current cells re-bucket the same way; its
+    owners carry over, and each slot's last touched period maps to the
+    last new period its old one overlaps, ``_NEVER`` staying
+    ``_NEVER``."""
     p_last = state["last_period"]
     p_now = now_us // sub_n
     sp = state["slab_period"]                              # (So,)
@@ -306,35 +398,45 @@ def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
     to_cur = valid & (q >= p_now)
     in_ring = valid & (q < p_now) & (q >= p_now - SWn)
     slot = torch.remainder(q, Sn)
-    slabs, cur = state["slabs"], state["cur"]
 
-    def masked(mask):
-        return slabs * mask.view(-1, 1, 1).to(slabs.dtype)
+    def rebucket(slabs, cur):
+        shape = (-1,) + (1,) * (slabs.dim() - 1)
+        new_slabs = torch.zeros((Sn,) + tuple(slabs.shape[1:]),
+                                dtype=slabs.dtype, device=slabs.device)
+        new_slabs.index_add_(
+            0, slot, slabs * in_ring.view(shape).to(slabs.dtype))
+        return new_slabs, cur + _masked_sum(slabs, to_cur)
 
-    new_slabs = torch.zeros((Sn,) + tuple(slabs.shape[1:]),
-                            dtype=slabs.dtype, device=slabs.device)
-    new_slabs.index_add_(0, slot, masked(in_ring))
-    # dtype pinned: an int32 sum must stay int32, as in the JAX package.
-    new_cur = cur + masked(to_cur).sum(0, dtype=cur.dtype)
+    new_slabs, new_cur = rebucket(state["slabs"], state["cur"])
     periods_n = torch.full((Sn,), _NEVER, dtype=torch.int64,
                            device=sp.device)
     periods_n.scatter_reduce_(
         0, slot, torch.where(in_ring, q, torch.full_like(q, _NEVER)),
         "amax", include_self=True)
-    in_window = ((periods_n >= p_now - SWn + 1)
-                 & (periods_n <= p_now - 1)).to(torch.int32)
-    totals_n = ((new_slabs * in_window.view(-1, 1, 1))
-                .sum(0, dtype=torch.int32) + new_cur)
-    return {"cur": new_cur, "slabs": new_slabs, "totals": totals_n,
-            "slab_period": periods_n,
-            "last_period": torch.full((), p_now, dtype=torch.int64,
-                                      device=sp.device)}
+    in_window = (periods_n >= p_now - SWn + 1) & (periods_n <= p_now - 1)
+    out = {"cur": new_cur, "slabs": new_slabs,
+           "totals": _masked_sum(new_slabs, in_window) + new_cur,
+           "slab_period": periods_n,
+           "last_period": torch.full((), p_now, dtype=torch.int64,
+                                     device=sp.device)}
+    if "hh_owner" in state:
+        hh_slabs, hh_cur = rebucket(state["hh_slabs"], state["hh_cur"])
+        last = state["hh_last"]
+        q_hh = torch.div((last + 1) * sub_o - 1, sub_n, rounding_mode="floor")
+        out.update({
+            "hh_owner": state["hh_owner"], "hh_owner2": state["hh_owner2"],
+            "hh_cur": hh_cur, "hh_slabs": hh_slabs,
+            "hh_totals": _masked_sum(hh_slabs, in_window) + hh_cur,
+            "hh_last": torch.where(last == _NEVER, last, q_hh),
+        })
+    return out
 
 
 def build_migrate(old_cfg: Config, new_cfg: Config) -> Callable:
-    """``migrate(state, now_us) -> state`` moving ring state from
-    old_cfg's window geometry to new_cfg's, on the state's device.
-    Limit/depth/width must match (only the window changes)."""
+    """``migrate(state, now_us) -> state`` moving ring state (and the
+    side table's) from old_cfg's window geometry to new_cfg's, on the
+    state's device. Limit/depth/width/hh must match (only the window
+    changes)."""
     check_ported(old_cfg)
     check_ported(new_cfg)
     _, sub_o, SWo, So, _ = sketch_geometry(old_cfg)

@@ -3,7 +3,8 @@
 Serves a count-min-sketch limiter on the card (``--device cuda``, the
 default; ``--device cpu`` runs the kernels' plain versions): the windowed
 sketch, or with ``--algorithm token_bucket`` the sketched token bucket
-(``--sub-windows`` and ``--no-conservative-update`` do not apply to it),
+(``--sub-windows``, ``--no-conservative-update`` and ``--hh-slots`` do
+not apply to it),
 behind the micro-batcher (``--max-batch``, ``--max-delay-us``,
 ``--dispatch-timeout-ms``, ``--inflight``; the JAX binary's names and
 defaults). Before it listens it builds and loads the CUDA kernels (on
@@ -60,6 +61,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sub-windows", type=int, default=60)
     ap.add_argument("--no-conservative-update", action="store_true",
                     help="plain sums instead of conservative update")
+    ap.add_argument("--hh-slots", type=int, default=0,
+                    help="heavy-hitter side table slots (0 = off; power "
+                         "of two >= 16): promoted hot keys get exact "
+                         "private counters, exported as top-K consumer "
+                         "gauges on METRICS (rate_limiter_top_consumer_"
+                         "mass, rate_limiter_hh_tracked_consumers). The "
+                         "token bucket ignores it")
     ap.add_argument("--fail-open", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--max-batch", type=int, default=4096,
@@ -107,7 +115,8 @@ def build_config(args: argparse.Namespace) -> Config:
         window=args.window, fail_open=args.fail_open,
         sketch=SketchParams(
             depth=args.depth, width=args.width, sub_windows=args.sub_windows,
-            conservative_update=not args.no_conservative_update),
+            conservative_update=not args.no_conservative_update,
+            hh_slots=args.hh_slots),
         persistence=PersistenceSpec(
             dir=args.snapshot_dir,
             snapshot_interval=args.snapshot_interval,

@@ -10,7 +10,9 @@ trimmed to the frames this slice serves:
   frame is queued into the batcher and its reply is written from the
   future's done callback. Replies carry request ids and may return out
   of order: clients pipeline, the server coalesces;
-* RESET, HEALTH, METRICS (Prometheus text of the door's registry), the
+* RESET, HEALTH, METRICS (Prometheus text of the door's registry; a
+  limiter with the heavy-hitter side table adds its top-K consumer
+  gauges, ``observability.metrics.ConsumerGauges``), the
   policy frames (POLICY_SET/GET/DEL, answered with POLICY_R) and SNAPSHOT
   run as one task each. Reset and the policy mutations are not batched:
   they are rare, and their semantics are "take effect before any later
@@ -67,6 +69,8 @@ class RateLimitServer:
             limiter, max_batch=max_batch, max_delay=max_delay,
             dispatch_timeout=dispatch_timeout, inflight=inflight,
             registry=self.registry)
+        self._consumers = (m.ConsumerGauges(limiter, self.registry)
+                           if getattr(limiter, "has_hh", False) else None)
         self._server: Optional[asyncio.AbstractServer] = None
         self._started_at = time.time()
         self._serving = False
@@ -93,6 +97,8 @@ class RateLimitServer:
             t.cancel()
         await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
         self.batcher.close()
+        if self._consumers is not None:
+            self._consumers.close()
 
     async def serve_forever(self) -> None:
         if self._server is None:
@@ -272,7 +278,11 @@ class RateLimitServer:
                     req_id, self._serving, time.time() - self._started_at,
                     self.batcher.decisions_total)
             elif type_ == p.T_METRICS:
-                out = p.encode_metrics(req_id, self.registry.render())
+                # Off the event loop: a collect hook (the side table's
+                # gauges) takes the limiter lock and reads the device.
+                text = await asyncio.get_running_loop().run_in_executor(
+                    None, self.registry.render)
+                out = p.encode_metrics(req_id, text)
             else:
                 out = p.encode_error(req_id, p.E_INTERNAL,
                                      f"unknown request type {type_}")

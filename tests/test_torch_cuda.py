@@ -87,7 +87,7 @@ def test_kernels_bit_equal_to_plain(dev, d, w, B):
     assert torch.equal(a, a2) and torch.equal(c, c2)
     assert sc.launch_counts() == {"window_estimate": 2, "cu_update": 2,
                                   "add_update": 1, "add_back": 0,
-                                  "admit": 0}
+                                  "admit": 0, "hh_update": 0}
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -563,7 +563,7 @@ def test_backs_bit_equal_to_plain(dev, B, kind, iters):
     fused = int(B <= sc.ADMIT_CAPACITY)
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
                                   "add_update": 1, "add_back": fused,
-                                  "admit": fused}
+                                  "admit": fused, "hh_update": 0}
     assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
                                   "admit": fused}
 
@@ -773,3 +773,184 @@ def test_persistent_wrapper_keeps_the_kernel_path(dev, tmp_path):
         lim.close()
     assert counts[0] == counts[1] and counts[0]["window_estimate"] > 0
     assert sum(len(r.allowed) for r in results[0]) == 6 * 64
+
+
+# ------------------------------------------ the heavy-hitter side table
+
+
+def _side_batch(rng, kind: str, B: int, K: int):
+    """(h1, h2) int64 (B,) for the side-table kernels: Zipf ids' halves,
+    all keys on one slot (h1 = 5 + j*K, a few distinct), or Zipf with a
+    key whose h1 is 0 among them."""
+    if kind == "one slot":
+        h1 = 5 + K * rng.integers(0, 6, size=B)
+    else:
+        h1, _ = split_hash(splitmix64(
+            (rng.zipf(1.1, size=B) % 1_000_003).astype(np.uint64)),
+            0x5BD1E995)
+        h1 = h1.astype(np.int64)
+        if kind == "h1 zero":
+            h1[::5] = 0
+    h2 = rng.integers(0, 2 ** 32, size=B) | 1
+    return h1.astype(np.int64), h2.astype(np.int64)
+
+
+def _side_state(rng, h1, K: int, S: int, dev) -> dict:
+    """hh_* tensors on ``dev``: a third of the batch's slots owned by
+    their key (so owned and free slots both occur), random counts and
+    idle clocks."""
+    owner = np.zeros(K, np.int64)
+    owned = np.unique(h1[: max(1, len(h1) // 3)])
+    owner[owned & (K - 1)] = owned
+    owner[(np.arange(K) % 7) == 3] = rng.integers(1, 2 ** 32, size=len(
+        owner[(np.arange(K) % 7) == 3]))
+    st = {"hh_owner": owner, "hh_owner2": np.where(owner != 0, 77, 0),
+          "hh_cur": rng.integers(-2, 30, size=K).astype(np.int32),
+          "hh_slabs": rng.integers(-2, 60, size=(S, K)).astype(np.int32),
+          "hh_totals": rng.integers(-2, 90, size=K).astype(np.int32),
+          "hh_last": rng.integers(-5, 5, size=K).astype(np.int64)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in st.items()}
+
+
+_SIDE_BATCHES = [(0, "zipf"), (1, "zipf"), (48, "zipf"), (4096, "zipf"),
+                 (4096, "one slot"), (4096, "h1 zero"),
+                 (sc.ADMIT_CAPACITY, "zipf"), (2 * sc.ADMIT_CAPACITY, "zipf")]
+
+
+@pytest.mark.parametrize("K,B,kind", [
+    (K, B, kind) for K in (16, 1024) for B, kind in _SIDE_BATCHES]
+    + [(1 << 22, 0, "zipf"), (1 << 22, 4096, "zipf")])
+def test_side_table_kernels_bit_equal_to_plain(dev, K, B, kind):
+    """The front, both backs and hh_update with the side table against
+    their plain versions: every output and every slab and hh_* tensor.
+    Up to ADMIT_CAPACITY keys each back is one launch; above it the
+    composed back runs, and hh_update launches at every size. The
+    largest table the config accepts (2^22 slots) on B = 0 and 4096."""
+    rng = np.random.default_rng(B + K + len(kind))
+    S, d, w = 4, 4, 1024
+    k1, k2 = _side_batch(rng, kind, B, K)
+    h1, h2 = torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev)
+    n = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32)).to(dev)
+    totals, boundary, cur = _slabs(rng, d, w, dev)
+    hh = _side_state(rng, k1, K, S, dev)
+    sc.reset_launch_counts()
+    for bnd in (_valid_boundary(boundary), _valid_boundary(boundary,
+                                                           stale=True), None):
+        side = sc.SideTable(hh["hh_owner"], hh["hh_totals"],
+                            hh["hh_slabs"][0] if bnd is not None else None)
+        got = sc.window_front(totals, (h1, h2), n, boundary=bnd, limit=60,
+                              hh=side)
+        want = sc.window_front_plain(totals, (h1, h2), n, boundary=bnd,
+                                     limit=60, hh=side)
+        torch.cuda.synchronize()
+        assert _same(got[2:3] + got[4:6] + got[6], want[2:3] + want[4:6]
+                     + want[6])
+        assert torch.equal(got[6][0], want[6][0])
+        # The reset's estimate-only form.
+        got = sc.window_front(totals, (h1, h2), boundary=bnd, hh=side)
+        want = sc.window_front_plain(totals, (h1, h2), boundary=bnd, hh=side)
+        assert _same([got[2], *got[6]], [want[2], *want[6]])
+    _, _, est, frac, avail, n_f, (mine, _, _) = sc.window_front(
+        totals, (h1, h2), n, boundary=_valid_boundary(boundary), limit=60,
+        hh=sc.SideTable(hh["hh_owner"], hh["hh_totals"], hh["hh_slabs"][0]))
+    a, c, a2, c2 = totals.clone(), cur.clone(), totals.clone(), cur.clone()
+    got = sc.add_back(a, c, h1, h2, n, n_f, avail, 4, est, mine)
+    want = sc.add_back_plain(a2, c2, h1, h2, n, n_f, avail, 4, est, mine)
+    torch.cuda.synchronize()
+    assert _same([*got, a, c], [*want, a2, c2])
+    got = sc.window_admit(h1, est, n_f, avail, 4, mine)
+    want = sc.window_admit_plain(h1, est, n_f, avail, 4, mine)
+    assert _same(got, want)
+    _, allowed, _, target_pr = want
+    for thresh in (1.0, 30.0):
+        g = {k: v.clone() for k, v in hh.items()}
+        p = {k: v.clone() for k, v in hh.items()}
+        sc.hh_update(g, h1, h2, n, allowed, mine, target_pr, thresh=thresh,
+                     period=9)
+        sc.hh_update_plain(p, h1, h2, n, allowed, mine, target_pr,
+                           thresh=thresh, period=9)
+        torch.cuda.synchronize()
+        for k in g:
+            assert torch.equal(g[k], p[k]), k
+        # The claim scratch is left zero for the next launch.
+        assert not sc._hh_scratch(dev, K, sc._stream(h1)).any()
+    fused = int(B <= sc.ADMIT_CAPACITY)
+    counts = sc.launch_counts()
+    assert counts["window_estimate"] == 7 and counts["hh_update"] == 2
+    assert counts["add_back"] == fused and counts["admit"] == fused
+    assert counts["add_update"] == 1
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "FIXED_WINDOW"])
+@pytest.mark.parametrize("cu", [True, False])
+def test_side_table_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu):
+    """Promotion, owned counts, a reset of an owned key, an override,
+    idle eviction past a window and re-promotion, with 4 tickets in
+    flight: every result and every state array (hh_* included) equal to
+    the CPU's; the step launched the front, its back and hh_update."""
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=10, window=6.0,
+                 sketch=SketchParams(depth=3, width=256, sub_windows=6,
+                                     hh_slots=16, conservative_update=cu))
+    lims = [SketchLimiter(cfg, ManualClock(1e6), device=d)
+            for d in (dev, "cpu")]
+    rng = np.random.default_rng(4 + cu)
+    for lim in lims:
+        lim.set_override("k1", 4)
+    sc.reset_launch_counts()
+    pend = []
+    for step in range(24):
+        ids = (rng.zipf(1.3, size=48) % 30).astype(np.uint64)
+        ns = rng.integers(1, 3, size=48)
+        pend.append([lim.launch_ids(ids, ns, wire=bool(step % 2))
+                     for lim in lims])
+        if step % 6 == 5:
+            keys = [f"k{int(i)}" for i in rng.integers(0, 4, size=12)]
+            pend.append([lim.launch_batch(keys) for lim in lims])
+        while len(pend) > 4:
+            a, b = (lim.resolve(t) for lim, t in zip(lims, pend.pop(0)))
+            for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        if step == 12:
+            for lim in lims:
+                lim.reset("k1")
+        for lim in lims:
+            lim.clock.advance(7.0 if step == 16 else 0.4)
+    for pair in pend:
+        a, b = (lim.resolve(t) for lim, t in zip(lims, pair))
+        np.testing.assert_array_equal(a.allowed, b.allowed)
+    torch.cuda.synchronize()
+    counts = sc.launch_counts()
+    ga, ca = (lim.capture_state()[1] for lim in lims)
+    for k in ca:
+        np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+    assert ga["hh_owner"].any()
+    assert lims[0].consumer_stats() == lims[1].consumer_stats()
+    back = ("admit", "cu_update") if cu else ("add_back",)
+    for k in ("window_estimate", "hh_update", *back):
+        assert counts[k] > 0, k
+    for lim in lims:
+        lim.close()
+
+
+def test_side_table_door_on_card_matches_cpu_replay(dev):
+    """chip_smoke.check_door with the side table: every frame and the final
+    state bit-identical to a CPU replay, the consumer gauges on METRICS
+    equal to the served limiter's consumer_stats."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=20, window=2.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4,
+                                     hh_slots=256))
+    out = chip_smoke.check_door(
+        torch, cfg, "hh", conns=4, frames=24, n_ids=512, n_keys=64,
+        counters=[sc], required=("window_estimate", "admit", "cu_update",
+                                 "hh_update"), same=("admit", "cu_update"))
+    assert out["dispatches"] < out["frames"] == 96
+    assert out["hh_tracked"] >= 1

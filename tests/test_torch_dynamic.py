@@ -8,7 +8,8 @@ field, every state slab, ``host_period`` and the watchdog's ledger must be
 BIT-identical after every operation (tolerance 0). The JAX side runs its
 ``jnp`` reference path. The scenarios mirror tests/test_dynamic_config.py
 and tests/test_dynamic_window.py (the windowed and bucket cases; the
-heavy-hitter and mesh cases wait for ROADMAP A6 and A8). Also:
+heavy-hitter cases are in tests/test_torch_hh.py, the mesh cases wait
+for ROADMAP A8). Also:
 ``_migrate_window`` alone on seeded rings holding ``_NEVER`` slots and
 negative cells, and tickets in flight across an update.
 """

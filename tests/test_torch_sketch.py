@@ -268,7 +268,6 @@ def test_create_limiter_defaults_to_the_card_and_raises_without_one(
 
 @pytest.mark.parametrize("cfg,match", [
     (dict(algo="TOKEN_BUCKET"), "cannot serve a TOKEN_BUCKET"),
-    (dict(hh_slots=16), "A6"),
 ])
 def test_unported_configs_are_refused(cfg, match):
     with pytest.raises(T.InvalidConfigError, match=match):
