@@ -44,7 +44,20 @@ Phases (each raises on failure; the script exits non-zero):
    requests on one slot, a batch holding keys whose h1 is 0, B = 0,
    B = ``ADMIT_CAPACITY`` and the next pad above it; each side-table
    build timed in turns with its build without the side table on the
-   same operands, ``hh_update`` a kernel row of its own;
+   same operands, ``hh_update`` a kernel row of its own; the hierarchy
+   cascade's kernels (the cascade builds of ``add_back``,
+   ``window_admit`` and ``bucket_admit``, and the cascade's routine
+   alone, ``csrc/cascade_bench.cu``, which no path calls) in every
+   operand form (sliding with the tenant boundary slab, fixed, the bucket
+   in and past its counters' window) at T = 16 (the documented
+   deployment), 64 (past the reference's dense int32 path) and 4096 (the
+   most the config accepts) on contended, uncontended and one-tenant
+   batches of B = 0, 4096 and ``ADMIT_CAPACITY``, every output, the
+   sketch and the scope counters bit-equal, and at the next pad above it,
+   which every cascade build must refuse on the card; each cascade build
+   a kernel row of its own (``<back> [cascade]``), timed in turns with
+   its build without the flag and beside the composed form (the build
+   without the flag, then the routine alone);
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -67,7 +80,19 @@ Phases (each raises on failure; the script exits non-zero):
    batch), then a profile of a short TB-zipf run. Each profile counts the
    device ops per batch and fails if a sort or scan op (the plain
    admission's) still runs on a path whose batches fit one admission
-   launch;
+   launch. Then the tenant paths, under the documented deployment
+   (docs/OPERATIONS.md:814-819: 16 tenants, global limit 50,000,
+   gold=20000:5:2000, free=5000:1, api-cust-42 in gold, 13 more named
+   tenants, booted by the binary's own flag code): windowed CU, vanilla
+   and CU with 256 side-table slots on 4096 string keys a batch drawn
+   Zipf(1.1) over 10,000 keys ``u:{i}`` (the 1,000 lowest-ranked assigned
+   round-robin to the 15 named tenants), 64 batches at +0.1 s, then a
+   jump to 60.5 s and 32 more (the boundary sub-window then releases
+   mass every step: the global scope stays contended with room left);
+   and TB-c2 under the same tenants, across its 10 s window. Every
+   result and every ``tn_*`` array bit-equal to the CPU, every step a
+   cascade build (no back without the cascade launched), and
+   each path's steps/s printed beside the same trace without tenants;
 4. start the port's server on 127.0.0.1, once with the windowed limiter
    and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
    ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
@@ -83,7 +108,10 @@ Phases (each raises on failure; the script exits non-zero):
    launched, and as many admission launches as updates (no composed
    back); the windowed CU door runs again with ``--hh-slots 256``, where
    METRICS must also show the side table's consumer gauges equal to the
-   served limiter's ``consumer_stats``. The same traffic is then served
+   served limiter's ``consumer_stats``; and once more with the tenant
+   flags (string frames over the assigned key space), every frame and
+   the final ``tn_*`` state held to the CPU replay and every window a
+   cascade build. The same traffic is then served
    once more straight over a
    limiter on the system clock, without the proxy, as
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
@@ -105,7 +133,12 @@ Phases (each raises on failure; the script exits non-zero):
    sub-window); and ``python -m ratelimiter_tpu_torch.serving --device
    cuda --snapshot-dir D`` seeded, driven, killed with SIGKILL, restarted
    and compared with a CPU recovery of a copy of D
-   (``check_durable_door``), then stopped with SIGTERM. The launch counts
+   (``check_durable_door``), then stopped with SIGTERM; and the durable
+   binary with the tenant flags and ``--controller``: a hot-tenant storm
+   makes the controller tighten free (5,000 -> 3,500, read on METRICS),
+   a SNAPSHOT, SIGKILL, and the restart's state (``tn_*`` and the
+   ``hier_*`` columns with the moved limit) and decisions bit-equal to a
+   CPU recovery (``check_tenant_durable_door``). The launch counts
    of the live and watchdog runs are set to 0 just before each and read
    just after; the recovery seconds, the snapshot's capture lock hold and
    its size are printed;
@@ -122,6 +155,12 @@ batches, printing the results as one JSON line before the card's line.
 ``ADMIT_SWEEP`` and beside its first design, each held bit-equal to
 ``segment.admit`` first, printing the results as one JSON line before the
 card's line.
+
+``--cascade`` builds, then runs phase 2's cascade part alone and prints
+its results as one JSON line before the card's line; ``--rows`` runs
+the rest of phase 2 alone (the kernel rows and the side-table forms),
+through wrappers an earlier checkout has too, so a copy of this script
+in the parent's checkout times the parent's builds in the same call.
 
 ``--paths`` builds, then runs phase 3 alone, without the side-table paths
 (which an earlier checkout may not serve), and prints its results as one
@@ -140,7 +179,7 @@ import argparse
 import asyncio
 import json
 import logging
-import multiprocessing
+import pickle
 import queue
 import signal
 import statistics
@@ -176,6 +215,11 @@ KERNEL_ROWS = {
     "bucket_admit": "ratelimiter_tpu/ops/segment.py:90",
     # Nor does the side table's update: jnp ops in the reference's step.
     "hh_update": "ratelimiter_tpu/ops/sketch_kernels.py:487",
+    # Nor do the backs' cascade builds, which add to their back the
+    # cascade (jnp in the reference, hier_kernels.py).
+    "add_back [cascade]": "ratelimiter_tpu/ops/hier_kernels.py:119",
+    "window_admit [cascade]": "ratelimiter_tpu/ops/hier_kernels.py:119",
+    "bucket_admit [cascade]": "ratelimiter_tpu/ops/hier_kernels.py:119",
 }
 #: The side table of the documented observatory deployment
 #: (docs/EXAMPLES.md:533, ``--hh-slots 256``) and the largest the config
@@ -283,11 +327,13 @@ def hold_equal(torch, err: dict, name: str, a, b) -> None:
 
 
 def kernel_row(name, source, err, kern, plain, lib, nbytes, ops,
-               torch) -> dict:
-    """Time a kernel, its plain version and (where one exists) the one
-    PyTorch call computing the same function; bound = max(bytes over the
-    HBM rate, operations over the non-tensor peak)."""
-    ms = device_ms(kern, torch)
+               torch, ms=None) -> dict:
+    """Time a kernel (unless its time ``ms`` is given), its plain version
+    and (where one exists) the one PyTorch call computing the same
+    function; bound = max(bytes over the HBM rate, operations over the
+    non-tensor peak)."""
+    if ms is None:
+        ms = device_ms(kern, torch)
     plain_ms = device_ms(plain, torch)
     lib_ms = device_ms(lib, torch) if lib is not None else None
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1205,6 +1251,376 @@ def check_side_table(torch, seed: int) -> dict:
     return {"hh_update": row, "side_forms": rows}
 
 
+# ------------------------------------------------- phase 2: the cascade
+
+#: The documented tenant deployment (docs/OPERATIONS.md:814-819) on
+#: config 3: 16 tenants, a 1024-row key->tenant map, a global limit of
+#: 50,000 per window, gold=20000:5:2000, free=5000:1, api-cust-42 in
+#: gold; 13 more named tenants fill the table (CASC_OTHERS, each
+#: 2000 a window, weights 1-3).
+TENANTS, TENANT_MAP, GLOBAL_LIMIT = 16, 1024, 50_000
+CASC_OTHERS = tuple((f"t{i}", 2000, 1 + i % 3) for i in range(2, 15))
+#: The widths the cascade's kernels are held at: the deployment's, the
+#: first above the reference's dense int32 path (64 scopes), and the
+#: most the config accepts.
+CASC_TENANTS = (TENANTS, 64, 4096)
+CASC_KINDS = ("contended", "uncontended", "one tenant")
+
+
+def cascade_case(rng, B: int, T: int, kind: str) -> dict:
+    """Host operands of one cascade case: B Zipf ids' halves, request
+    counts 0-3, stage-1 verdicts (85% pass), a sorted key->tenant map
+    (the batch's hottest ids round-robin over tenants 1..T-1, at most
+    TENANT_MAP of them; ``one tenant``: every id of the batch in tenant 1),
+    random weights 1-5 and counters, and limits: unlimited
+    (``uncontended``), or about half the stage-1 demand above the
+    counters at every scope, the global one at a third."""
+    from ratelimiter_tpu_torch.core.config import HIER_UNLIMITED
+    from ratelimiter_tpu_torch.ops.hashing import split_hash, splitmix64
+    from ratelimiter_tpu_torch.ops.policy_kernels import (
+        PAD_KEY,
+        pack_halves_host,
+    )
+
+    ids = zipf_ids(rng, B)
+    h1, h2 = split_hash(splitmix64(ids), SEED)
+    n = rng.integers(0, 4, size=B).astype(np.int32)
+    allowed_key = rng.random(B) < 0.85
+    uniq, counts = np.unique(ids, return_counts=True)
+    hot = uniq[np.argsort(-counts, kind="stable")]
+    if kind == "one tenant":
+        tids = np.ones(len(hot), np.int64)
+    else:
+        hot = hot[:TENANT_MAP]
+        tids = 1 + np.arange(len(hot), dtype=np.int64) % (T - 1)
+    P = max(8, 1 << int(np.ceil(np.log2(max(1, len(hot))))))
+    q1, q2 = split_hash(splitmix64(hot), SEED)
+    skeys = pack_halves_host(q1, q2)
+    order = np.argsort(skeys)
+    key = np.full(P, PAD_KEY, np.int64)
+    tid = np.zeros(P, np.int64)
+    key[:len(hot)], tid[:len(hot)] = skeys[order], tids[order]
+    of = dict(zip(hot.tolist(), tids.tolist()))
+    tid_b = np.array([of.get(int(i), 0) for i in ids], np.int64)
+    demand = np.bincount(tid_b, weights=n * allowed_key,
+                         minlength=T + 1).astype(np.int64)
+    cnt = rng.integers(0, 40, size=T + 1)
+    if kind == "uncontended":
+        limit = np.full(T + 1, HIER_UNLIMITED, np.int64)
+    else:
+        limit = (cnt + 20 + demand // 2).astype(np.int64)
+        limit[T] = cnt[T] + 20 + int(demand.sum()) // 3
+    return {"h1": h1.astype(np.int64), "h2": h2.astype(np.int64), "n": n,
+            "allowed_key": allowed_key, "key": key, "tid": tid,
+            "limit": limit, "weight": rng.integers(1, 6, size=T + 1),
+            "counts": cnt, "slab": rng.integers(-3, 40, size=T + 1),
+            "est": (rng.random(B) * 30).astype(np.float32),
+            "avail": (rng.integers(0, 6, size=B)
+                      + rng.random(B)).astype(np.float32)}
+
+
+#: The width of ``add_back``'s sketch in the cascade's checks (its own
+#: cells are held in check_backs at config 3's width).
+CASC_WIDTH = 1024
+#: The cascade's operand forms: the windowed sketch's, sliding (with the
+#: tenant boundary slab, weight 0.377) and fixed, and the bucket's, in its
+#: counters' window and in a later one (``rolled``).
+CASC_MODES = ("sliding", "fixed", "bucket", "bucket rolled")
+
+
+def make_cascade(torch, case: dict, mode: str, dev):
+    """``(h1, allowed_key, Cascade)`` on ``dev`` from ``cascade_case``'s
+    operands, with fresh scope counters (a back folds into them)."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    def t(a, dtype=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        return (x if dtype is None else x.to(dtype)).to(dev)
+
+    hier = {k: t(case[k], torch.int64) for k in ("key", "tid", "limit",
+                                                  "weight")}
+    h2, n = t(case["h2"]), t(case["n"])
+    if mode.startswith("bucket"):
+        c = sc.Cascade(hier, h2, n, t(case["counts"], torch.int64),
+                       rolled=mode == "bucket rolled", retry_us=4_321_000)
+    else:
+        slab = t(case["slab"], torch.int32) if mode == "sliding" else None
+        frac = (torch.tensor(0.377, dtype=torch.float32, device=dev)
+                if mode == "sliding" else None)
+        c = sc.Cascade(hier, h2, n, t(case["counts"], torch.int32),
+                       t(case["counts"] // 3, torch.int32), slab, frac)
+    return t(case["h1"]), t(case["allowed_key"]), c
+
+
+def _casc_state(c) -> list:
+    return [c.counts] + ([] if c.cur is None else [c.cur])
+
+
+_CASCADE_BENCH: list = []
+
+
+def cascade_bench(c, h1, allowed_key, iters: int) -> tuple:
+    """The cascade's routine alone (``csrc/cascade_bench.cu``, one launch
+    of one block, no fold), which no path of the limiter calls:
+    ``sketch_cuda.cascade_admit_plain``'s function. Returns ``(allowed
+    bool[B], hist int64[T+1])``; at most ``ADMIT_CAPACITY`` requests."""
+    import ctypes
+
+    import torch
+
+    from ratelimiter_tpu_torch.ops import _build
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    if not _CASCADE_BENCH:
+        lib = ctypes.CDLL(_build.compile_source("cascade_bench"))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.rl_cascade_bench.argtypes = [P, P, P, P, P, P, P, P, I, P, P, I,
+                                         P, P, P, P, I, I, I, P]
+        lib.rl_cascade_bench.restype = I
+        _CASCADE_BENCH.append(lib)
+    B = h1.shape[0]
+    T = sc._check_cascade(c, B, h1.device)
+    allowed = torch.empty(B, dtype=torch.bool, device=h1.device)
+    hist = torch.empty(T + 1, dtype=torch.int64, device=h1.device)
+    err = _CASCADE_BENCH[0].rl_cascade_bench(
+        h1.data_ptr(), allowed_key.data_ptr(), allowed.data_ptr(),
+        hist.data_ptr(), c.h2.data_ptr(), c.n.data_ptr(),
+        *sc._cascade_args(c), int(c.rolled), B, iters,
+        torch.cuda.current_stream(h1.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"cascade_bench: CUDA error {err}")
+    return allowed, hist
+
+
+def cascade_calls(torch, sc, bc, case: dict, mode: str, dev,
+                  fresh: bool = True) -> dict:
+    """{kernel: (kernel call, plain call, call without the cascade)} on
+    one case in one mode: ``cascade_admit`` (the routine alone,
+    ``cascade_bench``) and the cascade builds of the mode's backs. Each
+    call returns its outputs and the tensors it wrote; with ``fresh``
+    each works on its own copies of the scope counters (the backs fold
+    into them) and of ``add_back``'s small sketch, made on the device;
+    without, every call updates the same ones (the timed form: nothing
+    but the call runs)."""
+    h1, ak, c0 = make_cascade(torch, case, mode, dev)
+    est, avail = (torch.from_numpy(case[k]).to(dev) for k in ("est",
+                                                             "avail"))
+    n, h2 = c0.n, c0.h2
+    n_f = n.to(torch.float32)
+    units = n.to(torch.int64) * 1_000_000
+    b_avail = (avail.double() * 1e6).to(torch.int64)
+    tables = torch.from_numpy(np.random.default_rng(len(case["n"])).integers(
+        0, 30, size=(2, DEPTH, CASC_WIDTH)).astype(np.int32)).to(dev)
+
+    def copies():
+        if not fresh:
+            return c0, tables[0], tables[1]
+        c = c0._replace(counts=c0.counts.clone(),
+                        cur=None if c0.cur is None else c0.cur.clone())
+        return c, tables[0].clone(), tables[1].clone()
+
+    def k1(fn):
+        def call():
+            return list(fn(copies()[0], h1, ak, ITERS))
+        return call
+
+    def add_back(fn, casc=True):
+        def call():
+            c, t, u = copies()
+            out = fn(t, u, h1, h2, n, n_f, avail, ITERS,
+                     casc=c if casc else None)
+            return [*out, t, u] + (_casc_state(c) if casc else [])
+        return call
+
+    def window_admit(fn, casc=True):
+        def call():
+            c = copies()[0]
+            out = fn(h1, est, n_f, avail, ITERS, casc=c if casc else None)
+            return list(out) + (_casc_state(c) if casc else [])
+        return call
+
+    def bucket_admit(fn, casc=True):
+        def call():
+            c = copies()[0]
+            out = fn(h1, units, b_avail, ITERS, 5, 3,
+                     casc=c if casc else None)
+            return list(out) + (_casc_state(c) if casc else [])
+        return call
+
+    calls = {"cascade_admit": (k1(cascade_bench),
+                               k1(sc.cascade_admit_plain), None)}
+    if mode.startswith("bucket"):
+        calls["bucket_admit"] = (bucket_admit(bc.bucket_admit),
+                                 bucket_admit(bc.bucket_admit_plain),
+                                 bucket_admit(bc.bucket_admit, False))
+    else:
+        calls["add_back"] = (add_back(sc.add_back),
+                             add_back(sc.add_back_plain),
+                             add_back(sc.add_back, False))
+        calls["window_admit"] = (window_admit(sc.window_admit),
+                                 window_admit(sc.window_admit_plain),
+                                 window_admit(sc.window_admit, False))
+    return calls
+
+
+def cascade_launches(sc, bc) -> dict:
+    """The launch counts of both kernel modules, flat (the bucket's keys
+    prefixed ``bucket``)."""
+    return {**sc.launch_counts(), **{f"bucket {k}": v for k, v in
+                                     bc.launch_counts().items()}}
+
+
+def touched_cells(case: dict, allowed, w: int) -> int:
+    """Sketch cells of a (DEPTH, w) table that the admitted requests of
+    ``case`` (n > 0) reach: columns (h1 + r*h2) & (w-1)."""
+    keep = np.asarray(allowed) & (case["n"] > 0)
+    h1, h2 = case["h1"][keep], case["h2"][keep]
+    return sum(len(np.unique((h1 + r * h2) & (w - 1))) for r in range(DEPTH))
+
+
+def check_cascade(torch, seed: int) -> dict:
+    """The cascade's kernels against their plain versions: the routine
+    alone (``cascade_bench``) in every ``CASC_MODES`` form, and the
+    cascade builds of the three backs (``add_back`` and ``window_admit``
+    sliding and fixed, ``bucket_admit`` in and past its window), every
+    output, the sketch and every scope counter bit-equal, at T = 16, 64
+    and 4096 on contended, uncontended and one-tenant batches of B = 0,
+    4096 and ``ADMIT_CAPACITY``; at the limiter's next pad above it every
+    cascade build must refuse the batch (no plain version stands in on
+    the card). The launch counts must show one cascade build a call and
+    nothing else. Times on the deployment's shape (T = 16, B = 4096,
+    contended, sliding; bucket not rolled): each cascade build a kernel
+    row of its own (``<back> [cascade]``), timed in turns with its build
+    without the flag on the same operands (without, with, with,
+    without), and beside the composed form (the build without the flag,
+    then the routine alone). Launches made here do not count."""
+    from ratelimiter_tpu_torch.algorithms.sketch import _pad_size
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    from ratelimiter_tpu_torch.ops.policy_kernels import PAD_KEY as PAD
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 41)
+    names = ("cascade_admit", "add_back", "window_admit", "bucket_admit")
+    err = {k: 0.0 for k in names}
+    info = {}
+    timed = {}
+    for T in CASC_TENANTS:
+        for kind in CASC_KINDS:
+            for B in (0, BATCH, sc.ADMIT_CAPACITY,
+                      _pad_size(sc.ADMIT_CAPACITY + 1)):
+                case = cascade_case(rng, B, T, kind)
+                fused = int(B <= sc.ADMIT_CAPACITY)
+                flips = {}
+                for mode in CASC_MODES:
+                    calls = cascade_calls(torch, sc, bc, case, mode, dev)
+                    sc.reset_launch_counts()
+                    bc.reset_launch_counts()
+                    for name, (kern, plain, _) in calls.items():
+                        want = plain()
+                        if name == "cascade_admit":
+                            flips[mode] = int(
+                                (want[0] != torch.from_numpy(
+                                    case["allowed_key"]).to(dev)).sum())
+                        if name == "add_back" and (T, kind, B, mode) == (
+                                TENANTS, "contended", BATCH, "sliding"):
+                            timed_allowed = want[0].cpu().numpy()
+                        if not fused:
+                            if name == "cascade_admit":
+                                continue  # one block, as the builds
+                            try:
+                                kern()
+                            except ValueError:
+                                continue
+                            raise AssertionError(
+                                f"{name} took a cascade of {B} requests "
+                                f"on the card")
+                        got = kern()
+                        if len(got) != len(want):
+                            raise AssertionError(f"{name}: outputs missing")
+                        for a, b in zip(got, want):
+                            hold_equal(torch, err, name, a, b)
+                    counts = cascade_launches(sc, bc)
+                    builds = sum(v for k, v in counts.items()
+                                 if k.endswith("[cascade]"))
+                    others = {k: v for k, v in counts.items() if v and not (
+                        k.endswith("[cascade]") or k == "add_update")}
+                    want_n = fused * (1 if mode.startswith("bucket") else 2)
+                    if (builds != want_n or others or counts["add_update"]
+                            != counts["add_back [cascade]"]):
+                        raise AssertionError(
+                            f"cascade at T={T}, B={B}, {kind}, {mode}: "
+                            f"launch counts {counts}, expected {want_n} "
+                            f"cascade builds and nothing else")
+                    if (T, kind, B) == (TENANTS, "contended", BATCH) and (
+                            mode in ("sliding", "bucket")):
+                        timed_case = case
+                        timed["windowed" if mode == "sliding"
+                              else "bucket"] = cascade_calls(
+                                  torch, sc, bc, case, mode, dev, False)
+                info[f"T={T} {kind} B={B}"] = {
+                    "form": "fused" if fused else "refused",
+                    "verdicts_flipped": flips}
+                log(f"kernels: the cascade alone and the backs' cascade "
+                    f"builds bit-equal to plain at T={T}, {kind}, B={B} "
+                    f"({info[f'T={T} {kind} B={B}']})")
+    # Bytes at the timed shape: the back's own (as check_backs counts
+    # them), plus each request's h2 and n where the back lacks them, the
+    # map's key and tid columns, and for each scope present (with the
+    # default tenant and the global one) its limit and weight read and
+    # its counters read and written (windowed: tn_totals and tn_cur, and
+    # the boundary slab read; bucket: tn_counts, int64).
+    case = timed_case
+    present = len(np.unique(case["tid"][case["key"] != PAD])) + 2
+    map_b = case["key"].size * 16
+    casc_ops = BATCH * (12 + 6 * (2 * ITERS + 3))
+    back_ops = BATCH * (6 * (ITERS + 2) + 40)
+    changed = touched_cells(case, timed_allowed, CASC_WIDTH)
+    shape = {
+        "add_back": (SOURCE, BATCH * (8 + 8 + 4 + 4 + 4 + 1 + 4)
+                     + changed * 16 + map_b + present * (16 + 20),
+                     back_ops + 2 * DEPTH * BATCH + casc_ops),
+        "window_admit": (SOURCE, BATCH * (8 + 4 + 4 + 4 + 8 + 4 + 4 + 1 + 4)
+                         + map_b + present * (16 + 20), back_ops + casc_ops),
+        "bucket_admit": (BUCKET_SOURCE,
+                         BATCH * (8 + 8 + 8 + 8 + 4 + 1 + 8 + 8 + 8) + map_b
+                         + present * (16 + 16), back_ops + casc_ops),
+    }
+    rows = {}
+    for family, calls in timed.items():
+        alone_ms = device_ms(calls["cascade_admit"][0], torch)
+        for name, (kern, plain, base) in calls.items():
+            if name == "cascade_admit":
+                continue
+            # In turns: without the cascade, with it, with it, without.
+            base_ms = [device_ms(base, torch)]
+            ms = [device_ms(kern, torch), device_ms(kern, torch)]
+            base_ms.append(device_ms(base, torch))
+            source, nbytes, ops = shape[name]
+            row = kernel_row(f"{name} [cascade]", source, err[name], kern,
+                             plain, None, nbytes, ops, torch,
+                             ms=statistics.mean(ms))
+            row.update(
+                ms_runs=ms, without_cascade_ms=statistics.mean(base_ms),
+                without_cascade_ms_runs=base_ms,
+                cascade_alone_ms=alone_ms,
+                cascade_alone_max_abs_err=err["cascade_admit"],
+                composed_ms=statistics.mean(base_ms) + alone_ms,
+                T=TENANTS, batch_info=info,
+                lane=f"{family}, T={TENANTS}, B={BATCH}, contended")
+            if name == "add_back":
+                row["changed_cells"] = changed
+            rows[f"{name} [cascade]"] = row
+            log(f"time {name} [cascade build, T={TENANTS}]: "
+                f"{ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us, without the "
+                f"cascade {base_ms[0] * 1e3:.2f} / {base_ms[1] * 1e3:.2f} "
+                f"us, composed (without + the cascade alone, "
+                f"{alone_ms * 1e3:.2f} us) "
+                f"{row['composed_ms'] * 1e3:.2f} us")
+    return rows
+
+
 # --------------------------------------------------------- tile sweep
 
 
@@ -1461,22 +1877,29 @@ REPEATS = 5
 
 def check_path(torch, name: str, cfg, batches, keys, advance: float,
                counters, required, state_keys, strict: bool = True,
-               drive_kw=None) -> dict:
+               drive_kw=None, setup=None) -> dict:
     """One main path on the card against the same trace on the CPU: every
     result field and the final state bit-identical. ``counters`` are the
     kernel modules whose launch counts are set to 0 just before the run
     and read just after it; each kernel named in ``required`` must have
     launched (unless ``strict`` is off and the package counts no such
     kernel: an earlier checkout measured with ``--paths``). ``drive_kw``
-    goes to every ``drive``."""
+    goes to every ``drive``; ``setup`` (if given) to every limiter made
+    here, before its traffic."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     drive_kw = drive_kw or {}
-    gpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
-                         device="cuda")
+
+    def make(device):
+        lim = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                             device=device)
+        if setup is not None:
+            setup(lim)
+        return lim
+
+    gpu = make("cuda")
     # Warm-up on a throwaway limiter (first-call costs), then the run.
-    warm = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
-                          device="cuda")
+    warm = make("cuda")
     drive(warm, batches[:4], keys, advance=advance)
     warm.close()
     torch.cuda.synchronize()
@@ -1494,10 +1917,11 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
              else None)
     gpu.close()
 
-    cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
-                         device="cpu")
+    cpu = make("cpu")
     want = drive(cpu, batches, keys, advance=advance, **drive_kw)
     _, cpu_arrays, _ = cpu.capture_state()
+    hier_stats = (cpu.hierarchy_stats()
+                  if cfg.hierarchy.enabled else None)
     cpu.close()
     if len(got) != len(want):
         raise AssertionError(f"{name}: result count differs")
@@ -1529,8 +1953,7 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
     # The same trace again on fresh limiters, for the spread of the rate.
     walls = [wall]
     for _ in range(REPEATS - 1):
-        again = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
-                               device="cuda")
+        again = make("cuda")
         torch.cuda.synchronize()
         t = time.perf_counter()
         drive(again, batches, keys, advance=advance, **drive_kw)
@@ -1547,6 +1970,8 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
            "extra": {k: v for k, v in extra.items() if k != "saved_at"}}
     if stats is not None:
         out["consumer_stats"] = stats
+    if hier_stats is not None:
+        out["hierarchy_stats"] = hier_stats
     log(f"main path {name}: {len(got)} batches, {decisions} decisions, "
         f"{denied} denied, bit-identical to the CPU run; launches {counts}; "
         f"{out['steps_per_s']:.1f} steps/s median of {REPEATS} runs (min "
@@ -1647,24 +2072,163 @@ def check_bucket_path(torch, seed: int, cell: str, steps: int,
     return out
 
 
+#: The tenant paths' traffic: string keys ``u:{i}`` drawn Zipf(1.1) over
+#: TENANT_KEYS (i = rank - 1), the TENANT_ASSIGNED lowest-ranked
+#: assigned round-robin to the 15 named tenants; TENANT_STEPS batches at
+#: +0.1 s, then a jump to T0 + TENANT_JUMP_S (the first sub-window is
+#: then the boundary one and releases mass every step, so the global
+#: scope stays contended with room left) and TENANT_AFTER more.
+TENANT_KEYS, TENANT_ASSIGNED = 10_000, 1_000
+TENANT_STEPS, TENANT_AFTER, TENANT_JUMP_S = 64, 32, 60.5
+
+
+def tenant_keys(rng, n: int) -> list:
+    return [f"u:{int(i)}" for i in (rng.zipf(ZIPF_A, size=n) - 1)
+            % TENANT_KEYS]
+
+
+def tenant_flags() -> list:
+    """The documented deployment's flags (docs/OPERATIONS.md:814-819)
+    with 13 more named tenants and the key assignments."""
+    named = ["gold", "free"] + [name for name, _, _ in CASC_OTHERS]
+    flags = ["--tenants", str(TENANTS), "--tenant-map", str(TENANT_MAP),
+             "--global-limit", str(GLOBAL_LIMIT), "--tenant",
+             "gold=20000:5:2000", "--tenant", "free=5000:1"]
+    for name, limit, weight in CASC_OTHERS:
+        flags += ["--tenant", f"{name}={limit}:{weight}"]
+    flags += ["--assign", "api-cust-42=gold"]
+    for i in range(TENANT_ASSIGNED):
+        flags += ["--assign", f"u:{i}={named[i % len(named)]}"]
+    return flags
+
+
+def boot_tenants(lim) -> None:
+    """``tenant_flags`` applied to a limiter, by the server binary's own
+    code (serving/__main__.py ``boot_tenants``)."""
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        boot_tenants as boot,
+        parse_args,
+    )
+
+    boot(lim, parse_args(tenant_flags()))
+
+
+def with_tenants(cfg):
+    """``cfg`` under the documented tenant deployment's HierarchySpec."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import HierarchySpec
+
+    return dataclasses.replace(cfg, hierarchy=HierarchySpec(
+        tenants=TENANTS, map_capacity=TENANT_MAP,
+        global_limit=GLOBAL_LIMIT))
+
+
+TN_STATE = ("tn_cur", "tn_slabs", "tn_totals")
+BUCKET_TN_STATE = ("tn_counts", "tn_period")
+
+
+def check_tenant_path(torch, seed: int, label: str, base,
+                      profile: bool = False) -> dict:
+    """One tenant path (``base`` under ``with_tenants``, booted with
+    ``tenant_flags``) end to end against the CPU on ``tenant_keys``
+    traffic (for TB-c2, config 2's own traffic over the same key
+    space: 64 batches at +0.25 s, across its 10 s window): every result
+    and every state array, ``tn_*`` included, bit-identical; every step
+    ran its back's cascade build (the back's build without the cascade
+    never launched, and as many cascade builds as updates where the back
+    feeds one: no plain version ran on the card). The same trace without
+    the tenants runs too, for the steps/s beside it; with ``profile``,
+    both are profiled on the trace's first 48 batches (no sort or scan op
+    of the plain admission may run)."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    rng = np.random.default_rng(seed)
+    bucket = base.algorithm.name == "TOKEN_BUCKET"
+    if bucket:
+        batches, keys = _trace_c2(seed, TENANT_STEPS)
+        advance, drive_kw = C2_ADVANCE, {}
+        counters, state = [bc], BUCKET_STATE + BUCKET_TN_STATE
+        required = ("bucket_estimate", "admit [cascade]", "bucket_update")
+        back, update = "admit", "bucket_update"
+    else:
+        batches = [tenant_keys(rng, BATCH)
+                   for _ in range(TENANT_STEPS + TENANT_AFTER)]
+        keys = tenant_keys(rng, 256) + ["api-cust-42"] * 64
+        advance = 0.1
+        drive_kw = {"jump": (TENANT_STEPS,
+                             TENANT_JUMP_S - TENANT_STEPS * advance)}
+        counters, state = [sc], WINDOW_STATE + TN_STATE
+        cu = base.sketch.conservative_update
+        back, update = ("admit", "cu_update") if cu else ("add_back", None)
+        required = ("window_estimate", f"{back} [cascade]") + (
+            (update,) if cu else ())
+        if base.sketch.hh_slots:
+            state += HH_STATE
+            required += ("hh_update",)
+    out = check_path(torch, f"{label} tenants={TENANTS}",
+                     with_tenants(base), batches, keys, advance, counters,
+                     required, state, drive_kw=drive_kw, setup=boot_tenants)
+    counts = out["counts"]
+    if counts[back] or (update is not None and counts[f"{back} [cascade]"]
+                        != counts[update]):
+        raise AssertionError(f"{label} tenants: {counts[back]} {back} "
+                             f"launches without the cascade, "
+                             f"{counts[f'{back} [cascade]']} cascade builds "
+                             f"for {counts.get(update)} {update} launches")
+    g = out["hierarchy_stats"]["global"]
+    plain = check_path(torch, f"{label} without tenants", base, batches,
+                       keys, advance, counters,
+                       tuple(k.replace(" [cascade]", "") for k in required),
+                       state[:len(BUCKET_STATE if bucket
+                                  else WINDOW_STATE)], drive_kw=drive_kw)
+    out["without_tenants"] = {k: plain[k] for k in (
+        "steps_per_s", "steps_per_s_min", "steps_per_s_max",
+        "decisions_per_s", "denied")}
+    if profile:
+        out["profile"] = profile_path(
+            torch, f"{label} tenants={TENANTS}", with_tenants(base),
+            batches[:48], keys, advance, setup=boot_tenants)
+        out["without_tenants"]["profile"] = profile_path(
+            torch, f"{label} without tenants", base, batches[:48], keys,
+            advance)
+        if out["profile"]["sort_or_scan_ops"]:
+            raise AssertionError(f"{label} tenants: the plain admission "
+                                 f"still runs: "
+                                 f"{out['profile']['sort_or_scan_ops']}")
+    log(f"tenant path {label} on {card_line()}: global in-window "
+        f"{g['in_window']} of {g['effective']} at the end; "
+        f"{out['steps_per_s']:.1f} steps/s with the cascade (min "
+        f"{out['steps_per_s_min']:.1f}, max {out['steps_per_s_max']:.1f}) "
+        f"against {plain['steps_per_s']:.1f} without (min "
+        f"{plain['steps_per_s_min']:.1f}, max "
+        f"{plain['steps_per_s_max']:.1f}), median of {REPEATS}; denied "
+        f"{out['denied']} against {plain['denied']}")
+    return out
+
+
 #: Substrings of the device kernels behind torch.sort, torch.cumsum and
 #: torch.cummax (CUB's radix sort and scan, ATen's scan kernels).
 SCAN_OPS = ("sort", "scan", "cummax", "cumsum")
 
 
 def profile_path(torch, name: str, cfg, batches, keys, advance: float,
-                 warm: int = 16) -> dict:
+                 warm: int = 16, setup=None) -> dict:
     """Where a main-path step's time goes: ``torch.profiler`` over the
-    batches after ``warm`` warm-up ones. Device busy share is the union
-    of device-op intervals over the span from the first to the last; the
-    profiler's own overhead lengthens the span, so the share is a lower
-    bound on what an unprofiled run keeps the card busy."""
+    batches after ``warm`` warm-up ones (``setup`` applied to the limiter
+    first). Device busy share is the union of device-op intervals over
+    the span from the first to the last; the profiler's own overhead
+    lengthens the span, so the share is a lower bound on what an
+    unprofiled run keeps the card busy."""
     from torch.profiler import ProfilerActivity, profile
 
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     lim = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cuda")
+    if setup is not None:
+        setup(lim)
     drive(lim, batches[:warm], keys, advance=advance)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1860,6 +2424,8 @@ class RecordingLimiter:
 
 
 def door_keys(rng, space: str, n: int) -> list:
+    if space == "tenants":
+        return tenant_keys(rng, n)
     if space == "c2":
         return [f"u:{int(i)}" for i in rng.integers(0, C2_KEYS, size=n)]
     return [f"user:{int(k)}" for k in zipf_ids(rng, n)]
@@ -1959,38 +2525,61 @@ async def _door_clients(port: int, conns: int, frames: int, n_ids: int,
             "metrics": p.parse_metrics(replies[2][1])}
 
 
-def door_client(port: int, conns: int, frames: int, n_ids: int,
-                n_keys: int, depth: int, space: str, seed: int,
-                out) -> None:
-    """The door's client, run in a child process: ``conns`` connections
-    pipelining ALLOW_HASHED and ALLOW_BATCH frames, then HEALTH and
-    METRICS on one more; puts everything it read on ``out``."""
-    out.put(asyncio.run(_door_clients(port, conns, frames, n_ids, n_keys,
-                                      depth, space, seed)))
+def door_client() -> None:
+    """The door's client, run in a child process (``serve_door``): its
+    arguments come as JSON on stdin; ``conns`` connections pipeline
+    ALLOW_HASHED and ALLOW_BATCH frames, then HEALTH and METRICS go on
+    one more; everything it read goes pickled to stdout."""
+    args = json.loads(sys.stdin.read())
+    got = asyncio.run(_door_clients(**args))
+    sys.stdout.buffer.write(pickle.dumps(got))
+    sys.stdout.flush()
 
 
-def _collect(proc, q, timeout: float):
-    """The child's result (read before it is joined)."""
-    deadline = time.time() + timeout
-    while True:
-        try:
-            return q.get(timeout=0.5)
-        except queue.Empty:
-            if not proc.is_alive():
-                raise AssertionError(f"door client exited with "
-                                     f"{proc.exitcode} before its result")
-            if time.time() > deadline:
-                raise AssertionError("door client timed out")
+def child_env() -> tuple:
+    """(the repo's root, an environment with it first on PYTHONPATH) for
+    the child processes this script starts."""
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return repo, env
 
 
-def replay_windows(cfg, log: list):
+def _run_door_client(args: dict, timeout: float) -> dict:
+    """``door_client`` in a child process, run to its end (killed, and
+    reaped, past ``timeout`` seconds); returns what it read."""
+    repo, env = child_env()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.door_client()"],
+        cwd=repo, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE)
+    try:
+        out, err = proc.communicate(json.dumps(args).encode(),
+                                    timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("door client timed out")
+    if proc.returncode != 0:
+        raise AssertionError(f"door client exited with {proc.returncode}: "
+                             f"{err.decode()[-2000:]}")
+    return pickle.loads(out)
+
+
+def replay_windows(cfg, log: list, setup=None):
     """Every recorded window (and reset) again, in order, on a CPU limiter
-    of the port at the recorded ``now``s; returns the results (None for a
-    reset) and the limiter."""
+    of the port (``setup`` applied to it first) at the recorded ``now``s;
+    returns the results (None for a reset) and the limiter."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     cpu = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                          device="cpu")
+    if setup is not None:
+        setup(cpu)
     outs = []
     for kind, a, ns, now in log:
         cpu.clock.set(now)
@@ -2097,30 +2686,23 @@ def serve_door(limiter, *, seed: int, space: str, conns: int, frames: int,
     from ratelimiter_tpu_torch.observability.metrics import Registry
     from ratelimiter_tpu_torch.serving.server import RateLimitServer
 
-    ctx = multiprocessing.get_context("spawn")
-    q = ctx.Queue()
-
     async def main():
         srv = RateLimitServer(limiter, "127.0.0.1", 0, registry=Registry(),
                               **(server_kw or {}))
         await srv.start()
         for mod in counters:
             mod.reset_launch_counts()
-        proc = ctx.Process(target=door_client, args=(
-            srv.port, conns, frames, n_ids, n_keys, depth, space, seed, q))
-        proc.start()
+        args = {"port": srv.port, "conns": conns, "frames": frames,
+                "n_ids": n_ids, "n_keys": n_keys, "depth": depth,
+                "space": space, "seed": seed}
         cpu = time.process_time()
         try:
             got = await asyncio.get_running_loop().run_in_executor(
-                None, _collect, proc, q, 600.0)
+                None, _run_door_client, args, 600.0)
             got["server_cpu_s"] = time.process_time() - cpu
             return got
         finally:
             await srv.shutdown()
-            proc.join(30)
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
 
     return asyncio.run(main())
 
@@ -2184,7 +2766,8 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
                seed: int = 0, space: str = "zipf", conns: int = DOOR_CONNS,
                frames: int = DOOR_FRAMES, n_ids: int = DOOR_IDS,
                n_keys: int = DOOR_KEYS, depth: int = DOOR_DEPTH,
-               counters=(), required=(), same=None, server_kw=None) -> dict:
+               counters=(), required=(), same=None, server_kw=None,
+               setup=None) -> dict:
     """The port's server over ``cfg`` (``serve_door``) through a
     ``RecordingLimiter``. Every frame's answer must be bit-identical to a
     CPU replay of the windows the batcher launched, the final state to
@@ -2194,11 +2777,15 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     that must be equal (an admission launch for every update: no composed
     back). Returns the door's readings, which include the proxy's own
     cost (a lock, a copy of each window's arrays, a clock set and two
-    timer reads per launch); ``time_door`` times the door without it."""
+    timer reads per launch); ``time_door`` times the door without it.
+    ``setup`` (the binary's tenant flags, say) is applied to the served
+    limiter and to the replay's before any frame."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     served = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
                             device=device)
+    if setup is not None:
+        setup(served)
     rec = RecordingLimiter(served, T0)
     got = serve_door(rec, seed=seed, space=space, conns=conns,
                      frames=frames, n_ids=n_ids, n_keys=n_keys, depth=depth,
@@ -2215,7 +2802,7 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     out = _door_readings(name, got)
     if stats["slots"]:
         out.update(hold_consumer_gauges(name, got["metrics"], stats))
-    replayed, cpu = replay_windows(cfg, rec.log)
+    replayed, cpu = replay_windows(cfg, rec.log, setup)
     _hold_door_frames(name, rec.log, replayed, got["conns"], n_ids, n_keys)
     _, cpu_arrays, _ = cpu.capture_state()
     cpu.close()
@@ -2591,17 +3178,13 @@ class ServerProcess:
     and the recovery from the ``recovered`` line."""
 
     def __init__(self, args: list, timeout: float = 300.0):
-        import os
-
-        repo = os.path.dirname(os.path.abspath(__file__))
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(
-            [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                      if p])
+        repo, env = child_env()
+        # A session of its own, so that kill() reaches anything it starts.
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "ratelimiter_tpu_torch.serving",
              "--port", "0", *args], cwd=repo, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
         self.lines: "queue.Queue" = queue.Queue()
         self.output: list = []
         threading.Thread(target=self._read, daemon=True).start()
@@ -2634,13 +3217,39 @@ class ServerProcess:
         return float(self.recovered.rsplit(" in ", 1)[1].split()[0])
 
     def kill(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.kill()
+        """SIGKILL to the server's process group; reaps the server."""
+        import os
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
         self.proc.wait(timeout=60)
 
     def terminate(self) -> int:
+        """SIGTERM to the server alone (a graceful stop); its exit code."""
         self.proc.send_signal(signal.SIGTERM)
         return self.proc.wait(timeout=120)
+
+
+def check_no_children() -> None:
+    """Fails if a process this script started still runs (or is not
+    reaped): every child of this process, read from /proc."""
+    import os
+
+    me, left = os.getpid(), []
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                stat = fh.read()
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            left.append(f"{pid}: {cmd.strip() or stat.split()[1]}")
+    if left:
+        raise AssertionError(f"processes left running: {left}")
 
 
 class DoorClient:
@@ -2954,18 +3563,156 @@ def check_durable_door(cfg, *, device: str = "cuda", seed: int = 0,
     return out
 
 
+def check_tenant_durable_door(cfg, *, device: str = "cuda",
+                              seed: int = 0) -> dict:
+    """Phase 5.4: the durable binary serving the documented tenant
+    deployment (``tenant_flags``) with the AIMD controller, killed and
+    recovered, against a CPU twin's recovery of the same directory.
+
+    1. The server starts on an empty directory with ``cfg``'s geometry,
+       the tenant flags and ``--controller --controller-interval 0.2``.
+    2. A hot-tenant storm: free's assigned keys ask for 75 each (free
+       admits up to its 5,000), then 450 unassigned keys ask for 100 each,
+       so that the global scope is saturated (>= 90% of 50,000) and free
+       holds more than twice its fair share (weight 1 of 34): the
+       controller must tighten free's effective limit (5,000 -> 3,500),
+       which METRICS shows; then a SNAPSHOT, and SIGKILL.
+    3. The server restarts on a copy of the directory with the same flags
+       and no controller, and takes a SNAPSHOT: every array of it
+       (``tn_*`` and the ``hier_*`` columns with the moved limit
+       included) must be bit-equal to the CPU twin's recovery of the
+       copy, booted with the same flags after it (the binary's order: the
+       flags do not undo a lower effective limit).
+    4. Frames one at a time (free's keys, gold's, unassigned ones):
+       decisions bit-equal to the twin's; SIGTERM."""
+    import os
+    import shutil
+    import tempfile
+
+    from ratelimiter_tpu_torch import (
+        ManualClock,
+        PersistenceSpec,
+        create_limiter,
+    )
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+    from ratelimiter_tpu_torch.persistence import PersistenceManager
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    cfg = with_tenants(cfg)
+    root = tempfile.mkdtemp(prefix="tenant-door-")
+    d, copy = os.path.join(root, "live"), os.path.join(root, "copy")
+    flags = ["--limit", str(cfg.limit), "--window", str(cfg.window),
+             "--depth", str(cfg.sketch.depth), "--width",
+             str(cfg.sketch.width), "--sub-windows",
+             str(cfg.sketch.sub_windows), "--device", device,
+             "--snapshot-dir", d, "--snapshot-interval", "3600",
+             *tenant_flags()]
+    free_keys = [f"u:{i}" for i in range(TENANT_ASSIGNED) if i % 15 == 1]
+    servers = []
+    rng = np.random.default_rng(seed + 53)
+    try:
+        srv = ServerProcess(flags + ["--controller", "--controller-interval",
+                                     "0.2"])
+        servers.append(srv)
+        c = DoorClient(srv.port)
+        t_first = time.time()
+        c.call(p.encode_allow_batch, free_keys, [75] * len(free_keys))
+        herd = [f"storm:{i}" for i in range(450)]
+        c.call(p.encode_allow_batch, herd, [100] * len(herd))
+        sample = 'rate_limiter_hier_effective_limit{scope="free"}'
+        for _ in range(100):
+            _, body = c.call(lambda rid: p.encode_simple(p.T_METRICS, rid))
+            text = p.parse_metrics(body)
+            if sample in text and metric_value(text, sample) < 5000:
+                break
+            time.sleep(0.05)
+        moved = metric_value(text, sample)
+        if moved != 3500:
+            raise AssertionError(f"the controller moved free to {moved}, "
+                                 f"not 3500")
+        _, _, arrays, meta, mb = _snapshot_file(c, d)
+        eff = dict(zip(arrays["hier_tenant_names"].tolist(),
+                       arrays["hier_tenant_eff"].tolist()))
+        if eff["free"] != 3500:
+            raise AssertionError(f"the snapshot holds free at {eff['free']}")
+        c.close()
+        srv.kill()
+        shutil.copytree(d, copy)
+
+        srv = ServerProcess(flags)
+        servers.append(srv)
+        c = DoorClient(srv.port)
+        _, _, arrays, meta, _ = _snapshot_file(c, d)
+        spec = PersistenceSpec(dir=copy, snapshot_interval=3600.0)
+        mgr = PersistenceManager(spec, registry=Registry())
+        sub_us = sk.sketch_geometry(cfg)[1]
+        twin = mgr.wrap(create_limiter(cfg, clock=ManualClock(
+            (int(meta["host_period"]) * sub_us + sub_us // 2) / 1e6),
+            device="cpu"))
+        mgr.attach([twin])
+        report = mgr.recover()
+        boot_tenants(twin)
+        _, twin_arrays, twin_extra = twin.capture_state()
+        if sorted(twin_arrays) != sorted(arrays):
+            raise AssertionError("recovered array sets differ")
+        for k, v in twin_arrays.items():
+            if v.dtype != arrays[k].dtype or not np.array_equal(v,
+                                                                arrays[k]):
+                raise AssertionError(f"recovered {k} differs from the CPU "
+                                     f"twin's recovery")
+        if twin.effective_limits()["free"] != 3500:
+            raise AssertionError("the twin lost free's moved limit")
+        frames = [("keys", free_keys[:32]),
+                  ("keys", [f"u:{i}" for i in range(0, 64, 15)] * 4),
+                  ("keys", [f"storm:{i}" for i in range(64)]),
+                  ("ids", zipf_ids(rng, 256))]
+        for i, frame in enumerate(frames):
+            got, bracket = _send(c, frame)
+            want = (twin.allow_ids(frame[1]) if frame[0] == "ids"
+                    else twin.allow_batch(frame[1]))
+            _hold_against_twin(f"tenant door frame {i}", got, bracket, want,
+                               cfg.window)
+        if time.time() - t_first > 0.8 * cfg.window:
+            raise AssertionError("the run outlasted the window the "
+                                 "comparison relies on")
+        c.close()
+        if srv.terminate() != 0:
+            raise AssertionError("SIGTERM: the server did not exit cleanly")
+        mgr.stop(final_snapshot=False)
+        twin.close()
+        out = {"free_effective": int(moved), "recovery_s": srv.recovery_s(),
+               "recovered": srv.recovered, "twin": report.summary(),
+               "snapshot_mb": mb}
+    finally:
+        for srv in servers:
+            srv.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"tenant durable door on {where}: the controller tightened free "
+        f"5000 -> {out['free_effective']} under the storm; SIGKILL after "
+        f"SNAPSHOT; restart recovered in {out['recovery_s']:.3f} s "
+        f"({out['recovered']}), every array (tn_*, hier_*) bit-equal to "
+        f"the CPU twin's recovery, decisions after it too")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's and
     phase 5's (each counted from 0 just before it and read just after):
     the standalone ``add_update`` is the TPU name's count less the fused
-    back's, each admission launch counts as ``admit`` in its family's
-    module."""
+    back's builds, each admission launch counts as ``admit`` in its
+    family's module (its cascade build as ``admit [cascade]``), and a
+    back's row without ``[cascade]`` counts its build without the
+    cascade alone."""
     if name == "add_update":
         return sum(r["counts"]["add_update"] - r["counts"]["add_back"]
+                   - r["counts"].get("add_back [cascade]", 0)
                    for r in windowed)
-    if name in ("window_admit", "bucket_admit"):
-        runs = windowed if name == "window_admit" else bucket
-        return sum(r["counts"]["admit"] for r in runs)
+    base, _, casc = name.partition(" ")
+    if base in ("window_admit", "bucket_admit"):
+        runs = windowed if base == "window_admit" else bucket
+        return sum(r["counts"].get(f"admit {casc}".strip(), 0) for r in runs)
     return sum(r["counts"].get(name, 0) for r in (*windowed, *bucket))
 
 
@@ -2980,6 +3727,14 @@ def main(argv=None) -> int:
                     help="only build, then time the admission routine "
                          "(csrc/admit_bench.cu) over block shapes and sort "
                          "digit widths (one JSON line)")
+    ap.add_argument("--rows", action="store_true",
+                    help="only build, then hold and time phase 2's kernel "
+                         "rows without the cascade (one JSON line; "
+                         "public wrappers only, so it runs on an earlier "
+                         "checkout too)")
+    ap.add_argument("--cascade", action="store_true",
+                    help="only build, then hold and time the cascade's "
+                         "kernels (phase 2's cascade part, one JSON line)")
     ap.add_argument("--paths", action="store_true",
                     help="only build, then drive and profile the main "
                          "paths (phase 3, one JSON line)")
@@ -2995,7 +3750,9 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
-    _build.build_all(["sketch_kernels", "bucket_kernels"])
+    _build.build_all(["sketch_kernels", "bucket_kernels"] + (
+        [] if args.sweep or args.admit_sweep or args.rows or args.paths
+        else ["cascade_bench"]))
     sketch_cuda.build()
     bucket_cuda.build()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
@@ -3011,6 +3768,19 @@ def main(argv=None) -> int:
             torch, args.seed)}))
         print(card)
         return 0
+    if args.cascade:
+        print(json.dumps({"card": card, "cascade": check_cascade(
+            torch, args.seed)}))
+        print(card)
+        return 0
+    if args.rows:
+        rows = check_kernels(torch, args.seed)
+        rows.update(check_bucket_kernels(torch, args.seed))
+        rows.update(check_backs(torch, args.seed))
+        rows["side_forms"] = check_side_table(torch, args.seed)["side_forms"]
+        print(json.dumps({"card": card, "rows": rows}))
+        print(card)
+        return 0
 
     rows = {} if args.paths else check_kernels(torch, args.seed)
     if not args.paths:
@@ -3022,6 +3792,7 @@ def main(argv=None) -> int:
                           ("window_admit", "window_admit"),
                           ("add_back", "add_back")):
             rows[row]["side_table_form"] = side["side_forms"][name]
+        rows.update(check_cascade(torch, args.seed))
     strict = not args.paths
     cu = check_main_path(torch, args.seed, args.steps, cu=True,
                          strict=strict)
@@ -3068,6 +3839,17 @@ def main(argv=None) -> int:
                              f"runs: {prof_hh['sort_or_scan_ops']}")
     paths.update({"cu_hh": cu_hh, "vanilla_hh": vanilla_hh,
                   "profile_hh": prof_hh})
+    cu_tn = check_tenant_path(torch, args.seed + 61, "windowed CU",
+                              config3(), profile=True)
+    vanilla_tn = check_tenant_path(torch, args.seed + 67,
+                                   "windowed vanilla", config3(cu=False))
+    hh_tn = check_tenant_path(torch, args.seed + 71,
+                              f"windowed CU hh_slots={HH_SLOTS}",
+                              config3_hh())
+    tb_tn = check_tenant_path(torch, args.seed + 73, "TB-c2",
+                              config2_bucket())
+    paths.update({"cu_tenants": cu_tn, "vanilla_tenants": vanilla_tn,
+                  "cu_hh_tenants": hh_tn, "TB-c2_tenants": tb_tn})
     log(f"side-table paths on {card} (hh_slots={HH_SLOTS} | without): "
         + "; ".join(
             f"{label} {h['steps_per_s']:.1f} | {b['steps_per_s']:.1f} "
@@ -3094,6 +3876,11 @@ def main(argv=None) -> int:
         seed=args.seed + 37, counters=[sketch_cuda],
         required=("window_estimate", "admit", "cu_update", "hh_update"),
         same=("admit", "cu_update"))
+    door_tn = check_door(
+        torch, with_tenants(config3()), f"windowed CU tenants={TENANTS}",
+        seed=args.seed + 43, space="tenants", counters=[sketch_cuda],
+        required=("window_estimate", "admit [cascade]", "cu_update"),
+        same=("admit [cascade]", "cu_update"), setup=boot_tenants)
     bare_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
     bare_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
                         space="c2")
@@ -3110,6 +3897,8 @@ def main(argv=None) -> int:
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
+    tenant_door = check_tenant_durable_door(config3(), device="cuda",
+                                            seed=args.seed)
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
         f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
         f"{live['lock_hold_ms_TB-c2']}); strict deny-all batches "
@@ -3122,19 +3911,23 @@ def main(argv=None) -> int:
         f"{durable['frame_ms_alone']:.2f} ms alone")
     for name in rows:
         rows[name]["launches"] = row_launches(
-            name, (cu, vanilla, cu_hh, vanilla_hh, door_cu, door_hh,
-                   live["windowed"], watch),
-            (tb_c2, tb_zipf, door_tb, live["bucket"]))
+            name, (cu, vanilla, cu_hh, vanilla_hh, cu_tn, vanilla_tn,
+                   hh_tn, door_cu, door_hh, door_tn, live["windowed"],
+                   watch),
+            (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"]))
     paths["live"] = live
     paths["watchdog"] = watch
     paths["durable_door"] = durable
     paths["door_windowed_CU"] = door_cu
     paths["door_windowed_CU_hh"] = door_hh
+    paths["door_windowed_CU_tenants"] = door_tn
+    paths["tenant_durable_door"] = tenant_door
     paths["door_TB-c2"] = door_tb
     paths["door_unproxied_windowed_CU"] = bare_cu
     paths["door_unproxied_TB-c2"] = bare_tb
 
     log(json.dumps({"main_path": paths}))
+    check_no_children()
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from ratelimiter_tpu_torch.core.config import (
     Config,
     SketchParams,
     PersistenceSpec,
+    HierarchySpec,
     DEFAULT_PREFIX,
 )
 from ratelimiter_tpu_torch.core.errors import (
@@ -55,6 +56,7 @@ __all__ = [
     "Config",
     "SketchParams",
     "PersistenceSpec",
+    "HierarchySpec",
     "DEFAULT_PREFIX",
     "RateLimiterError",
     "InvalidConfigError",

@@ -1,8 +1,8 @@
 """The RateLimiter contract — a copy of ``ratelimiter_tpu/algorithms/base.py``
 trimmed to what the port's backends serve (the scalar and batched API,
 launch/resolve, per-key overrides, dynamic limit/window updates and the
-checkpoint seam). The hierarchy surface (ROADMAP A6) and ``sub_limiters``
-(the mesh, A8) are not ported.
+checkpoint seam) and the hierarchy surface (tenant and global scopes).
+``sub_limiters`` (the mesh, A8) is not ported.
 
 Parity with reference ``internal/ratelimiter/interface.go:76-145`` plus the
 TPU-native first-class batched call. Semantic decisions (SURVEY.md §2.4, each
@@ -296,6 +296,102 @@ class RateLimiter(abc.ABC):
             return fn()
         with lock:
             return fn()
+
+    # -- hierarchical cascades (tenant + global scopes, ADR-020) -----------
+    #
+    # Backends that support the cascade own a ``_hier_table``
+    # (hierarchy/tenants.py) whose device arrays the
+    # decision step consults; this is the uniform management surface.
+    # Mutations run under the backend's lock (same rule as the policy
+    # table); the device copy invalidates off the table's version.
+
+    def _hier(self):
+        table = getattr(self, "_hier_table", None)
+        if table is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no hierarchy — enable it with "
+                f"Config.hierarchy.tenants > 0 on a sketch-family backend")
+        return table
+
+    def set_tenant(self, name: str, limit: Optional[int] = None, *,
+                   weight: int = 1, floor: Optional[int] = None):
+        """Register (or update) a tenant scope: its per-window ceiling
+        (None = unlimited), fair-share weight, and controller floor."""
+        self._check_open()
+        table = self._hier()
+        return self._policy_mutate(
+            lambda: table.set_tenant(name, limit, weight, floor))
+
+    def delete_tenant(self, name: str) -> bool:
+        self._check_open()
+        table = self._hier()
+        return self._policy_mutate(lambda: table.delete_tenant(name))
+
+    def assign_tenant(self, key: str, tenant: str) -> None:
+        """Map ``key`` to ``tenant``; the decision step derives the id on
+        device from the sorted map (nothing new crosses the wire)."""
+        self._check_open()
+        check_key(key)
+        table = self._hier()
+        self._policy_mutate(lambda: table.assign(key, tenant))
+
+    def unassign_tenant(self, key: str) -> bool:
+        self._check_open()
+        check_key(key)
+        table = self._hier()
+        return self._policy_mutate(lambda: table.unassign(key))
+
+    def tenant_of(self, key: str) -> str:
+        self._check_open()
+        return self._hier().tenant_of(key)
+
+    def get_tenant(self, name: str):
+        """The registered Tenant (tid/limit/weight/floor), or None."""
+        self._check_open()
+        return self._hier().get_tenant(name)
+
+    def list_tenants(self):
+        """Sorted (name, Tenant) pairs."""
+        self._check_open()
+        t = self._hier()
+        return sorted((n, t.get_tenant(n)) for n in t.tenant_names())
+
+    def set_global_limit(self, limit: Optional[int]) -> None:
+        self._check_open()
+        table = self._hier()
+        self._policy_mutate(lambda: table.set_global_limit(limit))
+
+    def set_effective(self, scope: str, limit: int) -> int:
+        """The adaptive-control lever: move a scope's LIVE effective
+        limit (clamped to [floor, ceiling]); ``scope`` is a tenant name
+        or hierarchy.GLOBAL. Configuration (ceilings) never moves."""
+        self._check_open()
+        table = self._hier()
+        return self._policy_mutate(lambda: table.set_effective(scope, limit))
+
+    def effective_limits(self):
+        self._check_open()
+        return self._hier().effective_limits()
+
+    def hierarchy_payload(self) -> dict:
+        """Revision-stamped effective-limit frame for fleet propagation."""
+        self._check_open()
+        return self._hier().effective_payload()
+
+    def apply_hierarchy_payload(self, payload: dict) -> bool:
+        """Adopt a peer's effective limits when newer (announce receive
+        path); returns whether anything changed."""
+        self._check_open()
+        table = self._hier()
+        return self._policy_mutate(
+            lambda: table.apply_effective_payload(payload))
+
+    def hierarchy_stats(self) -> dict:
+        """Live per-scope view for the controller/healthz: in-window
+        admitted mass + effective/ceiling/weight per tenant and for the
+        global scope. Backends with cascade state override."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not expose hierarchy stats")
 
     # -- durability (checkpoint / async snapshot seam) ---------------------
 

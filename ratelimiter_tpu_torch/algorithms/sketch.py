@@ -41,9 +41,15 @@ need.
 The windowed limiter serves the heavy-hitter side table
 (``SketchParams.hh_slots > 0``, ops/sketch_kernels.py) and reads it out
 as ``consumer_stats``; the token bucket ignores ``hh_slots``, as in the
-JAX package. Not ported yet (constructing such a config raises
-InvalidConfigError naming the ROADMAP item): the hierarchy (A6), and the
-DCN bookkeeping (A8).
+JAX package. Both serve the hierarchy cascade (``hierarchy.tenants >
+0``, ADR-020): a ``TenantTable`` (hierarchy/tenants.py) per limiter,
+managed through RateLimiter's tenant surface, whose device columns ride
+every step (rebuilt when the table's version moves), and whose
+``hier_*`` columns ride snapshots; ``hierarchy_stats`` reads the scope
+counters. On the card a batch under the cascade holds at most
+``sketch_cuda.ADMIT_CAPACITY`` requests (its backs are one block; a
+larger one is refused before anything runs). Not ported yet: the multi-batch scan runners (ROADMAP A6) and
+the DCN bookkeeping (A8).
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import torch
 
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter, check_key, check_n
 from ratelimiter_tpu_torch.core.clock import MICROS, Clock, to_micros
-from ratelimiter_tpu_torch.core.config import Config
+from ratelimiter_tpu_torch.core.config import HIER_UNLIMITED, Config
 from ratelimiter_tpu_torch.core.errors import (
     CheckpointError,
     InvalidConfigError,
@@ -69,8 +75,10 @@ from ratelimiter_tpu_torch.core.types import (
     Result,
     batch_fail_open,
 )
+from ratelimiter_tpu_torch.hierarchy.tenants import GLOBAL, TenantTable
 from ratelimiter_tpu_torch.ops import bucket_kernels, sketch_kernels
 from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP
+from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
 from ratelimiter_tpu_torch.ops.hashing import (
     hash_prefixed_u64,
     split_hash,
@@ -131,6 +139,7 @@ class SketchLimiter(RateLimiter):
         self._warned_period = -1
         self.overload_periods = 0
         self._init_policy()
+        self._init_hierarchy()
 
     def _init_device(self, device) -> None:
         """The shell both sketch limiters share: device, hashing seed,
@@ -199,6 +208,64 @@ class SketchLimiter(RateLimiter):
         h1, h2 = split_hash(np.asarray(h64, np.uint64), self._seed)
         return self._policy_table.limits_for(pack_halves_host(h1, h2))
 
+    # ---------------------------------------------------------- hierarchy
+
+    def _init_hierarchy(self) -> None:
+        """Tenant + global cascade scopes (ADR-020), resolved in the step
+        like the policy table, keyed by the same packed (h1, h2)."""
+        self._hier_table = None
+        self._hier_dev = None
+        self._hier_dev_version = -1
+        if self.config.hierarchy.enabled:
+            self._hier_table = TenantTable(self.config,
+                                           key_fn=self._policy_key)
+
+    def _hier_device(self):
+        """Device copy of the cascade tables (key→tenant map + limit/
+        weight columns), or None when the hierarchy is disabled. Lock must
+        be held; rebuilt when the table version moved."""
+        t = self._hier_table
+        if t is None:
+            return None
+        if self._hier_dev is None or self._hier_dev_version != t.version:
+            self._hier_dev = sketch_kernels.hier_tensors(t.host_arrays(),
+                                                         self._device)
+            self._hier_dev_version = t.version
+        return self._hier_dev
+
+    def _hier_counts(self) -> np.ndarray:
+        """(T+1,) in-window admitted counts per scope (global at index
+        T). The rollover a decision would run is kicked first, so an idle
+        limiter reports expired mass as 0; the copy is enqueued under the
+        lock and read after it."""
+        with self._lock:
+            self._sync_period(to_micros(self.clock.now()))
+            ref = self._state["tn_totals"].clone()
+        return ref.cpu().numpy()
+
+    def hierarchy_stats(self) -> dict:
+        t = self._hier_table
+        if t is None:
+            return super().hierarchy_stats()
+        counts = self._hier_counts()
+        tenants = {}
+        for name in t.tenant_names():
+            ten = t.get_tenant(name)
+            tenants[name] = {
+                "tid": ten.tid,
+                "in_window": int(counts[ten.tid]),
+                "effective": t.effective_of(name),
+                "ceiling": ten.limit or HIER_UNLIMITED,
+                "floor": ten.floor,
+                "weight": ten.weight,
+            }
+        return {"tenants": tenants,
+                "global": {"in_window": int(counts[t.capacity]),
+                           "effective": t.effective_of(GLOBAL),
+                           "ceiling": t.global_ceiling},
+                "divisor": t.divisor,
+                "assignments": len(t.assignments())}
+
     # ------------------------------------------------------------ hashing
 
     def _hash(self, keys: List[str]) -> np.ndarray:
@@ -264,8 +331,8 @@ class SketchLimiter(RateLimiter):
             h_dev = self._stage(h64p.view(np.int64), np.int64)
             n_dev = self._stage(nsp, np.int32)
             outs = step(self._state, h_dev, n_dev, now_us,
-                        self._policy_device(), **self._step_kw(),
-                        **self._launch_kw())
+                        self._policy_device(), self._hier_device(),
+                        **self._step_kw(), **self._launch_kw())
             # Inside the lock: a concurrent set/delete_override rebuilds
             # the table's sorted views.
             if premix:
@@ -358,7 +425,14 @@ class SketchLimiter(RateLimiter):
                         *, premix: bool = False,
                         wire: bool = False) -> DispatchTicket:
         """Fail-open configs get a pre-resolved fail-open ticket when a
-        launch fails; fail-closed configs raise StorageUnavailableError."""
+        launch fails; fail-closed configs raise StorageUnavailableError.
+        A batch the cascade cannot take in one launch on the card is
+        refused first (InvalidConfigError), whatever the config."""
+        if (self._hier_table is not None and self._cuda
+                and h64.shape[0] > ADMIT_CAPACITY):
+            raise InvalidConfigError(
+                f"a batch of {h64.shape[0]} requests: with tenants the card "
+                f"decides at most {ADMIT_CAPACITY} a launch; split it")
         try:
             return self._launch_hashed(h64, ns_arr, to_micros(t), t,
                                        premix=premix, wire=wire)
@@ -616,24 +690,28 @@ class SketchLimiter(RateLimiter):
 
     def capture_state(self):
         """``(kind, arrays, extra)`` in the JAX package's capture format:
-        the state slabs as NumPy arrays plus the ``policy_*`` columns, and
-        (windowed) ``host_period`` in extra. convert.py carries it across
-        packages."""
+        the state slabs as NumPy arrays plus the ``policy_*`` (and with
+        tenants the ``hier_*``) columns, and (windowed) ``host_period`` in
+        extra. convert.py carries it across packages."""
         from ratelimiter_tpu_torch.convert import state_to_numpy
 
         self._check_open()
         with self._lock:
             arrays = state_to_numpy(self._state)
             arrays.update(self._policy_table.snapshot_arrays())
+            if self._hier_table is not None:
+                arrays.update(self._hier_table.snapshot_arrays())
             extra = {"saved_at": self.clock.now()}
             extra.update((k, int(getattr(self, "_" + k)))
                          for k in self._EXTRA_KEYS)
         return self._CKPT_KIND, arrays, extra
 
     def restore_state(self, arrays: dict, extra: dict) -> None:
-        """Replace state and overrides with captured ``arrays`` (from
-        either package's ``capture_state``) of this limiter's kind; the
-        host mirrors named in ``_EXTRA_KEYS`` are required in ``extra``."""
+        """Replace state, overrides and (with tenants) the tenant table,
+        its assignments and its controller-moved effective limits with
+        captured ``arrays`` (from either package's ``capture_state``) of
+        this limiter's kind; the host mirrors named in ``_EXTRA_KEYS`` are
+        required in ``extra``."""
         from ratelimiter_tpu_torch.convert import state_from_numpy
 
         self._check_open()
@@ -655,6 +733,9 @@ class SketchLimiter(RateLimiter):
                         f"{tuple(self._state[k].shape)}")
             self._policy_table.restore_arrays(arrays)
             self._policy_dev = None
+            if self._hier_table is not None:
+                self._hier_table.restore_arrays(arrays)
+                self._hier_dev = None
             self._state = state
             for k in self._EXTRA_KEYS:
                 setattr(self, "_" + k, int(extra[k]))
@@ -761,6 +842,7 @@ class SketchTokenBucketLimiter(SketchLimiter):
         # writes: the next step clamps every acc cell once (_launch_kw).
         self._acc_over_cap = False
         self._init_policy()
+        self._init_hierarchy()
 
     def _policy_validate(self, limit: int, _window_us: int) -> None:
         # Admission runs exact int64 micro-token cumsums: the same gate as
@@ -788,6 +870,19 @@ class SketchTokenBucketLimiter(SketchLimiter):
         acc = np.asarray(arrays.get("acc", ()), dtype=np.int64)
         self._acc_over_cap = bool(
             acc.size and int(acc.max()) > DEBT_CAP)
+
+    def _hier_counts(self) -> np.ndarray:
+        """The bucket's scope counters are fixed-window: counts of an
+        earlier window than now's read as zero (the step zeroes them
+        lazily)."""
+        with self._lock:
+            counts = self._state["tn_counts"].clone()
+            period = int(self._state["tn_period"])
+            window_us = self._window_us
+        counts = counts.cpu().numpy()
+        if period < to_micros(self.clock.now()) // window_us:
+            return np.zeros_like(counts)
+        return counts
 
     def _launch_finish(self, outs, now_us: int, window_us: int):
         """Token-bucket result assembly: retry-after = deficit / refill

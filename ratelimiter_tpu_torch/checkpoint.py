@@ -55,10 +55,11 @@ def config_fingerprint(config: Config) -> str:
     """Stable hash over every semantic config field: the JAX package's
     digest for the same config. The persistence spec and
     ``sketch.kernels`` are excluded (operational knobs, not state
-    geometry), as is the hierarchy spec while it is disabled (the port
-    refuses an enabled one, ROADMAP A6); the JAX package also excludes its
-    mesh spec. tests/test_torch_persistence.py pins the JAX golden
-    value."""
+    geometry), as is the hierarchy spec while it is disabled (so every
+    pre-hierarchy snapshot keeps its fingerprint); enabled, the cascade's
+    geometry shapes the ``tn_*`` arrays and participates. The JAX package
+    also excludes its mesh spec. tests/test_torch_persistence.py pins the
+    JAX golden value, tests/test_torch_hier.py an enabled spec's."""
     fields = asdict(config)
     fields.pop("persistence", None)
     fields["sketch"].pop("kernels", None)

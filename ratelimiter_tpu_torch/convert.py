@@ -11,14 +11,18 @@ a sketch moves between the packages as::
     torch_limiter.restore_state(arrays, extra)      # uses state_from_numpy
 
 and back with ``state_to_numpy``, in the JAX package's restore format.
-Three array sets carry across: the windowed sketch's, the windowed
-sketch's with the heavy-hitter side table (``hh_*``), and the token
-bucket's. The side table's owner columns are uint32 at this boundary, as
-in the JAX package and its snapshots, and int64 holding the same values
-on the port's device. ``hh_owner2`` and the bucket's ``acc`` may be
-absent (checkpoints from before the JAX package added them) and then
-restore as zeros, as there. Hierarchy (``tn_*``, ``hier_*``) arrays are
-refused.
+The array sets that carry across: the windowed sketch's, with or without
+the heavy-hitter side table (``hh_*``) and with or without the hierarchy
+cascade's counters (``tn_cur``/``tn_slabs``/``tn_totals``, int32), and
+the token bucket's, with or without its tenant counters (``tn_counts``
+int64 and the scalar ``tn_period``). The side table's owner columns are
+uint32 at this boundary, as in the JAX package and its snapshots, and
+int64 holding the same values on the port's device. ``hh_owner2`` and the
+bucket's ``acc`` may be absent (checkpoints from before the JAX package
+added them) and then restore as zeros, as there. The tenant registry's
+``hier_*`` columns are the limiter's (hierarchy/tenants.py
+``snapshot_arrays``), not state: they are skipped here, like the
+``policy_*`` columns.
 """
 
 from __future__ import annotations
@@ -60,36 +64,59 @@ BUCKET_DTYPES = {
     "last": np.int64,
 }
 
+#: The windowed sketch's hierarchy counters (index T is the global scope).
+TN_DTYPES = {
+    "tn_cur": np.int32,
+    "tn_slabs": np.int32,
+    "tn_totals": np.int32,
+}
+
+#: The token bucket's hierarchy counters.
+BUCKET_TN_DTYPES = {
+    "tn_counts": np.int64,
+    "tn_period": np.int64,
+}
+
 #: The bucket's scalars live on the host (ops/bucket_kernels.py).
-_HOST_KEYS = ("rem", "last")
+_HOST_KEYS = ("rem", "last", "tn_period")
+
+
+def _windowed_sets():
+    """Every windowed array set: (side table?, hierarchy?)."""
+    for hh in (False, True):
+        for tn in (False, True):
+            yield {**STATE_DTYPES, **(HH_DTYPES if hh else {}),
+                   **(TN_DTYPES if tn else {})}
 
 
 def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """The port's state dict from captured arrays: the windowed sketch's
     tensors on ``device``, or the bucket's slabs on ``device`` with its
-    scalars on the host. ``policy_*`` columns are skipped (the limiter's
-    policy table restores them); any other array set is refused, as is a
-    wrong dtype."""
-    keys = {k for k in arrays if not k.startswith("policy_")}
-    with_hh = {**STATE_DTYPES, **HH_DTYPES}
-    if keys == set(STATE_DTYPES):
-        dtypes = STATE_DTYPES
-    elif keys | {"hh_owner2"} == set(with_hh):
-        dtypes = with_hh
-        if "hh_owner2" not in keys:
-            arrays = dict(arrays, hh_owner2=np.zeros_like(
-                np.asarray(arrays["hh_owner"])))
-    elif keys | {"acc"} == set(BUCKET_DTYPES):
-        dtypes = BUCKET_DTYPES
-        if "acc" not in keys:
-            arrays = dict(arrays, acc=np.zeros_like(np.asarray(arrays["debt"])))
-    else:
+    scalars on the host. ``policy_*`` and ``hier_*`` columns are skipped
+    (the limiter's policy and tenant tables restore them); any other array
+    set is refused, as is a wrong dtype."""
+    keys = {k for k in arrays
+            if not k.startswith(("policy_", "hier_"))}
+    dtypes = None
+    for cand in _windowed_sets():
+        if keys == set(cand) or ("hh_owner" in cand
+                                 and keys | {"hh_owner2"} == set(cand)):
+            dtypes = cand
+    for cand in (BUCKET_DTYPES, {**BUCKET_DTYPES, **BUCKET_TN_DTYPES}):
+        if keys | {"acc"} == set(cand):
+            dtypes = cand
+    if dtypes is None:
         raise InvalidConfigError(
             f"state arrays {sorted(keys)} are neither the windowed sketch's "
             f"{sorted(STATE_DTYPES)} (with or without the side table's "
-            f"{sorted(HH_DTYPES)}) nor the token bucket's "
-            f"{sorted(BUCKET_DTYPES)} (the hierarchy is not ported yet, "
-            f"ROADMAP A6)")
+            f"{sorted(HH_DTYPES)} and the hierarchy's {sorted(TN_DTYPES)}) "
+            f"nor the token bucket's {sorted(BUCKET_DTYPES)} (with or "
+            f"without {sorted(BUCKET_TN_DTYPES)})")
+    if "hh_owner2" in dtypes and "hh_owner2" not in keys:
+        arrays = dict(arrays, hh_owner2=np.zeros_like(
+            np.asarray(arrays["hh_owner"])))
+    if "acc" in dtypes and "acc" not in keys:
+        arrays = dict(arrays, acc=np.zeros_like(np.asarray(arrays["debt"])))
     out = {}
     for k, dt in dtypes.items():
         a = np.asarray(arrays[k])
@@ -105,10 +132,14 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.T
 def state_to_numpy(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Captured NumPy arrays from the port's state dict (the inverse)."""
     if "debt" in state:
-        dtypes = BUCKET_DTYPES
-    elif "hh_owner" in state:
-        dtypes = {**STATE_DTYPES, **HH_DTYPES}
+        dtypes = dict(BUCKET_DTYPES)
+        if "tn_counts" in state:
+            dtypes.update(BUCKET_TN_DTYPES)
     else:
-        dtypes = STATE_DTYPES
+        dtypes = dict(STATE_DTYPES)
+        if "hh_owner" in state:
+            dtypes.update(HH_DTYPES)
+        if "tn_cur" in state:
+            dtypes.update(TN_DTYPES)
     return {k: state[k].detach().cpu().numpy().astype(dt)
             for k, dt in dtypes.items()}

@@ -110,17 +110,75 @@ class SketchParams:
         return int(2.0 * limit * self.width)
 
 
+#: "Effectively unlimited" sentinel for hierarchy scope limits (requests
+#: per window). Chosen so int64 scatter/cumsum math in the cascade kernel
+#: can never overflow (avail * weight stays < 2^62 with weights <= 2^20)
+#: while still being far beyond any real per-window admission volume.
+HIER_UNLIMITED = 1 << 40
+
+
 @dataclass(frozen=True)
 class HierarchySpec:
-    """The tenant cascade's geometry (``ratelimiter_tpu`` ADR-020), reduced
-    to its switch: ``tenants > 0`` enables it there. Not ported yet
-    (ROADMAP A6)."""
+    """Hierarchical cascade geometry (hierarchy/, ADR-020).
 
+    When ``tenants > 0`` the sketch-family decision step evaluates a
+    CASCADE of scopes per request — key → tenant → global — with
+    all-or-nothing admission in the same single device dispatch: tenant
+    ids derive on device from a policy-table-style sorted key→tenant
+    map, a per-tenant (+ global) counter slab updates in the same kernel
+    pass, and contended global mass is clipped between tenants
+    proportionally to their weights (weighted fair sharing).
+
+    Like PolicySpec, these are *compiled-shape* parameters: the tenant
+    slab is ``tenants + 1`` counters (index ``tenants`` is the global
+    scope) and the key→tenant map is a fixed-capacity sorted array
+    consulted by the same branchless binary search as the override
+    table. The spec participates in the checkpoint config fingerprint
+    ONLY when enabled (``tenants > 0``) so every pre-hierarchy snapshot
+    stays restorable.
+
+    Scope limits here are the CONFIGURED defaults (ceilings); the live
+    *effective* limits move at runtime — operator calls or the AIMD
+    controller (hierarchy/controller.py) — and ride checkpoints as
+    ``hier_*`` columns. 0 means unlimited for both limit fields.
+    """
+
+    #: Tenant capacity, power of two in [2, 2^12] (tenant 0 is the
+    #: implicit default tenant for unassigned keys). 0 disables the
+    #: hierarchy subsystem entirely — zero hot-path cost.
     tenants: int = 0
+    #: Key→tenant assignment map capacity; power of two (same binary-
+    #: search geometry rule as PolicySpec.capacity).
+    map_capacity: int = 1024
+    #: Global-scope limit, requests per window across ALL keys
+    #: (0 = unlimited).
+    global_limit: int = 0
+    #: Default per-tenant limit, requests per window (0 = unlimited);
+    #: individual tenants override via set_tenant.
+    default_tenant_limit: int = 0
 
     @property
     def enabled(self) -> bool:
         return self.tenants > 0
+
+    def validate(self) -> None:
+        t = self.tenants
+        if t != 0 and (t < 2 or t > (1 << 12) or (t & (t - 1)) != 0):
+            raise InvalidConfigError(
+                f"hierarchy tenants must be 0 or a power of two in "
+                f"[2, 2^12], got {t}")
+        m = self.map_capacity
+        if m < 8 or m > (1 << 20) or (m & (m - 1)) != 0:
+            raise InvalidConfigError(
+                f"hierarchy map_capacity must be a power of two in "
+                f"[8, 2^20], got {m}")
+        for name, v in (("global_limit", self.global_limit),
+                        ("default_tenant_limit", self.default_tenant_limit)):
+            if (not isinstance(v, int) or isinstance(v, bool) or v < 0
+                    or v >= HIER_UNLIMITED):
+                raise InvalidConfigError(
+                    f"hierarchy {name} must be an integer in "
+                    f"[0, 2^40), got {v!r}")
 
 
 @dataclass(frozen=True)
@@ -238,8 +296,10 @@ class Config:
         persistence: durability subsystem knobs (WAL + background
             snapshots; disabled unless ``persistence.dir`` is set). Not
             part of the checkpoint fingerprint.
-        hierarchy: the tenant cascade; not ported yet, so a config that
-            enables it is refused by the sketch backend.
+        hierarchy: hierarchical cascade geometry (tenant scopes + global
+            scope, weighted fair share; hierarchy/). Part of the
+            fingerprint only when enabled, so pre-hierarchy snapshots stay
+            valid.
     """
 
     algorithm: Algorithm
@@ -273,6 +333,7 @@ class Config:
         self.sketch.validate()
         self.policy.validate()
         self.persistence.validate()
+        self.hierarchy.validate()
 
     def with_defaults(self) -> "Config":
         """Non-mutating defaulting (reference ``config.go:54-67``): returns a

@@ -59,7 +59,8 @@
 // thread) that holds B keys, up to kMaxCapacity = 8192, the largest power
 // of two whose table (two 8-byte slots a key, 128 KB) fits the 227 KB of
 // shared memory a block may take; the wrappers run the plain composition
-// above it (ops/sketch_cuda.py, ADMIT_CAPACITY). The shapes come from
+// above it, except under the hierarchy cascade, which refuses such a
+// batch on the card (ops/sketch_cuda.py, ADMIT_CAPACITY). The shapes come from
 // ``python3 chip_smoke.py --admit-sweep`` on an H100 (csrc/admit_bench.cu,
 // PERF.md): 64x4 up to 256 keys, 256x4 up to 1024, 512x8 up to 4096
 // (1024x4 and 256x16 were slower on Zipf ids and on one key), 1024x8 up
@@ -321,12 +322,14 @@ __device__ __forceinline__ void admit(typename S::Storage& tmp,
 }
 
 // Launches ONE block of ``kernel`` (a __global__ function taking ``a`` by
-// value, over the block shape S) with the routine's storage as dynamic
-// shared memory (above 48 KB only after the opt-in). Returns the launch's
+// value, over the block shape S) with the routine's storage, then
+// ``extra`` bytes more (the cascade's, cascade.cuh), as dynamic shared
+// memory (above 48 KB only after the opt-in). Returns the launch's
 // cudaError_t.
 template <class S, class Args>
-int launch_block(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(typename S::Storage);
+int launch_block(void (*kernel)(Args), const Args& a, cudaStream_t stream,
+                 size_t extra = 0) {
+  const size_t smem = sizeof(typename S::Storage) + extra;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -339,26 +342,27 @@ int launch_block(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
 
 // The launch at the smallest shape holding ``a.B`` keys (fields B,
 // iters): ``Kernel::fn<S>()`` returns the __global__ function for shape S
-// (its quantity type ``Kernel::Q``).
+// (its quantity type ``Kernel::Q``); ``extra`` shared-memory bytes follow
+// the routine's storage.
 template <class Kernel, class Args>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream, size_t extra = 0) {
   using Q = typename Kernel::Q;
   if (a.B < 0 || a.B > kMaxCapacity || a.iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B <= 256) {
     using S = Shape<64, 4, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
   }
   if (a.B <= 1024) {
     using S = Shape<256, 4, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
   }
   if (a.B <= 4096) {
     using S = Shape<512, 8, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
   }
   using S = Shape<1024, 8, Q>;
-  return launch_block<S>(Kernel::template fn<S>(), a, stream);
+  return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
 }
 
 }  // namespace rl_admit

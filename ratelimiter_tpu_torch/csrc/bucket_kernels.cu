@@ -46,6 +46,13 @@
 // replaces the ~90 launches of the plain admission and epilogue with one,
 // on one SM.
 //
+// With the hierarchy cascade (tenants > 0), bucket_admit runs a
+// compile-time variant (kCasc): cascade.cuh's routine in the same block
+// after admission (the tenant and global scopes are fixed-window request
+// counters, tn_counts, zeroed when the step's window is later than
+// theirs), then the epilogue reads the final mask, and a row the key
+// scope admits but the cascade denies retries at the scope window's end.
+//
 // acc is not read densely: every state the step writes holds acc <= CAP,
 // and a restored state that does not (only a restore can bring one) is
 // clamped once, densely, by a call with clamp_acc set (the limiter marks
@@ -67,6 +74,7 @@
 #include <stdint.h>
 
 #include "admit.cuh"
+#include "cascade.cuh"
 #include "front.cuh"
 #include "tile_owner.cuh"
 
@@ -247,13 +255,19 @@ struct BucketAdmit {
   int B, iters;
 };
 
-template <class S>
+template <class S, bool kCasc>
 __global__ void __launch_bounds__(S::kThreads)
-    bucket_admit_kernel(const BucketAdmit a) {
+    bucket_admit_kernel(const rl_cascade::Operands<kCasc, BucketAdmit> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
   rl_admit::Sorted<long long, S::kItems> s;
   rl_admit::admit<S>(tmp, a.h1, a.n_units, a.avail, a.B, a.iters, s);
+  // The cascade build: stages 2 and 3 in this block (the tenant counters
+  // are fixed-window request counts), then the epilogue reads the final
+  // mask.
+  if constexpr (kCasc)
+    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
+                           a.casc, a.h1, a.B, a.iters);
   // In batch order: coalesced reads and writes.
   for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
     const bool ok = tmp.u.out.allowed[i];
@@ -270,9 +284,12 @@ __global__ void __launch_bounds__(S::kThreads)
         (0ull - static_cast<unsigned long long>(deficit)) *
         static_cast<unsigned long long>(a.rate_den));
     const long long q = floor_div(prod, a.rate_num);
-    a.retry_us[i] = ok ? 0
-                       : static_cast<long long>(
-                             0ull - static_cast<unsigned long long>(q));
+    long long retry = static_cast<long long>(
+        0ull - static_cast<unsigned long long>(q));
+    // A row the key scope admits (no deficit) but the cascade denied
+    // retries when the tenant/global window resets.
+    if constexpr (kCasc) retry = deficit <= 0 ? a.casc.retry_us : retry;
+    a.retry_us[i] = ok ? 0 : retry;
   }
 }
 
@@ -286,10 +303,11 @@ struct BucketFrontKernel {
 };
 
 // admit.cuh's launch() picks the block shape.
+template <bool kCasc>
 struct BucketAdmitKernel {
   using Q = long long;
   template <class S>
-  static auto fn() { return &bucket_admit_kernel<S>; }
+  static auto fn() { return &bucket_admit_kernel<S, kCasc>; }
 };
 
 }  // namespace
@@ -343,14 +361,19 @@ int rl_bucket_update(void* debt, void* acc, long long decay, const void* h1,
 }
 
 // One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
-// keys; one block at B = 0 too). rate_num and rate_den > 0.
+// keys; one block at B = 0 too). rate_num and rate_den > 0. limit ==
+// nullptr: no cascade (h2, n and the cascade's operands unused).
 int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
                     void* allowed, void* consumed, void* remaining,
                     void* retry_us, long long rate_num, long long rate_den,
-                    int B, int iters, void* stream) {
+                    int B, int iters, const void* h2, const void* n,
+                    const void* map_key, const void* map_tid, int P,
+                    const void* limit, const void* weight, int T,
+                    void* tn_counts, int rolled, long long cascade_retry_us,
+                    void* stream) {
   if (rate_num < 1 || rate_den < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  BucketAdmit a;
+  rl_cascade::With<BucketAdmit> a;
   a.h1 = static_cast<const int64_t*>(h1);
   a.n_units = static_cast<const long long*>(n_units);
   a.avail = static_cast<const long long*>(avail);
@@ -362,8 +385,18 @@ int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
   a.rate_den = rate_den;
   a.B = B;
   a.iters = iters;
-  return rl_admit::launch<BucketAdmitKernel>(
-      a, static_cast<cudaStream_t>(stream));
+  a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
+                                 T, tn_counts, nullptr, nullptr, nullptr,
+                                 rolled, cascade_retry_us);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (limit == nullptr) {
+    const BucketAdmit& b = a;
+    return rl_admit::launch<BucketAdmitKernel<false>>(b, s);
+  }
+  if (!rl_cascade::valid(a.casc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rl_admit::launch<BucketAdmitKernel<true>>(
+      a, s, rl_cascade::extra_bytes(T));
 }
 
 }  // extern "C"

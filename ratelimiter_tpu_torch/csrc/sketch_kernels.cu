@@ -24,8 +24,11 @@
 // window_admit run a compile-time variant (a kHH template flag): the front
 // also reads each key's slot (mine = owner == h1; the owned part of the
 // estimate), the backs leave owned keys out of the sketch writes and
-// write the promotion targets. The builds without the flag are the code
-// the step ran before the side table was ported.
+// write the promotion targets. With the hierarchy cascade (tenants > 0),
+// add_back and window_admit run another (kCasc): cascade.cuh's routine in
+// the same block after admission, then everything after reads the final
+// mask and the scope counters take the histogram. The builds without the
+// flags are the code the step ran before either was ported.
 //
 // The Pallas kernels grid sequentially over the d sketch rows and keep a
 // whole (w,) row in VMEM. Here blocks run in parallel and in no order, so
@@ -77,6 +80,7 @@
 #include <stdint.h>
 
 #include "admit.cuh"
+#include "cascade.cuh"
 #include "front.cuh"
 #include "tile_owner.cuh"
 
@@ -333,14 +337,19 @@ __device__ __forceinline__ float post_batch(float est, float avail,
   return (est + (avail - seen)) + n_f;
 }
 
-template <class S, bool kHH>
+template <class S, bool kHH, bool kCasc>
 __global__ void __launch_bounds__(S::kThreads)
-    add_back_kernel(const AddBack a) {
+    add_back_kernel(const rl_cascade::Operands<kCasc, AddBack> a) {
   constexpr int kBlock = S::kThreads, kItems = S::kItems;
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
   rl_admit::Sorted<float, kItems> s;
   rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  // The cascade build: stages 2 and 3 in this block, then everything
+  // below reads the final mask.
+  if constexpr (kCasc)
+    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
+                           a.casc, a.h1, a.B, a.iters);
   // The scatter, in sorted order. Admission groups on h1 alone, but the
   // columns take (h1, h2), and two keys may share h1: so a run is a
   // stretch of one segment with one h2. Each run's admitted n is summed
@@ -421,13 +430,16 @@ struct WindowAdmit {
   int B, iters;
 };
 
-template <class S, bool kHH>
+template <class S, bool kHH, bool kCasc>
 __global__ void __launch_bounds__(S::kThreads)
-    window_admit_kernel(const WindowAdmit a) {
+    window_admit_kernel(const rl_cascade::Operands<kCasc, WindowAdmit> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
   rl_admit::Sorted<float, S::kItems> s;
   rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  if constexpr (kCasc)
+    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
+                           a.casc, a.h1, a.B, a.iters);
   for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
     const bool ok = tmp.u.out.allowed[i];
     const float seen = tmp.u.out.seen[i];
@@ -562,19 +574,35 @@ struct WindowFrontKernel {
 };
 
 // admit.cuh's launch() picks the block shape.
-template <bool kHH>
+template <bool kHH, bool kCasc>
 struct AddBackKernel {
   using Q = float;
   template <class S>
-  static auto fn() { return &add_back_kernel<S, kHH>; }
+  static auto fn() { return &add_back_kernel<S, kHH, kCasc>; }
 };
 
-template <bool kHH>
+template <bool kHH, bool kCasc>
 struct WindowAdmitKernel {
   using Q = float;
   template <class S>
-  static auto fn() { return &window_admit_kernel<S, kHH>; }
+  static auto fn() { return &window_admit_kernel<S, kHH, kCasc>; }
 };
+
+// A back's launch: the kHH and kCasc builds picked from its operands
+// (the builds without the cascade take the base operands alone).
+template <template <bool, bool> class Kernel, class Base>
+int launch_back(const rl_cascade::With<Base>& a, bool hh, cudaStream_t s) {
+  if (a.casc.limit != nullptr) {
+    if (!rl_cascade::valid(a.casc))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t extra = rl_cascade::extra_bytes(a.casc.T);
+    return hh ? rl_admit::launch<Kernel<true, true>>(a, s, extra)
+              : rl_admit::launch<Kernel<false, true>>(a, s, extra);
+  }
+  const Base& b = a;
+  return hh ? rl_admit::launch<Kernel<true, false>>(b, s)
+            : rl_admit::launch<Kernel<false, false>>(b, s);
+}
 
 }  // namespace
 
@@ -660,15 +688,18 @@ int rl_add_update(void* totals, void* cur, const void* h1, const void* h2,
 
 // One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
 // keys; one block at B = 0 too). mine == nullptr: no side table (est and
-// target_pr unused).
+// target_pr unused). limit == nullptr: no cascade (its operands unused).
 int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
                 const void* n, const void* n_f, const void* avail,
                 const void* est, const void* mine, void* allowed,
                 void* remaining, void* target_pr, int B, int d, int w,
-                int iters, void* stream) {
+                int iters, const void* map_key, const void* map_tid, int P,
+                const void* limit, const void* weight, int T, void* counts,
+                void* tn_cur, const void* slab, const void* frac,
+                void* stream) {
   if (d < 1 || w < 16 || (w & (w - 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  AddBack a;
+  rl_cascade::With<AddBack> a;
   a.totals = static_cast<int32_t*>(totals);
   a.cur = static_cast<int32_t*>(cur);
   a.h1 = static_cast<const int64_t*>(h1);
@@ -685,17 +716,23 @@ int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
   a.d = d;
   a.w = w;
   a.iters = iters;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mine != nullptr) return rl_admit::launch<AddBackKernel<true>>(a, s);
-  return rl_admit::launch<AddBackKernel<false>>(a, s);
+  a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
+                                 T, counts, tn_cur, slab, frac, 0, 0);
+  return launch_back<AddBackKernel, AddBack>(a, mine != nullptr,
+                                    static_cast<cudaStream_t>(stream));
 }
 
-// mine == nullptr: no side table (target_pr unused).
+// mine == nullptr: no side table (target_pr unused). limit == nullptr:
+// no cascade (h2, n and the cascade's operands unused).
 int rl_window_admit(const void* h1, const void* est, const void* n_f,
                     const void* avail, const void* mine, void* target,
                     void* allowed, void* remaining, void* target_pr, int B,
-                    int iters, void* stream) {
-  WindowAdmit a;
+                    int iters, const void* h2, const void* n,
+                    const void* map_key, const void* map_tid, int P,
+                    const void* limit, const void* weight, int T,
+                    void* counts, void* tn_cur, const void* slab,
+                    const void* frac, void* stream) {
+  rl_cascade::With<WindowAdmit> a;
   a.h1 = static_cast<const int64_t*>(h1);
   a.est = static_cast<const float*>(est);
   a.n_f = static_cast<const float*>(n_f);
@@ -707,10 +744,10 @@ int rl_window_admit(const void* h1, const void* est, const void* n_f,
   a.target_pr = static_cast<float*>(target_pr);
   a.B = B;
   a.iters = iters;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mine != nullptr)
-    return rl_admit::launch<WindowAdmitKernel<true>>(a, s);
-  return rl_admit::launch<WindowAdmitKernel<false>>(a, s);
+  a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
+                                 T, counts, tn_cur, slab, frac, 0, 0);
+  return launch_back<WindowAdmitKernel, WindowAdmit>(a, mine != nullptr,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // One launch of one block (kHHThreads threads, fewer for a small batch;

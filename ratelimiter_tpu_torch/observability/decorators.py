@@ -4,9 +4,9 @@
 A decorator implements the same RateLimiter surface and delegates it to
 ``inner``, so decorators compose with each other and with either of the
 port's backends. The port needs the base class for the persistence
-wrapper (persistence/manager.py ``PersistentLimiter``). Left out: the
-metrics, logging and circuit-breaker decorators and the hierarchy
-surface's delegation (ROADMAP A6, A13).
+wrapper (persistence/manager.py ``PersistentLimiter``), and delegates
+the hierarchy's tenant surface too. Left out: the metrics, logging and
+circuit-breaker decorators (ROADMAP A13).
 
 Every public method of the port's limiters is delegated EXPLICITLY: the
 base class defines several of them (launch_batch, resolve,
@@ -137,6 +137,52 @@ class LimiterDecorator(RateLimiter):
         self.inner.restore(path)
 
     # Backend extras (device, mass_budget, overload_periods, ...) -----------
+
+    # Hierarchy surface (ADR-020): same explicit-delegation rule as the
+    # policy surface — the base class defines these, so __getattr__
+    # never fires (the JAX package's sliced mesh overrides them with
+    # write-all semantics that must survive any decorator stack).
+
+    def set_tenant(self, name: str, limit: Optional[int] = None, *,
+                   weight: int = 1, floor: Optional[int] = None):
+        return self.inner.set_tenant(name, limit, weight=weight,
+                                     floor=floor)
+
+    def delete_tenant(self, name: str) -> bool:
+        return self.inner.delete_tenant(name)
+
+    def assign_tenant(self, key: str, tenant: str) -> None:
+        return self.inner.assign_tenant(key, tenant)
+
+    def unassign_tenant(self, key: str) -> bool:
+        return self.inner.unassign_tenant(key)
+
+    def tenant_of(self, key: str) -> str:
+        return self.inner.tenant_of(key)
+
+    def get_tenant(self, name: str):
+        return self.inner.get_tenant(name)
+
+    def list_tenants(self):
+        return self.inner.list_tenants()
+
+    def set_global_limit(self, limit) -> None:
+        return self.inner.set_global_limit(limit)
+
+    def set_effective(self, scope: str, limit: int) -> int:
+        return self.inner.set_effective(scope, limit)
+
+    def effective_limits(self):
+        return self.inner.effective_limits()
+
+    def hierarchy_payload(self) -> dict:
+        return self.inner.hierarchy_payload()
+
+    def apply_hierarchy_payload(self, payload: dict) -> bool:
+        return self.inner.apply_hierarchy_payload(payload)
+
+    def hierarchy_stats(self) -> dict:
+        return self.inner.hierarchy_stats()
 
     def __getattr__(self, name: str):
         return getattr(self.inner, name)

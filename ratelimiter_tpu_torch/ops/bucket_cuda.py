@@ -16,10 +16,16 @@ block-level routine of ``csrc/admit.cuh``; it replaces no TPU kernel):
   versions bit-equal to the JAX package, and ``chip_smoke.py`` holds each
   kernel bit-equal to its plain version on the card.
 
+With the hierarchy cascade, ``bucket_admit`` takes its operands
+(``sketch_cuda.Cascade``, the fixed-window ``tn_counts``) and launches
+its cascade build, which holds at most ``ADMIT_CAPACITY`` requests: above
+it a cascade on the card raises.
+
 Each wrapper counts its kernel launches in a plain integer attribute
 (``bucket_front.launches`` ...); ``launch_counts`` reads them under the
-names of the TPU kernels they replace, and the admission launch's as
-``admit``; ``reset_launch_counts`` clears them.
+names of the TPU kernels they replace, the admission launch's build
+without the cascade as ``admit`` and its cascade build as
+``admit [cascade]``; ``reset_launch_counts`` clears them.
 
 All arithmetic is int64 and exact, so no order of operations (rows in a
 thread, shared-memory atomics in any order) can change a result. The
@@ -37,10 +43,12 @@ from ratelimiter_tpu_torch.core.clock import MICROS
 from ratelimiter_tpu_torch.ops import _build, sketch_cuda
 from ratelimiter_tpu_torch.ops.hashing import halves_dev
 from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
-from ratelimiter_tpu_torch.ops.segment import admit
 from ratelimiter_tpu_torch.ops.sketch_cuda import (
     ADMIT_CAPACITY,
+    Cascade,
+    _cascade_args,
     _check,
+    _check_cascade,
     _check_back,
     _check_front,
     _columns,
@@ -49,6 +57,7 @@ from ratelimiter_tpu_torch.ops.sketch_cuda import (
     _ptr,
     _raise_on,
     _stream,
+    key_admission,
     tiling,
 )
 
@@ -69,7 +78,9 @@ def _lib() -> ctypes.CDLL:
                                         P, P, P, I, I, I, I, P]
         lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, I, I, I,
                                          P]
-        lib.rl_bucket_admit.argtypes = [P, P, P, P, P, P, P, L, L, I, I, P]
+        C = [P, P, I, P, P, I, P]
+        lib.rl_bucket_admit.argtypes = [P, P, P, P, P, P, P, L, L, I, I, P,
+                                        P, *C, I, L, P]
         for fn in (lib.rl_bucket_front, lib.rl_bucket_update,
                    lib.rl_bucket_admit):
             fn.restype = ctypes.c_int
@@ -161,7 +172,8 @@ def bucket_update_plain(debt, acc, decay: int, h1, h2, consumed) -> None:
 
 
 def bucket_admit_plain(h1, n_units, avail, iters: int, rate_num: int,
-                       rate_den: int) -> tuple:
+                       rate_den: int, casc: Optional[Cascade] = None
+                       ) -> tuple:
     """The bucket step's admission and results, all int64: ``segment.
     admit`` of ``n_units`` against ``avail`` grouped on h1, ``consumed =
     where(allowed, n_units, 0)``, ``remaining = (seen - consumed) //
@@ -170,11 +182,19 @@ def bucket_admit_plain(h1, n_units, avail, iters: int, rate_num: int,
     division; the product wraps as int64 does). Reference semantics of
     retry: ``tokenbucket.go:122-130``, the time to refill the deficit,
     ceil'd to whole microseconds. Returns ``(allowed, consumed, remaining,
-    retry_us)``."""
-    allowed, seen, consumed = admit(h1, n_units, avail, iters)
+    retry_us)``. With the cascade's operands ``casc``, admission is
+    ``sketch_cuda.key_admission``'s (the tenant counters folded in place),
+    and a denied row without a deficit retries at ``casc.retry_us``, the
+    tenant/global window's reset (ratelimiter_tpu/ops/bucket_kernels.py:
+    164-205,234-238)."""
+    allowed, seen = key_admission(h1, n_units, avail, iters, casc)
+    consumed = torch.where(allowed, n_units, 0)
     remaining = (seen - consumed) // MICROS
     deficit = torch.clamp_min(n_units - seen, 0)
     retry_us = torch.where(allowed, 0, -((-deficit * rate_den) // rate_num))
+    if casc is not None:
+        retry_us = torch.where(~allowed & (deficit <= 0), casc.retry_us,
+                               retry_us)
     return allowed, consumed, remaining, retry_us
 
 
@@ -271,7 +291,7 @@ def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
 
 def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
                  avail: torch.Tensor, iters: int, rate_num: int,
-                 rate_den: int) -> tuple:
+                 rate_den: int, casc: Optional[Cascade] = None) -> tuple:
     """The bucket step's admission and results (``bucket_admit_plain``'s
     function; the JAX step's ``segment.admit`` and its remaining and retry
     expressions) in one launch ahead of ``bucket_update``, which needs
@@ -285,16 +305,27 @@ def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
     (floor divisions and wrapping products spelled as torch computes
     them). It replaces the ~90 launches of the composed admission and
     results with one. Above ``ADMIT_CAPACITY`` keys the plain version runs
-    on the card."""
+    on the card, without the cascade (with it, such a batch raises).
+
+    With the cascade's operands ``casc`` (the bucket's fixed-window scope
+    counters), the cascade build runs csrc/cascade.cuh's routine in the
+    same block after admission and the epilogue reads the final mask
+    (``sketch_cuda.add_back``'s design), counted in
+    ``bucket_admit.cascade_launches`` too. It holds at most
+    ``ADMIT_CAPACITY`` requests on the card."""
     B = _check_back(h1, {"n_units": (n_units, torch.int64),
                          "avail": (avail, torch.int64)}, iters)
     if not (0 < rate_num < (1 << 63) and 0 < rate_den < (1 << 63)):
         raise ValueError(f"rate {rate_num}/{rate_den} must be positive "
                          f"int64 values")
     dev = h1.device
+    if casc is not None:
+        _check_cascade(casc, B, dev)
+        if casc.cur is not None:
+            raise ValueError("the bucket's cascade takes tn_counts alone")
     if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
         return bucket_admit_plain(h1, n_units, avail, iters, rate_num,
-                                  rate_den)
+                                  rate_den, casc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
@@ -303,9 +334,15 @@ def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
     err = _lib().rl_bucket_admit(
         h1.data_ptr(), n_units.data_ptr(), avail.data_ptr(),
         allowed.data_ptr(), consumed.data_ptr(), remaining.data_ptr(),
-        retry_us.data_ptr(), rate_num, rate_den, B, iters, _stream(h1))
+        retry_us.data_ptr(), rate_num, rate_den, B, iters,
+        *((None, None) if casc is None else (casc.h2.data_ptr(),
+                                             casc.n.data_ptr())),
+        *_cascade_args(casc)[:7],
+        0 if casc is None else int(casc.rolled),
+        0 if casc is None else casc.retry_us, _stream(h1))
     _raise_on(err, "bucket_admit")
     bucket_admit.launches += 1
+    bucket_admit.cascade_launches += casc is not None
     return allowed, consumed, remaining, retry_us
 
 
@@ -315,14 +352,20 @@ KERNELS = {"bucket_estimate": bucket_front, "bucket_update": bucket_update,
            "admit": bucket_admit}
 for _fn in KERNELS.values():
     _fn.launches = 0
+bucket_admit.cascade_launches = 0
 
 
 def launch_counts() -> dict:
     """{TPU kernel name (or ``admit``): launches of its replacement since
-    the last reset}."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    the last reset}: the admission launch's build without the cascade as
+    ``admit``, its cascade build as ``admit [cascade]``."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["admit"] -= bucket_admit.cascade_launches
+    counts["admit [cascade]"] = bucket_admit.cascade_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    bucket_admit.cascade_launches = 0

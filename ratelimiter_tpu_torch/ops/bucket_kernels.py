@@ -32,8 +32,18 @@ consumed, remaining and retry (``bucket_admit``): the hand-written CUDA
 kernels on a CUDA device, their plain versions on the CPU. Result
 assembly and the reset's decay and subtraction are plain PyTorch.
 
-Not ported: the hierarchy cascade (``hierarchy.tenants > 0`` raises,
-ROADMAP A6) and the scan runner ``_bucket_scan``/``build_scan``.
+The hierarchy cascade (``hierarchy.tenants`` = T > 0, ADR-020) counts
+the tenant and global scopes as FIXED-WINDOW request counters, as the
+JAX package does: ``tn_counts`` int64 (T+1,) (index T the global scope)
+for the window ``tn_period`` = ``now_us // window_us``, a host scalar
+like ``rem`` and ``last``. A step in a later window reads them as zero
+and replaces them with its own admitted histogram (lazy zeroing); the
+cascade runs in the back's cascade build (ops/bucket_cuda.py
+``bucket_admit``), and a row the key scope admits but the cascade denies
+retries when the scope window resets. A reset leaves them standing.
+
+Not ported: the scan runner ``_bucket_scan``/``build_scan`` (ROADMAP
+A6).
 """
 
 from __future__ import annotations
@@ -86,30 +96,32 @@ def _check_gates(cfg: Config) -> tuple[int, int, int]:
     return W, num, den
 
 
-def check_ported(cfg: Config) -> tuple[int, int, int]:
-    """Refuse the parts of the bucket that this slice does not port, and
-    configs the exact-integer gates refuse. Returns ``_check_gates``'s
-    (window_us, rate_num, rate_den)."""
-    if cfg.hierarchy.enabled:
-        raise InvalidConfigError(
-            "the hierarchy cascade (hierarchy.tenants > 0) is not ported "
-            "yet (ROADMAP A6)")
-    return _check_gates(cfg)
+#: tn_period's initial value: every count reads as an earlier window's.
+_TN_NEVER = -(1 << 40)
 
 
 def init_state(cfg: Config, device) -> State:
     """All-zero debt (every bucket full) on ``device``; ``rem`` and
-    ``last`` as int64 scalars on the host (module docstring). ``last = 0``
-    makes the first step see a huge elapsed whose decay is a no-op on zero
-    debt. The same keys, shapes and dtypes as the JAX package's."""
-    check_ported(cfg)
+    ``last`` (and with tenants ``tn_period``) as int64 scalars on the host
+    (module docstring). ``last = 0`` makes the first step see a huge
+    elapsed whose decay is a no-op on zero debt. The same keys, shapes and
+    dtypes as the JAX package's."""
+    _check_gates(cfg)
     d, w = cfg.sketch.depth, cfg.sketch.width
-    return {
+    state = {
         "debt": torch.zeros((d, w), dtype=torch.int64, device=device),
         "acc": torch.zeros((d, w), dtype=torch.int64, device=device),
         "rem": torch.zeros((), dtype=torch.int64),
         "last": torch.zeros((), dtype=torch.int64),
     }
+    T = cfg.hierarchy.tenants
+    if T:
+        state.update({
+            "tn_counts": torch.zeros((T + 1,), dtype=torch.int64,
+                                     device=device),
+            "tn_period": torch.full((), _TN_NEVER, dtype=torch.int64),
+        })
+    return state
 
 
 def _decay(state, now_us: int, *, rate_num: int, rate_den: int):
@@ -133,9 +145,25 @@ def _advance(state: State, now_us: int, rem: int) -> None:
     state["last"].fill_(max(int(state["last"]), int(now_us)))
 
 
-def _decide(state: State, keys, n, now_us: int, policy=None, *,
+def _cascade(state: State, hier, h2, n, now_us: int, window_us: int):
+    """The cascade's operands for the back (None without ``hier``): the
+    scope counters of the window ``now_us // window_us``, read as zero
+    when they count an earlier one; the window's reset is the retry of
+    rows the cascade denies. Records the window in ``tn_period``."""
+    if hier is None:
+        return None
+    hp = now_us // window_us
+    period = int(state["tn_period"])
+    state["tn_period"].fill_(max(period, hp))
+    return bucket_cuda.Cascade(hier, h2, n, state["tn_counts"],
+                               rolled=hp > period,
+                               retry_us=(hp + 1) * window_us - now_us)
+
+
+def _decide(state: State, keys, n, now_us: int, policy=None, hier=None, *,
             premix: bool, seed: int, limit: int, rate_num: int,
-            rate_den: int, iters: int, clamp_acc: bool = False):
+            rate_den: int, iters: int, window_us: int,
+            clamp_acc: bool = False):
     """One decision step over a padded batch, updating ``state`` in place.
 
     ``keys`` the staged int64[B] hashes (raw ids with ``premix``) or an
@@ -143,7 +171,8 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
     padding). Returns ``(allowed bool[B], remaining int64[B], retry_us
     int64[B])``. ``clamp_acc`` asks the update to clamp every ``acc`` cell
     at 2^61, after a restore that brought cells above it (the JAX kernel
-    does so on every call; ops/bucket_cuda.py).
+    does so on every call; ops/bucket_cuda.py). ``hier`` (the tenant
+    table's device columns, with ``tn_*`` state) runs the cascade.
 
     Policy overrides change a key's burst CAPACITY (``limit_k`` micro-
     tokens); the decay rate stays the global limit/window, since colliding
@@ -152,18 +181,20 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
     h1, h2, _, avail, n_units = bucket_cuda.bucket_front(
         state["debt"], decay, keys, n, premix=premix, seed=seed,
         policy=policy, limit=limit)
+    casc = _cascade(state, hier, h2, n, now_us, window_us)
     allowed, consumed, remaining, retry_us = bucket_cuda.bucket_admit(
-        h1, n_units, avail, iters, rate_num, rate_den)
+        h1, n_units, avail, iters, rate_num, rate_den, casc)
     bucket_cuda.bucket_update(state["debt"], state["acc"], decay, h1, h2,
                               consumed, clamp_acc)
     _advance(state, now_us, rem)
     return allowed, remaining, retry_us
 
 
-def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None, **kw):
+def _bucket_step(state: State, h1, h2, n, now_us: int, policy=None,
+                 hier=None, **kw):
     """``_decide`` on given (h1, h2) halves."""
-    return _decide(state, (h1, h2), n, now_us, policy, premix=False, seed=0,
-                   **kw)
+    return _decide(state, (h1, h2), n, now_us, policy, hier, premix=False,
+                   seed=0, **kw)
 
 
 def _bucket_reset(state: State, h1, h2, now_us: int, *,
@@ -171,7 +202,8 @@ def _bucket_reset(state: State, h1, h2, now_us: int, *,
     """Per-key reset, in place: decay the whole slab, then subtract the
     key's min-estimate from all its cells, clamped at 0 (colliding keys
     gain allowance: errs toward allowing). ``acc`` is left alone, as in the
-    JAX package: the forgiven debt was real local traffic."""
+    JAX package: the forgiven debt was real local traffic, and so are the
+    tenant counters."""
     decay, rem = _decay(state, now_us, rate_num=rate_num, rate_den=rate_den)
     debt = state["debt"]
     d, w = debt.shape
@@ -200,15 +232,15 @@ def finish_bucket(allowed, remaining, retry_us, now_us: int, window_us: int):
 
 
 def _params(cfg: Config) -> dict:
-    _, num, den = check_ported(cfg)
+    window_us, num, den = _check_gates(cfg)
     return dict(limit=cfg.limit, rate_num=num, rate_den=den,
-                iters=cfg.max_batch_admission_iters)
+                iters=cfg.max_batch_admission_iters, window_us=window_us)
 
 
 def build_steps(cfg: Config) -> tuple[Callable, Callable]:
     """(step, reset) callables for cfg: ``step(state, h1, h2, n, now_us,
-    policy=None)`` and ``reset(state, h1, h2, now_us)``, both updating
-    state in place."""
+    policy=None, hier=None)`` and ``reset(state, h1, h2, now_us)``, both
+    updating state in place."""
     kw = _params(cfg)
     step = partial(_bucket_step, **kw)
     reset = partial(_bucket_reset, rate_num=kw["rate_num"],
@@ -217,8 +249,8 @@ def build_steps(cfg: Config) -> tuple[Callable, Callable]:
 
 
 def build_hashed_step(cfg: Config, *, premix: bool = False) -> Callable:
-    """``step(state, h64, n, now_us, policy=None)`` taking finalized 64-bit
-    hashes (premix=False) or raw u64 ids (premix=True, splitmix64 runs
+    """``step(state, h64, n, now_us, policy=None, hier=None)`` taking
+    finalized 64-bit hashes (premix=False) or raw u64 ids (premix=True, splitmix64 runs
     in-step), each as an int64 tensor holding the bits."""
     return partial(_decide, seed=cfg.sketch.seed, premix=premix,
                    **_params(cfg))

@@ -88,3 +88,19 @@ def admit(sid: torch.Tensor, n_units: torch.Tensor, avail_units: torch.Tensor,
     seen_o[order] = seen
     consumed_o = torch.where(allowed_o, n_units, 0)
     return allowed_o, seen_o, consumed_o
+
+
+def segment_consumption(sid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The segment-exclusive sum of (already masked) ``x`` in original
+    request order: ``cons[i]`` = the sum of ``x[j]`` for earlier j of the
+    same segment, in ``x``'s dtype (the JAX package's
+    ``segment.segment_consumption``). The cascade recomputes the key
+    scope's consumption under its final mask with it."""
+    order = torch.sort(sid, stable=True).indices
+    s = sid[order]
+    seg_head = torch.ones_like(s, dtype=torch.bool)
+    seg_head[1:] = s[1:] != s[:-1]
+    cons = _segment_exclusive_cumsum(x[order], seg_head)
+    out = torch.empty_like(cons)
+    out[order] = cons
+    return out

@@ -27,13 +27,23 @@ ratelimiter_tpu/ops/sketch_kernels.py:487-532) counts owned keys and
 promotes new ones. Each of those is a compile-time variant of its kernel,
 so the step without the side table runs the same machine code as before.
 
+With the hierarchy cascade (``tenants > 0``) the two backs take its
+operands (``Cascade``) and launch their cascade builds, which run
+``csrc/cascade.cuh``'s block routine after admission (stages 2 and 3,
+the final mask, the scope counters' fold) in the same launch. They hold
+at most ``ADMIT_CAPACITY`` requests: above it a cascade on the card
+raises. The plain versions compose ``ops/hier_kernels.py`` as the JAX
+step does (``key_admission``).
+
 Each wrapper counts its kernel launches in a plain integer attribute
-(``window_front.launches`` ...); ``launch_counts`` reads them under the
-names of the TPU kernels they replace (``add_update``: both of its forms,
-the fused back and the standalone scatter), the fused back alone as
-``add_back``, the admission launch, which replaces no TPU kernel, as
-``admit``, and the side table's update as ``hh_update``;
-``reset_launch_counts`` clears them.
+(``window_front.launches`` ...; the backs' cascade builds in
+``cascade_launches`` too); ``launch_counts`` reads them under the names
+of the TPU kernels they replace (``add_update``: every form, the fused
+back's builds and the standalone scatter), the fused back's build
+without the cascade as ``add_back``, the admission launch's (which
+replaces no TPU kernel) as ``admit``, their cascade builds as
+``add_back [cascade]`` and ``admit [cascade]``, and the side table's
+update as ``hh_update``; ``reset_launch_counts`` clears them.
 
 Rounding. The JAX reference's window read ``f32(t) + frac * f32(b)``
 rounds once, as a fused multiply-add: XLA contracts it when it jits the
@@ -53,10 +63,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ratelimiter_tpu_torch.ops import _build
+from ratelimiter_tpu_torch.ops import _build, hier_kernels
 from ratelimiter_tpu_torch.ops.hashing import halves_dev
 from ratelimiter_tpu_torch.ops.policy_kernels import limits_dev
-from ratelimiter_tpu_torch.ops.segment import admit
+from ratelimiter_tpu_torch.ops.segment import admit, segment_consumption
 
 _SOURCE = "sketch_kernels"
 _configured = set()
@@ -79,9 +89,10 @@ FRONT_THREADS = 128
 #: shared-memory hash table (two 8-byte slots a key, 128 KB) is the
 #: largest power of two that fits a block. Batches above it take the plain
 #: admission on the card and the standalone ``add_update`` (``add_back``),
-#: or the plain admission before ``cu_update`` (``window_admit``). PERF.md
-#: §6 ("Admission capacity and block shapes") has the times behind this
-#: size.
+#: or the plain admission before ``cu_update`` (``window_admit``); with the
+#: hierarchy cascade they are refused on the card (``_check_cascade``).
+#: PERF.md §6 ("Admission capacity and block shapes") has the times behind
+#: this size.
 ADMIT_CAPACITY = 8192
 
 #: The front kernels' key lanes (csrc/front.cuh): raw u64 ids (splitmix64
@@ -99,9 +110,12 @@ def _lib() -> ctypes.CDLL:
                                         I, P, P, P, I, I, I, I, P]
         lib.rl_cu_update.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
+        # The cascade's table and scope operands (``_cascade_args``).
+        C = [P, P, I, P, P, I, P, P, P, P]
         lib.rl_add_back.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I,
-                                    I, I, I, P]
-        lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, P]
+                                    I, I, I, *C, P]
+        lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, P,
+                                        P, *C, P]
         lib.rl_hh_update.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, F,
                                      L, I, I, P]
         for fn in (lib.rl_window_front, lib.rl_cu_update,
@@ -210,6 +224,87 @@ class SideTable(NamedTuple):
 #: The side table's state arrays (the windowed state dict's ``hh_*``).
 HH_KEYS = ("hh_owner", "hh_owner2", "hh_cur", "hh_slabs", "hh_totals",
            "hh_last")
+
+
+class Cascade(NamedTuple):
+    """The hierarchy cascade's operands for one step's back (ADR-020,
+    ops/hier_kernels.py). ``hier`` holds the tenant table's device
+    columns (hierarchy/tenants.py ``host_arrays``): ``key``/``tid`` the
+    sorted key->tenant map (int64, a power-of-two capacity), ``limit``/
+    ``weight`` int64 (T+1,), the global scope at index T. ``h2`` and ``n``
+    are the batch's second hash halves (tenant ids derive from (h1, h2))
+    and int32 request counts.
+
+    Windowed: ``counts`` is ``tn_totals`` and ``cur`` ``tn_cur`` (int32
+    (T+1,)), both folded with the admitted histogram (cast to int32);
+    ``slab`` is the tenant boundary sub-window ``tn_slabs[p % S]``
+    weighted by ``frac`` (the front's 0-d output), both None in fixed
+    mode. Bucket: ``counts`` is ``tn_counts`` (int64 (T+1,)) and ``cur``
+    None; ``rolled`` says they count an earlier window (read as 0, then
+    replaced by the histogram), and ``retry_us`` is the time to the next
+    window, the retry of rows the cascade denied."""
+
+    hier: dict
+    h2: torch.Tensor
+    n: torch.Tensor
+    counts: torch.Tensor
+    cur: Optional[torch.Tensor] = None
+    slab: Optional[torch.Tensor] = None
+    frac: Optional[torch.Tensor] = None
+    rolled: bool = False
+    retry_us: int = 0
+
+    @property
+    def tenants(self) -> int:
+        return self.hier["limit"].shape[0] - 1
+
+
+def _check_cascade(c: Cascade, B: int, device) -> int:
+    """The cascade's operands; returns T. On the card a batch holds at
+    most ``ADMIT_CAPACITY`` requests: the cascade builds are one block,
+    and no plain version stands in for them there."""
+    if device.type == "cuda" and B > ADMIT_CAPACITY:
+        raise ValueError(f"the cascade takes at most {ADMIT_CAPACITY} "
+                         f"requests a launch on the card, got {B}")
+    T = c.tenants
+    if T < 2 or T > 4096 or T & (T - 1):
+        raise ValueError(f"tenants must be a power of two in [2, 4096], got "
+                         f"{T}")
+    P = c.hier["key"].shape[0]
+    if P < 2 or P & (P - 1):
+        raise ValueError(f"tenant map capacity must be a power of two, got "
+                         f"{P}")
+    _check("tenant map key", c.hier["key"], torch.int64, (P,), device)
+    _check("tenant map tid", c.hier["tid"], torch.int64, (P,), device)
+    _check("scope limit", c.hier["limit"], torch.int64, (T + 1,), device)
+    _check("scope weight", c.hier["weight"], torch.int64, (T + 1,), device)
+    _check("h2", c.h2, torch.int64, (B,), device)
+    _check("n", c.n, torch.int32, (B,), device)
+    windowed = c.cur is not None
+    _check("scope counts", c.counts, torch.int32 if windowed else torch.int64,
+           (T + 1,), device)
+    if windowed:
+        _check("scope cur", c.cur, torch.int32, (T + 1,), device)
+    if (c.slab is None) != (c.frac is None) or (c.slab is not None
+                                                 and not windowed):
+        raise ValueError("the tenant boundary slab goes with frac, on the "
+                         "windowed sketch")
+    if c.slab is not None:
+        _check("scope boundary", c.slab, torch.int32, (T + 1,), device)
+        _check("frac", c.frac, torch.float32, (), device)
+    return T
+
+
+def _cascade_args(c: Optional[Cascade]) -> tuple:
+    """The C interface's cascade operands after h2 and n (map key, tid,
+    capacity, limit, weight, T, counts, cur, slab, frac); all null
+    without a cascade."""
+    if c is None:
+        return (None, None, 0, None, None, 0, None, None, None, None)
+    return (c.hier["key"].data_ptr(), c.hier["tid"].data_ptr(),
+            c.hier["key"].shape[0], c.hier["limit"].data_ptr(),
+            c.hier["weight"].data_ptr(), c.tenants, c.counts.data_ptr(),
+            _ptr(c.cur), _ptr(c.slab), _ptr(c.frac))
 
 
 def _check_side(hh: SideTable, weighted: bool, device) -> int:
@@ -419,13 +514,75 @@ def _remaining(seen, allowed, n_f) -> torch.Tensor:
         0.0).to(torch.int32)
 
 
+def cascade_avail_plain(c: Cascade) -> torch.Tensor:
+    """int64 (T+1,) availability of every scope (the JAX steps' operand
+    of ``cascade_admit``). Windowed: ``tn_totals`` plus the tenant
+    boundary term ``ceil(frac * f32(max(b, 0)))`` (f32, one multiply) as
+    int64, clamped at 0 (ratelimiter_tpu/ops/sketch_kernels.py:390-398);
+    bucket: ``tn_counts``, 0 when ``rolled`` (ops/bucket_kernels.py:
+    176-179)."""
+    if c.cur is None:
+        counts = torch.zeros_like(c.counts) if c.rolled else c.counts
+    else:
+        est = c.counts.to(torch.int64)
+        if c.slab is not None:
+            est = est + torch.ceil(
+                c.frac * torch.clamp_min(c.slab, 0).to(torch.float32)
+            ).to(torch.int64)
+        counts = torch.clamp_min(est, 0)
+    return hier_kernels.scope_avail(c.hier["limit"], counts)
+
+
+def cascade_admit_plain(c: Cascade, h1, allowed_key, iters: int) -> tuple:
+    """Stages 2 and 3 of the cascade from the key scope's verdicts:
+    ``derive_tids``, ``cascade_avail_plain`` and ``hier_kernels.
+    cascade_admit``. Returns ``(allowed bool[B], hist int64[T+1])``."""
+    T = c.tenants
+    tid = hier_kernels.derive_tids(c.hier, h1, c.h2, T)
+    return hier_kernels.cascade_admit(allowed_key, tid, c.n,
+                                      cascade_avail_plain(c),
+                                      c.hier["weight"], T, iters)
+
+
+def cascade_fold_plain(c: Cascade, hist: torch.Tensor) -> None:
+    """The admitted histogram into the scope counters, in place: the
+    windowed ``tn_cur``/``tn_totals`` gain its int32 cast (wrapping), the
+    bucket's ``tn_counts`` become ``(0 if rolled else tn_counts) +
+    hist``."""
+    if c.cur is None:
+        if c.rolled:
+            c.counts.zero_()
+        c.counts.add_(hist)
+    else:
+        h32 = hier_kernels._wrap32(hist).to(torch.int32)
+        c.cur.add_(h32)
+        c.counts.add_(h32)
+
+
+def key_admission(h1, n_units, avail, iters: int,
+                  casc: Optional[Cascade] = None) -> tuple:
+    """The step's admission: ``segment.admit`` of ``n_units`` against
+    ``avail`` grouped on h1; with ``casc``, the cascade on its verdicts
+    (folded into the scope counters) and the key scope's ``seen``
+    recomputed under the final mask (``avail - segment_consumption``), as
+    the reference does when a verdict flipped (the same bits when none
+    did). Returns ``(allowed, seen)``."""
+    allowed, seen, _ = admit(h1, n_units, avail, iters)
+    if casc is None:
+        return allowed, seen
+    allowed, hist = cascade_admit_plain(casc, h1, allowed, iters)
+    cascade_fold_plain(casc, hist)
+    return allowed, avail - segment_consumption(
+        h1, torch.where(allowed, n_units, 0))
+
+
 def _vanilla_back(scatter, totals, cur, h1, h2, n, n_f, avail,
-                  iters: int, est=None, mine=None) -> tuple:
-    """The vanilla step's back as composed ops: ``admit``, the admitted
-    amounts of keys the side table does not own (``mine``) through
-    ``scatter`` (``add_update_plain`` or the standalone kernel), and
-    remaining; with ``mine``, also the promotion targets."""
-    allowed, seen, _ = admit(h1, n_f, avail, iters)
+                  iters: int, est=None, mine=None, casc=None) -> tuple:
+    """The vanilla step's back as composed ops: ``key_admission``, the
+    admitted amounts of keys the side table does not own (``mine``)
+    through ``scatter`` (``add_update_plain`` or the standalone kernel),
+    and remaining; with ``mine``, also the promotion targets."""
+    allowed, seen = key_admission(h1, n_f, avail, iters, casc)
     written = allowed if mine is None else allowed & ~mine
     scatter(totals, cur, h1, h2,
             torch.where(written, n, torch.zeros_like(n)).to(torch.int32))
@@ -437,7 +594,7 @@ def _vanilla_back(scatter, totals, cur, h1, h2, n, n_f, avail,
 
 
 def add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters: int,
-                   est=None, mine=None) -> tuple:
+                   est=None, mine=None, casc=None) -> tuple:
     """The vanilla step from the front's outputs to its results, in place
     on ``totals`` and ``cur``: in-batch admission of ``n_f`` against
     ``avail`` (``segment.admit``, grouped on h1), ``where(allowed, n, 0)``
@@ -446,20 +603,24 @@ def add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters: int,
     With the side table's ``mine`` (and the front's ``est``), owned keys
     write nothing to the sketch (ratelimiter_tpu/ops/sketch_kernels.py:
     450) and a third element holds the promotion targets
-    ``where(allowed, (est + (avail - seen)) + n_f, est)`` (:496)."""
+    ``where(allowed, (est + (avail - seen)) + n_f, est)`` (:496). With
+    the cascade's operands ``casc`` (``key_admission``), everything after
+    admission reads the final mask (:376-415)."""
     return _vanilla_back(add_update_plain, totals, cur, h1, h2, n, n_f,
-                         avail, iters, est, mine)
+                         avail, iters, est, mine, casc)
 
 
 def window_admit_plain(h1, est, n_f, avail, iters: int,
-                       mine=None) -> tuple:
+                       mine=None, casc=None) -> tuple:
     """The CU step's admission: ``segment.admit``, then the CU targets
     ``where(allowed, (est + (avail - seen)) + n_f, 0)`` and
     ``remaining``. Returns ``(target f32[B], allowed bool[B], remaining
     int32[B])``. With the side table's ``mine``, owned keys target 0
     (ratelimiter_tpu/ops/sketch_kernels.py:432) and a fourth element
-    holds the promotion targets ``where(allowed, ..., est)`` (:496)."""
-    allowed, seen, _ = admit(h1, n_f, avail, iters)
+    holds the promotion targets ``where(allowed, ..., est)`` (:496).
+    With the cascade's operands ``casc``, admission is
+    ``key_admission``'s."""
+    allowed, seen = key_admission(h1, n_f, avail, iters, casc)
     v = est + (avail - seen) + n_f
     written = allowed if mine is None else allowed & ~mine
     out = (torch.where(written, v, 0.0), allowed,
@@ -668,7 +829,8 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
              h2: torch.Tensor, n: torch.Tensor, n_f: torch.Tensor,
              avail: torch.Tensor, iters: int,
              est: Optional[torch.Tensor] = None,
-             mine: Optional[torch.Tensor] = None) -> tuple:
+             mine: Optional[torch.Tensor] = None,
+             casc: Optional[Cascade] = None) -> tuple:
     """Replaces Pallas ``add_update`` (pallas_sketch.py:224-245) with the
     vanilla step's ops around it (the JAX step's ``segment.admit``, its
     add amounts and remaining, ratelimiter_tpu/ops/sketch_kernels.py:374,
@@ -689,11 +851,20 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     ~85 launches of the composed back with one; its time is the single
     block's sort and scans. Above ``ADMIT_CAPACITY`` keys the back runs
     composed on the card: the plain admission, then the standalone
-    ``add_update`` kernel.
+    ``add_update`` kernel (without the cascade: with it, such a batch
+    raises).
 
     With the side table's ``mine`` (and ``est``), a compile-time variant
     leaves owned keys out of the scatter and also writes the promotion
-    targets, returned third (``add_back_plain``)."""
+    targets, returned third (``add_back_plain``).
+
+    With the cascade's operands ``casc`` (``Cascade``), the cascade build
+    runs csrc/cascade.cuh's routine in the same block after admission
+    (stages 2 and 3, the key scope's consumption again under the final
+    mask, the histogram folded into the scope counters), and the scatter
+    and results read the final mask: still one launch, counted in
+    ``add_back.cascade_launches`` too. It holds at most
+    ``ADMIT_CAPACITY`` requests on the card."""
     d, w, B = _check_common(totals, h1, h2)
     _check("cur", cur, torch.int32, (d, w), totals.device, align16=True)
     operands = {"n": (n, torch.int32), "n_f": (n_f, torch.float32),
@@ -704,14 +875,16 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
         operands.update(est=(est, torch.float32), mine=(mine, torch.bool))
     _check_back(h1, operands, iters)
     dev = totals.device
+    if casc is not None:
+        _check_cascade(casc, B, dev)
     if dev.type == "cpu":
         return add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters,
-                              est, mine)
+                              est, mine, casc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if B > ADMIT_CAPACITY:
         return _vanilla_back(add_update, totals, cur, h1, h2, n, n_f, avail,
-                             iters, est, mine)
+                             iters, est, mine, casc)
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     remaining = torch.empty(B, dtype=torch.int32, device=dev)
     target_pr = (None if mine is None
@@ -720,16 +893,19 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
         totals.data_ptr(), cur.data_ptr(), h1.data_ptr(), h2.data_ptr(),
         n.data_ptr(), n_f.data_ptr(), avail.data_ptr(), _ptr(est),
         _ptr(mine), allowed.data_ptr(), remaining.data_ptr(),
-        _ptr(target_pr), B, d, w, iters, _stream(totals))
+        _ptr(target_pr), B, d, w, iters, *_cascade_args(casc),
+        _stream(totals))
     _raise_on(err, "add_back")
     add_back.launches += 1
+    add_back.cascade_launches += casc is not None
     return (allowed, remaining) if mine is None else (allowed, remaining,
                                                       target_pr)
 
 
 def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
                  avail: torch.Tensor, iters: int,
-                 mine: Optional[torch.Tensor] = None) -> tuple:
+                 mine: Optional[torch.Tensor] = None,
+                 casc: Optional[Cascade] = None) -> tuple:
     """The CU step's admission, CU targets and remaining
     (``window_admit_plain``'s function; the JAX step's ``segment.admit``
     and ratelimiter_tpu/ops/sketch_kernels.py:374,432,534-535) in one
@@ -742,19 +918,25 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
     epilogue that writes the three outputs in batch order. It
     replaces the ~85 launches of the composed admission, targets and
     remaining with one. Above ``ADMIT_CAPACITY`` keys the plain version
-    runs on the card.
+    runs on the card, without the cascade (with it, such a batch
+    raises).
 
     With the side table's ``mine``, a compile-time variant targets 0 for
     owned keys and also writes the promotion targets, returned fourth
-    (``window_admit_plain``)."""
+    (``window_admit_plain``). With the cascade's operands ``casc``, the
+    cascade build (``add_back``'s) decides them all under the final mask
+    and folds the scope counters, counted in
+    ``window_admit.cascade_launches`` too."""
     operands = {"est": (est, torch.float32), "n_f": (n_f, torch.float32),
                 "avail": (avail, torch.float32)}
     if mine is not None:
         operands["mine"] = (mine, torch.bool)
     B = _check_back(h1, operands, iters)
     dev = h1.device
+    if casc is not None:
+        _check_cascade(casc, B, dev)
     if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
-        return window_admit_plain(h1, est, n_f, avail, iters, mine)
+        return window_admit_plain(h1, est, n_f, avail, iters, mine, casc)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((1 if mine is None else 2) * B, dtype=torch.float32,
@@ -765,9 +947,13 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
     err = _lib().rl_window_admit(
         h1.data_ptr(), est.data_ptr(), n_f.data_ptr(), avail.data_ptr(),
         _ptr(mine), target.data_ptr(), allowed.data_ptr(),
-        remaining.data_ptr(), _ptr(target_pr), B, iters, _stream(h1))
+        remaining.data_ptr(), _ptr(target_pr), B, iters,
+        *((None, None) if casc is None else (casc.h2.data_ptr(),
+                                             casc.n.data_ptr())),
+        *_cascade_args(casc), _stream(h1))
     _raise_on(err, "window_admit")
     window_admit.launches += 1
+    window_admit.cascade_launches += casc is not None
     if mine is None:
         return target, allowed, remaining
     return target, allowed, remaining, target_pr
@@ -849,26 +1035,38 @@ def hh_update(state: dict, h1: torch.Tensor, h2: torch.Tensor,
     hh_update.launches += 1
 
 
-#: Each wrapper under the name of the TPU kernel it replaces (both forms
-#: of add_update under its name), the fused back alone as ``add_back``,
-#: and the admission launch and the side table's update, which replace
-#: no TPU kernel, as ``admit`` and ``hh_update``.
+#: Each wrapper under the name of the TPU kernel it replaces (every form
+#: of add_update under its name), and the side table's update, which
+#: replaces no TPU kernel, as ``hh_update``.
 KERNELS = {"window_estimate": (window_front,), "cu_update": (cu_update,),
-           "add_update": (add_back, add_update), "add_back": (add_back,),
-           "admit": (window_admit,), "hh_update": (hh_update,)}
+           "add_update": (add_back, add_update), "hh_update": (hh_update,)}
+#: The backs, whose builds without the cascade and cascade builds are
+#: counted apart: the fused vanilla back and the admission launch (which
+#: replaces no TPU kernel).
+BACKS = {"add_back": add_back, "admit": window_admit}
 WRAPPERS = (window_front, cu_update, add_update, add_back, window_admit,
             hh_update)
 for _fn in WRAPPERS:
     _fn.launches = 0
+for _fn in BACKS.values():
+    _fn.cascade_launches = 0
 
 
 def launch_counts() -> dict:
-    """{TPU kernel name (or ``add_back``, ``admit``, ``hh_update``):
-    launches of its replacement since the last reset}."""
-    return {name: sum(fn.launches for fn in fns)
-            for name, fns in KERNELS.items()}
+    """{TPU kernel name (or ``hh_update``): launches of its replacement
+    since the last reset}, and for each back (``add_back``, ``admit``)
+    the launches of its build without the cascade under its name and of
+    its cascade build under ``<name> [cascade]``."""
+    counts = {name: sum(fn.launches for fn in fns)
+              for name, fns in KERNELS.items()}
+    for name, fn in BACKS.items():
+        counts[name] = fn.launches - fn.cascade_launches
+        counts[f"{name} [cascade]"] = fn.cascade_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    for fn in BACKS.values():
+        fn.cascade_launches = 0

@@ -47,12 +47,25 @@ rest (ops/sketch_cuda.py); the JAX package runs the jnp reference for
 this config (its Pallas path is off with a side table), so the port's
 kernels are held to that.
 
-A live ``update_window`` re-buckets the ring (and the side table's)
-onto the new sub-window geometry (``build_migrate``). It is plain
-PyTorch on the state's device, as the rollover is: the JAX package's
-migration and rollover are jitted ``jnp`` too, not Pallas kernels. Left
-out: the hierarchy branches (its configs are refused, ROADMAP A6) and
-the scan runner ``build_scan``.
+The hierarchy cascade (``hierarchy.tenants`` = T > 0, ADR-020) adds
+per-tenant and global in-window counters on the same ring clock
+(``tn_cur`` (T+1,), ``tn_slabs`` (S, T+1), ``tn_totals`` (T+1,), int32,
+index T the global scope), flushed and recomputed by the rollover. The
+step takes the tenant table's device columns (``hier=``): after the key
+scope's admission the back runs stages 2 and 3 (tenant scope, then the
+global scope's weighted fair share; ops/hier_kernels.py), writes and
+reports only what the final all-or-nothing mask admits, and folds the
+admitted histogram into ``tn_cur``/``tn_totals``, all in the cascade
+build of its one launch (ops/sketch_cuda.py ``Cascade``). The tenant
+boundary term rides the front's ``frac``. A reset leaves the tenant
+counters standing (they count admitted aggregate traffic).
+
+A live ``update_window`` re-buckets the ring (and the side table's and
+the tenant counters') onto the new sub-window geometry
+(``build_migrate``). It is plain PyTorch on the state's device, as the
+rollover is: the JAX package's migration and rollover are jitted ``jnp``
+too, not Pallas kernels. Left out: the scan runner ``build_scan``
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -101,19 +114,9 @@ def sketch_geometry(cfg: Config) -> tuple[int, int, int, int, int]:
     return W, W // SW, SW, SW, cfg.limit
 
 
-def check_ported(cfg: Config) -> None:
-    """Refuse the parts of the sketch that the port does not serve yet."""
-    if cfg.hierarchy.enabled:
-        raise InvalidConfigError(
-            "the hierarchy cascade (hierarchy.tenants > 0) is not ported "
-            "yet (ROADMAP A6)")
-    sketch_geometry(cfg)
-
-
 def init_state(cfg: Config, device) -> State:
     """Fresh windowed state on ``device``: the same keys, shapes and dtypes
     as the JAX package's init_state."""
-    check_ported(cfg)
     _, _, _, S, _ = sketch_geometry(cfg)
     d, w = cfg.sketch.depth, cfg.sketch.width
     state = {
@@ -125,6 +128,18 @@ def init_state(cfg: Config, device) -> State:
         "last_period": torch.full((), _NEVER, dtype=torch.int64,
                                   device=device),
     }
+    T = cfg.hierarchy.tenants
+    if T:
+        # Per-tenant + global in-window counters on the ring's clock; index
+        # T is the global scope.
+        state.update({
+            "tn_cur": torch.zeros((T + 1,), dtype=torch.int32,
+                                  device=device),
+            "tn_slabs": torch.zeros((S, T + 1), dtype=torch.int32,
+                                    device=device),
+            "tn_totals": torch.zeros((T + 1,), dtype=torch.int32,
+                                     device=device),
+        })
     K = cfg.sketch.hh_slots
     if K:
         # The owners (hh_owner: h1; hh_owner2: its h2, captured at claim
@@ -168,6 +183,11 @@ def _rollover(state: State, p: int, *, SW: int, S: int) -> None:
     in_window = (periods >= p - SW + 1) & (periods <= p - 1)
     state["totals"].copy_(_masked_sum(state["slabs"], in_window))
     state["cur"].zero_()
+    if "tn_cur" in state:
+        # The tenant/global counters share the ring clock.
+        state["tn_slabs"].index_copy_(0, slot, state["tn_cur"].unsqueeze(0))
+        state["tn_totals"].copy_(_masked_sum(state["tn_slabs"], in_window))
+        state["tn_cur"].zero_()
     if "hh_owner" in state:
         # The side table rides the same clock: flush, recompute, and free
         # slots idle a whole window (their in-window counts are zero).
@@ -213,7 +233,20 @@ def _side(state: State, p: int, *, S: int,
         state["hh_slabs"][p % S] if weighted else None)
 
 
-def _decide(state: State, keys, n, now_us: int, policy=None, *,
+def _cascade(state: State, hier, h2, n, frac, *, period: int, S: int,
+             weighted: bool) -> Optional[sketch_cuda.Cascade]:
+    """The cascade's operands for the back (None without ``hier``): the
+    tenant counters, and in sliding mode the tenant boundary sub-window
+    ``tn_slabs[p % S]`` (a view) weighted by the front's ``frac``."""
+    if hier is None:
+        return None
+    return sketch_cuda.Cascade(
+        hier, h2, n, state["tn_totals"], state["tn_cur"],
+        state["tn_slabs"][period % S] if weighted else None,
+        frac if weighted else None)
+
+
+def _decide(state: State, keys, n, now_us: int, policy=None, hier=None, *,
             premix: bool, seed: int, period: int, limit: int, sub_us: int,
             SW: int, S: int, iters: int, weighted: bool,
             conservative: bool, hh_thresh: float = 0.0):
@@ -224,8 +257,9 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
     padding), ``now_us`` the batch timestamp. Precondition (host-enforced
     by the limiter's _sync_period): ``period`` is state's last_period.
     With a side table in ``state``, ``hh_thresh`` is its promotion
-    threshold. Returns ``(allowed bool[B], remaining int32[B], est
-    f32[B])``."""
+    threshold. ``hier`` (the tenant table's device columns, with
+    ``tn_*`` state) runs the cascade. Returns ``(allowed bool[B],
+    remaining int32[B], est f32[B])``."""
     # Clamp defends against clock skew backwards, as in the reference.
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
@@ -236,28 +270,31 @@ def _decide(state: State, keys, n, now_us: int, policy=None, *,
         policy=policy, limit=limit, hh=side)
     # Owned keys (mine) count in their side-table cell, not the sketch.
     mine = parts[0][0] if parts else None
+    casc = _cascade(state, hier, h2, n, frac, period=period, S=S,
+                    weighted=weighted)
     if conservative:
         # Raise each touched cell only as high as the largest single-key
         # post-batch target that maps to it; denied requests target 0.
         target, allowed, remaining, *target_pr = sketch_cuda.window_admit(
-            h1, est, n_f, avail, iters, mine)
+            h1, est, n_f, avail, iters, mine, casc)
         sketch_cuda.cu_update(state["totals"], state["cur"],
                               None if bnd is None else bnd.slab, frac, h1,
                               h2, target)
     else:
         allowed, remaining, *target_pr = sketch_cuda.add_back(
             state["totals"], state["cur"], h1, h2, n, n_f, avail, iters,
-            None if mine is None else est, mine)
+            None if mine is None else est, mine, casc)
     if mine is not None:
         sketch_cuda.hh_update(state, h1, h2, n, allowed, mine, target_pr[0],
                               thresh=hh_thresh, period=period)
     return allowed, remaining, est
 
 
-def _sketch_step(state: State, h1, h2, n, now_us: int, policy=None, **kw):
+def _sketch_step(state: State, h1, h2, n, now_us: int, policy=None,
+                 hier=None, **kw):
     """``_decide`` on given (h1, h2) halves."""
-    return _decide(state, (h1, h2), n, now_us, policy, premix=False, seed=0,
-                   **kw)
+    return _decide(state, (h1, h2), n, now_us, policy, hier, premix=False,
+                   seed=0, **kw)
 
 
 def _sketch_reset(state: State, h1, h2, now_us: int, *, period: int,
@@ -270,7 +307,8 @@ def _sketch_reset(state: State, h1, h2, now_us: int, *, period: int,
     sketch loses the sketch's part of the estimate only and an owned
     key's cell its own part, each floored, as in the reference; the
     cell's subtraction is the same kernel on the (1, K) table, whose
-    row-0 column is the slot ``h1 & (K-1)``."""
+    row-0 column is the slot ``h1 & (K-1)``. The tenant counters stand:
+    a reset forgives a key, not its tenant's admitted traffic."""
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
                     weighted=weighted)
@@ -341,9 +379,9 @@ def _step_kw(cfg: Config) -> dict:
 
 def build_steps(cfg: Config) -> tuple[Callable, Callable, Callable]:
     """(step, reset, rollover) callables for cfg: ``step(state, h1, h2, n,
-    now_us, policy=None, *, period)``, ``reset(state, h1, h2, now_us, *,
-    period)`` and ``rollover(state, p)``, all updating state in place."""
-    check_ported(cfg)
+    now_us, policy=None, hier=None, *, period)``, ``reset(state, h1, h2,
+    now_us, *, period)`` and ``rollover(state, p)``, all updating state in
+    place."""
     kw = _step_kw(cfg)
     step = partial(_sketch_step, **kw)
     reset = partial(_sketch_reset, sub_us=kw["sub_us"], SW=kw["SW"],
@@ -353,10 +391,10 @@ def build_steps(cfg: Config) -> tuple[Callable, Callable, Callable]:
 
 
 def build_hashed_step(cfg: Config, *, premix: bool = False) -> Callable:
-    """``step(state, h64, n, now_us, policy=None, *, period)`` taking
-    finalized 64-bit hashes (premix=False) or raw u64 ids (premix=True,
-    splitmix64 runs in-step), each as an int64 tensor holding the bits."""
-    check_ported(cfg)
+    """``step(state, h64, n, now_us, policy=None, hier=None, *, period)``
+    taking finalized 64-bit hashes (premix=False) or raw u64 ids
+    (premix=True, splitmix64 runs in-step), each as an int64 tensor
+    holding the bits."""
     return partial(_decide, seed=cfg.sketch.seed, premix=premix,
                    **_step_kw(cfg))
 
@@ -365,6 +403,13 @@ def policy_tensors(host: Dict[str, np.ndarray], device) -> dict:
     """Device copy of the override table's key and limit columns."""
     return {"key": torch.from_numpy(host["key"]).to(device),
             "limit": torch.from_numpy(host["limit"]).to(device)}
+
+
+def hier_tensors(host: Dict[str, np.ndarray], device) -> dict:
+    """Device copy of the tenant table's columns (``key``/``tid`` map,
+    ``limit``/``weight`` per scope; hierarchy/tenants.py host_arrays)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(host[k])).to(device)
+            for k in ("key", "tid", "limit", "weight")}
 
 
 def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
@@ -385,10 +430,10 @@ def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
     (``_NEVER`` slots make ``(sp + 1) * sub_o`` very negative; they are
     masked out, but their slot must still be a valid index).
 
-    The side table's ring and current cells re-bucket the same way; its
-    owners carry over, and each slot's last touched period maps to the
-    last new period its old one overlaps, ``_NEVER`` staying
-    ``_NEVER``."""
+    The side table's ring and current cells, and the tenant counters,
+    re-bucket the same way; the side table's owners carry over, and each
+    slot's last touched period maps to the last new period its old one
+    overlaps, ``_NEVER`` staying ``_NEVER``."""
     p_last = state["last_period"]
     p_now = now_us // sub_n
     sp = state["slab_period"]                              # (So,)
@@ -419,6 +464,10 @@ def _migrate_window(state: State, now_us: int, *, sub_o: int, SWo: int,
            "slab_period": periods_n,
            "last_period": torch.full((), p_now, dtype=torch.int64,
                                      device=sp.device)}
+    if "tn_cur" in state:
+        tn_slabs, tn_cur = rebucket(state["tn_slabs"], state["tn_cur"])
+        out.update({"tn_cur": tn_cur, "tn_slabs": tn_slabs,
+                    "tn_totals": _masked_sum(tn_slabs, in_window) + tn_cur})
     if "hh_owner" in state:
         hh_slabs, hh_cur = rebucket(state["hh_slabs"], state["hh_cur"])
         last = state["hh_last"]
@@ -437,8 +486,6 @@ def build_migrate(old_cfg: Config, new_cfg: Config) -> Callable:
     side table's) from old_cfg's window geometry to new_cfg's, on the
     state's device. Limit/depth/width/hh must match (only the window
     changes)."""
-    check_ported(old_cfg)
-    check_ported(new_cfg)
     _, sub_o, SWo, So, _ = sketch_geometry(old_cfg)
     _, sub_n, SWn, Sn, _ = sketch_geometry(new_cfg)
     if (old_cfg.sketch.depth, old_cfg.sketch.width) != (

@@ -23,6 +23,19 @@ after the last snapshot, by design (under-counting); a SIGTERM takes a
 final snapshot and loses nothing. Boot with the limit and window the
 snapshot was taken under: a snapshot refuses to restore under another
 config (checkpoint.py fingerprint). The JAX binary's flags and defaults.
+
+``--tenants N`` turns on the hierarchy cascade (ADR-020): every decision
+is held to its key's scope, its tenant's and the global one, in the same
+launch. ``--tenant-map``, ``--global-limit``, ``--default-tenant-limit``,
+``--tenant NAME=LIMIT[:WEIGHT[:FLOOR]]`` and ``--assign KEY=TENANT``
+configure it (the tenant and assignment flags apply after recovery, so
+they win over a snapshot's registry for the names they touch), and
+``--controller`` runs the AIMD controller every ``--controller-interval``
+seconds over it (hierarchy/controller.py; its gauges show on METRICS).
+The wire protocol is unchanged: tenant ids derive from the key. The JAX
+binary's flags, refusals and boot order; its HTTP ``/v1/tenants`` and
+``/healthz`` hierarchy block are not ported (the port's door has no HTTP,
+ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -35,10 +48,12 @@ import time
 from ratelimiter_tpu_torch import (
     Algorithm,
     Config,
+    HierarchySpec,
     PersistenceSpec,
     SketchParams,
     create_limiter,
 )
+from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
 from ratelimiter_tpu_torch.serving.server import RateLimitServer
 
 _ALGORITHMS = ("sliding_window", "fixed_window", "tpu_sketch",
@@ -75,7 +90,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "up to 2x this many rows; above --max-batch 4096 "
                          "they pass the one-launch admission capacity "
                          "(8192 keys) and run the composed back, ~0.6 ms "
-                         "a window")
+                         "a window. With --tenants a window holds at most "
+                         "8192 rows (the cascade's one launch) and this "
+                         "flag at most 8192")
     ap.add_argument("--max-delay-us", type=float, default=200.0,
                     help="micro-batcher coalescing window, microseconds "
                          "(adaptive: a filling queue flushes sooner)")
@@ -106,11 +123,44 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["always", "interval", "never"],
                     help="WAL durability: fsync every mutation (default), "
                          "at most every 50ms, or never (OS flushing only)")
+    # Hierarchical cascades + adaptive control (ADR-020).
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="enable hierarchical cascades (ADR-020): tenant "
+                         "capacity (power of two >= 2; 0 = off). Every "
+                         "decision then evaluates key -> tenant -> "
+                         "global scopes in the same launch; tenant ids "
+                         "derive on the card from the key->tenant map "
+                         "(protocol unchanged)")
+    ap.add_argument("--tenant-map", type=int, default=1024,
+                    help="key->tenant assignment map capacity (power of "
+                         "two)")
+    ap.add_argument("--global-limit", type=int, default=0,
+                    help="global-scope limit, requests per window across "
+                         "ALL keys (0 = unlimited)")
+    ap.add_argument("--default-tenant-limit", type=int, default=0,
+                    help="per-window limit of the default tenant (every "
+                         "unassigned key; 0 = unlimited)")
+    ap.add_argument("--tenant", action="append", default=[],
+                    metavar="NAME=LIMIT[:WEIGHT[:FLOOR]]",
+                    help="register a tenant at boot (repeatable); "
+                         "LIMIT 0 = unlimited")
+    ap.add_argument("--assign", action="append", default=[],
+                    metavar="KEY=TENANT",
+                    help="assign a key to a tenant at boot (repeatable)")
+    ap.add_argument("--controller", action="store_true",
+                    help="run the AIMD adaptive controller (ADR-020): a "
+                         "background loop that tightens/relaxes EFFECTIVE "
+                         "scope limits off the per-tenant in-window mass "
+                         "between each scope's floor and its configured "
+                         "ceiling; its gauges show on METRICS; needs "
+                         "--tenants > 0")
+    ap.add_argument("--controller-interval", type=float, default=1.0,
+                    help="seconds between AIMD controller ticks")
     return ap.parse_args(argv)
 
 
 def build_config(args: argparse.Namespace) -> Config:
-    return Config(
+    cfg = Config(
         algorithm=Algorithm(args.algorithm), limit=args.limit,
         window=args.window, fail_open=args.fail_open,
         sketch=SketchParams(
@@ -122,7 +172,76 @@ def build_config(args: argparse.Namespace) -> Config:
             snapshot_interval=args.snapshot_interval,
             snapshot_after_mutations=args.snapshot_after_mutations,
             retain=args.snapshot_retain,
-            wal_fsync=args.wal_fsync))
+            wal_fsync=args.wal_fsync),
+        hierarchy=HierarchySpec(
+            tenants=args.tenants, map_capacity=args.tenant_map,
+            global_limit=args.global_limit,
+            default_tenant_limit=args.default_tenant_limit))
+    if args.controller and not cfg.hierarchy.enabled:
+        raise SystemExit("--controller needs --tenants > 0")
+    if (args.tenant or args.assign) and not cfg.hierarchy.enabled:
+        raise SystemExit("--tenant/--assign need --tenants > 0")
+    if cfg.hierarchy.enabled and args.max_batch > ADMIT_CAPACITY:
+        raise SystemExit(f"--max-batch {args.max_batch} with --tenants: the "
+                         f"cascade decides at most {ADMIT_CAPACITY} requests "
+                         f"a launch")
+    return cfg
+
+
+def max_window(args: argparse.Namespace, cfg: Config) -> int:
+    """The most rows the batcher merges into one hashed window: twice
+    ``--max-batch``, and with the cascade no more than one launch takes
+    (``sketch_cuda.ADMIT_CAPACITY``)."""
+    if cfg.hierarchy.enabled:
+        return min(2 * args.max_batch, ADMIT_CAPACITY)
+    return 2 * args.max_batch
+
+
+def boot_tenants(hier, args: argparse.Namespace) -> None:
+    """Apply --tenant NAME=LIMIT[:WEIGHT[:FLOOR]] and --assign
+    KEY=TENANT boot flags (after recovery, so operator flags win over a
+    snapshot's registry for the names they touch)."""
+    for spec in args.tenant:
+        name, _, rest = spec.partition("=")
+        if not name or not rest:
+            raise SystemExit(f"bad --tenant {spec!r}; expected "
+                             f"NAME=LIMIT[:WEIGHT[:FLOOR]]")
+        parts = rest.split(":")
+        try:
+            limit = int(parts[0]) or None
+            weight = int(parts[1]) if len(parts) > 1 and parts[1] else 1
+            floor = (int(parts[2])
+                     if len(parts) > 2 and parts[2] else None)
+        except ValueError:
+            raise SystemExit(f"bad --tenant {spec!r}; expected "
+                             f"NAME=LIMIT[:WEIGHT[:FLOOR]]") from None
+        hier.set_tenant(name, limit, weight=weight, floor=floor)
+    for spec in args.assign:
+        key, _, tenant = spec.partition("=")
+        if not key or not tenant:
+            raise SystemExit(f"bad --assign {spec!r}; expected "
+                             f"KEY=TENANT")
+        hier.assign_tenant(key, tenant)
+
+
+def setup_hierarchy(args: argparse.Namespace, cfg: Config, units):
+    """Mount the cascade's management surface over the door's dispatch
+    units (``HierarchyFanout``; the port's door has one), apply the boot
+    flags, and build (not start) the AIMD controller when asked, its
+    gauges in the door's registry. Returns ``(hier, controller)``, (None,
+    None) when the hierarchy is off."""
+    if not cfg.hierarchy.enabled:
+        return None, None
+    from ratelimiter_tpu_torch.hierarchy import AIMDController, HierarchyFanout
+    from ratelimiter_tpu_torch.observability import metrics
+
+    hier = HierarchyFanout(list(units))
+    boot_tenants(hier, args)
+    controller = None
+    if args.controller:
+        controller = AIMDController(hier, interval=args.controller_interval,
+                                    registry=metrics.DEFAULT)
+    return hier, controller
 
 
 def prewarm(device) -> float:
@@ -163,14 +282,18 @@ async def _serve(args: argparse.Namespace) -> None:
         print(f"recovered: {report.summary()} in "
               f"{time.perf_counter() - t:.3f} s", flush=True)
         persist.start()
+    _, controller = setup_hierarchy(args, cfg, [limiter])
     server = RateLimitServer(
         limiter, args.host, args.port, max_batch=args.max_batch,
         max_delay=args.max_delay_us * 1e-6,
         dispatch_timeout=(args.dispatch_timeout_ms * 1e-3
                           if args.dispatch_timeout_ms is not None else None),
         inflight=args.inflight,
-        snapshot=persist.snapshot_now if persist is not None else None)
+        snapshot=persist.snapshot_now if persist is not None else None,
+        max_window=max_window(args, cfg))
     await server.start()
+    if controller is not None:
+        controller.start()
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -184,6 +307,8 @@ async def _serve(args: argparse.Namespace) -> None:
     try:
         await stop.wait()
     finally:
+        if controller is not None:
+            controller.stop()
         await server.shutdown()
         if persist is not None:
             # After the drain, before close: the final snapshot captures

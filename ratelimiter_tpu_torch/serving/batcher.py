@@ -79,19 +79,28 @@ class MicroBatcher:
             backends; launches past the window block in the launch
             executor (backpressure). 1 disables overlap.
         registry: metrics registry for queue/batch/SLO gauges.
+        max_window: the most rows one hashed window merges (default
+            ``2*max_batch``); a lone frame above it is split into
+            segments of at most ``min(max_batch, max_window)`` rows.
     """
 
     def __init__(self, limiter: RateLimiter, *, max_batch: int = 4096,
                  max_delay: float = 200e-6,
                  dispatch_timeout: Optional[float] = None,
                  inflight: int = 8,
-                 registry: Optional[m.Registry] = None):
+                 registry: Optional[m.Registry] = None,
+                 max_window: Optional[int] = None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if max_window is None:
+            max_window = 2 * max_batch
+        if max_window < 1:
+            raise ValueError(f"max_window must be >= 1, got {max_window}")
         if inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {inflight}")
         self.limiter = limiter
         self.max_batch = max_batch
+        self.max_window = max_window
         self.max_delay = max_delay
         self.dispatch_timeout = dispatch_timeout
         self.inflight = inflight
@@ -253,7 +262,7 @@ class MicroBatcher:
                              ns: np.ndarray) -> asyncio.Future:
         """Queue one whole ALLOW_HASHED frame into the current coalescing
         window: every hashed frame queued within ``max_delay`` merges into
-        one ``launch_ids`` dispatch of at most ``2*max_batch`` rows, and
+        one ``launch_ids`` dispatch of at most ``max_window`` rows, and
         each frame's future resolves to its contiguous row range of the
         window's BatchResult (``BatchResult.rows``; wire buffers ride
         along). Shares the launch/resolve executors and in-flight window
@@ -280,10 +289,11 @@ class MicroBatcher:
                 reset_at=np.zeros(0, dtype=np.float64)))
             return fut
         b = int(ids.shape[0])
-        if b > 2 * self.max_batch:
+        if b > self.max_window:
             # A lone frame larger than any window: flush the pending
             # window (arrival order across dispatches), dispatch
-            # max_batch segments in order through the same FIFO executors
+            # segments of at most max_batch (and max_window) rows in
+            # order through the same FIFO executors
             # (same-key sequencing across segments is sequential-dispatch
             # order), and join them on the host. The joined result
             # carries no device-packed buffers, so the encoder packs the
@@ -291,17 +301,17 @@ class MicroBatcher:
             if self._pending_hashed:
                 self._flush()
             seg_futs: List[asyncio.Future] = []
-            for off in range(0, b, self.max_batch):
+            seg = min(self.max_batch, self.max_window)
+            for off in range(0, b, seg):
                 sfut: asyncio.Future = loop.create_future()
                 seg_futs.append(sfut)
                 self._spawn(self._dispatch_hashed(
-                    ids[off:off + self.max_batch],
-                    ns[off:off + self.max_batch], sfut))
+                    ids[off:off + seg], ns[off:off + seg], sfut))
             self._spawn(self._join_segments(seg_futs, fut))
             return fut
         if (self._pending_hashed
-                and self._pending_hashed_ids + b > 2 * self.max_batch):
-            # Coalescing never builds a window larger than 2*max_batch:
+                and self._pending_hashed_ids + b > self.max_window):
+            # Coalescing never builds a window larger than max_window:
             # flush the current window first; this frame then opens the
             # next one (arrival order across dispatches is kept).
             self._flush()

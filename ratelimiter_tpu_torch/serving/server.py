@@ -57,7 +57,8 @@ class RateLimitServer:
                  dispatch_timeout: Optional[float] = None,
                  inflight: int = 8,
                  registry: Optional[m.Registry] = None,
-                 snapshot: Optional[Callable[[], dict]] = None):
+                 snapshot: Optional[Callable[[], dict]] = None,
+                 max_window: Optional[int] = None):
         self.limiter = limiter
         #: Durability trigger (the persistence manager's snapshot_now);
         #: None answers SNAPSHOT with E_INVALID_CONFIG.
@@ -68,7 +69,7 @@ class RateLimitServer:
         self.batcher = MicroBatcher(
             limiter, max_batch=max_batch, max_delay=max_delay,
             dispatch_timeout=dispatch_timeout, inflight=inflight,
-            registry=self.registry)
+            registry=self.registry, max_window=max_window)
         self._consumers = (m.ConsumerGauges(limiter, self.registry)
                            if getattr(limiter, "has_hh", False) else None)
         self._server: Optional[asyncio.AbstractServer] = None

@@ -290,7 +290,7 @@ def test_bucket_wrappers_check_operands():
     units = torch.full((B,), 1_000_000, dtype=torch.int64)
     bc.bucket_admit(h1, units, units, 4, NUM, DEN)
     assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
-                                  "admit": 0}
+                                  "admit": 0, "admit [cascade]": 0}
 
 
 # -------------------------------------------------------- result assembly
@@ -562,10 +562,16 @@ def test_create_limiter_routes_token_bucket():
 
 
 def test_bucket_refuses_hierarchy_and_oversized_overrides():
+    # The hierarchy cascade is ported: a tenants=4 config serves (its
+    # parity with the JAX package is tests/test_torch_hier.py's).
     cfg = dataclasses.replace(_cfg(T), hierarchy=dataclasses.replace(
         _cfg(T).hierarchy, tenants=4))
-    with pytest.raises(T.InvalidConfigError, match="A6"):
-        SketchTokenBucketLimiter(cfg, T.ManualClock(T0), device="cpu")
+    lim = SketchTokenBucketLimiter(cfg, T.ManualClock(T0), device="cpu")
+    lim.set_tenant("gold", 3)
+    lim.assign_tenant("g", "gold")
+    assert [lim.allow("g").allowed for _ in range(4)] == [True] * 3 + [False]
+    assert lim.hierarchy_stats()["tenants"]["gold"]["in_window"] == 3
+    lim.close()
     lj, lt = _pair("jnp")
     try:
         for lim, err in ((lj, R.InvalidConfigError), (lt, T.InvalidConfigError)):

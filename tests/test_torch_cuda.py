@@ -87,7 +87,9 @@ def test_kernels_bit_equal_to_plain(dev, d, w, B):
     assert torch.equal(a, a2) and torch.equal(c, c2)
     assert sc.launch_counts() == {"window_estimate": 2, "cu_update": 2,
                                   "add_update": 1, "add_back": 0,
-                                  "admit": 0, "hh_update": 0}
+                                  "admit": 0, "hh_update": 0,
+                                  "add_back [cascade]": 0,
+                                  "admit [cascade]": 0}
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -164,7 +166,7 @@ def test_bucket_kernels_bit_equal_to_plain(dev, d, w, B):
         torch.cuda.synchronize()
         assert torch.equal(a, a2) and torch.equal(c, c2)
     assert bc.launch_counts() == {"bucket_estimate": 3, "bucket_update": 3,
-                                  "admit": 0}
+                                  "admit": 0, "admit [cascade]": 0}
 
 
 def test_bucket_limiter_on_card_equals_limiter_on_cpu(dev):
@@ -563,9 +565,11 @@ def test_backs_bit_equal_to_plain(dev, B, kind, iters):
     fused = int(B <= sc.ADMIT_CAPACITY)
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
                                   "add_update": 1, "add_back": fused,
-                                  "admit": fused, "hh_update": 0}
+                                  "admit": fused, "hh_update": 0,
+                                  "add_back [cascade]": 0,
+                                  "admit [cascade]": 0}
     assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
-                                  "admit": fused}
+                                  "admit": fused, "admit [cascade]": 0}
 
 
 def test_bucket_admit_wrapping_retry_on_card(dev):
@@ -954,3 +958,159 @@ def test_side_table_door_on_card_matches_cpu_replay(dev):
                                  "hh_update"), same=("admit", "cu_update"))
     assert out["dispatches"] < out["frames"] == 96
     assert out["hh_tracked"] >= 1
+
+
+# --------------------------------------------- the hierarchy cascade
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("T", [4, 16, 64, 4096])
+@pytest.mark.parametrize("kind", ["contended", "uncontended", "one tenant"])
+@pytest.mark.parametrize("B", [0, 1, 4096, sc.ADMIT_CAPACITY,
+                               2 * sc.ADMIT_CAPACITY])
+def test_cascade_kernels_bit_equal_to_plain(dev, T, kind, B):
+    """The cascade's routine alone (csrc/cascade_bench.cu) and the
+    cascade builds of add_back, window_admit and bucket_admit against
+    their plain versions in every operand form (sliding with the tenant
+    boundary slab, fixed, the bucket in and past its counters' window):
+    every output, the sketch and the scope counters they fold into. Up to
+    ADMIT_CAPACITY requests each build is one launch; above it each
+    refuses the batch on the card and launches nothing."""
+    cs = _chip_smoke()
+    case = cs.cascade_case(np.random.default_rng(T + B + len(kind)), B, T,
+                           kind)
+    fused = B <= sc.ADMIT_CAPACITY
+    for mode in cs.CASC_MODES:
+        sc.reset_launch_counts()
+        bc.reset_launch_counts()
+        for name, (kern, plain, _) in cs.cascade_calls(
+                torch, sc, bc, case, mode, dev).items():
+            if not fused:
+                if name != "cascade_admit":
+                    with pytest.raises(ValueError, match="at most"):
+                        kern()
+                continue
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            assert len(got) == len(want), name
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype and torch.equal(a, b), (name, mode)
+        counts = cs.cascade_launches(sc, bc)
+        builds = {k: v for k, v in counts.items() if v}
+        want = ({} if not fused else {"bucket admit [cascade]": 1}
+                if mode.startswith("bucket") else
+                {"add_back [cascade]": 1, "admit [cascade]": 1,
+                 "add_update": 1})
+        assert builds == want
+
+
+def _tenant_cfg(algo, cu=True, hh_slots=0):
+    from ratelimiter_tpu_torch import HierarchySpec
+
+    return Config(algorithm=getattr(Algorithm, algo), limit=7, window=6.0,
+                  sketch=SketchParams(depth=3, width=128, sub_windows=6,
+                                      conservative_update=cu,
+                                      hh_slots=hh_slots),
+                  hierarchy=HierarchySpec(tenants=4, map_capacity=16,
+                                          global_limit=60,
+                                          default_tenant_limit=25))
+
+
+@pytest.mark.parametrize("algo,cu,hh", [
+    ("SLIDING_WINDOW", True, 0), ("SLIDING_WINDOW", False, 0),
+    ("FIXED_WINDOW", True, 0), ("SLIDING_WINDOW", True, 16),
+    ("SLIDING_WINDOW", False, 16), ("TOKEN_BUCKET", True, 0)])
+def test_tenant_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu, hh):
+    """The cascade through the limiter with 4 tickets in flight, across
+    rollovers (the bucket across its counters' window), an override, a
+    reset and a moved effective limit: every result and every state array
+    (tn_* included) equal to the CPU's; every step ran a cascade build."""
+    from ratelimiter_tpu_torch import create_limiter
+
+    lims = [create_limiter(_tenant_cfg(algo, cu, hh), clock=ManualClock(1e6),
+                           device=d) for d in (dev, "cpu")]
+    for lim in lims:
+        lim.set_override("k1", 4)
+        lim.set_tenant("gold", 20, weight=3)
+        lim.set_tenant("free", 8)
+        for i in range(6):
+            lim.assign_tenant(f"k{i}", "gold" if i % 2 else "free")
+    rng = np.random.default_rng(5 + cu + hh)
+    sc.reset_launch_counts()
+    bc.reset_launch_counts()
+    pend, steps = [], 0
+    for step in range(24):
+        keys = [f"k{int(i)}" for i in rng.zipf(1.3, size=40) % 12]
+        ns = rng.integers(1, 3, size=40)
+        pend.append([lim.launch_batch(keys, ns) for lim in lims])
+        ids = (rng.zipf(1.3, size=48) % 30).astype(np.uint64)
+        pend.append([lim.launch_ids(ids, wire=bool(step % 2))
+                     for lim in lims])
+        steps += 2
+        while len(pend) > 4:
+            a, b = (lim.resolve(t) for lim, t in zip(lims, pend.pop(0)))
+            for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        if step == 10:
+            for lim in lims:
+                lim.reset("k1")
+                lim.set_effective("gold", 9)
+        for lim in lims:
+            lim.clock.advance(7.0 if step == 16 else 0.4)
+    for pair in pend:
+        a, b = (lim.resolve(t) for lim, t in zip(lims, pair))
+        np.testing.assert_array_equal(a.allowed, b.allowed)
+    torch.cuda.synchronize()
+    counts = {**sc.launch_counts(), "bucket": bc.launch_counts()}
+    ga, ca = (lim.capture_state()[1] for lim in lims)
+    assert sorted(ga) == sorted(ca)
+    for k in ca:
+        np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+    assert lims[0].hierarchy_stats() == lims[1].hierarchy_stats()
+    casc = (counts["bucket"]["admit [cascade]"] if algo == "TOKEN_BUCKET"
+            else counts["admit [cascade]"] + counts["add_back [cascade]"])
+    assert casc == steps
+    assert not (counts["bucket"]["admit"] or counts["admit"]
+                or counts["add_back"])
+    for lim in lims:
+        lim.close()
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_tenant_batch_above_capacity_refused_on_card(dev, algo):
+    """With tenants on the card a batch above ADMIT_CAPACITY is refused
+    before anything runs (the cascade builds are one block, and no plain
+    version stands in for them there): no launch, the state untouched,
+    and the limiter serves the next batch as the CPU twin does."""
+    from ratelimiter_tpu_torch import InvalidConfigError, create_limiter
+
+    lims = [create_limiter(_tenant_cfg(algo), clock=ManualClock(1e6),
+                           device=d) for d in (dev, "cpu")]
+    gpu = lims[0]
+    before = gpu.capture_state()[1]
+    sc.reset_launch_counts()
+    bc.reset_launch_counts()
+    ids = np.arange(sc.ADMIT_CAPACITY + 1, dtype=np.uint64)
+    with pytest.raises(InvalidConfigError, match="at most"):
+        gpu.allow_ids(ids)
+    torch.cuda.synchronize()
+    assert not any(sc.launch_counts().values())
+    assert not any(bc.launch_counts().values())
+    after = gpu.capture_state()[1]
+    for k in before:
+        np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+    a, b = (lim.allow_ids(ids[:sc.ADMIT_CAPACITY]) for lim in lims)
+    np.testing.assert_array_equal(a.allowed, b.allowed)
+    for lim in lims:
+        lim.close()

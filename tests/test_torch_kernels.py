@@ -241,7 +241,9 @@ def test_plain_versions_do_not_count_launches():
     sc.window_admit(_th(h1), ones, ones, ones, 4)
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
                                   "add_update": 0, "add_back": 0,
-                                  "admit": 0, "hh_update": 0}
+                                  "admit": 0, "hh_update": 0,
+                                  "add_back [cascade]": 0,
+                                  "admit [cascade]": 0}
 
 
 @pytest.mark.parametrize("w,batch,given,want", [

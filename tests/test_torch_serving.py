@@ -18,6 +18,7 @@ import asyncio
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -428,6 +429,21 @@ def test_pipelined_connections_through_the_batcher_match_a_replay(algo):
     assert out["resets"] == 1 and out["decisions"] == 4 * (21 * 64 + 3 * 16)
 
 
+def test_tenant_door_matches_a_replay():
+    """chip_smoke.py's door check with the documented tenant flags (the
+    binary's own boot code on the served limiter and the replay's): string
+    frames over the assigned key space, every frame and the final state
+    (tn_* included) bit-identical to a replay of the recorded windows."""
+    cfg = chip_smoke.with_tenants(T.Config(
+        algorithm=T.Algorithm.SLIDING_WINDOW, limit=20, window=2.0,
+        sketch=T.SketchParams(depth=4, width=4096, sub_windows=4)))
+    out = chip_smoke.check_door(
+        None, cfg, "tenants", device="cpu", conns=4, frames=24, n_ids=64,
+        n_keys=64, space="tenants", server_kw=dict(max_batch=256),
+        setup=chip_smoke.boot_tenants)
+    assert out["dispatches"] < out["frames"] == 96
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, imported in a fresh
     interpreter, leaves no jax/jaxlib/ratelimiter_tpu module loaded (exact
@@ -458,3 +474,156 @@ print(len(names), bad)
     assert int(count) >= 27
     assert bad.strip() == "[]"
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
+
+
+@pytest.mark.parametrize("argv", [["--controller"], ["--tenant", "a=5"],
+                                  ["--assign", "k=a"]])
+def test_tenant_flags_need_tenants(argv):
+    """The JAX binary's refusals (tests/test_hierarchy_serving.py::
+    test_flag_validation): --controller, --tenant and --assign need
+    --tenants > 0."""
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    with pytest.raises(SystemExit, match="--tenants"):
+        build_config(parse_args(argv))
+    cfg = build_config(parse_args(argv + ["--tenants", "4"]))
+    assert cfg.hierarchy.tenants == 4
+
+
+def test_tenant_door_keeps_windows_within_one_cascade_launch():
+    """With --tenants the door's hashed windows merge at most
+    sketch_cuda.ADMIT_CAPACITY rows (the cascade's one launch; twice
+    --max-batch without tenants), and a --max-batch above it is
+    refused."""
+    from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_config,
+        max_window,
+        parse_args,
+    )
+
+    for argv, want in ((["--max-batch", "4096"], 8192),
+                       (["--max-batch", "6000"], 12000),
+                       (["--max-batch", "6000", "--tenants", "4"],
+                        ADMIT_CAPACITY),
+                       (["--max-batch", "100", "--tenants", "4"], 200)):
+        args = parse_args(argv)
+        assert max_window(args, build_config(args)) == want, argv
+    with pytest.raises(SystemExit, match="--max-batch"):
+        build_config(parse_args(["--tenants", "4", "--max-batch",
+                                 str(ADMIT_CAPACITY + 1)]))
+
+
+def test_batcher_hashed_windows_stay_within_max_window():
+    """MicroBatcher(max_window=12, max_batch=16): three 5-id frames
+    coalesce into windows of 10 and 5 (a third would pass 12), and a lone
+    30-id frame splits into segments of 12, 12 and 6; every frame gets
+    its own rows of the limiter's decisions."""
+    from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
+
+    cfg = T.Config(algorithm=T.Algorithm.SLIDING_WINDOW, limit=3,
+                   window=2.0, sketch=T.SketchParams(depth=2, width=1024,
+                                                     sub_windows=4))
+    lim = SketchLimiter(cfg, ManualClock(1e6), device="cpu")
+    twin = SketchLimiter(cfg, ManualClock(1e6), device="cpu")
+    sizes = []
+    launch = lim.launch_ids
+
+    def recorded(ids, ns=None, **kw):
+        sizes.append(len(ids))
+        return launch(ids, ns, **kw)
+
+    lim.launch_ids = recorded
+    frames = [np.arange(i * 5, i * 5 + 5, dtype=np.uint64) % 7
+              for i in range(3)] + [np.arange(30, dtype=np.uint64) % 9]
+
+    async def main():
+        b = MicroBatcher(lim, max_batch=16, max_window=12,
+                         registry=Registry())
+        futs = [b.submit_hashed_nowait(f, np.ones(len(f), np.int32))
+                for f in frames]
+        got = await asyncio.gather(*futs)
+        await b.drain()
+        b.close()
+        return got
+
+    got = asyncio.run(main())
+    assert sizes == [10, 5, 12, 12, 6]
+    want = [twin.allow_ids(w) for w in (np.concatenate(frames[:2]),
+                                        frames[2], frames[3][:12],
+                                        frames[3][12:24], frames[3][24:])]
+    allowed = np.concatenate([w.allowed for w in want])
+    np.testing.assert_array_equal(
+        np.concatenate([r.allowed for r in got]), allowed)
+    lim.close()
+    twin.close()
+
+
+def test_door_with_tenants_and_controller_gauges():
+    """``python -m ratelimiter_tpu_torch.serving --tenants 4 --global-limit
+    100 --tenant gold=5:3:2 --assign g1=gold --assign g2=gold --controller``
+    on the CPU: six ALLOW frames for gold's two keys admit exactly gold's
+    5, an unassigned key is admitted (the default tenant), and METRICS
+    shows the controller's gauges for every scope."""
+    srv = chip_smoke.ServerProcess(
+        ["--device", "cpu", "--depth", "2", "--width", "1024",
+         "--tenants", "4", "--global-limit", "100", "--tenant",
+         "gold=5:3:2", "--assign", "g1=gold", "--assign", "g2=gold",
+         "--controller", "--controller-interval", "0.05"])
+    try:
+        c = chip_smoke.DoorClient(srv.port)
+        got = [tp.parse_result(c.call(tp.encode_allow_n, k, 1)[1]).allowed
+               for k in ("g1", "g2") * 3]
+        assert sum(got) == 5 and not got[-1]
+        assert tp.parse_result(c.call(tp.encode_allow_n, "other",
+                                      1)[1]).allowed
+        deadline = 50
+        while deadline:
+            _, body = c.call(lambda rid: tp.encode_simple(tp.T_METRICS, rid))
+            text = tp.parse_metrics(body)
+            if 'rate_limiter_hier_in_window{scope="global"} 6' in text:
+                break
+            deadline -= 1
+            time.sleep(0.05)
+        for sample in ('rate_limiter_hier_effective_limit{scope="gold"} 5',
+                       'rate_limiter_hier_effective_limit{scope="global"} '
+                       '100', 'rate_limiter_hier_in_window{scope="gold"} 5',
+                       'rate_limiter_hier_in_window{scope="global"} 6'):
+            assert sample in text, sample
+        c.close()
+        assert srv.terminate() == 0
+    finally:
+        srv.kill()
+
+
+def test_tenant_durable_door_keeps_the_controllers_move():
+    """chip_smoke.py's tenant crash-and-recovery check at a small size on
+    the CPU: the binary with the documented tenant flags and
+    --controller tightens free (5000 -> 3500) under a hot-tenant storm,
+    is killed after a SNAPSHOT, and restarts to every array (tn_*, the
+    hier_* columns with the moved limit) bit-equal to a CPU recovery of a
+    copy, its decisions after it too."""
+    cfg = T.Config(algorithm=T.Algorithm.SLIDING_WINDOW, limit=100,
+                   window=60.0, sketch=T.SketchParams(depth=2, width=1024,
+                                                      sub_windows=60))
+    out = chip_smoke.check_tenant_durable_door(cfg, device="cpu")
+    assert out["free_effective"] == 3500
+    assert "restored snapshot" in out["recovered"]
+
+
+def test_chip_smoke_names_a_child_left_running():
+    """chip_smoke.py fails its run when a process it started is still
+    there at the end (a door client, a server, multiprocessing's
+    resource tracker): ``check_no_children`` names the child."""
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import time; time.sleep(60)"])
+    try:
+        with pytest.raises(AssertionError,
+                           match=rf"processes left running: .*{proc.pid}: "):
+            chip_smoke.check_no_children()
+    finally:
+        proc.kill()
+        proc.wait()

@@ -275,10 +275,16 @@ def test_unported_configs_are_refused(cfg, match):
 
 
 def test_hierarchy_and_other_backends_are_refused():
+    # The hierarchy cascade is ported: a tenants=4 config serves (its
+    # parity with the JAX package is tests/test_torch_hier.py's).
     cfg = dataclasses.replace(_cfg(T), hierarchy=dataclasses.replace(
         _cfg(T).hierarchy, tenants=4))
-    with pytest.raises(T.InvalidConfigError, match="A6"):
-        SketchLimiter(cfg, T.ManualClock(T0), device="cpu")
+    lim = SketchLimiter(cfg, T.ManualClock(T0), device="cpu")
+    lim.set_tenant("gold", 3)
+    lim.assign_tenant("g", "gold")
+    assert [lim.allow("g").allowed for _ in range(4)] == [True] * 3 + [False]
+    assert lim.hierarchy_stats()["tenants"]["gold"]["in_window"] == 3
+    lim.close()
     for backend, match in (("dense", "A7"), ("mesh", "A8"), ("exact", "no port"),
                            ("nope", "unknown backend")):
         with pytest.raises(T.InvalidConfigError, match=match):
