@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N] [--steps N]
     python3 chip_smoke.py --sweep    # time the tiled updates' launch shapes
     python3 chip_smoke.py --admit-sweep   # time the admission routine's shapes
+    python3 chip_smoke.py --dense    # the dense/exact backends, the evaluation path
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -57,7 +58,14 @@ Phases (each raises on failure; the script exits non-zero):
    which every cascade build must refuse on the card; each cascade build
    a kernel row of its own (``<back> [cascade]``), timed in turns with
    its build without the flag and beside the composed form (the build
-   without the flag, then the routine alone);
+   without the flag, then the routine alone); the dense backend's step
+   (``dense_step``, ``csrc/dense_kernels.cu``, one build per algorithm)
+   on a 2^20-slot state (config 3's 1M keys as slots), every output and
+   the whole state bit-equal to its plain version on the config-3 batch,
+   4096 requests on one slot, B = 0 and ADMIT_CAPACITY, each with and
+   without a 1024-row override table and under a lowered limit
+   (negative free units), the next pad above ADMIT_CAPACITY refused; a
+   kernel row per build;
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -92,7 +100,14 @@ Phases (each raises on failure; the script exits non-zero):
    and TB-c2 under the same tenants, across its 10 s window. Every
    result and every ``tn_*`` array bit-equal to the CPU, every step a
    cascade build (no back without the cascade launched), and
-   each path's steps/s printed beside the same trace without tenants;
+   each path's steps/s printed beside the same trace without tenants.
+   Then the dense backend (``create_limiter(cfg, "dense")``) under each
+   algorithm at config 3's limit and window with 2^20 slots: 48 batches
+   of 4096 string keys across two window rolls, an override, a reset,
+   ``update_limit`` and ``update_window``, every result and the final
+   state bit-identical to the CPU, one ``dense_step`` launch a batch,
+   steps/s the median of 5 runs; the exact backend on the same trace
+   equal to dense;
 4. start the port's server on 127.0.0.1, once with the windowed limiter
    and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
    ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
@@ -111,8 +126,11 @@ Phases (each raises on failure; the script exits non-zero):
    served limiter's ``consumer_stats``; and once more with the tenant
    flags (string frames over the assigned key space), every frame and
    the final ``tn_*`` state held to the CPU replay and every window a
-   cascade build. The same traffic is then served
-   once more straight over a
+   cascade build; then the door over the dense and the exact backend
+   (string frames pipelined on one connection, every answer and the final
+   state bit-identical to a CPU replay of the windows, ALLOW_HASHED
+   refused, one ``dense_step`` launch a window). The same traffic is then
+   served once more straight over a
    limiter on the system clock, without the proxy, as
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
    through the door, frames a dispatch and p50/p99 frame latency of both
@@ -141,8 +159,20 @@ Phases (each raises on failure; the script exits non-zero):
    CPU recovery (``check_tenant_durable_door``). The launch counts
    of the live and watchdog runs are set to 0 just before each and read
    just after; the recovery seconds, the snapshot's capture lock hold and
-   its size are printed;
-6. print the kernel table as one JSON line, the card's name and power
+   its size are printed; and a dense limiter's ``save`` on the card
+   restored on the CPU (state equal, the next batches identical);
+6. the evaluation path at bench.py's geometry (d=3, w=2^20, 60
+   sub-windows, CU, 1M keys, Zipf(1.1)): ``loadgen.build_bench_chunk``
+   at B = 8192 across two rollovers and one chunk of 2^20 (whose launch
+   counts must show the composed back), the card's Zipf ids against the
+   CPU's over 2^20 counters; ``oracle_device.build_eval_chunk`` with its
+   (60, 1, 2^20) oracle ring, its four stats and both states; the scan
+   runners at 64 steps x 4096 for config 3, d=3 w=2^20 and TB-c2; each
+   bit-equal to the CPU; ``evaluate_accuracy`` at bench.py's CI-scale
+   arguments equal to the CPU's report; decisions/s of the bench chunk
+   and the scans and the false-deny and false-allow rates with their
+   window coverage printed as smoke readings;
+7. print the kernel table as one JSON line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--sweep`` builds, then holds every (tile, cluster) of the two tiled
@@ -161,6 +191,11 @@ its results as one JSON line before the card's line; ``--rows`` runs
 the rest of phase 2 alone (the kernel rows and the side-table forms),
 through wrappers an earlier checkout has too, so a copy of this script
 in the parent's checkout times the parent's builds in the same call.
+
+``--dense`` builds, then runs this slice's parts alone (the dense rows
+of phase 2, the dense and exact paths, their doors, the dense round trip
+and phase 6) and prints their results as one JSON line before the
+card's line.
 
 ``--paths`` builds, then runs phase 3 alone, without the side-table paths
 (which an earlier checkout may not serve), and prints its results as one
@@ -3697,9 +3732,939 @@ def check_tenant_durable_door(cfg, *, device: str = "cuda",
     return out
 
 
+# ------------------------------------------ the dense and exact backends
+
+#: The dense step's builds and the JAX steps they replace (jitted jnp, no
+#: Pallas kernel; ratelimiter_tpu/ops/dense_kernels.py).
+DENSE_BUILDS = {"FIXED_WINDOW": ("fixed_window", 124),
+                "SLIDING_WINDOW": ("sliding_window", 153),
+                "TOKEN_BUCKET": ("token_bucket", 189)}
+for _algo, (_build_name, _line) in DENSE_BUILDS.items():
+    KERNEL_ROWS[f"dense_step [{_build_name}]"] = (
+        f"ratelimiter_tpu/ops/dense_kernels.py:{_line}")
+DENSE_SOURCE = "ratelimiter_tpu_torch/csrc/dense_kernels.cu"
+#: The dense state's capacity on the card: 2^20 slots (config 3's 1M
+#: keys), 8 MB a column.
+DENSE_CAPACITY = 1 << 20
+
+
+def dense_config(algorithm: str, limit: int = LIMIT,
+                 capacity: int = DENSE_CAPACITY):
+    """Config 3's limit and window under a dense algorithm."""
+    from ratelimiter_tpu_torch import Algorithm, Config, DenseParams
+
+    return Config(algorithm=getattr(Algorithm, algorithm), limit=limit,
+                  window=WINDOW_S, dense=DenseParams(capacity=capacity))
+
+
+def dense_state(torch, rng, algorithm: str, now_us: int, capacity: int):
+    """A lived-in dense state on the card: counts up to 1.2x the limit
+    (some above it, so ``free_scaled`` goes negative), window starts in
+    the current window, the one before and far back; buckets at random
+    levels, remainders and refill times."""
+    from ratelimiter_tpu_torch import Algorithm
+    from ratelimiter_tpu_torch.ops import dense_kernels
+
+    W = int(WINDOW_S * 1e6)
+    n = capacity + 1
+    cur = (now_us // W) * W
+    cols = dense_kernels.COLUMNS[getattr(Algorithm, algorithm)]
+    if algorithm == "TOKEN_BUCKET":
+        _, _, den = dense_kernels._check_gates(dense_config(algorithm))
+        vals = [rng.integers(0, LIMIT * 10 ** 6 + 1, n),
+                rng.integers(0, den, n),
+                now_us - rng.integers(0, 2 * W, n)]
+    else:
+        starts = rng.choice(np.array([cur, cur - W, 0], np.int64), n)
+        vals = [rng.integers(0, int(LIMIT * 1.2), n)]
+        if algorithm == "SLIDING_WINDOW":
+            vals.append(rng.integers(0, int(LIMIT * 1.2), n))
+        vals.append(starts)
+    return {c: torch.from_numpy(np.asarray(v, np.int64)).to("cuda")
+            for c, v in zip(cols, vals)}
+
+
+def dense_policy(torch, rng, slots: np.ndarray, limit: int, W: int,
+                 rows: int = 1024):
+    """A 1024-row override table over some of the batch's slots (their
+    search key is splitmix64 of the slot), limits and windows varied,
+    every row gated as the policy table gates it. Returns (table on the
+    card, the search key of every slot 0..C as a function)."""
+    from ratelimiter_tpu_torch.ops import dense_kernels
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64
+    from ratelimiter_tpu_torch.ops.policy_kernels import PAD_KEY
+
+    def keyq(s):
+        return splitmix64(np.asarray(s, np.uint64)).view(np.int64)
+
+    chosen = np.unique(slots)[:rows]
+    keys = np.sort(keyq(chosen))
+    cols = {"key": np.full(rows, PAD_KEY, np.int64)}
+    num0, den0 = dense_kernels.check_gate_values(limit, W)
+    cols.update(limit=np.full(rows, limit, np.int64),
+                window_us=np.full(rows, W, np.int64),
+                rate_num=np.full(rows, num0, np.int64),
+                rate_den=np.full(rows, den0, np.int64))
+    for i, k in enumerate(keys):
+        lim = int(rng.integers(1, 3 * limit))
+        w = int(W * rng.choice([0.25, 0.5, 1.0, 2.0]))
+        num, den = dense_kernels.check_gate_values(lim, w)
+        cols["key"][i] = k
+        cols["limit"][i], cols["window_us"][i] = lim, w
+        cols["rate_num"][i], cols["rate_den"][i] = num, den
+    return {k: torch.from_numpy(v).to("cuda") for k, v in cols.items()}, keyq
+
+
+def dense_batches(rng, capacity: int) -> dict:
+    """The dense step's batches: config 3's (4096 Zipf(1.1) ids over 1M
+    keys, as slots), all 4096 on one slot, B = 0, B = ADMIT_CAPACITY and
+    the next pad above it (refused on the card). n is 1 with some 2s and
+    3s; a tenth of each batch is padding (slot C, n = 0)."""
+    def batch(B, slots=None):
+        sid = (zipf_ids(rng, B).astype(np.int64) % capacity
+               if slots is None else np.full(B, slots, np.int64))
+        n = rng.choice(np.array([1, 1, 1, 2, 3], np.int64), B)
+        pad = rng.random(B) < 0.1
+        sid[pad], n[pad] = capacity, 0
+        return sid.astype(np.int32), n
+    return {"config-3 Zipf": batch(BATCH), "one slot": batch(BATCH, 7),
+            "B=0": batch(0), f"B={ADMIT}": batch(ADMIT),
+            f"B={2 * ADMIT} (refused)": batch(2 * ADMIT)}
+
+
+ADMIT = 8192
+
+
+def dense_bytes(sid: np.ndarray, policy, columns: int, bucket: bool) -> int:
+    """Bytes the step must move: sid, n (and the search key with a table)
+    read; each touched slot's row read and written; allowed, remaining,
+    retry and reset written; the table's columns that the build reads
+    (key, limit and window_us; rate_num and rate_den in the token bucket
+    alone) read once."""
+    B = sid.shape[0]
+    touched = np.unique(sid).shape[0]
+    nbytes = B * (4 + 8 + (8 if policy is not None else 0) + 1 + 3 * 8)
+    nbytes += 2 * touched * columns * 8
+    if policy is not None:
+        read = ("key", "limit", "window_us") + (
+            ("rate_num", "rate_den") if bucket else ())
+        nbytes += sum(policy[c].numel() * 8 for c in read)
+    return nbytes
+
+
+def check_dense_kernel(torch, seed: int) -> dict:
+    """Phase 2, the dense step: each build (fixed, sliding, token bucket)
+    held bit-equal to its plain version on the card (every output and the
+    whole 2^20-slot state) on each of ``dense_batches``, with and without
+    a 1024-row override table, and after a limit decrease (the plain
+    windowed state's ``free_scaled`` negative); the next pad above
+    ADMIT_CAPACITY refused before anything runs; then a kernel row per
+    build on the config-3 batch with the table (the main path's form)."""
+    from ratelimiter_tpu_torch.core.clock import to_micros
+    from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels
+
+    def on_card(a):
+        return torch.from_numpy(a).to("cuda")
+
+    rows = {}
+    now_us = int(T0 * 1e6) + 123_457
+    W = to_micros(WINDOW_S)
+    for algorithm, (build_name, _) in DENSE_BUILDS.items():
+        name = f"dense_step [{build_name}]"
+        rng = np.random.default_rng(seed + 101 + len(rows))
+        err = {name: 0.0}
+        batches = dense_batches(rng, DENSE_CAPACITY)
+        zipf_sid = batches["config-3 Zipf"][0]
+        policy, keyq_of = dense_policy(torch, rng, zipf_sid[zipf_sid <
+                                                            DENSE_CAPACITY],
+                                       LIMIT, W)
+        base = dense_state(torch, rng, algorithm, now_us, DENSE_CAPACITY)
+        checked = 0
+        for limit in (LIMIT, 7):
+            params = dense_kernels.step_params(dense_config(algorithm,
+                                                            limit))
+            for label, (sid, n) in batches.items():
+                for pol in (None, policy):
+                    args = [on_card(sid), on_card(n), now_us]
+                    if pol is not None:
+                        args += [pol, on_card(keyq_of(sid))]
+                    kst = {k: v.clone() for k, v in base.items()}
+                    if "refused" in label:
+                        try:
+                            dense_cuda.dense_step(kst, *args, **params)
+                        except ValueError as exc:
+                            if "at most" not in str(exc):
+                                raise
+                        else:
+                            raise AssertionError(f"{name}: {label} was not "
+                                                 f"refused on the card")
+                        for k in kst:
+                            hold_equal(torch, err, name, kst[k], base[k])
+                        continue
+                    pst = {k: v.clone() for k, v in base.items()}
+                    got = dense_cuda.dense_step(kst, *args, **params)
+                    want = dense_cuda.dense_step_plain(pst, *args, **params)
+                    for a, b in zip(got, want):
+                        hold_equal(torch, err, name, a, b)
+                    for k in kst:
+                        hold_equal(torch, err, name, kst[k], pst[k])
+                    checked += 1
+        sid, n = batches["config-3 Zipf"]
+        params = dense_kernels.step_params(dense_config(algorithm))
+        args = [on_card(sid), on_card(n), now_us, policy,
+                on_card(keyq_of(sid))]
+        kst = {k: v.clone() for k, v in base.items()}
+        pst = {k: v.clone() for k, v in base.items()}
+        row = kernel_row(
+            name, DENSE_SOURCE, err[name],
+            lambda: dense_cuda.dense_step(kst, *args, **params),
+            lambda: dense_cuda.dense_step_plain(pst, *args, **params), None,
+            dense_bytes(sid, policy, len(base),
+                        algorithm == "TOKEN_BUCKET"), 0, torch)
+        row["checked_batches"] = checked
+        rows[name] = row
+        log(f"{name}: bit-equal to its plain version on {checked} batches "
+            f"(config-3 Zipf, one slot, B=0, B={ADMIT}; with and without "
+            f"the 1024-row table; limits {LIMIT} and 7) over a "
+            f"{DENSE_CAPACITY}-slot state, B={2 * ADMIT} refused")
+    return rows
+
+
+def dense_trace(seed: int, steps: int) -> list:
+    """Config-3 traffic as string keys: per step 4096 keys ``user:{id}``,
+    ids Zipf(1.1) over 1M keys."""
+    rng = np.random.default_rng(seed)
+    return [[f"user:{int(i)}" for i in zipf_ids(rng, BATCH)]
+            for _ in range(steps)]
+
+
+#: The dense paths' operations, by step: an override, a reset, a limit
+#: update and a window update; +2.5 s of virtual time a step, so 48 steps
+#: cross two 60 s windows.
+DENSE_PLAN = {3: ("set_override", ("user:1", 300)), 12: ("reset",
+                                                          ("user:2",)),
+              20: ("update_limit", (60,)), 30: ("update_window", (45.0,))}
+DENSE_ADVANCE = 2.5
+
+
+def drive_plan(lim, batches, plan: dict, advance: float) -> list:
+    """The trace through ``allow_batch`` with ``plan``'s operations before
+    their steps; returns the BatchResults."""
+    out = []
+    for step, keys in enumerate(batches):
+        if step in plan:
+            op, args = plan[step]
+            getattr(lim, op)(*args)
+        out.append(lim.allow_batch(keys))
+        lim.clock.advance(advance)
+    return out
+
+
+def check_dense_paths(torch, seed: int, steps: int) -> dict:
+    """Phase 3, the dense and exact backends: ``create_limiter(cfg,
+    "dense", device="cuda")`` for each algorithm, on config-3 string
+    traffic with a 2^20-slot state across window rolls, with
+    ``DENSE_PLAN``'s override, reset, ``update_limit`` and
+    ``update_window``; every result and the final state bit-identical to
+    the same trace on the CPU, one ``dense_step`` launch (of the
+    algorithm's build) per batch; steps/s the median of 5 runs; the
+    exact backend's results on the same trace equal to dense's."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import dense_cuda
+
+    batches = dense_trace(seed, steps)
+    out = {}
+    for algorithm, (build_name, _) in DENSE_BUILDS.items():
+        cfg = dense_config(algorithm)
+        name = f"dense {build_name}"
+
+        def make(backend, device="cuda"):
+            kw = {} if backend == "exact" else {"device": device}
+            return create_limiter(cfg, backend=backend,
+                                  clock=ManualClock(T0), **kw)
+
+        warm = make("dense")
+        drive_plan(warm, batches[:4], {}, DENSE_ADVANCE)
+        warm.close()
+        torch.cuda.synchronize()
+        dense_cuda.reset_launch_counts()
+        gpu = make("dense")
+        t = time.perf_counter()
+        got = drive_plan(gpu, batches, DENSE_PLAN, DENSE_ADVANCE)
+        torch.cuda.synchronize()
+        walls = [time.perf_counter() - t]
+        counts = dense_cuda.launch_counts()
+        if counts[f"dense_step [{build_name}]"] != len(batches) or counts[
+                "dense_step"] != len(batches):
+            raise AssertionError(f"{name}: {counts} launches for "
+                                 f"{len(batches)} batches")
+        _, ga, _ = gpu.capture_state()
+        gpu.close()
+        cpu = make("dense", "cpu")
+        want = drive_plan(cpu, batches, DENSE_PLAN, DENSE_ADVANCE)
+        _, ca, _ = cpu.capture_state()
+        cpu.close()
+        _same_results(name, got, want)
+        for k in ca:
+            if ga[k].dtype != ca[k].dtype or not np.array_equal(ga[k], ca[k]):
+                raise AssertionError(f"{name}: state {k} differs from the "
+                                     f"CPU run")
+        exact = make("exact")
+        _same_results(f"exact {build_name} against dense",
+                      drive_plan(exact, batches, DENSE_PLAN, DENSE_ADVANCE),
+                      want)
+        exact.close()
+        for _ in range(REPEATS - 1):
+            again = make("dense")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            drive_plan(again, batches, DENSE_PLAN, DENSE_ADVANCE)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            again.close()
+        rates = sorted(len(batches) / w for w in walls)
+        denied = sum(int((~r.allowed).sum()) for r in got)
+        out[build_name] = {
+            "counts": counts, "steps_per_s": statistics.median(rates),
+            "steps_per_s_min": rates[0], "steps_per_s_max": rates[-1],
+            "decisions_per_s": statistics.median(rates) * BATCH,
+            "batches": len(batches), "denied": denied,
+            "keys": int(ga["slot_ids"].shape[0])}
+        log(f"main path {name}: {len(batches)} batches of {BATCH} string "
+            f"keys, {denied} denied, {out[build_name]['keys']} slots live, "
+            f"bit-identical to the CPU run (results and state), exact "
+            f"backend equal; launches {counts}; "
+            f"{out[build_name]['steps_per_s']:.1f} steps/s median of "
+            f"{REPEATS} runs (min {rates[0]:.1f}, max {rates[-1]:.1f})")
+    return out
+
+
+class KeyRecorder:
+    """A proxy over a dense or exact limiter behind the door: each string
+    window and reset is logged with its ``now`` (set on the limiter's
+    ManualClock from the wall clock's progress) in the order it reaches
+    the limiter. It has no raw-id lane of its own: the batcher sees the
+    limiter's (``__getattr__``)."""
+
+    def __init__(self, inner, t0: float):
+        self.inner = inner
+        self.config = inner.config
+        self.clock = inner.clock
+        self.pipelined = inner.pipelined
+        self.log: list = []
+        self._t0 = t0
+        self._start = time.perf_counter()
+        self._lock = threading.Lock()
+
+    def _now(self) -> float:
+        now = self._t0 + (time.perf_counter() - self._start)
+        self.clock.set(now)
+        return now
+
+    def allow_batch(self, keys, ns=None):
+        """The batcher's blocking decide (these backends resolve at
+        launch, so the door does not pipeline them)."""
+        with self._lock:
+            now = self._now()
+            out = self.inner.allow_batch(keys, ns, now=now)
+            self.log.append(("keys", list(keys), list(ns), now))
+        return out
+
+    def reset(self, key: str) -> None:
+        with self._lock:
+            now = self._now()
+            self.inner.reset(key)
+            self.log.append(("reset", key, None, now))
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
+                       seed: int = 0, frames: int = 40, depth: int = 8,
+                       n_keys: int = 64) -> dict:
+    """Phase 4 for the dense and exact backends: the port's door over
+    ``backend`` (micro-batcher at its defaults) on one connection
+    pipelining ``frames`` ALLOW_BATCH frames of ``n_keys`` string keys
+    (``depth`` in flight), ALLOW_N frames and a RESET; every answer must
+    be bit-identical to a CPU replay of the windows the batcher launched
+    (requests keep their order across windows on one connection), the
+    final state to the replay's; ALLOW_HASHED must be refused
+    (InvalidConfigError, as the JAX batcher refuses a backend without the
+    raw-id lane); HEALTH counts every decision."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.serving import protocol as p
+    from ratelimiter_tpu_torch.serving.server import run_server
+
+    from ratelimiter_tpu_torch.ops import dense_cuda
+
+    kw = {} if backend == "exact" else {"device": device}
+    served = create_limiter(cfg, backend=backend, clock=ManualClock(T0),
+                            **kw)
+    rec = KeyRecorder(served, T0)
+    dense_cuda.reset_launch_counts()
+    rng = np.random.default_rng(seed + 23)
+    plan = []
+    for i in range(frames):
+        if i == frames // 2:
+            plan.append(("reset", "user:1"))
+        if i % 5 == 4:
+            plan.append(("n", f"user:{int(zipf_ids(rng, 1)[0])}",
+                         int(rng.integers(1, 4))))
+        plan.append(("batch", [f"user:{int(k)}" for k in
+                               zipf_ids(rng, n_keys)],
+                     [int(x) for x in rng.integers(1, 3, n_keys)]))
+    answers = {}
+
+    async def main():
+        srv = await run_server(rec, "127.0.0.1", 0)
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        sent = 0
+
+        async def read_one():
+            length, type_, rid = p.parse_header(await reader.readexactly(13))
+            answers[rid] = (type_, await reader.readexactly(length - 9))
+
+        try:
+            writer.write(p.encode_allow_hashed(10 ** 6, np.arange(
+                8, dtype=np.uint64)))
+            await writer.drain()
+            await read_one()
+            for rid, item in enumerate(plan):
+                if item[0] == "reset":
+                    while sent > len(answers) - 1:
+                        await read_one()
+                    writer.write(p.encode_reset(rid, item[1]))
+                elif item[0] == "n":
+                    writer.write(p.encode_allow_n(rid, item[1], item[2]))
+                else:
+                    writer.write(p.encode_allow_batch(rid, item[1], item[2]))
+                sent += 1
+                await writer.drain()
+                while sent - (len(answers) - 1) > depth:
+                    await read_one()
+            while len(answers) - 1 < sent:
+                await read_one()
+            writer.write(p.encode_simple(p.T_HEALTH, 10 ** 6 + 1))
+            await writer.drain()
+            await read_one()
+        finally:
+            writer.close()
+            await writer.wait_closed()
+            await srv.shutdown()
+
+    t = time.perf_counter()
+    asyncio.run(main())
+    wall = time.perf_counter() - t
+    name = f"door[{backend} {cfg.algorithm.value}]"
+    type_, body = answers.pop(10 ** 6)
+    code, msg = p.parse_error(body) if type_ == p.T_ERROR else (None, "")
+    if type_ != p.T_ERROR or code != p.E_INVALID_CONFIG or "sketch" not in msg:
+        raise AssertionError(f"{name}: ALLOW_HASHED answered {type_} {code} "
+                             f"{msg!r}, not refused")
+    type_, body = answers.pop(10 ** 6 + 1)
+    serving, _, decisions = p.parse_health(body)
+    counts = dense_cuda.launch_counts()
+    _, served_arrays, _ = served.capture_state()
+    served.close()
+    replay = create_limiter(cfg, backend=backend, clock=ManualClock(T0),
+                            **({} if backend == "exact"
+                               else {"device": "cpu"}))
+    rows = []
+    for kind, a, ns, now in rec.log:
+        replay.clock.set(now)
+        if kind == "reset":
+            replay.reset(a)
+        else:
+            rows.extend(replay.allow_batch(a, ns, now=now).results())
+    want = iter(rows)
+    for rid, item in enumerate(plan):
+        type_, body = answers[rid]
+        if item[0] == "reset":
+            if type_ != p.T_OK:
+                raise AssertionError(f"{name}: RESET answered {type_}")
+        elif item[0] == "n":
+            if type_ != p.T_RESULT or p.parse_result(body) != next(want):
+                raise AssertionError(f"{name}: ALLOW_N frame {rid} differs "
+                                     f"from the CPU replay")
+        else:
+            exp = [next(want) for _ in item[1]]
+            if type_ != p.T_RESULT_BATCH or p.parse_result_batch(body) != exp:
+                raise AssertionError(f"{name}: ALLOW_BATCH frame {rid} "
+                                     f"differs from the CPU replay")
+    if next(want, None) is not None:
+        raise AssertionError(f"{name}: the replay has rows no frame asked")
+    _, replay_arrays, _ = replay.capture_state()
+    replay.close()
+    for k, v in replay_arrays.items():
+        if not np.array_equal(served_arrays[k], v):
+            raise AssertionError(f"{name}: final state {k} differs from the "
+                                 f"CPU replay")
+    n_decisions = sum(len(x[1]) if x[0] == "batch" else 1
+                      for x in plan if x[0] != "reset")
+    if not serving or decisions != n_decisions:
+        raise AssertionError(f"{name}: HEALTH {serving} {decisions} for "
+                             f"{n_decisions} decisions")
+    windows = sum(kind != "reset" for kind, *_ in rec.log)
+    if backend == "dense" and device != "cpu" and (
+            counts["dense_step"] != windows):
+        raise AssertionError(f"{name}: {counts['dense_step']} dense_step "
+                             f"launches for {windows} windows")
+    log(f"{name} on {device}: {len(plan)} frames ({n_decisions} decisions) "
+        f"in {windows} windows, every answer and the final state "
+        f"bit-identical to a CPU replay, ALLOW_HASHED refused ({msg!r}); "
+        f"{n_decisions / wall:.0f} decisions/s over the run; launches "
+        f"{counts}")
+    return {"frames": len(plan), "decisions": n_decisions,
+            "windows": windows, "decisions_per_s": n_decisions / wall,
+            "counts": counts}
+
+
+def check_dense_durable(torch, seed: int) -> dict:
+    """Phase 5 for the dense backend: a limiter on the card after config-3
+    string traffic (an override included) saved to a file, restored by a
+    CPU limiter: the captured state equal, then the same decisions on
+    both."""
+    import os
+    import tempfile
+
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    cfg = dense_config("SLIDING_WINDOW")
+    batches = dense_trace(seed + 5, 12)
+    gpu = create_limiter(cfg, backend="dense", clock=ManualClock(T0),
+                         device="cuda")
+    drive_plan(gpu, batches[:8], {1: ("set_override", ("user:1", 300))},
+               DENSE_ADVANCE)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "dense.npz")
+        t = time.perf_counter()
+        gpu.save(path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        cpu = create_limiter(cfg, backend="dense",
+                             clock=ManualClock(gpu.clock.now()),
+                             device="cpu")
+        cpu.restore(path)
+    _, ga, _ = gpu.capture_state()
+    _, ca, _ = cpu.capture_state()
+    for k in ga:
+        if ga[k].dtype != ca[k].dtype or not np.array_equal(ga[k], ca[k]):
+            raise AssertionError(f"dense durability: restored {k} differs")
+    _same_results("dense after restore",
+                  drive_plan(gpu, batches[8:], {}, DENSE_ADVANCE),
+                  drive_plan(cpu, batches[8:], {}, DENSE_ADVANCE))
+    gpu.close()
+    cpu.close()
+    log(f"dense durability: save from the card {save_s:.3f} s "
+        f"({size / 2 ** 20:.1f} MB), restored on the CPU bit-equal, the "
+        f"next 4 batches identical")
+    return {"save_s": save_s, "snapshot_mb": size / 2 ** 20}
+
+
+# ---------------------------------------------------- the evaluation path
+
+#: bench.py's accelerator geometry (bench.py:1659-1675): sliding window,
+#: 100 per 60 s, 60 sub-windows, CU, one admission round, d=3, w=2^20,
+#: 1M keys; batches of ADMIT (one admission launch) here, and one chunk
+#: of 2^20 (bench.py's phase A on an accelerator uses 2^22).
+EVAL_DEPTH, EVAL_WIDTH, EVAL_B, EVAL_BIG = 3, 1 << 20, ADMIT, 1 << 20
+#: Phase C's serving shape (bench.py:1795-1810): 64 steps of 4096, 400 us
+#: apart.
+SCAN_STEPS, SCAN_DT_US = 64, 400
+
+
+def bench_config():
+    from ratelimiter_tpu_torch import Algorithm, Config, SketchParams
+
+    return Config(algorithm=Algorithm.SLIDING_WINDOW, limit=LIMIT,
+                  window=WINDOW_S, max_batch_admission_iters=1,
+                  sketch=SketchParams(depth=EVAL_DEPTH, width=EVAL_WIDTH,
+                                      sub_windows=SUB_WINDOWS,
+                                      conservative_update=True))
+
+
+def _hold_state(name: str, gpu: dict, cpu: dict) -> None:
+    from ratelimiter_tpu_torch.convert import state_to_numpy
+
+    g, c = state_to_numpy(gpu), state_to_numpy(cpu)
+    for k in c:
+        if not np.array_equal(g[k], c[k]):
+            raise AssertionError(f"{name}: state {k} differs from the CPU")
+
+
+def hold_counts(name: str, counts: dict, want: dict) -> dict:
+    """``counts`` (a ``launch_counts()`` reading) equal to ``want`` under
+    every name, 0 under each name ``want`` leaves out; returns it."""
+    if set(want) - set(counts) or any(v != want.get(k, 0)
+                                      for k, v in counts.items()):
+        raise AssertionError(f"{name}: launches {counts}, not {want}")
+    return counts
+
+
+def _rolled(cfg, device, p: int) -> dict:
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    st = sk.init_state(cfg, device)
+    sk.build_steps(cfg)[2](st, p)
+    return st
+
+
+def check_bench_chunk(torch, seed: int, chunks: int = 10) -> dict:
+    """``loadgen.build_bench_chunk`` at bench.py's geometry: ``chunks``
+    chunks of 8192 requests 0.25 s apart (two rollovers), then one of
+    2^20; every packed mask, deny count and the final state bit-equal to
+    the CPU; the 8192 chunks' launches one front, one admission and one
+    ``cu_update`` a chunk, the 2^20 chunk's the composed back (the front
+    and ``cu_update`` launched, no admission launch); the Zipf ids of the
+    card held to the CPU's. Then decisions/s of 64 chunks on the card
+    (rollovers included)."""
+    from ratelimiter_tpu_torch.evaluation import loadgen
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    cfg = bench_config()
+    sub_us = sk.sketch_geometry(cfg)[1]
+    roll = sk.build_steps(cfg)[2]
+    # The ids: the card's against the CPU's over 2^20 counters.
+    ids_gpu = loadgen._zipf_ids(0, EVAL_BIG, N_KEYS, ZIPF_A, "cuda").cpu()
+    ids_cpu = loadgen._zipf_ids(0, EVAL_BIG, N_KEYS, ZIPF_A, "cpu")
+    differ = int((ids_gpu != ids_cpu).sum())
+    if differ:
+        first = int(torch.nonzero(ids_gpu != ids_cpu)[0])
+        raise AssertionError(f"Zipf ids on the card differ from the CPU's "
+                             f"at {differ} of {EVAL_BIG} counters; first at "
+                             f"counter {first}: {int(ids_gpu[first])} "
+                             f"against {int(ids_cpu[first])}")
+    p0 = int(T0 * 1e6) // sub_us
+    out = {"zipf_ids_differing": differ}
+    states = {d: _rolled(cfg, d, p0) for d in ("cuda", "cpu")}
+    chunk = {d: loadgen.build_bench_chunk(cfg, EVAL_B, N_KEYS, ZIPF_A, d)
+             for d in ("cuda", "cpu")}
+    big = {d: loadgen.build_bench_chunk(cfg, EVAL_BIG, N_KEYS, ZIPF_A, d)
+           for d in ("cuda", "cpu")}
+    p, denies = p0, 0
+    sketch_cuda.reset_launch_counts()
+    for i in range(chunks + 1):
+        t = int(T0 * 1e6) + i * 250_000
+        if t // sub_us > p:
+            p = t // sub_us
+            for d in states:
+                roll(states[d], p)
+        if i == chunks:
+            out["counts"] = hold_counts(
+                f"bench chunks of {EVAL_B}", sketch_cuda.launch_counts(),
+                {"window_estimate": chunks, "admit": chunks,
+                 "cu_update": chunks})
+            sketch_cuda.reset_launch_counts()
+        fn = big if i == chunks else chunk
+        res = {d: fn[d](states[d], i * EVAL_B, t, period=p)
+               for d in states}
+        if i == chunks:
+            out["big_chunk_counts"] = hold_counts(
+                f"bench chunk of {EVAL_BIG} (the composed back)",
+                sketch_cuda.launch_counts(),
+                {"window_estimate": 1, "cu_update": 1})
+        for j, what in ((1, "packed mask"), (2, "deny count")):
+            if not torch.equal(res["cuda"][j].cpu(), res["cpu"][j]):
+                raise AssertionError(f"bench chunk {i}: {what} differs from "
+                                     f"the CPU")
+        denies += int(res["cpu"][2])
+    _hold_state("bench chunk", states["cuda"], states["cpu"])
+    del states["cpu"]
+    st = _rolled(cfg, "cuda", p0)
+    n_time, p = 64, p0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_time):
+        t = int(T0 * 1e6) + i * 100_000
+        if t // sub_us > p:
+            p = t // sub_us
+            roll(st, p)
+        chunk["cuda"](st, i * EVAL_B, t, period=p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out.update(chunks=chunks + 1, denies=denies,
+               decisions_per_s=n_time * EVAL_B / wall)
+    log(f"bench chunk (d={EVAL_DEPTH}, w={EVAL_WIDTH}, B={EVAL_B}, then "
+        f"{EVAL_BIG}): {chunks + 1} chunks across two rollovers bit-equal "
+        f"to the CPU ({denies} denied), launches of the {EVAL_B} chunks "
+        f"{out['counts']}, the {EVAL_BIG} chunk composed "
+        f"({out['big_chunk_counts']}), Zipf ids on the card equal to the "
+        f"CPU's at all {EVAL_BIG} counters; {out['decisions_per_s']:.0f} "
+        f"decisions/s over {n_time} chunks (smoke reading)")
+    return out
+
+
+def check_eval_chunk(torch, seed: int, chunks: int = 6) -> dict:
+    """``oracle_device.build_eval_chunk`` beside the bench chunk: the
+    sketch ring (60, 3, 2^20) and the oracle ring (60, 1, 2^20) int32 on
+    the card; ``chunks`` chunks of 8192 across a rollover with the four
+    stats and both final states bit-equal to the CPU, each chunk one
+    front, admission and ``cu_update`` for the sketch and one front and
+    ``add_back`` (the vanilla fused back) for the oracle; then 96 chunks on
+    the card at 0.1 s apart for the false-deny and false-allow rates and
+    their window coverage (smoke readings)."""
+    from ratelimiter_tpu_torch.evaluation import oracle_device as od
+    from ratelimiter_tpu_torch.evaluation.compare import wilson_interval
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    cfg = bench_config()
+    sub_us = sk.sketch_geometry(cfg)[1]
+    roll = sk.build_steps(cfg)[2]
+    roll_or = od.build_oracle_rollover(cfg, N_KEYS)
+    p0 = int(T0 * 1e6) // sub_us
+
+    def fresh(d):
+        st = {"sk": _rolled(cfg, d, p0),
+              "or": od.init_oracle_state(cfg, N_KEYS, d)}
+        roll_or(st["or"], p0)
+        return st
+
+    states = {d: fresh(d) for d in ("cuda", "cpu")}
+    chunk = {d: od.build_eval_chunk(cfg, EVAL_B, N_KEYS, ZIPF_A, d)
+             for d in states}
+    p = p0
+    sketch_cuda.reset_launch_counts()
+    for i in range(chunks):
+        t = int(T0 * 1e6) + i * 400_000
+        if t // sub_us > p:
+            p = t // sub_us
+            for d in states:
+                roll(states[d]["sk"], p)
+                roll_or(states[d]["or"], p)
+        stats = {d: chunk[d](states[d], i * EVAL_B, t, period=p)[1]
+                 for d in states}
+        if not torch.equal(stats["cuda"].cpu(), stats["cpu"]):
+            raise AssertionError(f"eval chunk {i}: stats "
+                                 f"{stats['cuda'].tolist()} differ from the "
+                                 f"CPU's {stats['cpu'].tolist()}")
+    counts = hold_counts(
+        f"eval chunks of {EVAL_B}", sketch_cuda.launch_counts(),
+        {"window_estimate": 2 * chunks, "admit": chunks, "cu_update": chunks,
+         "add_back": chunks, "add_update": chunks})
+    for k in ("sk", "or"):
+        _hold_state(f"eval chunk {k}", states["cuda"][k], states["cpu"][k])
+    del states
+    st = fresh("cuda")
+    n_run, dt, p = 96, 100_000, p0
+    acc = []
+    for i in range(n_run):
+        t = int(T0 * 1e6) + i * dt
+        if t // sub_us > p:
+            p = t // sub_us
+            roll(st["sk"], p)
+            roll_or(st["or"], p)
+        acc.append(chunk["cuda"](st, i * EVAL_B, t, period=p)[1])
+    fd, fa, sk_deny, or_deny = (int(x) for x in torch.stack(acc).sum(0))
+    total = n_run * EVAL_B
+    coverage = n_run * dt / 1e6 / WINDOW_S
+    out = {"chunks_checked": chunks, "counts": counts, "chunks": n_run,
+           "decisions": total,
+           "false_deny": fd, "false_allow": fa, "sketch_deny": sk_deny,
+           "oracle_deny": or_deny,
+           "false_deny_rate": fd / max(1, total - or_deny),
+           "false_deny_wilson95": wilson_interval(fd, total - or_deny),
+           "false_allow_rate": fa / max(1, or_deny),
+           "window_coverage": coverage}
+    log(f"eval chunk (sketch d={EVAL_DEPTH} w={EVAL_WIDTH} and oracle "
+        f"(60, 1, {EVAL_WIDTH}) on the card): {chunks} chunks bit-equal to "
+        f"the CPU (stats and both states), launches {counts}; {n_run} "
+        f"chunks: false-deny rate "
+        f"{out['false_deny_rate']:.3e} ({fd} of {total - or_deny} oracle "
+        f"allows), false-allow rate {out['false_allow_rate']:.3e} ({fa} of "
+        f"{or_deny}), window coverage {coverage:.3f} (smoke readings)")
+    return out
+
+
+def check_scans(torch, seed: int) -> dict:
+    """The scan runners at phase C's shape (64 steps x 4096, 400 us
+    apart, within one sub-window): ``sketch_kernels.build_scan`` for
+    config 3 (d=4, w=65536) and for d=3, w=2^20, and
+    ``bucket_kernels.build_scan`` on TB-c2 (its 64 x 4096 string keys
+    uniform over 10,000); packed masks, deny counts and the final state
+    bit-equal to the CPU; each scan's launches one front, admission and
+    update a step; decisions/s of 8 scans on the card (smoke)."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+    from ratelimiter_tpu_torch.ops import bucket_kernels as bk
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+    from ratelimiter_tpu_torch.ops.hashing import (
+        hash_prefixed_u64,
+        split_hash,
+        splitmix64,
+    )
+
+    rng = np.random.default_rng(seed + 29)
+    out = {}
+    cfg2 = dataclasses.replace(config3(), max_batch_admission_iters=1)
+    cases = (("config 3 d=4 w=65536", cfg2), (f"d={EVAL_DEPTH} "
+                                               f"w={EVAL_WIDTH}",
+                                               bench_config()),
+             ("TB-c2", config2_bucket()))
+    for label, cfg in cases:
+        bucket = label == "TB-c2"
+        if bucket:
+            keys = [f"u:{int(i)}" for i in rng.integers(
+                0, C2_KEYS, SCAN_STEPS * BATCH)]
+            h1, h2 = split_hash(hash_prefixed_u64(keys, cfg.prefix),
+                                cfg.sketch.seed)
+        else:
+            ids = rng.zipf(ZIPF_A, size=SCAN_STEPS * BATCH).astype(np.uint64)
+            h1, h2 = split_hash(splitmix64(ids), cfg.sketch.seed)
+        h1 = torch.from_numpy(h1.astype(np.int64).reshape(SCAN_STEPS, BATCH))
+        h2 = torch.from_numpy(h2.astype(np.int64).reshape(SCAN_STEPS, BATCH))
+        ns = torch.ones((SCAN_STEPS, BATCH), dtype=torch.int32)
+        if bucket:
+            scan = bk.build_scan(cfg)
+            states = {d: bk.init_state(cfg, d) for d in ("cuda", "cpu")}
+            kw = {}
+            now0 = int(T0 * 1e6)
+        else:
+            scan = sk.build_scan(cfg)
+            sub_us = sk.sketch_geometry(cfg)[1]
+            p = int(T0 * 1e6) // sub_us
+            states = {d: _rolled(cfg, d, p) for d in ("cuda", "cpu")}
+            kw = {"period": p}
+            now0 = p * sub_us
+        counter = bucket_cuda if bucket else sketch_cuda
+        counter.reset_launch_counts()
+        res = {}
+        for d, st in states.items():
+            res[d] = scan(st, h1.to(d), h2.to(d), ns.to(d), now0,
+                          SCAN_DT_US, **kw)
+        counts = hold_counts(
+            f"scan {label}", counter.launch_counts(),
+            {"bucket_estimate": SCAN_STEPS, "admit": SCAN_STEPS,
+             "bucket_update": SCAN_STEPS} if bucket else
+            {"window_estimate": SCAN_STEPS, "admit": SCAN_STEPS,
+             "cu_update": SCAN_STEPS})
+        for j, what in ((1, "packed masks"), (2, "deny counts")):
+            if not torch.equal(res["cuda"][j].cpu(), res["cpu"][j]):
+                raise AssertionError(f"scan {label}: {what} differ from the "
+                                     f"CPU")
+        if bucket:
+            for k in ("debt", "acc", "rem", "last"):
+                if not torch.equal(states["cuda"][k].cpu(),
+                                   states["cpu"][k]):
+                    raise AssertionError(f"scan {label}: state {k} differs")
+        else:
+            _hold_state(f"scan {label}", states["cuda"], states["cpu"])
+        denies = int(res["cpu"][2].sum())
+        st = states["cuda"]
+        del states
+        dh1, dh2, dns = h1.to("cuda"), h2.to("cuda"), ns.to("cuda")
+        reps = 8
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for r in range(reps):
+            if bucket:
+                scan(st, dh1, dh2, dns, now0 + (r + 1) * 10 ** 6,
+                     SCAN_DT_US)
+            else:
+                sk.build_steps(cfg)[2](st, p + r + 1)
+                scan(st, dh1, dh2, dns, (p + r + 1) * sub_us, SCAN_DT_US,
+                     period=p + r + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        out[label] = {"denies": denies, "counts": counts,
+                      "decisions_per_s": reps * SCAN_STEPS * BATCH / wall}
+        log(f"scan {label}: {SCAN_STEPS} x {BATCH} bit-equal to the CPU "
+            f"(masks, deny counts, state; {denies} denied), launches "
+            f"{counts}; "
+            f"{out[label]['decisions_per_s']:.0f} decisions/s over {reps} "
+            f"scans (smoke reading)")
+    return out
+
+
+#: bench.py's CI-scale accuracy run (bench.py:1763-1767).
+ACCURACY_ARGS = dict(n_keys=20_000, n_requests=120_000, batch=4096,
+                     limit=50, window=60.0, request_rate=50_000.0)
+ACCURACY_SKETCH = dict(depth=3, width=1 << 10, sub_windows=30,
+                       conservative_update=True)
+
+
+def check_accuracy(torch) -> dict:
+    """``evaluate_accuracy`` at bench.py's CI-scale arguments
+    (bench.py:1763-1767) on the card and on the CPU: the report equal
+    field by field; on the card one front, admission and ``cu_update``
+    a batch for the sketch and for its collision-free twin each."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import SketchParams
+    from ratelimiter_tpu_torch.evaluation import evaluate_accuracy
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+
+    kw = dict(ACCURACY_ARGS, sketch=SketchParams(**ACCURACY_SKETCH))
+    steps = 2 * -(-kw["n_requests"] // kw["batch"])
+    sketch_cuda.reset_launch_counts()
+    t = time.perf_counter()
+    got = evaluate_accuracy(**kw, device="cuda")
+    wall = time.perf_counter() - t
+    counts = hold_counts("evaluate_accuracy", sketch_cuda.launch_counts(),
+                         {"window_estimate": steps, "admit": steps,
+                          "cu_update": steps})
+    want = evaluate_accuracy(**kw, device="cpu")
+    if dataclasses.asdict(got) != dataclasses.asdict(want):
+        raise AssertionError(f"evaluate_accuracy on the card {got} differs "
+                             f"from the CPU's {want}")
+    out = dict(got.as_dict(), wall_s=wall, counts=counts)
+    log(f"evaluate_accuracy (bench.py's CI scale) on the card equal to the "
+        f"CPU field by field: false-deny rate {got.false_deny_rate:.3e} "
+        f"(Wilson 95% {got.false_deny_wilson95[0]:.3e}-"
+        f"{got.false_deny_wilson95[1]:.3e}), CMS false-deny rate "
+        f"{got.cms_false_deny_rate:.3e}, {got.semantic_disagreements} "
+        f"semantic disagreements, {got.requests} requests in {wall:.1f} s; "
+        f"launches {counts}")
+    return out
+
+
+def check_eval_path(torch, seed: int) -> dict:
+    """The evaluation path at bench.py's geometry: the bench chunk, the
+    eval chunk, the scan runners and ``evaluate_accuracy``."""
+    return {"bench_chunk": check_bench_chunk(torch, seed),
+            "eval_chunk": check_eval_chunk(torch, seed),
+            "scans": check_scans(torch, seed),
+            "accuracy": check_accuracy(torch)}
+
+
+def eval_runs(ev: dict) -> tuple:
+    """The evaluation path's counted runs for ``row_launches``: (the
+    windowed ones, the bucket scan's)."""
+    scans = ev["scans"]
+    windowed = [ev["bench_chunk"], {"counts": ev["bench_chunk"][
+        "big_chunk_counts"]}, ev["eval_chunk"], ev["accuracy"],
+        *(run for label, run in scans.items() if label != "TB-c2")]
+    return windowed, [scans["TB-c2"]]
+
+
+#: Batches of each dense path (48 at +2.5 s cross two 60 s windows).
+DENSE_STEPS = 48
+
+
+def run_dense_slice(torch, seed: int) -> dict:
+    """``--dense``: the dense step's rows (launches from the dense paths
+    and door, each counted from 0 just before it), the dense and exact
+    paths, their doors, the dense round trip and the evaluation path."""
+    rows = check_dense_kernel(torch, seed)
+    paths = check_dense_paths(torch, seed + 79, DENSE_STEPS)
+    doors = {b: check_backend_door(torch, dense_config("SLIDING_WINDOW"),
+                                   b, seed=seed + 83)
+             for b in ("dense", "exact")}
+    for name, row in rows.items():
+        row["launches"] = sum(r["counts"][name] for r in (
+            *paths.values(), doors["dense"]))
+    return {"kernels": list(rows.values()), "paths": paths, "doors": doors,
+            "durable": check_dense_durable(torch, seed),
+            "evaluation": check_eval_path(torch, seed)}
+
+
 def row_launches(name: str, windowed, bucket) -> int:
-    """A kernel row's launches over the main paths' runs, the door's and
-    phase 5's (each counted from 0 just before it and read just after):
+    """A kernel row's launches over the main paths' runs, the door's,
+    phase 5's and the evaluation path's (each counted from 0 just before
+    it and read just after):
     the standalone ``add_update`` is the TPU name's count less the fused
     back's builds, each admission launch counts as ``admit`` in its
     family's module (its cascade build as ``admit [cascade]``), and a
@@ -3738,6 +4703,11 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true",
                     help="only build, then drive and profile the main "
                          "paths (phase 3, one JSON line)")
+    ap.add_argument("--dense", action="store_true",
+                    help="only build, then run this slice's parts: the "
+                         "dense step's rows, the dense and exact paths, "
+                         "their doors, the dense round trip and the "
+                         "evaluation path (one JSON line)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3745,16 +4715,25 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    from ratelimiter_tpu_torch.ops import _build, bucket_cuda, sketch_cuda
+    from ratelimiter_tpu_torch.ops import (
+        _build,
+        bucket_cuda,
+        dense_cuda,
+        sketch_cuda,
+    )
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
-    _build.build_all(["sketch_kernels", "bucket_kernels"] + (
-        [] if args.sweep or args.admit_sweep or args.rows or args.paths
-        else ["cascade_bench"]))
+    full = not (args.sweep or args.admit_sweep or args.rows or args.paths
+                or args.dense)
+    _build.build_all(["sketch_kernels", "bucket_kernels"]
+                     + (["dense_kernels"] if full or args.dense else [])
+                     + (["cascade_bench"] if full else []))
     sketch_cuda.build()
     bucket_cuda.build()
+    if full or args.dense:
+        dense_cuda.build()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
@@ -3771,6 +4750,13 @@ def main(argv=None) -> int:
     if args.cascade:
         print(json.dumps({"card": card, "cascade": check_cascade(
             torch, args.seed)}))
+        print(card)
+        return 0
+    if args.dense:
+        out = run_dense_slice(torch, args.seed)
+        print(json.dumps({"card": card, "dense": out},
+                         default=lambda o: repr(o)))
+        check_no_children()
         print(card)
         return 0
     if args.rows:
@@ -3793,6 +4779,7 @@ def main(argv=None) -> int:
                           ("add_back", "add_back")):
             rows[row]["side_table_form"] = side["side_forms"][name]
         rows.update(check_cascade(torch, args.seed))
+        rows.update(check_dense_kernel(torch, args.seed))
     strict = not args.paths
     cu = check_main_path(torch, args.seed, args.steps, cu=True,
                          strict=strict)
@@ -3850,6 +4837,8 @@ def main(argv=None) -> int:
                               config2_bucket())
     paths.update({"cu_tenants": cu_tn, "vanilla_tenants": vanilla_tn,
                   "cu_hh_tenants": hh_tn, "TB-c2_tenants": tb_tn})
+    dense_paths = check_dense_paths(torch, args.seed + 79, DENSE_STEPS)
+    paths["dense"] = dense_paths
     log(f"side-table paths on {card} (hh_slots={HH_SLOTS} | without): "
         + "; ".join(
             f"{label} {h['steps_per_s']:.1f} | {b['steps_per_s']:.1f} "
@@ -3881,6 +4870,10 @@ def main(argv=None) -> int:
         seed=args.seed + 43, space="tenants", counters=[sketch_cuda],
         required=("window_estimate", "admit [cascade]", "cu_update"),
         same=("admit [cascade]", "cu_update"), setup=boot_tenants)
+    door_dense = check_backend_door(torch, dense_config("SLIDING_WINDOW"),
+                                    "dense", seed=args.seed + 83)
+    door_exact = check_backend_door(torch, dense_config("SLIDING_WINDOW"),
+                                    "exact", seed=args.seed + 83)
     bare_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
     bare_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
                         space="c2")
@@ -3899,6 +4892,8 @@ def main(argv=None) -> int:
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
     tenant_door = check_tenant_durable_door(config3(), device="cuda",
                                             seed=args.seed)
+    dense_durable = check_dense_durable(torch, args.seed)
+    eval_path = check_eval_path(torch, args.seed)
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
         f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
         f"{live['lock_hold_ms_TB-c2']}); strict deny-all batches "
@@ -3909,12 +4904,18 @@ def main(argv=None) -> int:
         f"{durable['snapshot_mb']:.1f} MB; a frame during a snapshot "
         f"{durable['frame_ms_during_snapshot']:.2f} ms against "
         f"{durable['frame_ms_alone']:.2f} ms alone")
+    ev_windowed, ev_bucket = eval_runs(eval_path)
     for name in rows:
+        if name.startswith("dense_step"):
+            rows[name]["launches"] = sum(
+                r["counts"][name] for r in (*dense_paths.values(),
+                                            door_dense))
+            continue
         rows[name]["launches"] = row_launches(
             name, (cu, vanilla, cu_hh, vanilla_hh, cu_tn, vanilla_tn,
                    hh_tn, door_cu, door_hh, door_tn, live["windowed"],
-                   watch),
-            (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"]))
+                   watch, *ev_windowed),
+            (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"], *ev_bucket))
     paths["live"] = live
     paths["watchdog"] = watch
     paths["durable_door"] = durable
@@ -3925,6 +4926,10 @@ def main(argv=None) -> int:
     paths["door_TB-c2"] = door_tb
     paths["door_unproxied_windowed_CU"] = bare_cu
     paths["door_unproxied_TB-c2"] = bare_tb
+    paths["door_dense"] = door_dense
+    paths["door_exact"] = door_exact
+    paths["dense_durable"] = dense_durable
+    paths["evaluation"] = eval_path
 
     log(json.dumps({"main_path": paths}))
     check_no_children()

@@ -4,9 +4,13 @@ A second package beside the JAX one, which stays the reference: the same
 ``Config``, the same operands and the same results, bit for bit. It
 imports ``torch`` and NumPy, never ``jax`` and nothing of
 ``ratelimiter_tpu`` (the host modules it needs are copied in). The table
-kernels of the windowed sketch step and of the sketched token bucket's
-are hand-written CUDA for Hopper (``csrc/``); everything else is plain
-PyTorch.
+kernels of the windowed sketch step and of the sketched token bucket's,
+and the dense backend's step, are hand-written CUDA for Hopper
+(``csrc/``); everything else is plain PyTorch. Three backends, as in the
+JAX package: ``sketch`` (the default), ``dense`` (exact, slot-addressed
+state on the card) and ``exact`` (host dicts, the conformance oracle);
+``evaluation/`` holds the load generator, the device oracle and the
+accuracy harness.
 
     from ratelimiter_tpu_torch import Algorithm, Config, create_limiter
 
@@ -30,6 +34,7 @@ from ratelimiter_tpu_torch.core.types import Algorithm, Result, BatchResult
 from ratelimiter_tpu_torch.core.config import (
     Config,
     SketchParams,
+    DenseParams,
     PersistenceSpec,
     HierarchySpec,
     DEFAULT_PREFIX,
@@ -55,6 +60,7 @@ __all__ = [
     "BatchResult",
     "Config",
     "SketchParams",
+    "DenseParams",
     "PersistenceSpec",
     "HierarchySpec",
     "DEFAULT_PREFIX",

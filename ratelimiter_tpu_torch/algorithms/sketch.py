@@ -48,8 +48,10 @@ every step (rebuilt when the table's version moves), and whose
 ``hier_*`` columns ride snapshots; ``hierarchy_stats`` reads the scope
 counters. On the card a batch under the cascade holds at most
 ``sketch_cuda.ADMIT_CAPACITY`` requests (its backs are one block; a
-larger one is refused before anything runs). Not ported yet: the multi-batch scan runners (ROADMAP A6) and
-the DCN bookkeeping (A8).
+larger one is refused before anything runs). The multi-batch scan
+runners that benchmarks drive are ``sketch_kernels.build_scan`` and
+``bucket_kernels.build_scan``, below the limiters. Not ported yet: the
+DCN bookkeeping (ROADMAP A8).
 """
 
 from __future__ import annotations

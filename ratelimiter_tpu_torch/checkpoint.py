@@ -22,8 +22,9 @@ Staleness semantics:
   every backend keys its state off absolute host timestamps, so the first
   post-restore dispatch applies the usual catch-up (windowed sketch:
   sub-window rollover masks out expired slabs; token bucket: decay from
-  the restored ``last``). A snapshot restored after >= 1 full window
-  therefore behaves like a fresh limiter, as it must.
+  the restored ``last``; dense and exact windows: lazy window roll). A
+  snapshot restored after >= 1 full window therefore behaves like a
+  fresh limiter, as it must.
 """
 
 from __future__ import annotations
@@ -45,12 +46,6 @@ FORMAT_VERSION = 1
 _META_KEY = "__ratelimiter_tpu_meta__"
 _tmp_counter = itertools.count()
 
-#: The field of the JAX package's Config that the port's lacks, at the
-#: JAX default, which is what every config the port serves means: the
-#: dense backend's spec (ROADMAP A7).
-_JAX_DENSE = {"capacity": 1 << 16}
-
-
 def config_fingerprint(config: Config) -> str:
     """Stable hash over every semantic config field: the JAX package's
     digest for the same config. The persistence spec and
@@ -58,12 +53,13 @@ def config_fingerprint(config: Config) -> str:
     geometry), as is the hierarchy spec while it is disabled (so every
     pre-hierarchy snapshot keeps its fingerprint); enabled, the cascade's
     geometry shapes the ``tn_*`` arrays and participates. The JAX package
-    also excludes its mesh spec. tests/test_torch_persistence.py pins the
-    JAX golden value, tests/test_torch_hier.py an enabled spec's."""
+    also excludes its mesh spec, which the port's Config lacks.
+    tests/test_torch_persistence.py pins the JAX golden value,
+    tests/test_torch_hier.py an enabled spec's and tests/test_torch_dense.py
+    a non-default dense spec's."""
     fields = asdict(config)
     fields.pop("persistence", None)
     fields["sketch"].pop("kernels", None)
-    fields["dense"] = dict(_JAX_DENSE)
     if not fields["hierarchy"].get("tenants"):
         fields.pop("hierarchy")
     payload = json.dumps(

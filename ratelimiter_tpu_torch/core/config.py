@@ -1,12 +1,10 @@
 """Configuration, validation, defaults, and key formatting.
 
 A copy of ``ratelimiter_tpu/core/config.py`` (the port keeps its own copy
-of every host module it needs and imports nothing of the JAX package),
-trimmed to the fields this slice serves or must refuse; a ``Config`` built
-from them means the same in both packages. Left out: the dense spec
-(ROADMAP A7), the mesh spec (A8) and ``SketchParams.for_load``;
-checkpoint.config_fingerprint puts the JAX defaults of the first two in
-its digest, so a snapshot carries across.
+of every host module it needs and imports nothing of the JAX package); a
+``Config`` built from its fields means the same in both packages. Left
+out: the mesh spec (ROADMAP A8), which the JAX fingerprint excludes, and
+``SketchParams.for_load``.
 
 Parity with reference ``internal/ratelimiter/config.go`` and the Config struct
 (``interface.go:46-70``): algorithm, limit, window, key prefix, fail-open,
@@ -275,6 +273,19 @@ class PersistenceSpec:
 
 
 @dataclass(frozen=True)
+class DenseParams:
+    """Geometry of the dense (exact, slot-addressed) device backend."""
+
+    #: Maximum number of distinct live keys; key -> slot assignment happens
+    #: host-side at ingest.
+    capacity: int = 1 << 16
+
+    def validate(self) -> None:
+        if self.capacity < 1:
+            raise InvalidConfigError(f"dense capacity must be positive, got {self.capacity}")
+
+
+@dataclass(frozen=True)
 class Config:
     """User-facing limiter configuration (reference ``interface.go:46-70``).
 
@@ -290,7 +301,8 @@ class Config:
         max_batch_admission_iters: fixpoint iterations for same-key mixed-n
             sequencing inside one batch (exact for uniform n; see
             ops/segment.py).
-        sketch: CMS geometry.
+        sketch: CMS geometry (sketch backend only).
+        dense: dense-store geometry (dense backend only).
         policy: per-key override table geometry (the policy engine,
             consulted inside the decision step).
         persistence: durability subsystem knobs (WAL + background
@@ -309,6 +321,7 @@ class Config:
     fail_open: bool = False
     max_batch_admission_iters: int = 4
     sketch: SketchParams = field(default_factory=SketchParams)
+    dense: DenseParams = field(default_factory=DenseParams)
     policy: PolicySpec = field(default_factory=PolicySpec)
     persistence: PersistenceSpec = field(default_factory=PersistenceSpec)
     hierarchy: HierarchySpec = field(default_factory=HierarchySpec)
@@ -331,6 +344,7 @@ class Config:
                 "max_batch_admission_iters must be >= 1, "
                 f"got {self.max_batch_admission_iters}")
         self.sketch.validate()
+        self.dense.validate()
         self.policy.validate()
         self.persistence.validate()
         self.hierarchy.validate()
@@ -346,3 +360,18 @@ class Config:
     def prefix(self) -> str:
         """Resolved prefix ("" means no prefix)."""
         return DEFAULT_PREFIX if self.key_prefix is None else self.key_prefix
+
+    def format_key(self, key: str, *parts: object) -> str:
+        """Reference ``config.go:81-87`` + the per-algorithm window suffixing
+        (``fixedwindow.go:139-141``): ``prefix:key[:part...]``; no leading
+        colon when prefix is ""."""
+        base = f"{self.prefix}:{key}" if self.prefix else key
+        for p in parts:
+            base = f"{base}:{p}"
+        return base
+
+    @property
+    def refill_rate(self) -> float:
+        """Token-bucket refill rate in tokens/second = limit / window
+        (reference ``tokenbucket.go:155-157``)."""
+        return self.limit / float(self.window)

@@ -137,6 +137,20 @@ class BatchResult:
         return int(np.sum(self.allowed))
 
 
+def allowed_result(limit: int, remaining: int, reset_at: float) -> Result:
+    """Reference ``result.go:6-14`` (NewAllowedResult)."""
+    return Result(allowed=True, limit=limit, remaining=max(0, int(remaining)),
+                  retry_after=0.0, reset_at=reset_at)
+
+
+def denied_result(limit: int, remaining: int, retry_after: float,
+                  reset_at: float) -> Result:
+    """Reference ``result.go:17-26`` (NewDeniedResult); retry_after clamped
+    >= 0 the way every algorithm clamps it (``fixedwindow.go:110-112``)."""
+    return Result(allowed=False, limit=limit, remaining=max(0, int(remaining)),
+                  retry_after=max(0.0, float(retry_after)), reset_at=reset_at)
+
+
 def fail_open_result(limit: int, reset_at: float) -> Result:
     """Backend down with fail_open: allowed, remaining 0 (reference
     ``result.go:29-38``, ``tokenbucket.go:103-110``)."""

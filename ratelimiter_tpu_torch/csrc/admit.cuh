@@ -1,6 +1,8 @@
 // In-batch admission as one block-level routine, shared by the three backs
 // of the decision step: rl_add_back and rl_window_admit
-// (sketch_kernels.cu) and rl_bucket_admit (bucket_kernels.cu).
+// (sketch_kernels.cu) and rl_bucket_admit (bucket_kernels.cu), and by the
+// dense backend's step, rl_dense_step (dense_kernels.cu), which groups on
+// the slot id and reads operands its own block computed (admit_by).
 //
 // It computes what ops/segment.py::admit computes (the JAX package's
 // ratelimiter_tpu/ops/segment.py:90-156, admit): greedy-in-batch-order
@@ -59,8 +61,9 @@
 // thread) that holds B keys, up to kMaxCapacity = 8192, the largest power
 // of two whose table (two 8-byte slots a key, 128 KB) fits the 227 KB of
 // shared memory a block may take; the wrappers run the plain composition
-// above it, except under the hierarchy cascade, which refuses such a
-// batch on the card (ops/sketch_cuda.py, ADMIT_CAPACITY). The shapes come from
+// above it, except under the hierarchy cascade and in the dense step,
+// which refuse such a batch on the card (ops/sketch_cuda.py,
+// ADMIT_CAPACITY; ops/dense_cuda.py). The shapes come from
 // ``python3 chip_smoke.py --admit-sweep`` on an H100 (csrc/admit_bench.cu,
 // PERF.md): 64x4 up to 256 keys, 256x4 up to 1024, 512x8 up to 4096
 // (1024x4 and 256x16 were slower on Zipf ids and on one key), 1024x8 up
@@ -237,17 +240,17 @@ __device__ __forceinline__ uint32_t group_id(typename S::Storage& tmp,
   }
 }
 
-// Every thread of the block calls it. h1 is int64[B]; n and avail are
-// the quantity's [B] arrays in batch order. On return (after a barrier)
-// tmp.u.out.allowed[i] and tmp.u.out.seen[i] hold request i's results,
-// for every i < B, in batch order, and ``s`` the thread's items in sorted
-// order with their segment heads and tails and final mask.
-template <class S, class Q = typename S::Quantity>
-__device__ __forceinline__ void admit(typename S::Storage& tmp,
-                                      const int64_t* __restrict__ h1,
-                                      const Q* __restrict__ n,
-                                      const Q* __restrict__ avail, int B,
-                                      int iters, Sorted<Q, S::kItems>& s) {
+// Every thread of the block calls it. ``key(j)`` is request j's group
+// key (any 64-bit value; only equality matters) and ``load(i, n, avail)``
+// reads request i's operands, for j, i < B in batch order. On return
+// (after a barrier) tmp.u.out.allowed[i] and tmp.u.out.seen[i] hold
+// request i's results, for every i < B, in batch order, and ``s`` the
+// thread's items in sorted order with their segment heads and tails and
+// final mask.
+template <class S, class Q, class Key, class Load>
+__device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
+                                         Load load, int B, int iters,
+                                         Sorted<Q, S::kItems>& s) {
   constexpr int kThreads = S::kThreads, kItems = S::kItems;
   for (int j = threadIdx.x; j < S::kSlots; j += kThreads)
     tmp.u.table[j] = kEmpty;
@@ -257,9 +260,7 @@ __device__ __forceinline__ void admit(typename S::Storage& tmp,
   for (int k = 0; k < kItems; ++k) {
     const int j = threadIdx.x * kItems + k;
     const bool valid = j < B;
-    const unsigned long long key =
-        valid ? static_cast<unsigned long long>(__ldg(h1 + j)) : kEmpty;
-    id[k] = group_id<S>(tmp, key, valid);
+    id[k] = group_id<S>(tmp, valid ? key(j) : kEmpty, valid);
     s.idx[k] = j;
   }
   __syncthreads();  // the table is dead; its storage takes the sort
@@ -268,10 +269,8 @@ __device__ __forceinline__ void admit(typename S::Storage& tmp,
   typename S::Heads(tmp.u.heads).FlagHeadsAndTails(s.head, s.tail, id,
                                                    Differ());
   __syncthreads();
-  for (int i = threadIdx.x; i < B; i += kThreads) {
-    tmp.u.in.n[i] = __ldg(n + i);
-    tmp.u.in.avail[i] = __ldg(avail + i);
-  }
+  for (int i = threadIdx.x; i < B; i += kThreads)
+    load(i, tmp.u.in.n[i], tmp.u.in.avail[i]);
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
@@ -319,6 +318,25 @@ __device__ __forceinline__ void admit(typename S::Storage& tmp,
     }
   }
   __syncthreads();
+}
+
+// admit_by over operands the launch only reads: h1 is int64[B] (the
+// group key); n and avail are the quantity's [B] arrays in batch order,
+// read through the read-only cache.
+template <class S, class Q = typename S::Quantity>
+__device__ __forceinline__ void admit(typename S::Storage& tmp,
+                                      const int64_t* __restrict__ h1,
+                                      const Q* __restrict__ n,
+                                      const Q* __restrict__ avail, int B,
+                                      int iters, Sorted<Q, S::kItems>& s) {
+  admit_by<S, Q>(
+      tmp,
+      [h1](int j) { return static_cast<unsigned long long>(__ldg(h1 + j)); },
+      [n, avail](int i, Q& nn, Q& av) {
+        nn = __ldg(n + i);
+        av = __ldg(avail + i);
+      },
+      B, iters, s);
 }
 
 // Launches ONE block of ``kernel`` (a __global__ function taking ``a`` by

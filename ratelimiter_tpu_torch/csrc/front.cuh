@@ -14,7 +14,8 @@
 // (ops/hashing.py), the column rule (h1 + r*h2) & (w-1), and the policy
 // lookup (ops/policy_kernels.py::lookup_i64), with the table's sorted key
 // column staged in shared memory by one bulk asynchronous copy when it is
-// small enough.
+// small enough. The dense step (dense_kernels.cu) searches its table with
+// policy_row too.
 
 #pragma once
 
@@ -129,13 +130,28 @@ __device__ __forceinline__ void drain_table(uint64_t* bar) {
   }
 }
 
+// The row of query q in the sorted key column (``key(j)`` reads row j of
+// P, a power of two), exactly as lookup_i64 finds it: idx = the largest i
+// with key[i] <= q (the descent starts at step P, so the last row of a
+// full table is reachable; -1 when every key is greater); the row is idx
+// when idx >= 0 and key[idx] == q, else -1. A query equal to PAD_KEY
+// lands on the last pad row, which holds the defaults. Branchless: each
+// step's probe is clamped into the column and its result selected.
+template <class KeyAt>
+__device__ __forceinline__ int policy_row(KeyAt key, int P, long long q) {
+  int idx = -1;
+  for (int step = P; step >= 1; step >>= 1) {
+    const int cand = idx + step;
+    const long long probe = key(cand < P ? cand : P - 1);
+    idx = (cand < P && probe <= q) ? cand : idx;
+  }
+  const int safe = idx > 0 ? idx : 0;
+  return (idx >= 0 && key(safe) == q) ? safe : -1;
+}
+
 // The limit of the key with halves (h1, h2), exactly as lookup_i64 and
-// the step's where() give it: q = (h1 << 32) | h2 as int64; idx = the
-// largest i with key[i] <= q (the descent starts at step P, so the last
-// row of a full table is reachable; -1 when every key is greater); found
-// = idx >= 0 and key[idx] == q. A query equal to PAD_KEY lands on the
-// last pad row and reads its default. Branchless: each step's probe is
-// clamped into the column and its result selected.
+// the step's where() give it: its row's limit for q = (h1 << 32) | h2 as
+// int64 (policy_row), the default when it has none.
 template <int kTable>
 __device__ __forceinline__ long long policy_limit(const Policy& p,
                                                   const long long* keys,
@@ -154,14 +170,8 @@ __device__ __forceinline__ long long policy_limit(const Policy& p,
         return __ldg(keys + j);
       }
     };
-    int idx = -1;
-    for (int step = p.P; step >= 1; step >>= 1) {
-      const int cand = idx + step;
-      const long long probe = key(cand < p.P ? cand : p.P - 1);
-      idx = (cand < p.P && probe <= q) ? cand : idx;
-    }
-    const int safe = idx > 0 ? idx : 0;
-    return (idx >= 0 && key(safe) == q) ? __ldg(p.limit + safe) : p.dflt;
+    const int row = policy_row(key, p.P, q);
+    return row >= 0 ? __ldg(p.limit + row) : p.dflt;
   }
 }
 

@@ -42,58 +42,28 @@ cascade runs in the back's cascade build (ops/bucket_cuda.py
 ``bucket_admit``), and a row the key scope admits but the cascade denies
 retries when the scope window resets. A reset leaves them standing.
 
-Not ported: the scan runner ``_bucket_scan``/``build_scan`` (ROADMAP
-A6).
+``build_scan`` is the multi-step runner of the bench's serving shape: T
+steps enqueued back to back with no host sync (the decay is part of each
+step, so no sub-window precondition).
 """
 
 from __future__ import annotations
 
-import math
 from functools import partial
 from typing import Callable, Dict
 
 import torch
 
-from ratelimiter_tpu_torch.core.clock import MICROS, to_micros
 from ratelimiter_tpu_torch.core.config import Config
-from ratelimiter_tpu_torch.core.errors import InvalidConfigError
 from ratelimiter_tpu_torch.ops import bucket_cuda
 from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP as _DEBT_CAP
+from ratelimiter_tpu_torch.ops.dense_kernels import (  # noqa: F401
+    _check_gates,
+    check_gate_values,
+)
 from ratelimiter_tpu_torch.ops.sketch_kernels import _PER_MICRO
 
 State = Dict[str, torch.Tensor]
-
-
-def check_gate_values(limit: int, window_us: int) -> tuple[int, int]:
-    """Overflow gates for the exact-integer paths, for one (limit,
-    window_us) operating point (a copy of the JAX package's
-    ``dense_kernels.check_gate_values``). Returns the reduced refill
-    fraction (rate_num, rate_den) in micro-tokens per microsecond."""
-    W = window_us
-    g = math.gcd(limit * MICROS, W)
-    num, den = limit * MICROS // g, W // g
-    # token bucket: elapsed*num + rem with elapsed < W, rem < den
-    if W * num >= 2**62:
-        raise InvalidConfigError(
-            "limit*window too large for exact integer token math "
-            f"(window_us*rate_num = {W * num} >= 2^62)")
-    # sliding window: counts*(W) terms and the micro-rescale (x % W) * MICROS
-    if limit * W >= 2**61 or W * MICROS >= 2**63:
-        raise InvalidConfigError(
-            "limit*window too large for exact integer sliding-window math "
-            f"(limit*window_us = {limit * W} >= 2^61)")
-    # admission cumsum: batch_total <= B * limit * MICROS; B <= 2^20 assumed
-    if limit * MICROS >= 2**42:
-        raise InvalidConfigError(
-            f"limit {limit} too large for micro-unit batch accounting (>= 2^42/1e6)")
-    return num, den
-
-
-def _check_gates(cfg: Config) -> tuple[int, int, int]:
-    """Config-level gate wrapper. Returns (window_us, rate_num, rate_den)."""
-    W = to_micros(cfg.window)
-    num, den = check_gate_values(cfg.limit, W)
-    return W, num, den
 
 
 #: tn_period's initial value: every count reads as an earlier window's.
@@ -215,6 +185,33 @@ def _bucket_reset(state: State, h1, h2, now_us: int, *,
                              -est.repeat(d))
     debt.clamp_min_(0)
     _advance(state, now_us, rem)
+
+
+def _bucket_scan(state: State, h1s, h2s, ns, now0_us: int, dt_us: int, *,
+                 step_kw: dict) -> tuple:
+    """T sequential bucket steps enqueued back to back with no host sync
+    (the JAX package's ``_bucket_scan``, a lax.scan there). Timestamps
+    advance dt_us per step; the leading axis of h1s/h2s (int64 halves)
+    and ns (int32) is time. Returns ``(state, packed_masks uint8 (T,
+    B/8), deny_counts int32 (T,))``; ``state`` is updated in place."""
+    from ratelimiter_tpu_torch.ops.sketch_kernels import _pack_bits
+
+    T, B = h1s.shape
+    packed = torch.empty((T, B // 8), dtype=torch.uint8, device=h1s.device)
+    denies = torch.empty((T,), dtype=torch.int32, device=h1s.device)
+    for i in range(T):
+        allowed = _bucket_step(state, h1s[i], h2s[i], ns[i],
+                               now0_us + i * dt_us, **step_kw)[0]
+        packed[i] = _pack_bits(allowed)
+        denies[i] = (~allowed).sum(dtype=torch.int32)
+    return state, packed, denies
+
+
+def build_scan(cfg: Config) -> Callable:
+    """Multi-step runner: ``scan(state, h1s, h2s, ns, now0_us, dt_us) ->
+    (state, packed_masks, deny_counts)``, T batches enqueued without a
+    host sync (the JAX package's ``build_scan``)."""
+    return partial(_bucket_scan, step_kw=_params(cfg))
 
 
 def finish_bucket(allowed, remaining, retry_us, now_us: int, window_us: int):

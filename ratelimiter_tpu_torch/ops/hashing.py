@@ -43,6 +43,11 @@ _C1 = _i64(0xBF58476D1CE4E5B9)
 _C2 = _i64(0x94D049BB133111EB)
 
 
+def hash_strings_u64(keys: Sequence[str]) -> np.ndarray:
+    """Stable 64-bit hashes of string keys (native bulk hasher)."""
+    return bulk_hash_u64(keys)
+
+
 def hash_prefixed_u64(keys: Sequence[str], prefix: str = "") -> np.ndarray:
     """THE key→hash rule: namespace prefix, then the bulk hash — the same
     rule as the JAX package, so a key lands on the same columns in both."""

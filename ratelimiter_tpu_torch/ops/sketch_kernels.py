@@ -64,8 +64,12 @@ A live ``update_window`` re-buckets the ring (and the side table's and
 the tenant counters') onto the new sub-window geometry
 (``build_migrate``). It is plain PyTorch on the state's device, as the
 rollover is: the JAX package's migration and rollover are jitted ``jnp``
-too, not Pallas kernels. Left out: the scan runner ``build_scan``
-(ROADMAP A6).
+too, not Pallas kernels.
+
+``build_scan`` is the multi-step runner of the bench's serving shape: T
+steps enqueued back to back with no host sync, packed masks and deny
+counts out, within one sub-window (the precondition is refused when
+broken, where the JAX scan clamps).
 """
 
 from __future__ import annotations
@@ -258,8 +262,8 @@ def _decide(state: State, keys, n, now_us: int, policy=None, hier=None, *,
     by the limiter's _sync_period): ``period`` is state's last_period.
     With a side table in ``state``, ``hh_thresh`` is its promotion
     threshold. ``hier`` (the tenant table's device columns, with
-    ``tn_*`` state) runs the cascade. Returns ``(allowed bool[B],
-    remaining int32[B], est f32[B])``."""
+    ``tn_*`` state) runs the cascade. Returns
+    ``(allowed bool[B], remaining int32[B], est f32[B])``."""
     # Clamp defends against clock skew backwards, as in the reference.
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
@@ -347,6 +351,50 @@ def _pack_bits(mask: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
     return (mask.view(-1, 8).to(torch.uint8) << shifts).sum(
         1, dtype=torch.uint8)
+
+
+def _sketch_scan(state: State, h1s, h2s, ns, now0_us: int, dt_us: int, *,
+                 period: int, step_kw: dict) -> tuple:
+    """T sequential sketch steps enqueued back to back with no host sync
+    (the JAX package's ``_sketch_scan``, a lax.scan there). Timestamps
+    advance dt_us per step; the leading axis of h1s/h2s (int64 halves)
+    and ns (int32) is time. Returns ``(state, packed_masks uint8 (T,
+    B/8), deny_counts int32 (T,))``; ``state`` is updated in place.
+
+    Precondition, as in the JAX scan: the whole chunk lies within the
+    sub-window ``period`` (the state's, from the host like the step's),
+    so the caller splits chunks at period boundaries and rolls over
+    between them. The JAX scan would freeze time at the stale period
+    past its end; here a chunk reaching past it is refused. The JAX scan
+    hoists the boundary slab and the side table's boundary column out of
+    its body; here each step rebuilds them as views of the ring, which
+    costs no device work. No tenant table rides the chunk, so ``tn_*``
+    state carries through untouched."""
+    T, B = h1s.shape
+    sub_us = step_kw["sub_us"]
+    if dt_us < 0 or (now0_us + (T - 1) * dt_us) // sub_us > period:
+        raise ValueError(
+            f"a scan chunk must lie within its sub-window {period} "
+            f"(ending at {(period + 1) * sub_us} us): {T} steps from "
+            f"{now0_us} us at +{dt_us} us reach past it; split the chunk "
+            f"and roll over between")
+    packed = torch.empty((T, B // 8), dtype=torch.uint8, device=h1s.device)
+    denies = torch.empty((T,), dtype=torch.int32, device=h1s.device)
+    for i in range(T):
+        allowed = _sketch_step(state, h1s[i], h2s[i], ns[i],
+                               now0_us + i * dt_us, period=period,
+                               **step_kw)[0]
+        packed[i] = _pack_bits(allowed)
+        denies[i] = (~allowed).sum(dtype=torch.int32)
+    return state, packed, denies
+
+
+def build_scan(cfg: Config) -> Callable:
+    """Multi-step runner: ``scan(state, h1s, h2s, ns, now0_us, dt_us, *,
+    period) -> (state, packed_masks, deny_counts)``, T batches enqueued
+    without a host sync (the JAX package's ``build_scan``, one dispatch
+    there)."""
+    return partial(_sketch_scan, step_kw=_step_kw(cfg))
 
 
 def pack_wire(allowed, remaining, retry, reset):

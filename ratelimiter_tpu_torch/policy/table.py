@@ -2,10 +2,17 @@
 ``ratelimiter_tpu/policy/table.py``).
 
 One PolicyTable per limiter instance. The table owns the entry store and
-the *host* form of the device arrays (the sorted ``key`` column and each
-entry's absolute ``limit``); the backend places them on its device. The
-JAX package's table also derives per-key token-bucket rates for its
-exact and dense backends, which the port does not serve (ROADMAP A7).
+the *host* form of the device arrays; the backend places them on its
+device and decides which value columns its kernels consume:
+
+* ``limit``      — the entry's absolute limit (tiers pin absolute
+  numbers; a later ``update_limit`` moves only the default);
+* ``window_us``  — the entry's effective window, microseconds
+  (``base_window * window_scale``; the dense and exact backends);
+* ``rate_num`` / ``rate_den`` — the entry's token-bucket refill rate as
+  a reduced exact fraction (micro-tokens per microsecond), precomputed
+  host-side so the device path stays gcd-free.
+
 ``update_limit``/``update_window`` rebase the table (``validate_rebase``
 before any state moves, ``rebase`` after).
 
@@ -28,12 +35,13 @@ acknowledged and recovers exactly across a crash.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ratelimiter_tpu_torch.core.clock import to_micros
+from ratelimiter_tpu_torch.core.clock import MICROS, to_micros
 from ratelimiter_tpu_torch.core.config import (
     MAX_WINDOW_SECONDS,
     MIN_WINDOW_SECONDS,
@@ -89,10 +97,11 @@ class PolicyTable:
 
     # ------------------------------------------------------------- derive
 
-    def _effective(self, ov: Override) -> Tuple[int, int]:
-        """(limit, window_us) for one entry."""
-        return ov.limit, max(1, int(round(self._base_window_us
-                                          * ov.window_scale)))
+    def _effective(self, ov: Override) -> Tuple[int, int, int, int]:
+        """(limit, window_us, rate_num, rate_den) for one entry."""
+        w_us = max(1, int(round(self._base_window_us * ov.window_scale)))
+        g = math.gcd(ov.limit * MICROS, w_us)
+        return ov.limit, w_us, ov.limit * MICROS // g, w_us // g
 
     # ------------------------------------------------------------ mutate
 
@@ -128,7 +137,7 @@ class PolicyTable:
                 f"[{MIN_WINDOW_SECONDS:g}, {MAX_WINDOW_SECONDS:g}]s")
         ov = Override(limit=limit, window_scale=ws)
         if self._validator is not None:
-            self._validator(*self._effective(ov))
+            self._validator(*self._effective(ov)[:2])
         if key not in self._entries and len(self._entries) >= self.capacity:
             raise InvalidConfigError(
                 f"policy table full ({self.capacity} overrides); raise "
@@ -214,17 +223,33 @@ class PolicyTable:
     def has_window_scaled(self) -> bool:
         return any(ov.window_scale != 1.0 for ov in self._entries.values())
 
+    def effective(self, key: str) -> Optional[Tuple[int, int, int, int]]:
+        """(limit, window_us, rate_num, rate_den) or None for default keys
+        — the exact backend's host-side consult."""
+        ov = self._entries.get(key)
+        return None if ov is None else self._effective(ov)
+
     # -------------------------------------------------------- host arrays
 
     def host_arrays(self) -> Dict[str, np.ndarray]:
-        """Padded, sorted int64 columns {key, limit} of length ``capacity``
-        — the host form the backend places on device. Rebuilt lazily per
-        version."""
+        """Padded, sorted int64 columns {key, limit, window_us, rate_num,
+        rate_den} of length ``capacity`` — the host form the backend
+        places on device. Rebuilt lazily per version."""
         if self._host_arrays is None:
-            arrs = pk.empty_arrays(self.capacity, {"limit": self._base_limit})
-            n = len(self._sorted_entries)
-            arrs["key"][:n] = self._sorted_keys
-            arrs["limit"][:n] = [ov.limit for _, ov in self._sorted_entries]
+            g = math.gcd(self._base_limit * MICROS, self._base_window_us)
+            arrs = pk.empty_arrays(self.capacity, {
+                "limit": self._base_limit,
+                "window_us": self._base_window_us,
+                "rate_num": self._base_limit * MICROS // g,
+                "rate_den": self._base_window_us // g,
+            })
+            for i, (_key, ov) in enumerate(self._sorted_entries):
+                lim, w_us, num, den = self._effective(ov)
+                arrs["key"][i] = self._sorted_keys[i]
+                arrs["limit"][i] = lim
+                arrs["window_us"][i] = w_us
+                arrs["rate_num"][i] = num
+                arrs["rate_den"][i] = den
             self._host_arrays = arrs
         return self._host_arrays
 

@@ -1,10 +1,16 @@
 """Server binary: ``python -m ratelimiter_tpu_torch.serving``.
 
-Serves a count-min-sketch limiter on the card (``--device cuda``, the
-default; ``--device cpu`` runs the kernels' plain versions): the windowed
-sketch, or with ``--algorithm token_bucket`` the sketched token bucket
+Serves a limiter on the card (``--device cuda``, the default; ``--device
+cpu`` runs the kernels' plain versions). ``--backend sketch`` (the
+default) serves a count-min sketch: the windowed sketch, or with
+``--algorithm token_bucket`` the sketched token bucket
 (``--sub-windows``, ``--no-conservative-update`` and ``--hh-slots`` do
-not apply to it),
+not apply to it); ``--backend dense`` exact slot-addressed state on the
+card (``--dense-capacity`` slots; at most 8192 requests a launch, so
+``--max-batch`` at most 8192) and ``--backend exact`` the host oracle.
+Dense and exact serve ALLOW and ALLOW_BATCH frames (string keys); the
+raw-id ALLOW_HASHED lane needs a sketch backend and is refused as in the
+JAX binary,
 behind the micro-batcher (``--max-batch``, ``--max-delay-us``,
 ``--dispatch-timeout-ms``, ``--inflight``; the JAX binary's names and
 defaults). Before it listens it builds and loads the CUDA kernels (on
@@ -48,6 +54,7 @@ import time
 from ratelimiter_tpu_torch import (
     Algorithm,
     Config,
+    DenseParams,
     HierarchySpec,
     PersistenceSpec,
     SketchParams,
@@ -68,6 +75,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--port", type=int, default=8432)
     ap.add_argument("--algorithm", default="sliding_window",
                     choices=_ALGORITHMS)
+    ap.add_argument("--backend", default="sketch",
+                    choices=["exact", "dense", "sketch"],
+                    help="state backend: sketch (count-min sketch on the "
+                         "card), dense (exact slot-addressed state on the "
+                         "card) or exact (host dicts, the oracle). The "
+                         "JAX binary's 'mesh' is not ported (ROADMAP A8)")
+    ap.add_argument("--dense-capacity", type=int, default=1 << 16,
+                    help="--backend dense: slots, i.e. the most distinct "
+                         "live keys (idle keys are pruned after 2 "
+                         "windows)")
     ap.add_argument("--limit", type=int, default=100)
     ap.add_argument("--window", type=float, default=60.0,
                     help="window length in seconds")
@@ -167,6 +184,7 @@ def build_config(args: argparse.Namespace) -> Config:
             depth=args.depth, width=args.width, sub_windows=args.sub_windows,
             conservative_update=not args.no_conservative_update,
             hh_slots=args.hh_slots),
+        dense=DenseParams(capacity=args.dense_capacity),
         persistence=PersistenceSpec(
             dir=args.snapshot_dir,
             snapshot_interval=args.snapshot_interval,
@@ -177,6 +195,13 @@ def build_config(args: argparse.Namespace) -> Config:
             tenants=args.tenants, map_capacity=args.tenant_map,
             global_limit=args.global_limit,
             default_tenant_limit=args.default_tenant_limit))
+    if cfg.hierarchy.enabled and args.backend != "sketch":
+        raise SystemExit("--tenants needs a sketch-family backend "
+                         "(--backend sketch)")
+    if args.backend == "dense" and args.max_batch > ADMIT_CAPACITY:
+        raise SystemExit(f"--max-batch {args.max_batch} with --backend "
+                         f"dense: the card decides at most "
+                         f"{ADMIT_CAPACITY} requests a dense launch")
     if args.controller and not cfg.hierarchy.enabled:
         raise SystemExit("--controller needs --tenants > 0")
     if (args.tenant or args.assign) and not cfg.hierarchy.enabled:
@@ -244,30 +269,38 @@ def setup_hierarchy(args: argparse.Namespace, cfg: Config, units):
     return hier, controller
 
 
-def prewarm(device) -> float:
+def prewarm(limiter) -> float:
     """Build and load what the first frames would otherwise build: the
-    C++ bulk hasher, and on a CUDA device both kernel libraries (one nvcc
-    each, in parallel). Touches no limiter state. Returns the seconds it
-    took."""
-    import torch
-
+    C++ bulk hasher, and on a CUDA device the backend's kernel libraries
+    (one nvcc each, in parallel). Touches no limiter state. Returns the
+    seconds it took."""
     from ratelimiter_tpu_torch import native
 
     t = time.perf_counter()
     native.bulk_hash_u64(["prewarm"])
-    if torch.device(device).type == "cuda":
-        from ratelimiter_tpu_torch.ops import _build, bucket_cuda, sketch_cuda
+    device = getattr(limiter, "device", None)
+    if device is not None and device.type == "cuda":
+        from ratelimiter_tpu_torch.ops import (
+            _build,
+            bucket_cuda,
+            dense_cuda,
+            sketch_cuda,
+        )
 
-        _build.build_all(["sketch_kernels", "bucket_kernels"])
-        sketch_cuda.build()
-        bucket_cuda.build()
+        from ratelimiter_tpu_torch.algorithms.dense import DenseLimiter
+
+        mods = ([dense_cuda] if isinstance(limiter, DenseLimiter)
+                else [sketch_cuda, bucket_cuda])
+        _build.build_all([m._SOURCE for m in mods])
+        for m in mods:
+            m.build()
     return time.perf_counter() - t
 
 
 async def _serve(args: argparse.Namespace) -> None:
     cfg = build_config(args)
-    limiter = create_limiter(cfg, backend="sketch", device=args.device)
-    built_s = prewarm(limiter.device)
+    limiter = create_limiter(cfg, backend=args.backend, device=args.device)
+    built_s = prewarm(limiter)
     persist = None
     if cfg.persistence.enabled:
         from ratelimiter_tpu_torch.persistence import PersistenceManager
@@ -298,9 +331,10 @@ async def _serve(args: argparse.Namespace) -> None:
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
-    print(f"serving {args.algorithm} "
+    print(f"serving {args.algorithm}/{args.backend} "
           f"limit={limiter.config.limit}/{limiter.config.window:g}s "
-          f"on {args.host}:{server.port} device={limiter.device} "
+          f"on {args.host}:{server.port} "
+          f"device={getattr(limiter, 'device', 'host')} "
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)",
           flush=True)

@@ -1114,3 +1114,244 @@ def test_tenant_batch_above_capacity_refused_on_card(dev, algo):
     np.testing.assert_array_equal(a.allowed, b.allowed)
     for lim in lims:
         lim.close()
+
+
+# ------------------------------------------------- the dense backend
+
+
+def _dense_operands(rng, algo: str, C: int, B: int, dev, *, one_slot=False,
+                    policy=False):
+    """A lived-in dense state of C slots, a batch of B requests (a tenth
+    padding) and, with ``policy``, a 64-row override table over some of
+    the batch's slots with search keys a function of the slot."""
+    from ratelimiter_tpu_torch.ops import dense_kernels as dk
+
+    now = 1_700_000_000_123_457
+    W = 3_000_000
+    cols = dk.COLUMNS[getattr(Algorithm, algo)]
+    if algo == "TOKEN_BUCKET":
+        vals = [rng.integers(0, 7_000_001, C + 1), rng.integers(0, 3, C + 1),
+                now - rng.integers(0, 2 * W, C + 1)]
+    else:
+        cur = (now // W) * W
+        vals = [rng.integers(0, 9, C + 1) for _ in cols[:-1]]
+        vals.append(rng.choice(np.array([cur, cur - W, 0]), C + 1))
+    state = {c: torch.from_numpy(np.asarray(v, np.int64)).to(dev)
+             for c, v in zip(cols, vals)}
+    sid = (np.full(B, 3) if one_slot else rng.integers(0, C, B)).astype(
+        np.int32)
+    n = rng.integers(1, 4, B).astype(np.int64)
+    pad = rng.random(B) < 0.1
+    sid[pad], n[pad] = C, 0
+    args = [torch.from_numpy(sid).to(dev), torch.from_numpy(n).to(dev), now]
+    if policy:
+        keyq = splitmix64(sid.astype(np.uint64)).view(np.int64)
+        chosen = np.unique(keyq[~pad])[:48]
+        P = 64
+        tab = {"key": np.full(P, PAD_KEY, np.int64)}
+        for k, v in (("limit", 7), ("window_us", W), ("rate_num", 7),
+                     ("rate_den", 3)):
+            tab[k] = np.full(P, v, np.int64)
+        for i, q in enumerate(np.sort(chosen)):
+            lim = int(rng.integers(1, 15))
+            w = int(W * rng.choice([0.5, 2.0]))
+            num, den = dk.check_gate_values(lim, w)
+            tab["key"][i], tab["limit"][i], tab["window_us"][i] = q, lim, w
+            tab["rate_num"][i], tab["rate_den"][i] = num, den
+        args += [{k: torch.from_numpy(v).to(dev) for k, v in tab.items()},
+                 torch.from_numpy(keyq).to(dev)]
+    return state, args
+
+
+@pytest.mark.parametrize("policy", [False, True], ids=["default", "policy"])
+@pytest.mark.parametrize("B,kind", [(0, "zipf"), (1, "zipf"), (48, "zipf"),
+                                    (4096, "zipf"), (4096, "one slot"),
+                                    (sc.ADMIT_CAPACITY, "zipf")])
+@pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",
+                                  "TOKEN_BUCKET"])
+def test_dense_step_bit_equal_to_plain(dev, algo, B, kind, policy):
+    """Each build of the dense step against its plain version on the same
+    operands: every output and the whole state (padding row included),
+    at the config's limit and after a decrease (negative free units)."""
+    from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels as dk
+
+    rng = np.random.default_rng(B + len(kind) + 3 * policy)
+    state, args = _dense_operands(rng, algo, 1024, B, dev,
+                                  one_slot=kind == "one slot",
+                                  policy=policy)
+    for limit in (7, 2):
+        params = dk.step_params(Config(algorithm=getattr(Algorithm, algo),
+                                       limit=limit, window=3.0))
+        a = {k: v.clone() for k, v in state.items()}
+        b = {k: v.clone() for k, v in state.items()}
+        dense_cuda.reset_launch_counts()
+        got = dense_cuda.dense_step(a, *args, **params)
+        want = dense_cuda.dense_step_plain(b, *args, **params)
+        torch.cuda.synchronize()
+        assert dense_cuda.launch_counts()["dense_step"] == 1
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",
+                                  "TOKEN_BUCKET"])
+def test_dense_step_refuses_above_capacity_on_card(dev, algo):
+    """A dense batch above ADMIT_CAPACITY is refused on the card before
+    anything runs (no plain stand-in), and so is the limiter's."""
+    from ratelimiter_tpu_torch import DenseParams, InvalidConfigError
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels as dk
+
+    rng = np.random.default_rng(1)
+    state, args = _dense_operands(rng, algo, 64, 2 * sc.ADMIT_CAPACITY, dev)
+    before = {k: v.clone() for k, v in state.items()}
+    dense_cuda.reset_launch_counts()
+    params = dk.step_params(Config(algorithm=getattr(Algorithm, algo),
+                                   limit=7, window=3.0))
+    with pytest.raises(ValueError, match="at most"):
+        dense_cuda.dense_step(state, *args, **params)
+    torch.cuda.synchronize()
+    assert dense_cuda.launch_counts()["dense_step"] == 0
+    for k in state:
+        assert torch.equal(state[k], before[k])
+    lim = create_limiter(Config(algorithm=getattr(Algorithm, algo), limit=7,
+                                window=3.0, fail_open=True,
+                                dense=DenseParams(capacity=1 << 14)),
+                         "dense", clock=ManualClock(1e6), device=dev)
+    with pytest.raises(InvalidConfigError, match="at most"):
+        lim.allow_batch([f"k{i}" for i in range(sc.ADMIT_CAPACITY + 1)])
+    assert lim.allow_batch(["a"] * sc.ADMIT_CAPACITY).allowed.sum() == 7
+
+
+@pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",
+                                  "TOKEN_BUCKET"])
+def test_dense_limiter_on_card_equals_limiter_on_cpu(dev, algo):
+    """``create_limiter(cfg, "dense")`` on the card and on the CPU over
+    the same string trace (an override, a reset, a limit and a window
+    update, windows rolling): every result and the captured state, one
+    launch a batch; the exact backend decides the same."""
+    from ratelimiter_tpu_torch import DenseParams, create_limiter
+    from ratelimiter_tpu_torch.ops import dense_cuda
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=9, window=2.0,
+                 dense=DenseParams(capacity=4096))
+    rng = np.random.default_rng(2)
+    batches = [[f"k{i}" for i in rng.integers(0, 600, 256)]
+               for _ in range(16)]
+    plan = {2: ("set_override", ("k1", 20)), 5: ("reset", ("k2",)),
+            8: ("update_limit", (5,)), 11: ("update_window", (3.0,))}
+    outs, states = [], []
+    for backend, d in (("dense", dev), ("dense", "cpu"), ("exact", None)):
+        kw = {} if d is None else {"device": d}
+        lim = create_limiter(cfg, backend, clock=ManualClock(1e6), **kw)
+        dense_cuda.reset_launch_counts()
+        got = []
+        for step, keys in enumerate(batches):
+            if step in plan:
+                getattr(lim, plan[step][0])(*plan[step][1])
+            got.append(lim.allow_batch(keys))
+            lim.clock.advance(0.4)
+        if d == dev:
+            assert dense_cuda.launch_counts()["dense_step"] == len(batches)
+        outs.append(got)
+        states.append(lim.capture_state()[1])
+        lim.close()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    for k in states[1]:
+        np.testing.assert_array_equal(states[0][k], states[1][k], err_msg=k)
+
+
+@pytest.mark.parametrize("backend", ["dense", "exact"])
+def test_backend_door_on_card_matches_cpu_replay(dev, backend):
+    """The door over the dense and exact backends
+    (chip_smoke.check_backend_door): string frames bit-identical to a CPU
+    replay of the windows, ALLOW_HASHED refused."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    out = chip_smoke.check_backend_door(
+        torch, chip_smoke.dense_config("SLIDING_WINDOW", capacity=1 << 16),
+        backend, device=str(dev), frames=24)
+    assert out["frames"] > 24
+
+
+def test_scan_and_eval_chunks_on_card_equal_cpu(dev):
+    """The sketch and bucket scans, the bench chunk and the eval chunk at
+    a small geometry on the card against the CPU: masks, deny counts,
+    stats and states; the card's Zipf ids equal to the CPU's; on the card
+    each step of a scan, the bench chunk and the eval chunk launch
+    exactly their kernels (front, admission, update; the oracle's front
+    and fused vanilla back)."""
+    from ratelimiter_tpu_torch.convert import state_to_numpy
+    from ratelimiter_tpu_torch.evaluation import loadgen
+    from ratelimiter_tpu_torch.evaluation import oracle_device as od
+    from ratelimiter_tpu_torch.ops import bucket_kernels as bk
+    from ratelimiter_tpu_torch.ops import sketch_kernels as sk
+
+    def counted(mod, want, fn, *args, **kw):
+        """fn(*args, **kw), its launches exactly ``want`` on the card and
+        none on the CPU."""
+        mod.reset_launch_counts()
+        out = fn(*args, **kw)
+        counts = mod.launch_counts()
+        assert set(want) <= set(counts)
+        assert counts == {k: want.get(k, 0) if d == dev else 0
+                          for k in counts}
+        return out
+
+    assert torch.equal(loadgen._zipf_ids(5, 1 << 16, 1_000_000, 1.1,
+                                         dev).cpu(),
+                       loadgen._zipf_ids(5, 1 << 16, 1_000_000, 1.1, "cpu"))
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=20, window=6.0,
+                 max_batch_admission_iters=1,
+                 sketch=SketchParams(depth=3, width=4096, sub_windows=6))
+    sub_us = sk.sketch_geometry(cfg)[1]
+    roll = sk.build_steps(cfg)[2]
+    p = 1_700_000_000_000_000 // sub_us
+    res = {}
+    for d in (dev, "cpu"):
+        st = sk.init_state(cfg, d)
+        roll(st, p)
+        rng = np.random.default_rng(4)
+        h1 = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 512))).to(d)
+        h2 = torch.from_numpy(rng.integers(0, 2 ** 32, (8, 512)) | 1).to(d)
+        ns = torch.ones((8, 512), dtype=torch.int32, device=d)
+        _, masks, denies = counted(
+            sc, {"window_estimate": 8, "admit": 8, "cu_update": 8},
+            sk.build_scan(cfg), st, h1, h2, ns, p * sub_us, 400, period=p)
+        chunk = loadgen.build_bench_chunk(cfg, 1024, 5000, 1.1, d)
+        _, packed, dn = counted(
+            sc, {"window_estimate": 1, "admit": 1, "cu_update": 1}, chunk,
+            st, 0, p * sub_us + 5000, period=p)
+        states = {"sk": st, "or": od.init_oracle_state(cfg, 5000, d)}
+        od.build_oracle_rollover(cfg, 5000)(states["or"], p)
+        _, stats = counted(
+            sc, {"window_estimate": 2, "admit": 1, "cu_update": 1,
+                 "add_back": 1, "add_update": 1},
+            od.build_eval_chunk(cfg, 1024, 5000, 1.1, d), states, 1024,
+            p * sub_us + 9000, period=p)
+        bcfg = Config(algorithm=Algorithm.TOKEN_BUCKET, limit=20,
+                      window=10.0, sketch=SketchParams(depth=4, width=4096))
+        bst = bk.init_state(bcfg, d)
+        _, bmasks, bden = counted(
+            bc, {"bucket_estimate": 8, "admit": 8, "bucket_update": 8},
+            bk.build_scan(bcfg), bst, h1, h2, ns, 1_700_000_000_000_000, 400)
+        res[str(d)] = ([x.cpu() for x in (masks, denies, packed, dn, stats,
+                                          bmasks, bden)],
+                       state_to_numpy(st), state_to_numpy(states["or"]))
+    a, b = res[str(dev)], res["cpu"]
+    for x, y in zip(a[0], b[0]):
+        assert torch.equal(x, y)
+    for sa, sb in zip(a[1:], b[1:]):
+        for k in sb:
+            np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)

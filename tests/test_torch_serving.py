@@ -429,6 +429,51 @@ def test_pipelined_connections_through_the_batcher_match_a_replay(algo):
     assert out["resets"] == 1 and out["decisions"] == 4 * (21 * 64 + 3 * 16)
 
 
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "FIXED_WINDOW",
+                                  "TOKEN_BUCKET"])
+@pytest.mark.parametrize("backend", ["dense", "exact"])
+def test_dense_and_exact_doors_match_a_replay(backend, algo):
+    """chip_smoke.py's door check for the dense and exact backends on the
+    CPU: ALLOW_BATCH, ALLOW_N and RESET frames pipelined on one
+    connection, every answer and the final state bit-identical to a
+    replay of the windows the batcher launched; ALLOW_HASHED refused with
+    InvalidConfigError, as the JAX batcher refuses a backend without the
+    raw-id lane; HEALTH counts every decision."""
+    cfg = chip_smoke.dense_config(algo, capacity=1 << 14)
+    out = chip_smoke.check_backend_door(None, cfg, backend, device="cpu",
+                                        frames=24, n_keys=32)
+    assert out["frames"] == 24 + 4 + 1
+    assert out["windows"] < out["frames"]
+
+
+def test_binary_serves_the_dense_backend():
+    """``python -m ratelimiter_tpu_torch.serving --backend dense --device
+    cpu`` boots, prints its serving line naming the backend, answers a
+    string frame and refuses ALLOW_HASHED."""
+    from ratelimiter_tpu_torch.serving import protocol as tp
+
+    srv = chip_smoke.ServerProcess(["--backend", "dense", "--device", "cpu",
+                                    "--dense-capacity", "1024",
+                                    "--algorithm", "token_bucket",
+                                    "--limit", "3", "--window", "10"])
+    try:
+        assert any(line.startswith("serving token_bucket/dense")
+                   for line in srv.output)
+        client = chip_smoke.DoorClient(srv.port)
+        t, body = client.call(tp.encode_allow_batch, ["a"] * 5, [1] * 5)
+        assert t == tp.T_RESULT_BATCH
+        assert [r.allowed for r in tp.parse_result_batch(body)] == [
+            True, True, True, False, False]
+        with pytest.raises(AssertionError,
+                           match=f"server error \\({tp.E_INVALID_CONFIG}, "
+                                 f"'the hashed bulk lane"):
+            client.call(tp.encode_allow_hashed,
+                        np.arange(4, dtype=np.uint64))
+        client.close()
+    finally:
+        assert srv.terminate() == 0
+
+
 def test_tenant_door_matches_a_replay():
     """chip_smoke.py's door check with the documented tenant flags (the
     binary's own boot code on the served limiter and the replay's): string
@@ -456,7 +501,11 @@ for name in names:
     importlib.import_module(name)
 for name in ("checkpoint", "observability.decorators", "persistence",
              "persistence.wal", "persistence.snapshotter",
-             "persistence.recover", "persistence.manager"):
+             "persistence.recover", "persistence.manager",
+             "algorithms.exact", "algorithms.dense", "ops.dense_kernels",
+             "ops.dense_cuda", "evaluation", "evaluation.accuracy",
+             "evaluation.compare", "evaluation.loadgen",
+             "evaluation.oracle_device", "evaluation.scenarios"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
@@ -471,7 +520,7 @@ print(len(names), bad)
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 27
+    assert int(count) >= 37
     assert bad.strip() == "[]"
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
 
