@@ -52,20 +52,30 @@ Phases (each raises on failure; the script exits non-zero):
    operand form (sliding with the tenant boundary slab, fixed, the bucket
    in and past its counters' window) at T = 16 (the documented
    deployment), 64 (past the reference's dense int32 path) and 4096 (the
-   most the config accepts) on contended, uncontended and one-tenant
-   batches of B = 0, 4096 and ``ADMIT_CAPACITY``, every output, the
-   sketch and the scope counters bit-equal, and at the next pad above it,
-   which every cascade build must refuse on the card; each cascade build
-   a kernel row of its own (``<back> [cascade]``), timed in turns with
-   its build without the flag and beside the composed form (the build
-   without the flag, then the routine alone); the dense backend's step
-   (``dense_step``, ``csrc/dense_kernels.cu``, one build per algorithm)
-   on a 2^20-slot state (config 3's 1M keys as slots), every output and
-   the whole state bit-equal to its plain version on the config-3 batch,
-   4096 requests on one slot, B = 0 and ADMIT_CAPACITY, each with and
-   without a 1024-row override table and under a lowered limit
-   (negative free units), the next pad above ADMIT_CAPACITY refused; a
-   kernel row per build;
+   most the config accepts) on contended, uncontended, one-tenant and
+   wide-map (8192 rows, searched in global memory; the others are staged
+   in shared memory) batches of B = 0, 4096 and ``ADMIT_CAPACITY``, every
+   output, the sketch and the scope counters bit-equal, and at the next
+   pad above it, where the backs run composed on the card (the plain
+   admission and cascade) and the launch counts must show it; every
+   cascade build's ``ptxas -v`` report must show a 0-byte stack frame;
+   each cascade build a kernel row of its own (``<back> [cascade]``),
+   timed in turns with its build without the flag on the contended
+   deployment batch and on an uncontended one (T = 64), and beside the
+   composed form (the build without the flag, then the routine alone);
+   the dense backend's step (two launches: ``dense_front``, phase A
+   across the card, then the admission and epilogue block; one build per
+   algorithm, ``csrc/dense_kernels.cu``) on a 2^20-slot state (config
+   3's 1M keys as slots), every output and the whole state bit-equal to
+   its plain version, and phase A alone to ``dense_front_plain``, on the
+   config-3 batch, 4096 requests on one slot, B = 0 and ADMIT_CAPACITY,
+   each with and without a 1024-row override table (staged in shared
+   memory; the config-3 batch also with an 8192-row one, searched in
+   global memory) and under a lowered limit (negative free units), the
+   next pad above ADMIT_CAPACITY composed (the plain step on the card);
+   a kernel row per build for the step and for ``dense_front``, and the
+   step's split (``csrc/dense_bench.cu``: phase A on one block as the
+   previous design ran it, the admission alone, the epilogue);
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -105,9 +115,9 @@ Phases (each raises on failure; the script exits non-zero):
    algorithm at config 3's limit and window with 2^20 slots: 48 batches
    of 4096 string keys across two window rolls, an override, a reset,
    ``update_limit`` and ``update_window``, every result and the final
-   state bit-identical to the CPU, one ``dense_step`` launch a batch,
-   steps/s the median of 5 runs; the exact backend on the same trace
-   equal to dense;
+   state bit-identical to the CPU, one ``dense_front`` and one
+   ``dense_step`` launch a batch, steps/s the median of 5 runs; the exact
+   backend on the same trace equal to dense;
 4. start the port's server on 127.0.0.1, once with the windowed limiter
    and once with the TB-c2 bucket, and check its answers to ALLOW_HASHED,
    ALLOW_BATCH, RESET and HEALTH frames against an in-process limiter on
@@ -129,7 +139,8 @@ Phases (each raises on failure; the script exits non-zero):
    cascade build; then the door over the dense and the exact backend
    (string frames pipelined on one connection, every answer and the final
    state bit-identical to a CPU replay of the windows, ALLOW_HASHED
-   refused, one ``dense_step`` launch a window). The same traffic is then
+   refused, one ``dense_front`` and one ``dense_step`` launch a window).
+   The same traffic is then
    served once more straight over a
    limiter on the system clock, without the proxy, as
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
@@ -159,8 +170,12 @@ Phases (each raises on failure; the script exits non-zero):
    CPU recovery (``check_tenant_durable_door``). The launch counts
    of the live and watchdog runs are set to 0 just before each and read
    just after; the recovery seconds, the snapshot's capture lock hold and
-   its size are printed; and a dense limiter's ``save`` on the card
-   restored on the CPU (state equal, the next batches identical);
+   its size are printed; a dense limiter's ``save`` on the card
+   restored on the CPU (state equal, the next batches identical); and
+   batches of ADMIT_CAPACITY + 1 (C8) on the dense limiter under each
+   algorithm and on the tenant deployment (windowed CU and TB-c2), each
+   served composed on the card (its launch counts must show it) and
+   equal to a CPU replay (``check_above_capacity``);
 6. the evaluation path at bench.py's geometry (d=3, w=2^20, 60
    sub-windows, CU, 1M keys, Zipf(1.1)): ``loadgen.build_bench_chunk``
    at B = 8192 across two rollovers and one chunk of 2^20 (whose launch
@@ -192,17 +207,20 @@ the rest of phase 2 alone (the kernel rows and the side-table forms),
 through wrappers an earlier checkout has too, so a copy of this script
 in the parent's checkout times the parent's builds in the same call.
 
-``--dense`` builds, then runs this slice's parts alone (the dense rows
-of phase 2, the dense and exact paths, their doors, the dense round trip
-and phase 6) and prints their results as one JSON line before the
-card's line.
+``--dense`` builds, then runs the dense parts alone (the dense rows
+of phase 2 with the step's split, the dense and exact paths, their
+doors, the batches above capacity, the dense round trip and phase 6)
+and prints their results as one JSON line before the card's line.
 
 ``--paths`` builds, then runs phase 3 alone, without the side-table paths
 (which an earlier checkout may not serve), and prints its results as one
-JSON line before the card's line. It reaches the port only through
-``create_limiter``, the limiters' public methods and the launch counters,
-so a copy of this script placed in an earlier checkout measures that
-checkout's package on the same card (parent and change in one call).
+JSON line before the card's line; ``--dense-paths`` runs phase 3's dense
+paths alone in the same way. Both reach the port only through
+``create_limiter``, the limiters' public methods and the launch counters
+(the counts the checkout's own step makes: an earlier one has no
+``dense_front``), so a copy of this script placed in an earlier checkout
+measures that checkout's package on the same card (parent and change in
+one call).
 
 Without a CUDA device it exits non-zero before printing any result.
 It imports nothing of JAX or of the JAX package.
@@ -1299,15 +1317,20 @@ CASC_OTHERS = tuple((f"t{i}", 2000, 1 + i % 3) for i in range(2, 15))
 #: first above the reference's dense int32 path (64 scopes), and the
 #: most the config accepts.
 CASC_TENANTS = (TENANTS, 64, 4096)
-CASC_KINDS = ("contended", "uncontended", "one tenant")
+#: The batches: contended, uncontended, every request in one tenant, and
+#: contended over a map of CASC_WIDE_MAP rows (above the 4096 the cascade
+#: builds stage in shared memory: searched in global memory).
+CASC_KINDS = ("contended", "uncontended", "one tenant", "wide map")
+CASC_WIDE_MAP = 8192
 
 
 def cascade_case(rng, B: int, T: int, kind: str) -> dict:
     """Host operands of one cascade case: B Zipf ids' halves, request
     counts 0-3, stage-1 verdicts (85% pass), a sorted key->tenant map
     (the batch's hottest ids round-robin over tenants 1..T-1, at most
-    TENANT_MAP of them; ``one tenant``: every id of the batch in tenant 1),
-    random weights 1-5 and counters, and limits: unlimited
+    TENANT_MAP of them; ``one tenant``: every id of the batch in tenant 1;
+    ``wide map``: CASC_WIDE_MAP rows, the hottest ids' and ids the batch
+    does not hold), random weights 1-5 and counters, and limits: unlimited
     (``uncontended``), or about half the stage-1 demand above the
     counters at every scope, the global one at a third."""
     from ratelimiter_tpu_torch.core.config import HIER_UNLIMITED
@@ -1327,6 +1350,11 @@ def cascade_case(rng, B: int, T: int, kind: str) -> dict:
         tids = np.ones(len(hot), np.int64)
     else:
         hot = hot[:TENANT_MAP]
+        tids = 1 + np.arange(len(hot), dtype=np.int64) % (T - 1)
+    if kind == "wide map":
+        hot = np.concatenate([hot, rng.integers(
+            N_KEYS, 1 << 40, size=CASC_WIDE_MAP - len(hot)).astype(
+                np.uint64)])
         tids = 1 + np.arange(len(hot), dtype=np.int64) % (T - 1)
     P = max(8, 1 << int(np.ceil(np.log2(max(1, len(hot))))))
     q1, q2 = split_hash(splitmix64(hot), SEED)
@@ -1394,11 +1422,13 @@ def _casc_state(c) -> list:
 _CASCADE_BENCH: list = []
 
 
-def cascade_bench(c, h1, allowed_key, iters: int) -> tuple:
+def cascade_bench(c, h1, allowed_key, iters: int, marks=None) -> tuple:
     """The cascade's routine alone (``csrc/cascade_bench.cu``, one launch
     of one block, no fold), which no path of the limiter calls:
     ``sketch_cuda.cascade_admit_plain``'s function. Returns ``(allowed
-    bool[B], hist int64[T+1])``; at most ``ADMIT_CAPACITY`` requests."""
+    bool[B], hist int64[T+1])``; at most ``ADMIT_CAPACITY`` requests.
+    With ``marks`` (an int64 (11,) tensor on the card) thread 0 records
+    the SM clock at entry and after each of the routine's steps."""
     import ctypes
 
     import torch
@@ -1410,7 +1440,7 @@ def cascade_bench(c, h1, allowed_key, iters: int) -> tuple:
         lib = ctypes.CDLL(_build.compile_source("cascade_bench"))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.rl_cascade_bench.argtypes = [P, P, P, P, P, P, P, P, I, P, P, I,
-                                         P, P, P, P, I, I, I, P]
+                                         P, P, P, P, I, I, I, P, P]
         lib.rl_cascade_bench.restype = I
         _CASCADE_BENCH.append(lib)
     B = h1.shape[0]
@@ -1421,6 +1451,7 @@ def cascade_bench(c, h1, allowed_key, iters: int) -> tuple:
         h1.data_ptr(), allowed_key.data_ptr(), allowed.data_ptr(),
         hist.data_ptr(), c.h2.data_ptr(), c.n.data_ptr(),
         *sc._cascade_args(c), int(c.rolled), B, iters,
+        None if marks is None else marks.data_ptr(),
         torch.cuda.current_stream(h1.device).cuda_stream)
     if err:
         raise RuntimeError(f"cascade_bench: CUDA error {err}")
@@ -1513,34 +1544,107 @@ def touched_cells(case: dict, allowed, w: int) -> int:
     return sum(len(np.unique((h1 + r * h2) & (w - 1))) for r in range(DEPTH))
 
 
+def cascade_ptxas() -> dict:
+    """``ptxas -v``'s report of the three backs' builds (with and without
+    the cascade, with and without the side table) and of the routine
+    alone, by block shape: registers and stack frame, under names such as
+    ``add_back [cascade] hh 1024x8``. Raises unless every cascade build
+    has a 0-byte stack frame."""
+    import re
+
+    from ratelimiter_tpu_torch.ops import _build
+
+    back = re.compile(r"(add_back|window_admit|bucket_admit)_kernelIN8rl_admit"
+                      r"5ShapeILi(\d+)ELi(\d+)E[a-z]Li5EEE((?:Lb[01]E)+)")
+    alone = re.compile(r"cascade_kernelIN8rl_admit5ShapeILi(\d+)ELi(\d+)E")
+    out = {}
+    for source in ("sketch_kernels", "bucket_kernels", "cascade_bench"):
+        for mangled, props in _build.ptxas_report(source).items():
+            m = back.search(mangled)
+            if m:
+                flags = re.findall(r"Lb([01])E", m.group(4))
+                casc, hh = flags[-1] == "1", len(flags) == 2 and flags[0] == "1"
+                key = (f"{m.group(1)}{' [cascade]' if casc else ''}"
+                       f"{' hh' if hh else ''} {m.group(2)}x{m.group(3)}")
+                out[key] = props
+                continue
+            m = alone.search(mangled)
+            if m and "NoProbe" in mangled:  # the build the bench times
+                out[f"cascade alone {m.group(1)}x{m.group(2)}"] = props
+    casc = {k: v for k, v in out.items() if "cascade" in k}
+    bad = {k: v for k, v in casc.items() if v.get("stack_frame", 0)}
+    if len(casc) != 4 * 6 or bad:
+        raise AssertionError(f"cascade builds: {len(casc)} found, with a "
+                             f"stack frame: {bad}")
+    log("ptxas: every cascade build has a 0-byte stack frame; registers "
+        + ", ".join(f"{k} {v['registers']}" for k, v in sorted(casc.items())))
+    log("ptxas: the builds without the flag: " + ", ".join(
+        f"{k} {v['registers']} registers, {v['stack_frame']} B stack"
+        for k, v in sorted(out.items()) if "cascade" not in k))
+    return out
+
+
+def cascade_smem_bytes() -> dict:
+    """The dynamic shared memory of the cascade builds at B = 8192 (1024
+    threads x 8) with T = 4096, a 4096-row map staged and a 8192-row one
+    searched (``rl_cascade_smem_bytes``, from the build)."""
+    import ctypes
+
+    from ratelimiter_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(_build.compile_source("cascade_bench"))
+    lib.rl_cascade_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.rl_cascade_smem_bytes.restype = ctypes.c_longlong
+    return {f"B=8192 T=4096 P={P}": lib.rl_cascade_smem_bytes(8192, 4096, P)
+            for P in (4096, CASC_WIDE_MAP)}
+
+
+#: The cascade routine's steps, as its bench build's marks close them
+#: (cascade.cuh ``decide``): the map landed and indexed, the tenant ids,
+#: the scopes' availability, the demand and the uncontended test, then
+#: (contended) the sort, stage 2, the demand after it, the caps, stage 3,
+#: the admitted mass and the final mask.
+CASC_STEPS = ("map", "ids", "avail", "demand+test", "sort", "stage 2",
+              "demand 2", "caps", "stage 3", "admitted+mask")
+
+
 def check_cascade(torch, seed: int) -> dict:
     """The cascade's kernels against their plain versions: the routine
     alone (``cascade_bench``) in every ``CASC_MODES`` form, and the
     cascade builds of the three backs (``add_back`` and ``window_admit``
     sliding and fixed, ``bucket_admit`` in and past its window), every
     output, the sketch and every scope counter bit-equal, at T = 16, 64
-    and 4096 on contended, uncontended and one-tenant batches of B = 0,
-    4096 and ``ADMIT_CAPACITY``; at the limiter's next pad above it every
-    cascade build must refuse the batch (no plain version stands in on
-    the card). The launch counts must show one cascade build a call and
-    nothing else. Times on the deployment's shape (T = 16, B = 4096,
-    contended, sliding; bucket not rolled): each cascade build a kernel
-    row of its own (``<back> [cascade]``), timed in turns with its build
-    without the flag on the same operands (without, with, with,
-    without), and beside the composed form (the build without the flag,
-    then the routine alone). Launches made here do not count."""
+    and 4096 on contended, uncontended, one-tenant and wide-map batches
+    (the map staged in shared memory, or of 8192 rows searched in global
+    memory) of B = 0, 4096 and ``ADMIT_CAPACITY``; at the limiter's next
+    pad above it the backs run composed on the card (the plain admission
+    and cascade; the routine alone is one block and takes no such batch),
+    held to the plain versions too. The launch counts must show one
+    cascade build a call and nothing else (composed: only ``add_back``'s
+    standalone ``add_update``). Every cascade build's ``ptxas`` report
+    must show a 0-byte stack frame. Times on the deployment's shape (T =
+    16, B = 4096, contended, sliding; bucket not rolled) and on the
+    uncontended batch at T = 64: each cascade build a kernel row of its
+    own (``<back> [cascade]``), timed in turns with its build without the
+    flag on the same operands (without, with, with, without), and beside
+    the composed form (the build without the flag, then the routine
+    alone). Launches made here do not count."""
     from ratelimiter_tpu_torch.algorithms.sketch import _pad_size
     from ratelimiter_tpu_torch.ops import bucket_cuda as bc
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
     from ratelimiter_tpu_torch.ops.policy_kernels import PAD_KEY as PAD
 
+    ptxas = cascade_ptxas()
+    smem = cascade_smem_bytes()
+    log(f"cascade builds' dynamic shared memory: {smem}")
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 41)
     names = ("cascade_admit", "add_back", "window_admit", "bucket_admit")
     err = {k: 0.0 for k in names}
     info = {}
     timed = {}
+    timed_cases = {}
     for T in CASC_TENANTS:
         for kind in CASC_KINDS:
             for B in (0, BATCH, sc.ADMIT_CAPACITY,
@@ -1553,6 +1657,8 @@ def check_cascade(torch, seed: int) -> dict:
                     sc.reset_launch_counts()
                     bc.reset_launch_counts()
                     for name, (kern, plain, _) in calls.items():
+                        if name == "cascade_admit" and not fused:
+                            continue  # one block, as the builds' routine
                         want = plain()
                         if name == "cascade_admit":
                             flips[mode] = int(
@@ -1561,52 +1667,42 @@ def check_cascade(torch, seed: int) -> dict:
                         if name == "add_back" and (T, kind, B, mode) == (
                                 TENANTS, "contended", BATCH, "sliding"):
                             timed_allowed = want[0].cpu().numpy()
-                        if not fused:
-                            if name == "cascade_admit":
-                                continue  # one block, as the builds
-                            try:
-                                kern()
-                            except ValueError:
-                                continue
-                            raise AssertionError(
-                                f"{name} took a cascade of {B} requests "
-                                f"on the card")
                         got = kern()
                         if len(got) != len(want):
                             raise AssertionError(f"{name}: outputs missing")
                         for a, b in zip(got, want):
                             hold_equal(torch, err, name, a, b)
                     counts = cascade_launches(sc, bc)
-                    builds = sum(v for k, v in counts.items()
-                                 if k.endswith("[cascade]"))
-                    others = {k: v for k, v in counts.items() if v and not (
-                        k.endswith("[cascade]") or k == "add_update")}
-                    want_n = fused * (1 if mode.startswith("bucket") else 2)
-                    if (builds != want_n or others or counts["add_update"]
-                            != counts["add_back [cascade]"]):
-                        raise AssertionError(
-                            f"cascade at T={T}, B={B}, {kind}, {mode}: "
-                            f"launch counts {counts}, expected {want_n} "
-                            f"cascade builds and nothing else")
-                    if (T, kind, B) == (TENANTS, "contended", BATCH) and (
-                            mode in ("sliding", "bucket")):
-                        timed_case = case
-                        timed["windowed" if mode == "sliding"
-                              else "bucket"] = cascade_calls(
-                                  torch, sc, bc, case, mode, dev, False)
-                info[f"T={T} {kind} B={B}"] = {
-                    "form": "fused" if fused else "refused",
-                    "verdicts_flipped": flips}
+                    windowed = not mode.startswith("bucket")
+                    want_counts = ({"add_update": 1} if windowed else {}) if (
+                        not fused) else ({"add_back [cascade]": 1,
+                                          "admit [cascade]": 1,
+                                          "add_update": 1} if windowed
+                                         else {"bucket admit [cascade]": 1})
+                    hold_counts(f"cascade at T={T}, B={B}, {kind}, {mode}",
+                                counts, want_counts)
+                    for label, at in (("contended", (TENANTS, "contended")),
+                                      ("uncontended", (64, "uncontended"))):
+                        if (T, kind, B) == (*at, BATCH) and mode in (
+                                "sliding", "bucket"):
+                            family = "windowed" if windowed else "bucket"
+                            timed_cases[label] = case
+                            timed[(family, label)] = cascade_calls(
+                                torch, sc, bc, case, mode, dev, False)
+                key = f"T={T} {kind} B={B}"
+                info[key] = {"form": "fused" if fused else "composed",
+                             "map_rows": int(case["key"].size),
+                             "verdicts_flipped": flips}
                 log(f"kernels: the cascade alone and the backs' cascade "
                     f"builds bit-equal to plain at T={T}, {kind}, B={B} "
-                    f"({info[f'T={T} {kind} B={B}']})")
+                    f"({info[key]})")
     # Bytes at the timed shape: the back's own (as check_backs counts
     # them), plus each request's h2 and n where the back lacks them, the
     # map's key and tid columns, and for each scope present (with the
     # default tenant and the global one) its limit and weight read and
     # its counters read and written (windowed: tn_totals and tn_cur, and
     # the boundary slab read; bucket: tn_counts, int64).
-    case = timed_case
+    case = timed_cases["contended"]
     present = len(np.unique(case["tid"][case["key"] != PAD])) + 2
     map_b = case["key"].size * 16
     casc_ops = BATCH * (12 + 6 * (2 * ITERS + 3))
@@ -1622,16 +1718,46 @@ def check_cascade(torch, seed: int) -> dict:
                          BATCH * (8 + 8 + 8 + 8 + 4 + 1 + 8 + 8 + 8) + map_b
                          + present * (16 + 16), back_ops + casc_ops),
     }
+
+    def in_turns(kern, base) -> tuple:
+        """Without the cascade, with it, with it, without."""
+        base_ms = [device_ms(base, torch)]
+        ms = [device_ms(kern, torch), device_ms(kern, torch)]
+        base_ms.append(device_ms(base, torch))
+        return ms, base_ms
+
+    # The routine's steps at the two timed shapes: the SM clock after each
+    # (cascade_bench's marks), median of 5 launches, in us at the SM clock.
+    khz = getattr(torch.cuda.get_device_properties(0), "clock_rate", 0)
+    steps = {}
+    for label, case in timed_cases.items():
+        h1, ak, c = make_cascade(torch, case, "sliding", dev)
+        marks = torch.zeros(11, dtype=torch.int64, device=dev)
+        runs = []
+        for _ in range(5):
+            marks.zero_()
+            cascade_bench(c, h1, ak, ITERS, marks)
+            m = marks.cpu().numpy()
+            runs.append([int(m[j] - m[j - 1]) if m[j] else 0
+                         for j in range(1, 11)])
+        cycles = [int(statistics.median(r[j] for r in runs))
+                  for j in range(10)]
+        steps[label] = {"cycles": dict(zip(CASC_STEPS, cycles)),
+                        "sm_khz": khz,
+                        "us": {k: (v / khz * 1e3 if khz else None)
+                               for k, v in zip(CASC_STEPS, cycles)}}
+        log(f"cascade steps ({label}, SM clock {khz} kHz): "
+            + ", ".join(f"{k} {v}" for k, v in zip(CASC_STEPS, cycles)))
     rows = {}
-    for family, calls in timed.items():
+    for family in ("windowed", "bucket"):
+        calls = timed[(family, "contended")]
         alone_ms = device_ms(calls["cascade_admit"][0], torch)
+        unc = timed[(family, "uncontended")]
         for name, (kern, plain, base) in calls.items():
             if name == "cascade_admit":
                 continue
-            # In turns: without the cascade, with it, with it, without.
-            base_ms = [device_ms(base, torch)]
-            ms = [device_ms(kern, torch), device_ms(kern, torch)]
-            base_ms.append(device_ms(base, torch))
+            ms, base_ms = in_turns(kern, base)
+            unc_ms, unc_base_ms = in_turns(unc[name][0], unc[name][2])
             source, nbytes, ops = shape[name]
             row = kernel_row(f"{name} [cascade]", source, err[name], kern,
                              plain, None, nbytes, ops, torch,
@@ -1639,10 +1765,20 @@ def check_cascade(torch, seed: int) -> dict:
             row.update(
                 ms_runs=ms, without_cascade_ms=statistics.mean(base_ms),
                 without_cascade_ms_runs=base_ms,
+                excess_ms=statistics.mean(ms) - statistics.mean(base_ms),
+                uncontended={
+                    "lane": f"T=64, B={BATCH}, uncontended",
+                    "ms": statistics.mean(unc_ms), "ms_runs": unc_ms,
+                    "without_cascade_ms": statistics.mean(unc_base_ms),
+                    "without_cascade_ms_runs": unc_base_ms,
+                    "excess_ms": statistics.mean(unc_ms)
+                    - statistics.mean(unc_base_ms)},
                 cascade_alone_ms=alone_ms,
                 cascade_alone_max_abs_err=err["cascade_admit"],
                 composed_ms=statistics.mean(base_ms) + alone_ms,
-                T=TENANTS, batch_info=info,
+                ptxas={k: v for k, v in ptxas.items() if k.startswith(name)},
+                cascade_steps=steps,
+                smem_bytes=smem, T=TENANTS, batch_info=info,
                 lane=f"{family}, T={TENANTS}, B={BATCH}, contended")
             if name == "add_back":
                 row["changed_cells"] = changed
@@ -1650,9 +1786,12 @@ def check_cascade(torch, seed: int) -> dict:
             log(f"time {name} [cascade build, T={TENANTS}]: "
                 f"{ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us, without the "
                 f"cascade {base_ms[0] * 1e3:.2f} / {base_ms[1] * 1e3:.2f} "
-                f"us, composed (without + the cascade alone, "
-                f"{alone_ms * 1e3:.2f} us) "
-                f"{row['composed_ms'] * 1e3:.2f} us")
+                f"us (excess {row['excess_ms'] * 1e3:.2f} us), composed "
+                f"(without + the cascade alone, {alone_ms * 1e3:.2f} us) "
+                f"{row['composed_ms'] * 1e3:.2f} us; uncontended at T=64: "
+                f"{unc_ms[0] * 1e3:.2f} / {unc_ms[1] * 1e3:.2f} us, without "
+                f"{unc_base_ms[0] * 1e3:.2f} / {unc_base_ms[1] * 1e3:.2f} us "
+                f"(excess {row['uncontended']['excess_ms'] * 1e3:.2f} us)")
     return rows
 
 
@@ -3457,7 +3596,7 @@ def check_durable_door(cfg, *, device: str = "cuda", seed: int = 0,
     mgr.wal.close()
     lim.close()
 
-    geo = ["--depth", str(cfg.sketch.depth), "--width",
+    geo = ["--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
            str(cfg.sketch.width), "--sub-windows",
            str(cfg.sketch.sub_windows), "--device", device,
            "--snapshot-dir", d, "--snapshot-interval", "3600",
@@ -3638,7 +3777,7 @@ def check_tenant_durable_door(cfg, *, device: str = "cuda",
     root = tempfile.mkdtemp(prefix="tenant-door-")
     d, copy = os.path.join(root, "live"), os.path.join(root, "copy")
     flags = ["--limit", str(cfg.limit), "--window", str(cfg.window),
-             "--depth", str(cfg.sketch.depth), "--width",
+             "--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
              str(cfg.sketch.width), "--sub-windows",
              str(cfg.sketch.sub_windows), "--device", device,
              "--snapshot-dir", d, "--snapshot-interval", "3600",
@@ -3740,8 +3879,11 @@ DENSE_BUILDS = {"FIXED_WINDOW": ("fixed_window", 124),
                 "SLIDING_WINDOW": ("sliding_window", 153),
                 "TOKEN_BUCKET": ("token_bucket", 189)}
 for _algo, (_build_name, _line) in DENSE_BUILDS.items():
-    KERNEL_ROWS[f"dense_step [{_build_name}]"] = (
-        f"ratelimiter_tpu/ops/dense_kernels.py:{_line}")
+    # The step (phase A across the card, then the admission block) and its
+    # first launch alone replace the same JAX step.
+    for _kernel in ("dense_step", "dense_front"):
+        KERNEL_ROWS[f"{_kernel} [{_build_name}]"] = (
+            f"ratelimiter_tpu/ops/dense_kernels.py:{_line}")
 DENSE_SOURCE = "ratelimiter_tpu_torch/csrc/dense_kernels.cu"
 #: The dense state's capacity on the card: 2^20 slots (config 3's 1M
 #: keys), 8 MB a column.
@@ -3818,7 +3960,7 @@ def dense_policy(torch, rng, slots: np.ndarray, limit: int, W: int,
 def dense_batches(rng, capacity: int) -> dict:
     """The dense step's batches: config 3's (4096 Zipf(1.1) ids over 1M
     keys, as slots), all 4096 on one slot, B = 0, B = ADMIT_CAPACITY and
-    the next pad above it (refused on the card). n is 1 with some 2s and
+    the next pad above it (composed on the card). n is 1 with some 2s and
     3s; a tenth of each batch is padding (slot C, n = 0)."""
     def batch(B, slots=None):
         sid = (zipf_ids(rng, B).astype(np.int64) % capacity
@@ -3829,7 +3971,7 @@ def dense_batches(rng, capacity: int) -> dict:
         return sid.astype(np.int32), n
     return {"config-3 Zipf": batch(BATCH), "one slot": batch(BATCH, 7),
             "B=0": batch(0), f"B={ADMIT}": batch(ADMIT),
-            f"B={2 * ADMIT} (refused)": batch(2 * ADMIT)}
+            f"B={2 * ADMIT} (composed)": batch(2 * ADMIT)}
 
 
 ADMIT = 8192
@@ -3852,14 +3994,162 @@ def dense_bytes(sid: np.ndarray, policy, columns: int, bucket: bool) -> int:
     return nbytes
 
 
+def dense_front_bytes(sid: np.ndarray, policy, columns: int, bucket: bool,
+                      rows: int) -> int:
+    """Bytes phase A must move: sid, n (and the search key) read, each
+    touched slot's row read once, the table's columns that the build reads
+    read once, and its ``rows`` scratch rows written."""
+    B = sid.shape[0]
+    nbytes = B * (4 + 8 + (8 if policy is not None else 0) + rows * 8)
+    nbytes += np.unique(sid).shape[0] * columns * 8
+    if policy is not None:
+        read = ("key", "limit", "window_us") + (
+            ("rate_num", "rate_den") if bucket else ())
+        nbytes += sum(policy[c].numel() * 8 for c in read)
+    return nbytes
+
+
+_DENSE_BENCH: list = []
+
+
+def dense_bench(mode: int, state: dict, sid, n, now_us: int, policy, keyq,
+                scratch, outs: tuple, *, algorithm, limit: int,
+                window_us: int, rate_num: int, rate_den: int,
+                iters: int) -> None:
+    """One launch of ``csrc/dense_bench.cu`` (no path of the limiter calls
+    it): mode 0 phase A on one block (the step's previous design's), 1 the
+    admission alone over ``scratch`` (writing ``outs[0]`` allowed and
+    ``outs[4]`` seen). ``outs`` = (allowed, remaining, retry_us, reset_us,
+    seen)."""
+    import ctypes
+
+    from ratelimiter_tpu_torch.ops import _build, dense_cuda
+
+    if not _DENSE_BENCH:
+        lib = ctypes.CDLL(_build.compile_source("dense_bench"))
+        P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.rl_dense_bench.argtypes = [I, P, P, P, P, P, P, P, P, P, P, P, I,
+                                       L, L, L, L, L, P, P, P, P, P, P, I, I,
+                                       I, P]
+        lib.rl_dense_bench.restype = I
+        _DENSE_BENCH.append(lib)
+    B = sid.shape[0]
+    s0, s1, s2 = dense_cuda._state_ptrs(state, algorithm)
+    err = _DENSE_BENCH[0].rl_dense_bench(
+        mode, s0, s1, s2, sid.data_ptr(), n.data_ptr(),
+        *dense_cuda._policy_args(policy, keyq), limit, window_us, rate_num,
+        rate_den, now_us, scratch.data_ptr(), *(o.data_ptr() for o in outs),
+        B, iters, dense_cuda.ALGO[algorithm], dense_cuda._stream(sid))
+    if err:
+        raise RuntimeError(f"dense_bench mode {mode}: CUDA error {err}")
+
+
+def dense_back(state: dict, sid, scratch, now_us: int, outs: tuple, *,
+               algorithm, iters: int, **_) -> None:
+    """The step's second launch alone (``rl_dense_back``: admission and
+    epilogue over a scratch phase A wrote), into ``outs``."""
+    from ratelimiter_tpu_torch.ops import dense_cuda
+
+    s0, s1, s2 = dense_cuda._state_ptrs(state, algorithm)
+    err = dense_cuda._lib().rl_dense_back(
+        s0, s1, s2, sid.data_ptr(), now_us, scratch.data_ptr(),
+        *(o.data_ptr() for o in outs[:4]), sid.shape[0], iters,
+        dense_cuda.ALGO[algorithm], dense_cuda._stream(sid))
+    if err:
+        raise RuntimeError(f"rl_dense_back: CUDA error {err}")
+
+
+def dense_split(torch, state: dict, args: list, params: dict, err: dict,
+                name: str) -> dict:
+    """Where the step's time goes at one batch (ROADMAP B11): its two
+    launches alone (phase A across the card; the admission and epilogue
+    block), the admission alone and the previous design's one-block
+    phase A (csrc/dense_bench.cu), the epilogue as the second launch less
+    the admission. The bench's outputs are held to the plain versions
+    first."""
+    from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels
+    from ratelimiter_tpu_torch.ops.segment import admit
+
+    sid, n, now_us = args[0], args[1], args[2]
+    policy, keyq = (args[3], args[4]) if len(args) > 3 else (None, None)
+    B = sid.shape[0]
+    algorithm = params["algorithm"]
+    used = list(dense_kernels.USED_ROWS[algorithm])
+    outs = (torch.empty(B, dtype=torch.bool, device="cuda"),
+            *torch.empty((4, B), dtype=torch.int64, device="cuda").unbind())
+    scratch = torch.empty((len(dense_kernels.SCRATCH_ROWS), B),
+                          dtype=torch.int64, device="cuda")
+    want_x = dense_kernels.dense_front_plain(state, sid, n, now_us, policy,
+                                             keyq, **params)
+    dense_bench(0, state, sid, n, now_us, policy, keyq, scratch, outs,
+                **params)
+    hold_equal(torch, err, name, scratch[used], want_x[used])
+    dense_bench(1, state, sid, n, now_us, policy, keyq, scratch, outs,
+                **params)
+    allowed, seen, _ = admit(sid, want_x[0], want_x[1], params["iters"])
+    hold_equal(torch, err, name, outs[0], allowed)
+    hold_equal(torch, err, name, outs[4], seen)
+    x = dense_cuda.dense_front(state, *args, **params)
+    st = {k: v.clone() for k, v in state.items()}
+    split = {
+        "phase_a_ms": device_ms(
+            lambda: dense_cuda.dense_front(state, *args, **params), torch),
+        "phase_a_one_block_ms": device_ms(
+            lambda: dense_bench(0, state, sid, n, now_us, policy, keyq,
+                                scratch, outs, **params), torch),
+        "admission_ms": device_ms(
+            lambda: dense_bench(1, state, sid, n, now_us, policy, keyq, x,
+                                outs, **params), torch),
+        "back_ms": device_ms(
+            lambda: dense_back(st, sid, x, now_us, outs, **params), torch),
+    }
+    split["epilogue_ms"] = split["back_ms"] - split["admission_ms"]
+    log(f"split {name} (B={B}): phase A {split['phase_a_ms'] * 1e3:.2f} us "
+        f"across the card ({split['phase_a_one_block_ms'] * 1e3:.2f} us on "
+        f"one block), admission {split['admission_ms'] * 1e3:.2f} us, "
+        f"epilogue {split['epilogue_ms'] * 1e3:.2f} us")
+    return split
+
+
+def dense_ptxas() -> dict:
+    """``ptxas -v``'s report of the dense step's kernels: for each kernel
+    (``dense_front``, ``dense_back`` by block shape) the registers and
+    the stack frame, the largest over its builds."""
+    import re
+
+    from ratelimiter_tpu_torch.ops import _build
+
+    out: dict = {}
+    for mangled, props in _build.ptxas_report("dense_kernels").items():
+        m = re.search(r"(dense_front|dense_back)_kernel", mangled)
+        if not m:
+            continue
+        shape = re.search(r"ShapeILi(\d+)ELi(\d+)E", mangled)
+        key = m.group(1) + (f" {shape.group(1)}x{shape.group(2)}"
+                            if shape else "")
+        now = out.setdefault(key, {"registers": 0, "stack_frame": 0})
+        for f in now:
+            now[f] = max(now[f], props.get(f, 0))
+    log("ptxas (dense): " + ", ".join(
+        f"{k} {v['registers']} registers, {v['stack_frame']} B stack"
+        for k, v in sorted(out.items())))
+    return out
+
+
 def check_dense_kernel(torch, seed: int) -> dict:
     """Phase 2, the dense step: each build (fixed, sliding, token bucket)
     held bit-equal to its plain version on the card (every output and the
     whole 2^20-slot state) on each of ``dense_batches``, with and without
-    a 1024-row override table, and after a limit decrease (the plain
-    windowed state's ``free_scaled`` negative); the next pad above
-    ADMIT_CAPACITY refused before anything runs; then a kernel row per
-    build on the config-3 batch with the table (the main path's form)."""
+    a 1024-row override table (staged in shared memory), and after a
+    limit decrease (the plain windowed state's ``free_scaled`` negative),
+    its phase A alone (``dense_front``) against ``dense_front_plain`` on
+    the rows it writes; the config-3 batch also with an 8192-row table
+    (searched in global memory); the next pad above ADMIT_CAPACITY run
+    composed (the plain step on the card: the launch counts must show no
+    launch and one composed step); then per build a ``dense_step`` row
+    (both launches) and a ``dense_front`` row on the config-3 batch with
+    the 1024-row table (the main path's form), and the step's split
+    (``dense_split``)."""
     from ratelimiter_tpu_torch.core.clock import to_micros
     from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels
 
@@ -3867,47 +4157,54 @@ def check_dense_kernel(torch, seed: int) -> dict:
         return torch.from_numpy(a).to("cuda")
 
     rows = {}
+    ptxas = dense_ptxas()
     now_us = int(T0 * 1e6) + 123_457
     W = to_micros(WINDOW_S)
     for algorithm, (build_name, _) in DENSE_BUILDS.items():
         name = f"dense_step [{build_name}]"
+        front_name = f"dense_front [{build_name}]"
         rng = np.random.default_rng(seed + 101 + len(rows))
-        err = {name: 0.0}
+        err = {name: 0.0, front_name: 0.0}
         batches = dense_batches(rng, DENSE_CAPACITY)
         zipf_sid = batches["config-3 Zipf"][0]
-        policy, keyq_of = dense_policy(torch, rng, zipf_sid[zipf_sid <
-                                                            DENSE_CAPACITY],
-                                       LIMIT, W)
+        real = zipf_sid[zipf_sid < DENSE_CAPACITY]
+        policy, keyq_of = dense_policy(torch, rng, real, LIMIT, W)
+        wide, _ = dense_policy(torch, rng, real, LIMIT, W, rows=8192)
         base = dense_state(torch, rng, algorithm, now_us, DENSE_CAPACITY)
+        used = None
         checked = 0
         for limit in (LIMIT, 7):
             params = dense_kernels.step_params(dense_config(algorithm,
                                                             limit))
+            used = list(dense_kernels.USED_ROWS[params["algorithm"]])
             for label, (sid, n) in batches.items():
-                for pol in (None, policy):
+                tables = [None, policy] + (
+                    [wide] if label == "config-3 Zipf" else [])
+                for pol in tables:
                     args = [on_card(sid), on_card(n), now_us]
                     if pol is not None:
                         args += [pol, on_card(keyq_of(sid))]
                     kst = {k: v.clone() for k, v in base.items()}
-                    if "refused" in label:
-                        try:
-                            dense_cuda.dense_step(kst, *args, **params)
-                        except ValueError as exc:
-                            if "at most" not in str(exc):
-                                raise
-                        else:
-                            raise AssertionError(f"{name}: {label} was not "
-                                                 f"refused on the card")
-                        for k in kst:
-                            hold_equal(torch, err, name, kst[k], base[k])
-                        continue
                     pst = {k: v.clone() for k, v in base.items()}
+                    composed = sid.shape[0] > ADMIT
+                    if not composed:
+                        hold_equal(torch, err, front_name,
+                                   dense_cuda.dense_front(
+                                       kst, *args, **params)[used],
+                                   dense_kernels.dense_front_plain(
+                                       pst, *args, **params)[used])
+                    dense_cuda.reset_launch_counts()
                     got = dense_cuda.dense_step(kst, *args, **params)
+                    counts = dense_cuda.launch_counts()
                     want = dense_cuda.dense_step_plain(pst, *args, **params)
                     for a, b in zip(got, want):
                         hold_equal(torch, err, name, a, b)
                     for k in kst:
                         hold_equal(torch, err, name, kst[k], pst[k])
+                    hold_counts(f"{name} on {label}", counts, {
+                        "dense_step [composed]": 1} if composed else {
+                        "dense_front": 1, front_name: 1, "dense_step": 1,
+                        name: 1})
                     checked += 1
         sid, n = batches["config-3 Zipf"]
         params = dense_kernels.step_params(dense_config(algorithm))
@@ -3915,19 +4212,105 @@ def check_dense_kernel(torch, seed: int) -> dict:
                 on_card(keyq_of(sid))]
         kst = {k: v.clone() for k, v in base.items()}
         pst = {k: v.clone() for k, v in base.items()}
+        split = dense_split(torch, {k: v.clone() for k, v in base.items()},
+                            args, params, err, name)
+        bucket = algorithm == "TOKEN_BUCKET"
         row = kernel_row(
             name, DENSE_SOURCE, err[name],
             lambda: dense_cuda.dense_step(kst, *args, **params),
             lambda: dense_cuda.dense_step_plain(pst, *args, **params), None,
-            dense_bytes(sid, policy, len(base),
-                        algorithm == "TOKEN_BUCKET"), 0, torch)
-        row["checked_batches"] = checked
+            dense_bytes(sid, policy, len(base), bucket), 0, torch)
+        row.update(checked_batches=checked, split=split, ptxas=ptxas)
         rows[name] = row
+        rows[front_name] = kernel_row(
+            front_name, DENSE_SOURCE, err[front_name],
+            lambda: dense_cuda.dense_front(kst, *args, **params),
+            lambda: dense_kernels.dense_front_plain(pst, *args, **params),
+            None, dense_front_bytes(sid, policy, len(base), bucket,
+                                    len(used)), 0, torch,
+            ms=split["phase_a_ms"])
         log(f"{name}: bit-equal to its plain version on {checked} batches "
             f"(config-3 Zipf, one slot, B=0, B={ADMIT}; with and without "
-            f"the 1024-row table; limits {LIMIT} and 7) over a "
-            f"{DENSE_CAPACITY}-slot state, B={2 * ADMIT} refused")
+            f"the 1024-row table, the config-3 batch with an 8192-row one; "
+            f"limits {LIMIT} and 7) over a {DENSE_CAPACITY}-slot state, "
+            f"phase A alone too; B={2 * ADMIT} composed on the card")
     return rows
+
+
+#: One request more than a launch of the card's admission takes.
+C8_BATCH = ADMIT + 1
+
+
+def check_above_capacity(torch, seed: int) -> dict:
+    """C8: a batch of ADMIT_CAPACITY + 1 requests, which the JAX package
+    decides, is decided on the card too, composed (by size alone): for
+    each dense algorithm (``create_limiter(cfg, "dense")``, config 3's
+    limit and window over 2^20 slots, string keys Zipf(1.1) over 5,000 so
+    that slots contend; the plain step on the card: one composed step, no
+    launch) and for the tenant deployment on the windowed CU sketch and on
+    TB-c2 (the front and the standalone update launched, no admission
+    launch: the plain admission and cascade on the card). Each result and
+    the state equal to a CPU replay of the same batch."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import bucket_cuda, dense_cuda, sketch_cuda
+
+    rng = np.random.default_rng(seed + 97)
+    out = {}
+    keys = [f"user:{int(i)}" for i in (rng.zipf(ZIPF_A, size=C8_BATCH) - 1)
+            % 5000]
+    for algorithm, (build_name, _) in DENSE_BUILDS.items():
+        cfg = dense_config(algorithm)
+        lims = {d: create_limiter(cfg, "dense", clock=ManualClock(T0),
+                                  device=d) for d in ("cuda", "cpu")}
+        torch.cuda.synchronize()
+        dense_cuda.reset_launch_counts()
+        got = lims["cuda"].allow_batch(keys)
+        counts = hold_counts(f"dense {build_name} batch of {C8_BATCH}",
+                             dense_cuda.launch_counts(),
+                             {"dense_step [composed]": 1})
+        want = lims["cpu"].allow_batch(keys)
+        _same_results(f"dense {build_name} batch of {C8_BATCH}", [got],
+                      [want])
+        states = [lim.capture_state()[1] for lim in lims.values()]
+        for k in states[1]:
+            if not np.array_equal(states[0][k], states[1][k]):
+                raise AssertionError(f"dense {build_name} batch of "
+                                     f"{C8_BATCH}: state {k} differs")
+        for lim in lims.values():
+            lim.close()
+        out[f"dense {build_name}"] = {"counts": counts,
+                                      "allowed": int(got.allowed.sum())}
+    tkeys = tenant_keys(rng, C8_BATCH)
+    for label, cfg, module, want_counts, state in (
+            ("windowed CU", config3(), sketch_cuda,
+             {"window_estimate": 1, "cu_update": 1}, WINDOW_STATE + TN_STATE),
+            ("TB-c2", config2_bucket(), bucket_cuda,
+             {"bucket_estimate": 1, "bucket_update": 1},
+             BUCKET_STATE + BUCKET_TN_STATE)):
+        lims = {d: create_limiter(with_tenants(cfg), clock=ManualClock(T0),
+                                  device=d) for d in ("cuda", "cpu")}
+        for lim in lims.values():
+            boot_tenants(lim)
+        torch.cuda.synchronize()
+        module.reset_launch_counts()
+        got = lims["cuda"].allow_batch(tkeys)
+        torch.cuda.synchronize()
+        counts = hold_counts(f"tenants {label} batch of {C8_BATCH}",
+                             module.launch_counts(), want_counts)
+        want = lims["cpu"].allow_batch(tkeys)
+        _same_results(f"tenants {label} batch of {C8_BATCH}", [got], [want])
+        _same_state(f"tenants {label} batch of {C8_BATCH}", lims["cuda"],
+                    lims["cpu"], state)
+        if lims["cuda"].hierarchy_stats() != lims["cpu"].hierarchy_stats():
+            raise AssertionError(f"tenants {label}: hierarchy stats differ")
+        for lim in lims.values():
+            lim.close()
+        out[f"tenants {label}"] = {"counts": counts,
+                                   "allowed": int(got.allowed.sum()),
+                                   "denied": int((~got.allowed).sum())}
+    log(f"C8: batches of {C8_BATCH} served composed on the card, equal to "
+        f"the CPU: {out}")
+    return out
 
 
 def dense_trace(seed: int, steps: int) -> list:
@@ -3960,15 +4343,19 @@ def drive_plan(lim, batches, plan: dict, advance: float) -> list:
     return out
 
 
-def check_dense_paths(torch, seed: int, steps: int) -> dict:
+def check_dense_paths(torch, seed: int, steps: int,
+                      strict: bool = True) -> dict:
     """Phase 3, the dense and exact backends: ``create_limiter(cfg,
     "dense", device="cuda")`` for each algorithm, on config-3 string
     traffic with a 2^20-slot state across window rolls, with
     ``DENSE_PLAN``'s override, reset, ``update_limit`` and
     ``update_window``; every result and the final state bit-identical to
-    the same trace on the CPU, one ``dense_step`` launch (of the
-    algorithm's build) per batch; steps/s the median of 5 runs; the
-    exact backend's results on the same trace equal to dense's."""
+    the same trace on the CPU, one ``dense_front`` and one ``dense_step``
+    launch (of the algorithm's build) per batch (``strict=False``: the
+    ``dense_front`` ones only where the checkout counts them, as an
+    earlier one does not);
+    steps/s the median of 5 runs; the exact backend's results on the same
+    trace equal to dense's."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
     from ratelimiter_tpu_torch.ops import dense_cuda
 
@@ -3994,10 +4381,12 @@ def check_dense_paths(torch, seed: int, steps: int) -> dict:
         torch.cuda.synchronize()
         walls = [time.perf_counter() - t]
         counts = dense_cuda.launch_counts()
-        if counts[f"dense_step [{build_name}]"] != len(batches) or counts[
-                "dense_step"] != len(batches):
-            raise AssertionError(f"{name}: {counts} launches for "
-                                 f"{len(batches)} batches")
+        want_counts = {f"dense_step [{build_name}]": len(batches),
+                       "dense_step": len(batches)}
+        if strict or "dense_front" in counts:
+            want_counts.update({f"dense_front [{build_name}]": len(batches),
+                                "dense_front": len(batches)})
+        hold_counts(f"{name}: {len(batches)} batches", counts, want_counts)
         _, ga, _ = gpu.capture_state()
         gpu.close()
         cpu = make("dense", "cpu")
@@ -4207,8 +4596,10 @@ def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
                              f"{n_decisions} decisions")
     windows = sum(kind != "reset" for kind, *_ in rec.log)
     if backend == "dense" and device != "cpu" and (
-            counts["dense_step"] != windows):
-        raise AssertionError(f"{name}: {counts['dense_step']} dense_step "
+            counts["dense_step"] != windows
+            or counts["dense_front"] != windows):
+        raise AssertionError(f"{name}: {counts['dense_front']} dense_front "
+                             f"and {counts['dense_step']} dense_step "
                              f"launches for {windows} windows")
     log(f"{name} on {device}: {len(plan)} frames ({n_decisions} decisions) "
         f"in {windows} windows, every answer and the final state "
@@ -4657,6 +5048,7 @@ def run_dense_slice(torch, seed: int) -> dict:
         row["launches"] = sum(r["counts"][name] for r in (
             *paths.values(), doors["dense"]))
     return {"kernels": list(rows.values()), "paths": paths, "doors": doors,
+            "above_capacity": check_above_capacity(torch, seed),
             "durable": check_dense_durable(torch, seed),
             "evaluation": check_eval_path(torch, seed)}
 
@@ -4703,6 +5095,9 @@ def main(argv=None) -> int:
     ap.add_argument("--paths", action="store_true",
                     help="only build, then drive and profile the main "
                          "paths (phase 3, one JSON line)")
+    ap.add_argument("--dense-paths", action="store_true",
+                    help="only build, then drive phase 3's dense paths "
+                         "(public entry points only; one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -4726,13 +5121,15 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
-                or args.dense)
+                or args.dense or args.dense_paths)
     _build.build_all(["sketch_kernels", "bucket_kernels"]
-                     + (["dense_kernels"] if full or args.dense else [])
+                     + (["dense_kernels", "dense_bench"]
+                        if full or args.dense else [])
+                     + (["dense_kernels"] if args.dense_paths else [])
                      + (["cascade_bench"] if full else []))
     sketch_cuda.build()
     bucket_cuda.build()
-    if full or args.dense:
+    if full or args.dense or args.dense_paths:
         dense_cuda.build()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
@@ -4750,6 +5147,11 @@ def main(argv=None) -> int:
     if args.cascade:
         print(json.dumps({"card": card, "cascade": check_cascade(
             torch, args.seed)}))
+        print(card)
+        return 0
+    if args.dense_paths:
+        print(json.dumps({"card": card, "dense_paths": check_dense_paths(
+            torch, args.seed + 79, DENSE_STEPS, strict=False)}))
         print(card)
         return 0
     if args.dense:
@@ -4893,6 +5295,7 @@ def main(argv=None) -> int:
     tenant_door = check_tenant_durable_door(config3(), device="cuda",
                                             seed=args.seed)
     dense_durable = check_dense_durable(torch, args.seed)
+    above = check_above_capacity(torch, args.seed)
     eval_path = check_eval_path(torch, args.seed)
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
         f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
@@ -4906,7 +5309,7 @@ def main(argv=None) -> int:
         f"{durable['frame_ms_alone']:.2f} ms alone")
     ev_windowed, ev_bucket = eval_runs(eval_path)
     for name in rows:
-        if name.startswith("dense_step"):
+        if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
                 r["counts"][name] for r in (*dense_paths.values(),
                                             door_dense))
@@ -4929,6 +5332,7 @@ def main(argv=None) -> int:
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable
+    paths["above_capacity"] = above
     paths["evaluation"] = eval_path
 
     log(json.dumps({"main_path": paths}))

@@ -4,7 +4,7 @@
 Keys are assigned integer slots on the host at ingest (the analog of
 Redis's keyspace hash), state lives in dense int64 arrays on the device,
 and every decision batch is one step (ops/dense_kernels.py; on the card
-one launch of ``csrc/dense_kernels.cu``). Exactness matches the exact
+two launches of ``csrc/dense_kernels.cu``). Exactness matches the exact
 backend bit for bit; capacity is bounded by the configured slot count
 (the sketch backend lifts that bound at the price of approximation).
 
@@ -12,10 +12,10 @@ Failure semantics (reference ADR-002, ``interface.go:65-69``): any dispatch
 failure — including slot exhaustion, the analog of Redis OOM — resolves per
 Config.fail_open: allow with the fail_open flag set (the reference swallows
 the error the same way, ``tokenbucket.go:100-112``) or raise
-StorageUnavailableError. On the card a batch holds at most
-``ADMIT_CAPACITY`` (8192) requests (the step is one block); a larger one
-is refused with InvalidConfigError before anything runs, whatever
-``fail_open`` says (the JAX package has no such bound).
+StorageUnavailableError. On the card a batch of up to ``ADMIT_CAPACITY``
+(8192) requests is the step's two launches; a larger one runs the plain
+step on the card (``ops/dense_cuda.py``, by size alone), so any batch the
+JAX package decides is decided here too.
 
 The live window migration (``_apply_window``), the limit update's level
 shift and slot recycling are plain torch on the state's device, as the
@@ -34,10 +34,7 @@ from ratelimiter_tpu_torch.algorithms.base import RateLimiter
 from ratelimiter_tpu_torch.algorithms.sketch import resolve_device
 from ratelimiter_tpu_torch.core.clock import Clock, MICROS, to_micros
 from ratelimiter_tpu_torch.core.config import Config
-from ratelimiter_tpu_torch.core.errors import (
-    InvalidConfigError,
-    StorageUnavailableError,
-)
+from ratelimiter_tpu_torch.core.errors import StorageUnavailableError
 from ratelimiter_tpu_torch.core.types import (
     Algorithm,
     BatchResult,
@@ -45,7 +42,6 @@ from ratelimiter_tpu_torch.core.types import (
     batch_fail_open,
 )
 from ratelimiter_tpu_torch.ops import dense_kernels
-from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
 
 _MIN_PAD = 8
 
@@ -255,10 +251,6 @@ class DenseLimiter(RateLimiter):
         )
 
     def _allow_batch(self, keys: list, ns: np.ndarray, now: float) -> BatchResult:
-        if self._device.type == "cuda" and len(keys) > ADMIT_CAPACITY:
-            raise InvalidConfigError(
-                f"a batch of {len(keys)} requests: the dense step decides "
-                f"at most {ADMIT_CAPACITY} a launch on the card; split it")
         try:
             return self._dispatch(keys, ns, now)
         except Exception as exc:

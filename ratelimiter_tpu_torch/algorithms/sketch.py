@@ -46,9 +46,11 @@ JAX package. Both serve the hierarchy cascade (``hierarchy.tenants >
 managed through RateLimiter's tenant surface, whose device columns ride
 every step (rebuilt when the table's version moves), and whose
 ``hier_*`` columns ride snapshots; ``hierarchy_stats`` reads the scope
-counters. On the card a batch under the cascade holds at most
-``sketch_cuda.ADMIT_CAPACITY`` requests (its backs are one block; a
-larger one is refused before anything runs). The multi-batch scan
+counters. On the card a batch under the cascade of up to
+``sketch_cuda.ADMIT_CAPACITY`` requests runs the backs' cascade builds
+(one block); a larger one runs composed (the plain admission and cascade
+on the card, then the standalone update kernels), as windowed batches
+without tenants do. The multi-batch scan
 runners that benchmarks drive are ``sketch_kernels.build_scan`` and
 ``bucket_kernels.build_scan``, below the limiters. Not ported yet: the
 DCN bookkeeping (ROADMAP A8).
@@ -80,7 +82,6 @@ from ratelimiter_tpu_torch.core.types import (
 from ratelimiter_tpu_torch.hierarchy.tenants import GLOBAL, TenantTable
 from ratelimiter_tpu_torch.ops import bucket_kernels, sketch_kernels
 from ratelimiter_tpu_torch.ops.bucket_cuda import DEBT_CAP
-from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
 from ratelimiter_tpu_torch.ops.hashing import (
     hash_prefixed_u64,
     split_hash,
@@ -427,14 +428,7 @@ class SketchLimiter(RateLimiter):
                         *, premix: bool = False,
                         wire: bool = False) -> DispatchTicket:
         """Fail-open configs get a pre-resolved fail-open ticket when a
-        launch fails; fail-closed configs raise StorageUnavailableError.
-        A batch the cascade cannot take in one launch on the card is
-        refused first (InvalidConfigError), whatever the config."""
-        if (self._hier_table is not None and self._cuda
-                and h64.shape[0] > ADMIT_CAPACITY):
-            raise InvalidConfigError(
-                f"a batch of {h64.shape[0]} requests: with tenants the card "
-                f"decides at most {ADMIT_CAPACITY} a launch; split it")
+        launch fails; fail-closed configs raise StorageUnavailableError."""
         try:
             return self._launch_hashed(h64, ns_arr, to_micros(t), t,
                                        premix=premix, wire=wire)

@@ -61,11 +61,10 @@
 // thread) that holds B keys, up to kMaxCapacity = 8192, the largest power
 // of two whose table (two 8-byte slots a key, 128 KB) fits the 227 KB of
 // shared memory a block may take; the wrappers run the plain composition
-// above it, except under the hierarchy cascade and in the dense step,
-// which refuse such a batch on the card (ops/sketch_cuda.py,
-// ADMIT_CAPACITY; ops/dense_cuda.py). The shapes come from
-// ``python3 chip_smoke.py --admit-sweep`` on an H100 (csrc/admit_bench.cu,
-// PERF.md): 64x4 up to 256 keys, 256x4 up to 1024, 512x8 up to 4096
+// on the card above it, the hierarchy cascade and the dense step included
+// (ops/sketch_cuda.py, ADMIT_CAPACITY; ops/dense_cuda.py). The shapes
+// come from ``python3 chip_smoke.py --admit-sweep`` on an H100
+// (csrc/admit_bench.cu, PERF.md): 64x4 up to 256 keys, 256x4 up to 1024, 512x8 up to 4096
 // (1024x4 and 256x16 were slower on Zipf ids and on one key), 1024x8 up
 // to 8192 (512x16 was faster on Zipf ids and far slower on distinct
 // keys, whose table inserts each thread issues one after another).
@@ -98,6 +97,23 @@ struct Seg {
 struct SegSum {
   __device__ __forceinline__ Seg operator()(const Seg& a, const Seg& b) const {
     Seg s;
+    s.v = b.head ? b.v : a.v + b.v;
+    s.head = a.head | b.head;
+    return s;
+  }
+};
+
+// The same over 32-bit sums (modulo 2^32), for quantities whose sums
+// are read modulo 2^32: half the words a scan moves.
+struct Seg32 {
+  uint32_t v;
+  int head;
+};
+
+struct SegSum32 {
+  __device__ __forceinline__ Seg32 operator()(const Seg32& a,
+                                              const Seg32& b) const {
+    Seg32 s;
     s.v = b.head ? b.v : a.v + b.v;
     s.head = a.head | b.head;
     return s;
@@ -166,6 +182,8 @@ struct Shape {
   using Sort = cub::BlockRadixSort<uint32_t, kThreads, kItems, int, kBits>;
   using Heads = cub::BlockDiscontinuity<uint32_t, kThreads>;
   using Scan = cub::BlockScan<Seg, kThreads, cub::BLOCK_SCAN_WARP_SCANS>;
+  using Scan32 =
+      cub::BlockScan<Seg32, kThreads, cub::BLOCK_SCAN_WARP_SCANS>;
   // One use at a time, each reuse behind a barrier: the table, the sort,
   // the heads, the operands in batch order (read coalesced, gathered from
   // shared memory in sorted order) and the results in batch order
@@ -190,6 +208,31 @@ struct Shape {
   };
 };
 
+// A block scan of 32-bit segmented sums in the storage of the 64-bit
+// one (which is larger: its words are).
+template <class S>
+__device__ __forceinline__ void scan32(typename S::Storage& tmp,
+                                       Seg32 (&seg)[S::kItems]) {
+  static_assert(sizeof(typename S::Scan32::TempStorage) <=
+                    sizeof(typename S::Scan::TempStorage),
+                "the 32-bit scan fits the 64-bit scan's storage");
+  typename S::Scan32(
+      *reinterpret_cast<typename S::Scan32::TempStorage*>(&tmp.scan))
+      .InclusiveScan(seg, seg, SegSum32());
+}
+
+// An inclusive block scan of segmented sums, 64- or 32-bit.
+template <class S>
+__device__ __forceinline__ void inclusive(typename S::Storage& tmp,
+                                          Seg (&seg)[S::kItems]) {
+  typename S::Scan(tmp.scan).InclusiveScan(seg, seg, SegSum());
+}
+template <class S>
+__device__ __forceinline__ void inclusive(typename S::Storage& tmp,
+                                          Seg32 (&seg)[S::kItems]) {
+  scan32<S>(tmp, seg);
+}
+
 // A thread's kItems consecutive items in sorted order.
 template <class Q, int kItems>
 struct Sorted {
@@ -199,6 +242,30 @@ struct Sorted {
   Q n[kItems];                     // n_f or n_units (0 past the batch)
   Q avail[kItems];
   bool allowed[kItems];
+  __device__ __forceinline__ bool is_head(int k) const { return head[k]; }
+  __device__ __forceinline__ bool is_tail(int k) const { return tail[k]; }
+  __device__ __forceinline__ bool is_allowed(int k) const {
+    return allowed[k];
+  }
+};
+
+// The same items in fewer registers (the cascade builds, whose block
+// runs more after admission): the batch index, and the segment heads,
+// tails and the mask as one bit an item; n and avail stay in shared
+// memory (admit_packed).
+template <int kItems>
+struct Packed {
+  int idx[kItems];
+  unsigned head, tail, allowed;  // bit k: item k
+  __device__ __forceinline__ bool is_head(int k) const {
+    return (head >> k) & 1u;
+  }
+  __device__ __forceinline__ bool is_tail(int k) const {
+    return (tail >> k) & 1u;
+  }
+  __device__ __forceinline__ bool is_allowed(int k) const {
+    return (allowed >> k) & 1u;
+  }
 };
 
 // cons[k] = the segment-exclusive sum of n over allowed items, in Q.
@@ -247,10 +314,15 @@ __device__ __forceinline__ uint32_t group_id(typename S::Storage& tmp,
 // request i's results, for every i < B, in batch order, and ``s`` the
 // thread's items in sorted order with their segment heads and tails and
 // final mask.
-template <class S, class Q, class Key, class Load>
-__device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
-                                         Load load, int B, int iters,
-                                         Sorted<Q, S::kItems>& s) {
+// Steps 1-2 for every thread of the block, then the operands in batch
+// order into tmp.u.in (``load``); returns, after a barrier, the thread's
+// items in sorted order: batch indices, segment heads and tails.
+template <class S, class Key, class Load>
+__device__ __forceinline__ void group(typename S::Storage& tmp, Key key,
+                                      Load load, int B,
+                                      int (&idx)[S::kItems],
+                                      int (&head)[S::kItems],
+                                      int (&tail)[S::kItems]) {
   constexpr int kThreads = S::kThreads, kItems = S::kItems;
   for (int j = threadIdx.x; j < S::kSlots; j += kThreads)
     tmp.u.table[j] = kEmpty;
@@ -261,17 +333,25 @@ __device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
     const int j = threadIdx.x * kItems + k;
     const bool valid = j < B;
     id[k] = group_id<S>(tmp, valid ? key(j) : kEmpty, valid);
-    s.idx[k] = j;
+    idx[k] = j;
   }
   __syncthreads();  // the table is dead; its storage takes the sort
-  typename S::Sort(tmp.u.sort).Sort(id, s.idx, 0, S::kIdBits);
+  typename S::Sort(tmp.u.sort).Sort(id, idx, 0, S::kIdBits);
   __syncthreads();
-  typename S::Heads(tmp.u.heads).FlagHeadsAndTails(s.head, s.tail, id,
+  typename S::Heads(tmp.u.heads).FlagHeadsAndTails(head, tail, id,
                                                    Differ());
   __syncthreads();
   for (int i = threadIdx.x; i < B; i += kThreads)
     load(i, tmp.u.in.n[i], tmp.u.in.avail[i]);
   __syncthreads();
+}
+
+template <class S, class Q, class Key, class Load>
+__device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
+                                         Load load, int B, int iters,
+                                         Sorted<Q, S::kItems>& s) {
+  constexpr int kItems = S::kItems;
+  group<S>(tmp, key, load, B, s.idx, s.head, s.tail);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = s.idx[k];
@@ -320,6 +400,133 @@ __device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
   __syncthreads();
 }
 
+// The segment-exclusive sum of n over the allowed items of ``p``, in Q,
+// handed to ``each(k, cons)`` item by item as the scan leaves them; nq(k)
+// is item k's n, read again after the scan rather than held across it.
+template <class S, class Q, class N, class Each>
+__device__ __forceinline__ void exclusive_each(typename S::Storage& tmp,
+                                               const Packed<S::kItems>& p,
+                                               N nq, Each each) {
+  Seg seg[S::kItems];
+#pragma unroll
+  for (int k = 0; k < S::kItems; ++k) {
+    seg[k].v = p.is_allowed(k) ? units(nq(k)) : 0ull;
+    seg[k].head = p.is_head(k);
+  }
+  __syncthreads();  // the storage's last use is over
+  typename S::Scan(tmp.scan).InclusiveScan(seg, seg, SegSum());
+#pragma unroll
+  for (int k = 0; k < S::kItems; ++k) {
+    Q cons;
+    from_units(seg[k].v - (p.is_allowed(k) ? units(nq(k)) : 0ull), cons);
+    each(k, cons);
+  }
+}
+
+// cons[k] = exclusive_each's sum of item k.
+template <class S, class Q, class N>
+__device__ __forceinline__ void exclusive_packed(
+    typename S::Storage& tmp, const Packed<S::kItems>& p, N nq,
+    Q (&cons)[S::kItems]) {
+  exclusive_each<S, Q>(tmp, p, nq, [&](int k, Q c) { cons[k] = c; });
+}
+
+// admit_by's function with the items in ``Packed`` form: the same
+// grouping, rounds and results (tmp.u.out in batch order, behind a
+// barrier), but n and avail wait in shared memory instead of registers:
+// gathered once into sorted order, striped (item k of thread t at
+// k * kThreads + t, so that a warp's reads take one wavefront), and read
+// there by every round; the results wait in registers until every thread
+// has read its operands (tmp.u.out takes tmp.u.in's place).
+template <class S, class Q, class Key, class Load>
+__device__ __forceinline__ void admit_packed_by(typename S::Storage& tmp,
+                                                Key key, Load load, int B,
+                                                int iters,
+                                                Packed<S::kItems>& p) {
+  constexpr int kThreads = S::kThreads, kItems = S::kItems;
+  {
+    int head[kItems], tail[kItems];
+    group<S>(tmp, key, load, B, p.idx, head, tail);
+    p.head = p.tail = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      p.head |= static_cast<unsigned>(head[k] != 0) << k;
+      p.tail |= static_cast<unsigned>(tail[k] != 0) << k;
+    }
+  }
+  {
+    Q n[kItems], av[kItems];
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = p.idx[k];
+      n[k] = i < B ? tmp.u.in.n[i] : Q(0);
+      av[k] = i < B ? tmp.u.in.avail[i] : Q(0);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      tmp.u.in.n[k * kThreads + threadIdx.x] = n[k];
+      tmp.u.in.avail[k * kThreads + threadIdx.x] = av[k];
+    }
+    __syncthreads();
+  }
+  auto nq = [&](int k) -> Q { return tmp.u.in.n[k * kThreads + threadIdx.x]; };
+  auto aq = [&](int k) -> Q {
+    return tmp.u.in.avail[k * kThreads + threadIdx.x];
+  };
+  p.allowed = (1u << kItems) - 1;
+  Q cons[kItems];
+  bool fixed = false;
+  for (int round = 0; round < iters && !fixed; ++round) {
+    exclusive_packed<S>(tmp, p, nq, cons);
+    unsigned f = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      f |= static_cast<unsigned>(add(cons[k], nq(k)) <= aq(k)) << k;
+    const bool changed = f != p.allowed;
+    p.allowed = f;
+    fixed = !__syncthreads_or(changed);
+  }
+  if (!fixed) {
+    exclusive_packed<S>(tmp, p, nq, cons);
+    unsigned f = 0;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k)
+      f |= static_cast<unsigned>(add(cons[k], nq(k)) <= aq(k)) << k;
+    p.allowed &= f;
+    exclusive_packed<S>(tmp, p, nq, cons);
+  }
+  // seen = avail - cons, read before tmp.u.out overwrites tmp.u.in.
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) cons[k] = sub(aq(k), cons[k]);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = p.idx[k];
+    if (i < B) {
+      tmp.u.out.seen[i] = cons[k];
+      tmp.u.out.allowed[i] = p.is_allowed(k);
+    }
+  }
+  __syncthreads();
+}
+
+// admit_packed_by over operands the launch only reads (admit's).
+template <class S, class Q = typename S::Quantity>
+__device__ __forceinline__ void admit_packed(
+    typename S::Storage& tmp, const int64_t* __restrict__ h1,
+    const Q* __restrict__ n, const Q* __restrict__ avail, int B, int iters,
+    Packed<S::kItems>& p) {
+  admit_packed_by<S, Q>(
+      tmp,
+      [h1](int j) { return static_cast<unsigned long long>(__ldg(h1 + j)); },
+      [n, avail](int i, Q& nn, Q& av) {
+        nn = __ldg(n + i);
+        av = __ldg(avail + i);
+      },
+      B, iters, p);
+}
+
 // admit_by over operands the launch only reads: h1 is int64[B] (the
 // group key); n and avail are the quantity's [B] arrays in batch order,
 // read through the read-only cache.
@@ -339,15 +546,23 @@ __device__ __forceinline__ void admit(typename S::Storage& tmp,
       B, iters, s);
 }
 
+// The routine's storage rounded up to 16 bytes: where the extra shared
+// memory of a launch starts.
+template <class S>
+__host__ __device__ constexpr size_t storage_bytes() {
+  return (sizeof(typename S::Storage) + 15) & ~static_cast<size_t>(15);
+}
+
 // Launches ONE block of ``kernel`` (a __global__ function taking ``a`` by
 // value, over the block shape S) with the routine's storage, then
-// ``extra`` bytes more (the cascade's, cascade.cuh), as dynamic shared
-// memory (above 48 KB only after the opt-in). Returns the launch's
-// cudaError_t.
+// ``extra`` bytes more (the cascade's, cascade.cuh, from a 16-byte
+// boundary), as dynamic shared memory (above 48 KB only after the
+// opt-in). Returns the launch's cudaError_t.
 template <class S, class Args>
 int launch_block(void (*kernel)(Args), const Args& a, cudaStream_t stream,
                  size_t extra = 0) {
-  const size_t smem = sizeof(typename S::Storage) + extra;
+  const size_t smem =
+      extra ? storage_bytes<S>() + extra : sizeof(typename S::Storage);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -360,27 +575,33 @@ int launch_block(void (*kernel)(Args), const Args& a, cudaStream_t stream,
 
 // The launch at the smallest shape holding ``a.B`` keys (fields B,
 // iters): ``Kernel::fn<S>()`` returns the __global__ function for shape S
-// (its quantity type ``Kernel::Q``); ``extra`` shared-memory bytes follow
-// the routine's storage.
-template <class Kernel, class Args>
-int launch(const Args& a, cudaStream_t stream, size_t extra = 0) {
+// (its quantity type ``Kernel::Q``); ``extra(S())`` shared-memory bytes
+// follow the routine's storage.
+template <class Kernel, class Args, class Extra>
+int launch_with(const Args& a, cudaStream_t stream, Extra extra) {
   using Q = typename Kernel::Q;
   if (a.B < 0 || a.B > kMaxCapacity || a.iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.B <= 256) {
     using S = Shape<64, 4, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra(S()));
   }
   if (a.B <= 1024) {
     using S = Shape<256, 4, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra(S()));
   }
   if (a.B <= 4096) {
     using S = Shape<512, 8, Q>;
-    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
+    return launch_block<S>(Kernel::template fn<S>(), a, stream, extra(S()));
   }
   using S = Shape<1024, 8, Q>;
-  return launch_block<S>(Kernel::template fn<S>(), a, stream, extra);
+  return launch_block<S>(Kernel::template fn<S>(), a, stream, extra(S()));
+}
+
+// launch_with, ``extra`` bytes at every shape.
+template <class Kernel, class Args>
+int launch(const Args& a, cudaStream_t stream, size_t extra = 0) {
+  return launch_with<Kernel>(a, stream, [extra](auto) { return extra; });
 }
 
 }  // namespace rl_admit

@@ -43,6 +43,34 @@ __global__ void __launch_bounds__(S::kThreads)
   }
 }
 
+// The routine in the cascade builds' packed form (admit_packed).
+template <class S>
+__global__ void __launch_bounds__(S::kThreads)
+    packed_kernel(const Args a) {
+  using Q = typename S::Quantity;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
+  rl_admit::Packed<S::kItems> p;
+  rl_admit::admit_packed<S>(tmp, a.h1, static_cast<const Q*>(a.n),
+                            static_cast<const Q*>(a.avail), a.B, a.iters, p);
+  for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
+    static_cast<Q*>(a.seen)[i] = tmp.u.out.seen[i];
+    a.allowed[i] = tmp.u.out.allowed[i];
+  }
+}
+
+template <class Q>
+int packed(int threads, int items, const Args& a, cudaStream_t s) {
+  using rl_admit::Shape;
+  if (threads == 512 && items == 8 && a.B <= 4096)
+    return rl_admit::launch_block<Shape<512, 8, Q>>(
+        &packed_kernel<Shape<512, 8, Q>>, a, s);
+  if (threads == 1024 && items == 8 && a.B <= 8192)
+    return rl_admit::launch_block<Shape<1024, 8, Q>>(
+        &packed_kernel<Shape<1024, 8, Q>>, a, s);
+  return cudaErrorInvalidValue;
+}
+
 // The first design, f32: a stable block radix sort of the 64-bit keys
 // (4-bit digits over the low 32 bits, or all 64 when a key has a high bit
 // set), heads on the keys, the operands gathered from global memory in
@@ -180,7 +208,8 @@ int routine(int threads, int items, int bits, const Args& a,
 extern "C" {
 
 // design 0: the routine (quantity int64 when int64 != 0, else f32);
-// design 1: the first design (f32, 4-bit digits; 1024x4 and 512x8).
+// design 1: the first design (f32, 4-bit digits; 1024x4 and 512x8);
+// design 2: the routine's packed form (5-bit digits; 512x8, 1024x8).
 int rl_admit_bench(int design, int threads, int items, int bits, int int64,
                    const void* h1, const void* n, const void* avail,
                    void* seen, void* allowed, int B, int iters,
@@ -192,6 +221,10 @@ int rl_admit_bench(int design, int threads, int items, int bits, int int64,
   if (design == 0) {
     return int64 ? routine<long long>(threads, items, bits, a, s)
                  : routine<float>(threads, items, bits, a, s);
+  }
+  if (design == 2 && bits == 5) {
+    return int64 ? packed<long long>(threads, items, a, s)
+                 : packed<float>(threads, items, a, s);
   }
   if (design == 1 && !int64 && bits == 4) {
     if (threads == 1024 && items == 4)

@@ -256,18 +256,24 @@ struct BucketAdmit {
 };
 
 template <class S, bool kCasc>
-__global__ void __launch_bounds__(S::kThreads)
+__global__ void __launch_bounds__(S::kThreads, 1)
     bucket_admit_kernel(const rl_cascade::Operands<kCasc, BucketAdmit> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
-  rl_admit::Sorted<long long, S::kItems> s;
-  rl_admit::admit<S>(tmp, a.h1, a.n_units, a.avail, a.B, a.iters, s);
-  // The cascade build: stages 2 and 3 in this block (the tenant counters
-  // are fixed-window request counts), then the epilogue reads the final
-  // mask.
-  if constexpr (kCasc)
-    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
-                           a.casc, a.h1, a.B, a.iters);
+  // The cascade build: its map's copy lands while stage 1 (in the packed
+  // form) runs; stages 2 and 3 in this block (the tenant counters are
+  // fixed-window request counts), then the epilogue reads the final mask.
+  if constexpr (kCasc) {
+    rl_admit::Packed<S::kItems> p;
+    rl_cascade::stage_map<S>(smem, a.casc);
+    rl_admit::admit_packed<S>(tmp, a.h1, a.n_units, a.avail, a.B, a.iters,
+                              p);
+    rl_cascade::in_back<S, long long>(tmp, smem, p, a.casc, a.h1, a.B,
+                                      a.iters, {a.n_units, a.avail});
+  } else {
+    rl_admit::Sorted<long long, S::kItems> s;
+    rl_admit::admit<S>(tmp, a.h1, a.n_units, a.avail, a.B, a.iters, s);
+  }
   // In batch order: coalesced reads and writes.
   for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
     const bool ok = tmp.u.out.allowed[i];
@@ -395,8 +401,7 @@ int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
   }
   if (!rl_cascade::valid(a.casc))
     return static_cast<int>(cudaErrorInvalidValue);
-  return rl_admit::launch<BucketAdmitKernel<true>>(
-      a, s, rl_cascade::extra_bytes(T));
+  return rl_cascade::launch<BucketAdmitKernel<true>>(a, s);
 }
 
 }  // extern "C"

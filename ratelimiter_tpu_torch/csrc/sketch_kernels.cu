@@ -337,56 +337,69 @@ __device__ __forceinline__ float post_batch(float est, float avail,
   return (est + (avail - seen)) + n_f;
 }
 
+// A back's items after admission: the packed form in the cascade builds
+// (admit.cuh admit_packed), the register form in the others.
+template <class S, bool kCasc>
+using Items = std::conditional_t<kCasc, rl_admit::Packed<S::kItems>,
+                                 rl_admit::Sorted<float, S::kItems>>;
+
 template <class S, bool kHH, bool kCasc>
-__global__ void __launch_bounds__(S::kThreads)
+__global__ void __launch_bounds__(S::kThreads, 1)
     add_back_kernel(const rl_cascade::Operands<kCasc, AddBack> a) {
   constexpr int kBlock = S::kThreads, kItems = S::kItems;
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
-  rl_admit::Sorted<float, kItems> s;
-  rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
-  // The cascade build: stages 2 and 3 in this block, then everything
-  // below reads the final mask.
-  if constexpr (kCasc)
-    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
-                           a.casc, a.h1, a.B, a.iters);
+  // The cascade build: its map's copy lands while stage 1 (in the packed
+  // form) runs; stages 2 and 3 in this block, then everything below
+  // reads the final mask.
+  Items<S, kCasc> s;
+  if constexpr (kCasc) {
+    rl_cascade::stage_map<S>(smem, a.casc);
+    rl_admit::admit_packed<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+    rl_cascade::in_back<S, float>(tmp, smem, s, a.casc, a.h1, a.B, a.iters,
+                                  {a.n_f, a.avail});
+  } else {
+    rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  }
   // The scatter, in sorted order. Admission groups on h1 alone, but the
   // columns take (h1, h2), and two keys may share h1: so a run is a
   // stretch of one segment with one h2. Each run's admitted n is summed
   // (int32 adds wrap, so the sum's low 32 bits are what the reference's
   // adds leave) and added by one atomic per row and slab at the run's
   // last request. Runs meet across threads through the neighbours' h2.
-  __shared__ unsigned long long edge_h2[2][kBlock];  // first, last
-  unsigned long long h2[kItems];
+  // The cascade builds hold h2 (< 2^32) and the run sums (read modulo
+  // 2^32) in 32-bit words: they run with more items a thread.
+  using H = std::conditional_t<kCasc, uint32_t, unsigned long long>;
+  using SegT = std::conditional_t<kCasc, rl_admit::Seg32, rl_admit::Seg>;
+  __shared__ H edge_h2[2][kBlock];  // first, last
+  H h2[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = s.idx[k];
-    h2[k] = i < a.B ? static_cast<unsigned long long>(__ldg(a.h2 + i)) : 0ull;
+    h2[k] = i < a.B ? static_cast<H>(__ldg(a.h2 + i)) : H(0);
   }
   edge_h2[0][threadIdx.x] = h2[0];
   edge_h2[1][threadIdx.x] = h2[kItems - 1];
   __syncthreads();
-  const unsigned long long before =
-      threadIdx.x > 0 ? edge_h2[1][threadIdx.x - 1] : h2[0];
-  const unsigned long long after = threadIdx.x + 1 < kBlock
-                                       ? edge_h2[0][threadIdx.x + 1]
-                                       : h2[kItems - 1];
-  rl_admit::Seg seg[kItems];
+  const H before = threadIdx.x > 0 ? edge_h2[1][threadIdx.x - 1] : h2[0];
+  const H after =
+      threadIdx.x + 1 < kBlock ? edge_h2[0][threadIdx.x + 1] : h2[kItems - 1];
+  SegT seg[kItems];
   bool last[kItems];
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = s.idx[k];
-    const unsigned long long prev = k > 0 ? h2[k - 1] : before;
-    const unsigned long long next = k + 1 < kItems ? h2[k + 1] : after;
-    last[k] = s.tail[k] || h2[k] != next;
-    bool written = i < a.B && s.allowed[k];
+    const H prev = k > 0 ? h2[k - 1] : before;
+    const H next = k + 1 < kItems ? h2[k + 1] : after;
+    last[k] = s.is_tail(k) || h2[k] != next;
+    bool written = i < a.B && s.is_allowed(k);
     if constexpr (kHH) written = written && !a.mine[i];
-    seg[k].v = written ? static_cast<unsigned long long>(
+    seg[k].v = written ? static_cast<decltype(seg[k].v)>(
                              static_cast<long long>(__ldg(a.n + i)))
-                       : 0ull;
-    seg[k].head = s.head[k] || h2[k] != prev;
+                       : 0;
+    seg[k].head = s.is_head(k) || h2[k] != prev;
   }
-  typename S::Scan(tmp.scan).InclusiveScan(seg, seg, rl_admit::SegSum());
+  rl_admit::inclusive<S>(tmp, seg);
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = s.idx[k];
@@ -431,15 +444,19 @@ struct WindowAdmit {
 };
 
 template <class S, bool kHH, bool kCasc>
-__global__ void __launch_bounds__(S::kThreads)
+__global__ void __launch_bounds__(S::kThreads, 1)
     window_admit_kernel(const rl_cascade::Operands<kCasc, WindowAdmit> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   auto& tmp = *reinterpret_cast<typename S::Storage*>(smem);
-  rl_admit::Sorted<float, S::kItems> s;
-  rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
-  if constexpr (kCasc)
-    rl_cascade::in_back<S>(tmp, smem + sizeof(typename S::Storage), s,
-                           a.casc, a.h1, a.B, a.iters);
+  Items<S, kCasc> s;
+  if constexpr (kCasc) {
+    rl_cascade::stage_map<S>(smem, a.casc);
+    rl_admit::admit_packed<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+    rl_cascade::in_back<S, float>(tmp, smem, s, a.casc, a.h1, a.B, a.iters,
+                                  {a.n_f, a.avail});
+  } else {
+    rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
+  }
   for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
     const bool ok = tmp.u.out.allowed[i];
     const float seen = tmp.u.out.seen[i];
@@ -595,9 +612,8 @@ int launch_back(const rl_cascade::With<Base>& a, bool hh, cudaStream_t s) {
   if (a.casc.limit != nullptr) {
     if (!rl_cascade::valid(a.casc))
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t extra = rl_cascade::extra_bytes(a.casc.T);
-    return hh ? rl_admit::launch<Kernel<true, true>>(a, s, extra)
-              : rl_admit::launch<Kernel<false, true>>(a, s, extra);
+    return hh ? rl_cascade::launch<Kernel<true, true>>(a, s)
+              : rl_cascade::launch<Kernel<false, true>>(a, s);
   }
   const Base& b = a;
   return hh ? rl_admit::launch<Kernel<true, false>>(b, s)

@@ -12,7 +12,9 @@ triggers it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that nvcc
 contracts no multiply-add the sources do not spell out (the kernels spell
-the one FMA the reference rounds with, see csrc/sketch_kernels.cu).
+the one FMA the reference rounds with, see csrc/sketch_kernels.cu); and
+``-Xptxas -v``, whose report of each kernel's registers, stack frame and
+spills is kept beside the library (``ptxas_report``).
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -77,7 +80,38 @@ def compile_source(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}"
                            f"{proc.stderr}")
+    with open(tmp + ".ptxas", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    os.replace(tmp + ".ptxas", out + ".ptxas")
     os.replace(tmp, out)
+    return out
+
+
+def ptxas_report(name: str) -> Dict[str, dict]:
+    """{mangled kernel name: {"registers", "stack_frame", "spill_stores",
+    "spill_loads"}} from the build of ``csrc/<name>.cu`` (built first if
+    needed), as ``ptxas -v`` reported them."""
+    import re
+
+    with open(compile_source(name) + ".ptxas") as fh:
+        text = fh.read()
+    out: Dict[str, dict] = {}
+    current = None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack_frame=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
     return out
 
 

@@ -18,8 +18,8 @@ block-level routine of ``csrc/admit.cuh``; it replaces no TPU kernel):
 
 With the hierarchy cascade, ``bucket_admit`` takes its operands
 (``sketch_cuda.Cascade``, the fixed-window ``tn_counts``) and launches
-its cascade build, which holds at most ``ADMIT_CAPACITY`` requests: above
-it a cascade on the card raises.
+its cascade build, up to ``ADMIT_CAPACITY`` requests; above it the plain
+admission and cascade run on the card, as without the cascade.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``bucket_front.launches`` ...); ``launch_counts`` reads them under the
@@ -305,14 +305,13 @@ def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
     (floor divisions and wrapping products spelled as torch computes
     them). It replaces the ~90 launches of the composed admission and
     results with one. Above ``ADMIT_CAPACITY`` keys the plain version runs
-    on the card, without the cascade (with it, such a batch raises).
+    on the card (with the plain cascade when ``casc`` is given).
 
     With the cascade's operands ``casc`` (the bucket's fixed-window scope
     counters), the cascade build runs csrc/cascade.cuh's routine in the
     same block after admission and the epilogue reads the final mask
     (``sketch_cuda.add_back``'s design), counted in
-    ``bucket_admit.cascade_launches`` too. It holds at most
-    ``ADMIT_CAPACITY`` requests on the card."""
+    ``bucket_admit.cascade_launches`` too."""
     B = _check_back(h1, {"n_units": (n_units, torch.int64),
                          "avail": (avail, torch.int64)}, iters)
     if not (0 < rate_num < (1 << 63) and 0 < rate_den < (1 << 63)):

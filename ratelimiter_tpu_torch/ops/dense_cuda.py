@@ -1,28 +1,39 @@
-"""The dense backend's step kernel: CUDA wrapper and plain version.
+"""The dense backend's step kernels: CUDA wrappers and plain versions.
 
 ``dense_step`` is one decision step of the dense backend (slot-addressed
 exact state, ops/dense_kernels.py). The JAX package jits the step as
 ``jnp`` (``ratelimiter_tpu/ops/dense_kernels.py``, no Pallas kernel); its
 in-batch sequencing is ``segment.admit``, which the sketch's backs already
-run as one block (``csrc/admit.cuh``). Here the whole step is one launch
-of a kernel written by hand for Hopper (``csrc/dense_kernels.cu``, built
-by ``ops/_build.py`` and called through ctypes): gather, window roll or
-refill, policy lookup, available units, admission grouped on the slot id,
-one write of each touched slot's row from its segment's tail, and the
-four results. One build per algorithm (fixed, sliding, token bucket).
+run as one block (``csrc/admit.cuh``). Here the step is two launches of
+kernels written by hand for Hopper (``csrc/dense_kernels.cu`` over
+``csrc/dense.cuh``, built by ``ops/_build.py`` and called through ctypes),
+on one stream with no host sync between them:
 
-* a CUDA tensor launches the kernel (on the current stream, without
-  synchronising) or raises — there is no fallback. It holds at most
-  ``ADMIT_CAPACITY`` (8192) requests: a larger batch is refused before
-  anything runs;
-* a CPU tensor takes the plain version (``dense_kernels.PLAIN_STEPS``,
-  the JAX step's expressions in torch). The CPU tests hold it bit-equal
-  to the JAX package, and ``chip_smoke.py`` holds the kernel bit-equal to
-  it on the card.
+* ``dense_front`` (phase A) across the card, one request a thread: the
+  override-table search (the key column staged in each block's shared
+  memory), the slot row's gather, the window roll or the refill, and the
+  available units, into a scratch array;
+* the admission grouped on the slot id and the epilogue on one block:
+  each touched slot's row written once from its segment's tail, and the
+  four results. One build per algorithm (fixed, sliding, token bucket).
 
-``dense_step.launches`` counts kernel launches by build; ``launch_counts``
-reads them as ``dense_step`` (all builds) and ``dense_step [<build>]``,
-and ``reset_launch_counts`` clears them.
+* a CUDA tensor launches the kernels (on the current stream, without
+  synchronising) or raises — there is no fallback. A batch above
+  ``ADMIT_CAPACITY`` (8192) requests runs composed on the card: the plain
+  step as torch ops on the CUDA tensors, by size alone (the admission is
+  one block; ROADMAP B6), counted as ``dense_step [composed]``;
+* a CPU tensor takes the plain version (``dense_kernels.plain_step``,
+  the JAX step's expressions in torch; ``dense_kernels.
+  dense_front_plain`` for phase A alone). The CPU tests hold them
+  bit-equal to the JAX package, and ``chip_smoke.py`` holds the kernels
+  bit-equal to them on the card.
+
+``dense_front.launches`` and ``dense_step.launches`` count phase A's and
+the admission's launches by build, ``dense_step.composed`` the steps run
+composed; ``launch_counts`` reads them as ``dense_front`` and
+``dense_step`` (all builds), ``dense_front [<build>]``, ``dense_step
+[<build>]`` and ``dense_step [composed]``, and ``reset_launch_counts``
+clears them.
 """
 
 from __future__ import annotations
@@ -51,8 +62,6 @@ ALGO = {Algorithm.FIXED_WINDOW: 0, Algorithm.SLIDING_WINDOW: 1,
 #: Each build's name in the launch counts.
 BUILDS = ("fixed_window", "sliding_window", "token_bucket")
 
-#: Scratch rows the kernel keeps per request (kRows in the source).
-SCRATCH_ROWS = 7
 
 _POLICY_COLUMNS = ("key", "limit", "window_us", "rate_num", "rate_den")
 
@@ -61,10 +70,15 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     if id(lib) not in _configured:
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.rl_dense_step.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I,
-                                      L, L, L, L, L, P, P, P, P, P, I, I,
+        lib.rl_dense_front.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I,
+                                       L, L, L, L, L, P, I, I, P]
+        lib.rl_dense_back.argtypes = [P, P, P, P, L, P, P, P, P, P, I, I,
                                       I, P]
-        lib.rl_dense_step.restype = ctypes.c_int
+        lib.rl_dense_step.argtypes = [P, P, P, P, P, P, P, P, P, P, P, I,
+                                      L, L, L, L, L, P, P, P, P, P, I, I, I,
+                                      P]
+        for fn in (lib.rl_dense_front, lib.rl_dense_back, lib.rl_dense_step):
+            fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
 
@@ -97,7 +111,9 @@ def _check_step(state: dict, algorithm: Algorithm, sid, n, policy,
             raise ValueError(f"table capacity must be a power of two, got "
                              f"{P}")
         for c in _POLICY_COLUMNS:
-            _check(f"policy {c}", policy[c], torch.int64, (P,), dev)
+            # The key column is staged by a bulk copy: 16-byte aligned.
+            _check(f"policy {c}", policy[c], torch.int64, (P,), dev,
+                   align16=c == "key")
         if keyq is None:
             raise ValueError("keyq is required with a policy table")
         _check("keyq", keyq, torch.int64, (B,), dev)
@@ -108,11 +124,66 @@ def dense_step_plain(state: dict, sid, n, now_us: int, policy=None,
                      keyq=None, *, algorithm: Algorithm, limit: int,
                      window_us: int, rate_num: int, rate_den: int,
                      iters: int) -> tuple:
-    """The JAX step in torch (``dense_kernels.PLAIN_STEPS``), in place."""
-    return dense_kernels.PLAIN_STEPS[algorithm](
-        state, sid, n, now_us, policy, keyq, limit=limit,
-        window_us=window_us, rate_num=rate_num, rate_den=rate_den,
-        iters=iters)
+    """The JAX step in torch (``dense_kernels.plain_step``), in place."""
+    return dense_kernels.plain_step(
+        state, sid, n, now_us, policy, keyq, algorithm=algorithm,
+        limit=limit, window_us=window_us, rate_num=rate_num,
+        rate_den=rate_den, iters=iters)
+
+
+def _policy_args(policy, keyq) -> tuple:
+    """The C interface's table operands: keyq, the five columns, P."""
+    if policy is None:
+        return (None,) * 6 + (0,)
+    return (keyq.data_ptr(), *(policy[c].data_ptr() for c in _POLICY_COLUMNS),
+            policy["key"].shape[0])
+
+
+def _state_ptrs(state: dict, algorithm: Algorithm) -> tuple:
+    cols = [state[c] for c in dense_kernels.COLUMNS[algorithm]]
+    return (cols[0].data_ptr(), cols[1].data_ptr(),
+            cols[2].data_ptr() if len(cols) > 2 else None)
+
+
+def dense_front(state: dict, sid: torch.Tensor, n: torch.Tensor,
+                now_us: int, policy: Optional[dict] = None,
+                keyq: Optional[torch.Tensor] = None, *,
+                algorithm: Algorithm, limit: int, window_us: int,
+                rate_num: int, rate_den: int, **_) -> torch.Tensor:
+    """The step's phase A (``dense_kernels.dense_front_plain``'s
+    function): returns the int64 (len(SCRATCH_ROWS), B) scratch, of which
+    the rows ``dense_kernels.USED_ROWS[algorithm]`` are written. The state
+    is only read.
+
+    Bound on an H100: each request's sid, n and search key and its slot's
+    row read, the table's columns read once, the scratch rows written:
+    ~0.3 MB at B = 4096, ~0.1 us at 3.35 TB/s. Design: ceil(B / 256)
+    blocks of one request a thread across the card; each block stages the
+    table's key column in its shared memory by one bulk copy (tables of at
+    most 4096 rows; larger ones are searched in global memory), each
+    thread issues its row's loads while the copy lands. On a CUDA device
+    one launch of ``rl_dense_front``, at most ``ADMIT_CAPACITY`` requests
+    (the step's admission takes no more)."""
+    B = _check_step(state, algorithm, sid, n, policy, keyq)
+    dev = sid.device
+    if dev.type != "cuda":
+        return dense_kernels.dense_front_plain(
+            state, sid, n, now_us, policy, keyq, algorithm=algorithm,
+            limit=limit, window_us=window_us, rate_num=rate_num,
+            rate_den=rate_den)
+    if B > ADMIT_CAPACITY:
+        raise ValueError(f"the dense front takes at most {ADMIT_CAPACITY} "
+                         f"requests a launch, got {B}")
+    scratch = torch.empty((len(dense_kernels.SCRATCH_ROWS), B),
+                          dtype=torch.int64, device=dev)
+    s0, s1, s2 = _state_ptrs(state, algorithm)
+    err = _lib().rl_dense_front(
+        s0, s1, s2, sid.data_ptr(), n.data_ptr(), *_policy_args(policy, keyq),
+        limit, window_us, rate_num, rate_den, now_us, scratch.data_ptr(), B,
+        ALGO[algorithm], _stream(sid))
+    _raise_on(err, "rl_dense_front")
+    dense_front.launches[BUILDS[ALGO[algorithm]]] += 1
+    return scratch
 
 
 def dense_step(state: dict, sid: torch.Tensor, n: torch.Tensor,
@@ -129,53 +200,60 @@ def dense_step(state: dict, sid: torch.Tensor, n: torch.Tensor,
     one slot carry one key). Returns ``(allowed bool[B], remaining
     int64[B], retry_us int64[B], reset_us int64[B])``.
 
-    On a CUDA device one launch of ``csrc/dense_kernels.cu``'s build for
-    ``algorithm``; at most ``ADMIT_CAPACITY`` requests."""
+    On a CUDA device one host call, ``csrc/dense_kernels.cu``'s
+    ``rl_dense_step`` for ``algorithm``: phase A across the card (as
+    ``dense_front``), then one block of admission and epilogue, two
+    launches counted as ``dense_front`` and ``dense_step``; above
+    ``ADMIT_CAPACITY`` requests the plain step on the card (composed)."""
     B = _check_step(state, algorithm, sid, n, policy, keyq)
     dev = sid.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" or B > ADMIT_CAPACITY:
+        if dev.type == "cuda":
+            dense_step.composed += 1
         return dense_step_plain(
             state, sid, n, now_us, policy, keyq, algorithm=algorithm,
             limit=limit, window_us=window_us, rate_num=rate_num,
             rate_den=rate_den, iters=iters)
-    if B > ADMIT_CAPACITY:
-        raise ValueError(f"the dense step takes at most {ADMIT_CAPACITY} "
-                         f"requests a launch on the card, got {B}")
-    cols = [state[c] for c in dense_kernels.COLUMNS[algorithm]]
-    s2 = cols[2] if len(cols) > 2 else None
-    scratch = torch.empty((SCRATCH_ROWS, B), dtype=torch.int64, device=dev)
+    scratch = torch.empty((len(dense_kernels.SCRATCH_ROWS), B),
+                          dtype=torch.int64, device=dev)
     allowed = torch.empty((B,), dtype=torch.bool, device=dev)
     remaining, retry_us, reset_us = torch.empty(
         (3, B), dtype=torch.int64, device=dev).unbind()
-    if policy is None:
-        pol = (None,) * 6 + (0,)
-    else:
-        pol = (keyq.data_ptr(),
-               *(policy[c].data_ptr() for c in _POLICY_COLUMNS),
-               policy["key"].shape[0])
+    s0, s1, s2 = _state_ptrs(state, algorithm)
     err = _lib().rl_dense_step(
-        cols[0].data_ptr(), cols[1].data_ptr(),
-        None if s2 is None else s2.data_ptr(), sid.data_ptr(), n.data_ptr(),
-        *pol, limit, window_us, rate_num, rate_den, now_us,
-        scratch.data_ptr(), allowed.data_ptr(), remaining.data_ptr(),
-        retry_us.data_ptr(), reset_us.data_ptr(), B, iters,
-        ALGO[algorithm], _stream(sid))
+        s0, s1, s2, sid.data_ptr(), n.data_ptr(), *_policy_args(policy, keyq),
+        limit, window_us, rate_num, rate_den, now_us, scratch.data_ptr(),
+        allowed.data_ptr(), remaining.data_ptr(), retry_us.data_ptr(),
+        reset_us.data_ptr(), B, iters, ALGO[algorithm], _stream(sid))
     _raise_on(err, "rl_dense_step")
+    dense_front.launches[BUILDS[ALGO[algorithm]]] += 1
     dense_step.launches[BUILDS[ALGO[algorithm]]] += 1
     return allowed, remaining, retry_us, reset_us
 
 
-#: Launches of each build since the last reset.
+#: Launches of each build's phase A and admission since the last reset,
+#: and the steps run composed above ADMIT_CAPACITY on the card.
+dense_front.launches = dict.fromkeys(BUILDS, 0)
 dense_step.launches = dict.fromkeys(BUILDS, 0)
+dense_step.composed = 0
 
 
 def launch_counts() -> dict:
-    """{``dense_step``: its kernel launches since the last reset, and
-    ``dense_step [<build>]``: each build's}."""
-    counts = {f"dense_step [{b}]": n for b, n in dense_step.launches.items()}
-    counts["dense_step"] = sum(dense_step.launches.values())
+    """{``dense_front`` and ``dense_step``: phase A's and the admission's
+    launches since the last reset (all builds), ``dense_front [<build>]``
+    and ``dense_step [<build>]``: each build's, and ``dense_step
+    [composed]``: the steps run composed on the card (no launch of
+    either)}."""
+    counts = {}
+    for fn in (dense_front, dense_step):
+        name = fn.__name__
+        counts.update({f"{name} [{b}]": n for b, n in fn.launches.items()})
+        counts[name] = sum(fn.launches.values())
+    counts["dense_step [composed]"] = dense_step.composed
     return counts
 
 
 def reset_launch_counts() -> None:
+    dense_front.launches = dict.fromkeys(BUILDS, 0)
     dense_step.launches = dict.fromkeys(BUILDS, 0)
+    dense_step.composed = 0

@@ -28,12 +28,15 @@ step returns ``(allowed, remaining, retry_us, reset_us)``, reset_us the
 absolute reset/refill timestamp.
 
 PyTorch idiom: a step updates the state dict IN PLACE (where the JAX
-package donates the buffers). The three ``_*_step`` functions below are
-the plain PyTorch versions of the step, the JAX steps' expressions with
-torch's floor division; ``dense_cuda.dense_step`` runs them for CPU
-tensors and the hand-written kernel (``csrc/dense_kernels.cu``, one launch
-a step) for CUDA ones. ``_dense_scan``/``build_scan`` enqueue T steps back
-to back without a host sync.
+package donates the buffers). ``plain_step`` is the plain PyTorch version
+of the step, the JAX steps' expressions with torch's floor division, split
+where the kernels split it: ``dense_front_plain`` (phase A, the
+per-request front) and ``dense_back_plain`` (phase B, admission and the
+epilogue). ``dense_cuda.dense_step`` runs it for CPU tensors (and for CUDA
+batches above the kernels' 8192) and the hand-written kernels
+(``csrc/dense_kernels.cu``, two launches a step) for CUDA ones.
+``_dense_scan``/``build_scan`` enqueue T steps back to back without a host
+sync.
 """
 
 from __future__ import annotations
@@ -139,104 +142,113 @@ def _fold(state: State, sid, consumed, column: str, values: dict) -> None:
         state[column].add_(delta // MICROS)
 
 
-# --------------------------------------------------------------- fixed window
+# ------------------------------------------------- the kernel's two phases
 
-def _fixed_window_step(state: State, sid, n, now_us: int, policy=None,
-                       keyq=None, *, limit, window_us, iters, **_):
-    lim, W = _resolve(policy, keyq, ("limit", "window_us"),
-                      (limit, window_us))
-    cur_ws = (now_us // W) * W  # per-request grid when windows are per-key
-    count = state["count"][sid]
-    stale = state["win_start"][sid] != cur_ws
-    count_eff = torch.where(stale, 0, count)
+#: The scratch rows the kernel's phase A writes per request, in order
+#: (csrc/dense.cuh ``Row``): units, available units, the effective state
+#: (count/curr/tokens, then prev/rem), the window start (the bucket's
+#: refill denominator), the window and the bucket's refill numerator.
+SCRATCH_ROWS = ("units", "avail", "e0", "e1", "start", "win", "num")
 
-    n_units = n * MICROS
-    avail_units = (lim - count_eff) * MICROS
-    allowed, seen, consumed = admit(sid, n_units, avail_units, iters)
-
-    reset_us = _bcast(cur_ws + W, count)
-    _fold(state, sid.long(), consumed, "count",
-          {"count": count_eff, "win_start": _bcast(cur_ws, count)})
-    remaining = (seen - torch.where(allowed, n_units, 0)) // MICROS
-    retry_us = torch.where(allowed, 0, reset_us - now_us)
-    return allowed, remaining, retry_us, reset_us
-
-
-# ------------------------------------------------------------- sliding window
-
-def _sliding_window_step(state: State, sid, n, now_us: int, policy=None,
-                         keyq=None, *, limit, window_us, iters, **_):
-    lim, W = _resolve(policy, keyq, ("limit", "window_us"),
-                      (limit, window_us))
-    cur_ws = (now_us // W) * W
-    ws = state["win_start"][sid]
-    curr = state["curr"][sid]
-    prev = state["prev"][sid]
-    current = ws == cur_ws
-    rolled_one = ws == cur_ws - W
-    curr_eff = torch.where(current, curr, 0)
-    prev_eff = torch.where(current, prev, torch.where(rolled_one, curr, 0))
-
-    elapsed = now_us - cur_ws
-    free_scaled = lim * W - prev_eff * (W - elapsed) - curr_eff * W
-    avail_units = _scale_to_micro(free_scaled, W)
-    n_units = n * MICROS
-    allowed, seen, consumed = admit(sid, n_units, avail_units, iters)
-
-    reset_us = _bcast(cur_ws + W, curr)
-    _fold(state, sid.long(), consumed, "curr",
-          {"curr": curr_eff, "prev": prev_eff,
-           "win_start": _bcast(cur_ws, curr)})
-    remaining = (seen - torch.where(allowed, n_units, 0)) // MICROS
-    retry_us = torch.where(allowed, 0, reset_us - now_us)
-    return allowed, remaining, retry_us, reset_us
-
-
-# --------------------------------------------------------------- token bucket
-
-def _token_bucket_step(state: State, sid, n, now_us: int, policy=None,
-                       keyq=None, *, limit, window_us, rate_num, rate_den,
-                       iters):
-    lim, W, num, den = _resolve(
-        policy, keyq, ("limit", "window_us", "rate_num", "rate_den"),
-        (limit, window_us, rate_num, rate_den))
-    cap = lim * MICROS
-    tokens = state["tokens"][sid]
-    rem = state["rem"][sid]
-    last = state["last"][sid]
-
-    elapsed = torch.clamp_min(now_us - last, 0)
-    full = elapsed >= W  # time-to-full from any level <= window
-    acc = torch.where(full, 0, elapsed) * num + rem
-    tokens_r = tokens + acc // den
-    rem_r = acc % den
-    capped = full | (tokens_r >= cap)
-    tokens_eff = torch.where(capped, cap, tokens_r)
-    rem_eff = torch.where(capped, 0, rem_r)
-
-    n_units = n * MICROS
-    allowed, seen, consumed = admit(sid, n_units, tokens_eff, iters)
-
-    _fold(state, sid.long(), consumed, "tokens",
-          {"tokens": tokens_eff, "rem": rem_eff,
-           "last": _bcast(now_us, tokens)})
-    remaining = (seen - torch.where(allowed, n_units, 0)) // MICROS
-    # Reference ``tokenbucket.go:122-130``: deficit/rate, ceil'd (exact.py).
-    deficit = torch.clamp_min(n_units - seen, 0)
-    retry_us = torch.where(allowed, 0, -((-deficit * den) // num))
-    # Reference reset_at approximation: now + time to fill the whole bucket
-    # from empty (``tokenbucket.go:161-165``) == now + window.
-    reset_us = _bcast(now_us + W, tokens)
-    return allowed, remaining, retry_us, reset_us
-
-
-#: The plain step of each algorithm.
-PLAIN_STEPS = {
-    Algorithm.FIXED_WINDOW: _fixed_window_step,
-    Algorithm.SLIDING_WINDOW: _sliding_window_step,
-    Algorithm.TPU_SKETCH: _sliding_window_step,
-    Algorithm.TOKEN_BUCKET: _token_bucket_step,
+#: The rows each algorithm's phase A writes (the others stay unwritten).
+USED_ROWS = {
+    Algorithm.FIXED_WINDOW: (0, 1, 2, 4, 5),
+    Algorithm.SLIDING_WINDOW: (0, 1, 2, 3, 4, 5),
+    Algorithm.TPU_SKETCH: (0, 1, 2, 3, 4, 5),
+    Algorithm.TOKEN_BUCKET: (0, 1, 2, 3, 4, 5, 6),
 }
+
+
+def dense_front_plain(state: State, sid, n, now_us: int, policy=None,
+                      keyq=None, *, algorithm, limit, window_us, rate_num,
+                      rate_den, **_) -> torch.Tensor:
+    """The step's phase A (the kernel's ``rl_dense_front``): per request
+    its effective parameters, its slot's rolled or refilled row, its units
+    and available units, as the JAX step computes them before admission.
+    Returns the int64 (len(SCRATCH_ROWS), B) scratch; rows outside
+    ``USED_ROWS[algorithm]`` are 0. The state is only read."""
+    out = torch.zeros((len(SCRATCH_ROWS), sid.shape[0]), dtype=torch.int64,
+                      device=sid.device)
+    bucket = algorithm is Algorithm.TOKEN_BUCKET
+    names = ("limit", "window_us") + (("rate_num", "rate_den")
+                                      if bucket else ())
+    vals = _resolve(policy, keyq, names, (limit, window_us, rate_num,
+                                          rate_den)[:len(names)])
+    lim, W = vals[0], vals[1]
+    out[0] = n * MICROS
+    out[5] = _bcast(W, n)
+    if algorithm is Algorithm.FIXED_WINDOW:
+        cur_ws = (now_us // W) * W
+        stale = state["win_start"][sid] != cur_ws
+        count_eff = torch.where(stale, 0, state["count"][sid])
+        out[1] = (lim - count_eff) * MICROS
+        out[2] = count_eff
+        out[4] = _bcast(cur_ws, n)
+    elif bucket:
+        num, den = vals[2], vals[3]
+        cap = lim * MICROS
+        elapsed = torch.clamp_min(now_us - state["last"][sid], 0)
+        full = elapsed >= W
+        acc = torch.where(full, 0, elapsed) * num + state["rem"][sid]
+        tokens_r = state["tokens"][sid] + acc // den
+        capped = full | (tokens_r >= cap)
+        tokens_eff = torch.where(capped, cap, tokens_r)
+        out[1] = tokens_eff
+        out[2] = tokens_eff
+        out[3] = torch.where(capped, 0, acc % den)
+        out[4] = _bcast(den, n)
+        out[6] = _bcast(num, n)
+    else:
+        cur_ws = (now_us // W) * W
+        ws = state["win_start"][sid]
+        curr = state["curr"][sid]
+        current = ws == cur_ws
+        curr_eff = torch.where(current, curr, 0)
+        prev_eff = torch.where(current, state["prev"][sid],
+                               torch.where(ws == cur_ws - W, curr, 0))
+        free_scaled = (lim * W - prev_eff * (W - (now_us - cur_ws))
+                       - curr_eff * W)
+        out[1] = _scale_to_micro(free_scaled, W)
+        out[2] = curr_eff
+        out[3] = prev_eff
+        out[4] = _bcast(cur_ws, n)
+    return out
+
+
+def dense_back_plain(state: State, sid, scratch: torch.Tensor, now_us: int,
+                     *, algorithm, iters, **_) -> Outputs:
+    """The step's phase B (the kernel's ``rl_dense_back``) over phase A's
+    scratch: admission grouped on the slot, each touched row written (the
+    effective values, then the consumption folded in), and the four
+    results, in place on ``state``."""
+    units, avail, e0, e1, start, win, num = scratch
+    allowed, seen, consumed = admit(sid, units, avail, iters)
+    if algorithm is Algorithm.FIXED_WINDOW:
+        values, column = {"count": e0, "win_start": start}, "count"
+    elif algorithm is Algorithm.TOKEN_BUCKET:
+        values, column = {"tokens": e0, "rem": e1,
+                          "last": _bcast(now_us, e0)}, "tokens"
+    else:
+        values, column = {"curr": e0, "prev": e1,
+                          "win_start": start}, "curr"
+    _fold(state, sid.long(), consumed, column, values)
+    remaining = (seen - torch.where(allowed, units, 0)) // MICROS
+    if algorithm is Algorithm.TOKEN_BUCKET:
+        deficit = torch.clamp_min(units - seen, 0)
+        retry_us = torch.where(allowed, 0, -((-deficit * start) // num))
+        reset_us = now_us + win
+    else:
+        reset_us = start + win
+        retry_us = torch.where(allowed, 0, reset_us - now_us)
+    return allowed, remaining, retry_us, reset_us
+
+
+def plain_step(state: State, sid, n, now_us: int, policy=None, keyq=None,
+               **params) -> Outputs:
+    """The plain step: phase A, then admission and the epilogue over its
+    scratch, in place on ``state``; the JAX step's function."""
+    scratch = dense_front_plain(state, sid, n, now_us, policy, keyq, **params)
+    return dense_back_plain(state, sid, scratch, now_us, **params)
 
 
 # ------------------------------------------------------------------- factory

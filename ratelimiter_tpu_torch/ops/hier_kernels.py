@@ -25,9 +25,9 @@ Quantities at the tenant and global scopes are int64 request counts.
 These are the plain versions, which the CPU runs. The card runs the CUDA
 routine of ``csrc/cascade.cuh`` inside the cascade builds of the three
 backs on the step's path, for batches of up to
-``sketch_cuda.ADMIT_CAPACITY`` requests, and refuses larger ones
-(``chip_smoke.py`` also holds the routine alone, ``csrc/cascade_bench.cu``,
-to ``cascade_admit`` here).
+``sketch_cuda.ADMIT_CAPACITY`` requests, and these plain versions on the
+card above it (the composed back; ``chip_smoke.py`` also holds the
+routine alone, ``csrc/cascade_bench.cu``, to ``cascade_admit`` here).
 
 A reference defect is kept, for bit-identity (ROADMAP C5): with at most
 ``_DENSE_MAX_SCOPES`` scopes (T + 1 <= 64) the reference's per-tenant

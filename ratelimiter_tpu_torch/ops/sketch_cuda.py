@@ -30,10 +30,11 @@ so the step without the side table runs the same machine code as before.
 With the hierarchy cascade (``tenants > 0``) the two backs take its
 operands (``Cascade``) and launch their cascade builds, which run
 ``csrc/cascade.cuh``'s block routine after admission (stages 2 and 3,
-the final mask, the scope counters' fold) in the same launch. They hold
-at most ``ADMIT_CAPACITY`` requests: above it a cascade on the card
-raises. The plain versions compose ``ops/hier_kernels.py`` as the JAX
-step does (``key_admission``).
+the final mask, the scope counters' fold) in the same launch, up to
+``ADMIT_CAPACITY`` requests; above it the backs run composed on the card,
+as without the cascade (the plain admission and cascade, then the
+standalone update kernel). The plain versions compose
+``ops/hier_kernels.py`` as the JAX step does (``key_admission``).
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``window_front.launches`` ...; the backs' cascade builds in
@@ -89,8 +90,8 @@ FRONT_THREADS = 128
 #: shared-memory hash table (two 8-byte slots a key, 128 KB) is the
 #: largest power of two that fits a block. Batches above it take the plain
 #: admission on the card and the standalone ``add_update`` (``add_back``),
-#: or the plain admission before ``cu_update`` (``window_admit``); with the
-#: hierarchy cascade they are refused on the card (``_check_cascade``).
+#: or the plain admission before ``cu_update`` (``window_admit``), with the
+#: hierarchy cascade too (the plain cascade after the plain admission).
 #: PERF.md §6 ("Admission capacity and block shapes") has the times behind
 #: this size.
 ADMIT_CAPACITY = 8192
@@ -260,12 +261,8 @@ class Cascade(NamedTuple):
 
 
 def _check_cascade(c: Cascade, B: int, device) -> int:
-    """The cascade's operands; returns T. On the card a batch holds at
-    most ``ADMIT_CAPACITY`` requests: the cascade builds are one block,
-    and no plain version stands in for them there."""
-    if device.type == "cuda" and B > ADMIT_CAPACITY:
-        raise ValueError(f"the cascade takes at most {ADMIT_CAPACITY} "
-                         f"requests a launch on the card, got {B}")
+    """The cascade's operands; returns T. The map's key and tid columns
+    are staged by bulk copies in the cascade builds: 16-byte aligned."""
     T = c.tenants
     if T < 2 or T > 4096 or T & (T - 1):
         raise ValueError(f"tenants must be a power of two in [2, 4096], got "
@@ -274,8 +271,11 @@ def _check_cascade(c: Cascade, B: int, device) -> int:
     if P < 2 or P & (P - 1):
         raise ValueError(f"tenant map capacity must be a power of two, got "
                          f"{P}")
-    _check("tenant map key", c.hier["key"], torch.int64, (P,), device)
-    _check("tenant map tid", c.hier["tid"], torch.int64, (P,), device)
+    staged = device.type == "cuda"
+    _check("tenant map key", c.hier["key"], torch.int64, (P,), device,
+           align16=staged)
+    _check("tenant map tid", c.hier["tid"], torch.int64, (P,), device,
+           align16=staged)
     _check("scope limit", c.hier["limit"], torch.int64, (T + 1,), device)
     _check("scope weight", c.hier["weight"], torch.int64, (T + 1,), device)
     _check("h2", c.h2, torch.int64, (B,), device)
@@ -850,9 +850,8 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     h1), and writes allowed and remaining in batch order. It replaces the
     ~85 launches of the composed back with one; its time is the single
     block's sort and scans. Above ``ADMIT_CAPACITY`` keys the back runs
-    composed on the card: the plain admission, then the standalone
-    ``add_update`` kernel (without the cascade: with it, such a batch
-    raises).
+    composed on the card: the plain admission (and the plain cascade with
+    ``casc``), then the standalone ``add_update`` kernel.
 
     With the side table's ``mine`` (and ``est``), a compile-time variant
     leaves owned keys out of the scatter and also writes the promotion
@@ -863,8 +862,7 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     (stages 2 and 3, the key scope's consumption again under the final
     mask, the histogram folded into the scope counters), and the scatter
     and results read the final mask: still one launch, counted in
-    ``add_back.cascade_launches`` too. It holds at most
-    ``ADMIT_CAPACITY`` requests on the card."""
+    ``add_back.cascade_launches`` too."""
     d, w, B = _check_common(totals, h1, h2)
     _check("cur", cur, torch.int32, (d, w), totals.device, align16=True)
     operands = {"n": (n, torch.int32), "n_f": (n_f, torch.float32),
@@ -918,8 +916,7 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
     epilogue that writes the three outputs in batch order. It
     replaces the ~85 launches of the composed admission, targets and
     remaining with one. Above ``ADMIT_CAPACITY`` keys the plain version
-    runs on the card, without the cascade (with it, such a batch
-    raises).
+    runs on the card (with the plain cascade when ``casc`` is given).
 
     With the side table's ``mine``, a compile-time variant targets 0 for
     owned keys and also writes the promotion targets, returned fourth

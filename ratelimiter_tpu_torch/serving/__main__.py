@@ -67,7 +67,10 @@ _ALGORITHMS = ("sliding_window", "fixed_window", "tpu_sketch",
                "token_bucket")
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
+    """The binary's options: the JAX binary's names and defaults for
+    every flag the two share (``--sketch-depth``/``--sketch-width`` keep
+    the older ``--depth``/``--width`` as aliases)."""
     ap = argparse.ArgumentParser(
         prog="ratelimiter_tpu_torch.serving",
         description="Count-min-sketch rate limiter on a CUDA card.")
@@ -88,8 +91,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--limit", type=int, default=100)
     ap.add_argument("--window", type=float, default=60.0,
                     help="window length in seconds")
-    ap.add_argument("--depth", type=int, default=4)
-    ap.add_argument("--width", type=int, default=65536)
+    ap.add_argument("--sketch-depth", "--depth", dest="sketch_depth",
+                    type=int, default=4)
+    ap.add_argument("--sketch-width", "--width", dest="sketch_width",
+                    type=int, default=65536)
     ap.add_argument("--sub-windows", type=int, default=60)
     ap.add_argument("--no-conservative-update", action="store_true",
                     help="plain sums instead of conservative update")
@@ -173,7 +178,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "--tenants > 0")
     ap.add_argument("--controller-interval", type=float, default=1.0,
                     help="seconds between AIMD controller ticks")
-    return ap.parse_args(argv)
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
 
 
 def build_config(args: argparse.Namespace) -> Config:
@@ -181,7 +190,7 @@ def build_config(args: argparse.Namespace) -> Config:
         algorithm=Algorithm(args.algorithm), limit=args.limit,
         window=args.window, fail_open=args.fail_open,
         sketch=SketchParams(
-            depth=args.depth, width=args.width, sub_windows=args.sub_windows,
+            depth=args.sketch_depth, width=args.sketch_width, sub_windows=args.sub_windows,
             conservative_update=not args.no_conservative_update,
             hh_slots=args.hh_slots),
         dense=DenseParams(capacity=args.dense_capacity),

@@ -976,7 +976,8 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("T", [4, 16, 64, 4096])
-@pytest.mark.parametrize("kind", ["contended", "uncontended", "one tenant"])
+@pytest.mark.parametrize("kind", ["contended", "uncontended", "one tenant",
+                                  "wide map"])
 @pytest.mark.parametrize("B", [0, 1, 4096, sc.ADMIT_CAPACITY,
                                2 * sc.ADMIT_CAPACITY])
 def test_cascade_kernels_bit_equal_to_plain(dev, T, kind, B):
@@ -984,9 +985,12 @@ def test_cascade_kernels_bit_equal_to_plain(dev, T, kind, B):
     cascade builds of add_back, window_admit and bucket_admit against
     their plain versions in every operand form (sliding with the tenant
     boundary slab, fixed, the bucket in and past its counters' window):
-    every output, the sketch and the scope counters they fold into. Up to
-    ADMIT_CAPACITY requests each build is one launch; above it each
-    refuses the batch on the card and launches nothing."""
+    every output, the sketch and the scope counters they fold into; the
+    map staged in shared memory, or (``wide map``, 8192 rows) searched in
+    global memory. Up to ADMIT_CAPACITY requests each build is one
+    launch; above it each back runs composed on the card (the plain
+    admission and cascade; add_back's standalone add_update the only
+    launch) and equals the plain version too."""
     cs = _chip_smoke()
     case = cs.cascade_case(np.random.default_rng(T + B + len(kind)), B, T,
                            kind)
@@ -996,11 +1000,8 @@ def test_cascade_kernels_bit_equal_to_plain(dev, T, kind, B):
         bc.reset_launch_counts()
         for name, (kern, plain, _) in cs.cascade_calls(
                 torch, sc, bc, case, mode, dev).items():
-            if not fused:
-                if name != "cascade_admit":
-                    with pytest.raises(ValueError, match="at most"):
-                        kern()
-                continue
+            if not fused and name == "cascade_admit":
+                continue  # the routine alone is one block
             got, want = kern(), plain()
             torch.cuda.synchronize()
             assert len(got) == len(want), name
@@ -1008,10 +1009,13 @@ def test_cascade_kernels_bit_equal_to_plain(dev, T, kind, B):
                 assert a.dtype == b.dtype and torch.equal(a, b), (name, mode)
         counts = cs.cascade_launches(sc, bc)
         builds = {k: v for k, v in counts.items() if v}
-        want = ({} if not fused else {"bucket admit [cascade]": 1}
-                if mode.startswith("bucket") else
-                {"add_back [cascade]": 1, "admit [cascade]": 1,
-                 "add_update": 1})
+        windowed = not mode.startswith("bucket")
+        if not fused:
+            want = {"add_update": 1} if windowed else {}
+        else:
+            want = ({"add_back [cascade]": 1, "admit [cascade]": 1,
+                     "add_update": 1} if windowed
+                    else {"bucket admit [cascade]": 1})
         assert builds == want
 
 
@@ -1089,27 +1093,37 @@ def test_tenant_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu, hh):
 
 @pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
 def test_tenant_batch_above_capacity_refused_on_card(dev, algo):
-    """With tenants on the card a batch above ADMIT_CAPACITY is refused
-    before anything runs (the cascade builds are one block, and no plain
-    version stands in for them there): no launch, the state untouched,
-    and the limiter serves the next batch as the CPU twin does."""
-    from ratelimiter_tpu_torch import InvalidConfigError, create_limiter
+    """With tenants on the card a batch above ADMIT_CAPACITY is served
+    (no longer refused), composed: the front and the standalone update
+    launched, no admission launch (the plain admission and cascade run on
+    the card), every result and the state equal to the CPU twin's; the
+    limiter then serves the next batch as the CPU twin does."""
+    from ratelimiter_tpu_torch import create_limiter
 
     lims = [create_limiter(_tenant_cfg(algo), clock=ManualClock(1e6),
                            device=d) for d in (dev, "cpu")]
-    gpu = lims[0]
-    before = gpu.capture_state()[1]
+    for lim in lims:
+        lim.set_tenant("gold", 20, weight=3)
+        lim.set_tenant("free", 8)
+        for i in range(6):
+            lim.assign_tenant(f"k{i}", "gold" if i % 2 else "free")
     sc.reset_launch_counts()
     bc.reset_launch_counts()
-    ids = np.arange(sc.ADMIT_CAPACITY + 1, dtype=np.uint64)
-    with pytest.raises(InvalidConfigError, match="at most"):
-        gpu.allow_ids(ids)
+    ids = np.arange(sc.ADMIT_CAPACITY + 1, dtype=np.uint64) % np.uint64(50)
+    a, b = (lim.allow_ids(ids) for lim in lims)
     torch.cuda.synchronize()
-    assert not any(sc.launch_counts().values())
-    assert not any(bc.launch_counts().values())
-    after = gpu.capture_state()[1]
-    for k in before:
-        np.testing.assert_array_equal(before[k], after[k], err_msg=k)
+    for f in ("allowed", "remaining", "retry_after", "reset_at"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert 0 < a.allowed.sum() < len(ids)
+    counts = {k: v for k, v in {**sc.launch_counts(), **{
+        f"bucket {k}": v for k, v in bc.launch_counts().items()}}.items()
+        if v}
+    assert counts == ({"bucket bucket_estimate": 1, "bucket bucket_update": 1}
+                      if algo == "TOKEN_BUCKET"
+                      else {"window_estimate": 1, "cu_update": 1})
+    ga, ca = (lim.capture_state()[1] for lim in lims)
+    for k in ca:
+        np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
     a, b = (lim.allow_ids(ids[:sc.ADMIT_CAPACITY]) for lim in lims)
     np.testing.assert_array_equal(a.allowed, b.allowed)
     for lim in lims:
@@ -1120,10 +1134,11 @@ def test_tenant_batch_above_capacity_refused_on_card(dev, algo):
 
 
 def _dense_operands(rng, algo: str, C: int, B: int, dev, *, one_slot=False,
-                    policy=False):
+                    policy=False, table_rows: int = 64):
     """A lived-in dense state of C slots, a batch of B requests (a tenth
-    padding) and, with ``policy``, a 64-row override table over some of
-    the batch's slots with search keys a function of the slot."""
+    padding) and, with ``policy``, an override table of ``table_rows``
+    rows over some of the batch's slots with search keys a function of
+    the slot."""
     from ratelimiter_tpu_torch.ops import dense_kernels as dk
 
     now = 1_700_000_000_123_457
@@ -1147,7 +1162,7 @@ def _dense_operands(rng, algo: str, C: int, B: int, dev, *, one_slot=False,
     if policy:
         keyq = splitmix64(sid.astype(np.uint64)).view(np.int64)
         chosen = np.unique(keyq[~pad])[:48]
-        P = 64
+        P = table_rows
         tab = {"key": np.full(P, PAD_KEY, np.int64)}
         for k, v in (("limit", 7), ("window_us", W), ("rate_num", 7),
                      ("rate_den", 3)):
@@ -1188,41 +1203,93 @@ def test_dense_step_bit_equal_to_plain(dev, algo, B, kind, policy):
         got = dense_cuda.dense_step(a, *args, **params)
         want = dense_cuda.dense_step_plain(b, *args, **params)
         torch.cuda.synchronize()
-        assert dense_cuda.launch_counts()["dense_step"] == 1
+        counts = dense_cuda.launch_counts()
+        assert counts["dense_step"] == counts["dense_front"] == 1
         for x, y in zip(got, want):
             assert torch.equal(x, y)
         for k in a:
             assert torch.equal(a[k], b[k]), k
 
 
+@pytest.mark.parametrize("rows", [0, 64, 8192],
+                         ids=["no table", "table staged", "table in global"])
+@pytest.mark.parametrize("B,kind", [(0, "zipf"), (1, "zipf"), (4096, "zipf"),
+                                    (4096, "one slot"),
+                                    (sc.ADMIT_CAPACITY, "zipf")])
+@pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",
+                                  "TOKEN_BUCKET"])
+def test_dense_front_bit_equal_to_plain(dev, algo, B, kind, rows):
+    """The step's phase A alone (``dense_front``, across the card) against
+    ``dense_front_plain`` on the scratch rows its algorithm writes, with
+    no table, a 64-row table (staged in shared memory) and an 8192-row
+    one (searched in global memory); the state is only read. Then the
+    whole step with the 8192-row table against its plain version."""
+    from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels as dk
+
+    rng = np.random.default_rng(B + len(kind) + rows)
+    state, args = _dense_operands(rng, algo, 1024, B, dev,
+                                  one_slot=kind == "one slot",
+                                  policy=rows > 0, table_rows=max(rows, 64))
+    params = dk.step_params(Config(algorithm=getattr(Algorithm, algo),
+                                   limit=7, window=3.0))
+    used = list(dk.USED_ROWS[params["algorithm"]])
+    before = {k: v.clone() for k, v in state.items()}
+    dense_cuda.reset_launch_counts()
+    got = dense_cuda.dense_front(state, *args, **params)
+    want = dk.dense_front_plain(state, *args, **params)
+    torch.cuda.synchronize()
+    assert dense_cuda.launch_counts()["dense_front"] == 1
+    assert torch.equal(got[used], want[used])
+    for k in state:
+        assert torch.equal(state[k], before[k]), k
+    if rows == 8192:
+        b = {k: v.clone() for k, v in state.items()}
+        for x, y in zip(dense_cuda.dense_step(state, *args, **params),
+                        dense_cuda.dense_step_plain(b, *args, **params)):
+            assert torch.equal(x, y)
+        for k in state:
+            assert torch.equal(state[k], b[k]), k
+
+
 @pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",
                                   "TOKEN_BUCKET"])
 def test_dense_step_refuses_above_capacity_on_card(dev, algo):
-    """A dense batch above ADMIT_CAPACITY is refused on the card before
-    anything runs (no plain stand-in), and so is the limiter's."""
-    from ratelimiter_tpu_torch import DenseParams, InvalidConfigError
-    from ratelimiter_tpu_torch import create_limiter
+    """A dense batch above ADMIT_CAPACITY is served on the card (no longer
+    refused), composed: the plain step on the card, counted as one
+    composed step and no launch, equal to the plain version on the CPU;
+    and the limiter's batch of ADMIT_CAPACITY + 1 equals the CPU
+    limiter's."""
+    from ratelimiter_tpu_torch import DenseParams, create_limiter
     from ratelimiter_tpu_torch.ops import dense_cuda, dense_kernels as dk
 
     rng = np.random.default_rng(1)
     state, args = _dense_operands(rng, algo, 64, 2 * sc.ADMIT_CAPACITY, dev)
-    before = {k: v.clone() for k, v in state.items()}
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
     dense_cuda.reset_launch_counts()
     params = dk.step_params(Config(algorithm=getattr(Algorithm, algo),
                                    limit=7, window=3.0))
-    with pytest.raises(ValueError, match="at most"):
-        dense_cuda.dense_step(state, *args, **params)
+    got = dense_cuda.dense_step(state, *args, **params)
     torch.cuda.synchronize()
-    assert dense_cuda.launch_counts()["dense_step"] == 0
+    counts = dense_cuda.launch_counts()
+    assert counts["dense_step [composed]"] == 1
+    assert counts["dense_step"] == counts["dense_front"] == 0
+    want = dense_cuda.dense_step(cpu_state, *cpu_args, **params)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y)
     for k in state:
-        assert torch.equal(state[k], before[k])
-    lim = create_limiter(Config(algorithm=getattr(Algorithm, algo), limit=7,
-                                window=3.0, fail_open=True,
-                                dense=DenseParams(capacity=1 << 14)),
-                         "dense", clock=ManualClock(1e6), device=dev)
-    with pytest.raises(InvalidConfigError, match="at most"):
-        lim.allow_batch([f"k{i}" for i in range(sc.ADMIT_CAPACITY + 1)])
-    assert lim.allow_batch(["a"] * sc.ADMIT_CAPACITY).allowed.sum() == 7
+        assert torch.equal(state[k].cpu(), cpu_state[k]), k
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=7, window=3.0,
+                 dense=DenseParams(capacity=1 << 14))
+    lims = [create_limiter(cfg, "dense", clock=ManualClock(1e6), device=d)
+            for d in (dev, "cpu")]
+    keys = [f"k{i % 500}" for i in range(sc.ADMIT_CAPACITY + 1)]
+    a, b = (lim.allow_batch(keys) for lim in lims)
+    for f in ("allowed", "remaining", "retry_after", "reset_at"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    assert 0 < a.allowed.sum() < len(keys)
+    for lim in lims:
+        lim.close()
 
 
 @pytest.mark.parametrize("algo", ["FIXED_WINDOW", "SLIDING_WINDOW",

@@ -98,7 +98,36 @@ def test_step_matches_jax(algo, policy):
     trace: contention on few slots, mixed n, padding into row C, time
     jumps across windows and back within one, and a limit decrease
     mid-trace (``free_scaled`` and the available units go negative).
-    Every output and the whole state, row C included, each step."""
+    Every output and the whole state, row C included, each step. On the
+    CPU the step is ``plain_step``: the plain phase A, then the plain
+    admission and epilogue over its scratch, where the kernels split it."""
+    _trace_matches_jax(algo, policy, tdk.build_step)
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_front_plain_writes_only_its_rows(algo):
+    """Phase A reads the state and writes the scratch rows its algorithm
+    uses (the others stay 0): the state is unchanged after it."""
+    rng = np.random.default_rng(4)
+    cfg = _cfg(T, algo)
+    ts = tdk.init_state(cfg.algorithm, CAP, 7)
+    ones = torch.ones(B, dtype=torch.int64)
+    tdk.build_step(cfg)(ts, torch.from_numpy(
+        rng.integers(0, CAP, B).astype(np.int32)), ones, T0_US)
+    before = {k: v.clone() for k, v in ts.items()}
+    sid = torch.from_numpy(rng.integers(0, CAP + 1, B).astype(np.int32))
+    x = tdk.dense_front_plain(ts, sid, ones, T0_US + 1_500_000,
+                              **tdk.step_params(cfg))
+    assert x.shape == (len(tdk.SCRATCH_ROWS), B) and x.dtype == torch.int64
+    unused = sorted(set(range(len(tdk.SCRATCH_ROWS)))
+                    - set(tdk.USED_ROWS[cfg.algorithm]))
+    assert not x[unused].any()
+    assert x[list(tdk.USED_ROWS[cfg.algorithm])].any()
+    for k in ts:
+        assert torch.equal(ts[k], before[k]), k
+
+
+def _trace_matches_jax(algo, policy, port_step):
     rng = np.random.default_rng(11 + ALGOS.index(algo) + 7 * policy)
     limit, W = 7, 3_000_000
     slot_keys = rng.integers(-2 ** 63, 2 ** 63 - 1, size=CAP + 1,
@@ -112,7 +141,7 @@ def test_step_matches_jax(algo, policy):
     for it in range(24):
         lim = limit if it < 14 else 3      # the limit decrease
         jstep = jdk.build_step(_cfg(R, algo, limit=lim))
-        tstep = tdk.build_step(_cfg(T, algo, limit=lim))
+        tstep = port_step(_cfg(T, algo, limit=lim))
         sid = rng.integers(0, 6 if it % 3 else CAP, B).astype(np.int32)
         n = rng.integers(1, 4, B).astype(np.int64)
         pad = rng.random(B) < 0.2
@@ -313,14 +342,21 @@ def test_fault_injection_and_fail_open(fail_open):
 
 
 def test_batch_above_capacity_refused_on_the_card_only():
-    """On the CPU any batch decides (the plain version has no bound); the
-    card's bound is checked before the dispatch, whatever fail_open says
-    (tests/test_torch_cuda.py pins it on the card)."""
-    lt = T.create_limiter(_cfg(T, "FIXED_WINDOW", capacity=ADMIT_CAPACITY
-                               + 8, limit=2), "dense",
-                          clock=T.ManualClock(T0), device="cpu")
-    keys = [f"k{i}" for i in range(ADMIT_CAPACITY + 1)]
-    assert lt.allow_batch(keys, now=T0).allowed.all()
+    """A batch of ADMIT_CAPACITY + 1 requests is decided, as the JAX
+    package decides it: on the CPU by the plain step, and on the card by
+    the same plain step composed of torch ops (no longer refused;
+    tests/test_torch_cuda.py pins the card). Repeated keys contend, so
+    some are denied."""
+    keys = [f"k{i % 5000}" for i in range(ADMIT_CAPACITY + 1)]
+    for algo in ALGOS:
+        cfg = {M: _cfg(M, algo, capacity=ADMIT_CAPACITY + 8, limit=1)
+               for M in (R, T)}
+        lj = R.create_limiter(cfg[R], "dense", clock=R.ManualClock(T0))
+        lt = T.create_limiter(cfg[T], "dense", clock=T.ManualClock(T0),
+                              device="cpu")
+        got = lt.allow_batch(keys, now=T0)
+        _same(lj.allow_batch(keys, now=T0), got, algo)
+        assert 0 < got.allowed.sum() < len(keys)
 
 
 # ------------------------------------------------------------ checkpoints

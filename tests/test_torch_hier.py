@@ -329,6 +329,32 @@ def test_limiters_match_jax(tmp_path, algo, cu, hh_slots):
         lim.close()
 
 
+@pytest.mark.parametrize("algo,cu", [("SLIDING_WINDOW", True),
+                                     ("SLIDING_WINDOW", False),
+                                     ("TOKEN_BUCKET", True)])
+def test_batch_above_admit_capacity_matches_jax(algo, cu):
+    """A tenant batch of ADMIT_CAPACITY + 1 requests, which the card runs
+    composed (the plain admission and cascade, then the standalone update
+    kernel; tests/test_torch_cuda.py pins the card), decides as the JAX
+    package decides it, contended at every scope; the state after it too."""
+    from ratelimiter_tpu_torch.ops.sketch_cuda import ADMIT_CAPACITY
+
+    pair = (R.create_limiter(_cfg(R, algo, cu=cu), backend="sketch",
+                             clock=R.ManualClock(T0)),
+            T.create_limiter(_cfg(T, algo, cu=cu), clock=T.ManualClock(T0),
+                             device="cpu"))
+    for lim in pair:
+        _boot(lim)
+    h64 = (np.arange(ADMIT_CAPACITY + 1, dtype=np.uint64) % np.uint64(97)
+           * np.uint64(0x9E3779B97F4A7C15))
+    got = pair[1].allow_hashed(h64)
+    _same(pair[0].allow_hashed(h64), got)
+    assert 0 < got.allowed.sum() < len(h64)
+    _same_state(*pair)
+    for lim in pair:
+        lim.close()
+
+
 def test_reset_and_idle_stats_leave_tenant_counters():
     """A reset forgives the key, not its tenant; an idle windowed limiter
     reports expired mass as 0 (the stats kick the rollover), and the

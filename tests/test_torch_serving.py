@@ -676,3 +676,94 @@ def test_chip_smoke_names_a_child_left_running():
     finally:
         proc.kill()
         proc.wait()
+
+
+# ------------------------------------------------- the binary's flag names
+
+
+def _service_argv() -> list:
+    """The options of ``deployments/ratelimiter-tpu.service``'s ExecStart
+    (after ``-m ratelimiter_tpu.serving``), split into words."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "deployments", "ratelimiter-tpu.service")
+    with open(path) as fh:
+        text = fh.read()
+    start = text.index("ExecStart=")
+    lines = []
+    for line in text[start:].splitlines():
+        lines.append(line.rstrip("\\ "))
+        if not line.rstrip().endswith("\\"):
+            break
+    words = " ".join(lines).split()
+    return words[words.index("ratelimiter_tpu.serving") + 1:]
+
+
+def _jax_config(args):
+    """The Config the JAX binary builds from its parsed ``args``
+    (ratelimiter_tpu/serving/__main__.py, ``main``: the Config(...) call
+    before the tenant checks)."""
+    import ratelimiter_tpu as R
+
+    return R.Config(
+        algorithm=R.Algorithm(args.algorithm), limit=args.limit,
+        window=args.window, fail_open=args.fail_open,
+        sketch=R.SketchParams(depth=args.sketch_depth,
+                              width=args.sketch_width,
+                              sub_windows=args.sub_windows,
+                              hh_slots=args.hh_slots, kernels=args.kernels),
+        persistence=R.PersistenceSpec(
+            dir=args.snapshot_dir, snapshot_interval=args.snapshot_interval,
+            snapshot_after_mutations=args.snapshot_after_mutations,
+            retain=args.snapshot_retain, wal_fsync=args.wal_fsync),
+        hierarchy=R.HierarchySpec(
+            tenants=args.tenants, map_capacity=args.tenant_map,
+            global_limit=args.global_limit,
+            default_tenant_limit=args.default_tenant_limit))
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--hh-slots", "256", "--sub-windows", "30", "--fail-open"],
+    ["--tenants", "16", "--tenant-map", "512", "--global-limit", "50000",
+     "--snapshot-dir", "/var/lib/rl", "--snapshot-interval", "10",
+     "--wal-fsync", "interval"]], ids=["service", "sketch", "tenants"])
+def test_shared_flags_give_the_jax_binarys_config(extra):
+    """The deployment's command line (its options that the port's binary
+    has: --sketch-depth 4 --sketch-width 65536 and the rest of
+    deployments/ratelimiter-tpu.service:22-25), with more shared flags,
+    parses in both binaries to equal Configs: the same fingerprint (every
+    semantic field) and the same persistence and hierarchy specs."""
+    from dataclasses import asdict
+
+    from ratelimiter_tpu.checkpoint import config_fingerprint as jfp
+    from ratelimiter_tpu.serving.__main__ import build_parser
+    from ratelimiter_tpu_torch.checkpoint import config_fingerprint
+    from ratelimiter_tpu_torch.serving import __main__ as port
+
+    argv = _service_argv()
+    assert "--sketch-depth" in argv and "--sketch-width" in argv
+    known = port.build_parser()._option_string_actions
+    ported, i = [], 0
+    while i < len(argv):
+        takes = i + 1 < len(argv) and not argv[i + 1].startswith("--")
+        if argv[i] in known:
+            ported += argv[i:i + 1 + takes]
+        i += 1 + takes
+    assert ported[ported.index("--sketch-depth") + 1] == "4"
+    ported += extra
+    cfg = port.build_config(port.parse_args(ported))
+    jcfg = _jax_config(build_parser().parse_args(ported))
+    assert config_fingerprint(cfg) == jfp(jcfg)
+    assert (cfg.sketch.depth, cfg.sketch.width) == (4, 65536)
+    assert asdict(cfg.persistence) == asdict(jcfg.persistence)
+    assert asdict(cfg.hierarchy) == asdict(jcfg.hierarchy)
+
+
+def test_old_geometry_flags_still_parse():
+    """--depth/--width, the port's older spellings, stay aliases of
+    --sketch-depth/--sketch-width."""
+    from ratelimiter_tpu_torch.serving.__main__ import parse_args
+
+    old = parse_args(["--depth", "2", "--width", "1024"])
+    new = parse_args(["--sketch-depth", "2", "--sketch-width", "1024"])
+    assert (old.sketch_depth, old.sketch_width) == (2, 1024)
+    assert vars(old) == vars(new)
