@@ -45,7 +45,22 @@ Phases (each raises on failure; the script exits non-zero):
    requests on one slot, a batch holding keys whose h1 is 0, B = 0,
    B = ``ADMIT_CAPACITY`` and the next pad above it; each side-table
    build timed in turns with its build without the side table on the
-   same operands, ``hh_update`` a kernel row of its own; the hierarchy
+   same operands, ``hh_update`` a kernel row of its own; every back
+   build that runs the side table's update as its tail
+   (``window_admit`` and ``add_back``, each with and without the
+   cascade, the documented tenants over each batch's own keys) on the
+   same batches, bit-equal to the plain back followed by
+   ``hh_update_plain``, the counts showing one ``hh_update [fused]`` a
+   back launch and no standalone ``hh_update`` up to ``ADMIT_CAPACITY``,
+   each timed in turns with the parent's form (the build without the
+   tail, then the standalone ``hh_update``) and with the build without
+   the tail alone; the reset kernel (``window_reset``, the per-key
+   reset in one launch) bit-equal to its plain version (the front's
+   estimate-only form, the floors, ``add_update``) on a config-3 state,
+   sliding and fixed, without a side table and with 256 and 2^22 slots,
+   on 1 key, none, 6 keys two of which share a column,
+   ``RESET_CAPACITY`` and one more (composed), timed on one key beside
+   the composed reset; the hierarchy
    cascade's kernels (the cascade builds of ``add_back``,
    ``window_admit`` and ``bucket_admit``, and the cascade's routine
    alone, ``csrc/cascade_bench.cu``, which no path calls) in every
@@ -82,8 +97,12 @@ Phases (each raises on failure; the script exits non-zero):
    bit-identical to the same trace on the CPU (the plain versions, which
    the CPU tests hold to the JAX package). Each path's launch counts are
    set to 0 just before it and read just after, and each of its kernels
-   must have launched; the same trace then runs 4 more times on fresh
-   limiters, and the median, min and max steps/s of the 5 are printed.
+   must have launched (on a windowed path the reset exactly one
+   ``window_reset`` launch and no standalone ``add_update``; with the
+   side table one ``hh_update [fused]`` tail a back launch and no
+   standalone ``hh_update``); the same trace then runs 4 more times on
+   fresh limiters, and the median, min and max steps/s of the 5 are
+   printed.
    Windowed: config-3 traffic across sub-window rollovers, with
    conservative update on and off, then a profile of a short CU and a
    short vanilla run; then config 3 with the side table (256 slots,
@@ -173,9 +192,11 @@ Phases (each raises on failure; the script exits non-zero):
    its size are printed; a dense limiter's ``save`` on the card
    restored on the CPU (state equal, the next batches identical); and
    batches of ADMIT_CAPACITY + 1 (C8) on the dense limiter under each
-   algorithm and on the tenant deployment (windowed CU and TB-c2), each
-   served composed on the card (its launch counts must show it) and
-   equal to a CPU replay (``check_above_capacity``);
+   algorithm and on the tenant deployment (windowed CU, CU with the side
+   table, vanilla, and TB-c2), each served composed on the card (its
+   launch counts must show it: the standalone ``hh_update`` and
+   ``add_update`` run there) and equal to a CPU replay
+   (``check_above_capacity``);
 6. the evaluation path at bench.py's geometry (d=3, w=2^20, 60
    sub-windows, CU, 1M keys, Zipf(1.1)): ``loadgen.build_bench_chunk``
    at B = 8192 across two rollovers and one chunk of 2^20 (whose launch
@@ -203,7 +224,8 @@ card's line.
 
 ``--cascade`` builds, then runs phase 2's cascade part alone and prints
 its results as one JSON line before the card's line; ``--rows`` runs
-the rest of phase 2 alone (the kernel rows and the side-table forms),
+the rest of phase 2 alone (the kernel rows, ``hh_update`` and the
+side-table forms),
 through wrappers an earlier checkout has too, so a copy of this script
 in the parent's checkout times the parent's builds in the same call.
 
@@ -212,15 +234,16 @@ of phase 2 with the step's split, the dense and exact paths, their
 doors, the batches above capacity, the dense round trip and phase 6)
 and prints their results as one JSON line before the card's line.
 
-``--paths`` builds, then runs phase 3 alone, without the side-table paths
-(which an earlier checkout may not serve), and prints its results as one
-JSON line before the card's line; ``--dense-paths`` runs phase 3's dense
-paths alone in the same way. Both reach the port only through
-``create_limiter``, the limiters' public methods and the launch counters
-(the counts the checkout's own step makes: an earlier one has no
-``dense_front``), so a copy of this script placed in an earlier checkout
-measures that checkout's package on the same card (parent and change in
-one call).
+``--paths`` builds, then runs phase 3's main paths and its two
+side-table paths alone (the launch-count rules of this checkout's tail
+and reset are held only where the package counts them), and prints their
+results as one JSON line before the card's line; ``--dense-paths`` runs
+phase 3's dense paths alone in the same way. Both reach the port only
+through ``create_limiter``, the limiters' public methods and the launch
+counters (the counts the checkout's own step makes: an earlier one has
+no ``dense_front``), so a copy of this script placed in an earlier
+checkout measures that checkout's package on the same card (parent and
+change in one call).
 
 Without a CUDA device it exits non-zero before printing any result.
 It imports nothing of JAX or of the JAX package.
@@ -268,6 +291,10 @@ KERNEL_ROWS = {
     "bucket_admit": "ratelimiter_tpu/ops/segment.py:90",
     # Nor does the side table's update: jnp ops in the reference's step.
     "hh_update": "ratelimiter_tpu/ops/sketch_kernels.py:487",
+    # The reset kernel replaces the reset's add_update together with the
+    # estimate it subtracts (the JAX package's _sketch_reset,
+    # ratelimiter_tpu/ops/sketch_kernels.py:539).
+    "window_reset": "ratelimiter_tpu/ops/pallas_sketch.py:224",
     # Nor do the backs' cascade builds, which add to their back the
     # cascade (jnp in the reference, hier_kernels.py).
     "add_back [cascade]": "ratelimiter_tpu/ops/hier_kernels.py:119",
@@ -1126,10 +1153,46 @@ def side_state(torch, rng, h1, K: int) -> dict:
                                   device=dev)}
 
 
+def restorer(h1, state: dict, casc=None):
+    """A call that puts ``state``'s owner pair back, at the slots the
+    batch ``h1`` names, as it is now (and ``casc``'s scope counters).
+    Run ahead of each timed call of the side table's update, it makes
+    every call find the free slots the first one found, so that its
+    candidates claim them again (pass A's claims, pass B): the timed
+    calls do the first call's work. The other ``hh_*`` tensors need no
+    restoring: the update only adds to them, or writes the same clock,
+    and their values do not change its work."""
+    K = state["hh_owner"].shape[0]
+    idx = (h1 & (K - 1)).unique()
+    saved = [(state[k], state[k][idx].clone())
+             for k in ("hh_owner", "hh_owner2")]
+    scope = [] if casc is None else [(t, t.clone())
+                                     for t in (casc.counts, casc.cur)]
+
+    def restore():
+        for dst, src in saved:
+            dst.index_copy_(0, idx, src)
+        for dst, src in scope:
+            dst.copy_(src)
+    return restore
+
+
+def restored(restore, fn):
+    """``fn`` after ``restore``: a timed call on fresh state."""
+    def call():
+        restore()
+        return fn()
+    return call
+
+
 def side_calls(sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period):
     """The four side-table kernels on one batch: {name: (kernel call,
     plain call, the kernel's build without the side table on the same
-    operands, or None)}, and the operands hh_update takes."""
+    operands, or None)}, and the operands hh_update takes. hh_update's
+    calls work on their own copies of the table and put its owners back
+    first (``restorer``), so every call claims what the first claimed;
+    ``hh_update`` also has a fourth element, that restore alone (the
+    timed calls' baseline)."""
     front = dict(n=n, boundary=bnd, limit=LIMIT, hh=side)
     _, _, est, frac, avail, n_f, (mine, _, _) = sc.window_front_plain(
         totals, (h1, h2), **front)
@@ -1138,6 +1201,7 @@ def side_calls(sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period):
                                                      ITERS, mine)
     g = {k: v.clone() for k, v in hh.items()}
     p = {k: v.clone() for k, v in hh.items()}
+    fresh_g, fresh_p = restorer(h1, g), restorer(h1, p)
     plain_front = dict(front, hh=None)
     return {
         "window_front": (
@@ -1155,13 +1219,13 @@ def side_calls(sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period):
                                         est, mine), t2, c2),
             lambda: sc.add_back(t2, c2, h1, h2, n, n_f, avail, ITERS)),
         "hh_update": (
-            lambda: (sc.hh_update(g, h1, h2, n, allowed, mine, target_pr,
-                                  thresh=thresh, period=period),
-                     *g.values())[1:],
-            lambda: (sc.hh_update_plain(p, h1, h2, n, allowed, mine,
-                                        target_pr, thresh=thresh,
-                                        period=period), *p.values())[1:],
-            None),
+            restored(fresh_g, lambda: (sc.hh_update(
+                g, h1, h2, n, allowed, mine, target_pr, thresh=thresh,
+                period=period), *g.values())[1:]),
+            restored(fresh_p, lambda: (sc.hh_update_plain(
+                p, h1, h2, n, allowed, mine, target_pr, thresh=thresh,
+                period=period), *p.values())[1:]),
+            None, fresh_g),
     }, (est, allowed, mine, target_pr)
 
 
@@ -1177,16 +1241,269 @@ def _flat(out):
     return flat
 
 
+def side_cascade(torch, rng, h1, h2, n):
+    """The documented deployment's tenant scopes (TENANTS, TENANT_MAP) over
+    a side-table batch's own keys, for the backs' cascade builds with the
+    tail: the hottest keys round-robin over tenants 1..T-1, limits about
+    half the demand above random counters (the global one a third), the
+    tenant boundary slab weighted by 0.377. A ``Cascade`` on the card."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.policy_kernels import (
+        PAD_KEY,
+        pack_halves_host,
+    )
+
+    T, dev = TENANTS, h1.device
+    keys = pack_halves_host(h1.cpu().numpy().astype(np.uint32),
+                            h2.cpu().numpy().astype(np.uint32))
+    uniq, counts = np.unique(keys, return_counts=True)
+    hot = uniq[np.argsort(-counts, kind="stable")][:TENANT_MAP]
+    tids = 1 + np.arange(len(hot), dtype=np.int64) % (T - 1)
+    P = max(8, 1 << int(np.ceil(np.log2(max(1, len(hot))))))
+    order = np.argsort(hot)
+    key = np.full(P, PAD_KEY, np.int64)
+    tid = np.zeros(P, np.int64)
+    key[:len(hot)], tid[:len(hot)] = hot[order], tids[order]
+    of = dict(zip(hot.tolist(), tids.tolist()))
+    tid_b = np.array([of.get(int(k), 0) for k in keys], np.int64)
+    demand = np.bincount(tid_b, weights=n.cpu().numpy(),
+                         minlength=T + 1).astype(np.int64)
+    cnt = rng.integers(0, 40, size=T + 1)
+    limit = (cnt + 20 + demand // 2).astype(np.int64)
+    limit[T] = cnt[T] + 20 + int(demand.sum()) // 3
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(dtype)).to(
+            dev)
+
+    hier = {"key": t(key, np.int64), "tid": t(tid, np.int64),
+            "limit": t(limit, np.int64),
+            "weight": t(rng.integers(1, 6, size=T + 1), np.int64)}
+    return sc.Cascade(hier, h2, n, t(cnt, np.int32), t(cnt // 3, np.int32),
+                      t(rng.integers(-3, 40, size=T + 1), np.int32),
+                      torch.tensor(0.377, dtype=torch.float32, device=dev))
+
+
+def tail_calls(sc, totals, cur, front, h1, h2, n, hh, thresh, period,
+               casc=None) -> dict:
+    """The two backs' side-table builds with the side table's update as
+    their tail on one batch: {name: (kernel call, plain call, the parent's
+    form: the same build without the tail, then the standalone
+    ``hh_update``, and the build without the tail alone)}. ``front`` is
+    the front's (plain) output on the batch; ``casc`` (a ``Cascade``)
+    picks the cascade builds. Each call returns every output, the sketch
+    slabs it wrote (``add_back``), every ``hh_*`` tensor and the scope
+    counters, and works on its own copies of them, made here; it first
+    puts their owners and scope counters back (``restorer``), so that
+    every call admits and claims what the first did. A fifth element,
+    that restore alone, is the timed calls' baseline."""
+    _, _, est, _, avail, n_f, (mine, _, _) = front
+    up_kw = dict(thresh=thresh, period=period)
+
+    def copies():
+        c = None if casc is None else casc._replace(
+            counts=casc.counts.clone(), cur=casc.cur.clone())
+        return ({k: v.clone() for k, v in hh.items()}, c, totals.clone(),
+                cur.clone())
+
+    def scope(c):
+        return [] if c is None else [c.counts, c.cur]
+
+    def admit(form):
+        st, c, _, _ = copies()
+        fresh = restorer(h1, st, c)
+
+        def call():
+            fresh()
+            if form == "fused":
+                out = sc.window_admit(h1, est, n_f, avail, ITERS, mine, c,
+                                      hh=sc.SideUpdate(st, thresh, period),
+                                      h2=h2, n=n)
+            elif form == "plain":
+                out = sc.window_admit_plain(h1, est, n_f, avail, ITERS, mine,
+                                            c)
+                sc.hh_update_plain(st, h1, h2, n, out[1], mine, out[3],
+                                   **up_kw)
+            else:
+                out = sc.window_admit(h1, est, n_f, avail, ITERS, mine, c)
+                if form == "parent":
+                    sc.hh_update(st, h1, h2, n, out[1], mine, out[3],
+                                 **up_kw)
+            return [*out, *st.values(), *scope(c)]
+        return call, fresh
+
+    def back(form):
+        st, c, t, u = copies()
+        fresh = restorer(h1, st, c)
+
+        def call():
+            fresh()
+            if form == "fused":
+                out = sc.add_back(t, u, h1, h2, n, n_f, avail, ITERS, est,
+                                  mine, c,
+                                  hh=sc.SideUpdate(st, thresh, period))
+            elif form == "plain":
+                out = sc.add_back_plain(t, u, h1, h2, n, n_f, avail, ITERS,
+                                        est, mine, c)
+                sc.hh_update_plain(st, h1, h2, n, out[0], mine, out[2],
+                                   **up_kw)
+            else:
+                out = sc.add_back(t, u, h1, h2, n, n_f, avail, ITERS, est,
+                                  mine, c)
+                if form == "parent":
+                    sc.hh_update(st, h1, h2, n, out[0], mine, out[2],
+                                 **up_kw)
+            return [*out, t, u, *st.values(), *scope(c)]
+        return call, fresh
+
+    def forms(make):
+        calls = [make(f) for f in ("fused", "plain", "parent", "no tail")]
+        return (*(call for call, _ in calls), calls[0][1])
+
+    flag = " [cascade, tail]" if casc is not None else " [tail]"
+    return {f"window_admit{flag}": forms(admit),
+            f"add_back{flag}": forms(back)}
+
+
+def reset_bytes(B: int, d: int, hh: bool, weighted: bool) -> int:
+    """The bytes a reset of B keys must move: each key's h1 and h2; its d
+    cells of totals and cur read once and written once (the estimate
+    reads the same totals cell the subtraction writes), and of the
+    boundary read; the boundary's period; with the side table its slot's
+    owner read, its hh_totals and hh_cur cells read once and written once,
+    and its boundary cell read."""
+    boundary = 4 if weighted else 0
+    per = 16 + d * (16 + boundary)
+    if hh:
+        per += 8 + 16 + boundary
+    return B * per + (8 if weighted else 0)
+
+
+def check_reset(torch, seed: int) -> dict:
+    """The reset kernel (``window_reset``) against its plain version
+    (``window_reset_plain``: the front's estimate-only form, floor,
+    ``add_update``) on a config-3 state: sliding (a valid boundary) and
+    fixed, without a side table and with K = 256 and 2^22 slots (a third
+    of the keys owned), on batches of 1 key (the limiter's reset), 0, 6
+    keys of which two share a column, ``RESET_CAPACITY`` and the next
+    size above it (composed: ``window_front`` then ``add_update``; the
+    launch counts must show it); every slab and ``hh_*`` tensor
+    bit-equal. A kernel row: one key with the side table (the side-table
+    path's reset), beside the plain version, the composed form (the
+    parent's reset: the front's kernel, the floors and one or two
+    ``add_update`` kernels) and the same without the side table."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+
+    rng = np.random.default_rng(seed + 53)
+    totals, boundary, cur, _ = window_state(torch, rng)
+    period = int(T0 * 1e6) // (int(WINDOW_S * 1e6) // SUB_WINDOWS)
+    err = {"window_reset": 0.0}
+    timed = {}
+    for K in (0, HH_SLOTS, HH_SLOTS_MAX):
+        for label, B in (("one key", 1), ("empty", 0), ("shared column", 6),
+                         ("capacity", sc.RESET_CAPACITY),
+                         ("above capacity", sc.RESET_CAPACITY + 1)):
+            h1, h2 = device_keys(torch, zipf_ids(rng, max(B, 1)))
+            h1, h2 = h1[:B].contiguous(), h2[:B].contiguous()
+            if B == 6:
+                h1[1] = h1[0]      # row 0: one column, two keys
+            hh = side_state(torch, rng, h1, K) if K else None
+            for weighted in (True, False):
+                bnd = ring_boundary(torch, boundary) if weighted else None
+
+                def run(fn, composed=False):
+                    # Copies of what a reset writes (the side table's
+                    # ring is only read: its boundary column).
+                    t, c = totals.clone(), cur.clone()
+                    g = None if hh is None else {
+                        k: hh[k].clone() for k in ("hh_owner", "hh_totals",
+                                                   "hh_cur")}
+                    side = None if g is None else sc.SideTable(
+                        g["hh_owner"], g["hh_totals"],
+                        hh["hh_slabs"][period % SUB_WINDOWS]
+                        if weighted else None)
+                    k1, k2 = h1, h2
+                    kw = dict(boundary=bnd, hh=side,
+                              hh_cur=None if g is None else g["hh_cur"])
+
+                    def call():
+                        if composed:
+                            sc._reset(sc.window_front, sc.add_update, t, c,
+                                      k1, k2, kw["boundary"], side,
+                                      kw["hh_cur"])
+                        else:
+                            fn(t, c, k1, k2, **kw)
+                        return [t, c] + ([] if g is None
+                                         else list(g.values()))
+                    return call
+
+                sc.reset_launch_counts()
+                got = run(sc.window_reset)()
+                want = run(sc.window_reset_plain)()
+                for a, b in zip(got, want):
+                    hold_equal(torch, err, "window_reset", a, b)
+                counts = sc.launch_counts()
+                fused = B <= sc.RESET_CAPACITY
+                want_counts = {"window_reset": int(fused),
+                               "window_estimate": int(not fused),
+                               "add_update": 0 if fused else 1 + bool(K)}
+                if any(counts[k] != v for k, v in want_counts.items()):
+                    raise AssertionError(f"window_reset at K={K}, B={B}: "
+                                         f"launch counts {counts}, expected "
+                                         f"{want_counts}")
+                if B == 1 and weighted:
+                    timed[K] = (run(sc.window_reset),
+                                run(sc.window_reset_plain),
+                                run(None, composed=True))
+            log(f"kernels: window_reset bit-equal to plain at K={K} on the "
+                f"{label} batch (B={B}), sliding and fixed")
+    # In turns: composed, kernel, kernel, composed; with the side table,
+    # then without.
+    kern, plain, composed = timed[HH_SLOTS]
+    comp = [device_ms(composed, torch)]
+    ms = [device_ms(kern, torch), device_ms(kern, torch)]
+    comp.append(device_ms(composed, torch))
+    row = kernel_row("window_reset", SOURCE, err["window_reset"], kern, plain,
+                     None, reset_bytes(1, DEPTH, True, True), 0, torch,
+                     ms=statistics.mean(ms))
+    row.update(ms_runs=ms, composed_ms=statistics.mean(comp),
+               composed_ms_runs=comp, K=HH_SLOTS,
+               form="one key, sliding, side table (the side-table reset)")
+    kern, plain, composed = timed[0]
+    comp0 = [device_ms(composed, torch)]
+    ms0 = [device_ms(kern, torch), device_ms(kern, torch)]
+    comp0.append(device_ms(composed, torch))
+    row["without_side_table"] = {
+        "ms": statistics.mean(ms0), "ms_runs": ms0,
+        "composed_ms": statistics.mean(comp0), "composed_ms_runs": comp0,
+        "plain_ms": device_ms(plain, torch),
+        "bound_ms": reset_bytes(1, DEPTH, False, True) / HBM_BYTES_PER_S
+        * 1e3}
+    log(f"time window_reset [one key, K={HH_SLOTS}]: kernel {ms[0] * 1e3:.2f}"
+        f" / {ms[1] * 1e3:.2f} us, composed {comp[0] * 1e3:.2f} / "
+        f"{comp[1] * 1e3:.2f} us; without the side table kernel "
+        f"{ms0[0] * 1e3:.2f} / {ms0[1] * 1e3:.2f} us, composed "
+        f"{comp0[0] * 1e3:.2f} / {comp0[1] * 1e3:.2f} us")
+    return {"window_reset": row}
+
+
 def check_side_table(torch, seed: int) -> dict:
-    """The side table's four kernels against their plain versions at
-    config-3 shapes with K = 256 and 2^22 slots on every ``side_batches``
-    batch: ``window_front``, ``window_admit`` and ``add_back`` in their
-    side-table builds and ``hh_update``, every output and every slab and
-    ``hh_*`` tensor bit-equal; the launch counts must show the fused
-    backs up to ``ADMIT_CAPACITY`` keys, the composed ones above it, and
-    ``hh_update`` at every size. Times and bounds on the config-3 batch
-    (the side-table forms beside the rows of their kernels, hh_update a
-    row of its own). Launches made here do not count."""
+    """The side table's kernels against their plain versions at config-3
+    shapes with K = 256 and 2^22 slots on every ``side_batches`` batch:
+    ``window_front``, ``window_admit`` and ``add_back`` in their
+    side-table builds without the tail, the standalone ``hh_update``, and
+    every back build with the tail (``tail_calls``: ``window_admit`` and
+    ``add_back``, each with and without the cascade, on ``side_cascade``'s
+    tenants), every output and every slab, ``hh_*`` tensor and scope
+    counter bit-equal; the launch counts must show the fused backs (one
+    ``hh_update [fused]`` a back launch, no standalone ``hh_update``) up
+    to ``ADMIT_CAPACITY`` keys, and the composed ones (the standalone
+    ``hh_update`` after each) above it. Times and bounds on the config-3
+    batch (the side-table forms beside the rows of their kernels,
+    hh_update a row of its own; each build with the tail in turns with
+    the parent's form, the same build without the tail and then the
+    standalone hh_update, and with the build without the tail alone).
+    Launches made here do not count."""
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
     rng = np.random.default_rng(seed + 31)
@@ -1197,7 +1514,7 @@ def check_side_table(torch, seed: int) -> dict:
     thresh = max(1.0, LIMIT * 0.5)
     err = {"window_front": 0.0, "window_admit": 0.0, "add_back": 0.0,
            "hh_update": 0.0}
-    timed, info = {}, {}
+    timed, tails, info = {}, {}, {}
     for K in (HH_SLOTS, HH_SLOTS_MAX):
         batches = side_batches(rng, K)
         hh = side_state(torch, rng, batches["config3"][0], K)
@@ -1210,7 +1527,7 @@ def check_side_table(torch, seed: int) -> dict:
             calls, (est, allowed, mine, target_pr) = side_calls(
                 sc, totals, cur, bnd, side, h1, h2, n, hh, thresh, period)
             sc.reset_launch_counts()
-            for name, (kern, plain, _) in calls.items():
+            for name, (kern, plain, *_) in calls.items():
                 got, want = _flat(kern()), _flat(plain())
                 if len(got) != len(want):
                     raise AssertionError(f"{name}: outputs missing")
@@ -1220,30 +1537,69 @@ def check_side_table(torch, seed: int) -> dict:
             counts = sc.launch_counts()
             want_counts = {"window_estimate": 1, "admit": fused,
                            "add_back": fused, "add_update": 1,
-                           "hh_update": 1}
-            if any(counts[k] != v for k, v in want_counts.items()):
+                           "hh_update": 1, "hh_update [fused]": 0}
+            if any(counts.get(k, 0) != v for k, v in want_counts.items()):
                 raise AssertionError(f"side table at K={K}, B={B}: launch "
                                      f"counts {counts}, expected "
+                                     f"{want_counts}")
+            # The backs with the tail, without and with the cascade (an
+            # earlier checkout, timed with --rows, has no tail).
+            front = sc.window_front_plain(totals, (h1, h2), n, boundary=bnd,
+                                          limit=LIMIT, hh=side)
+            casc = side_cascade(torch, rng, h1, h2, n)
+            with_tail = {} if not hasattr(sc, "SideUpdate") else {
+                **tail_calls(sc, totals, cur, front, h1, h2, n, hh, thresh,
+                             period),
+                **tail_calls(sc, totals, cur, front, h1, h2, n, hh, thresh,
+                             period, casc)}
+            sc.reset_launch_counts()
+            for name, (kern, plain, *_) in with_tail.items():
+                err.setdefault(name, 0.0)
+                got, want = kern(), plain()
+                if len(got) != len(want):
+                    raise AssertionError(f"{name}: outputs missing")
+                for a, b in zip(got, want):
+                    hold_equal(torch, err, name, a, b)
+            counts = sc.launch_counts()
+            want_counts = {"admit": fused, "admit [cascade]": fused,
+                           "add_back": fused, "add_back [cascade]": fused,
+                           "hh_update [fused]": 4 * fused,
+                           "hh_update": 4 * (1 - fused),
+                           # The fused add_back builds or the standalone.
+                           "add_update": 2}
+            if with_tail and any(counts[k] != v
+                                 for k, v in want_counts.items()):
+                raise AssertionError(f"backs with the tail at K={K}, B={B}: "
+                                     f"launch counts {counts}, expected "
                                      f"{want_counts}")
             plain_hh = {k: v.clone() for k, v in hh.items()}
             sc.hh_update_plain(plain_hh, h1, h2, n, allowed, mine,
                                target_pr, thresh=thresh, period=period)
             changed = {k: int((plain_hh[k] != hh[k]).sum())
                        for k in ("hh_owner", "hh_cur", "hh_last")}
+            # Candidates: requests of unowned keys at a free slot whose
+            # target reaches the threshold (each claims by a max).
+            cand = ~mine & (hh["hh_owner"][h1 & (K - 1)] == 0) & (
+                target_pr >= float(np.float32(thresh)))
             info[f"K={K} {label}"] = {
                 "batch": B, "form": "fused" if fused else "composed",
                 "owned": int(mine.sum()), "allowed": int(allowed.sum()),
                 "slots_named": int(torch.unique(h1 & (K - 1)).numel()),
+                "candidates": int(cand.sum()),
                 "claimed": changed["hh_owner"], "counted": changed["hh_cur"],
                 "touched": changed["hh_last"]}
             log(f"kernels: the side table's window_front, window_admit, "
-                f"add_back and hh_update bit-equal to plain at K={K} on the "
-                f"{label} batch (B={B}, {info[f'K={K} {label}']})")
+                f"add_back, hh_update and the four back builds with the "
+                f"tail bit-equal to plain at K={K} on the {label} batch "
+                f"(B={B}, {info[f'K={K} {label}']})")
             if label == "config3":
                 timed[K] = (calls, dict(info[f"K={K} {label}"],
                                         keys=(h1, h2),
                                         written=allowed & ~mine & (n > 0)),
                             B)
+                tails[K] = with_tail
+                if K == HH_SLOTS:
+                    casc3 = casc
     rows = {}
     calls, bi, B = timed[HH_SLOTS]
     slots = bi["slots_named"]
@@ -1253,6 +1609,13 @@ def check_side_table(torch, seed: int) -> dict:
     written = bi.pop("written")
     reached = sum(int(torch.unique(cols[r][written]).numel())
                   for r in range(DEPTH))
+    # hh_update's bytes: each key's h1, h2, n, allowed, mine and
+    # target_pr once; the owner read at each named slot, hh_last written
+    # where touched, hh_cur and hh_totals read and written where counted,
+    # the owner pair written where claimed.
+    hh_state = (slots * 8 + bi["touched"] * 8 + bi["counted"] * 16
+                + bi["claimed"] * 16)
+    hh_bytes = B * (8 + 8 + 4 + 1 + 1 + 4) + hh_state
     # Each form's bytes, its side-table part last: the front (halves and
     # n in; est, avail, n_f out; totals and boundary per touched cell;
     # the slot's owner, total and boundary per named slot; mine, est_cms,
@@ -1285,21 +1648,75 @@ def check_side_table(torch, seed: int) -> dict:
             f"{ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us, without the side "
             f"table {base_ms[0] * 1e3:.2f} / {base_ms[1] * 1e3:.2f} us, "
             f"plain {plain_ms * 1e3:.2f} us")
-    # hh_update: each key's h1, h2, n, allowed, mine and target_pr once;
-    # the owner read at each named slot, hh_last written where touched,
-    # hh_cur and hh_totals read and written where counted, the owner pair
-    # written where claimed.
-    nbytes = (B * (8 + 8 + 4 + 1 + 1 + 4) + slots * 8 + bi["touched"] * 8
-              + bi["counted"] * 16 + bi["claimed"] * 16)
-    kern, plain, _ = calls["hh_update"]
+    # The backs with the tail: in turns, the parent's form (the build
+    # without the tail, then the standalone hh_update), the build without
+    # the tail alone, the build with it twice, then the other two again;
+    # every call puts the owners and scope counters back first, and that
+    # restore, timed before and after, is taken off each time. The tail
+    # reads from memory only what its back did not: the table's state
+    # (hh_state), and window_admit's h2 and n (add_back reads both, and
+    # allowed, mine and target_pr stay in the block). A cascade build
+    # also reads its map and scopes and writes its counters.
+    tail_only = {"window_admit": B * (8 + 4) + hh_state,
+                 "add_back": hh_state}
+    scope_bytes = (sum(t.numel() * t.element_size()
+                       for t in (*casc3.hier.values(), casc3.slab,
+                                 casc3.frac))
+                   + 2 * sum(t.numel() * t.element_size()
+                             for t in (casc3.counts, casc3.cur)))
+    tail_rows = {}
+    for K, forms in tails.items():
+        for name, (kern, plain, parent, alone, fresh) in forms.items():
+            if K != HH_SLOTS and "cascade" in name:
+                continue
+            r_ms = [device_ms(fresh, torch)]
+            p_ms, a_ms = [device_ms(parent, torch)], [device_ms(alone, torch)]
+            ms = [device_ms(kern, torch), device_ms(kern, torch)]
+            a_ms.append(device_ms(alone, torch))
+            p_ms.append(device_ms(parent, torch))
+            r_ms.append(device_ms(fresh, torch))
+            r = statistics.mean(r_ms)
+            base = "window_admit" if name.startswith("window_admit") else (
+                "add_back")
+            nbytes = side_bytes[base] + tail_only[base] + (
+                scope_bytes if "cascade" in name else 0)
+            row = {"ms": statistics.mean(ms) - r, "ms_runs": ms,
+                   "parent_ms": statistics.mean(p_ms) - r,
+                   "parent_ms_runs": p_ms,
+                   "without_tail_ms": statistics.mean(a_ms) - r,
+                   "without_tail_ms_runs": a_ms,
+                   "restore_ms": r, "restore_ms_runs": r_ms,
+                   "tail_excess_ms": statistics.mean(ms)
+                   - statistics.mean(a_ms), "K": K,
+                   "max_abs_err": err[name], "bound_by": "bytes"}
+            if K == HH_SLOTS:
+                row.update(plain_ms=device_ms(plain, torch) - r, bytes=nbytes,
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+            tail_rows[f"{name} K={K}"] = row
+            log(f"time {name} [K={K}, restore {r * 1e3:.2f} us taken off]: "
+                f"with the tail {(ms[0] - r) * 1e3:.2f} / "
+                f"{(ms[1] - r) * 1e3:.2f} us, without it "
+                f"{(a_ms[0] - r) * 1e3:.2f} / {(a_ms[1] - r) * 1e3:.2f} us "
+                f"(excess {row['tail_excess_ms'] * 1e3:.2f} us), parent's "
+                f"form (+ standalone hh_update) {(p_ms[0] - r) * 1e3:.2f} / "
+                f"{(p_ms[1] - r) * 1e3:.2f} us")
+    # The standalone hh_update, each call on restored owners, less the
+    # restore alone.
+    kern, plain, _, fresh = calls["hh_update"]
+    r = device_ms(fresh, torch)
     row = kernel_row("hh_update", SOURCE, err["hh_update"], kern, plain,
-                     None, nbytes, B * 12, torch)
-    row.update(K=HH_SLOTS, batch_info=info)
-    kern, plain, _ = timed[HH_SLOTS_MAX][0]["hh_update"]
-    row[f"K={HH_SLOTS_MAX}"] = {"ms": device_ms(kern, torch),
-                                "plain_ms": device_ms(plain, torch)}
-    log(f"time hh_update [K={HH_SLOTS_MAX}]: kernel "
-        f"{row[f'K={HH_SLOTS_MAX}']['ms'] * 1e3:.2f} us, plain "
+                     None, hh_bytes, B * 12, torch,
+                     ms=device_ms(kern, torch) - r)
+    row["plain_ms"] -= r
+    row.update(K=HH_SLOTS, batch_info=info, tails=tail_rows, restore_ms=r,
+               candidates=bi["candidates"], claimed=bi["claimed"])
+    kern, plain, _, fresh = timed[HH_SLOTS_MAX][0]["hh_update"]
+    r = device_ms(fresh, torch)
+    row[f"K={HH_SLOTS_MAX}"] = {"ms": device_ms(kern, torch) - r,
+                                "plain_ms": device_ms(plain, torch) - r,
+                                "restore_ms": r}
+    log(f"time hh_update [K={HH_SLOTS_MAX}, restore {r * 1e3:.2f} us taken "
+        f"off]: kernel {row[f'K={HH_SLOTS_MAX}']['ms'] * 1e3:.2f} us, plain "
         f"{row[f'K={HH_SLOTS_MAX}']['plain_ms'] * 1e3:.2f} us")
     return {"hh_update": row, "side_forms": rows}
 
@@ -2123,6 +2540,16 @@ def check_path(torch, name: str, cfg, batches, keys, advance: float,
         if counts.get(k, 0) == 0 and (strict or k in counts):
             raise AssertionError(f"{name}: {k} was not launched on the main "
                                  f"path")
+    if "window_reset" in counts:
+        # A windowed path: the trace's one reset is one window_reset
+        # launch, and every batch fits one back launch, so no standalone
+        # add_update ran (neither a composed back nor a composed reset).
+        standalone = (counts["add_update"] - counts["add_back"]
+                      - counts["add_back [cascade]"])
+        if counts["window_reset"] != 1 or standalone:
+            raise AssertionError(f"{name}: {counts['window_reset']} "
+                                 f"window_reset launches for one reset, "
+                                 f"{standalone} standalone add_update")
     denied = sum(int((~r.allowed).sum()) for r in got)
     # The same trace again on fresh limiters, for the spread of the rate.
     walls = [wall]
@@ -2162,8 +2589,9 @@ def check_main_path(torch, seed: int, steps: int, cu: bool,
     batches, keys = _trace(seed, steps)
     out = check_path(torch, f"windowed cu={cu}", config3(cu=cu), batches,
                      keys, 0.1, [sc],
-                     ("window_estimate", "admit", "cu_update") if cu
-                     else ("window_estimate", "add_back"),
+                     ("window_estimate", "admit", "cu_update", "window_reset")
+                     if cu else ("window_estimate", "add_back",
+                                 "window_reset"),
                      ("cur", "slabs", "totals", "slab_period", "last_period"),
                      strict)
     sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
@@ -2180,14 +2608,17 @@ def check_main_path(torch, seed: int, steps: int, cu: bool,
 HOT_KEY = "user:hot"
 
 
-def check_hh_path(torch, seed: int, steps: int, cu: bool) -> dict:
+def check_hh_path(torch, seed: int, steps: int, cu: bool,
+                  strict: bool = True) -> dict:
     """The side-table path (config 3 with 256 slots, ``config3_hh``) end
     to end against the CPU on config-3 traffic, with an override, a
     reset of a promoted key halfway and a 61 s jump at three quarters
     (every owner idles out at the next rollover, then hot keys promote
     again): every result and every state array, ``hh_*`` included,
     bit-identical. Every kernel of the path must have launched, with an
-    admission launch per update (no plain version ran on the card)."""
+    admission launch per update (no plain version ran on the card), the
+    side table's update the tail of every back launch (no standalone
+    hh_update) and the reset one window_reset launch."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
     from ratelimiter_tpu_torch.ops.hashing import split_hash
@@ -2208,22 +2639,36 @@ def check_hh_path(torch, seed: int, steps: int, cu: bool) -> dict:
         raise AssertionError(f"{HOT_KEY} is not promoted before its reset")
     out = check_path(
         torch, f"windowed cu={cu} hh_slots={HH_SLOTS}", cfg, batches, keys,
-        0.1, [sc], ("window_estimate", "admit", "cu_update", "hh_update")
-        if cu else ("window_estimate", "add_back", "hh_update"),
-        WINDOW_STATE + HH_STATE, drive_kw=drive_kw)
-    counts = out["counts"]
-    # The reset's two standalone add_update launches (the sketch's part
-    # and the cell's) and its front are the only launches besides steps.
-    fused = (counts["admit"] == counts["cu_update"] if cu else True)
-    if (not fused or counts["add_update"] - counts["add_back"] != 2
-            or counts["hh_update"] != counts["window_estimate"] - 1):
-        raise AssertionError(f"side-table path: launch counts {counts} "
-                             f"(a composed back, or a step without "
-                             f"hh_update)")
+        0.1, [sc], ("window_estimate", "admit", "cu_update",
+                    "hh_update [fused]", "window_reset")
+        if cu else ("window_estimate", "add_back", "hh_update [fused]",
+                    "window_reset"),
+        WINDOW_STATE + HH_STATE, strict=strict, drive_kw=drive_kw)
+    if strict or "hh_update [fused]" in out["counts"]:
+        hold_tails(f"side-table path cu={cu}", out["counts"])
     log(f"side table: {HOT_KEY} promoted before its reset; consumers "
         f"tracked at the end {out['consumer_stats']['occupied']}, top "
         f"{[c['in_window'] for c in out['consumer_stats']['top']]}")
     return out
+
+
+def hold_tails(name: str, counts: dict) -> None:
+    """A side-table path's launch counts: every step one front, one back
+    launch (one admission per ``cu_update`` on the CU path) carrying the
+    side table's update as its tail, no standalone ``hh_update`` (every
+    batch is at most ADMIT_CAPACITY keys); the reset is one
+    ``window_reset`` launch and adds no front (``check_path`` holds the
+    reset itself)."""
+    backs = (counts["admit"] + counts["admit [cascade]"]
+             + counts["add_back"] + counts["add_back [cascade]"])
+    cu_ok = counts["cu_update"] in (0, counts["admit"]
+                                    + counts["admit [cascade]"])
+    if (counts["hh_update"] or not cu_ok
+            or counts["hh_update [fused]"] != backs
+            or counts["window_estimate"] != backs):
+        raise AssertionError(f"{name}: launch counts {counts} (a composed "
+                             f"back, a standalone hh_update, or a back "
+                             f"without its tail)")
 
 
 def check_bucket_path(torch, seed: int, cell: str, steps: int,
@@ -2340,11 +2785,13 @@ def check_tenant_path(torch, seed: int, label: str, base,
             (update,) if cu else ())
         if base.sketch.hh_slots:
             state += HH_STATE
-            required += ("hh_update",)
+            required += ("hh_update [fused]",)
     out = check_path(torch, f"{label} tenants={TENANTS}",
                      with_tenants(base), batches, keys, advance, counters,
                      required, state, drive_kw=drive_kw, setup=boot_tenants)
     counts = out["counts"]
+    if not bucket and base.sketch.hh_slots:
+        hold_tails(f"{label} tenants", counts)
     if counts[back] or (update is not None and counts[f"{back} [cascade]"]
                         != counts[update]):
         raise AssertionError(f"{label} tenants: {counts[back]} {back} "
@@ -3219,10 +3666,16 @@ def check_live_updates(torch, seed: int) -> dict:
                           tb_keys, LIVE_PLAN_TB, C2_ADVANCE, BUCKET_STATE)
     torch.cuda.synchronize()
     counts = {"windowed": sc.launch_counts(), "bucket": bc.launch_counts()}
-    for k in ("window_estimate", "admit", "cu_update", "add_update",
-              "hh_update"):
+    for k in ("window_estimate", "admit", "cu_update", "window_reset",
+              "hh_update [fused]"):
         if counts["windowed"][k] == 0:
             raise AssertionError(f"live config 3: {k} was not launched")
+    # The resets are window_reset launches and the side table's update
+    # the backs' tail: no standalone add_update or hh_update.
+    for k in ("add_update", "hh_update"):
+        if counts["windowed"][k]:
+            raise AssertionError(f"live config 3: {counts['windowed'][k]} "
+                                 f"standalone {k} launches")
     for k in ("bucket_estimate", "admit", "bucket_update"):
         if counts["bucket"][k] == 0:
             raise AssertionError(f"live TB-c2: {k} was not launched")
@@ -4247,10 +4700,13 @@ def check_above_capacity(torch, seed: int) -> dict:
     each dense algorithm (``create_limiter(cfg, "dense")``, config 3's
     limit and window over 2^20 slots, string keys Zipf(1.1) over 5,000 so
     that slots contend; the plain step on the card: one composed step, no
-    launch) and for the tenant deployment on the windowed CU sketch and on
-    TB-c2 (the front and the standalone update launched, no admission
-    launch: the plain admission and cascade on the card). Each result and
-    the state equal to a CPU replay of the same batch."""
+    launch) and for the tenant deployment on the windowed CU sketch, on
+    it with the side table (256 slots), on the windowed vanilla sketch and
+    on TB-c2 (the front and the standalone update launched, no admission
+    launch: the plain admission and cascade on the card; with the side
+    table the standalone ``hh_update`` after them, no tail; on the
+    vanilla sketch the standalone ``add_update``). Each result and the
+    state equal to a CPU replay of the same batch."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
     from ratelimiter_tpu_torch.ops import bucket_cuda, dense_cuda, sketch_cuda
 
@@ -4284,6 +4740,12 @@ def check_above_capacity(torch, seed: int) -> dict:
     for label, cfg, module, want_counts, state in (
             ("windowed CU", config3(), sketch_cuda,
              {"window_estimate": 1, "cu_update": 1}, WINDOW_STATE + TN_STATE),
+            (f"windowed CU hh_slots={HH_SLOTS}", config3_hh(), sketch_cuda,
+             {"window_estimate": 1, "cu_update": 1, "hh_update": 1},
+             WINDOW_STATE + TN_STATE + HH_STATE),
+            ("windowed vanilla", config3(cu=False), sketch_cuda,
+             {"window_estimate": 1, "add_update": 1},
+             WINDOW_STATE + TN_STATE),
             ("TB-c2", config2_bucket(), bucket_cuda,
              {"bucket_estimate": 1, "bucket_update": 1},
              BUCKET_STATE + BUCKET_TN_STATE)):
@@ -5165,7 +5627,9 @@ def main(argv=None) -> int:
         rows = check_kernels(torch, args.seed)
         rows.update(check_bucket_kernels(torch, args.seed))
         rows.update(check_backs(torch, args.seed))
-        rows["side_forms"] = check_side_table(torch, args.seed)["side_forms"]
+        side = check_side_table(torch, args.seed)
+        rows.update(hh_update=side["hh_update"],
+                    side_forms=side["side_forms"])
         print(json.dumps({"card": card, "rows": rows}))
         print(card)
         return 0
@@ -5176,6 +5640,7 @@ def main(argv=None) -> int:
         rows.update(check_backs(torch, args.seed))
         side = check_side_table(torch, args.seed)
         rows["hh_update"] = side["hh_update"]
+        rows.update(check_reset(torch, args.seed))
         for name, row in (("window_front", "window_estimate"),
                           ("window_admit", "window_admit"),
                           ("add_back", "add_back")):
@@ -5214,20 +5679,22 @@ def main(argv=None) -> int:
             if p["sort_or_scan_ops"]:
                 raise AssertionError(f"{label}: the plain admission still "
                                      f"runs: {p['sort_or_scan_ops']}")
+    cu_hh = check_hh_path(torch, args.seed, args.steps, cu=True,
+                          strict=strict)
+    vanilla_hh = check_hh_path(torch, args.seed + 7,
+                               max(32, args.steps // 2), cu=False,
+                               strict=strict)
+    paths.update(cu_hh=cu_hh, vanilla_hh=vanilla_hh)
     if args.paths:
         print(json.dumps({"main_path": paths}))
         print(card)
         return 0
-    cu_hh = check_hh_path(torch, args.seed, args.steps, cu=True)
-    vanilla_hh = check_hh_path(torch, args.seed + 7,
-                               max(32, args.steps // 2), cu=False)
     prof_hh = profile_path(torch, f"windowed cu=True hh_slots={HH_SLOTS}",
                            config3_hh(), batches, keys, 0.1)
     if prof_hh["sort_or_scan_ops"]:
         raise AssertionError(f"side-table path: the plain admission still "
                              f"runs: {prof_hh['sort_or_scan_ops']}")
-    paths.update({"cu_hh": cu_hh, "vanilla_hh": vanilla_hh,
-                  "profile_hh": prof_hh})
+    paths["profile_hh"] = prof_hh
     cu_tn = check_tenant_path(torch, args.seed + 61, "windowed CU",
                               config3(), profile=True)
     vanilla_tn = check_tenant_path(torch, args.seed + 67,
@@ -5255,7 +5722,7 @@ def main(argv=None) -> int:
     door_cu = check_door(
         torch, config3(), "windowed CU", seed=args.seed + 17,
         counters=[sketch_cuda],
-        required=("window_estimate", "admit", "cu_update"),
+        required=("window_estimate", "admit", "cu_update", "window_reset"),
         same=("admit", "cu_update"))
     door_tb = check_door(
         torch, config2_bucket(), "TB-c2", seed=args.seed + 19, space="c2",
@@ -5265,8 +5732,10 @@ def main(argv=None) -> int:
     door_hh = check_door(
         torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
         seed=args.seed + 37, counters=[sketch_cuda],
-        required=("window_estimate", "admit", "cu_update", "hh_update"),
+        required=("window_estimate", "admit", "cu_update",
+                  "hh_update [fused]", "window_reset"),
         same=("admit", "cu_update"))
+    hold_tails("door with the side table", door_hh["counts"])
     door_tn = check_door(
         torch, with_tenants(config3()), f"windowed CU tenants={TENANTS}",
         seed=args.seed + 43, space="tenants", counters=[sketch_cuda],
@@ -5308,6 +5777,13 @@ def main(argv=None) -> int:
         f"{durable['frame_ms_during_snapshot']:.2f} ms against "
         f"{durable['frame_ms_alone']:.2f} ms alone")
     ev_windowed, ev_bucket = eval_runs(eval_path)
+    windowed_runs = (cu, vanilla, cu_hh, vanilla_hh, cu_tn, vanilla_tn,
+                     hh_tn, door_cu, door_hh, door_tn, live["windowed"],
+                     watch, *ev_windowed, above["tenants windowed CU"],
+                     above[f"tenants windowed CU hh_slots={HH_SLOTS}"],
+                     above["tenants windowed vanilla"])
+    bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
+                   *ev_bucket, above["tenants TB-c2"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -5315,10 +5791,10 @@ def main(argv=None) -> int:
                                             door_dense))
             continue
         rows[name]["launches"] = row_launches(
-            name, (cu, vanilla, cu_hh, vanilla_hh, cu_tn, vanilla_tn,
-                   hh_tn, door_cu, door_hh, door_tn, live["windowed"],
-                   watch, *ev_windowed),
-            (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"], *ev_bucket))
+            name, windowed_runs, bucket_runs)
+    # The side table's update ran as the backs' tail on every path.
+    rows["hh_update"]["fused_launches"] = row_launches(
+        "hh_update [fused]", windowed_runs, bucket_runs)
     paths["live"] = live
     paths["watchdog"] = watch
     paths["durable_door"] = durable

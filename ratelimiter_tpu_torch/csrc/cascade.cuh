@@ -286,22 +286,30 @@ inline bool valid(const Args& c) {
 // The launch of a cascade build with its shared memory, at admit.cuh's
 // shapes up to 4096 requests and at 512 threads x 16 above (admit.cuh's
 // 1024 x 8 leaves 64 registers a thread, and the cascade builds spill
-// there; 512 x 16 leaves 128 for twice the items).
-template <class Kernel, class A>
-int launch(const A& a, cudaStream_t stream) {
+// there; 512 x 16 leaves 128 for twice the items). ``more(S())``: the
+// bytes the kernel needs beyond admit.cuh's storage at shape S, when
+// more than the cascade's (the side table's tail, sketch_kernels.cu).
+template <class Kernel, class A, class More>
+int launch(const A& a, cudaStream_t stream, More more) {
   using Q = typename Kernel::Q;
   if (a.B < 0 || a.B > rl_admit::kMaxCapacity || a.iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int T = a.casc.T, P = a.casc.P;
   auto go = [&](auto shape) {
     using S = decltype(shape);
+    const size_t extra = extra_bytes<S>(T, P), tail = more(shape);
     return rl_admit::launch_block<S>(Kernel::template fn<S>(), a, stream,
-                                     extra_bytes<S>(T, P));
+                                     extra > tail ? extra : tail);
   };
   if (a.B <= 256) return go(rl_admit::Shape<64, 4, Q>());
   if (a.B <= 1024) return go(rl_admit::Shape<256, 4, Q>());
   if (a.B <= 4096) return go(rl_admit::Shape<512, 8, Q>());
   return go(rl_admit::Shape<512, 16, Q>());
+}
+
+template <class Kernel, class A>
+int launch(const A& a, cudaStream_t stream) {
+  return launch<Kernel>(a, stream, [](auto) { return size_t(0); });
 }
 
 // At kernel entry, before stage 1: thread 0 starts the map's copy into

@@ -10,21 +10,29 @@
 //   add_back         <- add_update / _add_update_kernel, with the step's
 //                       admission (ops/segment.admit), add amounts and
 //                       remaining around it: the vanilla step's back
-//   add_update       <- add_update / _add_update_kernel alone (the reset,
-//                       and batches above the admission capacity)
+//   add_update       <- add_update / _add_update_kernel alone (batches
+//                       above the admission capacity, and resets of more
+//                       keys than one window_reset block takes)
+//   window_reset     <- the per-key reset's estimate and add_update
+//                       (ratelimiter_tpu/ops/sketch_kernels.py:539-593):
+//                       the front's estimate-only form, floored, then
+//                       subtracted, in one launch
 //   window_admit     <- the CU step's admission, targets and remaining
 //                       (ahead of cu_update; replaces no TPU kernel)
 //   hh_update        <- the heavy-hitter side table's update (owned
 //                       counts, promotion claims, idle clock), which the
 //                       reference computes with jnp ops
 //                       (ratelimiter_tpu/ops/sketch_kernels.py:487-532;
-//                       replaces no TPU kernel)
+//                       replaces no TPU kernel): hh.cuh's routine, run as
+//                       the tail of the backs' side-table builds, and
+//                       alone for the composed back above the capacity
 //
 // With the side table on (hh_slots > 0), window_front, add_back and
 // window_admit run a compile-time variant (a kHH template flag): the front
 // also reads each key's slot (mine = owner == h1; the owned part of the
-// estimate), the backs leave owned keys out of the sketch writes and
-// write the promotion targets. With the hierarchy cascade (tenants > 0),
+// estimate), the backs leave owned keys out of the sketch writes, write
+// the promotion targets and, given the table, run its update (hh.cuh) as
+// a tail after their batch-order loop. With the hierarchy cascade (tenants > 0),
 // add_back and window_admit run another (kCasc): cascade.cuh's routine in
 // the same block after admission, then everything after reads the final
 // mask and the scope counters take the histogram. The builds without the
@@ -82,6 +90,7 @@
 #include "admit.cuh"
 #include "cascade.cuh"
 #include "front.cuh"
+#include "hh.cuh"
 #include "tile_owner.cuh"
 
 namespace {
@@ -125,6 +134,74 @@ __device__ __forceinline__ float boundary_weight(const WindowFront& a,
   return held == a.want ? f : 0.0f;
 }
 
+// A key's estimate-side loads, issued together: its 2*d cells of totals
+// and the boundary, and with the side table its slot's owner, total and
+// boundary cell. The front and the reset share them and the fold below.
+template <int kRows>
+struct KeyCells {
+  int32_t t[kRows], b[kRows];
+  long long owner;
+  int32_t hh_t, hh_b;
+};
+
+template <int kDepth, bool kHH, int kRows>
+__device__ __forceinline__ void load_cells(const WindowFront& a, uint32_t h1,
+                                           uint32_t h2, KeyCells<kRows>& k) {
+  const bool weighted = a.boundary != nullptr;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d) {
+      const size_t c = rl_front::cell(h1, h2, r, a.w);
+      k.t[r] = __ldg(a.totals + c);
+      k.b[r] = weighted ? __ldg(a.boundary + c) : 0;
+    }
+  }
+  k.owner = 0;
+  k.hh_t = k.hh_b = 0;
+  if constexpr (kHH) {
+    const uint32_t sid = h1 & static_cast<uint32_t>(a.K - 1);
+    k.owner = __ldg(a.hh_owner + sid);
+    k.hh_t = __ldg(a.hh_totals + sid);
+    k.hh_b = weighted ? __ldg(a.hh_slab + sid) : 0;
+  }
+}
+
+// The estimate: the min over rows in row order, clamped at 0; with the
+// side table, plus the owned part where(mine, max(est_hh, 0), 0), est_hh
+// = fma(frac, f32(hh_b), f32(hh_t)) as XLA fuses it (f32(hh_t) in fixed
+// mode). ``est_cms`` and ``part`` are the two parts.
+template <int kDepth, bool kHH, int kRows>
+__device__ __forceinline__ float fold_cells(const WindowFront& a,
+                                            const KeyCells<kRows>& k,
+                                            float frac, uint32_t h1,
+                                            bool& mine, float& est_cms,
+                                            float& part) {
+  const bool weighted = a.boundary != nullptr;
+  float est = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    if (kDepth != 0 || r < a.d) {
+      const float tf = static_cast<float>(k.t[r]);
+      const float e =
+          weighted ? __fmaf_rn(frac, static_cast<float>(k.b[r]), tf) : tf;
+      est = r == 0 ? e : fminf(est, e);
+    }
+  }
+  est = est < 0.0f ? 0.0f : est;
+  est_cms = est;
+  mine = false;
+  part = 0.0f;
+  if constexpr (kHH) {
+    mine = k.owner == static_cast<long long>(h1);
+    const float tf = static_cast<float>(k.hh_t);
+    const float raw =
+        weighted ? __fmaf_rn(frac, static_cast<float>(k.hh_b), tf) : tf;
+    part = mine ? fmaxf(raw, 0.0f) : 0.0f;
+    est = est + part;
+  }
+  return est;
+}
+
 template <int kTable, int kDepth, bool kHH>
 __global__ void __launch_bounds__(rl_front::kMaxThreads)
     window_front_kernel(const WindowFront a) {
@@ -144,55 +221,24 @@ __global__ void __launch_bounds__(rl_front::kMaxThreads)
   uint32_t h1, h2;
   rl_front::halves(a.keys, i, h1, h2);
   // Every load is issued before the policy search and the fold: the 2*d
-  // cells, n and the boundary slab's period (which only the fold needs).
-  int32_t t[kRows], b[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (kDepth != 0 || r < a.d) {
-      const size_t c = rl_front::cell(h1, h2, r, a.w);
-      t[r] = __ldg(a.totals + c);
-      b[r] = weighted ? __ldg(a.boundary + c) : 0;
-    }
-  }
+  // cells and the key's slot, n and the boundary slab's period (which only
+  // the fold needs).
+  KeyCells<kRows> k;
+  load_cells<kDepth, kHH>(a, h1, h2, k);
   const int32_t n = a.n != nullptr ? __ldg(a.n + i) : 0;
   const long long held = weighted ? __ldg(a.slab_period + a.slot) : 0;
-  // The key's side-table slot, loaded with the cells.
-  long long owner = 0;
-  int32_t hh_t = 0, hh_b = 0;
-  if constexpr (kHH) {
-    const uint32_t sid = h1 & static_cast<uint32_t>(a.K - 1);
-    owner = __ldg(a.hh_owner + sid);
-    hh_t = __ldg(a.hh_totals + sid);
-    hh_b = weighted ? __ldg(a.hh_slab + sid) : 0;
-  }
   const long long lim =
       rl_front::policy_limit<kTable>(a.policy, keys, &bar, h1, h2);
   const float frac = weighted ? boundary_weight(a, held) : 0.0f;
   if (i == 0 && weighted) *a.frac = frac;
-  // Min over rows in row order, then the clamp at 0.
-  float est = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (kDepth != 0 || r < a.d) {
-      const float tf = static_cast<float>(t[r]);
-      const float e =
-          weighted ? __fmaf_rn(frac, static_cast<float>(b[r]), tf) : tf;
-      est = r == 0 ? e : fminf(est, e);
-    }
-  }
-  est = est < 0.0f ? 0.0f : est;
+  bool mine;
+  float est_cms, part;
+  const float est =
+      fold_cells<kDepth, kHH>(a, k, frac, h1, mine, est_cms, part);
   if constexpr (kHH) {
-    // est + where(mine, max(est_hh, 0), 0), est_hh = fma(frac, f32(hh_b),
-    // f32(hh_t)) as XLA fuses it (f32(hh_t) in fixed mode).
-    const bool mine = owner == static_cast<long long>(h1);
-    const float tf = static_cast<float>(hh_t);
-    const float raw =
-        weighted ? __fmaf_rn(frac, static_cast<float>(hh_b), tf) : tf;
-    const float part = mine ? fmaxf(raw, 0.0f) : 0.0f;
     a.mine[i] = mine;
-    a.est_cms[i] = est;
+    a.est_cms[i] = est_cms;
     a.est_hh[i] = part;
-    est = est + part;
   }
   a.est[i] = est;
   if (a.n != nullptr) {
@@ -305,6 +351,69 @@ __global__ void add_update_kernel(int32_t* __restrict__ totals,
   atomicAdd(cur + c, a);
 }
 
+// The per-key reset (rl_window_reset): ONE block, a thread a key. Each
+// key's estimate is the front's estimate-only form (load_cells,
+// boundary_weight, fold_cells: ops/sketch_kernels.py _sketch_reset read
+// it from window_front), floored to int32: the sketch's part (clamped at
+// 0) and, with the side table, the owned part. One barrier: every
+// estimate is read before any cell is written, as the reference's
+// histograms subtract estimates all read first (two reset keys may share
+// a column). Then each key's floor is subtracted at each row's cell of
+// totals and cur, and the owned part at its slot of hh_totals and hh_cur
+// (int32 atomics, wrapping).
+struct WindowReset {
+  WindowFront f;       // the estimate's operands, keys on the halves lane
+  int32_t* totals;     // f.totals, written after the barrier
+  int32_t* cur;
+  int32_t* hh_totals;  // kHH: f.hh_totals, written after the barrier
+  int32_t* hh_cur;
+};
+
+constexpr int kResetThreads = 1024;
+
+__device__ __forceinline__ int32_t negated(int32_t x) {
+  return static_cast<int32_t>(0u - static_cast<uint32_t>(x));
+}
+
+template <bool kHH>
+__global__ void __launch_bounds__(kResetThreads)
+    window_reset_kernel(const WindowReset a) {
+  const WindowFront& f = a.f;
+  const int i = threadIdx.x;
+  const bool key = i < f.B;
+  uint32_t h1 = 0, h2 = 0;
+  int32_t sub = 0, sub_hh = 0;
+  if (key) {
+    rl_front::halves(f.keys, i, h1, h2);
+    KeyCells<rl_front::kMaxDepth> k;
+    load_cells<0, kHH>(f, h1, h2, k);
+    const float frac = f.boundary != nullptr
+                           ? boundary_weight(f, __ldg(f.slab_period + f.slot))
+                           : 0.0f;
+    bool mine;
+    float est_cms, part;
+    const float est = fold_cells<0, kHH>(f, k, frac, h1, mine, est_cms, part);
+    sub = static_cast<int32_t>(floorf(kHH ? est_cms : est));
+    sub_hh = static_cast<int32_t>(floorf(part));
+  }
+  __syncthreads();
+  if (!key) return;
+  if (sub != 0) {
+    for (int r = 0; r < f.d; ++r) {
+      const size_t c = rl_front::cell(h1, h2, r, f.w);
+      atomicAdd(a.totals + c, negated(sub));
+      atomicAdd(a.cur + c, negated(sub));
+    }
+  }
+  if constexpr (kHH) {
+    if (sub_hh != 0) {
+      const uint32_t sid = h1 & static_cast<uint32_t>(f.K - 1);
+      atomicAdd(a.hh_totals + sid, negated(sub_hh));
+      atomicAdd(a.hh_cur + sid, negated(sub_hh));
+    }
+  }
+}
+
 // The vanilla step's back (rl_add_back): admission, then each key's
 // admitted amount scatter-added into totals and cur at each row's column,
 // and allowed and remaining.
@@ -322,7 +431,13 @@ struct AddBack {
   int32_t* remaining;
   float* target_pr;      // kHH: the promotion targets
   int B, d, w, iters;
+  rl_hh::Table hh;       // kHH: the side table for the tail (K = 0: none)
 };
+
+// A bool the launch only reads, through the read-only cache.
+__device__ __forceinline__ bool ldg_bool(const bool* p) {
+  return __ldg(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
 
 // int32(max(floor(seen - used), 0)), used = n_f where allowed else 0.
 __device__ __forceinline__ int32_t remaining_of(float seen, float used) {
@@ -342,6 +457,39 @@ __device__ __forceinline__ float post_batch(float est, float avail,
 template <class S, bool kCasc>
 using Items = std::conditional_t<kCasc, rl_admit::Packed<S::kItems>,
                                  rl_admit::Sorted<float, S::kItems>>;
+
+// Where a back's launch keeps the side-table tail's shared scratch: after
+// the results in batch order (tmp.u.out, at the start of the union, which
+// starts the storage), which the tail reads. Everything else of the
+// launch's shared memory is dead by the time the tail opens (hh.cuh).
+template <class S>
+__host__ __device__ constexpr size_t tail_offset() {
+  return rl_cascade::align16(
+      sizeof(std::declval<typename S::Storage&>().u.out));
+}
+
+// The tail's shared memory: its scratch (shared mode), then the
+// candidates' masses by batch index.
+template <class S>
+__device__ __forceinline__ rl_hh::Tail back_tail(const rl_hh::Table& t,
+                                                 unsigned char* smem) {
+  unsigned char* scratch = smem + tail_offset<S>();
+  return rl_hh::Tail(t, scratch,
+                     reinterpret_cast<uint32_t*>(
+                         scratch + rl_hh::scratch_bytes(t.K)));
+}
+
+// The bytes a back's launch at shape S needs beyond the admission's
+// storage for a tail over K slots (0: none): 0 where the union has room.
+template <class S>
+size_t tail_extra(int K) {
+  if (K == 0) return 0;
+  const size_t need = tail_offset<S>() + rl_hh::scratch_bytes(K) +
+                      rl_hh::mass_bytes(S::kCapacity);
+  if (need <= sizeof(typename S::Storage)) return 0;
+  const size_t have = rl_admit::storage_bytes<S>();
+  return need > have ? need - have : 16;
+}
 
 template <class S, bool kHH, bool kCasc>
 __global__ void __launch_bounds__(S::kThreads, 1)
@@ -413,18 +561,34 @@ __global__ void __launch_bounds__(S::kThreads, 1)
       atomicAdd(a.cur + c, add);
     }
   }
-  // In batch order: coalesced reads and writes.
-  for (int i = threadIdx.x; i < a.B; i += kBlock) {
+  // In batch order: coalesced reads and writes. With the side table's
+  // tail, its pass A on each request's final verdict and promotion
+  // target (a thread's candidates: bits of ``cands``), then passes B-C.
+  const bool tail_on = kHH && a.hh.K != 0;
+  rl_hh::Tail tail = back_tail<S>(a.hh, smem);
+  if (tail_on) tail.open();
+  unsigned cands = 0;
+  for (int i = threadIdx.x, k = 0; i < a.B; i += kBlock, ++k) {
     const bool ok = tmp.u.out.allowed[i];
     a.allowed[i] = ok;
     a.remaining[i] =
         remaining_of(tmp.u.out.seen[i], ok ? __ldg(a.n_f + i) : 0.0f);
     if constexpr (kHH) {
       const float est = __ldg(a.est + i);
-      a.target_pr[i] = ok ? post_batch(est, __ldg(a.avail + i),
+      const float tp = ok ? post_batch(est, __ldg(a.avail + i),
                                        tmp.u.out.seen[i], __ldg(a.n_f + i))
                           : est;
+      a.target_pr[i] = tp;
+      if (tail_on &&
+          tail.count(i, static_cast<uint32_t>(__ldg(a.h1 + i)),
+                     ldg_bool(a.mine + i), ok, __ldg(a.n + i), tp))
+        cands |= 1u << k;
     }
+  }
+  if (tail_on) {
+    tail.finish(
+        cands, [&](int i) { return static_cast<uint32_t>(__ldg(a.h1 + i)); },
+        [&](int i) { return static_cast<uint32_t>(__ldg(a.h2 + i)); }, a.B);
   }
 }
 
@@ -441,6 +605,9 @@ struct WindowAdmit {
   int32_t* remaining;
   float* target_pr;      // kHH: the promotion targets
   int B, iters;
+  const int64_t* h2;     // kHH with the tail: the batch's h2 and n
+  const int32_t* n;
+  rl_hh::Table hh;       // kHH: the side table for the tail (K = 0: none)
 };
 
 template <class S, bool kHH, bool kCasc>
@@ -457,7 +624,12 @@ __global__ void __launch_bounds__(S::kThreads, 1)
   } else {
     rl_admit::admit<S>(tmp, a.h1, a.n_f, a.avail, a.B, a.iters, s);
   }
-  for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
+  // In batch order; the side table's tail as in add_back_kernel.
+  const bool tail_on = kHH && a.hh.K != 0;
+  rl_hh::Tail tail = back_tail<S>(a.hh, smem);
+  if (tail_on) tail.open();
+  unsigned cands = 0;
+  for (int i = threadIdx.x, k = 0; i < a.B; i += S::kThreads, ++k) {
     const bool ok = tmp.u.out.allowed[i];
     const float seen = tmp.u.out.seen[i];
     const float n_f = __ldg(a.n_f + i);
@@ -466,108 +638,61 @@ __global__ void __launch_bounds__(S::kThreads, 1)
     if constexpr (kHH) {
       const float est = __ldg(a.est + i);
       const float v = post_batch(est, __ldg(a.avail + i), seen, n_f);
-      a.target[i] = ok && !a.mine[i] ? v : 0.0f;
-      a.target_pr[i] = ok ? v : est;
+      const bool mine = ldg_bool(a.mine + i);
+      const float tp = ok ? v : est;
+      a.target[i] = ok && !mine ? v : 0.0f;
+      a.target_pr[i] = tp;
+      if (tail_on && tail.count(i, static_cast<uint32_t>(__ldg(a.h1 + i)),
+                                mine, ok, __ldg(a.n + i), tp))
+        cands |= 1u << k;
     } else {
       a.target[i] =
           ok ? (__ldg(a.est + i) + (__ldg(a.avail + i) - seen)) + n_f : 0.0f;
     }
   }
+  if (tail_on) {
+    tail.finish(
+        cands, [&](int i) { return static_cast<uint32_t>(__ldg(a.h1 + i)); },
+        [&](int i) { return static_cast<uint32_t>(__ldg(a.h2 + i)); }, a.B);
+  }
 }
 
-// The side table's update (rl_hh_update): ONE block walks the batch in
-// four passes with a barrier between them. A slot changes only where the
-// batch names it, so no pass sweeps the K slots.
+// The side table's update alone (rl_hh_update), for the composed back
+// above the admission capacity: ONE block runs hh.cuh's routine on the
+// operands the composed back left in global memory. Pass B re-derives
+// each request's candidacy and claim (the batch may hold 2^20 requests,
+// more than shared memory holds masses for); the owners it reads stand
+// until pass C.
 struct HHUpdate {
-  long long* owner;               // int64 holding u32 h1; 0 free
-  long long* owner2;              // the owner's h2
-  int32_t* cur;
-  int32_t* totals;
-  long long* last;                // the slot's last touched period
-  unsigned long long* claims;     // scratch (2, K), zero between launches:
-                                  // claims, then the winners' h2
+  rl_hh::Table hh;
   const int64_t* h1;
   const int64_t* h2;
   const int32_t* n;
   const bool* allowed;
   const bool* mine;
   const float* target_pr;
-  float thresh;
-  long long p;
-  int B, K;
+  int B;
 };
 
 constexpr int kHHThreads = 1024;
 
-// Request i's claim on its free slot, when it is a candidate: not owned,
-// the slot free (its owner as before the step: ownership is written only
-// in pass 3) and target_pr >= f32(thresh); the claim packs
-// ceil(clip(target_pr, 0, 2^30)) above the zero-extended h1.
-__device__ __forceinline__ bool hh_claim(const HHUpdate& a, int i,
-                                         uint32_t h1, uint32_t sid,
-                                         bool mine,
-                                         unsigned long long& packed) {
-  const float tp = a.target_pr[i];
-  if (mine || a.owner[sid] != 0 || !(tp >= a.thresh)) return false;
-  const float mass = ceilf(fminf(fmaxf(tp, 0.0f), 1073741824.0f));
-  packed = (static_cast<unsigned long long>(static_cast<long long>(mass))
-            << 32) |
-           h1;
-  return true;
-}
-
 __global__ void __launch_bounds__(kHHThreads)
     hh_update_kernel(const HHUpdate a) {
-  unsigned long long* claims = a.claims;
-  unsigned long long* h2w = a.claims + a.K;
-  const uint32_t mask = static_cast<uint32_t>(a.K - 1);
-  // 1. Owned counts (int32 adds wrap, as the reference's histogram), the
-  //    idle clock, and each candidate's claim.
+  extern __shared__ __align__(16) unsigned char smem[];
+  rl_hh::Tail tail(a.hh, smem);
+  auto h1 = [&](int i) { return static_cast<uint32_t>(a.h1[i]); };
+  tail.open();
+  for (int i = threadIdx.x; i < a.B; i += blockDim.x)
+    tail.count(i, h1(i), a.mine[i], a.allowed[i], a.n[i], a.target_pr[i]);
+  __syncthreads();
   for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
-    const uint32_t h1 = static_cast<uint32_t>(a.h1[i]);
-    const uint32_t sid = h1 & mask;
-    const bool mine = a.mine[i];
-    if (mine && a.allowed[i]) {
-      const int32_t v = a.n[i];
-      if (v != 0) {
-        atomicAdd(a.cur + sid, v);
-        atomicAdd(a.totals + sid, v);
-      }
-    }
-    unsigned long long packed;
-    const bool cand = hh_claim(a, i, h1, sid, mine, packed);
-    if (mine || cand) a.last[sid] = a.p;
-    if (cand) atomicMax(claims + sid, packed);
+    const float tp = a.target_pr[i];
+    if (tail.candidate(h1(i), a.mine[i], tp))
+      tail.win(h1(i), rl_hh::packed_of(rl_hh::mass_of(tp), h1(i)),
+               [&] { return static_cast<uint32_t>(a.h2[i]); });
   }
   __syncthreads();
-  // 2. The winners' h2: a candidate whose claim is its slot's (equal
-  //    claims mean equal h1; keys sharing h1 take the larger h2).
-  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
-    const uint32_t h1 = static_cast<uint32_t>(a.h1[i]);
-    const uint32_t sid = h1 & mask;
-    unsigned long long packed;
-    if (hh_claim(a, i, h1, sid, a.mine[i], packed) &&
-        packed == __ldcg(claims + sid))
-      atomicMax(h2w + sid, static_cast<unsigned long long>(a.h2[i]));
-  }
-  __syncthreads();
-  // 3. Ownership: a slot with a claim was free (claims come only from
-  //    candidates); it takes the claim's h1 and the winner's h2.
-  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
-    const uint32_t sid = static_cast<uint32_t>(a.h1[i]) & mask;
-    const unsigned long long c = __ldcg(claims + sid);
-    if ((c & 0xFFFFFFFFull) != 0) {
-      a.owner[sid] = static_cast<long long>(c & 0xFFFFFFFFull);
-      a.owner2[sid] = static_cast<long long>(__ldcg(h2w + sid));
-    }
-  }
-  __syncthreads();
-  // 4. The scratch back to zero where this batch wrote it.
-  for (int i = threadIdx.x; i < a.B; i += blockDim.x) {
-    const uint32_t sid = static_cast<uint32_t>(a.h1[i]) & mask;
-    claims[sid] = 0;
-    h2w[sid] = 0;
-  }
+  tail.close(h1, a.B);
 }
 
 inline int blocks_for(long long n) {
@@ -606,18 +731,45 @@ struct WindowAdmitKernel {
 };
 
 // A back's launch: the kHH and kCasc builds picked from its operands
-// (the builds without the cascade take the base operands alone).
+// (the builds without the cascade take the base operands alone); a kHH
+// build with the tail gets the shared memory its scratch needs.
 template <template <bool, bool> class Kernel, class Base>
 int launch_back(const rl_cascade::With<Base>& a, bool hh, cudaStream_t s) {
+  const int K = a.hh.K;
+  auto tail = [K](auto shape) { return tail_extra<decltype(shape)>(K); };
   if (a.casc.limit != nullptr) {
     if (!rl_cascade::valid(a.casc))
       return static_cast<int>(cudaErrorInvalidValue);
-    return hh ? rl_cascade::launch<Kernel<true, true>>(a, s)
+    return hh ? rl_cascade::launch<Kernel<true, true>>(a, s, tail)
               : rl_cascade::launch<Kernel<false, true>>(a, s);
   }
   const Base& b = a;
-  return hh ? rl_admit::launch<Kernel<true, false>>(b, s)
+  return hh ? rl_admit::launch_with<Kernel<true, false>>(b, s, tail)
             : rl_admit::launch<Kernel<false, false>>(b, s);
+}
+
+// The tail's operands (the same nine in each entry point that takes
+// them); owner == nullptr: no tail (K = 0).
+rl_hh::Table hh_table(void* owner, void* owner2, void* cur, void* totals,
+                      void* last, void* claims, float thresh, long long p,
+                      int K) {
+  rl_hh::Table t;
+  t.owner = static_cast<long long*>(owner);
+  t.owner2 = static_cast<long long*>(owner2);
+  t.cur = static_cast<int32_t*>(cur);
+  t.totals = static_cast<int32_t*>(totals);
+  t.last = static_cast<long long*>(last);
+  t.claims = static_cast<unsigned long long*>(claims);
+  t.thresh = thresh;
+  t.p = p;
+  t.K = owner != nullptr ? K : 0;
+  return t;
+}
+
+bool valid_table(const rl_hh::Table& t) {
+  return t.K >= 1 && (t.K & (t.K - 1)) == 0 && t.owner2 != nullptr &&
+         t.cur != nullptr && t.totals != nullptr && t.last != nullptr &&
+         (rl_hh::shared_mode(t.K) || t.claims != nullptr);
 }
 
 }  // namespace
@@ -705,6 +857,9 @@ int rl_add_update(void* totals, void* cur, const void* h1, const void* h2,
 // One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
 // keys; one block at B = 0 too). mine == nullptr: no side table (est and
 // target_pr unused). limit == nullptr: no cascade (its operands unused).
+// hh_owner == nullptr: no tail; else (with mine) the side table's update
+// runs as the launch's tail (hh.cuh; hh_claims: the (2, K) zeroed global
+// scratch, needed above rl_hh::kSharedSlots slots).
 int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
                 const void* n, const void* n_f, const void* avail,
                 const void* est, const void* mine, void* allowed,
@@ -712,8 +867,14 @@ int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
                 int iters, const void* map_key, const void* map_tid, int P,
                 const void* limit, const void* weight, int T, void* counts,
                 void* tn_cur, const void* slab, const void* frac,
-                void* stream) {
-  if (d < 1 || w < 16 || (w & (w - 1)))
+                void* hh_owner, void* hh_owner2, void* hh_cur,
+                void* hh_totals, void* hh_last, void* hh_claims, float thresh,
+                long long p, int K, void* stream) {
+  const rl_hh::Table hh = hh_table(hh_owner, hh_owner2, hh_cur, hh_totals,
+                                   hh_last, hh_claims, thresh, p, K);
+  // (An empty batch's operands may be null: nothing reads them.)
+  if (d < 1 || w < 16 || (w & (w - 1)) ||
+      (hh.K != 0 && (!valid_table(hh) || (B > 0 && mine == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   rl_cascade::With<AddBack> a;
   a.totals = static_cast<int32_t*>(totals);
@@ -732,14 +893,16 @@ int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
   a.d = d;
   a.w = w;
   a.iters = iters;
+  a.hh = hh;
   a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
                                  T, counts, tn_cur, slab, frac, 0, 0);
-  return launch_back<AddBackKernel, AddBack>(a, mine != nullptr,
-                                    static_cast<cudaStream_t>(stream));
+  return launch_back<AddBackKernel, AddBack>(
+      a, mine != nullptr || hh.K != 0, static_cast<cudaStream_t>(stream));
 }
 
 // mine == nullptr: no side table (target_pr unused). limit == nullptr:
-// no cascade (h2, n and the cascade's operands unused).
+// no cascade (its operands unused; h2 and n unused without the tail
+// either). hh_owner == nullptr: no tail; else as rl_add_back's.
 int rl_window_admit(const void* h1, const void* est, const void* n_f,
                     const void* avail, const void* mine, void* target,
                     void* allowed, void* remaining, void* target_pr, int B,
@@ -747,7 +910,16 @@ int rl_window_admit(const void* h1, const void* est, const void* n_f,
                     const void* map_key, const void* map_tid, int P,
                     const void* limit, const void* weight, int T,
                     void* counts, void* tn_cur, const void* slab,
-                    const void* frac, void* stream) {
+                    const void* frac, void* hh_owner, void* hh_owner2,
+                    void* hh_cur, void* hh_totals, void* hh_last,
+                    void* hh_claims, float thresh, long long p, int K,
+                    void* stream) {
+  const rl_hh::Table hh = hh_table(hh_owner, hh_owner2, hh_cur, hh_totals,
+                                   hh_last, hh_claims, thresh, p, K);
+  if (hh.K != 0 &&
+      (!valid_table(hh) ||
+       (B > 0 && (mine == nullptr || h2 == nullptr || n == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
   rl_cascade::With<WindowAdmit> a;
   a.h1 = static_cast<const int64_t*>(h1);
   a.est = static_cast<const float*>(est);
@@ -760,42 +932,95 @@ int rl_window_admit(const void* h1, const void* est, const void* n_f,
   a.target_pr = static_cast<float*>(target_pr);
   a.B = B;
   a.iters = iters;
+  a.h2 = static_cast<const int64_t*>(h2);
+  a.n = static_cast<const int32_t*>(n);
+  a.hh = hh;
   a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
                                  T, counts, tn_cur, slab, frac, 0, 0);
-  return launch_back<WindowAdmitKernel, WindowAdmit>(a, mine != nullptr,
-                                        static_cast<cudaStream_t>(stream));
+  return launch_back<WindowAdmitKernel, WindowAdmit>(
+      a, mine != nullptr || hh.K != 0, static_cast<cudaStream_t>(stream));
 }
 
 // One launch of one block (kHHThreads threads, fewer for a small batch;
-// one warp at B = 0). claims: the (2, K) scratch, zero on entry and on
-// return.
+// one warp at B = 0), with rl_hh::scratch_bytes(K) of dynamic shared
+// memory (shared mode, K <= rl_hh::kSharedSlots); above, claims is the
+// (2, K) global scratch, zero on entry and on return.
 int rl_hh_update(void* owner, void* owner2, void* cur, void* totals,
                  void* last, void* claims, const void* h1, const void* h2,
                  const void* n, const void* allowed, const void* mine,
                  const void* target_pr, float thresh, long long p, int B,
                  int K, void* stream) {
-  if (B < 0 || K < 1 || (K & (K - 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
   HHUpdate a;
-  a.owner = static_cast<long long*>(owner);
-  a.owner2 = static_cast<long long*>(owner2);
-  a.cur = static_cast<int32_t*>(cur);
-  a.totals = static_cast<int32_t*>(totals);
-  a.last = static_cast<long long*>(last);
-  a.claims = static_cast<unsigned long long*>(claims);
+  a.hh = hh_table(owner, owner2, cur, totals, last, claims, thresh, p, K);
+  if (B < 0 || owner == nullptr || !valid_table(a.hh))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.h1 = static_cast<const int64_t*>(h1);
   a.h2 = static_cast<const int64_t*>(h2);
   a.n = static_cast<const int32_t*>(n);
   a.allowed = static_cast<const bool*>(allowed);
   a.mine = static_cast<const bool*>(mine);
   a.target_pr = static_cast<const float*>(target_pr);
-  a.thresh = thresh;
-  a.p = p;
   a.B = B;
-  a.K = K;
   const int threads =
       B >= kHHThreads ? kHHThreads : (B > 32 ? (B + 31) / 32 * 32 : 32);
-  hh_update_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const size_t smem = rl_hh::scratch_bytes(K);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hh_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  hh_update_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-key reset in one launch of one block, a thread a key (at most
+// kResetThreads keys; one warp at B = 0). Keys on the halves lane;
+// boundary == nullptr: fixed window; hh_owner == nullptr: no side table.
+int rl_window_reset(void* totals, void* cur, const void* boundary,
+                    const void* slab_period, long long want, int slot,
+                    float e, float rcp, const void* h1, const void* h2,
+                    const void* hh_owner, void* hh_totals, void* hh_cur,
+                    const void* hh_slab, int K, int B, int d, int w,
+                    void* stream) {
+  if (B < 0 || B > kResetThreads || d < 1 || d > rl_front::kMaxDepth ||
+      w < 16 || (w & (w - 1)) ||
+      (hh_owner != nullptr &&
+       (K < 1 || (K & (K - 1)) || hh_totals == nullptr ||
+        hh_cur == nullptr || (hh_slab == nullptr) != (boundary == nullptr))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WindowReset a;
+  WindowFront& f = a.f;
+  f = WindowFront{};
+  f.totals = static_cast<const int32_t*>(totals);
+  f.boundary = static_cast<const int32_t*>(boundary);
+  f.slab_period = static_cast<const long long*>(slab_period);
+  f.want = want;
+  f.slot = slot;
+  f.e = e;
+  f.rcp = rcp;
+  f.keys = {nullptr, static_cast<int64_t*>(const_cast<void*>(h1)),
+            static_cast<int64_t*>(const_cast<void*>(h2)), 0,
+            rl_front::kHalves};
+  f.hh_owner = static_cast<const long long*>(hh_owner);
+  f.hh_totals = static_cast<const int32_t*>(hh_totals);
+  f.hh_slab = static_cast<const int32_t*>(hh_slab);
+  f.K = K;
+  f.B = B;
+  f.d = d;
+  f.w = w;
+  a.totals = static_cast<int32_t*>(totals);
+  a.cur = static_cast<int32_t*>(cur);
+  a.hh_totals = static_cast<int32_t*>(hh_totals);
+  a.hh_cur = static_cast<int32_t*>(hh_cur);
+  const int threads = B > 32 ? (B + 31) / 32 * 32 : 32;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hh_owner != nullptr) {
+    window_reset_kernel<true><<<1, threads, 0, s>>>(a);
+  } else {
+    window_reset_kernel<false><<<1, threads, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

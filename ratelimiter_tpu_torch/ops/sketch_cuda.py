@@ -21,11 +21,15 @@ ahead of ``cu_update``), both over the block-level admission routine of
 
 With the heavy-hitter side table (``hh_slots > 0``) the front also reads
 each key's slot (``SideTable``), the two backs mask owned keys out of the
-sketch writes and return the promotion targets, and ``hh_update`` (which
-replaces no TPU kernel: the reference's side-table update is jnp,
-ratelimiter_tpu/ops/sketch_kernels.py:487-532) counts owned keys and
-promotes new ones. Each of those is a compile-time variant of its kernel,
-so the step without the side table runs the same machine code as before.
+sketch writes and return the promotion targets, and, given the table
+(``SideUpdate``), run its update (which replaces no TPU kernel: the
+reference's side-table update is jnp, ratelimiter_tpu/ops/
+sketch_kernels.py:487-532; it counts owned keys and promotes new ones) as
+the tail of their launch (``csrc/hh.cuh``). ``hh_update`` runs the same
+routine alone, for the composed back above ``ADMIT_CAPACITY``. Each of
+those is a compile-time variant of its kernel, so the step without the
+side table runs the same machine code as before. ``window_reset`` is the
+per-key reset (estimate, floor, subtraction) in one launch.
 
 With the hierarchy cascade (``tenants > 0``) the two backs take its
 operands (``Cascade``) and launch their cascade builds, which run
@@ -38,13 +42,15 @@ standalone update kernel). The plain versions compose
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``window_front.launches`` ...; the backs' cascade builds in
-``cascade_launches`` too); ``launch_counts`` reads them under the names
-of the TPU kernels they replace (``add_update``: every form, the fused
-back's builds and the standalone scatter), the fused back's build
-without the cascade as ``add_back``, the admission launch's (which
-replaces no TPU kernel) as ``admit``, their cascade builds as
-``add_back [cascade]`` and ``admit [cascade]``, and the side table's
-update as ``hh_update``; ``reset_launch_counts`` clears them.
+``cascade_launches`` and their side-table tails in ``tail_launches``
+too); ``launch_counts`` reads them under the names of the TPU kernels
+they replace (``add_update``: every form, the fused back's builds and
+the standalone scatter), the fused back's build without the cascade as
+``add_back``, the admission launch's (which replaces no TPU kernel) as
+``admit``, their cascade builds as ``add_back [cascade]`` and ``admit
+[cascade]``, the side table's standalone update as ``hh_update`` and its
+tails (one a side-table back launch) as ``hh_update [fused]``, and the
+reset kernel as ``window_reset``; ``reset_launch_counts`` clears them.
 
 Rounding. The JAX reference's window read ``f32(t) + frac * f32(b)``
 rounds once, as a fused multiply-add: XLA contracts it when it jits the
@@ -96,6 +102,20 @@ FRONT_THREADS = 128
 #: this size.
 ADMIT_CAPACITY = 8192
 
+#: The side table's update keeps its per-slot scratch in shared memory
+#: (``kSharedSlots`` in csrc/hh.cuh: 26 bytes a slot, at most 106,496;
+#: each slot's owner, hh_cur and hh_totals read once) up to this many
+#: slots, and sweeps the slots once; a larger table (up to the config's
+#: 2^22) works on a (2, K) int64 scratch in global memory
+#: (``_hh_scratch``) and touches only the slots the batch names.
+HH_SHARED_SLOTS = 4096
+
+#: The most keys one ``window_reset`` launch takes (one block, a thread a
+#: key; ``kResetThreads`` in csrc/sketch_kernels.cu). The limiter resets
+#: one key; a larger reset runs composed on the card (``window_front``,
+#: then ``add_update``), counted under those names.
+RESET_CAPACITY = 1024
+
 #: The front kernels' key lanes (csrc/front.cuh): raw u64 ids (splitmix64
 #: in the kernel), finalized 64-bit hashes, or the (h1, h2) halves given.
 LANE_PREMIX, LANE_HASHED, LANE_HALVES = 0, 1, 2
@@ -113,15 +133,20 @@ def _lib() -> ctypes.CDLL:
         lib.rl_add_update.argtypes = [P, P, P, P, P, I, I, I, P]
         # The cascade's table and scope operands (``_cascade_args``).
         C = [P, P, I, P, P, I, P, P, P, P]
+        # The side table's tail (``_tail_args``).
+        H = [P, P, P, P, P, P, F, L, I]
         lib.rl_add_back.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, I,
-                                    I, I, I, *C, P]
+                                    I, I, I, *C, *H, P]
         lib.rl_window_admit.argtypes = [P, P, P, P, P, P, P, P, P, I, I, P,
-                                        P, *C, P]
+                                        P, *C, *H, P]
         lib.rl_hh_update.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, F,
                                      L, I, I, P]
+        lib.rl_window_reset.argtypes = [P, P, P, P, L, I, F, F, P, P, P, P,
+                                        P, P, I, I, I, I, P]
         for fn in (lib.rl_window_front, lib.rl_cu_update,
                    lib.rl_add_update, lib.rl_add_back,
-                   lib.rl_window_admit, lib.rl_hh_update):
+                   lib.rl_window_admit, lib.rl_hh_update,
+                   lib.rl_window_reset):
             fn.restype = ctypes.c_int
         _configured.add(id(lib))
     return lib
@@ -225,6 +250,17 @@ class SideTable(NamedTuple):
 #: The side table's state arrays (the windowed state dict's ``hh_*``).
 HH_KEYS = ("hh_owner", "hh_owner2", "hh_cur", "hh_slabs", "hh_totals",
            "hh_last")
+
+
+class SideUpdate(NamedTuple):
+    """The side table's update as a back's tail (or ``hh_update``) takes
+    it: ``state`` holds the ``hh_*`` tensors (updated in place), ``thresh``
+    is the promotion threshold (compared as f32) and ``period`` the step's
+    period, written into ``hh_last``."""
+
+    state: dict
+    thresh: float
+    period: int
 
 
 class Cascade(NamedTuple):
@@ -504,6 +540,40 @@ def add_update_plain(totals, cur, h1, h2, add) -> None:
     vals = add.repeat(d)
     totals.view(-1).index_add_(0, flat, vals)
     cur.view(-1).index_add_(0, flat, vals)
+
+
+def _reset(front, scatter, totals, cur, h1, h2, boundary, hh,
+           hh_cur) -> None:
+    """The per-key reset as composed ops: ``front``'s estimate-only form
+    (``window_front_plain`` or the kernel), each part floored to int32 and
+    subtracted through ``scatter`` (``add_update_plain`` or the
+    standalone kernel): the sketch's part at each row's cell, and with
+    the side table ``hh`` the owned part at the key's slot (row 0 of the
+    (1, K) table, whose column is ``h1 & (K-1)``)."""
+    out = front(totals, (h1, h2), boundary=boundary, hh=hh)
+    est = out[2] if hh is None else out[6][1]
+    scatter(totals, cur, h1, h2, -torch.floor(est).to(torch.int32))
+    if hh is not None:
+        K = hh.owner.shape[0]
+        scatter(hh.totals.view(1, K), hh_cur.view(1, K), h1, h2,
+                -torch.floor(out[6][2]).to(torch.int32))
+
+
+def window_reset_plain(totals, cur, h1, h2, *,
+                       boundary: Optional[Boundary] = None,
+                       hh: Optional[SideTable] = None,
+                       hh_cur: Optional[torch.Tensor] = None) -> None:
+    """The per-key reset of the keys (h1, h2), in place, as the step
+    composed it before the reset kernel (the JAX package's
+    ``_sketch_reset``, ratelimiter_tpu/ops/sketch_kernels.py:539-593):
+    ``window_front_plain``'s estimate-only form, floored, then
+    ``add_update_plain`` of the negated floors into ``totals`` and
+    ``cur``; with the side table ``hh`` the sketch loses its own part of
+    the estimate and each owned key's slot of ``hh.totals`` and
+    ``hh_cur`` the owned part. Every estimate is read before any cell is
+    written."""
+    _reset(window_front_plain, add_update_plain, totals, cur, h1, h2,
+           boundary, hh, hh_cur)
 
 
 def _remaining(seen, allowed, n_f) -> torch.Tensor:
@@ -825,12 +895,61 @@ def _check_back(h1, operands: dict, iters: int) -> int:
     return B
 
 
+def _check_table(state: dict, device) -> int:
+    """The side table's state tensors (``hh_*`` but the ring); returns
+    K."""
+    owner = state["hh_owner"]
+    K = owner.shape[0] if owner.dim() == 1 else 0
+    if K < 1 or K & (K - 1):
+        raise ValueError(f"side table slots must be a power of two, got "
+                         f"{tuple(owner.shape)}")
+    for name, dtype in (("hh_owner", torch.int64), ("hh_owner2", torch.int64),
+                        ("hh_cur", torch.int32), ("hh_totals", torch.int32),
+                        ("hh_last", torch.int64)):
+        _check(name, state[name], dtype, (K,), device)
+    return K
+
+
+def _check_tail(hh: Optional[SideUpdate], mine, device) -> None:
+    if hh is None:
+        return
+    if mine is None:
+        raise ValueError("the side table's update goes with mine")
+    _check_table(hh.state, device)
+
+
+def _tail_args(hh: Optional[SideUpdate], stream: int) -> tuple:
+    """The C interface's tail operands (the table's five tensors, the
+    global claim scratch above ``HH_SHARED_SLOTS`` slots, f32(thresh),
+    the period, K); all null without a tail."""
+    if hh is None:
+        return (None,) * 6 + (0.0, 0, 0)
+    st = hh.state
+    K = st["hh_owner"].shape[0]
+    claims = (None if K <= HH_SHARED_SLOTS
+              else _hh_scratch(st["hh_owner"].device, K, stream).data_ptr())
+    return (st["hh_owner"].data_ptr(), st["hh_owner2"].data_ptr(),
+            st["hh_cur"].data_ptr(), st["hh_totals"].data_ptr(),
+            st["hh_last"].data_ptr(), claims, float(np.float32(hh.thresh)),
+            hh.period, K)
+
+
+def _composed_tail(update, hh: SideUpdate, h1, h2, n, allowed, mine,
+                   target_pr) -> None:
+    """A back's tail as its own call after the back (the CPU's plain
+    composition, and the card's above ``ADMIT_CAPACITY``): ``update`` is
+    ``hh_update_plain`` or the standalone ``hh_update``."""
+    update(hh.state, h1, h2, n, allowed, mine, target_pr, thresh=hh.thresh,
+           period=hh.period)
+
+
 def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
              h2: torch.Tensor, n: torch.Tensor, n_f: torch.Tensor,
              avail: torch.Tensor, iters: int,
              est: Optional[torch.Tensor] = None,
              mine: Optional[torch.Tensor] = None,
-             casc: Optional[Cascade] = None) -> tuple:
+             casc: Optional[Cascade] = None,
+             hh: Optional[SideUpdate] = None) -> tuple:
     """Replaces Pallas ``add_update`` (pallas_sketch.py:224-245) with the
     vanilla step's ops around it (the JAX step's ``segment.admit``, its
     add amounts and remaining, ratelimiter_tpu/ops/sketch_kernels.py:374,
@@ -855,7 +974,19 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
 
     With the side table's ``mine`` (and ``est``), a compile-time variant
     leaves owned keys out of the scatter and also writes the promotion
-    targets, returned third (``add_back_plain``).
+    targets, returned third (``add_back_plain``). Given the table too
+    (``hh``, a ``SideUpdate``), that build runs the table's update as the
+    launch's tail (csrc/hh.cuh: ``hh_update_plain``'s function on the
+    block's final mask and targets, in place on ``hh.state``), counted in
+    ``add_back.tail_launches``: the side-table step launches no
+    ``hh_update``. The tail's scratch sits in the block's shared memory up
+    to ``HH_SHARED_SLOTS`` slots (the launch grows its dynamic shared
+    memory where the admission's storage has no room left after its
+    results, for the scratch and the candidates' masses: at most ~180 KB,
+    on the 1024-thread shape with 4096 slots), above that in global
+    memory. Above ``ADMIT_CAPACITY`` keys the composed back is followed by
+    the standalone ``hh_update`` kernel; on the CPU by
+    ``hh_update_plain``.
 
     With the cascade's operands ``casc`` (``Cascade``), the cascade build
     runs csrc/cascade.cuh's routine in the same block after admission
@@ -875,27 +1006,33 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
     dev = totals.device
     if casc is not None:
         _check_cascade(casc, B, dev)
-    if dev.type == "cpu":
-        return add_back_plain(totals, cur, h1, h2, n, n_f, avail, iters,
-                              est, mine, casc)
+    _check_tail(hh, mine, dev)
+    if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
+        cpu = dev.type == "cpu"
+        out = _vanilla_back(add_update_plain if cpu else add_update, totals,
+                            cur, h1, h2, n, n_f, avail, iters, est, mine,
+                            casc)
+        if hh is not None:
+            _composed_tail(hh_update_plain if cpu else hh_update, hh, h1,
+                           h2, n, out[0], mine, out[2])
+        return out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if B > ADMIT_CAPACITY:
-        return _vanilla_back(add_update, totals, cur, h1, h2, n, n_f, avail,
-                             iters, est, mine, casc)
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     remaining = torch.empty(B, dtype=torch.int32, device=dev)
     target_pr = (None if mine is None
                  else torch.empty(B, dtype=torch.float32, device=dev))
+    stream = _stream(totals)
     err = _lib().rl_add_back(
         totals.data_ptr(), cur.data_ptr(), h1.data_ptr(), h2.data_ptr(),
         n.data_ptr(), n_f.data_ptr(), avail.data_ptr(), _ptr(est),
         _ptr(mine), allowed.data_ptr(), remaining.data_ptr(),
         _ptr(target_pr), B, d, w, iters, *_cascade_args(casc),
-        _stream(totals))
+        *_tail_args(hh, stream), stream)
     _raise_on(err, "add_back")
     add_back.launches += 1
     add_back.cascade_launches += casc is not None
+    add_back.tail_launches += hh is not None
     return (allowed, remaining) if mine is None else (allowed, remaining,
                                                       target_pr)
 
@@ -903,7 +1040,10 @@ def add_back(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
 def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
                  avail: torch.Tensor, iters: int,
                  mine: Optional[torch.Tensor] = None,
-                 casc: Optional[Cascade] = None) -> tuple:
+                 casc: Optional[Cascade] = None, *,
+                 hh: Optional[SideUpdate] = None,
+                 h2: Optional[torch.Tensor] = None,
+                 n: Optional[torch.Tensor] = None) -> tuple:
     """The CU step's admission, CU targets and remaining
     (``window_admit_plain``'s function; the JAX step's ``segment.admit``
     and ratelimiter_tpu/ops/sketch_kernels.py:374,432,534-535) in one
@@ -920,20 +1060,42 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
 
     With the side table's ``mine``, a compile-time variant targets 0 for
     owned keys and also writes the promotion targets, returned fourth
-    (``window_admit_plain``). With the cascade's operands ``casc``, the
-    cascade build (``add_back``'s) decides them all under the final mask
-    and folds the scope counters, counted in
+    (``window_admit_plain``). Given the table too (``hh``, with the
+    batch's ``h2`` and ``n``), that build runs its update as the launch's
+    tail, as ``add_back``'s does (counted in
+    ``window_admit.tail_launches``). With the cascade, the batch's ``h2``
+    and ``n`` are the cascade's (``casc.h2``, ``casc.n``): others are
+    refused. With the cascade's operands ``casc``,
+    the cascade build (``add_back``'s) decides them all under the final
+    mask and folds the scope counters, counted in
     ``window_admit.cascade_launches`` too."""
     operands = {"est": (est, torch.float32), "n_f": (n_f, torch.float32),
                 "avail": (avail, torch.float32)}
     if mine is not None:
         operands["mine"] = (mine, torch.bool)
+    if casc is not None:
+        if (h2 is not None and h2 is not casc.h2) or (
+                n is not None and n is not casc.n):
+            raise ValueError("with the cascade, the batch's h2 and n are "
+                             "the cascade's")
+        h2, n = casc.h2, casc.n
+    if hh is not None:
+        if h2 is None or n is None:
+            raise ValueError("the side table's update needs the batch's h2 "
+                             "and n")
+        operands.update(h2=(h2, torch.int64), n=(n, torch.int32))
     B = _check_back(h1, operands, iters)
     dev = h1.device
     if casc is not None:
         _check_cascade(casc, B, dev)
+    _check_tail(hh, mine, dev)
     if dev.type == "cpu" or (dev.type == "cuda" and B > ADMIT_CAPACITY):
-        return window_admit_plain(h1, est, n_f, avail, iters, mine, casc)
+        out = window_admit_plain(h1, est, n_f, avail, iters, mine, casc)
+        if hh is not None:
+            _composed_tail(hh_update_plain if dev.type == "cpu"
+                           else hh_update, hh, h1, h2, n, out[1], mine,
+                           out[3])
+        return out
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((1 if mine is None else 2) * B, dtype=torch.float32,
@@ -941,24 +1103,25 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
     target, target_pr = out[:B], (None if mine is None else out[B:])
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     remaining = torch.empty(B, dtype=torch.int32, device=dev)
+    stream = _stream(h1)
     err = _lib().rl_window_admit(
         h1.data_ptr(), est.data_ptr(), n_f.data_ptr(), avail.data_ptr(),
         _ptr(mine), target.data_ptr(), allowed.data_ptr(),
-        remaining.data_ptr(), _ptr(target_pr), B, iters,
-        *((None, None) if casc is None else (casc.h2.data_ptr(),
-                                             casc.n.data_ptr())),
-        *_cascade_args(casc), _stream(h1))
+        remaining.data_ptr(), _ptr(target_pr), B, iters, _ptr(h2), _ptr(n),
+        *_cascade_args(casc), *_tail_args(hh, stream), stream)
     _raise_on(err, "window_admit")
     window_admit.launches += 1
     window_admit.cascade_launches += casc is not None
+    window_admit.tail_launches += hh is not None
     if mine is None:
         return target, allowed, remaining
     return target, allowed, remaining, target_pr
 
 
-#: The side table's claim scratch of each (device, K, stream): (2, K)
-#: int64, the slots' claims then the winners' h2, zero between launches
-#: (``hh_update`` clears the slots it touched before it ends).
+#: The side table's claim scratch of each (device, K, stream) for tables
+#: above ``HH_SHARED_SLOTS`` slots: (2, K) int64, the slots' claims then
+#: the winners' h2, zero between launches (the update clears the slots it
+#: touched before it ends).
 _HH_SCRATCH: dict = {}
 
 
@@ -976,39 +1139,31 @@ def hh_update(state: dict, h1: torch.Tensor, h2: torch.Tensor,
               target_pr: torch.Tensor, *, thresh: float,
               period: int) -> None:
     """The side table's update (``hh_update_plain``'s function) in one
-    launch, in place on ``state``'s ``hh_*`` tensors. It replaces no TPU
-    kernel: the JAX step computes it with jnp ops
-    (ratelimiter_tpu/ops/sketch_kernels.py:487-532), in dense passes over
-    all K slots.
+    launch of its own, in place on ``state``'s ``hh_*`` tensors: the
+    form the composed back runs above ``ADMIT_CAPACITY`` (up to it the
+    backs run the same routine as their tail). It replaces no TPU kernel:
+    the JAX step computes it with jnp ops (ratelimiter_tpu/ops/
+    sketch_kernels.py:487-532), in dense passes over all K slots.
 
     Bound on an H100: each key's h1, h2, n, allowed, mine and target_pr
     read once (26 bytes), and at each slot the batch names its owner
     read, ``hh_cur``/``hh_totals`` read and written, ``hh_last`` and (on
     a claim) the owner pair written: ~0.15 MB at B=4096, ~0.04 us at
-    3.35 TB/s, whatever K is. Design: only slots the batch names can
-    change, so the kernel never sweeps K. ONE block walks the batch four
-    times, a barrier between passes: (1) owned counts by ``atomicAdd``
-    into both tables, ``hh_last`` at every slot an owned key or a
-    candidate names, and each candidate's packed (mass, h1) by a 64-bit
-    ``atomicMax`` into a per-slot scratch (``_hh_scratch``); (2) each
-    candidate whose value equals its slot's claim ``atomicMax``es its h2
-    into the scratch's second row; (3) each slot with a claim takes its
-    owner and owner2 (every request of the slot writes the same pair);
-    (4) the scratch is cleared at the slots the batch named, so it is
-    zero for the next launch without a memset of K. The owner a key's
-    candidacy reads is the one before the step in every pass: ownership
-    is written only in pass 3. One block keeps the passes' barriers
-    cheap; the launch is the cost at serving batch sizes."""
-    owner = state["hh_owner"]
-    K = owner.shape[0] if owner.dim() == 1 else 0
-    if K < 1 or K & (K - 1):
-        raise ValueError(f"side table slots must be a power of two, got "
-                         f"{tuple(owner.shape)}")
-    dev = owner.device
-    for name, dtype in (("hh_owner", torch.int64), ("hh_owner2", torch.int64),
-                        ("hh_cur", torch.int32), ("hh_totals", torch.int32),
-                        ("hh_last", torch.int64)):
-        _check(name, state[name], dtype, (K,), dev)
+    3.35 TB/s, whatever K is. Design (csrc/hh.cuh): ONE block. Up to
+    ``HH_SHARED_SLOTS`` slots its scratch is per slot in shared memory,
+    zeroed by a sweep: pass A over the batch adds owned counts and marks
+    touched slots with native 32-bit shared atomics and takes each
+    candidate's packed (mass, h1) claim by a 64-bit shared max; pass B
+    the winners' h2; pass C sweeps the K slots and writes ``hh_cur``/
+    ``hh_totals``, the owner pair and ``hh_last`` with one plain
+    read-modify-write each, no global atomics. Above it (the 2^22
+    ceiling), the passes work on a (2, K) int64 scratch in global memory
+    (``_hh_scratch``) and touch only the slots the batch names, a fourth
+    pass clearing them. The owner a key's candidacy reads is the one
+    before the step in every pass: ownership is written only in the last.
+    The launch is the cost at serving batch sizes."""
+    dev = state["hh_owner"].device
+    K = _check_table(state, dev)
     B = _check_back(h1, {"h2": (h2, torch.int64), "n": (n, torch.int32),
                          "allowed": (allowed, torch.bool),
                          "mine": (mine, torch.bool),
@@ -1020,45 +1175,114 @@ def hh_update(state: dict, h1: torch.Tensor, h2: torch.Tensor,
                                thresh=thresh, period=period)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    stream = _stream(owner)
+    stream = _stream(h1)
+    args = _tail_args(SideUpdate(state, thresh, period), stream)
     err = _lib().rl_hh_update(
-        owner.data_ptr(), state["hh_owner2"].data_ptr(),
-        state["hh_cur"].data_ptr(), state["hh_totals"].data_ptr(),
-        state["hh_last"].data_ptr(), _hh_scratch(dev, K, stream).data_ptr(),
-        h1.data_ptr(), h2.data_ptr(), n.data_ptr(), allowed.data_ptr(),
-        mine.data_ptr(), target_pr.data_ptr(), float(np.float32(thresh)),
+        *args[:6], h1.data_ptr(), h2.data_ptr(), n.data_ptr(),
+        allowed.data_ptr(), mine.data_ptr(), target_pr.data_ptr(), args[6],
         period, B, K, stream)
     _raise_on(err, "hh_update")
     hh_update.launches += 1
 
 
+def window_reset(totals: torch.Tensor, cur: torch.Tensor, h1: torch.Tensor,
+                 h2: torch.Tensor, *, boundary: Optional[Boundary] = None,
+                 hh: Optional[SideTable] = None,
+                 hh_cur: Optional[torch.Tensor] = None) -> None:
+    """The per-key reset of the keys (h1, h2) in one launch:
+    ``window_reset_plain``'s function, in place on ``totals`` and ``cur``
+    (and with the side table ``hh`` on ``hh.totals`` and ``hh_cur``). It
+    replaces the reset's composition (the JAX package's ``_sketch_reset``,
+    ratelimiter_tpu/ops/sketch_kernels.py:539-593: the estimate, Pallas
+    ``window_estimate``'s function, then ``add_update`` of the negated
+    floors), 4-9 launches on the card (the front, a floor, a cast and a
+    negation, ``add_update``, and the same again on the side table).
+
+    Bound on an H100: each key's h1 and h2, its d cells of ``totals`` and
+    of the boundary and the boundary's period read, its d cells of
+    ``totals`` and ``cur`` read and written (with the side table, its
+    slot's owner, total and boundary cell read and its ``hh_totals``/
+    ``hh_cur`` cells read and written): ~110 bytes a key at d=4, so one
+    key is far below a launch. Design: ONE block, a thread a key (up to
+    ``RESET_CAPACITY`` keys), each computing the front's estimate-only
+    form with the front's own per-key code (csrc/sketch_kernels.cu
+    ``load_cells``/``fold_cells``) and flooring it; one barrier, so that
+    every estimate is read before any cell is written (two keys may
+    share a column); then int32 atomics subtract each floor at the key's
+    cells. A larger reset runs composed on the card (``window_front``,
+    then ``add_update``), counted under those names."""
+    d, w, B = _check_common(totals, h1, h2)
+    dev = totals.device
+    _check("cur", cur, torch.int32, (d, w), dev, align16=True)
+    if boundary is not None:
+        S = boundary.slab_period.shape[0]
+        _check("boundary", boundary.slab, torch.int32, (d, w), dev)
+        _check("slab_period", boundary.slab_period, torch.int64, (S,), dev)
+        if not 0 <= boundary.slot < S:
+            raise ValueError(f"boundary slot {boundary.slot} outside the "
+                             f"ring of {S}")
+    K = 0
+    if hh is not None:
+        K = _check_side(hh, boundary is not None, dev)
+        if hh_cur is None:
+            raise ValueError("the side table's reset needs hh_cur")
+        _check("hh cur", hh_cur, torch.int32, (K,), dev)
+    if dev.type == "cpu":
+        return window_reset_plain(totals, cur, h1, h2, boundary=boundary,
+                                  hh=hh, hh_cur=hh_cur)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if B > RESET_CAPACITY:
+        return _reset(window_front, add_update, totals, cur, h1, h2,
+                      boundary, hh, hh_cur)
+    bnd = (boundary.slab.data_ptr(), boundary.slab_period.data_ptr(),
+           boundary.want, boundary.slot, float(boundary.e),
+           float(boundary.rcp)) if boundary is not None else (
+               None, None, 0, 0, 0.0, 0.0)
+    side = ((hh.owner.data_ptr(), hh.totals.data_ptr(), hh_cur.data_ptr(),
+             _ptr(hh.slab)) if hh is not None else (None,) * 4)
+    err = _lib().rl_window_reset(
+        totals.data_ptr(), cur.data_ptr(), *bnd, h1.data_ptr(),
+        h2.data_ptr(), *side, K, B, d, w, _stream(totals))
+    _raise_on(err, "window_reset")
+    window_reset.launches += 1
+
+
 #: Each wrapper under the name of the TPU kernel it replaces (every form
-#: of add_update under its name), and the side table's update, which
-#: replaces no TPU kernel, as ``hh_update``.
+#: of add_update under its name), and the side table's standalone update,
+#: which replaces no TPU kernel, as ``hh_update``; the reset kernel, which
+#: replaces the reset's estimate and ``add_update`` together, as
+#: ``window_reset``.
 KERNELS = {"window_estimate": (window_front,), "cu_update": (cu_update,),
-           "add_update": (add_back, add_update), "hh_update": (hh_update,)}
+           "add_update": (add_back, add_update), "hh_update": (hh_update,),
+           "window_reset": (window_reset,)}
 #: The backs, whose builds without the cascade and cascade builds are
 #: counted apart: the fused vanilla back and the admission launch (which
-#: replaces no TPU kernel).
+#: replaces no TPU kernel); their side-table tails together as
+#: ``hh_update [fused]``.
 BACKS = {"add_back": add_back, "admit": window_admit}
 WRAPPERS = (window_front, cu_update, add_update, add_back, window_admit,
-            hh_update)
+            hh_update, window_reset)
 for _fn in WRAPPERS:
     _fn.launches = 0
 for _fn in BACKS.values():
     _fn.cascade_launches = 0
+    _fn.tail_launches = 0
 
 
 def launch_counts() -> dict:
-    """{TPU kernel name (or ``hh_update``): launches of its replacement
-    since the last reset}, and for each back (``add_back``, ``admit``)
-    the launches of its build without the cascade under its name and of
-    its cascade build under ``<name> [cascade]``."""
+    """{TPU kernel name (or ``hh_update``, ``window_reset``): launches of
+    its replacement since the last reset}, for each back (``add_back``,
+    ``admit``) the launches of its build without the cascade under its
+    name and of its cascade build under ``<name> [cascade]``, and the
+    backs' side-table tails under ``hh_update [fused]``."""
     counts = {name: sum(fn.launches for fn in fns)
               for name, fns in KERNELS.items()}
     for name, fn in BACKS.items():
         counts[name] = fn.launches - fn.cascade_launches
         counts[f"{name} [cascade]"] = fn.cascade_launches
+    counts["hh_update [fused]"] = sum(fn.tail_launches
+                                      for fn in BACKS.values())
     return counts
 
 
@@ -1067,3 +1291,4 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in BACKS.values():
         fn.cascade_launches = 0
+        fn.tail_launches = 0

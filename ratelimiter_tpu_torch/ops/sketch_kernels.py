@@ -42,10 +42,10 @@ claims its free slot (the hottest candidate wins, ties by h1); a slot
 idle for a whole window is freed at rollover. On the device the slot
 owners are int64 holding 0..2^32-1 (uint32 in the JAX package and at the
 NumPy boundary, convert.py). The step's front reads the table, its back
-masks owned keys out of the sketch writes, and ``hh_update`` does the
-rest (ops/sketch_cuda.py); the JAX package runs the jnp reference for
-this config (its Pallas path is off with a side table), so the port's
-kernels are held to that.
+masks owned keys out of the sketch writes and runs the table's update as
+the tail of its launch (``hh_update``'s function; ops/sketch_cuda.py);
+the JAX package runs the jnp reference for this config (its Pallas path
+is off with a side table), so the port's kernels are held to that.
 
 The hierarchy cascade (``hierarchy.tenants`` = T > 0, ADR-020) adds
 per-tenant and global in-window counters on the same ring clock
@@ -272,25 +272,26 @@ def _decide(state: State, keys, n, now_us: int, policy=None, hier=None, *,
     h1, h2, est, frac, avail, n_f, *parts = sketch_cuda.window_front(
         state["totals"], keys, n, premix=premix, seed=seed, boundary=bnd,
         policy=policy, limit=limit, hh=side)
-    # Owned keys (mine) count in their side-table cell, not the sketch.
+    # Owned keys (mine) count in their side-table cell, not the sketch;
+    # the back runs the table's update (owned counts, promotion, idle
+    # clock) as its tail.
     mine = parts[0][0] if parts else None
+    tail = (None if mine is None
+            else sketch_cuda.SideUpdate(state, hh_thresh, period))
     casc = _cascade(state, hier, h2, n, frac, period=period, S=S,
                     weighted=weighted)
     if conservative:
         # Raise each touched cell only as high as the largest single-key
         # post-batch target that maps to it; denied requests target 0.
-        target, allowed, remaining, *target_pr = sketch_cuda.window_admit(
-            h1, est, n_f, avail, iters, mine, casc)
+        target, allowed, remaining, *_ = sketch_cuda.window_admit(
+            h1, est, n_f, avail, iters, mine, casc, hh=tail, h2=h2, n=n)
         sketch_cuda.cu_update(state["totals"], state["cur"],
                               None if bnd is None else bnd.slab, frac, h1,
                               h2, target)
     else:
-        allowed, remaining, *target_pr = sketch_cuda.add_back(
+        allowed, remaining, *_ = sketch_cuda.add_back(
             state["totals"], state["cur"], h1, h2, n, n_f, avail, iters,
-            None if mine is None else est, mine, casc)
-    if mine is not None:
-        sketch_cuda.hh_update(state, h1, h2, n, allowed, mine, target_pr[0],
-                              thresh=hh_thresh, period=period)
+            None if mine is None else est, mine, casc, hh=tail)
     return allowed, remaining, est
 
 
@@ -306,27 +307,19 @@ def _sketch_reset(state: State, h1, h2, now_us: int, *, period: int,
     """Per-key reset, in place: subtract the key's current min-estimate
     from all its cells in both ``cur`` and ``totals`` (cells may go
     transiently negative; reads clamp at 0 and the next rollover heals).
-    The estimate is the front's (without ``n``), the subtraction the
-    add_update kernel with negated amounts. With a side table, the
-    sketch loses the sketch's part of the estimate only and an owned
-    key's cell its own part, each floored, as in the reference; the
-    cell's subtraction is the same kernel on the (1, K) table, whose
-    row-0 column is the slot ``h1 & (K-1)``. The tenant counters stand:
-    a reset forgives a key, not its tenant's admitted traffic."""
+    The estimate is the front's (without ``n``), floored. With a side
+    table, the sketch loses the sketch's part of the estimate only and
+    an owned key's cell its own part, each floored, as in the reference.
+    On the card it is one ``window_reset`` launch (ops/sketch_cuda.py).
+    The tenant counters stand: a reset forgives a key, not its tenant's
+    admitted traffic."""
     now_us = max(now_us, period * sub_us)
     bnd = _boundary(state, period, now_us, sub_us=sub_us, SW=SW, S=S,
                     weighted=weighted)
     side = _side(state, period, S=S, weighted=weighted)
-    out = sketch_cuda.window_front(state["totals"], (h1, h2), boundary=bnd,
-                                   hh=side)
-    est = out[2] if side is None else out[6][1]
-    sub = torch.floor(est).to(torch.int32)
-    sketch_cuda.add_update(state["totals"], state["cur"], h1, h2, -sub)
-    if side is not None:
-        K = state["hh_owner"].shape[0]
-        sub_hh = torch.floor(out[6][2]).to(torch.int32)
-        sketch_cuda.add_update(state["hh_totals"].view(1, K),
-                               state["hh_cur"].view(1, K), h1, h2, -sub_hh)
+    sketch_cuda.window_reset(state["totals"], state["cur"], h1, h2,
+                             boundary=bnd, hh=side,
+                             hh_cur=state.get("hh_cur"))
 
 
 def finish_window(allowed, remaining, now_us: int, window_us: int):

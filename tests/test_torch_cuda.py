@@ -89,7 +89,9 @@ def test_kernels_bit_equal_to_plain(dev, d, w, B):
                                   "add_update": 1, "add_back": 0,
                                   "admit": 0, "hh_update": 0,
                                   "add_back [cascade]": 0,
-                                  "admit [cascade]": 0}
+                                  "admit [cascade]": 0,
+                                  "hh_update [fused]": 0,
+                                  "window_reset": 0}
 
 
 def test_wrappers_refuse_mixed_devices(dev):
@@ -567,7 +569,9 @@ def test_backs_bit_equal_to_plain(dev, B, kind, iters):
                                   "add_update": 1, "add_back": fused,
                                   "admit": fused, "hh_update": 0,
                                   "add_back [cascade]": 0,
-                                  "admit [cascade]": 0}
+                                  "admit [cascade]": 0,
+                                  "hh_update [fused]": 0,
+                                  "window_reset": 0}
     assert bc.launch_counts() == {"bucket_estimate": 0, "bucket_update": 0,
                                   "admit": fused, "admit [cascade]": 0}
 
@@ -886,6 +890,96 @@ def test_side_table_kernels_bit_equal_to_plain(dev, K, B, kind):
     assert counts["add_update"] == 1
 
 
+@pytest.mark.parametrize("casc", [False, True])
+@pytest.mark.parametrize("B", [0, 1, 4096, sc.ADMIT_CAPACITY,
+                               sc.ADMIT_CAPACITY + 1])
+@pytest.mark.parametrize("K", [16, 256, 1 << 22])
+def test_side_table_tails_bit_equal_to_plain(dev, K, B, casc):
+    """The two backs' side-table builds with the side table's update as
+    their tail (``chip_smoke.tail_calls``), without and with the cascade
+    (``chip_smoke.side_cascade``), against the plain back followed by
+    ``hh_update_plain``, and against the parent's form (the build
+    without the tail, then the standalone hh_update): every output, the
+    sketch, every hh_* tensor and the scope counters. Shared scratch at
+    K = 16 and 256, global at 2^22. Up to ADMIT_CAPACITY keys each back
+    is one launch with its tail; above it the composed back and the
+    standalone hh_update."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(B + K + casc)
+    S, d, w = 4, 4, 1024
+    k1, k2 = _side_batch(rng, "zipf", B, K)
+    h1, h2 = torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev)
+    n = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32)).to(dev)
+    totals, boundary, cur = _slabs(rng, d, w, dev)
+    hh = _side_state(rng, k1, K, S, dev)
+    hh["hh_last"].fill_(-(1 << 40))
+    bnd = _valid_boundary(boundary)
+    side = sc.SideTable(hh["hh_owner"], hh["hh_totals"], hh["hh_slabs"][0])
+    front = sc.window_front_plain(totals, (h1, h2), n, boundary=bnd,
+                                  limit=60, hh=side)
+    c = cs.side_cascade(torch, rng, h1, h2, n) if casc else None
+    calls = cs.tail_calls(sc, totals, cur, front, h1, h2, n, hh, 1.0, 9, c)
+    sc.reset_launch_counts()
+    for name, (kern, plain, parent, *_) in calls.items():
+        got, want, old = kern(), plain(), parent()
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == len(old), name
+        for a, b, o in zip(got, want, old):
+            assert torch.equal(a, b) and torch.equal(a, o), name
+    fused = int(B <= sc.ADMIT_CAPACITY)
+    counts = sc.launch_counts()
+    build = " [cascade]" if casc else ""
+    assert counts["hh_update [fused]"] == 2 * fused
+    assert counts["hh_update"] == 2 * (1 - fused) + 2
+    assert counts[f"admit{build}"] == 2 * fused
+    assert counts[f"add_back{build}"] == 2 * fused
+    if K > sc.HH_SHARED_SLOTS:
+        # The global scratch is left zero for the next launch.
+        assert not sc._hh_scratch(dev, K, sc._stream(h1)).any()
+
+
+@pytest.mark.parametrize("B", [0, 1, 6, sc.RESET_CAPACITY, 4096,
+                               sc.ADMIT_CAPACITY, sc.ADMIT_CAPACITY + 1])
+@pytest.mark.parametrize("K", [0, 16, 256, 1 << 22])
+def test_window_reset_bit_equal_to_plain(dev, K, B):
+    """The reset kernel against ``window_reset_plain`` (the estimate-only
+    front, the floors, add_update), sliding (valid and stale boundary)
+    and fixed, without a side table (K = 0) and with one (a third of the
+    keys owned): totals, cur, hh_totals and hh_cur. Two keys share a
+    row-0 column. Up to RESET_CAPACITY keys one launch; above it the
+    composed reset (window_front, then one add_update a table)."""
+    rng = np.random.default_rng(B + K + 5)
+    S, d, w = 4, 4, 1024
+    k1, k2 = _side_batch(rng, "zipf", B, max(K, 16))
+    if B > 1:
+        k1[1] = k1[0]
+    h1, h2 = torch.from_numpy(k1).to(dev), torch.from_numpy(k2).to(dev)
+    totals, boundary, cur = _slabs(rng, d, w, dev)
+    hh = _side_state(rng, k1, K, S, dev) if K else None
+    sc.reset_launch_counts()
+    for bnd in (_valid_boundary(boundary), _valid_boundary(boundary,
+                                                           stale=True), None):
+        out = []
+        for fn in (sc.window_reset, sc.window_reset_plain):
+            t, c = totals.clone(), cur.clone()
+            g = None if hh is None else {k: v.clone() for k, v in hh.items()}
+            side = None if g is None else sc.SideTable(
+                g["hh_owner"], g["hh_totals"],
+                g["hh_slabs"][0] if bnd is not None else None)
+            fn(t, c, h1, h2, boundary=bnd, hh=side,
+               hh_cur=None if g is None else g["hh_cur"])
+            out.append([t, c] + ([] if g is None else [g["hh_totals"],
+                                                       g["hh_cur"]]))
+        torch.cuda.synchronize()
+        for a, b in zip(*out):
+            assert torch.equal(a, b)
+    fused = B <= sc.RESET_CAPACITY
+    counts = sc.launch_counts()
+    assert counts["window_reset"] == 3 * fused
+    assert counts["window_estimate"] == 3 * (not fused)
+    assert counts["add_update"] == 3 * (not fused) * (1 + bool(K))
+
+
 @pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "FIXED_WINDOW"])
 @pytest.mark.parametrize("cu", [True, False])
 def test_side_table_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu):
@@ -931,8 +1025,12 @@ def test_side_table_limiter_on_card_equals_limiter_on_cpu(dev, algo, cu):
     assert ga["hh_owner"].any()
     assert lims[0].consumer_stats() == lims[1].consumer_stats()
     back = ("admit", "cu_update") if cu else ("add_back",)
-    for k in ("window_estimate", "hh_update", *back):
+    for k in ("window_estimate", "hh_update [fused]", "window_reset", *back):
         assert counts[k] > 0, k
+    # The update ran as every back launch's tail, the card's one reset in
+    # one launch.
+    assert counts["hh_update"] == 0 and counts["window_reset"] == 1
+    assert counts["hh_update [fused]"] == counts[back[0]]
     for lim in lims:
         lim.close()
 
@@ -955,7 +1053,8 @@ def test_side_table_door_on_card_matches_cpu_replay(dev):
     out = chip_smoke.check_door(
         torch, cfg, "hh", conns=4, frames=24, n_ids=512, n_keys=64,
         counters=[sc], required=("window_estimate", "admit", "cu_update",
-                                 "hh_update"), same=("admit", "cu_update"))
+                                 "hh_update [fused]"),
+        same=("admit", "cu_update"))
     assert out["dispatches"] < out["frames"] == 96
     assert out["hh_tracked"] >= 1
 

@@ -349,8 +349,13 @@ def _own(arrays, h1, h2):
 
 def _steps(cfg_kw):
     """The JAX (h1, h2) step (jnp path, memoized per config by the JAX
-    package) and the port's, with the step's geometry."""
-    jcfg, tcfg = _cfg(R, **cfg_kw), _cfg(T, **cfg_kw)
+    package) and the port's, with the step's geometry; ``tenants`` in
+    ``cfg_kw`` adds the hierarchy (its table is the step's operand)."""
+    kw = dict(cfg_kw)
+    tenants = kw.pop("tenants", 0)
+    jcfg, tcfg = (_cfg(M, **kw, **({"hierarchy": M.HierarchySpec(
+        tenants=tenants, map_capacity=16)} if tenants else {}))
+        for M in (R, T))
     jstep = jsk.build_steps(jcfg)[0]
     tstep = tsk.build_steps(tcfg)[0]
     _, sub_us, SW, S, _ = tsk.sketch_geometry(tcfg)
@@ -479,6 +484,181 @@ def test_edge_batches(case, cu):
     if case == "one_slot_contention":
         slot = 5
         assert tst["hh_owner"][slot] != 0 and tst["hh_last"][slot] == p
+
+
+def _hier_arrays(rng, tenants: int, h1, h2) -> dict:
+    """A tenant table's device columns by hand: the keys (h1, h2) mapped
+    round-robin to tenants 1..T-1 (sorted packed halves, PAD_KEY-padded),
+    tight tenant limits (3-11) and a global one of 60, so that the
+    cascade denies some of what the key scope admits."""
+    from ratelimiter_tpu_torch.ops.policy_kernels import (
+        PAD_KEY,
+        pack_halves_host,
+    )
+
+    keys = np.unique(pack_halves_host(h1, h2))
+    P = 16
+    key = np.full(P, PAD_KEY, np.int64)
+    tid = np.zeros(P, np.int64)
+    key[:len(keys)] = keys
+    tid[:len(keys)] = 1 + np.arange(len(keys)) % (tenants - 1)
+    limit = rng.integers(3, 12, size=tenants + 1).astype(np.int64)
+    limit[0] = 1 << 40
+    limit[tenants] = 60
+    return {"key": key, "tid": tid, "limit": limit,
+            "weight": rng.integers(1, 4, size=tenants + 1).astype(np.int64)}
+
+
+def _tail_trace_batches(rng, K: int, w: int):
+    """Two batches over crafted slots (K = 16): slot 3 claimed by three
+    keys sharing h1 (equal mass: all denied on a flat sketch of 50), slot
+    5 by four keys of distinct h1 with equal mass, slot 7 owned by a key
+    sending n = 0 twice, slot 9 owned and counted, slot 11 claimed by one
+    key whose own cells are 0 (admitted, target 25); the second batch
+    counts that key in its new cell, sends the slot-3 winner again and
+    the n = 0 owner once more."""
+    shared = np.uint32(3 + 16 * 100)
+    h2s = rng.choice(1 << 31, size=3, replace=False).astype(np.uint32) | 1
+    distinct = np.array([5 + 16 * j for j in (1, 2, 3, 4)], np.uint32)
+    owner0, owner, promoted = (np.uint32(7 + 16 * 9), np.uint32(9 + 16 * 2),
+                               np.uint32(11 + 16 * 5))
+    h1 = np.array([shared] * 3 + list(distinct) + [owner0, owner0, owner,
+                                                   owner, promoted],
+                  np.uint32)
+    h2 = np.concatenate([h2s, rng.integers(1, 1 << 31, size=4).astype(
+        np.uint32) | 1, np.array([11, 11, 13, 13, 17], np.uint32)])
+    n1 = np.array([1, 1, 1, 1, 1, 1, 1, 0, 0, 2, 3, 25], np.int32)
+    second = (np.array([promoted, owner0, shared, promoted], np.uint32),
+              np.array([17, 11, h2s.max(), 17], np.uint32),
+              np.array([5, 0, 1, 2], np.int32))
+    return (h1, h2, n1), second
+
+
+@pytest.mark.parametrize("tenants", [0, 4])
+@pytest.mark.parametrize("cu", [True, False])
+def test_side_table_step_trace_through_the_backs_tail(cu, tenants):
+    """The side-table step as the backs run it now (the table's update as
+    the back's tail: on the CPU the plain back, then hh_update_plain)
+    against the JAX step, with and without tenants, over two batches of
+    one period (``_tail_trace_batches``): candidates claiming one slot
+    with equal mass and a shared h1 (the winners' largest h2 becomes
+    owner2), candidates of distinct h1 and equal mass on another (the
+    largest h1 wins), owned keys sending n = 0 (slot touched, nothing
+    counted), an owned key counted, and a key promoted by the first
+    batch and counted in its cell by the second. Every result and every
+    state array, hh_* and tn_* included, at tolerance 0."""
+    rng = np.random.default_rng(41 + 2 * cu + tenants)
+    K, d, w = 16, 4, 1024
+    cfg_kw = dict(STEP_KW, hh_slots=K, limit=40, cu=cu)
+    if tenants:
+        cfg_kw["tenants"] = tenants
+    jstep, tstep, sub_us, S = _steps(cfg_kw)
+    p = int(T0 * 1e6) // sub_us
+    arrays = _arrays(rng, K, S, d, w, p)
+    (h1, h2, n), second = _tail_trace_batches(rng, K, w)
+    # A flat sketch of 50 (every claim of one slot has equal mass), the
+    # boundary and the side table's boundary column empty, the owned and
+    # promoted keys' own cells 0 (they are admitted), no owners but two.
+    arrays["totals"][:] = 50
+    arrays["slabs"][p % S] = 0
+    arrays["hh_slabs"][p % S] = 0
+    arrays["hh_totals"][:] = 0
+    arrays["hh_totals"][9] = 3
+    for k in (9, 10, 11):
+        cols = (int(h1[k]) + np.arange(d) * int(h2[k])) % (1 << 32) % w
+        arrays["totals"][np.arange(d), cols] = 0
+    _own(arrays, int(h1[7]), int(h2[7]))
+    _own(arrays, int(h1[9]), int(h2[9]))
+    hier = None
+    if tenants:
+        T = tenants
+        arrays.update(tn_cur=np.zeros(T + 1, np.int32),
+                      tn_slabs=rng.integers(0, 3, size=(S, T + 1)).astype(
+                          np.int32),
+                      tn_totals=rng.integers(0, 5, size=T + 1).astype(
+                          np.int32))
+        # The owned keys and slot 5's claimants in tenants; the rest,
+        # the promoted key included, in the default tenant.
+        mapped = [3, 4, 5, 6, 9]
+        hier = _hier_arrays(rng, T, h1[mapped], h2[mapped])
+    js = {k: jnp.asarray(v) for k, v in arrays.items()}
+    ts = convert.state_from_numpy(arrays, "cpu")
+    jh = None if hier is None else {k: jnp.asarray(v)
+                                    for k, v in hier.items()}
+    th = None if hier is None else tsk.hier_tensors(hier, "cpu")
+    for step, (b1, b2, bn) in enumerate(((h1, h2, n), second)):
+        now_us = p * sub_us + 100_000 + 200_000 * step
+        js, jout = jstep(js, jnp.asarray(b1, jnp.uint32),
+                         jnp.asarray(b2, jnp.uint32),
+                         jnp.asarray(bn, jnp.int32), jnp.int64(now_us),
+                         None, jh)
+        tout = tstep(ts, torch.from_numpy(b1.astype(np.int64)),
+                     torch.from_numpy(b2.astype(np.int64)),
+                     torch.from_numpy(bn), now_us, None, th, period=p)
+        _assert_same_step(([np.asarray(x) for x in jout],
+                           [x.numpy() for x in tout],
+                           {k: np.asarray(v) for k, v in js.items()},
+                           convert.state_to_numpy(ts)))
+        tst = convert.state_to_numpy(ts)
+        if step == 0:
+            # The ties resolved as the trace intends, and slot 11 taken.
+            assert tst["hh_owner"][3] == h1[0]
+            assert tst["hh_owner2"][3] == h2[:3].max()
+            assert tst["hh_owner"][5] == h1[3:7].max()
+            assert tst["hh_owner"][11] == h1[11]
+            assert (tst["hh_last"][[3, 5, 7, 9, 11]] == p).all()
+            assert tst["hh_cur"][7] == arrays["hh_cur"][7]
+    # The promoted key's second-batch requests count in its cell.
+    assert tst["hh_cur"][11] == arrays["hh_cur"][11] + 7
+
+
+def test_window_reset_plain_matches_jax_reset_of_several_keys():
+    """``window_reset_plain`` (the reset kernel's plain version) on a
+    seeded batch of six keys, two of them sharing a column and one owned
+    by the side table, against the JAX package's ``_sketch_reset``:
+    sliding (a weighted boundary) and fixed, with and without a side
+    table; every state array at tolerance 0, and the shared column
+    losing both keys' estimates, each read before either was written."""
+    for algo in ("SLIDING_WINDOW", "FIXED_WINDOW"):
+        for K in (16, 0):
+            rng = np.random.default_rng(len(algo) + K)
+            cfg_kw = dict(STEP_KW, hh_slots=K, algo=algo)
+            jcfg, tcfg = _cfg(R, **cfg_kw), _cfg(T, **cfg_kw)
+            jreset = jsk.build_steps(jcfg)[1]
+            _, sub_us, SW, S, _ = tsk.sketch_geometry(tcfg)
+            p = int(T0 * 1e6) // sub_us
+            arrays = _arrays(rng, max(K, 16), S, 4, 1024, p)
+            if not K:
+                arrays = {k: v for k, v in arrays.items()
+                          if not k.startswith("hh_")}
+            ids = rng.integers(1, 1 << 40, size=6).astype(np.uint64)
+            h1, h2 = _halves(ids)
+            h1[1] = h1[0]                  # row 0: one column, two keys
+            if K:
+                _own(arrays, int(h1[4]), int(h2[4]))
+            now_us = p * sub_us + 412_345
+            js = {k: jnp.asarray(v) for k, v in arrays.items()}
+            js = jreset(js, jnp.asarray(h1, jnp.uint32),
+                        jnp.asarray(h2, jnp.uint32), jnp.int64(now_us))
+            ts = convert.state_from_numpy(arrays, "cpu")
+            weighted = algo == "SLIDING_WINDOW"
+            bnd = tsk._boundary(ts, p, now_us, sub_us=sub_us, SW=SW, S=S,
+                                weighted=weighted)
+            sc.window_reset_plain(
+                ts["totals"], ts["cur"], torch.from_numpy(
+                    h1.astype(np.int64)),
+                torch.from_numpy(h2.astype(np.int64)), boundary=bnd,
+                hh=tsk._side(ts, p, S=S, weighted=weighted),
+                hh_cur=ts.get("hh_cur"))
+            tst = convert.state_to_numpy(ts)
+            for k, v in js.items():
+                np.testing.assert_array_equal(np.asarray(v), tst[k],
+                                              err_msg=f"{algo} K={K} {k}")
+            c0 = int(h1[0]) % 1024
+            assert tst["totals"][0, c0] < arrays["totals"][0, c0]
+            if K:
+                sid = int(h1[4]) & (K - 1)
+                assert tst["hh_totals"][sid] != arrays["hh_totals"][sid]
 
 
 def test_limiter_padding_rows_go_through_the_side_table():
@@ -844,3 +1024,38 @@ def test_door_with_hh_slots_matches_a_replay(cu):
         n_keys=16, server_kw=dict(max_batch=256))
     assert out["dispatches"] < out["frames"] == 32
     assert out["hh_tracked"] >= 1 and out["hh_top_mass"][0] > 0
+
+
+def test_window_admit_takes_h2_and_n_from_the_cascade():
+    """With the cascade, ``window_admit``'s tail reads the batch's h2 and
+    n from the cascade's operands: given through ``casc`` alone or as
+    the same tensors by keyword, the same outputs, side table and scope
+    counters; other tensors are refused, not quietly replaced."""
+    rng = np.random.default_rng(23)
+    B, K = 96, 16
+    h1 = torch.from_numpy(rng.integers(1, 1 << 40, size=B))
+    h2 = torch.from_numpy(rng.integers(1, 1 << 40, size=B))
+    n = torch.from_numpy(rng.integers(0, 4, size=B).astype(np.int32))
+    est = torch.from_numpy(rng.integers(0, 60, size=B).astype(np.float32))
+    n_f, avail = n.float(), torch.full((B,), 50.0)
+    mine = h1 % 3 == 0
+    casc = chip_smoke.side_cascade(torch, rng, h1, h2, n)
+    hh = {"hh_owner": torch.where(torch.arange(K) % 2 == 0, 7, 0),
+          "hh_owner2": torch.zeros(K, dtype=torch.int64),
+          "hh_cur": torch.zeros(K, dtype=torch.int32),
+          "hh_totals": torch.zeros(K, dtype=torch.int32),
+          "hh_last": torch.zeros(K, dtype=torch.int64)}
+
+    def run(**kw):
+        st = {k: v.clone() for k, v in hh.items()}
+        c = casc._replace(counts=casc.counts.clone(), cur=casc.cur.clone())
+        out = sc.window_admit(h1, est, n_f, avail, 4, mine, c,
+                              hh=sc.SideUpdate(st, 10.0, 5), **kw)
+        return [*out, *st.values(), c.counts, c.cur]
+
+    for a, b in zip(run(), run(h2=casc.h2, n=casc.n)):
+        assert torch.equal(a, b)
+    for kw in (dict(h2=h2.clone()), dict(n=n.clone()),
+               dict(h2=h2.clone(), n=n)):
+        with pytest.raises(ValueError, match="the cascade's"):
+            run(**kw)

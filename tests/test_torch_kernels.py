@@ -239,11 +239,31 @@ def test_plain_versions_do_not_count_launches():
     ones = torch.ones(B, dtype=torch.float32)
     sc.add_back(_t(totals), _t(cur), _th(h1), _th(h2), n, ones, ones, 4)
     sc.window_admit(_th(h1), ones, ones, ones, 4)
+    # The side table's tails, its standalone update and the reset.
+    K = 16
+    hh = {"hh_owner": torch.zeros(K, dtype=torch.int64),
+          "hh_owner2": torch.zeros(K, dtype=torch.int64),
+          "hh_cur": torch.zeros(K, dtype=torch.int32),
+          "hh_totals": torch.zeros(K, dtype=torch.int32),
+          "hh_last": torch.zeros(K, dtype=torch.int64)}
+    tail = sc.SideUpdate(hh, 1.0, 7)
+    mine = torch.zeros(B, dtype=torch.bool)
+    _, allowed, _, target_pr = sc.window_admit(
+        _th(h1), ones, ones, ones, 4, mine, hh=tail, h2=_th(h2), n=n)
+    sc.add_back(_t(totals), _t(cur), _th(h1), _th(h2), n, ones, ones, 4,
+                ones, mine, hh=tail)
+    sc.hh_update(hh, _th(h1), _th(h2), n, allowed, mine, target_pr,
+                 thresh=1.0, period=7)
+    sc.window_reset(_t(totals), _t(cur), _th(h1), _th(h2),
+                    hh=sc.SideTable(hh["hh_owner"], hh["hh_totals"], None),
+                    hh_cur=hh["hh_cur"])
     assert sc.launch_counts() == {"window_estimate": 0, "cu_update": 0,
                                   "add_update": 0, "add_back": 0,
                                   "admit": 0, "hh_update": 0,
                                   "add_back [cascade]": 0,
-                                  "admit [cascade]": 0}
+                                  "admit [cascade]": 0,
+                                  "hh_update [fused]": 0,
+                                  "window_reset": 0}
 
 
 @pytest.mark.parametrize("w,batch,given,want", [
