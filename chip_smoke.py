@@ -164,7 +164,37 @@ Phases (each raises on failure; the script exits non-zero):
    limiter on the system clock, without the proxy, as
    ``python -m ratelimiter_tpu_torch.serving`` serves it. Decisions/s
    through the door, frames a dispatch and p50/p99 frame latency of both
-   runs are printed side by side;
+   runs are printed side by side. Every door runs under the binary's
+   default decorator stack (``MetricsDecorator``, the event journal), and
+   METRICS must show as many allowed plus denied decisions, and requests,
+   as were served, and one front launch for each window;
+   observe. the observability stack (``run_observe``; ``--observe`` runs
+   it alone, ~2-3 min after the build): (a) the three doors above
+   (windowed CU, CU with the side table, TB-c2) again under the binary's
+   full stack (``--trace --circuit-breaker --log-decisions
+   --log-redact-keys --flight-recorder``), each held as above, with every
+   frame stage's ``rate_limiter_stage_seconds`` count non-zero; (b) 32
+   traced ALLOW_HASHED and 8 traced ALLOW_N frames in-process, one at a
+   time: each trace id's spans form the span tree (io, coalesce, queue,
+   launch, device, resolve, encode, in that order) and ``chrome_trace()``
+   parses; (c) 16 frames with an expired deadline, fail-open and
+   fail-closed, shed with no launch and counted by
+   ``rate_limiter_server_deadline_shed_total``, then 16 with 10 s equal
+   to a CPU limiter; (d) the binary with ``--event-journal-dir``: a
+   POLICY_SET, a POLICY_DEL and a RESET journaled in order with
+   ``key_token`` keys, and with the tenant flags and ``--controller``
+   under phase 5's storm, the controller's two tightens of free, two
+   ticks apart, under two correlation ids, one a tick; (e) ``--circuit-breaker --breaker-threshold
+   3`` on a ManualClock with a failure injected: it trips after 3, short
+   circuits with no launch, a probe after the cooldown reaches the
+   limiter, and after ``heal()`` one reaches the card and closes it; (f)
+   ``TracingDecorator.capture`` around 16 config-3 CU batches: the trace
+   holds a ``launch`` and a ``resolve`` range a batch and the step's
+   kernels by name; the top 10 device ops and the host ms a batch in
+   each range are printed; (g) ``time_door`` on windowed CU and TB-c2,
+   bare (``--no-metrics --no-event-journal``), default and full stack in
+   turns, 3 rounds: decisions/s and p50/p99 a round, the flight
+   recorder's split by stage, printed (nothing is gated on them);
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -228,6 +258,9 @@ the rest of phase 2 alone (the kernel rows, ``hh_update`` and the
 side-table forms),
 through wrappers an earlier checkout has too, so a copy of this script
 in the parent's checkout times the parent's builds in the same call.
+
+``--observe`` builds, then runs phase observe alone and prints its
+results as one JSON line before the card's line.
 
 ``--dense`` builds, then runs the dense parts alone (the dense rows
 of phase 2 with the step's split, the dense and exact paths, their
@@ -2982,7 +3015,10 @@ class RecordingLimiter:
     ``now`` in the order the calls reach the limiter (the order of the
     state updates on the card: every thread enqueues on the default
     stream, under this proxy's lock). It also sums the launches' wall
-    time and the launching thread's CPU time."""
+    time and the launching thread's CPU time. A ``now`` passed in (the
+    decorators pass None) is replaced by its own. Anything else (the
+    envelope and gauge reads of ``MetricsDecorator``, ``device``) is the
+    limiter's (``__getattr__``)."""
 
     def __init__(self, inner, t0: float):
         self.inner = inner
@@ -3007,7 +3043,7 @@ class RecordingLimiter:
         self.launch_cpu_s += time.thread_time() - cpu
         return ticket
 
-    def launch_ids(self, ids, ns=None, *, wire: bool = False):
+    def launch_ids(self, ids, ns=None, *, now=None, wire: bool = False):
         with self._lock:
             now = self._now()
             ticket = self._timed(self.inner.launch_ids, ids, ns, now=now,
@@ -3015,7 +3051,7 @@ class RecordingLimiter:
             self.log.append(("ids", np.array(ids), np.array(ns), now))
         return ticket
 
-    def launch_batch(self, keys, ns=None):
+    def launch_batch(self, keys, ns=None, *, now=None):
         with self._lock:
             now = self._now()
             ticket = self._timed(self.inner.launch_batch, keys, ns, now=now)
@@ -3031,17 +3067,12 @@ class RecordingLimiter:
     def resolve(self, ticket):
         return self.inner.resolve(ticket)
 
-    def allow_ids(self, ids, ns=None):
+    def allow_ids(self, ids, ns=None, *, now=None):
         """Marks the raw-id lane (the batcher looks for it)."""
         return self.resolve(self.launch_ids(ids, ns))
 
-    @property
-    def has_hh(self) -> bool:
-        """The server registers the side table's gauges by this."""
-        return getattr(self.inner, "has_hh", False)
-
-    def consumer_stats(self, k: int = 10) -> dict:
-        return self.inner.consumer_stats(k)
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
 
 def door_keys(rng, space: str, n: int) -> list:
@@ -3296,20 +3327,65 @@ def metric_value(text: str, sample: str) -> float:
     raise AssertionError(f"{sample} not in the METRICS text")
 
 
+#: The binary's observability flags for the door runs: its default
+#: stack (MetricsDecorator, the event journal), the full stack (every
+#: decorator and the flight recorder) and the bare door (neither).
+DEFAULT_STACK = ()
+FULL_STACK = ("--trace", "--circuit-breaker", "--log-decisions",
+              "--log-redact-keys", "--flight-recorder")
+BARE_STACK = ("--no-metrics", "--no-event-journal")
+
+
+class door_stack:
+    """``with door_stack(flags) as (wrap, registry)``: what
+    ``python -m ratelimiter_tpu_torch.serving`` sets up from its
+    observability ``flags`` — the flight recorder and the event journal
+    (``enable_observability``, both in a fresh registry, turned off
+    again on exit) and ``wrap(limiter)``, its decorator stack
+    (``build_limiter_stack``) registering there too."""
+
+    def __init__(self, flags=DEFAULT_STACK):
+        from ratelimiter_tpu_torch.serving.__main__ import parse_args
+
+        self.args = parse_args(list(flags))
+
+    def __enter__(self):
+        from ratelimiter_tpu_torch.observability.metrics import Registry
+        from ratelimiter_tpu_torch.serving.__main__ import (
+            build_limiter_stack,
+            enable_observability,
+        )
+
+        registry = Registry()
+        enable_observability(self.args, registry)
+        return (lambda lim: build_limiter_stack(lim, self.args,
+                                                registry=registry),
+                registry)
+
+    def __exit__(self, *exc):
+        from ratelimiter_tpu_torch.observability import events, tracing
+
+        tracing.disable()
+        events.disable()
+
+
 def serve_door(limiter, *, seed: int, space: str, conns: int, frames: int,
                n_ids: int, n_keys: int, depth: int, counters=(),
-               server_kw=None) -> dict:
-    """The port's server over ``limiter`` with the micro-batcher at its
-    defaults (``server_kw`` overrides them), driven by ``door_client`` in
-    a child process; the launch counts of ``counters`` are set to 0 once
-    the server listens. Returns what the client read, plus the server's
-    CPU seconds."""
-    from ratelimiter_tpu_torch.observability.metrics import Registry
+               server_kw=None, flags=DEFAULT_STACK) -> dict:
+    """The port's server over ``limiter`` wrapped as the binary wraps it
+    under the observability ``flags`` (``door_stack``), with the
+    micro-batcher at its defaults (``server_kw`` overrides them), driven
+    by ``door_client`` in a child process; the launch counts of
+    ``counters`` are set to 0 once the server listens. Returns what the
+    client read, plus the server's CPU seconds and, with
+    ``--flight-recorder``, the recorder's spans and their split by stage
+    (``stage_split``; None without it)."""
+    from ratelimiter_tpu_torch.observability import tracing
     from ratelimiter_tpu_torch.serving.server import RateLimitServer
 
-    async def main():
-        srv = RateLimitServer(limiter, "127.0.0.1", 0, registry=Registry(),
-                              **(server_kw or {}))
+    async def main(wrap, registry):
+        srv = RateLimitServer(wrap(limiter), "127.0.0.1", 0,
+                              registry=registry, **(server_kw or {}))
         await srv.start()
         for mod in counters:
             mod.reset_launch_counts()
@@ -3321,11 +3397,16 @@ def serve_door(limiter, *, seed: int, space: str, conns: int, frames: int,
             got = await asyncio.get_running_loop().run_in_executor(
                 None, _run_door_client, args, 600.0)
             got["server_cpu_s"] = time.process_time() - cpu
+            rec = tracing.get()
+            got["spans"] = rec.dump() if rec is not None else []
+            got["stages"] = (stage_split(got["spans"]) if rec is not None
+                             else None)
             return got
         finally:
             await srv.shutdown()
 
-    return asyncio.run(main())
+    with door_stack(flags) as (wrap, registry):
+        return asyncio.run(main(wrap, registry))
 
 
 def _door_readings(name: str, got: dict) -> dict:
@@ -3360,22 +3441,26 @@ def _door_readings(name: str, got: dict) -> dict:
 def time_door(cfg, label: str, *, seed: int = 0, space: str = "zipf",
               conns: int = DOOR_CONNS, frames: int = DOOR_FRAMES,
               n_ids: int = DOOR_IDS, n_keys: int = DOOR_KEYS,
-              depth: int = DOOR_DEPTH) -> dict:
-    """The door as ``python -m ratelimiter_tpu_torch.serving`` runs it: the
-    server straight over a limiter on the card and the system clock, no
-    recording proxy, driven by the same client as ``check_door``. Only
-    timed; ``check_door`` holds the answers."""
+              depth: int = DOOR_DEPTH, flags=DEFAULT_STACK) -> dict:
+    """The door as ``python -m ratelimiter_tpu_torch.serving`` runs it
+    under the observability ``flags``: the server over a limiter on the
+    card and the system clock, no recording proxy, driven by the same
+    client as ``check_door``. Only timed; ``check_door`` holds the
+    answers. With ``--flight-recorder`` the readings carry the
+    recorder's per-stage split (``stages``)."""
     from ratelimiter_tpu_torch import create_limiter
 
     served = create_limiter(cfg, backend="sketch", device="cuda")
     try:
         got = serve_door(served, seed=seed, space=space, conns=conns,
                          frames=frames, n_ids=n_ids, n_keys=n_keys,
-                         depth=depth)
+                         depth=depth, flags=flags)
     finally:
         served.close()
     out = _door_readings(f"door[{label}, unproxied]", got)
-    log(f"door[{label}] unproxied on cuda: {out['frames']} frames in "
+    out.update(stages=got["stages"], spans=got["spans"])
+    log(f"door[{label}] unproxied on cuda {' '.join(flags)}: "
+        f"{out['frames']} frames in "
         f"{out['dispatches']} dispatches ({out['frames_per_dispatch']:.2f} "
         f"frames a dispatch); {out['decisions_per_s']:.0f} decisions/s, "
         f"frame latency p50 {out['p50_ms']:.2f} ms p99 "
@@ -3383,24 +3468,68 @@ def time_door(cfg, label: str, *, seed: int = 0, space: str = "zipf",
     return out
 
 
+def hold_door_metrics(name: str, text: str, decisions: int,
+                      flags) -> dict:
+    """What the binary's stack under ``flags`` shows on the METRICS frame
+    read after the last decision. With MetricsDecorator:
+    ``rate_limiter_decisions_allowed_total`` + ``_denied_total`` and
+    ``rate_limiter_requests_total`` (every label set) each equal to the
+    decisions served. With the flight recorder: a non-zero
+    ``rate_limiter_stage_seconds`` count for every stage of a frame."""
+    def total(family: str) -> float:
+        return sum(float(line.rsplit(" ", 1)[1])
+                   for line in text.splitlines()
+                   if line.startswith((family + "{", family + " ")))
+
+    out = {}
+    if "--no-metrics" not in flags:
+        allowed = total("rate_limiter_decisions_allowed_total")
+        denied = total("rate_limiter_decisions_denied_total")
+        requests = total("rate_limiter_requests_total")
+        if allowed + denied != decisions or requests != decisions:
+            raise AssertionError(
+                f"{name}: METRICS counts {allowed:g} allowed + {denied:g} "
+                f"denied decisions and {requests:g} requests for "
+                f"{decisions} decisions served")
+        out.update(allowed=int(allowed), denied=int(denied))
+    if "--flight-recorder" in flags:
+        counts = {st: total(f'rate_limiter_stage_seconds_count{{stage='
+                            f'"{st}"}}') for st in FRAME_STAGES}
+        if not all(counts.values()):
+            raise AssertionError(f"{name}: stage counts on METRICS {counts}")
+        out["stage_counts"] = counts
+    return out
+
+
+#: The flight recorder's stages of one frame through the door.
+FRAME_STAGES = ("io", "coalesce", "launch", "device", "resolve", "encode")
+
+
 def check_door(torch, cfg, label: str, *, device: str = "cuda",
                seed: int = 0, space: str = "zipf", conns: int = DOOR_CONNS,
                frames: int = DOOR_FRAMES, n_ids: int = DOOR_IDS,
                n_keys: int = DOOR_KEYS, depth: int = DOOR_DEPTH,
-               counters=(), required=(), same=None, server_kw=None,
-               setup=None) -> dict:
+               counters=(), required=(), same=None, front=None,
+               front_per_reset: int = 0, server_kw=None, setup=None,
+               flags=DEFAULT_STACK) -> dict:
     """The port's server over ``cfg`` (``serve_door``) through a
-    ``RecordingLimiter``. Every frame's answer must be bit-identical to a
-    CPU replay of the windows the batcher launched, the final state to
-    the replay's, HEALTH must count every decision, METRICS must show
-    fewer dispatches than frames (one for each window launched), and each
-    kernel in ``required`` must have launched; ``same`` names two counts
-    that must be equal (an admission launch for every update: no composed
-    back). Returns the door's readings, which include the proxy's own
-    cost (a lock, a copy of each window's arrays, a clock set and two
-    timer reads per launch); ``time_door`` times the door without it.
-    ``setup`` (the binary's tenant flags, say) is applied to the served
-    limiter and to the replay's before any frame."""
+    ``RecordingLimiter`` under the binary's decorator stack for ``flags``
+    (the default stack unless told). Every frame's answer must be
+    bit-identical to a CPU replay of the windows the batcher launched,
+    the final state to the replay's, HEALTH must count every decision,
+    METRICS must show fewer dispatches than frames (one for each window
+    launched) and what the stack counts (``hold_door_metrics``), and
+    each kernel in ``required`` must have launched; ``same`` names two
+    counts that must be equal (an admission launch for every update: no
+    composed back), ``front`` a count that must equal the windows
+    launched (every window went through that kernel) plus
+    ``front_per_reset`` a reset (the bucket's reset reads its estimate
+    with the front). Returns the door's
+    readings, which include the proxy's own cost (a lock, a copy of each
+    window's arrays, a clock set and two timer reads per launch);
+    ``time_door`` times the door without it. ``setup`` (the binary's
+    tenant flags, say) is applied to the served limiter and to the
+    replay's before any frame."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
 
     served = create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
@@ -3410,7 +3539,7 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     rec = RecordingLimiter(served, T0)
     got = serve_door(rec, seed=seed, space=space, conns=conns,
                      frames=frames, n_ids=n_ids, n_keys=n_keys, depth=depth,
-                     counters=counters, server_kw=server_kw)
+                     counters=counters, server_kw=server_kw, flags=flags)
     if device == "cuda":
         torch.cuda.synchronize()
     counts = {}
@@ -3421,7 +3550,10 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     served.close()
     name = f"door[{label}]"
     out = _door_readings(name, got)
-    if stats["slots"]:
+    out.update(hold_door_metrics(name, got["metrics"], out["decisions"],
+                                 flags))
+    out["stages"] = got["stages"]
+    if stats["slots"] and "--no-metrics" not in flags:
         out.update(hold_consumer_gauges(name, got["metrics"], stats))
     replayed, cpu = replay_windows(cfg, rec.log, setup)
     _hold_door_frames(name, rec.log, replayed, got["conns"], n_ids, n_keys)
@@ -3442,6 +3574,11 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
         raise AssertionError(f"{name}: {counts[same[0]]} {same[0]} "
                              f"launches for {counts[same[1]]} {same[1]}: "
                              f"the composed back ran")
+    resets = sum(kind == "reset" for kind, *_ in rec.log)
+    if front is not None and \
+            counts[front] != windows + front_per_reset * resets:
+        raise AssertionError(f"{name}: {counts[front]} {front} launches "
+                             f"for {windows} windows and {resets} resets")
 
     def mean_ms(family: str) -> float:
         return 1e3 * (metric_value(got["metrics"], family + "_sum")
@@ -3450,7 +3587,7 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
     out.update({
         "counts": counts,
         "inversions": sum(o["inversions"] for o in got["conns"]),
-        "resets": sum(kind == "reset" for kind, *_ in rec.log),
+        "resets": resets,
         "launch_ms_mean": mean_ms("rate_limiter_pipeline_launch_seconds"),
         "resolve_ms_mean": mean_ms("rate_limiter_pipeline_resolve_seconds"),
         "dispatch_ms_mean": mean_ms("rate_limiter_server_dispatch_seconds"),
@@ -4190,6 +4327,36 @@ def check_durable_door(cfg, *, device: str = "cuda", seed: int = 0,
     return out
 
 
+def tenant_storm(c) -> float:
+    """The hot-tenant storm of ``check_tenant_durable_door`` (step 2)
+    through ``c``, a ``DoorClient`` of the tenant binary with the
+    controller: free's assigned keys ask for 75 each, then 450
+    unassigned keys for 100 each; METRICS is read until free's effective
+    limit moves (or 5 s pass). Returns free's effective limit then."""
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    free_keys = [f"u:{i}" for i in range(TENANT_ASSIGNED) if i % 15 == 1]
+    c.call(p.encode_allow_batch, free_keys, [75] * len(free_keys))
+    herd = [f"storm:{i}" for i in range(450)]
+    c.call(p.encode_allow_batch, herd, [100] * len(herd))
+    return free_effective_below(c, 5000)
+
+
+def free_effective_below(c, limit: int, polls: int = 100) -> float:
+    """Free's effective limit on METRICS, read through ``c`` every 50 ms
+    until it falls below ``limit`` (or ``polls`` reads pass)."""
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    sample = 'rate_limiter_hier_effective_limit{scope="free"}'
+    for _ in range(polls):
+        _, body = c.call(lambda rid: p.encode_simple(p.T_METRICS, rid))
+        text = p.parse_metrics(body)
+        if sample in text and metric_value(text, sample) < limit:
+            break
+        time.sleep(0.05)
+    return metric_value(text, sample)
+
+
 def check_tenant_durable_door(cfg, *, device: str = "cuda",
                               seed: int = 0) -> dict:
     """Phase 5.4: the durable binary serving the documented tenant
@@ -4244,17 +4411,7 @@ def check_tenant_durable_door(cfg, *, device: str = "cuda",
         servers.append(srv)
         c = DoorClient(srv.port)
         t_first = time.time()
-        c.call(p.encode_allow_batch, free_keys, [75] * len(free_keys))
-        herd = [f"storm:{i}" for i in range(450)]
-        c.call(p.encode_allow_batch, herd, [100] * len(herd))
-        sample = 'rate_limiter_hier_effective_limit{scope="free"}'
-        for _ in range(100):
-            _, body = c.call(lambda rid: p.encode_simple(p.T_METRICS, rid))
-            text = p.parse_metrics(body)
-            if sample in text and metric_value(text, sample) < 5000:
-                break
-            time.sleep(0.05)
-        moved = metric_value(text, sample)
+        moved = tenant_storm(c)
         if moved != 3500:
             raise AssertionError(f"the controller moved free to {moved}, "
                                  f"not 3500")
@@ -4912,7 +5069,7 @@ class KeyRecorder:
         self.clock.set(now)
         return now
 
-    def allow_batch(self, keys, ns=None):
+    def allow_batch(self, keys, ns=None, *, now=None):
         """The batcher's blocking decide (these backends resolve at
         launch, so the door does not pipeline them)."""
         with self._lock:
@@ -4933,7 +5090,7 @@ class KeyRecorder:
 
 def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
                        seed: int = 0, frames: int = 40, depth: int = 8,
-                       n_keys: int = 64) -> dict:
+                       n_keys: int = 64, flags=DEFAULT_STACK) -> dict:
     """Phase 4 for the dense and exact backends: the port's door over
     ``backend`` (micro-batcher at its defaults) on one connection
     pipelining ``frames`` ALLOW_BATCH frames of ``n_keys`` string keys
@@ -4942,7 +5099,9 @@ def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
     (requests keep their order across windows on one connection), the
     final state to the replay's; ALLOW_HASHED must be refused
     (InvalidConfigError, as the JAX batcher refuses a backend without the
-    raw-id lane); HEALTH counts every decision."""
+    raw-id lane, which the door looks for on the backend under the
+    binary's decorator stack for ``flags``); HEALTH counts every
+    decision."""
     from ratelimiter_tpu_torch import ManualClock, create_limiter
     from ratelimiter_tpu_torch.serving import protocol as p
     from ratelimiter_tpu_torch.serving.server import run_server
@@ -4967,8 +5126,8 @@ def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
                      [int(x) for x in rng.integers(1, 3, n_keys)]))
     answers = {}
 
-    async def main():
-        srv = await run_server(rec, "127.0.0.1", 0)
+    async def main(served, registry):
+        srv = await run_server(served, "127.0.0.1", 0, registry=registry)
         reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
         sent = 0
 
@@ -5005,7 +5164,8 @@ def check_backend_door(torch, cfg, backend: str, *, device: str = "cuda",
             await srv.shutdown()
 
     t = time.perf_counter()
-    asyncio.run(main())
+    with door_stack(flags) as (wrap, registry):
+        asyncio.run(main(wrap(rec), registry))
     wall = time.perf_counter() - t
     name = f"door[{backend} {cfg.algorithm.value}]"
     type_, body = answers.pop(10 ** 6)
@@ -5515,6 +5675,645 @@ def run_dense_slice(torch, seed: int) -> dict:
             "evaluation": check_eval_path(torch, seed)}
 
 
+# ------------------------------------------------ phase observe (A13a)
+
+
+#: The frame stages of the flight recorder, in the order one frame alone
+#: in its window crosses them.
+SPAN_CHAIN = ("io", "coalesce", "queue", "launch", "device", "resolve",
+              "encode")
+
+
+def hold_span_tree(spans: list, tid: int) -> dict:
+    """The span-tree oracle for one traced frame sent alone (the JAX
+    package's ``tests/test_tracing.py::_assert_span_tree`` with the order
+    of the stages): every stage of ``SPAN_CHAIN`` present under the trace
+    id, each span's end at or after its start, same-stage spans of one
+    thread not overlapping, ``io`` starting first and each stage after
+    ``coalesce`` starting no earlier than the one before it ended.
+    Returns the first span's microseconds by stage."""
+    mine = [sp for sp in spans if sp["trace_id"] == tid]
+    missing = set(SPAN_CHAIN) - {sp["stage"] for sp in mine}
+    if missing:
+        raise AssertionError(f"trace {tid:016x}: stages {sorted(missing)} "
+                             f"missing")
+    by: dict = {}
+    for sp in mine:
+        if sp["t_end_ns"] < sp["t_start_ns"]:
+            raise AssertionError(f"trace {tid:016x}: span ends before it "
+                                 f"starts: {sp}")
+        by.setdefault((sp["thread"], sp["stage"]), []).append(sp)
+    for (_, stage), group in by.items():
+        group.sort(key=lambda sp: sp["t_start_ns"])
+        for a, b in zip(group, group[1:]):
+            if a["t_end_ns"] > b["t_start_ns"]:
+                raise AssertionError(f"trace {tid:016x}: overlapping {stage} "
+                                     f"spans in one thread")
+    first = {st: min((sp for sp in mine if sp["stage"] == st),
+                     key=lambda sp: sp["t_start_ns"]) for st in SPAN_CHAIN}
+    if first["io"]["t_start_ns"] > first["coalesce"]["t_start_ns"]:
+        raise AssertionError(f"trace {tid:016x}: coalesce before io")
+    for a, b in zip(SPAN_CHAIN[1:], SPAN_CHAIN[2:]):
+        if first[b]["t_start_ns"] < first[a]["t_end_ns"]:
+            raise AssertionError(f"trace {tid:016x}: {b} starts before "
+                                 f"{a} ends")
+    return {st: (sp["t_end_ns"] - sp["t_start_ns"]) / 1e3
+            for st, sp in first.items()}
+
+
+def stage_split(spans: list) -> dict:
+    """{stage: {count, p50_us, p99_us, mean_us}} over recorded spans."""
+    per: dict = {}
+    for sp in spans:
+        per.setdefault(sp["stage"], []).append(
+            (sp["t_end_ns"] - sp["t_start_ns"]) / 1e3)
+    return {st: {"count": len(v), "p50_us": float(np.percentile(v, 50)),
+                 "p99_us": float(np.percentile(v, 99)),
+                 "mean_us": float(np.mean(v))} for st, v in per.items()}
+
+
+async def _roundtrip(reader, writer, frame: bytes):
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    writer.write(frame)
+    await writer.drain()
+    length, type_, rid = p.parse_header(await reader.readexactly(13))
+    return type_, rid, await reader.readexactly(length - 9)
+
+
+def check_traced_frames(cfg, *, device: str = "cuda", hashed: int = 32,
+                        allow_n: int = 8, n_ids: int = 512, seed: int = 0,
+                        flags=FULL_STACK) -> dict:
+    """(b) In-process, the port's door under the binary's stack for
+    ``flags`` (the flight recorder on) answers ``hashed`` traced
+    ALLOW_HASHED frames of ``n_ids`` Zipf ids and ``allow_n`` traced
+    ALLOW_N frames, one at a time (each alone in its window): every
+    reply a result, every trace id's spans the span tree
+    (``hold_span_tree``), and the recorder's ``chrome_trace()`` a JSON
+    document holding every span."""
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.observability import tracing
+    from ratelimiter_tpu_torch.serving import protocol as p
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    rng = np.random.default_rng(seed + 29)
+    lim = create_limiter(cfg, backend="sketch", device=device)
+    tids = []
+    with door_stack(flags) as (wrap, registry):
+        rec = tracing.get()
+
+        async def main():
+            srv = RateLimitServer(wrap(lim), "127.0.0.1", 0,
+                                  registry=registry)
+            await srv.start()
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           srv.port)
+            try:
+                for i in range(hashed + allow_n):
+                    tid = tracing.new_trace_id()
+                    tids.append(tid)
+                    frame = (p.encode_allow_hashed(i, zipf_ids(rng, n_ids))
+                             if i < hashed else p.encode_allow_n(
+                                 i, f"user:{int(zipf_ids(rng, 1)[0])}", 1))
+                    t, rid, _ = await _roundtrip(reader, writer,
+                                                 p.with_trace(frame, tid))
+                    want = p.T_RESULT_HASHED if i < hashed else p.T_RESULT
+                    if (t, rid) != (want, i):
+                        raise AssertionError(f"traced frame {i} answered "
+                                             f"{t}")
+            finally:
+                writer.close()
+                await writer.wait_closed()
+                await srv.shutdown()
+
+        asyncio.run(main())
+        spans = rec.dump()
+        doc = json.loads(json.dumps(rec.chrome_trace()))
+    lim.close()
+    trees = [hold_span_tree(spans, tid) for tid in tids]
+    events = doc["traceEvents"]
+    if len(events) != len(spans) or any(e["ph"] != "X" for e in events):
+        raise AssertionError(f"chrome_trace holds {len(events)} events for "
+                             f"{len(spans)} spans")
+    out = {"frames": len(tids), "spans": len(spans),
+           "hashed_frame_us": {st: float(np.median(
+               [t[st] for t in trees[:hashed]])) for st in SPAN_CHAIN},
+           "allow_n_frame_us": {st: float(np.median(
+               [t[st] for t in trees[hashed:]])) for st in SPAN_CHAIN}}
+    log(f"traced frames on {device}: {hashed} ALLOW_HASHED and {allow_n} "
+        f"ALLOW_N frames, every trace id's {len(SPAN_CHAIN)} stages in "
+        f"order, chrome_trace() {len(events)} events; median us by stage "
+        f"(hashed) {out['hashed_frame_us']}")
+    return out
+
+
+def check_deadlines(cfg, *, device: str = "cuda", counters=(),
+                    frames: int = 16, n_ids: int = 512,
+                    seed: int = 0) -> dict:
+    """(c) Deadline shedding through the door under the default stack,
+    fail-open and fail-closed: ``frames`` frames (3 in 4 ALLOW_HASHED of
+    ``n_ids`` ids, the rest ALLOW_N) with an expired budget are shed —
+    a fail-open allowance (reset at the clock's now plus the window) or
+    E_DEADLINE — with no launch on the card (``counters``), and
+    ``rate_limiter_server_deadline_shed_total`` counts their decisions;
+    then ``frames`` frames with a 10 s budget, one at a time, answer as a
+    CPU limiter decides them."""
+    from dataclasses import replace
+
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.core.types import (
+        batch_fail_open,
+        fail_open_result,
+    )
+    from ratelimiter_tpu_torch.serving import protocol as p
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    out = {}
+    for fail_open in (True, False):
+        c = replace(cfg, fail_open=fail_open)
+        served = create_limiter(c, backend="sketch", clock=ManualClock(T0),
+                                device=device)
+        mirror = create_limiter(c, backend="sketch", clock=ManualClock(T0),
+                                device="cpu")
+        rng = np.random.default_rng(seed + 31)
+        plan = [("ids", zipf_ids(rng, n_ids)) if i % 4 else
+                ("n", f"user:{int(zipf_ids(rng, 1)[0])}")
+                for i in range(2 * frames)]
+
+        def frame(i, budget):
+            kind, a = plan[i]
+            f = (p.encode_allow_hashed(i, a) if kind == "ids"
+                 else p.encode_allow_n(i, a, 1))
+            return p.with_deadline(f, budget)
+
+        name = f"deadlines[{'fail-open' if fail_open else 'fail-closed'}]"
+        with door_stack() as (wrap, registry):
+            async def main():
+                srv = RateLimitServer(wrap(served), "127.0.0.1", 0,
+                                      registry=registry)
+                await srv.start()
+                reader, writer = await asyncio.open_connection(
+                    "127.0.0.1", srv.port)
+                try:
+                    for mod in counters:
+                        mod.reset_launch_counts()
+                    writer.write(b"".join(frame(i, -1.0)
+                                          for i in range(frames)))
+                    await writer.drain()
+                    shed = {}
+                    for _ in range(frames):
+                        length, t, rid = p.parse_header(
+                            await reader.readexactly(13))
+                        shed[rid] = (t, await reader.readexactly(length - 9))
+                    if device == "cuda":
+                        import torch
+
+                        torch.cuda.synchronize()
+                    counts = {}
+                    for mod in counters:
+                        counts.update(mod.launch_counts())
+                    live = [await _roundtrip(reader, writer,
+                                             frame(i, 10.0))
+                            for i in range(frames, 2 * frames)]
+                    t, _, body = await _roundtrip(
+                        reader, writer, p.encode_simple(p.T_METRICS, 10 ** 6))
+                    return shed, counts, live, p.parse_metrics(body)
+                finally:
+                    writer.close()
+                    await writer.wait_closed()
+                    await srv.shutdown()
+
+            shed, counts, live, text = asyncio.run(main())
+        if any(counts.values()):
+            raise AssertionError(f"{name}: expired frames launched {counts}")
+        reset_at = T0 + float(c.window)
+        n_shed = 0
+        for i in range(frames):
+            kind, a = plan[i]
+            t, body = shed[i]
+            b = len(a) if kind == "ids" else 1
+            n_shed += b
+            if not fail_open:
+                if t != p.T_ERROR or p.parse_error(body)[0] != p.E_DEADLINE:
+                    raise AssertionError(f"{name}: frame {i} answered {t}")
+                continue
+            want = (p.encode_result_hashed(i, batch_fail_open(
+                b, c.limit, reset_at)) if kind == "ids" else
+                p.encode_result(i, fail_open_result(c.limit, reset_at)))
+            if p.HEADER_SIZE + len(body) != len(want) or \
+                    body != want[p.HEADER_SIZE:]:
+                raise AssertionError(f"{name}: frame {i} is not the "
+                                     f"fail-open allowance")
+        for i, (t, rid, body) in enumerate(live, frames):
+            kind, a = plan[i]
+            if kind == "ids":
+                got = p.parse_result_hashed(body)
+                want = mirror.allow_ids(a)
+                same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                           for f in ("allowed", "remaining", "retry_after",
+                                     "reset_at"))
+            else:
+                same = p.parse_result(body) == mirror.allow_n(a, 1)
+            if rid != i or not same:
+                raise AssertionError(f"{name}: live frame {i} differs from "
+                                     f"the CPU limiter")
+        counted = metric_value(text, "rate_limiter_server_deadline_shed_total")
+        if counted != n_shed:
+            raise AssertionError(f"{name}: the shed counter shows "
+                                 f"{counted:g} for {n_shed} decisions shed")
+        served.close()
+        mirror.close()
+        out[name] = {"frames_shed": frames, "decisions_shed": n_shed}
+        log(f"{name} on {device}: {frames} expired frames ({n_shed} "
+            f"decisions) shed with no launch, the shed counter equal; "
+            f"{frames} frames with a 10 s budget equal to the CPU limiter")
+    return out
+
+
+def read_journal(d: str) -> list:
+    """The events spilled to ``d``'s segments, oldest first."""
+    import glob
+    import os
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(d, "events-*.jsonl"))):
+        with open(path, encoding="utf-8") as fh:
+            out += [json.loads(line) for line in fh if line.strip()]
+    return out
+
+
+def check_journal_door(cfg, *, device: str = "cuda") -> dict:
+    """(d) The event journal of ``python -m ratelimiter_tpu_torch.serving
+    --event-journal-dir D``: POLICY_SET, POLICY_DEL and RESET frames,
+    then SIGTERM; D's segment must hold their three events in order
+    (``actor="binary"``, keys as ``key_token``s). Then the tenant binary
+    (``tenant_flags``, ``--controller``) under ``tenant_storm``, whose
+    mass stays in the window: the controller tightens free twice, in two
+    ticks a cooldown apart (5000 -> 3500 -> 2450). Its journal must hold
+    both tightens under two different correlation ids, and every
+    controller event an id shared only by the events of one tick (the
+    ids' events contiguous)."""
+    import shutil
+    import tempfile
+
+    from ratelimiter_tpu_torch.ops.hashing import key_token
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    geometry = ["--limit", str(cfg.limit), "--window", str(cfg.window),
+                "--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
+                str(cfg.sketch.width), "--sub-windows",
+                str(cfg.sketch.sub_windows), "--device", device]
+    root = tempfile.mkdtemp(prefix="journal-door-")
+    servers = []
+    try:
+        d1 = f"{root}/policy"
+        srv = ServerProcess(geometry + ["--event-journal-dir", d1])
+        servers.append(srv)
+        c = DoorClient(srv.port)
+        c.call(p.encode_policy_set, "api-cust-7", 250)
+        c.call(lambda rid: p.encode_policy_key(p.T_POLICY_DEL, rid,
+                                               "api-cust-7"))
+        c.call(p.encode_reset, "ünï:42")
+        c.close()
+        if srv.terminate() != 0:
+            raise AssertionError("journal door: SIGTERM exit code")
+        got = [(e["category"], e["action"], e["actor"], e["payload"])
+               for e in read_journal(d1)]
+        want = [("policy", "set-override", "binary",
+                 {"key_hash": key_token("api-cust-7"), "limit": 250,
+                  "window_scale": 1.0}),
+                ("policy", "delete-override", "binary",
+                 {"key_hash": key_token("api-cust-7"), "deleted": True}),
+                ("policy", "reset", "binary",
+                 {"key_hash": key_token("ünï:42")})]
+        if got != want:
+            raise AssertionError(f"journal door: the segment holds {got}")
+
+        d2 = f"{root}/controller"
+        srv = ServerProcess(geometry + tenant_flags() + [
+            "--controller", "--controller-interval", "0.2",
+            "--event-journal-dir", d2])
+        servers.append(srv)
+        c = DoorClient(srv.port)
+        moved = [tenant_storm(c)]
+        moved.append(free_effective_below(c, 3500))
+        c.close()
+        if srv.terminate() != 0:
+            raise AssertionError("controller journal: SIGTERM exit code")
+        ctl = [e for e in read_journal(d2) if e["category"] == "controller"]
+        tighten = [e for e in ctl if e["action"] == "tighten"
+                   and e["actor"] == "free"]
+        steps = [(e["payload"]["old"], e["payload"]["new"])
+                 for e in tighten]
+        if moved != [3500, 2450] or steps[:2] != [(5000, 3500),
+                                                  (3500, 2450)]:
+            raise AssertionError(f"controller journal: free moved to "
+                                 f"{moved}, events {ctl[:4]}")
+        if tighten[0]["corr"] == tighten[1]["corr"]:
+            raise AssertionError("controller journal: two ticks' tightens "
+                                 "share one correlation id")
+        seen, last = set(), None
+        for e in ctl:
+            if not e["corr"]:
+                raise AssertionError(f"controller event without an id: {e}")
+            if e["corr"] != last and e["corr"] in seen:
+                raise AssertionError("a correlation id spans two ticks")
+            seen.add(e["corr"])
+            last = e["corr"]
+    finally:
+        for srv in servers:
+            srv.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"policy_events": len(got), "controller_events": len(ctl),
+           "controller_ticks": len(seen)}
+    log(f"journal door on {device}: POLICY_SET, POLICY_DEL and RESET "
+        f"journaled in order with key tokens; the controller's "
+        f"{len(ctl)} events (tighten free 5000 -> 3500, then 3500 -> "
+        f"2450 a tick later) under {len(seen)} correlation ids, one a "
+        f"tick")
+    return out
+
+
+def check_breaker(cfg=None, *, device: str = "cuda", seed: int = 0,
+                  batch: int = BATCH) -> dict:
+    """(e) ``--circuit-breaker --breaker-threshold 3`` over a fail-closed
+    limiter (config 3 unless ``cfg``) on a ManualClock, ``batch`` Zipf
+    ids a call, under the binary's stack: with a
+    failure injected it trips after 3 failures; while open it
+    short-circuits (the breaker's error, its counter, no launch); after
+    the cooldown one probe reaches the limiter (its own error) and the
+    breaker opens again; after ``heal()`` it still short-circuits until
+    the cooldown, then one probe reaches the card (one step's launches)
+    and the breaker closes."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.core.errors import StorageUnavailableError
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_limiter_stack,
+        parse_args,
+    )
+
+    lim = create_limiter(cfg or config3(), backend="sketch",
+                         clock=ManualClock(T0), device=device)
+    reg = Registry()
+    stack = build_limiter_stack(lim, parse_args(
+        ["--circuit-breaker", "--breaker-threshold", "3"]), registry=reg)
+    breaker = stack.inner
+    ids = zipf_ids(np.random.default_rng(seed + 41), batch)
+
+    def call() -> str:
+        try:
+            stack.resolve(stack.launch_ids(ids, wire=True))
+            return "ok"
+        except StorageUnavailableError as exc:
+            return str(exc)
+
+    def launches() -> int:
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        return sketch_cuda.launch_counts()["window_estimate"]
+
+    sketch_cuda.reset_launch_counts()
+    trail = [(call(), breaker.state, launches())]
+    lim.inject_failure()
+    trail += [(call(), breaker.state, launches()) for _ in range(3)]
+    trail += [(call(), breaker.state, launches()) for _ in range(4)]
+    lim.clock.advance(breaker.cooldown)
+    trail.append((call(), breaker.state, launches()))
+    lim.heal()
+    trail.append((call(), breaker.state, launches()))
+    lim.clock.advance(breaker.cooldown)
+    trail += [(call(), breaker.state, launches()) for _ in range(2)]
+    failed = "sketch launch failed: injected backend failure"
+    opened = f"circuit breaker open (cooldown {breaker.cooldown:g}s)"
+    k = 1 if device == "cuda" else 0    # the CPU launches no kernel
+    want = ([("ok", "closed", k)]
+            + [(failed, "closed", k)] * 2 + [(failed, "open", k)]
+            + [(opened, "open", k)] * 4 + [(failed, "open", k)]
+            + [(opened, "open", k)] + [("ok", "closed", 2 * k),
+                                       ("ok", "closed", 3 * k)])
+    if trail != want:
+        raise AssertionError(f"breaker on {device}: {trail}")
+    short = reg.get("rate_limiter_breaker_short_circuits_total").total()
+    if short != 5 * batch:
+        raise AssertionError(f"breaker: {short:g} short-circuited decisions")
+    moves = {k: reg.get("rate_limiter_breaker_transitions_total").value(to=k)
+             for k in ("open", "half-open", "closed")}
+    if moves != {"open": 2.0, "half-open": 2.0, "closed": 1.0}:
+        raise AssertionError(f"breaker transitions {moves}")
+    stack.close()
+    log(f"breaker on {device}: tripped after 3 failures, 5 calls "
+        f"short-circuited with no launch, a failed probe re-opened it, "
+        f"after heal() one probe reached the card and closed it; "
+        f"transitions {moves}")
+    return {"trail": [t[1] for t in trail], "transitions": moves}
+
+
+def torch_ops_in(ranges: list, cpu_ops: list) -> dict:
+    """The host time inside profiler ``ranges`` (Chrome-trace events of
+    one thread each) split by layer: the torch ops called directly in a
+    range (the outermost ``cpu_op`` events it contains, by name), and the
+    rest, the Python between them. Milliseconds a range."""
+    by_name: dict = {}
+    calls = torch_us = 0.0
+    for r in ranges:
+        t0, t1 = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        inside = sorted((o for o in cpu_ops if o["tid"] == r["tid"]
+                         and t0 <= float(o["ts"])
+                         and float(o["ts"]) + float(o["dur"]) <= t1),
+                        key=lambda o: float(o["ts"]))
+        end = -1.0
+        for o in inside:
+            if float(o["ts"]) < end:
+                continue            # nested in the op before it
+            end = float(o["ts"]) + float(o["dur"])
+            calls += 1
+            torch_us += float(o["dur"])
+            by_name[o["name"]] = by_name.get(o["name"], 0.0) + float(
+                o["dur"])
+    n = max(len(ranges), 1)
+    total = sum(float(r["dur"]) for r in ranges)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"ms": total / n / 1e3, "torch_ops": calls / n,
+            "torch_ms": torch_us / n / 1e3,
+            "python_ms": (total - torch_us) / n / 1e3,
+            "top_torch_ops_ms": [(k, v / n / 1e3) for k, v in top]}
+
+
+def check_capture(*, seed: int = 0, batches: int = 16,
+                  device: str = "cuda") -> dict:
+    """(f) ``TracingDecorator.capture`` around ``batches`` config-3 CU
+    batches (launch and resolve of 4096 Zipf ids): the Chrome trace must
+    hold a ``launch`` and a ``resolve`` range for each batch and, on the
+    card, the step's kernels by name. Returns the top 10 device ops by
+    time and, for each range, the host ms a batch split into the torch
+    ops it calls and the Python between them (``torch_ops_in``)."""
+    import os
+    import tempfile
+
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.observability.decorators import (
+        TracingDecorator,
+    )
+
+    rng = np.random.default_rng(seed + 47)
+    lim = TracingDecorator(create_limiter(config3(), backend="sketch",
+                                          device=device))
+    work = [zipf_ids(rng, BATCH) for _ in range(batches + 2)]
+    for ids in work[:2]:
+        lim.resolve(lim.launch_ids(ids, wire=True))
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        with lim.capture(path):
+            for ids in work[2:]:
+                lim.resolve(lim.launch_ids(ids, wire=True))
+        with open(path) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e.get("ph") == "X"]
+    finally:
+        os.unlink(path)
+        lim.close()
+    cpu_ops = [e for e in events if e.get("cat") == "cpu_op"]
+    dev_ops: dict = {}
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev_ops[e["name"]] = dev_ops.get(e["name"], 0.0) + float(
+                e["dur"])
+    host = {}
+    for op in ("launch", "resolve"):
+        ranges = [e for e in events if e.get("cat") == "user_annotation"
+                  and e["name"] == f"ratelimiter/sliding_window/{op}"]
+        if len(ranges) != batches:
+            raise AssertionError(f"capture: {len(ranges)} {op} ranges for "
+                                 f"{batches} batches")
+        host[op] = torch_ops_in(ranges, cpu_ops)
+    names = " ".join(dev_ops)
+    for kern in (("window_front_kernel", "window_admit_kernel",
+                  "cu_update_kernel") if device == "cuda" else ()):
+        if kern not in names:
+            raise AssertionError(f"capture: no {kern} in the trace's "
+                                 f"device ops")
+    top = sorted(dev_ops.items(), key=lambda kv: -kv[1])[:10]
+    out = {"host": host,
+           "top_device_ops_us": [(k[:80], v / batches) for k, v in top]}
+    log(f"profiler capture on {device}: {batches} config-3 CU batches; "
+        + "; ".join(
+            f"ratelimiter/sliding_window/{op} {h['ms']:.3f} ms a batch "
+            f"({h['torch_ops']:.0f} torch ops {h['torch_ms']:.3f} ms, "
+            f"Python between them {h['python_ms']:.3f} ms; top ops "
+            + ", ".join(f"{k} {v:.3f}" for k, v in h["top_torch_ops_ms"])
+            + ")" for op, h in host.items())
+        + "; top device ops (us a batch): " + "; ".join(
+            f"{k} {v:.2f}" for k, v in out["top_device_ops_us"]))
+    return out
+
+
+#: (g)'s stacks, timed in turns.
+READING_STACKS = (("bare", BARE_STACK), ("default", DEFAULT_STACK),
+                  ("full", FULL_STACK))
+
+
+def observe_readings(seed: int = 0, rounds: int = 3) -> dict:
+    """(g) ``time_door`` on windowed CU and TB-c2 under each stack of
+    ``READING_STACKS``, in turns, ``rounds`` rounds on the same traffic:
+    decisions/s and frame latency p50/p99 a round, the flight recorder's
+    split by stage (full stack), and whether the default stack's
+    decisions/s falls outside the bare door's spread over its rounds.
+    Smoke readings: nothing is gated on them."""
+    cells = (("windowed CU", config3(), "zipf", seed + 17),
+             ("TB-c2", config2_bucket(), "c2", seed + 19))
+    runs: dict = {}
+    for _ in range(rounds):
+        for label, cfg, space, sd in cells:
+            for stack, flags in READING_STACKS:
+                r = time_door(cfg, f"{label} {stack}", seed=sd, space=space,
+                              flags=flags)
+                runs.setdefault(label, {}).setdefault(stack, []).append(r)
+    out = {}
+    for label, by in runs.items():
+        cell = {}
+        for stack, rs in by.items():
+            rates = [r["decisions_per_s"] for r in rs]
+            cell[stack] = {"decisions_per_s": rates,
+                           "p50_ms": [r["p50_ms"] for r in rs],
+                           "p99_ms": [r["p99_ms"] for r in rs]}
+        bare = cell["bare"]["decisions_per_s"]
+        cell["default_outside_bare_spread"] = any(
+            not min(bare) <= x <= max(bare)
+            for x in cell["default"]["decisions_per_s"])
+        cell["stages_full"] = stage_split(
+            [sp for r in by["full"] for sp in r["spans"]])
+        out[label] = cell
+        log(f"door readings [{label}] (rounds): " + "; ".join(
+            f"{stack} {', '.join(f'{x:.0f}' for x in c['decisions_per_s'])} "
+            f"decisions/s, p50 "
+            f"{', '.join(f'{x:.2f}' for x in c['p50_ms'])} ms, p99 "
+            f"{', '.join(f'{x:.2f}' for x in c['p99_ms'])} ms"
+            for stack, c in cell.items() if stack in dict(READING_STACKS))
+            + f"; default outside the bare spread: "
+              f"{cell['default_outside_bare_spread']}; full-stack stages "
+              f"(p50/p99 us): " + ", ".join(
+                  f"{st} {v['p50_us']:.0f}/{v['p99_us']:.0f}"
+                  for st, v in cell["stages_full"].items()))
+    return out
+
+
+def check_observe_doors(torch, seed: int = 0, reuse=None) -> dict:
+    """(a) ``check_door`` on config 3 windowed CU, CU with the side table
+    and TB-c2 under the binary's default stack and its full stack:
+    replies bit-equal to the replay, every kernel of the path launched,
+    every window through the front kernel, no composed back, and what the
+    stack counts on METRICS (``hold_door_metrics``, the consumer
+    gauges). ``reuse`` holds default-stack runs already made (phase 4)."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+
+    cells = (
+        ("windowed CU", config3(), "zipf", seed + 17, sketch_cuda,
+         ("window_estimate", "admit", "cu_update", "window_reset"),
+         "window_estimate", 0),
+        (f"windowed CU hh_slots={HH_SLOTS}", config3_hh(), "zipf",
+         seed + 37, sketch_cuda,
+         ("window_estimate", "admit", "cu_update", "hh_update [fused]",
+          "window_reset"), "window_estimate", 0),
+        ("TB-c2", config2_bucket(), "c2", seed + 19, bucket_cuda,
+         ("bucket_estimate", "admit", "bucket_update"), "bucket_estimate",
+         1))
+    out = {}
+    for stack, flags in (("default", DEFAULT_STACK), ("full", FULL_STACK)):
+        for label, cfg, space, sd, mod, required, front, per_reset in cells:
+            if stack == "default" and reuse and label in reuse:
+                out[f"{label} {stack}"] = reuse[label]
+                continue
+            out[f"{label} {stack}"] = check_door(
+                torch, cfg, f"{label} {stack} stack", seed=sd,
+                space=space, counters=[mod], required=required,
+                same=("admit", required[2]), front=front,
+                front_per_reset=per_reset, flags=flags)
+    return out
+
+
+def run_observe(torch, seed: int = 0, reuse=None) -> dict:
+    """Phase observe: (a)-(g) on the card."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+
+    t = time.perf_counter()
+    out = {"doors": check_observe_doors(torch, seed, reuse)}
+    out["traced"] = check_traced_frames(config3(), seed=seed)
+    out["deadlines"] = check_deadlines(config3(), counters=[sketch_cuda],
+                                       seed=seed)
+    out["journal"] = check_journal_door(config3())
+    out["breaker"] = check_breaker(seed=seed)
+    out["capture"] = check_capture(seed=seed)
+    out["readings"] = observe_readings(seed)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase observe on {card_line()}: {out['seconds']:.1f} s")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -5560,6 +6359,12 @@ def main(argv=None) -> int:
     ap.add_argument("--dense-paths", action="store_true",
                     help="only build, then drive phase 3's dense paths "
                          "(public entry points only; one JSON line)")
+    ap.add_argument("--observe", action="store_true",
+                    help="only build, then run phase observe (the "
+                         "decorator stacks through the door, traced "
+                         "frames, deadlines, the journal, the breaker, a "
+                         "profiler capture and the door readings; one "
+                         "JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -5583,7 +6388,7 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
-                or args.dense or args.dense_paths)
+                or args.dense or args.dense_paths or args.observe)
     _build.build_all(["sketch_kernels", "bucket_kernels"]
                      + (["dense_kernels", "dense_bench"]
                         if full or args.dense else [])
@@ -5621,6 +6426,13 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "dense": out},
                          default=lambda o: repr(o)))
         check_no_children()
+        print(card)
+        return 0
+    if args.observe:
+        out = run_observe(torch, args.seed)
+        check_no_children()
+        print(json.dumps({"card": card, "observe": out},
+                         default=lambda o: repr(o)))
         print(card)
         return 0
     if args.rows:
@@ -5723,18 +6535,19 @@ def main(argv=None) -> int:
         torch, config3(), "windowed CU", seed=args.seed + 17,
         counters=[sketch_cuda],
         required=("window_estimate", "admit", "cu_update", "window_reset"),
-        same=("admit", "cu_update"))
+        same=("admit", "cu_update"), front="window_estimate")
     door_tb = check_door(
         torch, config2_bucket(), "TB-c2", seed=args.seed + 19, space="c2",
         counters=[bucket_cuda],
         required=("bucket_estimate", "admit", "bucket_update"),
-        same=("admit", "bucket_update"))
+        same=("admit", "bucket_update"), front="bucket_estimate",
+        front_per_reset=1)
     door_hh = check_door(
         torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
         seed=args.seed + 37, counters=[sketch_cuda],
         required=("window_estimate", "admit", "cu_update",
                   "hh_update [fused]", "window_reset"),
-        same=("admit", "cu_update"))
+        same=("admit", "cu_update"), front="window_estimate")
     hold_tails("door with the side table", door_hh["counts"])
     door_tn = check_door(
         torch, with_tenants(config3()), f"windowed CU tenants={TENANTS}",
@@ -5745,9 +6558,9 @@ def main(argv=None) -> int:
                                     "dense", seed=args.seed + 83)
     door_exact = check_backend_door(torch, dense_config("SLIDING_WINDOW"),
                                     "exact", seed=args.seed + 83)
-    bare_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
-    bare_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
-                        space="c2")
+    unproxied_cu = time_door(config3(), "windowed CU", seed=args.seed + 17)
+    unproxied_tb = time_door(config2_bucket(), "TB-c2", seed=args.seed + 19,
+                             space="c2")
     log(f"door on {card} (through the recording proxy | unproxied): "
         + "; ".join(
             f"{label} {d['decisions_per_s']:.0f} | "
@@ -5756,8 +6569,11 @@ def main(argv=None) -> int:
             f"{b['frames_per_dispatch']:.2f} frames a dispatch, frame "
             f"latency p50 {d['p50_ms']:.2f} | {b['p50_ms']:.2f} ms, p99 "
             f"{d['p99_ms']:.2f} | {b['p99_ms']:.2f} ms"
-            for label, d, b in (("windowed CU", door_cu, bare_cu),
-                                ("TB-c2", door_tb, bare_tb))))
+            for label, d, b in (("windowed CU", door_cu, unproxied_cu),
+                                ("TB-c2", door_tb, unproxied_tb))))
+    observe = run_observe(torch, args.seed, reuse={
+        "windowed CU": door_cu, f"windowed CU hh_slots={HH_SLOTS}": door_hh,
+        "TB-c2": door_tb})
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
@@ -5803,8 +6619,9 @@ def main(argv=None) -> int:
     paths["door_windowed_CU_tenants"] = door_tn
     paths["tenant_durable_door"] = tenant_door
     paths["door_TB-c2"] = door_tb
-    paths["door_unproxied_windowed_CU"] = bare_cu
-    paths["door_unproxied_TB-c2"] = bare_tb
+    paths["door_unproxied_windowed_CU"] = unproxied_cu
+    paths["door_unproxied_TB-c2"] = unproxied_tb
+    paths["observe"] = observe
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -47,6 +47,7 @@ from ratelimiter_tpu_torch.core.errors import (
     StorageUnavailableError,
     ClosedError,
     CheckpointError,
+    DeadlineExceededError,
 )
 from ratelimiter_tpu_torch.core.clock import Clock, SystemClock, ManualClock
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
@@ -71,6 +72,7 @@ __all__ = [
     "StorageUnavailableError",
     "ClosedError",
     "CheckpointError",
+    "DeadlineExceededError",
     "Clock",
     "SystemClock",
     "ManualClock",

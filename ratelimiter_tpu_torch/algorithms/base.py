@@ -2,7 +2,7 @@
 trimmed to what the port's backends serve (the scalar and batched API,
 launch/resolve, per-key overrides, dynamic limit/window updates and the
 checkpoint seam) and the hierarchy surface (tenant and global scopes).
-``sub_limiters`` (the mesh, A8) is not ported.
+``sub_limiters`` answers ``[self]``: the mesh's slices (A8) are not ported.
 
 Parity with reference ``internal/ratelimiter/interface.go:76-145`` plus the
 TPU-native first-class batched call. Semantic decisions (SURVEY.md §2.4, each
@@ -392,6 +392,13 @@ class RateLimiter(abc.ABC):
         global scope. Backends with cascade state override."""
         raise NotImplementedError(
             f"{type(self).__name__} does not expose hierarchy stats")
+
+    def sub_limiters(self) -> "list[RateLimiter]":
+        """The independent dispatch units inside this limiter: ``[self]``
+        (the port's limiters are one unit on one card). The decorators
+        iterate this seam for the per-unit gauges (the side table's top
+        consumers, the debt slab) instead of duck-typing internals."""
+        return [self]
 
     # -- durability (checkpoint / async snapshot seam) ---------------------
 

@@ -425,10 +425,13 @@ class SketchLimiter(RateLimiter):
     pipelined = True
 
     def _launch_guarded(self, h64: np.ndarray, ns_arr: np.ndarray, t: float,
-                        *, premix: bool = False,
-                        wire: bool = False) -> DispatchTicket:
+                        *, premix: bool = False, wire: bool = False,
+                        phase: str = "launch") -> DispatchTicket:
         """Fail-open configs get a pre-resolved fail-open ticket when a
-        launch fails; fail-closed configs raise StorageUnavailableError."""
+        launch fails; fail-closed configs raise StorageUnavailableError
+        ("sketch <phase> failed: ...", the JAX package's text: "launch"
+        from the launch methods, "dispatch" from its synchronous
+        ``allow_batch``/``allow_n``/``allow_hashed``)."""
         try:
             return self._launch_hashed(h64, ns_arr, to_micros(t), t,
                                        premix=premix, wire=wire)
@@ -438,7 +441,7 @@ class SketchLimiter(RateLimiter):
                     h64.shape[0], self.config.limit,
                     t + float(self.config.window)))
             raise StorageUnavailableError(
-                f"sketch launch failed: {exc}") from exc
+                f"sketch {phase} failed: {exc}") from exc
 
     @staticmethod
     def _ns(count: int, ns) -> np.ndarray:
@@ -505,7 +508,11 @@ class SketchLimiter(RateLimiter):
     def allow_hashed(self, h64: np.ndarray, ns: Optional[np.ndarray] = None,
                      *, now: Optional[float] = None) -> BatchResult:
         """Decide a batch of pre-hashed uint64 keys: launch + resolve."""
-        return self.resolve(self.launch_hashed(h64, ns, now=now))
+        self._check_open()
+        h64 = np.asarray(h64, dtype=np.uint64)
+        t = self.clock.now() if now is None else float(now)
+        return self.resolve(self._launch_guarded(
+            h64, self._ns(h64.shape[0], ns), t, phase="dispatch"))
 
     # ------------------------------------------------- accuracy envelope
 
@@ -596,7 +603,8 @@ class SketchLimiter(RateLimiter):
         return self._mass_budget
 
     def _allow_batch(self, keys: list, ns: np.ndarray, now: float) -> BatchResult:
-        return self.resolve(self._launch_guarded(self._hash(keys), ns, now))
+        return self.resolve(self._launch_guarded(self._hash(keys), ns, now,
+                                                 phase="dispatch"))
 
     def _allow_n(self, key: str, n: int, now: float) -> Result:
         return self._allow_batch([key], np.array([n], dtype=np.int64),

@@ -56,6 +56,13 @@ class ClosedError(RateLimiterError, RuntimeError):
     """
 
 
+class DeadlineExceededError(RateLimiterError, RuntimeError):
+    """Raised (fail-closed) when a request's propagated deadline expired
+    before its dispatch ran: the server sheds the work instead of
+    spending a dispatch slot on an answer nobody is waiting for.
+    Fail-open configs answer a fail-open allowance instead."""
+
+
 class CheckpointError(RateLimiterError, RuntimeError):
     """Raised when a checkpoint cannot be loaded: wrong format version,
     wrong limiter kind, or a snapshot taken under a different config

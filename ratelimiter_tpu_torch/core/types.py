@@ -189,7 +189,8 @@ class DispatchTicket:
     """
 
     __slots__ = ("outs", "b", "limit", "limits", "ns", "now_us", "t_sec",
-                 "padded", "result", "wire", "event", "staged", "inflight")
+                 "padded", "result", "wire", "event", "staged", "inflight",
+                 "meta", "trace_id")
 
     def __init__(self, result: "BatchResult | None" = None):
         self.outs = None        # host-side (pinned on CUDA) result tensors
@@ -207,3 +208,8 @@ class DispatchTicket:
         self.wire = False       # outs are packed (bits, words) wire buffers
         self.event = None       # CUDA event recorded behind the copies
         self.staged = None      # staged input tensors, alive until resolve
+        self.meta = None        # decorator bookkeeping rides along (the
+        #                         circuit breaker's probe ownership)
+        self.trace_id = 0       # flight-recorder trace context; 0 =
+        #                         unsampled. Set by the batcher at launch
+        #                         so resolve-side spans link to the frame.

@@ -38,12 +38,12 @@ on the newest revision (hierarchy/tenants.effective_payload).
 
 Port notes. Every decision (``tick``'s tighten, veto and relax moves,
 the cooldowns, ``on_tighten``, ``publish``) is the JAX controller's. The
-SLO tracker and the shadow auditor are not ported yet (ROADMAP A13), so
+SLO tracker and the shadow auditor are not ported yet (ROADMAP A13b), so
 ``slo_status`` and ``audit_status`` stay optional inputs: None gives a
-burn rate of 0 and a false-deny bound of 0. The JAX controller also
-journals each move and veto to its event journal under a per-tick trace
-id; those calls are left out here until the journal and tracing are
-ported (A13). The three gauges live in the port's metrics registry.
+burn rate of 0 and a false-deny bound of 0. Each move and veto is
+journaled (observability/events.py) under one correlation id a tick
+(``tracing.new_trace_id``), as the JAX controller journals them. The
+three gauges live in the port's metrics registry.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from typing import Callable, Dict, Optional
 
 from ratelimiter_tpu_torch.core.config import HIER_UNLIMITED
 from ratelimiter_tpu_torch.hierarchy.tenants import GLOBAL
+from ratelimiter_tpu_torch.observability import events, tracing
 
 log = logging.getLogger("ratelimiter_tpu_torch.hierarchy")
 
@@ -132,6 +133,7 @@ class AIMDController:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_tighten: Dict[str, float] = {}
+        self._last_veto_event = -1e9
         self.ticks = 0
         self.tightened = 0
         self.relaxed = 0
@@ -208,6 +210,20 @@ class AIMDController:
                     hot.append(name)
 
         moved: Dict[str, int] = {}
+        # One correlation id per tick + the full triggering-signal
+        # snapshot on every journal event (ADR-021): a tighten must be
+        # reconstructable from /debug/events ALONE — cause, signals,
+        # old/new limits — without grepping N hosts' logs.
+        corr = tracing.new_trace_id() if events.JOURNAL is not None else 0
+        snapshot = {
+            "burn_rate": round(burn, 4),
+            "false_deny_wilson_high": round(fd_hi, 6),
+            "global_mass": int(g_mass),
+            "global_effective": (int(g_eff) if g_eff < HIER_UNLIMITED
+                                 else None),
+            "saturated": saturated,
+            "hot_tenants": list(hot),
+        }
 
         def _tighten(scope: str, eff: int) -> None:
             if eff >= HIER_UNLIMITED:
@@ -227,8 +243,18 @@ class AIMDController:
                 self.tightened += 1
                 self._c_adj.inc(direction="tighten")
                 log.warning("controller: tightened %s %d -> %d "
-                            "(burn=%.2f saturated=%s hot=%s)",
-                            scope, eff, new, burn, saturated, hot)
+                            "(burn=%.2f saturated=%s hot=%s corr=%016x)",
+                            scope, eff, new, burn, saturated, hot, corr)
+                events.emit(
+                    "controller", "tighten", actor=scope, corr=corr,
+                    severity="warning",
+                    payload={"old": int(eff), "new": int(new),
+                             "cause": ("hot-tenant" if scope in hot
+                                       else "slo-pressure"),
+                             "in_window": int(
+                                 tenants[scope]["in_window"]
+                                 if scope in tenants else g_mass),
+                             **snapshot})
                 if self.on_tighten is not None:
                     try:
                         self.on_tighten(scope)
@@ -236,6 +262,19 @@ class AIMDController:
                         log.exception(
                             "controller: on_tighten hook failed")
 
+        if (pressure or (saturated and hot)) and fd_hi > g.false_deny_veto:
+            # Vetoed tighten: the limiter is already over-denying with
+            # 95% confidence — journal it (the "why did it NOT act"
+            # half of incident reconstruction). Cooldown-bounded like
+            # tightens: a veto holding for an hour at a 1 s tick must
+            # not flood the bounded ring and evict the incident's own
+            # start (handoffs, failovers, the first tighten).
+            if now - self._last_veto_event >= g.cooldown_s:
+                self._last_veto_event = now
+                events.emit("controller", "tighten-vetoed", corr=corr,
+                            severity="warning",
+                            payload={"veto_threshold": g.false_deny_veto,
+                                     **snapshot})
         if (pressure or (saturated and hot)) and fd_hi <= g.false_deny_veto:
             # Hot tenants squeeze first; the global scope only tightens
             # under SLO pressure with no attributable tenant (fair-share
@@ -258,6 +297,10 @@ class AIMDController:
                         moved[name] = new
                         self.relaxed += 1
                         self._c_adj.inc(direction="relax")
+                        events.emit(
+                            "controller", "relax", actor=name, corr=corr,
+                            payload={"old": int(eff), "new": int(new),
+                                     "ceiling": int(ceil_), **snapshot})
             if (g_eff < gstat["ceiling"]
                     and g_mass <= g.relax_occupancy * g_eff):
                 step = max(1, int(gstat["ceiling"] * g.increase_fraction))
@@ -267,6 +310,11 @@ class AIMDController:
                     moved[GLOBAL] = new
                     self.relaxed += 1
                     self._c_adj.inc(direction="relax")
+                    events.emit(
+                        "controller", "relax", actor=GLOBAL, corr=corr,
+                        payload={"old": int(g_eff), "new": int(new),
+                                 "ceiling": int(gstat["ceiling"]),
+                                 **snapshot})
 
         if moved and self.publish is not None:
             try:

@@ -1,18 +1,23 @@
 """Thread-safe metrics registry with Prometheus text exposition.
 
-A copy of ``ratelimiter_tpu/observability/metrics.py`` trimmed to what
-the port's micro-batcher, door and persistence register: counters, gauges and
-histograms with labels, a registry with scrape-time collect hooks, and
-the classic Prometheus text format (no OpenMetrics exemplars). For the
-same observations ``Registry.render`` gives the JAX registry's text byte
-for byte (tests/test_torch_batcher.py holds it to it).
+A copy of ``ratelimiter_tpu/observability/metrics.py``: counters, gauges
+and histograms with labels (histograms keep an OpenMetrics exemplar per
+bucket), a registry with scrape-time collect hooks, and both the classic
+Prometheus text format and the OpenMetrics one (``render(openmetrics=
+True)``, exemplars and ``# EOF``). For the same observations the two
+renderings give the JAX registry's text byte for byte
+(tests/test_torch_batcher.py and tests/test_torch_tracing.py hold them
+to it). The micro-batcher, the door, persistence, the controller, the
+flight recorder and the decorators (observability/decorators.py, which
+also own the side table's consumer gauges) register into it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from bisect import bisect_left
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 #: Default histogram buckets, seconds — spans 10 µs host overhead to multi-
 #: second SLO breaches (device dispatches land in the 100 µs .. 10 ms range).
@@ -22,13 +27,15 @@ LATENCY_BUCKETS = (1e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3,
 #: Batch-size buckets for the micro-batcher (powers of two up to 64K).
 BATCH_BUCKETS = tuple(float(1 << i) for i in range(17))
 
-#: Snapshot wall-time buckets, seconds (multi-GiB sketch rings serialized
-#: off-lock). Families using them, all registered by persistence/ under
-#: the JAX package's names: rate_limiter_snapshot_duration_seconds plus
+#: Snapshot-duration buckets, seconds — the durability subsystem's
+#: background captures span ~1 ms (tiny host state) to tens of seconds
+#: (multi-GiB sketch rings serialized off-lock). Families using them:
+#: rate_limiter_snapshot_duration_seconds plus the gauges/counters
 #: rate_limiter_last_snapshot_timestamp_seconds,
 #: rate_limiter_snapshot_capture_seconds, rate_limiter_snapshots_total,
 #: rate_limiter_snapshot_failures_total, rate_limiter_wal_records_total,
-#: rate_limiter_wal_bytes_total and rate_limiter_wal_seq.
+#: rate_limiter_wal_bytes_total, rate_limiter_wal_seq
+#: (ratelimiter_tpu_torch/persistence/).
 SNAPSHOT_DURATION_BUCKETS = (1e-3, 5e-3, 1e-2, 2.5e-2, 5e-2, 0.1, 0.25,
                              0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
 
@@ -39,8 +46,9 @@ def _label_key(labels: Dict[str, str]) -> Tuple[Tuple[str, str], ...]:
 
 def _escape_label_value(v: str) -> str:
     """Escape a label value per the Prometheus text exposition spec
-    (backslash, double-quote and newline are escaped inside the
-    quotes)."""
+    (backslash, double-quote, and newline must be escaped INSIDE the
+    quotes) — user-derived values (keys, algorithm strings) would
+    otherwise corrupt the whole scrape with one embedded quote."""
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
@@ -70,12 +78,51 @@ class Counter(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
-    def render(self) -> list[str]:
-        lines = [f"# HELP {self.name} {self.help}",
-                 f"# TYPE {self.name} counter"]
+    def value(self, **labels: str) -> float:
+        # Under the lock: a bare dict read races inc()'s read-modify-
+        # write and (on resize) dict mutation — cheap, and value() is
+        # never on the decide path.
+        with self._lock:
+            return self._values.get(_label_key(labels), 0.0)
+
+    def total(self, **labels_filter: str) -> float:
+        """Sum over every label set matching the (partial) filter —
+        the SLO burn-rate tracker's family-wide read (observability/
+        slo.py): e.g. a shed counter labeled per door sums to one
+        bad-event count."""
+        with self._lock:
+            out = 0.0
+            for key, v in self._values.items():
+                kd = dict(key)
+                if all(kd.get(k) == v2 for k, v2 in labels_filter.items()):
+                    out += v
+            return out
+
+    def labeled_values(self) -> list[tuple[tuple, float]]:
+        """Locked snapshot of (label_key, value) pairs — for consumers
+        that must inspect label VALUES (the burn tracker matches
+        ``result=error:*`` prefixes)."""
+        with self._lock:
+            return list(self._values.items())
+
+    def render(self, om: bool = False) -> list[str]:
+        # OpenMetrics requires the counter FAMILY name without the
+        # `_total` suffix (HELP/TYPE lines) while the sample keeps it —
+        # `# TYPE x_total counter` fails Prometheus's strict OM parser,
+        # which would reject the whole scrape. Classic text exposition
+        # uses the full name in both places.
+        family = self.name
+        sample = self.name
+        if om:
+            if family.endswith("_total"):
+                family = family[:-len("_total")]
+            else:
+                sample = family + "_total"
+        lines = [f"# HELP {family} {self.help}",
+                 f"# TYPE {family} counter"]
         with self._lock:
             for key, v in sorted(self._values.items()):
-                lines.append(f"{self.name}{_fmt_labels(key)} {v:g}")
+                lines.append(f"{sample}{_fmt_labels(key)} {v:g}")
         return lines
 
 
@@ -89,6 +136,24 @@ class Gauge(_Metric):
     def set(self, value: float, **labels: str) -> None:
         with self._lock:
             self._values[_label_key(labels)] = float(value)
+
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: str) -> float:
+        with self._lock:
+            return self._values.get(_label_key(labels), 0.0)
+
+    def clear(self) -> None:
+        """Drop every label set. For identity/info gauges whose label
+        VALUES change over time (e.g. the fleet map epoch on
+        ``rate_limiter_member_info``): a gauge only overwrites label
+        sets it is told about, so a collect hook clears before it sets
+        or stale identities would persist forever."""
+        with self._lock:
+            self._values.clear()
 
     def render(self) -> list[str]:
         lines = [f"# HELP {self.name} {self.help}",
@@ -108,10 +173,18 @@ class Histogram(_Metric):
         self.buckets = tuple(sorted(buckets))
         self._counts: Dict[tuple, list] = {}   # key -> per-bucket counts + inf
         self._sums: Dict[tuple, float] = {}
+        #: (key, bucket_index) -> (exemplar trace id, value, unix ts):
+        #: the LAST sampled observation that landed in that bucket.
+        #: Rendered only by the OpenMetrics exposition (render_om) —
+        #: classic Prometheus text has no exemplar syntax.
+        self._exemplars: Dict[tuple, tuple] = {}
 
-    def observe(self, value: float, **labels: str) -> None:
+    def observe(self, value: float, *, exemplar: Optional[str] = None,
+                **labels: str) -> None:
         key = _label_key(labels)
-        # bisect_left finds the first bound >= value: Prometheus' `le`.
+        # bisect instead of a linear scan: this runs per decision on
+        # 16-bucket latency families (bisect_left on "first ub >= value"
+        # is exactly the old `value <= ub` bucket rule).
         i = bisect_left(self.buckets, value)
         with self._lock:
             counts = self._counts.get(key)
@@ -121,8 +194,43 @@ class Histogram(_Metric):
                 self._sums[key] = 0.0
             counts[i if i < len(self.buckets) else -1] += 1
             self._sums[key] += value
+            if exemplar is not None:
+                self._exemplars[(key, i)] = (exemplar, value, time.time())
 
-    def render(self) -> list[str]:
+    def count(self, **labels: str) -> int:
+        with self._lock:
+            return sum(self._counts.get(_label_key(labels), []))
+
+    def sum(self, **labels: str) -> float:
+        with self._lock:
+            return self._sums.get(_label_key(labels), 0.0)
+
+    def counts_over(self, threshold: float,
+                    **labels_filter: str) -> tuple[int, int, float]:
+        """(total, over, effective_threshold) across every label set
+        matching the (partial) filter: how many observations landed
+        STRICTLY above the largest bucket bound <= ``threshold``.
+        Cumulative buckets only resolve at bucket bounds, so the
+        threshold snaps DOWN to one (returned as effective_threshold;
+        pessimistic — borderline observations count as slow). The SLO
+        burn-rate tracker derives its latency axis from this
+        (observability/slo.py)."""
+        from bisect import bisect_right
+
+        idx = bisect_right(self.buckets, threshold)
+        eff = self.buckets[idx - 1] if idx > 0 else 0.0
+        total = over = 0
+        with self._lock:
+            for key, counts in self._counts.items():
+                kd = dict(key)
+                if not all(kd.get(k) == v for k, v in labels_filter.items()):
+                    continue
+                s = sum(counts)
+                total += s
+                over += s - sum(counts[:idx])
+        return total, over, eff
+
+    def render(self, om: bool = False) -> list[str]:
         lines = [f"# HELP {self.name} {self.help}",
                  f"# TYPE {self.name} histogram"]
         with self._lock:
@@ -130,14 +238,30 @@ class Histogram(_Metric):
                 cum = 0
                 for i, ub in enumerate(self.buckets):
                     cum += counts[i]
-                    lines.append(
-                        f"{self.name}_bucket"
-                        f"{_fmt_labels(key + (('le', f'{ub:g}'),))} {cum}")
+                    line = (f"{self.name}_bucket"
+                            f"{_fmt_labels(key + (('le', f'{ub:g}'),))} {cum}")
+                    ex = self._exemplars.get((key, i)) if om else None
+                    if ex is not None:
+                        # OpenMetrics exemplar: ties this le-bucket to a
+                        # trace id recorded by the flight recorder
+                        # (ADR-014) — `# {trace_id="..."} value ts`.
+                        line += (f' # {{trace_id="{ex[0]}"}} {ex[1]:g}'
+                                 f" {ex[2]:.3f}")
+                    lines.append(line)
                 cum += counts[-1]
-                lines.append(f"{self.name}_bucket"
-                             f"{_fmt_labels(key + (('le', '+Inf'),))} {cum}")
-                lines.append(f"{self.name}_sum{_fmt_labels(key)} "
-                             f"{self._sums[key]:g}")
+                line = (f"{self.name}_bucket"
+                        f"{_fmt_labels(key + (('le', '+Inf'),))} {cum}")
+                # The overflow bucket keeps its exemplar too — the
+                # slowest observations are exactly the ones worth a
+                # trace id (observe() stores them at index
+                # len(self.buckets)).
+                ex = (self._exemplars.get((key, len(self.buckets)))
+                      if om else None)
+                if ex is not None:
+                    line += (f' # {{trace_id="{ex[0]}"}} {ex[1]:g}'
+                             f" {ex[2]:.3f}")
+                lines.append(line)
+                lines.append(f"{self.name}_sum{_fmt_labels(key)} {self._sums[key]:g}")
                 lines.append(f"{self.name}_count{_fmt_labels(key)} {cum}")
         return lines
 
@@ -157,8 +281,8 @@ class Registry:
             existing = self._metrics.get(metric.name)
             if existing is not None:
                 if existing.kind != metric.kind:
-                    raise ValueError(f"metric {metric.name} already "
-                                     f"registered as {existing.kind}")
+                    raise ValueError(
+                        f"metric {metric.name} already registered as {existing.kind}")
                 return existing
             self._metrics[metric.name] = metric
             return metric
@@ -173,82 +297,64 @@ class Registry:
                   buckets: Sequence[float] = LATENCY_BUCKETS) -> Histogram:
         return self._register(Histogram(name, help_, buckets))  # type: ignore[return-value]
 
+    def get(self, name: str) -> Optional[_Metric]:
+        return self._metrics.get(name)
+
     def add_collect_hook(self, fn) -> None:
-        """Register a zero-arg callable run at the start of every
-        ``render()`` (scrape time), for gauges whose value costs real
-        work. Duplicates are collapsed by identity."""
+        """Register a zero-arg callable run at the START of every
+        ``render()`` — i.e. at scrape time. This is how gauges whose
+        value costs real work (a device fetch under the backend lock,
+        e.g. the debt-slab occupancy surface) stay current without ever
+        touching the decision hot path: they refresh once per scrape,
+        not once per decision. Hooks must be idempotent; duplicates are
+        collapsed by identity of the bound callable."""
         with self._lock:
             if fn not in self._collect_hooks:
                 self._collect_hooks.append(fn)
 
     def remove_collect_hook(self, fn) -> None:
         """Unregister a collect hook (no-op if absent). Owners of hooked
-        resources call it on close: a leftover hook would keep the closed
-        backend alive and run against it on every scrape."""
+        resources MUST call this on close — on the process-default
+        registry a leftover hook would pin the closed backend (and its
+        device arrays) alive forever and run against it on every
+        scrape."""
         with self._lock:
             try:
                 self._collect_hooks.remove(fn)
             except ValueError:
                 pass
 
-    def render(self) -> str:
+    def render(self, *, openmetrics: bool = False) -> str:
         with self._lock:
             hooks = list(self._collect_hooks)
         for hook in hooks:
             try:
                 hook()
             except Exception:  # noqa: BLE001 — a scrape must never fail
-                # because one collector's backend is closed; the gauge
-                # keeps its last value.
+                # because one collector's backend is mid-restart/closed;
+                # the gauge just keeps its last value.
                 pass
+        lines: list[str] = []
         with self._lock:
             metrics = list(self._metrics.values())
-        lines: list[str] = []
         for m in metrics:
-            lines.extend(m.render())
+            if openmetrics and isinstance(m, (Histogram, Counter)):
+                lines.extend(m.render(om=True))
+            else:
+                lines.extend(m.render())
+        if openmetrics:
+            lines.append("# EOF")
         return "\n".join(lines) + "\n"
 
-
-class ConsumerGauges:
-    """The heavy-hitter side table's top-K consumer gauges, refreshed by a
-    scrape-time collect hook (a K-slot device fetch per scrape, never on
-    the decide path), as the JAX package's metrics decorator registers
-    them (ratelimiter_tpu/observability/decorators.py:377-438):
-    ``rate_limiter_hh_tracked_consumers`` (occupied slots) and
-    ``rate_limiter_top_consumer_mass`` by rank 1-5, labelled ``shard``
-    and ``slice`` (one unit: slice "0"). Every rank is written each
-    scrape, so a rank the list no longer reaches drops to 0 rather than
-    keep a departed heavy hitter's mass. ``close`` unhooks it."""
-
-    def __init__(self, limiter, registry: Registry, shard: str = "0"):
-        self.limiter = limiter
-        self.registry = registry
-        self._shard = str(shard)
-        self._top = registry.gauge(
-            "rate_limiter_top_consumer_mass",
-            "In-window admitted mass of the rank-N hottest tracked "
-            "consumer (heavy-hitter side table; identities on "
-            "/debug/audit)")
-        self._occupied = registry.gauge(
-            "rate_limiter_hh_tracked_consumers",
-            "Occupied heavy-hitter slots (promoted hot keys "
-            "currently tracked exactly)")
-        registry.add_collect_hook(self.collect)
-
-    def collect(self) -> None:
-        st = self.limiter.consumer_stats(k=5)
-        self._occupied.set(float(st["occupied"]), shard=self._shard,
-                           slice="0")
-        top = st["top"]
-        for rank in range(1, 6):
-            mass = (float(top[rank - 1]["in_window"])
-                    if rank <= len(top) else 0.0)
-            self._top.set(mass, shard=self._shard, slice="0",
-                          rank=str(rank))
-
-    def close(self) -> None:
-        self.registry.remove_collect_hook(self.collect)
+    def render_openmetrics(self) -> str:
+        """OpenMetrics-flavored exposition: same families, plus
+        histogram bucket EXEMPLARS (`# {trace_id="..."} v ts`) tying
+        `rate_limiter_*_seconds` buckets to the flight-recorder trace
+        ids that landed in them (ADR-014), and the `# EOF` terminator.
+        The HTTP gateway serves this for
+        `Accept: application/openmetrics-text` scrapes."""
+        return self.render(openmetrics=True)
 
 
-#: Process-default registry.
+#: Process-default registry (the serving tier exposes it over /metrics).
 DEFAULT = Registry()

@@ -67,6 +67,17 @@ def splitmix64(x: np.ndarray) -> np.ndarray:
     return x
 
 
+def key_token(key: str) -> str:
+    """Irreversible ``key#<16hex>`` token for logs and the control-plane
+    event journal (the JAX package's rule, ``ops/hashing.key_token``).
+    The logging decorator's redaction and every journal emit site render
+    keys through this, so redacted log lines and journal ``key_hash``
+    fields stay joinable. Hash-of-hash: ``hash_strings_u64`` feeds
+    decisions and wire routing, so its raw value is quasi-public; the
+    extra splitmix keeps tokens uncorrelatable with routing hashes."""
+    return f"key#{int(splitmix64(hash_strings_u64([key]))[0]):016x}"
+
+
 def split_hash(h64: np.ndarray, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """(h1, h2) uint32 halves for double hashing; h2 forced odd so strides
     cycle the full power-of-two width. A seed remixes per-limiter so two

@@ -42,12 +42,23 @@ The wire protocol is unchanged: tenant ids derive from the key. The JAX
 binary's flags, refusals and boot order; its HTTP ``/v1/tenants`` and
 ``/healthz`` hierarchy block are not ported (the port's door has no HTTP,
 ROADMAP A13).
+
+Observability, with the JAX binary's flags and defaults: every limiter is
+wrapped in the decorator stack (``build_limiter_stack``: ``--trace``
+TracingDecorator, ``--circuit-breaker`` CircuitBreakerDecorator,
+MetricsDecorator unless ``--no-metrics``, ``--log-decisions``
+LoggingDecorator, innermost first, the persistence wrapper outermost);
+``--flight-recorder`` turns the flight recorder on before any serving
+thread starts (``rate_limiter_stage_seconds`` on METRICS); the event
+journal is on unless ``--no-event-journal`` (``--event-journal-dir``
+spills it to JSONL segments and replays their tail at start).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import logging
 import signal
 import time
 
@@ -178,6 +189,51 @@ def build_parser() -> argparse.ArgumentParser:
                          "--tenants > 0")
     ap.add_argument("--controller-interval", type=float, default=1.0,
                     help="seconds between AIMD controller ticks")
+    ap.add_argument("--log-level", default="info")
+    # Decorator stack (observability/decorators.py).
+    ap.add_argument("--circuit-breaker", action="store_true",
+                    help="wrap the limiter in CircuitBreakerDecorator "
+                         "(trips after --breaker-threshold consecutive "
+                         "backend failures; probes after --breaker-cooldown)")
+    ap.add_argument("--breaker-threshold", type=int, default=5)
+    ap.add_argument("--breaker-cooldown", type=float, default=10.0,
+                    help="seconds the breaker stays open before probing")
+    ap.add_argument("--log-decisions", action="store_true",
+                    help="wrap in LoggingDecorator (decisions at DEBUG, "
+                         "fail-open at WARNING)")
+    ap.add_argument("--log-redact-keys", action="store_true",
+                    help="with --log-decisions: log key#<hex> tokens "
+                         "(ops.hashing.key_token) instead of raw keys")
+    ap.add_argument("--trace", action="store_true",
+                    help="wrap in TracingDecorator (torch.profiler "
+                         "record_function ranges around every dispatch)")
+    ap.add_argument("--no-metrics", action="store_true",
+                    help="skip the MetricsDecorator (on by default)")
+    # Flight recorder (observability/tracing.py).
+    ap.add_argument("--flight-recorder", action="store_true",
+                    help="turn on the flight recorder: per-thread ring "
+                         "buffers of per-stage spans stamped on the "
+                         "serving hot path at clock-read cost, shown as "
+                         "the rate_limiter_stage_seconds histograms on "
+                         "METRICS. Off by default = zero overhead")
+    ap.add_argument("--flight-recorder-capacity", type=int, default=8192,
+                    help="span ring capacity PER THREAD (records; "
+                         "rounded up to a power of two). At 32 B/record "
+                         "the default is 256 KiB per serving thread")
+    # Control-plane event journal (observability/events.py).
+    ap.add_argument("--no-event-journal", action="store_true",
+                    help="disable the control-plane event journal. ON by "
+                         "default: controller moves and policy/reset "
+                         "mutations are recorded in a bounded in-memory "
+                         "ring (never the decide path)")
+    ap.add_argument("--event-journal-capacity", type=int, default=4096,
+                    help="events held in the journal ring (oldest "
+                         "evicted; ~300 B/event)")
+    ap.add_argument("--event-journal-dir", default=None, metavar="DIR",
+                    help="also spill journal events to append-only "
+                         "JSONL segments in DIR (bounded rotation) and "
+                         "replay the on-disk tail into the ring at "
+                         "startup")
     return ap
 
 
@@ -278,6 +334,51 @@ def setup_hierarchy(args: argparse.Namespace, cfg: Config, units):
     return hier, controller
 
 
+def build_limiter_stack(limiter, args, registry=None):
+    """Apply the configured decorator stack, innermost first (the JAX
+    binary's order): Tracing (annotates the real device dispatch),
+    CircuitBreaker (judges backend health from real calls), Metrics
+    (observes everything, including breaker short-circuits, into
+    ``registry``, the process default when None), Logging (outermost,
+    sees final outcomes)."""
+    from ratelimiter_tpu_torch.observability.decorators import (
+        CircuitBreakerDecorator,
+        LoggingDecorator,
+        MetricsDecorator,
+        TracingDecorator,
+    )
+
+    if args.trace:
+        limiter = TracingDecorator(limiter)
+    if args.circuit_breaker:
+        limiter = CircuitBreakerDecorator(
+            limiter, failure_threshold=args.breaker_threshold,
+            cooldown=args.breaker_cooldown, registry=registry)
+    if not args.no_metrics:
+        limiter = MetricsDecorator(limiter, registry=registry)
+    if args.log_decisions:
+        limiter = LoggingDecorator(limiter,
+                                   redact_keys=args.log_redact_keys)
+    return limiter
+
+
+def enable_observability(args: argparse.Namespace, registry=None) -> None:
+    """The flight recorder (``--flight-recorder``) and the event journal
+    (on unless ``--no-event-journal``), their families in ``registry``
+    (the process default when None), as the JAX binary enables them:
+    before any serving thread starts and before anything that emits
+    (the controller)."""
+    from ratelimiter_tpu_torch.observability import events, metrics, tracing
+
+    registry = registry if registry is not None else metrics.DEFAULT
+    if args.flight_recorder:
+        tracing.enable(args.flight_recorder_capacity, registry=registry)
+    if not args.no_event_journal:
+        events.enable(args.event_journal_capacity,
+                      host=f"{args.host}:{args.port}", registry=registry,
+                      spill_dir=args.event_journal_dir)
+
+
 def prewarm(limiter) -> float:
     """Build and load what the first frames would otherwise build: the
     C++ bulk hasher, and on a CUDA device the backend's kernel libraries
@@ -307,15 +408,19 @@ def prewarm(limiter) -> float:
 
 
 async def _serve(args: argparse.Namespace) -> None:
+    logging.basicConfig(level=args.log_level.upper())
+    enable_observability(args)
     cfg = build_config(args)
     limiter = create_limiter(cfg, backend=args.backend, device=args.device)
     built_s = prewarm(limiter)
+    limiter = build_limiter_stack(limiter, args)
     persist = None
     if cfg.persistence.enabled:
         from ratelimiter_tpu_torch.persistence import PersistenceManager
 
-        # The JAX binary's order: wrap (outermost), attach, recover before
-        # the door listens, then start the background snapshots.
+        # The JAX binary's order: wrap (outermost, around the decorator
+        # stack), attach, recover before the door listens, then start the
+        # background snapshots.
         persist = PersistenceManager(cfg.persistence)
         limiter = persist.wrap(limiter)
         persist.attach([limiter])
@@ -358,6 +463,9 @@ async def _serve(args: argparse.Namespace) -> None:
             # every answered decision — a graceful shutdown loses nothing.
             persist.stop()
         limiter.close()
+        from ratelimiter_tpu_torch.observability import events
+
+        events.disable()
 
 
 def main(argv=None) -> None:

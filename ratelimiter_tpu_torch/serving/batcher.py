@@ -31,9 +31,23 @@ window; as the pending queue fills toward ``max_batch`` the flush timer is
 pulled earlier, so a deep queue never waits the full delay for a batch it
 could fill at once.
 
+Deadline shedding: a decision whose propagated deadline (the frame's
+deadline extension, anchored to its arrival) has expired is answered at
+once per the fail-open/closed policy (a fail-open allowance, or
+DeadlineExceededError), at submit or when its window dispatches, and
+never joins a launch; ``rate_limiter_server_deadline_shed_total`` counts
+those decisions.
+
+Flight recorder (observability/tracing.py; off unless enabled, and then
+one None check per operation): each coalescing window records its
+``coalesce`` residency, a multi-frame hashed window its ``route``
+assembly, each dispatch its ``queue`` wait for the launch thread and
+window slot, its ``launch``, its ``device`` wait on the ticket and its
+``resolve`` tail, under the window's first sampled trace id, which is
+also the thread's current trace id around launch.
+
 Not ported from the JAX batcher: the fleet forward lane and its pool,
-audit, tracing and the flight recorder, and deadline shedding (the port's
-door refuses the deadline extension).
+and the audit tap.
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ from ratelimiter_tpu_torch.algorithms.base import (
     check_n,
 )
 from ratelimiter_tpu_torch.core.errors import (
+    DeadlineExceededError,
     InvalidConfigError,
     InvalidNError,
     StorageUnavailableError,
@@ -62,6 +77,8 @@ from ratelimiter_tpu_torch.core.types import (
     fail_open_result,
 )
 from ratelimiter_tpu_torch.observability import metrics as m
+from ratelimiter_tpu_torch.observability import tracing
+from ratelimiter_tpu_torch.observability.decorators import undecorated
 
 
 class MicroBatcher:
@@ -104,13 +121,19 @@ class MicroBatcher:
         self.max_delay = max_delay
         self.dispatch_timeout = dispatch_timeout
         self.inflight = inflight
-        self._pending: List[Tuple[str, int, asyncio.Future]] = []
+        #: Queued string decisions, (key, n, future, deadline) each.
+        self._pending: List[Tuple[str, int, asyncio.Future, float]] = []
         #: Queued ALLOW_HASHED frames awaiting the next coalescing window,
-        #: (ids, ns, future) each: flushed beside the string queue into
-        #: one launch per window, each frame answered from its contiguous
-        #: row range.
+        #: (ids, ns, future, trace_id, deadline) each: flushed beside the
+        #: string queue into one launch per window, each frame answered
+        #: from its contiguous row range.
         self._pending_hashed: List[tuple] = []
         self._pending_hashed_ids = 0
+        #: Flight-recorder window context: first-enqueue stamp and the
+        #: first sampled trace id of the current coalescing window (zero
+        #: cost while tracing is off).
+        self._q_t0 = 0
+        self._q_trace = 0
         self._timer: Optional[asyncio.TimerHandle] = None
         self._first_ts = 0.0
         self._armed_depth = 0
@@ -127,7 +150,10 @@ class MicroBatcher:
         self._pipelined = bool(getattr(limiter, "pipelined", False)
                                and inflight > 1
                                and dispatch_timeout is None)
-        self._hashed_lane = hasattr(limiter, "allow_ids")
+        # Lane support is a property of the BACKEND, not of the decorator
+        # stack (decorators delegate the whole raw-id surface, so a
+        # hasattr on the decorated limiter is always true).
+        self._hashed_lane = hasattr(undecorated(limiter), "allow_ids")
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="rl-dispatch")
         if self._pipelined:
@@ -163,6 +189,10 @@ class MicroBatcher:
             "rate_limiter_server_slo_breach_decisions_total",
             "Decisions answered by SLO-breach policy (fail-open/closed) "
             "instead of a device result")
+        self._deadline_shed = reg.counter(
+            "rate_limiter_server_deadline_shed_total",
+            "Decisions shed because their propagated deadline expired "
+            "before dispatch (answered per fail-open/closed, ADR-015)")
         self._inflight_gauge = reg.gauge(
             "rate_limiter_pipeline_inflight",
             "Launched device dispatches not yet resolved")
@@ -188,13 +218,54 @@ class MicroBatcher:
 
     # ------------------------------------------------------------ submit
 
+    def _note_window(self, trace_id: int) -> None:
+        """Window trace context: stamp the first-enqueue time once per
+        coalescing window and keep the first sampled trace id."""
+        if tracing.RECORDER is not None and not self._q_t0:
+            self._q_t0 = tracing.now()
+        if trace_id and not self._q_trace:
+            self._q_trace = trace_id
+
     def _enqueue(self, loop: asyncio.AbstractEventLoop, key: str,
-                 n: int) -> asyncio.Future:
+                 n: int, trace_id: int = 0,
+                 deadline: float = 0.0) -> asyncio.Future:
         fut: asyncio.Future = loop.create_future()
-        self._pending.append((key, n, fut))
+        self._pending.append((key, n, fut, deadline))
+        self._note_window(trace_id)
         if len(self._pending) >= self.max_batch:
             self._flush()
         return fut
+
+    # -------------------------------------------------- deadline shedding
+
+    def _shed_frame(self, fut: asyncio.Future, b: int) -> None:
+        """Answer one whole hashed frame (``b`` decisions) whose
+        propagated deadline expired before dispatch, per the
+        fail-open/closed policy: nobody is waiting for the real answer,
+        so no dispatch slot is spent on it."""
+        self._deadline_shed.inc(b)
+        cfg = self.limiter.config
+        if fut.done():
+            return
+        if cfg.fail_open:
+            reset_at = self.limiter.clock.now() + float(cfg.window)
+            fut.set_result(batch_fail_open(b, cfg.limit, reset_at))
+        else:
+            fut.set_exception(DeadlineExceededError(
+                "request deadline expired before dispatch"))
+
+    def _shed_scalar(self, fut: asyncio.Future) -> None:
+        """The string lane's form of deadline shedding."""
+        self._deadline_shed.inc()
+        cfg = self.limiter.config
+        if fut.done():
+            return
+        if cfg.fail_open:
+            fut.set_result(fail_open_result(
+                cfg.limit, self.limiter.clock.now() + float(cfg.window)))
+        else:
+            fut.set_exception(DeadlineExceededError(
+                "request deadline expired before dispatch"))
 
     def _arm_timer(self, loop: asyncio.AbstractEventLoop) -> None:
         # Queue depth counts both lanes: pending string decisions plus
@@ -225,22 +296,31 @@ class MicroBatcher:
             self._timer = loop.call_later(max(0.0, target - loop.time()),
                                           self._flush)
 
-    def submit_nowait(self, key: str, n: int = 1) -> asyncio.Future:
+    def submit_nowait(self, key: str, n: int = 1, trace_id: int = 0,
+                      deadline: float = 0.0) -> asyncio.Future:
         """Queue one decision and return its future without awaiting: the
         door's zero-task path (a done callback writes the response).
         Validation happens here, before batching, so a malformed request
         fails fast and never poisons a batch. Must run on the event loop
-        thread."""
+        thread. ``trace_id`` samples the window this decision joins into
+        the flight recorder. ``deadline`` (absolute ``time.monotonic``
+        seconds; 0 = none): a decision whose deadline has passed is shed
+        (answered per policy) here or when its window dispatches."""
         if self._draining:
             raise StorageUnavailableError("server is shutting down")
         check_key(key)
         check_n(n)
         loop = asyncio.get_running_loop()
-        fut = self._enqueue(loop, key, n)
+        if deadline and time.monotonic() >= deadline:
+            fut: asyncio.Future = loop.create_future()
+            self._shed_scalar(fut)
+            return fut
+        fut = self._enqueue(loop, key, n, trace_id, deadline)
         self._arm_timer(loop)
         return fut
 
-    def submit_many_nowait(self, pairs) -> List[asyncio.Future]:
+    def submit_many_nowait(self, pairs, trace_id: int = 0,
+                           deadline: float = 0.0) -> List[asyncio.Future]:
         """Queue a whole frame of (key, n) decisions atomically: every pair
         is validated before any is queued, so a bad pair mid-frame cannot
         leave earlier pairs consuming quota with nobody reading their
@@ -252,14 +332,21 @@ class MicroBatcher:
             check_key(key)
             check_n(n)
         loop = asyncio.get_running_loop()
-        futs = [self._enqueue(loop, key, n) for key, n in pairs]
+        if deadline and time.monotonic() >= deadline:
+            futs = [loop.create_future() for _ in pairs]
+            for f in futs:
+                self._shed_scalar(f)
+            return futs
+        futs = [self._enqueue(loop, key, n, trace_id, deadline)
+                for key, n in pairs]
         self._arm_timer(loop)
         return futs
 
     # ------------------------------------------------- hashed bulk lane
 
-    def submit_hashed_nowait(self, ids: np.ndarray,
-                             ns: np.ndarray) -> asyncio.Future:
+    def submit_hashed_nowait(self, ids: np.ndarray, ns: np.ndarray,
+                             trace_id: int = 0,
+                             deadline: float = 0.0) -> asyncio.Future:
         """Queue one whole ALLOW_HASHED frame into the current coalescing
         window: every hashed frame queued within ``max_delay`` merges into
         one ``launch_ids`` dispatch of at most ``max_window`` rows, and
@@ -267,7 +354,9 @@ class MicroBatcher:
         window's BatchResult (``BatchResult.rows``; wire buffers ride
         along). Shares the launch/resolve executors and in-flight window
         with the string lane. Must run on the event loop thread; needs a
-        limiter with the raw-id lane (the sketch limiters)."""
+        limiter with the raw-id lane (the sketch limiters). ``trace_id``
+        and ``deadline`` as in ``submit_nowait``: an expired frame is
+        shed whole."""
         if self._draining:
             raise StorageUnavailableError("server is shutting down")
         if not self._hashed_lane:
@@ -278,6 +367,10 @@ class MicroBatcher:
             raise InvalidNError("n must be a positive integer")
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
+        if deadline and ids.shape[0] and time.monotonic() >= deadline:
+            # Already expired at parse: answer per policy now.
+            self._shed_frame(fut, int(ids.shape[0]))
+            return fut
         if not ids.shape[0]:
             # count == 0 frames are valid (empty RESULT_HASHED), no
             # dispatch needed.
@@ -306,7 +399,7 @@ class MicroBatcher:
                 sfut: asyncio.Future = loop.create_future()
                 seg_futs.append(sfut)
                 self._spawn(self._dispatch_hashed(
-                    ids[off:off + seg], ns[off:off + seg], sfut))
+                    ids[off:off + seg], ns[off:off + seg], sfut, trace_id))
             self._spawn(self._join_segments(seg_futs, fut))
             return fut
         if (self._pending_hashed
@@ -315,33 +408,73 @@ class MicroBatcher:
             # flush the current window first; this frame then opens the
             # next one (arrival order across dispatches is kept).
             self._flush()
-        self._pending_hashed.append((ids, ns, fut))
+        self._pending_hashed.append((ids, ns, fut, trace_id, deadline))
         self._pending_hashed_ids += b
+        self._note_window(trace_id)
         if self._pending_hashed_ids >= self.max_batch:
             self._flush()
         else:
             self._arm_timer(loop)
         return fut
 
-    def _launch_hashed_work(self, ids, ns):
+    def _launch_hashed_work(self, ids, ns, trace_id=0, t_q=0):
         """Hashed-window launch stage (launch executor thread): the same
         in-flight window as _launch_work; wire=True packs the response
         buffers on the device (sketch_kernels.pack_wire)."""
+        return self._launch_traced(
+            lambda: self.limiter.launch_ids(ids, ns, wire=True),
+            int(ids.shape[0]), trace_id, t_q)
+
+    def _launch_traced(self, launch, b: int, trace_id: int, t_q: int):
+        """Acquire an in-flight slot — blocking here is the pipeline's
+        backpressure, it stalls later launches, never the event loop —
+        then run ``launch`` (stage and enqueue, no wait on the device).
+        With the recorder on: the thread's current trace id around the
+        launch, and the ``queue`` (launch thread and slot wait) and
+        ``launch`` spans."""
         self._window.acquire()
+        rec = tracing.RECORDER
+        tq0 = tracing.now() if rec is not None else 0
         t0 = time.perf_counter()
+        if rec is not None:
+            tracing.set_current(trace_id)
         try:
-            ticket = self.limiter.launch_ids(ids, ns, wire=True)
+            ticket = launch()
         except BaseException:
             self._window.release()
             raise
+        finally:
+            if rec is not None:
+                tracing.set_current(0)
         self._launch_hist.observe(time.perf_counter() - t0)
+        if rec is not None:
+            if t_q:
+                rec.record("queue", t_q, tq0, trace_id=trace_id, batch=b)
+            rec.record("launch", tq0, tracing.now(), trace_id=trace_id,
+                       batch=b)
+        ticket.trace_id = trace_id
         self._depth_add(1)
         return ticket
 
-    def _allow_work(self, keys, ns, hashed=False):
-        """Blocking decide (non-pipelined batchers)."""
-        return (self.limiter.allow_ids(keys, ns) if hashed
-                else self.limiter.allow_batch(keys, ns))
+    def _allow_work(self, keys, ns, trace_id=0, hashed=False):
+        """Blocking decide (non-pipelined batchers): one "device" span
+        covers the whole synchronous dispatch."""
+        rec = tracing.RECORDER
+        t0 = tracing.now() if rec is not None else 0
+        if rec is not None:
+            tracing.set_current(trace_id)
+        try:
+            out = (self.limiter.allow_ids(keys, ns) if hashed
+                   else self.limiter.allow_batch(keys, ns))
+        finally:
+            if rec is not None:
+                tracing.set_current(0)
+        if rec is not None:
+            rec.record("device", t0, tracing.now(), trace_id=trace_id,
+                       batch=len(out),
+                       outcome=tracing.FAIL_OPEN if out.fail_open
+                       else tracing.OK)
+        return out
 
     async def _await_dispatch(self, work, decisions: int, t0: float):
         """Await one dispatch's result under the SLO. Returns ``(out,
@@ -368,15 +501,18 @@ class MicroBatcher:
         return StorageUnavailableError(
             f"dispatch exceeded SLO ({self.dispatch_timeout * 1e3:.1f} ms)")
 
-    async def _dispatch_hashed(self, ids, ns, fut: asyncio.Future) -> None:
+    async def _dispatch_hashed(self, ids, ns, fut: asyncio.Future,
+                               trace_id: int = 0) -> None:
         b = int(ids.shape[0])
         self._dispatch_batch.observe(float(b))
         loop = asyncio.get_running_loop()
+        t_q = tracing.now() if tracing.RECORDER is not None else 0
         t0 = time.perf_counter()
         if self._pipelined and self._hashed_lane:
             try:
                 ticket = await loop.run_in_executor(
-                    self._pool, self._launch_hashed_work, ids, ns)
+                    self._pool, self._launch_hashed_work, ids, ns,
+                    trace_id, t_q)
             except Exception as exc:
                 if not fut.done():
                     fut.set_exception(exc)
@@ -385,7 +521,8 @@ class MicroBatcher:
                                         self._resolve_work, ticket)
         else:
             work = loop.run_in_executor(
-                self._pool, lambda: self._allow_work(ids, ns, hashed=True))
+                self._pool,
+                lambda: self._allow_work(ids, ns, trace_id, hashed=True))
         try:
             out, timed_out = await self._await_dispatch(work, b, t0)
         except Exception as exc:
@@ -443,24 +580,41 @@ class MicroBatcher:
         connection's back-to-back frames is kept: in-batch admission
         decides duplicates as sequential dispatches would), launches
         once, and answers each frame from its row range of the window's
-        result (BatchResult.rows)."""
+        result (BatchResult.rows). Frames whose deadline expired while
+        they waited in the window are shed here and join no launch."""
+        now_mono = time.monotonic()
+        if any(f[4] and now_mono >= f[4] for f in frames):
+            for fids, _, fut, _, dl in frames:
+                if dl and now_mono >= dl:
+                    self._shed_frame(fut, int(fids.shape[0]))
+            frames = [f for f in frames if not (f[4] and now_mono >= f[4])]
+            if not frames:
+                return
         if len(frames) == 1:
-            ids, ns, fut = frames[0]
-            await self._dispatch_hashed(ids, ns, fut)
+            ids, ns, fut, tid, _ = frames[0]
+            await self._dispatch_hashed(ids, ns, fut, tid)
             return
+        rec = tracing.RECORDER
+        tid = next((f[3] for f in frames if f[3]), 0)
+        t_r0 = tracing.now() if rec is not None else 0
         ids = np.concatenate([f[0] for f in frames])
         ns = np.concatenate([f[1] for f in frames])
+        if rec is not None:
+            # "route": window assembly (frame concatenation in arrival
+            # order).
+            rec.record("route", t_r0, tracing.now(), trace_id=tid,
+                       batch=int(ids.shape[0]))
         win: asyncio.Future = asyncio.get_running_loop().create_future()
-        await self._dispatch_hashed(ids, ns, win)
+        await self._dispatch_hashed(ids, ns, win, tid)
         exc = win.exception()
         if exc is not None:
-            for _, _, fut in frames:
+            for _, _, fut, _, _ in frames:
                 if not fut.done():
                     fut.set_exception(exc)
             return
         out = win.result()
         off = 0
-        for fids, _, fut in frames:
+        for fids, _, fut, _, _ in frames:
             k = int(fids.shape[0])
             if not fut.done():
                 fut.set_result(out.rows(off, k))
@@ -477,46 +631,78 @@ class MicroBatcher:
         if not self._pending and not self._pending_hashed:
             return
         self._queue_depth.set(0)
+        rec = tracing.RECORDER
+        trace = self._q_trace
+        if rec is not None and self._q_t0:
+            # "coalesce": the window's residency, first enqueue to flush,
+            # in max_batch units across both lanes.
+            rec.record("coalesce", self._q_t0, tracing.now(),
+                       trace_id=trace,
+                       batch=len(self._pending) + self._pending_hashed_ids)
+        self._q_t0 = 0
+        self._q_trace = 0
         if self._pending:
             batch = self._pending
             self._pending = []
-            self._spawn(self._dispatch(batch))
+            self._spawn(self._dispatch(batch, trace))
         if self._pending_hashed:
             frames = self._pending_hashed
             self._pending_hashed = []
             self._pending_hashed_ids = 0
             self._spawn(self._dispatch_hashed_window(frames))
 
-    def _launch_work(self, keys, ns):
-        """Launch stage (launch executor thread): acquire an in-flight
-        slot — blocking here is the pipeline's backpressure, it stalls
-        later launches, never the event loop — then stage and enqueue
-        without waiting on the device."""
-        self._window.acquire()
-        t0 = time.perf_counter()
-        try:
-            ticket = self.limiter.launch_batch(keys, ns)
-        except BaseException:
-            self._window.release()
-            raise
-        self._launch_hist.observe(time.perf_counter() - t0)
-        self._depth_add(1)
-        return ticket
+    def _launch_work(self, keys, ns, trace_id=0, t_q=0):
+        """Launch stage (launch executor thread), as _launch_traced."""
+        return self._launch_traced(
+            lambda: self.limiter.launch_batch(keys, ns), len(keys),
+            trace_id, t_q)
 
     def _resolve_work(self, ticket):
+        rec = tracing.RECORDER
+        tn0 = tracing.now() if rec is not None else 0
         t0 = time.perf_counter()
         try:
-            return self.limiter.resolve(ticket)
+            out = self.limiter.resolve(ticket)
+            if rec is not None:
+                tn1 = tracing.now()
+                tid = getattr(ticket, "trace_id", 0)
+                # "device": the blocking wait on the oldest in-flight
+                # dispatch; "resolve": the host bookkeeping tail.
+                rec.record("device", tn0, tn1, trace_id=tid,
+                           batch=len(out),
+                           outcome=tracing.FAIL_OPEN if out.fail_open
+                           else tracing.OK)
+                rec.record("resolve", tn1, tracing.now(), trace_id=tid,
+                           batch=len(out))
+            return out
+        except Exception:
+            if rec is not None:
+                rec.record("device", tn0, tracing.now(),
+                           trace_id=getattr(ticket, "trace_id", 0),
+                           outcome=tracing.ERROR)
+            raise
         finally:
             self._window.release()
             self._depth_add(-1)
             self._resolve_hist.observe(time.perf_counter() - t0)
 
-    async def _dispatch(self, batch) -> None:
-        keys = [k for k, _, _ in batch]
-        ns = [n for _, n, _ in batch]
+    async def _dispatch(self, batch, trace_id: int = 0) -> None:
+        # Deadline shedding at the dispatch boundary: entries whose
+        # deadline expired while coalescing are answered per policy here
+        # and left out of the launch.
+        now_mono = time.monotonic()
+        if any(e[3] and now_mono >= e[3] for e in batch):
+            for _, _, fut, dl in batch:
+                if dl and now_mono >= dl:
+                    self._shed_scalar(fut)
+            batch = [e for e in batch if not (e[3] and now_mono >= e[3])]
+            if not batch:
+                return
+        keys = [k for k, _, _, _ in batch]
+        ns = [n for _, n, _, _ in batch]
         self._dispatch_batch.observe(float(len(batch)))
         loop = asyncio.get_running_loop()
+        t_q = tracing.now() if tracing.RECORDER is not None else 0
         t0 = time.perf_counter()
         if self._pipelined:
             # Launch/resolve split: the launch executor stages and
@@ -524,9 +710,9 @@ class MicroBatcher:
             # batch k, so the device always has work queued.
             try:
                 ticket = await loop.run_in_executor(
-                    self._pool, self._launch_work, keys, ns)
+                    self._pool, self._launch_work, keys, ns, trace_id, t_q)
             except Exception as exc:
-                for _, _, fut in batch:
+                for _, _, fut, _ in batch:
                     if not fut.done():
                         fut.set_exception(exc)
                 return
@@ -534,7 +720,7 @@ class MicroBatcher:
                                         self._resolve_work, ticket)
         else:
             work = loop.run_in_executor(
-                self._pool, lambda: self._allow_work(keys, ns))
+                self._pool, lambda: self._allow_work(keys, ns, trace_id))
         try:
             out, timed_out = await self._await_dispatch(work, len(batch),
                                                         t0)
@@ -542,7 +728,7 @@ class MicroBatcher:
             # Fail-open dispatch failures never get here (the limiter maps
             # them to a fail-open BatchResult): fail-closed, every waiter
             # gets the error.
-            for _, _, fut in batch:
+            for _, _, fut, _ in batch:
                 if not fut.done():
                     fut.set_exception(exc)
             return
@@ -550,18 +736,18 @@ class MicroBatcher:
             cfg = self.limiter.config
             if cfg.fail_open:
                 reset_at = self.limiter.clock.now() + float(cfg.window)
-                for _, _, fut in batch:
+                for _, _, fut, _ in batch:
                     if not fut.done():
                         fut.set_result(fail_open_result(cfg.limit, reset_at))
                 self.decisions_total += len(batch)
             else:
                 err = self._breach_error()
-                for _, _, fut in batch:
+                for _, _, fut, _ in batch:
                     if not fut.done():
                         fut.set_exception(err)
             return
         self.decisions_total += len(batch)
-        for i, (_, _, fut) in enumerate(batch):
+        for i, (_, _, fut, _) in enumerate(batch):
             if not fut.done():
                 fut.set_result(out.result(i))
 

@@ -41,9 +41,12 @@ Responses:
                          i64 remaining | f64 retry | f64 reset
     ERROR         (255): u16 code, u16 msg_len, msg utf-8
 
-The JAX package's request-type flag bits (trace 0x40, deadline 0x20,
-forward 0x10) are not served: ``REQUEST_FLAGS`` names them so the server
-can refuse such frames with E_INVALID_CONFIG.
+Request frame extensions, the JAX package's bits on the type byte: the
+trace id (0x40, a u64 prefixed to the body) and the relative deadline
+budget (0x20, an f64 prefixed to the body; with both, the trace id comes
+first). ``split_request`` strips both. The fleet's forward hint (0x10)
+is not served: ``REQUEST_FLAGS`` names it so the server can refuse such
+frames with E_INVALID_CONFIG.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ import numpy as np
 
 from ratelimiter_tpu_torch.core.errors import (
     ClosedError,
+    DeadlineExceededError,
     InvalidConfigError,
     InvalidKeyError,
     InvalidNError,
@@ -87,9 +91,10 @@ T_SNAPSHOT_R = 135
 T_RESULT_HASHED = 136
 T_ERROR = 255
 
-#: Request-type extension bits of the JAX package's protocol (trace,
-#: deadline, forward hint); this server refuses frames carrying them.
-REQUEST_FLAGS = 0x40 | 0x20 | 0x10
+#: Request-type extension bit of the JAX package's protocol that this
+#: server does not serve (the fleet's forward hint); it refuses frames
+#: carrying it.
+REQUEST_FLAGS = 0x10
 
 E_INVALID_N = 1
 E_INVALID_KEY = 2
@@ -97,9 +102,14 @@ E_STORAGE_UNAVAILABLE = 3
 E_CLOSED = 4
 E_INVALID_CONFIG = 5
 E_INTERNAL = 7
+#: The request's propagated deadline expired before its dispatch ran
+#: (the fail-closed side of deadline shedding).
+E_DEADLINE = 8
 
 
 def code_for(exc: Exception) -> int:
+    if isinstance(exc, DeadlineExceededError):
+        return E_DEADLINE
     if isinstance(exc, InvalidNError):
         return E_INVALID_N
     if isinstance(exc, (InvalidKeyError, UnicodeDecodeError)):
@@ -138,6 +148,91 @@ def parse_header(buf: bytes) -> Tuple[int, int, int]:
     if length < 9 or length > MAX_FRAME:
         raise ProtocolError(f"bad frame length {length}")
     return length, type_, req_id
+
+
+# --------------------------------------------- trace context (ADR-014)
+#
+# Optional caller trace propagation: setting bit 6 (0x40) on any REQUEST
+# type byte means the body is prefixed with a u64 trace id (little-
+# endian). Request types are 1..11 and response types >= 128, so the
+# flagged range 0x41..0x4B collides with nothing; responses never carry
+# the flag (the request id already correlates them). Servers that
+# predate the flag drop the connection on the unknown type — the flag is
+# only sent by callers that opted into tracing against a known server.
+TRACE_FLAG = 0x40
+_TRACE_ID = struct.Struct("<Q")
+
+# ------------------------------------------- deadline context (ADR-015)
+#
+# Request deadline propagation, the same frame-extension mechanism as
+# the trace id: bit 5 (0x20) on a REQUEST type byte means the body is
+# prefixed with an f64 RELATIVE deadline budget in seconds (relative,
+# not absolute — client and server wall clocks need not agree; the
+# receiver anchors the budget to frame arrival). Servers SHED work
+# whose budget has expired before its dispatch runs, answering per the
+# fail-open/fail-closed policy instead of burning a dispatch slot
+# (core/errors.DeadlineExceededError on the fail-closed side). When
+# both extensions are present the trace id comes FIRST on the wire:
+# apply ``with_deadline`` before ``with_trace``.
+DEADLINE_FLAG = 0x20
+_DEADLINE = struct.Struct("<d")
+_REQ_FLAGS = TRACE_FLAG | DEADLINE_FLAG
+
+
+def with_deadline(frame: bytes, budget_s: float) -> bytes:
+    """Re-frame a request with the deadline extension (flag bit on the
+    type byte + f64 relative budget prefixed to the body). Must be
+    applied BEFORE ``with_trace`` — the trace id is the outermost
+    prefix on the wire."""
+    length, type_, req_id = _HDR.unpack_from(frame)
+    if type_ & _REQ_FLAGS or type_ >= 128:
+        raise ProtocolError(f"type {type_} cannot carry a deadline")
+    body = _DEADLINE.pack(float(budget_s)) + frame[HEADER_SIZE:]
+    return _HDR.pack(1 + 8 + len(body), type_ | DEADLINE_FLAG,
+                     req_id) + body
+
+
+def with_trace(frame: bytes, trace_id: int) -> bytes:
+    """Re-frame a request with the trace-id extension (flag bit on the
+    type byte + u64 id prefixed to the body). Composes with the
+    deadline extension (apply ``with_deadline`` first; the trace id
+    ends up outermost)."""
+    length, type_, req_id = _HDR.unpack_from(frame)
+    if type_ & TRACE_FLAG or type_ >= 128:
+        raise ProtocolError(f"type {type_} cannot carry a trace id")
+    body = _TRACE_ID.pack(trace_id & 0xFFFFFFFFFFFFFFFF) \
+        + frame[HEADER_SIZE:]
+    return _HDR.pack(1 + 8 + len(body), type_ | TRACE_FLAG, req_id) + body
+
+
+def split_trace(type_: int, body: bytes):
+    """(base_type, trace_id, body) from a possibly-flagged request frame
+    — servers call this once per frame; unflagged frames pass through
+    with trace_id 0 and zero copies. The deadline flag (if any) stays
+    on the returned type for ``split_request`` callers."""
+    if not (type_ & TRACE_FLAG) or type_ >= 128:
+        return type_, 0, body
+    if len(body) < _TRACE_ID.size:
+        raise ProtocolError("short trace-id extension")
+    (trace_id,) = _TRACE_ID.unpack_from(body)
+    return type_ & ~TRACE_FLAG, trace_id, body[_TRACE_ID.size:]
+
+
+def split_request(type_: int, body: bytes):
+    """(base_type, trace_id, deadline_budget_s, body) — strips BOTH
+    frame extensions in canonical order (trace id, then deadline).
+    Unflagged frames pass through with (0, None) and zero copies.
+    ``deadline_budget_s`` is the sender's RELATIVE budget (None = no
+    deadline; <= 0 = already expired on arrival); anchor it to frame
+    arrival on the receiving side."""
+    type_, trace_id, body = split_trace(type_, body)
+    if not (type_ & DEADLINE_FLAG) or type_ >= 128:
+        return type_, trace_id, None, body
+    if len(body) < _DEADLINE.size:
+        raise ProtocolError("short deadline extension")
+    (budget,) = _DEADLINE.unpack_from(body)
+    return (type_ & ~DEADLINE_FLAG, trace_id, budget,
+            body[_DEADLINE.size:])
 
 
 # ----------------------------------------------------------- requests

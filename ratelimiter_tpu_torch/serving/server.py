@@ -10,10 +10,10 @@ trimmed to the frames this slice serves:
   frame is queued into the batcher and its reply is written from the
   future's done callback. Replies carry request ids and may return out
   of order: clients pipeline, the server coalesces;
-* RESET, HEALTH, METRICS (Prometheus text of the door's registry; a
-  limiter with the heavy-hitter side table adds its top-K consumer
-  gauges, ``observability.metrics.ConsumerGauges``), the
-  policy frames (POLICY_SET/GET/DEL, answered with POLICY_R) and SNAPSHOT
+* RESET, HEALTH, METRICS (Prometheus text of the door's registry: the
+  batcher's families, and whatever the decorator stack around the
+  limiter registers there, e.g. ``MetricsDecorator``'s, with the side
+  table's top-K consumer gauges), the policy frames (POLICY_SET/GET/DEL, answered with POLICY_R) and SNAPSHOT
   run as one task each. Reset and the policy mutations are not batched:
   they are rare, and their semantics are "take effect before any later
   decision", which the limiter's lock gives; they run in the loop's
@@ -23,10 +23,17 @@ trimmed to the frames this slice serves:
   E_INVALID_CONFIG;
 * a connection whose write buffer passes WRITE_BUFFER_LIMIT is dropped.
 
-Frames carrying the JAX protocol's trace, deadline or forward extension
-bits are answered with E_INVALID_CONFIG. HTTP, gRPC, the shared-memory
-lane, the native door, leases and the fleet are not ported (ROADMAP
-A13, A8); neither are the JAX door's audit events.
+Every request frame goes through ``protocol.split_request``: the trace
+extension's id samples the frame into the flight recorder (the door
+records its ``io`` span, parse to enqueue, and its ``encode`` span; the
+batcher the stages between), and the deadline extension's relative
+budget, anchored to the frame's arrival, lets the batcher shed the
+frame once it expires. RESET and the policy mutations are journaled
+(observability/events.py, ``actor="binary"``, keys as ``key_token``s).
+Frames carrying the JAX protocol's forward hint are answered with
+E_INVALID_CONFIG. HTTP, gRPC, the shared-memory lane, the native door,
+leases and the fleet are not ported (ROADMAP A13, A8); neither are the
+JAX door's audit events.
 """
 
 from __future__ import annotations
@@ -38,7 +45,10 @@ from functools import partial
 from typing import Callable, Optional
 
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
+from ratelimiter_tpu_torch.observability import events
 from ratelimiter_tpu_torch.observability import metrics as m
+from ratelimiter_tpu_torch.observability import tracing
+from ratelimiter_tpu_torch.ops.hashing import key_token
 from ratelimiter_tpu_torch.serving import protocol as p
 from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
 
@@ -70,8 +80,6 @@ class RateLimitServer:
             limiter, max_batch=max_batch, max_delay=max_delay,
             dispatch_timeout=dispatch_timeout, inflight=inflight,
             registry=self.registry, max_window=max_window)
-        self._consumers = (m.ConsumerGauges(limiter, self.registry)
-                           if getattr(limiter, "has_hh", False) else None)
         self._server: Optional[asyncio.AbstractServer] = None
         self._started_at = time.time()
         self._serving = False
@@ -98,8 +106,6 @@ class RateLimitServer:
             t.cancel()
         await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
         self.batcher.close()
-        if self._consumers is not None:
-            self._consumers.close()
 
     async def serve_forever(self) -> None:
         if self._server is None:
@@ -134,27 +140,46 @@ class RateLimitServer:
             except (ConnectionResetError, BrokenPipeError, RuntimeError):
                 pass
 
-        def complete_allow(req_id: int, fut: asyncio.Future) -> None:
+        def complete_allow(req_id: int, trace_id: int,
+                           fut: asyncio.Future) -> None:
             exc = fut.exception()
             if exc is not None:
                 write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
-            else:
-                write_vec([p.encode_result(req_id, fut.result())])
+                return
+            rec = tracing.RECORDER
+            t0 = tracing.now() if rec is not None else 0
+            write_vec([p.encode_result(req_id, fut.result())])
+            if rec is not None:
+                rec.record("encode", t0, tracing.now(), trace_id=trace_id)
 
-        def complete_hashed(req_id: int, fut: asyncio.Future) -> None:
+        def complete_hashed(req_id: int, trace_id: int,
+                            fut: asyncio.Future) -> None:
             exc = fut.exception()
             if exc is not None:
                 write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
-            else:
-                write_vec(p.encode_result_hashed_views(req_id, fut.result()))
+                return
+            rec = tracing.RECORDER
+            t0 = tracing.now() if rec is not None else 0
+            res = fut.result()
+            write_vec(p.encode_result_hashed_views(req_id, res))
+            if rec is not None:
+                rec.record("encode", t0, tracing.now(), trace_id=trace_id,
+                           batch=len(res))
 
-        def complete_batch(req_id: int, agg: asyncio.Future) -> None:
+        def complete_batch(req_id: int, trace_id: int,
+                           agg: asyncio.Future) -> None:
             exc = agg.exception()
             if exc is not None:
                 write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
-            else:
-                write_vec(p.encode_result_batch_views(
-                    req_id, self.limiter.config.limit, agg.result()))
+                return
+            rec = tracing.RECORDER
+            t0 = tracing.now() if rec is not None else 0
+            results = agg.result()
+            write_vec(p.encode_result_batch_views(
+                req_id, self.limiter.config.limit, results))
+            if rec is not None:
+                rec.record("encode", t0, tracing.now(), trace_id=trace_id,
+                           batch=len(results))
 
         try:
             while True:
@@ -162,6 +187,11 @@ class RateLimitServer:
                     hdr = await reader.readexactly(p.HEADER_SIZE)
                     length, type_, req_id = p.parse_header(hdr)
                     body = await reader.readexactly(length - 9)
+                    # Frame extensions: the trace id and the deadline's
+                    # relative budget, anchored below to arrival on the
+                    # local monotonic clock.
+                    type_, trace_id, budget, body = p.split_request(
+                        type_, body)
                 except (asyncio.IncompleteReadError, ConnectionResetError):
                     break
                 except p.ProtocolError as exc:
@@ -170,40 +200,61 @@ class RateLimitServer:
                 if type_ < 128 and type_ & p.REQUEST_FLAGS:
                     write_vec([p.encode_error(
                         req_id, p.E_INVALID_CONFIG,
-                        f"request type {type_:#x} carries a frame extension "
-                        f"(trace, deadline or forward) that this server "
-                        f"does not serve")])
+                        f"request type {type_:#x} carries the forward hint, "
+                        f"which this server does not serve")])
                     continue
+                # None = no deadline; a budget <= 0 anchors in the past
+                # (expired on arrival: shed at the first check).
+                deadline = (time.monotonic() + budget
+                            if budget is not None else 0.0)
+                rec = tracing.RECORDER
+                t_io = tracing.now() if rec is not None else 0
                 if type_ == p.T_ALLOW_N:
                     try:
                         key, n = p.parse_allow_n(body)
-                        fut = self.batcher.submit_nowait(key, n)
+                        fut = self.batcher.submit_nowait(key, n, trace_id,
+                                                         deadline)
                     except Exception as exc:
                         write_vec([p.encode_error(req_id, p.code_for(exc),
                                                   str(exc))])
                         continue
-                    fut.add_done_callback(partial(complete_allow, req_id))
+                    if rec is not None:
+                        rec.record("io", t_io, tracing.now(),
+                                   trace_id=trace_id)
+                    fut.add_done_callback(
+                        partial(complete_allow, req_id, trace_id))
                     continue
                 if type_ == p.T_ALLOW_HASHED:
                     try:
                         ids, ns = p.parse_allow_hashed(body)
-                        fut = self.batcher.submit_hashed_nowait(ids, ns)
+                        fut = self.batcher.submit_hashed_nowait(
+                            ids, ns, trace_id, deadline)
                     except Exception as exc:
                         write_vec([p.encode_error(req_id, p.code_for(exc),
                                                   str(exc))])
                         continue
-                    fut.add_done_callback(partial(complete_hashed, req_id))
+                    if rec is not None:
+                        rec.record("io", t_io, tracing.now(),
+                                   trace_id=trace_id,
+                                   batch=int(ids.shape[0]))
+                    fut.add_done_callback(
+                        partial(complete_hashed, req_id, trace_id))
                     continue
                 if type_ == p.T_ALLOW_BATCH:
                     try:
                         keys, ns = p.parse_allow_batch(body)
-                        futs = self.batcher.submit_many_nowait(zip(keys, ns))
+                        futs = self.batcher.submit_many_nowait(
+                            zip(keys, ns), trace_id, deadline)
                     except Exception as exc:
                         write_vec([p.encode_error(req_id, p.code_for(exc),
                                                   str(exc))])
                         continue
+                    if rec is not None:
+                        rec.record("io", t_io, tracing.now(),
+                                   trace_id=trace_id, batch=len(keys))
                     agg = asyncio.gather(*futs)
-                    agg.add_done_callback(partial(complete_batch, req_id))
+                    agg.add_done_callback(
+                        partial(complete_batch, req_id, trace_id))
                     continue
                 # Control frames (rare): one task each.
                 t = asyncio.ensure_future(self._handle_frame(
@@ -232,6 +283,10 @@ class RateLimitServer:
             ov = await loop.run_in_executor(
                 None, lambda: self.limiter.set_override(
                     key, limit, window_scale=scale))
+            events.emit("policy", "set-override", actor="binary",
+                        payload={"key_hash": key_token(key),
+                                 "limit": int(ov.limit),
+                                 "window_scale": float(ov.window_scale)})
             return p.encode_policy_r(req_id, True, ov.limit,
                                      ov.window_scale)
         key = p.parse_reset(body)
@@ -244,6 +299,9 @@ class RateLimitServer:
                                      ov.window_scale)
         existed = await loop.run_in_executor(
             None, self.limiter.delete_override, key)
+        events.emit("policy", "delete-override", actor="binary",
+                    payload={"key_hash": key_token(key),
+                             "deleted": bool(existed)})
         return p.encode_policy_r(req_id, bool(existed),
                                  self.limiter.config.limit, 1.0)
 
@@ -256,6 +314,8 @@ class RateLimitServer:
                 # Off the event loop: reset takes the limiter lock.
                 await asyncio.get_running_loop().run_in_executor(
                     None, self.limiter.reset, key)
+                events.emit("policy", "reset", actor="binary",
+                            payload={"key_hash": key_token(key)})
                 out = p.encode_ok(req_id)
             elif type_ in (p.T_POLICY_SET, p.T_POLICY_GET, p.T_POLICY_DEL):
                 out = await self._handle_policy(type_, req_id, body)
@@ -280,7 +340,8 @@ class RateLimitServer:
                     self.batcher.decisions_total)
             elif type_ == p.T_METRICS:
                 # Off the event loop: a collect hook (the side table's
-                # gauges) takes the limiter lock and reads the device.
+                # gauges, the debt slab's) takes the limiter lock and
+                # reads the device.
                 text = await asyncio.get_running_loop().run_in_executor(
                     None, self.registry.render)
                 out = p.encode_metrics(req_id, text)

@@ -1521,3 +1521,59 @@ def test_scan_and_eval_chunks_on_card_equal_cpu(dev):
     for sa, sb in zip(a[1:], b[1:]):
         for k in sb:
             np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+
+
+# ------------------------------------------------- the observability stack
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_full_observability_stack_door_on_card(dev, algo):
+    """chip_smoke.py's phase observe (a) at a small size: the door under
+    the binary's full stack (every decorator, the flight recorder) over
+    the recording proxy; every frame bit-identical to a CPU replay, every
+    window through the front kernel, no composed back, the METRICS
+    decision counts equal to the decisions served, every stage counted."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=20, window=2.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4))
+    if algo == "TOKEN_BUCKET":
+        kw = dict(counters=[bc], space="c2", front="bucket_estimate",
+                  front_per_reset=1,
+                  required=("bucket_estimate", "admit", "bucket_update"),
+                  same=("admit", "bucket_update"))
+    else:
+        kw = dict(counters=[sc], front="window_estimate",
+                  required=("window_estimate", "admit", "cu_update"),
+                  same=("admit", "cu_update"))
+    out = chip_smoke.check_door(torch, cfg, algo, conns=4, frames=24,
+                                n_ids=512, n_keys=64,
+                                flags=chip_smoke.FULL_STACK, **kw)
+    assert all(out["stage_counts"].values())
+
+
+def test_traced_frames_deadlines_and_breaker_on_card(dev):
+    """chip_smoke.py's phase observe (b), (c) and (e) at a small size on
+    the card: traced frames leave the span tree, expired frames are shed
+    with no launch, the breaker trips, short-circuits, probes and
+    closes."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    import chip_smoke
+
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=20, window=2.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4))
+    chip_smoke.check_traced_frames(cfg, hashed=4, allow_n=2, n_ids=256)
+    chip_smoke.check_deadlines(cfg, counters=[sc], frames=8, n_ids=256)
+    out = chip_smoke.check_breaker(cfg, batch=256)
+    assert out["transitions"]["closed"] == 1.0

@@ -940,10 +940,14 @@ def _gauges(text: str) -> dict:
 
 def test_door_frames_and_consumer_gauges_against_an_in_process_limiter():
     """Frames to a server over a side-table limiter answer as an in-process
-    limiter decides them; METRICS shows both gauges, rank 1-5, with the
-    served limiter's ``consumer_stats``, and zeroes the ranks the list no
-    longer reaches after the hot keys idle out; the hook goes with the
-    server."""
+    limiter decides them; METRICS shows both gauges (the binary's
+    default stack, MetricsDecorator, registers them in the door's
+    registry), rank 1-5, with the served limiter's ``consumer_stats``,
+    and zeroes the ranks the list no longer reaches after the hot keys
+    idle out; the hook goes with the decorator."""
+    from ratelimiter_tpu_torch.observability.decorators import (
+        MetricsDecorator,
+    )
     from ratelimiter_tpu_torch.observability.metrics import Registry
 
     cfg = _cfg(T, limit=10, hh_slots=16)
@@ -959,8 +963,10 @@ def test_door_frames_and_consumer_gauges_against_an_in_process_limiter():
             await reader.readexactly(tp.HEADER_SIZE))
         return type_, await reader.readexactly(length - 9)
 
+    stack = MetricsDecorator(served, registry=registry)
+
     async def main():
-        srv = await run_server(served, registry=registry)
+        srv = await run_server(stack, registry=registry)
         reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
         try:
             for step in range(6):
@@ -995,7 +1001,7 @@ def test_door_frames_and_consumer_gauges_against_an_in_process_limiter():
         return hot, cold
 
     hot, cold = asyncio.run(main())
-    assert registry._collect_hooks == []
+    assert registry._collect_hooks == [stack._collect_consumers]
     _same_state(mirror, served)
     tracked = 'rate_limiter_hh_tracked_consumers{shard="0",slice="0"}'
     assert hot[tracked] >= 2
@@ -1005,7 +1011,8 @@ def test_door_frames_and_consumer_gauges_against_an_in_process_limiter():
     assert cold[tracked] == 0
     assert all(v == 0 for k, v in cold.items() if "top_consumer" in k)
     assert served.consumer_stats() == mirror.consumer_stats()
-    served.close()
+    stack.close()
+    assert registry._collect_hooks == []
     mirror.close()
 
 

@@ -287,12 +287,16 @@ def test_server_answers_frames_like_an_in_process_limiter():
                                           tp.encode_simple(tp.T_HEALTH, 203))
             serving, _, decisions = tp.parse_health(body)
             assert t == tp.T_HEALTH_R and serving and decisions == 4 * 74 + 2
-            # A zero n is refused, and so is a traced frame.
+            # A zero n is refused; a traced frame is served (the trace
+            # extension is stripped), a forward-hinted one refused.
             t, _, body = await _roundtrip(reader, writer, tp.encode_allow_hashed(
                 204, np.arange(3, dtype=np.uint64), [1, 0, 1]))
             assert t == tp.T_ERROR and tp.parse_error(body)[0] == tp.E_INVALID_N
             traced = jp.with_trace(jp.encode_simple(jp.T_HEALTH, 205), 77)
-            t, _, body = await _roundtrip(reader, writer, traced)
+            t, rid, body = await _roundtrip(reader, writer, traced)
+            assert (t, rid) == (tp.T_HEALTH_R, 205)
+            forward = jp.with_forward(jp.encode_simple(jp.T_HEALTH, 206))
+            t, _, body = await _roundtrip(reader, writer, forward)
             assert (t == tp.T_ERROR
                     and tp.parse_error(body)[0] == tp.E_INVALID_CONFIG)
         finally:
@@ -499,7 +503,8 @@ import ratelimiter_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for name in ("checkpoint", "observability.decorators", "persistence",
+for name in ("checkpoint", "observability.decorators",
+             "observability.tracing", "observability.events", "persistence",
              "persistence.wal", "persistence.snapshotter",
              "persistence.recover", "persistence.manager",
              "algorithms.exact", "algorithms.dense", "ops.dense_kernels",
@@ -725,13 +730,21 @@ def _jax_config(args):
     [], ["--hh-slots", "256", "--sub-windows", "30", "--fail-open"],
     ["--tenants", "16", "--tenant-map", "512", "--global-limit", "50000",
      "--snapshot-dir", "/var/lib/rl", "--snapshot-interval", "10",
-     "--wal-fsync", "interval"]], ids=["service", "sketch", "tenants"])
+     "--wal-fsync", "interval"],
+    ["--trace", "--circuit-breaker", "--breaker-threshold", "3",
+     "--breaker-cooldown", "2.5", "--log-decisions", "--log-redact-keys",
+     "--no-metrics", "--flight-recorder", "--flight-recorder-capacity",
+     "1024", "--no-event-journal", "--event-journal-capacity", "512",
+     "--event-journal-dir", "/var/lib/rl/events", "--log-level", "debug"]],
+    ids=["service", "sketch", "tenants", "observability"])
 def test_shared_flags_give_the_jax_binarys_config(extra):
     """The deployment's command line (its options that the port's binary
     has: --sketch-depth 4 --sketch-width 65536 and the rest of
     deployments/ratelimiter-tpu.service:22-25), with more shared flags,
     parses in both binaries to equal Configs: the same fingerprint (every
-    semantic field) and the same persistence and hierarchy specs."""
+    semantic field) and the same persistence and hierarchy specs; the
+    observability flags (the decorator stack, the flight recorder, the
+    event journal, the log level) to equal values, their defaults too."""
     from dataclasses import asdict
 
     from ratelimiter_tpu.checkpoint import config_fingerprint as jfp
@@ -750,9 +763,18 @@ def test_shared_flags_give_the_jax_binarys_config(extra):
         i += 1 + takes
     assert ported[ported.index("--sketch-depth") + 1] == "4"
     ported += extra
-    cfg = port.build_config(port.parse_args(ported))
-    jcfg = _jax_config(build_parser().parse_args(ported))
+    args, jargs = port.parse_args(ported), build_parser().parse_args(ported)
+    cfg = port.build_config(args)
+    jcfg = _jax_config(jargs)
     assert config_fingerprint(cfg) == jfp(jcfg)
+    observability = ("trace", "circuit_breaker", "breaker_threshold",
+                     "breaker_cooldown", "log_decisions", "log_redact_keys",
+                     "no_metrics", "flight_recorder",
+                     "flight_recorder_capacity", "no_event_journal",
+                     "event_journal_capacity", "event_journal_dir",
+                     "log_level")
+    assert ({k: getattr(args, k) for k in observability}
+            == {k: getattr(jargs, k) for k in observability})
     assert (cfg.sketch.depth, cfg.sketch.width) == (4, 65536)
     assert asdict(cfg.persistence) == asdict(jcfg.persistence)
     assert asdict(cfg.hierarchy) == asdict(jcfg.hierarchy)
