@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sweep    # time the tiled updates' launch shapes
     python3 chip_smoke.py --admit-sweep   # time the admission routine's shapes
     python3 chip_smoke.py --dense    # the dense/exact backends, the evaluation path
+    python3 chip_smoke.py --gateway  # the HTTP gateway, the auditor and its twin
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -90,7 +91,14 @@ Phases (each raises on failure; the script exits non-zero):
    next pad above ADMIT_CAPACITY composed (the plain step on the card);
    a kernel row per build for the step and for ``dense_front``, and the
    step's split (``csrc/dense_bench.cu``: phase A on one block as the
-   previous design ran it, the admission alone, the epilogue);
+   previous design ran it, the admission alone, the epilogue); and the
+   shadow auditor's twin's forms of the step's kernels
+   (``check_twin_kernels``): ``window_front``, ``window_admit``,
+   ``cu_update``, ``bucket_front``, ``bucket_admit`` and
+   ``bucket_update`` at d = 1 (config 3's 60 sub-windows; TB-c2's rate)
+   and w = 65,536 and 2^22 (the twin's widths at ``--audit-sample`` 64
+   and 1) on the config-3 batch of finalized hashes, bit-equal to plain,
+   each timed beside plain with its bound (``twin`` in its row);
 3. drive each main path end to end through ``create_limiter(...,
    device="cuda")`` with launch/resolve and 4 tickets in flight, a policy
    override and a reset, and hold every result and the final state
@@ -195,6 +203,41 @@ Phases (each raises on failure; the script exits non-zero):
    bare (``--no-metrics --no-event-journal``), default and full stack in
    turns, 3 rounds: decisions/s and p50/p99 a round, the flight
    recorder's split by stage, printed (nothing is gated on them);
+   gateway. the HTTP gateway, the shadow auditor and the SLO tracker
+   (``run_gateway``; ``--gateway`` runs it alone with the twin's kernel
+   rows): the binary's own ``serve`` in-process (``in_process_binary``)
+   with ``--http-port``, every lever and its token, ``--flight-recorder``
+   and ``--audit --audit-sample 1 --audit-twin`` over a recording proxy,
+   on config 3 with ``--hh-slots 256`` and on TB-c2 (``check_gateway``):
+   (a) 8 connections x 48 binary frames (phase 4's traffic) and 8 HTTP
+   client threads x 40 /v1/allow requests (``gateway_client``, a child
+   process: each thread its own keys, some in X-User-ID, with a
+   traceparent or a deadline budget) at once, every binary frame and
+   every HTTP answer (status, ``X-RateLimit-*``, ``Retry-After``,
+   traceparent, body) bit-identical to a CPU replay of the recorded
+   windows; (b) after the auditor's flush, /debug/audit's integers equal
+   to its recorded offers recomputed through the port's
+   ``ShadowComparator`` on the CPU (the plain twin and the host oracle),
+   one front launch for each window, bucket reset and twin step, as many
+   admissions as updates (no composed back); (c) /healthz's blocks equal
+   to their sources (``consumer_stats``, the envelope or debt slab, the
+   audit headline, the journal's status), /metrics with the audit and SLO
+   gauges and its decision counters equal to the decisions of both
+   doors; (d) /v1/policy PUT, GET, DELETE and /v1/reset (one
+   ``window_reset``) 403 without their tokens and 200 with them, their
+   events in /debug/events; (e) a traced request's span chain under its
+   traceparent's id in /debug/trace, and /debug/profile?seconds=1 during
+   the traffic naming the step's kernels. Then the tenant binary with
+   ``--controller --audit --audit-sample 1`` under phase 5's storm ((f):
+   the controller journals a move whose signals show a nonzero SLO burn
+   or audit bound; /v1/tenants GET equal to ``hierarchy_stats``, a tenant
+   changed and deleted; /healthz's hierarchy block) and the durable binary
+   (/v1/snapshot writes the snapshot it names; /healthz's persistence
+   status). Readings: the door's decisions/s and frame latency with no
+   audit, ``--audit`` (sample 64) and ``--audit --audit-twin
+   --audit-sample 1`` in turns, 3 rounds, with the auditor's audited and
+   dropped frames and its seconds to flush; /v1/allow requests/s and
+   p50/p99 at 8 and 32 client threads;
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -258,6 +301,16 @@ the rest of phase 2 alone (the kernel rows, ``hh_update`` and the
 side-table forms),
 through wrappers an earlier checkout has too, so a copy of this script
 in the parent's checkout times the parent's builds in the same call.
+
+``--door`` builds, then times the config-3 door under the binary's default
+stack three times (``time_door``) and prints the readings as one JSON
+line before the card's line; it reaches the port only through public
+entry points, so a copy of this script in an earlier checkout times that
+checkout's door in the same call.
+
+``--gateway`` builds, then holds and times the twin's kernels and runs
+phase gateway alone, printing its results as one JSON line before the
+card's line.
 
 ``--observe`` builds, then runs phase observe alone and prints its
 results as one JSON line before the card's line.
@@ -470,16 +523,16 @@ def kernel_row(name, source, err, kern, plain, lib, nbytes, ops,
 # --------------------------------------------------------------- phase 2
 
 
-def window_state(torch, rng):
+def window_state(torch, rng, depth: int = DEPTH, width: int = WIDTH):
     """A windowed state as after resets and traffic, negative cells
-    included, at config-3 geometry: totals, boundary, cur, and the
-    boundary weight 0.377 s into a sub-window."""
+    included, at config-3 geometry (or ``depth`` x ``width``): totals,
+    boundary, cur, and the boundary weight 0.377 s into a sub-window."""
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
     from ratelimiter_tpu_torch.ops.sketch_kernels import frac_operands
 
     def slab(lo, hi):
         return torch.from_numpy(rng.integers(lo, hi, size=(
-            DEPTH, WIDTH)).astype(np.int32)).to("cuda")
+            depth, width)).astype(np.int32)).to("cuda")
     totals, boundary, cur = slab(-3, 300), slab(-2, 200), slab(-3, 30)
     sub_us = int(WINDOW_S * 1e6) // SUB_WINDOWS
     p = int(T0 * 1e6) // sub_us
@@ -768,6 +821,138 @@ def check_kernels(torch, seed: int) -> dict:
     log(f"time cu_update on the one-column batch: "
         f"{rows['cu_update']['one_column_ms'] * 1e3:.2f} us")
     return rows
+
+
+#: The shadow auditor's collision-free twin at config 3 (observability/
+#: audit.py): depth 1, config 3's 60 sub-windows (TB-c2's rate for the
+#: bucket), width 65,536 at ``--audit-sample 64`` and 2^22 at
+#: ``--audit-sample 1`` (the JAX rule, ratelimiter_tpu/observability/
+#: audit.py:120-131).
+TWIN_WIDTHS = (WIDTH, 1 << 22)
+
+
+def check_twin_kernels(torch, seed: int) -> dict:
+    """The twin's front, admission and update at d = 1 for each of
+    ``TWIN_WIDTHS``, windowed (sliding, CU: the twin inherits config 3's
+    conservative update) and bucket (TB-c2's rate), against their plain
+    versions on the config-3 batch of 4096 Zipf ids as the twin gets
+    them (finalized hashes: ``allow_hashed``), bit-equal; each timed
+    beside its plain version, its bound from this run's data (the
+    touched cells; the tiled updates, as their config-3 rows, the whole
+    slab). Returns {width: {kernel row: its twin form}}. Launches made
+    here do not count."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda as bc
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64, u64_to_tensor
+
+    dev = torch.device("cuda")
+    B, d = BATCH, 1
+    ops_admit = B * (6 * (ITERS + 2) + 40)
+    out = {}
+    for width in TWIN_WIDTHS:
+        rng = np.random.default_rng(seed + 29 + width.bit_length())
+        ids = zipf_ids(rng, B)
+        keys = u64_to_tensor(splitmix64(ids), dev)
+        n = torch.from_numpy(rng.integers(1, 4, size=B).astype(
+            np.int32)).to(dev)
+        totals, boundary, cur, frac = window_state(torch, rng, d, width)
+        valid = ring_boundary(torch, boundary)
+        debt = torch.from_numpy(rng.integers(0, 400_000_000, size=(
+            d, width)).astype(np.int64)).to(dev)
+        acc = debt.clone()
+        err = {k: 0.0 for k in ("window_estimate", "window_admit",
+                                "cu_update", "bucket_estimate",
+                                "bucket_admit", "bucket_update")}
+        wkw = dict(keys=keys, n=n, seed=SEED, boundary=valid, limit=LIMIT)
+        want = sc.window_front_plain(totals, **wkw)
+        hold_front(torch, err, "window_estimate",
+                   sc.window_front(totals, **wkw), want)
+        h1, h2, est, _, avail, n_f = want
+        target = sc.window_admit_plain(h1, est, n_f, avail, ITERS)[0]
+        for a, b in zip(sc.window_admit(h1, est, n_f, avail, ITERS),
+                        sc.window_admit_plain(h1, est, n_f, avail, ITERS)):
+            hold_equal(torch, err, "window_admit", a, b)
+        got_t, got_c, ref_t, ref_c = (x.clone() for x in (totals, cur,
+                                                          totals, cur))
+        sc.cu_update(got_t, got_c, boundary, frac, h1, h2, target)
+        sc.cu_update_plain(ref_t, ref_c, boundary, frac, h1, h2, target)
+        hold_equal(torch, err, "cu_update", got_t, ref_t)
+        hold_equal(torch, err, "cu_update", got_c, ref_c)
+        decay = 3_333_337
+        bkw = dict(keys=keys, n=n, seed=SEED, limit=C2_LIMIT)
+        bwant = bc.bucket_front_plain(debt, decay, **bkw)
+        hold_front(torch, err, "bucket_estimate",
+                   bc.bucket_front(debt, decay, **bkw), bwant)
+        _, _, _, b_avail, units = bwant
+        rate = (C2_LIMIT, int(C2_WINDOW_S))
+        for a, b in zip(bc.bucket_admit(h1, units, b_avail, ITERS, *rate),
+                        bc.bucket_admit_plain(h1, units, b_avail, ITERS,
+                                              *rate)):
+            hold_equal(torch, err, "bucket_admit", a, b)
+        consumed = bc.bucket_admit_plain(h1, units, b_avail, ITERS,
+                                         *rate)[1]
+        got_d, got_a, ref_d, ref_a = (x.clone() for x in (debt, acc, debt,
+                                                          acc))
+        bc.bucket_update(got_d, got_a, decay, h1, h2, consumed)
+        bc.bucket_update_plain(ref_d, ref_a, decay, h1, h2, consumed)
+        hold_equal(torch, err, "bucket_update", got_d, ref_d)
+        hold_equal(torch, err, "bucket_update", got_a, ref_a)
+        touched = int(torch.unique(sc._columns(h1, h2, d, width)[0]).numel())
+        cells = d * width
+        t_buf, c_buf, d_buf, a_buf = (x.clone() for x in (totals, cur, debt,
+                                                          acc))
+        timing = {
+            "window_estimate": (
+                SOURCE, lambda: sc.window_front(totals, **wkw),
+                lambda: sc.window_front_plain(totals, **wkw),
+                front_bytes(B, 8, 16 + 12, touched, 8, 0) + 4 + 8,
+                B * (22 + 4 * d)),
+            "window_admit": (
+                SOURCE, lambda: sc.window_admit(h1, est, n_f, avail, ITERS),
+                lambda: sc.window_admit_plain(h1, est, n_f, avail, ITERS),
+                B * (8 + 4 + 4 + 4 + 4 + 1 + 4), ops_admit),
+            "cu_update": (
+                SOURCE, lambda: sc.cu_update(t_buf, c_buf, boundary, frac,
+                                             h1, h2, target),
+                lambda: sc.cu_update_plain(t_buf, c_buf, boundary, frac,
+                                           h1, h2, target),
+                B * (8 + 8 + 4) + cells * (8 + 8 + 4) + 4,
+                d * B + 6 * cells),
+            "bucket_estimate": (
+                BUCKET_SOURCE, lambda: bc.bucket_front(debt, decay, **bkw),
+                lambda: bc.bucket_front_plain(debt, decay, **bkw),
+                front_bytes(B, 8, 16 + 24, touched, 8, 0),
+                B * (22 + 4 * d)),
+            "bucket_admit": (
+                BUCKET_SOURCE, lambda: bc.bucket_admit(
+                    h1, units, b_avail, ITERS, *rate),
+                lambda: bc.bucket_admit_plain(h1, units, b_avail, ITERS,
+                                              *rate),
+                B * (8 + 8 + 8 + 1 + 8 + 8 + 8), ops_admit),
+            "bucket_update": (
+                BUCKET_SOURCE, lambda: bc.bucket_update(
+                    d_buf, a_buf, decay, h1, h2, consumed),
+                lambda: bc.bucket_update_plain(d_buf, a_buf, decay, h1, h2,
+                                               consumed),
+                B * (8 + 8 + 8) + cells * 16 + touched * 16,
+                3 * cells + 4 * d * B),
+        }
+        forms = {}
+        for name, (src, kern, plain, nbytes, ops) in timing.items():
+            row = kernel_row(name, src, err[name], kern, plain, None,
+                             nbytes, ops, torch)
+            forms[name] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                "max_abs_err")}
+            forms[name]["touched_cells"] = touched
+        log(f"kernels[twin d=1 w={width}]: window_front, window_admit, "
+            f"cu_update, bucket_front, bucket_admit and bucket_update "
+            f"bit-equal to plain on the config-3 batch of finalized hashes "
+            f"({touched} cells touched)")
+        out[width] = forms
+        del totals, boundary, cur, debt, acc, t_buf, c_buf, d_buf, a_buf
+        torch.cuda.empty_cache()
+    return out
 
 
 #: A large batch: 2^20 Zipf ids (benchmark config 3's saturation run
@@ -3201,12 +3386,15 @@ def child_env() -> tuple:
     return repo, env
 
 
-def _run_door_client(args: dict, timeout: float) -> dict:
-    """``door_client`` in a child process, run to its end (killed, and
-    reaped, past ``timeout`` seconds); returns what it read."""
+def _run_door_client(args: dict, timeout: float,
+                     entry: str = "door_client") -> dict:
+    """``door_client`` (or another ``entry`` of this script reading JSON
+    arguments and writing a pickle) in a child process, run to its end
+    (killed, and reaped, past ``timeout`` seconds); returns what it
+    read."""
     repo, env = child_env()
     proc = subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.door_client()"],
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{entry}()"],
         cwd=repo, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE)
     try:
@@ -3215,9 +3403,9 @@ def _run_door_client(args: dict, timeout: float) -> dict:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError("door client timed out")
+        raise AssertionError(f"{entry} timed out")
     if proc.returncode != 0:
-        raise AssertionError(f"door client exited with {proc.returncode}: "
+        raise AssertionError(f"{entry} exited with {proc.returncode}: "
                              f"{err.decode()[-2000:]}")
     return pickle.loads(out)
 
@@ -3969,6 +4157,8 @@ class ServerProcess:
             if line.startswith("serving"):
                 self.port = int(line.split(" on ")[1].split()[0]
                                 .rsplit(":", 1)[1])
+                self.http = (int(line.rsplit(" http:", 1)[1])
+                             if " http:" in line else None)
                 return
 
     def _read(self):
@@ -6314,6 +6504,1082 @@ def run_observe(torch, seed: int = 0, reuse=None) -> dict:
     return out
 
 
+# ------------------------------------------------- phase gateway (A13b)
+
+#: Phase gateway's HTTP clients (``gateway_client``): threads, requests a
+#: thread and keys a thread in the checked runs (each thread asks for its
+#: own keys, one request at a time over one keep-alive connection, so a
+#: key's answers come back in the order its rows reach the replay).
+HTTP_THREADS, HTTP_REQUESTS, HTTP_KEYS = 8, 40, 4
+#: The headers an /v1/allow answer is held to.
+HTTP_HEADERS = ("X-RateLimit-Limit", "X-RateLimit-Remaining",
+                "X-RateLimit-Reset", "Retry-After", "traceparent")
+#: The bearer tokens of the phase's binaries, by lever.
+TOKENS = {"policy": "pt", "reset": "rt", "debug": "dt", "audit": "at",
+          "snapshot": "st", "tenants": "tt"}
+TOKEN_FLAGS = ("--http-policy", "--http-policy-token", TOKENS["policy"],
+               "--http-reset", "--http-reset-token", TOKENS["reset"],
+               "--debug-trace", "--debug-token", TOKENS["debug"],
+               "--audit-token", TOKENS["audit"],
+               "--http-snapshot-token", TOKENS["snapshot"],
+               "--http-tenants", "--http-tenants-token", TOKENS["tenants"])
+
+
+def _http_thread(port: int, t: int, requests: int, keys: int, seed: int,
+                 space: str, ns: list, out: list) -> None:
+    """One HTTP client thread: ``requests`` GET /v1/allow one at a time
+    over one keep-alive connection. With ``keys`` it asks for its own
+    keys ``http:<t>:<j>`` and records every answer (a third of the
+    requests name the key in X-User-ID, a quarter carry a traceparent, a
+    fifth a 60 s deadline budget); without, it asks for ``space``'s keys
+    and records the latency alone."""
+    import http.client
+    from urllib.parse import quote
+
+    from ratelimiter_tpu_torch.observability.tracing import (
+        format_traceparent,
+    )
+
+    try:
+        rng = np.random.default_rng(seed * 1000 + t)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        rows, lat = [], []
+        for j in range(requests):
+            key = (f"http:{t}:{j % keys}" if keys
+                   else door_keys(rng, space, 1)[0])
+            n = int(rng.choice(ns))
+            headers = {}
+            path = f"/v1/allow?key={quote(key)}&n={n}"
+            if keys and j % 3 == 1:
+                headers["X-User-ID"] = key
+                path = f"/v1/allow?n={n}"
+            if keys and j % 4 == 2:
+                headers["traceparent"] = format_traceparent(
+                    int(rng.integers(1, 1 << 62)))
+            if keys and j % 5 == 3:
+                headers["X-RateLimit-Deadline-Ms"] = "60000"
+            t0 = time.perf_counter()
+            conn.request("GET", path, headers=headers)
+            r = conn.getresponse()
+            body = r.read()
+            lat.append(time.perf_counter() - t0)
+            if r.status not in (200, 429):
+                raise AssertionError(f"HTTP {r.status}: {body[:200]!r}")
+            if keys:
+                rows.append((key, n, r.status,
+                             {h: r.getheader(h) for h in HTTP_HEADERS},
+                             json.loads(body), headers.get("traceparent")))
+        conn.close()
+        out[t] = {"rows": rows, "latency": lat}
+    except BaseException as exc:  # reported by the parent
+        out[t] = {"error": repr(exc)}
+
+
+def gateway_client() -> None:
+    """Phase gateway's HTTP client, run in a child process: its arguments
+    come as JSON on stdin (``port``, ``threads``, ``requests``, ``keys``,
+    ``seed``, ``space``, ``ns``); the threads' answers and latencies and
+    the wall time go pickled to stdout."""
+    args = json.loads(sys.stdin.read())
+    out: list = [None] * args["threads"]
+    threads = [threading.Thread(target=_http_thread, args=(
+        args["port"], t, args["requests"], args["keys"], args["seed"],
+        args["space"], args["ns"], out)) for t in range(args["threads"])]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    errors = [o["error"] for o in out if "error" in o]
+    if errors:
+        raise SystemExit(f"HTTP client threads failed: {errors[:3]}")
+    sys.stdout.buffer.write(pickle.dumps({"threads": out, "wall_s": wall}))
+    sys.stdout.flush()
+
+
+def http_call(port: int, method: str, path: str, token=None,
+              headers=None):
+    """One HTTP request: (status, headers, JSON body or text)."""
+    import urllib.error
+    import urllib.request
+
+    hdrs = dict(headers or {})
+    if token is not None:
+        hdrs["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 method=method, headers=hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, h, raw = r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        status, h, raw = e.code, dict(e.headers), e.read()
+    body = (json.loads(raw) if h.get("Content-Type") == "application/json"
+            else raw.decode())
+    return status, h, body
+
+
+def gated(port: int, method: str, path: str, token: str, name: str):
+    """A lever: 403 without its token, 200 with it; the answer's body."""
+    st = http_call(port, method, path)[0]
+    if st != 403:
+        raise AssertionError(f"{name}: {method} {path} without its token "
+                             f"answered {st}, not 403")
+    st, _, body = http_call(port, method, path, token)
+    if st != 200:
+        raise AssertionError(f"{name}: {method} {path} with its token "
+                             f"answered {st}: {body}")
+    return body
+
+
+def gateway_args(base: list, *, device: str, extra=()) -> list:
+    """The binary's command line for an in-process run: ``base`` (the
+    cell's flags), the device, ephemeral ports, ``extra``."""
+    return [*base, "--device", device, "--port", "0", "--http-port", "0",
+            *extra]
+
+
+def cell_flags(cfg) -> list:
+    """The binary's flags for ``cfg``'s algorithm, limit and geometry."""
+    flags = ["--algorithm", cfg.algorithm.value, "--limit", str(cfg.limit),
+             "--window", repr(float(cfg.window)), "--sketch-depth",
+             str(cfg.sketch.depth), "--sketch-width", str(cfg.sketch.width)]
+    if cfg.algorithm.value != "token_bucket":
+        flags += ["--sub-windows", str(cfg.sketch.sub_windows)]
+        if cfg.sketch.hh_slots:
+            flags += ["--hh-slots", str(cfg.sketch.hh_slots)]
+    return flags
+
+
+class in_process_binary:
+    """``with in_process_binary(argv, record=...) as svc``: the server
+    binary's own ``serve()`` (serving/__main__.py) running ``argv`` in a
+    thread of this process, with a fresh default metrics registry (as in
+    a fresh process); ``svc`` is what ``serve`` hands out once the door
+    and the gateway listen. With ``record`` the backend limiter is built
+    on a ManualClock at T0 and wrapped in a ``RecordingLimiter`` (the
+    recording proxy of ``check_door``), ``svc.rec``; the launch counts of
+    ``counters`` are set to 0 once it listens, and the auditor's offers
+    are recorded in ``svc.taps`` (with whether each was dropped; without
+    ``record`` the tap runs as the binary runs it). On exit
+    the service stops as on SIGTERM (the gateway, the door's drain, the
+    auditor's flush, the journal) and the flight recorder is turned
+    off."""
+
+    def __init__(self, argv: list, *, record: bool = False, counters=()):
+        self.argv, self.record, self.counters = argv, record, counters
+
+    def __enter__(self):
+        from ratelimiter_tpu_torch import ManualClock, create_limiter
+        from ratelimiter_tpu_torch.observability import metrics
+        from ratelimiter_tpu_torch.serving.__main__ import parse_args, serve
+
+        self._saved = metrics.DEFAULT
+        metrics.DEFAULT = metrics.Registry()
+        args = parse_args(self.argv)
+        holder = {}
+
+        def make_limiter(cfg):
+            lim = create_limiter(cfg, backend=args.backend,
+                                 clock=ManualClock(T0), device=args.device)
+            holder["rec"] = RecordingLimiter(lim, T0)
+            return holder["rec"]
+
+        started = queue.Queue()
+
+        async def main():
+            loop = asyncio.get_running_loop()
+            ready = loop.create_future()
+            self._stop = asyncio.Event()
+            self._loop = loop
+            task = asyncio.ensure_future(serve(
+                args, make_limiter=make_limiter if self.record else None,
+                ready=ready, stop=self._stop))
+            done, _ = await asyncio.wait({task, ready},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if ready in done:
+                started.put(ready.result())
+            await task
+
+        def run():
+            try:
+                asyncio.run(main())
+            except BaseException as exc:
+                started.put(exc)
+            started.put(None)
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="in-process-binary")
+        self._thread.start()
+        self._started = started
+        svc = started.get(timeout=600)
+        if svc is None or isinstance(svc, BaseException):
+            self._thread.join(timeout=60)
+            metrics.DEFAULT = self._saved
+            raise AssertionError(f"the binary did not start: {svc!r}")
+        svc.args = args
+        svc.rec = holder.get("rec")
+        svc.taps = []
+        if svc.auditor is not None and self.record:
+            aud, offer = svc.auditor, svc.auditor._offer
+
+            def recorded(kind, data, ns, now, result, slice_idx):
+                before = aud.dropped_frames
+                offer(kind, data, ns, now, result, slice_idx)
+                svc.taps.append((kind, data, ns, now,
+                                 np.array(result.allowed, dtype=bool),
+                                 aud.dropped_frames != before))
+
+            aud._offer = recorded
+        for mod in self.counters:
+            mod.reset_launch_counts()
+        self.svc = svc
+        return svc
+
+    def __exit__(self, *exc):
+        from ratelimiter_tpu_torch.observability import metrics, tracing
+
+        try:
+            self._loop.call_soon_threadsafe(self._stop.set)
+            self._thread.join(timeout=300)
+            if self._thread.is_alive():
+                raise AssertionError("the binary did not stop")
+            left = self._started.get(timeout=5)
+            if isinstance(left, BaseException) and exc[0] is None:
+                raise AssertionError(f"the binary failed: {left!r}")
+        finally:
+            tracing.disable()
+            metrics.DEFAULT = self._saved
+
+
+def _string_rows(log, replayed, prefix: str) -> dict:
+    """{key: [(n, Result), ...]} for the keys starting with ``prefix`` in
+    the recorded string windows, in replay order."""
+    rows: dict = {}
+    for (kind, a, ns, _), res in zip(log, replayed):
+        if kind != "keys":
+            continue
+        for i, k in enumerate(a):
+            if k.startswith(prefix):
+                rows.setdefault(k, []).append((int(ns[i]), res.result(i)))
+    return rows
+
+
+def hold_http_answers(name: str, log, replayed, http: dict) -> int:
+    """Every /v1/allow answer of ``gateway_client`` against its row of the
+    CPU replay: the status (200 or 429), the four ``X-RateLimit-*``
+    values and ``Retry-After`` (on a 429), the traceparent echoed, and
+    the JSON body. Each key's answers are matched to its rows in order
+    (one thread asks for a key, one request at a time). Returns the
+    number of answers held."""
+    rows = _string_rows(log, replayed, "http:")
+    held = 0
+    for th in http["threads"]:
+        for key, n, status, hdrs, body, tp in th["rows"]:
+            if not rows.get(key):
+                raise AssertionError(f"{name}: an answer for {key} has no "
+                                     f"row in the recorded windows")
+            n_row, r = rows[key].pop(0)
+            want_hdrs = {
+                "X-RateLimit-Limit": str(r.limit),
+                "X-RateLimit-Remaining": str(r.remaining),
+                "X-RateLimit-Reset": str(int(r.reset_at)),
+                "Retry-After": (None if r.allowed
+                                else str(max(1, int(r.retry_after)))),
+                "traceparent": tp}
+            want_body = {"allowed": bool(r.allowed), "limit": int(r.limit),
+                         "remaining": int(r.remaining),
+                         "retry_after": float(r.retry_after),
+                         "reset_at": float(r.reset_at),
+                         "fail_open": bool(r.fail_open)}
+            if (n_row != n or status != (200 if r.allowed else 429)
+                    or hdrs != want_hdrs or body != want_body):
+                raise AssertionError(
+                    f"{name}: {key} answered {status} {hdrs} {body}; the "
+                    f"replay {want_hdrs} {want_body} (n {n_row} vs {n})")
+            held += 1
+    left = sum(map(len, rows.values()))
+    if left:
+        raise AssertionError(f"{name}: {left} recorded HTTP rows got no "
+                             f"answer")
+    return held
+
+
+def without_keys(log, replayed, prefixes=("http:", "lever:", "prof:")):
+    """The recorded windows and their replayed results without the rows
+    of keys starting with ``prefixes`` (the HTTP, lever and profile-time
+    requests), so
+    the binary frames can be held as ``check_door`` holds them."""
+    from ratelimiter_tpu_torch.core.types import BatchResult
+
+    out_log, out_res = [], []
+    for entry, res in zip(log, replayed):
+        kind, a, ns, now = entry
+        if kind != "keys":
+            out_log.append(entry)
+            out_res.append(res)
+            continue
+        keep = [i for i, k in enumerate(a) if not k.startswith(prefixes)]
+        if not keep:
+            continue
+        out_log.append(("keys", [a[i] for i in keep], [ns[i] for i in keep],
+                        now))
+        out_res.append(BatchResult(
+            allowed=res.allowed[keep], limit=res.limit,
+            remaining=res.remaining[keep],
+            retry_after=res.retry_after[keep],
+            reset_at=res.reset_at[keep], fail_open=res.fail_open))
+    return out_log, out_res
+
+
+def recompute_audit(cfg, taps, twin_width: int) -> dict:
+    """The auditor's tally recomputed from its recorded offers (those not
+    dropped, in offer order) through the port's ``ShadowComparator`` on
+    the CPU: the plain twin and the host oracle."""
+    from ratelimiter_tpu_torch.evaluation.compare import ShadowComparator
+    from ratelimiter_tpu_torch.ops.hashing import (
+        hash_prefixed_u64,
+        splitmix64,
+    )
+
+    comp = ShadowComparator(cfg, include_twin=True, twin_width=twin_width,
+                            device="cpu")
+    frames = 0
+    for kind, data, ns, now, allowed, dropped in taps:
+        if dropped:
+            continue
+        if kind == "ids":
+            h64 = splitmix64(np.asarray(data, dtype=np.uint64))
+        elif kind == "hashed":
+            h64 = np.asarray(data, dtype=np.uint64)
+        else:
+            h64 = hash_prefixed_u64(list(data), cfg.prefix)
+        comp.observe(h64, (np.ones(h64.shape[0], dtype=np.int64)
+                           if ns is None
+                           else np.asarray(ns, dtype=np.int64)),
+                     now, allowed)
+        frames += 1
+    t = comp.tally
+    comp.close()
+    return {"samples": t.requests, "audited_frames": frames,
+            "oracle_allows": t.oracle_allows,
+            "false_denies": t.false_denies_vs_oracle,
+            "false_allows": t.false_allows_vs_oracle,
+            "semantic_disagreements": t.semantic_disagreements,
+            "cms_false_deny_rate": round(t.cms_false_deny_rate, 8),
+            "false_deny_rate": round(t.false_deny_rate, 8)}
+
+
+def hold_health(name: str, health: dict, svc, hier=None) -> dict:
+    """The /healthz blocks against their sources, read in-process with no
+    traffic in between: the decisions, overrides and connections, the
+    sketch envelope (or the debt slab), the side table's consumers, the
+    hierarchy, the journal, the audit headline and the persistence
+    status; the SLO block's windows present."""
+    from ratelimiter_tpu_torch.observability import events
+    from ratelimiter_tpu_torch.serving import __main__ as binary
+
+    lim = svc.limiter
+    want = {"serving": True,
+            "decisions_total": svc.server.batcher.decisions_total,
+            "policy_overrides": lim.override_count(),
+            "transport": svc.server.transport_stats(),
+            "member": svc.member_info()}
+    unit = binary._units([lim])[0]
+    if hasattr(unit, "_period_mass"):
+        masses = unit.in_window_admitted_mass()
+        want.update(overload_periods=unit.overload_periods,
+                    in_window_admitted_mass=masses,
+                    mass_budget=unit.mass_budget,
+                    shards_overloaded=int(masses > unit.mass_budget),
+                    overload_policy=unit.config.sketch.overload_policy)
+    if hasattr(unit, "debt_slab_stats"):
+        st = unit.debt_slab_stats()
+        want["debt_slab"] = {k: st[k] for k in ("occupancy", "collision_p",
+                                                "nonzero_cells", "cells")}
+        want["debt_slab"]["units"] = 1
+    if getattr(unit, "has_hh", False):
+        st = unit.consumer_stats(k=10)
+        want["consumers"] = {
+            "slots": st["slots"], "occupied": st["occupied"],
+            "tracked_mass": st.get("tracked_mass", 0),
+            "top": [{**r, "slice": 0} for r in st["top"]]}
+    if svc.auditor is not None:
+        st = svc.auditor.status()
+        want["audit"] = {k: st[k] for k in (
+            "sample", "samples", "false_deny_rate", "false_deny_wilson95",
+            "false_allow_rate", "false_denies", "false_allows",
+            "oracle_allows", "fail_open_samples", "dropped_decisions",
+            "oracle_errors")}
+    if svc.hier is not None:
+        st = svc.hier.hierarchy_stats()
+        if svc.controller is not None:
+            c = svc.controller
+            st["controller"] = {"ticks": c.ticks, "tightened": c.tightened,
+                                "relaxed": c.relaxed,
+                                "interval": c.interval}
+        want["hierarchy"] = st
+    if events.JOURNAL is not None:
+        want["events"] = events.JOURNAL.status()
+    if svc.persist is not None:
+        want.update(svc.persist.status())
+    got = {k: v for k, v in health.items() if k != "slo"}
+    # The age of the last snapshot grows between the two reads.
+    age = "last_snapshot_age_s"
+    if age in want and not got.pop(age, None) <= want.pop(age):
+        raise AssertionError(f"{name}: /healthz snapshot age "
+                             f"{health[age]} past its source's")
+    if got != want:
+        diff = sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+        raise AssertionError(f"{name}: /healthz blocks {diff} differ from "
+                             f"their sources: {[got.get(k) for k in diff]} "
+                             f"vs {[want.get(k) for k in diff]}")
+    if svc.slo is not None and sorted(health["slo"]["windows"]) != [
+            "300s", "3600s"]:
+        raise AssertionError(f"{name}: /healthz slo block {health['slo']}")
+    return sorted(health)
+
+
+def hold_metrics_text(name: str, text: str, decisions: int,
+                      audit: bool) -> dict:
+    """/metrics after the last decision: the requests and decision
+    counters equal to the decisions served over both doors, and with
+    ``--audit`` the audit and SLO gauges."""
+    out = hold_door_metrics(name, text, decisions, DEFAULT_STACK)
+    if not any(line.startswith("rate_limiter_member_info{")
+               and line.split()[-1] in ("1", "1.0")
+               for line in text.splitlines()):
+        raise AssertionError(f"{name}: no rate_limiter_member_info gauge")
+    metric_value(text, 'rate_limiter_transport_connections{transport="tcp"}')
+    if audit:
+        for g in ("rate_limiter_audit_samples",
+                  "rate_limiter_audit_false_deny_rate",
+                  'rate_limiter_slo_burn_rate{window="300s"}',
+                  'rate_limiter_slo_availability_bad_fraction'
+                  '{window="3600s"}'):
+            metric_value(text, g)
+        out["audit_samples"] = int(metric_value(
+            text, "rate_limiter_audit_samples"))
+    return out
+
+
+def _drive_both(svc, *, seed: int, space: str, conns: int, frames: int,
+                n_ids: int, n_keys: int, depth: int, ns: list,
+                threads: int = HTTP_THREADS, requests: int = HTTP_REQUESTS,
+                keys: int = HTTP_KEYS, during=None) -> tuple:
+    """The door client (binary frames) and the HTTP client, each in a
+    child process, at once; ``during()`` runs beside them in this
+    process. Returns (door, http, during's result)."""
+    import concurrent.futures as cf
+
+    door_args = {"port": svc.server.port, "conns": conns, "frames": frames,
+                 "n_ids": n_ids, "n_keys": n_keys, "depth": depth,
+                 "space": space, "seed": seed}
+    http_args = {"port": svc.gateway.port, "threads": threads,
+                 "requests": requests, "keys": keys, "seed": seed,
+                 "space": space, "ns": ns}
+    with cf.ThreadPoolExecutor(3) as ex:
+        side = ex.submit(during) if during is not None else None
+        door = ex.submit(_run_door_client, door_args, 600.0)
+        http = ex.submit(_run_door_client, http_args, 600.0,
+                         "gateway_client")
+        return door.result(), http.result(), (side.result() if side
+                                              else None)
+
+
+def profile_capture(http: int, key: str = "p") -> dict:
+    """GET /debug/profile?seconds=1 (debug token) on the gateway at
+    ``http`` once a decision has reached the batcher, while a thread of
+    this process sends /v1/allow requests one at a time until the capture
+    answers (a process's first capture pays the profiler's initialization
+    first, ~10 s, so a client's finite traffic may be over by then): the
+    kernel names in its trace, its seconds, and the requests sent during
+    it and in all."""
+    import os
+    import shutil
+
+    stop, sent = threading.Event(), [0]
+
+    def traffic():
+        while not stop.is_set():
+            http_call(http, "GET", f"/v1/allow?key={key}{sent[0] % 512}")
+            sent[0] += 1
+
+    th = threading.Thread(target=traffic, daemon=True)
+    th.start()
+    try:
+        deadline = time.time() + 120
+        while not http_call(http, "GET", "/healthz")[2]["decisions_total"]:
+            if time.time() > deadline:
+                raise AssertionError("no request reached the batcher")
+            time.sleep(0.01)
+        n0, t = sent[0], time.perf_counter()
+        status, _, body = http_call(http, "GET", "/debug/profile?seconds=1",
+                                    TOKENS["debug"])
+        seconds, during = time.perf_counter() - t, sent[0] - n0
+    finally:
+        stop.set()
+        th.join(timeout=120)
+    if status != 200:
+        raise AssertionError(f"/debug/profile answered {status}: {body}")
+    with open(os.path.join(body["dir"], "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    shutil.rmtree(body["dir"], ignore_errors=True)
+    return {"body": body, "seconds": seconds, "requests_during": during,
+            "requests": sent[0], "names": sorted({e.get("name", "") for e in events
+                             if e.get("cat") == "kernel"})}
+
+
+def _profile_during(svc) -> dict:
+    """``profile_capture`` on the in-process binary's gateway, its
+    /v1/allow keys apart from the checked traffic's."""
+    return profile_capture(svc.gateway.port, key="prof:")
+
+
+def check_gateway(torch, cfg, label: str, *, device: str = "cuda",
+                  seed: int = 0, space: str = "zipf", ns=(5, 15, 30),
+                  conns: int = DOOR_CONNS, frames: int = DOOR_FRAMES,
+                  n_ids: int = DOOR_IDS, n_keys: int = DOOR_KEYS,
+                  depth: int = DOOR_DEPTH, threads: int = HTTP_THREADS,
+                  requests: int = HTTP_REQUESTS, counters=(), front=None,
+                  update=None, front_per_reset: int = 0,
+                  required=()) -> dict:
+    """Phase gateway (a)-(e) on one cell: the port's binary (its own
+    ``serve``, in-process through ``in_process_binary`` with the recording
+    proxy) under ``cfg``'s flags with ``--http-port``, every lever and
+    its token, ``--flight-recorder`` and ``--audit --audit-sample 1
+    --audit-twin``; binary frames (``door_client``) and /v1/allow
+    requests (``gateway_client``) at once.
+
+    (a) every binary frame and every HTTP answer bit-identical to a CPU
+        replay of the recorded windows (status, ``X-RateLimit-*``,
+        ``Retry-After``, traceparent, body), the final state too;
+    (b) after the auditor's flush, /debug/audit's integers equal to a
+        recomputation of its recorded offers through the port's
+        ``ShadowComparator`` on the CPU; on the card, ``front`` launched
+        for every window, reset (``front_per_reset``) and twin step, the
+        admission as often as ``update`` (no composed back);
+    (c) /healthz's blocks equal to their sources, /metrics with the audit
+        and SLO gauges and its decision counters equal to the decisions
+        served over both doors;
+    (d) /v1/policy PUT, GET, DELETE, /v1/reset (one
+        ``window_reset`` launch on the card for the windowed cells) each
+        403 without its token and 200 with it, their events in
+        /debug/events;
+    (e) a traced request's spans under its traceparent's id in
+        /debug/trace, and /debug/profile?seconds=1 during the
+        traffic naming the step's kernels (on the card).
+    Returns the readings."""
+    from ratelimiter_tpu_torch.observability.tracing import (
+        format_traceparent,
+    )
+
+    name = f"gateway[{label}]"
+    argv = gateway_args(cell_flags(cfg), device=device, extra=(
+        *TOKEN_FLAGS, "--flight-recorder", "--audit", "--audit-sample", "1",
+        "--audit-twin"))
+    bucket = cfg.algorithm.value == "token_bucket"
+    out: dict = {}
+    with in_process_binary(argv, record=True, counters=counters) as svc:
+        port = svc.gateway.port
+        during = ((lambda: _profile_during(svc)) if device == "cuda"
+                  else None)
+        t0 = time.perf_counter()
+        door, http, prof = _drive_both(
+            svc, seed=seed, space=space, conns=conns, frames=frames,
+            n_ids=n_ids, n_keys=n_keys, depth=depth, ns=list(ns),
+            threads=threads, requests=requests, during=during)
+        out["traffic_s"] = time.perf_counter() - t0
+        pol = "/v1/policy?key=lever:vip"
+        body = gated(port, "PUT", pol + "&limit=7", TOKENS["policy"],
+                     f"{name} policy PUT")
+        if body["limit"] != 7:
+            raise AssertionError(f"{name}: policy PUT answered {body}")
+        if gated(port, "GET", pol, TOKENS["policy"],
+                 f"{name} policy GET")["limit"] != 7:
+            raise AssertionError(f"{name}: policy GET lost the limit")
+        st, hdrs, _ = http_call(port, "GET", "/v1/allow?key=lever:vip")
+        if st != 200 or hdrs["X-RateLimit-Limit"] != "7":
+            raise AssertionError(f"{name}: the override did not apply "
+                                 f"({st} {hdrs})")
+        if not gated(port, "DELETE", pol, TOKENS["policy"],
+                     f"{name} policy DELETE")["deleted"]:
+            raise AssertionError(f"{name}: policy DELETE deleted none")
+        resets = {}
+        for mod in counters:
+            resets.update(mod.launch_counts())
+        gated(port, "POST", "/v1/reset?key=lever:vip", TOKENS["reset"],
+              f"{name} reset")
+        after = {}
+        for mod in counters:
+            after.update(mod.launch_counts())
+        if device == "cuda" and not bucket and (
+                after.get("window_reset", 0)
+                - resets.get("window_reset", 0)) != 1:
+            raise AssertionError(f"{name}: /v1/reset launched "
+                                 f"{after} after {resets}")
+        evs = gated(port, "GET", "/debug/events?tail=16",
+                    TOKENS["debug"], f"{name} events")["events"]
+        got_evs = [(e["action"], e["actor"]) for e in evs
+                   if e["category"] == "policy"]
+        if got_evs[-3:] != [("set-override", "http"),
+                            ("delete-override", "http"),
+                            ("reset", "http")]:
+            raise AssertionError(f"{name}: /debug/events {got_evs}")
+        tid = int(np.random.default_rng(seed).integers(1, 1 << 62))
+        st, hdrs, _ = http_call(port, "GET", "/v1/allow?key=lever:traced",
+                                headers={"traceparent":
+                                         format_traceparent(tid)})
+        if st != 200 or hdrs.get("traceparent") != format_traceparent(
+                tid):
+            raise AssertionError(f"{name}: traced request {st} {hdrs}")
+        trace = gated(port, "GET", "/debug/trace", TOKENS["debug"],
+                      f"{name} trace")
+        spans = {e["name"] for e in trace["traceEvents"]
+                 if e["args"]["trace_id"] == f"{tid:016x}"}
+        want_spans = {"http", "coalesce", "queue", "launch", "device",
+                      "resolve"}
+        if not want_spans <= spans:
+            raise AssertionError(f"{name}: the traced request's spans "
+                                 f"{sorted(spans)}")
+        out["traced_spans"] = sorted(spans)
+        if prof is not None:
+            kern = ("bucket_front_kernel", "bucket_admit_kernel",
+                    "bucket_update_kernel") if bucket else (
+                "window_front_kernel", "window_admit_kernel",
+                "cu_update_kernel")
+            names = " ".join(prof["names"])
+            missing = [k for k in kern if k not in names]
+            if missing:
+                raise AssertionError(f"{name}: /debug/profile's trace "
+                                     f"lacks {missing}")
+            out["profile"] = {"files": prof["body"]["files"],
+                              "seconds": prof["seconds"],
+                              "kernels": len(prof["names"])}
+        t = time.perf_counter()
+        if not svc.auditor.flush(timeout=300):
+            raise AssertionError(f"{name}: the auditor did not drain")
+        out["flush_s"] = time.perf_counter() - t
+        audit_st = gated(port, "GET", "/debug/audit", TOKENS["audit"],
+                         f"{name} audit")
+        st, _, health = http_call(port, "GET", "/healthz")
+        out["health_blocks"] = hold_health(name, health, svc)
+        metrics_text = http_call(port, "GET", "/metrics")[2]
+        counts = {}
+        for mod in counters:
+            counts.update(mod.launch_counts())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rec = svc.rec
+        served = rec.inner
+        _, served_arrays, _ = served.capture_state()
+        served_cfg = served.config
+        taps = list(svc.taps)
+        twin_width = svc.auditor.twin_width
+        audit_cfg = svc.auditor.config
+    errors = [e for o in door["conns"] for e in o["errors"]]
+    if errors:
+        raise AssertionError(f"{name}: error replies {errors[:3]}")
+    replayed, cpu = replay_windows(served_cfg, rec.log)
+    out["http_answers"] = hold_http_answers(name, rec.log, replayed, http)
+    flog, frep = without_keys(rec.log, replayed)
+    _hold_door_frames(name, flog, frep, door["conns"], n_ids, n_keys)
+    _, cpu_arrays, _ = cpu.capture_state()
+    cpu.close()
+    for k, v in cpu_arrays.items():
+        # The lever's override was set and deleted outside the recording.
+        if not k.startswith("policy") and not np.array_equal(
+                served_arrays[k], v):
+            raise AssertionError(f"{name}: final state {k} differs from "
+                                 f"the CPU replay")
+    # (b) the audit tally.
+    want = recompute_audit(audit_cfg, taps, twin_width)
+    got = {k: audit_st[k] for k in want}
+    if got != want or audit_st["oracle_errors"] or \
+            audit_st["fail_open_samples"]:
+        raise AssertionError(f"{name}: /debug/audit {audit_st}; the CPU "
+                             f"recomputation {want}")
+    dropped = [t for t in taps if t[5]]
+    out["audit"] = {"status": {k: audit_st[k] for k in (
+        "samples", "audited_frames", "oracle_allows", "false_denies",
+        "false_allows", "false_deny_rate", "false_deny_wilson95",
+        "cms_false_deny_rate", "semantic_disagreements", "dropped_frames",
+        "dropped_decisions", "twin")},
+        "offered_frames": len(taps), "dropped_frames": len(dropped),
+        "dropped_decisions": sum(len(t[4]) for t in dropped),
+        "twin_width": twin_width}
+    windows = sum(kind != "reset" for kind, *_ in rec.log)
+    resets = sum(kind == "reset" for kind, *_ in rec.log)
+    twin_steps = want["audited_frames"]
+    decisions = (sum(len(r[0]) for o in door["conns"] for r in o["hashed"])
+                 + sum(len(r[0]) for o in door["conns"]
+                       for r in o["strings"])
+                 + sum(len(th["rows"]) for th in http["threads"])
+                 + (prof["requests"] if prof is not None else 0)
+                 + 2)    # the levers' two /v1/allow requests
+    out["metrics"] = hold_metrics_text(name, metrics_text, decisions, True)
+    if device == "cuda":
+        for k in required:
+            if counts.get(k, 0) == 0:
+                raise AssertionError(f"{name}: {k} was not launched")
+        if counts[front] != windows + front_per_reset * resets + twin_steps:
+            raise AssertionError(
+                f"{name}: {counts[front]} {front} launches for {windows} "
+                f"windows, {resets} resets and {twin_steps} twin steps")
+        if not counts["admit"] == counts[update] == windows + twin_steps:
+            raise AssertionError(
+                f"{name}: {counts['admit']} admissions and "
+                f"{counts[update]} {update} launches for {windows} windows "
+                f"and {twin_steps} twin steps: a composed back ran")
+    out.update(counts=counts, windows=windows, resets=resets,
+               twin_steps=twin_steps, decisions=decisions,
+               door_frames=sum(len(o["hashed"]) + len(o["strings"])
+                               for o in door["conns"]),
+               http_requests=sum(len(th["rows"]) for th in http["threads"]),
+               http_wall_s=http["wall_s"], door_wall_s=door["wall_s"])
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"{name} on {where}: {out['door_frames']} binary frames and "
+        f"{out['http_requests']} HTTP requests at once ({decisions} "
+        f"decisions, {windows} windows, {resets} resets), every answer "
+        f"bit-identical to the CPU replay; the auditor's tally (sample 1, "
+        f"twin w={twin_width}) equal to the CPU recomputation: "
+        f"{out['audit']['status']}; {out['audit']['offered_frames']} frames "
+        f"offered, {out['audit']['dropped_frames']} dropped, flush "
+        f"{out['flush_s']:.3f} s; /healthz blocks {out['health_blocks']} "
+        f"equal to their sources; launches {counts}")
+    return out
+
+
+def check_gateway_tenants(torch, cfg, *, device: str = "cuda",
+                          seed: int = 0) -> dict:
+    """Phase gateway (c), (d) and (f) on the tenant binary: the
+    documented deployment (``tenant_flags``) with ``--controller
+    --controller-interval 0.2 --audit --audit-sample 1``, ``--http-port``
+    and the tokens, in-process. The hot-tenant storm of
+    ``tenant_storm`` through binary frames; the controller must journal
+    a move on it (a tighten, or a tighten the audit's false-deny bound
+    vetoed) whose signals show the SLO burn rate or the audit's bound
+    it read as nonzero. /v1/tenants: GET (403 without the token) equal
+    to ``hierarchy_stats`` with the effective limits, a tenant's limit
+    changed, then the tenant deleted. Then, the controller stopped and
+    the auditor drained, /healthz's blocks equal to their sources and
+    /metrics' decision counters to the decisions served."""
+    name = "gateway[tenants]"
+    argv = gateway_args(cell_flags(cfg) + tenant_flags(), device=device,
+                        extra=(*TOKEN_FLAGS, "--controller",
+                               "--controller-interval", "0.2", "--audit",
+                               "--audit-sample", "1"))
+    with in_process_binary(argv) as svc:
+        port = svc.gateway.port
+        c = DoorClient(svc.server.port)
+        try:
+            free = tenant_storm(c)
+        finally:
+            c.close()
+        deadline = time.time() + 20
+        while True:
+            evs = gated(port, "GET", "/debug/events?category=controller"
+                        "&tail=64", TOKENS["debug"], f"{name} events")
+            moves = [e for e in evs["events"]
+                     if e["action"] in ("tighten", "tighten-vetoed")]
+            if moves or time.time() > deadline:
+                break
+            time.sleep(0.1)
+        if not moves:
+            raise AssertionError(f"{name}: the controller journaled no move "
+                                 f"under the storm")
+        signals = [(e["action"], e["payload"]["burn_rate"],
+                    e["payload"]["false_deny_wilson_high"]) for e in moves]
+        if not any(b > 0 or f > 0 for _, b, f in signals):
+            raise AssertionError(f"{name}: the controller's moves read a "
+                                 f"zero SLO burn and audit bound: {signals}")
+        svc.controller.stop()
+        st = gated(port, "GET", "/v1/tenants", TOKENS["tenants"],
+                   f"{name} GET /v1/tenants")
+        want = svc.hier.hierarchy_stats()
+        want["effective"] = svc.hier.effective_limits()
+        if st != json.loads(json.dumps(want)):
+            raise AssertionError(f"{name}: GET /v1/tenants {st}; the "
+                                 f"hierarchy {want}")
+        last = CASC_OTHERS[-1][0]
+        body = gated(port, "POST", f"/v1/tenants?name={last}&limit=1234"
+                     "&weight=2", TOKENS["tenants"], f"{name} POST")
+        if (body["limit"], body["weight"]) != (1234, 2) or \
+                svc.hier.effective_limits().get(last) != 1234:
+            raise AssertionError(f"{name}: POST /v1/tenants {body}")
+        if not gated(port, "DELETE", f"/v1/tenants?name={last}",
+                     TOKENS["tenants"], f"{name} DELETE")["deleted"]:
+            raise AssertionError(f"{name}: DELETE /v1/tenants deleted none")
+        if not svc.auditor.flush(timeout=300):
+            raise AssertionError(f"{name}: the auditor did not drain")
+        health = http_call(port, "GET", "/healthz")[2]
+        blocks = hold_health(name, health, svc)
+        text = http_call(port, "GET", "/metrics")[2]
+        metrics_out = hold_metrics_text(
+            name, text, svc.server.batcher.decisions_total, True)
+        audit_st = svc.auditor.status()
+    out = {"free_effective": free, "moves": signals,
+           "health_blocks": blocks, "metrics": metrics_out,
+           "audit_samples": audit_st["samples"],
+           "false_deny_wilson95": audit_st["false_deny_wilson95"]}
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"{name} on {where}: under the storm free's effective limit "
+        f"{free:g}; the controller journaled {signals[:3]} (action, burn "
+        f"rate, audit false-deny bound); /v1/tenants GET equal to "
+        f"hierarchy_stats, a tenant changed and deleted; /healthz blocks "
+        f"{blocks} equal to their sources")
+    return out
+
+
+def check_gateway_durable(torch, cfg, *, device: str = "cuda",
+                          seed: int = 0) -> dict:
+    """Phase gateway (c) and (d) on the durable binary (``--snapshot-dir``,
+    in-process): a few binary frames and HTTP decisions, POST
+    /v1/snapshot (403 without the token) writing the snapshot it names,
+    /healthz's blocks (the persistence status among them) equal to their
+    sources, /metrics' decision counters equal to the decisions
+    served."""
+    import os
+    import shutil
+    import tempfile
+
+    name = "gateway[durable]"
+    root = tempfile.mkdtemp(prefix="gateway-durable-")
+    argv = gateway_args(cell_flags(cfg), device=device, extra=(
+        *TOKEN_FLAGS, "--snapshot-dir", root, "--snapshot-interval",
+        "3600"))
+    rng = np.random.default_rng(seed + 59)
+    try:
+        with in_process_binary(argv) as svc:
+            port = svc.gateway.port
+            c = DoorClient(svc.server.port)
+            try:
+                for frame in _door_frames(rng, 256, 6):
+                    _send(c, frame)
+            finally:
+                c.close()
+            for i in range(16):
+                if http_call(port, "GET", f"/v1/allow?key=http:d:{i % 4}"
+                             f"&n=30")[0] not in (200, 429):
+                    raise AssertionError(f"{name}: /v1/allow failed")
+            body = gated(port, "POST", "/v1/snapshot", TOKENS["snapshot"],
+                         f"{name} snapshot")
+            path = os.path.join(root,
+                                f"snap-{body['snapshot_id']:08d}-000.npz")
+            if not body["ok"] or not os.path.exists(path):
+                raise AssertionError(f"{name}: /v1/snapshot {body}, no "
+                                     f"{path}")
+            health = http_call(port, "GET", "/healthz")[2]
+            blocks = hold_health(name, health, svc)
+            text = http_call(port, "GET", "/metrics")[2]
+            metrics_out = hold_metrics_text(
+                name, text, svc.server.batcher.decisions_total, False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"{name} on {where}: /v1/snapshot wrote snapshot "
+        f"{body['snapshot_id']} (WAL seq {body['wal_seq']}); /healthz "
+        f"blocks {blocks} equal to their sources")
+    return {"snapshot": body, "health_blocks": blocks,
+            "metrics": metrics_out}
+
+
+#: Phase gateway's readings: the door without the auditor, with it at
+#: the default sample (1 in 64, no twin), and at sample 1 with the twin.
+#: Under ``--gateway`` two more settings split the default auditor's
+#: cost: ``timer`` (offers do not wake the worker, which drains on its
+#: 0.25 s timer) and ``tap`` (the worker stopped, so the tap alone runs:
+#: the queue fills and the tap drops and counts).
+AUDIT_READINGS = (("no audit", (), None), ("audit 64", ("--audit",), None),
+                  ("audit twin 1", ("--audit", "--audit-twin",
+                                    "--audit-sample", "1"), None))
+AUDIT_SPLIT = (("audit 64 timer drain", ("--audit",), "timer"),
+               ("audit 64 tap only", ("--audit",), "tap"))
+#: /v1/allow timing: client threads, and requests in all.
+HTTP_READING_THREADS, HTTP_READING_REQUESTS = (8, 32), 1600
+
+
+class _NoWake(threading.Event):
+    """The audit worker's event with ``set`` a no-op: offers no longer
+    wake the worker, which drains on its wait's 0.25 s timeout."""
+
+    def set(self) -> None:
+        pass
+
+
+def audit_mode(aud, mode) -> None:
+    """Apply an ``AUDIT_SPLIT`` setting to the running auditor."""
+    if mode == "timer":
+        aud._wake = _NoWake()
+    elif mode == "tap":
+        aud._stop.set()
+        aud._wake.set()
+        aud._thread.join(timeout=30)
+        # flush() then drains what is queued on the caller's thread.
+        aud._thread = None
+
+
+def thread_cpu_s(thread) -> float:
+    """CPU seconds a live thread has run (its POSIX thread clock)."""
+    return time.clock_gettime(time.pthread_getcpuclockid(thread.ident))
+
+
+def gateway_readings(seed: int = 0, rounds: int = 3,
+                     device: str = "cuda", conns: int = DOOR_CONNS,
+                     frames: int = DOOR_FRAMES, n_ids: int = DOOR_IDS,
+                     n_keys: int = DOOR_KEYS,
+                     http_requests: int = HTTP_READING_REQUESTS,
+                     split: bool = False, http: bool = True) -> dict:
+    """Phase gateway's numbers on windowed CU, the binary's own
+    ``serve`` in-process with no recording proxy: the door's decisions/s
+    and frame latency under each of ``AUDIT_READINGS`` (and with
+    ``split`` each of ``AUDIT_SPLIT``), in turns, ``rounds`` rounds on
+    the same traffic, with the process's CPU seconds over the traffic,
+    the audit worker's, the auditor's audited and dropped frames and
+    decisions and its seconds to flush once the traffic ends; then, with
+    ``http``, /v1/allow requests/s and latency p50/p99 at each of
+    ``HTTP_READING_THREADS`` client threads (string keys of config 3's
+    traffic, one keep-alive connection a thread) and the requests a
+    dispatch carried. Smoke readings: nothing is gated on them but the
+    door's own checks (``_door_readings``)."""
+    settings = AUDIT_READINGS + (AUDIT_SPLIT if split else ())
+    runs: dict = {}
+    for _ in range(rounds):
+        for label, extra, mode in settings:
+            argv = gateway_args(cell_flags(config3()), device=device,
+                                extra=extra)
+            with in_process_binary(argv) as svc:
+                aud = svc.auditor
+                audit_mode(aud, mode)
+                worker = aud._thread if aud is not None else None
+                w0 = thread_cpu_s(worker) if worker is not None else 0.0
+                c0 = time.process_time()
+                got = _run_door_client(
+                    {"port": svc.server.port, "conns": conns,
+                     "frames": frames, "n_ids": n_ids, "n_keys": n_keys,
+                     "depth": DOOR_DEPTH, "space": "zipf",
+                     "seed": seed + 17}, 600.0)
+                cpu = time.process_time() - c0
+                r = _door_readings(f"gateway door [{label}]", got)
+                r["process_cpu_s"] = cpu
+                if worker is not None:
+                    r["worker_cpu_s"] = thread_cpu_s(worker) - w0
+                if aud is not None:
+                    t = time.perf_counter()
+                    if not aud.flush(timeout=300):
+                        raise AssertionError(f"{label}: the auditor did "
+                                             f"not drain")
+                    r["flush_s"] = time.perf_counter() - t
+                    st = aud.status()
+                    # The batcher taps each window once.
+                    r.update(offered_frames=r["dispatches"],
+                             audited_frames=st["audited_frames"],
+                             samples=st["samples"],
+                             dropped_frames=st["dropped_frames"],
+                             dropped_decisions=st["dropped_decisions"])
+            runs.setdefault(label, []).append(r)
+    out = {"door": {}}
+    for label, rs in runs.items():
+        out["door"][label] = {k: [r.get(k) for r in rs] for k in (
+            "decisions_per_s", "p50_ms", "p99_ms", "frames_per_dispatch",
+            "wall_s", "process_cpu_s", "worker_cpu_s", "flush_s",
+            "offered_frames", "audited_frames", "samples",
+            "dropped_frames", "dropped_decisions")}
+        log(f"gateway door readings [{label}] (rounds): "
+            + "; ".join(f"{k} {v}" for k, v in out["door"][label].items()
+                        if v[0] is not None))
+    argv = gateway_args(cell_flags(config3()), device=device)
+    out["http"] = {}
+    for threads in HTTP_READING_THREADS if http else ():
+        with in_process_binary(argv) as svc:
+            got = _run_door_client(
+                {"port": svc.gateway.port, "threads": threads,
+                 "requests": http_requests // threads, "keys": 0,
+                 "seed": seed + 23, "space": "zipf", "ns": [1]}, 600.0,
+                "gateway_client")
+            text = http_call(svc.gateway.port, "GET", "/metrics")[2]
+        lat = np.array([x for th in got["threads"] for x in th["latency"]])
+        dispatches = metric_value(text,
+                                  "rate_limiter_server_batch_size_count")
+        out["http"][threads] = {
+            "requests": int(lat.size),
+            "requests_per_s": lat.size / got["wall_s"],
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "requests_per_dispatch": lat.size / dispatches}
+        log(f"gateway /v1/allow [{threads} threads]: "
+            f"{out['http'][threads]}")
+    return out
+
+
+#: What a /debug/profile capture of windowed CU must name.
+PROFILE_KERNELS = ("window_front_kernel", "window_admit_kernel",
+                   "cu_update_kernel")
+
+
+def check_binary_profile(device: str = "cuda") -> dict:
+    """(e) on the binary as it runs: ``python -m ratelimiter_tpu_torch.
+    serving`` (config 3, ``--debug-token``) as a child process, its
+    first profiler capture (``profile_capture``, on a gateway thread,
+    with /v1/allow traffic meanwhile) must name the step's kernels on the
+    card, and the binary must exit 0 on SIGTERM. Returns the capture's
+    seconds (the first pays the profiler's initialization), whether the
+    binary's output holds Kineto's thread message, and the requests
+    sent during it."""
+    argv = gateway_args(cell_flags(config3()), device=device,
+                        extra=("--debug-token", TOKENS["debug"]))
+    srv = ServerProcess(argv)
+    try:
+        got = profile_capture(srv.http)
+    finally:
+        rc = srv.terminate()
+    names = " ".join(got["names"])
+    missing = [k for k in PROFILE_KERNELS if device == "cuda"
+               and k not in names]
+    out = {"seconds": got["seconds"], "requests_during":
+           got["requests_during"], "kernels": len(got["names"]),
+           "thread_message": any("External init callback" in line
+                                 for line in srv.output), "rc": rc}
+    if missing or rc != 0:
+        raise AssertionError(f"binary /debug/profile: kernels missing "
+                             f"{missing}, exit code {rc}")
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"binary /debug/profile on {where}: {out}")
+    return out
+
+
+def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
+    """Phase gateway: (a)-(e) on windowed CU with the side table (config
+    3, ``--hh-slots 256``) and on TB-c2, (c), (d) and (f) on the tenant
+    and durable binaries, (e) on the binary as a child process, then the
+    readings: the door's, one round, in the whole run; ``alone``
+    (``--gateway``) takes three, splits the auditor's cost and times
+    /v1/allow."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+
+    t = time.perf_counter()
+    out = {"windowed": check_gateway(
+        torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
+        seed=seed + 89, counters=[sketch_cuda], front="window_estimate",
+        update="cu_update", required=("window_estimate", "admit",
+                                      "cu_update", "hh_update [fused]",
+                                      "window_reset"))}
+    out["TB-c2"] = check_gateway(
+        torch, config2_bucket(), "TB-c2", seed=seed + 97, space="c2",
+        ns=(1, 4, 9), counters=[bucket_cuda], front="bucket_estimate",
+        update="bucket_update", front_per_reset=1,
+        required=("bucket_estimate", "admit", "bucket_update"))
+    out["tenants"] = check_gateway_tenants(torch, config3(), seed=seed)
+    out["durable"] = check_gateway_durable(torch, config3(), seed=seed)
+    out["binary_profile"] = check_binary_profile()
+    out["readings"] = gateway_readings(seed, rounds=3 if alone else 1,
+                                       split=alone, http=alone)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase gateway on {card_line()}: {out['seconds']:.1f} s")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -6365,6 +7631,16 @@ def main(argv=None) -> int:
                          "frames, deadlines, the journal, the breaker, a "
                          "profiler capture and the door readings; one "
                          "JSON line)")
+    ap.add_argument("--door", action="store_true",
+                    help="only build, then time the config-3 door under "
+                         "the binary's default stack, 3 rounds (public "
+                         "entry points only, so it runs on an earlier "
+                         "checkout too; one JSON line)")
+    ap.add_argument("--gateway", action="store_true",
+                    help="only build, then hold the auditor twin's kernels "
+                         "at d=1 and run phase gateway (the binary's HTTP "
+                         "gateway, shadow auditor and SLO tracker beside "
+                         "its door; one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -6388,7 +7664,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     t = time.perf_counter()
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
-                or args.dense or args.dense_paths or args.observe)
+                or args.dense or args.dense_paths or args.observe
+                or args.gateway or args.door)
     _build.build_all(["sketch_kernels", "bucket_kernels"]
                      + (["dense_kernels", "dense_bench"]
                         if full or args.dense else [])
@@ -6435,6 +7712,22 @@ def main(argv=None) -> int:
                          default=lambda o: repr(o)))
         print(card)
         return 0
+    if args.door:
+        runs = [time_door(config3(), "windowed CU", seed=args.seed + 17)
+                for _ in range(3)]
+        check_no_children()
+        print(json.dumps({"card": card, "door": [
+            {k: r[k] for k in ("decisions_per_s", "p50_ms", "p99_ms",
+                               "frames_per_dispatch")} for r in runs]}))
+        print(card)
+        return 0
+    if args.gateway:
+        out = {"twin_kernels": check_twin_kernels(torch, args.seed),
+               "gateway": run_gateway(torch, args.seed, alone=True)}
+        check_no_children()
+        print(json.dumps({"card": card, **out}, default=lambda o: repr(o)))
+        print(card)
+        return 0
     if args.rows:
         rows = check_kernels(torch, args.seed)
         rows.update(check_bucket_kernels(torch, args.seed))
@@ -6459,6 +7752,10 @@ def main(argv=None) -> int:
             rows[row]["side_table_form"] = side["side_forms"][name]
         rows.update(check_cascade(torch, args.seed))
         rows.update(check_dense_kernel(torch, args.seed))
+        # The auditor twin's forms of the step's kernels (d = 1).
+        for width, forms in check_twin_kernels(torch, args.seed).items():
+            for name, form in forms.items():
+                rows[name].setdefault("twin", {})[str(width)] = form
     strict = not args.paths
     cu = check_main_path(torch, args.seed, args.steps, cu=True,
                          strict=strict)
@@ -6574,6 +7871,7 @@ def main(argv=None) -> int:
     observe = run_observe(torch, args.seed, reuse={
         "windowed CU": door_cu, f"windowed CU hh_slots={HH_SLOTS}": door_hh,
         "TB-c2": door_tb})
+    gateway = run_gateway(torch, args.seed)
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
@@ -6597,9 +7895,10 @@ def main(argv=None) -> int:
                      hh_tn, door_cu, door_hh, door_tn, live["windowed"],
                      watch, *ev_windowed, above["tenants windowed CU"],
                      above[f"tenants windowed CU hh_slots={HH_SLOTS}"],
-                     above["tenants windowed vanilla"])
+                     above["tenants windowed vanilla"],
+                     gateway["windowed"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
-                   *ev_bucket, above["tenants TB-c2"])
+                   *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -6622,6 +7921,7 @@ def main(argv=None) -> int:
     paths["door_unproxied_windowed_CU"] = unproxied_cu
     paths["door_unproxied_TB-c2"] = unproxied_tb
     paths["observe"] = observe
+    paths["gateway"] = gateway
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -38,12 +38,13 @@ on the newest revision (hierarchy/tenants.effective_payload).
 
 Port notes. Every decision (``tick``'s tighten, veto and relax moves,
 the cooldowns, ``on_tighten``, ``publish``) is the JAX controller's. The
-SLO tracker and the shadow auditor are not ported yet (ROADMAP A13b), so
-``slo_status`` and ``audit_status`` stay optional inputs: None gives a
-burn rate of 0 and a false-deny bound of 0. Each move and veto is
-journaled (observability/events.py) under one correlation id a tick
-(``tracing.new_trace_id``), as the JAX controller journals them. The
-three gauges live in the port's metrics registry.
+binary wires ``slo_status`` and ``audit_status`` to the SLO tracker and
+the shadow auditor under ``--audit`` (serving/__main__.py
+``setup_hierarchy``), as the JAX binary does; without them they stay
+None, which gives a burn rate of 0 and a false-deny bound of 0. Each
+move and veto is journaled (observability/events.py) under one
+correlation id a tick (``tracing.new_trace_id``), as the JAX controller
+journals them. The three gauges live in the port's metrics registry.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """The port's observability: the metrics registry (metrics.py), the
 decorators around RateLimiter (decorators.py), the flight recorder
-(tracing.py) and the control-plane event journal (events.py) — what the
-JAX package's ``ratelimiter_tpu/observability/__init__.py`` exports of
-these. The JAX package's accuracy observatory (audit.py) and SLO tracker
-(slo.py) are not ported."""
+(tracing.py), the live accuracy observatory (audit.py, the shadow
+auditor; slo.py, the SLO burn tracker) and the control-plane event
+journal (events.py) — what the JAX package's
+``ratelimiter_tpu/observability/__init__.py`` exports."""
 
-from ratelimiter_tpu_torch.observability import events, tracing
+from ratelimiter_tpu_torch.observability import audit, events, slo, tracing
 from ratelimiter_tpu_torch.observability.metrics import (
     BATCH_BUCKETS,
     Counter,
@@ -38,6 +38,8 @@ __all__ = [
     "MetricsDecorator",
     "Registry",
     "TracingDecorator",
+    "audit",
     "events",
+    "slo",
     "tracing",
 ]

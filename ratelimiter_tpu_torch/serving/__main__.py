@@ -39,9 +39,7 @@ they win over a snapshot's registry for the names they touch), and
 ``--controller`` runs the AIMD controller every ``--controller-interval``
 seconds over it (hierarchy/controller.py; its gauges show on METRICS).
 The wire protocol is unchanged: tenant ids derive from the key. The JAX
-binary's flags, refusals and boot order; its HTTP ``/v1/tenants`` and
-``/healthz`` hierarchy block are not ported (the port's door has no HTTP,
-ROADMAP A13).
+binary's flags, refusals and boot order.
 
 Observability, with the JAX binary's flags and defaults: every limiter is
 wrapped in the decorator stack (``build_limiter_stack``: ``--trace``
@@ -52,6 +50,23 @@ LoggingDecorator, innermost first, the persistence wrapper outermost);
 thread starts (``rate_limiter_stage_seconds`` on METRICS); the event
 journal is on unless ``--no-event-journal`` (``--event-journal-dir``
 spills it to JSONL segments and replays their tail at start).
+
+``--http-port`` also serves the HTTP gateway (serving/http_gateway.py):
+its decisions go through the door's micro-batcher
+(``make_threadsafe_decide``), so HTTP and binary frames share launches
+and windows. ``/healthz`` carries the JAX binary's blocks (the sketch's
+envelope or debt slab, the side table's consumers, the audit and SLO
+blocks, the hierarchy, the journal, the persistence status; leases, the
+fleet, placement and quarantine, which the port does not have, give the
+JAX binary's ``{}`` for "off"); ``/v1/reset``, ``/v1/policy``,
+``/v1/tenants``, ``/v1/snapshot`` and the ``/debug`` routes are gated by
+the JAX binary's ``--http-*``, ``--debug-*`` and ``--audit-token``
+flags. ``--audit`` turns on the live accuracy observatory
+(observability/audit.py: a 1 in ``--audit-sample`` hash-sampled shadow
+of the served decisions, ``--audit-twin`` adding the collision-free
+twin on the serving limiter's device) and the SLO burn tracker
+(observability/slo.py), whose statuses the AIMD controller reads; the
+dense and exact backends refuse it, as in the JAX binary.
 """
 
 from __future__ import annotations
@@ -61,6 +76,7 @@ import asyncio
 import logging
 import signal
 import time
+from types import SimpleNamespace
 
 from ratelimiter_tpu_torch import (
     Algorithm,
@@ -234,6 +250,77 @@ def build_parser() -> argparse.ArgumentParser:
                          "JSONL segments in DIR (bounded rotation) and "
                          "replay the on-disk tail into the ring at "
                          "startup")
+    # HTTP gateway (serving/http_gateway.py).
+    ap.add_argument("--http-port", type=int, default=None,
+                    help="also serve the HTTP gateway (429 + X-RateLimit-* "
+                         "headers, /healthz, /metrics) on this port; HTTP "
+                         "decisions share the micro-batcher with binary "
+                         "traffic")
+    ap.add_argument("--http-reset", action="store_true",
+                    help="expose POST /v1/reset on the HTTP gateway "
+                         "(OFF by default: reset is a quota-erase lever "
+                         "on a curl-able surface)")
+    ap.add_argument("--http-reset-token", default=None,
+                    help="bearer token required by /v1/reset (implies "
+                         "--http-reset); Authorization header only — "
+                         "query-string tokens are never accepted")
+    ap.add_argument("--http-policy", action="store_true",
+                    help="expose the tiered-override endpoint "
+                         "(GET/POST/PUT/DELETE /v1/policy) on the HTTP "
+                         "gateway (OFF by default: overrides are a "
+                         "quota-GRANT lever on a curl-able surface)")
+    ap.add_argument("--http-policy-token", default=None,
+                    help="bearer token required by /v1/policy (implies "
+                         "--http-policy); Authorization header only")
+    ap.add_argument("--http-snapshot-token", default=None,
+                    help="bearer token required by POST /v1/snapshot on "
+                         "the HTTP gateway (the trigger is wired "
+                         "whenever --snapshot-dir is set; without a "
+                         "token it is open). Authorization header only")
+    ap.add_argument("--http-tenants", action="store_true",
+                    help="expose tenant management (GET/POST/PUT/DELETE "
+                         "/v1/tenants) on the HTTP gateway (OFF by "
+                         "default: a quota lever in both directions on "
+                         "a curl-able surface)")
+    ap.add_argument("--http-tenants-token", default=None,
+                    help="bearer token required by /v1/tenants (implies "
+                         "--http-tenants); Authorization header only")
+    ap.add_argument("--debug-trace", action="store_true",
+                    help="expose GET /debug/trace (Chrome-trace dump of "
+                         "the flight recorder's recent spans), "
+                         "/debug/events and /debug/profile (on-demand "
+                         "torch.profiler capture) on the HTTP gateway. "
+                         "OFF by default: traces reveal key traffic "
+                         "timing — gate like /v1/policy")
+    ap.add_argument("--debug-token", default=None,
+                    help="bearer token required by the /debug endpoints "
+                         "(implies --debug-trace); Authorization header "
+                         "only, like every other token")
+    # Live accuracy observatory (observability/audit.py, slo.py).
+    ap.add_argument("--audit", action="store_true",
+                    help="turn on the live accuracy observatory: a "
+                         "deterministic hash-sampled fraction of live "
+                         "decisions is mirrored into an exact shadow "
+                         "oracle off the hot path; live false-deny/"
+                         "false-allow rates with Wilson bounds land on "
+                         "/metrics, /healthz, and GET /debug/audit, plus "
+                         "the admission-SLO burn-rate block. Needs a "
+                         "sketch-family backend. Off by default = "
+                         "byte-identical hot path")
+    ap.add_argument("--audit-sample", type=int, default=64,
+                    help="audit 1 in N of the keyspace (hash-coherent: "
+                         "a key is always or never audited, so its "
+                         "windows stay whole; 1 audits everything)")
+    ap.add_argument("--audit-token", default=None,
+                    help="bearer token required by GET /debug/audit "
+                         "(Authorization header only; without it the "
+                         "endpoint is open whenever --audit is set)")
+    ap.add_argument("--audit-twin", action="store_true",
+                    help="also run the collision-free CMS twin online "
+                         "(on the serving limiter's device), separating "
+                         "pure-CMS collision error from semantic error "
+                         "in the live stream; costs a twin step per "
+                         "audited window, so it is off by default")
     return ap
 
 
@@ -271,6 +358,10 @@ def build_config(args: argparse.Namespace) -> Config:
         raise SystemExit("--controller needs --tenants > 0")
     if (args.tenant or args.assign) and not cfg.hierarchy.enabled:
         raise SystemExit("--tenant/--assign need --tenants > 0")
+    if args.audit and args.backend != "sketch":
+        raise SystemExit("--audit needs a sketch-family backend "
+                         "(exact/dense decisions are already exact — "
+                         "there is nothing to audit)")
     if cfg.hierarchy.enabled and args.max_batch > ADMIT_CAPACITY:
         raise SystemExit(f"--max-batch {args.max_batch} with --tenants: the "
                          f"cascade decides at most {ADMIT_CAPACITY} requests "
@@ -314,12 +405,14 @@ def boot_tenants(hier, args: argparse.Namespace) -> None:
         hier.assign_tenant(key, tenant)
 
 
-def setup_hierarchy(args: argparse.Namespace, cfg: Config, units):
+def setup_hierarchy(args: argparse.Namespace, cfg: Config, units, *,
+                    slo_tracker=None, auditor=None):
     """Mount the cascade's management surface over the door's dispatch
     units (``HierarchyFanout``; the port's door has one), apply the boot
     flags, and build (not start) the AIMD controller when asked, its
-    gauges in the door's registry. Returns ``(hier, controller)``, (None,
-    None) when the hierarchy is off."""
+    gauges in the door's registry, reading the SLO tracker's and the
+    auditor's statuses when they run (``--audit``). Returns ``(hier,
+    controller)``, (None, None) when the hierarchy is off."""
     if not cfg.hierarchy.enabled:
         return None, None
     from ratelimiter_tpu_torch.hierarchy import AIMDController, HierarchyFanout
@@ -329,9 +422,273 @@ def setup_hierarchy(args: argparse.Namespace, cfg: Config, units):
     boot_tenants(hier, args)
     controller = None
     if args.controller:
-        controller = AIMDController(hier, interval=args.controller_interval,
-                                    registry=metrics.DEFAULT)
+        controller = AIMDController(
+            hier,
+            slo_status=(slo_tracker.status if slo_tracker is not None
+                        else None),
+            audit_status=(auditor.status if auditor is not None
+                          else None),
+            interval=args.controller_interval, registry=metrics.DEFAULT)
     return hier, controller
+
+
+# ------------------------------------------------------ /healthz blocks
+
+
+def _units(limiters) -> list:
+    """The backend dispatch units under ``limiters`` (decorators and the
+    persistence wrapper peeled off)."""
+    from ratelimiter_tpu_torch.observability.decorators import undecorated
+
+    return [sl for lim in limiters for sl in undecorated(lim).sub_limiters()]
+
+
+def _envelope_health(limiters) -> dict:
+    """Accuracy-envelope fields for /healthz (windowed sketch only): a
+    growing overload_periods flags an undersized geometry at the
+    operational surface, not just in logs."""
+    lims = [lim for lim in _units(limiters) if hasattr(lim, "_period_mass")]
+    if not lims:
+        return {}
+    masses = [lim.in_window_admitted_mass() for lim in lims]
+    return {"overload_periods": sum(lim.overload_periods for lim in lims),
+            "in_window_admitted_mass": sum(masses),
+            "mass_budget": sum(lim.mass_budget for lim in lims),
+            "shards_overloaded": sum(
+                mass > lim.mass_budget
+                for lim, mass in zip(lims, masses)),
+            "overload_policy": lims[0].config.sketch.overload_policy}
+
+
+def _debt_slab_health(limiters) -> dict:
+    """Debt-slab occupancy/collision fields for /healthz (token-bucket
+    sketch only): occupancy and collision_p report the worst unit, cell
+    counts sum. One device read a call — /healthz cadence, never the
+    decide path."""
+    lims = [lim for lim in _units(limiters)
+            if hasattr(lim, "debt_slab_stats")]
+    if not lims:
+        return {}
+    stats = [lim.debt_slab_stats() for lim in lims]
+    return {"debt_slab": {
+        "occupancy": max(s["occupancy"] for s in stats),
+        "collision_p": max(s["collision_p"] for s in stats),
+        "nonzero_cells": sum(s["nonzero_cells"] for s in stats),
+        "cells": sum(s["cells"] for s in stats),
+        "units": len(stats)}}
+
+
+def _consumers_health(limiters, k: int = 10) -> dict:
+    """Top-K consumer block for /healthz (the side table): per-unit
+    ``consumer_stats`` merged into one ranking. Consumer identities are
+    hash tokens, never raw keys. Empty when no unit runs a side table."""
+    units = [(i, lim) for i, lim in enumerate(_units(limiters))
+             if getattr(lim, "has_hh", False)]
+    if not units:
+        return {}
+    rows = []
+    occupied = slots = mass = 0
+    for i, lim in units:
+        st = lim.consumer_stats(k=k)
+        slots += st["slots"]
+        occupied += st["occupied"]
+        mass += st.get("tracked_mass", 0)
+        for row in st["top"]:
+            rows.append({**row, "slice": i})
+    rows.sort(key=lambda r: -r["in_window"])
+    return {"consumers": {
+        "slots": slots,
+        "occupied": occupied,
+        "tracked_mass": mass,
+        "top": rows[:k]}}
+
+
+def _audit_health() -> dict:
+    """Audit envelope for /healthz: the observatory's headline numbers
+    (rates, confidence, raw tallies, drop counters); the per-slice
+    breakdown lives on GET /debug/audit."""
+    from ratelimiter_tpu_torch.observability import audit
+
+    aud = audit.AUDITOR
+    if aud is None:
+        return {}
+    st = aud.status()
+    return {"audit": {
+        "sample": st["sample"],
+        "samples": st["samples"],
+        "false_deny_rate": st["false_deny_rate"],
+        "false_deny_wilson95": st["false_deny_wilson95"],
+        "false_allow_rate": st["false_allow_rate"],
+        "false_denies": st["false_denies"],
+        "false_allows": st["false_allows"],
+        "oracle_allows": st["oracle_allows"],
+        "fail_open_samples": st["fail_open_samples"],
+        "dropped_decisions": st["dropped_decisions"],
+        "oracle_errors": st["oracle_errors"]}}
+
+
+def _slo_health(slo) -> dict:
+    return {"slo": slo.status()} if slo is not None else {}
+
+
+def _events_health() -> dict:
+    from ratelimiter_tpu_torch.observability import events
+
+    j = events.JOURNAL
+    return {"events": j.status()} if j is not None else {}
+
+
+def _hierarchy_health(hier, controller) -> dict:
+    """Cascade block for /healthz: per-scope in-window mass and
+    effective/ceiling limits, plus the AIMD controller's move counters
+    when it runs."""
+    if hier is None:
+        return {}
+    st = hier.hierarchy_stats()
+    if controller is not None:
+        st["controller"] = {"ticks": controller.ticks,
+                            "tightened": controller.tightened,
+                            "relaxed": controller.relaxed,
+                            "interval": controller.interval}
+    return {"hierarchy": st}
+
+
+def make_member_info(args: argparse.Namespace, registry=None):
+    """Member identity as the JAX binary gives it for an asyncio door
+    outside a fleet (no epoch): the /healthz ``member`` block, also
+    exported as the ``rate_limiter_member_info`` identity gauge (value 1,
+    the block's fields as labels, the member id under ``id``) on
+    ``registry`` (the process default when None), refreshed at scrape
+    time. Returns ``(info, collect)``: the block's callable and the
+    registry hook, which the caller removes at shutdown."""
+    from ratelimiter_tpu_torch.observability import metrics
+
+    registry = registry if registry is not None else metrics.DEFAULT
+
+    def info() -> dict:
+        return {"self": f"{args.host}:{args.port}", "backend": args.backend,
+                "algorithm": args.algorithm, "door": "asyncio", "abi": "py",
+                "fleet_epoch": None}
+
+    g_info = registry.gauge(
+        "rate_limiter_member_info",
+        "Identity gauge (value always 1): fleet self id, current "
+        "ownership-map epoch, serving door + native ABI, and backend "
+        "kind as labels — joins rolled-up series and stitched traces "
+        "to a member (ADR-021)")
+
+    def collect() -> None:
+        # Clear, then set: a gauge only overwrites the label sets it is
+        # told about. "self" cannot be a label keyword (it renders as
+        # "id").
+        g_info.clear()
+        g_info.set(1.0, **{("id" if k == "self" else k):
+                           ("-" if v is None else str(v))
+                           for k, v in info().items()})
+
+    registry.add_collect_hook(collect)
+    return info, collect
+
+
+def make_threadsafe_decide(batcher, loop):
+    """Single-decision bridge from the gateway's worker threads into the
+    event loop's micro-batcher: every surface shares device dispatches.
+    Trace-aware: a sampled HTTP request's trace id rides into the
+    batcher so its coalesced dispatch records under it. Deadline-aware:
+    a caller's RELATIVE budget anchors to the local monotonic clock and
+    the batcher sheds the work per policy if it expires in the
+    coalescing queue."""
+    def decide(key: str, n: int, trace_id: int = 0, deadline=None):
+        abs_deadline = (time.monotonic() + float(deadline)
+                        if deadline is not None else 0.0)
+        return asyncio.run_coroutine_threadsafe(
+            batcher.submit(key, n, trace_id=trace_id,
+                           deadline=abs_deadline),
+            loop).result(timeout=30)
+
+    return decide
+
+
+def setup_audit(args: argparse.Namespace, cfg: Config, limiter):
+    """``--audit``: the process-wide shadow auditor (its twin, under
+    ``--audit-twin``, on the serving limiter's device) following the
+    served limiter's live limit and window, and the SLO burn tracker,
+    both exporting their gauges on the default registry. Returns
+    ``(auditor, slo_tracker)``, (None, None) without ``--audit``."""
+    if not args.audit:
+        return None, None
+    from ratelimiter_tpu_torch.observability import audit, metrics
+    from ratelimiter_tpu_torch.observability.slo import SloBurnTracker
+
+    auditor = audit.enable(cfg, sample=args.audit_sample,
+                           n_slices=len(_units([limiter])),
+                           include_twin=args.audit_twin,
+                           registry=metrics.DEFAULT,
+                           live_config=lambda: limiter.config,
+                           device=args.device)
+    slo_tracker = SloBurnTracker(metrics.DEFAULT)
+    slo_tracker.attach()
+    return auditor, slo_tracker
+
+
+def make_audit_status(auditor, slo_tracker, limiters):
+    """GET /debug/audit payload: the auditor's rates, confidence and
+    attribution, the top-K consumers and the SLO burn block."""
+    def status() -> dict:
+        out = auditor.status() if auditor is not None else {}
+        out.update(_consumers_health(limiters))
+        out.update(_slo_health(slo_tracker))
+        return out
+
+    return status
+
+
+def make_gateway(args: argparse.Namespace, limiter, server, loop, *,
+                 member_info, persist=None, hier=None, controller=None,
+                 auditor=None, slo_tracker=None):
+    """The HTTP gateway as the JAX binary's asyncio door builds it: its
+    decisions through the door's batcher, /healthz from the blocks
+    above, the levers and debug routes behind their flags."""
+    from ratelimiter_tpu_torch.observability import metrics
+    from ratelimiter_tpu_torch.serving.http_gateway import HttpGateway
+
+    def health() -> dict:
+        return {"serving": True,
+                "decisions_total": server.batcher.decisions_total,
+                "policy_overrides": limiter.override_count(),
+                "transport": server.transport_stats(),
+                "member": member_info(),
+                **_envelope_health([limiter]),
+                **_debt_slab_health([limiter]),
+                **_consumers_health([limiter]),
+                **_audit_health(),
+                **_slo_health(slo_tracker),
+                **_hierarchy_health(hier, controller),
+                **_events_health(),
+                **(persist.status() if persist is not None else {})}
+
+    return HttpGateway(
+        make_threadsafe_decide(server.batcher, loop), limiter.reset,
+        host=args.host, port=args.http_port,
+        metrics_render=metrics.DEFAULT.render,
+        health=health,
+        enable_reset=bool(args.http_reset or args.http_reset_token),
+        reset_token=args.http_reset_token,
+        policy_set=limiter.set_override,
+        policy_get=limiter.get_override,
+        policy_delete=limiter.delete_override,
+        enable_policy=bool(args.http_policy or args.http_policy_token),
+        policy_token=args.http_policy_token,
+        snapshot=(persist.snapshot_now if persist is not None else None),
+        snapshot_token=args.http_snapshot_token,
+        enable_debug=bool(args.debug_trace or args.debug_token),
+        debug_token=args.debug_token,
+        audit_status=(make_audit_status(auditor, slo_tracker, [limiter])
+                      if args.audit else None),
+        audit_token=args.audit_token,
+        tenants=hier,
+        enable_tenants=bool(args.http_tenants or args.http_tenants_token),
+        tenants_token=args.http_tenants_token)
 
 
 def build_limiter_stack(limiter, args, registry=None):
@@ -407,11 +764,22 @@ def prewarm(limiter) -> float:
     return time.perf_counter() - t
 
 
-async def _serve(args: argparse.Namespace) -> None:
+async def serve(args: argparse.Namespace, *, make_limiter=None,
+                ready=None, stop=None) -> None:
+    """The binary's service, start to graceful stop. ``make_limiter(cfg)``
+    builds the backend limiter instead of ``create_limiter`` (a
+    caller's recording proxy); ``ready``, an asyncio future, is given the
+    running pieces (``limiter``, ``server``, ``gateway``, ``auditor``,
+    ``slo``, ``hier``, ``controller``, ``persist``, ``member_info``) once
+    the door and the
+    gateway listen; ``stop``, an asyncio event, ends the service instead
+    of SIGINT/SIGTERM."""
     logging.basicConfig(level=args.log_level.upper())
     enable_observability(args)
     cfg = build_config(args)
-    limiter = create_limiter(cfg, backend=args.backend, device=args.device)
+    limiter = (make_limiter(cfg) if make_limiter is not None
+               else create_limiter(cfg, backend=args.backend,
+                                   device=args.device))
     built_s = prewarm(limiter)
     limiter = build_limiter_stack(limiter, args)
     persist = None
@@ -429,7 +797,13 @@ async def _serve(args: argparse.Namespace) -> None:
         print(f"recovered: {report.summary()} in "
               f"{time.perf_counter() - t:.3f} s", flush=True)
         persist.start()
-    _, controller = setup_hierarchy(args, cfg, [limiter])
+    # The observatory goes in before the door listens, so the first
+    # decision can already be mirrored.
+    auditor, slo_tracker = setup_audit(args, cfg, limiter)
+    member_info, member_collect = make_member_info(args)
+    hier, controller = setup_hierarchy(args, cfg, [limiter],
+                                       slo_tracker=slo_tracker,
+                                       auditor=auditor)
     server = RateLimitServer(
         limiter, args.host, args.port, max_batch=args.max_batch,
         max_delay=args.max_delay_us * 1e-6,
@@ -439,29 +813,56 @@ async def _serve(args: argparse.Namespace) -> None:
         snapshot=persist.snapshot_now if persist is not None else None,
         max_window=max_window(args, cfg))
     await server.start()
+    loop = asyncio.get_running_loop()
+    gateway = None
+    if args.http_port is not None:
+        gateway = make_gateway(args, limiter, server, loop,
+                               member_info=member_info, persist=persist,
+                               hier=hier, controller=controller,
+                               auditor=auditor, slo_tracker=slo_tracker)
+        gateway.start()
     if controller is not None:
         controller.start()
-    stop = asyncio.Event()
-    loop = asyncio.get_running_loop()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        loop.add_signal_handler(sig, stop.set)
+    if stop is None:
+        stop = asyncio.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
     print(f"serving {args.algorithm}/{args.backend} "
           f"limit={limiter.config.limit}/{limiter.config.window:g}s "
           f"on {args.host}:{server.port} "
           f"device={getattr(limiter, 'device', 'host')} "
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
-          f"inflight={args.inflight} (built in {built_s:.1f} s)",
+          f"inflight={args.inflight} (built in {built_s:.1f} s)"
+          + (f" http:{gateway.port}" if gateway is not None else ""),
           flush=True)
+    if ready is not None:
+        ready.set_result(SimpleNamespace(
+            limiter=limiter, server=server, gateway=gateway,
+            auditor=auditor, slo=slo_tracker, hier=hier,
+            controller=controller, persist=persist,
+            member_info=member_info))
     try:
         await stop.wait()
     finally:
         if controller is not None:
             controller.stop()
+        if gateway is not None:
+            gateway.shutdown()
         await server.shutdown()
         if persist is not None:
             # After the drain, before close: the final snapshot captures
             # every answered decision — a graceful shutdown loses nothing.
             persist.stop()
+        if auditor is not None:
+            from ratelimiter_tpu_torch.observability import audit
+
+            auditor.flush(timeout=2.0)
+            audit.disable()
+        if slo_tracker is not None:
+            slo_tracker.detach()
+        from ratelimiter_tpu_torch.observability import metrics
+
+        metrics.DEFAULT.remove_collect_hook(member_collect)
         limiter.close()
         from ratelimiter_tpu_torch.observability import events
 
@@ -469,7 +870,7 @@ async def _serve(args: argparse.Namespace) -> None:
 
 
 def main(argv=None) -> None:
-    asyncio.run(_serve(parse_args(argv)))
+    asyncio.run(serve(parse_args(argv)))
 
 
 if __name__ == "__main__":

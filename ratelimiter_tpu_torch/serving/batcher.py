@@ -46,8 +46,15 @@ window slot, its ``launch``, its ``device`` wait on the ticket and its
 ``resolve`` tail, under the window's first sampled trace id, which is
 also the thread's current trace id around launch.
 
-Not ported from the JAX batcher: the fleet forward lane and its pool,
-and the audit tap.
+Audit tap (observability/audit.py; off unless an auditor is enabled,
+and then one None check per resolved window): each window's decisions
+are offered to the shadow auditor with the launch-time ``now`` its step
+decided with (``ticket.t_sec``; the clock at dispatch entry on a
+non-pipelined batcher), hashed windows as raw ids, string windows as
+keys. A window the SLO answered is still tapped once its shielded launch
+lands, so the shadow timelines keep the mass it consumed.
+
+Not ported from the JAX batcher: the fleet forward lane and its pool.
 """
 
 from __future__ import annotations
@@ -76,9 +83,25 @@ from ratelimiter_tpu_torch.core.types import (
     batch_fail_open,
     fail_open_result,
 )
+from ratelimiter_tpu_torch.observability import audit
 from ratelimiter_tpu_torch.observability import metrics as m
 from ratelimiter_tpu_torch.observability import tracing
 from ratelimiter_tpu_torch.observability.decorators import undecorated
+
+
+def _tap_late(work, offer: str, data, ns, t_sec: float) -> None:
+    """A window the SLO answered still consumes its sketch mass when its
+    shielded launch lands: offer that result to the auditor then (by its
+    ``offer`` method), stamped ``t_sec``, so audited keys' shadow
+    timelines keep no holes that would read as false denies later."""
+    def tap(f) -> None:
+        if f.cancelled() or f.exception() is not None:
+            return
+        aud = audit.AUDITOR
+        if aud is not None:
+            getattr(aud, offer)(data, ns, t_sec, f.result())
+
+    work.add_done_callback(tap)
 
 
 class MicroBatcher:
@@ -342,6 +365,13 @@ class MicroBatcher:
         self._arm_timer(loop)
         return futs
 
+    async def submit(self, key: str, n: int = 1, *,
+                     trace_id: int = 0, deadline: float = 0.0):
+        """Queue one decision; resolves when its window's dispatch lands
+        (the coroutine the thread-safe bridge of the HTTP gateway runs
+        on the loop)."""
+        return await self.submit_nowait(key, n, trace_id, deadline)
+
     # ------------------------------------------------- hashed bulk lane
 
     def submit_hashed_nowait(self, ids: np.ndarray, ns: np.ndarray,
@@ -507,6 +537,11 @@ class MicroBatcher:
         self._dispatch_batch.observe(float(b))
         loop = asyncio.get_running_loop()
         t_q = tracing.now() if tracing.RECORDER is not None else 0
+        # Audit timestamp fallback, taken at dispatch entry (a pipelined
+        # ticket's launch-time t_sec is preferred below).
+        t_tap = (self.limiter.clock.now() if audit.AUDITOR is not None
+                 else 0.0)
+        ticket = None
         t0 = time.perf_counter()
         if self._pipelined and self._hashed_lane:
             try:
@@ -529,6 +564,7 @@ class MicroBatcher:
             if not fut.done():
                 fut.set_exception(exc)
             return
+        t_dec = getattr(ticket, "t_sec", 0.0) or t_tap
         if timed_out:
             # SLO breach: answer now per fail-open/closed.
             cfg = self.limiter.config
@@ -539,8 +575,15 @@ class MicroBatcher:
                 self.decisions_total += b
             elif not fut.done():
                 fut.set_exception(self._breach_error())
+            _tap_late(work, "offer_ids", ids, ns, t_dec)
             return
         self.decisions_total += b
+        # Live accuracy tap: one None check when auditing is off, one
+        # bounded-queue append of the window's arrays when on (sampling
+        # and hashing run on the audit worker).
+        aud = audit.AUDITOR
+        if aud is not None:
+            aud.offer_ids(ids, ns, t_dec, out)
         if not fut.done():
             fut.set_result(out)
 
@@ -703,6 +746,9 @@ class MicroBatcher:
         self._dispatch_batch.observe(float(len(batch)))
         loop = asyncio.get_running_loop()
         t_q = tracing.now() if tracing.RECORDER is not None else 0
+        t_tap = (self.limiter.clock.now() if audit.AUDITOR is not None
+                 else 0.0)
+        ticket = None
         t0 = time.perf_counter()
         if self._pipelined:
             # Launch/resolve split: the launch executor stages and
@@ -732,6 +778,7 @@ class MicroBatcher:
                 if not fut.done():
                     fut.set_exception(exc)
             return
+        t_dec = getattr(ticket, "t_sec", 0.0) or t_tap
         if timed_out:
             cfg = self.limiter.config
             if cfg.fail_open:
@@ -745,8 +792,14 @@ class MicroBatcher:
                 for _, _, fut, _ in batch:
                     if not fut.done():
                         fut.set_exception(err)
+            _tap_late(work, "offer_keys", keys, ns, t_dec)
             return
         self.decisions_total += len(batch)
+        # String windows are tapped before the per-request split (the
+        # worker hashes them with the limiter's prefix rule).
+        aud = audit.AUDITOR
+        if aud is not None:
+            aud.offer_keys(keys, ns, t_dec, out)
         for i, (_, _, fut, _) in enumerate(batch):
             if not fut.done():
                 fut.set_result(out.result(i))

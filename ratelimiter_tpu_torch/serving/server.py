@@ -31,9 +31,17 @@ budget, anchored to the frame's arrival, lets the batcher shed the
 frame once it expires. RESET and the policy mutations are journaled
 (observability/events.py, ``actor="binary"``, keys as ``key_token``s).
 Frames carrying the JAX protocol's forward hint are answered with
-E_INVALID_CONFIG. HTTP, gRPC, the shared-memory lane, the native door,
-leases and the fleet are not ported (ROADMAP A13, A8); neither are the
-JAX door's audit events.
+E_INVALID_CONFIG. Every decision the door serves goes through the
+batcher, whose audit tap mirrors it to the shadow auditor when one is
+enabled (serving/batcher.py), as in the JAX asyncio door.
+``transport_stats()`` and the transport gauges it feeds at scrape time
+(``rate_limiter_transport_connections``, the shared-memory lane's and
+``rate_limiter_net_writev_frames``) are the JAX door's: the port has TCP
+only, so the UDS and shared-memory counts are what the JAX door shows
+with no such connection open, zero. gRPC, the
+shared-memory lane, the native door, leases and the fleet are not ported
+(ROADMAP A13c, A13d, A8); the HTTP gateway runs beside the door in the
+binary (serving/http_gateway.py, serving/__main__.py).
 """
 
 from __future__ import annotations
@@ -84,6 +92,12 @@ class RateLimitServer:
         self._started_at = time.time()
         self._serving = False
         self._conn_tasks: set = set()
+        #: Connections accepted per transport (cumulative), the JAX
+        #: door's keys; only TCP is served here.
+        self._transport_conns = {"tcp": 0, "uds": 0, "shm": 0}
+        #: Hashed and batch replies flushed as several buffers (the JAX
+        #: door's rate_limiter_net_writev_frames).
+        self._writev_frames = 0
 
     # ----------------------------------------------------------- lifecycle
 
@@ -93,6 +107,7 @@ class RateLimitServer:
         self.port = self._server.sockets[0].getsockname()[1]
         self._started_at = time.time()
         self._serving = True
+        self.registry.add_collect_hook(self._collect_transport_metrics)
 
     async def shutdown(self) -> None:
         """Graceful: stop accepting, answer what is in flight (drain the
@@ -106,11 +121,72 @@ class RateLimitServer:
             t.cancel()
         await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
         self.batcher.close()
+        self.registry.remove_collect_hook(self._collect_transport_metrics)
 
     async def serve_forever(self) -> None:
         if self._server is None:
             await self.start()
         await self._server.serve_forever()
+
+    def transport_stats(self) -> dict:
+        """Per-transport counters and the shared-memory lane's gauges in
+        the JAX door's shape; the lane is not ported, so its block is the
+        JAX door's with no lane open. Never called from the decide path
+        (the registry's collect hook and /healthz read it)."""
+        return {
+            "connections": dict(self._transport_conns),
+            "shm": {"lanes_active": 0,
+                    "req_ring_used_bytes": 0, "rep_ring_used_bytes": 0,
+                    "req_ring_highwater_bytes": 0,
+                    "rep_ring_highwater_bytes": 0,
+                    "doorbell_wakes": 0, "spin_hits": 0,
+                    "ring_full_stalls": 0, "records_in": 0,
+                    "records_out": 0},
+        }
+
+    def _collect_transport_metrics(self) -> None:
+        st = self.transport_stats()
+        g = self.registry.gauge(
+            "rate_limiter_transport_connections",
+            "Connections accepted per transport (cumulative)")
+        for k, v in st["connections"].items():
+            g.set(v, transport=k)
+        sh = st["shm"]
+        self.registry.gauge(
+            "rate_limiter_shm_lanes_active",
+            "Live shared-memory lanes (ADR-025)").set(sh["lanes_active"])
+        self.registry.gauge(
+            "rate_limiter_shm_doorbell_wakes",
+            "eventfd wakeups taken by shm ring consumers").set(
+                sh["doorbell_wakes"])
+        self.registry.gauge(
+            "rate_limiter_shm_spin_hits",
+            "shm records claimed during the bounded spin (no syscall)"
+        ).set(sh["spin_hits"])
+        self.registry.gauge(
+            "rate_limiter_shm_ring_full_stalls",
+            "shm ring-full backpressure stalls").set(
+                sh["ring_full_stalls"])
+        rg = self.registry.gauge(
+            "rate_limiter_shm_records",
+            "Frames carried over shm rings, by direction")
+        rg.set(sh["records_in"], direction="in")
+        rg.set(sh["records_out"], direction="out")
+        ug = self.registry.gauge(
+            "rate_limiter_shm_ring_used_bytes",
+            "Current shm ring occupancy, summed over lanes")
+        ug.set(sh["req_ring_used_bytes"], ring="req")
+        ug.set(sh["rep_ring_used_bytes"], ring="rep")
+        hg = self.registry.gauge(
+            "rate_limiter_shm_ring_highwater_bytes",
+            "High-water shm ring occupancy across lanes")
+        hg.set(sh["req_ring_highwater_bytes"], ring="req")
+        hg.set(sh["rep_ring_highwater_bytes"], ring="rep")
+        self.registry.gauge(
+            "rate_limiter_net_writev_frames",
+            "Reply frames flushed through a vectored write "
+            "(writev/writelines batch factor)").set(
+                self._writev_frames)
 
     # ---------------------------------------------------------- connection
 
@@ -120,6 +196,7 @@ class RateLimitServer:
         req_tasks: set = set()
         task = asyncio.current_task()
         self._conn_tasks.add(task)
+        self._transport_conns["tcp"] += 1
 
         def check_backpressure() -> None:
             transport = writer.transport
@@ -129,13 +206,17 @@ class RateLimitServer:
                     transport.get_write_buffer_size())
                 transport.abort()
 
-        def write_vec(bufs) -> None:
+        def write_vec(bufs, vec: bool = False) -> None:
             # Done-callback writer: never blocks the loop; broken pipes
             # surface in the reader loop, which owns teardown. Callbacks
             # cannot await drain(), so a client that pipelines but reads
-            # slowly is cut off past WRITE_BUFFER_LIMIT instead.
+            # slowly is cut off past WRITE_BUFFER_LIMIT instead. ``vec``
+            # marks the frames the JAX door writes vectored (hashed and
+            # batch results), which its writev counter counts.
             try:
                 writer.writelines(bufs)
+                if vec:
+                    self._writev_frames += 1
                 check_backpressure()
             except (ConnectionResetError, BrokenPipeError, RuntimeError):
                 pass
@@ -161,7 +242,7 @@ class RateLimitServer:
             rec = tracing.RECORDER
             t0 = tracing.now() if rec is not None else 0
             res = fut.result()
-            write_vec(p.encode_result_hashed_views(req_id, res))
+            write_vec(p.encode_result_hashed_views(req_id, res), vec=True)
             if rec is not None:
                 rec.record("encode", t0, tracing.now(), trace_id=trace_id,
                            batch=len(res))
@@ -176,7 +257,7 @@ class RateLimitServer:
             t0 = tracing.now() if rec is not None else 0
             results = agg.result()
             write_vec(p.encode_result_batch_views(
-                req_id, self.limiter.config.limit, results))
+                req_id, self.limiter.config.limit, results), vec=True)
             if rec is not None:
                 rec.record("encode", t0, tracing.now(), trace_id=trace_id,
                            batch=len(results))

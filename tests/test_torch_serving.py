@@ -510,7 +510,9 @@ for name in ("checkpoint", "observability.decorators",
              "algorithms.exact", "algorithms.dense", "ops.dense_kernels",
              "ops.dense_cuda", "evaluation", "evaluation.accuracy",
              "evaluation.compare", "evaluation.loadgen",
-             "evaluation.oracle_device", "evaluation.scenarios"):
+             "evaluation.oracle_device", "evaluation.scenarios",
+             "observability.audit", "observability.slo",
+             "serving.http_gateway"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
@@ -525,7 +527,7 @@ print(len(names), bad)
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 37
+    assert int(count) >= 40
     assert bad.strip() == "[]"
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
 
@@ -735,8 +737,13 @@ def _jax_config(args):
      "--breaker-cooldown", "2.5", "--log-decisions", "--log-redact-keys",
      "--no-metrics", "--flight-recorder", "--flight-recorder-capacity",
      "1024", "--no-event-journal", "--event-journal-capacity", "512",
-     "--event-journal-dir", "/var/lib/rl/events", "--log-level", "debug"]],
-    ids=["service", "sketch", "tenants", "observability"])
+     "--event-journal-dir", "/var/lib/rl/events", "--log-level", "debug"],
+    ["--http-port", "8080", "--http-reset", "--http-reset-token", "rt",
+     "--http-policy", "--http-policy-token", "pt", "--http-snapshot-token",
+     "st", "--http-tenants", "--http-tenants-token", "tt", "--debug-trace",
+     "--debug-token", "dt", "--audit", "--audit-sample", "8",
+     "--audit-token", "at", "--audit-twin"]],
+    ids=["service", "sketch", "tenants", "observability", "http-audit"])
 def test_shared_flags_give_the_jax_binarys_config(extra):
     """The deployment's command line (its options that the port's binary
     has: --sketch-depth 4 --sketch-width 65536 and the rest of
@@ -744,7 +751,9 @@ def test_shared_flags_give_the_jax_binarys_config(extra):
     parses in both binaries to equal Configs: the same fingerprint (every
     semantic field) and the same persistence and hierarchy specs; the
     observability flags (the decorator stack, the flight recorder, the
-    event journal, the log level) to equal values, their defaults too."""
+    event journal, the log level) and the HTTP gateway's and auditor's
+    (``--http-*``, ``--debug-*``, ``--audit*``) to equal values, their
+    defaults too."""
     from dataclasses import asdict
 
     from ratelimiter_tpu.checkpoint import config_fingerprint as jfp
@@ -772,7 +781,11 @@ def test_shared_flags_give_the_jax_binarys_config(extra):
                      "no_metrics", "flight_recorder",
                      "flight_recorder_capacity", "no_event_journal",
                      "event_journal_capacity", "event_journal_dir",
-                     "log_level")
+                     "log_level", "http_port", "http_reset",
+                     "http_reset_token", "http_policy", "http_policy_token",
+                     "http_snapshot_token", "http_tenants",
+                     "http_tenants_token", "debug_trace", "debug_token",
+                     "audit", "audit_sample", "audit_token", "audit_twin")
     assert ({k: getattr(args, k) for k in observability}
             == {k: getattr(jargs, k) for k in observability})
     assert (cfg.sketch.depth, cfg.sketch.width) == (4, 65536)
