@@ -6,6 +6,7 @@
     python3 chip_smoke.py --admit-sweep   # time the admission routine's shapes
     python3 chip_smoke.py --dense    # the dense/exact backends, the evaluation path
     python3 chip_smoke.py --gateway  # the HTTP gateway, the auditor and its twin
+    python3 chip_smoke.py --native   # the C++ door, its lanes, the load generator
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -201,15 +202,17 @@ Phases (each raises on failure; the script exits non-zero):
    kernels by name; the top 10 device ops and the host ms a batch in
    each range are printed; (g) ``time_door`` on windowed CU and TB-c2,
    bare (``--no-metrics --no-event-journal``), default and full stack in
-   turns, 3 rounds: decisions/s and p50/p99 a round, the flight
-   recorder's split by stage, printed (nothing is gated on them);
+   turns, one round in the whole run (three under ``--observe``):
+   decisions/s and p50/p99 a round, the flight recorder's split by
+   stage, printed (nothing is gated on them);
    gateway. the HTTP gateway, the shadow auditor and the SLO tracker
    (``run_gateway``; ``--gateway`` runs it alone with the twin's kernel
    rows): the binary's own ``serve`` in-process (``in_process_binary``)
    with ``--http-port``, every lever and its token, ``--flight-recorder``
    and ``--audit --audit-sample 1 --audit-twin`` over a recording proxy,
    on config 3 with ``--hh-slots 256`` and on TB-c2 (``check_gateway``):
-   (a) 8 connections x 48 binary frames (phase 4's traffic) and 8 HTTP
+   (a) 8 connections x 24 binary frames in the whole run (x 48,
+   phase 4's traffic, under ``--gateway``) and 8 HTTP
    client threads x 40 /v1/allow requests (``gateway_client``, a child
    process: each thread its own keys, some in X-User-ID, with a
    traceparent or a deadline budget) at once, every binary frame and
@@ -238,6 +241,30 @@ Phases (each raises on failure; the script exits non-zero):
    --audit-sample 1`` in turns, 3 rounds, with the auditor's audited and
    dropped frames and its seconds to flush; /v1/allow requests/s and
    p50/p99 at 8 and 32 client threads;
+   native. the native C++ door (``run_native``; ``--native`` runs it
+   alone): (a) ``NativeRateLimitServer`` on the card over config 3's
+   windowed CU limiter behind the recording proxy and the default stack,
+   8 connections of the port's AsyncClient x 48 frames pipelined 8 deep
+   (in a child process), over TCP, a unix socket and the shared-memory
+   lane, then two dispatch shards on the one card over the lane, then
+   TB-c2 over TCP (``check_native_door``): every frame bit-identical to
+   CPU replays of each shard's recorded windows (the door launches
+   finalized hashes, the front's hashed form), each shard's final state
+   to its replay's, one ``window_estimate``, ``admit`` and ``cu_update``
+   a window and one ``window_reset`` a reset (TB-c2: one
+   ``bucket_estimate`` a window and a reset, as many admissions as
+   updates), one dispatch a window on METRICS, every decision on HEALTH;
+   (b) ``python -m ratelimiter_tpu_torch.serving --native --shards 2
+   --http-port 0 --audit --audit-sample 1 --snapshot-dir D`` as a child
+   process (``check_native_binary``): binary and /v1/allow answers equal
+   to CPU limiters of its two shards, the audit block, two resets around
+   a snapshot, SIGKILL, the restart replaying the second onto its shard;
+   (c) the port's C++ load generator (``native/loadgen.cpp``, built with
+   g++) against the native door with 1 and 2 shards and the asyncio door
+   in turns, one round in the whole run (three under ``--native``),
+   hashed and batch frames over TCP and (the native door) the lane:
+   decisions/s and RTT p50/p99 with the net engine that ran, printed
+   (nothing is gated on them);
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -311,6 +338,10 @@ checkout's door in the same call.
 ``--gateway`` builds, then holds and times the twin's kernels and runs
 phase gateway alone, printing its results as one JSON line before the
 card's line.
+
+``--native`` builds (the kernels, the native door and the load generator),
+then runs phase native alone and prints its results as one JSON line
+before the card's line.
 
 ``--observe`` builds, then runs phase observe alone and prints its
 results as one JSON line before the card's line.
@@ -3243,6 +3274,14 @@ class RecordingLimiter:
             self.log.append(("keys", list(keys), list(ns), now))
         return ticket
 
+    def launch_hashed(self, h64, ns=None, *, now=None):
+        """The native door's launches: finalized hashes (both lanes)."""
+        with self._lock:
+            now = self._now()
+            ticket = self._timed(self.inner.launch_hashed, h64, ns, now=now)
+            self.log.append(("hashed", np.array(h64), np.array(ns), now))
+        return ticket
+
     def reset(self, key: str) -> None:
         with self._lock:
             now = self._now()
@@ -3428,6 +3467,8 @@ def replay_windows(cfg, log: list, setup=None):
                                                    wire=True)))
         elif kind == "keys":
             outs.append(cpu.resolve(cpu.launch_batch(a, ns, now=now)))
+        elif kind == "hashed":
+            outs.append(cpu.resolve(cpu.launch_hashed(a, ns, now=now)))
         else:
             cpu.reset(a)
             outs.append(None)
@@ -3529,8 +3570,9 @@ class door_stack:
     ``python -m ratelimiter_tpu_torch.serving`` sets up from its
     observability ``flags`` — the flight recorder and the event journal
     (``enable_observability``, both in a fresh registry, turned off
-    again on exit) and ``wrap(limiter)``, its decorator stack
-    (``build_limiter_stack``) registering there too."""
+    again on exit) and ``wrap(limiter, shard=0)``, its decorator stack
+    (``build_limiter_stack``, its gauges under the shard's label)
+    registering there too."""
 
     def __init__(self, flags=DEFAULT_STACK):
         from ratelimiter_tpu_torch.serving.__main__ import parse_args
@@ -3546,8 +3588,8 @@ class door_stack:
 
         registry = Registry()
         enable_observability(self.args, registry)
-        return (lambda lim: build_limiter_stack(lim, self.args,
-                                                registry=registry),
+        return (lambda lim, shard=0: build_limiter_stack(
+                    lim, self.args, registry=registry, shard=shard),
                 registry)
 
     def __exit__(self, *exc):
@@ -4155,8 +4197,11 @@ class ServerProcess:
             if line.startswith("recovered:"):
                 self.recovered = line.strip()
             if line.startswith("serving"):
-                self.port = int(line.split(" on ")[1].split()[0]
-                                .rsplit(":", 1)[1])
+                addr = line.split(" on ")[1].split()[0]
+                # A unix-socket door (--listen unix:PATH) has no port.
+                self.listen = addr if addr.startswith("unix:") else None
+                self.port = (None if self.listen
+                             else int(addr.rsplit(":", 1)[1]))
                 self.http = (int(line.rsplit(" http:", 1)[1])
                              if " http:" in line else None)
                 return
@@ -4376,9 +4421,9 @@ def check_durable_door(cfg, *, device: str = "cuda", seed: int = 0,
     mgr.wal.close()
     lim.close()
 
-    geo = ["--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
-           str(cfg.sketch.width), "--sub-windows",
-           str(cfg.sketch.sub_windows), "--device", device,
+    geo = ["--algorithm", cfg.algorithm.value, "--sketch-depth",
+           str(cfg.sketch.depth), "--sketch-width", str(cfg.sketch.width),
+           "--sub-windows", str(cfg.sketch.sub_windows), "--device", device,
            "--snapshot-dir", d, "--snapshot-interval", "3600",
            "--wal-fsync", "always"]
     servers = []
@@ -4586,7 +4631,8 @@ def check_tenant_durable_door(cfg, *, device: str = "cuda",
     cfg = with_tenants(cfg)
     root = tempfile.mkdtemp(prefix="tenant-door-")
     d, copy = os.path.join(root, "live"), os.path.join(root, "copy")
-    flags = ["--limit", str(cfg.limit), "--window", str(cfg.window),
+    flags = ["--algorithm", cfg.algorithm.value, "--limit", str(cfg.limit),
+             "--window", str(cfg.window),
              "--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
              str(cfg.sketch.width), "--sub-windows",
              str(cfg.sketch.sub_windows), "--device", device,
@@ -6149,7 +6195,8 @@ def check_journal_door(cfg, *, device: str = "cuda") -> dict:
     from ratelimiter_tpu_torch.ops.hashing import key_token
     from ratelimiter_tpu_torch.serving import protocol as p
 
-    geometry = ["--limit", str(cfg.limit), "--window", str(cfg.window),
+    geometry = ["--algorithm", cfg.algorithm.value, "--limit",
+                str(cfg.limit), "--window", str(cfg.window),
                 "--sketch-depth", str(cfg.sketch.depth), "--sketch-width",
                 str(cfg.sketch.width), "--sub-windows",
                 str(cfg.sketch.sub_windows), "--device", device]
@@ -6486,8 +6533,10 @@ def check_observe_doors(torch, seed: int = 0, reuse=None) -> dict:
     return out
 
 
-def run_observe(torch, seed: int = 0, reuse=None) -> dict:
-    """Phase observe: (a)-(g) on the card."""
+def run_observe(torch, seed: int = 0, reuse=None,
+                rounds: int = 3) -> dict:
+    """Phase observe: (a)-(g) on the card, (g) over ``rounds`` rounds
+    (one in the whole run, three under ``--observe``)."""
     from ratelimiter_tpu_torch.ops import sketch_cuda
 
     t = time.perf_counter()
@@ -6498,7 +6547,7 @@ def run_observe(torch, seed: int = 0, reuse=None) -> dict:
     out["journal"] = check_journal_door(config3())
     out["breaker"] = check_breaker(seed=seed)
     out["capture"] = check_capture(seed=seed)
-    out["readings"] = observe_readings(seed)
+    out["readings"] = observe_readings(seed, rounds=rounds)
     out["seconds"] = time.perf_counter() - t
     log(f"phase observe on {card_line()}: {out['seconds']:.1f} s")
     return out
@@ -7551,23 +7600,29 @@ def check_binary_profile(device: str = "cuda") -> dict:
 
 def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
     """Phase gateway: (a)-(e) on windowed CU with the side table (config
-    3, ``--hh-slots 256``) and on TB-c2, (c), (d) and (f) on the tenant
-    and durable binaries, (e) on the binary as a child process, then the
-    readings: the door's, one round, in the whole run; ``alone``
+    3, ``--hh-slots 256``) and on TB-c2 (8 x 24 binary frames a cell in
+    the whole run, 8 x 48 under ``--gateway``), (c), (d) and (f) on the
+    tenant and durable binaries, (e) on the binary as a child process,
+    then the readings: the door's, one round, in the whole run; ``alone``
     (``--gateway``) takes three, splits the auditor's cost and times
     /v1/allow."""
     from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
 
     t = time.perf_counter()
+    # The whole run checks 8 x 24 frames a cell (its time limit is
+    # shared with every later phase), ``--gateway`` 8 x 48.
+    frames = DOOR_FRAMES if alone else DOOR_FRAMES // 2
     out = {"windowed": check_gateway(
         torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
-        seed=seed + 89, counters=[sketch_cuda], front="window_estimate",
+        seed=seed + 89, frames=frames, counters=[sketch_cuda],
+        front="window_estimate",
         update="cu_update", required=("window_estimate", "admit",
                                       "cu_update", "hh_update [fused]",
                                       "window_reset"))}
     out["TB-c2"] = check_gateway(
         torch, config2_bucket(), "TB-c2", seed=seed + 97, space="c2",
-        ns=(1, 4, 9), counters=[bucket_cuda], front="bucket_estimate",
+        frames=frames, ns=(1, 4, 9), counters=[bucket_cuda],
+        front="bucket_estimate",
         update="bucket_update", front_per_reset=1,
         required=("bucket_estimate", "admit", "bucket_update"))
     out["tenants"] = check_gateway_tenants(torch, config3(), seed=seed)
@@ -7578,6 +7633,643 @@ def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
     out["seconds"] = time.perf_counter() - t
     log(f"phase gateway on {card_line()}: {out['seconds']:.1f} s")
     return out
+
+
+# ------------------------------------------ phase native: the C++ door
+
+NATIVE_TRANSPORTS = ("tcp", "uds", "shm")
+
+
+async def _native_conn(host: str, port: int, transport: str, c: int,
+                       frames: int, n_ids: int, n_keys: int, depth: int,
+                       space: str, seed: int):
+    """One connection of the port's AsyncClient over ``transport``:
+    ``frames`` decision frames pipelined (at most ``depth`` unanswered),
+    the door's traffic of ``_door_conn`` (connection 0 also resets a key
+    halfway)."""
+    from ratelimiter_tpu_torch.serving.client import AsyncClient
+
+    rng = np.random.default_rng(seed * 1000 + c)
+    client = await AsyncClient.connect(host, port, transport=transport,
+                                       retries=0)
+    window = asyncio.Semaphore(depth)
+    out = {"hashed": [], "strings": [], "latency": [], "errors": []}
+
+    async def one(kind, payload):
+        t0 = time.perf_counter()
+        try:
+            if kind == "hashed":
+                res = await client.allow_hashed(payload)
+            elif kind == "strings":
+                res = await client.allow_batch(payload)
+            else:
+                await client.reset(payload)
+                return
+        except Exception as exc:  # noqa: BLE001 — reported, then failed
+            out["errors"].append(repr(exc))
+            return
+        finally:
+            window.release()
+        out["latency"].append(time.perf_counter() - t0)
+        if kind == "hashed":
+            out["hashed"].append((payload, np.array(res.allowed),
+                                  np.array(res.remaining),
+                                  np.array(res.retry_after),
+                                  np.array(res.reset_at), res.fail_open))
+        else:
+            out["strings"].append((payload, [
+                (r.allowed, r.remaining, r.retry_after, r.reset_at,
+                 r.fail_open) for r in res]))
+
+    tasks = []
+    for i in range(frames):
+        await window.acquire()
+        if i % DOOR_STRING_EVERY == DOOR_STRING_EVERY - 1:
+            tasks.append(asyncio.ensure_future(
+                one("strings", door_keys(rng, space, n_keys))))
+        else:
+            tasks.append(asyncio.ensure_future(
+                one("hashed", zipf_ids(rng, n_ids))))
+        if c == 0 and i == frames // 2:
+            await window.acquire()
+            tasks.append(asyncio.ensure_future(
+                one("reset", door_keys(rng, space, 1)[0])))
+    await asyncio.gather(*tasks)
+    await client.close()
+    return out
+
+
+async def _native_clients(host: str, port: int, transport: str, conns: int,
+                          frames: int, n_ids: int, n_keys: int, depth: int,
+                          space: str, seed: int):
+    from ratelimiter_tpu_torch.serving.client import AsyncClient
+
+    t, cpu = time.perf_counter(), time.process_time()
+    outs = await asyncio.gather(*(
+        _native_conn(host, port, transport, c, frames, n_ids, n_keys,
+                     depth, space, seed) for c in range(conns)))
+    wall, cpu = time.perf_counter() - t, time.process_time() - cpu
+    client = await AsyncClient.connect(host, port, transport=transport)
+    health, metrics = await client.health(), await client.metrics()
+    await client.close()
+    return {"conns": outs, "wall_s": wall, "client_cpu_s": cpu,
+            "health": health, "metrics": metrics}
+
+
+def native_door_client() -> None:
+    """The native door's client, run in a child process
+    (``serve_native_door``): JSON arguments on stdin, ``conns``
+    connections of the port's AsyncClient over TCP, a unix socket or the
+    shared-memory lane, then HEALTH and METRICS; what it read goes
+    pickled to stdout."""
+    args = json.loads(sys.stdin.read())
+    got = asyncio.run(_native_clients(**args))
+    sys.stdout.buffer.write(pickle.dumps(got))
+    sys.stdout.flush()
+
+
+def serve_native_door(limiters, *, seed: int, space: str, conns: int,
+                      frames: int, n_ids: int, n_keys: int, depth: int,
+                      transport: str = "tcp", counters=(),
+                      flags=DEFAULT_STACK, server_kw=None):
+    """The port's native door (``NativeRateLimitServer``) with one
+    dispatch shard a limiter of ``limiters``, each wrapped as the binary
+    wraps it (``door_stack``, shard ``i``'s label), the batcher at the
+    binary's defaults (``server_kw`` overrides them), listening on TCP, a
+    unix socket (``transport`` "uds") or TCP with the shared-memory lane
+    ("shm"), driven by
+    ``native_door_client`` in a child process; the launch counts of
+    ``counters`` are set to 0 once it listens. Returns (what the client
+    read plus the door's ``stats()`` and the server's CPU seconds, the
+    stopped door)."""
+    import os
+    import shutil
+    import tempfile
+
+    from ratelimiter_tpu_torch.serving.native_server import (
+        NativeRateLimitServer,
+    )
+
+    d = tempfile.mkdtemp(prefix="native-door-")
+    host = f"unix:{d}/door.sock" if transport == "uds" else "127.0.0.1"
+    with door_stack(flags) as (wrap, registry):
+        shard_lims = [wrap(lim, i) for i, lim in enumerate(limiters)]
+        srv = NativeRateLimitServer(shard_lims[0], host, 0,
+                                    registry=registry,
+                                    shard_limiters=shard_lims,
+                                    shm=transport == "shm", shm_dir=d,
+                                    **(server_kw or {}))
+        srv.start()
+        try:
+            for mod in counters:
+                mod.reset_launch_counts()
+            cpu = time.process_time()
+            got = _run_door_client(
+                {"host": host, "port": srv.port, "transport": transport,
+                 "conns": conns, "frames": frames, "n_ids": n_ids,
+                 "n_keys": n_keys, "depth": depth, "space": space,
+                 "seed": seed}, 600.0, entry="native_door_client")
+            got["server_cpu_s"] = time.process_time() - cpu
+            got["stats"] = srv.stats()
+        finally:
+            srv.shutdown(close_limiters=False)
+            left = [f for f in os.listdir(d) if f != "door.sock"]
+            shutil.rmtree(d, ignore_errors=True)
+    if left:
+        raise AssertionError(f"the shared-memory lane left {left}")
+    return got, srv
+
+
+def _frame_rows(conns, prefix: str, srv):
+    """Every frame the client read: (kind, finalized hashes, each row's
+    shard, the answer's columns, its fail_open), hashed frames first."""
+    from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64, splitmix64
+
+    n = len(srv.shard_limiters)
+    rows = []
+    for out in conns:
+        for ids, *cols, fo in out["hashed"]:
+            h = splitmix64(ids)
+            rows.append(("hashed", h, (h % np.uint64(n)).astype(np.int64),
+                         cols, fo))
+        for keys, res in out["strings"]:
+            cols = [np.array([r[i] for r in res]) for i in range(4)]
+            rows.append(("strings", hash_prefixed_u64(keys, prefix),
+                         np.array([srv.shard_of(k) for k in keys],
+                                  dtype=np.int64),
+                         cols, any(r[4] for r in res)))
+    return rows
+
+
+def _hold_native_frames(name: str, logs, replays, conns, prefix: str,
+                        srv) -> int:
+    """Each frame's answer against its rows of the replayed windows of
+    its shards. A shard's windows are its frames' rows on that shard, in
+    queue order; the dispatcher cuts a string frame only whole, and may
+    carve a hashed frame at the ``max_batch`` boundary, its rest opening
+    the next hashed window. Returns the frames held."""
+    frames = _frame_rows(conns, prefix, srv)
+    fields = ("allowed", "remaining", "retry_after", "reset_at")
+    want = [[np.empty(len(f[1]), dtype=c.dtype) for c in f[3]]
+            for f in frames]
+    seen = [np.zeros(len(f[1]), dtype=bool) for f in frames]
+    fo_seen = [False] * len(frames)
+    for shard, (log, replayed) in enumerate(zip(logs, replays)):
+        subs = [np.nonzero(f[2] == shard)[0] for f in frames]
+        by_first: dict = {}
+        for i, f in enumerate(frames):
+            if subs[i].size:
+                by_first.setdefault(int(f[1][subs[i][0]]), []).append(i)
+        done = [False] * len(frames)
+        # A carved hashed frame's head ends a window: (the frames whose
+        # rows begin with that tail, the tail's window result, offset and
+        # length). Hot keys make short tails ambiguous, so the frame is
+        # chosen when its rest opens a later window.
+        open_ = None
+
+        def take(i, pos, res, off, count):
+            at = subs[i][pos:pos + count]
+            for k, f in enumerate(fields):
+                want[i][k][at] = getattr(res, f)[off:off + count]
+            seen[i][at] = True
+            fo_seen[i] |= bool(res.fail_open)
+
+        for (kind, a, _, _), res in zip(log, replayed):
+            if kind != "hashed":
+                continue
+            n, off = len(a), 0
+            if open_ is not None:
+                cands, t_res, t_off, t_len = open_
+                for i in cands:
+                    rest = frames[i][1][subs[i][t_len:]]
+                    if not done[i] and n >= len(rest) and np.array_equal(
+                            a[:len(rest)], rest):
+                        take(i, 0, t_res, t_off, t_len)
+                        take(i, t_len, res, 0, len(rest))
+                        done[i], off, open_ = True, len(rest), None
+                        break
+            while off < n:
+                for i in by_first.get(int(a[off]), ()):
+                    sub = frames[i][1][subs[i]]
+                    if not done[i] and off + len(sub) <= n and \
+                            np.array_equal(a[off:off + len(sub)], sub):
+                        take(i, 0, res, off, len(sub))
+                        done[i], off = True, off + len(sub)
+                        break
+                else:
+                    cands = [i for i in by_first.get(int(a[off]), ())
+                             if not done[i] and frames[i][0] == "hashed"
+                             and np.array_equal(
+                                 a[off:], frames[i][1][subs[i][:n - off]])]
+                    if open_ is not None or not cands:
+                        raise AssertionError(f"{name}: shard {shard}'s "
+                                             f"window rows {off}+ match no "
+                                             f"frame")
+                    open_, off = (cands, res, off, n - off), n
+        if open_ is not None:
+            raise AssertionError(f"{name}: a carved frame never finished "
+                                 f"on shard {shard}")
+    for i, f in enumerate(frames):
+        if not seen[i].all():
+            raise AssertionError(f"{name}: {int((~seen[i]).sum())} rows of "
+                                 f"a {f[0]} frame were in no window")
+        for k, fld in enumerate(fields):
+            got, exp = f[3][k], want[i][k]
+            if got.dtype != exp.dtype or not np.array_equal(got, exp):
+                raise AssertionError(f"{name}: a {f[0]} frame's {fld} "
+                                     f"differs from the CPU replay")
+        if f[4] != fo_seen[i]:
+            raise AssertionError(f"{name}: a frame's fail_open differs")
+    return len(frames)
+
+
+def check_native_door(torch, cfg, label: str, *, device: str = "cuda",
+                      seed: int = 0, space: str = "zipf",
+                      conns: int = DOOR_CONNS, frames: int = DOOR_FRAMES,
+                      n_ids: int = DOOR_IDS, n_keys: int = DOOR_KEYS,
+                      depth: int = DOOR_DEPTH, shards: int = 1,
+                      transport: str = "tcp", counters=(), required=(),
+                      same=None, front=None, front_per_reset: int = 0,
+                      flags=DEFAULT_STACK, server_kw=None) -> dict:
+    """The port's native door over ``shards`` limiters of ``cfg`` on
+    ``device``, each behind a ``RecordingLimiter`` (``serve_native_door``).
+    Every frame's answer must be bit-identical to CPU replays of the
+    windows each shard launched (``_hold_native_frames``), each shard's
+    final state to its replay's; HEALTH must count every decision,
+    METRICS one dispatch a window (fewer than the frames) and what the
+    stack counts (``hold_door_metrics``); ``required``, ``same``,
+    ``front`` and ``front_per_reset`` hold the launch counts as in
+    ``check_door``."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+
+    served = [create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                             device=device) for _ in range(shards)]
+    recs = [RecordingLimiter(lim, T0) for lim in served]
+    name = f"native door[{label}, {transport}, shards={shards}]"
+    try:
+        got, srv = serve_native_door(
+            recs, seed=seed, space=space, conns=conns, frames=frames,
+            n_ids=n_ids, n_keys=n_keys, depth=depth, transport=transport,
+            counters=counters, flags=flags, server_kw=server_kw)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = {}
+        for mod in counters:
+            counts.update(mod.launch_counts())
+        served_arrays = [lim.capture_state()[1] for lim in served]
+    finally:
+        for lim in served:
+            lim.close()
+    errors = [e for out in got["conns"] for e in out["errors"]]
+    if errors:
+        raise AssertionError(f"{name}: error replies {errors[:3]}")
+    replays = [replay_windows(cfg, rec.log) for rec in recs]
+    n_frames = _hold_native_frames(name, [r.log for r in recs],
+                                   [r[0] for r in replays], got["conns"],
+                                   cfg.prefix, srv)
+    for shard, ((_, cpu), arrays) in enumerate(zip(replays,
+                                                   served_arrays)):
+        _, cpu_arrays, _ = cpu.capture_state()
+        cpu.close()
+        for k, v in cpu_arrays.items():
+            if not np.array_equal(arrays[k], v):
+                raise AssertionError(f"{name}: shard {shard}'s final state "
+                                     f"{k} differs from the CPU replay")
+    decisions = sum(len(r[0]) for o in got["conns"] for r in o["hashed"]) \
+        + sum(len(r[0]) for o in got["conns"] for r in o["strings"])
+    windows = sum(kind == "hashed" for rec in recs for kind, *_ in rec.log)
+    resets = sum(kind == "reset" for rec in recs for kind, *_ in rec.log)
+    dispatches = metric_value(got["metrics"],
+                              "rate_limiter_server_batch_size_count")
+    if got["health"][2] != decisions:
+        raise AssertionError(f"{name}: HEALTH counts {got['health'][2]} "
+                             f"decisions, not {decisions}")
+    if dispatches != windows or not windows < n_frames:
+        raise AssertionError(f"{name}: {dispatches:g} dispatches, "
+                             f"{windows} windows, {n_frames} frames")
+    out = hold_door_metrics(name, got["metrics"], decisions, flags)
+    for k in required:
+        if counts.get(k, 0) == 0:
+            raise AssertionError(f"{name}: {k} was not launched")
+    if same is not None and counts[same[0]] != counts[same[1]]:
+        raise AssertionError(f"{name}: {counts[same[0]]} {same[0]} "
+                             f"launches for {counts[same[1]]} {same[1]}")
+    if front is not None and \
+            counts[front] != windows + front_per_reset * resets:
+        raise AssertionError(f"{name}: {counts[front]} {front} launches "
+                             f"for {windows} windows and {resets} resets")
+    lat = np.array([t for o in got["conns"] for t in o["latency"]])
+    net = got["stats"]["net"]
+    out.update({
+        "frames": n_frames, "decisions": decisions, "windows": windows,
+        "resets": resets, "frames_per_dispatch": n_frames / windows,
+        "decisions_per_s": decisions / got["wall_s"],
+        "wall_s": got["wall_s"],
+        "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+        "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+        "counts": counts, "transport": transport, "shards": shards,
+        "engine": net["engine"], "io_rings": net["rings"],
+        "uring_probe": net["uring_probe"],
+        "shard_decisions": got["stats"]["shard_decisions"],
+        "transport_stats": got["stats"]["transport"],
+        "shm_records_in": got["stats"]["shm"]["records_in"],
+        "server_cpu_s": got["server_cpu_s"],
+        "client_cpu_s": got["client_cpu_s"]})
+    if shards > 1 and min(out["shard_decisions"]) == 0:
+        raise AssertionError(f"{name}: a shard decided nothing "
+                             f"{out['shard_decisions']}")
+    if transport == "shm" and not out["shm_records_in"]:
+        raise AssertionError(f"{name}: no frame came over the lane")
+    log(f"{name} on {device}: {conns} connections, {n_frames} frames "
+        f"({decisions} decisions) in {windows} windows "
+        f"({out['frames_per_dispatch']:.2f} frames a window), every frame "
+        f"bit-identical to CPU replays of each shard's windows; "
+        f"{out['decisions_per_s']:.0f} decisions/s, frame latency p50 "
+        f"{out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms; net "
+        f"{out['engine']} x{out['io_rings']} (probe {out['uring_probe']}); "
+        f"shard decisions {out['shard_decisions']}; launches {counts}")
+    return out
+
+
+NATIVE_LIMIT = 5
+NATIVE_KEYS = 32
+
+
+def native_binary_config(cfg=None):
+    """The native binary's deployment in (b): config 3 (or ``cfg``'s
+    geometry) at a limit of 5, so seven requests a key cross it."""
+    import dataclasses
+
+    return dataclasses.replace(cfg or config3(), limit=NATIVE_LIMIT)
+
+
+def _native_expected(cfg, order: list) -> list:
+    """(allowed, remaining) of each request of ``order`` on CPU limiters
+    of the port, one per shard of the binary, keys routed by the door's
+    FNV router; every request inside one window, so time does not enter
+    (fresh keys: no mass in the ring's boundary slab)."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.serving.native_server import fnv_shard
+
+    cpu = [create_limiter(cfg, backend="sketch", clock=ManualClock(T0),
+                          device="cpu") for _ in range(2)]
+    try:
+        out = []
+        for key in order:
+            if key.startswith("reset:"):
+                key = key[len("reset:"):]
+                cpu[fnv_shard(key, 2)].reset(key)
+                continue
+            r = cpu[fnv_shard(key, 2)].allow(key)
+            out.append((bool(r.allowed), int(r.remaining)))
+        return out
+    finally:
+        for lim in cpu:
+            lim.close()
+
+
+def check_native_binary(cfg=None, *, device: str = "cuda") -> dict:
+    """(b) ``python -m ratelimiter_tpu_torch.serving --native --shards 2
+    --http-port 0 --audit --audit-sample 1 --snapshot-dir D`` as a child
+    process: 32 keys over the binary door (the port's Client) and 32 over
+    /v1/allow, each seven times, every answer's allowed and remaining
+    equal to CPU limiters of the two shards fed the same order; /healthz
+    names the native door and its ABI, and after the auditor's flush it
+    has audited every decision with no false deny or allow; a reset
+    (HTTP) before a snapshot (/v1/snapshot) and one after it, a SIGKILL,
+    and the restart must recover the snapshot and replay the second
+    reset onto its key's shard (that key admitted again, the others
+    still denied); SIGTERM then exits 0."""
+    import shutil
+    import tempfile
+
+    from ratelimiter_tpu_torch.serving.client import Client
+
+    cfg = native_binary_config(cfg)
+    d = tempfile.mkdtemp(prefix="native-binary-")
+    flags = cell_flags(cfg) + [
+        "--native", "--shards", "2", "--device", device, "--http-port", "0",
+        "--http-reset-token", TOKENS["reset"], "--audit", "--audit-sample",
+        "1", "--snapshot-dir", d, "--snapshot-interval", "3600"]
+    bin_keys = [f"nb:{i}" for i in range(NATIVE_KEYS)]
+    http_keys = [f"nh:{i}" for i in range(NATIVE_KEYS)]
+    order = [k for _ in range(NATIVE_LIMIT + 2)
+             for k in bin_keys + http_keys]
+    servers = []
+    t0 = time.perf_counter()
+    try:
+        srv = ServerProcess(flags)
+        servers.append(srv)
+        got = []
+        with Client("127.0.0.1", srv.port) as c:
+            for key in order:
+                if key in http_keys:
+                    st, _, body = http_call(srv.http, "GET",
+                                            f"/v1/allow?key={key}")
+                    if st != (200 if body["allowed"] else 429):
+                        raise AssertionError(f"/v1/allow answered {st}")
+                    got.append((body["allowed"], body["remaining"]))
+                else:
+                    r = c.allow(key)
+                    got.append((r.allowed, r.remaining))
+        if got != _native_expected(cfg, order):
+            raise AssertionError("native binary: answers differ from the "
+                                 "CPU limiters of its shards")
+        health = {}
+        for _ in range(200):
+            health = http_call(srv.http, "GET", "/healthz")[2]
+            if health.get("audit", {}).get("samples") == len(order):
+                break
+            time.sleep(0.05)
+        aud = health.get("audit", {})
+        if (aud.get("samples") != len(order) or aud.get("false_denies")
+                or aud.get("false_allows")):
+            raise AssertionError(f"native binary: audit block {aud}")
+        member = health["member"]
+        # decisions_total is the C++ door's (as in the JAX binary); the
+        # gateway's decisions go through decide_one.
+        door_decisions = (NATIVE_LIMIT + 2) * NATIVE_KEYS
+        if (member["door"], member["abi"]) != ("native", "1") or \
+                health["decisions_total"] != door_decisions:
+            raise AssertionError(f"native binary: /healthz {member}, "
+                                 f"{health['decisions_total']} decisions")
+        gated(srv.http, "POST", "/v1/reset?key=nb:0", TOKENS["reset"],
+              "native binary reset")
+        st, _, snap = http_call(srv.http, "POST", "/v1/snapshot")
+        if st != 200:
+            raise AssertionError(f"/v1/snapshot answered {st}: {snap}")
+        gated(srv.http, "POST", "/v1/reset?key=nb:1", TOKENS["reset"],
+              "native binary reset")
+        srv.kill()
+        srv = ServerProcess(flags)
+        servers.append(srv)
+        if "replayed 1 WAL record(s)" not in (srv.recovered or ""):
+            raise AssertionError(f"native binary restart: {srv.recovered}")
+        with Client("127.0.0.1", srv.port) as c:
+            after = [(r.allowed, r.remaining) for r in
+                     (c.allow(k) for k in ("nb:0", "nb:1", "nb:2"))]
+        want = _native_expected(
+            cfg, order + ["reset:nb:0", "reset:nb:1", "nb:0", "nb:1",
+                          "nb:2"])
+        if after != want[-3:]:
+            raise AssertionError(f"native binary after recovery: {after}, "
+                                 f"not {want[-3:]}")
+        if srv.terminate() != 0:
+            raise AssertionError("native binary: SIGTERM exit code")
+    finally:
+        for srv in servers:
+            if srv.proc.poll() is None:
+                srv.kill()
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"answers": len(order), "recovered": srv.recovered,
+           "audit_samples": aud["samples"],
+           "net": health["transport"]["net"],
+           "seconds": time.perf_counter() - t0}
+    log(f"native binary on {device}: {len(order)} answers (binary door "
+        f"and /v1/allow) equal to the CPU shards, audited with no false "
+        f"deny; {srv.recovered}; {out['seconds']:.1f} s")
+    return out
+
+
+#: (door, shards, transports) of the load generator's readings. The
+#: asyncio door's shared-memory lane is left out: under this generator
+#: (whose consumer clears its sleeping flag between waits) it stalls in
+#: both packages, runs answering nothing where TCP completes (ROADMAP
+#: C16); the port's Python clients keep the flag up and are not hit.
+LOADGEN_DOORS = (("native", 1, ("tcp", "shm")),
+                 ("native", 2, ("tcp", "shm")),
+                 ("asyncio", 1, ("tcp",)))
+LOADGEN_SECONDS = 0.5
+
+
+def _loadgen(exe: str, port: int, mode: str, transport: str) -> dict:
+    """One run of the C++ load generator (8 threads, 8 frames in flight
+    each, 512 ids or 64 keys a frame over 1M keys; 1 s warm-up)."""
+    keys = 512 if mode == "hashed" else 64
+    proc = subprocess.run(
+        [exe, "127.0.0.1", str(port), str(LOADGEN_SECONDS), "8", "8",
+         str(keys), str(N_KEYS), mode, "--transport", transport],
+        capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"loadgen exited {proc.returncode}: "
+                             f"{proc.stderr[-500:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def native_readings(rounds: int = 3, device: str = "cuda") -> list:
+    """(c) The port's C++ load generator (``native.build_loadgen``) on
+    config 3's door on the card, the native door with 1 and 2 shards and
+    the asyncio door in turns, ``rounds`` rounds, hashed and batch modes
+    over TCP and (the native door) the shared-memory lane: decisions/s
+    and frame RTT p50/p99, with the net engine that ran. Each door is the
+    binary's (the default stack, the batcher's defaults, ``--shm``)."""
+    import threading as _threading
+
+    from ratelimiter_tpu_torch import create_limiter, native
+    from ratelimiter_tpu_torch.serving.native_server import (
+        NativeRateLimitServer,
+    )
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    exe = native.build_loadgen()
+    rows = []
+    for rnd in range(rounds):
+        for door, shards, transports in LOADGEN_DOORS:
+            served = create_limiter(config3(), backend="sketch",
+                                    device=device)
+            with door_stack() as (wrap, registry):
+                lim = wrap(served)
+                if door == "native":
+                    srv = NativeRateLimitServer(
+                        lim, "127.0.0.1", 0, registry=registry,
+                        shards=shards, shm=True,
+                        shard_decorate=lambda c, i: wrap(c, i))
+                    srv.start()
+                    port, stop = srv.port, srv.shutdown
+                    engine = srv.stats()["net"]["engine"]
+                else:
+                    loop = asyncio.new_event_loop()
+                    th = _threading.Thread(target=loop.run_forever,
+                                           daemon=True)
+                    th.start()
+                    srv = RateLimitServer(lim, "127.0.0.1", 0,
+                                          registry=registry, shm=True)
+                    asyncio.run_coroutine_threadsafe(
+                        srv.start(), loop).result(timeout=30)
+                    port, engine = srv.port, "asyncio"
+
+                    def stop(srv=srv, loop=loop, th=th):
+                        asyncio.run_coroutine_threadsafe(
+                            srv.shutdown(), loop).result(timeout=60)
+                        loop.call_soon_threadsafe(loop.stop)
+                        th.join(timeout=30)
+                        loop.close()
+                try:
+                    for mode in ("hashed", "batch"):
+                        for transport in transports:
+                            r = _loadgen(exe, port, mode, transport)
+                            if not r["completed"]:
+                                raise AssertionError(
+                                    f"loadgen: no frame completed on the "
+                                    f"{door} door ({mode}, {transport})")
+                            rows.append({"round": rnd, "door": door,
+                                         "shards": shards, "mode": mode,
+                                         "transport": transport,
+                                         "engine": engine,
+                                         **{k: r[k] for k in (
+                                             "decisions_per_sec",
+                                             "frame_p50_ms",
+                                             "frame_p99_ms")}})
+                finally:
+                    stop()
+            served.close()
+    for r in rows:
+        log(f"loadgen round {r['round']}: {r['door']} door "
+            f"shards={r['shards']} {r['mode']} over {r['transport']} "
+            f"({r['engine']}): {r['decisions_per_sec']:.0f} decisions/s, "
+            f"RTT p50 {r['frame_p50_ms']:.2f} ms p99 "
+            f"{r['frame_p99_ms']:.2f} ms")
+    return rows
+
+
+def run_native(torch, seed: int = 0, device: str = "cuda",
+               rounds: int = 3) -> dict:
+    """Phase native: (a) the windowed CU door at config 3 over TCP, a
+    unix socket and the shared-memory lane, TB-c2 with its bucket
+    kernels, and two shards on one card (against two CPU replays), each
+    through ``check_native_door``; (b) the binary as a child process
+    (``check_native_binary``); (c) the load generator's readings
+    (``native_readings``, ``rounds`` rounds: one in the whole run, three
+    under ``--native``). The launch counts of each checked door run are
+    set to 0 just before it and read just after."""
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+
+    t = time.perf_counter()
+    windowed = dict(counters=[sketch_cuda],
+                    required=("window_estimate", "admit", "cu_update",
+                              "window_reset"),
+                    same=("admit", "cu_update"), front="window_estimate")
+    out = {}
+    for transport in NATIVE_TRANSPORTS:
+        out[f"windowed CU {transport}"] = check_native_door(
+            torch, config3(), "windowed CU", device=device, seed=seed + 91,
+            transport=transport, **windowed)
+    out["windowed CU shards=2"] = check_native_door(
+        torch, config3(), "windowed CU", device=device, seed=seed + 93,
+        shards=2, transport="shm", **windowed)
+    out["TB-c2"] = check_native_door(
+        torch, config2_bucket(), "TB-c2", device=device, seed=seed + 97,
+        space="c2",
+        counters=[bucket_cuda],
+        required=("bucket_estimate", "admit", "bucket_update"),
+        same=("admit", "bucket_update"), front="bucket_estimate",
+        front_per_reset=1)
+    out["binary"] = check_native_binary(device=device)
+    out["readings"] = native_readings(rounds=rounds, device=device)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase native on {card_line()}: {out['seconds']:.1f} s")
+    return out
+
 
 
 def row_launches(name: str, windowed, bucket) -> int:
@@ -7641,6 +8333,12 @@ def main(argv=None) -> int:
                          "at d=1 and run phase gateway (the binary's HTTP "
                          "gateway, shadow auditor and SLO tracker beside "
                          "its door; one JSON line)")
+    ap.add_argument("--native", action="store_true",
+                    help="only build, then run phase native (the C++ "
+                         "door over TCP, a unix socket and the "
+                         "shared-memory lane, two shards, the binary "
+                         "with --native, the load generator's readings; "
+                         "one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -7665,7 +8363,19 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
-                or args.gateway or args.door)
+                or args.gateway or args.door or args.native)
+    # The native door and the load generator build with g++ beside the
+    # nvcc builds.
+    host_build = None
+    if full or args.native:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from ratelimiter_tpu_torch import native
+
+        pool = ThreadPoolExecutor(max_workers=2)
+        host_build = [pool.submit(native.load_server),
+                      pool.submit(native.build_loadgen)]
+        pool.shutdown(wait=False)
     _build.build_all(["sketch_kernels", "bucket_kernels"]
                      + (["dense_kernels", "dense_bench"]
                         if full or args.dense else [])
@@ -7675,6 +8385,8 @@ def main(argv=None) -> int:
     bucket_cuda.build()
     if full or args.dense or args.dense_paths:
         dense_cuda.build()
+    for fut in host_build or ():
+        fut.result()
     log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
 
@@ -7719,6 +8431,13 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card, "door": [
             {k: r[k] for k in ("decisions_per_s", "p50_ms", "p99_ms",
                                "frames_per_dispatch")} for r in runs]}))
+        print(card)
+        return 0
+    if args.native:
+        out = run_native(torch, args.seed)
+        check_no_children()
+        print(json.dumps({"card": card, "native": out},
+                         default=lambda o: repr(o)))
         print(card)
         return 0
     if args.gateway:
@@ -7868,10 +8587,12 @@ def main(argv=None) -> int:
             f"{d['p99_ms']:.2f} | {b['p99_ms']:.2f} ms"
             for label, d, b in (("windowed CU", door_cu, unproxied_cu),
                                 ("TB-c2", door_tb, unproxied_tb))))
+    log(f"phases 1-4 done at {time.perf_counter() - t:.1f} s")
     observe = run_observe(torch, args.seed, reuse={
         "windowed CU": door_cu, f"windowed CU hh_slots={HH_SLOTS}": door_hh,
-        "TB-c2": door_tb})
+        "TB-c2": door_tb}, rounds=1)
     gateway = run_gateway(torch, args.seed)
+    native_door = run_native(torch, args.seed, rounds=1)
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
@@ -7880,6 +8601,7 @@ def main(argv=None) -> int:
     dense_durable = check_dense_durable(torch, args.seed)
     above = check_above_capacity(torch, args.seed)
     eval_path = check_eval_path(torch, args.seed)
+    log(f"phases 5-6 done at {time.perf_counter() - t:.1f} s")
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
         f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
         f"{live['lock_hold_ms_TB-c2']}); strict deny-all batches "
@@ -7896,9 +8618,13 @@ def main(argv=None) -> int:
                      watch, *ev_windowed, above["tenants windowed CU"],
                      above[f"tenants windowed CU hh_slots={HH_SLOTS}"],
                      above["tenants windowed vanilla"],
-                     gateway["windowed"])
+                     gateway["windowed"],
+                     *(native_door[f"windowed CU {t}"]
+                       for t in NATIVE_TRANSPORTS),
+                     native_door["windowed CU shards=2"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
-                   *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"])
+                   *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
+                   native_door["TB-c2"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -7922,6 +8648,7 @@ def main(argv=None) -> int:
     paths["door_unproxied_TB-c2"] = unproxied_tb
     paths["observe"] = observe
     paths["gateway"] = gateway
+    paths["native"] = native_door
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -28,11 +28,13 @@ _NOT_PORTED = {
 
 def create_limiter(config: Config, backend: str = "sketch",
                    clock: Optional[Clock] = None,
-                   device="cuda") -> RateLimiter:
+                   device="cuda", hier_divisor: int = 1) -> RateLimiter:
     """Build a limiter whose state lives on ``device`` (default the CUDA
     card; without one this raises — pass ``device="cpu"`` to run on the
     CPU with the kernels' plain versions). The exact backend is host code
-    and ignores ``device``. No I/O happens until the first decision."""
+    and ignores ``device``. No I/O happens until the first decision.
+    ``hier_divisor`` (sketch backends) is a dispatch shard's share of the
+    tenant and global limits (the native door's ``--shards``)."""
     if backend == "exact":
         from ratelimiter_tpu_torch.algorithms.exact import ExactLimiter
 
@@ -47,10 +49,12 @@ def create_limiter(config: Config, backend: str = "sketch",
                 SketchTokenBucketLimiter,
             )
 
-            return SketchTokenBucketLimiter(config, clock, device=device)
+            return SketchTokenBucketLimiter(config, clock, device=device,
+                                            hier_divisor=hier_divisor)
         from ratelimiter_tpu_torch.algorithms.sketch import SketchLimiter
 
-        return SketchLimiter(config, clock, device=device)
+        return SketchLimiter(config, clock, device=device,
+                             hier_divisor=hier_divisor)
     if backend in _NOT_PORTED:
         raise InvalidConfigError(_NOT_PORTED[backend])
     raise InvalidConfigError(

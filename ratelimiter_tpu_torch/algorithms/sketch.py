@@ -119,7 +119,7 @@ def resolve_device(device) -> torch.device:
 
 class SketchLimiter(RateLimiter):
     def __init__(self, config: Config, clock: Optional[Clock] = None, *,
-                 device="cuda"):
+                 device="cuda", hier_divisor: int = 1):
         super().__init__(config, clock)
         self._init_device(device)
         self._step = sketch_kernels.build_hashed_step(self.config)
@@ -142,7 +142,7 @@ class SketchLimiter(RateLimiter):
         self._warned_period = -1
         self.overload_periods = 0
         self._init_policy()
-        self._init_hierarchy()
+        self._init_hierarchy(hier_divisor)
 
     def _init_device(self, device) -> None:
         """The shell both sketch limiters share: device, hashing seed,
@@ -213,15 +213,18 @@ class SketchLimiter(RateLimiter):
 
     # ---------------------------------------------------------- hierarchy
 
-    def _init_hierarchy(self) -> None:
+    def _init_hierarchy(self, divisor: int = 1) -> None:
         """Tenant + global cascade scopes (ADR-020), resolved in the step
-        like the policy table, keyed by the same packed (h1, h2)."""
+        like the policy table, keyed by the same packed (h1, h2).
+        ``divisor`` is the per-unit share of a multi-shard native door
+        (each of N shards enforces 1/N of every scope's limit)."""
         self._hier_table = None
         self._hier_dev = None
         self._hier_dev_version = -1
         if self.config.hierarchy.enabled:
             self._hier_table = TenantTable(self.config,
-                                           key_fn=self._policy_key)
+                                           key_fn=self._policy_key,
+                                           divisor=divisor)
 
     def _hier_device(self):
         """Device copy of the cascade tables (key→tenant map + limit/
@@ -830,7 +833,7 @@ class SketchTokenBucketLimiter(SketchLimiter):
     _EXTRA_KEYS = ()
 
     def __init__(self, config: Config, clock: Optional[Clock] = None, *,
-                 device="cuda"):
+                 device="cuda", hier_divisor: int = 1):
         RateLimiter.__init__(self, config, clock)
         self._init_device(device)
         self._step = bucket_kernels.build_hashed_step(self.config)
@@ -846,7 +849,7 @@ class SketchTokenBucketLimiter(SketchLimiter):
         # writes: the next step clamps every acc cell once (_launch_kw).
         self._acc_over_cap = False
         self._init_policy()
-        self._init_hierarchy()
+        self._init_hierarchy(hier_divisor)
 
     def _policy_validate(self, limit: int, _window_us: int) -> None:
         # Admission runs exact int64 micro-token cumsums: the same gate as

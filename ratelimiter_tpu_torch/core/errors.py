@@ -63,6 +63,20 @@ class DeadlineExceededError(RateLimiterError, RuntimeError):
     Fail-open configs answer a fail-open allowance instead."""
 
 
+class RequestTimeoutError(RateLimiterError, TimeoutError):
+    """Raised by the blocking Client when one call's read deadline
+    expires mid-stream. Names the pending request (``request_id`` /
+    ``request_type``) and marks the connection desynchronized: the next
+    call reconnects, so it can never return the timed-out frame's result
+    as its own."""
+
+    def __init__(self, msg: str, *, request_id: int = 0,
+                 request_type: int = 0):
+        super().__init__(msg)
+        self.request_id = int(request_id)
+        self.request_type = int(request_type)
+
+
 class CheckpointError(RateLimiterError, RuntimeError):
     """Raised when a checkpoint cannot be loaded: wrong format version,
     wrong limiter kind, or a snapshot taken under a different config

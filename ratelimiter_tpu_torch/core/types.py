@@ -190,7 +190,7 @@ class DispatchTicket:
 
     __slots__ = ("outs", "b", "limit", "limits", "ns", "now_us", "t_sec",
                  "padded", "result", "wire", "event", "staged", "inflight",
-                 "meta", "trace_id")
+                 "meta", "trace_id", "audit")
 
     def __init__(self, result: "BatchResult | None" = None):
         self.outs = None        # host-side (pinned on CUDA) result tensors
@@ -213,3 +213,5 @@ class DispatchTicket:
         self.trace_id = 0       # flight-recorder trace context; 0 =
         #                         unsampled. Set by the batcher at launch
         #                         so resolve-side spans link to the frame.
+        self.audit = None       # (h64, ns) pinned by the native door's
+        #                         launch for the audit tap at resolve

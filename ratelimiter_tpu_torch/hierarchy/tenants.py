@@ -21,8 +21,8 @@ Two kinds of limit per scope:
 Sliced-mesh deployments pass ``divisor = n_slices``: each hash-routed
 slice enforces an equal share (``max(1, effective // divisor)``) of
 every tenant/global limit, the same static-split rule hash-partitioned
-fleet members use. The port serves one unit (divisor 1); the argument
-stays for the mesh cascade (ROADMAP A8).
+fleet members use. The port's multi-shard native door passes its shard
+count (``--shards``); the mesh cascade is ROADMAP A8.
 
 Durability: tenant definitions, assignments, and the CONTROLLER-MOVED
 effective limits ride checkpoints as ``hier_*`` columns

@@ -1,0 +1,587 @@
+// Closed-loop load generator for the rate-limit service: the port's copy
+// of clients/cpp/loadgen.cpp, built against the port's shm_ring.h (the
+// same ring layout), for either package's doors.
+//
+// The Python e2e driver saturates its own asyncio loop before it
+// saturates the native server; this native driver finds the server's
+// real ceiling. N threads, one connection each, K pipelined ALLOW_BATCH
+// frames of F keys in flight per connection; measures completed
+// decisions/s over the timed window (after warmup) and per-frame RTT
+// percentiles.
+//
+// Usage: rltpu_loadgen <host> <port> <seconds> <threads> <inflight>
+//                      <keys_per_frame> <n_keys> [mode] [affine_shards]
+//                      [spread] [--transport tcp|uds|shm]
+// mode: "batch" (default, string ALLOW_BATCH frames) or "hashed"
+// (columnar raw-u64-id ALLOW_HASHED frames — the zero-copy bulk lane,
+// ADR-011).
+// affine_shards (hashed mode only, default 0 = off): each connection's
+// ids are drawn so they route only to a window of `spread` dispatch
+// shards starting at the connection's home shard
+// (thread % affine_shards) — the slice-spread knob (ADR-013):
+//   spread=1 (default)       pure shard-affine traffic, the shape a
+//                            consistent-hash LB produces (frames never
+//                            fan out; ADR-012's scaling shape);
+//   1 < spread < n           partially mixed — each frame fans out over
+//                            `spread` devices;
+//   spread >= affine_shards  uniform mixed — every frame fans out over
+//                            every device (the scatter-gather
+//                            scheduler's worst case).
+// The server still routes every id itself either way.
+//
+// --transport (ADR-025): "tcp" (default), "uds" (host is a unix socket
+// path, "unix:" prefix optional), or "shm" — connect (tcp or uds), then
+// T_SHM_HELLO upgrades the connection to shared-memory SPSC rings; the
+// SAME frames then move through /dev/shm with zero steady-state
+// syscalls. The JSON adds serialize/wire-write phase means so the A/B
+// shows where the time went, not just the total.
+// Output: one JSON line.
+
+#include <fcntl.h>
+#include <poll.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <sys/un.h>
+
+#include <algorithm>
+#include <atomic>
+#include <chrono>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <mutex>
+#include <string>
+#include <thread>
+#include <vector>
+
+#include "shm_ring.h"
+#include "ratelimiter_client.hpp"
+
+namespace {
+
+constexpr uint8_t T_SHM_HELLO = 16;
+constexpr uint8_t T_SHM_HELLO_R = 141;
+constexpr int SHM_SPIN = 4096;
+
+double now_s() {
+  return std::chrono::duration<double>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// splitmix64 finalizer — BIT-IDENTICAL to ops/hashing.splitmix64 and the
+// server's router (native/server.cpp): affine mode must agree with the
+// door's per-id shard routing or the affinity is silently lost.
+inline uint64_t splitmix64(uint64_t x) {
+  x += 0x9e3779b97f4a7c15ULL;
+  x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ULL;
+  x = (x ^ (x >> 27)) * 0x94d049bb133111ebULL;
+  return x ^ (x >> 31);
+}
+
+struct Shared {
+  std::atomic<uint64_t> completed{0};
+  std::atomic<uint64_t> allowed{0};
+  std::atomic<uint64_t> ser_ns{0};       // serialize phase, timed window
+  std::atomic<uint64_t> wire_ns{0};      // wire-write phase, timed window
+  std::atomic<uint64_t> timed_frames{0};
+  double t_measure = 0, t_stop = 0;
+  std::mutex lat_mx;
+  std::vector<double> latencies;  // frame RTTs inside the window
+};
+
+enum Transport { TR_TCP = 0, TR_UDS = 1, TR_SHM = 2 };
+
+int connect_fd(const char* host, int port, bool uds) {
+  if (uds) {
+    const char* path = host;
+    if (strncmp(path, "unix:", 5) == 0) path += 5;
+    int fd = socket(AF_UNIX, SOCK_STREAM, 0);
+    if (fd < 0) return -1;
+    sockaddr_un a{};
+    a.sun_family = AF_UNIX;
+    if (strlen(path) >= sizeof(a.sun_path)) {
+      close(fd);
+      return -1;
+    }
+    strncpy(a.sun_path, path, sizeof(a.sun_path) - 1);
+    if (connect(fd, (sockaddr*)&a, sizeof(a)) != 0) {
+      close(fd);
+      return -1;
+    }
+    return fd;
+  }
+  struct addrinfo hints {
+  }, *res = nullptr;
+  hints.ai_family = AF_INET;
+  hints.ai_socktype = SOCK_STREAM;
+  std::string ps = std::to_string(port);
+  if (getaddrinfo(host, ps.c_str(), &hints, &res) != 0) return -1;
+  int fd = socket(res->ai_family, res->ai_socktype, res->ai_protocol);
+  if (fd < 0 || connect(fd, res->ai_addr, res->ai_addrlen) != 0) {
+    freeaddrinfo(res);
+    if (fd >= 0) close(fd);
+    return -1;
+  }
+  freeaddrinfo(res);
+  int one = 1;
+  setsockopt(fd, IPPROTO_TCP, 1 /*TCP_NODELAY*/, &one, sizeof(one));
+  return fd;
+}
+
+// Shared-memory lane state (client side: outbound = request ring).
+struct ShmLane {
+  uint8_t* base = nullptr;
+  size_t map_len = 0;
+  rlshm::LaneView lane;
+  int efd_server = -1, efd_client = -1;
+
+  ~ShmLane() {
+    if (efd_server >= 0) close(efd_server);
+    if (efd_client >= 0) close(efd_client);
+    if (base) munmap(base, map_len);
+  }
+};
+
+bool recv_exact(int fd, uint8_t* p, size_t n) {
+  while (n) {
+    ssize_t r = recv(fd, p, n, 0);
+    if (r <= 0) return false;
+    p += r;
+    n -= (size_t)r;
+  }
+  return true;
+}
+
+bool send_all_fd(int fd, const char* p, size_t n) {
+  while (n) {
+    ssize_t w = send(fd, p, n, MSG_NOSIGNAL);
+    if (w <= 0) return false;
+    p += w;
+    n -= (size_t)w;
+  }
+  return true;
+}
+
+// T_SHM_HELLO over the live socket, then map + ctrl-socket fd handoff.
+// Mirrors serving/shm.py ClientLane: map the shm file FIRST (the server
+// unlinks both paths the moment the ctrl connect lands).
+bool shm_upgrade(int fd, ShmLane* L) {
+  // hello body is <III>: version | req_ring | rep_ring (0 = default);
+  // rid 0 is safe — loadgen data frames start at 1.
+  uint8_t frame[25];
+  uint32_t length = 1 + 8 + 12;
+  uint32_t ver = 1, zero = 0;
+  memcpy(frame, &length, 4);
+  frame[4] = T_SHM_HELLO;
+  memset(frame + 5, 0, 8);
+  memcpy(frame + 13, &ver, 4);
+  memcpy(frame + 17, &zero, 4);
+  memcpy(frame + 21, &zero, 4);
+  if (!send_all_fd(fd, (const char*)frame, sizeof(frame))) return false;
+
+  uint8_t hdr[13];
+  if (!recv_exact(fd, hdr, 13)) return false;
+  memcpy(&length, hdr, 4);
+  if (hdr[4] != T_SHM_HELLO_R || length < 9 || length > (1u << 20)) {
+    fprintf(stderr, "shm hello rejected (type %u)\n", hdr[4]);
+    return false;
+  }
+  std::vector<uint8_t> body(length - 9);
+  if (!recv_exact(fd, body.data(), body.size())) return false;
+  if (body.size() < 13 || body[0] != 1) return false;
+  uint32_t req_cap, rep_cap;
+  memcpy(&req_cap, body.data() + 1, 4);
+  memcpy(&rep_cap, body.data() + 5, 4);
+  uint16_t splen;
+  memcpy(&splen, body.data() + 9, 2);
+  if (body.size() < 11u + splen + 2u) return false;
+  std::string shm_path((char*)body.data() + 11, splen);
+  uint16_t cplen;
+  memcpy(&cplen, body.data() + 11 + splen, 2);
+  if (body.size() < 13u + splen + cplen) return false;
+  std::string ctrl_path((char*)body.data() + 13 + splen, cplen);
+
+  int sfd = open(shm_path.c_str(), O_RDWR);
+  if (sfd < 0) return false;
+  L->map_len = (size_t)rlshm::total_bytes(req_cap, rep_cap);
+  L->base = (uint8_t*)mmap(nullptr, L->map_len, PROT_READ | PROT_WRITE,
+                           MAP_SHARED, sfd, 0);
+  close(sfd);
+  if (L->base == MAP_FAILED) {
+    L->base = nullptr;
+    return false;
+  }
+  if (!rlshm::attach(L->base, /*server=*/false, &L->lane)) return false;
+
+  int cfd = socket(AF_UNIX, SOCK_STREAM, 0);
+  if (cfd < 0) return false;
+  sockaddr_un a{};
+  a.sun_family = AF_UNIX;
+  strncpy(a.sun_path, ctrl_path.c_str(), sizeof(a.sun_path) - 1);
+  if (connect(cfd, (sockaddr*)&a, sizeof(a)) != 0) {
+    close(cfd);
+    return false;
+  }
+  // One data byte + SCM_RIGHTS carrying {efd_server, efd_client}.
+  char db;
+  iovec iov{&db, 1};
+  char cbuf[CMSG_SPACE(2 * sizeof(int))];
+  msghdr msg{};
+  msg.msg_iov = &iov;
+  msg.msg_iovlen = 1;
+  msg.msg_control = cbuf;
+  msg.msg_controllen = sizeof(cbuf);
+  ssize_t r = recvmsg(cfd, &msg, 0);
+  close(cfd);
+  if (r <= 0) return false;
+  cmsghdr* cm = CMSG_FIRSTHDR(&msg);
+  if (!cm || cm->cmsg_type != SCM_RIGHTS ||
+      cm->cmsg_len < CMSG_LEN(2 * sizeof(int)))
+    return false;
+  int fds[2];
+  memcpy(fds, CMSG_DATA(cm), sizeof(fds));
+  L->efd_server = fds[0];
+  L->efd_client = fds[1];
+  return true;
+}
+
+void ding(int efd) {
+  uint64_t one = 1;
+  ssize_t w = write(efd, &one, 8);
+  (void)w;
+}
+
+void drain_efd(int efd) {
+  uint64_t v;
+  ssize_t r = read(efd, &v, 8);
+  (void)r;
+}
+
+// Blocking push onto the request ring: spin, then advertise
+// producer_waiting and park on the client doorbell (the server dings it
+// after freeing space). Returns false only past the deadline.
+bool shm_send(ShmLane* L, const std::string& f, double t_deadline) {
+  const uint8_t* p = (const uint8_t*)f.data();
+  uint32_t len = (uint32_t)f.size();
+  rlshm::Ring& ring = L->lane.outbound;
+  bool pushed = ring.try_push(p, len);
+  for (int i = 0; !pushed && i < SHM_SPIN; ++i) pushed = ring.try_push(p, len);
+  while (!pushed) {
+    ring.set_producer_waiting();
+    pushed = ring.try_push(p, len);
+    if (pushed) {
+      ring.clear_producer_waiting();
+      break;
+    }
+    if (now_s() >= t_deadline) {
+      ring.clear_producer_waiting();
+      return false;
+    }
+    pollfd pf{L->efd_client, POLLIN, 0};
+    poll(&pf, 1, 50);
+    if (pf.revents & POLLIN) drain_efd(L->efd_client);
+    ring.clear_producer_waiting();
+    pushed = ring.try_push(p, len);
+  }
+  if (ring.consumer_sleeping()) ding(L->efd_server);
+  return true;
+}
+
+// Pop every available reply record into rbuf; blocks (spin -> doorbell)
+// until at least one arrives or the deadline passes. Returns false on a
+// torn ring or deadline.
+bool shm_recv(ShmLane* L, std::string* rbuf, double t_deadline) {
+  rlshm::Ring& ring = L->lane.inbound;
+  size_t got = 0;
+  for (;;) {
+    const uint8_t* payload;
+    uint32_t len;
+    rlshm::Ring::PopResult pr = ring.pop(&payload, &len);
+    if (pr == rlshm::Ring::POP_RECORD) {
+      rbuf->append((const char*)payload, len);
+      ring.advance(len);
+      ++got;
+      continue;
+    }
+    if (pr == rlshm::Ring::POP_TORN) return false;
+    if (got) break;  // drained a burst — parse it
+    // Empty: spin, then park on the doorbell.
+    bool hit = false;
+    for (int i = 0; i < SHM_SPIN; ++i) {
+      if (!ring.empty()) {
+        hit = true;
+        break;
+      }
+    }
+    if (hit) continue;
+    ring.set_sleeping();
+    if (!ring.empty()) {
+      ring.clear_sleeping();
+      continue;
+    }
+    if (now_s() >= t_deadline) {
+      ring.clear_sleeping();
+      return false;
+    }
+    pollfd pf{L->efd_client, POLLIN, 0};
+    poll(&pf, 1, 50);
+    ring.clear_sleeping();
+    if (pf.revents & POLLIN) drain_efd(L->efd_client);
+  }
+  // Freed ring space: wake a backpressured server producer.
+  if (ring.producer_waiting()) {
+    ring.clear_producer_waiting();
+    ding(L->efd_server);
+  }
+  return true;
+}
+
+// Raw pipelined driver: hand-rolled frames on one socket or shm lane
+// (the Client class is strictly request/response; pipelining needs
+// direct IO).
+void worker(const char* host, int port, int inflight, int frame_keys,
+            int n_keys, int wid, bool hashed, int affine, int spread,
+            Transport tr, Shared* sh) {
+  bool uds = tr != TR_TCP ? (host[0] == '/' || strncmp(host, "unix:", 5) == 0)
+                          : false;
+  if (tr == TR_UDS) uds = true;
+  int fd = connect_fd(host, port, uds);
+  if (fd < 0) return;
+
+  ShmLane shm;
+  bool use_shm = tr == TR_SHM;
+  if (use_shm && !shm_upgrade(fd, &shm)) {
+    close(fd);
+    return;
+  }
+
+  auto send_all = [&](const std::string& b) {
+    return send_all_fd(fd, b.data(), b.size());
+  };
+
+  // Pre-encode a rotating set of ALLOW_BATCH frames.
+  uint64_t req_id = 1;
+  unsigned rng = 12345u + (unsigned)wid * 2654435761u;
+  auto make_frame = [&](double* sent_at) {
+    std::string body;
+    uint32_t count = (uint32_t)frame_keys;
+    body.append((char*)&count, 4);
+    if (hashed) {
+      // Columnar raw-id frame (ADR-011): u64 ids then u32 ns. With
+      // affinity, rejection-sample until the id routes to the
+      // connection's `spread`-shard window starting at its home shard
+      // (spread=1: the consistent-hash-LB traffic shape; expected
+      // `affine / spread` draws per id, LCG draws are ~free).
+      bool constrain = affine > 0 && spread < affine;
+      uint64_t home = (uint64_t)(wid % (affine > 0 ? affine : 1));
+      for (int i = 0; i < frame_keys; ++i) {
+        uint64_t id64;
+        do {
+          rng = rng * 1664525u + 1013904223u;
+          id64 = rng % (unsigned)n_keys;
+        } while (constrain &&
+                 (splitmix64(id64) % (uint64_t)affine + (uint64_t)affine -
+                  home) % (uint64_t)affine >= (uint64_t)spread);
+        body.append((char*)&id64, 8);
+      }
+      uint32_t n = 1;
+      for (int i = 0; i < frame_keys; ++i) body.append((char*)&n, 4);
+    } else {
+      for (int i = 0; i < frame_keys; ++i) {
+        rng = rng * 1664525u + 1013904223u;
+        char key[32];
+        int klen =
+            snprintf(key, sizeof(key), "user:%u", rng % (unsigned)n_keys);
+        uint32_t n = 1;
+        uint16_t kl = (uint16_t)klen;
+        body.append((char*)&n, 4);
+        body.append((char*)&kl, 2);
+        body.append(key, klen);
+      }
+    }
+    std::string frame;
+    uint32_t length = (uint32_t)(1 + 8 + body.size());
+    frame.append((char*)&length, 4);
+    frame.push_back(
+        (char)(hashed ? rltpu::T_ALLOW_HASHED : rltpu::T_ALLOW_BATCH));
+    uint64_t id = req_id++;
+    frame.append((char*)&id, 8);
+    frame += body;
+    *sent_at = now_s();
+    return frame;
+  };
+
+  // Serialize + wire-write phase meters (timed window only): the A/B
+  // that matters for the shm lane is WHERE the per-frame time goes —
+  // encoding is transport-invariant, the write phase is not.
+  uint64_t local_ser_ns = 0, local_wire_ns = 0, local_timed = 0;
+
+  std::vector<double> sent_at((size_t)inflight + 8, 0.0);
+  auto store_sent = [&](double t) { sent_at[(req_id - 1) % sent_at.size()] = t; };
+
+  for (int i = 0; i < inflight; ++i) {
+    double t;
+    std::string f = make_frame(&t);
+    store_sent(t);
+    bool ok = use_shm ? shm_send(&shm, f, now_s() + 10.0) : send_all(f);
+    if (!ok) {
+      close(fd);
+      return;
+    }
+  }
+
+  std::string rbuf;
+  char tmp[65536];
+  std::vector<double> local_lat;
+  uint64_t local_completed = 0, local_allowed = 0;
+  while (now_s() < sh->t_stop) {
+    if (use_shm) {
+      if (!shm_recv(&shm, &rbuf, sh->t_stop)) break;
+    } else {
+      ssize_t r = recv(fd, tmp, sizeof(tmp), 0);
+      if (r <= 0) break;
+      rbuf.append(tmp, (size_t)r);
+    }
+    size_t off = 0;
+    while (rbuf.size() - off >= 13) {
+      uint32_t length;
+      memcpy(&length, rbuf.data() + off, 4);
+      if (rbuf.size() - off < 4 + length) break;
+      uint8_t type = (uint8_t)rbuf[off + 4];
+      uint64_t rid;
+      memcpy(&rid, rbuf.data() + off + 5, 8);
+      if (type == rltpu::T_RESULT_BATCH || type == rltpu::T_RESULT_HASHED) {
+        const char* body = rbuf.data() + off + 13;
+        uint32_t count;
+        // RESULT_BATCH: i64 limit | u32 count | 25B items.
+        // RESULT_HASHED: u8 flags | i64 limit | u32 count | bit mask |
+        // columnar i64/f64/f64.
+        bool h = type == rltpu::T_RESULT_HASHED;
+        memcpy(&count, body + (h ? 9 : 8), 4);
+        double t1 = now_s();
+        bool timed = t1 >= sh->t_measure;
+        if (timed) {
+          local_completed += count;
+          if (h) {
+            const uint8_t* bits = (const uint8_t*)body + 13;
+            for (uint32_t i = 0; i < count; ++i)
+              local_allowed += (bits[i >> 3] >> (i & 7)) & 1;
+          } else {
+            const char* items = body + 12;
+            for (uint32_t i = 0; i < count; ++i)
+              local_allowed += (uint8_t)items[i * 25] & 1;
+          }
+          double t0 = sent_at[rid % sent_at.size()];
+          if (t0 > 0) local_lat.push_back(t1 - t0);
+        }
+        if (now_s() < sh->t_stop) {
+          double ts0 = now_s();
+          double t;
+          std::string f = make_frame(&t);
+          double ts1 = now_s();
+          store_sent(t);
+          bool ok =
+              use_shm ? shm_send(&shm, f, sh->t_stop + 5.0) : send_all(f);
+          double ts2 = now_s();
+          if (timed) {
+            local_ser_ns += (uint64_t)((ts1 - ts0) * 1e9);
+            local_wire_ns += (uint64_t)((ts2 - ts1) * 1e9);
+            ++local_timed;
+          }
+          if (!ok) break;
+        }
+      }
+      off += 4 + length;
+    }
+    if (off) rbuf.erase(0, off);
+  }
+  close(fd);
+  sh->completed.fetch_add(local_completed);
+  sh->allowed.fetch_add(local_allowed);
+  sh->ser_ns.fetch_add(local_ser_ns);
+  sh->wire_ns.fetch_add(local_wire_ns);
+  sh->timed_frames.fetch_add(local_timed);
+  std::lock_guard<std::mutex> g(sh->lat_mx);
+  sh->latencies.insert(sh->latencies.end(), local_lat.begin(),
+                       local_lat.end());
+}
+
+}  // namespace
+
+int main(int argc, char** argv) {
+  // Pull --transport out before positional parsing (it can sit anywhere).
+  Transport tr = TR_TCP;
+  std::vector<char*> pos;
+  for (int i = 0; i < argc; ++i) {
+    if (i > 0 && std::strcmp(argv[i], "--transport") == 0 && i + 1 < argc) {
+      const char* v = argv[++i];
+      if (std::strcmp(v, "uds") == 0)
+        tr = TR_UDS;
+      else if (std::strcmp(v, "shm") == 0)
+        tr = TR_SHM;
+      else if (std::strcmp(v, "tcp") != 0) {
+        std::fprintf(stderr, "unknown transport %s\n", v);
+        return 2;
+      }
+      continue;
+    }
+    pos.push_back(argv[i]);
+  }
+  int pargc = (int)pos.size();
+  if (pargc < 8 || pargc > 11) {
+    std::fprintf(stderr,
+                 "usage: %s <host> <port> <seconds> <threads> <inflight> "
+                 "<keys_per_frame> <n_keys> [batch|hashed] "
+                 "[affine_shards] [spread] [--transport tcp|uds|shm]\n",
+                 pos[0]);
+    return 2;
+  }
+  const char* host = pos[1];
+  int port = atoi(pos[2]);
+  double seconds = atof(pos[3]);
+  int threads = atoi(pos[4]);
+  int inflight = atoi(pos[5]);
+  int frame_keys = atoi(pos[6]);
+  int n_keys = atoi(pos[7]);
+  bool hashed = pargc >= 9 && std::strcmp(pos[8], "hashed") == 0;
+  int affine = (pargc >= 10 && hashed) ? atoi(pos[9]) : 0;
+  int spread = (pargc >= 11 && hashed) ? atoi(pos[10]) : 1;
+  if (spread < 1) spread = 1;
+
+  Shared sh;
+  double warmup = 1.0;
+  sh.t_measure = now_s() + warmup;
+  sh.t_stop = sh.t_measure + seconds;
+
+  std::vector<std::thread> ts;
+  for (int i = 0; i < threads; ++i)
+    ts.emplace_back(worker, host, port, inflight, frame_keys, n_keys, i,
+                    hashed, affine, spread, tr, &sh);
+  for (auto& t : ts) t.join();
+
+  double span = seconds;
+  std::vector<double>& lat = sh.latencies;
+  std::sort(lat.begin(), lat.end());
+  auto pct = [&](double p) {
+    if (lat.empty()) return 0.0;
+    return lat[std::min(lat.size() - 1, (size_t)(p * lat.size()))] * 1e3;
+  };
+  uint64_t tf = sh.timed_frames.load();
+  double ser_us = tf ? (double)sh.ser_ns.load() / tf / 1e3 : 0.0;
+  double wire_us = tf ? (double)sh.wire_ns.load() / tf / 1e3 : 0.0;
+  const char* trs = tr == TR_SHM ? "shm" : (tr == TR_UDS ? "uds" : "tcp");
+  std::printf(
+      "{\"decisions_per_sec\": %.1f, \"completed\": %llu, "
+      "\"allowed\": %llu, \"frame_p50_ms\": %.2f, \"frame_p99_ms\": %.2f, "
+      "\"threads\": %d, \"inflight_frames\": %d, \"keys_per_frame\": %d, "
+      "\"mode\": \"%s\", \"affine_shards\": %d, \"spread\": %d, "
+      "\"transport\": \"%s\", \"serialize_us_per_frame\": %.3f, "
+      "\"wire_write_us_per_frame\": %.3f}\n",
+      (double)sh.completed.load() / span,
+      (unsigned long long)sh.completed.load(),
+      (unsigned long long)sh.allowed.load(), pct(0.50), pct(0.99), threads,
+      inflight, frame_keys, hashed ? "hashed" : "batch", affine, spread, trs,
+      ser_us, wire_us);
+  return 0;
+}

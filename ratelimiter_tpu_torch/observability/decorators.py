@@ -346,21 +346,21 @@ def _error_kind(exc: Exception) -> str:
     return "internal"
 
 
-#: The gauges' ``shard`` label. The JAX binary runs one decorator per
-#: dispatch shard and labels each; the port serves one shard, so every
-#: series is ``shard="0"``, the JAX text for a single-shard binary.
-_SHARD = "0"
-
-
 class MetricsDecorator(LimiterDecorator):
     """Records the reference-specced metric families into a Registry
     (``docs/ADR/003:44-66``; names ``docs/ARCHITECTURE.md:550-566``)."""
 
     def __init__(self, inner: RateLimiter,
-                 registry: Optional[m.Registry] = None):
+                 registry: Optional[m.Registry] = None,
+                 shard: str = "0"):
         super().__init__(inner)
         reg = registry if registry is not None else m.DEFAULT
         self.registry = reg
+        #: The gauges' ``shard`` label: with dispatch shards (the native
+        #: door's ``--shards``) each shard's decorator labels its own
+        #: series, so an overloaded shard is not hidden behind the last
+        #: one observed.
+        self._shard = str(shard)
         self._algo = str(inner.config.algorithm)
         self._requests = reg.counter(
             "rate_limiter_requests_total",
@@ -397,7 +397,7 @@ class MetricsDecorator(LimiterDecorator):
                 "rate_limiter_sketch_mass_budget",
                 "Admitted-mass level where collision error reaches ~1% "
                 "false denies for this geometry")
-            self._budget_g.set(float(base.mass_budget), shard=_SHARD)
+            self._budget_g.set(float(base.mass_budget), shard=self._shard)
         # Debt-slab surface (token-bucket sketch only): the continuous-
         # decay mirror of the mass watchdog. Reading it costs a device
         # fetch under the backend lock, so the gauges refresh via a
@@ -444,15 +444,15 @@ class MetricsDecorator(LimiterDecorator):
         for i, sl in self._debt_slabs:
             st = sl.debt_slab_stats()
             self._debt_occ_g.set(st["occupancy"],
-                                 shard=_SHARD, slice=str(i))
+                                 shard=self._shard, slice=str(i))
             self._debt_coll_g.set(st["collision_p"],
-                                  shard=_SHARD, slice=str(i))
+                                  shard=self._shard, slice=str(i))
 
     def _collect_consumers(self) -> None:
         for i, sl in self._hh_units:
             st = sl.consumer_stats(k=5)
             self._hh_occ_g.set(float(st["occupied"]),
-                               shard=_SHARD, slice=str(i))
+                               shard=self._shard, slice=str(i))
             top = st["top"]
             # Every rank 1..5 is written each scrape: when the list
             # SHRINKS (a hot key's window rolled off), the vacated
@@ -462,7 +462,7 @@ class MetricsDecorator(LimiterDecorator):
             for rank in range(1, 6):
                 mass = (float(top[rank - 1]["in_window"])
                         if rank <= len(top) else 0.0)
-                self._hh_top_g.set(mass, shard=_SHARD,
+                self._hh_top_g.set(mass, shard=self._shard,
                                    slice=str(i), rank=str(rank))
 
     def close(self) -> None:
@@ -478,11 +478,11 @@ class MetricsDecorator(LimiterDecorator):
     def _observe_envelope(self) -> None:
         if self._sketch is not None:
             self._overload_g.set(float(self._sketch.overload_periods),
-                                 shard=_SHARD)
+                                 shard=self._shard)
             self._mass_g.set(float(self._sketch.in_window_admitted_mass()),
-                             shard=_SHARD)
+                             shard=self._shard)
             self._budget_g.set(float(self._sketch.mass_budget),
-                               shard=_SHARD)
+                               shard=self._shard)
 
     def _result_label(self, res: Result) -> str:
         if res.fail_open:

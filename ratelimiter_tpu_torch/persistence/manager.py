@@ -21,16 +21,15 @@ succeeded, and the caller's response implies durability (under
 loses a mutation that was never acknowledged — indistinguishable, to
 the caller, from crashing a moment earlier.
 
-Left out: the shard router for resets and the mesh's slice restorer
-(ROADMAP A8), and the fleet's auxiliary units and the lease table's
-sidecar (A8, A13).
+Left out: the mesh's slice restorer (ROADMAP A8), and the fleet's
+auxiliary units and the lease table's sidecar (A8, A13d).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
 from ratelimiter_tpu_torch.core.config import PersistenceSpec
@@ -68,6 +67,7 @@ class PersistenceManager:
             max_bytes=spec.wal_max_bytes)
         self._registry = reg
         self._limiters: List[RateLimiter] = []
+        self._shard_of: Optional[Callable[[str], int]] = None
         self.snapshotter: Optional[Snapshotter] = None
         self.report: Optional[RecoveryReport] = None
         self._replaying = False
@@ -81,11 +81,14 @@ class PersistenceManager:
         surface mutates through the top of the stack."""
         return PersistentLimiter(limiter, self)
 
-    def attach(self, limiters: List[RateLimiter]) -> None:
-        """Register the final limiter stack(s) — one per dispatch shard;
-        the first owns every key's reset. Builds the snapshotter; call
-        before recover()/start()."""
+    def attach(self, limiters: List[RateLimiter],
+               shard_of: Optional[Callable[[str], int]] = None) -> None:
+        """Register the final limiter stack(s) — one per dispatch shard —
+        plus the shard router (a replayed reset must land on the owning
+        shard; the native door's ``shard_of``). Builds the snapshotter;
+        call before recover()/start()."""
         self._limiters = list(limiters)
+        self._shard_of = shard_of
         self.snapshotter = Snapshotter(
             self._limiters, self.wal, self.dir,
             interval=self.spec.snapshot_interval,
@@ -101,7 +104,8 @@ class PersistenceManager:
         assert self._limiters, "attach() first"
         self._replaying = True
         try:
-            self.report = recover(self._limiters, self.dir)
+            self.report = recover(self._limiters, self.dir,
+                                  shard_of=self._shard_of)
         finally:
             self._replaying = False
         return self.report

@@ -22,8 +22,7 @@ under-counting (fail-toward-allowing) direction. Replay application is
 idempotent, so records the snapshot already contains reapply harmlessly.
 
 Left out: ``recover_unit``, the slice-scoped recovery of the mesh's
-quarantine tier, and routing a replayed reset to its key's shard among
-several (the port's door runs one; ROADMAP A8).
+quarantine tier (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from __future__ import annotations
 import logging
 import os
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 from ratelimiter_tpu_torch.core.errors import CheckpointError
 from ratelimiter_tpu_torch.persistence import wal as walmod
@@ -113,7 +112,8 @@ def _restore_snapshot(limiters: List, dir_: str) -> RecoveryReport:
     return report
 
 
-def _apply(rec: walmod.WalRecord, limiters: List) -> None:
+def _apply(rec: walmod.WalRecord, limiters: List,
+           shard_of: Optional[Callable[[str], int]]) -> None:
     p = rec.payload
     if rec.type == walmod.REC_POLICY_SET:
         for lim in limiters:
@@ -123,10 +123,13 @@ def _apply(rec: walmod.WalRecord, limiters: List) -> None:
         for lim in limiters:
             lim.delete_override(p["key"])
     elif rec.type == walmod.REC_RESET:
-        # The first limiter owns every key: the port's door runs one
-        # dispatch shard (the JAX package routes a reset to its key's
-        # shard among several).
-        limiters[0].reset(p["key"])
+        # Reset routes to the key's owning shard only, as the live reset
+        # does: on a sketch shard that never saw the key, reset would
+        # subtract colliding keys' mass.
+        if shard_of is not None and len(limiters) > 1:
+            limiters[shard_of(p["key"]) % len(limiters)].reset(p["key"])
+        else:
+            limiters[0].reset(p["key"])
     elif rec.type == walmod.REC_UPDATE_LIMIT:
         for lim in limiters:
             lim.update_limit(int(p["limit"]))
@@ -137,8 +140,11 @@ def _apply(rec: walmod.WalRecord, limiters: List) -> None:
         raise CheckpointError(f"unknown WAL record type {rec.type}")
 
 
-def recover(limiters: List, dir_: str) -> RecoveryReport:
-    """Restore ``limiters`` (one per dispatch shard) from ``dir_``.
+def recover(limiters: List, dir_: str, *,
+            shard_of: Optional[Callable[[str], int]] = None,
+            ) -> RecoveryReport:
+    """Restore ``limiters`` (one per dispatch shard) from ``dir_``;
+    ``shard_of`` routes a replayed reset to its key's shard.
 
     Never raises on torn/truncated WAL data (the log replays to its
     intact prefix); DOES raise CheckpointError on config-fingerprint
@@ -151,7 +157,7 @@ def recover(limiters: List, dir_: str) -> RecoveryReport:
     report = _restore_snapshot(limiters, dir_)
     for rec in walmod.replay(dir_, after_seq=report.wal_seq):
         try:
-            _apply(rec, limiters)
+            _apply(rec, limiters, shard_of)
             report.replayed += 1
         except Exception as exc:
             msg = (f"seq {rec.seq} ({walmod.REC_NAMES.get(rec.type, '?')}): "

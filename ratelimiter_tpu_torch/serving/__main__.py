@@ -67,6 +67,21 @@ of the served decisions, ``--audit-twin`` adding the collision-free
 twin on the serving limiter's device) and the SLO burn tracker
 (observability/slo.py), whose statuses the AIMD controller reads; the
 dense and exact backends refuse it, as in the JAX binary.
+
+``--native`` serves the binary door through the C++ front door
+(serving/native_server.py over native/server.cpp, built with g++ before
+the ``serving(native)`` line; a failed build stops the binary with the
+compiler's message): ``--shards N`` dispatch shards on the one device,
+keys routed by FNV-1a, each shard under the decorator stack with its own
+``shard`` label and the persistence wrapper (the WAL's resets replay onto
+their shard; with ``--tenants`` each shard enforces 1/N of the tenant and
+global limits); ``--net-engine`` and ``--io-rings`` its io threads. Both
+doors take ``--listen unix:/path`` and ``--shm`` (``--shm-dir``,
+``--shm-ring-bytes``: the shared-memory lane). ``--shards`` needs
+``--native``. With no ``--algorithm`` the binary serves ``tpu_sketch``
+(the JAX binary's default), which decides as the sliding window; a
+snapshot taken under ``--algorithm sliding_window`` restores only under
+that flag (the fingerprint names the algorithm).
 """
 
 from __future__ import annotations
@@ -103,7 +118,29 @@ def build_parser() -> argparse.ArgumentParser:
         description="Count-min-sketch rate limiter on a CUDA card.")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8432)
-    ap.add_argument("--algorithm", default="sliding_window",
+    ap.add_argument("--listen", default=None, metavar="ADDR",
+                    help="binary-door bind override: 'unix:/path' listens "
+                         "on a unix domain socket instead of TCP (--port "
+                         "ignored for the binary door; the HTTP gateway "
+                         "keeps --host)")
+    ap.add_argument("--shm", action="store_true",
+                    help="enable the zero-syscall shared-memory wire "
+                         "lane: a connected client may send SHM_HELLO to "
+                         "upgrade its connection to per-connection ring "
+                         "pairs in --shm-dir carrying the SAME wire "
+                         "frames; the socket stays open as the liveness "
+                         "channel. Off (the default) = wire bytes "
+                         "identical to a server without this flag")
+    ap.add_argument("--shm-dir", default="/dev/shm", metavar="DIR",
+                    help="--shm: directory for the ring files (0600, "
+                         "unlinked after the handshake; same-uid trust "
+                         "boundary)")
+    ap.add_argument("--shm-ring-bytes", type=int, default=0, metavar="B",
+                    help="--shm: per-direction ring capacity (power of "
+                         "two, clamped to [64KiB, 64MiB]; 0 = 2MiB "
+                         "default). A client's hello may request its "
+                         "own size; the server clamps")
+    ap.add_argument("--algorithm", default="tpu_sketch",
                     choices=_ALGORITHMS)
     ap.add_argument("--backend", default="sketch",
                     choices=["exact", "dense", "sketch"],
@@ -152,6 +189,28 @@ def build_parser() -> argparse.ArgumentParser:
                     help="launches kept in flight on the card, overlapping "
                          "host staging and result copies with device "
                          "work; 1 restores launch-then-wait")
+    ap.add_argument("--native", action="store_true",
+                    help="use the C++ front door (native/server.cpp, "
+                         "built with g++ on first use) instead of the "
+                         "asyncio server; a failed build stops the "
+                         "binary with the compiler's message")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="native front door dispatch shards: keys are "
+                         "hash-routed, each shard decides on its own "
+                         "limiter on the same card (per-key semantics "
+                         "exact)")
+    ap.add_argument("--net-engine", default="auto",
+                    choices=("auto", "epoll", "uring"),
+                    help="native door wire backend: auto probes io_uring "
+                         "at startup and falls back to epoll when the "
+                         "kernel or seccomp refuses; epoll forces the "
+                         "portable backend; uring requests io_uring but "
+                         "still downgrades (recorded in stats/healthz) "
+                         "rather than failing")
+    ap.add_argument("--io-rings", type=int, default=0,
+                    help="native door io ring shards: event-loop threads "
+                         "connections are pinned to by accept order; 0 = "
+                         "auto (min(4, cores))")
     ap.add_argument("--snapshot-dir", default=None,
                     help="enable the durability subsystem: write-ahead "
                          "log for mutations (policy/reset/config) plus "
@@ -362,6 +421,9 @@ def build_config(args: argparse.Namespace) -> Config:
         raise SystemExit("--audit needs a sketch-family backend "
                          "(exact/dense decisions are already exact — "
                          "there is nothing to audit)")
+    if args.shards > 1 and not args.native:
+        raise SystemExit("--shards needs --native (the asyncio front door "
+                         "has one dispatcher)")
     if cfg.hierarchy.enabled and args.max_batch > ADMIT_CAPACITY:
         raise SystemExit(f"--max-batch {args.max_batch} with --tenants: the "
                          f"cascade decides at most {ADMIT_CAPACITY} requests "
@@ -554,8 +616,9 @@ def _hierarchy_health(hier, controller) -> dict:
 
 
 def make_member_info(args: argparse.Namespace, registry=None):
-    """Member identity as the JAX binary gives it for an asyncio door
-    outside a fleet (no epoch): the /healthz ``member`` block, also
+    """Member identity as the JAX binary gives it outside a fleet (no
+    epoch): the door (``native`` with the port's door ABI, or
+    ``asyncio`` with ``py``), the /healthz ``member`` block, also
     exported as the ``rate_limiter_member_info`` identity gauge (value 1,
     the block's fields as labels, the member id under ``id``) on
     ``registry`` (the process default when None), refreshed at scrape
@@ -564,10 +627,16 @@ def make_member_info(args: argparse.Namespace, registry=None):
     from ratelimiter_tpu_torch.observability import metrics
 
     registry = registry if registry is not None else metrics.DEFAULT
+    abi = "py"
+    if args.native:
+        from ratelimiter_tpu_torch.serving.native_server import _ABI
+
+        abi = str(_ABI)
 
     def info() -> dict:
         return {"self": f"{args.host}:{args.port}", "backend": args.backend,
-                "algorithm": args.algorithm, "door": "asyncio", "abi": "py",
+                "algorithm": args.algorithm,
+                "door": "native" if args.native else "asyncio", "abi": abi,
                 "fleet_epoch": None}
 
     g_info = registry.gauge(
@@ -691,13 +760,14 @@ def make_gateway(args: argparse.Namespace, limiter, server, loop, *,
         tenants_token=args.http_tenants_token)
 
 
-def build_limiter_stack(limiter, args, registry=None):
+def build_limiter_stack(limiter, args, registry=None, shard: int = 0):
     """Apply the configured decorator stack, innermost first (the JAX
     binary's order): Tracing (annotates the real device dispatch),
     CircuitBreaker (judges backend health from real calls), Metrics
     (observes everything, including breaker short-circuits, into
-    ``registry``, the process default when None), Logging (outermost,
-    sees final outcomes)."""
+    ``registry``, the process default when None; ``shard`` labels its
+    gauges, so dispatch shards report distinct series), Logging
+    (outermost, sees final outcomes)."""
     from ratelimiter_tpu_torch.observability.decorators import (
         CircuitBreakerDecorator,
         LoggingDecorator,
@@ -712,7 +782,8 @@ def build_limiter_stack(limiter, args, registry=None):
             limiter, failure_threshold=args.breaker_threshold,
             cooldown=args.breaker_cooldown, registry=registry)
     if not args.no_metrics:
-        limiter = MetricsDecorator(limiter, registry=registry)
+        limiter = MetricsDecorator(limiter, registry=registry,
+                                   shard=str(shard))
     if args.log_decisions:
         limiter = LoggingDecorator(limiter,
                                    redact_keys=args.log_redact_keys)
@@ -736,15 +807,17 @@ def enable_observability(args: argparse.Namespace, registry=None) -> None:
                       spill_dir=args.event_journal_dir)
 
 
-def prewarm(limiter) -> float:
+def prewarm(limiter, *, door: bool = False) -> float:
     """Build and load what the first frames would otherwise build: the
-    C++ bulk hasher, and on a CUDA device the backend's kernel libraries
-    (one nvcc each, in parallel). Touches no limiter state. Returns the
-    seconds it took."""
+    C++ bulk hasher, with ``door`` the native door's extension, and on a
+    CUDA device the backend's kernel libraries (one nvcc each, in
+    parallel). Touches no limiter state. Returns the seconds it took."""
     from ratelimiter_tpu_torch import native
 
     t = time.perf_counter()
     native.bulk_hash_u64(["prewarm"])
+    if door:
+        native.load_server()
     device = getattr(limiter, "device", None)
     if device is not None and device.type == "cuda":
         from ratelimiter_tpu_torch.ops import (
@@ -764,6 +837,15 @@ def prewarm(limiter) -> float:
     return time.perf_counter() - t
 
 
+def _signals(loop, stop):
+    """``stop``, or a new event that SIGINT/SIGTERM set."""
+    if stop is None:
+        stop = asyncio.Event()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+    return stop
+
+
 async def serve(args: argparse.Namespace, *, make_limiter=None,
                 ready=None, stop=None) -> None:
     """The binary's service, start to graceful stop. ``make_limiter(cfg)``
@@ -773,24 +855,41 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
     ``slo``, ``hier``, ``controller``, ``persist``, ``member_info``) once
     the door and the
     gateway listen; ``stop``, an asyncio event, ends the service instead
-    of SIGINT/SIGTERM."""
+    of SIGINT/SIGTERM. ``--native`` serves through the C++ door
+    (``serve_native``)."""
     logging.basicConfig(level=args.log_level.upper())
     enable_observability(args)
     cfg = build_config(args)
+    # A multi-shard native door: each dispatch shard enforces its share
+    # of every tenant and global limit (the clones inherit the divisor).
+    divisor = (args.shards if cfg.hierarchy.enabled and args.native
+               and args.shards > 1 and args.backend == "sketch" else 1)
     limiter = (make_limiter(cfg) if make_limiter is not None
                else create_limiter(cfg, backend=args.backend,
-                                   device=args.device))
-    built_s = prewarm(limiter)
-    limiter = build_limiter_stack(limiter, args)
+                                   device=args.device,
+                                   hier_divisor=divisor))
+    built_s = prewarm(limiter, door=args.native)
     persist = None
     if cfg.persistence.enabled:
         from ratelimiter_tpu_torch.persistence import PersistenceManager
 
-        # The JAX binary's order: wrap (outermost, around the decorator
-        # stack), attach, recover before the door listens, then start the
-        # background snapshots.
         persist = PersistenceManager(cfg.persistence)
-        limiter = persist.wrap(limiter)
+
+    def decorate(lim, shard: int = 0):
+        # The JAX binary's order: the decorator stack, then the
+        # persistence wrapper outermost, so every surface's mutations
+        # reach the WAL.
+        lim = build_limiter_stack(lim, args, shard=shard)
+        return persist.wrap(lim) if persist is not None else lim
+
+    limiter = decorate(limiter)
+    if args.native:
+        await serve_native(args, cfg, limiter, persist, decorate, built_s,
+                           ready=ready, stop=stop)
+        return
+    if persist is not None:
+        # Attach, recover before the door listens, then start the
+        # background snapshots.
         persist.attach([limiter])
         t = time.perf_counter()
         report = persist.recover()
@@ -805,13 +904,15 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
                                        slo_tracker=slo_tracker,
                                        auditor=auditor)
     server = RateLimitServer(
-        limiter, args.host, args.port, max_batch=args.max_batch,
+        limiter, args.listen or args.host, args.port,
+        max_batch=args.max_batch,
         max_delay=args.max_delay_us * 1e-6,
         dispatch_timeout=(args.dispatch_timeout_ms * 1e-3
                           if args.dispatch_timeout_ms is not None else None),
         inflight=args.inflight,
         snapshot=persist.snapshot_now if persist is not None else None,
-        max_window=max_window(args, cfg))
+        max_window=max_window(args, cfg), shm=args.shm,
+        shm_dir=args.shm_dir, shm_ring_bytes=args.shm_ring_bytes)
     await server.start()
     loop = asyncio.get_running_loop()
     gateway = None
@@ -823,16 +924,14 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         gateway.start()
     if controller is not None:
         controller.start()
-    if stop is None:
-        stop = asyncio.Event()
-        for sig in (signal.SIGINT, signal.SIGTERM):
-            loop.add_signal_handler(sig, stop.set)
+    stop = _signals(loop, stop)
     print(f"serving {args.algorithm}/{args.backend} "
           f"limit={limiter.config.limit}/{limiter.config.window:g}s "
-          f"on {args.host}:{server.port} "
+          f"on {args.listen or f'{args.host}:{server.port}'} "
           f"device={getattr(limiter, 'device', 'host')} "
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)"
+          + (" shm" if args.shm else "")
           + (f" http:{gateway.port}" if gateway is not None else ""),
           flush=True)
     if ready is not None:
@@ -853,16 +952,150 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
             # After the drain, before close: the final snapshot captures
             # every answered decision — a graceful shutdown loses nothing.
             persist.stop()
-        if auditor is not None:
-            from ratelimiter_tpu_torch.observability import audit
+        _stop_observability(auditor, slo_tracker, member_collect)
+        limiter.close()
+        from ratelimiter_tpu_torch.observability import events
 
-            auditor.flush(timeout=2.0)
-            audit.disable()
-        if slo_tracker is not None:
-            slo_tracker.detach()
-        from ratelimiter_tpu_torch.observability import metrics
+        events.disable()
 
-        metrics.DEFAULT.remove_collect_hook(member_collect)
+
+def _stop_observability(auditor, slo_tracker, member_collect) -> None:
+    from ratelimiter_tpu_torch.observability import audit, metrics
+
+    if auditor is not None:
+        auditor.flush(timeout=2.0)
+        audit.disable()
+    if slo_tracker is not None:
+        slo_tracker.detach()
+    metrics.DEFAULT.remove_collect_hook(member_collect)
+
+
+async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
+                       persist, decorate, built_s: float, *, ready=None,
+                       stop=None) -> None:
+    """``--native``: the C++ door (serving/native_server.py) over
+    ``limiter`` and, with ``--shards N``, N - 1 clones each under
+    ``decorate(clone, i)`` (the decorator stack under shard ``i``'s
+    label, the persistence wrapper); the JAX binary's native branch
+    without the mesh, the fleet, DCN, leases, gRPC and quarantine. The
+    persistence manager attaches every shard with the door's router and
+    recovers before the door listens; the HTTP gateway decides through
+    ``decide_one`` (the shard router)."""
+    from ratelimiter_tpu_torch.observability import metrics
+    from ratelimiter_tpu_torch.serving.http_gateway import HttpGateway
+    from ratelimiter_tpu_torch.serving.native_server import (
+        NativeRateLimitServer,
+    )
+
+    auditor, slo_tracker = setup_audit(args, cfg, limiter)
+    member_info, member_collect = make_member_info(args)
+    server = NativeRateLimitServer(
+        limiter, args.listen or args.host, args.port,
+        shm=args.shm, shm_dir=args.shm_dir,
+        shm_ring_bytes=args.shm_ring_bytes,
+        max_batch=args.max_batch, max_delay=args.max_delay_us * 1e-6,
+        dispatch_timeout=(args.dispatch_timeout_ms * 1e-3
+                          if args.dispatch_timeout_ms else None),
+        inflight=args.inflight, shards=args.shards,
+        net_engine=args.net_engine, io_rings=args.io_rings,
+        shard_decorate=lambda lim, i: decorate(lim, shard=i))
+    if persist is not None:
+        # Recover BEFORE the listener opens: the restored snapshot and
+        # the replayed mutations precede the first decision.
+        persist.attach(server.shard_limiters, shard_of=server.shard_of)
+        t = time.perf_counter()
+        report = persist.recover()
+        print(f"recovered: {report.summary()} in "
+              f"{time.perf_counter() - t:.3f} s", flush=True)
+        persist.start()
+    server.start()
+    # After recovery (the hier_* columns restore first), before the
+    # gateway, whose /healthz and /v1/tenants mount it.
+    hier, controller = setup_hierarchy(args, cfg, server.shard_limiters,
+                                       slo_tracker=slo_tracker,
+                                       auditor=auditor)
+    gateway = None
+    if args.http_port is not None:
+        lims = server.shard_limiters
+
+        def health() -> dict:
+            return {"serving": True,
+                    "decisions_total": server.stats()["decisions_total"],
+                    "policy_overrides": lims[0].override_count(),
+                    "transport": server.transport_stats(),
+                    "member": member_info(),
+                    **_envelope_health(lims),
+                    **_debt_slab_health(lims),
+                    **_consumers_health(lims),
+                    **_audit_health(),
+                    **_slo_health(slo_tracker),
+                    **_hierarchy_health(hier, controller),
+                    **_events_health(),
+                    **(persist.status() if persist is not None else {})}
+
+        gateway = HttpGateway(
+            server.decide_one, server.reset_one,
+            host=args.host, port=args.http_port,
+            metrics_render=metrics.DEFAULT.render,
+            health=health,
+            enable_reset=bool(args.http_reset or args.http_reset_token),
+            reset_token=args.http_reset_token,
+            # Overrides apply on every shard (keys hash-route).
+            policy_set=server.set_override_all,
+            policy_get=server.get_override_one,
+            policy_delete=server.delete_override_all,
+            enable_policy=bool(args.http_policy or args.http_policy_token),
+            policy_token=args.http_policy_token,
+            snapshot=(persist.snapshot_now if persist is not None
+                      else None),
+            snapshot_token=args.http_snapshot_token,
+            enable_debug=bool(args.debug_trace or args.debug_token),
+            debug_token=args.debug_token,
+            audit_status=(make_audit_status(auditor, slo_tracker, lims)
+                          if args.audit else None),
+            audit_token=args.audit_token,
+            tenants=hier,
+            enable_tenants=bool(args.http_tenants
+                                or args.http_tenants_token),
+            tenants_token=args.http_tenants_token)
+        gateway.start()
+    if controller is not None:
+        controller.start()
+    stop = _signals(asyncio.get_running_loop(), stop)
+    net = server.transport_stats()["net"]
+    print(f"serving(native) {args.algorithm}/{args.backend} "
+          f"limit={limiter.config.limit}/{limiter.config.window:g}s "
+          f"on {args.listen or f'{args.host}:{server.port}'} "
+          f"device={getattr(limiter, 'device', 'host')} "
+          f"shards={args.shards} net={net.get('engine', '?')}"
+          f"x{net.get('rings', '?')}(probe={net.get('uring_probe', '?')}) "
+          f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
+          f"inflight={args.inflight} (built in {built_s:.1f} s)"
+          + (" shm" if args.shm else "")
+          + (f" http:{gateway.port}" if gateway is not None else ""),
+          flush=True)
+    if ready is not None:
+        ready.set_result(SimpleNamespace(
+            limiter=limiter, server=server, gateway=gateway,
+            auditor=auditor, slo=slo_tracker, hier=hier,
+            controller=controller, persist=persist,
+            member_info=member_info))
+    try:
+        await stop.wait()
+    finally:
+        if controller is not None:
+            controller.stop()
+        if gateway is not None:
+            gateway.shutdown()
+        if persist is not None:
+            # The door first (it answers what is in flight), then the
+            # final snapshot of every shard, then the clones close.
+            server.shutdown(close_limiters=False)
+            persist.stop()
+            server.close_shards()
+        else:
+            server.shutdown()
+        _stop_observability(auditor, slo_tracker, member_collect)
         limiter.close()
         from ratelimiter_tpu_torch.observability import events
 

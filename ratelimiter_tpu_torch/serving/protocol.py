@@ -23,6 +23,12 @@ Requests:
     ALLOW_HASHED (11): u32 count | u64 ids[count] | u32 ns[count] — raw
                        u64 ids, splitmix64 and the (h1, h2) split run on
                        the device
+    SHM_HELLO    (16): u32 version | u32 req_ring_bytes | u32
+                       rep_ring_bytes (0 = the server's default): the
+                       shared-memory lane's upgrade, matched on the RAW
+                       type byte (16 is the forward bit over base type
+                       0, which is no request) before any flag is
+                       stripped; it never carries an extension
 
 Responses:
     RESULT        (129): u8 flags (bit0 allowed, bit1 fail_open), i64 limit,
@@ -35,6 +41,9 @@ Responses:
                          f64 reset}
     POLICY_R      (134): u8 found, i64 limit, f64 window_scale
     SNAPSHOT_R    (135): u64 snapshot_id, u64 wal_seq, f64 duration_s
+    SHM_HELLO_R   (141): u8 ok, u32 req_cap, u32 rep_cap, u16 len + the
+                         ring file's path, u16 len + the control
+                         socket's path
     RESULT_HASHED (136): u8 batch_flags (bit1 fail_open), i64 limit,
                          u32 count, u8 allowed_bits[ceil(count/8)]
                          (little-endian bit order), then COLUMNAR
@@ -45,7 +54,7 @@ Request frame extensions, the JAX package's bits on the type byte: the
 trace id (0x40, a u64 prefixed to the body) and the relative deadline
 budget (0x20, an f64 prefixed to the body; with both, the trace id comes
 first). ``split_request`` strips both. The fleet's forward hint (0x10)
-is not served: ``REQUEST_FLAGS`` names it so the server can refuse such
+is not served: ``REQUEST_FLAGS`` names it so both doors refuse such
 frames with E_INVALID_CONFIG.
 """
 
@@ -80,6 +89,12 @@ T_POLICY_GET = 8
 T_POLICY_DEL = 9
 T_SNAPSHOT = 10
 T_ALLOW_HASHED = 11
+#: The JAX protocol's DCN push: no door of the port serves it.
+T_DCN_PUSH = 6
+#: Shared-memory lane negotiation: 16 is the forward bit over base type
+#: 0, and base type 0 is no request, so both doors match the RAW type
+#: byte exactly before stripping any flag.
+T_SHM_HELLO = 16
 
 T_RESULT = 129
 T_OK = 130
@@ -89,6 +104,7 @@ T_RESULT_BATCH = 133
 T_POLICY_R = 134
 T_SNAPSHOT_R = 135
 T_RESULT_HASHED = 136
+T_SHM_HELLO_R = 141
 T_ERROR = 255
 
 #: Request-type extension bit of the JAX package's protocol that this
@@ -101,6 +117,9 @@ E_INVALID_KEY = 2
 E_STORAGE_UNAVAILABLE = 3
 E_CLOSED = 4
 E_INVALID_CONFIG = 5
+#: The JAX protocol's shutting-down code (a StorageUnavailableError on
+#: the client).
+E_SHUTTING_DOWN = 6
 E_INTERNAL = 7
 #: The request's propagated deadline expired before its dispatch ran
 #: (the fail-closed side of deadline shedding).
@@ -121,6 +140,24 @@ def code_for(exc: Exception) -> int:
     if isinstance(exc, InvalidConfigError):
         return E_INVALID_CONFIG
     return E_INTERNAL
+
+
+_CODE_TO_EXC = {
+    E_INVALID_N: InvalidNError,
+    E_INVALID_KEY: InvalidKeyError,
+    E_STORAGE_UNAVAILABLE: StorageUnavailableError,
+    E_CLOSED: ClosedError,
+    E_INVALID_CONFIG: InvalidConfigError,
+    E_SHUTTING_DOWN: StorageUnavailableError,
+    E_INTERNAL: RateLimiterError,
+    E_DEADLINE: DeadlineExceededError,
+}
+
+
+def exception_for(code: int, msg: str) -> Exception:
+    """The library's exception for a wire error code (the client raises
+    what a local limiter would)."""
+    return _CODE_TO_EXC.get(code, RateLimiterError)(msg)
 
 
 class ProtocolError(RateLimiterError):
@@ -491,6 +528,57 @@ def parse_result_hashed(body: bytes) -> BatchResult:
     return BatchResult(allowed=allowed, limit=limit, remaining=remaining,
                        retry_after=retry, reset_at=reset,
                        fail_open=bool(flags & 2))
+
+
+# --------------------------------------------- shared-memory lane hello
+
+_SHM_HELLO_BODY = struct.Struct("<III")   # version, req_ring, rep_ring
+_SHM_HELLO_R_HEAD = struct.Struct("<BII")  # ok, req_cap, rep_cap
+_U16 = struct.Struct("<H")
+
+
+def encode_shm_hello(req_id: int, req_ring_bytes: int = 0,
+                     rep_ring_bytes: int = 0) -> bytes:
+    """Request the shared-memory lane upgrade (0 = the server's default
+    ring size; the server clamps to a power of two in its range)."""
+    body = _SHM_HELLO_BODY.pack(1, req_ring_bytes, rep_ring_bytes)
+    return _HDR.pack(1 + 8 + len(body), T_SHM_HELLO, req_id) + body
+
+
+def parse_shm_hello(body: bytes):
+    """-> (version, req_ring_bytes, rep_ring_bytes)."""
+    if len(body) != _SHM_HELLO_BODY.size:
+        raise ProtocolError("bad SHM_HELLO body")
+    return _SHM_HELLO_BODY.unpack_from(body)
+
+
+def encode_shm_hello_r(req_id: int, req_cap: int, rep_cap: int,
+                       shm_path: str, ctrl_path: str) -> bytes:
+    sp = shm_path.encode("utf-8")
+    cp = ctrl_path.encode("utf-8")
+    body = (_SHM_HELLO_R_HEAD.pack(1, req_cap, rep_cap)
+            + _U16.pack(len(sp)) + sp + _U16.pack(len(cp)) + cp)
+    return _HDR.pack(1 + 8 + len(body), T_SHM_HELLO_R, req_id) + body
+
+
+def parse_shm_hello_r(body: bytes):
+    """-> (req_cap, rep_cap, shm_path, ctrl_path)."""
+    if len(body) < _SHM_HELLO_R_HEAD.size + 4:
+        raise ProtocolError("short SHM_HELLO_R body")
+    ok, req_cap, rep_cap = _SHM_HELLO_R_HEAD.unpack_from(body)
+    if not ok:
+        raise ProtocolError("server rejected SHM_HELLO")
+    off = _SHM_HELLO_R_HEAD.size
+    (sp_len,) = _U16.unpack_from(body, off)
+    off += 2
+    shm_path = body[off:off + sp_len].decode("utf-8")
+    off += sp_len
+    (cp_len,) = _U16.unpack_from(body, off)
+    off += 2
+    ctrl_path = body[off:off + cp_len].decode("utf-8")
+    if off + cp_len != len(body):
+        raise ProtocolError("bad SHM_HELLO_R body")
+    return req_cap, rep_cap, shm_path, ctrl_path
 
 
 # ----------------------------------------------------- policy overrides

@@ -34,20 +34,27 @@ Frames carrying the JAX protocol's forward hint are answered with
 E_INVALID_CONFIG. Every decision the door serves goes through the
 batcher, whose audit tap mirrors it to the shadow auditor when one is
 enabled (serving/batcher.py), as in the JAX asyncio door.
-``transport_stats()`` and the transport gauges it feeds at scrape time
+
+Transports, as in the JAX door: TCP, a unix socket (``host`` given as
+``unix:/path``), and with ``shm=True`` the shared-memory lane
+(serving/shm.py): a connected client sends SHM_HELLO, matched on the raw
+type byte, and its connection is upgraded to a pair of rings in
+``shm_dir`` carrying the same frames; the socket stays open as the
+liveness channel, and its close reclaims the rings. ``transport_stats()``
+and the transport gauges it feeds at scrape time
 (``rate_limiter_transport_connections``, the shared-memory lane's and
-``rate_limiter_net_writev_frames``) are the JAX door's: the port has TCP
-only, so the UDS and shared-memory counts are what the JAX door shows
-with no such connection open, zero. gRPC, the
-shared-memory lane, the native door, leases and the fleet are not ported
-(ROADMAP A13c, A13d, A8); the HTTP gateway runs beside the door in the
-binary (serving/http_gateway.py, serving/__main__.py).
+``rate_limiter_net_writev_frames``) are the JAX door's. gRPC, leases and
+the fleet are not ported (ROADMAP A13e, A13d, A8); the native door is
+serving/native_server.py, and the HTTP gateway runs beside either door
+in the binary (serving/http_gateway.py, serving/__main__.py).
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import socket
 import time
 from functools import partial
 from typing import Callable, Optional
@@ -58,6 +65,7 @@ from ratelimiter_tpu_torch.observability import metrics as m
 from ratelimiter_tpu_torch.observability import tracing
 from ratelimiter_tpu_torch.ops.hashing import key_token
 from ratelimiter_tpu_torch.serving import protocol as p
+from ratelimiter_tpu_torch.serving import shm as shm_lane
 from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
 
 log = logging.getLogger("ratelimiter_tpu_torch")
@@ -76,8 +84,23 @@ class RateLimitServer:
                  inflight: int = 8,
                  registry: Optional[m.Registry] = None,
                  snapshot: Optional[Callable[[], dict]] = None,
-                 max_window: Optional[int] = None):
+                 max_window: Optional[int] = None, shm: bool = False,
+                 shm_dir: str = "/dev/shm", shm_ring_bytes: int = 0):
         self.limiter = limiter
+        #: The shared-memory lane: off by default, and then SHM_HELLO
+        #: answers E_INVALID_CONFIG. ``host`` may be ``unix:/path`` for
+        #: a unix-socket listener on either setting.
+        self.shm = shm
+        self.shm_dir = shm_dir
+        self.shm_ring_bytes = shm_ring_bytes
+        self._shm_lanes: set = set()
+        self._lane_ctr = 0
+        self._uds_path: Optional[str] = None
+        #: Counters carried over from closed lanes, so scrapes stay
+        #: monotonic across disconnects.
+        self._shm_totals = {"doorbell_wakes": 0, "spin_hits": 0,
+                            "ring_full_stalls": 0, "records_in": 0,
+                            "records_out": 0}
         #: Durability trigger (the persistence manager's snapshot_now);
         #: None answers SNAPSHOT with E_INVALID_CONFIG.
         self.snapshot = snapshot
@@ -92,8 +115,7 @@ class RateLimitServer:
         self._started_at = time.time()
         self._serving = False
         self._conn_tasks: set = set()
-        #: Connections accepted per transport (cumulative), the JAX
-        #: door's keys; only TCP is served here.
+        #: Connections accepted per transport (cumulative).
         self._transport_conns = {"tcp": 0, "uds": 0, "shm": 0}
         #: Hashed and batch replies flushed as several buffers (the JAX
         #: door's rate_limiter_net_writev_frames).
@@ -102,9 +124,20 @@ class RateLimitServer:
     # ----------------------------------------------------------- lifecycle
 
     async def start(self) -> None:
-        self._server = await asyncio.start_server(self._handle_conn,
-                                                  self.host, self.port)
-        self.port = self._server.sockets[0].getsockname()[1]
+        if self.host.startswith("unix:"):
+            path = self.host[len("unix:"):]
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+            self._server = await asyncio.start_unix_server(
+                self._handle_conn, path)
+            self._uds_path = path
+            self.port = 0
+        else:
+            self._server = await asyncio.start_server(
+                self._handle_conn, self.host, self.port)
+            self.port = self._server.sockets[0].getsockname()[1]
         self._started_at = time.time()
         self._serving = True
         self.registry.add_collect_hook(self._collect_transport_metrics)
@@ -122,6 +155,14 @@ class RateLimitServer:
         await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
         self.batcher.close()
         self.registry.remove_collect_hook(self._collect_transport_metrics)
+        for lane in list(self._shm_lanes):
+            lane.close()
+        self._shm_lanes.clear()
+        if self._uds_path is not None:
+            try:
+                os.unlink(self._uds_path)
+            except OSError:
+                pass
 
     async def serve_forever(self) -> None:
         if self._server is None:
@@ -129,19 +170,37 @@ class RateLimitServer:
         await self._server.serve_forever()
 
     def transport_stats(self) -> dict:
-        """Per-transport counters and the shared-memory lane's gauges in
-        the JAX door's shape; the lane is not ported, so its block is the
-        JAX door's with no lane open. Never called from the decide path
-        (the registry's collect hook and /healthz read it)."""
+        """Per-transport counters and the shared-memory lanes' gauges,
+        the JAX door's shape. Snapshot reads only, never called from the
+        decide path (the registry's collect hook and /healthz read
+        it)."""
+        agg = dict(self._shm_totals)
+        active = req_used = rep_used = req_hw = rep_hw = 0
+        for lane in list(self._shm_lanes):
+            st = lane.stats
+            agg["doorbell_wakes"] += st.doorbell_wakes
+            agg["spin_hits"] += st.spin_hits
+            agg["ring_full_stalls"] += st.ring_full_stalls
+            agg["records_in"] += st.records_in
+            agg["records_out"] += st.records_out
+            if lane.closed:
+                continue
+            active += 1
+            try:
+                req_used += lane.inbound.used()
+                rep_used += lane.outbound.used()
+                req_hw = max(req_hw, lane.req_highwater)
+                rep_hw = max(rep_hw, lane.outbound.highwater)
+            except ValueError:
+                pass
         return {
             "connections": dict(self._transport_conns),
-            "shm": {"lanes_active": 0,
-                    "req_ring_used_bytes": 0, "rep_ring_used_bytes": 0,
-                    "req_ring_highwater_bytes": 0,
-                    "rep_ring_highwater_bytes": 0,
-                    "doorbell_wakes": 0, "spin_hits": 0,
-                    "ring_full_stalls": 0, "records_in": 0,
-                    "records_out": 0},
+            "shm": {"lanes_active": active,
+                    "req_ring_used_bytes": int(req_used),
+                    "rep_ring_used_bytes": int(rep_used),
+                    "req_ring_highwater_bytes": int(req_hw),
+                    "rep_ring_highwater_bytes": int(rep_hw),
+                    **agg},
         }
 
     def _collect_transport_metrics(self) -> None:
@@ -188,6 +247,24 @@ class RateLimitServer:
             "(writev/writelines batch factor)").set(
                 self._writev_frames)
 
+    async def _shm_accept(self, lane, writer: asyncio.StreamWriter,
+                          drain_cb) -> None:
+        """Second half of the hello: wait for the client's control-socket
+        connect, ship the eventfd pair (SCM_RIGHTS), unlink the
+        filesystem artifacts, then register the server doorbell with the
+        event loop. A client that never connects forfeits the lane."""
+        loop = asyncio.get_running_loop()
+        try:
+            conn, _ = await asyncio.wait_for(
+                loop.sock_accept(lane.ctrl_sock), timeout=10.0)
+            lane.complete_handshake(conn)
+        except Exception as exc:
+            log.warning("shm handshake failed: %s", exc)
+            lane.close()
+            return
+        if not lane.closed and not writer.is_closing():
+            loop.add_reader(lane.efd_server, drain_cb)
+
     # ---------------------------------------------------------- connection
 
     async def _handle_conn(self, reader: asyncio.StreamReader,
@@ -196,7 +273,15 @@ class RateLimitServer:
         req_tasks: set = set()
         task = asyncio.current_task()
         self._conn_tasks.add(task)
-        self._transport_conns["tcp"] += 1
+        sock = writer.get_extra_info("socket")
+        self._transport_conns["uds" if sock is not None
+                              and sock.family == socket.AF_UNIX
+                              else "tcp"] += 1
+        # The shared-memory lane, once SHM_HELLO upgraded the
+        # connection; the socket this coroutine reads stays open as the
+        # liveness channel, so its finally block reclaims the rings.
+        lane_box: list = []
+        lane_tasks: set = set()
 
         def check_backpressure() -> None:
             transport = writer.transport
@@ -213,6 +298,8 @@ class RateLimitServer:
             # slowly is cut off past WRITE_BUFFER_LIMIT instead. ``vec``
             # marks the frames the JAX door writes vectored (hashed and
             # batch results), which its writev counter counts.
+            if writer.is_closing():
+                return  # the connection is gone (its reader owns teardown)
             try:
                 writer.writelines(bufs)
                 if vec:
@@ -221,46 +308,195 @@ class RateLimitServer:
             except (ConnectionResetError, BrokenPipeError, RuntimeError):
                 pass
 
-        def complete_allow(req_id: int, trace_id: int,
+        def shm_abort(reason: str) -> None:
+            log.warning("dropping shm connection: %s", reason)
+            if lane_box:
+                try:
+                    asyncio.get_running_loop().remove_reader(
+                        lane_box[0].efd_server)
+                except (OSError, RuntimeError):
+                    pass
+            if writer.transport is not None:
+                writer.transport.abort()
+
+        def shm_vec(bufs, vec: bool = False) -> None:
+            # Every reply of an upgraded connection rides the reply ring
+            # as one record (the columnar views joined: the lane's one
+            # reply copy). A peer that stops draining gets the socket
+            # path's slow-reader cut.
+            if not lane_box[0].send(b"".join(bytes(b) for b in bufs)):
+                shm_abort("shm reply overflow (slow reader)")
+
+        def complete_allow(out, req_id: int, trace_id: int,
                            fut: asyncio.Future) -> None:
             exc = fut.exception()
             if exc is not None:
-                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                out([p.encode_error(req_id, p.code_for(exc), str(exc))])
                 return
             rec = tracing.RECORDER
             t0 = tracing.now() if rec is not None else 0
-            write_vec([p.encode_result(req_id, fut.result())])
+            out([p.encode_result(req_id, fut.result())])
             if rec is not None:
                 rec.record("encode", t0, tracing.now(), trace_id=trace_id)
 
-        def complete_hashed(req_id: int, trace_id: int,
+        def complete_hashed(out, req_id: int, trace_id: int,
                             fut: asyncio.Future) -> None:
             exc = fut.exception()
             if exc is not None:
-                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                out([p.encode_error(req_id, p.code_for(exc), str(exc))])
                 return
             rec = tracing.RECORDER
             t0 = tracing.now() if rec is not None else 0
             res = fut.result()
-            write_vec(p.encode_result_hashed_views(req_id, res), vec=True)
+            out(p.encode_result_hashed_views(req_id, res), vec=True)
             if rec is not None:
                 rec.record("encode", t0, tracing.now(), trace_id=trace_id,
                            batch=len(res))
 
-        def complete_batch(req_id: int, trace_id: int,
+        def complete_batch(out, req_id: int, trace_id: int,
                            agg: asyncio.Future) -> None:
             exc = agg.exception()
             if exc is not None:
-                write_vec([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                out([p.encode_error(req_id, p.code_for(exc), str(exc))])
                 return
             rec = tracing.RECORDER
             t0 = tracing.now() if rec is not None else 0
             results = agg.result()
-            write_vec(p.encode_result_batch_views(
+            out(p.encode_result_batch_views(
                 req_id, self.limiter.config.limit, results), vec=True)
             if rec is not None:
                 rec.record("encode", t0, tracing.now(), trace_id=trace_id,
                            batch=len(results))
+
+        def dispatch(type_: int, req_id: int, trace_id: int, budget,
+                     body: bytes, out, frame_out) -> None:
+            """One request frame, its extensions stripped, answered
+            through ``out`` (a buffer list writer: the socket's or the
+            reply ring's)."""
+            if type_ < 128 and type_ & p.REQUEST_FLAGS:
+                out([p.encode_error(
+                    req_id, p.E_INVALID_CONFIG,
+                    f"request type {type_:#x} carries the forward hint, "
+                    f"which this server does not serve")])
+                return
+            # None = no deadline; a budget <= 0 anchors in the past
+            # (expired on arrival: shed at the first check).
+            deadline = (time.monotonic() + budget
+                        if budget is not None else 0.0)
+            rec = tracing.RECORDER
+            t_io = tracing.now() if rec is not None else 0
+            if type_ == p.T_ALLOW_N:
+                try:
+                    key, n = p.parse_allow_n(body)
+                    fut = self.batcher.submit_nowait(key, n, trace_id,
+                                                     deadline)
+                except Exception as exc:
+                    out([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                    return
+                if rec is not None:
+                    rec.record("io", t_io, tracing.now(), trace_id=trace_id)
+                fut.add_done_callback(
+                    partial(complete_allow, out, req_id, trace_id))
+                return
+            if type_ == p.T_ALLOW_HASHED:
+                try:
+                    ids, ns = p.parse_allow_hashed(body)
+                    fut = self.batcher.submit_hashed_nowait(
+                        ids, ns, trace_id, deadline)
+                except Exception as exc:
+                    out([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                    return
+                if rec is not None:
+                    rec.record("io", t_io, tracing.now(), trace_id=trace_id,
+                               batch=int(ids.shape[0]))
+                fut.add_done_callback(
+                    partial(complete_hashed, out, req_id, trace_id))
+                return
+            if type_ == p.T_ALLOW_BATCH:
+                try:
+                    keys, ns = p.parse_allow_batch(body)
+                    futs = self.batcher.submit_many_nowait(
+                        zip(keys, ns), trace_id, deadline)
+                except Exception as exc:
+                    out([p.encode_error(req_id, p.code_for(exc), str(exc))])
+                    return
+                if rec is not None:
+                    rec.record("io", t_io, tracing.now(), trace_id=trace_id,
+                               batch=len(keys))
+                agg = asyncio.gather(*futs)
+                agg.add_done_callback(
+                    partial(complete_batch, out, req_id, trace_id))
+                return
+            # Control frames (rare): one task each.
+            t = asyncio.ensure_future(self._handle_frame(
+                type_, req_id, body, writer, write_lock, out_fn=frame_out))
+            req_tasks.add(t)
+            t.add_done_callback(req_tasks.discard)
+
+        def shm_dispatch(frame: bytes) -> None:
+            # One committed ring record is one wire frame, byte-identical
+            # to what the socket loop below would read; replies go back
+            # through the reply ring.
+            try:
+                length, rtype, req_id = p.parse_header(frame)
+                if len(frame) != length + 4:
+                    raise p.ProtocolError("ring record length mismatch")
+                body = frame[p.HEADER_SIZE:]
+                if rtype == p.T_SHM_HELLO:
+                    shm_vec([p.encode_error(req_id, p.E_INVALID_CONFIG,
+                                            "shm lane already active")])
+                    return
+                type_, trace_id, budget, body = p.split_request(rtype, body)
+            except p.ProtocolError as exc:
+                shm_abort(f"shm protocol error: {exc}")
+                return
+            dispatch(type_, req_id, trace_id, budget, body, shm_vec,
+                     lambda frame: shm_vec([frame]))
+
+        def shm_drain() -> None:
+            try:
+                lane_box[0].drain(shm_dispatch)
+            except shm_lane.ShmProtocolError as exc:
+                # A torn or poisoned record: stop trusting the mapping
+                # and reclaim through the liveness socket (a client
+                # killed mid-write never stalls the door).
+                shm_abort(f"shm lane poisoned: {exc}")
+
+        def shm_hello(req_id: int, body: bytes) -> None:
+            if not self.shm:
+                write_vec([p.encode_error(
+                    req_id, p.E_INVALID_CONFIG,
+                    "shm lane not enabled on this server (--shm)")])
+                return
+            if lane_box:
+                write_vec([p.encode_error(
+                    req_id, p.E_INVALID_CONFIG,
+                    "shm lane already active on this connection")])
+                return
+            try:
+                _ver, req_bytes, rep_bytes = p.parse_shm_hello(body)
+                req_cap = shm_lane.clamp_ring_bytes(
+                    req_bytes or self.shm_ring_bytes)
+                rep_cap = shm_lane.clamp_ring_bytes(
+                    rep_bytes or self.shm_ring_bytes)
+                self._lane_ctr += 1
+                lane = shm_lane.ServerLane(
+                    self.shm_dir, req_cap, rep_cap,
+                    tag="a%d-" % self._lane_ctr)
+            except Exception as exc:
+                write_vec([p.encode_error(req_id, p.code_for(exc),
+                                          str(exc))])
+                return
+            lane_box.append(lane)
+            self._shm_lanes.add(lane)
+            self._transport_conns["shm"] += 1
+            t = asyncio.ensure_future(
+                self._shm_accept(lane, writer, shm_drain))
+            lane_tasks.add(t)
+            t.add_done_callback(lane_tasks.discard)
+            write_vec([p.encode_shm_hello_r(
+                req_id, lane.req_cap, lane.rep_cap, lane.path,
+                lane.ctrl_path)])
 
         try:
             while True:
@@ -268,9 +504,14 @@ class RateLimitServer:
                     hdr = await reader.readexactly(p.HEADER_SIZE)
                     length, type_, req_id = p.parse_header(hdr)
                     body = await reader.readexactly(length - 9)
+                    # The lane's upgrade: an exact match on the raw type
+                    # byte, before any flag is stripped.
+                    if type_ == p.T_SHM_HELLO:
+                        shm_hello(req_id, body)
+                        continue
                     # Frame extensions: the trace id and the deadline's
-                    # relative budget, anchored below to arrival on the
-                    # local monotonic clock.
+                    # relative budget, anchored to arrival on the local
+                    # monotonic clock.
                     type_, trace_id, budget, body = p.split_request(
                         type_, body)
                 except (asyncio.IncompleteReadError, ConnectionResetError):
@@ -278,71 +519,27 @@ class RateLimitServer:
                 except p.ProtocolError as exc:
                     log.warning("protocol error, dropping connection: %s", exc)
                     break
-                if type_ < 128 and type_ & p.REQUEST_FLAGS:
-                    write_vec([p.encode_error(
-                        req_id, p.E_INVALID_CONFIG,
-                        f"request type {type_:#x} carries the forward hint, "
-                        f"which this server does not serve")])
-                    continue
-                # None = no deadline; a budget <= 0 anchors in the past
-                # (expired on arrival: shed at the first check).
-                deadline = (time.monotonic() + budget
-                            if budget is not None else 0.0)
-                rec = tracing.RECORDER
-                t_io = tracing.now() if rec is not None else 0
-                if type_ == p.T_ALLOW_N:
-                    try:
-                        key, n = p.parse_allow_n(body)
-                        fut = self.batcher.submit_nowait(key, n, trace_id,
-                                                         deadline)
-                    except Exception as exc:
-                        write_vec([p.encode_error(req_id, p.code_for(exc),
-                                                  str(exc))])
-                        continue
-                    if rec is not None:
-                        rec.record("io", t_io, tracing.now(),
-                                   trace_id=trace_id)
-                    fut.add_done_callback(
-                        partial(complete_allow, req_id, trace_id))
-                    continue
-                if type_ == p.T_ALLOW_HASHED:
-                    try:
-                        ids, ns = p.parse_allow_hashed(body)
-                        fut = self.batcher.submit_hashed_nowait(
-                            ids, ns, trace_id, deadline)
-                    except Exception as exc:
-                        write_vec([p.encode_error(req_id, p.code_for(exc),
-                                                  str(exc))])
-                        continue
-                    if rec is not None:
-                        rec.record("io", t_io, tracing.now(),
-                                   trace_id=trace_id,
-                                   batch=int(ids.shape[0]))
-                    fut.add_done_callback(
-                        partial(complete_hashed, req_id, trace_id))
-                    continue
-                if type_ == p.T_ALLOW_BATCH:
-                    try:
-                        keys, ns = p.parse_allow_batch(body)
-                        futs = self.batcher.submit_many_nowait(
-                            zip(keys, ns), trace_id, deadline)
-                    except Exception as exc:
-                        write_vec([p.encode_error(req_id, p.code_for(exc),
-                                                  str(exc))])
-                        continue
-                    if rec is not None:
-                        rec.record("io", t_io, tracing.now(),
-                                   trace_id=trace_id, batch=len(keys))
-                    agg = asyncio.gather(*futs)
-                    agg.add_done_callback(
-                        partial(complete_batch, req_id, trace_id))
-                    continue
-                # Control frames (rare): one task each.
-                t = asyncio.ensure_future(self._handle_frame(
-                    type_, req_id, body, writer, write_lock))
-                req_tasks.add(t)
-                t.add_done_callback(req_tasks.discard)
+                dispatch(type_, req_id, trace_id, budget, body, write_vec,
+                         None)
         finally:
+            for t in list(lane_tasks):
+                t.cancel()
+            if lane_tasks:
+                await asyncio.gather(*list(lane_tasks),
+                                     return_exceptions=True)
+            if lane_box:
+                # The liveness socket closed (or the lane was poisoned):
+                # unmap, close the eventfds and drop any files left now.
+                lane = lane_box[0]
+                try:
+                    asyncio.get_running_loop().remove_reader(
+                        lane.efd_server)
+                except (OSError, RuntimeError):
+                    pass
+                for k in self._shm_totals:
+                    self._shm_totals[k] += getattr(lane.stats, k)
+                self._shm_lanes.discard(lane)
+                lane.close()
             if req_tasks:
                 await asyncio.gather(*list(req_tasks), return_exceptions=True)
             writer.close()
@@ -388,7 +585,8 @@ class RateLimitServer:
 
     async def _handle_frame(self, type_: int, req_id: int, body: bytes,
                             writer: asyncio.StreamWriter,
-                            write_lock: asyncio.Lock) -> None:
+                            write_lock: asyncio.Lock,
+                            out_fn=None) -> None:
         try:
             if type_ == p.T_RESET:
                 key = p.parse_reset(body)
@@ -426,11 +624,21 @@ class RateLimitServer:
                 text = await asyncio.get_running_loop().run_in_executor(
                     None, self.registry.render)
                 out = p.encode_metrics(req_id, text)
+            elif type_ == p.T_DCN_PUSH:
+                # No DCN in the port: the JAX door's answer without it.
+                out = p.encode_error(req_id, p.E_INVALID_CONFIG,
+                                     "DCN exchange not enabled on this "
+                                     "server")
             else:
                 out = p.encode_error(req_id, p.E_INTERNAL,
                                      f"unknown request type {type_}")
         except Exception as exc:  # answered on the wire, connection lives
             out = p.encode_error(req_id, p.code_for(exc), str(exc))
+        if out_fn is not None:
+            # The reply ring's writer (on the loop thread; the lane
+            # handles its own backpressure).
+            out_fn(out)
+            return
         async with write_lock:
             try:
                 writer.write(out)
