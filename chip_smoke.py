@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dense    # the dense/exact backends, the evaluation path
     python3 chip_smoke.py --gateway  # the HTTP gateway, the auditor and its twin
     python3 chip_smoke.py --native   # the C++ door, its lanes, the load generator
+    python3 chip_smoke.py --grpc     # gRPC and quota leases behind both doors
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -262,9 +263,39 @@ Phases (each raises on failure; the script exits non-zero):
    (c) the port's C++ load generator (``native/loadgen.cpp``, built with
    g++) against the native door with 1 and 2 shards and the asyncio door
    in turns, one round in the whole run (three under ``--native``),
-   hashed and batch frames over TCP and (the native door) the lane:
-   decisions/s and RTT p50/p99 with the net engine that ran, printed
-   (nothing is gated on them);
+   hashed and batch frames over TCP and the lane: decisions/s and RTT
+   p50/p99 with the net engine that ran, printed (nothing is gated on
+   them);
+   grpc. gRPC and quota leases (``run_grpc``; ``--grpc`` runs it alone
+   at full length), after printing the grpcio and protobuf runtimes:
+   (a) the binary's own ``serve`` in process with ``--grpc-port``
+   (and with ``--native``), over the recording proxy, on config 3
+   windowed CU with ``--hh-slots 256`` and on TB-c2; 8 gRPC client
+   threads (a child process) x 12 calls (48 under ``--grpc``) of Allow,
+   AllowN, AllowBatch of 512 keys, Reset and SetOverride
+   (``check_grpc_door``): every answer, field by field, and the final
+   state equal to a CPU replay of the recorded windows, resets and
+   overrides; one front, admission and update a window (an AllowBatch is
+   one window, not one per item), one ``window_reset`` a reset, the side
+   table's tail on every back; (b) a seeded lease trace on config 3 with
+   the side table and ``require_hot`` (``check_leases``): grants,
+   renewals, returns, revocations by a policy set, a reset, a controller
+   tighten and shutdown, and wire decisions, on the card and on the CPU,
+   every answer, push, budget and the table equal, granted budget plus
+   wire admissions never above a key's limit, hot keys nominated from
+   the side table on the card; (c) ``python -m ratelimiter_tpu_torch.
+   serving --leases --lease-require-hot --hh-slots 256 --lease-budget 16
+   --grpc-port 0 --http-port 0 --shm --snapshot-dir D``, then the same
+   with ``--native --shards 2 --lease-port 0``, as child processes
+   (``check_lease_binary``): gRPC answers equal to the binary door's on
+   the same keys, a leased client answering its hot key locally and
+   losing the lease to a policy set's push (over the lane on the asyncio
+   door, through the sidecar on the native door), the lease table back
+   after /v1/snapshot, SIGKILL and a restart, SIGTERM exiting 0; (d) one
+   round of readings (three under ``--grpc``, ``grpc_readings``): gRPC
+   Allow requests/s and p50/p99 at 8 threads, AllowBatch(512)
+   decisions/s, and one client on Zipf keys with and without leases
+   (decisions/s, the share answered locally), printed, not gated;
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -342,6 +373,10 @@ card's line.
 ``--native`` builds (the kernels, the native door and the load generator),
 then runs phase native alone and prints its results as one JSON line
 before the card's line.
+
+``--grpc`` builds (the kernels, the native door and the load
+generator), then runs phase grpc alone at full length and prints its
+results as one JSON line before the card's line.
 
 ``--observe`` builds, then runs phase observe alone and prints its
 results as one JSON line before the card's line.
@@ -3288,6 +3323,23 @@ class RecordingLimiter:
             self.inner.reset(key)
             self.log.append(("reset", key, None, now))
 
+    def set_override(self, key: str, limit=None, *,
+                     window_scale: float = 1.0):
+        """Overrides change later answers, so they are logged too."""
+        with self._lock:
+            now = self._now()
+            ov = self.inner.set_override(key, limit,
+                                         window_scale=window_scale)
+            self.log.append(("set", key, (limit, window_scale), now))
+        return ov
+
+    def delete_override(self, key: str) -> bool:
+        with self._lock:
+            now = self._now()
+            existed = self.inner.delete_override(key)
+            self.log.append(("del", key, None, now))
+        return existed
+
     def resolve(self, ticket):
         return self.inner.resolve(ticket)
 
@@ -3295,8 +3347,23 @@ class RecordingLimiter:
         """Marks the raw-id lane (the batcher looks for it)."""
         return self.resolve(self.launch_ids(ids, ns))
 
+    def allow_batch(self, keys, ns=None, *, now=None):
+        """The native door's side doors (``decide_one``/``decide_many``:
+        gRPC, HTTP, lease debits): a recorded string launch, resolved."""
+        keys = list(keys)
+        ns = [1] * len(keys) if ns is None else [int(n) for n in ns]
+        return self.resolve(self.launch_batch(keys, ns))
+
+    def allow_n(self, key: str, n: int, *, now=None):
+        return self.allow_batch([key], [n]).result(0)
+
     def __getattr__(self, name):
         return getattr(self.inner, name)
+
+
+#: The log kinds of ``RecordingLimiter`` that are launches (the others are
+#: a reset and the override changes).
+LAUNCH_KINDS = ("ids", "keys", "hashed")
 
 
 def door_keys(rng, space: str, n: int) -> list:
@@ -3469,6 +3536,12 @@ def replay_windows(cfg, log: list, setup=None):
             outs.append(cpu.resolve(cpu.launch_batch(a, ns, now=now)))
         elif kind == "hashed":
             outs.append(cpu.resolve(cpu.launch_hashed(a, ns, now=now)))
+        elif kind == "set":
+            cpu.set_override(a, ns[0], window_scale=ns[1])
+            outs.append(None)
+        elif kind == "del":
+            cpu.delete_override(a)
+            outs.append(None)
         else:
             cpu.reset(a)
             outs.append(None)
@@ -3793,7 +3866,7 @@ def check_door(torch, cfg, label: str, *, device: str = "cuda",
         if not np.array_equal(served_arrays[k], v):
             raise AssertionError(f"{name}: final state {k} differs from the "
                                  f"CPU replay")
-    windows = sum(kind != "reset" for kind, *_ in rec.log)
+    windows = sum(kind in LAUNCH_KINDS for kind, *_ in rec.log)
     if out["dispatches"] != windows:
         raise AssertionError(f"{name}: {out['dispatches']} dispatches for "
                              f"{windows} windows launched")
@@ -4202,8 +4275,10 @@ class ServerProcess:
                 self.listen = addr if addr.startswith("unix:") else None
                 self.port = (None if self.listen
                              else int(addr.rsplit(":", 1)[1]))
-                self.http = (int(line.rsplit(" http:", 1)[1])
-                             if " http:" in line else None)
+                self.http, self.grpc, self.lease = (
+                    int(line.split(f" {k}:", 1)[1].split()[0])
+                    if f" {k}:" in line else None
+                    for k in ("http", "grpc", "lease"))
                 return
 
     def _read(self):
@@ -7237,9 +7312,8 @@ def check_gateway(torch, cfg, label: str, *, device: str = "cuda",
     _, cpu_arrays, _ = cpu.capture_state()
     cpu.close()
     for k, v in cpu_arrays.items():
-        # The lever's override was set and deleted outside the recording.
-        if not k.startswith("policy") and not np.array_equal(
-                served_arrays[k], v):
+        # The levers' override set and delete are in the recording too.
+        if not np.array_equal(served_arrays[k], v):
             raise AssertionError(f"{name}: final state {k} differs from "
                                  f"the CPU replay")
     # (b) the audit tally.
@@ -7258,7 +7332,7 @@ def check_gateway(torch, cfg, label: str, *, device: str = "cuda",
         "offered_frames": len(taps), "dropped_frames": len(dropped),
         "dropped_decisions": sum(len(t[4]) for t in dropped),
         "twin_width": twin_width}
-    windows = sum(kind != "reset" for kind, *_ in rec.log)
+    windows = sum(kind in LAUNCH_KINDS for kind, *_ in rec.log)
     resets = sum(kind == "reset" for kind, *_ in rec.log)
     twin_steps = want["audited_frames"]
     decisions = (sum(len(r[0]) for o in door["conns"] for r in o["hashed"])
@@ -8131,14 +8205,12 @@ def check_native_binary(cfg=None, *, device: str = "cuda") -> dict:
     return out
 
 
-#: (door, shards, transports) of the load generator's readings. The
-#: asyncio door's shared-memory lane is left out: under this generator
-#: (whose consumer clears its sleeping flag between waits) it stalls in
-#: both packages, runs answering nothing where TCP completes (ROADMAP
-#: C16); the port's Python clients keep the flag up and are not hit.
+#: (door, shards, transports) of the load generator's readings, each
+#: door over TCP and the shared-memory lane (the asyncio door's lane no
+#: longer stalls under this generator: ROADMAP C16, fixed).
 LOADGEN_DOORS = (("native", 1, ("tcp", "shm")),
                  ("native", 2, ("tcp", "shm")),
-                 ("asyncio", 1, ("tcp",)))
+                 ("asyncio", 1, ("tcp", "shm")))
 LOADGEN_SECONDS = 0.5
 
 
@@ -8160,7 +8232,7 @@ def native_readings(rounds: int = 3, device: str = "cuda") -> list:
     """(c) The port's C++ load generator (``native.build_loadgen``) on
     config 3's door on the card, the native door with 1 and 2 shards and
     the asyncio door in turns, ``rounds`` rounds, hashed and batch modes
-    over TCP and (the native door) the shared-memory lane: decisions/s
+    over TCP and the shared-memory lane: decisions/s
     and frame RTT p50/p99, with the net engine that ran. Each door is the
     binary's (the default stack, the batcher's defaults, ``--shm``)."""
     import threading as _threading
@@ -8272,6 +8344,816 @@ def run_native(torch, seed: int = 0, device: str = "cuda",
 
 
 
+# ------------------------------------- phase grpc: gRPC and quota leases
+
+
+GRPC_THREADS, GRPC_RPCS, GRPC_BATCH, GRPC_KEYS = 8, 48, 512, 64
+#: Config 3's limit is 100 a key a minute and its side table promotes a
+#: key once its estimate passes half of that (``hh_promote_fraction``
+#: 0.5), so a grant of 16 tokens fits the window a hot key has left; the
+#: binary's default budget (256) would be refused every time.
+LEASE_BUDGET = 16
+GRPC_METHODS = {
+    "Allow": ("AllowRequest", "AllowResponse"),
+    "AllowN": ("AllowNRequest", "AllowResponse"),
+    "AllowBatch": ("AllowBatchRequest", "AllowBatchResponse"),
+    "Reset": ("ResetRequest", "ResetResponse"),
+    "Health": ("HealthRequest", "HealthResponse"),
+    "SetOverride": ("SetOverrideRequest", "OverrideResponse"),
+}
+
+
+def grpc_versions() -> dict:
+    """The gRPC and protobuf runtimes this process serves with."""
+    import google.protobuf
+    import grpc
+    from google.protobuf.internal import api_implementation
+
+    return {"grpcio": grpc.__version__,
+            "protobuf": google.protobuf.__version__,
+            "protobuf_backend": api_implementation.Type()}
+
+
+def _grpc_pb():
+    """The port's ``serving/grpc_pb.py``: the package's module where the
+    package is loaded, else the file alone (it needs only protobuf), so a
+    gRPC client process does not import torch."""
+    import importlib.util
+    import os
+
+    mod = (sys.modules.get("ratelimiter_tpu_torch.serving.grpc_pb")
+           or sys.modules.get("_grpc_pb"))
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "_grpc_pb", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "ratelimiter_tpu_torch",
+                "serving", "grpc_pb.py"))
+        mod = sys.modules["_grpc_pb"] = importlib.util.module_from_spec(
+            spec)
+        spec.loader.exec_module(mod)
+    return mod
+
+
+class GrpcStub:
+    """Method callables on one channel (no generated stubs), with the
+    port's message classes (``serving/grpc_pb.py``) as ``pb2``."""
+
+    def __init__(self, port: int):
+        import grpc
+
+        grpc_pb = _grpc_pb()
+        self.pb2 = pb2 = grpc_pb.load()
+        self.channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        for name, (req, resp) in GRPC_METHODS.items():
+            setattr(self, name, self.channel.unary_unary(
+                f"/{grpc_pb.SERVICE}/{name}",
+                request_serializer=getattr(pb2, req).SerializeToString,
+                response_deserializer=getattr(pb2, resp).FromString))
+
+    def batch(self, items):
+        pb2 = self.pb2
+        return self.AllowBatch(pb2.AllowBatchRequest(items=[
+            pb2.AllowBatchRequest.Item(key=k, n=n) for k, n in items]),
+            timeout=120)
+
+    def close(self) -> None:
+        self.channel.close()
+
+
+def _res(r) -> tuple:
+    return (bool(r.allowed), int(r.limit), int(r.remaining),
+            float(r.retry_after), float(r.reset_at), bool(r.fail_open))
+
+
+def _grpc_mixed(stub, rng, t: int, j: int, batch: int, keys: int):
+    """One RPC of the checked mix on thread ``t``'s own keys
+    ``grpc:<t>:<j>``: Allow, AllowN (n 1-30), AllowBatch (``batch``
+    items, n 1-3), Reset and SetOverride; returns what it answered."""
+    pb2 = stub.pb2
+    key = f"grpc:{t}:{int(rng.integers(keys))}"
+    r = rng.random()
+    if j == 0 or r < 0.3:
+        return ("allow", key, 1, _res(stub.Allow(
+            pb2.AllowRequest(key=key), timeout=120)))
+    if r < 0.65:
+        n = int(rng.integers(1, 31))
+        return ("allow", key, n, _res(stub.AllowN(
+            pb2.AllowNRequest(key=key, n=n), timeout=120)))
+    if r < 0.85:
+        items = [(f"grpc:{t}:{int(k)}", int(n)) for k, n in zip(
+            rng.integers(keys, size=batch), rng.integers(1, 4, size=batch))]
+        return ("batch", items, [_res(x) for x in stub.batch(items).results])
+    if r < 0.93:
+        stub.Reset(pb2.ResetRequest(key=key), timeout=120)
+        return ("reset", key)
+    limit = int(rng.integers(20, 400))
+    resp = stub.SetOverride(pb2.SetOverrideRequest(key=key, limit=limit),
+                            timeout=120)
+    return ("set", key, limit, (bool(resp.found), int(resp.limit)))
+
+
+def _grpc_thread(args: dict, t: int, out: list, ready) -> None:
+    """One gRPC client thread: ``rpcs`` calls one at a time on its own
+    channel, once every thread has its channel (``ready``, a barrier).
+    ``mode`` "check" runs the mix and keeps its answers; "allow" times
+    Allow and "batch" AllowBatch(``batch``) on Zipf keys."""
+    try:
+        stub = GrpcStub(args["port"])
+        rng = np.random.default_rng(args["seed"] * 1000 + t)
+        rows, lat = [], []
+        ready.wait()
+        for j in range(args["rpcs"]):
+            t0 = time.perf_counter()
+            if args["mode"] == "allow":
+                stub.Allow(stub.pb2.AllowRequest(
+                    key=door_keys(rng, "zipf", 1)[0]), timeout=120)
+            elif args["mode"] == "batch":
+                stub.batch([(k, 1) for k in door_keys(rng, "zipf",
+                                                      args["batch"])])
+            else:
+                rows.append(_grpc_mixed(stub, rng, t, j, args["batch"],
+                                        args["keys"]))
+            lat.append(time.perf_counter() - t0)
+        stub.close()
+        out[t] = {"rows": rows, "latency": lat}
+    except BaseException as exc:  # reported by the parent
+        out[t] = {"error": repr(exc)}
+        ready.abort()
+
+
+def grpc_client() -> None:
+    """Phase grpc's client, run in a child process: its arguments come as
+    JSON on stdin (``port``, ``threads``, ``rpcs``, ``seed``, ``batch``,
+    ``keys``, ``mode``; or ``jobs``, a list of such, run in turn); the
+    threads' answers and latencies and the wall time go pickled to
+    stdout (a list of them for ``jobs``)."""
+    args = json.loads(sys.stdin.read())
+    _grpc_pb().load()          # once, before the threads
+    got = ([_grpc_job(job) for job in args["jobs"]] if "jobs" in args
+           else _grpc_job(args))
+    sys.stdout.buffer.write(pickle.dumps(got))
+    sys.stdout.flush()
+
+
+def _grpc_job(args: dict) -> dict:
+    out: list = [None] * args["threads"]
+    # The wall time starts once every thread has its channel (the
+    # imports and the channels' set-up are not the RPCs').
+    ready = threading.Barrier(args["threads"] + 1, timeout=120)
+    threads = [threading.Thread(target=_grpc_thread,
+                                args=(args, t, out, ready))
+               for t in range(args["threads"])]
+    for th in threads:
+        th.start()
+    try:
+        ready.wait()
+    except threading.BrokenBarrierError:
+        pass                   # a thread failed: reported below
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    errors = [o["error"] for o in out if "error" in o]
+    if errors:
+        raise SystemExit(f"gRPC client threads failed: {errors[:3]}")
+    return {"threads": out, "wall_s": wall}
+
+
+def hold_grpc_answers(name: str, log, replayed, got: dict) -> int:
+    """Every answer of ``grpc_client``'s mix against its row of the CPU
+    replay (each key's rows in order: one thread owns a key and calls one
+    at a time), every field; the SetOverride answers against their
+    requests. Returns the decisions held."""
+    rows = _string_rows(log, replayed, "grpc:")
+    held = 0
+
+    def hold(key, n, got_res):
+        nonlocal held
+        if not rows.get(key):
+            raise AssertionError(f"{name}: an answer for {key} has no row "
+                                 f"in the recorded windows")
+        n_row, r = rows[key].pop(0)
+        want = _res(r)
+        if n_row != n or got_res != want:
+            raise AssertionError(f"{name}: {key} (n {n}) answered "
+                                 f"{got_res}; the CPU replay {want} "
+                                 f"(n {n_row})")
+        held += 1
+
+    for th in got["threads"]:
+        for row in th["rows"]:
+            if row[0] == "allow":
+                hold(*row[1:])
+            elif row[0] == "batch":
+                for (key, n), res in zip(row[1], row[2]):
+                    hold(key, n, res)
+            elif row[0] == "set" and row[3] != (True, row[2]):
+                raise AssertionError(f"{name}: SetOverride {row}")
+    left = sum(map(len, rows.values()))
+    if left:
+        raise AssertionError(f"{name}: {left} recorded gRPC rows got no "
+                             f"answer")
+    return held
+
+
+def check_grpc_door(torch, cfg, label: str, *, native: bool = False,
+                    device: str = "cuda", seed: int = 0,
+                    threads: int = GRPC_THREADS, rpcs: int = GRPC_RPCS,
+                    counters=(), front=None, update=None,
+                    front_per_reset: int = 0, required=()) -> dict:
+    """Phase grpc (a) on one cell and door: the port's binary (its own
+    ``serve``, in process, with the recording proxy) with
+    ``--grpc-port`` (and ``--native``: the C++ door, gRPC through its
+    shard router), ``threads`` gRPC client threads in a child process
+    each making ``rpcs`` calls of the mix (``_grpc_mixed``). Every
+    answer, field by field, and the final state equal a CPU replay of
+    the recorded windows, resets and overrides; on the card ``front``
+    launched once a window (plus ``front_per_reset`` a reset), the
+    admission and ``update`` once a window (no composed back), so an
+    AllowBatch of ``GRPC_BATCH`` items costs one window, not one per
+    item. Returns the counts and readings."""
+    door = "native" if native else "asyncio"
+    name = f"grpc[{label}, {door} door]"
+    argv = [*cell_flags(cfg), "--device", device, "--port", "0",
+            "--grpc-port", "0", *(["--native"] if native else [])]
+    bucket = cfg.algorithm.value == "token_bucket"
+    with in_process_binary(argv, record=True, counters=counters) as svc:
+        t0 = time.perf_counter()
+        got = _run_door_client({
+            "port": svc.grpc.port, "threads": threads, "rpcs": rpcs,
+            "seed": seed, "batch": GRPC_BATCH, "keys": GRPC_KEYS,
+            "mode": "check"}, 600.0, "grpc_client")
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        counts = {}
+        for mod in counters:
+            counts.update(mod.launch_counts())
+        rec = svc.rec
+        served = rec.inner
+        _, served_arrays, _ = served.capture_state()
+        served_cfg = served.config
+    replayed, cpu = replay_windows(served_cfg, rec.log)
+    decisions = hold_grpc_answers(name, rec.log, replayed, got)
+    _, cpu_arrays, _ = cpu.capture_state()
+    cpu.close()
+    for k, v in cpu_arrays.items():
+        if not np.array_equal(served_arrays[k], v):
+            raise AssertionError(f"{name}: final state {k} differs from "
+                                 f"the CPU replay")
+    windows = sum(kind in LAUNCH_KINDS for kind, *_ in rec.log)
+    resets = sum(kind == "reset" for kind, *_ in rec.log)
+    overrides = sum(kind == "set" for kind, *_ in rec.log)
+    calls = threads * rpcs
+    if not 0 < windows <= calls:
+        raise AssertionError(f"{name}: {windows} windows for {calls} RPCs")
+    if device == "cuda":
+        for k in required:
+            if counts.get(k, 0) == 0:
+                raise AssertionError(f"{name}: {k} was not launched")
+        if counts[front] != windows + front_per_reset * resets:
+            raise AssertionError(f"{name}: {counts[front]} {front} launches "
+                                 f"for {windows} windows and {resets} "
+                                 f"resets")
+        if not counts["admit"] == counts[update] == windows:
+            raise AssertionError(f"{name}: {counts['admit']} admissions and "
+                                 f"{counts[update]} {update} launches for "
+                                 f"{windows} windows: a composed back ran")
+        if not bucket and counts["window_reset"] != resets:
+            raise AssertionError(f"{name}: {counts['window_reset']} "
+                                 f"window_reset launches for {resets} "
+                                 f"resets")
+        if cfg.sketch.hh_slots and not bucket:
+            hold_tails(name, counts)
+    lat = sorted(x for th in got["threads"] for x in th["latency"])
+    out = {"counts": counts, "windows": windows, "resets": resets,
+           "overrides": overrides, "rpcs": calls, "decisions": decisions,
+           "wall_s": wall, "rpc_p50_ms": 1e3 * lat[len(lat) // 2],
+           "rpc_p99_ms": 1e3 * lat[int(0.99 * (len(lat) - 1))]}
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"{name} on {where}: {calls} RPCs from {threads} threads "
+        f"({decisions} decisions, {windows} windows, {resets} resets, "
+        f"{overrides} overrides), every answer bit-identical to the CPU "
+        f"replay; RPC p50 {out['rpc_p50_ms']:.2f} ms p99 "
+        f"{out['rpc_p99_ms']:.2f} ms; launches {counts}")
+    return out
+
+
+def lease_ops(seed: int, steps: int) -> list:
+    """A seeded trace for ``check_leases``: wire decisions, grants (hot
+    and cold keys), renewals, returns, revocations (a policy set, a
+    reset, a controller tighten) and clock steps."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for _ in range(steps):
+        r = rng.random()
+        if r < 0.3:
+            ids = zipf_ids(rng, 62)
+            hot = rng.integers(0, 6, size=2)
+            ops.append(("wire", [f"user:{int(i)}" for i in ids]
+                        + [f"lease:hot{int(h)}" for h in hot],
+                        [int(n) for n in rng.integers(1, 4, size=64)]))
+        elif r < 0.6:
+            key = (f"lease:hot{int(rng.integers(6))}" if rng.random() < 0.8
+                   else f"lease:cold{int(rng.integers(50))}")
+            ops.append(("grant", int(rng.integers(3)), key,
+                        int(rng.choice([0, 4, 8, LEASE_BUDGET]))))
+        elif r < 0.72:
+            ops.append(("renew", int(rng.integers(1 << 30)),
+                        int(rng.integers(0, 8)),
+                        int(rng.choice([0, 0, 4, 12]))))
+        elif r < 0.8:
+            ops.append(("return", int(rng.integers(1 << 30)),
+                        int(rng.integers(0, 10))))
+        elif r < 0.85:
+            ops.append(("policy", f"lease:hot{int(rng.integers(6))}",
+                        int(rng.choice([60, 150]))))
+        elif r < 0.91:
+            ops.append(("reset", f"lease:hot{int(rng.integers(6))}"))
+        elif r < 0.93:
+            ops.append(("tighten",))
+        else:
+            ops.append(("advance", float(rng.random() * 0.4)))
+    return ops
+
+
+def _run_lease_trace(lim, ops: list) -> dict:
+    """``ops`` through a lease manager over ``lim`` (``require_hot``,
+    budget ``LEASE_BUDGET``) on a clock stepped with the limiter's, the
+    levers as the binary wires them (a policy set or a reset revokes the
+    key's leases, a tighten all of them), shutdown's revoke-all last.
+    Returns every answer, the pushes, the status and table, the side
+    table's top consumers, and the never-over-admit tally."""
+    from ratelimiter_tpu_torch.leases import LeaseManager
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    now = [100.0]
+    pushed = []
+    mgr = LeaseManager(lim, ttl=2.0, default_budget=LEASE_BUDGET,
+                       max_budget=4 * LEASE_BUDGET, require_hot=True,
+                       registry=Registry(), clock=lambda: now[0])
+    live, answers = [], []
+    tally: dict = {}         # key -> [admitted in this window, bound]
+
+    def admit(key, n):
+        t = tally.setdefault(key, [0, LIMIT])
+        t[0] += n
+        ov = lim.get_override(key)
+        t[1] = max(t[1], ov.limit if ov is not None else LIMIT)
+
+    def wire(keys, ns):
+        res = lim.allow_batch(keys, ns)
+        for k, n, ok in zip(keys, ns, res.allowed):
+            if ok:
+                admit(k, n)
+        answers.append(("wire", np.asarray(res.allowed).tolist(),
+                        np.asarray(res.remaining).tolist()))
+
+    # Warm the hot keys past the side table's promotion threshold (half
+    # the limit): 54 requests each.
+    for _ in range(9):
+        wire([f"lease:hot{i}" for i in range(6)] * 6, [1] * 36)
+    for op in ops:
+        kind = op[0]
+        if kind == "wire":
+            wire(op[1], op[2])
+        elif kind == "grant":
+            out = mgr.grant(op[1], op[2], op[3],
+                            push=lambda f, c=op[1]: pushed.append((c, f)))
+            if out[0]:
+                admit(op[2], out[2])
+                live.append((op[1], out[1], op[2]))
+            answers.append(out)
+        elif kind == "renew" and live:
+            client, lid, key = live[op[1] % len(live)]
+            out = mgr.renew(client, lid, key, op[2], op[3])
+            if out[2]:
+                admit(key, out[2])
+            answers.append(out)
+        elif kind == "return" and live:
+            client, lid, key = live.pop(op[1] % len(live))
+            answers.append(mgr.release(client, lid, key, op[2]))
+        elif kind == "policy":
+            lim.set_override(op[1], op[2])
+            answers.append(mgr.revoke_key(op[1], p.LEASE_REV_POLICY))
+            admit(op[1], 0)
+        elif kind == "reset":
+            lim.reset(op[1])
+            answers.append(mgr.revoke_key(op[1], p.LEASE_REV_MANUAL))
+            tally.pop(op[1], None)
+        elif kind == "tighten":
+            answers.append(mgr.revoke_all(p.LEASE_REV_CONTROLLER))
+        elif kind == "advance":
+            now[0] += op[1]
+            lim.clock.advance(op[1])
+    top = [r["consumer"] for r in lim.consumer_stats(16)["top"]]
+    hot = {k: mgr.eligible(k) for k in ("lease:hot0", "lease:cold0")}
+    mgr.close()
+    arrays, meta = mgr.snapshot_arrays()
+    return {"answers": answers, "pushes": pushed, "status": mgr.status(),
+            "arrays": {k: v.tolist() for k, v in arrays.items()},
+            "meta": meta, "top": top, "eligible": hot,
+            "tokens": {k: mgr._consumer_token(k)
+                       for k in ("lease:hot0", "lease:cold0")},
+            "tally": tally}
+
+
+def check_leases(torch, *, device: str = "cuda", seed: int = 0,
+                 steps: int = 160) -> dict:
+    """Phase grpc (b): a seeded lease trace (``lease_ops``) on config 3
+    with ``hh_slots`` 256 and ``require_hot``, through a manager over a
+    limiter on ``device`` and the same through one on the CPU: every
+    grant, renewal, return and revocation answer, the pushes, the
+    budgets and table, the wire decisions and the side table's top
+    consumers equal; granted budget plus wire admissions never above the
+    key's limit in the window; hot keys nominated from the side table on
+    ``device`` (the manager's token is its ``consumer``); on the card the
+    step's kernels ran for the debits and the wire decisions, counted
+    from 0 just before."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.ops import sketch_cuda
+
+    ops = lease_ops(seed, steps)
+    runs = {}
+    counts = {}
+    for dev in (device, "cpu"):
+        lim = create_limiter(config3_hh(), backend="sketch",
+                             clock=ManualClock(T0), device=dev)
+        if dev == "cuda":
+            sketch_cuda.reset_launch_counts()
+        t = time.perf_counter()
+        runs[dev] = _run_lease_trace(lim, ops)
+        runs[dev]["seconds"] = time.perf_counter() - t
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = sketch_cuda.launch_counts()
+        lim.close()
+    got, want = runs[device], runs["cpu"]
+    for k in ("answers", "pushes", "status", "arrays", "meta", "top",
+              "eligible", "tokens"):
+        if got[k] != want[k]:
+            raise AssertionError(f"leases: {k} on {device} differs from "
+                                 f"the CPU run")
+    over = {k: v for k, v in got["tally"].items() if v[0] > v[1]}
+    if over:
+        raise AssertionError(f"leases: granted budget plus wire admissions "
+                             f"past the limit: {over}")
+    if not got["eligible"]["lease:hot0"] or got["eligible"]["lease:cold0"]:
+        raise AssertionError(f"leases: hot-key nomination "
+                             f"{got['eligible']}")
+    if got["tokens"]["lease:hot0"] not in got["top"]:
+        raise AssertionError("leases: the hot key's token is not among the "
+                             "side table's top consumers")
+    lease_answers = [a for a in got["answers"] if isinstance(a, tuple)
+                     and len(a) == 6]
+    st = got["status"]
+    if not (st["granted_total"] and st["revoked_total"]):
+        raise AssertionError(f"leases: the trace granted or revoked "
+                             f"nothing: {st}")
+    if device == "cuda":
+        for k in ("window_estimate", "admit", "cu_update",
+                  "hh_update [fused]", "window_reset"):
+            if counts.get(k, 0) == 0:
+                raise AssertionError(f"leases: {k} was not launched")
+        hold_tails("leases", counts)
+    out = {"counts": counts, "status": st, "ops": len(ops),
+           "answers": len(lease_answers), "pushes": len(got["pushes"]),
+           "max_share_of_limit": max(v[0] / v[1]
+                                     for v in got["tally"].values()),
+           "seconds": got["seconds"]}
+    where = card_line() if device == "cuda" else "the CPU"
+    log(f"leases on {where}: {len(ops)} ops, every answer, push, budget "
+        f"and the table equal to the CPU run; {st['granted_total']} "
+        f"granted, {st['revoked_total']} revoked, hot keys nominated from "
+        f"the side table; admissions at most "
+        f"{out['max_share_of_limit']:.2f} of a key's limit; launches "
+        f"{counts}")
+    return out
+
+
+def _health(port: int) -> dict:
+    return http_call(port, "GET", "/healthz")[2]
+
+
+def _lease_until(decide, cache, what: str, timeout: float = 60.0):
+    """Wire decisions on the hot key until its lease is granted."""
+    deadline = time.monotonic() + timeout
+    while not cache.status()["leased_keys"]:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no lease was granted ({what})")
+        decide()
+        time.sleep(0.005)
+
+
+def check_lease_binary(d: str, *, native: bool, device: str = "cuda",
+                       hot: str = "lease:hot") -> dict:
+    """Phase grpc (c): the binary as a child process with ``--leases
+    --lease-require-hot --hh-slots 256 --lease-budget LEASE_BUDGET
+    --grpc-port --http-port --shm --snapshot-dir d`` on config 3 (with
+    ``native``: ``--native --shards 2 --lease-port``). gRPC answers equal
+    the binary door's on the same keys; a client with ``enable_leases()``
+    gets its hot key leased once the side table nominates it, answers it
+    locally, and loses the lease to the push of a policy set (the
+    asyncio door: an AsyncClient over the shared-memory lane, whose push
+    comes through the reply ring; the native door: a Client deciding over
+    the lane, leasing through the sidecar, the set made by gRPC's
+    lease-guarded lever); /v1/snapshot, a kill and a restart restore the
+    lease table from its sidecar; SIGTERM exits 0."""
+    from ratelimiter_tpu_torch.serving.client import Client
+
+    flags = [*cell_flags(config3_hh()), "--device", device, "--grpc-port",
+             "0", "--http-port", "0", "--shm", "--leases",
+             "--lease-require-hot", "--lease-budget", str(LEASE_BUDGET),
+             "--snapshot-dir", d, "--snapshot-interval", "3600"]
+    if native:
+        flags += ["--native", "--shards", "2", "--lease-port", "0"]
+    name = f"lease binary[{'native' if native else 'asyncio'}]"
+    out: dict = {}
+    srv = ServerProcess(flags)
+    try:
+        stub = GrpcStub(srv.grpc)
+        pb2 = stub.pb2
+        with Client(port=srv.port, timeout=120.0) as c:
+            for i in range(6):
+                key = f"eq:{i}"
+                b1 = c.allow_n(key, LIMIT - 1)
+                g1 = stub.Allow(pb2.AllowRequest(key=key), timeout=120)
+                b2 = c.allow(key)
+                g2 = stub.Allow(pb2.AllowRequest(key=key), timeout=120)
+                g3 = stub.AllowN(pb2.AllowNRequest(key=f"eq:g{i}",
+                                                   n=LIMIT - 1), timeout=120)
+                b3 = c.allow_n(f"eq:g{i}", 2)
+                g4 = stub.AllowN(pb2.AllowNRequest(key=f"eq:g{i}", n=2),
+                                 timeout=120)
+                if not (b1.allowed and b1.remaining == 1 and g1.allowed
+                        and g1.remaining == 0 and g3.allowed):
+                    raise AssertionError(f"{name}: {key} {b1} {g1} {g3}")
+                for g, b in ((g2, b2), (g4, b3)):
+                    if (g.allowed, g.limit, g.remaining, g.fail_open) != (
+                            b.allowed, b.limit, b.remaining, b.fail_open) \
+                            or b.allowed:
+                        raise AssertionError(f"{name}: gRPC {g} against "
+                                             f"the binary door's {b}")
+            out["equal_keys"] = 12
+            if native:
+                lc = Client(port=srv.port, timeout=120.0, transport="shm")
+                try:
+                    cache = lc.enable_leases(lease_port=srv.lease,
+                                             interval=0.02, hot_after=3,
+                                             hot_window=5.0, low_water=0.0)
+                    _lease_until(lambda: lc.allow(hot), cache, name)
+                    before = cache.status()["local_answers"]
+                    for _ in range(8):
+                        lc.allow(hot)
+                    out["local_answers"] = (cache.status()["local_answers"]
+                                            - before)
+                    stub.SetOverride(pb2.SetOverrideRequest(key=hot,
+                                                            limit=150),
+                                     timeout=120)
+                    _wait_for(lambda: not cache.status()["leased_keys"],
+                              f"{name}: the revocation push")
+                    out["revoked"] = True
+                finally:
+                    lc.disable_leases()
+                    lc.close()
+            else:
+                out.update(asyncio.run(_async_lease_client(srv.port, hot,
+                                                           name)))
+            st = _health(srv.http)
+            if "leases" not in st:
+                raise AssertionError(f"{name}: /healthz has no leases "
+                                     f"block")
+            out["before"] = st["leases"]
+            st, _, snap = http_call(srv.http, "POST", "/v1/snapshot")
+            if st != 200:
+                raise AssertionError(f"{name}: /v1/snapshot answered {st}: "
+                                     f"{snap}")
+        srv.kill()
+        srv = ServerProcess(flags)
+        out["restored"] = _health(srv.http)["leases"]
+        kept = (out["before"]["active"] + out["before"]["tombstoned"])
+        if not kept or out["restored"]["active"] + \
+                out["restored"]["tombstoned"] != kept:
+            raise AssertionError(f"{name}: the lease table {out['before']} "
+                                 f"came back as {out['restored']}")
+        out["recovery"] = srv.recovered
+        stub.close()
+        rc = srv.terminate()
+        if rc != 0:
+            raise AssertionError(f"{name}: SIGTERM exit code {rc}")
+    finally:
+        if srv.proc.poll() is None:
+            srv.kill()
+    log(f"{name}: gRPC equal to the binary door on {out['equal_keys']} "
+        f"keys; the hot key leased after the side table nominated it, "
+        f"{out['local_answers']} local answers, revoked by a policy set's "
+        f"push; the lease table ({out['before']['active']} active, "
+        f"{out['before']['tombstoned']} tombstoned) restored after a kill")
+    return out
+
+
+def _wait_for(cond, what: str, timeout: float = 30.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+async def _async_lease_client(port: int, hot: str, name: str) -> dict:
+    """The asyncio door's leased AsyncClient over the shared-memory
+    lane: lease frames, local answers and the policy set's push, all
+    through the rings."""
+    from ratelimiter_tpu_torch.serving.client import AsyncClient
+
+    c = await AsyncClient.connect(port=port, transport="shm")
+    try:
+        cache = await c.enable_leases(interval=0.02, hot_after=3,
+                                      hot_window=5.0, low_water=0.0)
+        deadline = time.monotonic() + 60
+        while not cache.status()["leased_keys"]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: no lease was granted")
+            await c.allow(hot)
+            await asyncio.sleep(0.005)
+        before = cache.status()["local_answers"]
+        for _ in range(8):
+            await c.allow(hot)
+        local = cache.status()["local_answers"] - before
+        if not await c.set_override(hot, 150):
+            raise AssertionError(f"{name}: the policy set failed")
+        deadline = time.monotonic() + 30
+        while cache.status()["leased_keys"]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: no revocation push came "
+                                     f"through the lane")
+            await asyncio.sleep(0.01)
+        return {"local_answers": local, "revoked": True}
+    finally:
+        await c.disable_leases()
+        await c.close()
+
+
+def lease_client() -> None:
+    """Phase grpc (d)'s leased client, run in a child process: JSON on
+    stdin (``port``, ``seconds``, ``seed``); one blocking Client deciding
+    one key at a time on Zipf keys for ``seconds``, first without leases,
+    then on a new connection with ``enable_leases()``; each run's
+    decisions, seconds and local answers go pickled to stdout."""
+    from ratelimiter_tpu_torch.serving.client import Client
+
+    args = json.loads(sys.stdin.read())
+    rng = np.random.default_rng(args["seed"])
+    keys = door_keys(rng, "zipf", 200_000)
+    runs = []
+    for leases in (False, True):
+        with Client(port=args["port"], timeout=120.0) as c:
+            cache = (c.enable_leases(interval=0.05, hot_after=8)
+                     if leases else None)
+            n = 0
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < args["seconds"]:
+                c.allow(keys[n % len(keys)])
+                n += 1
+            wall = time.perf_counter() - t0
+            local = cache.status()["local_answers"] if cache else 0
+        runs.append({"decisions": n, "wall_s": wall, "local": local})
+    sys.stdout.buffer.write(pickle.dumps(runs))
+    sys.stdout.flush()
+
+
+#: Phase grpc (d)'s hot keys carry this override (the most frequent Zipf
+#: keys of the readings, as a service's largest customers would): at
+#: config 3's 100 a minute a lease could cover a few tokens at most.
+HOT_OVERRIDE, HOT_KEYS = 1_000_000, 32
+LEASE_READING_S = 2.0
+
+
+def grpc_readings(rounds: int = 3, device: str = "cuda",
+                  allow_rpcs: int = 200, batch_rpcs: int = 8,
+                  lease_s: float = LEASE_READING_S) -> list:
+    """Phase grpc (d), reported, not claimed: the binary in process on
+    config 3 (the default stack, ``--grpc-port --leases``), clients in
+    child processes, ``rounds`` rounds: gRPC Allow requests/s and RPC
+    p50/p99 at 8 threads (``allow_rpcs`` calls each), AllowBatch(512)
+    decisions/s at 8 threads (``batch_rpcs`` calls each), and
+    one blocking client on Zipf keys (the hot ones with an override of
+    ``HOT_OVERRIDE``) with and without ``enable_leases()``: its
+    decisions/s and the share answered locally."""
+    rows = []
+    argv = [*cell_flags(config3()), "--device", device, "--port", "0",
+            "--grpc-port", "0", "--leases"]
+    for rnd in range(rounds):
+        with in_process_binary(argv) as svc:
+            job = {"port": svc.grpc.port, "threads": GRPC_THREADS,
+                   "seed": rnd, "keys": 0}
+            allow, batch = _run_door_client({"jobs": [
+                {**job, "rpcs": allow_rpcs, "batch": 1, "mode": "allow"},
+                {**job, "rpcs": batch_rpcs, "batch": GRPC_BATCH,
+                 "mode": "batch"}]}, 600.0, "grpc_client")
+            for i in range(1, HOT_KEYS + 1):
+                svc.limiter.set_override(f"user:{i}", HOT_OVERRIDE)
+            plain, leased = _run_door_client({
+                "port": svc.server.port, "seconds": lease_s, "seed": rnd},
+                600.0, "lease_client")
+        lat = sorted(x for th in allow["threads"] for x in th["latency"])
+        n_allow = len(lat)
+        row = {"round": rnd,
+               "allow_rps": n_allow / allow["wall_s"],
+               "allow_p50_ms": 1e3 * lat[n_allow // 2],
+               "allow_p99_ms": 1e3 * lat[int(0.99 * (n_allow - 1))],
+               "batch_decisions_per_s": (GRPC_THREADS * batch_rpcs
+                                         * GRPC_BATCH / batch["wall_s"]),
+               "plain_decisions_per_s": plain["decisions"] / plain["wall_s"],
+               "leased_decisions_per_s": (leased["decisions"]
+                                          / leased["wall_s"]),
+               "leased_local_share": leased["local"] / leased["decisions"]}
+        rows.append(row)
+        where = card_line() if device == "cuda" else "the CPU"
+        log(f"grpc round {rnd} on {where}: "
+            f"Allow {row['allow_rps']:.0f} requests/s at {GRPC_THREADS} "
+            f"threads (p50 {row['allow_p50_ms']:.2f} ms, p99 "
+            f"{row['allow_p99_ms']:.2f} ms); AllowBatch({GRPC_BATCH}) "
+            f"{row['batch_decisions_per_s']:.0f} decisions/s; one client "
+            f"on Zipf keys {row['plain_decisions_per_s']:.0f} decisions/s "
+            f"without leases, {row['leased_decisions_per_s']:.0f} with "
+            f"({100 * row['leased_local_share']:.1f}% answered locally)")
+    return rows
+
+
+def run_grpc(torch, seed: int = 0, device: str = "cuda",
+             alone: bool = False) -> dict:
+    """Phase grpc: (a) gRPC through each door on config 3 windowed CU
+    with ``--hh-slots 256`` and on TB-c2 (``check_grpc_door``, the
+    launch counts set to 0 just before each run and read just after);
+    (b) the leases on the card (``check_leases``); (c) the binary with
+    leases and gRPC on each door as a child process, killed and
+    recovered (``check_lease_binary``); (d) the readings
+    (``grpc_readings``: one round in the whole run, three under
+    ``--grpc``, where (a) and (b) also run at full length)."""
+    import tempfile
+
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+
+    t = time.perf_counter()
+    out = {"versions": grpc_versions()}
+    log(f"phase grpc: grpcio {out['versions']['grpcio']}, protobuf "
+        f"{out['versions']['protobuf']} "
+        f"({out['versions']['protobuf_backend']})")
+    # The whole run takes the short form: 12 calls a thread, one round
+    # of shorter readings.
+    rpcs = GRPC_RPCS if alone else GRPC_RPCS // 4
+    windowed = dict(counters=[sketch_cuda], front="window_estimate",
+                    update="cu_update",
+                    required=("window_estimate", "admit", "cu_update",
+                              "hh_update [fused]", "window_reset"))
+    bucket = dict(counters=[bucket_cuda], front="bucket_estimate",
+                  update="bucket_update", front_per_reset=1,
+                  required=("bucket_estimate", "admit", "bucket_update"))
+    parts = out["part_seconds"] = {}
+
+    def timed(part: str, fn, *args, **kw):
+        t_part = time.perf_counter()
+        out[part] = fn(*args, **kw)
+        parts[part] = time.perf_counter() - t_part
+
+    for native in (False, True):
+        door = "native" if native else "asyncio"
+        timed(f"windowed {door}", check_grpc_door, torch, config3_hh(),
+              f"windowed CU hh_slots={HH_SLOTS}", native=native,
+              device=device, seed=seed + 101, rpcs=rpcs, **windowed)
+        timed(f"TB-c2 {door}", check_grpc_door, torch, config2_bucket(),
+              "TB-c2", native=native, device=device, seed=seed + 103,
+              rpcs=rpcs, **bucket)
+    timed("leases", check_leases, torch, device=device, seed=seed + 107,
+          steps=400 if alone else 160)
+    # The two binaries are child processes of their own: run side by side.
+    with tempfile.TemporaryDirectory() as d:
+        import concurrent.futures as cf
+        import os
+
+        for door in ("asyncio", "native"):
+            os.makedirs(f"{d}/{door}")
+        t_part = time.perf_counter()
+        with cf.ThreadPoolExecutor(2) as ex:
+            futs = {door: ex.submit(check_lease_binary, f"{d}/{door}",
+                                    native=door == "native", device=device)
+                    for door in ("asyncio", "native")}
+        for door, fut in futs.items():
+            out[f"binary {door}"] = fut.result()
+        parts["binaries"] = time.perf_counter() - t_part
+    timed("readings", grpc_readings, rounds=3 if alone else 1,
+          device=device, allow_rpcs=200 if alone else 32,
+          batch_rpcs=8 if alone else 2,
+          lease_s=LEASE_READING_S if alone else 1.0)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase grpc on {card_line() if device == 'cuda' else 'the CPU'}: "
+        f"{out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items()) + ")")
+    return out
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -8339,6 +9221,12 @@ def main(argv=None) -> int:
                          "shared-memory lane, two shards, the binary "
                          "with --native, the load generator's readings; "
                          "one JSON line)")
+    ap.add_argument("--grpc", action="store_true",
+                    help="only build, then run phase grpc at full length "
+                         "(gRPC through both doors, the leases on the "
+                         "card, the binary with leases killed and "
+                         "recovered, three rounds of readings; one JSON "
+                         "line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -8363,11 +9251,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
-                or args.gateway or args.door or args.native)
+                or args.gateway or args.door or args.native
+                or args.grpc)
     # The native door and the load generator build with g++ beside the
     # nvcc builds.
     host_build = None
-    if full or args.native:
+    if full or args.native or args.grpc:
         from concurrent.futures import ThreadPoolExecutor
 
         from ratelimiter_tpu_torch import native
@@ -8437,6 +9326,13 @@ def main(argv=None) -> int:
         out = run_native(torch, args.seed)
         check_no_children()
         print(json.dumps({"card": card, "native": out},
+                         default=lambda o: repr(o)))
+        print(card)
+        return 0
+    if args.grpc:
+        out = run_grpc(torch, args.seed, alone=True)
+        check_no_children()
+        print(json.dumps({"card": card, "grpc": out},
                          default=lambda o: repr(o)))
         print(card)
         return 0
@@ -8593,6 +9489,7 @@ def main(argv=None) -> int:
         "TB-c2": door_tb}, rounds=1)
     gateway = run_gateway(torch, args.seed)
     native_door = run_native(torch, args.seed, rounds=1)
+    grpc_phase = run_grpc(torch, args.seed)
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
@@ -8621,10 +9518,13 @@ def main(argv=None) -> int:
                      gateway["windowed"],
                      *(native_door[f"windowed CU {t}"]
                        for t in NATIVE_TRANSPORTS),
-                     native_door["windowed CU shards=2"])
+                     native_door["windowed CU shards=2"],
+                     grpc_phase["windowed asyncio"],
+                     grpc_phase["windowed native"], grpc_phase["leases"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
                    *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
-                   native_door["TB-c2"])
+                   native_door["TB-c2"], grpc_phase["TB-c2 asyncio"],
+                   grpc_phase["TB-c2 native"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -8649,6 +9549,7 @@ def main(argv=None) -> int:
     paths["observe"] = observe
     paths["gateway"] = gateway
     paths["native"] = native_door
+    paths["grpc"] = grpc_phase
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -3,9 +3,9 @@ port of ``ratelimiter_tpu/evaluation``: the accuracy harness, the
 comparison engine, the device load generator (``loadgen``), the device
 oracle (``oracle_device``) and the hierarchy scenarios (``scenarios``).
 
-The three-way comparison core (``compare.py``) is the one the JAX
-package's live accuracy observatory runs (``observability/audit.py``,
-ADR-016); the port's auditor is not ported yet (ROADMAP A13)."""
+The three-way comparison core (``compare.py``) is the one the live
+accuracy observatory runs, in the JAX package and in the port
+(``observability/audit.py``, ADR-016)."""
 
 from ratelimiter_tpu_torch.evaluation.accuracy import evaluate_accuracy, zipf_key_ids
 from ratelimiter_tpu_torch.evaluation.compare import (

@@ -167,7 +167,14 @@ struct Ring {
     return true;
   }
 
+  // The doorbell is a Dekker pair: the producer publishes `tail` then
+  // reads `consumer_sleeping`; the consumer arms `consumer_sleeping`
+  // then re-reads `tail` (likewise `head` against `producer_waiting`).
+  // Release/acquire does not order a store before a later load of
+  // another word, so every flag read after a publish and every arming
+  // store before a recheck carries a seq_cst fence, on both sides.
   bool consumer_sleeping() const {
+    std::atomic_thread_fence(std::memory_order_seq_cst);
     return ctrl->consumer_sleeping.load(std::memory_order_acquire) != 0;
   }
 
@@ -208,6 +215,7 @@ struct Ring {
   }
 
   bool producer_waiting() const {
+    std::atomic_thread_fence(std::memory_order_seq_cst);
     return ctrl->producer_waiting.load(std::memory_order_acquire) != 0;
   }
   void clear_producer_waiting() {
@@ -215,12 +223,14 @@ struct Ring {
   }
   void set_producer_waiting() {
     ctrl->producer_waiting.store(1, std::memory_order_seq_cst);
+    std::atomic_thread_fence(std::memory_order_seq_cst);
   }
   void set_sleeping() {
-    // SeqCst store-then-load: the re-check of tail after this store is
-    // ordered after it, so a producer that published before reading the
-    // flag is always seen by the re-check (no lost wakeup).
+    // Store, fence, then the caller re-checks tail: with the producer's
+    // fence between its publish and its flag read, one of the two sees
+    // the other's store (no lost wakeup).
     ctrl->consumer_sleeping.store(1, std::memory_order_seq_cst);
+    std::atomic_thread_fence(std::memory_order_seq_cst);
   }
   void clear_sleeping() {
     ctrl->consumer_sleeping.store(0, std::memory_order_release);

@@ -21,8 +21,12 @@ succeeded, and the caller's response implies durability (under
 loses a mutation that was never acknowledged — indistinguishable, to
 the caller, from crashing a moment earlier.
 
+Sidecars (``add_sidecar``/``restore_sidecar``) carry a non-limiter
+table on the same snapshots: the lease grant table rides every snapshot
+and is restored after recovery.
+
 Left out: the mesh's slice restorer (ROADMAP A8), and the fleet's
-auxiliary units and the lease table's sidecar (A8, A13d).
+auxiliary units (A8, A13d).
 """
 
 from __future__ import annotations
@@ -133,6 +137,33 @@ class PersistenceManager:
         """Manual trigger (binary T_SNAPSHOT)."""
         assert self.snapshotter is not None, "attach() first"
         return self.snapshotter.snapshot_now()
+
+    def add_sidecar(self, name: str, obj) -> None:
+        """Ride a non-limiter object on the snapshot cycle (the lease
+        grant table). ``obj`` duck-types ``snapshot_arrays() -> (arrays,
+        meta)`` / ``restore_arrays(arrays, meta)``."""
+        assert self.snapshotter is not None, "attach() first"
+        self.snapshotter.add_sidecar(name, obj)
+
+    def restore_sidecar(self, name: str, obj) -> bool:
+        """Restore ``obj`` from the newest manifest entry carrying a
+        sidecar of this name; True iff one was found and applied. Run
+        AFTER recover(): the sidecar is consistent with (not ahead of)
+        the snapshot the shards restored from."""
+        from ratelimiter_tpu_torch.persistence.snapshotter import (
+            load_sidecar,
+            read_manifest,
+        )
+
+        manifest = read_manifest(self.dir)
+        if not manifest:
+            return False
+        for entry in reversed(manifest["snapshots"]):
+            got = load_sidecar(self.dir, entry, name)
+            if got is not None:
+                obj.restore_arrays(got[0], got[1])
+                return True
+        return False
 
     def status(self) -> dict:
         out = self.snapshotter.status() if self.snapshotter else {

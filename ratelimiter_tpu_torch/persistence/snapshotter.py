@@ -22,19 +22,27 @@ Retention: the last ``retain`` snapshots stay on disk; older snapshot
 files and every WAL segment wholly below the OLDEST retained watermark
 are pruned (any retained snapshot can still replay forward).
 
-Left out: the chaos hook before capture (ROADMAP A13), and the auxiliary
-units and sidecars that serve the fleet's adopted ranges and the lease
-table (A8, A13).
+Sidecars ride the same cycle: a non-limiter object with
+``snapshot_arrays() -> (arrays, meta)`` (the lease grant table,
+leases/manager.py) is captured under the snapshot lock after the shards
+and written as ``side-<id>-<name>.npz`` (its arrays, and its meta as a
+``__meta__`` byte array), named in the manifest entry's ``sidecars``.
+
+Left out: the chaos hook before capture (ROADMAP A13d, part two), and
+the auxiliary units that serve the fleet's adopted ranges (A8, A13d).
 """
 
 from __future__ import annotations
 
+import io
 import json
 import logging
 import os
 import threading
 import time
 from typing import List, Optional
+
+import numpy as np
 
 from ratelimiter_tpu_torch.checkpoint import (
     config_fingerprint,
@@ -53,6 +61,27 @@ MANIFEST_VERSION = 1
 
 def _snap_name(snap_id: int, shard: int) -> str:
     return f"snap-{snap_id:08d}-{shard:03d}.npz"
+
+
+def _side_name(snap_id: int, name: str) -> str:
+    return f"side-{snap_id:08d}-{name}.npz"
+
+
+def load_sidecar(dir_: str, entry: dict, name: str):
+    """Read one sidecar's ``(arrays, meta)`` from a manifest entry, or
+    None when the entry has no sidecar of that name (older snapshot, or
+    the subsystem was off when it was taken)."""
+    import numpy as np
+
+    for sc in entry.get("sidecars", []):
+        if sc.get("name") != name:
+            continue
+        with np.load(os.path.join(dir_, sc["file"])) as z:
+            arrays = {k: z[k] for k in z.files if k != "__meta__"}
+            meta = (json.loads(bytes(z["__meta__"]).decode("utf-8"))
+                    if "__meta__" in z.files else {})
+        return arrays, meta
+    return None
 
 
 def read_manifest(dir_: str) -> Optional[dict]:
@@ -130,6 +159,9 @@ class Snapshotter:
         self.last_entry: Optional[dict] = entries[-1] if entries else None
         #: duration of the last successful snapshot
         self.last_duration: Optional[float] = None
+        #: Lightweight objects riding the snapshot cycle (the lease grant
+        #: table): name -> object with ``snapshot_arrays``.
+        self._sidecars: dict = {}
 
     # ---------------------------------------------------------- lifecycle
 
@@ -159,6 +191,20 @@ class Snapshotter:
             except Exception:
                 log.exception("background snapshot failed; will retry "
                               "next interval")
+
+    def add_sidecar(self, name: str, obj) -> None:
+        """Register a sidecar (``snapshot_arrays``/``restore_arrays``
+        duck type) so every later cycle captures it alongside the
+        shards. The name lands in filenames — keep it short and
+        path-safe."""
+        if "/" in name or name != name.strip() or not name:
+            raise ValueError(f"bad sidecar name {name!r}")
+        with self._lock:
+            self._sidecars[name] = obj
+
+    def remove_sidecar(self, name: str) -> None:
+        with self._lock:
+            self._sidecars.pop(name, None)
 
     def notify_mutation(self) -> None:
         """Called per WAL append; trips the mutation-count trigger."""
@@ -194,6 +240,13 @@ class Snapshotter:
         captures = []
         for lim in self.limiters:
             captures.append((lim.capture_state(), lim.config))
+        side_captures = []
+        for name, obj in self._sidecars.items():
+            try:
+                side_captures.append((name, obj.snapshot_arrays()))
+            except Exception:  # noqa: BLE001 — a sidecar must never
+                # block the shards' durability
+                log.exception("sidecar %r capture failed; skipping", name)
         capture_s = time.perf_counter() - t0
         # Off-lock from here: serialization + fsync happen while decisions
         # keep flowing.
@@ -204,6 +257,15 @@ class Snapshotter:
             save_state(os.path.join(self.dir, name), kind, config,
                        arrays, extra)
             files.append(name)
+        side_entries = []
+        for name, (arrays, meta) in side_captures:
+            fname = _side_name(snap_id, name)
+            buf = io.BytesIO()
+            np.savez(buf, __meta__=np.frombuffer(
+                json.dumps(meta).encode("utf-8"), dtype=np.uint8),
+                **arrays)
+            write_atomic(os.path.join(self.dir, fname), buf.getvalue())
+            side_entries.append({"name": name, "file": fname})
         cfg = self.limiters[0].config
         entry = {
             "id": snap_id,
@@ -217,6 +279,8 @@ class Snapshotter:
             "config": {"algorithm": str(cfg.algorithm.value),
                        "limit": cfg.limit, "window": cfg.window},
         }
+        if side_entries:
+            entry["sidecars"] = side_entries
         manifest = read_manifest(self.dir) or {
             "format_version": MANIFEST_VERSION, "snapshots": []}
         manifest["snapshots"].append(entry)
@@ -241,9 +305,12 @@ class Snapshotter:
         """Drop snapshot files not referenced by the manifest and WAL
         segments wholly below the oldest retained watermark."""
         keep = {name for e in manifest["snapshots"] for name in e["files"]}
+        keep |= {s["file"] for e in manifest["snapshots"]
+                 for s in e.get("sidecars", [])}
         try:
             for name in os.listdir(self.dir):
-                if (name.startswith("snap-") and name.endswith(".npz")
+                if (name.startswith(("snap-", "side-"))
+                        and name.endswith(".npz")
                         and name not in keep):
                     try:
                         os.unlink(os.path.join(self.dir, name))

@@ -56,9 +56,9 @@ its decisions go through the door's micro-batcher
 (``make_threadsafe_decide``), so HTTP and binary frames share launches
 and windows. ``/healthz`` carries the JAX binary's blocks (the sketch's
 envelope or debt slab, the side table's consumers, the audit and SLO
-blocks, the hierarchy, the journal, the persistence status; leases, the
-fleet, placement and quarantine, which the port does not have, give the
-JAX binary's ``{}`` for "off"); ``/v1/reset``, ``/v1/policy``,
+blocks, the hierarchy, the leases, the journal, the persistence status;
+the fleet, placement and quarantine, which the port does not have, give
+the JAX binary's ``{}`` for "off"); ``/v1/reset``, ``/v1/policy``,
 ``/v1/tenants``, ``/v1/snapshot`` and the ``/debug`` routes are gated by
 the JAX binary's ``--http-*``, ``--debug-*`` and ``--audit-token``
 flags. ``--audit`` turns on the live accuracy observatory
@@ -82,6 +82,19 @@ doors take ``--listen unix:/path`` and ``--shm`` (``--shm-dir``,
 (the JAX binary's default), which decides as the sliding window; a
 snapshot taken under ``--algorithm sliding_window`` restores only under
 that flag (the fingerprint names the algorithm).
+
+``--grpc-port`` serves the gRPC contract (serving/grpc_server.py, its
+descriptor committed in serving/grpc_pb.py) beside either door, its
+decisions through the same batcher or shard router. ``--leases`` turns
+on client-embedded quota leases (leases/; ``--lease-ttl``,
+``--lease-budget``, ``--lease-max``, ``--lease-require-hot`` over the
+side table, which needs ``--hh-slots``): the asyncio door serves the
+lease frames on its port, the native door on the ``--lease-port``
+sidecar; a grant debits its budget through the door's decide path, the
+HTTP and gRPC policy and reset levers revoke the key's leases, an AIMD
+tighten revokes all of them, and with ``--snapshot-dir`` the grant table
+rides every snapshot. The JAX binary's flags, defaults and refusals,
+without the fleet's lease gossip (ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -264,6 +277,44 @@ def build_parser() -> argparse.ArgumentParser:
                          "--tenants > 0")
     ap.add_argument("--controller-interval", type=float, default=1.0,
                     help="seconds between AIMD controller ticks")
+    # Client-embedded quota leases (the JAX binary's flags and defaults).
+    ap.add_argument("--leases", action="store_true",
+                    help="grant client-embedded quota leases: clients "
+                         "holding a lease answer allow/allow_n for that "
+                         "key from a local token budget at memory speed; "
+                         "the budget is debited upfront through the "
+                         "normal decide path, so the global bound fails "
+                         "toward false-denies, never over-admission. "
+                         "Revocations push over the granting connection; "
+                         "the lease TTL bounds a holder that lost the "
+                         "push")
+    ap.add_argument("--lease-ttl", type=float, default=2.0,
+                    help="lease lifetime seconds (renewals extend it); "
+                         "ALSO the staleness bound on a partitioned "
+                         "holder that missed its revocation push")
+    ap.add_argument("--lease-budget", type=int, default=256,
+                    help="tokens per grant when the client does not ask "
+                         "for a specific amount")
+    ap.add_argument("--lease-max", type=int, default=4096,
+                    help="active-grant capacity; grants beyond it are "
+                         "refused and clients stay on the wire path")
+    ap.add_argument("--lease-require-hot", action="store_true",
+                    help="only lease keys currently in the heavy-hitter "
+                         "side table's top-k (needs --hh-slots): cold "
+                         "keys stay on the wire")
+    ap.add_argument("--lease-port", type=int, default=None,
+                    help="--native only: serve lease frames on this "
+                         "sidecar port (0 = ephemeral, printed in the "
+                         "serving line). The C++ front door has no lease "
+                         "lane; the asyncio door serves lease frames on "
+                         "its main port")
+    ap.add_argument("--grpc-port", type=int, default=None,
+                    help="also serve the gRPC contract "
+                         "(api/proto/ratelimiter.proto) on this port "
+                         "(needs grpcio; the descriptor is committed, so "
+                         "no protoc). Decisions share the door's batcher "
+                         "(the shard router under --native) with every "
+                         "other surface")
     ap.add_argument("--log-level", default="info")
     # Decorator stack (observability/decorators.py).
     ap.add_argument("--circuit-breaker", action="store_true",
@@ -424,6 +475,16 @@ def build_config(args: argparse.Namespace) -> Config:
     if args.shards > 1 and not args.native:
         raise SystemExit("--shards needs --native (the asyncio front door "
                          "has one dispatcher)")
+    if args.lease_require_hot and not args.leases:
+        raise SystemExit("--lease-require-hot needs --leases")
+    if args.lease_require_hot and args.hh_slots <= 0:
+        raise SystemExit("--lease-require-hot needs --hh-slots > 0 "
+                         "(hot-key nomination reads the heavy-hitter "
+                         "side table)")
+    if args.lease_port is not None and not args.native:
+        raise SystemExit("--lease-port is the native door's lease "
+                         "sidecar; the asyncio door serves lease "
+                         "frames on its main port")
     if cfg.hierarchy.enabled and args.max_batch > ADMIT_CAPACITY:
         raise SystemExit(f"--max-batch {args.max_batch} with --tenants: the "
                          f"cascade decides at most {ADMIT_CAPACITY} requests "
@@ -678,6 +739,128 @@ def make_threadsafe_decide(batcher, loop):
     return decide
 
 
+def make_threadsafe_decide_many(batcher, loop):
+    """Bulk bridge for gRPC AllowBatch: the WHOLE frame is submitted to
+    the micro-batcher before any result is awaited, so N items coalesce
+    into O(1) batched dispatches (they typically land in ONE, together
+    with concurrent binary-protocol traffic) instead of N sequential
+    submit-wait round-trips. Results return in request order
+    (submit_many_nowait preserves it; gather keeps positions)."""
+    def decide_many(pairs):
+        async def _run():
+            futs = batcher.submit_many_nowait(pairs)
+            return await asyncio.gather(*futs)
+
+        return asyncio.run_coroutine_threadsafe(
+            _run(), loop).result(timeout=30)
+
+    return decide_many
+
+
+def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist):
+    """The lease authority (leases/manager.py), as the JAX binary's
+    ``_setup_leases`` builds it without a fleet core (``epoch_fn``,
+    ``owns_fn`` and ``gossip`` stay None): grants, renewals and returns
+    debit through ``decide``, the door's shared dispatch path (the
+    asyncio door's batcher bridge, the native door's shard router), so a
+    lease budget is charged exactly like a wire decision, on the card by
+    the step's kernels. With ``--snapshot-dir`` the grant table rides
+    every snapshot as the ``leases`` sidecar and is restored after
+    recovery. None without ``--leases``."""
+    if not args.leases:
+        return None
+    from ratelimiter_tpu_torch.leases import LeaseManager
+    from ratelimiter_tpu_torch.observability import metrics
+    from ratelimiter_tpu_torch.observability.decorators import undecorated
+
+    mgr = LeaseManager(
+        undecorated(limiter), decide=decide,
+        ttl=args.lease_ttl, default_budget=args.lease_budget,
+        max_leases=args.lease_max,
+        require_hot=args.lease_require_hot,
+        registry=metrics.DEFAULT)
+    if persist is not None:
+        persist.add_sidecar("leases", mgr)
+        if persist.restore_sidecar("leases", mgr):
+            logging.getLogger("ratelimiter_tpu_torch.leases").info(
+                "lease table restored from snapshot sidecar "
+                "(restored grants are tombstone-only: their mass "
+                "stays charged, holders re-grant)")
+    return mgr
+
+
+def _lease_guarded_policy(lease_mgr, set_fn, delete_fn):
+    """Wrap a door's policy callables so an override mutation revokes
+    the key's outstanding leases: a holder must not keep answering
+    locally under the limit the operator just changed. The wrappers
+    keep the wrapped callables' signatures (the gateway and gRPC both
+    call them)."""
+    if lease_mgr is None:
+        return set_fn, delete_fn
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    def set_(key, limit=None, **kw):
+        ov = set_fn(key, limit, **kw)
+        lease_mgr.revoke_key(key, p.LEASE_REV_POLICY)
+        return ov
+
+    def delete_(key):
+        existed = delete_fn(key)
+        if existed:
+            lease_mgr.revoke_key(key, p.LEASE_REV_POLICY)
+        return existed
+
+    return set_, delete_
+
+
+def _lease_guarded_reset(lease_mgr, reset_fn):
+    """A reset erases the window counter holding a grant's debited mass,
+    so leased tokens spent afterwards would be invisible to the bound:
+    the key's leases are revoked alongside (the asyncio door's RESET
+    frame does the same)."""
+    if lease_mgr is None:
+        return reset_fn
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    def reset_(key):
+        out = reset_fn(key)
+        lease_mgr.revoke_key(key, p.LEASE_REV_MANUAL)
+        return out
+
+    return reset_
+
+
+def _lease_controller_hook(lease_mgr):
+    """AIMD tighten -> lease revocation: any tightened scope invalidates
+    outstanding budgets sized under the old effective limits. Scope to
+    keys is not tracked, so the hook revokes ALL grants: coarse, but in
+    the safe direction (lease churn, never over-admission)."""
+    if lease_mgr is None:
+        return None
+    from ratelimiter_tpu_torch.serving import protocol as p
+
+    return lambda _scope: lease_mgr.revoke_all(p.LEASE_REV_CONTROLLER)
+
+
+def _lease_health(lease_mgr) -> dict:
+    return {"leases": lease_mgr.status()} if lease_mgr is not None else {}
+
+
+def make_grpc(args: argparse.Namespace, limiter, *, decide, decide_many,
+              reset, policy, decisions_total, hier):
+    """The gRPC server as the JAX binary builds it beside either door:
+    decisions through the door's ``decide``/``decide_many``, the
+    lease-guarded reset and policy levers, the tenant RPCs over the
+    hierarchy when it runs."""
+    from ratelimiter_tpu_torch.serving.grpc_server import GrpcRateLimitServer
+
+    return GrpcRateLimitServer(
+        decide, reset, host=args.host, port=args.grpc_port,
+        decisions_total=decisions_total, decide_many=decide_many,
+        policy=policy, default_limit=lambda: limiter.config.limit,
+        tenants=hier)
+
+
 def setup_audit(args: argparse.Namespace, cfg: Config, limiter):
     """``--audit``: the process-wide shadow auditor (its twin, under
     ``--audit-twin``, on the serving limiter's device) following the
@@ -712,12 +895,15 @@ def make_audit_status(auditor, slo_tracker, limiters):
     return status
 
 
-def make_gateway(args: argparse.Namespace, limiter, server, loop, *,
-                 member_info, persist=None, hier=None, controller=None,
-                 auditor=None, slo_tracker=None):
+def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
+                 levers, member_info, persist=None, hier=None,
+                 controller=None, auditor=None, slo_tracker=None,
+                 lease_mgr=None):
     """The HTTP gateway as the JAX binary's asyncio door builds it: its
-    decisions through the door's batcher, /healthz from the blocks
-    above, the levers and debug routes behind their flags."""
+    decisions through ``decide`` (the door's batcher bridge), the
+    lease-guarded ``levers`` (reset, policy set, policy delete), /healthz
+    from the blocks above, the levers and debug routes behind their
+    flags."""
     from ratelimiter_tpu_torch.observability import metrics
     from ratelimiter_tpu_torch.serving.http_gateway import HttpGateway
 
@@ -733,19 +919,21 @@ def make_gateway(args: argparse.Namespace, limiter, server, loop, *,
                 **_audit_health(),
                 **_slo_health(slo_tracker),
                 **_hierarchy_health(hier, controller),
+                **_lease_health(lease_mgr),
                 **_events_health(),
                 **(persist.status() if persist is not None else {})}
 
+    reset, policy_set, policy_delete = levers
     return HttpGateway(
-        make_threadsafe_decide(server.batcher, loop), limiter.reset,
+        decide, reset,
         host=args.host, port=args.http_port,
         metrics_render=metrics.DEFAULT.render,
         health=health,
         enable_reset=bool(args.http_reset or args.http_reset_token),
         reset_token=args.http_reset_token,
-        policy_set=limiter.set_override,
+        policy_set=policy_set,
         policy_get=limiter.get_override,
-        policy_delete=limiter.delete_override,
+        policy_delete=policy_delete,
         enable_policy=bool(args.http_policy or args.http_policy_token),
         policy_token=args.http_policy_token,
         snapshot=(persist.snapshot_now if persist is not None else None),
@@ -913,15 +1101,41 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         snapshot=persist.snapshot_now if persist is not None else None,
         max_window=max_window(args, cfg), shm=args.shm,
         shm_dir=args.shm_dir, shm_ring_bytes=args.shm_ring_bytes)
-    await server.start()
     loop = asyncio.get_running_loop()
+    # The gateway's and gRPC's worker threads, and the lease debits,
+    # funnel into the door's micro-batcher: every surface shares its
+    # launches.
+    decide = make_threadsafe_decide(server.batcher, loop)
+    lease_mgr = _setup_leases(args, limiter=limiter, decide=decide,
+                              persist=persist)
+    server.leases = lease_mgr
+    await server.start()
+    if controller is not None:
+        controller.on_tighten = _lease_controller_hook(lease_mgr)
+    # The HTTP and gRPC levers revoke the touched key's leases (the
+    # door's own policy and RESET frames revoke inline).
+    lease_set, lease_del = _lease_guarded_policy(
+        lease_mgr, limiter.set_override, limiter.delete_override)
+    lease_reset = _lease_guarded_reset(lease_mgr, limiter.reset)
     gateway = None
     if args.http_port is not None:
-        gateway = make_gateway(args, limiter, server, loop,
+        gateway = make_gateway(args, limiter, server, decide=decide,
+                               levers=(lease_reset, lease_set, lease_del),
                                member_info=member_info, persist=persist,
                                hier=hier, controller=controller,
-                               auditor=auditor, slo_tracker=slo_tracker)
+                               auditor=auditor, slo_tracker=slo_tracker,
+                               lease_mgr=lease_mgr)
         gateway.start()
+    grpc_srv = None
+    if args.grpc_port is not None:
+        grpc_srv = make_grpc(
+            args, limiter, decide=decide,
+            decide_many=make_threadsafe_decide_many(server.batcher, loop),
+            reset=lease_reset,
+            policy=(lease_set, limiter.get_override, lease_del),
+            decisions_total=lambda: server.batcher.decisions_total,
+            hier=hier)
+        grpc_srv.start()
     if controller is not None:
         controller.start()
     stop = _signals(loop, stop)
@@ -932,14 +1146,16 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)"
           + (" shm" if args.shm else "")
-          + (f" http:{gateway.port}" if gateway is not None else ""),
+          + (f" http:{gateway.port}" if gateway is not None else "")
+          + (f" grpc:{grpc_srv.port}" if grpc_srv is not None else ""),
           flush=True)
     if ready is not None:
         ready.set_result(SimpleNamespace(
             limiter=limiter, server=server, gateway=gateway,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
-            member_info=member_info))
+            member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
+            lease_listener=None))
     try:
         await stop.wait()
     finally:
@@ -947,6 +1163,9 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
             controller.stop()
         if gateway is not None:
             gateway.shutdown()
+        if grpc_srv is not None:
+            grpc_srv.shutdown()
+        # Pushes the leases' revoke-all while the connections are open.
         await server.shutdown()
         if persist is not None:
             # After the drain, before close: the final snapshot captures
@@ -977,10 +1196,12 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
     ``limiter`` and, with ``--shards N``, N - 1 clones each under
     ``decorate(clone, i)`` (the decorator stack under shard ``i``'s
     label, the persistence wrapper); the JAX binary's native branch
-    without the mesh, the fleet, DCN, leases, gRPC and quarantine. The
-    persistence manager attaches every shard with the door's router and
-    recovers before the door listens; the HTTP gateway decides through
-    ``decide_one`` (the shard router)."""
+    without the mesh, the fleet, DCN and quarantine. The persistence
+    manager attaches every shard with the door's router and recovers
+    before the door listens; the HTTP gateway and gRPC decide through
+    ``decide_one``/``decide_many`` (the shard router), and so do the
+    lease debits, whose frames the ``LeaseListener`` sidecar serves on
+    ``--lease-port``."""
     from ratelimiter_tpu_torch.observability import metrics
     from ratelimiter_tpu_torch.serving.http_gateway import HttpGateway
     from ratelimiter_tpu_torch.serving.native_server import (
@@ -1009,11 +1230,31 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
               f"{time.perf_counter() - t:.3f} s", flush=True)
         persist.start()
     server.start()
+    # The C++ door has no lease lane: grants, renewals and returns are
+    # served by a sidecar listener, their debits through decide_one, the
+    # shard router, so a lease budget lands on the key's shard.
+    lease_mgr = _setup_leases(args, limiter=limiter,
+                              decide=server.decide_one, persist=persist)
+    server.leases = lease_mgr
+    lease_listener = None
+    if lease_mgr is not None:
+        from ratelimiter_tpu_torch.leases.listener import LeaseListener
+
+        lease_listener = LeaseListener(lease_mgr, host=args.host,
+                                       port=args.lease_port or 0)
+        lease_listener.start()
     # After recovery (the hier_* columns restore first), before the
     # gateway, whose /healthz and /v1/tenants mount it.
     hier, controller = setup_hierarchy(args, cfg, server.shard_limiters,
                                        slo_tracker=slo_tracker,
                                        auditor=auditor)
+    if controller is not None:
+        controller.on_tighten = _lease_controller_hook(lease_mgr)
+    # HTTP and gRPC get the lease-guarded levers; a mutation over the
+    # C++ door's own binary lane is bounded by the lease TTL instead.
+    lease_set, lease_del = _lease_guarded_policy(
+        lease_mgr, server.set_override_all, server.delete_override_all)
+    lease_reset = _lease_guarded_reset(lease_mgr, server.reset_one)
     gateway = None
     if args.http_port is not None:
         lims = server.shard_limiters
@@ -1030,20 +1271,21 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                     **_audit_health(),
                     **_slo_health(slo_tracker),
                     **_hierarchy_health(hier, controller),
+                    **_lease_health(lease_mgr),
                     **_events_health(),
                     **(persist.status() if persist is not None else {})}
 
         gateway = HttpGateway(
-            server.decide_one, server.reset_one,
+            server.decide_one, lease_reset,
             host=args.host, port=args.http_port,
             metrics_render=metrics.DEFAULT.render,
             health=health,
             enable_reset=bool(args.http_reset or args.http_reset_token),
             reset_token=args.http_reset_token,
             # Overrides apply on every shard (keys hash-route).
-            policy_set=server.set_override_all,
+            policy_set=lease_set,
             policy_get=server.get_override_one,
-            policy_delete=server.delete_override_all,
+            policy_delete=lease_del,
             enable_policy=bool(args.http_policy or args.http_policy_token),
             policy_token=args.http_policy_token,
             snapshot=(persist.snapshot_now if persist is not None
@@ -1059,6 +1301,15 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                                 or args.http_tenants_token),
             tenants_token=args.http_tenants_token)
         gateway.start()
+    grpc_srv = None
+    if args.grpc_port is not None:
+        grpc_srv = make_grpc(
+            args, limiter, decide=server.decide_one,
+            decide_many=server.decide_many, reset=lease_reset,
+            policy=(lease_set, server.get_override_one, lease_del),
+            decisions_total=lambda: server.stats()["decisions_total"],
+            hier=hier)
+        grpc_srv.start()
     if controller is not None:
         controller.start()
     stop = _signals(asyncio.get_running_loop(), stop)
@@ -1072,14 +1323,18 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)"
           + (" shm" if args.shm else "")
-          + (f" http:{gateway.port}" if gateway is not None else ""),
+          + (f" http:{gateway.port}" if gateway is not None else "")
+          + (f" grpc:{grpc_srv.port}" if grpc_srv is not None else "")
+          + (f" lease:{lease_listener.port}" if lease_listener is not None
+             else ""),
           flush=True)
     if ready is not None:
         ready.set_result(SimpleNamespace(
             limiter=limiter, server=server, gateway=gateway,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
-            member_info=member_info))
+            member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
+            lease_listener=lease_listener))
     try:
         await stop.wait()
     finally:
@@ -1087,6 +1342,14 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             controller.stop()
         if gateway is not None:
             gateway.shutdown()
+        if grpc_srv is not None:
+            grpc_srv.shutdown()
+        if lease_mgr is not None:
+            # Revoke-all BEFORE the listener closes: holders get the
+            # shutdown push and stop answering locally right away.
+            lease_mgr.close()
+        if lease_listener is not None:
+            lease_listener.close()
         if persist is not None:
             # The door first (it answers what is in flight), then the
             # final snapshot of every shard, then the clones close.

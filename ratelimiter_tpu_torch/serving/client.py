@@ -35,6 +35,15 @@ Resilience (ADR-015):
   wire as the protocol's deadline extension so the server sheds the
   work if the budget expires in its queue (answering per its
   fail-open/fail-closed policy).
+
+Quota leases, as in the JAX clients: ``enable_leases()`` turns on the
+client-embedded tier (leases/): a key holding a live lease with budget
+answers ``allow``/``allow_n`` from a local counter without the wire,
+hot keys are asked for in the background (``Client`` through a
+``LeaseDriver`` thread on its own connection, to ``lease_port`` on the
+native door's sidecar; ``AsyncClient`` pipelined on its own connection),
+and rid-0 LEASE_REVOKE pushes drop the leases they name in both read
+loops. The JAX package's ``FleetClient`` is not ported (ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -126,6 +135,8 @@ class Client:
         self._desynced = False
         self._ids = itertools.count(1)
         self._lock = threading.Lock()
+        self._lease_cache = None
+        self._lease_driver = None
         self._connect_locked()
 
     # ------------------------------------------------------------ plumbing
@@ -247,6 +258,16 @@ class Client:
             if len(body) != length - 9:
                 self._desynced = True
                 raise p.ProtocolError("shm reply record length mismatch")
+            if rid == 0 and type_ == p.T_LEASE_REVOKE:
+                lc = self._lease_cache
+                if lc is not None:
+                    try:
+                        reason, _, ids = p.parse_lease_revoke(body)
+                        lc.invalidate_ids(
+                            ids, p.LEASE_REASONS.get(reason, "revoked"))
+                    except Exception:  # noqa: BLE001 — keep reading
+                        pass
+                continue
             if rid != req_id:
                 self._desynced = True
                 raise p.ProtocolError(
@@ -344,13 +365,21 @@ class Client:
         with a client-side ``tracing.record("client", ...)`` span to get
         the full client → door → device tree in one dump. ``deadline``
         (seconds) bounds the call including retries and propagates to
-        the server (ADR-015)."""
+        the server (ADR-015). With leases enabled, a key holding a live
+        local lease with budget answers WITHOUT the wire."""
+        lc = self._lease_cache
+        if lc is not None:
+            res = lc.try_acquire(key, n)
+            if res is not None:
+                return res
         req_id = next(self._ids)
         type_, body = self._roundtrip(p.encode_allow_n(req_id, key, n),
                                       req_id, trace_id=trace_id,
                                       deadline=deadline)
         if type_ != p.T_RESULT:
             raise p.ProtocolError(f"unexpected response type {type_}")
+        if lc is not None:
+            lc.note_wire(key)
         return p.parse_result(body)
 
     def allow_batch(self, keys: Sequence[str],
@@ -448,7 +477,45 @@ class Client:
             p.encode_policy_key(p.T_POLICY_DEL, req_id, key), req_id)
         return found
 
+    # ------------------------------------------------------ quota leases
+
+    def enable_leases(self, *, lease_port: Optional[int] = None,
+                      interval: float = 0.1, cache=None, **cache_kw):
+        """Turn on the client-embedded lease tier: hot keys get a local
+        token budget and ``allow``/``allow_n`` answer them at memory
+        speed. ``lease_port`` targets the native door's sidecar listener
+        (default: the main port — the asyncio door serves lease frames
+        itself). Remaining kwargs configure the
+        :class:`~ratelimiter_tpu_torch.leases.cache.LeaseCache`
+        (hot_after, want, low_water, ...). Returns the cache."""
+        from ratelimiter_tpu_torch.leases.cache import LeaseCache
+        from ratelimiter_tpu_torch.leases.driver import LeaseDriver
+
+        if self._lease_driver is not None:
+            return self._lease_cache
+        self._lease_cache = (cache if cache is not None
+                             else LeaseCache(**cache_kw))
+        addr = (self._host, lease_port if lease_port is not None
+                else self._port)
+        self._lease_driver = LeaseDriver(self._lease_cache,
+                                         lambda key: addr,
+                                         interval=interval)
+        self._lease_driver.start()
+        return self._lease_cache
+
+    def disable_leases(self) -> None:
+        """Hand every lease back and return to pure wire decisions."""
+        drv, self._lease_driver = self._lease_driver, None
+        self._lease_cache = None
+        if drv is not None:
+            drv.close()
+
+    @property
+    def lease_cache(self):
+        return self._lease_cache
+
     def close(self) -> None:
+        self.disable_leases()
         if self._lane is not None:
             self._lane.close()
             self._lane = None
@@ -491,6 +558,8 @@ class AsyncClient:
         self._transport = "tcp"
         self._shm_ring_bytes = 0
         self._lane: Optional[shm_lane.ClientLane] = None
+        self._lease_cache = None
+        self._lease_task: Optional[asyncio.Task] = None
 
     @classmethod
     async def connect(cls, host: str = "127.0.0.1", port: int = 0, *,
@@ -598,6 +667,18 @@ class AsyncClient:
         lane.close()
 
     def _dispatch_reply(self, type_: int, rid: int, body: bytes) -> None:
+        if rid == 0 and type_ == p.T_LEASE_REVOKE:
+            # Unsolicited server push: the leases it names stop
+            # answering locally NOW.
+            lc = self._lease_cache
+            if lc is not None:
+                try:
+                    reason, _, ids = p.parse_lease_revoke(body)
+                    lc.invalidate_ids(
+                        ids, p.LEASE_REASONS.get(reason, "revoked"))
+                except Exception:  # noqa: BLE001 — keep reading
+                    pass
+            return
         fut = self._waiting.pop(rid, None)
         if fut is not None and not fut.done():
             fut.set_result((type_, body))
@@ -714,12 +795,19 @@ class AsyncClient:
 
     async def allow_n(self, key: str, n: int, *, trace_id: int = 0,
                       deadline: Optional[float] = None) -> Result:
+        lc = self._lease_cache
+        if lc is not None:
+            res = lc.try_acquire(key, n)
+            if res is not None:
+                return res
         req_id = next(self._ids)
         type_, body = await self._request(
             p.encode_allow_n(req_id, key, n), req_id, trace_id=trace_id,
             deadline=deadline)
         if type_ != p.T_RESULT:
             raise p.ProtocolError(f"unexpected response type {type_}")
+        if lc is not None:
+            lc.note_wire(key)
         return p.parse_result(body)
 
     async def allow_many(self, keys: Sequence[str],
@@ -821,7 +909,98 @@ class AsyncClient:
             p.encode_policy_key(p.T_POLICY_DEL, req_id, key), req_id)
         return found
 
+    # ------------------------------------------------------ quota leases
+
+    async def enable_leases(self, *, interval: float = 0.1, cache=None,
+                            **cache_kw):
+        """Turn on the lease tier: maintenance (grant/renew/return)
+        pipelines on THIS connection like any other request, and
+        revocation pushes are consumed by the read loop. Returns the
+        :class:`~ratelimiter_tpu_torch.leases.cache.LeaseCache`.
+        Asyncio-door servers only (the native door's lease sidecar
+        speaks to the blocking clients' driver)."""
+        from ratelimiter_tpu_torch.leases.cache import LeaseCache
+
+        if self._lease_task is not None:
+            return self._lease_cache
+        self._lease_cache = (cache if cache is not None
+                             else LeaseCache(**cache_kw))
+        self._lease_task = asyncio.ensure_future(
+            self._lease_loop(float(interval)))
+        return self._lease_cache
+
+    async def disable_leases(self) -> None:
+        task, self._lease_task = self._lease_task, None
+        cache, self._lease_cache = self._lease_cache, None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        if cache is not None:
+            for act in cache.drain():
+                _, key, lease_id, delta = act
+                try:
+                    req_id = next(self._ids)
+                    await self._request(
+                        p.encode_lease_return(req_id, cache.client_id,
+                                              lease_id, key, delta),
+                        req_id)
+                except Exception:  # noqa: BLE001 — TTL reaps it anyway
+                    pass
+
+    @property
+    def lease_cache(self):
+        return self._lease_cache
+
+    async def _lease_loop(self, interval: float) -> None:
+        while True:
+            await asyncio.sleep(interval)
+            cache = self._lease_cache
+            if cache is None:
+                return
+            for act in cache.actions():
+                await self._lease_action(cache, act)
+
+    async def _lease_action(self, cache, act: tuple) -> None:
+        kind = act[0]
+        if kind == "grant":
+            _, key, want = act
+            try:
+                req_id = next(self._ids)
+                type_, body = await self._request(
+                    p.encode_lease_grant(req_id, cache.client_id, key,
+                                         want), req_id)
+                if type_ != p.T_LEASE_R:
+                    raise p.ProtocolError(
+                        f"unexpected lease response type {type_}")
+                granted, lease_id, budget, ttl, limit, epoch = \
+                    p.parse_lease_r(body)
+                cache.on_grant(key, granted, lease_id, budget, ttl,
+                               limit, epoch)
+            except Exception:  # noqa: BLE001 — wire path covers
+                cache.grant_failed(key)
+        elif kind == "renew":
+            _, key, lease_id, delta, want = act
+            try:
+                req_id = next(self._ids)
+                type_, body = await self._request(
+                    p.encode_lease_renew(req_id, cache.client_id,
+                                         lease_id, key, delta, want),
+                    req_id)
+                if type_ != p.T_LEASE_R:
+                    raise p.ProtocolError(
+                        f"unexpected lease response type {type_}")
+                granted, lease_id, top_up, ttl, limit, epoch = \
+                    p.parse_lease_r(body)
+                cache.on_renew(lease_id, granted, top_up, ttl, limit,
+                               epoch)
+            except Exception:  # noqa: BLE001
+                cache.renew_failed(lease_id, delta)
+
     async def close(self) -> None:
+        await self.disable_leases()
         self._teardown_lane()
         if self._reader_task is not None:
             self._reader_task.cancel()

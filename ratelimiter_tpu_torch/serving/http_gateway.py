@@ -7,7 +7,10 @@ kernels) where the JAX gateway uses ``jax.profiler``. The fleet routes
 (``/v1/fleet/migrate``, ``/v1/fleet/rebalance``, ``/v1/fleet/status``
 and ``?fleet=1`` on the debug routes) answer as the JAX gateway does
 when no fleet hook is wired: the port has no fleet yet (ROADMAP A13d).
-Unlike the JAX gateway, its connections set TCP_NODELAY (ROADMAP C12).
+Unlike the JAX gateway, its connections set TCP_NODELAY (ROADMAP C12),
+and it listens with a backlog of ``LISTEN_BACKLOG`` where the JAX
+gateway keeps socketserver's 5 (ROADMAP C13: a burst of connects past 5
+had its SYNs dropped and retried a second later).
 
 The reference's canonical example is an HTTP handler that consults the
 limiter and answers 429 with ``X-RateLimit-Limit`` / ``-Remaining`` /
@@ -87,6 +90,14 @@ from ratelimiter_tpu_torch.core.errors import (
 from ratelimiter_tpu_torch.core.types import Result
 from ratelimiter_tpu_torch.observability import events as _events
 from ratelimiter_tpu_torch.observability import tracing
+
+#: The listen backlog: the native door's (native/server.cpp), so a burst
+#: of simultaneous connects is queued instead of dropped.
+LISTEN_BACKLOG = 512
+
+
+class _GatewayHTTPServer(ThreadingHTTPServer):
+    request_queue_size = LISTEN_BACKLOG
 
 
 def _key_token(key: str) -> str:
@@ -736,7 +747,7 @@ class HttpGateway:
         self._metrics_om = (metrics_render is not None
                             and _accepts_kw(metrics_render, "openmetrics"))
         self.health = health if health else lambda: {"serving": True}
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = _GatewayHTTPServer((host, port), Handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
 

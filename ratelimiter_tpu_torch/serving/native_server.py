@@ -27,7 +27,16 @@ not start, through ``PyGILState_Ensure``. Every limiter call passes
 through the shard's lock, and each limiter was built with its device
 given explicitly (the current device is per thread).
 
-Left out against the JAX bridge: the fleet, DCN, leases, mesh slices and
+Quota leases, as in the JAX bridge: the compiled door has no lease
+lane, so lease frames are served by ``leases.LeaseListener`` on the
+binary's ``--lease-port``, and the door only carries the manager as
+``leases``. Its own binary lane's policy and RESET frames do not revoke
+(the JAX bridge calls the manager only from its DCN receive path, which
+the port does not have): a lease over a key changed there is bounded by
+the lease TTL, and the binary wraps the HTTP and gRPC levers so that
+those revoke.
+
+Left out against the JAX bridge: the fleet, DCN, mesh slices and
 quarantine (ROADMAP A8, A13d).
 """
 
@@ -111,11 +120,15 @@ class NativeRateLimitServer:
                  shard_limiters: Optional[list] = None,
                  shm: bool = False, shm_dir: str = "/dev/shm",
                  shm_ring_bytes: int = 0,
-                 net_engine: str = "auto", io_rings: int = 0):
+                 net_engine: str = "auto", io_rings: int = 0,
+                 leases=None):
         ext = native.load_server()
         if inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {inflight}")
         self.limiter = limiter
+        #: LeaseManager of the binary (module docstring): lease traffic
+        #: enters through the LeaseListener sidecar, not this door.
+        self.leases = leases
         self.host = host
         self.port = port
         self.registry = registry if registry is not None else m.DEFAULT

@@ -20,6 +20,12 @@ Requests:
     POLICY_GET    (8): u16 key_len, key utf-8
     POLICY_DEL    (9): u16 key_len, key utf-8
     SNAPSHOT     (10): -
+    LEASE_GRANT  (13): u64 client, u32 want, f64 ttl_want, u16 key_len,
+                       key utf-8
+    LEASE_RENEW  (14): u64 client, u64 lease, u64 consumed, u32 want,
+                       u16 key_len, key utf-8
+    LEASE_RETURN (15): u64 client, u64 lease, u64 consumed, u16 key_len,
+                       key utf-8
     ALLOW_HASHED (11): u32 count | u64 ids[count] | u32 ns[count] — raw
                        u64 ids, splitmix64 and the (h1, h2) split run on
                        the device
@@ -41,6 +47,11 @@ Responses:
                          f64 reset}
     POLICY_R      (134): u8 found, i64 limit, f64 window_scale
     SNAPSHOT_R    (135): u64 snapshot_id, u64 wal_seq, f64 duration_s
+    LEASE_R       (138): u8 granted, u64 lease, i64 budget (tokens this
+                         answer adds), f64 ttl_s, i64 limit, u64 epoch
+    LEASE_REVOKE  (139): req_id 0; u8 reason, u64 epoch, u32 count, then
+                         count x u64 lease ids (none: every lease the
+                         connection holds)
     SHM_HELLO_R   (141): u8 ok, u32 req_cap, u32 rep_cap, u16 len + the
                          ring file's path, u16 len + the control
                          socket's path
@@ -89,6 +100,11 @@ T_POLICY_GET = 8
 T_POLICY_DEL = 9
 T_SNAPSHOT = 10
 T_ALLOW_HASHED = 11
+#: Client-embedded quota leases: GRANT, RENEW and RETURN all answer
+#: LEASE_R. 13..15 are the last base-type slots below the forward bit.
+T_LEASE_GRANT = 13
+T_LEASE_RENEW = 14
+T_LEASE_RETURN = 15
 #: The JAX protocol's DCN push: no door of the port serves it.
 T_DCN_PUSH = 6
 #: Shared-memory lane negotiation: 16 is the forward bit over base type
@@ -104,6 +120,12 @@ T_RESULT_BATCH = 133
 T_POLICY_R = 134
 T_SNAPSHOT_R = 135
 T_RESULT_HASHED = 136
+#: Answer to every T_LEASE_* request.
+T_LEASE_R = 138
+#: Unsolicited lease revocation push, sent with req_id 0 on the
+#: connection that granted: clients of a lease-bearing connection
+#: consume rid-0 frames before request/response correlation.
+T_LEASE_REVOKE = 139
 T_SHM_HELLO_R = 141
 T_ERROR = 255
 
@@ -639,3 +661,118 @@ def parse_snapshot_r(body: bytes) -> Tuple[int, int, float]:
     """-> (snapshot_id, wal_seq, duration_s)."""
     snapshot_id, wal_seq, duration = _SNAPSHOT_R_BODY.unpack(body)
     return snapshot_id, wal_seq, duration
+
+
+# ----------------------------------------------------- quota leases
+#
+# GRANT debits the requested budget from the key's live window UPFRONT
+# (through the server's normal decide path), so the global bound holds
+# no matter what the client does with the tokens afterwards. RENEW
+# reports local consumption (for the audit mirror) and asks for a
+# top-up; RETURN reports the final count and releases the grant,
+# WITHOUT re-crediting unused budget (the window already charged it;
+# failing toward false denies is the documented side).
+
+_LEASE_GRANT_HEAD = struct.Struct("<QIdH")   # client, want, ttl_want, key_len
+_LEASE_RENEW_HEAD = struct.Struct("<QQQIH")  # client, lease, consumed, want, key_len
+_LEASE_RETURN_HEAD = struct.Struct("<QQQH")  # client, lease, consumed, key_len
+_LEASE_R_BODY = struct.Struct("<BQqdqQ")     # flags, lease, budget, ttl, limit, epoch
+_LEASE_REVOKE_HEAD = struct.Struct("<BQI")   # reason, epoch, count (then count u64)
+
+#: Revocation reasons (wire u8 + journal/metrics label).
+LEASE_REV_POLICY = 1      # per-key override set/deleted
+LEASE_REV_LIMIT = 2       # update_limit / update_window
+LEASE_REV_CONTROLLER = 3  # AIMD tighten on the key's scope
+LEASE_REV_EPOCH = 4       # fleet ownership moved
+LEASE_REV_SHUTDOWN = 5    # graceful server shutdown
+LEASE_REV_MANUAL = 6      # operator drill (and a reset)
+LEASE_REASONS = {LEASE_REV_POLICY: "policy", LEASE_REV_LIMIT: "limit",
+                 LEASE_REV_CONTROLLER: "controller",
+                 LEASE_REV_EPOCH: "epoch", LEASE_REV_SHUTDOWN: "shutdown",
+                 LEASE_REV_MANUAL: "manual"}
+
+
+def encode_lease_grant(req_id: int, client_id: int, key: str, want: int,
+                       ttl_want: float = 0.0) -> bytes:
+    kb = key.encode("utf-8")
+    body = _LEASE_GRANT_HEAD.pack(client_id, want, float(ttl_want),
+                                  len(kb)) + kb
+    return _HDR.pack(1 + 8 + len(body), T_LEASE_GRANT, req_id) + body
+
+
+def parse_lease_grant(body: bytes):
+    """-> (client_id, key, want, ttl_want)."""
+    client, want, ttl_want, key_len = _LEASE_GRANT_HEAD.unpack_from(body)
+    if key_len > MAX_KEY_LEN or len(body) != _LEASE_GRANT_HEAD.size + key_len:
+        raise ProtocolError("bad LEASE_GRANT body")
+    return client, body[_LEASE_GRANT_HEAD.size:].decode("utf-8"), want, ttl_want
+
+
+def encode_lease_renew(req_id: int, client_id: int, lease_id: int, key: str,
+                       consumed: int, want: int) -> bytes:
+    kb = key.encode("utf-8")
+    body = _LEASE_RENEW_HEAD.pack(client_id, lease_id, consumed, want,
+                                  len(kb)) + kb
+    return _HDR.pack(1 + 8 + len(body), T_LEASE_RENEW, req_id) + body
+
+
+def parse_lease_renew(body: bytes):
+    """-> (client_id, lease_id, key, consumed, want)."""
+    client, lease, consumed, want, key_len = _LEASE_RENEW_HEAD.unpack_from(body)
+    if key_len > MAX_KEY_LEN or len(body) != _LEASE_RENEW_HEAD.size + key_len:
+        raise ProtocolError("bad LEASE_RENEW body")
+    return (client, lease, body[_LEASE_RENEW_HEAD.size:].decode("utf-8"),
+            consumed, want)
+
+
+def encode_lease_return(req_id: int, client_id: int, lease_id: int, key: str,
+                        consumed: int) -> bytes:
+    kb = key.encode("utf-8")
+    body = _LEASE_RETURN_HEAD.pack(client_id, lease_id, consumed, len(kb)) + kb
+    return _HDR.pack(1 + 8 + len(body), T_LEASE_RETURN, req_id) + body
+
+
+def parse_lease_return(body: bytes):
+    """-> (client_id, lease_id, key, consumed)."""
+    client, lease, consumed, key_len = _LEASE_RETURN_HEAD.unpack_from(body)
+    if key_len > MAX_KEY_LEN or len(body) != _LEASE_RETURN_HEAD.size + key_len:
+        raise ProtocolError("bad LEASE_RETURN body")
+    return (client, lease, body[_LEASE_RETURN_HEAD.size:].decode("utf-8"),
+            consumed)
+
+
+def encode_lease_r(req_id: int, granted: bool, lease_id: int, budget: int,
+                   ttl_s: float, limit: int, epoch: int = 0) -> bytes:
+    """``budget`` is the number of tokens ADDED by this answer (initial
+    grant or renew top-up): the client adds it to its local counter.
+    ``granted`` False means lease refused / released; the client serves
+    the key from the wire path."""
+    body = _LEASE_R_BODY.pack(1 if granted else 0, lease_id, budget,
+                              float(ttl_s), limit, epoch)
+    return _HDR.pack(1 + 8 + len(body), T_LEASE_R, req_id) + body
+
+
+def parse_lease_r(body: bytes):
+    """-> (granted, lease_id, budget, ttl_s, limit, epoch)."""
+    flags, lease, budget, ttl_s, limit, epoch = _LEASE_R_BODY.unpack(body)
+    return bool(flags & 1), lease, budget, ttl_s, limit, epoch
+
+
+def encode_lease_revoke(reason: int, epoch: int, lease_ids) -> bytes:
+    """Unsolicited push (req_id=0). An EMPTY id list revokes every lease
+    the receiving client holds from this server (the revoke-all form)."""
+    ids = list(lease_ids)
+    body = _LEASE_REVOKE_HEAD.pack(reason, epoch, len(ids))
+    body += b"".join(_TRACE_ID.pack(i) for i in ids)
+    return _HDR.pack(1 + 8 + len(body), T_LEASE_REVOKE, 0) + body
+
+
+def parse_lease_revoke(body: bytes):
+    """-> (reason, epoch, [lease_id, ...])."""
+    reason, epoch, count = _LEASE_REVOKE_HEAD.unpack_from(body)
+    need = _LEASE_REVOKE_HEAD.size + 8 * count
+    if len(body) != need:
+        raise ProtocolError("bad LEASE_REVOKE body")
+    ids = [_TRACE_ID.unpack_from(body, _LEASE_REVOKE_HEAD.size + 8 * i)[0]
+           for i in range(count)]
+    return reason, epoch, ids

@@ -43,10 +43,20 @@ type byte, and its connection is upgraded to a pair of rings in
 liveness channel, and its close reclaims the rings. ``transport_stats()``
 and the transport gauges it feeds at scrape time
 (``rate_limiter_transport_connections``, the shared-memory lane's and
-``rate_limiter_net_writev_frames``) are the JAX door's. gRPC, leases and
-the fleet are not ported (ROADMAP A13e, A13d, A8); the native door is
-serving/native_server.py, and the HTTP gateway runs beside either door
-in the binary (serving/http_gateway.py, serving/__main__.py).
+``rate_limiter_net_writev_frames``) are the JAX door's.
+
+Quota leases, as in the JAX door: with ``leases=`` (a
+``leases.LeaseManager``) LEASE_GRANT/RENEW/RETURN are served on this
+port (``leases.listener.serve_lease_frame`` in the executor: a grant's
+debit goes through the binary's thread-safe batcher bridge), a policy
+set/delete and a RESET revoke the key's leases, revocations are pushed
+as rid-0 LEASE_REVOKE frames down the granting connection (TCP, the
+unix socket or the reply ring), and shutdown pushes a revoke-all while
+the connections are still open. Without ``leases`` the lease frames
+are answered E_INVALID_CONFIG. The fleet is not ported (ROADMAP A8,
+A13d); the native door is serving/native_server.py, and the HTTP
+gateway and gRPC run beside either door in the binary
+(serving/http_gateway.py, serving/grpc_server.py, serving/__main__.py).
 """
 
 from __future__ import annotations
@@ -85,8 +95,11 @@ class RateLimitServer:
                  registry: Optional[m.Registry] = None,
                  snapshot: Optional[Callable[[], dict]] = None,
                  max_window: Optional[int] = None, shm: bool = False,
-                 shm_dir: str = "/dev/shm", shm_ring_bytes: int = 0):
+                 shm_dir: str = "/dev/shm", shm_ring_bytes: int = 0,
+                 leases=None):
         self.limiter = limiter
+        #: LeaseManager; None answers the lease frames E_INVALID_CONFIG.
+        self.leases = leases
         #: The shared-memory lane: off by default, and then SHM_HELLO
         #: answers E_INVALID_CONFIG. ``host`` may be ``unix:/path`` for
         #: a unix-socket listener on either setting.
@@ -149,6 +162,12 @@ class RateLimitServer:
         if self._server is not None:
             self._server.close()
             await self._server.wait_closed()
+        if self.leases is not None:
+            # Push revoke-all while the granting connections are still
+            # open: holders stop answering locally instead of spending
+            # leased budget against a server that is gone.
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.leases.revoke_all, p.LEASE_REV_SHUTDOWN)
         await self.batcher.drain()
         for t in list(self._conn_tasks):
             t.cancel()
@@ -248,11 +267,14 @@ class RateLimitServer:
                 self._writev_frames)
 
     async def _shm_accept(self, lane, writer: asyncio.StreamWriter,
-                          drain_cb) -> None:
+                          drain_cb, recheck_cb) -> None:
         """Second half of the hello: wait for the client's control-socket
         connect, ship the eventfd pair (SCM_RIGHTS), unlink the
         filesystem artifacts, then register the server doorbell with the
-        event loop. A client that never connects forfeits the lane."""
+        event loop. A client that never connects forfeits the lane. Then,
+        for the lane's life, run ``recheck_cb`` every ``shm.RECHECK_S``:
+        a doorbell lost by either side (a client that does not fence its
+        publish against its flag read) costs one period, never a stall."""
         loop = asyncio.get_running_loop()
         try:
             conn, _ = await asyncio.wait_for(
@@ -262,8 +284,12 @@ class RateLimitServer:
             log.warning("shm handshake failed: %s", exc)
             lane.close()
             return
-        if not lane.closed and not writer.is_closing():
-            loop.add_reader(lane.efd_server, drain_cb)
+        if lane.closed or writer.is_closing():
+            return
+        loop.add_reader(lane.efd_server, drain_cb)
+        while not lane.closed and not writer.is_closing():
+            await asyncio.sleep(shm_lane.RECHECK_S)
+            recheck_cb()
 
     # ---------------------------------------------------------- connection
 
@@ -453,9 +479,13 @@ class RateLimitServer:
             dispatch(type_, req_id, trace_id, budget, body, shm_vec,
                      lambda frame: shm_vec([frame]))
 
-        def shm_drain() -> None:
+        def shm_drain(recheck: bool = False) -> None:
+            lane = lane_box[0]
             try:
-                lane_box[0].drain(shm_dispatch)
+                if recheck:
+                    lane.recheck(shm_dispatch)
+                else:
+                    lane.drain(shm_dispatch)
             except shm_lane.ShmProtocolError as exc:
                 # A torn or poisoned record: stop trusting the mapping
                 # and reclaim through the liveness socket (a client
@@ -491,7 +521,8 @@ class RateLimitServer:
             self._shm_lanes.add(lane)
             self._transport_conns["shm"] += 1
             t = asyncio.ensure_future(
-                self._shm_accept(lane, writer, shm_drain))
+                self._shm_accept(lane, writer, shm_drain,
+                                 partial(shm_drain, recheck=True)))
             lane_tasks.add(t)
             t.add_done_callback(lane_tasks.discard)
             write_vec([p.encode_shm_hello_r(
@@ -565,6 +596,11 @@ class RateLimitServer:
                         payload={"key_hash": key_token(key),
                                  "limit": int(ov.limit),
                                  "window_scale": float(ov.window_scale)})
+            if self.leases is not None:
+                # Outstanding grants were budgeted under the old limit:
+                # revoke, so holders re-lease under the new one.
+                await loop.run_in_executor(
+                    None, self.leases.revoke_key, key, p.LEASE_REV_POLICY)
             return p.encode_policy_r(req_id, True, ov.limit,
                                      ov.window_scale)
         key = p.parse_reset(body)
@@ -580,8 +616,37 @@ class RateLimitServer:
         events.emit("policy", "delete-override", actor="binary",
                     payload={"key_hash": key_token(key),
                              "deleted": bool(existed)})
+        if existed and self.leases is not None:
+            await loop.run_in_executor(
+                None, self.leases.revoke_key, key, p.LEASE_REV_POLICY)
         return p.encode_policy_r(req_id, bool(existed),
                                  self.limiter.config.limit, 1.0)
+
+    async def _handle_lease(self, type_: int, req_id: int, body: bytes,
+                            writer: asyncio.StreamWriter, out_fn) -> bytes:
+        """One lease frame, served in the executor (a grant's debit
+        waits for its dispatch). The manager keeps ``push``, the
+        granting connection's writer, for the revocation pushes."""
+        if self.leases is None:
+            return p.encode_error(
+                req_id, p.E_INVALID_CONFIG,
+                "leases not enabled on this server (--leases)")
+        from ratelimiter_tpu_torch.leases.listener import serve_lease_frame
+
+        loop = asyncio.get_running_loop()
+
+        def push(frame: bytes) -> None:
+            # Called from any thread: marshalled onto the loop. A closed
+            # connection raises, and the manager counts the failed push
+            # (the holder's TTL still bounds it). On a lane the push
+            # rides the reply ring like every other frame.
+            if writer.is_closing():
+                raise ConnectionError("lease push: connection closed")
+            loop.call_soon_threadsafe(
+                out_fn if out_fn is not None else writer.write, frame)
+
+        return await loop.run_in_executor(
+            None, serve_lease_frame, self.leases, type_, req_id, body, push)
 
     async def _handle_frame(self, type_: int, req_id: int, body: bytes,
                             writer: asyncio.StreamWriter,
@@ -595,6 +660,13 @@ class RateLimitServer:
                     None, self.limiter.reset, key)
                 events.emit("policy", "reset", actor="binary",
                             payload={"key_hash": key_token(key)})
+                if self.leases is not None:
+                    # The reset zeroes the counter the grants' mass
+                    # lives in; leased tokens spent after it would not
+                    # show there, so the key's leases are revoked.
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, self.leases.revoke_key, key,
+                        p.LEASE_REV_MANUAL)
                 out = p.encode_ok(req_id)
             elif type_ in (p.T_POLICY_SET, p.T_POLICY_GET, p.T_POLICY_DEL):
                 out = await self._handle_policy(type_, req_id, body)
@@ -629,6 +701,10 @@ class RateLimitServer:
                 out = p.encode_error(req_id, p.E_INVALID_CONFIG,
                                      "DCN exchange not enabled on this "
                                      "server")
+            elif type_ in (p.T_LEASE_GRANT, p.T_LEASE_RENEW,
+                           p.T_LEASE_RETURN):
+                out = await self._handle_lease(type_, req_id, body,
+                                               writer, out_fn)
             else:
                 out = p.encode_error(req_id, p.E_INTERNAL,
                                      f"unknown request type {type_}")

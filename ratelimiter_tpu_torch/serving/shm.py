@@ -40,8 +40,20 @@ visible to another in program order — and (b) the CPython eval loop
 acting as a compiler barrier between bytecodes, the same assumptions
 the mmap-backed WAL makes.  The 8-byte head/tail stores go through
 ``struct.pack_into`` on an aligned offset, which libc performs as a
-single mov on this platform.  The C++ side uses proper std::atomic
-release/acquire, which is strictly stronger.
+single mov on this platform.  TSO does NOT order a store before a later
+load, and the doorbell is a Dekker pair: the producer stores ``tail``
+then loads ``consumer_sleeping``, the consumer stores
+``consumer_sleeping`` then loads ``tail`` (and likewise ``head`` against
+``producer_waiting``).  Both sides need a full fence between the two,
+so every flag read and every arming store here goes through ``_fence``
+(an uncontended lock round trip: a locked instruction), as
+``native/shm_ring.h`` does with ``std::atomic_thread_fence``.
+
+A peer that does not fence (an older client) can still lose a wake, so
+the door never trusts the doorbell alone: ``ServerLane.recheck`` runs on
+a ``RECHECK_S`` timer and drains what a lost ding left in the request
+ring or in the reply overflow.  A lost wake costs at most that period,
+never a stall.
 
 Doorbell: bounded spin, then eventfd.  Each lane owns two eventfds —
 ``efd_server`` (read by the server, written by the client) and
@@ -66,6 +78,7 @@ import os
 import select
 import socket
 import struct
+import threading
 import time
 
 from ratelimiter_tpu_torch.core.errors import (
@@ -96,6 +109,20 @@ _REC_HDR = struct.Struct("<II")
 # costlier than the C++ loop's, so the count is much smaller for a
 # similar wall-clock budget.
 SPIN_ITERS = 200
+
+#: Period of the door's lost-wake recheck (``ServerLane.recheck``): the
+#: most a doorbell lost by either side delays a lane.
+RECHECK_S = 0.005
+
+_FENCE_LOCK = threading.Lock()
+
+
+def _fence() -> None:
+    """A full memory fence: the uncontended lock round trip executes a
+    locked read-modify-write, which orders every earlier store before
+    every later load."""
+    with _FENCE_LOCK:
+        pass
 
 
 class RingFullError(StorageUnavailableError):
@@ -162,17 +189,26 @@ class ShmRing:
     def _set_tail(self, v: int) -> None:
         _U64.pack_into(self._mm, self._ctrl + 64, v)
 
+    # The flag reads follow a publish (tail or head) and the arming
+    # stores precede a recheck of the ring: both halves of the Dekker
+    # pair are fenced (module docstring).
     def consumer_sleeping(self) -> bool:
+        _fence()
         return _U32.unpack_from(self._mm, self._ctrl + 8)[0] != 0
 
     def set_sleeping(self, flag: bool) -> None:
         _U32.pack_into(self._mm, self._ctrl + 8, 1 if flag else 0)
+        if flag:
+            _fence()
 
     def producer_waiting(self) -> bool:
+        _fence()
         return _U32.unpack_from(self._mm, self._ctrl + 72)[0] != 0
 
     def set_producer_waiting(self, flag: bool) -> None:
         _U32.pack_into(self._mm, self._ctrl + 72, 1 if flag else 0)
+        if flag:
+            _fence()
 
     def used(self) -> int:
         return self._tail() - self._head()
@@ -341,6 +377,7 @@ class LaneStats:
         "ring_full_stalls",
         "records_in",
         "records_out",
+        "recheck_hits",
     )
 
     def __init__(self) -> None:
@@ -349,6 +386,9 @@ class LaneStats:
         self.ring_full_stalls = 0
         self.records_in = 0
         self.records_out = 0
+        #: Rechecks that found work a lost doorbell had left behind (the
+        #: door's own count; not one of the JAX door's gauges).
+        self.recheck_hits = 0
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +495,21 @@ class ServerLane:
         picked up here, not lost)."""
         _drain_eventfd(self.efd_server)
         self.stats.doorbell_wakes += 1
+        self._serve(handle_frame)
+
+    def recheck(self, handle_frame) -> bool:
+        """The lost-wake backstop, run on the door's ``RECHECK_S`` timer
+        on the loop thread: request records waiting with no doorbell
+        rung, or reply overflow whose space-freed wake never came, are
+        served as a doorbell would have served them. Returns whether it
+        found work."""
+        if self.closed or not (self.overflow or not self.inbound.empty()):
+            return False
+        self.stats.recheck_hits += 1
+        self._serve(handle_frame)
+        return True
+
+    def _serve(self, handle_frame) -> None:
         ring = self.inbound
         used = ring.used()
         if used > self.req_highwater:

@@ -1577,3 +1577,94 @@ def test_traced_frames_deadlines_and_breaker_on_card(dev):
     chip_smoke.check_deadlines(cfg, counters=[sc], frames=8, n_ids=256)
     out = chip_smoke.check_breaker(cfg, batch=256)
     assert out["transitions"]["closed"] == 1.0
+
+
+# ----------------------------------------------------- gRPC and leases
+
+
+def _card_and_cpu(dev, cfg):
+    return (SketchLimiter(cfg, ManualClock(1e6), device=dev),
+            SketchLimiter(cfg, ManualClock(1e6), device="cpu"))
+
+
+def test_grpc_round_trip_on_card(dev):
+    """gRPC over a limiter on the card: Allow, AllowN and AllowBatch
+    answers equal the same calls on a CPU limiter, and the hand kernels
+    (front, admission, CU update) ran for them."""
+    grpc = pytest.importorskip("grpc")
+    from ratelimiter_tpu_torch.serving import grpc_pb
+    from ratelimiter_tpu_torch.serving.grpc_server import (
+        grpc_server_for_limiter,
+    )
+
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=5, window=60.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4))
+    gpu, cpu = _card_and_cpu(dev, cfg)
+    pb2 = grpc_pb.load()
+    srv = grpc_server_for_limiter(gpu)
+    srv.start()
+    ch = grpc.insecure_channel(f"127.0.0.1:{srv.port}")
+
+    def rpc(name, req, resp):
+        return ch.unary_unary(
+            f"/{grpc_pb.SERVICE}/{name}",
+            request_serializer=req.SerializeToString,
+            response_deserializer=resp.FromString)
+
+    allow_n = rpc("AllowN", pb2.AllowNRequest, pb2.AllowResponse)
+    batch = rpc("AllowBatch", pb2.AllowBatchRequest, pb2.AllowBatchResponse)
+    sc.reset_launch_counts()
+    try:
+        for i in range(12):
+            key, n = f"g{i % 3}", 1 + i % 2
+            got = allow_n(pb2.AllowNRequest(key=key, n=n), timeout=60)
+            want = cpu.allow_n(key, n)
+            assert (got.allowed, got.remaining, got.limit) == \
+                (want.allowed, want.remaining, want.limit)
+        keys = [f"b{i % 5}" for i in range(40)]
+        out = batch(pb2.AllowBatchRequest(items=[
+            pb2.AllowBatchRequest.Item(key=k, n=1) for k in keys]),
+            timeout=60)
+        want = cpu.allow_batch(keys, [1] * len(keys))
+        assert [r.allowed for r in out.results] == list(want.allowed)
+        assert [r.remaining for r in out.results] == list(want.remaining)
+    finally:
+        ch.close()
+        srv.shutdown()
+    counts = sc.launch_counts()
+    assert counts["window_estimate"] == counts["admit"] == \
+        counts["cu_update"] == 13
+    gpu.close()
+    cpu.close()
+
+
+def test_lease_grant_on_card(dev):
+    """A lease grant and a renewal's top-up debit through a limiter on
+    the card: the manager's answers equal a CPU manager's, and each debit
+    ran the hand kernels."""
+    from ratelimiter_tpu_torch.leases import LeaseManager
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+
+    cfg = Config(algorithm=Algorithm.SLIDING_WINDOW, limit=100, window=60.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=4))
+    gpu, cpu = _card_and_cpu(dev, cfg)
+    now = [10.0]
+    mgrs = [LeaseManager(lim, ttl=2.0, default_budget=32,
+                         registry=Registry(), clock=lambda: now[0])
+            for lim in (gpu, cpu)]
+    sc.reset_launch_counts()
+    answers = []
+    for mgr in mgrs:
+        g = mgr.grant(1, "hot")
+        r = mgr.renew(1, g[1], "hot", 10, 50)
+        refused = mgr.grant(2, "hot", 64)
+        answers.append((g, r, refused, mgr.status()))
+    assert answers[0] == answers[1]
+    assert answers[0][0][0] and answers[0][1][2] == 50
+    assert not answers[0][2][0]
+    counts = sc.launch_counts()
+    assert counts["window_estimate"] == counts["admit"] == 3
+    assert gpu.allow_n("hot", 18).allowed and not gpu.allow_n("hot",
+                                                               1).allowed
+    gpu.close()
+    cpu.close()

@@ -634,3 +634,55 @@ def test_binary_profile_capture_on_cpu():
     out = chip_smoke.check_binary_profile(device="cpu")
     assert out["rc"] == 0 and out["requests_during"] > 0
     assert out["seconds"] >= 1.0
+
+
+def _first_answers(port: int, clients: int = 32) -> list:
+    """``clients`` threads, released at once, each opening its own
+    connection for one /v1/allow; the seconds each waited for its first
+    answer."""
+    import http.client
+    import time
+
+    gate = threading.Barrier(clients)
+    waits = [None] * clients
+
+    def one(i: int) -> None:
+        gate.wait()
+        t = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("GET", f"/v1/allow?key=c13-{i}")
+            conn.getresponse().read()
+        finally:
+            conn.close()
+        waits[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    return waits
+
+
+def test_c13_simultaneous_connects_are_queued_not_dropped():
+    """C13: the JAX gateway listens with socketserver's backlog of 5, so
+    a burst of connects past it has SYNs dropped and retried after 1 s.
+    The port's listens with the native door's 512: 32 clients
+    connecting at once all get their first answer well under a second,
+    and the answers are the JAX gateway's (the backlog changes none)."""
+    assert tgw._GatewayHTTPServer.request_queue_size == tgw.LISTEN_BACKLOG
+    assert tgw.LISTEN_BACKLOG == 512
+    lim = T.create_limiter(_cfg(T, "exact", limit=100),
+                           backend="exact", device="cpu")
+    gw = tgw.gateway_for_limiter(lim)
+    gw.start()
+    try:
+        for _ in range(3):
+            waits = _first_answers(gw.port)
+            assert None not in waits
+            assert max(waits) < 0.75, sorted(waits)[-4:]
+    finally:
+        gw.shutdown()
+        lim.close()

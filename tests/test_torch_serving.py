@@ -512,9 +512,13 @@ for name in ("checkpoint", "observability.decorators",
              "evaluation.compare", "evaluation.loadgen",
              "evaluation.oracle_device", "evaluation.scenarios",
              "observability.audit", "observability.slo",
-             "serving.http_gateway"):
+             "serving.http_gateway", "serving.grpc_server",
+             "serving.grpc_pb", "leases", "leases.manager",
+             "leases.listener", "leases.cache", "leases.driver"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
+# The gRPC message classes build from the committed descriptor alone.
+importlib.import_module(pkg.__name__ + ".serving.grpc_pb").load()
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules

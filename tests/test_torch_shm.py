@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import json
 import mmap
 import os
 import signal
@@ -403,6 +404,122 @@ def test_ring_full_is_typed_backpressure():
                 pass
             assert c.allow("after").allowed
     lim.close()
+
+
+# ------------------------------------------------ C16: lost doorbells
+
+
+def _pop_within(ring, seconds: float):
+    """Pop one reply record straight off ``ring``, ringing no doorbell
+    (a client that never tells the door it freed space)."""
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        frame = ring.pop()
+        if frame is not None:
+            return frame
+        time.sleep(0.001)
+    return None
+
+
+def test_c16_a_request_with_no_doorbell_is_served_by_the_recheck():
+    """C16: a client whose doorbell is lost (it publishes, but its
+    unfenced read of the door's flag misses the arming store) leaves a
+    request in the ring with the door asleep. The door's recheck serves
+    it within a period: the reply comes, equal to a rung request's."""
+    lim = _port_limiter(limit=10 ** 6)
+    with _loop_server(RateLimitServer, lim, shm=True) as (server, loop):
+        with Client(port=server.port, transport="shm") as c:
+            assert c.allow("warm").allowed
+            lane = c._lane
+            _wait_until(lambda: lane.outbound.consumer_sleeping(),
+                        what="the door to arm its doorbell")
+            hits = [ln.stats.recheck_hits for ln in server._shm_lanes]
+            for i in range(3):
+                frame = p.encode_allow_n(100 + i, f"silent-{i}", 2)
+                assert lane.outbound.try_push(frame)  # no ding
+                reply = _pop_within(lane.inbound, 2.0)
+                assert reply is not None, "the lane stalled"
+                _, type_, rid = p.parse_header(reply)
+                assert (type_, rid) == (p.T_RESULT, 100 + i)
+                res = p.parse_result(reply[p.HEADER_SIZE:])
+                assert res.allowed and res.remaining == 10 ** 6 - 2
+            assert [ln.stats.recheck_hits for ln in server._shm_lanes] \
+                != hits
+            assert c.allow("after").allowed
+    lim.close()
+
+
+def test_c16_reply_overflow_with_no_wake_is_flushed_by_the_recheck():
+    """C16, the reply side: replies past a full reply ring wait in the
+    door's overflow for the client's space-freed doorbell. A client that
+    frees the space without ringing still gets every reply."""
+    lim = _port_limiter(limit=10 ** 6)
+    with _loop_server(RateLimitServer, lim, shm=True) as (server, loop):
+        with Client(port=server.port, transport="shm",
+                    shm_ring_bytes=shm_lane.MIN_RING) as c:
+            assert c.allow("warm").allowed
+            lane = c._lane
+            ids = np.arange(512, dtype=np.uint64)
+            frames = 12  # ~12.4 KB a reply: past a 64 KiB reply ring
+            for rid in range(1, frames + 1):
+                lane.send_frame(p.encode_allow_hashed(rid, ids + rid))
+            _wait_until(lambda: any(ln.overflow
+                                    for ln in server._shm_lanes),
+                        what="replies to overflow the reply ring")
+            got = []
+            for _ in range(frames):
+                reply = _pop_within(lane.inbound, 2.0)
+                assert reply is not None, f"stalled after {len(got)}"
+                got.append(p.parse_header(reply)[2])
+            assert sorted(got) == list(range(1, frames + 1))
+            assert c.allow("after").allowed
+    lim.close()
+
+
+_LOADGEN_RUNS = [("port", i) for i in range(7)] + [("jax", i)
+                                                    for i in range(3)]
+
+
+@pytest.fixture(scope="module")
+def loadgens(tmp_path_factory):
+    """The port's C++ load generator and the JAX package's unchanged one
+    (clients/cpp/loadgen.cpp, which does not fence its publish against
+    its flag read)."""
+    from ratelimiter_tpu_torch import native
+
+    out = str(tmp_path_factory.mktemp("jax_loadgen") / "rltpu_loadgen")
+    subprocess.run(
+        ["g++", "-O2", "-std=c++17", "-pthread",
+         "-I" + os.path.join(REPO, "clients", "cpp"),
+         "-I" + os.path.join(REPO, "ratelimiter_tpu", "native"),
+         os.path.join(REPO, "clients", "cpp", "loadgen.cpp"), "-o", out],
+        check=True, capture_output=True, timeout=120)
+    return {"port": native.build_loadgen(), "jax": out}
+
+
+@pytest.mark.parametrize("gen,run", _LOADGEN_RUNS)
+def test_c16_loadgen_over_the_asyncio_doors_lane_completes(loadgens, gen,
+                                                           run):
+    """C16's input: the C++ load generator at ``0.5 8 8 512 1000000
+    hashed --transport shm`` against the asyncio door with the lane on,
+    over a config-3-shaped limiter (d=2, w=1024). Where two of six runs
+    completed nothing (and one hung), every run must complete frames,
+    under its own timeout: ten runs, seven with the port's generator and
+    three with the JAX one."""
+    cfg = T.Config(algorithm=T.Algorithm.SLIDING_WINDOW, limit=100,
+                   window=60.0, sketch=T.SketchParams(
+                       depth=2, width=1024, sub_windows=60))
+    lim = T.create_limiter(cfg, backend="sketch", device="cpu")
+    with _loop_server(RateLimitServer, lim, registry=Registry(),
+                      shm=True) as (server, loop):
+        proc = subprocess.run(
+            [loadgens[gen], "127.0.0.1", str(server.port), "0.5", "8", "8",
+             "512", "1000000", "hashed", "--transport", "shm"],
+            capture_output=True, text=True, timeout=30)
+    lim.close()
+    assert proc.returncode == 0, proc.stderr[-500:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["completed"] > 0, out
 
 
 _KILL9 = """
