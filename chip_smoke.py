@@ -9154,6 +9154,718 @@ def run_grpc(torch, seed: int = 0, device: str = "cuda",
     return out
 
 
+
+# ------------------------------------------------------------ phase mesh
+#
+# The sliced mesh (``--backend mesh``, parallel/): (a) the host router at
+# 1, 2 and 4 slices, (b) the collective router against it, (c) the
+# replicated tier's gather and delta merges, (d) quarantine and slice
+# recovery, (e) the binary, and the readings. Several slices share the
+# one card here (an explicit ``devices`` list); one card cannot show
+# multi-card scaling, and nothing here claims it.
+
+#: Slice counts of the sliced tier; (b) and (c) skip the 1-slice case.
+MESH_SLICES = (1, 2, 4)
+#: Frames of phase 4's shape a run of (a) and (b) sends (24, half of one
+#: of the door's 8 connections, in the whole run; ``--mesh`` sends all
+#: 8 x 48), plus mixed (uniform hashes) and affine (one owner) frames.
+MESH_FRAMES, MESH_FRAMES_FULL, MESH_EXTRA = 24, 8 * 48, 8
+#: Frames of (c) and (d).
+MESH_REPLICATED_FRAMES, MESH_QUARANTINE_FRAMES = 12, 12
+MESH_ADVANCE = 0.05
+MESH_SOURCE = "ratelimiter_tpu_torch/csrc/route_kernels.cu"
+KERNEL_ROWS["route_bins"] = "ratelimiter_tpu/ops/route_kernels.py:89"
+
+
+def _mesh_frames(seed: int, n: int, *, c2: bool = False) -> list:
+    """Phase 4's traffic (``DOOR_IDS`` Zipf ids a frame, every
+    ``DOOR_STRING_EVERY``-th frame ``DOOR_KEYS`` string keys; config 2's
+    keys for the bucket), then mixed frames of uniform hashes and affine
+    frames whose hashes one slice of four (and so of two, and one) owns."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for i in range(n):
+        if i % DOOR_STRING_EVERY == DOOR_STRING_EVERY - 1:
+            keys = ([f"u:{int(k)}" for k in rng.integers(0, C2_KEYS,
+                                                         DOOR_KEYS)]
+                    if c2 else [f"user:{int(k)}"
+                                for k in zipf_ids(rng, DOOR_KEYS)])
+            frames.append(("keys", keys))
+        else:
+            frames.append(("ids", (rng.integers(0, C2_KEYS, DOOR_IDS)
+                                   .astype(np.uint64) if c2
+                                   else zipf_ids(rng, DOOR_IDS))))
+    for i in range(MESH_EXTRA):
+        h = rng.integers(0, 1 << 64, DOOR_IDS, dtype=np.uint64)
+        if i % 2:
+            h = h[h % np.uint64(4) == np.uint64(i % 4)]
+        frames.append(("hashed", h))
+    return frames
+
+
+def _mesh_send(lim, kind, data, now):
+    """One frame through ``lim``; with the owners of its rows when
+    ``lim`` routes (a sliced mesh), else None."""
+    if kind == "ids":
+        res = lim.allow_ids(data, now=now)
+    elif kind == "keys":
+        res = lim.allow_batch(data, now=now)
+    else:
+        res = lim.allow_hashed(data, now=now)
+    if not hasattr(lim, "owner_of_hash"):
+        return res, None
+    if kind == "ids":
+        return res, lim.owner_of_id(data)
+    h = lim._hash(data) if kind == "keys" else data
+    return res, lim.owner_of_hash(h)
+
+
+def _mesh_same(name: str, a, b, rows=None) -> None:
+    for f in ("allowed", "remaining", "retry_after", "reset_at"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        if rows is not None:
+            x = x[rows]
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{name}: {f} differs")
+
+
+def _mesh_states(name: str, units_a, units_b, keys=None) -> None:
+    for i, (a, b) in enumerate(zip(units_a, units_b)):
+        xa, xb = a.capture_state()[1], b.capture_state()[1]
+        if set(xa) != set(xb):
+            raise AssertionError(f"{name}: slice {i} arrays differ")
+        for k in keys or xa:
+            if not np.array_equal(np.asarray(xa[k]), np.asarray(xb[k])):
+                raise AssertionError(f"{name}: slice {i} {k} differs")
+
+
+def _mesh_counters(cfg):
+    from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
+
+    if cfg.algorithm.value == "token_bucket":
+        return bucket_cuda, ("bucket_estimate", "admit", "bucket_update")
+    if cfg.sketch.conservative_update:
+        return sketch_cuda, ("window_estimate", "admit", "cu_update")
+    return sketch_cuda, ("window_estimate", "add_back")
+
+
+def check_sliced(torch, cfg, label: str, n: int, frames, device: str,
+                 setup=None) -> dict:
+    """(a) The sliced tier, host router, on ``n`` slices of ``device``:
+    every frame through the composite; every decision equal to a CPU
+    replay of each slice's own sub-frame on that slice's CPU twin; one
+    front, admission and update launch per touched slice per frame (the
+    side table's tail too); then overrides, ``update_limit`` and
+    ``update_window`` reaching every slice, and a reset going to its
+    owner alone (one ``window_reset``); every slice's slabs equal to its
+    twin's."""
+    from ratelimiter_tpu_torch import ManualClock
+    from ratelimiter_tpu_torch.ops import route_kernels
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter, build_slices
+
+    lim = SlicedMeshLimiter(cfg, ManualClock(T0), devices=[device] * n)
+    twins = build_slices(cfg, ManualClock(T0), devices=["cpu"] * n)
+    mod, kernels = _mesh_counters(cfg)
+    cuda = device.startswith("cuda")
+    try:
+        if setup is not None:
+            for u in (lim, *twins):
+                setup(u)
+        mod.reset_launch_counts()
+        route_kernels.reset_launch_counts()
+        touched = 0
+        results = []
+        t = time.perf_counter()
+        for i, (kind, data) in enumerate(frames):
+            now = T0 + i * MESH_ADVANCE
+            res, owners = _mesh_send(lim, kind, data, now)
+            results.append(res)
+            for s in np.unique(owners):
+                pos = np.nonzero(owners == s)[0]
+                touched += 1
+                sub = ([data[p] for p in pos] if kind == "keys"
+                       else data[pos])
+                want = _mesh_send(twins[s], kind, sub, now)[0]
+                _mesh_same(f"{label} n={n} frame {i} slice {s}", res, want,
+                           pos)
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(mod.launch_counts())
+        if cuda:
+            want = {k: touched for k in kernels}
+            if cfg.sketch.hh_slots and mod.__name__.endswith("sketch_cuda"):
+                want["hh_update [fused]"] = touched
+            got = {k: counts.get(k, 0) for k in want}
+            if got != want or route_kernels.launch_counts()["route_bins"]:
+                raise AssertionError(f"{label} n={n}: launches {counts}, "
+                                     f"expected {want}")
+        _mesh_states(f"{label} n={n}", lim.slices, twins)
+        states = [s.capture_state()[1] for s in lim.slices]
+        # The control plane: write-all overrides and config, the reset on
+        # its owner alone.
+        key = "user:7" if not cfg.algorithm.value == "token_bucket" \
+            else "u:7"
+        before = [s.capture_state()[1] for s in lim.slices]
+        mod.reset_launch_counts()
+        lim.reset(key)
+        owner = lim.owner_of_key(key)
+        twins[owner].reset(key)
+        if cuda and mod.__name__.endswith("sketch_cuda"):
+            if mod.launch_counts()["window_reset"] != 1:
+                raise AssertionError(f"{label} n={n}: a reset launched "
+                                     f"{mod.launch_counts()}")
+        for i, s in enumerate(lim.slices):
+            if i != owner:
+                _mesh_states(f"{label} n={n} reset", [s],
+                             [_Frozen(before[i])])
+        for u in (lim, *twins):
+            u.set_override("user:1", 3)
+            u.set_override("u:1", 3)
+        lim.update_limit(cfg.limit + 10)
+        lim.update_window(cfg.window * 2)
+        for u in twins:
+            u.update_limit(cfg.limit + 10)
+            u.update_window(cfg.window * 2)
+        for s in lim.slices:
+            if (s.config.limit, s.config.window, s.override_count()) != (
+                    cfg.limit + 10, cfg.window * 2, 2):
+                raise AssertionError(f"{label} n={n}: slice config "
+                                     f"{s.config.limit} {s.config.window}")
+        tail = frames[:4]
+        for i, (kind, data) in enumerate(tail):
+            now = T0 + (len(frames) + i) * MESH_ADVANCE
+            res, owners = _mesh_send(lim, kind, data, now)
+            for s in np.unique(owners):
+                pos = np.nonzero(owners == s)[0]
+                sub = ([data[p] for p in pos] if kind == "keys"
+                       else data[pos])
+                _mesh_same(f"{label} n={n} after updates",
+                           res, _mesh_send(twins[s], kind, sub, now)[0], pos)
+        _mesh_states(f"{label} n={n} after updates", lim.slices, twins)
+        decisions = sum(len(d) for _, d in frames)
+        log(f"mesh (a) {label} n={n} on {device}: {len(frames)} frames, "
+            f"{touched} slice dispatches, every decision and slab equal to "
+            f"the CPU replay; {decisions / wall:.0f} decisions/s through "
+            f"the checked run")
+        return {"counts": counts, "results": results, "touched": touched,
+                "frames": len(frames), "wall_s": wall, "states": states}
+    finally:
+        lim.close()
+        for tw in twins:
+            tw.close()
+
+
+class _Frozen:
+    """A captured slice state standing in for a limiter in
+    ``_mesh_states``."""
+
+    def __init__(self, arrays):
+        self._arrays = arrays
+
+    def capture_state(self):
+        return None, self._arrays, None
+
+
+def check_collective(torch, cfg, label: str, n: int, frames, device: str,
+                     host_results, setup=None, headroom: float = 2.0,
+                     host_states=None) -> dict:
+    """(b) The collective router on ``n`` slices: every frame bit-equal
+    to the host router's answers (``host_results``, from ``check_sliced``
+    on the same frames); ``route_bins`` launched once per source shard of
+    every routed frame and one step per slice; with ``headroom`` < 1 the
+    capacity-1 bins overflow, and the fallback is still bit-equal."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import ManualClock
+    from ratelimiter_tpu_torch.ops import route_kernels
+    from ratelimiter_tpu_torch.parallel import CollectiveMeshLimiter
+
+    cc = dataclasses.replace(cfg, mesh=dataclasses.replace(
+        cfg.mesh, router="collective", bin_headroom=headroom))
+    lim = CollectiveMeshLimiter(cc, ManualClock(T0), devices=[device] * n)
+    mod, kernels = _mesh_counters(cfg)
+    cuda = device.startswith("cuda")
+    try:
+        if setup is not None:
+            setup(lim)
+        mod.reset_launch_counts()
+        route_kernels.reset_launch_counts()
+        t = time.perf_counter()
+        for i, (kind, data) in enumerate(frames):
+            res = _mesh_send(lim, kind, data, T0 + i * MESH_ADVANCE)[0]
+            _mesh_same(f"{label} collective n={n} frame {i}", res,
+                       host_results[i])
+        if cuda:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = dict(mod.launch_counts())
+        routed = len(frames) - lim.fallbacks
+        if cuda:
+            rb = route_kernels.launch_counts()["route_bins"]
+            # Every frame is routed first; an overflowing one then goes
+            # to the host router.
+            if rb != n * len(frames):
+                raise AssertionError(f"{label} collective n={n}: "
+                                     f"route_bins launched {rb} times")
+            if counts[kernels[0]] < n * routed:
+                raise AssertionError(f"{label} collective n={n}: "
+                                     f"launches {counts}")
+        if headroom < 1 and not lim.fallbacks:
+            raise AssertionError(f"{label} collective n={n}: no fallback "
+                                 f"at bin_headroom {headroom}")
+        # Affine frames (one owner) may overflow a bin by design (the
+        # JAX router's trade-off); mixed traffic must not.
+        if headroom >= 1 and lim.fallbacks > MESH_EXTRA // 2:
+            raise AssertionError(f"{label} collective n={n}: "
+                                 f"{lim.fallbacks} fallbacks")
+        if host_states is not None:
+            # The collective step runs every slice on every frame (its
+            # period sync and the bucket's decay clock), where the host
+            # router steps only the slices a frame touches, as in the
+            # JAX package: the ring's flushed slots and the bucket's
+            # decay remainder may differ, the counters the decisions
+            # read may not.
+            _mesh_states(f"{label} collective n={n}", lim.slices,
+                         [_Frozen(a) for a in host_states],
+                         keys=(("acc",) if "debt" in host_states[0]
+                               else ("cur", "totals")))
+        log(f"mesh (b) {label} collective n={n} bin_headroom {headroom}: "
+            f"{len(frames)} frames bit-equal to the host router, "
+            f"{lim.fallbacks} fallbacks, route_bins "
+            f"{route_kernels.launch_counts()['route_bins']} launches")
+        return {"counts": counts, "fallbacks": lim.fallbacks,
+                "route_bins": route_kernels.launch_counts()["route_bins"],
+                "wall_s": wall}
+    finally:
+        lim.close()
+
+
+def check_replicated(torch, cfg, label: str, n: int, merge: str,
+                     device: str, seed: int, setup=None) -> dict:
+    """(c) The replicated tier on ``n`` replicas of ``device``. Gather:
+    every frame and the state equal to ONE single-slice limiter fed the
+    global batch (chip-major order, the shards' padding inert). Delta:
+    equal to the same mesh on the CPU. Every replica's state equal to
+    slice 0's after the run."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.parallel import Mesh, MeshSketchLimiter
+
+    mesh = MeshSketchLimiter(cfg, ManualClock(T0),
+                             mesh=Mesh([device] * n), merge=merge)
+    ref = (create_limiter(cfg, clock=ManualClock(T0), device=device)
+           if merge == "gather" else
+           MeshSketchLimiter(cfg, ManualClock(T0), mesh=Mesh(["cpu"] * n),
+                             merge="delta"))
+    mod, _ = _mesh_counters(cfg)
+    cuda = device.startswith("cuda")
+    frames = _mesh_frames(seed, MESH_REPLICATED_FRAMES)
+    try:
+        if setup is not None:
+            setup(mesh)
+            setup(ref)
+        mod.reset_launch_counts()
+        got = [_mesh_send(mesh, kind, data, T0 + i * MESH_ADVANCE)[0]
+               for i, (kind, data) in enumerate(frames)]
+        # The mesh's own launches (the reference's come after).
+        counts = dict(mod.launch_counts()) if cuda else {}
+        for i, (kind, data) in enumerate(frames):
+            _mesh_same(f"{label} {merge} n={n} frame {i}", got[i],
+                       _mesh_send(ref, kind, data,
+                                  T0 + i * MESH_ADVANCE)[0])
+        if cuda and counts["window_estimate"] < n * len(frames):
+            raise AssertionError(f"{label} {merge} n={n}: launches {counts}")
+        _mesh_states(f"{label} {merge} n={n}", [mesh], [ref])
+        for rep in mesh._replicas:
+            for k, v in rep.items():
+                if not torch.equal(v.cpu(), mesh._state[k].cpu()):
+                    raise AssertionError(f"{label} {merge}: replica {k}")
+        log(f"mesh (c) {label} {merge} n={n}: {len(frames)} frames equal "
+            f"to {'one limiter fed the global batch' if merge == 'gather' else 'the CPU replay'}, "
+            f"replicas identical; launches {counts}")
+        return {"counts": counts}
+    finally:
+        mesh.close()
+        ref.close()
+
+
+def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
+    """(d) ``inject_failure`` on slice 2 of a 4-slice mesh with
+    quarantine (fail-open, durable): the victim's range answers
+    fail-open and quarantines; every other slice's rows equal a
+    quarantine-off mesh's; the healed slice's probe restores it through
+    ``recover_unit`` (the snapshot plus the WAL) and it rejoins with the
+    snapshot's slabs and the WAL's overrides."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import ManualClock, MeshSpec, PersistenceSpec
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch.persistence import PersistenceManager
+
+    base = dataclasses.replace(config3(), fail_open=True)
+    cfg = dataclasses.replace(base, mesh=MeshSpec(
+        quarantine=True, slice_deadline=30.0, probe_interval=3600.0),
+        persistence=PersistenceSpec(dir=tmp, snapshot_interval=3600.0))
+    q = SlicedMeshLimiter(cfg, ManualClock(T0), devices=[device] * 4)
+    r = SlicedMeshLimiter(base, ManualClock(T0), devices=[device] * 4)
+    mgr = PersistenceManager(cfg.persistence, registry=Registry())
+    top = mgr.wrap(q)
+    mgr.attach([top])
+    q.quarantine.restore_fn = mgr.slice_restorer()
+    victim = 2
+    frames = _mesh_frames(seed, MESH_QUARANTINE_FRAMES)
+    try:
+        snap = None
+        for i, (kind, data) in enumerate(frames):
+            now = T0 + i * MESH_ADVANCE
+            if i == 4:
+                mgr.snapshot_now()
+                snap = q.slices[victim].capture_state()[1]
+                top.set_override("user:1", 3)
+                r.set_override("user:1", 3)
+            if i == 6:
+                q.slices[victim].inject_failure()
+            got, owners = _mesh_send(top, kind, data, now)
+            want, _ = _mesh_send(r, kind, data, now)
+            healthy = owners != victim
+            _mesh_same(f"quarantine frame {i}", got, _Cols(want, healthy),
+                       healthy)
+            if i >= 6 and (owners == victim).any():
+                if not (got.fail_open
+                        and got.allowed[owners == victim].all()):
+                    raise AssertionError(f"quarantine frame {i}: the "
+                                         f"victim's range did not fail open")
+        if q.quarantine.quarantined() != [victim]:
+            raise AssertionError(f"quarantine: {q.quarantine.status()}")
+        q.slices[victim].heal()
+        if not q.quarantine.probe_now(victim):
+            raise AssertionError("quarantine: the probe did not rejoin")
+        after = q.slices[victim].capture_state()[1]
+        for k in ("cur", "totals", "slabs", "slab_period"):
+            if not np.array_equal(after[k], snap[k]):
+                raise AssertionError(f"quarantine: restored {k} differs "
+                                     f"from the snapshot's")
+        if q.slices[victim].get_override("user:1").limit != 3:
+            raise AssertionError("quarantine: the WAL's override is lost")
+        status = q.quarantine.status()
+        log(f"mesh (d) quarantine on 4 slices of {device}: slice {victim} "
+            f"failed at frame 6, answered fail-open, the other slices "
+            f"equal a quarantine-off mesh; probe + recover_unit restored "
+            f"it ({status['transitions']} transitions, "
+            f"{status['degraded_decisions']} degraded decisions)")
+        return {"status": status}
+    finally:
+        mgr.stop(final_snapshot=False)
+        top.close()
+        r.close()
+
+
+class _Cols:
+    """A BatchResult's columns at ``rows``."""
+
+    def __init__(self, res, rows):
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            setattr(self, f, np.asarray(getattr(res, f))[rows])
+
+
+MESH_BINARY = ("--backend", "mesh", "--algorithm", "fixed_window",
+               "--limit", "5", "--window", "3600", "--sub-windows", "1")
+
+
+def check_mesh_binary(device: str, seed: int, tmp: str) -> dict:
+    """(e) The binary with ``--backend mesh`` (the visible card count: one
+    slice here) behind the native and the asyncio door, each with the
+    host and the collective router, started together: hashed frames and
+    string keys, every answer's allowed, remaining and reset equal to a
+    CPU replay on a one-slice sliced mesh (a fixed hour-long window:
+    the decision time moves only the retry); the durable binary with
+    ``--quarantine`` killed and recovered; ``--mesh-devices`` above the
+    visible count refused with the JAX package's message."""
+    import torch
+
+    from ratelimiter_tpu_torch import Algorithm, Config, SketchParams
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch.serving import Client
+
+    visible = (torch.cuda.device_count() if device.startswith("cuda")
+               else 1)
+    doors = {"asyncio host": [], "native host": ["--native"],
+             "asyncio collective": ["--router", "collective"],
+             "native collective": ["--native", "--router", "collective"]}
+    base = list(MESH_BINARY) + ["--device", device.split(":")[0]]
+    # On the CPU any slice count is allowed; the refusal is the card's.
+    refused = subprocess.Popen(
+        [sys.executable, "-m", "ratelimiter_tpu_torch.serving", "--port",
+         "0", *base, "--mesh-devices", str(visible + 1)],
+        cwd=child_env()[0], env=child_env()[1], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) if device != "cpu" else None
+    servers = {}
+    out = {}
+    try:
+        from concurrent.futures import ThreadPoolExecutor
+
+        # Started together: each child takes its seconds to reach the card.
+        with ThreadPoolExecutor(max_workers=len(doors)) as pool:
+            futs = {name: pool.submit(ServerProcess, base + extra)
+                    for name, extra in doors.items()}
+            for name, fut in futs.items():
+                servers[name] = fut.result()
+        cfg = Config(algorithm=Algorithm.FIXED_WINDOW, limit=5,
+                     window=3600.0, sketch=SketchParams(sub_windows=1))
+        rng = np.random.default_rng(seed)
+        for name, srv in servers.items():
+            rep = SlicedMeshLimiter(cfg, devices=["cpu"] * visible)
+            c = Client(port=srv.port)
+            try:
+                n = 0
+                for _ in range(4):
+                    ids = rng.integers(0, 48, 64).astype(np.uint64)
+                    got, want = c.allow_hashed(ids), rep.allow_ids(ids)
+                    for f in ("allowed", "remaining", "reset_at"):
+                        if not np.array_equal(getattr(got, f),
+                                              getattr(want, f)):
+                            raise AssertionError(f"binary {name}: {f}")
+                    for k in (f"user{int(i)}" for i in
+                              rng.integers(0, 20, 12)):
+                        g, w = c.allow(k), rep.allow(k)
+                        if (g.allowed, g.remaining, g.reset_at) != (
+                                w.allowed, w.remaining, w.reset_at):
+                            raise AssertionError(f"binary {name}: key {k}")
+                    n += 64 + 12
+                out[name] = n
+            finally:
+                c.close()
+                rep.close()
+            if srv.terminate() != 0:
+                raise AssertionError(f"binary {name}: exit code")
+        if refused is not None:
+            text = refused.communicate(timeout=300)[0]
+            want = (f"mesh wants {visible + 1} devices but only {visible} "
+                    f"are visible")
+            if refused.returncode == 0 or want not in text:
+                raise AssertionError(f"--mesh-devices {visible + 1}: "
+                                     f"{text[-400:]}")
+        durable = base + ["--quarantine", "--snapshot-dir", tmp,
+                          "--snapshot-interval", "1000"]
+        srv = ServerProcess(durable)
+        c = Client(port=srv.port)
+        keys = [f"dur{i}" for i in range(12)]
+        try:
+            for _ in range(6):
+                for k in keys:
+                    c.allow(k)
+            c.snapshot()
+            c.set_override("vip", 2)
+        finally:
+            c.close()
+            srv.kill()
+        srv = ServerProcess(durable)
+        c = Client(port=srv.port)
+        try:
+            if any(c.allow(k).allowed for k in keys):
+                raise AssertionError("durable mesh binary: a key exhausted "
+                                     "before the kill admits after it")
+            if c.get_override("vip")[0] != 2:
+                raise AssertionError("durable mesh binary: the WAL's "
+                                     "override is lost")
+        finally:
+            c.close()
+            srv.terminate()
+        out["recovered"] = srv.recovered
+        log(f"mesh (e) the binary on {device}: four doors equal to the CPU "
+            f"replay ({out}), the durable quarantine binary recovered "
+            f"({srv.recovered})"
+            + (f", --mesh-devices {visible + 1} refused"
+               if refused is not None else ""))
+        return out
+    finally:
+        for srv in servers.values():
+            if srv.proc.poll() is None:
+                srv.kill()
+        if refused is not None and refused.poll() is None:
+            refused.kill()
+            refused.wait(timeout=60)
+
+
+def check_route_bins(torch, seed: int) -> dict:
+    """The ``route_bins`` kernel against ``route_bins_plain`` on the card
+    at the collective router's shape for a 4096-request frame over 4
+    slices (L = 1024, C = ``bin_capacity``): Zipf ids on the raw-id lane
+    and uniform hashes, and capacity-1 bins (overflow); every output
+    bit-equal. Timed beside its plain version and the library call that
+    computes the same ordering (a stable ``torch.sort`` of the owners
+    plus ``torch.bincount``); bound by bytes: h64 and ns read once,
+    binpos and keep written once, the bins written once."""
+    from ratelimiter_tpu_torch.ops import route_kernels as rk
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64_dev
+
+    rng = np.random.default_rng(seed + 97)
+    n, L = 4, 1024
+    err = {"route_bins": 0.0}
+    dev = torch.device("cuda")
+    cases = []
+    for premix, ids in ((True, zipf_ids(rng, L)),
+                        (False, rng.integers(0, 1 << 64, L,
+                                             dtype=np.uint64))):
+        for headroom in (2.0, 0.001):
+            h = torch.from_numpy(ids.view(np.int64)).to(dev)
+            ns = torch.from_numpy(rng.integers(1, 4, L).astype(
+                np.int32)).to(dev)
+            C = rk.bin_capacity(L, n, headroom)
+            for valid in (L, L // 3):
+                got = rk.route_bins(h, ns, valid, n, C, premix)
+                want = rk.route_bins_plain(h, ns, valid, n, C, premix)
+                for a, b in zip(got, want):
+                    hold_equal(torch, err, "route_bins", a, b)
+            cases.append((premix, headroom, h, ns, C))
+    premix, _, h, ns, C = cases[0]
+
+    def kern():
+        rk.route_bins(h, ns, L, n, C, premix)
+
+    def plain():
+        rk.route_bins_plain(h, ns, L, n, C, premix)
+
+    def lib():
+        owner = rk._umod(splitmix64_dev(h), n)
+        torch.sort(owner, stable=True)
+        torch.bincount(owner, minlength=n)
+
+    nbytes = L * (8 + 4) + L * (4 + 1) + n * C * (8 + 4) + 4
+    row = kernel_row("route_bins", MESH_SOURCE, err["route_bins"], kern,
+                     plain, lib, nbytes, 0, torch)
+    row.update(L=L, slices=n, capacity=C,
+               form="raw-id lane, Zipf ids, bin_headroom 2.0")
+    log(f"kernels: route_bins bit-equal to plain (raw-id and hashed lanes, "
+        f"headroom 2.0 and capacity-1 bins, full and partial shards)")
+    return {"route_bins": row}
+
+
+def mesh_readings(device: str, rounds: int = 1) -> list:
+    """Decisions/s from the C++ load generator (hashed frames over TCP)
+    through the native door mounting the sliced mesh: the host router's
+    slices as the door's shards, and the collective router as one
+    shard, at 1, 2 and 4 slices on the one card, beside ``--backend
+    sketch`` in the same call. Claimed as nothing: slices on one card
+    share its SMs and the host's one GIL."""
+    import dataclasses
+
+    from ratelimiter_tpu_torch import MeshSpec, create_limiter, native
+    from ratelimiter_tpu_torch.parallel import (
+        CollectiveMeshLimiter,
+        build_slices,
+    )
+    from ratelimiter_tpu_torch.serving.native_server import (
+        NativeRateLimitServer,
+    )
+
+    exe = native.build_loadgen()
+    rows = []
+    cfg = config3()
+    for rnd in range(rounds):
+        for router, n in (("sketch", 1), *((r, k) for r in ("host",
+                                                            "collective")
+                                           for k in MESH_SLICES)):
+            devs = [device] * n
+            if router == "sketch":
+                units = [create_limiter(cfg, device=device)]
+            elif router == "host":
+                units = build_slices(cfg, devices=devs)
+            else:
+                units = [CollectiveMeshLimiter(dataclasses.replace(
+                    cfg, mesh=MeshSpec(router="collective")),
+                    devices=devs)]
+            with door_stack() as (wrap, registry):
+                lims = [wrap(u, i) if i else wrap(u)
+                        for i, u in enumerate(units)]
+                srv = NativeRateLimitServer(
+                    lims[0], "127.0.0.1", 0, registry=registry,
+                    shard_limiters=lims if len(lims) > 1 else None)
+                srv.start()
+                try:
+                    r = _loadgen(exe, srv.port, "hashed", "tcp")
+                finally:
+                    srv.shutdown()
+            for u in units:
+                u.close()
+            if not r["completed"]:
+                raise AssertionError(f"mesh loadgen {router} n={n}: no "
+                                     f"frame completed")
+            row = {"round": rnd, "router": router, "slices": n,
+                   **{k: r[k] for k in ("decisions_per_sec", "frame_p50_ms",
+                                        "frame_p99_ms")}}
+            rows.append(row)
+            log(f"mesh reading {rnd}: {router} n={n}: "
+                f"{row['decisions_per_sec']:.0f} decisions/s, frame p50 "
+                f"{row['frame_p50_ms']:.3f} ms p99 "
+                f"{row['frame_p99_ms']:.3f} ms")
+    return rows
+
+
+def _mesh_summary(mesh: dict) -> dict:
+    """The mesh phase's JSON: its readings and checks, without the
+    per-frame results."""
+    return {k: ({kk: vv for kk, vv in v.items()
+                 if kk not in ("results", "states")}
+                if isinstance(v, dict) else v)
+            for k, v in mesh["out"].items()}
+
+
+def run_mesh(torch, seed: int = 0, device: str = "cuda:0",
+             full: bool = False, readings: bool = True) -> dict:
+    """Phase mesh: (a)-(e) and the readings; raises on any failure.
+    Returns the runs' launch counts (windowed and bucket, for the kernel
+    rows), the collective runs' ``route_bins`` launches, and the
+    readings."""
+    import tempfile
+
+    n_frames = MESH_FRAMES_FULL if full else MESH_FRAMES
+    t = time.perf_counter()
+    windowed, bucket, routed = [], [], 0
+    out = {}
+    for label, cfg, c2, setup in (
+            (f"windowed CU hh_slots={HH_SLOTS}", config3_hh(), False, None),
+            ("windowed vanilla", config3(cu=False), False, None),
+            ("TB-c2", config2_bucket(), True, None)):
+        frames = _mesh_frames(seed + len(label), n_frames, c2=c2)
+        runs = bucket if label == "TB-c2" else windowed
+        for n in MESH_SLICES:
+            host = check_sliced(torch, cfg, label, n, frames, device, setup)
+            runs.append(host)
+            out[f"{label} host n={n}"] = {k: host[k] for k in (
+                "counts", "touched", "frames", "wall_s")}
+            if n == 1:
+                continue
+            for headroom in (2.0, 0.001):
+                coll = check_collective(torch, cfg, label, n, frames,
+                                        device, host["results"], setup,
+                                        headroom, host["states"])
+                runs.append(coll)
+                routed += coll["route_bins"]
+                out[f"{label} collective n={n} headroom={headroom}"] = coll
+    n_rep = 4 if full else 2
+    for label, cfg, setup in ((f"hh_slots={HH_SLOTS}", config3_hh(), None),
+                              (f"tenants={TENANTS}", with_tenants(config3()),
+                               boot_tenants)):
+        for merge in ("gather", "delta"):
+            run = check_replicated(torch, cfg, label, n_rep, merge, device,
+                                   seed + 5, setup)
+            windowed.append(run)
+            out[f"replicated {label} {merge}"] = run
+    with tempfile.TemporaryDirectory() as tmp:
+        out["quarantine"] = check_quarantine(torch, device, seed, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["binary"] = check_mesh_binary(device, seed, tmp)
+    if readings:
+        out["readings"] = mesh_readings(device, rounds=3 if full else 1)
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase mesh done in {out['wall_s']:.1f} s")
+    return {"windowed": windowed, "bucket": bucket, "route_bins": routed,
+            "out": out}
+
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -9227,6 +9939,13 @@ def main(argv=None) -> int:
                          "card, the binary with leases killed and "
                          "recovered, three rounds of readings; one JSON "
                          "line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only build, then run phase mesh at full length "
+                         "(the sliced mesh's host and collective routers "
+                         "at 1, 2 and 4 slices on the card over 8 x 48 "
+                         "frames, the replicated tier on 4, quarantine, "
+                         "the binary, three rounds of readings) and hold "
+                         "route_bins to its plain version (one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -9252,11 +9971,11 @@ def main(argv=None) -> int:
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
                 or args.gateway or args.door or args.native
-                or args.grpc)
+                or args.grpc or args.mesh)
     # The native door and the load generator build with g++ beside the
     # nvcc builds.
     host_build = None
-    if full or args.native or args.grpc:
+    if full or args.native or args.grpc or args.mesh:
         from concurrent.futures import ThreadPoolExecutor
 
         from ratelimiter_tpu_torch import native
@@ -9269,7 +9988,8 @@ def main(argv=None) -> int:
                      + (["dense_kernels", "dense_bench"]
                         if full or args.dense else [])
                      + (["dense_kernels"] if args.dense_paths else [])
-                     + (["cascade_bench"] if full else []))
+                     + (["cascade_bench"] if full else [])
+                     + (["route_kernels"] if full or args.mesh else []))
     sketch_cuda.build()
     bucket_cuda.build()
     if full or args.dense or args.dense_paths:
@@ -9329,6 +10049,19 @@ def main(argv=None) -> int:
                          default=lambda o: repr(o)))
         print(card)
         return 0
+    if args.mesh:
+        from ratelimiter_tpu_torch.ops import route_kernels
+
+        route_kernels.build()
+        row = check_route_bins(torch, args.seed)["route_bins"]
+        mesh = run_mesh(torch, args.seed, full=True)
+        row["launches"] = mesh["route_bins"]
+        check_no_children()
+        print(json.dumps({"card": card, "route_bins": row,
+                          "mesh": _mesh_summary(mesh)},
+                         default=lambda o: repr(o)))
+        print(card)
+        return 0
     if args.grpc:
         out = run_grpc(torch, args.seed, alone=True)
         check_no_children()
@@ -9367,6 +10100,10 @@ def main(argv=None) -> int:
             rows[row]["side_table_form"] = side["side_forms"][name]
         rows.update(check_cascade(torch, args.seed))
         rows.update(check_dense_kernel(torch, args.seed))
+        from ratelimiter_tpu_torch.ops import route_kernels
+
+        route_kernels.build()
+        rows.update(check_route_bins(torch, args.seed))
         # The auditor twin's forms of the step's kernels (d = 1).
         for width, forms in check_twin_kernels(torch, args.seed).items():
             for name, form in forms.items():
@@ -9490,6 +10227,7 @@ def main(argv=None) -> int:
     gateway = run_gateway(torch, args.seed)
     native_door = run_native(torch, args.seed, rounds=1)
     grpc_phase = run_grpc(torch, args.seed)
+    mesh = run_mesh(torch, args.seed)
     live = check_live_updates(torch, args.seed)
     watch = check_watchdog(torch)
     durable = check_durable_door(config3(), device="cuda", seed=args.seed)
@@ -9520,11 +10258,12 @@ def main(argv=None) -> int:
                        for t in NATIVE_TRANSPORTS),
                      native_door["windowed CU shards=2"],
                      grpc_phase["windowed asyncio"],
-                     grpc_phase["windowed native"], grpc_phase["leases"])
+                     grpc_phase["windowed native"], grpc_phase["leases"],
+                     *mesh["windowed"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
                    *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
                    native_door["TB-c2"], grpc_phase["TB-c2 asyncio"],
-                   grpc_phase["TB-c2 native"])
+                   grpc_phase["TB-c2 native"], *mesh["bucket"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -9533,6 +10272,14 @@ def main(argv=None) -> int:
             continue
         rows[name]["launches"] = row_launches(
             name, windowed_runs, bucket_runs)
+    # route_bins runs on the collective router's path alone; the mesh
+    # phase's launches of the five kernels are also given apart.
+    for name in rows:
+        if name in KERNEL_ROWS and name != "route_bins":
+            rows[name]["mesh_launches"] = row_launches(
+                name, mesh["windowed"], mesh["bucket"])
+    rows["route_bins"]["launches"] = mesh["route_bins"]
+    rows["route_bins"]["mesh_launches"] = mesh["route_bins"]
     # The side table's update ran as the backs' tail on every path.
     rows["hh_update"]["fused_launches"] = row_launches(
         "hh_update [fused]", windowed_runs, bucket_runs)
@@ -9550,6 +10297,7 @@ def main(argv=None) -> int:
     paths["gateway"] = gateway
     paths["native"] = native_door
     paths["grpc"] = grpc_phase
+    paths["mesh"] = _mesh_summary(mesh)
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -37,6 +37,7 @@ from ratelimiter_tpu_torch.core.config import (
     DenseParams,
     PersistenceSpec,
     HierarchySpec,
+    MeshSpec,
     DEFAULT_PREFIX,
 )
 from ratelimiter_tpu_torch.core.errors import (
@@ -64,6 +65,7 @@ __all__ = [
     "DenseParams",
     "PersistenceSpec",
     "HierarchySpec",
+    "MeshSpec",
     "DEFAULT_PREFIX",
     "RateLimiterError",
     "InvalidConfigError",

@@ -2,7 +2,8 @@
 trimmed to what the port's backends serve (the scalar and batched API,
 launch/resolve, per-key overrides, dynamic limit/window updates and the
 checkpoint seam) and the hierarchy surface (tenant and global scopes).
-``sub_limiters`` answers ``[self]``: the mesh's slices (A8) are not ported.
+``sub_limiters`` answers ``[self]``; the sliced mesh (parallel/limiter.py)
+answers its slices.
 
 Parity with reference ``internal/ratelimiter/interface.go:76-145`` plus the
 TPU-native first-class batched call. Semantic decisions (SURVEY.md §2.4, each
@@ -395,7 +396,7 @@ class RateLimiter(abc.ABC):
 
     def sub_limiters(self) -> "list[RateLimiter]":
         """The independent dispatch units inside this limiter: ``[self]``
-        (the port's limiters are one unit on one card). The decorators
+        here; the sliced mesh answers its slices. The decorators
         iterate this seam for the per-unit gauges (the side table's top
         consumers, the debt slab) instead of duck-typing internals."""
         return [self]

@@ -52,8 +52,9 @@ counters. On the card a batch under the cascade of up to
 on the card, then the standalone update kernels), as windowed batches
 without tenants do. The multi-batch scan
 runners that benchmarks drive are ``sketch_kernels.build_scan`` and
-``bucket_kernels.build_scan``, below the limiters. Not ported yet: the
-DCN bookkeeping (ROADMAP A8).
+``bucket_kernels.build_scan``, below the limiters. Both limiters are the
+slices of the sliced mesh and the replicas of the replicated mesh
+(parallel/). Not ported yet: the DCN bookkeeping (ROADMAP A8b).
 """
 
 from __future__ import annotations
@@ -314,11 +315,16 @@ class SketchLimiter(RateLimiter):
             return host
         return host.pin_memory().to(self._device, non_blocking=True)
 
+    def _padded_size(self, b: int) -> int:
+        """The staged batch length of ``b`` requests (the replicated mesh
+        pads each slice's shard instead)."""
+        return _pad_size(b)
+
     def _launch_hashed(self, h64: np.ndarray, ns: np.ndarray, now_us: int,
                        t_sec: float, *, premix: bool = False,
                        wire: bool = False) -> DispatchTicket:
         b = h64.shape[0]
-        padded = _pad_size(b)
+        padded = self._padded_size(b)
         h64p = np.zeros(padded, dtype=np.uint64)
         h64p[:b] = h64
         nsp = np.zeros(padded, dtype=np.int32)

@@ -52,13 +52,15 @@ def config_fingerprint(config: Config) -> str:
     ``sketch.kernels`` are excluded (operational knobs, not state
     geometry), as is the hierarchy spec while it is disabled (so every
     pre-hierarchy snapshot keeps its fingerprint); enabled, the cascade's
-    geometry shapes the ``tn_*`` arrays and participates. The JAX package
-    also excludes its mesh spec, which the port's Config lacks.
+    geometry shapes the ``tn_*`` arrays and participates. The mesh spec
+    (slice placement, not state geometry) is excluded, as in the JAX
+    package.
     tests/test_torch_persistence.py pins the JAX golden value,
     tests/test_torch_hier.py an enabled spec's and tests/test_torch_dense.py
     a non-default dense spec's."""
     fields = asdict(config)
     fields.pop("persistence", None)
+    fields.pop("mesh", None)
     fields["sketch"].pop("kernels", None)
     if not fields["hierarchy"].get("tenants"):
         fields.pop("hierarchy")

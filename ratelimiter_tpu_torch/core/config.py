@@ -273,6 +273,98 @@ class PersistenceSpec:
 
 
 @dataclass(frozen=True)
+class MeshSpec:
+    """Slice-parallel serving deployment (``--backend mesh``, ADR-012).
+
+    ``devices`` caps how many visible devices (CUDA cards; N slices on
+    the CPU) the sliced mesh limiter spans (None = all of them). Each
+    device holds an independent,
+    device-pinned single-chip limiter slice; the serving tier routes every
+    key to its owning slice by hash, so the decide path is collective-free
+    and per-key decisions are bit-identical to a single-device limiter.
+
+    Deliberately EXCLUDED from the checkpoint config fingerprint: the
+    device count is a *placement* property, not state geometry — but a
+    sliced snapshot refuses to restore onto a different slice count
+    (each slice's counters are only meaningful under the routing that
+    produced them; SlicedMeshLimiter.restore raises CheckpointError until
+    the port has resharding, ROADMAP A8b).
+    """
+
+    #: Devices to span (None = every visible device; must be >= 1).
+    devices: Optional[int] = None
+    #: Frame routing mode (ADR-024). "host" = the ADR-013 scatter-gather
+    #: scheduler (host argsort partition, per-slice sub-launches, barrier
+    #: + index-map scatter). "collective" = one routed dispatch per
+    #: frame: owners and bins computed on device (the ``route_bins``
+    #: kernel), rows all-to-all'd to their slices, verdicts all-to-all'd
+    #: back — the host never partitions.
+    #: Decisions are bit-identical either way (same ``h64 % n`` owner
+    #: rule, same kernels); "collective" targets real accelerator meshes
+    #: where device copies beat host phases, and falls back to the host router on
+    #: bin overflow (so admission is never dropped) and under the strict
+    #: overload policy.
+    router: str = "host"
+    #: Collective-router bin headroom: per-(source, destination) bin
+    #: capacity is ``ceil(bin_headroom * shard_len / devices)``. Uniform
+    #: mixed traffic fills bins to ~1/headroom; skewed frames that
+    #: overflow a bin fall back to the host router (ADR-024 trade-off).
+    bin_headroom: float = 2.0
+    #: Failure-domain isolation (ADR-015): wrap every slice in a
+    #: quarantine guard — per-slice dispatch deadline + failure
+    #: classifier, degraded per-range answers per ``fail_open``, and
+    #: half-open probe recovery with restore-before-rejoin. OFF by
+    #: default: the guard adds one executor hop per slice resolve, and
+    #: the no-quarantine hot path must stay byte-identical.
+    quarantine: bool = False
+    #: Per-slice sub-dispatch deadline, seconds: a slice that has not
+    #: resolved within this budget is classified failed and its key
+    #: range degrades (only that range — other slices stay exact).
+    slice_deadline: float = 0.25
+    #: Seconds a quarantined slice waits before each half-open probe.
+    probe_interval: float = 1.0
+    #: Consecutive classified failures before a slice quarantines
+    #: (1 = first fault quarantines; the failure already degraded that
+    #: frame's range either way).
+    failure_threshold: int = 1
+
+    def validate(self) -> None:
+        if self.devices is not None and (
+                not isinstance(self.devices, int) or self.devices < 1):
+            raise InvalidConfigError(
+                f"mesh devices must be a positive integer or None, "
+                f"got {self.devices!r}")
+        if self.slice_deadline <= 0:
+            raise InvalidConfigError(
+                f"mesh slice_deadline must be positive, "
+                f"got {self.slice_deadline!r}")
+        if self.probe_interval <= 0:
+            raise InvalidConfigError(
+                f"mesh probe_interval must be positive, "
+                f"got {self.probe_interval!r}")
+        if not isinstance(self.failure_threshold, int) \
+                or self.failure_threshold < 1:
+            raise InvalidConfigError(
+                f"mesh failure_threshold must be an integer >= 1, "
+                f"got {self.failure_threshold!r}")
+        if self.router not in ("host", "collective"):
+            raise InvalidConfigError(
+                f"mesh router must be 'host' or 'collective', "
+                f"got {self.router!r}")
+        if self.router == "collective" and self.quarantine:
+            raise InvalidConfigError(
+                "router='collective' is incompatible with quarantine: a "
+                "collective dispatch is ONE mesh-wide execution, so a "
+                "single slice's fault has whole-mesh blast radius and "
+                "per-slice failure domains cannot contain it (ADR-024). "
+                "Use router='host' for quarantined deployments.")
+        if not (self.bin_headroom > 0):
+            raise InvalidConfigError(
+                f"mesh bin_headroom must be positive, "
+                f"got {self.bin_headroom!r}")
+
+
+@dataclass(frozen=True)
 class DenseParams:
     """Geometry of the dense (exact, slot-addressed) device backend."""
 
@@ -312,6 +404,8 @@ class Config:
             scope, weighted fair share; hierarchy/). Part of the
             fingerprint only when enabled, so pre-hierarchy snapshots stay
             valid.
+        mesh: slice-parallel serving placement (``--backend mesh``,
+            parallel/). Not part of the checkpoint fingerprint.
     """
 
     algorithm: Algorithm
@@ -325,6 +419,7 @@ class Config:
     policy: PolicySpec = field(default_factory=PolicySpec)
     persistence: PersistenceSpec = field(default_factory=PersistenceSpec)
     hierarchy: HierarchySpec = field(default_factory=HierarchySpec)
+    mesh: MeshSpec = field(default_factory=MeshSpec)
 
     def validate(self) -> None:
         """Reference ``Config.Validate`` (``config.go:16-50``), same bounds."""
@@ -348,6 +443,7 @@ class Config:
         self.policy.validate()
         self.persistence.validate()
         self.hierarchy.validate()
+        self.mesh.validate()
 
     def with_defaults(self) -> "Config":
         """Non-mutating defaulting (reference ``config.go:54-67``): returns a

@@ -21,8 +21,10 @@ Two kinds of limit per scope:
 Sliced-mesh deployments pass ``divisor = n_slices``: each hash-routed
 slice enforces an equal share (``max(1, effective // divisor)``) of
 every tenant/global limit, the same static-split rule hash-partitioned
-fleet members use. The port's multi-shard native door passes its shard
-count (``--shards``); the mesh cascade is ROADMAP A8.
+fleet members use: ``parallel.build_slices`` passes the slice count,
+and the port's multi-shard native door its shard count (``--shards``).
+The replicated mesh (parallel/mesh_kernels.py) needs no divisor: its
+tenant counters are replicated, and delta mode psums their histogram.
 
 Durability: tenant definitions, assignments, and the CONTROLLER-MOVED
 effective limits ride checkpoints as ``hier_*`` columns

@@ -39,10 +39,12 @@ where the JAX package uses ``jax.profiler.TraceAnnotation``, and also
 annotates the raw-id lane's launches (``launch``) and synchronous calls,
 which the door's hashed frames take.
 
-The port's backends are one dispatch unit on one card, so the breaker
-has one state for the whole keyspace and the logger names no slice. The
-JAX breaker's per-slice scoping (a failure attributed to one mesh slice
-trips only that slice) waits for a multi-unit backend (the mesh, A8).
+Around a composite backend (the sliced mesh, ``sub_limiters()`` > 1) the
+breaker scopes a failure attributed to one slice (an exception's
+``slice_index``, a result's ``fail_open_slices``) to that slice's own
+breaker state, as the JAX breaker does; unattributed failures trip the
+whole-keyspace breaker. The metrics decorator's per-unit gauges (the
+debt slab, the top consumers) carry one series per slice.
 """
 
 from __future__ import annotations
@@ -653,6 +655,18 @@ class CircuitBreakerDecorator(LimiterDecorator):
         self._open_until = 0.0
         self._probe_inflight = False
         self._cb_lock = threading.Lock()
+        #: Per-sub-limiter scoping: around a
+        #: composite backend (the sliced mesh — sub_limiters() > 1), a
+        #: failure ATTRIBUTED to one slice (exception ``slice_index`` /
+        #: result ``fail_open_slices``) counts against that slice's own
+        #: breaker state and NEVER the whole-keyspace one — one bad
+        #: device must not short-circuit every other range. Unattributed
+        #: failures (the whole backend down) trip the global breaker as
+        #: before.
+        self._scoped = len(undecorated(inner).sub_limiters()) > 1
+        self._sub_consecutive: dict = {}
+        self._sub_last_failure: dict = {}
+        self._sub_open_until: dict = {}
         reg = registry if registry is not None else m.DEFAULT
         self._transitions = reg.counter(
             "rate_limiter_breaker_transitions_total",
@@ -664,6 +678,26 @@ class CircuitBreakerDecorator(LimiterDecorator):
     @property
     def state(self) -> str:
         return self._state
+
+    def sub_state(self, index: int, now: Optional[float] = None) -> str:
+        """Scoped breaker state of one sub-limiter: "open" while its
+        cooldown runs, else "closed" (slice-scoped failures never have
+        a half-open phase here — the quarantine manager owns per-slice
+        probing; this state is attribution bookkeeping)."""
+        t = self.inner.clock.now() if now is None else float(now)
+        with self._cb_lock:
+            return ("open"
+                    if self._sub_open_until.get(index, 0.0) > t
+                    else "closed")
+
+    def sub_states(self) -> dict:
+        with self._cb_lock:
+            return dict(self._sub_open_until)
+
+    @staticmethod
+    def _exc_slices(exc: Exception):
+        si = getattr(exc, "slice_index", None)
+        return [si] if si is not None else None
 
     def _trip(self, now: float) -> None:
         self._state = "open"
@@ -683,11 +717,37 @@ class CircuitBreakerDecorator(LimiterDecorator):
         with self._cb_lock:
             self._probe_inflight = False
 
-    def _note_result(self, failed: bool, now: float, probe: bool) -> None:
+    def _note_result(self, failed: bool, now: float, probe: bool,
+                     slices=None) -> None:
         with self._cb_lock:
             if probe:
                 self._probe_inflight = False
             if failed:
+                if slices and self._scoped:
+                    # Slice-attributed failure: count against the named
+                    # slices only. The whole-keyspace breaker must keep
+                    # admitting traffic for every other range — that is
+                    # the regression a single-slice fault storm used to
+                    # cause (it tripped the global breaker). "Consecutive"
+                    # is cooldown-windowed: a failure more than one
+                    # cooldown after the slice's previous one restarts
+                    # its count (a healthy frame can't clear it — frames
+                    # not touching the slice say nothing about it — so
+                    # isolated transients must not accumulate forever).
+                    for s in slices:
+                        last = self._sub_last_failure.get(s, 0.0)
+                        stale = now - last > self.cooldown
+                        self._sub_last_failure[s] = now
+                        c = (1 if stale
+                             else self._sub_consecutive.get(s, 0) + 1)
+                        self._sub_consecutive[s] = c
+                        if (c >= self.failure_threshold
+                                and self._sub_open_until.get(s, 0.0)
+                                <= now):
+                            self._sub_open_until[s] = now + self.cooldown
+                            self._transitions.inc(to="open",
+                                                  slice=str(s))
+                    return
                 self._consecutive += 1
                 if (self._state == "half-open"
                         or self._consecutive >= self.failure_threshold):
@@ -734,13 +794,14 @@ class CircuitBreakerDecorator(LimiterDecorator):
         try:
             res = self.inner.allow_n(key, n, now=now)
         except StorageUnavailableError as exc:
-            self._note_result(True, t, probe)
+            self._note_result(True, t, probe, self._exc_slices(exc))
             raise
         except BaseException:
             if probe:
                 self._clear_probe()
             raise
-        self._note_result(res.fail_open, t, probe)
+        self._note_result(res.fail_open, t, probe,
+                          getattr(res, "fail_open_slices", None))
         return res
 
     def allow_batch(self, keys: Sequence[str], ns=None, *,
@@ -752,13 +813,14 @@ class CircuitBreakerDecorator(LimiterDecorator):
         try:
             out = self.inner.allow_batch(keys, ns, now=now)
         except StorageUnavailableError as exc:
-            self._note_result(True, t, probe)
+            self._note_result(True, t, probe, self._exc_slices(exc))
             raise
         except BaseException:
             if probe:
                 self._clear_probe()
             raise
-        self._note_result(out.fail_open, t, probe)
+        self._note_result(out.fail_open, t, probe,
+                          getattr(out, "fail_open_slices", None))
         return out
 
     # Pipelined path (ADR-010): the breaker admits (or short-circuits) at
@@ -775,7 +837,7 @@ class CircuitBreakerDecorator(LimiterDecorator):
         try:
             ticket = self.inner.launch_batch(keys, ns, now=now)
         except StorageUnavailableError as exc:
-            self._note_result(True, t, probe)
+            self._note_result(True, t, probe, self._exc_slices(exc))
             raise
         except BaseException:
             if probe:
@@ -796,13 +858,14 @@ class CircuitBreakerDecorator(LimiterDecorator):
         try:
             out = fn()
         except StorageUnavailableError as exc:
-            self._note_result(True, t, probe)
+            self._note_result(True, t, probe, self._exc_slices(exc))
             raise
         except BaseException:
             if probe:
                 self._clear_probe()
             raise
-        self._note_result(out.fail_open, t, probe)
+        self._note_result(out.fail_open, t, probe,
+                          getattr(out, "fail_open_slices", None))
         return out
 
     def _guarded_launch(self, fn, b: int, now):
@@ -813,7 +876,7 @@ class CircuitBreakerDecorator(LimiterDecorator):
         try:
             ticket = fn()
         except StorageUnavailableError as exc:
-            self._note_result(True, t, probe)
+            self._note_result(True, t, probe, self._exc_slices(exc))
             raise
         except BaseException:
             if probe:
@@ -851,14 +914,16 @@ class CircuitBreakerDecorator(LimiterDecorator):
             out = self.inner.resolve(ticket)
         except StorageUnavailableError as exc:
             if tag is not None:
-                self._note_result(True, tag[1], tag[2])
+                self._note_result(True, tag[1], tag[2],
+                                  self._exc_slices(exc))
             raise
         except BaseException:
             if tag is not None and tag[2]:
                 self._clear_probe()
             raise
         if tag is not None:
-            self._note_result(out.fail_open, tag[1], tag[2])
+            self._note_result(out.fail_open, tag[1], tag[2],
+                              getattr(out, "fail_open_slices", None))
         return out
 
 

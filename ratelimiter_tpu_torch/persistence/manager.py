@@ -25,8 +25,9 @@ Sidecars (``add_sidecar``/``restore_sidecar``) carry a non-limiter
 table on the same snapshots: the lease grant table rides every snapshot
 and is restored after recovery.
 
-Left out: the mesh's slice restorer (ROADMAP A8), and the fleet's
-auxiliary units (A8, A13d).
+``slice_restorer`` is the mesh quarantine's restore-before-rejoin hook
+(recover.recover_unit). Left out: the fleet's auxiliary units (ROADMAP
+A13d).
 """
 
 from __future__ import annotations
@@ -132,6 +133,22 @@ class PersistenceManager:
         self.wal.close()
 
     # ------------------------------------------------------------ surface
+
+    def slice_restorer(self) -> Callable[[int], None]:
+        """The quarantine tier's restore-before-rejoin hook (ADR-015):
+        a callable restoring ONE dispatch unit from the newest readable
+        snapshot + WAL suffix (recover.recover_unit). Wire it as
+        ``QuarantineManager.restore_fn``. Mutation replay bypasses the
+        PersistentLimiter wrappers, so nothing is re-logged — safe to
+        run while the rest of the deployment keeps serving."""
+        from ratelimiter_tpu_torch.persistence.recover import recover_unit
+
+        def restore(unit: int) -> None:
+            assert self._limiters, "attach() first"
+            recover_unit(self._limiters, self.dir, unit,
+                         shard_of=self._shard_of)
+
+        return restore
 
     def snapshot_now(self) -> dict:
         """Manual trigger (binary T_SNAPSHOT)."""

@@ -1,6 +1,8 @@
 """Crash recovery: newest valid snapshot + WAL suffix replay — a copy of
 ``ratelimiter_tpu/persistence/recover.py`` (``recover``,
-``_restore_snapshot``, ``_apply``).
+``_restore_snapshot``, ``_apply``, and ``recover_unit``, the
+slice-scoped recovery the mesh's quarantine tier runs before a slice
+rejoins routing).
 
 On startup with persistence enabled:
 
@@ -20,9 +22,6 @@ acknowledged); per-decision counters recover to the last snapshot — the
 crash window loses at most one snapshot interval of decisions, in the
 under-counting (fail-toward-allowing) direction. Replay application is
 idempotent, so records the snapshot already contains reapply harmlessly.
-
-Left out: ``recover_unit``, the slice-scoped recovery of the mesh's
-quarantine tier (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -138,6 +137,100 @@ def _apply(rec: walmod.WalRecord, limiters: List,
             lim.update_window(float(p["window"]))
     else:
         raise CheckpointError(f"unknown WAL record type {rec.type}")
+
+
+def recover_unit(limiters: List, dir_: str, unit: int, *,
+                 shard_of: Optional[Callable[[str], int]] = None,
+                 ) -> RecoveryReport:
+    """Slice-scoped recovery (ADR-015): restore ONE dispatch unit from
+    the newest readable snapshot, then replay the WAL suffix onto that
+    unit only — the restore-before-rejoin half of quarantine recovery.
+
+    Two deployment shapes:
+
+    * native door (``len(limiters) > 1``): each unit has its own
+      snapshot file — ``limiters[unit]`` restores it;
+    * asyncio door (one composite limiter): the combined snapshot's
+      ``slice{unit}:`` sub-dictionary restores via the composite's
+      ``restore_slice`` seam.
+
+    Replay applies policy/config records to the unit directly
+    (overrides are write-all, so re-applying to one slice is the live
+    semantics) and resets only where the unit owns the key. Mutations
+    bypass the PersistentLimiter wrappers, so nothing is re-logged.
+    """
+    manifest = read_manifest(dir_)
+    report = RecoveryReport()
+    composite = len(limiters) == 1
+    if manifest is not None:
+        for entry in reversed(manifest["snapshots"]):
+            path0 = os.path.join(dir_, entry["files"][0])
+            try:
+                if composite:
+                    lim = limiters[0]
+                    if not hasattr(lim, "restore_slice"):
+                        raise CheckpointError(
+                            f"slice-scoped restore needs a composite "
+                            f"limiter with restore_slice; "
+                            f"{type(lim).__name__} has none")
+                    lim.restore_slice(path0, unit)
+                else:
+                    if len(entry["files"]) != len(limiters):
+                        raise CheckpointError(
+                            f"snapshot {entry['id']} has "
+                            f"{len(entry['files'])} shard file(s) but "
+                            f"this server runs {len(limiters)}")
+                    limiters[unit].restore(
+                        os.path.join(dir_, entry["files"][unit]))
+            except CheckpointError:
+                raise  # config drift / geometry: an operator decision
+            except Exception as exc:
+                log.warning("snapshot %s unreadable for unit %d (%s); "
+                            "falling back", entry["id"], unit, exc)
+                continue
+            report.snapshot_id = entry["id"]
+            report.wal_seq = int(entry["wal_seq"])
+            break
+    if composite:
+        from ratelimiter_tpu_torch.observability.decorators import undecorated
+
+        comp = undecorated(limiters[0])
+        target = comp.sub_limiters()[unit]
+
+        def owns(key: str) -> bool:
+            return comp.owner_of_key(key) == unit
+    else:
+        target = limiters[unit]
+
+        def owns(key: str) -> bool:
+            return (shard_of is None
+                    or shard_of(key) % len(limiters) == unit)
+    for rec in walmod.replay(dir_, after_seq=report.wal_seq):
+        p = rec.payload
+        try:
+            if rec.type == walmod.REC_POLICY_SET:
+                target.set_override(
+                    p["key"], int(p["limit"]),
+                    window_scale=float(p.get("window_scale", 1.0)))
+            elif rec.type == walmod.REC_POLICY_DEL:
+                target.delete_override(p["key"])
+            elif rec.type == walmod.REC_RESET:
+                if owns(p["key"]):
+                    target.reset(p["key"])
+            elif rec.type == walmod.REC_UPDATE_LIMIT:
+                target.update_limit(int(p["limit"]))
+            elif rec.type == walmod.REC_UPDATE_WINDOW:
+                target.update_window(float(p["window"]))
+            else:
+                raise CheckpointError(f"unknown WAL record type {rec.type}")
+            report.replayed += 1
+        except Exception as exc:
+            msg = (f"seq {rec.seq} "
+                   f"({walmod.REC_NAMES.get(rec.type, '?')}): {exc}")
+            report.apply_errors.append(msg)
+            log.warning("unit %d WAL replay apply failed: %s", unit, msg)
+    log.info("unit %d recovery: %s", unit, report.summary())
+    return report
 
 
 def recover(limiters: List, dir_: str, *,

@@ -28,8 +28,11 @@ leases/manager.py) is captured under the snapshot lock after the shards
 and written as ``side-<id>-<name>.npz`` (its arrays, and its meta as a
 ``__meta__`` byte array), named in the manifest entry's ``sidecars``.
 
-Left out: the chaos hook before capture (ROADMAP A13d, part two), and
-the auxiliary units that serve the fleet's adopted ranges (A8, A13d).
+A sliced mesh (``--backend mesh``) snapshots as one unit on the asyncio
+door (its combined ``slice<i>:`` arrays) and as one file per slice on
+the native door. Left out: the chaos hook before capture and the
+auxiliary units that serve the fleet's adopted ranges (ROADMAP A13d,
+part two).
 """
 
 from __future__ import annotations

@@ -57,8 +57,9 @@ its decisions go through the door's micro-batcher
 and windows. ``/healthz`` carries the JAX binary's blocks (the sketch's
 envelope or debt slab, the side table's consumers, the audit and SLO
 blocks, the hierarchy, the leases, the journal, the persistence status;
-the fleet, placement and quarantine, which the port does not have, give
-the JAX binary's ``{}`` for "off"); ``/v1/reset``, ``/v1/policy``,
+the mesh's quarantine block under ``--quarantine``; the fleet and
+placement, which the port does not have, give the JAX binary's ``{}``
+for "off"); ``/v1/reset``, ``/v1/policy``,
 ``/v1/tenants``, ``/v1/snapshot`` and the ``/debug`` routes are gated by
 the JAX binary's ``--http-*``, ``--debug-*`` and ``--audit-token``
 flags. ``--audit`` turns on the live accuracy observatory
@@ -95,6 +96,22 @@ HTTP and gRPC policy and reset levers revoke the key's leases, an AIMD
 tighten revokes all of them, and with ``--snapshot-dir`` the grant table
 rides every snapshot. The JAX binary's flags, defaults and refusals,
 without the fleet's lease gossip (ROADMAP A13d).
+
+``--backend mesh`` serves the sliced mesh (parallel/): one slice per
+card (``--mesh-devices N`` of them, default every visible card; N
+slices on the CPU under ``--device cpu``), keys hash-routed to their
+owning slice. ``--router host`` (the default) partitions frames on the
+host; under ``--native`` the slices are the door's dispatch shards,
+each under its own decorator stack. ``--router collective`` (with
+``--bin-headroom``) makes every frame one routed dispatch
+(``route_bins`` on the card, an all-to-all of rows) behind either door,
+which then serves the composite limiter, as the asyncio door always
+does. ``--quarantine`` (``--slice-deadline-ms``, ``--probe-interval``,
+``--quarantine-threshold``) guards each slice: a failing slice's range
+answers per ``--fail-open`` while the others serve exactly, and with
+``--snapshot-dir`` a recovering slice restores from the snapshot and
+the WAL before it rejoins. The JAX binary's flags, defaults and
+refusals; its ``--dcn-*`` flags wait for ROADMAP A8b.
 """
 
 from __future__ import annotations
@@ -111,6 +128,7 @@ from ratelimiter_tpu_torch import (
     Config,
     DenseParams,
     HierarchySpec,
+    MeshSpec,
     PersistenceSpec,
     SketchParams,
     create_limiter,
@@ -156,11 +174,48 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--algorithm", default="tpu_sketch",
                     choices=_ALGORITHMS)
     ap.add_argument("--backend", default="sketch",
-                    choices=["exact", "dense", "sketch"],
+                    choices=["exact", "dense", "sketch", "mesh"],
                     help="state backend: sketch (count-min sketch on the "
                          "card), dense (exact slot-addressed state on the "
-                         "card) or exact (host dicts, the oracle). The "
-                         "JAX binary's 'mesh' is not ported (ROADMAP A8)")
+                         "card), exact (host dicts, the oracle) or mesh "
+                         "(slice-parallel serving: one sketch slice per "
+                         "card, keys hash-routed to their owning slice)")
+    ap.add_argument("--mesh-devices", type=int, default=None,
+                    help="--backend mesh: devices to span (default: every "
+                         "visible card; with --device cpu, that many "
+                         "slices on the CPU)")
+    ap.add_argument("--router", default="host",
+                    choices=["host", "collective"],
+                    help="--backend mesh: how a mixed frame reaches its "
+                         "owning slices. 'host' argsorts and fans out "
+                         "per-slice sub-launches on the host; "
+                         "'collective' makes the whole frame ONE routed "
+                         "dispatch — owners and bins computed on the "
+                         "card, rows moved by an all-to-all. "
+                         "Incompatible with --quarantine")
+    ap.add_argument("--bin-headroom", type=float, default=2.0,
+                    help="--router collective: per-(source,destination) "
+                         "bin capacity multiplier over the L/n mean; a "
+                         "frame overflowing a bin falls back to the host "
+                         "router (never silently dropped)")
+    ap.add_argument("--quarantine", action="store_true",
+                    help="--backend mesh: per-slice failure domains — "
+                         "slice dispatches get a deadline + failure "
+                         "classifier; a failing slice's key range "
+                         "degrades per --fail-open while every other "
+                         "slice keeps serving exactly, with half-open "
+                         "probe recovery and (with --snapshot-dir) "
+                         "restore-before-rejoin")
+    ap.add_argument("--slice-deadline-ms", type=float, default=250.0,
+                    help="per-slice sub-dispatch deadline (quarantine "
+                         "mode): a slice not resolving within this "
+                         "budget is classified failed")
+    ap.add_argument("--probe-interval", type=float, default=1.0,
+                    help="seconds between half-open probes of a "
+                         "quarantined slice")
+    ap.add_argument("--quarantine-threshold", type=int, default=1,
+                    help="consecutive classified failures before a "
+                         "slice quarantines")
     ap.add_argument("--dense-capacity", type=int, default=1 << 16,
                     help="--backend dense: slots, i.e. the most distinct "
                          "live keys (idle keys are pruned after 2 "
@@ -456,10 +511,17 @@ def build_config(args: argparse.Namespace) -> Config:
         hierarchy=HierarchySpec(
             tenants=args.tenants, map_capacity=args.tenant_map,
             global_limit=args.global_limit,
-            default_tenant_limit=args.default_tenant_limit))
-    if cfg.hierarchy.enabled and args.backend != "sketch":
+            default_tenant_limit=args.default_tenant_limit),
+        mesh=MeshSpec(devices=args.mesh_devices,
+                      router=args.router,
+                      bin_headroom=args.bin_headroom,
+                      quarantine=args.quarantine,
+                      slice_deadline=args.slice_deadline_ms * 1e-3,
+                      probe_interval=args.probe_interval,
+                      failure_threshold=args.quarantine_threshold))
+    if cfg.hierarchy.enabled and args.backend not in ("sketch", "mesh"):
         raise SystemExit("--tenants needs a sketch-family backend "
-                         "(--backend sketch)")
+                         "(--backend sketch or --backend mesh)")
     if args.backend == "dense" and args.max_batch > ADMIT_CAPACITY:
         raise SystemExit(f"--max-batch {args.max_batch} with --backend "
                          f"dense: the card decides at most "
@@ -468,7 +530,25 @@ def build_config(args: argparse.Namespace) -> Config:
         raise SystemExit("--controller needs --tenants > 0")
     if (args.tenant or args.assign) and not cfg.hierarchy.enabled:
         raise SystemExit("--tenant/--assign need --tenants > 0")
-    if args.audit and args.backend != "sketch":
+    if args.mesh_devices is not None and args.backend != "mesh":
+        raise SystemExit("--mesh-devices needs --backend mesh")
+    if args.quarantine and args.backend != "mesh":
+        raise SystemExit("--quarantine needs --backend mesh (failure "
+                         "domains are per device slice)")
+    if args.router != "host" and args.backend != "mesh":
+        raise SystemExit("--router needs --backend mesh (it selects how "
+                         "mixed frames reach the device slices)")
+    if args.router == "collective" and args.quarantine:
+        raise SystemExit(
+            "--router collective is incompatible with --quarantine: a "
+            "collective dispatch is ONE mesh-wide shard_map execution, "
+            "so a single slice's fault has whole-mesh blast radius and "
+            "per-slice failure domains cannot contain it (ADR-024). "
+            "Use --router host for quarantined deployments.")
+    if args.backend == "mesh" and args.shards > 1:
+        raise SystemExit("--backend mesh routes one dispatch shard per "
+                         "device; use --mesh-devices, not --shards")
+    if args.audit and args.backend not in ("sketch", "mesh"):
         raise SystemExit("--audit needs a sketch-family backend "
                          "(exact/dense decisions are already exact — "
                          "there is nothing to audit)")
@@ -659,6 +739,12 @@ def _events_health() -> dict:
 
     j = events.JOURNAL
     return {"events": j.status()} if j is not None else {}
+
+
+def _quarantine_health(qmgr) -> dict:
+    """The mesh's quarantine block (``--quarantine``), as the JAX binary
+    gives it; nothing when the subsystem is off."""
+    return {"quarantine": qmgr.status()} if qmgr is not None else {}
 
 
 def _hierarchy_health(hier, controller) -> dict:
@@ -861,19 +947,23 @@ def make_grpc(args: argparse.Namespace, limiter, *, decide, decide_many,
         tenants=hier)
 
 
-def setup_audit(args: argparse.Namespace, cfg: Config, limiter):
+def setup_audit(args: argparse.Namespace, cfg: Config, limiter,
+                n_slices=None):
     """``--audit``: the process-wide shadow auditor (its twin, under
     ``--audit-twin``, on the serving limiter's device) following the
     served limiter's live limit and window, and the SLO burn tracker,
-    both exporting their gauges on the default registry. Returns
-    ``(auditor, slo_tracker)``, (None, None) without ``--audit``."""
+    both exporting their gauges on the default registry; ``n_slices``
+    (default the limiter's dispatch units) attributes decisions to mesh
+    slices. Returns ``(auditor, slo_tracker)``, (None, None) without
+    ``--audit``."""
     if not args.audit:
         return None, None
     from ratelimiter_tpu_torch.observability import audit, metrics
     from ratelimiter_tpu_torch.observability.slo import SloBurnTracker
 
     auditor = audit.enable(cfg, sample=args.audit_sample,
-                           n_slices=len(_units([limiter])),
+                           n_slices=(n_slices if n_slices is not None
+                                     else len(_units([limiter]))),
                            include_twin=args.audit_twin,
                            registry=metrics.DEFAULT,
                            live_config=lambda: limiter.config,
@@ -898,7 +988,7 @@ def make_audit_status(auditor, slo_tracker, limiters):
 def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
                  levers, member_info, persist=None, hier=None,
                  controller=None, auditor=None, slo_tracker=None,
-                 lease_mgr=None):
+                 lease_mgr=None, qmgr=None):
     """The HTTP gateway as the JAX binary's asyncio door builds it: its
     decisions through ``decide`` (the door's batcher bridge), the
     lease-guarded ``levers`` (reset, policy set, policy delete), /healthz
@@ -921,6 +1011,7 @@ def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
                 **_hierarchy_health(hier, controller),
                 **_lease_health(lease_mgr),
                 **_events_health(),
+                **_quarantine_health(qmgr),
                 **(persist.status() if persist is not None else {})}
 
     reset, policy_set, policy_delete = levers
@@ -995,11 +1086,12 @@ def enable_observability(args: argparse.Namespace, registry=None) -> None:
                       spill_dir=args.event_journal_dir)
 
 
-def prewarm(limiter, *, door: bool = False) -> float:
+def prewarm(limiter, *, door: bool = False, routed: bool = False) -> float:
     """Build and load what the first frames would otherwise build: the
     C++ bulk hasher, with ``door`` the native door's extension, and on a
     CUDA device the backend's kernel libraries (one nvcc each, in
-    parallel). Touches no limiter state. Returns the seconds it took."""
+    parallel; with ``routed``, the collective router's ``route_bins``
+    too). Touches no limiter state. Returns the seconds it took."""
     from ratelimiter_tpu_torch import native
 
     t = time.perf_counter()
@@ -1019,10 +1111,38 @@ def prewarm(limiter, *, door: bool = False) -> float:
 
         mods = ([dense_cuda] if isinstance(limiter, DenseLimiter)
                 else [sketch_cuda, bucket_cuda])
+        if routed:
+            from ratelimiter_tpu_torch.ops import route_kernels
+
+            mods.append(route_kernels)
         _build.build_all([m._SOURCE for m in mods])
         for m in mods:
             m.build()
     return time.perf_counter() - t
+
+
+def build_mesh_shards(cfg: Config, device) -> tuple:
+    """The sliced mesh's slices for the native door (one dispatch shard
+    per slice), each in its ``SliceGuard`` under ``--quarantine`` (the
+    door's shard router is the slice router, so a guard around each
+    shard scopes faults to one key range). Returns ``(slices,
+    quarantine_manager or None)``."""
+    from ratelimiter_tpu_torch.parallel import build_slices
+
+    slices = build_slices(cfg, device=device)
+    if not cfg.mesh.quarantine:
+        return slices, None
+    from ratelimiter_tpu_torch.parallel.quarantine import (
+        QuarantineManager,
+        SliceGuard,
+    )
+
+    qmgr = QuarantineManager(
+        len(slices), clock=slices[0].clock,
+        probe_interval=cfg.mesh.probe_interval,
+        failure_threshold=cfg.mesh.failure_threshold)
+    return [SliceGuard(s, i, qmgr, deadline=cfg.mesh.slice_deadline)
+            for i, s in enumerate(slices)], qmgr
 
 
 def _signals(loop, stop):
@@ -1052,11 +1172,29 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
     # of every tenant and global limit (the clones inherit the divisor).
     divisor = (args.shards if cfg.hierarchy.enabled and args.native
                and args.shards > 1 and args.backend == "sketch" else 1)
-    limiter = (make_limiter(cfg) if make_limiter is not None
-               else create_limiter(cfg, backend=args.backend,
-                                   device=args.device,
-                                   hier_divisor=divisor))
-    built_s = prewarm(limiter, door=args.native)
+    # --backend mesh behind the native door with the host router mounts
+    # the slices as the door's dispatch shards (its shard router is the
+    # slice router); the asyncio door, and the collective router under
+    # either door, serve the composite limiter.
+    mesh_native = (args.backend == "mesh" and args.native
+                   and args.router != "collective")
+    slices = qmgr = None
+    if make_limiter is not None:
+        limiter = make_limiter(cfg)
+    elif mesh_native:
+        slices, qmgr = build_mesh_shards(cfg, args.device)
+        limiter = slices[0]
+    else:
+        limiter = create_limiter(cfg, backend=args.backend,
+                                 device=args.device, hier_divisor=divisor)
+    if args.backend == "mesh" and not mesh_native:
+        from ratelimiter_tpu_torch.observability.decorators import (
+            undecorated,
+        )
+
+        qmgr = getattr(undecorated(limiter), "quarantine", None)
+    built_s = prewarm(limiter, door=args.native,
+                      routed=args.router == "collective")
     persist = None
     if cfg.persistence.enabled:
         from ratelimiter_tpu_torch.persistence import PersistenceManager
@@ -1073,7 +1211,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
     limiter = decorate(limiter)
     if args.native:
         await serve_native(args, cfg, limiter, persist, decorate, built_s,
-                           ready=ready, stop=stop)
+                           ready=ready, stop=stop, slices=slices, qmgr=qmgr)
         return
     if persist is not None:
         # Attach, recover before the door listens, then start the
@@ -1084,6 +1222,10 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         print(f"recovered: {report.summary()} in "
               f"{time.perf_counter() - t:.3f} s", flush=True)
         persist.start()
+        if qmgr is not None:
+            # Restore-before-rejoin: a recovering slice replays the
+            # newest snapshot and the WAL suffix before it routes again.
+            qmgr.restore_fn = persist.slice_restorer()
     # The observatory goes in before the door listens, so the first
     # decision can already be mirrored.
     auditor, slo_tracker = setup_audit(args, cfg, limiter)
@@ -1124,7 +1266,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
                                member_info=member_info, persist=persist,
                                hier=hier, controller=controller,
                                auditor=auditor, slo_tracker=slo_tracker,
-                               lease_mgr=lease_mgr)
+                               lease_mgr=lease_mgr, qmgr=qmgr)
         gateway.start()
     grpc_srv = None
     if args.grpc_port is not None:
@@ -1155,7 +1297,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
-            lease_listener=None))
+            lease_listener=None, quarantine=qmgr))
     try:
         await stop.wait()
     finally:
@@ -1191,12 +1333,14 @@ def _stop_observability(auditor, slo_tracker, member_collect) -> None:
 
 async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                        persist, decorate, built_s: float, *, ready=None,
-                       stop=None) -> None:
+                       stop=None, slices=None, qmgr=None) -> None:
     """``--native``: the C++ door (serving/native_server.py) over
     ``limiter`` and, with ``--shards N``, N - 1 clones each under
     ``decorate(clone, i)`` (the decorator stack under shard ``i``'s
-    label, the persistence wrapper); the JAX binary's native branch
-    without the mesh, the fleet, DCN and quarantine. The persistence
+    label, the persistence wrapper), or with ``slices`` (``--backend
+    mesh``, host router) the mesh's slices as the shards, slice 0 being
+    ``limiter`` (``qmgr`` their quarantine manager); the JAX binary's
+    native branch without the fleet and DCN. The persistence
     manager attaches every shard with the door's router and recovers
     before the door listens; the HTTP gateway and gRPC decide through
     ``decide_one``/``decide_many`` (the shard router), and so do the
@@ -1208,7 +1352,9 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         NativeRateLimitServer,
     )
 
-    auditor, slo_tracker = setup_audit(args, cfg, limiter)
+    auditor, slo_tracker = setup_audit(
+        args, cfg, limiter,
+        n_slices=len(slices) if slices is not None else None)
     member_info, member_collect = make_member_info(args)
     server = NativeRateLimitServer(
         limiter, args.listen or args.host, args.port,
@@ -1219,7 +1365,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                           if args.dispatch_timeout_ms else None),
         inflight=args.inflight, shards=args.shards,
         net_engine=args.net_engine, io_rings=args.io_rings,
-        shard_decorate=lambda lim, i: decorate(lim, shard=i))
+        shard_decorate=lambda lim, i: decorate(lim, shard=i),
+        shard_limiters=([limiter] + [decorate(s, shard=i) for i, s in
+                                     enumerate(slices[1:], start=1)]
+                        if slices is not None else None))
     if persist is not None:
         # Recover BEFORE the listener opens: the restored snapshot and
         # the replayed mutations precede the first decision.
@@ -1229,6 +1378,8 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         print(f"recovered: {report.summary()} in "
               f"{time.perf_counter() - t:.3f} s", flush=True)
         persist.start()
+        if qmgr is not None:
+            qmgr.restore_fn = persist.slice_restorer()
     server.start()
     # The C++ door has no lease lane: grants, renewals and returns are
     # served by a sidecar listener, their debits through decide_one, the
@@ -1273,6 +1424,7 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                     **_hierarchy_health(hier, controller),
                     **_lease_health(lease_mgr),
                     **_events_health(),
+                    **_quarantine_health(qmgr),
                     **(persist.status() if persist is not None else {})}
 
         gateway = HttpGateway(
@@ -1318,7 +1470,8 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
           f"limit={limiter.config.limit}/{limiter.config.window:g}s "
           f"on {args.listen or f'{args.host}:{server.port}'} "
           f"device={getattr(limiter, 'device', 'host')} "
-          f"shards={args.shards} net={net.get('engine', '?')}"
+          f"shards={len(server.shard_limiters)} "
+          f"net={net.get('engine', '?')}"
           f"x{net.get('rings', '?')}(probe={net.get('uring_probe', '?')}) "
           f"max_batch={args.max_batch} max_delay={args.max_delay_us:g}us "
           f"inflight={args.inflight} (built in {built_s:.1f} s)"
@@ -1334,7 +1487,7 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
-            lease_listener=lease_listener))
+            lease_listener=lease_listener, quarantine=qmgr))
     try:
         await stop.wait()
     finally:

@@ -36,8 +36,14 @@ the port does not have): a lease over a key changed there is bounded by
 the lease TTL, and the binary wraps the HTTP and gRPC levers so that
 those revoke.
 
-Left out against the JAX bridge: the fleet, DCN, mesh slices and
-quarantine (ROADMAP A8, A13d).
+Mesh slices: the binary's ``--backend mesh --native`` (host router)
+passes the sliced mesh's slices as ``shard_limiters``, one dispatch
+shard per slice (each under its own decorator stack and, with
+``--quarantine``, its ``SliceGuard``): the door's shard router is then
+the slice router. The port's server.cpp keeps no per-shard quarantine
+state (the JAX door's ``set_shard_health``); the quarantine manager's
+status is on /healthz. Left out against the JAX bridge: the fleet and
+DCN (ROADMAP A13d, A8b).
 """
 
 from __future__ import annotations

@@ -53,8 +53,9 @@ set/delete and a RESET revoke the key's leases, revocations are pushed
 as rid-0 LEASE_REVOKE frames down the granting connection (TCP, the
 unix socket or the reply ring), and shutdown pushes a revoke-all while
 the connections are still open. Without ``leases`` the lease frames
-are answered E_INVALID_CONFIG. The fleet is not ported (ROADMAP A8,
-A13d); the native door is serving/native_server.py, and the HTTP
+are answered E_INVALID_CONFIG. ``--backend mesh`` serves the composite
+limiter (the sliced mesh with either router) through this door. The
+fleet is not ported (ROADMAP A13d, part two); the native door is serving/native_server.py, and the HTTP
 gateway and gRPC run beside either door in the binary
 (serving/http_gateway.py, serving/grpc_server.py, serving/__main__.py).
 """

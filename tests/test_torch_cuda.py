@@ -1668,3 +1668,60 @@ def test_lease_grant_on_card(dev):
                                                                1).allowed
     gpu.close()
     cpu.close()
+
+
+# ------------------------------------------------------- the sliced mesh
+
+
+@pytest.mark.parametrize("premix", [False, True])
+@pytest.mark.parametrize("L,n,headroom,valid", [(1024, 4, 2.0, 1024),
+                                                (1024, 4, 2.0, 300),
+                                                (64, 3, 0.001, 64),
+                                                (8, 1, 2.0, 5)])
+def test_route_bins_bit_equal_to_plain(dev, premix, L, n, headroom, valid):
+    from ratelimiter_tpu_torch.ops import route_kernels as rk
+
+    rng = np.random.default_rng(L + n)
+    h = torch.from_numpy(rng.integers(0, 1 << 64, L, dtype=np.uint64)
+                         .view(np.int64)).to(dev)
+    h[::5] = h[0]
+    ns = torch.from_numpy(rng.integers(1, 4, L).astype(np.int32)).to(dev)
+    C = rk.bin_capacity(L, n, headroom)
+    before = rk.route_bins.launches
+    got = rk.route_bins(h, ns, valid, n, C, premix)
+    want = rk.route_bins_plain(h, ns, valid, n, C, premix)
+    assert rk.route_bins.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("router", ["host", "collective"])
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_sliced_mesh_on_card_equals_cpu(dev, router, algo):
+    """Four slices on the one card against four on the CPU, both
+    routers: every decision and every slice's counters."""
+    from ratelimiter_tpu_torch import MeshSpec
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch import create_limiter
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=10, window=6.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=6),
+                 mesh=MeshSpec(router=router))
+    card = create_limiter(cfg, backend="mesh", clock=ManualClock(1e9),
+                          devices=["cuda:0"] * 4)
+    cpu = create_limiter(cfg, backend="mesh", clock=ManualClock(1e9),
+                         devices=["cpu"] * 4)
+    assert isinstance(card, SlicedMeshLimiter)
+    rng = np.random.default_rng(3)
+    for i in range(6):
+        ids = rng.integers(0, 300, 512).astype(np.uint64)
+        a = card.allow_ids(ids, now=1e9 + i * 0.4)
+        b = cpu.allow_ids(ids, now=1e9 + i * 0.4)
+        for f in ("allowed", "remaining", "retry_after", "reset_at"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+    for s, t in zip(card.slices, cpu.slices):
+        x, y = s.capture_state()[1], t.capture_state()[1]
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    card.close()
+    cpu.close()

@@ -412,17 +412,22 @@ def test_fingerprint_reads_the_dense_spec():
 
 
 def test_factory_backends():
-    """exact and dense are served; mesh is refused naming A8; the default
-    stays the sketch on the card."""
+    """exact and dense are served, and so is mesh (the sliced mesh,
+    tests/test_torch_mesh.py); the default stays the sketch on the
+    card."""
     cfg = _cfg(T, "SLIDING_WINDOW")
-    assert T.algorithms.factory.BACKENDS == ("exact", "dense", "sketch")
+    assert T.algorithms.factory.BACKENDS == ("exact", "dense", "sketch",
+                                             "mesh")
     assert isinstance(T.create_limiter(cfg, "dense", device="cpu"),
                       DenseLimiter)
     from ratelimiter_tpu_torch.algorithms.exact import ExactLimiter
 
     assert isinstance(T.create_limiter(cfg, "exact"), ExactLimiter)
-    with pytest.raises(T.InvalidConfigError, match="A8"):
-        T.create_limiter(cfg, "mesh")
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+
+    mesh = T.create_limiter(cfg, "mesh", device="cpu")
+    assert type(mesh) is SlicedMeshLimiter and mesh.n_slices == 1
+    mesh.close()
     import inspect
 
     sig = inspect.signature(T.create_limiter)

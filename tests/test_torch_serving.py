@@ -514,7 +514,10 @@ for name in ("checkpoint", "observability.decorators",
              "observability.audit", "observability.slo",
              "serving.http_gateway", "serving.grpc_server",
              "serving.grpc_pb", "leases", "leases.manager",
-             "leases.listener", "leases.cache", "leases.driver"):
+             "leases.listener", "leases.cache", "leases.driver",
+             "parallel", "parallel.mesh", "parallel.limiter",
+             "parallel.mesh_kernels", "parallel.collective",
+             "parallel.quarantine", "ops.route_kernels"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 # The gRPC message classes build from the committed descriptor alone.
@@ -534,6 +537,7 @@ print(len(names), bad)
     assert int(count) >= 40
     assert bad.strip() == "[]"
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
+    assert "ratelimiter_tpu_torch.parallel.collective" in out.stderr
 
 
 @pytest.mark.parametrize("argv", [["--controller"], ["--tenant", "a=5"],
