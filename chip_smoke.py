@@ -8,6 +8,8 @@
     python3 chip_smoke.py --gateway  # the HTTP gateway, the auditor and its twin
     python3 chip_smoke.py --native   # the C++ door, its lanes, the load generator
     python3 chip_smoke.py --grpc     # gRPC and quota leases behind both doors
+    python3 chip_smoke.py --mesh     # the sliced mesh at full length
+    python3 chip_smoke.py --dcn      # the DCN tier and resharding
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -182,10 +184,11 @@ Phases (each raises on failure; the script exits non-zero):
    it alone, ~2-3 min after the build): (a) the three doors above
    (windowed CU, CU with the side table, TB-c2) again under the binary's
    full stack (``--trace --circuit-breaker --log-decisions
-   --log-redact-keys --flight-recorder``), each held as above, with every
-   frame stage's ``rate_limiter_stage_seconds`` count non-zero; (b) 32
-   traced ALLOW_HASHED and 8 traced ALLOW_N frames in-process, one at a
-   time: each trace id's spans form the span tree (io, coalesce, queue,
+   --log-redact-keys --flight-recorder``; 24 frames a connection in the
+   whole run, 48 alone), each held as above, with every frame stage's
+   ``rate_limiter_stage_seconds`` count non-zero; (b) 32 traced
+   ALLOW_HASHED and 8 traced ALLOW_N frames in-process, one at a time:
+   each trace id's spans form the span tree (io, coalesce, queue,
    launch, device, resolve, encode, in that order) and ``chrome_trace()``
    parses; (c) 16 frames with an expired deadline, fail-open and
    fail-closed, shed with no launch and counted by
@@ -212,7 +215,7 @@ Phases (each raises on failure; the script exits non-zero):
    with ``--http-port``, every lever and its token, ``--flight-recorder``
    and ``--audit --audit-sample 1 --audit-twin`` over a recording proxy,
    on config 3 with ``--hh-slots 256`` and on TB-c2 (``check_gateway``):
-   (a) 8 connections x 24 binary frames in the whole run (x 48,
+   (a) 8 connections x 12 binary frames in the whole run (x 48,
    phase 4's traffic, under ``--gateway``) and 8 HTTP
    client threads x 40 /v1/allow requests (``gateway_client``, a child
    process: each thread its own keys, some in X-User-ID, with a
@@ -296,6 +299,33 @@ Phases (each raises on failure; the script exits non-zero):
    Allow requests/s and p50/p99 at 8 threads, AllowBatch(512)
    decisions/s, and one client on Zipf keys with and without leases
    (decisions/s, the share answered locally), printed, not gated;
+   mesh. the sliced mesh (``run_mesh``; ``--mesh`` runs it at full
+   length): the host and collective routers at 1, 2 and 4 slices on the
+   card against CPU replays, the replicated tier, quarantine and slice
+   recovery, the ``--backend mesh`` binary, and ``route_bins`` held to
+   its plain version;
+   dcn. the DCN tier and resharding (``run_dcn``; ``--dcn`` runs it
+   alone with more rounds of readings): (a) a ``DcnMirrorGroup`` of two
+   config-3 pods with ``--hh-slots 256`` on the card, 60 steps of 4096
+   Zipf ids on the pods in turn before the first sync (a full ring
+   behind it) and a sync after each of 6 more, and one of two TB-c2
+   pods, each beside twins on the CPU: every decision, every sync's
+   count and every pod's whole state equal; each sync's export and
+   merge lock holds on the card; the step kernels' launches counted
+   from 0; (b) two binaries on config 3 with the side table, the
+   asyncio door and the native door, peered with ``--dcn-peer`` and
+   ``--dcn-secret``: keys spent on A denied on B and keys spent on B
+   denied on A, as in a CPU replay, each probed at most a quarter of the
+   limit times (a probe spends the prober's own quota), both binaries'
+   pushes recorded, a signed frame taken once and its replay refused, an
+   unsigned push refused; the binaries' push round trips and a card
+   pod's pusher's frame bytes and cycle times; (c) the mesh binary (its ``serve`` with
+   4 slices on the card) with ``--snapshot-dir``, killed after a
+   SNAPSHOT and restarted at 2 slices: the re-bucketing recovery's
+   answers equal a CPU mesh restored from the same file; (d) readings:
+   restore seconds at config 3, 4 -> 2 and 2 -> 3 slices, and the
+   native door's hashed decisions/s under the load generator without
+   and with a 1 s pusher;
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -377,6 +407,10 @@ before the card's line.
 ``--grpc`` builds (the kernels, the native door and the load
 generator), then runs phase grpc alone at full length and prints its
 results as one JSON line before the card's line.
+
+``--mesh`` and ``--dcn`` build, then run phase mesh (with
+``route_bins``'s row) and phase dcn alone and print their results as
+one JSON line before the card's line.
 
 ``--observe`` builds, then runs phase observe alone and prints its
 results as one JSON line before the card's line.
@@ -4244,12 +4278,18 @@ class ServerProcess:
     output is read by a thread, its port taken from the ``serving`` line
     and the recovery from the ``recovered`` line."""
 
-    def __init__(self, args: list, timeout: float = 300.0):
+    def __init__(self, args: list, timeout: float = 300.0,
+                 slices_on_card=0):
         repo, env = child_env()
+        # With ``slices_on_card`` the binary's serve() runs with the
+        # sliced mesh's slices all on cuda:0 (``mesh_server``).
+        cmd = ([sys.executable, "-c",
+                "import chip_smoke; chip_smoke.mesh_server()",
+                str(slices_on_card)] if slices_on_card else
+               [sys.executable, "-m", "ratelimiter_tpu_torch.serving"])
         # A session of its own, so that kill() reaches anything it starts.
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "ratelimiter_tpu_torch.serving",
-             "--port", "0", *args], cwd=repo, env=env,
+            cmd + ["--port", "0", *args], cwd=repo, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             start_new_session=True)
         self.lines: "queue.Queue" = queue.Queue()
@@ -6574,9 +6614,11 @@ def observe_readings(seed: int = 0, rounds: int = 3) -> dict:
     return out
 
 
-def check_observe_doors(torch, seed: int = 0, reuse=None) -> dict:
+def check_observe_doors(torch, seed: int = 0, reuse=None,
+                        frames: int = DOOR_FRAMES) -> dict:
     """(a) ``check_door`` on config 3 windowed CU, CU with the side table
-    and TB-c2 under the binary's default stack and its full stack:
+    and TB-c2 under the binary's default stack and its full stack
+    (``frames`` frames a connection):
     replies bit-equal to the replay, every kernel of the path launched,
     every window through the front kernel, no composed back, and what the
     stack counts on METRICS (``hold_door_metrics``, the consumer
@@ -6604,18 +6646,20 @@ def check_observe_doors(torch, seed: int = 0, reuse=None) -> dict:
                 torch, cfg, f"{label} {stack} stack", seed=sd,
                 space=space, counters=[mod], required=required,
                 same=("admit", required[2]), front=front,
-                front_per_reset=per_reset, flags=flags)
+                front_per_reset=per_reset, flags=flags, frames=frames)
     return out
 
 
 def run_observe(torch, seed: int = 0, reuse=None,
-                rounds: int = 3) -> dict:
+                rounds: int = 3, frames: int = DOOR_FRAMES) -> dict:
     """Phase observe: (a)-(g) on the card, (g) over ``rounds`` rounds
-    (one in the whole run, three under ``--observe``)."""
+    (one in the whole run, three under ``--observe``), (a)'s full-stack
+    doors ``frames`` frames a connection (24 in the whole run, 48 under
+    ``--observe``)."""
     from ratelimiter_tpu_torch.ops import sketch_cuda
 
     t = time.perf_counter()
-    out = {"doors": check_observe_doors(torch, seed, reuse)}
+    out = {"doors": check_observe_doors(torch, seed, reuse, frames)}
     out["traced"] = check_traced_frames(config3(), seed=seed)
     out["deadlines"] = check_deadlines(config3(), counters=[sketch_cuda],
                                        seed=seed)
@@ -7674,7 +7718,7 @@ def check_binary_profile(device: str = "cuda") -> dict:
 
 def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
     """Phase gateway: (a)-(e) on windowed CU with the side table (config
-    3, ``--hh-slots 256``) and on TB-c2 (8 x 24 binary frames a cell in
+    3, ``--hh-slots 256``) and on TB-c2 (8 x 12 binary frames a cell in
     the whole run, 8 x 48 under ``--gateway``), (c), (d) and (f) on the
     tenant and durable binaries, (e) on the binary as a child process,
     then the readings: the door's, one round, in the whole run; ``alone``
@@ -7683,9 +7727,9 @@ def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
     from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
 
     t = time.perf_counter()
-    # The whole run checks 8 x 24 frames a cell (its time limit is
+    # The whole run checks 8 x 12 frames a cell (its time limit is
     # shared with every later phase), ``--gateway`` 8 x 48.
-    frames = DOOR_FRAMES if alone else DOOR_FRAMES // 2
+    frames = DOOR_FRAMES if alone else DOOR_FRAMES // 4
     out = {"windowed": check_gateway(
         torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
         seed=seed + 89, frames=frames, counters=[sketch_cuda],
@@ -8214,12 +8258,13 @@ LOADGEN_DOORS = (("native", 1, ("tcp", "shm")),
 LOADGEN_SECONDS = 0.5
 
 
-def _loadgen(exe: str, port: int, mode: str, transport: str) -> dict:
+def _loadgen(exe: str, port: int, mode: str, transport: str,
+             seconds: float = LOADGEN_SECONDS) -> dict:
     """One run of the C++ load generator (8 threads, 8 frames in flight
     each, 512 ids or 64 keys a frame over 1M keys; 1 s warm-up)."""
     keys = 512 if mode == "hashed" else 64
     proc = subprocess.run(
-        [exe, "127.0.0.1", str(port), str(LOADGEN_SECONDS), "8", "8",
+        [exe, "127.0.0.1", str(port), str(seconds), "8", "8",
          str(keys), str(N_KEYS), mode, "--transport", transport],
         capture_output=True, text=True, timeout=60)
     if proc.returncode != 0:
@@ -9865,6 +9910,619 @@ def run_mesh(torch, seed: int = 0, device: str = "cuda:0",
             "out": out}
 
 
+# ------------------------------------------------------------- phase dcn
+#
+# The DCN tier and resharding (parallel/dcn.py, parallel/reshard.py,
+# serving/dcn_peer.py): (a) two pods on the card synced by a mirror group,
+# each sync and decision held to the CPU; (b) two binaries, the asyncio
+# door and the native door, peered with a secret; (c) the mesh binary
+# killed at 4 slices and restarted at 2; (d) the readings.
+
+#: (a): the steps before the first sync (a full ring behind it: the
+#: first export ships up to 59 slabs) and the steady cycles after it.
+DCN_WARM, DCN_STEADY = 60, 6
+#: (d): seconds of each load-generator run, and its rounds.
+DCN_LOADGEN_S = 3.0
+#: (b)'s binaries (config 3 with the side table; A is the asyncio door,
+#: B the native door).
+DCN_BINARY = ("--algorithm", "sliding_window", "--limit", str(LIMIT),
+              "--window", str(int(WINDOW_S)), "--sketch-depth", str(DEPTH),
+              "--sketch-width", str(WIDTH), "--sub-windows",
+              str(SUB_WINDOWS), "--hh-slots", "256", "--dcn-interval", "1",
+              "--flight-recorder")
+DCN_SECRET = "chip-smoke-dcn"
+#: (b): a binary is probed for the other's spend every DCN_PROBE_S s.
+DCN_PROBE_S = 0.4
+
+
+class _TimedLock:
+    """A limiter lock that records how long each hold lasted (ms)."""
+
+    def __init__(self, lock):
+        self._lock = lock
+        self.holds: list = []
+
+    def __enter__(self):
+        self._lock.acquire()
+        self._t = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.holds.append((time.perf_counter() - self._t) * 1e3)
+        self._lock.release()
+
+    def acquire(self, *a, **kw):
+        got = self._lock.acquire(*a, **kw)
+        self._t = time.perf_counter()
+        return got
+
+    def release(self):
+        self.holds.append((time.perf_counter() - self._t) * 1e3)
+        self._lock.release()
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def check_dcn_group(torch, label: str, cfg, seed: int, start: float,
+                    warm: int, steady: int, advance: float,
+                    device: str = "cuda") -> dict:
+    """(a) Two pods of ``cfg`` on the card and their twins on the CPU,
+    the same traffic (4096 Zipf ids a step, config 2's uniform keys for
+    the bucket) on the pods in turn, clocks moved ``advance`` s a step;
+    a DcnMirrorGroup sync after ``warm`` steps and then after each of
+    ``steady`` more: every decision, every sync's count and every pod's
+    state (all its arrays) equal to the CPU's. The card pods' locks are
+    timed through each sync: per pod one export hold and one merge
+    hold. The launch counts are set to 0 just before the drive and read
+    just after."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.parallel.dcn import DcnMirrorGroup
+
+    gpu = [create_limiter(cfg, clock=ManualClock(start), device=device)
+           for _ in range(2)]
+    sync = (torch.cuda.synchronize if device != "cpu" else (lambda: None))
+    cpu = [create_limiter(cfg, clock=ManualClock(start), device="cpu")
+           for _ in range(2)]
+    groups = DcnMirrorGroup(gpu), DcnMirrorGroup(cpu)
+    locks = []
+    for pod in gpu:
+        pod._lock = _TimedLock(pod._lock)
+        locks.append(pod._lock)
+    bucket = cfg.algorithm.value == "token_bucket"
+    rng = np.random.default_rng(seed)
+    mod, _names = _mesh_counters(cfg)
+    syncs = []
+    t = time.perf_counter()
+    mod.reset_launch_counts()
+    for step in range(warm + steady):
+        ids = (rng.integers(0, C2_KEYS, BATCH).astype(np.uint64) if bucket
+               else zipf_ids(rng, BATCH))
+        i = step % 2
+        _mesh_same(f"dcn {label} step {step}", gpu[i].allow_ids(ids),
+                   cpu[i].allow_ids(ids))
+        for pod in gpu + cpu:
+            pod.clock.advance(advance)
+        if step < warm - 1:
+            continue
+        for lk in locks:
+            lk.holds.clear()
+        sync()
+        t0 = time.perf_counter()
+        n_gpu = groups[0].sync()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        holds = [list(lk.holds) for lk in locks]
+        n_cpu = groups[1].sync()
+        if n_gpu != n_cpu or not n_gpu:
+            raise AssertionError(f"dcn {label}: sync applied {n_gpu} on "
+                                 f"the card, {n_cpu} on the CPU")
+        _mesh_states(f"dcn {label} sync {len(syncs)}", gpu, cpu)
+        # Per pod: its export's hold, then its merge's (none when the
+        # other pod exported nothing).
+        syncs.append({"applied": n_gpu, "wall_ms": wall,
+                      "export_hold_ms": [h[0] for h in holds],
+                      "merge_hold_ms": [h[1] for h in holds
+                                        if len(h) > 1]})
+    counts = mod.launch_counts()
+    for name in _names if device != "cpu" else ():
+        if not counts.get(name):
+            raise AssertionError(f"dcn {label}: no {name} launch: {counts}")
+    for pod in cpu:
+        pod.close()
+    first, rest = syncs[0], syncs[1:]
+    out = {"counts": counts, "syncs": syncs, "wall_s":
+           time.perf_counter() - t, "first": first,
+           "steady_export_hold_ms": [h for s in rest
+                                     for h in s["export_hold_ms"]],
+           "steady_merge_hold_ms": [h for s in rest
+                                    for h in s["merge_hold_ms"]],
+           "pods": gpu}
+    log(f"dcn (a) {label}: {warm + steady} steps, {len(syncs)} syncs equal "
+        f"to the CPU (applied {[s['applied'] for s in syncs]}); first sync "
+        f"export hold {first['export_hold_ms']} ms, merge hold "
+        f"{first['merge_hold_ms']} ms, wall {first['wall_ms']:.1f} ms; "
+        f"steady export hold median "
+        f"{statistics.median(out['steady_export_hold_ms']):.2f} ms, merge "
+        f"{statistics.median(out['steady_merge_hold_ms']):.2f} ms")
+    return out
+
+
+def _stage_dcn(text: str) -> tuple:
+    """(count, seconds) of the ``dcn`` spans on a METRICS text."""
+    got = {}
+    for line in text.splitlines():
+        if 'stage="dcn"' in line and line.startswith(
+                ("rate_limiter_stage_seconds_sum",
+                 "rate_limiter_stage_seconds_count")):
+            got[line.split("{")[0].rsplit("_", 1)[1]] = float(
+                line.split()[-1])
+    return int(got.get("count", 0)), got.get("sum", 0.0)
+
+
+def _probe_until_denied(sides, limit: int) -> list:
+    """Probe each key of every (client, keys, name) side once every
+    ``DCN_PROBE_S`` s until that side denies it; the denying answers,
+    side by side in key order. A probe the side allows spends one unit
+    of its own quota, so a key is probed at most a quarter of ``limit``
+    times: a denial shows the other binary's spend, never the
+    probes'."""
+    probes = limit // 4
+    got = [{} for _ in sides]
+    for _ in range(probes):
+        time.sleep(DCN_PROBE_S)
+        for (client, keys, _name), seen in zip(sides, got):
+            for k in keys:
+                if k not in seen:
+                    r = client.allow(k)
+                    if not r.allowed:
+                        seen[k] = r
+        if all(len(seen) == len(keys)
+               for (_c, keys, _n), seen in zip(sides, got)):
+            return [[seen[k] for k in keys]
+                    for (_c, keys, _n), seen in zip(sides, got)]
+    missed = {name: sorted(set(keys) - set(seen))
+              for (_c, keys, name), seen in zip(sides, got)}
+    raise AssertionError(f"dcn (b): the other binary's spend never reached "
+                         f"{missed} in {probes} probes a key")
+
+
+def check_dcn_binaries(pod, seed: int, device: str = "cuda",
+                       flags=DCN_BINARY) -> dict:
+    """(b) Two binaries peered with ``--dcn-peer`` and ``--dcn-secret``,
+    A the asyncio door, B the native door, both config 3 with the side
+    table on the card and the flight recorder on: four keys spent whole
+    on A are denied on B, and four spent whole on B denied on A, within a
+    few cycles (``_probe_until_denied``), each answer equal to a CPU
+    replay (two CPU limiters, the same spends, one mirror-group sync); a
+    fresh key stays allowed on both; each binary's pushers recorded
+    ``dcn`` spans (on METRICS); a signed frame of our own sender is
+    taken by B once and its replay refused, as is an unsigned push; both
+    exit 0 on SIGTERM. The readings: the binaries' own push round trips
+    (the ``dcn`` spans), and the frame bytes and cycle times of a pod's
+    pusher (``pod``, (a)'s with its full ring: the first cycle ships it
+    whole) pushing to B."""
+    from ratelimiter_tpu_torch import ManualClock, create_limiter
+    from ratelimiter_tpu_torch.parallel.dcn import DcnMirrorGroup
+    from ratelimiter_tpu_torch.serving import Client
+    from ratelimiter_tpu_torch.serving import protocol as p
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_config,
+        parse_args,
+    )
+    from ratelimiter_tpu_torch.serving.dcn_peer import DcnPusher, _PeerConn
+
+    pa, pb = _free_port(), _free_port()
+    base = list(flags) + ["--dcn-secret", DCN_SECRET, "--device",
+                          device.split(":")[0]]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fa = ex.submit(ServerProcess, base + [
+            "--port", str(pa), "--dcn-peer", f"127.0.0.1:{pb}"])
+        fb = ex.submit(ServerProcess, base + [
+            "--port", str(pb), "--native", "--dcn-peer",
+            f"127.0.0.1:{pa}"])
+        servers = []
+        for f in (fa, fb):
+            try:
+                servers.append(f.result())
+            except Exception:
+                for s in servers:
+                    s.kill()
+                raise
+    a, b = servers
+    out = {}
+    try:
+        cfg = build_config(parse_args(list(flags)))
+        spent = {name: [f"dcn:{name}{i}" for i in range(4)]
+                 for name in ("A", "B")}
+        rep = [create_limiter(cfg, clock=ManualClock(T0), device="cpu")
+               for _ in range(2)]
+        for r, name in zip(rep, ("A", "B")):
+            for k in spent[name]:
+                r.allow_n(k, cfg.limit)
+        for r in rep:
+            # The sub-window completes, and the ring rolls as a pusher
+            # rolls it before its export.
+            r.clock.advance(1.0)
+            with r._lock:
+                r._sync_period(int(r.clock.now() * 1e6))
+        DcnMirrorGroup(rep).sync()
+        want = [[rep[1].allow(k) for k in spent["A"]],
+                [rep[0].allow(k) for k in spent["B"]]]
+        for r in rep:
+            r.close()
+        ca, cb = Client(port=pa, timeout=60.0), Client(port=pb,
+                                                       timeout=60.0)
+        try:
+            t0 = time.perf_counter()
+            for c, name in ((ca, "A"), (cb, "B")):
+                for k in spent[name]:
+                    if not c.allow_n(k, cfg.limit).allowed:
+                        raise AssertionError(f"dcn (b): {name} refused {k}")
+            # The spends may straddle a sub-window boundary and so ship
+            # a cycle apart: each key's last answer is held to the
+            # replay.
+            got = _probe_until_denied([(cb, spent["A"], "B"),
+                                       (ca, spent["B"], "A")], cfg.limit)
+            out["converged_s"] = time.perf_counter() - t0
+            for name, keys, g_side, w_side in (("B", spent["A"], got[0],
+                                                want[0]),
+                                               ("A", spent["B"], got[1],
+                                                want[1])):
+                for k, g, w in zip(keys, g_side, w_side):
+                    if (g.allowed, g.remaining) != (w.allowed, w.remaining):
+                        raise AssertionError(
+                            f"dcn (b): {name} answers {k} ({g.allowed}, "
+                            f"{g.remaining}), the CPU replay ({w.allowed}, "
+                            f"{w.remaining})")
+            for c, name in ((ca, "A"), (cb, "B")):
+                if not c.allow("dcn:fresh").allowed:
+                    raise AssertionError(f"dcn (b): a fresh key denied on "
+                                         f"{name}")
+            d, w = cfg.sketch.depth, cfg.sketch.width
+            sub = int(cfg.window / cfg.sketch.sub_windows * 1e6)
+            frame = p.encode_dcn_slabs(
+                7, np.empty(0, np.int64), np.empty((0, d, w), np.int32), sub,
+                secret=DCN_SECRET, sender=0x5EED,
+                seq=int(time.time() * 1e6))
+            conn = _PeerConn("127.0.0.1", pb)
+            conn.push(frame, 7)
+            refused = []
+            for f, why in ((frame, "replayed"),
+                           (p.encode_dcn_slabs(8, np.empty(0, np.int64),
+                                               np.empty((0, d, w),
+                                                        np.int32), sub),
+                            "unauthenticated")):
+                try:
+                    conn.push(f, _rid(f))
+                    raise AssertionError(f"dcn (b): a {why} push was taken")
+                except AssertionError:
+                    raise
+                except Exception as exc:
+                    if why not in str(exc):
+                        raise AssertionError(f"dcn (b): {why}: {exc}")
+                    refused.append(why)
+            conn.close()
+            out["refused"] = refused
+            # A pusher records its span after the peer's answer, which
+            # may come a moment after that peer's first denial.
+            deadline = time.perf_counter() + 5.0
+            while True:
+                spans = {name: _stage_dcn(c.metrics())
+                         for name, c in (("A", ca), ("B", cb))}
+                if all(n for n, _s in spans.values()):
+                    break
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"dcn (b): a binary recorded no "
+                                         f"push: {spans}")
+                time.sleep(0.2)
+            out["binary_push_spans"] = {
+                k: {"pushes": n, "mean_ms": s / n * 1e3}
+                for k, (n, s) in spans.items()}
+        finally:
+            ca.close()
+            cb.close()
+        # A pod's pusher to B: frame bytes and cycle times.
+        pusher = DcnPusher(pod, [("127.0.0.1", pb)], secret=DCN_SECRET)
+        sent = []
+        push = pusher.peers[0].push
+
+        def counted(frame, rid):
+            sent.append(len(frame))
+            push(frame, rid)
+
+        pusher.peers[0].push = counted
+        cycles = []
+        for i in range(1 + DCN_STEADY):
+            if i:
+                pod.allow_ids(zipf_ids(np.random.default_rng(seed + i),
+                                       BATCH))
+                pod.clock.advance(1.0)
+            del sent[:]
+            t0 = time.perf_counter()
+            if pusher.sync_once() != 1:
+                raise AssertionError("dcn (b): the pod's push to B failed")
+            cycles.append({"ms": (time.perf_counter() - t0) * 1e3,
+                           "frames": len(sent), "bytes": sum(sent)})
+        pusher.stop()
+        out["pusher_cycles"] = cycles
+        for name, srv in (("A", a), ("B", b)):
+            if srv.terminate() != 0:
+                raise AssertionError(f"dcn (b): binary {name} exit code")
+    finally:
+        for srv in servers:
+            if srv.proc.poll() is None:
+                srv.kill()
+    first, rest = out["pusher_cycles"][0], out["pusher_cycles"][1:]
+    where = card_line() if device != "cpu" else "the CPU"
+    log(f"dcn (b) two binaries on {where}: both ways converged in "
+        f"{out['converged_s']:.2f} s, A's spend denied on B and B's on A "
+        f"as in the CPU replay, refused {out['refused']}; binaries' push "
+        f"round trips {out['binary_push_spans']}; a pod's pusher to B: "
+        f"first cycle {first['frames']} frames {first['bytes']} B in "
+        f"{first['ms']:.1f} ms, steady {[c['bytes'] for c in rest]} B in "
+        f"{[round(c['ms'], 2) for c in rest]} ms")
+    return out
+
+
+def _rid(frame: bytes) -> int:
+    """The request id of a frame."""
+    import struct
+
+    return struct.unpack_from("<IBQ", frame)[2]
+
+
+def mesh_server() -> None:
+    """The binary's ``serve`` with its arguments, its limiter the sliced
+    mesh with ``N`` slices on ``cuda:0`` (or ``N@device``) given as
+    ``sys.argv[1]`` (the binary itself puts one slice on each visible
+    card): a child process of (c)."""
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch.serving.__main__ import parse_args, serve
+
+    n, _, dev = sys.argv[1].partition("@")
+    args = parse_args(sys.argv[2:])
+    asyncio.run(serve(args, make_limiter=lambda cfg: SlicedMeshLimiter(
+        cfg, devices=[dev or "cuda:0"] * int(n))))
+
+
+#: (c)'s mesh binary: config 3's width under a fixed hour-long window (the
+#: decision time then moves only the retry, so a CPU replay answers the
+#: same), limit 5.
+DCN_MESH = ("--backend", "mesh", "--algorithm", "fixed_window", "--limit",
+            "5", "--window", "3600", "--sketch-depth", str(DEPTH),
+            "--sketch-width", str(WIDTH), "--sub-windows", "1",
+            "--snapshot-interval", "1000")
+
+
+def check_dcn_mesh_restart(seed: int, tmp: str, device: str = "cuda",
+                           flags=DCN_MESH) -> dict:
+    """(c) The mesh binary (``mesh_server``) at 4 slices on the card with
+    ``--snapshot-dir``: hashed and string traffic, SNAPSHOT, SIGKILL; the
+    same directory restarted at 2 slices: its recovery re-buckets the
+    4-slice snapshot, and every answer after it (allowed, remaining,
+    reset) equals a 2-slice CPU mesh restored from the same file (the
+    two meshes route alike, h64 % 2)."""
+    import glob
+    import os
+
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch.serving import Client
+
+    argv = list(flags) + ["--snapshot-dir", tmp, "--device",
+                          device.split(":")[0]]
+    on = "" if device.startswith("cuda") else "@" + device
+    rng = np.random.default_rng(seed)
+    out = {}
+    srv = ServerProcess(argv + ["--mesh-devices", "4"],
+                        slices_on_card=f"4{on}")
+    try:
+        c = Client(port=srv.port, timeout=60.0)
+        try:
+            for _ in range(4):
+                c.allow_hashed(rng.integers(0, 48, 64).astype(np.uint64))
+                for k in rng.integers(0, 20, 12):
+                    c.allow(f"mesh:{int(k)}")
+            c.snapshot()
+        finally:
+            c.close()
+    finally:
+        srv.kill()
+    snaps = glob.glob(os.path.join(tmp, "snap-*.npz"))
+    if len(snaps) != 1:
+        raise AssertionError(f"dcn (c): snapshots {snaps}")
+    srv = ServerProcess(argv + ["--mesh-devices", "2"],
+                        slices_on_card=f"2{on}")
+    try:
+        if not any("re-bucketing" in ln for ln in srv.output):
+            raise AssertionError("dcn (c): the restart did not re-bucket")
+        out["recovered"] = srv.recovered
+        out["recovery_s"] = srv.recovery_s()
+        from ratelimiter_tpu_torch.serving.__main__ import (
+            build_config,
+            parse_args,
+        )
+
+        cfg = build_config(parse_args(argv))
+        rep = SlicedMeshLimiter(cfg, devices=["cpu"] * 2)
+        rep.restore(snaps[0])
+        c = Client(port=srv.port, timeout=60.0)
+        try:
+            ids = np.arange(48, dtype=np.uint64)
+            got, want = c.allow_hashed(ids), rep.allow_ids(ids)
+            for f in ("allowed", "remaining", "reset_at"):
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"dcn (c): hashed {f} differs")
+            if got.allowed.all():
+                raise AssertionError("dcn (c): nothing spent before the "
+                                     "kill stands after the restart")
+            for k in (f"mesh:{i}" for i in range(20)):
+                g, w = c.allow(k), rep.allow(k)
+                if (g.allowed, g.remaining, g.reset_at) != (
+                        w.allowed, w.remaining, w.reset_at):
+                    raise AssertionError(f"dcn (c): key {k} differs")
+        finally:
+            c.close()
+            rep.close()
+        if srv.terminate() != 0:
+            raise AssertionError("dcn (c): the restarted binary's exit code")
+    finally:
+        if srv.proc.poll() is None:
+            srv.kill()
+    log(f"dcn (c) the mesh binary killed at 4 slices, restarted at 2: "
+        f"{out['recovered']}; 48 ids and 20 keys equal to the CPU replay "
+        f"of the re-bucketed snapshot")
+    return out
+
+
+def dcn_reshard_readings(torch, seed: int, rounds: int) -> list:
+    """(d) Restore seconds of a config-3 sliced mesh (the side table on)
+    on the card, 4 -> 2 and 2 -> 3 slices: a 4-slice mesh driven with a
+    few batches and saved, restored on 2 (its slices held equal to a CPU
+    restore of the file on the first round), that saved and restored on
+    3; the time of ``restore`` (read, re-bucket, copy to the card)."""
+    import os
+    import tempfile
+
+    from ratelimiter_tpu_torch import ManualClock
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+
+    cfg = config3_hh()
+    rows = []
+    rng = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = SlicedMeshLimiter(cfg, ManualClock(T0), devices=["cuda:0"] * 4)
+        for _ in range(6):
+            src.allow_ids(zipf_ids(rng, BATCH))
+            src.clock.advance(1.0)
+        p4 = os.path.join(tmp, "four.npz")
+        src.save(p4)
+        src.close()
+        for rnd in range(rounds):
+            row = {"round": rnd}
+            for name, path, m in (("4->2", p4, 2),
+                                  ("2->3", os.path.join(tmp, "two.npz"), 3)):
+                dst = SlicedMeshLimiter(cfg, ManualClock(T0 + 6),
+                                        devices=["cuda:0"] * m)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dst.restore(path)
+                torch.cuda.synchronize()
+                row[name] = time.perf_counter() - t0
+                if rnd == 0 and m == 2:
+                    rep = SlicedMeshLimiter(cfg, ManualClock(T0 + 6),
+                                            devices=["cpu"] * 2)
+                    rep.restore(path)
+                    _mesh_states("dcn (d) reshard 4->2", dst.sub_limiters(),
+                                 rep.sub_limiters())
+                    rep.close()
+                if m == 2:
+                    dst.save(os.path.join(tmp, "two.npz"))
+                dst.close()
+            rows.append(row)
+    log(f"dcn (d) reshard restore at config 3 on {card_line()}: "
+        + "; ".join(f"round {r['round']}: 4->2 {r['4->2']:.3f} s, 2->3 "
+                    f"{r['2->3']:.3f} s" for r in rows))
+    return rows
+
+
+def dcn_loadgen_readings(rounds: int) -> list:
+    """(d) Hashed decisions/s of the native door under the C++ load
+    generator (``DCN_LOADGEN_S`` s a run) over config 3 with the side
+    table on the card, without and with a DcnPusher on the served
+    limiter pushing to a peer door every second, in turns."""
+    from ratelimiter_tpu_torch import create_limiter, native
+    from ratelimiter_tpu_torch.serving.dcn_peer import DcnPusher
+    from ratelimiter_tpu_torch.serving.native_server import (
+        NativeRateLimitServer,
+    )
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    exe = native.build_loadgen()
+    cfg = config3_hh()
+    rows = []
+    lim, peer_lim = (create_limiter(cfg, device="cuda") for _ in range(2))
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    peer = RateLimitServer(peer_lim, "127.0.0.1", 0, dcn=True)
+    asyncio.run_coroutine_threadsafe(peer.start(), loop).result(60)
+    srv = NativeRateLimitServer(lim, "127.0.0.1", 0, dcn=True)
+    srv.start()
+    try:
+        for rnd in range(rounds):
+            for with_pusher in (False, True):
+                pusher = None
+                if with_pusher:
+                    pusher = DcnPusher(lim, [("127.0.0.1", peer.port)],
+                                       interval=1.0)
+                    pusher.start()
+                try:
+                    r = _loadgen(exe, srv.port, "hashed", "tcp",
+                                 seconds=DCN_LOADGEN_S)
+                finally:
+                    if pusher is not None:
+                        pusher.stop()
+                if not r["completed"]:
+                    raise AssertionError("dcn loadgen: nothing completed")
+                rows.append({"round": rnd, "pusher": with_pusher,
+                             "pushes_ok": (pusher.pushes_ok if pusher
+                                           else 0),
+                             **{k: r[k] for k in ("decisions_per_sec",
+                                                  "frame_p50_ms",
+                                                  "frame_p99_ms")}})
+    finally:
+        srv.shutdown()
+        asyncio.run_coroutine_threadsafe(peer.shutdown(), loop).result(60)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+        loop.close()
+        lim.close()
+        peer_lim.close()
+    log("dcn (d) native door, hashed, config 3 hh_slots=256, without | "
+        "with a 1 s pusher: " + "; ".join(
+            f"{r['decisions_per_sec']:.0f} ({r['pushes_ok']} pushes)"
+            for r in rows))
+    return rows
+
+
+def run_dcn(torch, seed: int = 0, full: bool = False) -> dict:
+    """Phase dcn: (a)-(d); raises on any failure. Returns the runs' launch
+    counts (for the kernel rows) and the readings."""
+    import tempfile
+
+    t = time.perf_counter()
+    # Behind the wall clock, so (b)'s receiver takes the pod's periods
+    # into slots of its ring (they lie before its window).
+    start = float(int(time.time()) - 600)
+    win = check_dcn_group(torch, f"windowed CU hh_slots={HH_SLOTS}",
+                          config3_hh(), seed + 101, start, DCN_WARM,
+                          DCN_STEADY, 1.0)
+    tb = check_dcn_group(torch, "TB-c2", config2_bucket(), seed + 103,
+                         start, 1, DCN_STEADY, C2_ADVANCE)
+    out = {"group": {k: {kk: vv for kk, vv in v.items()
+                         if kk not in ("pods", "counts")}
+                     for k, v in (("windowed", win), ("TB-c2", tb))}}
+    out["binaries"] = check_dcn_binaries(win["pods"][0], seed)
+    for pod in win["pods"] + tb["pods"]:
+        pod.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        out["mesh_restart"] = check_dcn_mesh_restart(seed, tmp)
+    out["reshard_s"] = dcn_reshard_readings(torch, seed, 3 if full else 2)
+    out["loadgen"] = dcn_loadgen_readings(3 if full else 1)
+    out["wall_s"] = time.perf_counter() - t
+    log(f"phase dcn done in {out['wall_s']:.1f} s")
+    return {"windowed": [win], "bucket": [tb], "out": out}
+
 
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
@@ -9946,6 +10604,11 @@ def main(argv=None) -> int:
                          "frames, the replicated tier on 4, quarantine, "
                          "the binary, three rounds of readings) and hold "
                          "route_bins to its plain version (one JSON line)")
+    ap.add_argument("--dcn", action="store_true",
+                    help="only build, then run phase dcn (the mirror "
+                         "group on the card, two peered binaries, the "
+                         "mesh binary restarted at another slice count, "
+                         "three rounds of readings; one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -9971,11 +10634,11 @@ def main(argv=None) -> int:
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
                 or args.gateway or args.door or args.native
-                or args.grpc or args.mesh)
+                or args.grpc or args.mesh or args.dcn)
     # The native door and the load generator build with g++ beside the
     # nvcc builds.
     host_build = None
-    if full or args.native or args.grpc or args.mesh:
+    if full or args.native or args.grpc or args.mesh or args.dcn:
         from concurrent.futures import ThreadPoolExecutor
 
         from ratelimiter_tpu_torch import native
@@ -10059,6 +10722,13 @@ def main(argv=None) -> int:
         check_no_children()
         print(json.dumps({"card": card, "route_bins": row,
                           "mesh": _mesh_summary(mesh)},
+                         default=lambda o: repr(o)))
+        print(card)
+        return 0
+    if args.dcn:
+        out = run_dcn(torch, args.seed, full=True)
+        check_no_children()
+        print(json.dumps({"card": card, "dcn": out["out"]},
                          default=lambda o: repr(o)))
         print(card)
         return 0
@@ -10221,20 +10891,29 @@ def main(argv=None) -> int:
             for label, d, b in (("windowed CU", door_cu, unproxied_cu),
                                 ("TB-c2", door_tb, unproxied_tb))))
     log(f"phases 1-4 done at {time.perf_counter() - t:.1f} s")
-    observe = run_observe(torch, args.seed, reuse={
+
+    def stamp(name: str, value):
+        log(f"{name} done at {time.perf_counter() - t:.1f} s")
+        return value
+
+    observe = stamp("phase observe", run_observe(torch, args.seed, reuse={
         "windowed CU": door_cu, f"windowed CU hh_slots={HH_SLOTS}": door_hh,
-        "TB-c2": door_tb}, rounds=1)
-    gateway = run_gateway(torch, args.seed)
-    native_door = run_native(torch, args.seed, rounds=1)
-    grpc_phase = run_grpc(torch, args.seed)
-    mesh = run_mesh(torch, args.seed)
-    live = check_live_updates(torch, args.seed)
-    watch = check_watchdog(torch)
-    durable = check_durable_door(config3(), device="cuda", seed=args.seed)
-    tenant_door = check_tenant_durable_door(config3(), device="cuda",
-                                            seed=args.seed)
-    dense_durable = check_dense_durable(torch, args.seed)
-    above = check_above_capacity(torch, args.seed)
+        "TB-c2": door_tb}, rounds=1, frames=DOOR_FRAMES // 2))
+    gateway = stamp("phase gateway", run_gateway(torch, args.seed))
+    native_door = stamp("phase native", run_native(torch, args.seed,
+                                                   rounds=1))
+    grpc_phase = stamp("phase grpc", run_grpc(torch, args.seed))
+    mesh = stamp("phase mesh", run_mesh(torch, args.seed))
+    dcn_phase = stamp("phase dcn", run_dcn(torch, args.seed))
+    live = stamp("live updates", check_live_updates(torch, args.seed))
+    watch = stamp("watchdog", check_watchdog(torch))
+    durable = stamp("durable door", check_durable_door(
+        config3(), device="cuda", seed=args.seed))
+    tenant_door = stamp("tenant durable door", check_tenant_durable_door(
+        config3(), device="cuda", seed=args.seed))
+    dense_durable = stamp("dense durable", check_dense_durable(torch,
+                                                               args.seed))
+    above = stamp("above capacity", check_above_capacity(torch, args.seed))
     eval_path = check_eval_path(torch, args.seed)
     log(f"phases 5-6 done at {time.perf_counter() - t:.1f} s")
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
@@ -10259,11 +10938,12 @@ def main(argv=None) -> int:
                      native_door["windowed CU shards=2"],
                      grpc_phase["windowed asyncio"],
                      grpc_phase["windowed native"], grpc_phase["leases"],
-                     *mesh["windowed"])
+                     *mesh["windowed"], *dcn_phase["windowed"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
                    *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
                    native_door["TB-c2"], grpc_phase["TB-c2 asyncio"],
-                   grpc_phase["TB-c2 native"], *mesh["bucket"])
+                   grpc_phase["TB-c2 native"], *mesh["bucket"],
+                   *dcn_phase["bucket"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -10298,6 +10978,7 @@ def main(argv=None) -> int:
     paths["native"] = native_door
     paths["grpc"] = grpc_phase
     paths["mesh"] = _mesh_summary(mesh)
+    paths["dcn"] = dcn_phase["out"]
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

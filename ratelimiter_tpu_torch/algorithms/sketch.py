@@ -54,7 +54,9 @@ without tenants do. The multi-batch scan
 runners that benchmarks drive are ``sketch_kernels.build_scan`` and
 ``bucket_kernels.build_scan``, below the limiters. Both limiters are the
 slices of the sliced mesh and the replicas of the replicated mesh
-(parallel/). Not ported yet: the DCN bookkeeping (ROADMAP A8b).
+(parallel/), and the pods of the DCN tier (parallel/dcn.py: the
+exports and merges of completed slabs and debt deltas, under the
+limiter's lock, on its device).
 """
 
 from __future__ import annotations

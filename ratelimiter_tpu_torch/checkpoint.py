@@ -119,6 +119,15 @@ def save_state(path: str, kind: str, config: Config,
         "config_fingerprint": config_fingerprint(config),
         **extra,
     }
+    write_raw(path, arrays, meta)
+
+
+def write_raw(path: str, arrays: Dict[str, np.ndarray],
+              meta: Dict[str, Any]) -> None:
+    """The snapshot's file format, written crash-atomic: the arrays and
+    the JSON ``meta`` under ``_META_KEY`` in one npz. No validation
+    (``save_state`` builds ``meta``; the offline re-bucketer carries a
+    read one through)."""
     if _META_KEY in arrays:
         raise CheckpointError(f"array name {_META_KEY!r} is reserved")
     buf = io.BytesIO()
@@ -128,14 +137,21 @@ def save_state(path: str, kind: str, config: Config,
     write_atomic(path, buf.getvalue())
 
 
+def read_raw(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """A snapshot's arrays and meta, unvalidated (``load_state``
+    validates them)."""
+    with np.load(path, allow_pickle=False) as z:
+        if _META_KEY not in z.files:
+            raise CheckpointError(f"{path}: not a ratelimiter_tpu checkpoint")
+        arrays = {k: z[k] for k in z.files if k != _META_KEY}
+        meta = json.loads(bytes(z[_META_KEY]).decode())
+    return arrays, meta
+
+
 def load_state(path: str, kind: str, config: Config,
                ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
     """Load + validate a snapshot for the given limiter kind and config."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files if k != _META_KEY}
-        if _META_KEY not in z.files:
-            raise CheckpointError(f"{path}: not a ratelimiter_tpu checkpoint")
-        meta = json.loads(bytes(z[_META_KEY]).decode())
+    arrays, meta = read_raw(path)
     if meta.get("format_version") != FORMAT_VERSION:
         raise CheckpointError(
             f"{path}: format version {meta.get('format_version')} != "

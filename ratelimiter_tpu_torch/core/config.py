@@ -284,11 +284,11 @@ class MeshSpec:
     and per-key decisions are bit-identical to a single-device limiter.
 
     Deliberately EXCLUDED from the checkpoint config fingerprint: the
-    device count is a *placement* property, not state geometry — but a
-    sliced snapshot refuses to restore onto a different slice count
-    (each slice's counters are only meaningful under the routing that
-    produced them; SlicedMeshLimiter.restore raises CheckpointError until
-    the port has resharding, ROADMAP A8b).
+    device count is a *placement* property, not state geometry. Each
+    slice's counters are only meaningful under the routing that produced
+    them, so a sliced snapshot restored onto a different slice count is
+    re-bucketed onto the new routing (SlicedMeshLimiter.restore,
+    parallel/reshard.py).
     """
 
     #: Devices to span (None = every visible device; must be >= 1).

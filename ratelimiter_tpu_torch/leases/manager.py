@@ -18,10 +18,12 @@ key STRINGS never enter the table — only the side-table-compatible
 hashed consumer token, which is all the restore path needs because
 RENEW/RETURN frames re-carry the key.
 
-The port has no fleet yet (ROADMAP A13d, part two): ``epoch_fn``,
-``owns_fn`` and ``gossip`` stay None in its binary, and revocation
-pushes go straight to their connections (the JAX manager routes them
-through its chaos injector first).
+The port has no fleet yet (ROADMAP A13d, part two): ``epoch_fn`` and
+``owns_fn`` stay None in its binary, ``gossip`` is the first DCN
+pusher's ``push_lease`` when the binary runs ``--dcn-peer`` (as the JAX
+binary wires it without a fleet), and revocation pushes go straight to
+their connections (the JAX manager routes them through its chaos
+injector first).
 """
 
 from __future__ import annotations

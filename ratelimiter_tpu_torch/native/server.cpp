@@ -48,8 +48,6 @@
 //     dispatcher decrements live_dispatchers and notifies the responder
 //     without holding rmx, so the responder can miss its last wake-up
 //     and shutdown joins it forever);
-//   * no DCN callback: T_DCN_PUSH keeps the 1 MiB frame bound and is
-//     answered as the JAX door answers it without DCN;
 //   * the fleet's forward hint (request flag 0x10) is refused with
 //     E_INVALID_CONFIG, as the port's asyncio door refuses it;
 //   * no quarantine state (set_shard_health) and no lease lane;
@@ -63,6 +61,8 @@
 //   reset(shard, key_bytes) -> None
 //   metrics() -> bytes
 //   spans(shard, count, trace, t_io, t_d0, t_d1, t_v0, t_v1)
+//   dcn(body) -> None: a T_DCN_PUSH body, on shard 0's dispatcher (None:
+//     pushes are refused and keep the 1 MiB frame bound)
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17 on first use
 // (ratelimiter_tpu_torch/native/__init__.py, build_server).
@@ -128,6 +128,10 @@ constexpr uint16_t E_INVALID_N = 1, E_INVALID_KEY = 2,
                    E_STORAGE_UNAVAILABLE = 3, E_INVALID_CONFIG = 5,
                    E_INTERNAL = 7, E_DEADLINE = 8;
 constexpr uint32_t MAX_FRAME = 1u << 20;
+// DCN pushes carry whole slabs or debt deltas; the larger cap holds only
+// on a server created with a dcn callback, so a plain deployment keeps
+// the 1 MiB bound on every frame (protocol.py MAX_DCN_FRAME).
+constexpr uint32_t MAX_DCN_FRAME = 96u << 20;
 constexpr uint32_t MAX_KEY_LEN = 4096;
 // Trace-context extension (ADR-014, serving/protocol.py (the port's) TRACE_FLAG):
 // request frames with bit 6 set on the type byte prefix their body with
@@ -649,6 +653,9 @@ struct Conn {
   std::atomic<bool> dirty{false};
   // Shm lane after a T_SHM_HELLO upgrade (null = plain socket conn).
   std::unique_ptr<ShmLane> shm;
+  // This connection holds a DCN-sized receive-buffer grant (ring thread
+  // only; counted in Server::dcn_conns).
+  bool dcn_big = false;
   // Owning io ring : fixed at accept by round-robin pin; all
   // readiness state for this fd (and its shm lane fds) lives there.
   IoRing* ring = nullptr;
@@ -910,6 +917,12 @@ struct Server {
   std::condition_variable ifcv;
   InFlight inflight;
 
+  // DCN receive-buffer accounting (the pre-screen): connections holding
+  // a slab-sized receive buffer, at most max_dcn_conns of them.
+  bool dcn_auth_required = false;
+  uint32_t max_dcn_conns = 4;
+  std::atomic<uint32_t> dcn_conns{0};
+
   //: Key namespace prepended in C++ while building the decide blob, so
   //: the Python fast path hashes ready-made "prefix:key" bytes instead
   //: of re-packing the blob per dispatch (measured 7 ms/4096 keys in
@@ -949,6 +962,11 @@ struct Server {
   PyObject* cb_decide_hashed = nullptr;
   PyObject* cb_launch_hashed = nullptr;
   bool hashed_enabled = false;
+  // DCN merge callback (None = T_DCN_PUSH refused and the frame cap
+  // stays MAX_FRAME), called with the raw push body; the Python side
+  // checks the envelope and merges into every shard limiter.
+  PyObject* cb_dcn = nullptr;
+  bool dcn_enabled = false;
   // Spans callback (ADR-014; None = per-ticket spans off):
   //   spans(shard, count, trace_id, t_io, t_d0, t_d1, t_v0, t_v1)
   // called from the completer (GIL already held for the resolve) with
@@ -1809,6 +1827,32 @@ void handle_reset(Server* s, uint32_t shard, const Pending& p) {
   conn_send(s, p.conn, std::move(out));
 }
 
+void handle_dcn(Server* s, const Pending& p) {
+  // One T_DCN_PUSH body (keys[0] holds it). It rides shard 0's queue, so
+  // merges serialize with that dispatcher; the Python callback merges
+  // into every shard's limiter itself.
+  uint16_t err_code = 0;
+  std::string err_msg;
+  {
+    PyGILState_STATE g = PyGILState_Ensure();
+    PyObject* res = PyObject_CallFunction(
+        s->cb_dcn, "y#", p.keys[0].data(), (Py_ssize_t)p.keys[0].size());
+    if (res == nullptr) {
+      err_code = fetch_py_error(err_msg, "DCN merge failed", E_INTERNAL);
+    } else {
+      Py_DECREF(res);
+    }
+    PyGILState_Release(g);
+  }
+  std::string out;
+  if (err_code) {
+    out = make_error(p.req_id, err_code, err_msg);
+  } else {
+    frame_header(out, T_OK, p.req_id, 0);
+  }
+  conn_send(s, p.conn, std::move(out));
+}
+
 void handle_metrics(Server* s, const Pending& p) {
   std::string text;
   {
@@ -1954,6 +1998,8 @@ void dispatcher_main(Server* s, uint32_t shard) {
         handle_reset(s, shard, p);
       } else if (!p.hashed && p.ns.size() == 1 && p.ns[0] == -2) {
         handle_metrics(s, p);
+      } else if (!p.hashed && p.ns.size() == 1 && p.ns[0] == -3) {
+        handle_dcn(s, p);
       } else if (p.hashed) {
         hashed.push_back(std::move(p));
       } else {
@@ -2003,6 +2049,10 @@ void dispatcher_main(Server* s, uint32_t shard) {
 void close_conn(Server* s, const ConnPtr& c) {
   if (c->closed.exchange(true)) return;
   IoRing* r = c->ring;
+  if (c->dcn_big) {
+    c->dcn_big = false;
+    s->dcn_conns.fetch_sub(1);
+  }
   if (c->shm) {
     // Deterministic reclaim (ADR-025): drop the doorbell/control fds
     // from the owning ring's engine, then let the lane destructor unmap
@@ -2402,7 +2452,41 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
     if (fwd_hint) type = (uint8_t)(type & ~FORWARD_FLAG);
     uint64_t req_id;
     memcpy(&req_id, c->rbuf.data() + off + 5, 8);
-    if (length > MAX_FRAME) return false;  // protocol error
+    // The per-frame cap is type-aware: a DCN push gets the slab-sized cap
+    // on a DCN-enabled server alone (protocol.parse_header's allow_dcn).
+    uint32_t cap =
+        (s->dcn_enabled && type == T_DCN_PUSH) ? MAX_DCN_FRAME : MAX_FRAME;
+    if (length > cap) return false;  // protocol error
+    size_t tskip = (traced ? 8 : 0) + (deadlined ? 8 : 0);
+    if (s->dcn_enabled && type == T_DCN_PUSH && !c->dcn_big &&
+        (size_t)4 + length > c->rbuf.size() - off) {
+      // An incomplete push that will need slab-sized buffering is
+      // screened before it is granted: where the server requires push
+      // auth the body must open with the RLA envelope's magic, so an
+      // oversized garbage stream labelled T_DCN_PUSH dies 4 bytes in
+      // instead of buffering up to MAX_DCN_FRAME. A traced or deadlined
+      // push moves the envelope past its extensions.
+      if (c->rbuf.size() - off < 17 + tskip)
+        break;  // need the first 4 body bytes
+      const char* bm = c->rbuf.data() + off + 13 + tskip;
+      if (s->dcn_auth_required &&
+          !(bm[0] == 'R' && bm[1] == 'L' && bm[2] == 'A' &&
+            (bm[3] == '1' || bm[3] == '2')))
+        return false;
+      // Bound the connections holding DCN-sized buffers.
+      if (s->dcn_conns.fetch_add(1) >= s->max_dcn_conns) {
+        s->dcn_conns.fetch_sub(1);
+        // A direct send: returning false closes the connection at once,
+        // which would drop a queued refusal before the peer read it.
+        std::string err = make_error(req_id, E_STORAGE_UNAVAILABLE,
+                                     "too many concurrent DCN transfers "
+                                     "(raise max_dcn_conns)");
+        ssize_t w = send(c->fd, err.data(), err.size(), MSG_NOSIGNAL);
+        (void)w;
+        return false;
+      }
+      c->dcn_big = true;
+    }
     if (c->rbuf.size() - off < 4 + length) break;
     const char* body = c->rbuf.data() + off + 13;
     uint32_t blen = length - 9;
@@ -2680,9 +2764,21 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
       Pending p{c, req_id, false, {std::string()}, {-2}};
       enqueue(std::move(p), 0, 0);
     } else if (type == T_DCN_PUSH) {
-      // No DCN here: the JAX door's answer without a dcn callback.
-      conn_send(s, c, make_error(req_id, E_INVALID_CONFIG,
-                                 "DCN exchange not enabled on this server"));
+      if (c->dcn_big) {
+        // The whole frame is in hand: release the slab-sized grant.
+        c->dcn_big = false;
+        s->dcn_conns.fetch_sub(1);
+      }
+      if (!s->dcn_enabled) {
+        conn_send(s, c, make_error(req_id, E_INVALID_CONFIG,
+                                   "DCN exchange not enabled on this server"));
+      } else if (s->draining.load()) {
+        conn_send(s, c, make_error(req_id, E_STORAGE_UNAVAILABLE,
+                                   "server is shutting down"));
+      } else {
+        Pending p{c, req_id, false, {std::string(body, blen)}, {-3}};
+        enqueue(std::move(p), 0, 0);
+      }
     } else {
       conn_send(s, c, make_error(req_id, E_INTERNAL, "unknown request type"));
     }
@@ -2806,8 +2902,13 @@ void ring_main(Server* s, IoRing* r) {
           continue;
         }
         if (events[i].rd) {
-          // Backpressure bound on unparsed bytes: four whole frames.
+          // Backpressure bound on unparsed bytes: four whole frames, or
+          // one DCN push beside them on a connection process_rbuf has
+          // granted a slab-sized buffer (after its pre-screen: the push
+          // header, the RLA magic where auth is required, at most
+          // max_dcn_conns holders), so a garbage stream dies at 4 MiB.
           const size_t small_cap = 4ul * MAX_FRAME;
+          const size_t big_cap = 4ul + MAX_DCN_FRAME + 4ul * MAX_FRAME;
           bool dead = false;
           size_t budget = FAIR_READ_BUDGET;
           while (true) {
@@ -2815,10 +2916,11 @@ void ring_main(Server* s, IoRing* r) {
             r->recv_calls.fetch_add(1, std::memory_order_relaxed);
             if (rd > 0) {
               c->rbuf.append(buf, (size_t)rd);
-              if (c->rbuf.size() > small_cap) {
-                // Parse what is buffered, then re-check.
+              if (c->rbuf.size() > (c->dcn_big ? big_cap : small_cap)) {
+                // Parse what is buffered (it grants dcn_big when a push
+                // passes the pre-screen), then re-check.
                 if (!process_rbuf(s, c)) { dead = true; break; }
-                if (c->rbuf.size() > small_cap) {
+                if (c->rbuf.size() > (c->dcn_big ? big_cap : small_cap)) {
                   dead = true;
                   break;
                 }
@@ -3208,6 +3310,7 @@ void server_dealloc(PyObject* self) {
     Py_XDECREF(ps->s->cb_decide_hashed);
     Py_XDECREF(ps->s->cb_launch_hashed);
     Py_XDECREF(ps->s->cb_spans);
+    Py_XDECREF(ps->s->cb_dcn);
     delete ps->s;
   }
   Py_TYPE(self)->tp_free(self);
@@ -3238,11 +3341,12 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
                                  "spans",
                                  "shm", "shm_dir", "shm_ring_bytes",
                                  "net_engine", "io_rings",
+                                 "dcn", "dcn_auth_required", "max_dcn_conns",
                                  nullptr};
   PyObject *decide, *reset, *metrics = Py_None;
   PyObject *launch = Py_None, *resolve = Py_None;
   PyObject *decide_hashed = Py_None, *launch_hashed = Py_None;
-  PyObject *spans = Py_None;
+  PyObject *spans = Py_None, *dcn = Py_None;
   unsigned int max_batch = 4096, max_delay_us = 200, slo_us = 0;
   int fail_open = 0;
   long long limit = 0;
@@ -3255,7 +3359,9 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   unsigned int shm_ring_bytes = 0;
   const char* net_engine = nullptr;
   unsigned int io_rings = 0;
-  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "OO|OIIIpLdy#IOOIOOOpsIsI",
+  int dcn_auth_required = 0;
+  unsigned int max_dcn_conns = 4;
+  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "OO|OIIIpLdy#IOOIOOOpsIsIOpI",
                                    (char**)kwlist,
                                    &decide, &reset, &metrics, &max_batch,
                                    &max_delay_us, &slo_us, &fail_open, &limit,
@@ -3263,7 +3369,9 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
                                    &num_shards, &launch, &resolve,
                                    &inflight, &decide_hashed,
                                    &launch_hashed, &spans, &shm, &shm_dir,
-                                   &shm_ring_bytes, &net_engine, &io_rings))
+                                   &shm_ring_bytes, &net_engine, &io_rings,
+                                   &dcn, &dcn_auth_required,
+                                   &max_dcn_conns))
     return nullptr;
   uint32_t net_engine_req = 0;  // auto
   if (net_engine != nullptr && net_engine[0] != '\0') {
@@ -3301,6 +3409,8 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   ps->s->shm_ring_bytes = shm_ring_bytes;
   ps->s->net_engine_req = net_engine_req;
   ps->s->io_rings = io_rings;
+  ps->s->dcn_auth_required = dcn_auth_required != 0;
+  ps->s->max_dcn_conns = max_dcn_conns;
   if (key_prefix != nullptr && key_prefix_len > 0)
     ps->s->key_prefix.assign(key_prefix, (size_t)key_prefix_len);
   Py_INCREF(decide);
@@ -3311,6 +3421,7 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   Py_INCREF(decide_hashed);
   Py_INCREF(launch_hashed);
   Py_INCREF(spans);
+  Py_INCREF(dcn);
   ps->s->cb_decide = decide;
   ps->s->cb_reset = reset;
   ps->s->cb_metrics = metrics;
@@ -3319,6 +3430,8 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   ps->s->cb_decide_hashed = decide_hashed;
   ps->s->cb_launch_hashed = launch_hashed;
   ps->s->cb_spans = spans;
+  ps->s->cb_dcn = dcn;
+  ps->s->dcn_enabled = dcn != Py_None;
   ps->s->hashed_enabled = decide_hashed != Py_None;
   ps->s->spans_enabled = spans != Py_None;
   return (PyObject*)ps;

@@ -14,9 +14,13 @@
 A mesh is an ordered list of devices (parallel/mesh.py), repeats allowed:
 N cards, N slices on one card, or N slices on the CPU (the tests). One
 process drives every slice; the collectives are device copies plus
-reductions, not ``torch.distributed``. Left out (ROADMAP A8b): the DCN
-tier (``parallel/dcn.py``) and resharding across slice counts
-(``parallel/reshard.py``).
+reductions, not ``torch.distributed``.
+
+* ``dcn``: the cross-pod tier (completed slabs and debt deltas between
+  pods; serving/dcn_peer.py carries them between processes);
+* ``reshard``: a combined snapshot re-bucketed onto another slice
+  count (the sliced mesh's restore, and ``python -m
+  ratelimiter_tpu_torch.tools.rebucket`` offline).
 """
 
 from ratelimiter_tpu_torch.parallel.mesh import Mesh, mesh_devices

@@ -708,7 +708,7 @@ class SlicedMeshLimiter(RateLimiter):
         """One combined snapshot over every slice: each slice captures
         under its own lock (device to host only). Slices share no keys,
         so per-key consistency holds. The slice count rides in the
-        extras and restore REFUSES a different count."""
+        extras; a restore at another count re-buckets (``_load``)."""
         self._check_open()
         arrays = {}
         extras = []
@@ -723,22 +723,32 @@ class SlicedMeshLimiter(RateLimiter):
         }
 
     def _load(self, path: str):
+        """(arrays, slice extras) of the combined snapshot at ``path`` on
+        this mesh's slice count: a snapshot of another count is
+        re-bucketed onto it (parallel/reshard.py): clean splits copy a
+        slice verbatim, merges take the conservative union (elementwise
+        max after period alignment), overrides re-route exactly, and
+        estimates only rise, so the resharded mesh never over-admits
+        against its source."""
         from ratelimiter_tpu_torch.checkpoint import load_state
 
         arrays, meta = load_state(path, self._CKPT_KIND, self.config)
         saved = int(meta.get("n_slices", -1))
         if saved != self.n_slices:
-            raise CheckpointError(
-                f"{path}: snapshot holds {saved} slice(s) but this mesh "
-                f"runs {self.n_slices}; restoring across slice counts "
-                f"needs resharding, which the port does not have yet "
-                f"(ROADMAP A8b) — boot with {saved} slice(s)")
+            from ratelimiter_tpu_torch.parallel import reshard
+
+            logging.getLogger(__name__).warning(
+                "%s: snapshot holds %d slice(s) but this mesh runs %d "
+                "device(s) — re-bucketing key-routed state onto the new "
+                "geometry (conservative union: overrides exact, "
+                "estimates only rise)", path, saved, self.n_slices)
+            arrays, meta = reshard.rebucket_combined(
+                arrays, meta, self.n_slices, self.config)
         return arrays, meta.get("slice_extras") or [{}] * self.n_slices
 
     def restore(self, path: str) -> None:
-        """Restore a combined snapshot taken under the same slice count
-        (the JAX package re-buckets another count, parallel/reshard.py;
-        the port refuses it until resharding lands, ROADMAP A8b)."""
+        """Restore a combined snapshot, re-bucketed onto this mesh when it
+        was taken under another slice count (``_load``)."""
         self._check_open()
         arrays, extras = self._load(path)
         for i, s in enumerate(self.slices):
@@ -751,8 +761,12 @@ class SlicedMeshLimiter(RateLimiter):
         """Slice-scoped restore: replace ONE slice's state with its
         sub-dictionary of the combined snapshot at ``path``, leaving
         every other slice untouched — the recovery half of quarantine
-        (recover.recover_unit replays the WAL suffix after it). Same
-        slice-count refusal as a full restore."""
+        (recover.recover_unit replays the WAL suffix after it). A
+        snapshot of another slice count is re-bucketed whole onto this
+        mesh first (``_load``), so the slice gets the state the new
+        routing gives it: the case of a mesh restarted at another count
+        whose newest snapshot predates the restart. (The JAX package
+        refuses this case and points at a full restore.)"""
         self._check_open()
         if not 0 <= index < self.n_slices:
             raise CheckpointError(

@@ -94,8 +94,7 @@ lease frames on its port, the native door on the ``--lease-port``
 sidecar; a grant debits its budget through the door's decide path, the
 HTTP and gRPC policy and reset levers revoke the key's leases, an AIMD
 tighten revokes all of them, and with ``--snapshot-dir`` the grant table
-rides every snapshot. The JAX binary's flags, defaults and refusals,
-without the fleet's lease gossip (ROADMAP A13d).
+rides every snapshot. The JAX binary's flags, defaults and refusals.
 
 ``--backend mesh`` serves the sliced mesh (parallel/): one slice per
 card (``--mesh-devices N`` of them, default every visible card; N
@@ -110,8 +109,20 @@ does. ``--quarantine`` (``--slice-deadline-ms``, ``--probe-interval``,
 ``--quarantine-threshold``) guards each slice: a failing slice's range
 answers per ``--fail-open`` while the others serve exactly, and with
 ``--snapshot-dir`` a recovering slice restores from the snapshot and
-the WAL before it rejoins. The JAX binary's flags, defaults and
-refusals; its ``--dcn-*`` flags wait for ROADMAP A8b.
+the WAL before it rejoins, and a snapshot of another slice count is
+re-bucketed onto ``--mesh-devices`` at recovery (parallel/reshard.py).
+The JAX binary's flags, defaults and refusals.
+
+Cross-pod DCN, on either door and on ``--backend sketch`` or ``mesh``:
+``--dcn-peer HOST:PORT`` (repeatable) runs one pusher per dispatch unit
+(the native door's shards, a mesh's slices) exporting completed slabs
+or debt deltas every ``--dcn-interval`` seconds to each peer, and
+implies ``--dcn-listen``, which takes peers' pushes (the native door
+holds at most ``--dcn-max-transfers`` slab-sized receive buffers at
+once); ``--dcn-secret`` (or ``RATELIMITER_TPU_DCN_SECRET``) signs and
+requires the RLA2 envelope; with ``--leases`` a revocation is gossiped
+to the peers through the first pusher. The JAX binary's flags, defaults
+and refusals (``--dcn-peer`` on another backend).
 """
 
 from __future__ import annotations
@@ -363,6 +374,30 @@ def build_parser() -> argparse.ArgumentParser:
                          "serving line). The C++ front door has no lease "
                          "lane; the asyncio door serves lease frames on "
                          "its main port")
+    # Cross-pod DCN exchange (parallel/dcn.py over serving/dcn_peer.py).
+    ap.add_argument("--dcn-peer", action="append", default=[],
+                    metavar="HOST:PORT",
+                    help="push completed slabs / debt deltas to this peer "
+                         "server (repeatable); both front doors can "
+                         "receive (asyncio and --native)")
+    ap.add_argument("--dcn-interval", type=float, default=1.0,
+                    help="seconds between DCN export+push cycles")
+    ap.add_argument("--dcn-listen", action="store_true",
+                    help="accept T_DCN_PUSH frames from peers (implied by "
+                         "--dcn-peer); off by default so plain deployments "
+                         "keep the 1 MiB per-frame bound")
+    ap.add_argument("--dcn-max-transfers", type=int, default=4,
+                    help="native door: connections allowed to hold a "
+                         "DCN-slab-sized receive buffer concurrently "
+                         "(size to your peer count; refused peers get a "
+                         "typed error and re-push next cycle)")
+    ap.add_argument("--dcn-secret", default=None,
+                    help="shared secret HMAC-gating T_DCN_PUSH frames "
+                         "(both sides must set it; prefer the "
+                         "RATELIMITER_TPU_DCN_SECRET env var to keep it "
+                         "off argv). Without it, anyone with reach to the "
+                         "serving port can inject counter mass: firewall "
+                         "the port or set a secret")
     ap.add_argument("--grpc-port", type=int, default=None,
                     help="also serve the gRPC contract "
                          "(api/proto/ratelimiter.proto) on this port "
@@ -569,7 +604,47 @@ def build_config(args: argparse.Namespace) -> Config:
         raise SystemExit(f"--max-batch {args.max_batch} with --tenants: the "
                          f"cascade decides at most {ADMIT_CAPACITY} requests "
                          f"a launch")
+    if args.dcn_peer:
+        from ratelimiter_tpu_torch.serving.dcn_peer import parse_peer
+
+        if args.backend not in ("sketch", "mesh"):
+            # A mesh's slices are plain sketch limiters, each exporting
+            # its own slabs or deltas (one pusher a slice).
+            raise SystemExit("--dcn-peer needs a sketch-family backend "
+                             "(--backend sketch or --backend mesh)")
+        try:
+            for spec in args.dcn_peer:
+                parse_peer(spec)
+        except ValueError as exc:
+            raise SystemExit(f"--dcn-peer: {exc}") from None
     return cfg
+
+
+def dcn_secret(args: argparse.Namespace):
+    """``--dcn-secret``, else ``RATELIMITER_TPU_DCN_SECRET``, else None."""
+    import os
+
+    return (args.dcn_secret
+            or os.environ.get("RATELIMITER_TPU_DCN_SECRET") or None)
+
+
+def start_pushers(args: argparse.Namespace, limiters) -> list:
+    """One started ``DcnPusher`` per dispatch unit under ``limiters`` (the
+    native door's shards, a mesh's slices): keys hash-route across them,
+    so exporting one would hide the others' traffic from every peer.
+    None without ``--dcn-peer``."""
+    if not args.dcn_peer:
+        return []
+    from ratelimiter_tpu_torch.observability.decorators import undecorated
+    from ratelimiter_tpu_torch.serving.dcn_peer import DcnPusher, parse_peer
+
+    peers = [parse_peer(spec) for spec in args.dcn_peer]
+    pushers = [DcnPusher(undecorated(u), peers, interval=args.dcn_interval,
+                         secret=dcn_secret(args))
+               for u in _units(limiters)]
+    for pu in pushers:
+        pu.start()
+    return pushers
 
 
 def max_window(args: argparse.Namespace, cfg: Config) -> int:
@@ -843,10 +918,13 @@ def make_threadsafe_decide_many(batcher, loop):
     return decide_many
 
 
-def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist):
+def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist,
+                  pushers=()):
     """The lease authority (leases/manager.py), as the JAX binary's
-    ``_setup_leases`` builds it without a fleet core (``epoch_fn``,
-    ``owns_fn`` and ``gossip`` stay None): grants, renewals and returns
+    ``_setup_leases`` builds it without a fleet core (``epoch_fn`` and
+    ``owns_fn`` stay None; ``gossip`` is the first DCN pusher's
+    ``push_lease`` when the binary runs pushers, so a revocation reaches
+    the peers at once): grants, renewals and returns
     debit through ``decide``, the door's shared dispatch path (the
     asyncio door's batcher bridge, the native door's shard router), so a
     lease budget is charged exactly like a wire decision, on the card by
@@ -864,6 +942,7 @@ def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist):
         ttl=args.lease_ttl, default_budget=args.lease_budget,
         max_leases=args.lease_max,
         require_hot=args.lease_require_hot,
+        gossip=(pushers[0].push_lease if pushers else None),
         registry=metrics.DEFAULT)
     if persist is not None:
         persist.add_sidecar("leases", mgr)
@@ -1242,14 +1321,18 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         inflight=args.inflight,
         snapshot=persist.snapshot_now if persist is not None else None,
         max_window=max_window(args, cfg), shm=args.shm,
-        shm_dir=args.shm_dir, shm_ring_bytes=args.shm_ring_bytes)
+        shm_dir=args.shm_dir, shm_ring_bytes=args.shm_ring_bytes,
+        dcn=bool(args.dcn_listen or args.dcn_peer),
+        dcn_secret=dcn_secret(args))
+    # After recovery: a pusher's export reads the recovered ring.
+    pushers = start_pushers(args, [limiter])
     loop = asyncio.get_running_loop()
     # The gateway's and gRPC's worker threads, and the lease debits,
     # funnel into the door's micro-batcher: every surface shares its
     # launches.
     decide = make_threadsafe_decide(server.batcher, loop)
     lease_mgr = _setup_leases(args, limiter=limiter, decide=decide,
-                              persist=persist)
+                              persist=persist, pushers=pushers)
     server.leases = lease_mgr
     await server.start()
     if controller is not None:
@@ -1297,10 +1380,12 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
-            lease_listener=None, quarantine=qmgr))
+            lease_listener=None, quarantine=qmgr, pushers=pushers))
     try:
         await stop.wait()
     finally:
+        for pu in pushers:
+            pu.stop()
         if controller is not None:
             controller.stop()
         if gateway is not None:
@@ -1368,7 +1453,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         shard_decorate=lambda lim, i: decorate(lim, shard=i),
         shard_limiters=([limiter] + [decorate(s, shard=i) for i, s in
                                      enumerate(slices[1:], start=1)]
-                        if slices is not None else None))
+                        if slices is not None else None),
+        dcn=bool(args.dcn_listen or args.dcn_peer),
+        dcn_secret=dcn_secret(args),
+        max_dcn_conns=args.dcn_max_transfers)
     if persist is not None:
         # Recover BEFORE the listener opens: the restored snapshot and
         # the replayed mutations precede the first decision.
@@ -1381,11 +1469,13 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         if qmgr is not None:
             qmgr.restore_fn = persist.slice_restorer()
     server.start()
+    pushers = start_pushers(args, server.shard_limiters)
     # The C++ door has no lease lane: grants, renewals and returns are
     # served by a sidecar listener, their debits through decide_one, the
     # shard router, so a lease budget lands on the key's shard.
     lease_mgr = _setup_leases(args, limiter=limiter,
-                              decide=server.decide_one, persist=persist)
+                              decide=server.decide_one, persist=persist,
+                              pushers=pushers)
     server.leases = lease_mgr
     lease_listener = None
     if lease_mgr is not None:
@@ -1487,10 +1577,13 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
-            lease_listener=lease_listener, quarantine=qmgr))
+            lease_listener=lease_listener, quarantine=qmgr,
+            pushers=pushers))
     try:
         await stop.wait()
     finally:
+        for pu in pushers:
+            pu.stop()
         if controller is not None:
             controller.stop()
         if gateway is not None:

@@ -29,12 +29,19 @@ given explicitly (the current device is per thread).
 
 Quota leases, as in the JAX bridge: the compiled door has no lease
 lane, so lease frames are served by ``leases.LeaseListener`` on the
-binary's ``--lease-port``, and the door only carries the manager as
-``leases``. Its own binary lane's policy and RESET frames do not revoke
-(the JAX bridge calls the manager only from its DCN receive path, which
-the port does not have): a lease over a key changed there is bounded by
-the lease TTL, and the binary wraps the HTTP and gRPC levers so that
-those revoke.
+binary's ``--lease-port``, and the door carries the manager as
+``leases`` for its DCN receive path's lease gossip. Its own binary
+lane's policy and RESET frames do not revoke: a lease over a key changed
+there is bounded by the lease TTL, and the binary wraps the HTTP and
+gRPC levers so that those revoke.
+
+DCN pushes, as in the JAX bridge: with ``dcn=True`` the door takes
+T_DCN_PUSH frames up to ``protocol.MAX_DCN_FRAME`` (its C++ pre-screen
+checks the RLA magic when ``dcn_secret`` is set and grants at most
+``max_dcn_conns`` connections a slab-sized buffer at once) and hands
+each body to ``_dcn`` on shard 0's dispatcher, which merges it into
+every shard limiter (``dcn_peer.merge_push_payload``, behind the door's
+replay guard).
 
 Mesh slices: the binary's ``--backend mesh --native`` (host router)
 passes the sliced mesh's slices as ``shard_limiters``, one dispatch
@@ -42,8 +49,8 @@ shard per slice (each under its own decorator stack and, with
 ``--quarantine``, its ``SliceGuard``): the door's shard router is then
 the slice router. The port's server.cpp keeps no per-shard quarantine
 state (the JAX door's ``set_shard_health``); the quarantine manager's
-status is on /healthz. Left out against the JAX bridge: the fleet and
-DCN (ROADMAP A13d, A8b).
+status is on /healthz. Left out against the JAX bridge: the fleet
+(ROADMAP A13d).
 """
 
 from __future__ import annotations
@@ -127,14 +134,22 @@ class NativeRateLimitServer:
                  shm: bool = False, shm_dir: str = "/dev/shm",
                  shm_ring_bytes: int = 0,
                  net_engine: str = "auto", io_rings: int = 0,
-                 leases=None):
+                 leases=None, dcn: bool = False,
+                 dcn_secret: Optional[str] = None,
+                 max_dcn_conns: int = 4):
         ext = native.load_server()
         if inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {inflight}")
         self.limiter = limiter
         #: LeaseManager of the binary (module docstring): lease traffic
-        #: enters through the LeaseListener sidecar, not this door.
+        #: enters through the LeaseListener sidecar, not this door; its
+        #: DCN gossip through this door's receive path.
         self.leases = leases
+        self.dcn = bool(dcn)
+        self.dcn_secret = dcn_secret
+        #: Per-sender sequence watermarks of the RLA2 envelope, shared by
+        #: every shard.
+        self._dcn_guard = p.DcnReplayGuard() if dcn else None
         self.host = host
         self.port = port
         self.registry = registry if registry is not None else m.DEFAULT
@@ -229,7 +244,12 @@ class NativeRateLimitServer:
             inflight=inflight,
             shm=bool(shm), shm_dir=str(shm_dir),
             shm_ring_bytes=int(shm_ring_bytes),
-            net_engine=str(net_engine), io_rings=int(io_rings))
+            net_engine=str(net_engine), io_rings=int(io_rings),
+            dcn=self._dcn if dcn else None,
+            dcn_auth_required=bool(dcn and dcn_secret),
+            # Sized to the peer set: a refused peer gets a typed error
+            # and pushes again next cycle (its watermark re-sends).
+            max_dcn_conns=max(1, int(max_dcn_conns)))
         self.net_engine = str(net_engine)
         self.io_rings = int(io_rings)
         self.shm = bool(shm)
@@ -414,6 +434,24 @@ class NativeRateLimitServer:
 
     def _metrics(self) -> bytes:
         return self.registry.render().encode()
+
+    def _dcn(self, payload: bytes) -> None:
+        """The T_DCN_PUSH receive path: merge the foreign payload into
+        every shard limiter (``dcn_peer.merge_push_payload`` says why that
+        counts nothing twice), after the replay guard."""
+        from ratelimiter_tpu_torch.serving.dcn_peer import merge_push_payload
+
+        # A composite shard (the collective router's mesh) merges into
+        # its slices.
+        units = [u for lim in self._shard_limiters
+                 for u in undecorated(lim).sub_limiters()]
+        try:
+            merge_push_payload(
+                units, payload, self.dcn_secret,
+                self._dcn_guard,
+                self.leases.on_gossip if self.leases is not None else None)
+        except Exception as exc:
+            raise _BridgeError(p.code_for(exc), str(exc)) from exc
 
     # ----------------------------------------------- key-routed side doors
 

@@ -15,6 +15,10 @@ Requests:
     HEALTH        (3): -
     METRICS       (4): -
     ALLOW_BATCH   (5): u32 count, then count x {u32 n, u16 key_len, key}
+    DCN_PUSH      (6): u8 kind, then slabs, a debt delta or lease gossip
+                       (the DCN section below), optionally in the RLA2
+                       envelope; answered OK, or ERROR on a server that
+                       takes no pushes
     POLICY_SET    (7): u8 flags (bit0 limit given), i64 limit,
                        f64 window_scale, u16 key_len, key utf-8
     POLICY_GET    (8): u16 key_len, key utf-8
@@ -88,6 +92,9 @@ from ratelimiter_tpu_torch.core.errors import (
 from ratelimiter_tpu_torch.core.types import BatchResult, Result
 
 MAX_FRAME = 1 << 20
+#: DCN pushes carry whole slabs or debt deltas (d x w counters), so they
+#: get their own, larger bound, on a server that takes them alone.
+MAX_DCN_FRAME = 96 << 20
 MAX_KEY_LEN = 4096
 
 T_ALLOW_N = 1
@@ -105,7 +112,7 @@ T_ALLOW_HASHED = 11
 T_LEASE_GRANT = 13
 T_LEASE_RENEW = 14
 T_LEASE_RETURN = 15
-#: The JAX protocol's DCN push: no door of the port serves it.
+#: Cross-pod DCN push (parallel/dcn.py payloads; serving/dcn_peer.py).
 T_DCN_PUSH = 6
 #: Shared-memory lane negotiation: 16 is the forward bit over base type
 #: 0, and base type 0 is no request, so both doors match the RAW type
@@ -128,6 +135,14 @@ T_LEASE_R = 138
 T_LEASE_REVOKE = 139
 T_SHM_HELLO_R = 141
 T_ERROR = 255
+
+# DCN payload kinds (the first body byte of a T_DCN_PUSH).
+DCN_KIND_SLABS = 1   # windowed: completed sub-window slabs
+DCN_KIND_DEBT = 2    # token bucket: accumulated debt delta
+#: The JAX fleet's announce; the port has no fleet and refuses it.
+DCN_KIND_FLEET = 3
+#: Lease revocation gossip: u32 len + a JSON payload.
+DCN_KIND_LEASE = 4
 
 #: Request-type extension bit of the JAX package's protocol that this
 #: server does not serve (the fleet's forward hint); it refuses frames
@@ -201,10 +216,19 @@ _HASHED_RES_HEAD = struct.Struct("<BqI")  # batch_flags, limit, count
 HEADER_SIZE = _HDR.size  # 13
 
 
-def parse_header(buf: bytes) -> Tuple[int, int, int]:
-    """(payload_length, type, req_id) from the 13 header bytes."""
+def parse_header(buf: bytes, *, allow_dcn: bool = False
+                 ) -> Tuple[int, int, int]:
+    """(payload_length, type, req_id) from the 13 header bytes.
+
+    ``allow_dcn`` raises the cap to ``MAX_DCN_FRAME`` for a DCN push
+    (keyed on the base type, so a traced or deadlined push keeps it):
+    only a server that takes pushes passes it, so that no client of a
+    plain one can make it buffer slab-sized frames."""
     length, type_, req_id = _HDR.unpack_from(buf)
-    if length < 9 or length > MAX_FRAME:
+    base = (type_ & ~(_REQ_FLAGS | REQUEST_FLAGS) if type_ < 128
+            else type_)
+    cap = MAX_DCN_FRAME if (allow_dcn and base == T_DCN_PUSH) else MAX_FRAME
+    if length < 9 or length > cap:
         raise ProtocolError(f"bad frame length {length}")
     return length, type_, req_id
 
@@ -776,3 +800,223 @@ def parse_lease_revoke(body: bytes):
     ids = [_TRACE_ID.unpack_from(body, _LEASE_REVOKE_HEAD.size + 8 * i)[0]
            for i in range(count)]
     return reason, epoch, ids
+
+
+# ------------------------------------------------------------ DCN frames
+#
+# T_DCN_PUSH body:
+#   u8 kind
+#   kind=DCN_KIND_SLABS: s64 sub_us | u32 count | s64 periods[count] |
+#                        count * d*w int32 slabs (C order)
+#   kind=DCN_KIND_DEBT:  d*w int64 delta (C order)
+#   kind=DCN_KIND_LEASE: u32 len | JSON
+# The receiver checks the payload's size against its own (d, w) and, for
+# slabs, the sub-window length (periods count sub-windows); a mismatch
+# is refused, never reshaped.
+#
+# Authentication (a push adds counter mass, so an open port taking them
+# is a lever for targeted denies): with a shared secret the body is
+# wrapped as
+#   RLA2: b"RLA2" | HMAC-SHA256(secret, sender||seq||body) | u64 sender |
+#         u64 seq | body
+# and the receiver refuses a stale or repeated (sender, seq)
+# (DcnReplayGuard). The legacy RLA1 form (b"RLA1" | HMAC(body) | body)
+# has no sequence: a server without a secret accepts every form, one
+# with a secret only a valid RLA2.
+
+_DCN_HEAD = struct.Struct("<B")
+_S64 = struct.Struct("<q")
+DCN_AUTH_MAGIC = b"RLA1"
+DCN_AUTH_MAGIC2 = b"RLA2"
+_DCN_TAG_LEN = 32
+_DCN_SEQ = struct.Struct("<QQ")   # sender id, sequence
+
+
+class DcnReplayGuard:
+    """Per-sender monotonic-sequence filter for RLA2 pushes.
+
+    A sender's sequence tracks wall-clock microseconds (DcnPusher), so a
+    first frame from an unknown sender older than ``max_age_s`` is
+    refused too, which bounds the replay of a dead sender's captured
+    stream to that window. Thread-safe. Without a secret anyone can mint
+    sender ids, so it then only drops accidental re-deliveries."""
+
+    #: The sender table's bound: past it the sender with the lowest
+    #: sequence is dropped.
+    MAX_SENDERS = 4096
+
+    def __init__(self, max_age_s: float = 300.0, time_fn=None):
+        import threading
+        import time as _time
+
+        self.max_age_s = float(max_age_s)
+        self._time = time_fn if time_fn is not None else _time.time
+        self._last: dict = {}
+        self._lock = threading.Lock()
+        self.rejected = 0
+
+    def check(self, sender: int, seq: int) -> None:
+        """Record (sender, seq); raises InvalidConfigError on a stale or
+        repeated sequence."""
+        with self._lock:
+            last = self._last.get(sender)
+            if last is None:
+                floor = int((self._time() - self.max_age_s) * 1e6)
+                if seq < floor:
+                    self.rejected += 1
+                    raise InvalidConfigError(
+                        f"stale DCN push rejected (sender seq {seq} is "
+                        f"older than the {self.max_age_s:g}s replay window)")
+            elif seq <= last:
+                self.rejected += 1
+                raise InvalidConfigError(
+                    f"replayed DCN push rejected (seq {seq} <= last "
+                    f"accepted {last} for this sender)")
+            self._last[sender] = seq
+            if len(self._last) > self.MAX_SENDERS:
+                self._last.pop(min(self._last, key=self._last.get))
+
+
+def wrap_dcn_auth(frame: bytes, secret: str, *, sender=None,
+                  seq=None) -> bytes:
+    """Re-frame a DCN push with the HMAC envelope on its body: RLA2 when
+    ``sender`` and ``seq`` are given (what DcnPusher sends), else RLA1."""
+    import hashlib
+    import hmac as _hmac
+
+    _length, type_, req_id = _HDR.unpack_from(frame)
+    body = frame[HEADER_SIZE:]
+    if sender is not None:
+        sb = _DCN_SEQ.pack(sender, seq)
+        tag = _hmac.new(secret.encode(), sb + body, hashlib.sha256).digest()
+        body = DCN_AUTH_MAGIC2 + tag + sb + body
+    else:
+        tag = _hmac.new(secret.encode(), body, hashlib.sha256).digest()
+        body = DCN_AUTH_MAGIC + tag + body
+    return _HDR.pack(1 + 8 + len(body), type_, req_id) + body
+
+
+def unwrap_dcn_auth(body: bytes, secret, guard=None) -> bytes:
+    """The push body inside its envelope, checked against the receiver's
+    ``secret`` (None: every form passes) and ``guard``. Raises
+    InvalidConfigError on a missing or bad tag where a secret is
+    required, and on a stale or repeated sequence."""
+    if body[:4] == DCN_AUTH_MAGIC2:
+        head = 4 + _DCN_TAG_LEN + _DCN_SEQ.size
+        if len(body) < head:
+            raise ProtocolError("truncated DCN auth envelope")
+        tag = body[4:4 + _DCN_TAG_LEN]
+        signed = body[4 + _DCN_TAG_LEN:]
+        sender, seq = _DCN_SEQ.unpack_from(signed)
+        if secret is not None:
+            import hashlib
+            import hmac as _hmac
+
+            want = _hmac.new(secret.encode(), signed, hashlib.sha256).digest()
+            if not _hmac.compare_digest(tag, want):
+                raise InvalidConfigError("DCN push auth tag mismatch")
+        # After the tag: a forged frame must not move a real sender's
+        # watermark.
+        if guard is not None:
+            guard.check(sender, seq)
+        return body[head:]
+    if body[:4] == DCN_AUTH_MAGIC:
+        if len(body) < 4 + _DCN_TAG_LEN:
+            raise ProtocolError("truncated DCN auth envelope")
+        if secret is not None:
+            raise InvalidConfigError(
+                "legacy unsequenced DCN envelope (RLA1) rejected: this "
+                "server requires replay-protected pushes (RLA2)")
+        return body[4 + _DCN_TAG_LEN:]
+    if secret is not None:
+        raise InvalidConfigError(
+            "unauthenticated DCN push rejected (this server requires "
+            "--dcn-secret)")
+    return body
+
+
+def _dcn_frame(req_id: int, body: bytes, secret, sender, seq) -> bytes:
+    frame = _HDR.pack(1 + 8 + len(body), T_DCN_PUSH, req_id) + body
+    return (wrap_dcn_auth(frame, secret, sender=sender, seq=seq)
+            if secret is not None else frame)
+
+
+def encode_dcn_slabs(req_id: int, periods, slabs, sub_us: int,
+                     secret=None, *, sender=None, seq=None) -> bytes:
+    """periods int64[k] in sub-window units, slabs int32[k, d, w]
+    (``parallel.dcn.export_completed``'s)."""
+    k = int(periods.shape[0])
+    body = (_DCN_HEAD.pack(DCN_KIND_SLABS) + _S64.pack(sub_us)
+            + _U32.pack(k)
+            + np.ascontiguousarray(periods, dtype=np.int64).tobytes()
+            + np.ascontiguousarray(slabs, dtype=np.int32).tobytes())
+    return _dcn_frame(req_id, body, secret, sender, seq)
+
+
+def encode_dcn_debt(req_id: int, delta, secret=None, *, sender=None,
+                    seq=None) -> bytes:
+    """delta int64[d, w] (``parallel.dcn.export_debt``'s)."""
+    body = (_DCN_HEAD.pack(DCN_KIND_DEBT)
+            + np.ascontiguousarray(delta, dtype=np.int64).tobytes())
+    return _dcn_frame(req_id, body, secret, sender, seq)
+
+
+def encode_dcn_lease(req_id: int, payload: dict, secret=None, *,
+                     sender=None, seq=None) -> bytes:
+    """Lease revocation gossip: a JSON payload ({"scope": "key"|"all",
+    "key_hash": ..., "reason": ..., "epoch": ...}) in the same envelope
+    as the slabs."""
+    import json
+
+    jb = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+    body = _DCN_HEAD.pack(DCN_KIND_LEASE) + _U32.pack(len(jb)) + jb
+    return _dcn_frame(req_id, body, secret, sender, seq)
+
+
+def parse_dcn_lease(payload: bytes) -> dict:
+    """The JSON payload of a lease gossip body (after its kind byte)."""
+    import json
+
+    if len(payload) < 4:
+        raise ProtocolError("short lease revocation body")
+    (n,) = _U32.unpack_from(payload)
+    if len(payload) != 4 + n:
+        raise ProtocolError("bad lease revocation body")
+    return json.loads(payload[4:4 + n].decode("utf-8"))
+
+
+def parse_dcn(body: bytes, d: int, w: int, sub_us: int):
+    """-> (DCN_KIND_SLABS, periods int64[k], slabs int32[k, d, w]) or
+    (DCN_KIND_DEBT, delta int64[d, w], None), checked against the
+    receiver's geometry (and, for slabs, its sub-window length)."""
+    if len(body) < 1:
+        raise ProtocolError("empty DCN body")
+    (kind,) = _DCN_HEAD.unpack_from(body)
+    payload = body[1:]
+    if kind == DCN_KIND_SLABS:
+        if len(payload) < 12:
+            raise ProtocolError("short DCN slabs body")
+        (peer_sub,) = _S64.unpack_from(payload)
+        if peer_sub != sub_us:
+            raise InvalidConfigError(
+                f"DCN peer sub-window {peer_sub}us != local {sub_us}us "
+                "(window mismatch or mid-migration) — periods would "
+                "merge into the wrong sub-windows")
+        (k,) = _U32.unpack_from(payload, 8)
+        want = 12 + k * 8 + k * d * w * 4
+        if len(payload) != want:
+            raise ProtocolError(
+                f"DCN slabs payload {len(payload)}B != {want}B for "
+                f"k={k} d={d} w={w} (geometry mismatch?)")
+        periods = np.frombuffer(payload, dtype=np.int64, count=k, offset=12)
+        slabs = np.frombuffer(payload, dtype=np.int32,
+                              offset=12 + k * 8).reshape(k, d, w)
+        return kind, periods, slabs
+    if kind == DCN_KIND_DEBT:
+        want = d * w * 8
+        if len(payload) != want:
+            raise ProtocolError(
+                f"DCN debt payload {len(payload)}B != {want}B for "
+                f"d={d} w={w} (geometry mismatch?)")
+        return kind, np.frombuffer(payload, dtype=np.int64).reshape(d, w), None
+    raise ProtocolError(f"unknown DCN kind {kind}")

@@ -54,8 +54,18 @@ as rid-0 LEASE_REVOKE frames down the granting connection (TCP, the
 unix socket or the reply ring), and shutdown pushes a revoke-all while
 the connections are still open. Without ``leases`` the lease frames
 are answered E_INVALID_CONFIG. ``--backend mesh`` serves the composite
-limiter (the sliced mesh with either router) through this door. The
-fleet is not ported (ROADMAP A13d, part two); the native door is serving/native_server.py, and the HTTP
+limiter (the sliced mesh with either router) through this door.
+
+Cross-pod DCN pushes, as in the JAX door: with ``dcn=True`` a DCN_PUSH
+frame may be up to ``protocol.MAX_DCN_FRAME`` long (every other frame,
+and every frame of a server without it, keeps ``MAX_FRAME``) and is
+merged in the executor into every dispatch unit of the limiter
+(``sub_limiters()``: the one limiter, or the mesh's slices) through
+``dcn_peer.merge_push_payload``; with ``dcn_secret`` a push must carry a
+valid RLA2 envelope whose (sender, seq) the door's replay guard has not
+seen. Lease gossip in a push goes to ``leases``. Without ``dcn`` a push
+is answered E_INVALID_CONFIG. The fleet is not ported (ROADMAP A13d,
+part two); the native door is serving/native_server.py, and the HTTP
 gateway and gRPC run beside either door in the binary
 (serving/http_gateway.py, serving/grpc_server.py, serving/__main__.py).
 """
@@ -97,8 +107,17 @@ class RateLimitServer:
                  snapshot: Optional[Callable[[], dict]] = None,
                  max_window: Optional[int] = None, shm: bool = False,
                  shm_dir: str = "/dev/shm", shm_ring_bytes: int = 0,
-                 leases=None):
+                 leases=None, dcn: bool = False,
+                 dcn_secret: Optional[str] = None):
         self.limiter = limiter
+        #: Take DCN pushes (and their larger frame cap); off by default,
+        #: so that a plain deployment keeps the 1 MiB bound on every
+        #: frame. With ``dcn_secret`` a push must carry a valid RLA2
+        #: envelope.
+        self.dcn = dcn
+        self.dcn_secret = dcn_secret
+        #: Per-sender sequence watermarks of the RLA2 envelope.
+        self._dcn_guard = p.DcnReplayGuard() if dcn else None
         #: LeaseManager; None answers the lease frames E_INVALID_CONFIG.
         self.leases = leases
         #: The shared-memory lane: off by default, and then SHM_HELLO
@@ -158,11 +177,14 @@ class RateLimitServer:
 
     async def shutdown(self) -> None:
         """Graceful: stop accepting, answer what is in flight (drain the
-        batcher), then close the connections and the batcher."""
+        batcher), then close the connections and the batcher. The
+        listener's ``wait_closed`` comes after the connections are
+        closed: since Python 3.12 it waits for every open connection,
+        and a client that keeps its connection (a DCN peer's pusher)
+        would hold the shutdown forever."""
         self._serving = False
         if self._server is not None:
             self._server.close()
-            await self._server.wait_closed()
         if self.leases is not None:
             # Push revoke-all while the granting connections are still
             # open: holders stop answering locally instead of spending
@@ -173,6 +195,8 @@ class RateLimitServer:
         for t in list(self._conn_tasks):
             t.cancel()
         await asyncio.gather(*list(self._conn_tasks), return_exceptions=True)
+        if self._server is not None:
+            await self._server.wait_closed()
         self.batcher.close()
         self.registry.remove_collect_hook(self._collect_transport_metrics)
         for lane in list(self._shm_lanes):
@@ -465,7 +489,8 @@ class RateLimitServer:
             # to what the socket loop below would read; replies go back
             # through the reply ring.
             try:
-                length, rtype, req_id = p.parse_header(frame)
+                length, rtype, req_id = p.parse_header(
+                    frame, allow_dcn=self.dcn)
                 if len(frame) != length + 4:
                     raise p.ProtocolError("ring record length mismatch")
                 body = frame[p.HEADER_SIZE:]
@@ -534,7 +559,8 @@ class RateLimitServer:
             while True:
                 try:
                     hdr = await reader.readexactly(p.HEADER_SIZE)
-                    length, type_, req_id = p.parse_header(hdr)
+                    length, type_, req_id = p.parse_header(
+                        hdr, allow_dcn=self.dcn)
                     body = await reader.readexactly(length - 9)
                     # The lane's upgrade: an exact match on the raw type
                     # byte, before any flag is stripped.
@@ -649,6 +675,20 @@ class RateLimitServer:
         return await loop.run_in_executor(
             None, serve_lease_frame, self.leases, type_, req_id, body, push)
 
+    async def _handle_dcn(self, req_id: int, body: bytes) -> bytes:
+        """Merge one push into every dispatch unit (a sliced mesh's
+        slices: keys hash-route across them), in the executor: the merge
+        takes each unit's lock and copies to its device."""
+        from ratelimiter_tpu_torch.observability.decorators import undecorated
+        from ratelimiter_tpu_torch.serving.dcn_peer import merge_push_payload
+
+        lims = undecorated(self.limiter).sub_limiters()
+        on_lease = self.leases.on_gossip if self.leases is not None else None
+        await asyncio.get_running_loop().run_in_executor(
+            None, merge_push_payload, lims, body, self.dcn_secret,
+            self._dcn_guard, on_lease)
+        return p.encode_ok(req_id)
+
     async def _handle_frame(self, type_: int, req_id: int, body: bytes,
                             writer: asyncio.StreamWriter,
                             write_lock: asyncio.Lock,
@@ -698,10 +738,12 @@ class RateLimitServer:
                     None, self.registry.render)
                 out = p.encode_metrics(req_id, text)
             elif type_ == p.T_DCN_PUSH:
-                # No DCN in the port: the JAX door's answer without it.
-                out = p.encode_error(req_id, p.E_INVALID_CONFIG,
-                                     "DCN exchange not enabled on this "
-                                     "server")
+                if not self.dcn:
+                    out = p.encode_error(req_id, p.E_INVALID_CONFIG,
+                                         "DCN exchange not enabled on this "
+                                         "server")
+                else:
+                    out = await self._handle_dcn(req_id, body)
             elif type_ in (p.T_LEASE_GRANT, p.T_LEASE_RENEW,
                            p.T_LEASE_RETURN):
                 out = await self._handle_lease(type_, req_id, body,

@@ -38,9 +38,14 @@ Memory-model note: CPython has no release/acquire intrinsics for mmap
 stores.  We rely on (a) x86-64 TSO — stores from one process become
 visible to another in program order — and (b) the CPython eval loop
 acting as a compiler barrier between bytecodes, the same assumptions
-the mmap-backed WAL makes.  The 8-byte head/tail stores go through
-``struct.pack_into`` on an aligned offset, which libc performs as a
-single mov on this platform.  TSO does NOT order a store before a later
+the mmap-backed WAL makes.  The 8-byte head/tail words (and the 4-byte
+flags) are read and written through memoryview casts of the ctrl block:
+an item access is one aligned memcpy of its width, a single load or
+store, so the other process sees each position whole.  ``struct``'s
+``pack_into``/``unpack_from`` move the bytes one at a time, so a reader
+racing them can see a torn position (C17: a head or tail read as 0 or
+as a mix of two values, after which the C++ client read past the
+published tail and spun in its pop).  TSO does NOT order a store before a later
 load, and the doorbell is a Dekker pair: the producer stores ``tail``
 then loads ``consumer_sleeping``, the consumer stores
 ``consumer_sleeping`` then loads ``tail`` (and likewise ``head`` against
@@ -101,8 +106,6 @@ MAX_RING = 1 << 26
 DEFAULT_RING = 1 << 21  # 2 MiB per direction
 
 _FILE_HDR = struct.Struct("<QIIIIQQQQ")
-_U32 = struct.Struct("<I")
-_U64 = struct.Struct("<Q")
 _REC_HDR = struct.Struct("<II")
 
 # Bounded spin before arming the doorbell.  Python iterations are ~100x
@@ -159,6 +162,23 @@ def total_bytes(req_cap: int, rep_cap: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _word(mm, off: int, fmt: str) -> int:
+    """The ctrl word at ``off`` (``fmt`` "Q" or "I"), read with one
+    aligned load: a memoryview cast's item is one memcpy of its width.
+    ``struct.unpack_from`` reads the bytes one at a time, so it could
+    see a word the other process is storing half old, half new (C17).
+    The views live for the call alone, so the mapping stays closable."""
+    size = 8 if fmt == "Q" else 4
+    return memoryview(mm)[off:off + size].cast(fmt)[0]
+
+
+def _set_word(mm, off: int, fmt: str, v: int) -> None:
+    """Store the ctrl word at ``off`` with one aligned store (as
+    ``_word`` reads it; ``struct.pack_into`` writes byte by byte)."""
+    size = 8 if fmt == "Q" else 4
+    memoryview(mm)[off:off + size].cast(fmt)[0] = v
+
+
 class ShmRing:
     """One direction of the lane over a shared mmap.
 
@@ -176,37 +196,39 @@ class ShmRing:
         self._mask = cap - 1
         self.highwater = 0
 
-    # ctrl-word accessors (offsets per shm_ring.h RingCtrl)
+    # ctrl-word accessors (offsets per shm_ring.h RingCtrl: head @0,
+    # consumer_sleeping @8, tail @64, producer_waiting @72), each one
+    # aligned load or store (_word, _set_word).
     def _head(self) -> int:
-        return _U64.unpack_from(self._mm, self._ctrl)[0]
+        return _word(self._mm, self._ctrl, "Q")
 
     def _set_head(self, v: int) -> None:
-        _U64.pack_into(self._mm, self._ctrl, v)
+        _set_word(self._mm, self._ctrl, "Q", v)
 
     def _tail(self) -> int:
-        return _U64.unpack_from(self._mm, self._ctrl + 64)[0]
+        return _word(self._mm, self._ctrl + 64, "Q")
 
     def _set_tail(self, v: int) -> None:
-        _U64.pack_into(self._mm, self._ctrl + 64, v)
+        _set_word(self._mm, self._ctrl + 64, "Q", v)
 
     # The flag reads follow a publish (tail or head) and the arming
     # stores precede a recheck of the ring: both halves of the Dekker
     # pair are fenced (module docstring).
     def consumer_sleeping(self) -> bool:
         _fence()
-        return _U32.unpack_from(self._mm, self._ctrl + 8)[0] != 0
+        return _word(self._mm, self._ctrl + 8, "I") != 0
 
     def set_sleeping(self, flag: bool) -> None:
-        _U32.pack_into(self._mm, self._ctrl + 8, 1 if flag else 0)
+        _set_word(self._mm, self._ctrl + 8, "I", 1 if flag else 0)
         if flag:
             _fence()
 
     def producer_waiting(self) -> bool:
         _fence()
-        return _U32.unpack_from(self._mm, self._ctrl + 72)[0] != 0
+        return _word(self._mm, self._ctrl + 72, "I") != 0
 
     def set_producer_waiting(self, flag: bool) -> None:
-        _U32.pack_into(self._mm, self._ctrl + 72, 1 if flag else 0)
+        _set_word(self._mm, self._ctrl + 72, "I", 1 if flag else 0)
         if flag:
             _fence()
 

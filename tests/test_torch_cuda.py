@@ -1725,3 +1725,88 @@ def test_sliced_mesh_on_card_equals_cpu(dev, router, algo):
             np.testing.assert_array_equal(x[k], y[k], err_msg=k)
     card.close()
     cpu.close()
+
+
+@pytest.mark.parametrize("algo,hh", [("SLIDING_WINDOW", 16),
+                                     ("SLIDING_WINDOW", 0),
+                                     ("TOKEN_BUCKET", 0)])
+def test_dcn_mirror_group_on_card_equals_cpu(dev, algo, hh):
+    """Two pods on the card and their twins on the CPU, the same traffic
+    and a DcnMirrorGroup sync after each step: every decision and every
+    pod's state equal; the merges run on the card (no state tensor
+    leaves it), and the step kernels then decide on the merged state."""
+    from ratelimiter_tpu_torch.parallel.dcn import DcnMirrorGroup
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=10, window=6.0,
+                 sketch=SketchParams(depth=4, width=4096, sub_windows=6,
+                                     hh_slots=hh, hh_promote_fraction=0.2))
+
+    def pods(device):
+        return [SketchTokenBucketLimiter(cfg, ManualClock(1e9),
+                                         device=device)
+                if algo == "TOKEN_BUCKET" else
+                SketchLimiter(cfg, ManualClock(1e9), device=device)
+                for _ in range(2)]
+
+    gpu, cpu = pods(dev), pods("cpu")
+    groups = DcnMirrorGroup(gpu), DcnMirrorGroup(cpu)
+    rng = np.random.default_rng(11)
+    sc.reset_launch_counts()
+    bc.reset_launch_counts()
+    for step in range(10):
+        keys = [f"u{int(k)}" for k in rng.integers(0, 24, 40)] + ["hot"] * 6
+        a = gpu[step % 2].allow_batch(keys)
+        b = cpu[step % 2].allow_batch(keys)
+        np.testing.assert_array_equal(a.allowed, b.allowed)
+        np.testing.assert_array_equal(a.remaining, b.remaining)
+        for p in gpu + cpu:
+            p.clock.advance(0.7)
+        assert groups[0].sync() == groups[1].sync()
+        for g, c in zip(gpu, cpu):
+            for k, v in g._state.items():
+                assert v.device.type == ("cpu" if k in ("rem", "last",
+                                                        "tn_period")
+                                         else "cuda"), k
+            ga, ca = g.capture_state()[1], c.capture_state()[1]
+            for k in ca:
+                np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+    counts = (bc if algo == "TOKEN_BUCKET" else sc).launch_counts()
+    assert sum(counts.values()) > 0
+    for p in gpu + cpu:
+        p.close()
+
+
+@pytest.mark.parametrize("algo", ["SLIDING_WINDOW", "TOKEN_BUCKET"])
+def test_reshard_restore_on_card_equals_cpu(dev, algo, tmp_path):
+    """A 4-slice snapshot taken on the card restores on 2 and on 3
+    slices of the card as on the CPU: equal slice states and
+    decisions."""
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+
+    cfg = Config(algorithm=getattr(Algorithm, algo), limit=8, window=60.0,
+                 sketch=SketchParams(depth=2, width=1024, sub_windows=6))
+    src = SlicedMeshLimiter(cfg, ManualClock(1e9), devices=[dev] * 4)
+    rng = np.random.default_rng(4)
+    for _ in range(5):
+        src.allow_batch([f"k{int(i)}" for i in rng.integers(0, 50, 64)])
+        src.clock.advance(3.0)
+    src.set_override("k1", 2)
+    path = str(tmp_path / "four.npz")
+    src.save(path)
+    now = src.clock.now()
+    src.close()
+    keys = [f"k{i}" for i in range(50)]
+    for m in (2, 3):
+        g = SlicedMeshLimiter(cfg, ManualClock(now), devices=[dev] * m)
+        c = SlicedMeshLimiter(cfg, ManualClock(now), devices=["cpu"] * m)
+        g.restore(path)
+        c.restore(path)
+        for sg, sc_ in zip(g.sub_limiters(), c.sub_limiters()):
+            ga, ca = sg.capture_state()[1], sc_.capture_state()[1]
+            for k in ca:
+                np.testing.assert_array_equal(ga[k], ca[k], err_msg=k)
+        a, b = g.allow_batch(keys), c.allow_batch(keys)
+        np.testing.assert_array_equal(a.allowed, b.allowed)
+        np.testing.assert_array_equal(a.remaining, b.remaining)
+        g.close()
+        c.close()

@@ -11,8 +11,8 @@ resets routed to the owner; launch/resolve against the synchronous
 call; the single-owner passthrough and the fail-open OR; the write-all
 control plane (overrides, ``update_limit``, ``update_window``), the
 token bucket's refill, the factory and ``MeshSpec``; capture and
-restore at the same slice count (across the packages too) and the
-refusal at another count (resharding is ROADMAP A8b); both doors over
+restore at the same slice count (across the packages too) and across
+counts (re-bucketed, equal to the JAX restore); both doors over
 ``--device cpu --backend mesh --mesh-devices 4`` against a replay, a
 kill -9 recovery of the durable binary on each door, and the binary's
 flag refusals.
@@ -377,21 +377,60 @@ def test_capture_restore_same_count_across_packages(tmp_path, saver):
 
 
 def test_restore_refuses_another_slice_count(tmp_path):
-    _, t = _pair(devices=2)
+    """Across slice counts a restore re-buckets: 2 -> 3
+    equals the JAX mesh's restore of the same file, and so does each
+    ``restore_slice`` (the JAX package refuses that one); what is still
+    refused is a slice out of range and a snapshot with no slice count."""
+    j, t = _pair(devices=2)
     path = str(tmp_path / "two.npz")
-    t.allow_batch(["a", "b"])
+    t.allow_batch(["a", "b"] * 4)
     t.save(path)
-    _, t3 = _pair(devices=3)
+    j3, t3 = _pair(devices=3)
     try:
-        with pytest.raises(T.CheckpointError, match="A8b"):
-            t3.restore(path)
-        with pytest.raises(T.CheckpointError, match="2 slice"):
-            t3.restore_slice(path, 0)
+        j3.restore(path)
+        t3.restore(path)
+        _same_slices(j3, t3)
+        _same(j3.allow_batch(["a", "b", "c"]), t3.allow_batch(["a", "b",
+                                                                "c"]))
+        t3.restore_slice(path, 0)
         with pytest.raises(T.CheckpointError, match="out of range"):
             t.restore_slice(path, 5)
         t.restore_slice(path, 1)
+        plain = str(tmp_path / "plain.npz")
+        t.slices[0].save(plain)
+        with pytest.raises(T.CheckpointError):
+            t3.restore(plain)
     finally:
-        _close(t, t3)
+        _close(j, t, j3, t3)
+
+
+def test_restore_rebuckets_device_count_change(tmp_path):
+    """tests/test_mesh_serving.py::test_restore_rebuckets_device_count_change
+    in the port: a 4-slice snapshot restored on 2 slices carries the
+    overrides and the counters, never admits what the source denies,
+    and equals the JAX mesh's restore slice by slice."""
+    j4, t4 = _pair(devices=4, limit=4)
+    keys = [f"k{i}" for i in range(40)]
+    try:
+        _same(j4.allow_batch(keys), t4.allow_batch(keys))
+        for m in (j4, t4):
+            m.set_override("vip", 9)
+        path = str(tmp_path / "mesh4.npz")
+        t4.save(path)
+        src = t4.allow_batch(keys)
+    finally:
+        _close(j4, t4)
+    j2, t2 = _pair(devices=2, limit=4)
+    try:
+        j2.restore(path)
+        t2.restore(path)
+        _same_slices(j2, t2)
+        assert t2.get_override("vip").limit == 9
+        got = t2.allow_batch(keys)
+        _same(j2.allow_batch(keys), got)
+        assert not (got.allowed & ~src.allowed).any()
+    finally:
+        _close(j2, t2)
 
 
 # ------------------------------------------------------------ the binary
@@ -417,6 +456,7 @@ def _start(args, *, timeout=60):
                 found.set()
         found.set()
 
+    proc.reader_lines = lines
     proc.reader = threading.Thread(target=read, daemon=True)
     proc.reader.start()
     if found.wait(timeout):
@@ -587,3 +627,61 @@ def test_binary_refuses_mesh_flag_misuse(argv, msg):
     with pytest.raises(SystemExit) as e:
         build_config(parse_args(argv))
     assert msg in str(e.value)
+
+
+def test_device_count_change_rebuckets_on_restart(tmp_path):
+    """tests/test_mesh_serving.py::test_device_count_change_rebuckets_on_restart
+    in the port: the durable binary at ``--mesh-devices 2`` spends a key,
+    snapshots and is killed; restarted at 4 on the same directory it
+    logs the re-bucketing and the key stays denied."""
+    from ratelimiter_tpu_torch.serving import Client
+
+    flags = ["--backend", "mesh", "--limit", "100", "--window", "600",
+             "--sketch-width", "1024", "--sub-windows", "6",
+             "--snapshot-dir", str(tmp_path / "snap"),
+             "--snapshot-interval", "1000"]
+    proc, port, _ = _start(flags + ["--mesh-devices", "2"])
+    try:
+        with Client(port=port, timeout=60.0) as c:
+            assert c.allow_n("k", 100).allowed
+            c.snapshot()
+    finally:
+        _stop(proc, signal.SIGKILL)
+    proc, port, _ = _start(flags + ["--mesh-devices", "4"])
+    try:
+        with Client(port=port, timeout=60.0) as c:
+            assert not c.allow_n("k", 1).allowed
+            assert c.allow_n("other", 1).allowed
+    finally:
+        _stop(proc)
+    assert any("re-bucketing" in ln for ln in proc.reader_lines)
+
+
+def test_dcn_peer_gate_accepts_mesh_rejects_host_backends():
+    """tests/test_mesh_serving.py::test_dcn_peer_gate_accepts_mesh_rejects_host_backends
+    in the port: ``--dcn-peer`` with ``--backend exact`` is refused
+    before any limiter is built; with ``--backend mesh`` the binary
+    serves (its pushers, one a slice, fail quietly against a closed
+    peer)."""
+    out = subprocess.run(
+        [sys.executable, "-m", "ratelimiter_tpu_torch.serving",
+         "--device", "cpu", "--backend", "exact", "--algorithm",
+         "sliding_window", "--dcn-peer", "127.0.0.1:1", "--port", "0"],
+        cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "sketch-family" in out.stderr
+    proc, port, line = _start(
+        ["--backend", "mesh", "--mesh-devices", "2", "--sketch-depth",
+         "2", "--sketch-width", "1024", "--sub-windows", "6",
+         "--dcn-peer", "127.0.0.1:1", "--dcn-interval", "0.2"])
+    try:
+        import time
+
+        time.sleep(0.5)
+        from ratelimiter_tpu_torch.serving import Client
+
+        with Client(port=port, timeout=60.0) as c:
+            assert c.allow("k").allowed
+    finally:
+        _stop(proc)
+    assert proc.returncode == 0

@@ -517,7 +517,9 @@ for name in ("checkpoint", "observability.decorators",
              "leases.listener", "leases.cache", "leases.driver",
              "parallel", "parallel.mesh", "parallel.limiter",
              "parallel.mesh_kernels", "parallel.collective",
-             "parallel.quarantine", "ops.route_kernels"):
+             "parallel.quarantine", "ops.route_kernels", "parallel.dcn",
+             "parallel.reshard", "serving.dcn_peer", "tools",
+             "tools.rebucket"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 # The gRPC message classes build from the committed descriptor alone.
@@ -538,6 +540,7 @@ print(len(names), bad)
     assert bad.strip() == "[]"
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
     assert "ratelimiter_tpu_torch.parallel.collective" in out.stderr
+    assert "ratelimiter_tpu_torch.serving.dcn_peer" in out.stderr
 
 
 @pytest.mark.parametrize("argv", [["--controller"], ["--tenant", "a=5"],

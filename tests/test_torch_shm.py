@@ -522,6 +522,73 @@ def test_c16_loadgen_over_the_asyncio_doors_lane_completes(loadgens, gen,
     assert out["completed"] > 0, out
 
 
+_TEAR_READER = r"""
+#include <atomic>
+#include <chrono>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <unistd.h>
+int main(int argc, char** argv) {
+  int fd = open(argv[1], O_RDONLY);
+  size_t len = (size_t)atol(argv[2]), off = (size_t)atol(argv[3]);
+  void* m = mmap(nullptr, len, PROT_READ, MAP_SHARED, fd, 0);
+  auto* w = reinterpret_cast<std::atomic<uint64_t>*>((char*)m + off);
+  auto stop = std::chrono::steady_clock::now() + std::chrono::milliseconds(
+      atoi(argv[4]));
+  uint64_t last = 0, tears = 0, reads = 0;
+  printf("ready\n");
+  fflush(stdout);
+  while (std::chrono::steady_clock::now() < stop) {
+    uint64_t x = w->load(std::memory_order_acquire);
+    ++reads;
+    if (x < last) ++tears; else last = x;
+  }
+  printf("%llu %llu\n", (unsigned long long)reads, (unsigned long long)tears);
+}
+"""
+
+
+def test_c17_ring_positions_are_stored_whole(tmp_path):
+    """C17: the ring's tail, stored by the Python side while a C++ reader
+    in another process loads it as one 8-byte word, never reads smaller
+    than a value it read before (the tail only grows). Stored through
+    ``struct.pack_into`` (byte by byte) it read torn, some millions of
+    times a second; stored whole it reads torn never."""
+    src, exe = tmp_path / "tear.cpp", str(tmp_path / "tear")
+    src.write_text(_TEAR_READER)
+    subprocess.run(["g++", "-O2", "-std=c++17", str(src), "-o", exe],
+                   check=True, capture_output=True, timeout=120)
+    cap = shm_lane.MIN_RING
+    path = tmp_path / "lane"
+    size = shm_lane.total_bytes(cap, cap)
+    path.write_bytes(b"\0" * size)
+    with open(path, "r+b") as f:
+        mm = mmap.mmap(f.fileno(), size)
+    shm_lane.init_header(mm, cap, cap)
+    _, ring = shm_lane.attach(mm, server=False)
+    reader = subprocess.Popen(
+        [exe, str(path), str(size), str(ring._ctrl + 64), "700"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        assert reader.stdout.readline().strip() == "ready"
+        v, deadline = 0, time.monotonic() + 0.5
+        while time.monotonic() < deadline:
+            for _ in range(2000):
+                v += 0xFF                 # carries across byte boundaries
+                ring._set_tail(v)
+        reads, tears = map(int, reader.communicate(timeout=30)[0].split())
+    finally:
+        if reader.poll() is None:
+            reader.kill()
+            reader.wait()
+    assert ring._tail() == v
+    mm.close()
+    assert reads > 0 and tears == 0, (reads, tears)
+
+
 _KILL9 = """
 import os, struct, sys
 sys.path.insert(0, {repo!r})
