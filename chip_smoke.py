@@ -10,6 +10,7 @@
     python3 chip_smoke.py --grpc     # gRPC and quota leases behind both doors
     python3 chip_smoke.py --mesh     # the sliced mesh at full length
     python3 chip_smoke.py --dcn      # the DCN tier and resharding
+    python3 chip_smoke.py --fleet    # the fleet: forwarding, failover, chaos
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -184,7 +185,7 @@ Phases (each raises on failure; the script exits non-zero):
    it alone, ~2-3 min after the build): (a) the three doors above
    (windowed CU, CU with the side table, TB-c2) again under the binary's
    full stack (``--trace --circuit-breaker --log-decisions
-   --log-redact-keys --flight-recorder``; 24 frames a connection in the
+   --log-redact-keys --flight-recorder``; 12 frames a connection in the
    whole run, 48 alone), each held as above, with every frame stage's
    ``rate_limiter_stage_seconds`` count non-zero; (b) 32 traced
    ALLOW_HASHED and 8 traced ALLOW_N frames in-process, one at a time:
@@ -206,16 +207,17 @@ Phases (each raises on failure; the script exits non-zero):
    kernels by name; the top 10 device ops and the host ms a batch in
    each range are printed; (g) ``time_door`` on windowed CU and TB-c2,
    bare (``--no-metrics --no-event-journal``), default and full stack in
-   turns, one round in the whole run (three under ``--observe``):
-   decisions/s and p50/p99 a round, the flight recorder's split by
-   stage, printed (nothing is gated on them);
+   turns, three rounds under ``--observe``; in the whole run one round
+   on windowed CU alone, its default-stack run phase 4's: decisions/s
+   and p50/p99 a round, the flight recorder's split by stage, printed
+   (nothing is gated on them);
    gateway. the HTTP gateway, the shadow auditor and the SLO tracker
    (``run_gateway``; ``--gateway`` runs it alone with the twin's kernel
    rows): the binary's own ``serve`` in-process (``in_process_binary``)
    with ``--http-port``, every lever and its token, ``--flight-recorder``
    and ``--audit --audit-sample 1 --audit-twin`` over a recording proxy,
    on config 3 with ``--hh-slots 256`` and on TB-c2 (``check_gateway``):
-   (a) 8 connections x 12 binary frames in the whole run (x 48,
+   (a) 8 connections x 8 binary frames in the whole run (x 48,
    phase 4's traffic, under ``--gateway``) and 8 HTTP
    client threads x 40 /v1/allow requests (``gateway_client``, a child
    process: each thread its own keys, some in X-User-ID, with a
@@ -241,10 +243,11 @@ Phases (each raises on failure; the script exits non-zero):
    changed and deleted; /healthz's hierarchy block) and the durable binary
    (/v1/snapshot writes the snapshot it names; /healthz's persistence
    status). Readings: the door's decisions/s and frame latency with no
-   audit, ``--audit`` (sample 64) and ``--audit --audit-twin
-   --audit-sample 1`` in turns, 3 rounds, with the auditor's audited and
-   dropped frames and its seconds to flush; /v1/allow requests/s and
-   p50/p99 at 8 and 32 client threads;
+   audit, ``--audit`` (sample 64) and, under ``--gateway``, ``--audit
+   --audit-twin --audit-sample 1`` in turns, one round in the whole run
+   (3 under ``--gateway``), with the auditor's audited and dropped
+   frames and its seconds to flush; under ``--gateway`` /v1/allow
+   requests/s and p50/p99 at 8 and 32 client threads;
    native. the native C++ door (``run_native``; ``--native`` runs it
    alone): (a) ``NativeRateLimitServer`` on the card over config 3's
    windowed CU limiter behind the recording proxy and the default stack,
@@ -326,6 +329,46 @@ Phases (each raises on failure; the script exits non-zero):
    restore seconds at config 3, 4 -> 2 and 2 -> 3 slices, and the
    native door's hashed decisions/s under the load generator without
    and with a 1 s pusher;
+   fleet. the fleet (``run_fleet``; ``--fleet`` runs it alone), in the
+   deployment of the repo's fleet benchmark (config 3 members with
+   ``--max-batch 8192 --max-delay-us 500 --inflight 4`` and the
+   ``--fleet-*`` flags of ``FLEET_FLAGS``, an affine map of 16 buckets a
+   host): (a) in process, host A ``FleetForwarder`` over a card limiter
+   (config 3 with 256 side-table slots, then TB-c2), host B a port door
+   over another, one manual clock: a frame of A's own rows, one of B's
+   sent through A, then 8 mixed string and raw-id frames of 2048 rows
+   crossing the clock, every answer and both hosts' state equal to CPU
+   replays of each owner's rows; then B's state snapshotted and adopted
+   by A on a card unit (``build_standby``), two frames of B's rows
+   through A equal to a CPU standby from the same directory; each
+   stage's launches counted from 0 (front, admission and update on each
+   host and on the adopted unit); (b) two member binaries on the card
+   (``FleetPair``: h0 the asyncio door, h1 the native door, each with a
+   snapshot directory and an HTTP gateway), both heard before any
+   traffic at epoch 1: a seeded sample through both doors equal to the
+   CPU replay, a key spent through one door denied on the other,
+   ``FleetClient`` forwarding nothing; then the source's load
+   (``FleetLoad``: one load process a member, 4 connections each with
+   12 frames of 2048 raw ids in flight, 1 s warm-up and 3 s measured),
+   affine and mixed: decisions/s, frame p50/p99/max, the forwarded
+   fraction, forward RTT, forward errors, the epoch; then, on two fresh
+   members (h0 with migration-stall armed), every check below holds a
+   string frame and a raw-id frame of fresh and spent rows, through
+   each live member, row for row against a CPU replay of the unit that
+   decides them (``build_standby`` on the CPU from the same snapshot
+   directory, folded as the member folds it): (d) ``/v1/fleet/migrate``
+   refused without its token, a move each way, the second stalled at
+   the receiver's restore while the giver keeps the range, one map
+   after each; (c) kill -9 of h1 after its spent keys and a snapshot:
+   h0 adopts the range on ``cuda:0`` (its /healthz fleet block), the
+   recovery window printed; h1 restarted with ``--fleet-rejoin auto``
+   takes its ranges back (epochs printed); (d) kill-during-handoff,
+   armed on the restarted h1 after the give-back: a move to it dies at
+   its flip, the migrate answers 504 and the map stays; (e) the mesh
+   binary on 4 slices of the card with ``--quarantine --chaos-scenario
+   kill-slice --chaos-after 1``: after the scenario arms, the healthy
+   slices' rows equal a no-fault CPU replay, the victim's range answers
+   fail-open, the quarantine names it;
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -408,9 +451,12 @@ before the card's line.
 generator), then runs phase grpc alone at full length and prints its
 results as one JSON line before the card's line.
 
-``--mesh`` and ``--dcn`` build, then run phase mesh (with
-``route_bins``'s row) and phase dcn alone and print their results as
-one JSON line before the card's line.
+``--mesh``, ``--dcn`` and ``--fleet`` build, then run phase mesh (with
+``route_bins``'s row), phase dcn or phase fleet alone and print their
+results as one JSON line before the card's line.
+
+Every phase prints a stamp, ``<phase> done at N s (build M s)``; phases
+observe and gateway also print each part's seconds.
 
 ``--observe`` builds, then runs phase observe alone and prints its
 results as one JSON line before the card's line.
@@ -6569,21 +6615,28 @@ READING_STACKS = (("bare", BARE_STACK), ("default", DEFAULT_STACK),
                   ("full", FULL_STACK))
 
 
-def observe_readings(seed: int = 0, rounds: int = 3) -> dict:
-    """(g) ``time_door`` on windowed CU and TB-c2 under each stack of
-    ``READING_STACKS``, in turns, ``rounds`` rounds on the same traffic:
-    decisions/s and frame latency p50/p99 a round, the flight recorder's
-    split by stage (full stack), and whether the default stack's
-    decisions/s falls outside the bare door's spread over its rounds.
-    Smoke readings: nothing is gated on them."""
-    cells = (("windowed CU", config3(), "zipf", seed + 17),
-             ("TB-c2", config2_bucket(), "c2", seed + 19))
+def observe_readings(seed: int = 0, rounds: int = 3,
+                     labels=("windowed CU", "TB-c2"), given=None) -> dict:
+    """(g) ``time_door`` on the ``labels`` cells (windowed CU, TB-c2)
+    under each stack of ``READING_STACKS``, in turns, ``rounds`` rounds
+    on the same traffic: decisions/s and frame latency p50/p99 a round,
+    the flight recorder's split by stage (full stack), and whether the
+    default stack's decisions/s falls outside the bare door's spread
+    over its rounds. ``given`` ({label: {stack: run}}) holds first-round
+    runs already made with the same arguments (phase 4's default-stack
+    door). Smoke readings: nothing is gated on them."""
+    cells = tuple(c for c in (("windowed CU", config3(), "zipf", seed + 17),
+                              ("TB-c2", config2_bucket(), "c2", seed + 19))
+                  if c[0] in labels)
     runs: dict = {}
-    for _ in range(rounds):
+    for rnd in range(rounds):
         for label, cfg, space, sd in cells:
             for stack, flags in READING_STACKS:
-                r = time_door(cfg, f"{label} {stack}", seed=sd, space=space,
-                              flags=flags)
+                r = ((given or {}).get(label, {}).get(stack) if rnd == 0
+                     else None)
+                if r is None:
+                    r = time_door(cfg, f"{label} {stack}", seed=sd,
+                                  space=space, flags=flags)
                 runs.setdefault(label, {}).setdefault(stack, []).append(r)
     out = {}
     for label, by in runs.items():
@@ -6650,23 +6703,42 @@ def check_observe_doors(torch, seed: int = 0, reuse=None,
     return out
 
 
+def _part_stamps(phase: str, t0: float):
+    """A stamper for a phase's parts: ``part(name, value)`` logs the
+    seconds since the previous part (or ``t0``) and returns ``value``."""
+    last = [t0]
+
+    def part(name: str, value):
+        now = time.perf_counter()
+        log(f"{phase} {name}: {now - last[0]:.1f} s")
+        last[0] = now
+        return value
+
+    return part
+
+
 def run_observe(torch, seed: int = 0, reuse=None,
-                rounds: int = 3, frames: int = DOOR_FRAMES) -> dict:
-    """Phase observe: (a)-(g) on the card, (g) over ``rounds`` rounds
-    (one in the whole run, three under ``--observe``), (a)'s full-stack
-    doors ``frames`` frames a connection (24 in the whole run, 48 under
-    ``--observe``)."""
+                rounds: int = 3, frames: int = DOOR_FRAMES,
+                labels=("windowed CU", "TB-c2"), given=None) -> dict:
+    """Phase observe: (a)-(g) on the card, (g) over ``rounds`` rounds on
+    the ``labels`` cells (the whole run: one round on windowed CU, its
+    default-stack run phase 4's, ``given``; ``--observe``: three rounds
+    on both cells), (a)'s full-stack doors ``frames`` frames a
+    connection (12 in the whole run, 48 under ``--observe``)."""
     from ratelimiter_tpu_torch.ops import sketch_cuda
 
     t = time.perf_counter()
-    out = {"doors": check_observe_doors(torch, seed, reuse, frames)}
-    out["traced"] = check_traced_frames(config3(), seed=seed)
-    out["deadlines"] = check_deadlines(config3(), counters=[sketch_cuda],
-                                       seed=seed)
-    out["journal"] = check_journal_door(config3())
-    out["breaker"] = check_breaker(seed=seed)
-    out["capture"] = check_capture(seed=seed)
-    out["readings"] = observe_readings(seed, rounds=rounds)
+    part = _part_stamps("observe", t)
+    out = {"doors": part("doors", check_observe_doors(torch, seed, reuse,
+                                                      frames))}
+    out["traced"] = part("traced", check_traced_frames(config3(), seed=seed))
+    out["deadlines"] = part("deadlines", check_deadlines(
+        config3(), counters=[sketch_cuda], seed=seed))
+    out["journal"] = part("journal", check_journal_door(config3()))
+    out["breaker"] = part("breaker", check_breaker(seed=seed))
+    out["capture"] = part("capture", check_capture(seed=seed))
+    out["readings"] = part("readings", observe_readings(
+        seed, rounds=rounds, labels=labels, given=given))
     out["seconds"] = time.perf_counter() - t
     log(f"phase observe on {card_line()}: {out['seconds']:.1f} s")
     return out
@@ -7597,20 +7669,21 @@ def gateway_readings(seed: int = 0, rounds: int = 3,
                      frames: int = DOOR_FRAMES, n_ids: int = DOOR_IDS,
                      n_keys: int = DOOR_KEYS,
                      http_requests: int = HTTP_READING_REQUESTS,
-                     split: bool = False, http: bool = True) -> dict:
+                     full: bool = True) -> dict:
     """Phase gateway's numbers on windowed CU, the binary's own
     ``serve`` in-process with no recording proxy: the door's decisions/s
-    and frame latency under each of ``AUDIT_READINGS`` (and with
-    ``split`` each of ``AUDIT_SPLIT``), in turns, ``rounds`` rounds on
+    and frame latency under each of ``AUDIT_READINGS`` and
+    ``AUDIT_SPLIT`` (without ``full`` the first two of
+    ``AUDIT_READINGS`` alone, no twin), in turns, ``rounds`` rounds on
     the same traffic, with the process's CPU seconds over the traffic,
     the audit worker's, the auditor's audited and dropped frames and
     decisions and its seconds to flush once the traffic ends; then, with
-    ``http``, /v1/allow requests/s and latency p50/p99 at each of
+    ``full``, /v1/allow requests/s and latency p50/p99 at each of
     ``HTTP_READING_THREADS`` client threads (string keys of config 3's
     traffic, one keep-alive connection a thread) and the requests a
-    dispatch carried. Smoke readings: nothing is gated on them but the
-    door's own checks (``_door_readings``)."""
-    settings = AUDIT_READINGS + (AUDIT_SPLIT if split else ())
+    dispatch carried. Smoke readings: nothing is
+    gated on them but the door's own checks (``_door_readings``)."""
+    settings = AUDIT_READINGS + AUDIT_SPLIT if full else AUDIT_READINGS[:2]
     runs: dict = {}
     for _ in range(rounds):
         for label, extra, mode in settings:
@@ -7658,7 +7731,7 @@ def gateway_readings(seed: int = 0, rounds: int = 3,
                         if v[0] is not None))
     argv = gateway_args(cell_flags(config3()), device=device)
     out["http"] = {}
-    for threads in HTTP_READING_THREADS if http else ():
+    for threads in HTTP_READING_THREADS if full else ():
         with in_process_binary(argv) as svc:
             got = _run_door_client(
                 {"port": svc.gateway.port, "threads": threads,
@@ -7718,18 +7791,21 @@ def check_binary_profile(device: str = "cuda") -> dict:
 
 def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
     """Phase gateway: (a)-(e) on windowed CU with the side table (config
-    3, ``--hh-slots 256``) and on TB-c2 (8 x 12 binary frames a cell in
+    3, ``--hh-slots 256``) and on TB-c2 (8 x 8 binary frames a cell in
     the whole run, 8 x 48 under ``--gateway``), (c), (d) and (f) on the
     tenant and durable binaries, (e) on the binary as a child process,
-    then the readings: the door's, one round, in the whole run; ``alone``
-    (``--gateway``) takes three, splits the auditor's cost and times
+    then the readings: the door's with no audit and with ``--audit``,
+    one round, in the whole run; ``alone`` (``--gateway``) takes three
+    rounds with the twin at 1 too, splits the auditor's cost and times
     /v1/allow."""
     from ratelimiter_tpu_torch.ops import bucket_cuda, sketch_cuda
 
     t = time.perf_counter()
-    # The whole run checks 8 x 12 frames a cell (its time limit is
-    # shared with every later phase), ``--gateway`` 8 x 48.
-    frames = DOOR_FRAMES if alone else DOOR_FRAMES // 4
+    # The whole run checks 8 x 8 frames a cell (its time limit is
+    # shared with every later phase; a connection's 8th frame is its
+    # string frame), ``--gateway`` 8 x 48.
+    frames = DOOR_FRAMES if alone else DOOR_STRING_EVERY
+    part = _part_stamps("gateway", t)
     out = {"windowed": check_gateway(
         torch, config3_hh(), f"windowed CU hh_slots={HH_SLOTS}",
         seed=seed + 89, frames=frames, counters=[sketch_cuda],
@@ -7737,17 +7813,21 @@ def run_gateway(torch, seed: int = 0, alone: bool = False) -> dict:
         update="cu_update", required=("window_estimate", "admit",
                                       "cu_update", "hh_update [fused]",
                                       "window_reset"))}
+    part("windowed", None)
     out["TB-c2"] = check_gateway(
         torch, config2_bucket(), "TB-c2", seed=seed + 97, space="c2",
         frames=frames, ns=(1, 4, 9), counters=[bucket_cuda],
         front="bucket_estimate",
         update="bucket_update", front_per_reset=1,
         required=("bucket_estimate", "admit", "bucket_update"))
-    out["tenants"] = check_gateway_tenants(torch, config3(), seed=seed)
-    out["durable"] = check_gateway_durable(torch, config3(), seed=seed)
-    out["binary_profile"] = check_binary_profile()
-    out["readings"] = gateway_readings(seed, rounds=3 if alone else 1,
-                                       split=alone, http=alone)
+    part("TB-c2", None)
+    out["tenants"] = part("tenants", check_gateway_tenants(
+        torch, config3(), seed=seed))
+    out["durable"] = part("durable", check_gateway_durable(
+        torch, config3(), seed=seed))
+    out["binary_profile"] = part("binary profile", check_binary_profile())
+    out["readings"] = part("readings", gateway_readings(
+        seed, rounds=3 if alone else 1, full=alone))
     out["seconds"] = time.perf_counter() - t
     log(f"phase gateway on {card_line()}: {out['seconds']:.1f} s")
     return out
@@ -9535,7 +9615,8 @@ def check_replicated(torch, cfg, label: str, n: int, merge: str,
 
 
 def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
-    """(d) ``inject_failure`` on slice 2 of a 4-slice mesh with
+    """(d) The chaos injector's ``fail_slice`` on slice 2 of a 4-slice
+    mesh with
     quarantine (fail-open, durable): the victim's range answers
     fail-open and quarantines; every other slice's rows equal a
     quarantine-off mesh's; the healed slice's probe restores it through
@@ -9558,8 +9639,11 @@ def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
     top = mgr.wrap(q)
     mgr.attach([top])
     q.quarantine.restore_fn = mgr.slice_restorer()
+    from ratelimiter_tpu_torch import chaos
+
     victim = 2
     frames = _mesh_frames(seed, MESH_QUARANTINE_FRAMES)
+    inj = chaos.install(seed=seed)
     try:
         snap = None
         for i, (kind, data) in enumerate(frames):
@@ -9570,7 +9654,7 @@ def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
                 top.set_override("user:1", 3)
                 r.set_override("user:1", 3)
             if i == 6:
-                q.slices[victim].inject_failure()
+                inj.fail_slice(victim)
             got, owners = _mesh_send(top, kind, data, now)
             want, _ = _mesh_send(r, kind, data, now)
             healthy = owners != victim
@@ -9583,7 +9667,7 @@ def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
                                          f"victim's range did not fail open")
         if q.quarantine.quarantined() != [victim]:
             raise AssertionError(f"quarantine: {q.quarantine.status()}")
-        q.slices[victim].heal()
+        inj.clear_slice(victim)
         if not q.quarantine.probe_now(victim):
             raise AssertionError("quarantine: the probe did not rejoin")
         after = q.slices[victim].capture_state()[1]
@@ -9601,6 +9685,7 @@ def check_quarantine(torch, device: str, seed: int, tmp: str) -> dict:
             f"{status['degraded_decisions']} degraded decisions)")
         return {"status": status}
     finally:
+        chaos.uninstall()
         mgr.stop(final_snapshot=False)
         top.close()
         r.close()
@@ -10524,6 +10609,1209 @@ def run_dcn(torch, seed: int = 0, full: bool = False) -> dict:
     return {"windowed": [win], "bucket": [tb], "out": out}
 
 
+# ------------------------------------------------------------ phase fleet
+#
+# The deployment of the repo's fleet benchmark (benchmarks/fleet.py
+# ``_spawn_member``, :88-112): config 3 members (``--backend sketch
+# --limit 100 --window 60`` at d=4, w=65536, 60 sub-windows) behind these
+# batcher and fleet flags, an affine map of 16 buckets a host, frames of
+# 2048 ids, 4 connections a host with 12 frames in flight each. The two
+# members are separate processes sharing the one card.
+
+FLEET_FLAGS = ("--max-batch", "8192", "--max-delay-us", "500",
+               "--inflight", "4", "--fleet-forward-deadline", "60",
+               "--fleet-forward-inflight", "2",
+               "--fleet-forward-conns", "1", "--fleet-forward-coalesce",
+               "16384", "--fleet-heartbeat", "0.3", "--fleet-dead-after",
+               "1.5", "--snapshot-interval", "500")
+#: The source's load (``run_fleet_scaling``, ``_run_traffic``): one load
+#: process a member, 4 connections each with 12 frames of 2048 raw ids
+#: in flight, a pool of 65536 ids a member. Cut: 1 s of warm-up and 3 s
+#: measured a run, where the source takes 2 s and 4 s.
+FLEET_FRAME, FLEET_CONNS, FLEET_DEPTH, FLEET_POOL = 2048, 4, 12, 1 << 16
+FLEET_WARMUP_S, FLEET_RUN_S = 1.0, 3.0
+FLEET_TOKEN = "fleet-migrate-token"
+#: Seconds after serving at which a restarted member arms
+#: kill-during-handoff: the rejoin give-back to it lands first.
+FLEET_CHAOS_AFTER = 6.0
+#: migration-stall's stall at the receiver's restore phase.
+FLEET_STALL_S = 1.0
+
+
+def _fleet_wait(cond, timeout: float, what: str, every: float = 0.05):
+    """Poll ``cond()`` until it returns a true value (returned), or raise
+    naming ``what`` after ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: timed out waiting for {what}")
+        time.sleep(every)
+
+
+class FleetPair:
+    """Two fleet members of one affine map as child processes on
+    ``device``: h0 the asyncio door, h1 the native door (``native``),
+    each with its own snapshot directory, an HTTP gateway with
+    ``--http-migrate-token`` and ``extra[i]`` more flags. Both start
+    together (the membership's boot grace assumes it); ``boot_timeout``
+    bounds a member's start."""
+
+    def __init__(self, tmp: str, cfg, device: str = "cuda",
+                 extra=((), ()), native=(False, True),
+                 boot_timeout: float = 300.0):
+        import os
+
+        from ratelimiter_tpu_torch.fleet import affine_map
+
+        self.cfg, self.device = cfg, device
+        self.boot_timeout = boot_timeout
+        self.ports = [_free_port(), _free_port()]
+        self.dirs = [os.path.join(tmp, f"h{i}") for i in range(2)]
+        for d in self.dirs:
+            os.makedirs(d, exist_ok=True)
+        self.map = affine_map([("127.0.0.1", p) for p in self.ports],
+                              snapshot_dirs=self.dirs)
+        self.path = os.path.join(tmp, "fleet.json")
+        with open(self.path, "w") as fh:
+            json.dump(self.map.to_dict(), fh)
+        self.argv = [[*cell_flags(cfg), *FLEET_FLAGS, "--device",
+                      device.split(":")[0], "--port", str(self.ports[i]),
+                      "--fleet-config", self.path, "--fleet-self", f"h{i}",
+                      "--snapshot-dir", self.dirs[i], "--http-port", "0",
+                      "--http-migrate-token", FLEET_TOKEN,
+                      *(["--native"] if native[i] else []), *extra[i]]
+                     for i in range(2)]
+        from ratelimiter_tpu_torch.serving.__main__ import (
+            build_config,
+            parse_args,
+        )
+
+        #: The members' config, for the CPU replays.
+        self.member_cfg = build_config(parse_args(self.argv[0]))
+        #: Each member's adopted unit as a CPU replay (None until its
+        #: first adoption) and the buckets it decides.
+        self.adopted = [None, None]
+        self.adopted_buckets = [set(), set()]
+        self.srv = [None, None]
+        errs = []
+
+        def boot(i):
+            try:
+                self.srv[i] = ServerProcess(self.argv[i],
+                                            timeout=self.boot_timeout)
+            except BaseException as exc:  # noqa: BLE001 — re-raised
+                errs.append(exc)
+
+        th = [threading.Thread(target=boot, args=(i,)) for i in range(2)]
+        for t in th:
+            t.start()
+        for t in th:
+            t.join()
+        if errs:
+            self.close()
+            raise errs[0]
+        try:
+            self.wait_peers()
+        except BaseException:
+            self.close()
+            raise
+
+    def wait_peers(self) -> None:
+        """Until each member has heard the other's announce (a peer never
+        heard can be declared dead only after the boot grace)."""
+        def heard():
+            return all(self.fleet(i)["peers"][f"h{1 - i}"]["last_seen_age_s"]
+                       is not None for i in range(2))
+
+        _fleet_wait(heard, 30.0, "both members' first announces")
+
+    def restart(self, i: int, extra=()) -> float:
+        """Start member ``i`` again (same flags plus ``extra``); its boot
+        seconds."""
+        t = time.perf_counter()
+        self.srv[i] = ServerProcess(self.argv[i] + list(extra),
+                                    timeout=self.boot_timeout)
+        return time.perf_counter() - t
+
+    def kill(self, i: int) -> None:
+        if self.srv[i] is not None:
+            self.srv[i].kill()
+            self.srv[i] = None
+        if self.adopted[i] is not None:
+            self.adopted[i].close()
+            self.adopted[i] = None
+        self.adopted_buckets[i] = set()
+
+    def adopt(self, i: int, unit, ranges) -> None:
+        """Mirror member ``i`` mounting a unit for ``ranges``: ``unit`` is
+        a CPU replay of the unit it built. The first mount is the unit, a
+        later one folds into it by conservative union, as
+        ``FleetCore.install_adopted`` does."""
+        from ratelimiter_tpu_torch.parallel import reshard
+
+        if self.adopted[i] is None:
+            self.adopted[i] = unit
+        else:
+            _, arrays, extra = unit.capture_state()
+            reshard.merge_into_limiter(self.adopted[i], arrays, extra)
+            unit.close()
+        for lo, hi in ranges:
+            self.adopted_buckets[i].update(range(lo, hi))
+
+    def release(self, i: int, ranges) -> None:
+        """Member ``i`` no longer decides ``ranges`` on its adopted unit
+        (they moved away; the unit's state stays, as on the member)."""
+        for lo, hi in ranges:
+            self.adopted_buckets[i].difference_update(range(lo, hi))
+
+    def adopted_rep(self, i: int, ranges):
+        """The CPU replay of member ``i``'s adopted unit if that unit
+        decides ``ranges``, else None (the member's own unit does)."""
+        on = [b in self.adopted_buckets[i]
+              for lo, hi in ranges for b in range(lo, hi)]
+        if any(on) and not all(on):
+            raise AssertionError("fleet: a range split between a member's "
+                                 "units")
+        return self.adopted[i] if on and all(on) else None
+
+    def close(self) -> None:
+        # SIGKILL: a SIGTERM would start each member's departure handoff.
+        for i in range(2):
+            self.kill(i)
+
+    def health(self, i: int) -> dict:
+        return http_call(self.srv[i].http, "GET", "/healthz")[2]
+
+    def fleet(self, i: int) -> dict:
+        return self.health(i)["fleet"]
+
+    def fleet_map(self, i: int):
+        from ratelimiter_tpu_torch.fleet import FleetMap
+        from ratelimiter_tpu_torch.serving import Client
+
+        c = Client(port=self.ports[i], timeout=60.0)
+        try:
+            return FleetMap.from_dict(c.fleet_map())
+        finally:
+            c.close()
+
+    def one_owner(self, what: str):
+        """Both members serve the same map (epoch and assignment): the
+        fleet has exactly one owner for every bucket. Returns it."""
+        def agree():
+            a, b = self.fleet_map(0), self.fleet_map(1)
+            return a if a.to_dict() == b.to_dict() else None
+
+        return _fleet_wait(agree, 30.0, f"{what}: one map on both members")
+
+    def metric(self, i: int, name: str) -> float:
+        """Sum of a family's samples on member ``i``'s /metrics."""
+        text = http_call(self.srv[i].http, "GET", "/metrics")[2]
+        return sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith(name) and
+                   ln[len(name):len(name) + 1] in (" ", "{"))
+
+
+def _fleet_owned(fmap, rng, host: int, n: int, lo: int = 0,
+                 span: int = 1 << 40, ranges=None) -> np.ndarray:
+    """``n`` distinct raw ids in ``[lo, lo + span)`` owned by ``host``
+    (or falling in ``ranges``)."""
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64
+
+    out = np.zeros(0, dtype=np.uint64)
+    while out.shape[0] < n:
+        ids = np.unique(rng.integers(lo, lo + span, 4 * n + 64,
+                                     dtype=np.int64).astype(np.uint64))
+        b = fmap.bucket_of_hash(splitmix64(ids))
+        if ranges is None:
+            keep = fmap.owner_table[b] == host
+        else:
+            keep = np.zeros(ids.shape[0], dtype=bool)
+            for r0, r1 in ranges:
+                keep |= (b >= r0) & (b < r1)
+        out = np.unique(np.concatenate([out, ids[keep]]))
+    return rng.permutation(out)[:n]
+
+
+def _fleet_keys(fmap, prefix: str, tag: str, n: int, ranges) -> list:
+    """``n`` string keys whose buckets fall in ``ranges``."""
+    from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64
+
+    keys, i = [], 0
+    while len(keys) < n:
+        cand = [f"{tag}:{j}" for j in range(i, i + 512)]
+        i += 512
+        b = fmap.bucket_of_hash(hash_prefixed_u64(cand, prefix))
+        for k, bk in zip(cand, b):
+            if any(r0 <= bk < r1 for r0, r1 in ranges) and len(keys) < n:
+                keys.append(k)
+    return keys
+
+
+def _fleet_server_thread(limiter):
+    """A port asyncio door over ``limiter`` on its own loop thread (host
+    B of (a))."""
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    srv = RateLimitServer(limiter, "127.0.0.1", 0, dcn=True, inflight=4,
+                          max_batch=8192)
+    asyncio.run_coroutine_threadsafe(srv.start(), loop).result(60)
+    return srv, loop, th
+
+
+def _fleet_server_stop(srv, loop, th) -> None:
+    asyncio.run_coroutine_threadsafe(srv.shutdown(), loop).result(60)
+    loop.call_soon_threadsafe(loop.stop)
+    th.join(timeout=60)
+    loop.close()
+
+
+def check_fleet_inprocess(torch, label: str, cfg, seed: int,
+                          device: str = "cuda", frames: int = 8,
+                          size: int = FLEET_FRAME,
+                          advance: float = 1.0) -> dict:
+    """(a) Host A is ``FleetForwarder`` over a limiter on ``device``,
+    host B a port asyncio door over another, one manual clock for both.
+    A frame owned wholly by A, one owned wholly by B (sent through A),
+    then ``frames`` mixed string and raw-id frames crossing the clock
+    forward: every answer (allowed, remaining, retry, reset) equals a CPU
+    replay of each owner's rows in frame order, and both hosts' state
+    equals its replay's. The launch counts are set to 0 just before each
+    of the three stages and read just after: the first shows A's
+    front, admission and update launches, the second B's."""
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.core.clock import ManualClock
+    from ratelimiter_tpu_torch.fleet import (
+        FleetCore,
+        FleetForwarder,
+        affine_map,
+    )
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+
+    mod, names = _mesh_counters(cfg)
+    clock = ManualClock(T0)
+    a = create_limiter(cfg, clock=clock, device=device)
+    b = create_limiter(cfg, clock=clock, device=device)
+    reps = [create_limiter(cfg, clock=clock, device="cpu")
+            for _ in range(2)]
+    srv = _fleet_server_thread(b)
+    fmap = affine_map([("127.0.0.1", 1), ("127.0.0.1", srv[0].port)])
+    core = FleetCore(fmap, "h0", prefix=cfg.prefix, forward_deadline=60.0,
+                     registry=Registry())
+    fwd = FleetForwarder(a, core)
+    rng = np.random.default_rng(seed)
+    pool = [f"fleet:{i}" for i in range(4 * size)]
+    stages, t = {}, time.perf_counter()
+
+    def send(kind, data, ns):
+        if kind == "ids":
+            got = fwd.allow_ids(data, ns)
+            owners = core.owners_of_ids(data)
+        else:
+            got = fwd.allow_batch(data, ns.tolist())
+            owners = core.owners_of_hash(core.hash_keys(data))
+        for host, rep in enumerate(reps):
+            pos = np.nonzero(owners == host)[0]
+            if not pos.shape[0]:
+                continue
+            want = (rep.allow_ids(data[pos], ns[pos]) if kind == "ids"
+                    else rep.allow_batch([data[i] for i in pos],
+                                         ns[pos].tolist()))
+            for f in ("allowed", "remaining", "retry_after", "reset_at"):
+                if not np.array_equal(getattr(got, f)[pos],
+                                      getattr(want, f)):
+                    raise AssertionError(
+                        f"fleet (a) {label}: host {host}'s {f} differs "
+                        f"from the CPU replay")
+        return owners
+
+    try:
+        for stage, host in (("a", 0), ("b", 1)):
+            ids = _fleet_owned(fmap, rng, host, size)
+            mod.reset_launch_counts()
+            send("ids", ids, rng.integers(1, 3, size).astype(np.int64))
+            stages[stage] = mod.launch_counts()
+            # The plain versions on the CPU count nothing.
+            for n in names if device.startswith("cuda") else ():
+                if not stages[stage].get(n):
+                    raise AssertionError(
+                        f"fleet (a) {label}: host {stage.upper()} launched "
+                        f"no {n}: {stages[stage]}")
+        mod.reset_launch_counts()
+        forwarded = 0
+        for i in range(frames):
+            ns = rng.integers(1, 3, size).astype(np.int64)
+            if i % 2:
+                owners = send("ids", rng.integers(0, 1 << 20, size).astype(
+                    np.uint64), ns)
+            else:
+                owners = send("keys", [pool[j] for j in rng.integers(
+                    0, len(pool), size)], ns)
+            forwarded += int((owners != 0).sum())
+            clock.advance(advance)
+        stages["mixed"] = mod.launch_counts()
+        for host, lim in enumerate((a, b)):
+            got, want = lim.capture_state()[1], reps[host].capture_state()[1]
+            for k in want:
+                if not np.array_equal(np.asarray(got[k]),
+                                      np.asarray(want[k])):
+                    raise AssertionError(f"fleet (a) {label}: host {host}'s "
+                                         f"{k} differs from the replay's")
+        st = core.status()
+        if st["forward_errors_total"] or not st["forwarded_total"]:
+            raise AssertionError(f"fleet (a) {label}: {st}")
+        stages["adopted"] = _fleet_adopt_inprocess(
+            mod, names, label, cfg, clock, core, fwd, b, rng, size,
+            advance, device)
+        counts = {k: sum(v.get(k, 0) for v in stages.values())
+                  for k in stages["mixed"]}
+        return {"counts": counts, "stages": stages,
+                "forwarded_rows": forwarded, "wall_s":
+                time.perf_counter() - t,
+                "wire_frames": st["forward_wire_frames_total"],
+                "mean_window_rows": st["forward_mean_window_rows"]}
+    finally:
+        fwd.close()
+        _fleet_server_stop(*srv)
+        b.close()
+        for r in reps:
+            r.close()
+
+
+def _fleet_adopt_inprocess(mod, names, label: str, cfg, clock, core, fwd,
+                           b, rng, size: int, advance: float,
+                           device: str) -> dict:
+    """(a)'s failover: host B's state is snapshotted to a directory and
+    host A adopts B's range on a unit that ``build_standby`` builds on
+    ``device`` from it, as a member does when its successor dies. Two
+    frames of B's rows (raw ids, then string keys) through A: every
+    answer equals a CPU standby built from the same directory, and so
+    does the unit's state after. Returns the launch counts, set to 0
+    just before the frames and read just after: the adopted unit's
+    front, admission and update launches."""
+    import tempfile
+
+    from ratelimiter_tpu_torch.core.config import PersistenceSpec
+    from ratelimiter_tpu_torch.fleet.handoff import build_standby
+    from ratelimiter_tpu_torch.observability.metrics import Registry
+    from ratelimiter_tpu_torch.persistence import PersistenceManager
+
+    fmap = core.map
+    ranges = fmap.host("h1").ranges
+    with tempfile.TemporaryDirectory() as snap:
+        mgr = PersistenceManager(PersistenceSpec(
+            dir=snap, snapshot_interval=3600.0), registry=Registry())
+        mgr.attach([mgr.wrap(b)])
+        mgr.snapshot_now()
+        mgr.stop(final_snapshot=False)
+        unit = build_standby(cfg, snap, clock=clock, device=device)
+        rep = build_standby(cfg, snap, clock=clock, device="cpu")
+    try:
+        if not str(unit.device).startswith(device.split(":")[0]):
+            raise AssertionError(f"fleet (a) {label}: the standby was "
+                                 f"built on {unit.device}")
+        core.install_and_swap(unit, ranges, fmap.reassign("h1", "h0"),
+                              origin="h1")
+        mod.reset_launch_counts()
+        for kind in ("ids", "keys"):
+            ns = rng.integers(1, 3, size).astype(np.int64)
+            if kind == "ids":
+                ids = _fleet_owned(fmap, rng, 1, size)
+                got, want = fwd.allow_ids(ids, ns), rep.allow_ids(ids, ns)
+            else:
+                keys = _fleet_keys(fmap, cfg.prefix, f"adopted{size}", size,
+                                   ranges)
+                got = fwd.allow_batch(keys, ns.tolist())
+                want = rep.allow_batch(keys, ns.tolist())
+            for f in _HELD:
+                if not np.array_equal(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(
+                        f"fleet (a) {label}: the adopted unit's {f} differs "
+                        f"from the CPU standby's")
+            clock.advance(advance)
+        counts = mod.launch_counts()
+        for n in names if device.startswith("cuda") else ():
+            if not counts.get(n):
+                raise AssertionError(f"fleet (a) {label}: the adopted unit "
+                                     f"launched no {n}: {counts}")
+        got, want = unit.capture_state()[1], rep.capture_state()[1]
+        for k in want:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+                raise AssertionError(f"fleet (a) {label}: the adopted "
+                                     f"unit's {k} differs from the CPU "
+                                     f"standby's")
+        return counts
+    finally:
+        rep.close()
+
+
+def _fleet_replay_limiters(pair):
+    """CPU limiters of the members' config, one per member."""
+    from ratelimiter_tpu_torch import create_limiter
+
+    return [create_limiter(pair.member_cfg, device="cpu") for _ in range(2)]
+
+
+def check_fleet_sample(pair, seed: int, frames: int = 8,
+                       size: int = FLEET_FRAME) -> dict:
+    """(b) A seeded sample before the load, through both doors: raw-id and
+    string frames mixed across the owners, to h0 (asyncio) and h1
+    (native) in turn, every decision (allowed, remaining: the first
+    traffic inside one window, so the decision time moves neither) equal
+    to a CPU replay of each owner's rows in send order, a key spent
+    through one door then read through the other; then ``FleetClient``
+    routes a frame to its owners: no row forwarded."""
+    from ratelimiter_tpu_torch.ops.hashing import (
+        hash_prefixed_u64,
+        splitmix64,
+    )
+    from ratelimiter_tpu_torch.serving import Client
+    from ratelimiter_tpu_torch.serving.client import FleetClient
+
+    epochs = [pair.fleet(i)["epoch"] for i in range(2)]
+    reps = _fleet_replay_limiters(pair)
+    fmap = pair.map
+    rng = np.random.default_rng(seed)
+    clients = [Client(port=p, timeout=60.0) for p in pair.ports]
+    out = {"epochs_before_traffic": epochs}
+    try:
+        def check(i, kind, data):
+            c = clients[i % 2]
+            if kind == "ids":
+                got = c.allow_hashed(data)
+                owners = fmap.owner_of_hash(splitmix64(data))
+            else:
+                got = c.allow_batch(data)
+                owners = fmap.owner_of_hash(
+                    hash_prefixed_u64(data, pair.cfg.prefix))
+            allowed = np.asarray(got.allowed if kind == "ids"
+                                 else [r.allowed for r in got])
+            remaining = np.asarray(got.remaining if kind == "ids"
+                                   else [r.remaining for r in got])
+            for host, rep in enumerate(reps):
+                pos = np.nonzero(owners == host)[0]
+                if not pos.shape[0]:
+                    continue
+                want = (rep.allow_ids(data[pos]) if kind == "ids"
+                        else rep.allow_batch([data[k] for k in pos]))
+                if not (np.array_equal(allowed[pos], want.allowed)
+                        and np.array_equal(remaining[pos], want.remaining)):
+                    raise AssertionError(
+                        f"fleet (b): frame {i}'s rows of h{host} differ "
+                        f"from the CPU replay")
+
+        keys = [f"sample:{j}" for j in range(size // 8)]
+        for i in range(frames):
+            if i % 2:
+                check(i, "ids", rng.integers(1 << 41, (1 << 41) + 4 * size,
+                                             size).astype(np.uint64))
+            else:
+                check(i, "keys", [keys[j] for j in rng.integers(
+                    0, len(keys), size // 4)])
+        # One key of h1 spent past the limit through h0, read on h1.
+        key = _fleet_keys(fmap, pair.cfg.prefix, "shared", 1,
+                          fmap.host("h1").ranges)[0]
+        check(frames, "keys", [key] * (pair.cfg.limit + 2))
+        res = clients[1].allow(key)
+        if res.allowed:
+            raise AssertionError("fleet (b): a key spent through the "
+                                 "asyncio door was allowed on the native "
+                                 "door")
+        before = [pair.fleet(i)["forwarded_total"] for i in range(2)]
+        fc = FleetClient(seed=("127.0.0.1", pair.ports[0]),
+                         prefix=pair.cfg.prefix, timeout=60.0)
+        try:
+            ids = rng.integers(1 << 42, (1 << 42) + 4 * size,
+                               size).astype(np.uint64)
+            got = fc.allow_hashed(ids)
+        finally:
+            fc.close()
+        owners = fmap.owner_of_hash(splitmix64(ids))
+        for host, rep in enumerate(reps):
+            pos = np.nonzero(owners == host)[0]
+            want = rep.allow_ids(ids[pos])
+            if not np.array_equal(got.allowed[pos], want.allowed):
+                raise AssertionError("fleet (b): FleetClient's answers "
+                                     "differ from the CPU replay")
+        after = [pair.fleet(i)["forwarded_total"] for i in range(2)]
+        if after != before:
+            raise AssertionError(f"fleet (b): FleetClient's frame was "
+                                 f"forwarded ({before} -> {after})")
+        out["fleet_client_forwarded"] = 0
+        out["sample_frames"] = frames + 1
+        return out
+    finally:
+        for c in clients:
+            c.close()
+        for r in reps:
+            r.close()
+
+
+def fleet_loadgen() -> None:
+    """One load process of phase fleet (b), as ``benchmarks/fleet.py``
+    ``_loadgen_entry`` runs one a member. Reads jobs as JSON lines on its
+    standard input; for each, opens ``conns`` connections to the member
+    at ``port``, each keeping ``depth`` frames of ``frame`` raw ids
+    (contiguous slices of the pool saved at ``pool``, at seeded offsets)
+    in flight, prints ``connected``, waits for a line ``go T`` (``T`` on
+    ``time.monotonic``, one clock for every process of the machine), and
+    counts the frames that complete from ``T + warmup`` until the drain
+    after ``T + warmup + seconds``. Prints the rows counted, the span and
+    the frames' latencies as one JSON line."""
+    from ratelimiter_tpu_torch.serving import AsyncClient
+
+    async def run(job: dict, pool: np.ndarray) -> dict:
+        frame, depth = job["frame"], job["depth"]
+        clients = [await AsyncClient.connect("127.0.0.1", job["port"])
+                   for _ in range(job["conns"])]
+        print("connected", flush=True)
+        t_go = float(sys.stdin.readline().split()[1])
+        t_measure = t_go + job["warmup"]
+        stop_at = t_measure + job["seconds"]
+        await asyncio.sleep(max(0.0, t_go - time.monotonic()))
+        counted, lats = [0], []
+
+        async def worker(ci: int, c) -> None:
+            rng = np.random.default_rng(job["seed"] * 131 + ci)
+            offs = rng.integers(0, pool.shape[0] - frame, 4096).tolist()
+            k = [0]
+
+            async def one() -> None:
+                off = offs[k[0] % 4096]
+                k[0] += 1
+                t0 = time.monotonic()
+                await c.allow_hashed(pool[off:off + frame])
+                t1 = time.monotonic()
+                if t1 >= t_measure:
+                    counted[0] += frame
+                    lats.append(t1 - t0)
+
+            pending = {asyncio.ensure_future(one()) for _ in range(depth)}
+            while time.monotonic() < stop_at:
+                done, pending = await asyncio.wait(
+                    pending, return_when=asyncio.FIRST_COMPLETED)
+                for d in done:
+                    d.result()
+                    if time.monotonic() < stop_at:
+                        pending.add(asyncio.ensure_future(one()))
+            if pending:
+                await asyncio.gather(*pending)
+
+        await asyncio.gather(*(worker(i, c) for i, c in enumerate(clients)))
+        span = time.monotonic() - t_measure
+        for c in clients:
+            await c.close()
+        return {"counted": counted[0], "span": span, "lats": lats}
+
+    while True:
+        line = sys.stdin.readline()
+        if not line:
+            return
+        job = json.loads(line)
+        print(json.dumps(asyncio.run(run(job, np.load(job["pool"])))),
+              flush=True)
+
+
+class FleetLoad:
+    """(b)'s load as ``benchmarks/fleet.py`` ``_run_traffic`` drives it:
+    one load process a member (``fleet_loadgen``), started before the
+    members so that its imports overlap their boot. ``run`` gives each
+    process its member and the pool of the run, starts both at one
+    instant, and reads the members' counters at the start of the
+    measured window and again after the drain."""
+
+    def __init__(self, tmp: str, n: int = 2):
+        repo, env = child_env()
+        self.tmp = tmp
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.fleet_loadgen()"],
+            cwd=repo, env=env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True, start_new_session=True)
+            for _ in range(n)]
+        self.lines = [queue.Queue() for _ in range(n)]
+        for p, q in zip(self.procs, self.lines):
+            threading.Thread(target=self._read, args=(p, q),
+                             daemon=True).start()
+
+    @staticmethod
+    def _read(proc, q) -> None:
+        for line in proc.stdout:
+            q.put(line)
+        q.put(None)
+
+    def _send(self, i: int, line: str) -> None:
+        self.procs[i].stdin.write(line + "\n")
+        self.procs[i].stdin.flush()
+
+    def _expect(self, i: int, timeout: float) -> str:
+        try:
+            line = self.lines[i].get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"fleet (b): load process {i} said "
+                                 f"nothing for {timeout} s") from None
+        if line is None:
+            raise AssertionError(f"fleet (b): load process {i} exited "
+                                 f"({self.procs[i].wait()})")
+        return line.strip()
+
+    @staticmethod
+    def _counters(pair) -> dict:
+        blocks = [pair.fleet(i) for i in range(2)]
+        out = {k: sum(b[k] for b in blocks)
+               for k in ("forwarded_total", "forward_errors_total")}
+        for s in ("sum", "count"):
+            out[s] = sum(pair.metric(
+                i, f"rate_limiter_fleet_forward_rtt_seconds_{s}")
+                for i in range(2))
+        return out
+
+    def run(self, pair, mode: str, *, seconds: float = FLEET_RUN_S,
+            warmup: float = FLEET_WARMUP_S, frame: int = FLEET_FRAME,
+            conns: int = FLEET_CONNS, depth: int = FLEET_DEPTH,
+            pool: int = FLEET_POOL, seed: int = 0) -> dict:
+        """One run: ``affine`` drives each member with ids it owns (what
+        ``FleetClient`` or a consistent-hash balancer sends), ``mixed``
+        with ids of both members (about half forwarded). Decisions/s,
+        frame latency p50/p99/max, the forwarded fraction, the mean
+        forward RTT, the forward errors (a forward past
+        ``--fleet-forward-deadline`` counts there) and the epoch."""
+        import os
+
+        rng = np.random.default_rng(seed)
+        own = [_fleet_owned(pair.map, rng, h, pool, span=1 << 62)
+               for h in range(2)]
+        for h in range(2):
+            ids = (own[h] if mode == "affine" else
+                   rng.permutation(np.concatenate([own[h], own[1 - h]])))
+            path = os.path.join(self.tmp, f"pool-{mode}-{h}.npy")
+            np.save(path, ids)
+            self._send(h, json.dumps({
+                "port": pair.ports[h], "pool": path, "seconds": seconds,
+                "warmup": warmup, "conns": conns, "depth": depth,
+                "frame": frame, "seed": seed * 100 + h}))
+        for h in range(2):
+            if self._expect(h, 120.0) != "connected":
+                raise AssertionError("fleet (b): a load process did not "
+                                     "connect")
+        t_go = time.monotonic() + 0.05
+        for h in range(2):
+            self._send(h, f"go {t_go!r}")
+        time.sleep(max(0.0, t_go + warmup - time.monotonic()))
+        c0 = self._counters(pair)
+        res = [json.loads(self._expect(h, warmup + seconds + 120.0))
+               for h in range(2)]
+        c1 = self._counters(pair)
+        rows = sum(r["counted"] for r in res)
+        lat = np.sort(np.concatenate([np.asarray(r["lats"], dtype=float)
+                                      for r in res]))
+        n_rtt = c1["count"] - c0["count"]
+        out = {"mode": mode, "seconds": seconds, "warmup_s": warmup,
+               "processes": len(res), "conns": conns, "depth": depth,
+               "frames": int(lat.shape[0]),
+               "decisions_per_s": sum(r["counted"] / r["span"]
+                                      for r in res),
+               "p50_ms": float(lat[len(lat) // 2] * 1e3),
+               "p99_ms": float(lat[min(len(lat) - 1,
+                                       int(len(lat) * 0.99))] * 1e3),
+               "max_ms": float(lat[-1] * 1e3),
+               "forwarded_fraction": (c1["forwarded_total"]
+                                      - c0["forwarded_total"]) / max(1, rows),
+               "forward_rtt_ms": ((c1["sum"] - c0["sum"]) / n_rtt * 1e3
+                                  if n_rtt else None),
+               "forward_wire_frames": n_rtt,
+               "forward_errors": (c1["forward_errors_total"]
+                                  - c0["forward_errors_total"]),
+               "epoch": pair.fleet(0)["epoch"]}
+        log(f"fleet (b) {mode} on {pair.device}, {len(res)} load processes "
+            f"x {conns} connections x {depth} frames of {frame} ids in "
+            f"flight: {out['decisions_per_s']:.0f} decisions/s, frame p50 "
+            f"{out['p50_ms']:.2f} ms p99 {out['p99_ms']:.2f} ms max "
+            f"{out['max_ms']:.2f} ms, forwarded "
+            f"{out['forwarded_fraction']:.3f}, forward RTT "
+            f"{out['forward_rtt_ms']} ms over {n_rtt:.0f} wire frames, "
+            f"{out['forward_errors']} forward errors, epoch {out['epoch']}")
+        return out
+
+    def close(self) -> None:
+        for p in self.procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for p in self.procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+#: The columns a held frame compares.
+_HELD = ("allowed", "remaining", "retry_after", "reset_at")
+
+
+def _held(pair, i: int, rows, rep, what: str) -> np.ndarray:
+    """Send ``rows`` (a uint64 array of raw ids, or a list of string
+    keys) to member ``i`` as one frame and hold every row's allowed,
+    remaining, retry and reset against ``rep``, a CPU replay of the unit
+    that decides them, deciding the same rows at the member's decision
+    time. That time is read off a denied row (retry = reset - now), so
+    the frame needs one. Returns the allowed column."""
+    from ratelimiter_tpu_torch.serving import Client
+
+    ids = isinstance(rows, np.ndarray)
+    c = Client(port=pair.ports[i], timeout=60.0)
+    try:
+        got = c.allow_hashed(rows) if ids else c.allow_batch(rows)
+    finally:
+        c.close()
+    cols = ([np.asarray(getattr(got, f)) for f in _HELD] if ids else
+            [np.asarray([getattr(r, f) for r in got]) for f in _HELD])
+    den = np.nonzero(~cols[0])[0]
+    if not den.shape[0]:
+        raise AssertionError(f"fleet {what}: no row denied, so the "
+                             f"decision time is unknown")
+    now_us = (round(float(cols[3][den[0]]) * 1e6)
+              - round(float(cols[2][den[0]]) * 1e6))
+    want = (rep.allow_ids(rows, now=now_us / 1e6) if ids else
+            rep.allow_batch(rows, now=now_us / 1e6))
+    for f, col in zip(_HELD, cols):
+        ref = np.asarray(getattr(want, f))
+        if not np.array_equal(col, ref):
+            k = int(np.nonzero(col != ref)[0][0])
+            raise AssertionError(
+                f"fleet {what}: row {k}'s {f} is {col[k]}, the CPU replay "
+                f"of the deciding unit says {ref[k]}")
+    return cols[0]
+
+
+def _standby(pair, dir_: str, origin=None, ranges=()):
+    """``build_standby`` on the CPU from ``dir_``, as a member builds the
+    unit it mounts: a dead member's own unit (``origin`` None), or the
+    unit a giver kept for ``origin``, whose resets replay only where
+    ``ranges`` own the key."""
+    from ratelimiter_tpu_torch.fleet.handoff import build_standby
+    from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64
+
+    owns = None
+    if origin is not None:
+        def owns(key: str) -> bool:
+            b = int(hash_prefixed_u64([key], pair.member_cfg.prefix)[0]
+                    % pair.map.buckets)
+            return any(lo <= b < hi for lo, hi in ranges)
+
+    return build_standby(pair.member_cfg, dir_, origin=origin, owns=owns,
+                         device="cpu")
+
+
+def _recovered(pair, dir_: str):
+    """A CPU limiter restored from ``dir_`` as a member restores its own
+    unit at boot: the newest snapshot and the WAL suffix."""
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.persistence.recover import recover
+
+    lim = create_limiter(pair.member_cfg, backend="sketch", device="cpu")
+    recover([lim], dir_)
+    return lim
+
+
+def _spend(pair, i: int, tag: str, ranges, rep=None) -> tuple:
+    """Four string keys and one raw id of ``ranges`` spent past their
+    limit through member ``i`` (a frame of ``limit + 1`` rows each, the
+    last denied); with ``rep``, the CPU replay of the unit that decides
+    them, every row held against it. Returns (keys, id)."""
+    from ratelimiter_tpu_torch.serving import Client
+
+    limit = pair.cfg.limit
+    keys = _fleet_keys(pair.map, pair.cfg.prefix, tag, 4, ranges)
+    rid = _fleet_owned(pair.map, np.random.default_rng(len(tag)), 0, 1,
+                       lo=1 << 44, ranges=ranges)[0]
+    frames = [[k] * (limit + 1) for k in keys]
+    frames.append(np.full(limit + 1, rid, dtype=np.uint64))
+    c = Client(port=pair.ports[i], timeout=60.0)
+    try:
+        for f in frames:
+            if rep is not None:
+                last = _held(pair, i, f, rep, f"spend {tag}")[-1]
+            elif isinstance(f, np.ndarray):
+                last = c.allow_hashed(f).allowed[-1]
+            else:
+                last = c.allow_batch(f)[-1].allowed
+            if last:
+                raise AssertionError(f"fleet spend {tag}: row {limit + 1} "
+                                     f"of a key was allowed")
+    finally:
+        c.close()
+    return keys, rid
+
+
+def _hold_range(pair, i: int, tag: str, ranges, spent, rep,
+                what: str) -> int:
+    """A string frame (24 fresh keys of ``ranges`` among the spent keys)
+    and a raw-id frame (255 fresh ids of ``ranges`` and the spent id)
+    through member ``i``, every row held against ``rep``: the spent rows
+    denied and fresh rows allowed (a unit that denied everything fails
+    here as it fails the replay). Returns the rows sent."""
+    keys, rid = spent
+    rng = np.random.default_rng(sum(map(ord, tag)))
+    fresh = _fleet_keys(pair.map, pair.cfg.prefix, tag, 24, ranges)
+    kf = [(fresh + list(keys))[j] for j in rng.permutation(28)]
+    ids = rng.permutation(np.concatenate([_fleet_owned(
+        pair.map, rng, 0, 255, lo=1 << 45, ranges=ranges),
+        np.asarray([rid], dtype=np.uint64)]))
+    a = _held(pair, i, kf, rep, what)
+    b = _held(pair, i, ids, rep, what)
+    spent_rows = np.asarray([k in keys for k in kf])
+    if a[spent_rows].any() or b[ids == rid].any():
+        raise AssertionError(f"fleet {what}: a spent key was allowed "
+                             f"past its limit")
+    if not (a[~spent_rows].any() and b[ids != rid].any()):
+        raise AssertionError(f"fleet {what}: no fresh row was allowed")
+    return len(kf) + int(ids.shape[0])
+
+
+def _migrate(pair, frm: int, to: int, ranges, wait: float) -> tuple:
+    rs = ",".join(f"{lo}:{hi}" for lo, hi in ranges)
+    path = f"/v1/fleet/migrate?to=h{to}&ranges={rs}&wait={wait}"
+    st, _, body = http_call(pair.srv[frm].http, "POST", path, FLEET_TOKEN)
+    return st, body
+
+
+def check_fleet_migrate(pair, seed: int, stall: float = FLEET_STALL_S) -> dict:
+    """(d) ``/v1/fleet/migrate``: refused without its token; a sub-range
+    of h0 moved to h1, then (h0 running migration-stall) a sub-range of
+    h1 moved to h0, whose restore stalls ``stall`` seconds while h1 keeps
+    owning. Before each move four keys and an id of the range are spent
+    past their limit on the giver. After each, both members serve one
+    map that gives the range to the receiver at the next epoch, and a
+    frame of fresh and spent rows through each member equals, row for
+    row, a CPU replay of the receiver's adopted unit: ``build_standby``
+    on the CPU from the giver's snapshot directory, folded into the
+    receiver's earlier adopted unit where it has one."""
+    out = {}
+    st = http_call(pair.srv[0].http, "POST",
+                   "/v1/fleet/migrate?to=h1&ranges=0:4")[0]
+    if st != 403:
+        raise AssertionError(f"fleet (d): migrate without a token: {st}")
+    for name, frm, to in (("migrate", 0, 1), ("migration-stall", 1, 0)):
+        cur = pair.one_owner(name)
+        lo, hi = cur.host(f"h{frm}").ranges[0]
+        moved = [(lo, min(hi, lo + 4))]
+        spent = _spend(pair, frm, f"mig{frm}", moved,
+                       pair.adopted_rep(frm, moved))
+        t = time.perf_counter()
+        res = {}
+        th = threading.Thread(target=lambda: res.update(
+            r=_migrate(pair, frm, to, moved, 30.0)))
+        th.start()
+        mid = None
+        if name == "migration-stall":
+            time.sleep(stall / 2)
+            mid = pair.fleet_map(frm)
+            if not mid.assigns(moved, f"h{frm}"):
+                raise AssertionError("fleet (d): the giver lost the range "
+                                     "during the stalled restore")
+        th.join()
+        status, body = res["r"]
+        if status != 200 or not body.get("ok"):
+            raise AssertionError(f"fleet (d) {name}: {status} {body}")
+        seconds = time.perf_counter() - t
+        after = pair.one_owner(name)
+        if not after.assigns(moved, f"h{to}") or \
+                after.epoch != cur.epoch + 1:
+            raise AssertionError(f"fleet (d) {name}: {after.to_dict()}")
+        pair.adopt(to, _standby(pair, pair.dirs[frm]), moved)
+        pair.release(frm, moved)
+        rows = sum(_hold_range(pair, i, f"{name}{i}", moved, spent,
+                               pair.adopted[to],
+                               f"(d) {name}, through h{i}")
+                   for i in (to, frm))
+        out[name] = {"seconds": seconds, "epoch": after.epoch,
+                     "ranges": moved, "held_rows": rows,
+                     "giver_kept_it_mid_stall": mid is not None}
+    return out
+
+
+def check_fleet_failover(pair, seed: int, rejoin_extra=()) -> dict:
+    """(c) Four keys and an id of h1's range spent past their limit on
+    h1, h1's snapshot taken (POST /v1/snapshot), kill -9: h0 adopts the
+    range on its limiter's device (its /healthz fleet block names the
+    standby's device and the origin's ranges); the recovery window is
+    kill to adoption. A frame of fresh and spent rows through h0 then
+    equals a CPU replay of h0's adopted unit (``build_standby`` on the
+    CPU from h1's directory, folded into h0's earlier adopted unit where
+    it has one). h1 restarts (``rejoin_extra`` more flags) and h0 hands
+    the range back (``--fleet-rejoin auto``): one map on both, h1 owning
+    it, and a frame through each member equals a CPU replay of h1's
+    unit: h1's boot restore from its directory with the unit h0 kept
+    for it (``build_standby`` from h0's directory) folded in."""
+    cur = pair.one_owner("failover")
+    ranges = [tuple(r) for r in cur.host("h1").ranges]
+    if pair.adopted_rep(1, ranges) is not None or \
+            any(b in pair.adopted_buckets[1]
+                for lo, hi in ranges for b in range(lo, hi)):
+        raise AssertionError("fleet (c) expects h1's range on its own unit")
+    spent = _spend(pair, 1, "spent", ranges)
+    st = http_call(pair.srv[1].http, "POST", "/v1/snapshot")[0]
+    if st != 200:
+        raise AssertionError(f"fleet (c): snapshot answered {st}")
+    epochs = [cur.epoch]
+    t_kill = time.perf_counter()
+    pair.kill(1)
+    _fleet_wait(lambda: pair.fleet_map(0).assigns(ranges, "h0"), 30.0,
+                "h0's adoption of h1's range", every=0.02)
+    recovery_s = time.perf_counter() - t_kill
+    blk = pair.fleet(0)
+    device = blk["adopted_device"]
+    if not str(device).startswith(pair.device.split(":")[0]):
+        raise AssertionError(f"fleet (c): the adopted range runs on "
+                             f"{device}, not {pair.device}")
+    if [tuple(r) for r in blk["adopted_origins"].get("h1", ())] != ranges:
+        raise AssertionError(f"fleet (c): adopted origins "
+                             f"{blk['adopted_origins']}")
+    epochs.append(blk["epoch"])
+    pair.adopt(0, _standby(pair, pair.dirs[1]), ranges)
+    boot = _recovered(pair, pair.dirs[1])
+    try:
+        rows = _hold_range(pair, 0, "failover", ranges, spent,
+                           pair.adopted[0], "(c) after the failover")
+        boot_s = pair.restart(1, ["--fleet-rejoin", "auto", *rejoin_extra])
+        t = time.perf_counter()
+
+        def given_back():
+            a, b = pair.fleet_map(0), pair.fleet_map(1)
+            return (a if a.to_dict() == b.to_dict()
+                    and a.assigns(ranges, "h1") else None)
+
+        back = _fleet_wait(given_back, 60.0, "the give-back to h1",
+                           every=0.1)
+        giveback_s = time.perf_counter() - t
+        epochs.append(back.epoch)
+        from ratelimiter_tpu_torch.parallel import reshard
+
+        kept = _standby(pair, pair.dirs[0], origin="h1", ranges=ranges)
+        _, arrays, extra = kept.capture_state()
+        kept.close()
+        reshard.merge_into_limiter(boot, arrays, extra)
+        pair.release(0, ranges)
+        rows += sum(_hold_range(pair, i, f"giveback{i}", ranges, spent,
+                                boot, f"(c) after the give-back, through "
+                                f"h{i}") for i in (1, 0))
+    finally:
+        boot.close()
+    return {"recovery_s": recovery_s, "adopted_device": device,
+            "adopted_buckets": blk["adopted_buckets"],
+            "failovers": blk["failovers"], "restart_boot_s": boot_s,
+            "giveback_s": giveback_s, "epochs": epochs, "held_rows": rows,
+            "rejoins": pair.fleet(0)["rejoins"]}
+
+
+def check_fleet_handoff_abort(pair, seed: int) -> dict:
+    """(d) kill-during-handoff, armed on h1: four keys and an id of a
+    sub-range of h0 spent past their limit, then a move of the sub-range
+    to h1 dies at h1's flip, before the epoch bump is published; the
+    migrate answers 504, both members serve one map that still gives
+    the range to h0 at the old epoch, and a frame of fresh and spent
+    rows through each member equals a CPU replay of h0's unit for the
+    range (its adopted unit's replay, or its own unit restored from the
+    snapshot the move took)."""
+    cur = pair.one_owner("kill-during-handoff")
+    lo, hi = cur.host("h0").ranges[0]
+    moved = [(lo, min(hi, lo + 4))]
+    rep = pair.adopted_rep(0, moved)
+    spent = _spend(pair, 0, "abort", moved, rep)
+    status, body = _migrate(pair, 0, 1, moved, 2.0)
+    if status != 504 or body.get("ok"):
+        raise AssertionError(f"fleet (d) kill-during-handoff: {status} "
+                             f"{body}")
+    _fleet_wait(lambda: any("abandoned before the flip" in ln
+                            for ln in pair.srv[1].output), 10.0,
+                "h1's aborted flip")
+    after = pair.one_owner("kill-during-handoff")
+    if after.to_dict() != cur.to_dict():
+        raise AssertionError(f"fleet (d) kill-during-handoff moved the "
+                             f"map: {after.to_dict()}")
+    own = rep is None
+    if own:
+        rep = _recovered(pair, pair.dirs[0])
+    try:
+        rows = sum(_hold_range(pair, i, f"abort{i}", moved, spent, rep,
+                               f"(d) kill-during-handoff, through h{i}")
+                   for i in (0, 1))
+    finally:
+        if own:
+            rep.close()
+    return {"status": status, "epoch": after.epoch, "ranges": moved,
+            "held_rows": rows}
+
+
+#: (e)'s mesh binary: config 3's width under a fixed hour-long window (the
+#: decision time moves only the retry), limit 5, fail-open, slice 2
+#: killed a second after serving.
+FLEET_SLICE_CHAOS = ("--backend", "mesh", "--algorithm", "fixed_window",
+                     "--limit", "5", "--window", "3600", "--sketch-depth",
+                     str(DEPTH), "--sketch-width", str(WIDTH),
+                     "--sub-windows", "1", "--fail-open", "--quarantine",
+                     "--chaos-scenario", "kill-slice", "--chaos-slice", "2",
+                     "--chaos-after", "1")
+
+
+def check_fleet_slice_chaos(seed: int, device: str = "cuda",
+                            flags=FLEET_SLICE_CHAOS, frames: int = 6,
+                            size: int = FLEET_FRAME,
+                            boot_timeout: float = 300.0) -> dict:
+    """(e) The mesh binary (``mesh_server``) with ``--quarantine`` on 4
+    slices of ``device``, kill-slice armed by ``--chaos-after``: once the
+    binary logs the armed scenario, raw-id and string frames; every row
+    of a healthy slice equals a no-fault CPU replay (a 4-slice mesh on
+    the CPU), every row of the victim's range answers fail-open (allowed,
+    flagged), and the quarantine shows the victim."""
+    from ratelimiter_tpu_torch.parallel import SlicedMeshLimiter
+    from ratelimiter_tpu_torch.serving import Client
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    argv = list(flags) + ["--device", device.split(":")[0],
+                          "--http-port", "0"]
+    on = "" if device.startswith("cuda") else "@" + device
+    victim = int(flags[list(flags).index("--chaos-slice") + 1])
+    rng = np.random.default_rng(seed)
+    cfg = build_config(parse_args(argv))
+    rep = SlicedMeshLimiter(cfg, devices=["cpu"] * 4)
+    srv = ServerProcess(argv + ["--mesh-devices", "4"],
+                        timeout=boot_timeout, slices_on_card=f"4{on}")
+    t = time.perf_counter()
+    try:
+        _fleet_wait(lambda: any("chaos scenario kill-slice armed" in ln
+                              for ln in srv.output), 30.0,
+                  "the armed kill-slice")
+        c = Client(port=srv.port, timeout=60.0)
+        victim_rows = healthy_rows = 0
+        try:
+            for i in range(frames):
+                if i % 2:
+                    keys = [f"slice:{int(k)}" for k in
+                            rng.integers(0, size, size // 8)]
+                    got = c.allow_batch(keys)
+                    want = rep.allow_batch(keys)
+                    owners = np.asarray([rep.owner_of_key(k) for k in keys])
+                    g_a = np.asarray([r.allowed for r in got])
+                    g_r = np.asarray([r.remaining for r in got])
+                    fo = any(r.fail_open for r in got)
+                else:
+                    ids = rng.integers(0, 4 * size, size).astype(np.uint64)
+                    got = c.allow_hashed(ids)
+                    want = rep.allow_ids(ids)
+                    owners = rep.owner_of_id(ids)
+                    g_a, g_r, fo = got.allowed, got.remaining, got.fail_open
+                healthy = owners != victim
+                if not (np.array_equal(g_a[healthy], want.allowed[healthy])
+                        and np.array_equal(g_r[healthy],
+                                           want.remaining[healthy])):
+                    raise AssertionError(f"fleet (e): frame {i}'s healthy "
+                                         f"rows differ from the replay")
+                if (~healthy).any() and not (g_a[~healthy].all() and fo):
+                    raise AssertionError(f"fleet (e): frame {i}'s victim "
+                                         f"rows did not fail open")
+                victim_rows += int((~healthy).sum())
+                healthy_rows += int(healthy.sum())
+        finally:
+            c.close()
+        quar = http_call(srv.http, "GET", "/healthz")[2]["quarantine"]
+        if quar["quarantined"] != [victim]:
+            raise AssertionError(f"fleet (e): quarantine {quar}")
+        return {"victim": victim, "victim_rows": victim_rows,
+                "healthy_rows": healthy_rows,
+                "wall_s": time.perf_counter() - t}
+    finally:
+        srv.kill()
+        rep.close()
+
+
+def run_fleet(torch, seed: int = 0) -> dict:
+    """Phase fleet: (a)-(e); raises on any failure. Returns the in-process
+    runs' launch counts (for the kernel rows) and the readings. (b) runs
+    on two members of its own; (c) and (d) on two fresh members, whose
+    sketch holds only what the checks spend, so that a replay of an
+    adopted unit tells a right unit from one that denies everything (the
+    load of (b) leaves most cells near the limit)."""
+    import os
+    import tempfile
+
+    t = time.perf_counter()
+    win = check_fleet_inprocess(torch, f"windowed CU hh_slots={HH_SLOTS}",
+                                config3_hh(), seed + 111)
+    tb = check_fleet_inprocess(torch, "TB-c2", config2_bucket(), seed + 113,
+                               advance=C2_ADVANCE)
+    out = {"in_process": {k: {kk: vv for kk, vv in v.items()
+                              if kk != "counts"}
+                          for k, v in (("windowed", win), ("TB-c2", tb))}}
+    log(f"fleet (a) done at {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, d) for d in ("b", "cd")]
+        for d in dirs:
+            os.makedirs(d)
+        load = FleetLoad(tmp)
+        try:
+            pair = FleetPair(dirs[0], config3())
+            try:
+                out["boot_s"] = time.perf_counter() - t
+                out["sample"] = check_fleet_sample(pair, seed + 115)
+                out["affine"] = load.run(pair, "affine", seed=seed + 117)
+                out["mixed"] = load.run(pair, "mixed", seed=seed + 119)
+            finally:
+                pair.close()
+        finally:
+            load.close()
+        log(f"fleet (b) done at {time.perf_counter() - t:.1f} s")
+        pair = FleetPair(dirs[1], config3(), extra=(
+            ("--chaos-scenario", "migration-stall", "--chaos-seconds",
+             str(FLEET_STALL_S)), ()))
+        try:
+            out["epochs_at_boot"] = [pair.fleet(i)["epoch"]
+                                     for i in range(2)]
+            out["migrate"] = check_fleet_migrate(pair, seed + 121)
+            out["failover"] = check_fleet_failover(
+                pair, seed + 123, rejoin_extra=(
+                    "--chaos-scenario", "kill-during-handoff",
+                    "--chaos-after", str(FLEET_CHAOS_AFTER)))
+            log(f"fleet (c) done at {time.perf_counter() - t:.1f} s")
+            _fleet_wait(lambda: any("kill-during-handoff armed" in ln
+                                    for ln in pair.srv[1].output),
+                        FLEET_CHAOS_AFTER + 30.0, "kill-during-handoff armed")
+            out["kill_during_handoff"] = check_fleet_handoff_abort(
+                pair, seed + 125)
+        finally:
+            pair.close()
+    log(f"fleet (d) done at {time.perf_counter() - t:.1f} s")
+    out["slice_chaos"] = check_fleet_slice_chaos(seed + 127)
+    out["wall_s"] = time.perf_counter() - t
+    fo = out["failover"]
+    held = (sum(v["held_rows"] for v in out["migrate"].values())
+            + fo["held_rows"] + out["kill_during_handoff"]["held_rows"])
+    log(f"phase fleet done in {out['wall_s']:.1f} s: affine "
+        f"{out['affine']['decisions_per_s']:.0f} and mixed "
+        f"{out['mixed']['decisions_per_s']:.0f} decisions/s (mixed p99 "
+        f"{out['mixed']['p99_ms']:.2f} ms, {out['mixed']['forward_errors']} "
+        f"forward errors); recovery {fo['recovery_s']:.3f} s onto "
+        f"{fo['adopted_device']}, give-back {fo['giveback_s']:.3f} s, "
+        f"epochs {fo['epochs']}; moves "
+        + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in
+                    out["migrate"].items())
+        + f"; kill-during-handoff {out['kill_during_handoff']['status']}; "
+        f"{held} rows held against CPU replays of the moved ranges' units")
+    return {"windowed": [win], "bucket": [tb], "out": out}
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -10609,6 +11897,12 @@ def main(argv=None) -> int:
                          "group on the card, two peered binaries, the "
                          "mesh binary restarted at another slice count, "
                          "three rounds of readings; one JSON line)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="only build, then run phase fleet (the fleet "
+                         "in process on the card, two member binaries "
+                         "on it: forwarding, kill -9 failover, "
+                         "migration, the handoff and slice chaos; one "
+                         "JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -10634,11 +11928,12 @@ def main(argv=None) -> int:
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
                 or args.gateway or args.door or args.native
-                or args.grpc or args.mesh or args.dcn)
+                or args.grpc or args.mesh or args.dcn or args.fleet)
     # The native door and the load generator build with g++ beside the
     # nvcc builds.
     host_build = None
-    if full or args.native or args.grpc or args.mesh or args.dcn:
+    if (full or args.native or args.grpc or args.mesh or args.dcn
+            or args.fleet):
         from concurrent.futures import ThreadPoolExecutor
 
         from ratelimiter_tpu_torch import native
@@ -10659,8 +11954,15 @@ def main(argv=None) -> int:
         dense_cuda.build()
     for fut in host_build or ():
         fut.result()
-    log(f"build: kernels built and loaded in {time.perf_counter() - t:.1f} s "
+    build_s = time.perf_counter() - t
+    log(f"build: kernels built and loaded in {build_s:.1f} s "
         f"on {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+
+    def stamp(name: str, value):
+        """Each phase's stamp: seconds since the start, the build's."""
+        log(f"{name} done at {time.perf_counter() - t:.1f} s "
+            f"(build {build_s:.1f} s)")
+        return value
 
     if args.sweep:
         print(json.dumps({"card": card, "sweep": sweep_tiles(torch,
@@ -10725,6 +12027,14 @@ def main(argv=None) -> int:
                          default=lambda o: repr(o)))
         print(card)
         return 0
+    if args.fleet:
+        out = stamp("phase fleet", run_fleet(torch, args.seed))
+        check_no_children()
+        print(json.dumps({"card": card, "fleet": out["out"], "counts": {
+            k: v[0]["counts"] for k, v in out.items() if k != "out"}},
+            default=lambda o: repr(o)))
+        print(card)
+        return 0
     if args.dcn:
         out = run_dcn(torch, args.seed, full=True)
         check_no_children()
@@ -10778,6 +12088,7 @@ def main(argv=None) -> int:
         for width, forms in check_twin_kernels(torch, args.seed).items():
             for name, form in forms.items():
                 rows[name].setdefault("twin", {})[str(width)] = form
+        stamp("phase 2 (kernel rows)", None)
     strict = not args.paths
     cu = check_main_path(torch, args.seed, args.steps, cu=True,
                          strict=strict)
@@ -10848,6 +12159,7 @@ def main(argv=None) -> int:
             for label, h, b in (("windowed CU", cu_hh, cu),
                                 ("windowed vanilla", vanilla_hh,
                                  vanilla))))
+    stamp("phase 3 (main paths)", None)
     check_server(torch, args.seed, config3(), "windowed")
     check_server(torch, args.seed, config2_bucket(), "TB-c2")
     door_cu = check_door(
@@ -10890,21 +12202,20 @@ def main(argv=None) -> int:
             f"{d['p99_ms']:.2f} | {b['p99_ms']:.2f} ms"
             for label, d, b in (("windowed CU", door_cu, unproxied_cu),
                                 ("TB-c2", door_tb, unproxied_tb))))
-    log(f"phases 1-4 done at {time.perf_counter() - t:.1f} s")
-
-    def stamp(name: str, value):
-        log(f"{name} done at {time.perf_counter() - t:.1f} s")
-        return value
+    stamp("phases 1-4", None)
 
     observe = stamp("phase observe", run_observe(torch, args.seed, reuse={
         "windowed CU": door_cu, f"windowed CU hh_slots={HH_SLOTS}": door_hh,
-        "TB-c2": door_tb}, rounds=1, frames=DOOR_FRAMES // 2))
+        "TB-c2": door_tb}, rounds=1, frames=DOOR_FRAMES // 4,
+        labels=("windowed CU",),
+        given={"windowed CU": {"default": unproxied_cu}}))
     gateway = stamp("phase gateway", run_gateway(torch, args.seed))
     native_door = stamp("phase native", run_native(torch, args.seed,
                                                    rounds=1))
     grpc_phase = stamp("phase grpc", run_grpc(torch, args.seed))
     mesh = stamp("phase mesh", run_mesh(torch, args.seed))
     dcn_phase = stamp("phase dcn", run_dcn(torch, args.seed))
+    fleet_phase = stamp("phase fleet", run_fleet(torch, args.seed))
     live = stamp("live updates", check_live_updates(torch, args.seed))
     watch = stamp("watchdog", check_watchdog(torch))
     durable = stamp("durable door", check_durable_door(
@@ -10914,8 +12225,7 @@ def main(argv=None) -> int:
     dense_durable = stamp("dense durable", check_dense_durable(torch,
                                                                args.seed))
     above = stamp("above capacity", check_above_capacity(torch, args.seed))
-    eval_path = check_eval_path(torch, args.seed)
-    log(f"phases 5-6 done at {time.perf_counter() - t:.1f} s")
+    eval_path = stamp("evaluation", check_eval_path(torch, args.seed))
     log(f"phase 5 on {card}: migration {live['migration_device_ms']} device "
         f"ms, update lock hold {live['lock_hold_ms']} ms (TB-c2 "
         f"{live['lock_hold_ms_TB-c2']}); strict deny-all batches "
@@ -10938,12 +12248,13 @@ def main(argv=None) -> int:
                      native_door["windowed CU shards=2"],
                      grpc_phase["windowed asyncio"],
                      grpc_phase["windowed native"], grpc_phase["leases"],
-                     *mesh["windowed"], *dcn_phase["windowed"])
+                     *mesh["windowed"], *dcn_phase["windowed"],
+                     *fleet_phase["windowed"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
                    *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
                    native_door["TB-c2"], grpc_phase["TB-c2 asyncio"],
                    grpc_phase["TB-c2 native"], *mesh["bucket"],
-                   *dcn_phase["bucket"])
+                   *dcn_phase["bucket"], *fleet_phase["bucket"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -10960,6 +12271,11 @@ def main(argv=None) -> int:
                 name, mesh["windowed"], mesh["bucket"])
     rows["route_bins"]["launches"] = mesh["route_bins"]
     rows["route_bins"]["mesh_launches"] = mesh["route_bins"]
+    # Phase fleet's share: both in-process hosts' launches.
+    for name in rows:
+        if name in KERNEL_ROWS and name != "route_bins":
+            rows[name]["fleet_launches"] = row_launches(
+                name, fleet_phase["windowed"], fleet_phase["bucket"])
     # The side table's update ran as the backs' tail on every path.
     rows["hh_update"]["fused_launches"] = row_launches(
         "hh_update [fused]", windowed_runs, bucket_runs)
@@ -10979,6 +12295,7 @@ def main(argv=None) -> int:
     paths["grpc"] = grpc_phase
     paths["mesh"] = _mesh_summary(mesh)
     paths["dcn"] = dcn_phase["out"]
+    paths["fleet"] = fleet_phase["out"]
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

@@ -82,3 +82,18 @@ class CheckpointError(RateLimiterError, RuntimeError):
     wrong limiter kind, or a snapshot taken under a different config
     (fingerprint mismatch) — restoring it would silently reinterpret the
     state arrays."""
+
+
+class NotOwnerError(RateLimiterError, RuntimeError):
+    """Typed fleet redirect: the server answering this frame does not own
+    the keys' hash buckets under its ownership epoch, and forwarding is
+    off (``--fleet-no-forward``). The message is machine-parseable
+    (``protocol.parse_not_owner``) and names the owner's address and the
+    answering server's epoch, so a stale router refreshes its map and
+    re-routes. ``owner``/``epoch`` are set when the error was parsed off
+    the wire or raised by a fleet router."""
+
+    def __init__(self, msg: str, *, owner: str = "", epoch: int = 0):
+        super().__init__(msg)
+        self.owner = owner
+        self.epoch = int(epoch)

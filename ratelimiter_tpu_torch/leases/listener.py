@@ -90,7 +90,7 @@ class LeaseListener:
                 length, type_, req_id = p.parse_header(hdr)
                 body = await reader.readexactly(length - 9)
                 base = type_ & ~(p.TRACE_FLAG | p.DEADLINE_FLAG
-                                 | p.REQUEST_FLAGS)
+                                 | p.FORWARD_FLAG)
                 if base not in (p.T_LEASE_GRANT, p.T_LEASE_RENEW,
                                 p.T_LEASE_RETURN):
                     await _send(p.encode_error(

@@ -18,12 +18,13 @@ key STRINGS never enter the table — only the side-table-compatible
 hashed consumer token, which is all the restore path needs because
 RENEW/RETURN frames re-carry the key.
 
-The port has no fleet yet (ROADMAP A13d, part two): ``epoch_fn`` and
-``owns_fn`` stay None in its binary, ``gossip`` is the first DCN
-pusher's ``push_lease`` when the binary runs ``--dcn-peer`` (as the JAX
-binary wires it without a fleet), and revocation pushes go straight to
-their connections (the JAX manager routes them through its chaos
-injector first).
+In a fleet the binary wires ``epoch_fn``/``owns_fn`` to the fleet core
+(grants over ranges the member no longer owns are revoked) and
+``gossip`` to the membership's announce connections; without a fleet,
+``gossip`` is the first DCN pusher's ``push_lease`` when the binary
+runs ``--dcn-peer``. Revocation pushes traverse the chaos injector's DCN
+seam, so the partition and corruption drills exercise the
+lost-revocation path.
 """
 
 from __future__ import annotations
@@ -392,7 +393,10 @@ class LeaseManager:
 
     def _push_revoke(self, grants: List[Grant], reason: int,
                      epoch: int) -> None:
-        """Send one T_LEASE_REVOKE push per (connection) holder."""
+        """Send one T_LEASE_REVOKE push per (connection) holder; pushes
+        traverse the chaos DCN seam."""
+        from ratelimiter_tpu_torch import chaos
+
         by_push: Dict[int, tuple] = {}
         for g in grants:
             if g.push is None:
@@ -401,6 +405,11 @@ class LeaseManager:
                 g.lease_id)
         for push, ids in by_push.values():
             frame = p.encode_lease_revoke(reason, epoch, ids)
+            if chaos.INJECTOR is not None:
+                frame = chaos.INJECTOR.dcn_frame(frame)
+                if frame is None:
+                    self._c_push_fail.inc(len(ids))
+                    continue
             try:
                 push(frame)
             except Exception:  # noqa: BLE001 — TTL bounds the holder

@@ -48,8 +48,10 @@
 //     dispatcher decrements live_dispatchers and notifies the responder
 //     without holding rmx, so the responder can miss its last wake-up
 //     and shutdown joins it forever);
-//   * the fleet's forward hint (request flag 0x10) is refused with
-//     E_INVALID_CONFIG, as the port's asyncio door refuses it;
+//   * a string Pending carved at max_batch keeps its forward hint on
+//     both halves;
+//   * a fleet member serves T_FLEET_MAP (the JAX door answers it as an
+//     unknown type, as this one does outside a fleet);
 //   * no quarantine state (set_shard_health) and no lease lane;
 //   * its own ABI number (rl_server_abi_version).
 //
@@ -63,6 +65,8 @@
 //   spans(shard, count, trace, t_io, t_d0, t_d1, t_v0, t_v1)
 //   dcn(body) -> None: a T_DCN_PUSH body, on shard 0's dispatcher (None:
 //     pushes are refused and keep the 1 MiB frame bound)
+//   fleet_map() -> bytes: the fleet map's JSON for T_FLEET_MAP, on shard
+//     0's dispatcher (None: the frame is an unknown type)
 //
 // Build: g++ -O2 -shared -fPIC -std=c++17 on first use
 // (ratelimiter_tpu_torch/native/__init__.py, build_server).
@@ -104,10 +108,12 @@ namespace {
 
 // ---- protocol constants (serving/protocol.py (the port's)) ----
 constexpr uint8_t T_ALLOW_N = 1, T_RESET = 2, T_HEALTH = 3, T_METRICS = 4,
-                  T_ALLOW_BATCH = 5, T_DCN_PUSH = 6, T_ALLOW_HASHED = 11;
+                  T_ALLOW_BATCH = 5, T_DCN_PUSH = 6, T_ALLOW_HASHED = 11,
+                  T_FLEET_MAP = 12;
 constexpr uint8_t T_RESULT = 129, T_OK = 130, T_HEALTH_R = 131,
                   T_METRICS_R = 132, T_RESULT_BATCH = 133,
-                  T_RESULT_HASHED = 136, T_ERROR = 255;
+                  T_RESULT_HASHED = 136, T_FLEET_MAP_R = 137,
+                  T_ERROR = 255;
 // Shm lane upgrade (ADR-025): 16 aliases FORWARD_FLAG | 0 on the type
 // byte, so the hello is matched EXACTLY on the raw byte before any flag
 // stripping (base type 0 is invalid, making the exact match unambiguous;
@@ -147,9 +153,12 @@ constexpr uint8_t TRACE_FLAG = 0x40;
 // answering per the fail-open policy instead of burning a dispatch
 // slot.
 constexpr uint8_t DEADLINE_FLAG = 0x20;
-// The JAX protocol's forward-lane hint (bit 4 on a request type byte,
-// the fleet's forward windows): this door serves no fleet and refuses
-// such frames with E_INVALID_CONFIG, as the port's asyncio door does.
+// Forward-lane hint (serving/protocol.py FORWARD_FLAG): request frames
+// with bit 4 set are fleet forward windows — every row is owned by THIS
+// host, and the frame must never share a dispatch with client frames
+// whose resolve waits on our own forward legs (coupling the two builds
+// an unbounded cross-host dependency chain). Pure hint, no body prefix;
+// the dispatcher cuts its drain at forward/non-forward boundaries.
 constexpr uint8_t FORWARD_FLAG = 0x10;
 
 // Span clock: CLOCK_MONOTONIC ns — the SAME domain as Python's
@@ -746,6 +755,9 @@ struct Pending {
   // 0 = none): anchored at frame arrival from the frame's
   // relative budget. Expired items are shed at the dispatch boundary.
   uint64_t deadline_ns = 0;
+  // Fleet forward-lane window (FORWARD_FLAG): the dispatcher never
+  // mixes forward and non-forward Pendings in one drained run.
+  bool fwd = false;
 };
 
 inline size_t pending_count(const Pending& p) {
@@ -967,6 +979,8 @@ struct Server {
   // checks the envelope and merges into every shard limiter.
   PyObject* cb_dcn = nullptr;
   bool dcn_enabled = false;
+  // Fleet map callback (None = not a fleet member): T_FLEET_MAP's JSON.
+  PyObject* cb_fleet_map = nullptr;
   // Spans callback (ADR-014; None = per-ticket spans off):
   //   spans(shard, count, trace_id, t_io, t_d0, t_d1, t_v0, t_v1)
   // called from the completer (GIL already held for the resolve) with
@@ -1853,6 +1867,35 @@ void handle_dcn(Server* s, const Pending& p) {
   conn_send(s, p.conn, std::move(out));
 }
 
+void handle_fleet_map(Server* s, const Pending& p) {
+  // T_FLEET_MAP on shard 0's dispatcher: the map's JSON from Python,
+  // framed as T_FLEET_MAP_R (u32 len + JSON).
+  std::string json;
+  uint16_t err_code = 0;
+  std::string err_msg;
+  {
+    PyGILState_STATE g = PyGILState_Ensure();
+    PyObject* res = PyObject_CallNoArgs(s->cb_fleet_map);
+    if (res == nullptr) {
+      err_code = fetch_py_error(err_msg, "fleet map failed", E_INTERNAL);
+    } else {
+      if (PyBytes_Check(res))
+        json.assign(PyBytes_AsString(res), PyBytes_Size(res));
+      Py_DECREF(res);
+    }
+    PyGILState_Release(g);
+  }
+  std::string out;
+  if (err_code) {
+    out = make_error(p.req_id, err_code, err_msg);
+  } else {
+    frame_header(out, T_FLEET_MAP_R, p.req_id, 4 + (uint32_t)json.size());
+    put_u32(out, (uint32_t)json.size());
+    out += json;
+  }
+  conn_send(s, p.conn, std::move(out));
+}
+
 void handle_metrics(Server* s, const Pending& p) {
   std::string text;
   {
@@ -1916,6 +1959,10 @@ void dispatcher_main(Server* s, uint32_t shard) {
       while (!q.queue.empty() && run_keys < s->max_batch) {
         // RESET/METRICS ride the same queue (keys empty or kind marker).
         Pending& front = q.queue.front();
+        // Forward-lane boundary: never mix forward windows (all rows
+        // local) with client frames (whose bridge resolve may wait on
+        // OUR forward legs) in one dispatch.
+        if (!run.empty() && front.fwd != run.back().fwd) break;
         size_t nk = pending_count(front);
         size_t room = s->max_batch - run_keys;
         // Cut BEFORE crossing max_batch (never overshoot the largest
@@ -1965,6 +2012,7 @@ void dispatcher_main(Server* s, uint32_t shard) {
           head.t_io = front.t_io;
           head.trace_id = front.trace_id;
           head.deadline_ns = front.deadline_ns;
+          head.fwd = front.fwd;
           if (front.hashed) {
             head.ids.assign(front.ids.begin(), front.ids.begin() + room);
             front.ids.erase(front.ids.begin(), front.ids.begin() + room);
@@ -2000,6 +2048,8 @@ void dispatcher_main(Server* s, uint32_t shard) {
         handle_metrics(s, p);
       } else if (!p.hashed && p.ns.size() == 1 && p.ns[0] == -3) {
         handle_dcn(s, p);
+      } else if (!p.hashed && p.ns.size() == 1 && p.ns[0] == -4) {
+        handle_fleet_map(s, p);
       } else if (p.hashed) {
         hashed.push_back(std::move(p));
       } else {
@@ -2514,17 +2564,6 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
         deadline_ns = 1;  // any past instant: expired on arrival
     }
 
-    if (fwd_hint) {
-      // The fleet's forward windows are not served here (no fleet).
-      char msg[96];
-      snprintf(msg, sizeof(msg),
-               "request type %#x carries the forward hint, which this "
-               "server does not serve",
-               (unsigned)(type | FORWARD_FLAG));
-      conn_send(s, c, make_error(req_id, E_INVALID_CONFIG, msg));
-      continue;
-    }
-
     auto enqueue = [&](Pending&& p, size_t nkeys, uint32_t shard) {
       Server::ShardQ& q = *s->shardqs[shard];
       std::lock_guard<std::mutex> g(q.qmx);
@@ -2572,6 +2611,7 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
       p.t_io = mono_ns();
       p.trace_id = trace_id;
       p.deadline_ns = deadline_ns;
+      p.fwd = fwd_hint;
       p.keys.reserve(count);
       p.ns.reserve(count);
       size_t pos = 4;
@@ -2641,6 +2681,7 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
             part.t_io = p.t_io;
             part.trace_id = p.trace_id;
             part.deadline_ns = p.deadline_ns;
+            part.fwd = p.fwd;
             part.join = j;
             part.pos = std::move(per[sh]);
             part.keys.reserve(part.pos.size());
@@ -2678,6 +2719,7 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
         p.t_io = mono_ns();
         p.trace_id = trace_id;
         p.deadline_ns = deadline_ns;
+        p.fwd = fwd_hint;
           p.hashed = true;
         p.ids.reserve(count);
         p.ns.reserve(count);
@@ -2723,6 +2765,7 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
               part.t_io = p.t_io;
               part.trace_id = p.trace_id;
               part.deadline_ns = p.deadline_ns;
+              part.fwd = p.fwd;
                 part.hashed = true;
               part.join = j;
               part.pos = std::move(per[sh]);
@@ -2779,6 +2822,11 @@ bool process_rbuf(Server* s, const ConnPtr& c) {
         Pending p{c, req_id, false, {std::string(body, blen)}, {-3}};
         enqueue(std::move(p), 0, 0);
       }
+    } else if (type == T_FLEET_MAP && s->cb_fleet_map != Py_None) {
+      // A fleet member's map; outside a fleet the frame stays an
+      // unknown type, as on the JAX door.
+      Pending p{c, req_id, false, {std::string()}, {-4}};
+      enqueue(std::move(p), 0, 0);
     } else {
       conn_send(s, c, make_error(req_id, E_INTERNAL, "unknown request type"));
     }
@@ -3311,6 +3359,7 @@ void server_dealloc(PyObject* self) {
     Py_XDECREF(ps->s->cb_launch_hashed);
     Py_XDECREF(ps->s->cb_spans);
     Py_XDECREF(ps->s->cb_dcn);
+    Py_XDECREF(ps->s->cb_fleet_map);
     delete ps->s;
   }
   Py_TYPE(self)->tp_free(self);
@@ -3342,11 +3391,11 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
                                  "shm", "shm_dir", "shm_ring_bytes",
                                  "net_engine", "io_rings",
                                  "dcn", "dcn_auth_required", "max_dcn_conns",
-                                 nullptr};
+                                 "fleet_map", nullptr};
   PyObject *decide, *reset, *metrics = Py_None;
   PyObject *launch = Py_None, *resolve = Py_None;
   PyObject *decide_hashed = Py_None, *launch_hashed = Py_None;
-  PyObject *spans = Py_None, *dcn = Py_None;
+  PyObject *spans = Py_None, *dcn = Py_None, *fleet_map = Py_None;
   unsigned int max_batch = 4096, max_delay_us = 200, slo_us = 0;
   int fail_open = 0;
   long long limit = 0;
@@ -3361,7 +3410,7 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   unsigned int io_rings = 0;
   int dcn_auth_required = 0;
   unsigned int max_dcn_conns = 4;
-  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "OO|OIIIpLdy#IOOIOOOpsIsIOpI",
+  if (!PyArg_ParseTupleAndKeywords(args, kwargs, "OO|OIIIpLdy#IOOIOOOpsIsIOpIO",
                                    (char**)kwlist,
                                    &decide, &reset, &metrics, &max_batch,
                                    &max_delay_us, &slo_us, &fail_open, &limit,
@@ -3371,7 +3420,7 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
                                    &launch_hashed, &spans, &shm, &shm_dir,
                                    &shm_ring_bytes, &net_engine, &io_rings,
                                    &dcn, &dcn_auth_required,
-                                   &max_dcn_conns))
+                                   &max_dcn_conns, &fleet_map))
     return nullptr;
   uint32_t net_engine_req = 0;  // auto
   if (net_engine != nullptr && net_engine[0] != '\0') {
@@ -3422,6 +3471,7 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   Py_INCREF(launch_hashed);
   Py_INCREF(spans);
   Py_INCREF(dcn);
+  Py_INCREF(fleet_map);
   ps->s->cb_decide = decide;
   ps->s->cb_reset = reset;
   ps->s->cb_metrics = metrics;
@@ -3431,6 +3481,7 @@ PyObject* create_server(PyObject* Py_UNUSED(mod), PyObject* args,
   ps->s->cb_launch_hashed = launch_hashed;
   ps->s->cb_spans = spans;
   ps->s->cb_dcn = dcn;
+  ps->s->cb_fleet_map = fleet_map;
   ps->s->dcn_enabled = dcn != Py_None;
   ps->s->hashed_enabled = decide_hashed != Py_None;
   ps->s->spans_enabled = spans != Py_None;

@@ -126,3 +126,38 @@ def halves_dev(keys, premix: bool, seed: int):
     if isinstance(keys, tuple):
         return keys
     return split_hash_dev(splitmix64_dev(keys) if premix else keys, seed)
+
+
+# ----------------------------------------------------- splitmix64 inverse
+#
+# splitmix64 is a bijection on u64 (an odd-constant add, then three
+# invertible xorshift-multiply rounds), so a finalized hash goes back to
+# the raw id that produced it. The fleet forwards finalized hashes over
+# the plain T_ALLOW_HASHED lane as ``splitmix64_inv(h64)``: the receiver
+# re-finalizes them to the bit-identical hash.
+
+#: Modular inverses of the two splitmix64 multipliers mod 2^64.
+_INV_C1 = np.uint64(pow(0xBF58476D1CE4E5B9, -1, 1 << 64))
+_INV_C2 = np.uint64(pow(0x94D049BB133111EB, -1, 1 << 64))
+
+
+def _unshift_right(x: np.ndarray, s: int) -> np.ndarray:
+    """Invert ``y = x ^ (x >> s)`` (iterate to the fixpoint: each round
+    recovers ``s`` more high-order-correct bits)."""
+    y = x.copy()
+    for _ in range(-(-64 // s) - 1):
+        y = x ^ (y >> np.uint64(s))
+    return y
+
+
+def splitmix64_inv(x: np.ndarray) -> np.ndarray:
+    """Exact inverse of :func:`splitmix64` (vectorized)."""
+    x = np.asarray(x, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        x = _unshift_right(x, 31)
+        x = x * _INV_C2
+        x = _unshift_right(x, 27)
+        x = x * _INV_C1
+        x = _unshift_right(x, 30)
+        x = x - np.uint64(0x9E3779B97F4A7C15)
+    return x

@@ -25,17 +25,11 @@ into a contract:
 The whole subsystem is opt-in (``MeshSpec.quarantine``); with it off,
 no guard exists and the mesh hot path holds no guard at all.
 
-Left out until the chaos package is ported (ROADMAP A13d, part two): the
-chaos injector's ``SliceFault`` in ``classify_failure`` and the guard's
-chaos hooks, which are no-ops here. In their place ``inject_failure`` on
-a guarded slice (``mesh.slices[i]``) arms the fault AT THE GUARD, where
-the injector's ``fail_slice`` raises: every launch, resolve and probe of
-that slice raises it until ``heal``, so the slice classifies and
-quarantines whatever ``fail_open`` says (a fault inside the slice's own
-limiter, by contrast, is answered fail-open by that limiter when
-``fail_open`` is set, as in the JAX package, and never reaches the
-guard). A RuntimeError from the card takes the guard's path too. torch's CUDA errors are ``RuntimeError``s, as XLA's are, so they
-classify as backend faults.
+Faults are injected where real ones surface: the chaos injector's slice
+hooks (``chaos.INJECTOR.slice_launch``/``slice_resolve``) fire inside
+this guard, and its ``SliceFault`` classifies as a backend fault. torch's
+CUDA errors are ``RuntimeError``s, as XLA's are, so they classify as
+backend faults too.
 """
 
 from __future__ import annotations
@@ -128,9 +122,11 @@ def classify_failure(exc: BaseException) -> bool:
     if isinstance(exc, (StorageUnavailableError, DeadlineExceededError,
                         TimeoutError, OSError, MemoryError)):
         return True
-    # The chaos injector's SliceFault joins here when the chaos package
-    # is ported (ROADMAP A13d, part two). torch's CUDA errors are
-    # RuntimeErrors.
+    from ratelimiter_tpu_torch.chaos.injector import SliceFault
+
+    if isinstance(exc, SliceFault):
+        return True
+    # torch's CUDA errors are RuntimeErrors.
     return isinstance(exc, RuntimeError)
 
 
@@ -374,8 +370,8 @@ class SliceGuard(LimiterDecorator):
     device. Live dispatches resolve on the guard's own single worker
     thread bounded by the per-slice deadline, so a wedged device
     surfaces as a classified failure within one budget instead of
-    hanging the frame. The JAX package's chaos hooks fire inside this
-    guard; here they are no-ops (module docstring).
+    hanging the frame. Chaos hooks (ratelimiter_tpu_torch/chaos/) fire
+    inside this guard — the same surfaces real faults use.
 
     Fail-open degraded answers are stamped with the LIVE limit/window
     (the config property delegates to the inner slice, which
@@ -396,8 +392,6 @@ class SliceGuard(LimiterDecorator):
         self._cold_deadline = max(self._deadline, 30.0)
         self._pool: Optional[_DaemonExecutor] = None
         self._pool_lock = threading.Lock()
-        #: The fault ``inject_failure`` armed at the guard (None: none).
-        self._fault: Optional[BaseException] = None
         manager.register(self.slice_index, self)
 
     # ------------------------------------------------------------ plumbing
@@ -455,30 +449,17 @@ class SliceGuard(LimiterDecorator):
                 pass
         return True
 
-    # The chaos injector's slice hooks (the JAX guard calls
-    # chaos.INJECTOR.slice_launch/slice_resolve here): until the chaos
-    # package is ported (ROADMAP A13d, part two) they raise only the
-    # fault inject_failure armed.
-
     def _chaos_launch(self) -> None:
-        self._raise_fault()
+        from ratelimiter_tpu_torch import chaos
+
+        if chaos.INJECTOR is not None:
+            chaos.INJECTOR.slice_launch(self.slice_index)
 
     def _chaos_resolve(self) -> None:
-        self._raise_fault()
+        from ratelimiter_tpu_torch import chaos
 
-    def _raise_fault(self) -> None:
-        fault = self._fault
-        if fault is not None:
-            raise fault
-
-    def inject_failure(self, exc: Optional[Exception] = None) -> None:
-        """Arm a fault at the guard (module docstring): every launch,
-        resolve and probe of this slice raises it until ``heal``."""
-        self._fault = exc if exc is not None else RuntimeError(
-            f"injected failure on slice {self.slice_index}")
-
-    def heal(self) -> None:
-        self._fault = None
+        if chaos.INJECTOR is not None:
+            chaos.INJECTOR.slice_resolve(self.slice_index)
 
     # ----------------------------------------------------- guarded launch
 

@@ -26,8 +26,9 @@ table on the same snapshots: the lease grant table rides every snapshot
 and is restored after recovery.
 
 ``slice_restorer`` is the mesh quarantine's restore-before-rejoin hook
-(recover.recover_unit). Left out: the fleet's auxiliary units (ROADMAP
-A13d).
+(recover.recover_unit). ``add_aux_unit``/``remove_aux_unit`` put a
+fleet member's adopted-range standby on the same cycle
+(snapshotter.py).
 """
 
 from __future__ import annotations
@@ -154,6 +155,19 @@ class PersistenceManager:
         """Manual trigger (binary T_SNAPSHOT)."""
         assert self.snapshotter is not None, "attach() first"
         return self.snapshotter.snapshot_now()
+
+    def add_aux_unit(self, origin: str, limiter, ranges=()) -> None:
+        """Fold an adopted-range standby unit into this host's own
+        snapshot cycle: every later snapshot captures it to an ``aux-*``
+        file named in the manifest, so a second failure after adoption
+        does not lose the adopted counters and overrides (this host's
+        successor restores them, fleet/handoff.build_standby)."""
+        assert self.snapshotter is not None, "attach() first"
+        self.snapshotter.add_aux(origin, limiter, ranges)
+
+    def remove_aux_unit(self, origin: str) -> None:
+        assert self.snapshotter is not None, "attach() first"
+        self.snapshotter.remove_aux(origin)
 
     def add_sidecar(self, name: str, obj) -> None:
         """Ride a non-limiter object on the snapshot cycle (the lease

@@ -30,9 +30,14 @@ and written as ``side-<id>-<name>.npz`` (its arrays, and its meta as a
 
 A sliced mesh (``--backend mesh``) snapshots as one unit on the asyncio
 door (its combined ``slice<i>:`` arrays) and as one file per slice on
-the native door. Left out: the chaos hook before capture and the
-auxiliary units that serve the fleet's adopted ranges (ROADMAP A13d,
-part two).
+the native door.
+
+Auxiliary units ride the cycle too: a fleet member's adopted-range
+standby (``add_aux``) is captured after the shards and written as
+``aux-<id>-<origin>.npz``, named in the manifest entry's ``aux`` with
+its origin and ranges, so the member's own successor restores it
+(``fleet/handoff.py``). The chaos injector's ``snapshot_capture`` hook
+(the snapshot-stall scenario) runs before each capture.
 """
 
 from __future__ import annotations
@@ -64,6 +69,10 @@ MANIFEST_VERSION = 1
 
 def _snap_name(snap_id: int, shard: int) -> str:
     return f"snap-{snap_id:08d}-{shard:03d}.npz"
+
+
+def _aux_name(snap_id: int, origin: str) -> str:
+    return f"aux-{snap_id:08d}-{origin}.npz"
 
 
 def _side_name(snap_id: int, name: str) -> str:
@@ -165,6 +174,9 @@ class Snapshotter:
         #: Lightweight objects riding the snapshot cycle (the lease grant
         #: table): name -> object with ``snapshot_arrays``.
         self._sidecars: dict = {}
+        #: Fleet adopted-range standby units: origin host id ->
+        #: {"limiter", "ranges"}; each cycle writes one file per unit.
+        self._aux: dict = {}
 
     # ---------------------------------------------------------- lifecycle
 
@@ -209,6 +221,18 @@ class Snapshotter:
         with self._lock:
             self._sidecars.pop(name, None)
 
+    def add_aux(self, origin: str, limiter, ranges=()) -> None:
+        """Register an auxiliary unit (an adopted-range standby) so every
+        later cycle captures it alongside the shards."""
+        with self._lock:
+            self._aux[str(origin)] = {
+                "limiter": limiter,
+                "ranges": [list(r) for r in ranges]}
+
+    def remove_aux(self, origin: str) -> None:
+        with self._lock:
+            self._aux.pop(str(origin), None)
+
     def notify_mutation(self) -> None:
         """Called per WAL append; trips the mutation-count trigger."""
         self._wal_seq_gauge.set(float(self.wal.last_seq))
@@ -233,6 +257,12 @@ class Snapshotter:
                 raise
 
     def _snapshot_locked(self) -> dict:
+        from ratelimiter_tpu_torch import chaos
+
+        if chaos.INJECTOR is not None:
+            # The snapshot-stall scenario sleeps here, before the
+            # capture, the only phase that holds a limiter lock.
+            chaos.INJECTOR.snapshot_capture()
         t0 = time.perf_counter()
         snap_id = self._next_id
         # Watermark BEFORE capture: see module docstring for why this
@@ -243,6 +273,17 @@ class Snapshotter:
         captures = []
         for lim in self.limiters:
             captures.append((lim.capture_state(), lim.config))
+        # Several origins can share one merged standby unit (a second
+        # adoption folds into the mounted unit): capture and write it
+        # once, each origin's manifest entry naming the shared file.
+        aux_captures = []
+        unit_caps: dict = {}    # id(limiter) -> (capture, config, origin)
+        for origin, ent in self._aux.items():
+            lim = ent["limiter"]
+            key = id(lim)
+            if key not in unit_caps:
+                unit_caps[key] = (lim.capture_state(), lim.config, origin)
+            aux_captures.append((origin, ent["ranges"], key))
         side_captures = []
         for name, obj in self._sidecars.items():
             try:
@@ -260,6 +301,17 @@ class Snapshotter:
             save_state(os.path.join(self.dir, name), kind, config,
                        arrays, extra)
             files.append(name)
+        aux_files: dict = {}
+        for key, ((kind, arrays, extra), config,
+                  first_origin) in unit_caps.items():
+            name = _aux_name(snap_id, first_origin)
+            extra = {**extra, "wal_seq": wal_seq, "origin": first_origin}
+            save_state(os.path.join(self.dir, name), kind, config,
+                       arrays, extra)
+            aux_files[key] = name
+        aux_entries = [{"origin": origin, "file": aux_files[key],
+                        "ranges": ranges}
+                       for origin, ranges, key in aux_captures]
         side_entries = []
         for name, (arrays, meta) in side_captures:
             fname = _side_name(snap_id, name)
@@ -282,6 +334,8 @@ class Snapshotter:
             "config": {"algorithm": str(cfg.algorithm.value),
                        "limit": cfg.limit, "window": cfg.window},
         }
+        if aux_entries:
+            entry["aux"] = aux_entries
         if side_entries:
             entry["sidecars"] = side_entries
         manifest = read_manifest(self.dir) or {
@@ -310,9 +364,11 @@ class Snapshotter:
         keep = {name for e in manifest["snapshots"] for name in e["files"]}
         keep |= {s["file"] for e in manifest["snapshots"]
                  for s in e.get("sidecars", [])}
+        keep |= {a["file"] for e in manifest["snapshots"]
+                 for a in e.get("aux", [])}
         try:
             for name in os.listdir(self.dir):
-                if (name.startswith(("snap-", "side-"))
+                if (name.startswith(("snap-", "aux-", "side-"))
                         and name.endswith(".npz")
                         and name not in keep):
                     try:

@@ -58,8 +58,7 @@ and windows. ``/healthz`` carries the JAX binary's blocks (the sketch's
 envelope or debt slab, the side table's consumers, the audit and SLO
 blocks, the hierarchy, the leases, the journal, the persistence status;
 the mesh's quarantine block under ``--quarantine``; the fleet and
-placement, which the port does not have, give the JAX binary's ``{}``
-for "off"); ``/v1/reset``, ``/v1/policy``,
+placement blocks in a fleet); ``/v1/reset``, ``/v1/policy``,
 ``/v1/tenants``, ``/v1/snapshot`` and the ``/debug`` routes are gated by
 the JAX binary's ``--http-*``, ``--debug-*`` and ``--audit-token``
 flags. ``--audit`` turns on the live accuracy observatory
@@ -123,6 +122,23 @@ once); ``--dcn-secret`` (or ``RATELIMITER_TPU_DCN_SECRET``) signs and
 requires the RLA2 envelope; with ``--leases`` a revocation is gossiped
 to the peers through the first pusher. The JAX binary's flags, defaults
 and refusals (``--dcn-peer`` on another backend).
+
+The fleet, on either door: ``--fleet-config MAP --fleet-self ID`` makes
+this server one member of a fleet that is one limiter (fleet/): it owns
+the hash buckets the map gives it, forwards mis-routed rows to their
+owner over coalesced peer lanes (``--fleet-forward-*``) or, with
+``--fleet-no-forward``, answers them E_NOT_OWNER; members announce over
+the DCN channel every ``--fleet-heartbeat`` seconds, a peer silent for
+``--fleet-dead-after`` (after ``--fleet-boot-grace``) fails over to its
+successor, which restores the dead member's newest snapshot and WAL
+suffix on this server's device, and ``--fleet-rejoin auto`` hands the
+ranges back when it returns. ``--http-migrate-token`` opens POST
+/v1/fleet/migrate; SIGTERM departs (hands the ranges to the successor)
+before the door drains. ``--chaos-scenario`` (``--chaos-slice``,
+``--chaos-after``, ``--chaos-seconds``, ``--chaos-seed``) arms the chaos
+harness in the serving process (test and bench only). The JAX binary's
+flags, defaults and refusals; the control tower and the rebalancer are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -227,6 +243,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quarantine-threshold", type=int, default=1,
                     help="consecutive classified failures before a "
                          "slice quarantines")
+    # The chaos harness (test and bench only): deterministic fault
+    # injection in the serving process.
+    ap.add_argument("--chaos-scenario", default=None,
+                    metavar="NAME",
+                    help="arm one chaos scenario in-process (kill-slice, "
+                         "slow-slice, wedge-slice, dcn-partition, "
+                         "dcn-corrupt, snapshot-stall, migration-stall, "
+                         "kill-during-handoff, rejoin-storm). Requires "
+                         "--quarantine for the slice scenarios; the "
+                         "handoff/rejoin scenarios need --fleet-config. "
+                         "Test/bench lever — never set in production")
+    ap.add_argument("--chaos-slice", type=int, default=0,
+                    help="victim slice index for slice scenarios")
+    ap.add_argument("--chaos-after", type=float, default=0.0,
+                    help="arm the scenario this many seconds after "
+                         "serving starts (0 = immediately) — the "
+                         "kill-a-slice-MID-TRAFFIC shape")
+    ap.add_argument("--chaos-seconds", type=float, default=0.05,
+                    help="delay/stall magnitude for slow-slice / "
+                         "snapshot-stall")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="injector RNG seed (failures replay exactly)")
     ap.add_argument("--dense-capacity", type=int, default=1 << 16,
                     help="--backend dense: slots, i.e. the most distinct "
                          "live keys (idle keys are pruned after 2 "
@@ -398,6 +436,62 @@ def build_parser() -> argparse.ArgumentParser:
                          "off argv). Without it, anyone with reach to the "
                          "serving port can inject counter mass: firewall "
                          "the port or set a secret")
+    # The fleet: this server owns a set of keyspace hash buckets;
+    # mis-routed rows forward to their owner; peers heartbeat over the
+    # DCN channel; a dead peer's ranges fail over to its successor.
+    ap.add_argument("--fleet-config", default=None, metavar="PATH",
+                    help="join a fleet: JSON ownership map (buckets, "
+                         "epoch, hosts with id/host/port/ranges/"
+                         "successor/snapshot_dir). Implies accepting "
+                         "DCN pushes (fleet announces ride that "
+                         "channel); needs a sketch-family backend and "
+                         "--fleet-self")
+    ap.add_argument("--fleet-self", default=None, metavar="ID",
+                    help="this server's host id inside --fleet-config")
+    ap.add_argument("--fleet-no-forward", action="store_true",
+                    help="answer mis-routed frames with the typed "
+                         "E_NOT_OWNER redirect instead of proxying them "
+                         "to the owner (routing becomes entirely the "
+                         "client's job; dumb LBs will see errors)")
+    ap.add_argument("--fleet-rejoin", default="auto",
+                    choices=["auto", "manual"],
+                    help="when a previously-dead peer announces again, "
+                         "hand its adopted ranges back automatically "
+                         "via the handoff protocol (snapshot -> restore "
+                         "on the returning host -> epoch bump); "
+                         "'manual' leaves them to the operator")
+    ap.add_argument("--fleet-heartbeat", type=float, default=0.5,
+                    help="seconds between fleet announce pushes")
+    ap.add_argument("--fleet-dead-after", type=float, default=2.0,
+                    help="declare a peer dead after this many seconds "
+                         "of announce silence (failover trigger)")
+    ap.add_argument("--fleet-boot-grace", type=float, default=None,
+                    help="seconds from start before a NEVER-seen peer "
+                         "can be declared dead (default max(3 x "
+                         "dead-after, 15): members still building at "
+                         "boot are not dead)")
+    ap.add_argument("--fleet-forward-deadline", type=float, default=1.0,
+                    help="per-call deadline (seconds) on forwarded "
+                         "frames; rides the wire so the owner sheds "
+                         "expired work")
+    ap.add_argument("--fleet-forward-queue", type=int, default=128,
+                    help="bounded per-peer forward queue (outstanding "
+                         "fragments); overflow answers per "
+                         "fail-open/closed policy")
+    ap.add_argument("--fleet-forward-inflight", type=int, default=2,
+                    help="pipelined wire frames in flight per forward "
+                         "connection. Small windows coalesce more rows "
+                         "per wire frame; raise it on high-RTT links")
+    ap.add_argument("--fleet-forward-conns", type=int, default=1,
+                    help="pipelined connections per peer; rows pick "
+                         "their connection by key hash, so same-key "
+                         "send order survives the multi-connection "
+                         "link. 1 maximizes window occupancy")
+    ap.add_argument("--fleet-forward-coalesce", type=int, default=16384,
+                    help="max rows merged into one coalesced forward "
+                         "wire frame (capped at 32768 — the coalesced "
+                         "REPLY costs ~24 B/row against the 1 MiB wire "
+                         "bound)")
     ap.add_argument("--grpc-port", type=int, default=None,
                     help="also serve the gRPC contract "
                          "(api/proto/ratelimiter.proto) on this port "
@@ -485,6 +579,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--http-tenants-token", default=None,
                     help="bearer token required by /v1/tenants (implies "
                          "--http-tenants); Authorization header only")
+    ap.add_argument("--http-migrate-token", default=None,
+                    help="enable POST /v1/fleet/migrate (live range "
+                         "migration) on the HTTP gateway, gated by this "
+                         "bearer token. No token, no endpoint — an "
+                         "ownership-move lever is never open")
     ap.add_argument("--debug-trace", action="store_true",
                     help="expose GET /debug/trace (Chrome-trace dump of "
                          "the flight recorder's recent spans), "
@@ -617,6 +716,18 @@ def build_config(args: argparse.Namespace) -> Config:
                 parse_peer(spec)
         except ValueError as exc:
             raise SystemExit(f"--dcn-peer: {exc}") from None
+    if args.fleet_config:
+        if args.backend not in ("sketch", "mesh"):
+            raise SystemExit("--fleet-config needs a sketch-family "
+                             "backend (fleet routing hashes keys)")
+        if not args.fleet_self:
+            raise SystemExit("--fleet-config needs --fleet-self "
+                             "(this server's host id in the map)")
+    if (args.chaos_scenario in ("kill-slice", "slow-slice", "wedge-slice")
+            and not args.quarantine):
+        raise SystemExit("--chaos-scenario slice faults need "
+                         "--quarantine (otherwise nothing contains "
+                         "them)")
     return cfg
 
 
@@ -684,13 +795,16 @@ def boot_tenants(hier, args: argparse.Namespace) -> None:
 
 
 def setup_hierarchy(args: argparse.Namespace, cfg: Config, units, *,
-                    slo_tracker=None, auditor=None):
+                    slo_tracker=None, auditor=None, fleet_membership=None):
     """Mount the cascade's management surface over the door's dispatch
     units (``HierarchyFanout``; the port's door has one), apply the boot
     flags, and build (not start) the AIMD controller when asked, its
     gauges in the door's registry, reading the SLO tracker's and the
     auditor's statuses when they run (``--audit``). Returns ``(hier,
-    controller)``, (None, None) when the hierarchy is off."""
+    controller)``, (None, None) when the hierarchy is off. In a fleet the
+    effective limits gossip on every announce (``fleet_membership``:
+    members adopt the newest revision) and the controller's moves are
+    announced at once."""
     if not cfg.hierarchy.enabled:
         return None, None
     from ratelimiter_tpu_torch.hierarchy import AIMDController, HierarchyFanout
@@ -698,6 +812,9 @@ def setup_hierarchy(args: argparse.Namespace, cfg: Config, units, *,
 
     hier = HierarchyFanout(list(units))
     boot_tenants(hier, args)
+    if fleet_membership is not None:
+        fleet_membership.hier_payload_fn = hier.hierarchy_payload
+        fleet_membership.hier_apply_fn = hier.apply_hierarchy_payload
     controller = None
     if args.controller:
         controller = AIMDController(
@@ -706,7 +823,10 @@ def setup_hierarchy(args: argparse.Namespace, cfg: Config, units, *,
                         else None),
             audit_status=(auditor.status if auditor is not None
                           else None),
-            interval=args.controller_interval, registry=metrics.DEFAULT)
+            interval=args.controller_interval,
+            publish=((lambda _payload: fleet_membership.announce_once())
+                     if fleet_membership is not None else None),
+            registry=metrics.DEFAULT)
     return hier, controller
 
 
@@ -837,10 +957,12 @@ def _hierarchy_health(hier, controller) -> dict:
     return {"hierarchy": st}
 
 
-def make_member_info(args: argparse.Namespace, registry=None):
-    """Member identity as the JAX binary gives it outside a fleet (no
-    epoch): the door (``native`` with the port's door ABI, or
-    ``asyncio`` with ``py``), the /healthz ``member`` block, also
+def make_member_info(args: argparse.Namespace, registry=None,
+                     fleet_core=None):
+    """Member identity as the JAX binary gives it (the fleet id and map
+    epoch in a fleet, ``host:port`` and no epoch outside one): the door
+    (``native`` with the port's door ABI, or ``asyncio`` with ``py``),
+    the /healthz ``member`` block, also
     exported as the ``rate_limiter_member_info`` identity gauge (value 1,
     the block's fields as labels, the member id under ``id``) on
     ``registry`` (the process default when None), refreshed at scrape
@@ -856,10 +978,12 @@ def make_member_info(args: argparse.Namespace, registry=None):
         abi = str(_ABI)
 
     def info() -> dict:
-        return {"self": f"{args.host}:{args.port}", "backend": args.backend,
+        return {"self": args.fleet_self or f"{args.host}:{args.port}",
+                "backend": args.backend,
                 "algorithm": args.algorithm,
                 "door": "native" if args.native else "asyncio", "abi": abi,
-                "fleet_epoch": None}
+                "fleet_epoch": (int(fleet_core.map.epoch)
+                                if fleet_core is not None else None)}
 
     g_info = registry.gauge(
         "rate_limiter_member_info",
@@ -919,12 +1043,13 @@ def make_threadsafe_decide_many(batcher, loop):
 
 
 def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist,
-                  pushers=()):
+                  pushers=(), fleet_core=None):
     """The lease authority (leases/manager.py), as the JAX binary's
-    ``_setup_leases`` builds it without a fleet core (``epoch_fn`` and
-    ``owns_fn`` stay None; ``gossip`` is the first DCN pusher's
-    ``push_lease`` when the binary runs pushers, so a revocation reaches
-    the peers at once): grants, renewals and returns
+    ``_setup_leases`` builds it (in a fleet ``epoch_fn`` and ``owns_fn``
+    read the fleet core, so a grant over a range this member no longer
+    owns is revoked; ``gossip`` is the first DCN pusher's ``push_lease``
+    when the binary runs pushers, so a revocation reaches the peers at
+    once): grants, renewals and returns
     debit through ``decide``, the door's shared dispatch path (the
     asyncio door's batcher bridge, the native door's shard router), so a
     lease budget is charged exactly like a wire decision, on the card by
@@ -937,11 +1062,20 @@ def _setup_leases(args: argparse.Namespace, *, limiter, decide, persist,
     from ratelimiter_tpu_torch.observability import metrics
     from ratelimiter_tpu_torch.observability.decorators import undecorated
 
+    epoch_fn = owns_fn = None
+    if fleet_core is not None:
+        epoch_fn = lambda: int(fleet_core.map.epoch)  # noqa: E731
+
+        def owns_fn(key: str) -> bool:
+            h = fleet_core.hash_keys([key])
+            return bool(fleet_core.all_local(fleet_core.owners_of_hash(h)))
+
     mgr = LeaseManager(
         undecorated(limiter), decide=decide,
         ttl=args.lease_ttl, default_budget=args.lease_budget,
         max_leases=args.lease_max,
         require_hot=args.lease_require_hot,
+        epoch_fn=epoch_fn, owns_fn=owns_fn,
         gossip=(pushers[0].push_lease if pushers else None),
         registry=metrics.DEFAULT)
     if persist is not None:
@@ -1067,7 +1201,7 @@ def make_audit_status(auditor, slo_tracker, limiters):
 def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
                  levers, member_info, persist=None, hier=None,
                  controller=None, auditor=None, slo_tracker=None,
-                 lease_mgr=None, qmgr=None):
+                 lease_mgr=None, qmgr=None, fleet=None):
     """The HTTP gateway as the JAX binary's asyncio door builds it: its
     decisions through ``decide`` (the door's batcher bridge), the
     lease-guarded ``levers`` (reset, policy set, policy delete), /healthz
@@ -1091,6 +1225,8 @@ def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
                 **_lease_health(lease_mgr),
                 **_events_health(),
                 **_quarantine_health(qmgr),
+                **_fleet_health(fleet),
+                **_placement_health(fleet),
                 **(persist.status() if persist is not None else {})}
 
     reset, policy_set, policy_delete = levers
@@ -1115,7 +1251,200 @@ def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
         audit_token=args.audit_token,
         tenants=hier,
         enable_tenants=bool(args.http_tenants or args.http_tenants_token),
-        tenants_token=args.http_tenants_token)
+        tenants_token=args.http_tenants_token,
+        fleet_migrate=make_fleet_migrate(args, fleet),
+        migrate_token=args.http_migrate_token)
+
+
+# ------------------------------------------------------------- the fleet
+
+
+def setup_fleet(args: argparse.Namespace, cfg: Config, limiter, persist):
+    """The fleet member's routing core and membership, as the JAX binary
+    builds them (None without ``--fleet-config``): the map from
+    ``--fleet-config``, the ``--fleet-*`` knobs, the placement load slab
+    on every member (observation only), the failover adopter, the
+    handoff restorer and the rejoin absorber. Every standby unit is
+    built on the serving limiter's device (``fleet/handoff.py``). Built
+    before either door; the membership starts once serving does."""
+    if not args.fleet_config:
+        return None
+    from ratelimiter_tpu_torch.fleet import (
+        FleetCore,
+        FleetMap,
+        FleetMembership,
+    )
+    from ratelimiter_tpu_torch.fleet.handoff import build_standby
+    from ratelimiter_tpu_torch.observability import metrics
+    from ratelimiter_tpu_torch.observability.decorators import undecorated
+    from ratelimiter_tpu_torch.placement import LoadSlab
+
+    log = logging.getLogger("ratelimiter_tpu_torch.fleet")
+    device = str(getattr(undecorated(limiter), "device", None)
+                 or args.device)
+    fleet_map = FleetMap.load(args.fleet_config)
+    core = FleetCore(
+        fleet_map, args.fleet_self, prefix=cfg.prefix,
+        forward=not args.fleet_no_forward,
+        forward_deadline=args.fleet_forward_deadline,
+        forward_queue=args.fleet_forward_queue,
+        forward_inflight=args.fleet_forward_inflight,
+        forward_conns=args.fleet_forward_conns,
+        forward_coalesce=args.fleet_forward_coalesce,
+        registry=metrics.DEFAULT)
+    # On every member, not only a planning one: a planner elsewhere
+    # reads this member's per-bucket load. Decisions are untouched.
+    core.load_slab = LoadSlab(fleet_map.buckets, registry=metrics.DEFAULT)
+
+    def adopt(dead):
+        """Failover standby: restored from the dead host's newest
+        snapshot, WAL suffix and aux units; fresh state (under-counting
+        only) when the restore fails."""
+        if dead.snapshot_dir:
+            try:
+                unit = build_standby(cfg, dead.snapshot_dir, device=device)
+                log.warning("fleet: adopted %s's ranges from %s on %s",
+                            dead.id, dead.snapshot_dir, device)
+                return unit
+            except Exception:
+                log.exception("fleet: restore of %s's snapshot dir %s "
+                              "failed; adopting with fresh state",
+                              dead.id, dead.snapshot_dir)
+        return create_limiter(cfg, backend="sketch", device=device)
+
+    def handoff_restore(payload):
+        """Incoming handoff (migration, departure, rejoin): the moved
+        ranges' state from the sender's snapshot dir; resets replay only
+        where the moved ranges own the key."""
+        dir_ = payload.get("snapshot_dir")
+        if not dir_:
+            return None
+        origin = payload.get("origin")
+        owns = None
+        if origin:
+            ranges = [tuple(r) for r in payload.get("ranges", [])]
+            buckets = core.map.buckets
+
+            def owns(key: str) -> bool:
+                b = int(core.hash_keys([key])[0] % buckets)
+                return any(lo <= b < hi for lo, hi in ranges)
+
+        return build_standby(cfg, dir_, origin=origin, owns=owns,
+                             device=device)
+
+    def absorb(unit):
+        """Rejoin give-back: fold the returned ranges into the serving
+        limiter (conservative union) so they run the pipelined path.
+        Only the single-unit sketch backend: a mesh or a multi-shard
+        door keeps the adopted mount."""
+        if args.backend != "sketch" or (args.native and args.shards > 1):
+            return False
+        from ratelimiter_tpu_torch.parallel import reshard
+
+        _, arrays, extra = unit.capture_state()
+        reshard.merge_into_limiter(undecorated(limiter), arrays, extra)
+        return True
+
+    membership = FleetMembership(
+        core, heartbeat=args.fleet_heartbeat,
+        dead_after=args.fleet_dead_after,
+        boot_grace=args.fleet_boot_grace, adopt_fn=adopt,
+        snapshot_fn=persist.snapshot_now if persist is not None else None,
+        handoff_restore_fn=handoff_restore,
+        on_adopt=((lambda origin, unit, ranges:
+                   persist.add_aux_unit(origin, unit, ranges))
+                  if persist is not None else None),
+        on_release=(persist.remove_aux_unit
+                    if persist is not None else None),
+        absorb_fn=absorb, auto_rejoin=(args.fleet_rejoin == "auto"),
+        secret=dcn_secret(args), registry=metrics.DEFAULT)
+    if not args.native and args.inflight < 2:
+        # The fleet-merge side pool exists only on the pipelined path.
+        log.warning("fleet on the asyncio door with --inflight 1: "
+                    "forwarded frames block the single dispatch "
+                    "executor; use --inflight >= 2 for mis-routed "
+                    "traffic")
+    return SimpleNamespace(core=core, membership=membership, device=device)
+
+
+def _fleet_health(fleet) -> dict:
+    """The /healthz fleet block (the core's and the membership's
+    status), plus ``adopted_device``: where an adopted range's standby
+    unit lives (None while no range is adopted)."""
+    if fleet is None:
+        return {}
+    unit = fleet.core.adopted_unit
+    return {"fleet": {**fleet.core.status(), **fleet.membership.status(),
+                      "adopted_device": (str(unit.device)
+                                         if unit is not None else None)}}
+
+
+def _placement_health(fleet) -> dict:
+    """The /healthz placement block: this member's load slab."""
+    if fleet is None or fleet.core.load_slab is None:
+        return {}
+    return {"placement": fleet.core.load_slab.snapshot()}
+
+
+def make_fleet_migrate(args: argparse.Namespace, fleet):
+    """POST /v1/fleet/migrate's hook, bound to ``migrate_ranges`` and
+    reporting the epoch after the move; None unless this is a fleet
+    member with ``--http-migrate-token``."""
+    if fleet is None or not args.http_migrate_token:
+        return None
+
+    def migrate(ranges, to, wait):
+        ok = fleet.membership.migrate_ranges(ranges, to, wait=wait)
+        return {"ok": bool(ok), "epoch": int(fleet.core.map.epoch),
+                "to": to, "ranges": [list(r) for r in ranges]}
+
+    return migrate
+
+
+def setup_chaos(args: argparse.Namespace):
+    """Install the chaos injector (``--chaos-seed``) and return the
+    callable that arms ``--chaos-scenario`` once serving starts, after
+    ``--chaos-after`` seconds (so the build never eats the delay); None
+    without a scenario."""
+    if not args.chaos_scenario:
+        return None
+    import threading
+
+    from ratelimiter_tpu_torch import chaos
+
+    inj = chaos.install(seed=args.chaos_seed)
+
+    def arm() -> None:
+        chaos.scenario(args.chaos_scenario, inj,
+                       slice_idx=args.chaos_slice,
+                       seconds=args.chaos_seconds)
+        logging.getLogger("ratelimiter_tpu_torch.serving").warning(
+            "chaos scenario %s armed (slice %d, seed %d)",
+            args.chaos_scenario, args.chaos_slice, args.chaos_seed)
+
+    def start() -> None:
+        if args.chaos_after > 0:
+            # Daemon: a server stopped before the delay must not wait
+            # on it.
+            t = threading.Timer(args.chaos_after, arm)
+            t.daemon = True
+            t.start()
+        else:
+            arm()
+
+    return start
+
+
+async def _depart(args: argparse.Namespace, fleet) -> None:
+    """Departure before the door drains: hand this member's ranges to
+    the successor so a rolling restart leaves no ownership hole; off the
+    loop, which keeps receiving the flip announce the wait needs."""
+    if fleet is None:
+        return
+    await asyncio.get_running_loop().run_in_executor(
+        None, lambda: fleet.membership.depart(
+            wait=max(2.0, 4 * args.fleet_heartbeat)))
+    fleet.membership.stop()
 
 
 def build_limiter_stack(limiter, args, registry=None, shard: int = 0):
@@ -1288,9 +1617,14 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         return persist.wrap(lim) if persist is not None else lim
 
     limiter = decorate(limiter)
+    # Built before either door, whose constructors take the core; the
+    # membership starts once serving does.
+    fleet = setup_fleet(args, cfg, limiter, persist)
+    start_chaos = setup_chaos(args)
     if args.native:
         await serve_native(args, cfg, limiter, persist, decorate, built_s,
-                           ready=ready, stop=stop, slices=slices, qmgr=qmgr)
+                           ready=ready, stop=stop, slices=slices, qmgr=qmgr,
+                           fleet=fleet, start_chaos=start_chaos)
         return
     if persist is not None:
         # Attach, recover before the door listens, then start the
@@ -1305,13 +1639,21 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
             # Restore-before-rejoin: a recovering slice replays the
             # newest snapshot and the WAL suffix before it routes again.
             qmgr.restore_fn = persist.slice_restorer()
+    if fleet is not None:
+        # After recovery (the WAL replays locally, never forwards), and
+        # outermost: the batcher's frames partition by owner before
+        # anything local runs.
+        from ratelimiter_tpu_torch.fleet import FleetForwarder
+
+        limiter = FleetForwarder(limiter, fleet.core)
     # The observatory goes in before the door listens, so the first
     # decision can already be mirrored.
     auditor, slo_tracker = setup_audit(args, cfg, limiter)
-    member_info, member_collect = make_member_info(args)
-    hier, controller = setup_hierarchy(args, cfg, [limiter],
-                                       slo_tracker=slo_tracker,
-                                       auditor=auditor)
+    member_info, member_collect = make_member_info(
+        args, fleet_core=fleet.core if fleet is not None else None)
+    hier, controller = setup_hierarchy(
+        args, cfg, [limiter], slo_tracker=slo_tracker, auditor=auditor,
+        fleet_membership=fleet.membership if fleet is not None else None)
     server = RateLimitServer(
         limiter, args.listen or args.host, args.port,
         max_batch=args.max_batch,
@@ -1322,8 +1664,12 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
         snapshot=persist.snapshot_now if persist is not None else None,
         max_window=max_window(args, cfg), shm=args.shm,
         shm_dir=args.shm_dir, shm_ring_bytes=args.shm_ring_bytes,
-        dcn=bool(args.dcn_listen or args.dcn_peer),
-        dcn_secret=dcn_secret(args))
+        # Fleet announces ride the DCN channel: a member always listens.
+        dcn=bool(args.dcn_listen or args.dcn_peer or fleet),
+        dcn_secret=dcn_secret(args),
+        fleet=fleet.core if fleet is not None else None,
+        fleet_announce=(fleet.membership.handle_announce
+                        if fleet is not None else None))
     # After recovery: a pusher's export reads the recovered ring.
     pushers = start_pushers(args, [limiter])
     loop = asyncio.get_running_loop()
@@ -1331,8 +1677,10 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
     # funnel into the door's micro-batcher: every surface shares its
     # launches.
     decide = make_threadsafe_decide(server.batcher, loop)
-    lease_mgr = _setup_leases(args, limiter=limiter, decide=decide,
-                              persist=persist, pushers=pushers)
+    lease_mgr = _setup_leases(
+        args, limiter=limiter, decide=decide, persist=persist,
+        pushers=pushers,
+        fleet_core=fleet.core if fleet is not None else None)
     server.leases = lease_mgr
     await server.start()
     if controller is not None:
@@ -1349,7 +1697,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
                                member_info=member_info, persist=persist,
                                hier=hier, controller=controller,
                                auditor=auditor, slo_tracker=slo_tracker,
-                               lease_mgr=lease_mgr, qmgr=qmgr)
+                               lease_mgr=lease_mgr, qmgr=qmgr, fleet=fleet)
         gateway.start()
     grpc_srv = None
     if args.grpc_port is not None:
@@ -1374,20 +1722,30 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
           + (f" http:{gateway.port}" if gateway is not None else "")
           + (f" grpc:{grpc_srv.port}" if grpc_srv is not None else ""),
           flush=True)
+    if fleet is not None:
+        fleet.membership.start()
+    if start_chaos is not None:
+        start_chaos()
     if ready is not None:
         ready.set_result(SimpleNamespace(
             limiter=limiter, server=server, gateway=gateway,
             auditor=auditor, slo=slo_tracker, hier=hier,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
-            lease_listener=None, quarantine=qmgr, pushers=pushers))
+            lease_listener=None, quarantine=qmgr, pushers=pushers,
+            fleet=fleet))
     try:
         await stop.wait()
     finally:
+        if controller is not None:
+            # Before the departure: a tick against a closing limiter
+            # would race the teardown.
+            controller.stop()
+        # Before the door drains: in-flight rows ride the forward
+        # window while the successor takes the ranges.
+        await _depart(args, fleet)
         for pu in pushers:
             pu.stop()
-        if controller is not None:
-            controller.stop()
         if gateway is not None:
             gateway.shutdown()
         if grpc_srv is not None:
@@ -1418,14 +1776,16 @@ def _stop_observability(auditor, slo_tracker, member_collect) -> None:
 
 async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                        persist, decorate, built_s: float, *, ready=None,
-                       stop=None, slices=None, qmgr=None) -> None:
+                       stop=None, slices=None, qmgr=None, fleet=None,
+                       start_chaos=None) -> None:
     """``--native``: the C++ door (serving/native_server.py) over
     ``limiter`` and, with ``--shards N``, N - 1 clones each under
     ``decorate(clone, i)`` (the decorator stack under shard ``i``'s
     label, the persistence wrapper), or with ``slices`` (``--backend
     mesh``, host router) the mesh's slices as the shards, slice 0 being
-    ``limiter`` (``qmgr`` their quarantine manager); the JAX binary's
-    native branch without the fleet and DCN. The persistence
+    ``limiter`` (``qmgr`` their quarantine manager); ``fleet`` the
+    member's core and membership (``setup_fleet``); the JAX binary's
+    native branch. The persistence
     manager attaches every shard with the door's router and recovers
     before the door listens; the HTTP gateway and gRPC decide through
     ``decide_one``/``decide_many`` (the shard router), and so do the
@@ -1440,7 +1800,21 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
     auditor, slo_tracker = setup_audit(
         args, cfg, limiter,
         n_slices=len(slices) if slices is not None else None)
-    member_info, member_collect = make_member_info(args)
+    member_info, member_collect = make_member_info(
+        args, fleet_core=fleet.core if fleet is not None else None)
+    if fleet is not None:
+        # Peers hash-forward this member's string rows on the raw-id
+        # lane unless its map entry declares shards > 1 (FNV string
+        # routing): an undeclared multi-shard member would split a key's
+        # quota across shards, so it refuses to start.
+        actual = len(slices) if slices is not None else args.shards
+        declared = fleet.core.map.host(args.fleet_self).shards
+        if actual > 1 and declared != actual:
+            raise SystemExit(
+                f"--fleet-config entry {args.fleet_self!r} declares "
+                f"shards={declared} but this native door runs {actual} "
+                f"shards; set \"shards\": {actual} on this host in the "
+                f"fleet map so peers forward its string rows as strings")
     server = NativeRateLimitServer(
         limiter, args.listen or args.host, args.port,
         shm=args.shm, shm_dir=args.shm_dir,
@@ -1454,9 +1828,12 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         shard_limiters=([limiter] + [decorate(s, shard=i) for i, s in
                                      enumerate(slices[1:], start=1)]
                         if slices is not None else None),
-        dcn=bool(args.dcn_listen or args.dcn_peer),
+        dcn=bool(args.dcn_listen or args.dcn_peer or fleet),
         dcn_secret=dcn_secret(args),
-        max_dcn_conns=args.dcn_max_transfers)
+        max_dcn_conns=args.dcn_max_transfers,
+        fleet=fleet.core if fleet is not None else None,
+        fleet_announce=(fleet.membership.handle_announce
+                        if fleet is not None else None))
     if persist is not None:
         # Recover BEFORE the listener opens: the restored snapshot and
         # the replayed mutations precede the first decision.
@@ -1473,9 +1850,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
     # The C++ door has no lease lane: grants, renewals and returns are
     # served by a sidecar listener, their debits through decide_one, the
     # shard router, so a lease budget lands on the key's shard.
-    lease_mgr = _setup_leases(args, limiter=limiter,
-                              decide=server.decide_one, persist=persist,
-                              pushers=pushers)
+    lease_mgr = _setup_leases(
+        args, limiter=limiter, decide=server.decide_one, persist=persist,
+        pushers=pushers,
+        fleet_core=fleet.core if fleet is not None else None)
     server.leases = lease_mgr
     lease_listener = None
     if lease_mgr is not None:
@@ -1486,9 +1864,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
         lease_listener.start()
     # After recovery (the hier_* columns restore first), before the
     # gateway, whose /healthz and /v1/tenants mount it.
-    hier, controller = setup_hierarchy(args, cfg, server.shard_limiters,
-                                       slo_tracker=slo_tracker,
-                                       auditor=auditor)
+    hier, controller = setup_hierarchy(
+        args, cfg, server.shard_limiters, slo_tracker=slo_tracker,
+        auditor=auditor,
+        fleet_membership=fleet.membership if fleet is not None else None)
     if controller is not None:
         controller.on_tighten = _lease_controller_hook(lease_mgr)
     # HTTP and gRPC get the lease-guarded levers; a mutation over the
@@ -1515,6 +1894,8 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                     **_lease_health(lease_mgr),
                     **_events_health(),
                     **_quarantine_health(qmgr),
+                    **_fleet_health(fleet),
+                    **_placement_health(fleet),
                     **(persist.status() if persist is not None else {})}
 
         gateway = HttpGateway(
@@ -1541,7 +1922,9 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             tenants=hier,
             enable_tenants=bool(args.http_tenants
                                 or args.http_tenants_token),
-            tenants_token=args.http_tenants_token)
+            tenants_token=args.http_tenants_token,
+            fleet_migrate=make_fleet_migrate(args, fleet),
+            migrate_token=args.http_migrate_token)
         gateway.start()
     grpc_srv = None
     if args.grpc_port is not None:
@@ -1571,6 +1954,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
           + (f" lease:{lease_listener.port}" if lease_listener is not None
              else ""),
           flush=True)
+    if fleet is not None:
+        fleet.membership.start()
+    if start_chaos is not None:
+        start_chaos()
     if ready is not None:
         ready.set_result(SimpleNamespace(
             limiter=limiter, server=server, gateway=gateway,
@@ -1578,14 +1965,15 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             controller=controller, persist=persist,
             member_info=member_info, grpc=grpc_srv, leases=lease_mgr,
             lease_listener=lease_listener, quarantine=qmgr,
-            pushers=pushers))
+            pushers=pushers, fleet=fleet))
     try:
         await stop.wait()
     finally:
-        for pu in pushers:
-            pu.stop()
         if controller is not None:
             controller.stop()
+        await _depart(args, fleet)
+        for pu in pushers:
+            pu.stop()
         if gateway is not None:
             gateway.shutdown()
         if grpc_srv is not None:
@@ -1604,6 +1992,10 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
             server.close_shards()
         else:
             server.shutdown()
+        if fleet is not None:
+            # After the door drains: in-flight frames may still hold
+            # forward futures.
+            fleet.core.close()
         _stop_observability(auditor, slo_tracker, member_collect)
         limiter.close()
         from ratelimiter_tpu_torch.observability import events

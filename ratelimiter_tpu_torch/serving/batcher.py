@@ -54,7 +54,14 @@ non-pipelined batcher), hashed windows as raw ids, string windows as
 keys. A window the SLO answered is still tapped once its shielded launch
 lands, so the shadow timelines keep the mass it consumed.
 
-Not ported from the JAX batcher: the fleet forward lane and its pool.
+The fleet's lanes, as in the JAX batcher: hashed frames carrying the
+forward hint (a peer's coalesced forward window, ``standalone=True``)
+coalesce in their own buffer and launch apart from client windows, since
+a client window may hold rows whose resolve waits on this host's own
+forward legs to that peer; and a fleet ticket (forward legs pending,
+``ticket.jobs``) resolves on a side pool, giving its in-flight slot back
+first, so that two members never block their FIFO resolve threads on
+each other.
 """
 
 from __future__ import annotations
@@ -152,6 +159,10 @@ class MicroBatcher:
         #: from its contiguous row range.
         self._pending_hashed: List[tuple] = []
         self._pending_hashed_ids = 0
+        #: Fleet forward-lane windows (protocol.FORWARD_FLAG), same
+        #: tuples: coalesced with each other, never with client rows.
+        self._pending_fwd: List[tuple] = []
+        self._pending_fwd_ids = 0
         #: Flight-recorder window context: first-enqueue stamp and the
         #: first sampled trace id of the current coalescing window (zero
         #: cost while tracing is off).
@@ -189,6 +200,13 @@ class MicroBatcher:
         else:
             self._resolve_pool = None
             self._window = None
+        #: Side pool for fleet tickets, built on first use: a frame whose
+        #: resolve waits on a peer's answer may not occupy the FIFO
+        #: resolve thread, where forwarded frames from that same peer
+        #: resolve (two members blocking on each other is a distributed
+        #: deadlock), and gives its in-flight slot back before the wait.
+        self._fleet_pool: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
         self._depth = 0
         self._depth_lock = threading.Lock()
         self._inflight: set = set()
@@ -293,7 +311,8 @@ class MicroBatcher:
     def _arm_timer(self, loop: asyncio.AbstractEventLoop) -> None:
         # Queue depth counts both lanes: pending string decisions plus
         # queued hashed-frame ids.
-        depth = len(self._pending) + self._pending_hashed_ids
+        depth = (len(self._pending) + self._pending_hashed_ids
+                 + self._pending_fwd_ids)
         self._queue_depth.set(depth)
         if not depth:
             return
@@ -376,7 +395,8 @@ class MicroBatcher:
 
     def submit_hashed_nowait(self, ids: np.ndarray, ns: np.ndarray,
                              trace_id: int = 0,
-                             deadline: float = 0.0) -> asyncio.Future:
+                             deadline: float = 0.0, *,
+                             standalone: bool = False) -> asyncio.Future:
         """Queue one whole ALLOW_HASHED frame into the current coalescing
         window: every hashed frame queued within ``max_delay`` merges into
         one ``launch_ids`` dispatch of at most ``max_window`` rows, and
@@ -386,7 +406,8 @@ class MicroBatcher:
         with the string lane. Must run on the event loop thread; needs a
         limiter with the raw-id lane (the sketch limiters). ``trace_id``
         and ``deadline`` as in ``submit_nowait``: an expired frame is
-        shed whole."""
+        shed whole. ``standalone`` marks a fleet forward window (the
+        forward hint): it coalesces only with other forward windows."""
         if self._draining:
             raise StorageUnavailableError("server is shutting down")
         if not self._hashed_lane:
@@ -421,7 +442,7 @@ class MicroBatcher:
             # order), and join them on the host. The joined result
             # carries no device-packed buffers, so the encoder packs the
             # mask itself.
-            if self._pending_hashed:
+            if self._pending_hashed or self._pending_fwd:
                 self._flush()
             seg_futs: List[asyncio.Future] = []
             seg = min(self.max_batch, self.max_window)
@@ -431,6 +452,21 @@ class MicroBatcher:
                 self._spawn(self._dispatch_hashed(
                     ids[off:off + seg], ns[off:off + seg], sfut, trace_id))
             self._spawn(self._join_segments(seg_futs, fut))
+            return fut
+        if standalone:
+            # A peer's forward window holds only rows this host owns;
+            # coalescing it with a client window that waits on this
+            # host's own forward legs would chain the reply to windows
+            # formed later (the JAX package's FLEET_r01 mixed p99).
+            if (self._pending_fwd
+                    and self._pending_fwd_ids + b > self.max_window):
+                self._flush_fwd()
+            self._pending_fwd.append((ids, ns, fut, trace_id, deadline))
+            self._pending_fwd_ids += b
+            if self._pending_fwd_ids >= self.max_batch:
+                self._flush_fwd()
+            else:
+                self._arm_timer(loop)
             return fut
         if (self._pending_hashed
                 and self._pending_hashed_ids + b > self.max_window):
@@ -552,8 +588,7 @@ class MicroBatcher:
                 if not fut.done():
                     fut.set_exception(exc)
                 return
-            work = loop.run_in_executor(self._resolve_pool,
-                                        self._resolve_work, ticket)
+            work = self._resolve_target(loop, ticket)
         else:
             work = loop.run_in_executor(
                 self._pool,
@@ -665,13 +700,25 @@ class MicroBatcher:
 
     # ------------------------------------------------------------- flush
 
+    def _flush_fwd(self) -> None:
+        """Dispatch the coalesced forward-lane windows as their own
+        launch, never merged with the client lanes."""
+        if not self._pending_fwd:
+            return
+        frames = self._pending_fwd
+        self._pending_fwd = []
+        self._pending_fwd_ids = 0
+        self._spawn(self._dispatch_hashed_window(frames))
+
     def _flush(self) -> None:
         """Dispatch what is queued: the string window is launched before
-        the hashed window (the order the state sees them in)."""
+        the hashed window (the order the state sees them in), then the
+        forward window."""
         if self._timer is not None:
             self._timer.cancel()
             self._timer = None
-        if not self._pending and not self._pending_hashed:
+        if (not self._pending and not self._pending_hashed
+                and not self._pending_fwd):
             return
         self._queue_depth.set(0)
         rec = tracing.RECORDER
@@ -681,7 +728,8 @@ class MicroBatcher:
             # in max_batch units across both lanes.
             rec.record("coalesce", self._q_t0, tracing.now(),
                        trace_id=trace,
-                       batch=len(self._pending) + self._pending_hashed_ids)
+                       batch=(len(self._pending) + self._pending_hashed_ids
+                              + self._pending_fwd_ids))
         self._q_t0 = 0
         self._q_trace = 0
         if self._pending:
@@ -693,6 +741,7 @@ class MicroBatcher:
             self._pending_hashed = []
             self._pending_hashed_ids = 0
             self._spawn(self._dispatch_hashed_window(frames))
+        self._flush_fwd()
 
     def _launch_work(self, keys, ns, trace_id=0, t_q=0):
         """Launch stage (launch executor thread), as _launch_traced."""
@@ -700,7 +749,24 @@ class MicroBatcher:
             lambda: self.limiter.launch_batch(keys, ns), len(keys),
             trace_id, t_q)
 
-    def _resolve_work(self, ticket):
+    def _resolve_target(self, loop, ticket):
+        """Schedule one ticket's resolve: plain tickets on the FIFO
+        resolve thread; fleet tickets (forward legs pending,
+        ``ticket.jobs``) on the side pool, their window slot given back
+        now (``_fleet_pool`` above)."""
+        if getattr(ticket, "jobs", None):
+            if self._fleet_pool is None:
+                self._fleet_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=16, thread_name_prefix="rl-fleet-merge")
+            self._window.release()
+            self._depth_add(-1)
+            return loop.run_in_executor(
+                self._fleet_pool,
+                lambda: self._resolve_work(ticket, release=False))
+        return loop.run_in_executor(self._resolve_pool,
+                                    self._resolve_work, ticket)
+
+    def _resolve_work(self, ticket, release: bool = True):
         rec = tracing.RECORDER
         tn0 = tracing.now() if rec is not None else 0
         t0 = time.perf_counter()
@@ -725,8 +791,9 @@ class MicroBatcher:
                            outcome=tracing.ERROR)
             raise
         finally:
-            self._window.release()
-            self._depth_add(-1)
+            if release:
+                self._window.release()
+                self._depth_add(-1)
             self._resolve_hist.observe(time.perf_counter() - t0)
 
     async def _dispatch(self, batch, trace_id: int = 0) -> None:
@@ -762,8 +829,7 @@ class MicroBatcher:
                     if not fut.done():
                         fut.set_exception(exc)
                 return
-            work = loop.run_in_executor(self._resolve_pool,
-                                        self._resolve_work, ticket)
+            work = self._resolve_target(loop, ticket)
         else:
             work = loop.run_in_executor(
                 self._pool, lambda: self._allow_work(keys, ns, trace_id))
@@ -823,3 +889,5 @@ class MicroBatcher:
         self._pool.shutdown(wait=True)
         if self._resolve_pool is not None:
             self._resolve_pool.shutdown(wait=True)
+        if self._fleet_pool is not None:
+            self._fleet_pool.shutdown(wait=True)

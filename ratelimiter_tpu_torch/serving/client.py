@@ -43,7 +43,14 @@ hot keys are asked for in the background (``Client`` through a
 ``LeaseDriver`` thread on its own connection, to ``lease_port`` on the
 native door's sidecar; ``AsyncClient`` pipelined on its own connection),
 and rid-0 LEASE_REVOKE pushes drop the leases they name in both read
-loops. The JAX package's ``FleetClient`` is not ported (ROADMAP A13d).
+loops.
+
+The fleet clients, as in the JAX package: ``FleetClient`` and
+``AsyncFleetClient`` hold one pooled client per fleet member, partition
+each frame by owner (the same hash rule as the servers) and fan the
+legs out concurrently; a failed leg alone is retried after a map
+refresh, and a stale map heals off the typed E_NOT_OWNER redirect.
+``fleet_map()`` on either client fetches a member's map.
 """
 
 from __future__ import annotations
@@ -445,6 +452,15 @@ class Client:
         if type_ != p.T_SNAPSHOT_R:
             raise p.ProtocolError(f"unexpected response type {type_}")
         return p.parse_snapshot_r(body)
+
+    def fleet_map(self) -> dict:
+        """Fetch the server's fleet ownership map (E_INVALID_CONFIG on a
+        server outside a fleet)."""
+        req_id = next(self._ids)
+        type_, body = self._roundtrip(p.encode_fleet_map(req_id), req_id)
+        if type_ != p.T_FLEET_MAP_R:
+            raise p.ProtocolError(f"unexpected response type {type_}")
+        return p.parse_fleet_map_r(body)
 
     # ------------------------------------------- policy overrides (tiers)
 
@@ -882,6 +898,15 @@ class AsyncClient:
             raise p.ProtocolError(f"unexpected response type {type_}")
         return p.parse_snapshot_r(body)
 
+    async def fleet_map(self) -> dict:
+        """Fetch the server's fleet ownership map."""
+        req_id = next(self._ids)
+        type_, body = await self._request(p.encode_fleet_map(req_id),
+                                          req_id)
+        if type_ != p.T_FLEET_MAP_R:
+            raise p.ProtocolError(f"unexpected response type {type_}")
+        return p.parse_fleet_map_r(body)
+
     # ------------------------------------------- policy overrides (tiers)
 
     async def _policy_request(self, frame: bytes, req_id: int):
@@ -1014,3 +1039,681 @@ class AsyncClient:
                 await self._writer.wait_closed()
             except (ConnectionResetError, BrokenPipeError):
                 pass
+
+
+# ====================================================================
+#                      fleet clients (ADR-017)
+# ====================================================================
+#
+# Client-side consistent-hash routing: the shard-affine loadgen mode
+# (benchmarks/e2e.py spread knob, ADR-013) promoted to first-class
+# client behavior. Every allow_batch / allow_hashed frame partitions by
+# keyspace owner (the SAME splitmix64 / h64 % buckets rule the servers
+# and mesh slices apply), fans out over per-host pooled connections
+# with the clients' retry/deadline machinery, and reassembles per-frame
+# answers in request order. Affine routing means a frame's rows arrive
+# at servers that own them — the zero-forwarding fast path; a stale map
+# self-heals off the typed E_NOT_OWNER redirect or a connection error
+# (refresh from any live member, retry once).
+
+
+def _fleet_map_of(obj):
+    from ratelimiter_tpu_torch.fleet.config import FleetMap
+
+    if isinstance(obj, FleetMap):
+        return obj
+    if isinstance(obj, dict):
+        return FleetMap.from_dict(obj)
+    if isinstance(obj, str):
+        return FleetMap.load(obj)
+    raise TypeError(f"fleet map must be FleetMap/dict/path, got {obj!r}")
+
+
+class FleetClient:
+    """Blocking fleet client: one pooled :class:`Client` per member,
+    frames partitioned by owner and fanned out concurrently.
+
+    Args:
+        fleet_map: FleetMap | dict | path to the ``--fleet-config``
+            JSON. Optional when ``seed`` is given (the map bootstraps
+            via T_FLEET_MAP from the seed server).
+        seed: (host, port) of any asyncio-door fleet member, used to
+            bootstrap and refresh the map.
+        prefix: the servers' key prefix (Config.prefix) — the client
+            must hash strings exactly as the servers do. ``None`` uses
+            the library default.
+        deadline: default per-call deadline (seconds) riding the wire
+            on every fan-out leg; None disables.
+        map_max_age: refresh the ownership map from any live member
+            once it is older than this many seconds (default 3.0;
+            None disables). Errors and E_NOT_OWNER redirects already
+            self-heal the map, but a REBALANCE is silent — the old
+            owner keeps answering via server-side forwarding — so a
+            long-lived client would otherwise pay the forwarding hop
+            forever after an elastic resharding (ADR-018).
+        Remaining kwargs configure each underlying Client (retries,
+        backoff, timeouts).
+
+    Same-key ordering: one connection per host (the default pool) and
+    sequential use per thread means a key's frames reach its owner in
+    issue order — the property tests/test_fleet.py pins across a
+    forwarding hop as well.
+    """
+
+    def __init__(self, fleet_map=None, *, seed: Optional[tuple] = None,
+                 prefix: Optional[str] = None,
+                 deadline: Optional[float] = None,
+                 map_max_age: Optional[float] = 3.0,
+                 retries: int = 2, **client_kw):
+        from ratelimiter_tpu_torch.core.config import DEFAULT_PREFIX
+
+        if fleet_map is None:
+            if seed is None:
+                raise ValueError("FleetClient needs fleet_map or seed")
+            with Client(seed[0], seed[1], retries=retries,
+                        **client_kw) as c:
+                fleet_map = c.fleet_map()
+        self.map = _fleet_map_of(fleet_map)
+        self.prefix = DEFAULT_PREFIX if prefix is None else prefix
+        self.deadline = deadline
+        self.map_max_age = map_max_age
+        self._map_fetched_at = time.monotonic()
+        self._retries = retries
+        self._client_kw = client_kw
+        self._clients: Dict[int, Client] = {}
+        self._lock = threading.Lock()
+        self._pool = None
+        self._lease_cache = None
+        self._lease_driver = None
+
+    # ------------------------------------------------------------ plumbing
+
+    def _executor(self):
+        import concurrent.futures
+
+        with self._lock:
+            if self._pool is None:
+                self._pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=max(2, len(self.map.hosts)),
+                    thread_name_prefix="rl-fleet-client")
+            return self._pool
+
+    def _client(self, ordinal: int) -> Client:
+        with self._lock:
+            c = self._clients.get(ordinal)
+            host = self.map.hosts[ordinal]
+            if c is None or (c._host, c._port) != (host.host, host.port):
+                if c is not None:
+                    c.close()
+                c = Client(host.host, host.port, retries=self._retries,
+                           **self._client_kw)
+                self._clients[ordinal] = c
+        return c
+
+    def _hash(self, keys: Sequence[str]):
+        from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64
+
+        return hash_prefixed_u64(list(keys), self.prefix)
+
+    def refresh_map(self) -> bool:
+        """Re-fetch the ownership map from the first live member; True
+        iff a newer epoch was installed. Called automatically on typed
+        redirects, connection failures, and (``map_max_age``) staleness."""
+        for ordinal in range(len(self.map.hosts)):
+            try:
+                d = self._client(ordinal).fleet_map()
+            except Exception:  # noqa: BLE001 — try the next member
+                continue
+            self._map_fetched_at = time.monotonic()
+            m = _fleet_map_of(d)
+            if m.epoch > self.map.epoch:
+                with self._lock:
+                    self.map = m
+                if self._lease_cache is not None:
+                    # Ownership moved (ADR-022): leases granted under
+                    # the old epoch may name ranges their grantor no
+                    # longer owns — stop answering from them.
+                    self._lease_cache.on_epoch(m.epoch)
+                return True
+            return False
+        return False
+
+    def _maybe_refresh(self) -> None:
+        """Age-based refresh (see ``map_max_age``): rebalances are
+        silent to a routing-only client, so poll the epoch at a bounded
+        cadence instead of paying the forwarding hop indefinitely."""
+        if (self.map_max_age is not None
+                and time.monotonic() - self._map_fetched_at
+                > self.map_max_age):
+            self._map_fetched_at = time.monotonic()  # backoff on failure
+            self.refresh_map()
+
+    def _refresh_from_error(self, exc: Exception) -> bool:
+        from ratelimiter_tpu_torch.core.errors import NotOwnerError
+
+        if isinstance(exc, NotOwnerError):
+            return self.refresh_map() or True  # owner named: retry anyway
+        if isinstance(exc, (ConnectionError, OSError)):
+            return self.refresh_map()
+        return False
+
+    # ------------------------------------------------------------- scalar
+
+    def allow(self, key: str, **kw) -> Result:
+        return self.allow_n(key, 1, **kw)
+
+    def allow_n(self, key: str, n: int = 1, *,
+                deadline: Optional[float] = None) -> Result:
+        lc = self._lease_cache
+        if lc is not None:
+            res = lc.try_acquire(key, n)
+            if res is not None:
+                return res
+        self._maybe_refresh()
+        dl = deadline if deadline is not None else self.deadline
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        try:
+            res = self._client(owner).allow_n(key, n, deadline=dl)
+        except Exception as exc:
+            if not self._refresh_from_error(exc):
+                raise
+            owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+            res = self._client(owner).allow_n(key, n, deadline=dl)
+        if lc is not None:
+            lc.note_wire(key)
+        return res
+
+    # ------------------------------------------------------------- frames
+
+    def _fan_out_rows(self, n_rows, owners_of, call):
+        """Shared frame fan-out: partition rows by owner
+        (FleetMap.partition — the one partition rule), run one call per
+        owner concurrently, and on a redirect/connection error refresh
+        the map ONCE and retry ONLY the failed rows, re-partitioned
+        under the fresh owner table (a failed-over range's rows re-route
+        to the successor; healthy owners' rows are never re-sent, which
+        would double-charge their quota). Returns
+        ``[(row_positions, leg_result)]``; bounded to one retry."""
+        import numpy as np
+
+        pending = np.arange(n_rows)
+        parts = []
+        for attempt in (0, 1):
+            groups = self.map.partition(owners_of(pending))
+            ex = self._executor()
+            futs = [(pos, ex.submit(call, o, pending[pos]))
+                    for o, pos in groups.items()]
+            failed = []
+            first_exc = None
+            for pos, fut in futs:
+                try:
+                    parts.append((pending[pos], fut.result()))
+                except Exception as exc:  # noqa: BLE001 — retried below
+                    if first_exc is None:
+                        first_exc = exc
+                    failed.append(pending[pos])
+            if not failed:
+                return parts
+            if attempt == 1 or not self._refresh_from_error(first_exc):
+                raise first_exc
+            pending = np.concatenate(failed)
+            pending.sort()
+        return parts
+
+    def allow_batch(self, keys: Sequence[str],
+                    ns: Optional[Sequence[int]] = None, *,
+                    deadline: Optional[float] = None) -> list:
+        """One logical frame routed across the fleet: results in
+        request order (list of Result, like Client.allow_batch)."""
+        keys = list(keys)
+        self._maybe_refresh()
+        ns = [1] * len(keys) if ns is None else list(ns)
+        dl = deadline if deadline is not None else self.deadline
+        h64 = self._hash(keys)
+
+        def owners_of(rows):
+            return self.map.owner_of_hash(h64[rows])
+
+        def call(o, rows):
+            return self._client(o).allow_batch(
+                [keys[i] for i in rows], [int(ns[i]) for i in rows],
+                deadline=dl)
+
+        parts = self._fan_out_rows(len(keys), owners_of, call)
+        results = [None] * len(keys)
+        for rows, out in parts:
+            for i, r in zip(rows.tolist(), out):
+                results[i] = r
+        return results
+
+    def allow_hashed(self, ids, ns=None, *,
+                     deadline: Optional[float] = None):
+        """One raw-u64-id frame routed across the fleet (the zero-copy
+        bulk lane); returns the frame's BatchResult in request order."""
+        import numpy as np
+
+        from ratelimiter_tpu_torch.fleet.forwarder import scatter_merge
+        from ratelimiter_tpu_torch.ops.hashing import splitmix64
+
+        self._maybe_refresh()
+        ids = np.ascontiguousarray(ids, dtype=np.uint64)
+        ns_arr = (np.ones(ids.shape[0], dtype=np.int64) if ns is None
+                  else np.asarray(ns, dtype=np.int64))
+        dl = deadline if deadline is not None else self.deadline
+        h64 = splitmix64(ids)
+
+        def owners_of(rows):
+            return self.map.owner_of_hash(h64[rows])
+
+        def call(o, rows):
+            return self._client(o).allow_hashed(ids[rows], ns_arr[rows],
+                                                deadline=dl)
+
+        if not ids.shape[0]:
+            return scatter_merge(0, 0, [])
+        parts = self._fan_out_rows(int(ids.shape[0]), owners_of, call)
+        if len(parts) == 1:
+            return parts[0][1]
+        limit = parts[0][1].limit
+        return scatter_merge(int(ids.shape[0]), limit, parts)
+
+    # -------------------------------------------------------- control plane
+
+    def reset(self, key: str) -> None:
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        self._client(owner).reset(key)
+
+    def set_override(self, key: str, limit=None,
+                     window_scale: float = 1.0):
+        """Tiered override applied on EVERY member (the cross-host form
+        of set_override_all: keys hash-route, non-owners' copies are
+        idempotent and make later failovers/reshards safe)."""
+        out = None
+        for o in range(len(self.map.hosts)):
+            out = self._client(o).set_override(key, limit,
+                                               window_scale=window_scale)
+        return out
+
+    def get_override(self, key: str):
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        return self._client(owner).get_override(key)
+
+    def delete_override(self, key: str) -> bool:
+        existed = False
+        for o in range(len(self.map.hosts)):
+            existed = self._client(o).delete_override(key) or existed
+        return existed
+
+    # -------------------------------------------- quota leases (ADR-022)
+
+    def enable_leases(self, *, interval: float = 0.1, cache=None,
+                      **cache_kw):
+        """Lease tier over the fleet: grants route to the key's OWNER
+        (the driver resolves per key on the current map), and an epoch
+        bump from refresh_map retires leases granted under old
+        ownership. Returns the LeaseCache."""
+        from ratelimiter_tpu_torch.leases.cache import LeaseCache
+        from ratelimiter_tpu_torch.leases.driver import LeaseDriver
+
+        if self._lease_driver is not None:
+            return self._lease_cache
+        self._lease_cache = (cache if cache is not None
+                             else LeaseCache(**cache_kw))
+
+        def resolve(key: str):
+            owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+            host = self.map.hosts[owner]
+            return host.host, host.port
+
+        self._lease_driver = LeaseDriver(self._lease_cache, resolve,
+                                         interval=interval)
+        self._lease_driver.start()
+        return self._lease_cache
+
+    def disable_leases(self) -> None:
+        drv, self._lease_driver = self._lease_driver, None
+        self._lease_cache = None
+        if drv is not None:
+            drv.close()
+
+    @property
+    def lease_cache(self):
+        return self._lease_cache
+
+    def close(self) -> None:
+        self.disable_leases()
+        with self._lock:
+            clients = list(self._clients.values())
+            self._clients.clear()
+            pool = self._pool
+            self._pool = None
+        for c in clients:
+            c.close()
+        if pool is not None:
+            pool.shutdown(wait=False)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class AsyncFleetClient:
+    """Pipelined fleet client: one :class:`AsyncClient` per member,
+    frames partitioned by owner and fanned out with ``asyncio.gather``
+    — the loadgen-grade surface (benchmarks/fleet.py drives it)."""
+
+    def __init__(self):
+        self.map = None
+        self.prefix = ""
+        self.deadline: Optional[float] = None
+        self.map_max_age: Optional[float] = 3.0
+        self._map_fetched_at = time.monotonic()
+        self._clients: Dict[int, AsyncClient] = {}
+        self._client_kw: dict = {}
+        self._lease_cache = None
+        self._lease_task: Optional[asyncio.Task] = None
+
+    @classmethod
+    async def connect(cls, fleet_map=None, *,
+                      seed: Optional[tuple] = None,
+                      prefix: Optional[str] = None,
+                      deadline: Optional[float] = None,
+                      map_max_age: Optional[float] = 3.0,
+                      **client_kw) -> "AsyncFleetClient":
+        from ratelimiter_tpu_torch.core.config import DEFAULT_PREFIX
+
+        self = cls()
+        if fleet_map is None:
+            if seed is None:
+                raise ValueError("AsyncFleetClient needs fleet_map or seed")
+            c = await AsyncClient.connect(seed[0], seed[1], **client_kw)
+            try:
+                fleet_map = await c.fleet_map()
+            finally:
+                await c.close()
+        self.map = _fleet_map_of(fleet_map)
+        self.prefix = DEFAULT_PREFIX if prefix is None else prefix
+        self.deadline = deadline
+        self.map_max_age = map_max_age
+        self._map_fetched_at = time.monotonic()
+        self._client_kw = client_kw
+        return self
+
+    async def _client(self, ordinal: int) -> AsyncClient:
+        c = self._clients.get(ordinal)
+        host = self.map.hosts[ordinal]
+        if c is None or (c._host, c._port) != (host.host, host.port):
+            if c is not None:
+                await c.close()
+            c = await AsyncClient.connect(host.host, host.port,
+                                          **self._client_kw)
+            # Sub-clients share the fleet cache so a revocation push on
+            # ANY member connection invalidates locally (ADR-022); the
+            # fleet client owns the maintenance task, so the sub-client
+            # never starts its own.
+            c._lease_cache = self._lease_cache
+            self._clients[ordinal] = c
+        return c
+
+    def _hash(self, keys):
+        from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64
+
+        return hash_prefixed_u64(list(keys), self.prefix)
+
+    async def refresh_map(self) -> bool:
+        for ordinal in range(len(self.map.hosts)):
+            try:
+                c = await self._client(ordinal)
+                d = await c.fleet_map()
+            except Exception:  # noqa: BLE001 — try the next member
+                continue
+            self._map_fetched_at = time.monotonic()
+            m = _fleet_map_of(d)
+            if m.epoch > self.map.epoch:
+                self.map = m
+                if self._lease_cache is not None:
+                    # Ownership moved: retire leases granted under the
+                    # old epoch (ADR-022).
+                    self._lease_cache.on_epoch(m.epoch)
+                return True
+            return False
+        return False
+
+    async def _maybe_refresh(self) -> None:
+        """Age-based refresh — the FleetClient twin: a rebalance is
+        silent behind server-side forwarding, so poll the epoch at a
+        bounded cadence (``map_max_age``; None disables)."""
+        if (self.map_max_age is not None
+                and time.monotonic() - self._map_fetched_at
+                > self.map_max_age):
+            self._map_fetched_at = time.monotonic()  # backoff on failure
+            await self.refresh_map()
+
+    async def _refresh_from_error(self, exc: Exception) -> bool:
+        from ratelimiter_tpu_torch.core.errors import NotOwnerError
+
+        if isinstance(exc, NotOwnerError):
+            await self.refresh_map()
+            return True
+        if isinstance(exc, (ConnectionError, OSError)):
+            return await self.refresh_map()
+        return False
+
+    async def allow(self, key: str, **kw) -> Result:
+        return await self.allow_n(key, 1, **kw)
+
+    async def allow_n(self, key: str, n: int = 1, *,
+                      deadline: Optional[float] = None) -> Result:
+        await self._maybe_refresh()
+        dl = deadline if deadline is not None else self.deadline
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        try:
+            c = await self._client(owner)
+            return await c.allow_n(key, n, deadline=dl)
+        except Exception as exc:
+            if not await self._refresh_from_error(exc):
+                raise
+            owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+            c = await self._client(owner)
+            return await c.allow_n(key, n, deadline=dl)
+
+    async def _fan_out_rows(self, n_rows, owners_of, call):
+        """Async twin of FleetClient._fan_out_rows: one leg per owner
+        gathered concurrently; a failed leg refreshes the map ONCE and
+        retries ONLY its rows, re-partitioned under the fresh owner
+        table — successful legs are never re-sent (a whole-frame retry
+        would double-charge quota at healthy owners). Bounded to one
+        retry; returns ``[(row_positions, leg_result)]``."""
+        import numpy as np
+
+        pending = np.arange(n_rows)
+        parts = []
+        for attempt in (0, 1):
+            groups = self.map.partition(owners_of(pending))
+            items = list(groups.items())
+            outs = await asyncio.gather(
+                *(call(o, pending[pos]) for o, pos in items),
+                return_exceptions=True)
+            failed = []
+            first_exc = None
+            for (o, pos), out in zip(items, outs):
+                if isinstance(out, BaseException):
+                    if first_exc is None:
+                        first_exc = out
+                    failed.append(pending[pos])
+                else:
+                    parts.append((pending[pos], out))
+            if not failed:
+                return parts
+            if (attempt == 1
+                    or not await self._refresh_from_error(first_exc)):
+                raise first_exc
+            pending = np.concatenate(failed)
+            pending.sort()
+        return parts
+
+    async def allow_batch(self, keys, ns=None, *,
+                          deadline: Optional[float] = None) -> list:
+        await self._maybe_refresh()
+        keys = list(keys)
+        ns = [1] * len(keys) if ns is None else list(ns)
+        dl = deadline if deadline is not None else self.deadline
+        h64 = self._hash(keys)
+
+        def owners_of(rows):
+            return self.map.owner_of_hash(h64[rows])
+
+        async def call(o, rows):
+            c = await self._client(o)
+            return await c.allow_batch([keys[i] for i in rows],
+                                       [int(ns[i]) for i in rows],
+                                       deadline=dl)
+
+        parts = await self._fan_out_rows(len(keys), owners_of, call)
+        results = [None] * len(keys)
+        for rows, out in parts:
+            for i, r in zip(rows.tolist(), out):
+                results[i] = r
+        return results
+
+    async def allow_hashed(self, ids, ns=None, *,
+                           deadline: Optional[float] = None):
+        import numpy as np
+
+        from ratelimiter_tpu_torch.fleet.forwarder import scatter_merge
+        from ratelimiter_tpu_torch.ops.hashing import splitmix64
+
+        await self._maybe_refresh()
+        ids = np.ascontiguousarray(ids, dtype=np.uint64)
+        ns_arr = (np.ones(ids.shape[0], dtype=np.int64) if ns is None
+                  else np.asarray(ns, dtype=np.int64))
+        dl = deadline if deadline is not None else self.deadline
+        h64 = splitmix64(ids)
+
+        def owners_of(rows):
+            return self.map.owner_of_hash(h64[rows])
+
+        async def call(o, rows):
+            c = await self._client(o)
+            return await c.allow_hashed(ids[rows], ns_arr[rows],
+                                        deadline=dl)
+
+        if not ids.shape[0]:
+            return scatter_merge(0, 0, [])
+        parts = await self._fan_out_rows(int(ids.shape[0]), owners_of,
+                                         call)
+        if len(parts) == 1:
+            return parts[0][1]
+        return scatter_merge(int(ids.shape[0]), parts[0][1].limit, parts)
+
+    async def reset(self, key: str) -> None:
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        c = await self._client(owner)
+        await c.reset(key)
+
+    async def set_override(self, key: str, limit=None,
+                           window_scale: float = 1.0):
+        out = None
+        for o in range(len(self.map.hosts)):
+            c = await self._client(o)
+            out = await c.set_override(key, limit,
+                                       window_scale=window_scale)
+        return out
+
+    async def get_override(self, key: str):
+        owner = int(self.map.owner_of_hash(self._hash([key]))[0])
+        c = await self._client(owner)
+        return await c.get_override(key)
+
+    async def delete_override(self, key: str) -> bool:
+        existed = False
+        for o in range(len(self.map.hosts)):
+            c = await self._client(o)
+            existed = await c.delete_override(key) or existed
+        return existed
+
+    async def fleet_map(self) -> dict:
+        """This client's CURRENT ownership map as a dict (refreshes
+        ride :meth:`refresh_map`)."""
+        return self.map.to_dict()
+
+    # -------------------------------------------- quota leases (ADR-022)
+
+    async def enable_leases(self, *, interval: float = 0.1, cache=None,
+                            **cache_kw):
+        """Lease tier over the async fleet: ONE cache shared by every
+        member connection (any member's revocation push invalidates),
+        with this client's maintenance task routing grants/renews to
+        each key's owner. Returns the LeaseCache."""
+        from ratelimiter_tpu_torch.leases.cache import LeaseCache
+
+        if self._lease_task is not None:
+            return self._lease_cache
+        self._lease_cache = (cache if cache is not None
+                             else LeaseCache(**cache_kw))
+        for c in self._clients.values():
+            c._lease_cache = self._lease_cache
+        self._lease_task = asyncio.ensure_future(
+            self._lease_loop(float(interval)))
+        return self._lease_cache
+
+    async def disable_leases(self) -> None:
+        task, self._lease_task = self._lease_task, None
+        cache, self._lease_cache = self._lease_cache, None
+        for c in self._clients.values():
+            c._lease_cache = None
+        if task is not None:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+        if cache is not None:
+            for act in cache.drain():
+                _, key, lease_id, delta = act
+                try:
+                    owner = int(self.map.owner_of_hash(
+                        self._hash([key]))[0])
+                    c = await self._client(owner)
+                    req_id = next(c._ids)
+                    await c._request(
+                        p.encode_lease_return(req_id, cache.client_id,
+                                              lease_id, key, delta),
+                        req_id)
+                except Exception:  # noqa: BLE001 — TTL reaps it anyway
+                    pass
+
+    @property
+    def lease_cache(self):
+        return self._lease_cache
+
+    async def _lease_loop(self, interval: float) -> None:
+        while True:
+            await asyncio.sleep(interval)
+            cache = self._lease_cache
+            if cache is None:
+                return
+            for act in cache.actions():
+                # Route each action to the key's owner; the sub-client's
+                # action handler applies results to the SHARED cache.
+                try:
+                    key = act[1]
+                    owner = int(self.map.owner_of_hash(
+                        self._hash([key]))[0])
+                    c = await self._client(owner)
+                except Exception:  # noqa: BLE001 — degrade to wire
+                    if act[0] == "grant":
+                        cache.grant_failed(act[1])
+                    elif act[0] == "renew":
+                        cache.renew_failed(act[2], act[3])
+                    continue
+                await c._lease_action(cache, act)
+
+    async def close(self) -> None:
+        await self.disable_leases()
+        clients = list(self._clients.values())
+        self._clients.clear()
+        for c in clients:
+            await c.close()

@@ -17,8 +17,9 @@ the ring for a whole window); a debt delta that no peer took is given
 back to the accumulator, so a partition loses at most the interval of
 a peer that failed while another took it. The JAX binary's wire
 (serving/protocol.py, in the RLA2 envelope under a shared secret), so a
-port pod and a JAX pod peer with each other. Left out against the JAX
-module: its chaos injector's hook on each push (ROADMAP A13d).
+port pod and a JAX pod peer with each other. The chaos injector's
+``dcn_frame`` hook drops or corrupts a push on its send path (the
+dcn-partition and dcn-corrupt scenarios), as in the JAX module.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ log = logging.getLogger("ratelimiter_tpu_torch.serving.dcn")
 def merge_push_payload(limiters: Sequence[SketchLimiter], body: bytes,
                        secret: Optional[str] = None,
                        guard: Optional[p.DcnReplayGuard] = None,
-                       on_lease=None) -> None:
+                       on_fleet=None, on_lease=None) -> None:
     """Check one T_DCN_PUSH body's envelope and merge its payload into
     every given limiter: the receive path of both doors (the asyncio
     door's one limiter or its mesh's slices, the native door's shards).
@@ -54,8 +55,11 @@ def merge_push_payload(limiters: Sequence[SketchLimiter], body: bytes,
     mass merges (a replayed push is a counter-mass injection, i.e.
     targeted false denies). Lease gossip (DCN_KIND_LEASE) goes to
     ``on_lease`` (the LeaseManager's ``on_gossip``), or is acknowledged
-    and dropped without one. A fleet announce is refused, as the JAX
-    doors refuse it on a server outside a fleet: the port has no fleet.
+    and dropped without one. A fleet announce (DCN_KIND_FLEET) goes to
+    ``on_fleet`` (the membership's ``handle_announce``) after its
+    envelope verifies: an announce can move keyspace ownership, so it
+    gets the same protection as counter mass. Without ``on_fleet`` it is
+    refused: a server outside a fleet must not swallow ownership gossip.
 
     With several shards or slices the whole payload merges into each: a
     key is read on its owner alone, where the foreign mass is then
@@ -69,9 +73,12 @@ def merge_push_payload(limiters: Sequence[SketchLimiter], body: bytes,
 
     body = p.unwrap_dcn_auth(body, secret, guard)
     if body[:1] and body[0] == p.DCN_KIND_FLEET:
-        raise InvalidConfigError(
-            "fleet announce received but this server is not a fleet "
-            "member (--fleet-config)")
+        if on_fleet is None:
+            raise InvalidConfigError(
+                "fleet announce received but this server is not a fleet "
+                "member (--fleet-config)")
+        on_fleet(p.parse_dcn_fleet(body[1:]))
+        return
     if body[:1] and body[0] == p.DCN_KIND_LEASE:
         if on_lease is not None:
             on_lease(p.parse_dcn_lease(body[1:]))
@@ -115,6 +122,18 @@ class _PeerConn:
     def push(self, frame: bytes, req_id: int) -> None:
         """Send one frame and wait for T_OK; raises on an error answer or
         a disconnect (the caller decides what the payload's loss costs)."""
+        from ratelimiter_tpu_torch import chaos
+
+        if chaos.INJECTOR is not None:
+            # The dcn-partition scenario drops the frame here (raising,
+            # so the pusher's retry and loss accounting see a real
+            # delivery failure); corruption mutates it so the receiver's
+            # HMAC path fires.
+            mutated = chaos.INJECTOR.dcn_frame(frame)
+            if mutated is None:
+                raise ConnectionError("chaos: DCN frame dropped "
+                                      "(injected partition)")
+            frame = mutated
         try:
             sk = self._connect()
             sk.sendall(frame)

@@ -3,10 +3,12 @@ service — a copy of ``ratelimiter_tpu/serving/http_gateway.py`` over the
 port's limiters and observability. Every route, status, header, JSON
 body and token gate is the JAX gateway's; ``/debug/profile`` captures
 with ``torch.profiler`` (a Chrome trace of the CPU and, with a card, its
-kernels) where the JAX gateway uses ``jax.profiler``. The fleet routes
-(``/v1/fleet/migrate``, ``/v1/fleet/rebalance``, ``/v1/fleet/status``
-and ``?fleet=1`` on the debug routes) answer as the JAX gateway does
-when no fleet hook is wired: the port has no fleet yet (ROADMAP A13d).
+kernels) where the JAX gateway uses ``jax.profiler``. ``POST
+/v1/fleet/migrate`` moves ranges through the fleet membership when the
+binary wires its hook and ``--http-migrate-token``; the placement and
+tower routes (``/v1/fleet/rebalance``, ``/v1/fleet/status`` and
+``?fleet=1`` on the debug routes) answer as the JAX gateway does when
+no hook is wired: the port has no control tower yet (ROADMAP A13d).
 Unlike the JAX gateway, its connections set TCP_NODELAY (ROADMAP C12),
 and it listens with a backlog of ``LISTEN_BACKLOG`` where the JAX
 gateway keeps socketserver's 5 (ROADMAP C13: a burst of connects past 5
@@ -158,7 +160,9 @@ class HttpGateway:
                  audit_token: Optional[str] = None,
                  tenants: Optional[object] = None,
                  enable_tenants: bool = False,
-                 tenants_token: Optional[str] = None):
+                 tenants_token: Optional[str] = None,
+                 fleet_migrate: Optional[Callable] = None,
+                 migrate_token: Optional[str] = None):
         gateway = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -344,21 +348,52 @@ class HttpGateway:
                                      "weight": int(t.weight),
                                      "floor": int(t.floor)})
 
-            def _handle_fleet_lever(self, url_path: str) -> None:
-                """``/v1/fleet/migrate`` and ``/v1/fleet/rebalance``: the
-                JAX gateway exposes them only when the embedding wired
-                a fleet hook AND its bearer token; the port has no fleet
-                (ROADMAP A13d), so they answer its unwired 403."""
-                if url_path == "/v1/fleet/migrate":
+            def _handle_migrate(self, q) -> None:
+                """Live range migration: POST /v1/fleet/migrate?to=HOST&
+                ranges=lo:hi[,lo:hi...]&wait=S. An ownership-move lever,
+                so it exists only when the embedding wired both the
+                fleet hook and a bearer token."""
+                if gateway.fleet_migrate is None or \
+                        gateway.migrate_token is None:
                     self._send(403, {"error": "fleet migration is not "
                                      "exposed on this gateway (needs "
                                      "--http-migrate-token on a fleet "
                                      "member)"})
-                else:
-                    self._send(403, {"error": "rebalancing is not "
-                                     "exposed on this gateway (needs "
-                                     "--http-rebalance-token on a "
-                                     "fleet member)"})
+                    return
+                if not self._bearer_ok(gateway.migrate_token):
+                    self._send(403, {"error": "bad migrate token"})
+                    return
+                if self.command != "POST":
+                    self._send(405, {"error": "POST only"})
+                    return
+                to = q.get("to", [None])[0]
+                raw = q.get("ranges", [None])[0]
+                if not to or not raw:
+                    self._send(400, {"error": "missing to= or ranges= "
+                                     "(lo:hi[,lo:hi...])"})
+                    return
+                try:
+                    ranges = []
+                    for part in raw.split(","):
+                        lo, hi = part.split(":")
+                        ranges.append((int(lo), int(hi)))
+                except ValueError:
+                    self._send(400, {"error": f"bad ranges {raw!r}; "
+                                     "expected lo:hi[,lo:hi...]"})
+                    return
+                wait = float(q.get("wait", ["10.0"])[0])
+                out = gateway.fleet_migrate(ranges, to, wait)
+                self._send(200 if out.get("ok") else 504, out)
+
+            def _handle_rebalance(self) -> None:
+                """``/v1/fleet/rebalance``: the JAX gateway exposes it
+                only when the embedding wired the placement controller
+                and its bearer token; the port has no planner yet
+                (ROADMAP A13d), so it answers the unwired 403."""
+                self._send(403, {"error": "rebalancing is not "
+                                 "exposed on this gateway (needs "
+                                 "--http-rebalance-token on a "
+                                 "fleet member)"})
 
             def _handle_debug_trace(self, q) -> None:
                 """Flight-recorder dump as Perfetto/Chrome-trace JSON
@@ -630,9 +665,10 @@ class HttpGateway:
                         self._handle_policy(q)
                     elif url.path == "/v1/tenants":
                         self._handle_tenants(q)
-                    elif url.path in ("/v1/fleet/migrate",
-                                      "/v1/fleet/rebalance"):
-                        self._handle_fleet_lever(url.path)
+                    elif url.path == "/v1/fleet/migrate":
+                        self._handle_migrate(q)
+                    elif url.path == "/v1/fleet/rebalance":
+                        self._handle_rebalance()
                     elif (url.path == "/v1/snapshot"
                           and self.command == "POST"):
                         # Durability trigger: bearer-gated like reset
@@ -738,6 +774,9 @@ class HttpGateway:
         self.tenants = tenants
         self.enable_tenants = bool(enable_tenants and tenants is not None)
         self.tenants_token = tenants_token
+        # Both required: _handle_migrate refuses otherwise.
+        self.fleet_migrate = fleet_migrate
+        self.migrate_token = migrate_token
         self._profile_lock = threading.Lock()
         self._decide_trace = _accepts_trace(decide)
         self._decide_deadline = _accepts_kw(decide, "deadline")

@@ -49,8 +49,24 @@ shard per slice (each under its own decorator stack and, with
 ``--quarantine``, its ``SliceGuard``): the door's shard router is then
 the slice router. The port's server.cpp keeps no per-shard quarantine
 state (the JAX door's ``set_shard_health``); the quarantine manager's
-status is on /healthz. Left out against the JAX bridge: the fleet
-(ROADMAP A13d).
+status is on /healthz.
+
+The fleet, as in the JAX bridge: with ``fleet=`` (a ``fleet.FleetCore``)
+every decision frame is partitioned by keyspace owner before the shard
+limiter sees it (``_fleet_split``). Local rows launch on the shard
+limiter without waiting, adopted rows go to the failover standby on the
+core's adopted executor, and foreign rows go onto their owner's
+coalesced forward lane (string rows to a multi-shard peer as strings,
+so that its FNV router sees the key); the resolve merges them back in
+frame order (``_fleet_resolve``). With forwarding off a frame holding a
+foreign row is answered E_NOT_OWNER. The side doors route per key
+(``_fleet_decide_one``), resets go to the owner, overrides are mirrored
+into the adopted unit, and a fleet announce in a DCN push goes to
+``fleet_announce``; FLEET_MAP is answered from the core. The C++ door
+serves the forward hint (request flag
+0x10): its dispatcher cuts a drain at each boundary between forward and
+client frames, so a peer's forward window never shares a launch with
+client rows.
 """
 
 from __future__ import annotations
@@ -63,7 +79,10 @@ import numpy as np
 
 from ratelimiter_tpu_torch import native
 from ratelimiter_tpu_torch.algorithms.base import RateLimiter
-from ratelimiter_tpu_torch.core.errors import DeadlineExceededError
+from ratelimiter_tpu_torch.core.errors import (
+    DeadlineExceededError,
+    StorageUnavailableError,
+)
 from ratelimiter_tpu_torch.core.types import fail_open_result
 from ratelimiter_tpu_torch.observability import audit, tracing
 from ratelimiter_tpu_torch.observability import metrics as m
@@ -136,11 +155,16 @@ class NativeRateLimitServer:
                  net_engine: str = "auto", io_rings: int = 0,
                  leases=None, dcn: bool = False,
                  dcn_secret: Optional[str] = None,
-                 max_dcn_conns: int = 4):
+                 max_dcn_conns: int = 4,
+                 fleet=None, fleet_announce=None):
         ext = native.load_server()
         if inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {inflight}")
         self.limiter = limiter
+        #: Fleet routing core (module docstring); None keeps the hot
+        #: path free of any fleet check.
+        self._fleet = fleet
+        self.fleet_announce = fleet_announce
         #: LeaseManager of the binary (module docstring): lease traffic
         #: enters through the LeaseListener sidecar, not this door; its
         #: DCN gossip through this door's receive path.
@@ -249,7 +273,8 @@ class NativeRateLimitServer:
             dcn_auth_required=bool(dcn and dcn_secret),
             # Sized to the peer set: a refused peer gets a typed error
             # and pushes again next cycle (its watermark re-sends).
-            max_dcn_conns=max(1, int(max_dcn_conns)))
+            max_dcn_conns=max(1, int(max_dcn_conns)),
+            fleet_map=self._fleet_map if fleet is not None else None)
         self.net_engine = str(net_engine)
         self.io_rings = int(io_rings)
         self.shm = bool(shm)
@@ -316,8 +341,18 @@ class NativeRateLimitServer:
             if self._fast:
                 h64, ns = self._hash_buffers(blob, offsets_b, lengths_b,
                                              ns_b)
-                with self._locks[shard]:
-                    out = lim.allow_hashed(h64, ns)
+                out = None
+                if self._fleet is not None:
+                    local_pos, jobs = self._fleet_split(
+                        h64, ns, blob=blob,
+                        offsets=np.frombuffer(offsets_b, dtype=np.int64),
+                        lengths=np.frombuffer(lengths_b, dtype=np.int64))
+                    if local_pos is not None or jobs:
+                        out = self._fleet_decide(shard, h64, ns,
+                                                 local_pos, jobs)
+                if out is None:
+                    with self._locks[shard]:
+                        out = lim.allow_hashed(h64, ns)
                 if aud is not None:
                     # h64 is the finalized string hash (the prefix is in
                     # the blob), so the hashed offer is exact.
@@ -348,8 +383,17 @@ class NativeRateLimitServer:
         try:
             h64 = np.frombuffer(ids_b, dtype=np.uint64)
             ns = np.frombuffer(ns_b, dtype=np.int64)
-            with self._locks[shard]:
-                out = lim.allow_hashed(h64, ns)
+            out = None
+            if self._fleet is not None:
+                # Hashed-lane ids arrive finalized (C++ splitmix64);
+                # foreign rows forward as their inverse.
+                local_pos, jobs = self._fleet_split(h64, ns)
+                if local_pos is not None or jobs:
+                    out = self._fleet_decide(shard, h64, ns, local_pos,
+                                             jobs)
+            if out is None:
+                with self._locks[shard]:
+                    out = lim.allow_hashed(h64, ns)
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
         if aud is not None:
@@ -358,13 +402,25 @@ class NativeRateLimitServer:
         return self._pack_result(out)
 
     def _launched(self, shard: int, h64: np.ndarray, ns: np.ndarray,
-                  trace_id: int, t0: float):
+                  trace_id: int, t0: float, *, blob=None,
+                  offsets_b=None, lengths_b=None):
         """Launch finalized hashes on the shard's limiter (no wait) and
-        return the ticket, tagged for the resolve."""
+        return the ticket, tagged for the resolve. In a fleet the frame
+        is split first (``_fleet_launch``); ``blob`` and its offsets are
+        the string run the rows came from (None for the hashed lane)."""
         lim = self._shard_limiters[shard]
         try:
-            with self._locks[shard]:
-                ticket = lim.launch_hashed(h64, ns)
+            ticket = None
+            if self._fleet is not None:
+                ticket = self._fleet_launch(
+                    shard, h64, ns, blob=blob,
+                    offsets=(None if offsets_b is None else
+                             np.frombuffer(offsets_b, dtype=np.int64)),
+                    lengths=(None if lengths_b is None else
+                             np.frombuffer(lengths_b, dtype=np.int64)))
+            if ticket is None:
+                with self._locks[shard]:
+                    ticket = lim.launch_hashed(h64, ns)
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
         ticket.trace_id = trace_id
@@ -396,7 +452,177 @@ class NativeRateLimitServer:
             h64, ns = self._hash_buffers(blob, offsets_b, lengths_b, ns_b)
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
-        return self._launched(shard, h64, ns, trace_id, t0)
+        return self._launched(shard, h64, ns, trace_id, t0, blob=blob,
+                              offsets_b=offsets_b, lengths_b=lengths_b)
+
+    # ------------------------------------------------------- fleet split
+
+    def _keys_from_blob(self, blob: bytes, offsets: np.ndarray,
+                        lengths: np.ndarray, pos: np.ndarray):
+        """The raw key strings of the given rows, the prefix stripped
+        (the receiver applies its identical prefix, so a forwarded key
+        hashes bit-identically)."""
+        pl = len(self._prefix_bytes)
+        return [blob[int(offsets[i]) + pl:
+                     int(offsets[i]) + int(lengths[i])].decode("utf-8")
+                for i in pos.tolist()]
+
+    def _fleet_split(self, h64: np.ndarray, ns: np.ndarray, *,
+                     blob=None, offsets=None, lengths=None):
+        """Partition one frame by fleet owner and fire the forwards.
+        Returns ``(local_pos, jobs)``; ``(None, ())`` when the whole
+        frame is local (the caller keeps its plain path). Raises the
+        typed redirect in redirect-only mode."""
+        import concurrent.futures as cf
+
+        core = self._fleet
+        owners = core.owners_of_hash(h64)
+        if core.all_local(owners):
+            return None, ()
+        if not core.forward_enabled:
+            # Only frames with a foreign row bounce: with adopted ranges
+            # mounted all_local() is False for every frame, and a frame
+            # this member owns wholly falls through to the split.
+            foreign = owners != core.self_ordinal
+            if foreign.any():
+                i = int(np.argmax(foreign))
+                raise core.redirect_error(int(h64[i]), int(owners[i]))
+        local_pos, adopted_pos, foreign = core.split(h64, owners)
+        jobs = []
+        if adopted_pos.shape[0]:
+            jobs.append((adopted_pos,
+                         core.decide_adopted_hashed(h64[adopted_pos],
+                                                    ns[adopted_pos]),
+                         None))
+        # String rows carry a lazy key extractor: the columnar lane
+        # hash-forwards them to single-shard peers without decoding the
+        # blob; keys materialize only for a peer with shards > 1.
+        keys_fn = (None if blob is None else
+                   (lambda pos_: self._keys_from_blob(blob, offsets,
+                                                      lengths, pos_)))
+        for o, pos in foreign.items():
+            if o in core._dead_ordinals:
+                fut = cf.Future()
+                fut.set_exception(StorageUnavailableError(
+                    f"fleet owner {core.map.hosts[o].id} is down "
+                    f"(failover pending)"))
+                jobs.append((pos, fut, o))
+                continue
+            for sub_pos, fut in core.forward_jobs(o, pos, h64, ns,
+                                                  keys_fn=keys_fn):
+                jobs.append((sub_pos, fut, o))
+        return local_pos, jobs
+
+    def _fleet_decide(self, shard: int, h64: np.ndarray, ns: np.ndarray,
+                      local_pos: np.ndarray, jobs):
+        """Blocking fleet decide: local rows decide on the shard limiter
+        while the forwards (already in flight) cross the network; the
+        parts merge in frame order."""
+        from ratelimiter_tpu_torch.fleet.forwarder import (
+            collect_jobs,
+            scatter_merge,
+        )
+
+        lim = self._shard_limiters[shard]
+        now = lim.clock.now()
+        parts = []
+        err = None
+        if local_pos.shape[0]:
+            try:
+                with self._locks[shard]:
+                    parts.append((local_pos,
+                                  lim.allow_hashed(h64[local_pos],
+                                                   ns[local_pos])))
+            except Exception as exc:  # noqa: BLE001 — drain forwards first
+                err = exc
+        fparts, ferr = collect_jobs(self._fleet, jobs, lim.config, now)
+        parts.extend(fparts)
+        err = err if err is not None else ferr
+        if err is not None:
+            raise err
+        return scatter_merge(int(h64.shape[0]), lim.config.limit, parts)
+
+    def _fleet_launch(self, shard: int, h64: np.ndarray, ns: np.ndarray,
+                      *, blob=None, offsets=None, lengths=None):
+        """Pipelined fleet launch: local rows launch on the shard limiter
+        (no wait on the card), forwards fly meanwhile; returns a
+        FleetTicket for the resolve's merge, or None when the whole
+        frame is local."""
+        from ratelimiter_tpu_torch.fleet.forwarder import FleetTicket
+
+        local_pos, jobs = self._fleet_split(h64, ns, blob=blob,
+                                            offsets=offsets,
+                                            lengths=lengths)
+        if local_pos is None and not jobs:
+            return None
+        lim = self._shard_limiters[shard]
+        t = FleetTicket()
+        t.b = int(h64.shape[0])
+        t.limit = lim.config.limit
+        t.t_sec = lim.clock.now()
+        if local_pos is not None and local_pos.shape[0]:
+            with self._locks[shard]:
+                t.local = lim.launch_hashed(h64[local_pos], ns[local_pos])
+            t.local_pos = local_pos
+            t.t_sec = getattr(t.local, "t_sec", 0.0) or t.t_sec
+        t.jobs = tuple(jobs)
+        return t
+
+    def _fleet_resolve(self, shard: int, ticket):
+        """Resolve one ticket: a fleet ticket's local sub-ticket and its
+        in-flight forwards merge back to frame order; a plain ticket
+        goes straight to the shard limiter."""
+        from ratelimiter_tpu_torch.fleet.forwarder import (
+            FleetTicket,
+            collect_jobs,
+            scatter_merge,
+        )
+
+        lim = self._shard_limiters[shard]
+        if not isinstance(ticket, FleetTicket):
+            return lim.resolve(ticket)
+        parts = []
+        err = None
+        if ticket.local is not None:
+            try:
+                parts.append((ticket.local_pos, lim.resolve(ticket.local)))
+            except Exception as exc:  # noqa: BLE001 — drain forwards first
+                err = exc
+        fparts, ferr = collect_jobs(self._fleet, ticket.jobs, lim.config,
+                                    ticket.t_sec or lim.clock.now())
+        parts.extend(fparts)
+        err = err if err is not None else ferr
+        if err is not None:
+            raise err
+        return scatter_merge(ticket.b, ticket.limit, parts)
+
+    def _fleet_decide_one(self, key: str, n: int):
+        """Scalar fleet routing for the side doors: None when the key is
+        this member's on its live state (the caller's shard path)."""
+        core = self._fleet
+        h64 = core.hash_keys([key])
+        owner = int(core.owners_of_hash(h64)[0])
+        if owner == core.self_ordinal:
+            if core._adopted_buckets.any() and bool(
+                    core._adopted_buckets[
+                        int(core.map.bucket_of_hash(h64)[0])]):
+                return core.adopted_submit(
+                    lambda: core.adopted_unit.allow_n(key, n)).result()
+            return None
+        if not core.forward_enabled:
+            raise core.redirect_error(int(h64[0]), owner)
+        try:
+            return core.forward_allow_n(owner, key, n).result(
+                timeout=core.forward_deadline + 2.0)
+        except Exception as exc:  # noqa: BLE001 — degrade per policy
+            core.note_forward_failure(owner, exc, 1)
+            cfg = self.limiter.config
+            if not cfg.fail_open:
+                raise StorageUnavailableError(
+                    f"fleet forward failed ({exc}); fails closed per "
+                    f"config") from exc
+            return fail_open_result(
+                cfg.limit, self.limiter.clock.now() + float(cfg.window))
 
     def _resolve(self, shard: int, ticket):
         """Wait for the oldest launch in flight (GIL released while the
@@ -405,7 +631,7 @@ class NativeRateLimitServer:
         t0 = time.perf_counter()
         lim = self._shard_limiters[shard]
         try:
-            out = lim.resolve(ticket)
+            out = self._fleet_resolve(shard, ticket)
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
         finally:
@@ -432,6 +658,14 @@ class NativeRateLimitServer:
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
 
+    def _fleet_map(self) -> bytes:
+        """T_FLEET_MAP: the member's current map as JSON (the C++ door
+        frames it as T_FLEET_MAP_R)."""
+        import json
+
+        return json.dumps(self._fleet.map_payload(),
+                          separators=(",", ":")).encode("utf-8")
+
     def _metrics(self) -> bytes:
         return self.registry.render().encode()
 
@@ -447,9 +681,14 @@ class NativeRateLimitServer:
                  for u in undecorated(lim).sub_limiters()]
         try:
             merge_push_payload(
-                units, payload, self.dcn_secret,
-                self._dcn_guard,
-                self.leases.on_gossip if self.leases is not None else None)
+                units, payload, self.dcn_secret, self._dcn_guard,
+                on_fleet=self.fleet_announce,
+                on_lease=(self.leases.on_gossip
+                          if self.leases is not None else None))
+            if self.leases is not None and self._fleet is not None:
+                # An announce may have moved ownership: revoke grants
+                # over ranges this member no longer owns.
+                self.leases.check_epoch()
         except Exception as exc:
             raise _BridgeError(p.code_for(exc), str(exc)) from exc
 
@@ -489,6 +728,10 @@ class NativeRateLimitServer:
                     cfg.limit, self.limiter.clock.now() + float(cfg.window))
             raise DeadlineExceededError(
                 "request deadline expired before dispatch")
+        if self._fleet is not None:
+            res = self._fleet_decide_one(key, n)
+            if res is not None:
+                return res
         shard = self.shard_of(key)
         lim = self._shard_limiters[shard]
         rec = tracing.RECORDER
@@ -506,7 +749,24 @@ class NativeRateLimitServer:
 
     def reset_one(self, key: str) -> None:
         """Reset on the key's dispatch shard (another shard's reset of it
-        would subtract colliding keys' mass)."""
+        would subtract colliding keys' mass), or in a fleet at the key's
+        owning host (the same rule one layer up)."""
+        if self._fleet is not None:
+            core = self._fleet
+            h64 = core.hash_keys([key])
+            owner = int(core.owners_of_hash(h64)[0])
+            if owner != core.self_ordinal:
+                if not core.forward_enabled:
+                    raise core.redirect_error(int(h64[0]), owner)
+                core.forward_op(owner, "reset", key).result(
+                    timeout=core.forward_deadline + 2.0)
+                return
+            if core._adopted_buckets.any() and bool(
+                    core._adopted_buckets[
+                        int(core.map.bucket_of_hash(h64)[0])]):
+                core.adopted_submit(
+                    lambda: core.adopted_unit.reset(key)).result()
+                return
         shard = self.shard_of(key)
         with self._locks[shard]:
             self._shard_limiters[shard].reset(key)
@@ -514,8 +774,14 @@ class NativeRateLimitServer:
     def decide_many(self, pairs):
         """Bulk decide grouped by owning shard: one ``allow_batch`` per
         touched shard (a key's requests stay in frame order on its
-        shard), results back in request order."""
+        shard), results back in request order. In a fleet, rows owned
+        elsewhere route per key first."""
         pairs = list(pairs)
+        if self._fleet is not None:
+            core = self._fleet
+            owners = core.owners_of_hash(core.hash_keys([k for k, _ in pairs]))
+            if not core.all_local(owners):
+                return [self.decide_one(k, n) for k, n in pairs]
         by_shard: dict = {}
         for i, (key, n) in enumerate(pairs):
             by_shard.setdefault(self.shard_of(key), []).append((i, key, n))
@@ -562,9 +828,25 @@ class NativeRateLimitServer:
         for shard, lim in enumerate(self._shard_limiters):
             with self._locks[shard]:
                 ov = lim.set_override(key, limit, window_scale=window_scale)
+        unit = self._fleet.adopted_unit if self._fleet is not None else None
+        if unit is not None:
+            # Adopted-range keys decide on the standby: mirror the write.
+            ov = self._fleet.adopted_submit(
+                lambda: unit.set_override(
+                    key, limit, window_scale=window_scale)).result()
         return ov
 
     def get_override_one(self, key: str):
+        if self._fleet is not None and self._fleet.adopted_unit is not None:
+            core = self._fleet
+            h64 = core.hash_keys([key])
+            if bool(core._adopted_buckets[
+                    int(core.map.bucket_of_hash(h64)[0])]):
+                # Overrides restored from the dead host's WAL live only
+                # in the standby.
+                unit = core.adopted_unit
+                return core.adopted_submit(
+                    lambda: unit.get_override(key)).result()
         shard = self.shard_of(key)
         with self._locks[shard]:
             return self._shard_limiters[shard].get_override(key)
@@ -574,6 +856,10 @@ class NativeRateLimitServer:
         for shard, lim in enumerate(self._shard_limiters):
             with self._locks[shard]:
                 existed = lim.delete_override(key) or existed
+        unit = self._fleet.adopted_unit if self._fleet is not None else None
+        if unit is not None:
+            existed = self._fleet.adopted_submit(
+                lambda: unit.delete_override(key)).result() or existed
         return existed
 
     @property

@@ -68,9 +68,14 @@ Responses:
 Request frame extensions, the JAX package's bits on the type byte: the
 trace id (0x40, a u64 prefixed to the body) and the relative deadline
 budget (0x20, an f64 prefixed to the body; with both, the trace id comes
-first). ``split_request`` strips both. The fleet's forward hint (0x10)
-is not served: ``REQUEST_FLAGS`` names it so both doors refuse such
-frames with E_INVALID_CONFIG.
+first). ``split_request`` strips both. The fleet's forward hint (0x10,
+``with_forward``; ``split_forward`` strips it) marks a peer's coalesced
+forward window: it changes no body byte and only steers batching.
+
+Fleet control frames: FLEET_MAP (12, empty body) answers FLEET_MAP_R
+(137: u32 len + the ownership map as JSON); a server that is not a fleet
+member answers E_INVALID_CONFIG. A member that does not own a frame's
+rows and does not forward answers E_NOT_OWNER (``format_not_owner``).
 """
 
 from __future__ import annotations
@@ -86,6 +91,7 @@ from ratelimiter_tpu_torch.core.errors import (
     InvalidConfigError,
     InvalidKeyError,
     InvalidNError,
+    NotOwnerError,
     RateLimiterError,
     StorageUnavailableError,
 )
@@ -107,6 +113,8 @@ T_POLICY_GET = 8
 T_POLICY_DEL = 9
 T_SNAPSHOT = 10
 T_ALLOW_HASHED = 11
+#: Fleet ownership map fetch: empty body, answered T_FLEET_MAP_R.
+T_FLEET_MAP = 12
 #: Client-embedded quota leases: GRANT, RENEW and RETURN all answer
 #: LEASE_R. 13..15 are the last base-type slots below the forward bit.
 T_LEASE_GRANT = 13
@@ -127,6 +135,7 @@ T_RESULT_BATCH = 133
 T_POLICY_R = 134
 T_SNAPSHOT_R = 135
 T_RESULT_HASHED = 136
+T_FLEET_MAP_R = 137
 #: Answer to every T_LEASE_* request.
 T_LEASE_R = 138
 #: Unsolicited lease revocation push, sent with req_id 0 on the
@@ -139,15 +148,17 @@ T_ERROR = 255
 # DCN payload kinds (the first body byte of a T_DCN_PUSH).
 DCN_KIND_SLABS = 1   # windowed: completed sub-window slabs
 DCN_KIND_DEBT = 2    # token bucket: accumulated debt delta
-#: The JAX fleet's announce; the port has no fleet and refuses it.
+#: Fleet announce/heartbeat: u32 len + a JSON payload.
 DCN_KIND_FLEET = 3
 #: Lease revocation gossip: u32 len + a JSON payload.
 DCN_KIND_LEASE = 4
 
-#: Request-type extension bit of the JAX package's protocol that this
-#: server does not serve (the fleet's forward hint); it refuses frames
-#: carrying it.
-REQUEST_FLAGS = 0x10
+#: The fleet's forward hint on a request type byte: the frame is a
+#: peer's coalesced forward window. The doors dispatch such windows
+#: apart from client frames, because a client window may itself wait on
+#: forward legs to the peer, and coalescing the two would chain each
+#: reply to windows formed later. It changes no body byte.
+FORWARD_FLAG = 0x10
 
 E_INVALID_N = 1
 E_INVALID_KEY = 2
@@ -161,9 +172,15 @@ E_INTERNAL = 7
 #: The request's propagated deadline expired before its dispatch ran
 #: (the fail-closed side of deadline shedding).
 E_DEADLINE = 8
+#: Fleet typed redirect: the answering server does not own the frame's
+#: hash buckets under its ownership epoch and does not forward. The
+#: message is ``parse_not_owner``-parseable (owner address and epoch).
+E_NOT_OWNER = 9
 
 
 def code_for(exc: Exception) -> int:
+    if isinstance(exc, NotOwnerError):
+        return E_NOT_OWNER
     if isinstance(exc, DeadlineExceededError):
         return E_DEADLINE
     if isinstance(exc, InvalidNError):
@@ -188,12 +205,17 @@ _CODE_TO_EXC = {
     E_SHUTTING_DOWN: StorageUnavailableError,
     E_INTERNAL: RateLimiterError,
     E_DEADLINE: DeadlineExceededError,
+    E_NOT_OWNER: NotOwnerError,
 }
 
 
 def exception_for(code: int, msg: str) -> Exception:
     """The library's exception for a wire error code (the client raises
     what a local limiter would)."""
+    if code == E_NOT_OWNER:
+        info = parse_not_owner(msg) or {}
+        return NotOwnerError(msg, owner=info.get("owner", ""),
+                             epoch=info.get("epoch", 0))
     return _CODE_TO_EXC.get(code, RateLimiterError)(msg)
 
 
@@ -225,7 +247,7 @@ def parse_header(buf: bytes, *, allow_dcn: bool = False
     only a server that takes pushes passes it, so that no client of a
     plain one can make it buffer slab-sized frames."""
     length, type_, req_id = _HDR.unpack_from(buf)
-    base = (type_ & ~(_REQ_FLAGS | REQUEST_FLAGS) if type_ < 128
+    base = (type_ & ~(_REQ_FLAGS | FORWARD_FLAG) if type_ < 128
             else type_)
     cap = MAX_DCN_FRAME if (allow_dcn and base == T_DCN_PUSH) else MAX_FRAME
     if length < 9 or length > cap:
@@ -260,6 +282,25 @@ _TRACE_ID = struct.Struct("<Q")
 DEADLINE_FLAG = 0x20
 _DEADLINE = struct.Struct("<d")
 _REQ_FLAGS = TRACE_FLAG | DEADLINE_FLAG
+
+
+def with_forward(frame: bytes) -> bytes:
+    """Mark a request frame as a fleet forward window (no body change).
+    Apply last, after ``with_deadline``/``with_trace``."""
+    length, type_, req_id = _HDR.unpack_from(frame)
+    if type_ & FORWARD_FLAG or type_ >= 128:
+        raise ProtocolError(f"type {type_} cannot carry the forward hint")
+    return (_HDR.pack(length, type_ | FORWARD_FLAG, req_id)
+            + frame[HEADER_SIZE:])
+
+
+def split_forward(type_: int):
+    """(base_type, is_forward): strips the forward bit. Call after
+    ``split_request``. T_SHM_HELLO (16, the bit over base type 0) is
+    exempt: the doors match it on the raw byte first."""
+    if type_ != T_SHM_HELLO and type_ < 128 and type_ & FORWARD_FLAG:
+        return type_ & ~FORWARD_FLAG, True
+    return type_, False
 
 
 def with_deadline(frame: bytes, budget_s: float) -> bytes:
@@ -491,6 +532,27 @@ def parse_result_batch(body: bytes):
                           remaining=remaining, retry_after=retry,
                           reset_at=reset, fail_open=bool(flags & 2)))
     return out
+
+
+_BATCH_RES_REC = np.dtype([("flags", "u1"), ("remaining", "<i8"),
+                           ("retry", "<f8"), ("reset", "<f8")])
+
+
+def parse_result_batch_columnar(body: bytes) -> BatchResult:
+    """RESULT_BATCH as a columnar BatchResult: one structured
+    ``np.frombuffer`` over the packed 25-byte rows (the fleet
+    forwarder's string legs merge through numpy)."""
+    limit, count = _BATCH_RES_HEAD.unpack_from(body)
+    if len(body) != _BATCH_RES_HEAD.size + count * _BATCH_RES_ITEM.size:
+        raise ProtocolError(
+            f"bad RESULT_BATCH body ({len(body)}B for count={count})")
+    rec = np.frombuffer(body, dtype=_BATCH_RES_REC, count=count,
+                        offset=_BATCH_RES_HEAD.size)
+    flags = rec["flags"]
+    return BatchResult(allowed=(flags & 1).astype(bool), limit=limit,
+                       remaining=rec["remaining"],
+                       retry_after=rec["retry"], reset_at=rec["reset"],
+                       fail_open=bool((flags & 2).any()))
 
 
 def encode_result_hashed(req_id: int, res: BatchResult) -> bytes:
@@ -982,6 +1044,84 @@ def parse_dcn_lease(payload: bytes) -> dict:
     (n,) = _U32.unpack_from(payload)
     if len(payload) != 4 + n:
         raise ProtocolError("bad lease revocation body")
+    return json.loads(payload[4:4 + n].decode("utf-8"))
+
+
+# ------------------------------------------------------- fleet frames
+#
+# Fleet control payloads are JSON: the map is small and changes rarely.
+# Decision traffic never rides these frames.
+
+def format_not_owner(bucket: int, owner: str, epoch: int,
+                     buckets: int) -> str:
+    """The E_NOT_OWNER message: ``k=v`` tokens a client re-routes on.
+    ``owner`` is ``host:port`` or ``id@host:port``."""
+    return (f"not owner: bucket={bucket} owner={owner} "
+            f"epoch={epoch} buckets={buckets}")
+
+
+def parse_not_owner(msg: str):
+    """-> {"bucket", "owner", "epoch", "buckets"}, or None when the
+    message does not carry the redirect."""
+    if not msg.startswith("not owner:"):
+        return None
+    out = {}
+    for tok in msg.split():
+        if "=" not in tok:
+            continue
+        k, _, v = tok.partition("=")
+        if k in ("bucket", "epoch", "buckets"):
+            try:
+                out[k] = int(v)
+            except ValueError:
+                return None
+        elif k == "owner":
+            out[k] = v
+    if "owner" not in out or "epoch" not in out:
+        return None
+    return out
+
+
+def encode_fleet_map(req_id: int) -> bytes:
+    return encode_simple(T_FLEET_MAP, req_id)
+
+
+def encode_fleet_map_r(req_id: int, payload: dict) -> bytes:
+    import json
+
+    jb = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+    body = _U32.pack(len(jb)) + jb
+    return _HDR.pack(1 + 8 + len(body), T_FLEET_MAP_R, req_id) + body
+
+
+def parse_fleet_map_r(body: bytes) -> dict:
+    import json
+
+    (n,) = _U32.unpack_from(body)
+    return json.loads(body[_U32.size:_U32.size + n].decode("utf-8"))
+
+
+def encode_dcn_fleet(req_id: int, payload: dict, secret=None, *,
+                     sender=None, seq=None) -> bytes:
+    """Fleet announce/heartbeat: a DCN push of kind DCN_KIND_FLEET with
+    a JSON body, in the RLA2 envelope when a secret is held."""
+    import json
+
+    jb = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+    body = _DCN_HEAD.pack(DCN_KIND_FLEET) + _U32.pack(len(jb)) + jb
+    return _dcn_frame(req_id, body, secret, sender, seq)
+
+
+def parse_dcn_fleet(payload: bytes) -> dict:
+    """The JSON payload of a fleet announce body (after its kind
+    byte)."""
+    import json
+
+    if len(payload) < 4:
+        raise ProtocolError("short fleet announce body")
+    (n,) = _U32.unpack_from(payload)
+    if len(payload) != 4 + n:
+        raise ProtocolError("bad fleet announce body")
     return json.loads(payload[4:4 + n].decode("utf-8"))
 
 

@@ -30,10 +30,9 @@ batcher the stages between), and the deadline extension's relative
 budget, anchored to the frame's arrival, lets the batcher shed the
 frame once it expires. RESET and the policy mutations are journaled
 (observability/events.py, ``actor="binary"``, keys as ``key_token``s).
-Frames carrying the JAX protocol's forward hint are answered with
-E_INVALID_CONFIG. Every decision the door serves goes through the
-batcher, whose audit tap mirrors it to the shadow auditor when one is
-enabled (serving/batcher.py), as in the JAX asyncio door.
+Every decision the door serves goes through the batcher, whose audit
+tap mirrors it to the shadow auditor when one is enabled
+(serving/batcher.py), as in the JAX asyncio door.
 
 Transports, as in the JAX door: TCP, a unix socket (``host`` given as
 ``unix:/path``), and with ``shm=True`` the shared-memory lane
@@ -64,10 +63,20 @@ merged in the executor into every dispatch unit of the limiter
 ``dcn_peer.merge_push_payload``; with ``dcn_secret`` a push must carry a
 valid RLA2 envelope whose (sender, seq) the door's replay guard has not
 seen. Lease gossip in a push goes to ``leases``. Without ``dcn`` a push
-is answered E_INVALID_CONFIG. The fleet is not ported (ROADMAP A13d,
-part two); the native door is serving/native_server.py, and the HTTP
-gateway and gRPC run beside either door in the binary
-(serving/http_gateway.py, serving/grpc_server.py, serving/__main__.py).
+is answered E_INVALID_CONFIG.
+
+The fleet, as in the JAX door: with ``fleet=`` (a ``fleet.FleetCore``)
+FLEET_MAP answers the member's ownership map; with forwarding off
+(redirect-only mode) a decision frame holding a row this member does not
+own is answered E_NOT_OWNER at the door; a hashed frame carrying the
+forward hint (a peer's forward window) coalesces apart from client
+frames (serving/batcher.py); and a fleet announce in a DCN push goes to
+``fleet_announce`` (``FleetMembership.handle_announce``). The serving
+limiter is then a ``fleet.FleetForwarder``.
+
+The native door is serving/native_server.py, and the HTTP gateway and
+gRPC run beside either door in the binary (serving/http_gateway.py,
+serving/grpc_server.py, serving/__main__.py).
 """
 
 from __future__ import annotations
@@ -84,7 +93,7 @@ from ratelimiter_tpu_torch.algorithms.base import RateLimiter
 from ratelimiter_tpu_torch.observability import events
 from ratelimiter_tpu_torch.observability import metrics as m
 from ratelimiter_tpu_torch.observability import tracing
-from ratelimiter_tpu_torch.ops.hashing import key_token
+from ratelimiter_tpu_torch.ops.hashing import key_token, splitmix64
 from ratelimiter_tpu_torch.serving import protocol as p
 from ratelimiter_tpu_torch.serving import shm as shm_lane
 from ratelimiter_tpu_torch.serving.batcher import MicroBatcher
@@ -108,8 +117,15 @@ class RateLimitServer:
                  max_window: Optional[int] = None, shm: bool = False,
                  shm_dir: str = "/dev/shm", shm_ring_bytes: int = 0,
                  leases=None, dcn: bool = False,
-                 dcn_secret: Optional[str] = None):
+                 dcn_secret: Optional[str] = None,
+                 fleet=None, fleet_announce: Optional[Callable] = None):
         self.limiter = limiter
+        #: Fleet routing core: answers FLEET_MAP and, with forwarding
+        #: off, checks decision frames at the door so a foreign frame
+        #: gets its typed E_NOT_OWNER redirect.
+        self.fleet = fleet
+        #: Fleet announce sink (FleetMembership.handle_announce).
+        self.fleet_announce = fleet_announce
         #: Take DCN pushes (and their larger frame cap); off by default,
         #: so that a plain deployment keeps the 1 MiB bound on every
         #: frame. With ``dcn_secret`` a push must carry a valid RLA2
@@ -424,12 +440,12 @@ class RateLimitServer:
             """One request frame, its extensions stripped, answered
             through ``out`` (a buffer list writer: the socket's or the
             reply ring's)."""
-            if type_ < 128 and type_ & p.REQUEST_FLAGS:
-                out([p.encode_error(
-                    req_id, p.E_INVALID_CONFIG,
-                    f"request type {type_:#x} carries the forward hint, "
-                    f"which this server does not serve")])
-                return
+            # The forward hint: a peer's forward window, dispatched
+            # apart from client frames so its reply never waits on this
+            # member's own forward legs.
+            type_, fwd_hint = p.split_forward(type_)
+            redirect = (self.fleet is not None
+                        and not self.fleet.forward_enabled)
             # None = no deadline; a budget <= 0 anchors in the past
             # (expired on arrival: shed at the first check).
             deadline = (time.monotonic() + budget
@@ -439,6 +455,9 @@ class RateLimitServer:
             if type_ == p.T_ALLOW_N:
                 try:
                     key, n = p.parse_allow_n(body)
+                    if redirect:
+                        self.fleet.check_frame_owned(
+                            self.fleet.hash_keys([key]))
                     fut = self.batcher.submit_nowait(key, n, trace_id,
                                                      deadline)
                 except Exception as exc:
@@ -452,8 +471,10 @@ class RateLimitServer:
             if type_ == p.T_ALLOW_HASHED:
                 try:
                     ids, ns = p.parse_allow_hashed(body)
+                    if redirect:
+                        self.fleet.check_frame_owned(splitmix64(ids))
                     fut = self.batcher.submit_hashed_nowait(
-                        ids, ns, trace_id, deadline)
+                        ids, ns, trace_id, deadline, standalone=fwd_hint)
                 except Exception as exc:
                     out([p.encode_error(req_id, p.code_for(exc), str(exc))])
                     return
@@ -466,6 +487,9 @@ class RateLimitServer:
             if type_ == p.T_ALLOW_BATCH:
                 try:
                     keys, ns = p.parse_allow_batch(body)
+                    if redirect:
+                        self.fleet.check_frame_owned(
+                            self.fleet.hash_keys(keys))
                     futs = self.batcher.submit_many_nowait(
                         zip(keys, ns), trace_id, deadline)
                 except Exception as exc:
@@ -684,9 +708,18 @@ class RateLimitServer:
 
         lims = undecorated(self.limiter).sub_limiters()
         on_lease = self.leases.on_gossip if self.leases is not None else None
-        await asyncio.get_running_loop().run_in_executor(
-            None, merge_push_payload, lims, body, self.dcn_secret,
-            self._dcn_guard, on_lease)
+
+        def merge() -> None:
+            merge_push_payload(lims, body, self.dcn_secret,
+                               self._dcn_guard, on_fleet=self.fleet_announce,
+                               on_lease=on_lease)
+            if self.leases is not None and self.fleet is not None:
+                # A fleet announce may have installed a newer epoch:
+                # revoke grants over ranges this member no longer owns
+                # before the next local answer spends them.
+                self.leases.check_epoch()
+
+        await asyncio.get_running_loop().run_in_executor(None, merge)
         return p.encode_ok(req_id)
 
     async def _handle_frame(self, type_: int, req_id: int, body: bytes,
@@ -737,6 +770,15 @@ class RateLimitServer:
                 text = await asyncio.get_running_loop().run_in_executor(
                     None, self.registry.render)
                 out = p.encode_metrics(req_id, text)
+            elif type_ == p.T_FLEET_MAP:
+                if self.fleet is None:
+                    out = p.encode_error(
+                        req_id, p.E_INVALID_CONFIG,
+                        "this server is not a fleet member "
+                        "(--fleet-config)")
+                else:
+                    out = p.encode_fleet_map_r(req_id,
+                                               self.fleet.map_payload())
             elif type_ == p.T_DCN_PUSH:
                 if not self.dcn:
                     out = p.encode_error(req_id, p.E_INVALID_CONFIG,

@@ -599,14 +599,14 @@ def test_phase_gateway_checks_on_cpu(cell):
     if cell == "windowed":
         out = chip_smoke.check_gateway(
             None, _small(chip_smoke.config3_hh(), hh_slots=16), cell,
-            device="cpu", seed=1, conns=2, frames=12, n_ids=64, n_keys=16,
-            threads=3, requests=12)
+            device="cpu", seed=1, conns=1, frames=8, n_ids=64, n_keys=16,
+            threads=3, requests=6)
     else:
         out = chip_smoke.check_gateway(
             None, _small(chip_smoke.config2_bucket()), cell, device="cpu",
-            seed=2, space="c2", ns=(1, 4, 9), conns=2, frames=12, n_ids=64,
+            seed=2, space="c2", ns=(1, 4, 9), conns=2, frames=8, n_ids=64,
             n_keys=16, threads=3, requests=12, front_per_reset=1)
-    assert out["http_answers"] == 3 * 12
+    assert out["http_answers"] == 3 * (6 if cell == "windowed" else 12)
     assert out["audit"]["status"]["samples"] == out["decisions"]
     assert "audit" in out["health_blocks"]
 

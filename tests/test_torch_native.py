@@ -8,8 +8,10 @@ ALLOW_HASHED, RESET, the frames the C++ door answers inline (an empty
 key, n = 0, invalid UTF-8, DCN, an unknown type) and the trace and
 deadline extensions; HEALTH and METRICS (the families and the shard
 gauges) compare field by field; an oversized frame closes the
-connection on both. The port refuses the forward hint (0x10), which
-the JAX door serves: a deliberate divergence (ROADMAP C). With two
+connection on both. Frames with the forward hint (0x10) are served by
+both doors alike, and a fleet member on the native door forwards the
+rows it does not own (equal to JAX replays of each owner's rows). With
+two
 dispatch shards each key is decided on its FNV shard in both packages.
 Pipelined traffic (several connections, 8 frames in flight, string
 frames carved at the ``max_batch`` boundary) is held to replays of the
@@ -245,29 +247,117 @@ def test_native_door_replies_equal_jax_native_door(kind, shards, slo):
             assert f'rate_limiter_sketch_mass_budget{{shard="{s}"}}' in tt
 
 
-def test_forward_hint_is_refused():
-    """The port's native door refuses frames with the forward hint, as
-    its asyncio door does (the JAX door serves them: a deliberate
-    divergence); the connection lives on."""
-    with _doors("window") as (_, (tdoor, _tlim)):
-        s = socket.create_connection(("127.0.0.1", tdoor.port))
-        try:
-            for frame in (tp.encode_allow_n(3, "k", 1),
-                          tp.with_trace(tp.encode_allow_n(4, "k", 1), 9)):
-                hinted = bytearray(frame)
-                hinted[4] |= 0x10
-                s.sendall(bytes(hinted))
-                reply = _recv(s)
-                rid = struct.unpack_from("<Q", frame, 5)[0]
-                assert tp.parse_header(reply[:13])[1:] == (tp.T_ERROR, rid)
-                assert tp.parse_error(reply[13:]) == (
-                    tp.E_INVALID_CONFIG,
-                    "request type 0x11 carries the forward hint, which "
-                    "this server does not serve")
-            s.sendall(tp.encode_allow_n(5, "k", 1))
-            assert tp.parse_header(_recv(s)[:13])[1] == tp.T_RESULT
-        finally:
-            s.close()
+def test_forward_hint_is_served_and_forwarding_works_natively():
+    """Frames with the forward hint are served by the port's native door
+    as by the JAX door (same replies, the connection lives on); and a
+    fleet member on the native door forwards what it does not own: its
+    string, raw-id and scalar frames, mixed across two owners, equal JAX
+    limiters replaying each owner's rows (the peer a port asyncio
+    server on one manual clock), and FLEET_MAP answers its map."""
+    import asyncio
+
+    from ratelimiter_tpu_torch.fleet import (
+        FleetCore,
+        FleetMap,
+    )
+    from ratelimiter_tpu_torch.serving.client import Client
+    from ratelimiter_tpu_torch.serving.server import RateLimitServer
+
+    with _doors("window") as ((jdoor, _), (tdoor, _t)):
+        replies = []
+        for door in (jdoor, tdoor):
+            s = socket.create_connection(("127.0.0.1", door.port))
+            try:
+                got = []
+                for frame in (tp.encode_allow_n(3, "k", 1),
+                              tp.with_trace(tp.encode_allow_n(4, "k", 1), 9),
+                              tp.encode_allow_hashed(
+                                  5, np.arange(9, dtype=np.uint64),
+                                  np.ones(9, dtype=np.int64))):
+                    s.sendall(tp.with_forward(frame))
+                    got.append(_recv(s))
+                s.sendall(tp.encode_allow_n(6, "k", 1))
+                got.append(_recv(s))
+                replies.append(got)
+            finally:
+                s.close()
+        assert [tp.parse_header(r[:13])[1] for r in replies[1]] == [
+            tp.T_RESULT, tp.T_RESULT, tp.T_RESULT_HASHED, tp.T_RESULT]
+        assert replies[0] == replies[1]
+
+    clock = T.ManualClock(T0)
+    cfg = _cfg(T, "window")
+    jcfg = _cfg(R, "window", kernels="jnp")
+    lim_a = T.create_limiter(cfg, backend="sketch", clock=clock,
+                             device="cpu")
+    lim_b = T.create_limiter(cfg, backend="sketch", clock=clock,
+                             device="cpu")
+    oracles = [R.create_limiter(jcfg, backend="sketch",
+                                clock=R.ManualClock(T0)) for _ in range(2)]
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    peer = RateLimitServer(lim_b, "127.0.0.1", 0)
+    asyncio.run_coroutine_threadsafe(peer.start(), loop).result(10)
+    fmap = FleetMap.from_dict({"buckets": 32, "epoch": 1, "hosts": [
+        {"id": "a", "host": "127.0.0.1", "port": 1, "ranges": [[0, 16]]},
+        {"id": "b", "host": "127.0.0.1", "port": peer.port,
+         "ranges": [[16, 32]]}]})
+    core = FleetCore(fmap, "a", prefix=cfg.prefix, forward_deadline=30.0,
+                     registry=Registry())
+    door = NativeRateLimitServer(lim_a, "127.0.0.1", 0, registry=Registry(),
+                                 fleet=core, inflight=4)
+    door.start()
+    rng = np.random.default_rng(12)
+    try:
+        with Client(port=door.port, timeout=30) as c:
+            for i in range(8):
+                if i % 3 == 0:
+                    ids = rng.integers(0, 60, 40).astype(np.uint64)
+                    got = c.allow_hashed(ids)
+                    owners = core.owners_of_ids(ids)
+                    sub = lambda o, pos: o.allow_ids(ids[pos])  # noqa
+                    b = 40
+                elif i % 3 == 1:
+                    keys = [f"n:{k}" for k in rng.integers(0, 30, 20)]
+                    got = c.allow_batch(keys)
+                    owners = core.owners_of_hash(core.hash_keys(keys))
+                    sub = lambda o, pos: o.allow_batch(  # noqa
+                        [keys[k] for k in pos])
+                    b = 20
+                else:
+                    key = f"n:{int(rng.integers(0, 30))}"
+                    got = [c.allow(key)]
+                    owners = core.owners_of_hash(core.hash_keys([key]))
+                    sub = lambda o, pos: o.allow_batch([key])  # noqa
+                    b = 1
+                allowed = np.asarray([r.allowed for r in got]) if isinstance(
+                    got, list) else got.allowed
+                remaining = np.asarray([r.remaining for r in got]) if \
+                    isinstance(got, list) else got.remaining
+                want_a = np.zeros(b, dtype=bool)
+                want_r = np.zeros(b, dtype=np.int64)
+                for host in (0, 1):
+                    pos = np.nonzero(owners == host)[0]
+                    if pos.shape[0]:
+                        out = sub(oracles[host], pos)
+                        want_a[pos] = out.allowed
+                        want_r[pos] = out.remaining
+                np.testing.assert_array_equal(allowed, want_a)
+                np.testing.assert_array_equal(remaining, want_r)
+            assert FleetMap.from_dict(c.fleet_map()).to_dict() == \
+                fmap.to_dict()
+        assert core.status()["forwarded_total"] > 0
+    finally:
+        door.shutdown()
+        asyncio.run_coroutine_threadsafe(peer.shutdown(), loop).result(10)
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=10)
+        loop.close()
+        core.close()
+        lim_b.close()
+        for o in oracles:
+            o.close()
 
 
 def test_oversized_frame_closes_the_connection_on_both_doors():

@@ -1,11 +1,10 @@
 """Per-slice failure domains (``MeshSpec.quarantine``,
 parallel/quarantine.py) in the port, on the CPU.
 
-The quarantine cases of tests/test_chaos.py, driven by the port's
-``inject_failure`` on one guarded slice (it arms the fault at the guard,
-where the JAX package's chaos injector raises; the chaos package is
-ROADMAP A13d, part two) and, for the deadline, by a slice whose resolve
-stalls: the classifier against the JAX package's on the same faults;
+The quarantine cases of tests/test_chaos.py, driven by the port's chaos
+injector (``fail_slice`` raises ``SliceFault`` inside the slice's guard,
+as the JAX package's does) and, for the deadline, by a slice whose
+resolve stalls: the classifier against the JAX package's on the same faults;
 backend faults quarantine one slice while caller errors pass through;
 healthy rows equal a quarantine-off mesh (and the JAX package's) bit
 for bit, the victim's range answers fail-open (or fails closed with the
@@ -30,6 +29,7 @@ import ratelimiter_tpu_torch as T
 from ratelimiter_tpu.parallel.quarantine import (
     classify_failure as jax_classify,
 )
+from ratelimiter_tpu_torch import chaos
 from ratelimiter_tpu_torch.observability.decorators import (
     CircuitBreakerDecorator,
 )
@@ -56,6 +56,21 @@ def _cfg(M=T, *, devices=4, quarantine=True, fail_open=True, deadline=5.0,
         mesh=M.core.config.MeshSpec(devices=devices, quarantine=quarantine,
                                     slice_deadline=deadline,
                                     probe_interval=probe), **kw)
+
+
+@pytest.fixture(autouse=True)
+def _injector():
+    chaos.install(seed=0)
+    yield
+    chaos.uninstall()
+
+
+def _kill(idx):
+    chaos.INJECTOR.fail_slice(idx)
+
+
+def _heal(idx):
+    chaos.INJECTOR.clear_slice(idx)
 
 
 def _mesh(**kw):
@@ -108,7 +123,7 @@ def test_healthy_ranges_equal_a_quarantine_off_mesh():
         got, want, jwant = [], [], []
         for i, ids in enumerate(frames):
             if i == 3:
-                lim.slices[victim].inject_failure()
+                _kill(victim)
             now = T0 + i * 0.25
             got.append(lim.allow_ids(ids, now=now))
             want.append(oracle.allow_ids(ids, now=now))
@@ -150,7 +165,7 @@ def test_fail_closed_range_errors_with_slice_attribution():
     lim = _mesh(fail_open=False)
     ids = np.arange(1, 257, dtype=np.uint64)
     _warm(lim, ids)
-    lim.slices[1].inject_failure()
+    _kill(1)
     try:
         with pytest.raises(T.StorageUnavailableError) as ei:
             lim.allow_ids(ids, now=T0)
@@ -183,7 +198,7 @@ def test_scalar_path_degrades_too():
                if lim.owner_of_key(f"k{i}") == 2)
     try:
         lim.allow_n(key, 1, now=T0)
-        lim.slices[2].inject_failure()
+        _kill(2)
         res = lim.allow_n(key, 1, now=T0 + 0.1)
         assert res.allowed and res.fail_open
         assert res.limit == lim.config.limit
@@ -255,12 +270,12 @@ def test_probe_restores_through_recover_unit(tmp_path):
         snap = {k: v.copy() for k, v in
                 lim.slices[victim].capture_state()[1].items()}
         top.set_override(f"{vkey}:wal", 55)
-        lim.slices[victim].inject_failure()
+        _kill(victim)
         out = top.allow_n(vkey, 1, now=T0 + 1.0)
         assert out.fail_open
         assert lim.quarantine.state(victim) != "healthy"
         top.set_override(f"{vkey}:during", 33)
-        lim.slices[victim].heal()
+        _heal(victim)
         assert lim.quarantine.probe_now(victim)
         assert lim.quarantine.state(victim) == "healthy"
         # The probe's unit decision was overwritten by the restore.
@@ -283,12 +298,12 @@ def test_probe_failure_reopens_and_restore_failure_blocks_rejoin():
     ids = np.arange(1, 65, dtype=np.uint64)
     _warm(lim, ids)
     victim = int(lim.owner_of_id(ids[:1])[0])
-    lim.slices[victim].inject_failure()
+    _kill(victim)
     try:
         lim.allow_ids(ids, now=T0)
         assert not lim.quarantine.probe_now(victim)
         assert lim.quarantine.state(victim) == "quarantined"
-        lim.slices[victim].heal()
+        _heal(victim)
         calls = []
 
         def bad_restore(idx):
@@ -316,7 +331,7 @@ def test_single_slice_fault_storm_leaves_other_ranges_admitting():
     ids = np.arange(1, 513, dtype=np.uint64)
     _warm(lim, ids)
     victim = 2
-    lim.slices[victim].inject_failure()
+    _kill(victim)
     try:
         for i in range(10):
             assert breaker.allow_ids(ids, now=T0 + i * 0.01).fail_open

@@ -288,7 +288,7 @@ def test_server_answers_frames_like_an_in_process_limiter():
             serving, _, decisions = tp.parse_health(body)
             assert t == tp.T_HEALTH_R and serving and decisions == 4 * 74 + 2
             # A zero n is refused; a traced frame is served (the trace
-            # extension is stripped), a forward-hinted one refused.
+            # extension is stripped), and so is a forward-hinted one.
             t, _, body = await _roundtrip(reader, writer, tp.encode_allow_hashed(
                 204, np.arange(3, dtype=np.uint64), [1, 0, 1]))
             assert t == tp.T_ERROR and tp.parse_error(body)[0] == tp.E_INVALID_N
@@ -296,9 +296,8 @@ def test_server_answers_frames_like_an_in_process_limiter():
             t, rid, body = await _roundtrip(reader, writer, traced)
             assert (t, rid) == (tp.T_HEALTH_R, 205)
             forward = jp.with_forward(jp.encode_simple(jp.T_HEALTH, 206))
-            t, _, body = await _roundtrip(reader, writer, forward)
-            assert (t == tp.T_ERROR
-                    and tp.parse_error(body)[0] == tp.E_INVALID_CONFIG)
+            t, rid, body = await _roundtrip(reader, writer, forward)
+            assert (t, rid) == (tp.T_HEALTH_R, 206)
         finally:
             writer.close()
             await writer.wait_closed()
@@ -494,7 +493,8 @@ def test_tenant_door_matches_a_replay():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, and chip_smoke.py, imported in a fresh
+    """Every module of the port (the fleet, chaos and placement packages
+    among them), and chip_smoke.py, imported in a fresh
     interpreter, leaves no jax/jaxlib/ratelimiter_tpu module loaded (exact
     names or dotted children: ratelimiter_tpu_torch itself is fine)."""
     code = r"""
@@ -519,7 +519,10 @@ for name in ("checkpoint", "observability.decorators",
              "parallel.mesh_kernels", "parallel.collective",
              "parallel.quarantine", "ops.route_kernels", "parallel.dcn",
              "parallel.reshard", "serving.dcn_peer", "tools",
-             "tools.rebucket"):
+             "tools.rebucket", "fleet", "fleet.config", "fleet.lanes",
+             "fleet.forwarder", "fleet.handoff", "fleet.membership",
+             "chaos", "chaos.injector", "placement",
+             "placement.accounting"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 # The gRPC message classes build from the committed descriptor alone.
@@ -541,6 +544,9 @@ print(len(names), bad)
     assert "ratelimiter_tpu_torch.persistence.recover" in out.stderr
     assert "ratelimiter_tpu_torch.parallel.collective" in out.stderr
     assert "ratelimiter_tpu_torch.serving.dcn_peer" in out.stderr
+    assert "ratelimiter_tpu_torch.fleet.membership" in out.stderr
+    assert "ratelimiter_tpu_torch.chaos.injector" in out.stderr
+    assert "ratelimiter_tpu_torch.placement.accounting" in out.stderr
 
 
 @pytest.mark.parametrize("argv", [["--controller"], ["--tenant", "a=5"],

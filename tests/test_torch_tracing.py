@@ -122,7 +122,7 @@ def test_frame_extension_errors_match_jax():
         got, want = outcome(tp, case), outcome(jp, case)
         assert got == want
     assert sum(outcome(tp, c)[0] == "error" for c in cases) == 9
-    assert (tp.TRACE_FLAG, tp.DEADLINE_FLAG, tp.REQUEST_FLAGS) == (
+    assert (tp.TRACE_FLAG, tp.DEADLINE_FLAG, tp.FORWARD_FLAG) == (
         jp.TRACE_FLAG, jp.DEADLINE_FLAG, jp.FORWARD_FLAG)
 
 
