@@ -11,6 +11,7 @@
     python3 chip_smoke.py --mesh     # the sliced mesh at full length
     python3 chip_smoke.py --dcn      # the DCN tier and resharding
     python3 chip_smoke.py --fleet    # the fleet: forwarding, failover, chaos
+    python3 chip_smoke.py --control  # the fleet's tower and rebalancer
 
 Phases (each raises on failure; the script exits non-zero):
 
@@ -369,6 +370,29 @@ Phases (each raises on failure; the script exits non-zero):
    kill-slice --chaos-after 1``: after the scenario arms, the healthy
    slices' rows equal a no-fault CPU replay, the victim's range answers
    fail-open, the quarantine names it;
+   control. the fleet's control plane (``run_control``; ``--control``
+   runs it alone): (a) three in-process members on the card (windowed
+   CU with 64 side-table slots, then TB-c2) with a RebalanceController
+   each: a hotspot seeded on h0, one plan id on every member, h1's cycle
+   moving nothing and h0's moving its ranges through the handoff, every
+   answer and each receiver's adopted unit equal to CPU replays, the
+   receivers' front, admission and update launches counted from 0
+   before the moves, the plan and its moves under one correlation id;
+   then three member binaries on the card (``FleetPair`` with declared
+   gateway ports: h0 and h2 the asyncio door, h1 the native door) with
+   the control flags of ``benchmarks/rebalance.py:61-75`` and
+   observability on: (c) h0 warmed until its observatory clears a
+   move, probe keys spent, the members' dry runs agreeing, ``apply``
+   under a ``FleetClient`` driver with no error, the epochs, the
+   projected imbalance, the moved ranges' answers through every member
+   equal to CPU replays of the receivers' units, every probe key
+   admitting exactly its rest, the journal's one correlation id, the
+   placement families, ``abort`` then ``apply``, all within one window
+   of the first spend; (b) ``FleetLoad``'s mixed run, then the rollup
+   on every member and through ``fleet_status`` live and ``--offline``
+   equal to the merge of the members' /healthz, a traced frame
+   stitched across h0 and h1, the merged events; readings as one JSON
+   line with the card;
 5. durable and live-reconfigured serving at config 3's full geometry,
    each part against a CPU limiter of the port driven with the same
    operations (the CPU port is held to the JAX package by the tests):
@@ -451,9 +475,10 @@ before the card's line.
 generator), then runs phase grpc alone at full length and prints its
 results as one JSON line before the card's line.
 
-``--mesh``, ``--dcn`` and ``--fleet`` build, then run phase mesh (with
-``route_bins``'s row), phase dcn or phase fleet alone and print their
-results as one JSON line before the card's line.
+``--mesh``, ``--dcn``, ``--fleet`` and ``--control`` build, then run
+phase mesh (with ``route_bins``'s row), phase dcn, phase fleet or phase
+control alone and print their results as one JSON line before the
+card's line.
 
 Every phase prints a stamp, ``<phase> done at N s (build M s)``; phases
 observe and gateway also print each part's seconds.
@@ -10652,38 +10677,51 @@ def _fleet_wait(cond, timeout: float, what: str, every: float = 0.05):
 
 
 class FleetPair:
-    """Two fleet members of one affine map as child processes on
-    ``device``: h0 the asyncio door, h1 the native door (``native``),
-    each with its own snapshot directory, an HTTP gateway with
-    ``--http-migrate-token`` and ``extra[i]`` more flags. Both start
-    together (the membership's boot grace assumes it); ``boot_timeout``
-    bounds a member's start."""
+    """Fleet members of one affine map as child processes on ``device``,
+    one a door of ``native`` (two by default: h0 the asyncio door, h1
+    the native door), each with its own snapshot directory, an HTTP
+    gateway with ``--http-migrate-token`` and ``extra[i]`` more flags.
+    ``buckets`` the map's (16 a member by default); with ``http_ports``
+    each gateway listens on a port the map declares (``"http"``), which
+    the control tower needs to reach its peers, else on an ephemeral
+    one. All start together (the membership's boot grace assumes it);
+    ``boot_timeout`` bounds a member's start."""
 
     def __init__(self, tmp: str, cfg, device: str = "cuda",
-                 extra=((), ()), native=(False, True),
-                 boot_timeout: float = 300.0):
+                 extra=None, native=(False, True),
+                 boot_timeout: float = 300.0, buckets: int = 0,
+                 http_ports: bool = False, flags=FLEET_FLAGS):
+        import dataclasses
         import os
 
-        from ratelimiter_tpu_torch.fleet import affine_map
+        from ratelimiter_tpu_torch.fleet import FleetMap, affine_map
 
+        self.n = n = len(native)
+        extra = extra if extra is not None else ((),) * n
         self.cfg, self.device = cfg, device
         self.boot_timeout = boot_timeout
-        self.ports = [_free_port(), _free_port()]
-        self.dirs = [os.path.join(tmp, f"h{i}") for i in range(2)]
+        self.ports = [_free_port() for _ in range(n)]
+        self.https = [_free_port() if http_ports else 0 for _ in range(n)]
+        self.dirs = [os.path.join(tmp, f"h{i}") for i in range(n)]
         for d in self.dirs:
             os.makedirs(d, exist_ok=True)
         self.map = affine_map([("127.0.0.1", p) for p in self.ports],
-                              snapshot_dirs=self.dirs)
+                              snapshot_dirs=self.dirs, buckets=buckets)
+        if http_ports:
+            self.map = FleetMap(buckets=self.map.buckets, hosts=tuple(
+                dataclasses.replace(h, http=self.https[i])
+                for i, h in enumerate(self.map.hosts)))
         self.path = os.path.join(tmp, "fleet.json")
         with open(self.path, "w") as fh:
             json.dump(self.map.to_dict(), fh)
-        self.argv = [[*cell_flags(cfg), *FLEET_FLAGS, "--device",
+        self.argv = [[*cell_flags(cfg), *flags, "--device",
                       device.split(":")[0], "--port", str(self.ports[i]),
                       "--fleet-config", self.path, "--fleet-self", f"h{i}",
-                      "--snapshot-dir", self.dirs[i], "--http-port", "0",
+                      "--snapshot-dir", self.dirs[i], "--http-port",
+                      str(self.https[i]),
                       "--http-migrate-token", FLEET_TOKEN,
                       *(["--native"] if native[i] else []), *extra[i]]
-                     for i in range(2)]
+                     for i in range(n)]
         from ratelimiter_tpu_torch.serving.__main__ import (
             build_config,
             parse_args,
@@ -10693,19 +10731,23 @@ class FleetPair:
         self.member_cfg = build_config(parse_args(self.argv[0]))
         #: Each member's adopted unit as a CPU replay (None until its
         #: first adoption) and the buckets it decides.
-        self.adopted = [None, None]
-        self.adopted_buckets = [set(), set()]
-        self.srv = [None, None]
+        self.adopted = [None] * n
+        self.adopted_buckets = [set() for _ in range(n)]
+        self.srv = [None] * n
+        #: Each member's seconds from the start to its serving line.
+        self.boot_s = [None] * n
         errs = []
+        t0 = time.perf_counter()
 
         def boot(i):
             try:
                 self.srv[i] = ServerProcess(self.argv[i],
                                             timeout=self.boot_timeout)
+                self.boot_s[i] = time.perf_counter() - t0
             except BaseException as exc:  # noqa: BLE001 — re-raised
                 errs.append(exc)
 
-        th = [threading.Thread(target=boot, args=(i,)) for i in range(2)]
+        th = [threading.Thread(target=boot, args=(i,)) for i in range(n)]
         for t in th:
             t.start()
         for t in th:
@@ -10720,11 +10762,12 @@ class FleetPair:
             raise
 
     def wait_peers(self) -> None:
-        """Until each member has heard the other's announce (a peer never
-        heard can be declared dead only after the boot grace)."""
+        """Until each member has heard every other's announce (a peer
+        never heard can be declared dead only after the boot grace)."""
         def heard():
-            return all(self.fleet(i)["peers"][f"h{1 - i}"]["last_seen_age_s"]
-                       is not None for i in range(2))
+            return all(self.fleet(i)["peers"][f"h{j}"]["last_seen_age_s"]
+                       is not None for i in range(self.n)
+                       for j in range(self.n) if j != i)
 
         _fleet_wait(heard, 30.0, "both members' first announces")
 
@@ -10779,7 +10822,7 @@ class FleetPair:
 
     def close(self) -> None:
         # SIGKILL: a SIGTERM would start each member's departure handoff.
-        for i in range(2):
+        for i in range(self.n):
             self.kill(i)
 
     def health(self, i: int) -> dict:
@@ -10799,13 +10842,14 @@ class FleetPair:
             c.close()
 
     def one_owner(self, what: str):
-        """Both members serve the same map (epoch and assignment): the
+        """Every member serves the same map (epoch and assignment): the
         fleet has exactly one owner for every bucket. Returns it."""
         def agree():
-            a, b = self.fleet_map(0), self.fleet_map(1)
-            return a if a.to_dict() == b.to_dict() else None
+            maps = [self.fleet_map(i) for i in range(self.n)]
+            return (maps[0] if all(m.to_dict() == maps[0].to_dict()
+                                   for m in maps) else None)
 
-        return _fleet_wait(agree, 30.0, f"{what}: one map on both members")
+        return _fleet_wait(agree, 30.0, f"{what}: one map on every member")
 
     def metric(self, i: int, name: str) -> float:
         """Sum of a family's samples on member ``i``'s /metrics."""
@@ -11263,13 +11307,13 @@ class FleetLoad:
 
     @staticmethod
     def _counters(pair) -> dict:
-        blocks = [pair.fleet(i) for i in range(2)]
+        blocks = [pair.fleet(i) for i in range(pair.n)]
         out = {k: sum(b[k] for b in blocks)
                for k in ("forwarded_total", "forward_errors_total")}
         for s in ("sum", "count"):
             out[s] = sum(pair.metric(
                 i, f"rate_limiter_fleet_forward_rtt_seconds_{s}")
-                for i in range(2))
+                for i in range(pair.n))
         return out
 
     def run(self, pair, mode: str, *, seconds: float = FLEET_RUN_S,
@@ -11285,28 +11329,32 @@ class FleetLoad:
         import os
 
         rng = np.random.default_rng(seed)
+        n = pair.n
         own = [_fleet_owned(pair.map, rng, h, pool, span=1 << 62)
-               for h in range(2)]
-        for h in range(2):
+               for h in range(n)]
+        for h in range(n):
+            # Mixed: each member's own ids and the next member's (about
+            # half forwarded).
             ids = (own[h] if mode == "affine" else
-                   rng.permutation(np.concatenate([own[h], own[1 - h]])))
+                   rng.permutation(np.concatenate([own[h],
+                                                   own[(h + 1) % n]])))
             path = os.path.join(self.tmp, f"pool-{mode}-{h}.npy")
             np.save(path, ids)
             self._send(h, json.dumps({
                 "port": pair.ports[h], "pool": path, "seconds": seconds,
                 "warmup": warmup, "conns": conns, "depth": depth,
                 "frame": frame, "seed": seed * 100 + h}))
-        for h in range(2):
+        for h in range(n):
             if self._expect(h, 120.0) != "connected":
                 raise AssertionError("fleet (b): a load process did not "
                                      "connect")
         t_go = time.monotonic() + 0.05
-        for h in range(2):
+        for h in range(n):
             self._send(h, f"go {t_go!r}")
         time.sleep(max(0.0, t_go + warmup - time.monotonic()))
         c0 = self._counters(pair)
         res = [json.loads(self._expect(h, warmup + seconds + 120.0))
-               for h in range(2)]
+               for h in range(n)]
         c1 = self._counters(pair)
         rows = sum(r["counted"] for r in res)
         lat = np.sort(np.concatenate([np.asarray(r["lats"], dtype=float)
@@ -11812,6 +11860,871 @@ def run_fleet(torch, seed: int = 0) -> dict:
     return {"windowed": [win], "bucket": [tb], "out": out}
 
 
+# ----------------------------------------------------------- phase control
+#
+# The fleet's control plane (fleet/tower.py, placement/) on the
+# deployment of the repo's rebalance and observability benchmarks: three
+# config-3 members of one 48-bucket map (benchmarks/rebalance.py:106-112)
+# behind phase fleet's batcher and fleet flags (benchmarks/fleet.py:98-108),
+# with the control flags of benchmarks/rebalance.py:61-75 (the
+# rebalance token, the debug trace, ``--rebalance`` at a 300-s interval so
+# that only the operator's ``apply`` runs a cycle, heartbeat 0.3 s, dead
+# after 2 s, a snapshot directory each) and observability on as
+# benchmarks/obs.py:42-44. h0 and h2 serve the asyncio door, h1 the native
+# door; every gateway listens on the port the map declares, which the
+# tower needs to reach its peers.
+
+CONTROL_TOKEN = "control-rebalance-token"
+CONTROL_DEBUG = "control-debug-token"
+CONTROL_BUCKETS = 48
+CONTROL_NATIVE = (False, True, False)
+#: Without the shadow auditor (the CPU tests' members: the auditor's SLO
+#: burn on a shared CPU's latencies vetoes every move).
+CONTROL_BASE = (*FLEET_FLAGS, "--fleet-dead-after", "2.0",
+                "--http-rebalance-token", CONTROL_TOKEN, "--debug-trace",
+                "--rebalance", "--rebalance-interval", "300",
+                "--flight-recorder", "--hh-slots", "64", "--debug-token",
+                CONTROL_DEBUG)
+CONTROL_FLAGS = (*CONTROL_BASE, "--audit", "--audit-sample", "64")
+#: (c)'s hotspot (benchmarks/rebalance.py:126): one probe key a bucket of
+#: h0's range, each spent CONTROL_SPEND of LIMIT.
+CONTROL_SPEND = 60
+#: (b)'s load: FleetLoad's mixed run over the three members, 1 s measured.
+#: Cut from phase fleet's load: 2 connections a member with 4 frames of
+#: 512 ids in flight, a pool of 4096 ids a member.
+CONTROL_LOAD = {"seconds": 1.0, "warmup": 0.2, "frame": 512, "conns": 2,
+                "depth": 4, "pool": 4096}
+#: The five metric families of the placement controller.
+PLACEMENT_FAMILIES = ("rate_limiter_placement_imbalance",
+                      "rate_limiter_placement_pace",
+                      "rate_limiter_placement_plans_total",
+                      "rate_limiter_placement_moves_total",
+                      "rate_limiter_placement_vetoes_total")
+
+
+class _ControlHost:
+    """One in-process fleet member of (a): a limiter on ``device`` under
+    persistence (its snapshot directory in ``tmp``), the routing core
+    with a load slab on the manual ``mono`` clock, the forwarder and the
+    membership, whose frames (announces, handoffs) are delivered to the
+    other members by direct calls; moves restore on ``device``."""
+
+    def __init__(self, name: str, fmap, cfg, clock, mono, tmp: str,
+                 hosts: dict, device: str):
+        import os
+
+        from ratelimiter_tpu_torch import create_limiter
+        from ratelimiter_tpu_torch.core.config import PersistenceSpec
+        from ratelimiter_tpu_torch.fleet import (
+            FleetCore,
+            FleetForwarder,
+            FleetMembership,
+            build_standby,
+        )
+        from ratelimiter_tpu_torch.observability.metrics import Registry
+        from ratelimiter_tpu_torch.persistence import PersistenceManager
+        from ratelimiter_tpu_torch.placement import LoadSlab
+
+        self.name, self.cfg, self.hosts = name, cfg, hosts
+        self.dir = os.path.join(tmp, name)
+        self.persist = PersistenceManager(PersistenceSpec(
+            dir=self.dir, snapshot_interval=3600.0), registry=Registry())
+        self.limiter = self.persist.wrap(create_limiter(
+            cfg, clock=clock, device=device))
+        self.core = FleetCore(fmap, name, prefix=cfg.prefix,
+                              registry=Registry())
+        self.core.load_slab = LoadSlab(fmap.buckets, ewma_halflife_s=1.0,
+                                       min_drain_s=0.05,
+                                       clock=lambda: mono[0])
+        self.fwd = FleetForwarder(self.limiter, self.core)
+        self.persist.attach([self.limiter])
+        self.persist.recover()
+
+        def restore(payload):
+            if not payload.get("snapshot_dir"):
+                return None
+            return build_standby(cfg, payload["snapshot_dir"],
+                                 origin=payload.get("origin"), clock=clock,
+                                 device=device)
+
+        self.membership = FleetMembership(
+            self.core, heartbeat=0.1, dead_after=0.5,
+            adopt_fn=lambda dead: create_limiter(cfg, clock=clock,
+                                                 device=device),
+            snapshot_fn=self.persist.snapshot_now,
+            handoff_restore_fn=restore,
+            on_adopt=lambda o, u, r: self.persist.add_aux_unit(o, u, r),
+            on_release=self.persist.remove_aux_unit, registry=Registry())
+        self.membership._push_frame = self._push
+
+    def _push(self, host, payload) -> None:
+        peer = self.hosts[host.id]
+        if payload.get("kind") == "handoff":
+            peer.membership._handle_handoff(payload)
+        else:
+            peer.membership.handle_announce(payload)
+
+    def close(self) -> None:
+        self.fwd.close()
+        self.persist.stop(final_snapshot=False)
+        self.limiter.close()
+        if self.core.adopted_unit is not None:
+            self.core.adopted_unit.close()
+
+
+def control_hosts(cfg, clock, mono, tmp: str, device: str) -> dict:
+    """(a)'s three members h0-h2 of one 48-bucket affine map."""
+    import os
+
+    from ratelimiter_tpu_torch.fleet import affine_map
+
+    names = [f"h{i}" for i in range(3)]
+    fmap = affine_map([("127.0.0.1", i + 1) for i in range(3)],
+                      buckets=CONTROL_BUCKETS,
+                      snapshot_dirs=[os.path.join(tmp, n) for n in names])
+    hosts: dict = {}
+    for n in names:
+        hosts[n] = _ControlHost(n, fmap, cfg, clock, mono, tmp, hosts, device)
+    return hosts
+
+
+def control_controllers(hosts: dict, mono, move_wait: float = 30.0,
+                        **kw) -> dict:
+    """A RebalanceController for each in-process member (a 600-s
+    residency, the manual ``mono`` clock, ``move_wait`` seconds for a
+    move's flip); a peer's load comes from its slab's snapshot, the
+    /healthz placement block the tower fetches."""
+    from ratelimiter_tpu_torch.placement import (
+        PlannerKnobs,
+        RebalanceController,
+    )
+
+    def fetch(me):
+        return lambda: {n: {"placement": h.core.load_slab.snapshot()}
+                        for n, h in hosts.items() if n != me}
+
+    knobs = kw.pop("knobs", None) or PlannerKnobs(min_residency_s=600.0)
+    return {n: RebalanceController(
+        h.core, h.membership, h.core.load_slab, interval=999.0,
+        knobs=knobs, move_wait=move_wait, fetch_peer_health=fetch(n),
+        clock=lambda: mono[0], **kw) for n, h in hosts.items()}
+
+
+def seed_hotspot(hosts: dict, mono, owner: str, buckets, n: int = 400):
+    """``n`` decisions noted on each of ``buckets`` at ``owner``'s slab,
+    then one step of the manual clock and a drain of every slab: every
+    later gather sees one fixed load vector."""
+    slab = hosts[owner].core.load_slab
+    for b in buckets:
+        slab.note(np.full(n, b, dtype=np.int64), np.ones(n, dtype=bool))
+    mono[0] += 2.0
+    for h in hosts.values():
+        h.core.load_slab.snapshot()
+
+
+def _control_send(host, rep, rows, ns, what: str, label: str):
+    """One frame of ``rows`` (string keys, or raw u64 ids) through
+    ``host``'s forwarder, every row owned there, held row for row
+    against ``rep``, the CPU replay of the unit that decides them."""
+    ids = isinstance(rows, np.ndarray)
+    got = (host.fwd.allow_ids(rows, ns) if ids
+           else host.fwd.allow_batch(rows, ns.tolist()))
+    want = (rep.allow_ids(rows, ns) if ids
+            else rep.allow_batch(rows, ns.tolist()))
+    for f in _HELD:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"control (a) {label}: {what}: the {f} "
+                                 f"column differs from the CPU replay")
+
+
+def _control_same_state(a, b, what: str) -> None:
+    got, want = a.capture_state()[1], b.capture_state()[1]
+    for k in want:
+        if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+            raise AssertionError(f"control (a): {what}: {k} differs from "
+                                 f"its CPU replay")
+
+
+def check_control_inprocess(torch, label: str, cfg, seed: int,
+                            device: str = "cuda", size: int = 256,
+                            advance: float = 1.0, spend=None) -> dict:
+    """(a) Three in-process members with limiters on ``device`` and a
+    RebalanceController each, one manual clock. Frames of each member's
+    own keys and ids, and probe keys of every bucket of h0's range spent
+    ``spend`` of the limit, each held against a CPU replay of its owner;
+    a hotspot seeded on h0's slab; every member's ``dry_run`` gives one
+    plan id; ``run_cycle`` on h1 (no move of its own), then on the donor
+    h0. After the moves every member serves one map at the next epochs,
+    each receiver's adopted unit lives on ``device`` and equals
+    ``build_standby`` on the CPU from h0's snapshot directory, and
+    frames of fresh and probe keys of each moved range through its
+    receiver, then of each member's own ranges, equal their replays (the
+    launch counts set to 0 before the moves and read after the moved
+    ranges' frames: the receivers launched front, admission and update).
+    The plan and its moves are journaled under one correlation id."""
+    import tempfile
+
+    from ratelimiter_tpu_torch import create_limiter
+    from ratelimiter_tpu_torch.core.clock import ManualClock
+    from ratelimiter_tpu_torch.fleet import build_standby
+    from ratelimiter_tpu_torch.observability import events
+
+    mod, names = _mesh_counters(cfg)
+    spend = spend if spend is not None else (cfg.limit * 3) // 5
+    clock, mono = ManualClock(T0), [100.0]
+    rng = np.random.default_rng(seed)
+    t = time.perf_counter()
+    cuda = device.startswith("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        hosts = control_hosts(cfg, clock, mono, tmp, device)
+        ctls = control_controllers(hosts, mono)
+        reps = {n: create_limiter(cfg, clock=clock, device="cpu")
+                for n in hosts}
+        moved_reps = []
+        events.enable(capacity=1024)
+        try:
+            fmap = hosts["h0"].core.map
+            owned = {n: [tuple(r) for r in fmap.host(n).ranges]
+                     for n in hosts}
+            # One probe key a bucket of h0's range.
+            probe = {}
+            for k in _fleet_keys(fmap, cfg.prefix, "probe", 4096,
+                                 owned["h0"]):
+                b = int(fmap.bucket_of_hash(hosts["h0"].core.hash_keys(
+                    [k]))[0])
+                probe.setdefault(b, k)
+                if len(probe) == CONTROL_BUCKETS // 3:
+                    break
+            mod.reset_launch_counts()
+            for n, h in hosts.items():
+                keys = _fleet_keys(fmap, cfg.prefix, f"own{n}", size,
+                                   owned[n])
+                _control_send(h, reps[n], keys, rng.integers(
+                    1, 3, size).astype(np.int64), f"{n}'s keys", label)
+                ids = _fleet_owned(fmap, rng, int(n[1:]), size)
+                _control_send(h, reps[n], ids, rng.integers(
+                    1, 3, size).astype(np.int64), f"{n}'s ids", label)
+                clock.advance(advance)
+            rows = [k for k in probe.values() for _ in range(spend)]
+            _control_send(hosts["h0"], reps["h0"], rows,
+                          np.ones(len(rows), dtype=np.int64), "the spend",
+                          label)
+            before = mod.launch_counts()
+            seed_hotspot(hosts, mono, "h0", range(*owned["h0"][0]))
+            plans = {n: c.dry_run() for n, c in ctls.items()}
+            ids_ = {p["plan"]["plan_id"] for p in plans.values()}
+            plan = plans["h0"]["plan"]
+            if len(ids_) != 1 or not plan["moves"]:
+                raise AssertionError(f"control (a) {label}: the members "
+                                     f"planned {ids_}: {plan}")
+            mod.reset_launch_counts()
+            if ctls["h1"].run_cycle()["executed"] != 0:
+                raise AssertionError(f"control (a) {label}: h1 executed a "
+                                     f"move it does not donate")
+            out = ctls["h0"].run_cycle()
+            done = out["plan"]["moves"][:out["executed"]]
+            if not done or out["plan"]["plan_id"] != plan["plan_id"]:
+                raise AssertionError(f"control (a) {label}: {out}")
+            maps = [h.core.map.to_dict() for h in hosts.values()]
+            if any(m != maps[0] for m in maps) or \
+                    maps[0]["epoch"] != fmap.epoch + len(done):
+                raise AssertionError(f"control (a) {label}: maps after the "
+                                     f"moves: {maps}")
+            new_map = hosts["h0"].core.map
+            for mv in done:
+                rcv = hosts[mv["to"]]
+                unit = rcv.core.adopted_unit
+                if unit is None or not str(unit.device).startswith(
+                        device.split(":")[0]):
+                    raise AssertionError(f"control (a) {label}: {mv['to']}"
+                                         f"'s adopted unit: {unit}")
+                rep = build_standby(cfg, hosts["h0"].dir, clock=clock,
+                                    device="cpu")
+                moved_reps.append(rep)
+                _control_same_state(unit, rep, f"{mv['to']}'s adopted unit")
+                lo, hi = mv["range"]
+                keys = (_fleet_keys(new_map, cfg.prefix, f"fresh{lo}", 32,
+                                    [(lo, hi)])
+                        + [k for b, k in probe.items() if lo <= b < hi])
+                keys = [keys[j] for j in rng.permutation(len(keys))]
+                for _ in range(2):
+                    _control_send(rcv, rep, keys, np.ones(
+                        len(keys), dtype=np.int64),
+                        f"the moved range {lo}:{hi} at {mv['to']}", label)
+                    clock.advance(advance)
+                _control_same_state(unit, rep, f"{mv['to']}'s adopted "
+                                    f"unit after the frames")
+            moved = mod.launch_counts()
+            for n in names if cuda else ():
+                if not moved.get(n):
+                    raise AssertionError(f"control (a) {label}: the "
+                                         f"receivers launched no {n}: "
+                                         f"{moved}")
+            mod.reset_launch_counts()
+            for n, h in hosts.items():
+                # The buckets this member still decides on its own unit.
+                mine = [(b, b + 1) for lo, hi in owned[n]
+                        for b in range(lo, hi)
+                        if new_map.owner_table[b] == new_map.ordinal(n)]
+                keys = _fleet_keys(new_map, cfg.prefix, f"after{n}", size,
+                                   mine)
+                _control_send(h, reps[n], keys, rng.integers(
+                    1, 3, size).astype(np.int64), f"{n}'s own range after "
+                    f"the moves", label)
+                clock.advance(advance)
+            after = mod.launch_counts()
+            for n, h in hosts.items():
+                _control_same_state(h.limiter, reps[n], f"{n}'s own unit")
+            # One journal for the three members here: a plan event for
+            # each member's cycle, a move for each executed move, all
+            # under the plan's one correlation id.
+            evs = events.get().tail(category="placement")["events"]
+            corr = {e["corr"] for e in evs if e["action"] in ("plan",
+                                                             "move")}
+            n_move = sum(e["action"] == "move" for e in evs)
+            if n_move != len(done) or corr != {plan["plan_id"]}:
+                raise AssertionError(f"control (a) {label}: the journal: "
+                                     f"{evs}")
+            st = ctls["h0"].status()
+            if st["moves_ok"] != len(done) or st["moves_failed"]:
+                raise AssertionError(f"control (a) {label}: {st}")
+            counts = {k: before.get(k, 0) + moved.get(k, 0)
+                      + after.get(k, 0)
+                      for k in set(before) | set(moved) | set(after)}
+            return {"counts": counts, "moved_counts": moved,
+                    "plan_id": plan["plan_id"], "moves": done,
+                    "imbalance_before": plan["imbalance_before"],
+                    "imbalance_projected": out["plan"][
+                        "imbalance_projected"],
+                    "epoch": maps[0]["epoch"],
+                    "wall_s": time.perf_counter() - t}
+        finally:
+            events.disable()
+            for r in (*reps.values(), *moved_reps):
+                r.close()
+            for h in hosts.values():
+                h.close()
+
+
+def _rebalance_verb(pair, i: int, action: str, token=CONTROL_TOKEN):
+    """The placement controller's operator verb on member ``i``: GET
+    /v1/fleet/rebalance (``status``) or POST ``?action=``; (status,
+    body)."""
+    if action == "status":
+        st, _, body = http_call(pair.srv[i].http, "GET",
+                                "/v1/fleet/rebalance", token)
+    else:
+        st, _, body = http_call(pair.srv[i].http, "POST",
+                                f"/v1/fleet/rebalance?action={action}",
+                                token)
+    return st, body
+
+
+def _dry_runs(pair) -> list:
+    """Every member's dry-run at once (a member's load slab drains at
+    most every 0.25 s, so members asked together read one load view),
+    after a /healthz that drains h0's slab first."""
+    pair.health(0)
+    got = [None] * pair.n
+
+    def one(i):
+        got[i] = _rebalance_verb(pair, i, "dry-run")
+
+    th = [threading.Thread(target=one, args=(i,)) for i in range(pair.n)]
+    for x in th:
+        x.start()
+    for x in th:
+        x.join()
+    return got
+
+
+class _ErrDriver:
+    """A ``FleetClient`` deciding one key of 200 every 5 ms on a thread,
+    counting its decisions and the errors it sees (not denials), as
+    ``benchmarks/rebalance.py`` ``_ErrDriver`` runs beside the move."""
+
+    def __init__(self, pair):
+        from ratelimiter_tpu_torch.serving.client import FleetClient
+
+        self.fc = FleetClient(seed=("127.0.0.1", pair.ports[0]),
+                              prefix=pair.member_cfg.prefix, timeout=60.0)
+        self.decisions, self.errors = 0, []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def _run(self) -> None:
+        i = 0
+        while not self._stop.is_set():
+            i += 1
+            try:
+                self.fc.allow_n(f"bg:{i % 200}", 1)
+                self.decisions += 1
+            except Exception as exc:  # noqa: BLE001 — the reading
+                self.errors.append(repr(exc))
+            time.sleep(0.005)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._th.join(timeout=60)
+        self.fc.close()
+
+
+def check_control_rebalance(pair, seed: int) -> dict:
+    """(c) The rebalance (``benchmarks/rebalance.py:126-310``) on the
+    three members: its route refused without its token on both doors;
+    one probe key a bucket of h0's range spent CONTROL_SPEND of the
+    limit, and one more key a bucket spent past it; dry-run on every
+    member at once until a plan has moves, each member's plan id the
+    same and the imbalance at the trigger or above; ``apply`` on h0
+    while a ``FleetClient`` driver runs. Then: no client error; every
+    member serves one map, one epoch further for each executed move;
+    the projected imbalance at the target or below; a frame of fresh and
+    spent keys of each moved range through every member equals, row for
+    row, a CPU replay of the receiver's adopted unit (``build_standby``
+    on the CPU from h0's snapshot directory); every probe key admits
+    exactly ``LIMIT - CONTROL_SPEND`` more at its owner now; the journal
+    (``/debug/events?fleet=1``) holds one plan and a move for each
+    executed move under one correlation id, the plan id; h0's /metrics
+    shows the five placement families and /healthz the controller;
+    ``abort`` holds and ``apply`` runs the next cycle. All of it inside
+    one window of the sliding window from the first spend."""
+    from ratelimiter_tpu_torch.ops.hashing import hash_prefixed_u64
+    from ratelimiter_tpu_torch.serving import Client
+    from ratelimiter_tpu_torch.serving.client import FleetClient
+
+    cfg, limit = pair.member_cfg, pair.cfg.limit
+    out = {}
+    for i in range(pair.n):
+        gated(pair.srv[i].http, "GET", "/v1/fleet/rebalance",
+              CONTROL_TOKEN, f"control (c) h{i}'s rebalance route")
+    st, body = _rebalance_verb(pair, 0, "status")
+    if st != 200 or not body.get("auto") or body.get("held"):
+        raise AssertionError(f"control (c): status {st} {body}")
+    fmap = pair.one_owner("control (c)")
+    epoch0 = fmap.epoch
+    lo0, hi0 = fmap.host("h0").ranges[0]
+    probe, spent = {}, {}
+    for j in range(1 << 16):
+        for tag, into in (("rb", probe), ("sp", spent)):
+            k = f"{tag}:{j}"
+            b = int(hash_prefixed_u64([k], cfg.prefix)[0] % fmap.buckets)
+            if lo0 <= b < hi0:
+                into.setdefault(b, k)
+        if len(probe) == len(spent) == hi0 - lo0:
+            break
+    # h0 serves its own traffic first, until its observatory clears a
+    # move: a member fresh from boot has too few audit samples for the
+    # false-deny bound (the Wilson upper bound of 0 in n is above 0.05
+    # up to n = 73) and too few device spans to carry a slow first one.
+    # A round: four connections each send 25 frames of 32 keys of 128
+    # fresh ones, so that every key stays at 25 of its limit (keys
+    # hammered past their limit gathered false denies against the
+    # auditor's exact oracle, and the false-deny bound then vetoed).
+    conns = [Client(port=pair.ports[0], timeout=60.0) for _ in range(4)]
+
+    def warm_round(j, pool):
+        for _ in range(25):
+            conns[j].allow_batch(pool[32 * j:32 * j + 32])
+
+    t = time.monotonic()
+    warm = 0
+    try:
+        while True:
+            pool = _fleet_keys(fmap, cfg.prefix, f"warm{warm}", 128,
+                               [(lo0, hi0)])
+            th = [threading.Thread(target=warm_round, args=(j, pool))
+                  for j in range(4)]
+            for x in th:
+                x.start()
+            for x in th:
+                x.join()
+            warm += 100
+            sig = _rebalance_verb(pair, 0, "dry-run")[1].get(
+                "signals") or {}
+            if sig and not sig["vetoed"]:
+                break
+            if time.monotonic() - t > 60.0:
+                raise AssertionError(f"control (c): h0's observatory "
+                                     f"still vetoes after {warm} frames: "
+                                     f"{sig}")
+    finally:
+        for c in conns:
+            c.close()
+    out["warm_frames"], out["warm_s"] = warm, time.monotonic() - t
+    out["signals_before"] = sig
+    t0 = time.monotonic()
+    c0 = Client(port=pair.ports[0], timeout=60.0)
+    try:
+        keys = [probe[b] for b in sorted(probe)]
+        for _ in range(CONTROL_SPEND):
+            if not all(r.allowed for r in c0.allow_batch(keys)):
+                raise AssertionError("control (c): a probe key was denied "
+                                     "inside its spend")
+        for k in spent.values():
+            if c0.allow_batch([k] * (limit + 1))[-1].allowed:
+                raise AssertionError("control (c): a key allowed past its "
+                                     "limit")
+    finally:
+        c0.close()
+    out["spend_s"] = time.monotonic() - t0
+    t = time.monotonic()
+    plan = None
+    while plan is None:
+        got = _dry_runs(pair)
+        if all(s == 200 and b.get("ok") for s, b in got):
+            ids = {b["plan"]["plan_id"] for _, b in got}
+            if len(ids) == 1 and got[0][1]["plan"]["moves"]:
+                plan = got[0][1]["plan"]
+                break
+        if time.monotonic() - t > 30.0:
+            raise AssertionError(f"control (c): no plan every member "
+                                 f"agrees on in 30 s: {got}")
+        time.sleep(0.3)
+    out["settle_s"] = time.monotonic() - t
+    out["imbalance_before"] = plan["imbalance_before"]
+    trigger = plan["knobs"]["trigger_ratio"]
+    if plan["imbalance_before"] < trigger:
+        raise AssertionError(f"control (c): planned below the trigger: "
+                             f"{plan}")
+    driver = _ErrDriver(pair)
+    try:
+        time.sleep(0.3)
+        t = time.monotonic()
+        st, applied = _rebalance_verb(pair, 0, "apply")
+        out["apply_s"] = time.monotonic() - t
+        time.sleep(0.3)
+    finally:
+        driver.stop()
+    if st != 200 or not applied.get("ok") or not applied.get("executed"):
+        raise AssertionError(f"control (c): apply {st} {applied}")
+    done = applied["plan"]["moves"][:applied["executed"]]
+    out.update(plan_id=applied["plan"]["plan_id"], moves=done,
+               planned_moves=len(applied["plan"]["moves"]),
+               imbalance_projected=applied["plan"]["imbalance_projected"],
+               driver_decisions=driver.decisions,
+               client_errors=len(driver.errors))
+    if driver.errors:
+        raise AssertionError(f"control (c): the driver saw "
+                             f"{len(driver.errors)} errors, the first "
+                             f"{driver.errors[0]}")
+    # apply plans anew (the load view has decayed since the dry runs,
+    # so its plan id is another): its moves are what executed.
+    out["dry_run_plan_id"] = plan["plan_id"]
+    if out["imbalance_projected"] > applied["plan"]["knobs"]["target_ratio"]:
+        raise AssertionError(f"control (c): projected imbalance "
+                             f"{out['imbalance_projected']}")
+    after = pair.one_owner("control (c) after the moves")
+    if after.epoch != epoch0 + len(done):
+        raise AssertionError(f"control (c): epoch {epoch0} -> "
+                             f"{after.epoch} for {len(done)} moves")
+    for mv in done:
+        if not after.assigns([tuple(mv["range"])], mv["to"]):
+            raise AssertionError(f"control (c): {mv} did not land")
+    # The receivers' adopted units, replayed on the CPU from h0's
+    # snapshot directory, hold each moved range row for row.
+    held = 0
+    for mv in done:
+        lo, hi = mv["range"]
+        to = int(mv["to"][1:])
+        pair.adopt(to, _standby(pair, pair.dirs[0]), [(lo, hi)])
+        pair.release(0, [(lo, hi)])
+        rep = pair.adopted[to]
+        sp = [k for b, k in spent.items() if lo <= b < hi]
+        fresh = _fleet_keys(after, cfg.prefix, f"fresh{lo}", 24, [(lo, hi)])
+        rng = np.random.default_rng(seed + lo)
+        rows = [(fresh + sp)[j] for j in rng.permutation(len(fresh + sp))]
+        for i in range(pair.n):
+            allowed = _held(pair, i, rows, rep, f"control (c) {lo}:{hi} "
+                            f"through h{i}")
+            if allowed[[r in sp for r in rows]].any():
+                raise AssertionError("control (c): a spent key was allowed")
+            held += len(rows)
+    out["held_rows"] = held
+    # The admission oracle: exactly LIMIT - CONTROL_SPEND more a probe
+    # key, wherever it lives now.
+    fc = FleetClient(seed=("127.0.0.1", pair.ports[2]), prefix=cfg.prefix,
+                     timeout=60.0)
+    exact = over = under = 0
+    try:
+        for k in probe.values():
+            more = sum(fc.allow_n(k, 1).allowed
+                       for _ in range(limit - CONTROL_SPEND + 5))
+            exact += more == limit - CONTROL_SPEND
+            over += more > limit - CONTROL_SPEND
+            under += more < limit - CONTROL_SPEND
+    finally:
+        fc.close()
+    out["oracle"] = {"keys": len(probe), "exact": exact,
+                     "over_admitted_keys": over,
+                     "under_admitted_keys": under,
+                     "moved_buckets": sum(hi - lo for lo, hi in
+                                          (mv["range"] for mv in done))}
+    if exact != len(probe):
+        raise AssertionError(f"control (c): the admission oracle: "
+                             f"{out['oracle']}")
+    st, _, evs = http_call(pair.srv[2].http, "GET",
+                           "/debug/events?fleet=1&category=placement"
+                           "&limit=256", CONTROL_DEBUG)
+    plans = [e for e in evs["events"] if e["action"] == "plan"]
+    moves = [e for e in evs["events"] if e["action"] == "move"]
+    corr = {e["corr"] for e in plans + moves}
+    out["journal"] = {"plan_events": len(plans), "move_events": len(moves),
+                      "corr": sorted(corr)}
+    if st != 200 or len(plans) != 1 or len(moves) != len(done) or \
+            corr != {out["plan_id"]} or plans[0]["host"] != "h0":
+        raise AssertionError(f"control (c): the journal: {out['journal']}")
+    text = http_call(pair.srv[0].http, "GET", "/metrics")[2]
+    missing = [f for f in PLACEMENT_FAMILIES if f"# TYPE {f}" not in text]
+    rebal = (pair.health(0).get("placement") or {}).get("rebalance") or {}
+    if missing or rebal.get("moves_ok") != len(done):
+        raise AssertionError(f"control (c): families missing {missing}, "
+                             f"placement.rebalance {rebal}")
+    st, after_plan = _rebalance_verb(pair, 0, "dry-run")
+    out["imbalance_after"] = (after_plan.get("plan") or {}).get(
+        "imbalance_before")
+    st, body = _rebalance_verb(pair, 0, "abort")
+    if st != 200 or not body.get("held") or \
+            not _rebalance_verb(pair, 0, "status")[1].get("held"):
+        raise AssertionError(f"control (c): abort {st} {body}")
+    st, body = _rebalance_verb(pair, 0, "apply")
+    if st != 200 or body.get("state") == "held" or "plan" not in body or \
+            _rebalance_verb(pair, 0, "status")[1].get("held"):
+        raise AssertionError(f"control (c): apply after abort {st} {body}")
+    out["window_s"] = time.monotonic() - t0
+    # The spends' sub-window stays whole in the sliding window for the
+    # window less one sub-window: the exact oracle means nothing past it
+    # (a sub-window of margin at each end).
+    win = cfg.window
+    if out["window_s"] >= win - 2 * win / cfg.sketch.sub_windows:
+        raise AssertionError(f"control (c) took {out['window_s']:.1f} s, "
+                             f"past one window")
+    log(f"control (c): imbalance {out['imbalance_before']} -> "
+        f"{out['imbalance_after']} (projected "
+        f"{out['imbalance_projected']}), {len(done)} moves in "
+        f"{out['apply_s']:.3f} s, settle {out['settle_s']:.3f} s, driver "
+        f"{out['driver_decisions']} decisions 0 errors, oracle exact "
+        f"{exact}/{len(probe)}, {held} rows held, {out['window_s']:.1f} s "
+        f"from the first spend")
+    return out
+
+
+def _timed_get(port: int, path: str, token=None, n: int = 8):
+    """``n`` GETs of ``path``: (the last body, p50 ms, max ms)."""
+    ms = []
+    for _ in range(n):
+        t = time.perf_counter()
+        st, _, body = http_call(port, "GET", path, token)
+        ms.append((time.perf_counter() - t) * 1e3)
+        if st != 200:
+            raise AssertionError(f"control (b): GET {path}: {st} {body}")
+    ms.sort()
+    return body, ms[len(ms) // 2], ms[-1]
+
+
+_ROLLUP_BLOCKS = ("audit", "consumers", "slo", "hierarchy")
+
+
+def _stable_health(pair) -> None:
+    """Until two reads in a row of every member's /healthz agree on the
+    audit and consumer blocks (the auditors have drained)."""
+    def read():
+        return [{k: pair.health(i).get(k) for k in ("audit", "consumers")}
+                for i in range(pair.n)]
+
+    prev = read()
+    for _ in range(40):
+        time.sleep(0.25)
+        cur = read()
+        if cur == prev:
+            return
+        prev = cur
+    raise AssertionError("control (b): the members' audit blocks never "
+                         "settled")
+
+
+def _rollup_matches(pair, fetch, ref: int, what: str) -> dict:
+    """The audit, consumer, SLO and hierarchy blocks of ``fetch()``'s
+    rollup, which must equal the port's ``merged_status`` over the
+    members' /healthz read right after it (``ref`` first, then the others
+    in map order, as the tower and the offline tool merge them). A
+    member's SLO block samples its counters at most every 0.5 s, so each
+    try waits that out first."""
+    from ratelimiter_tpu_torch.fleet import tower
+
+    def blocks(d):
+        # A window's span_s is the age of the newest sample, which a
+        # read half a second later has moved on: the rest must agree.
+        out = {k: d.get(k) for k in _ROLLUP_BLOCKS}
+        if out["slo"]:
+            out["slo"] = {**out["slo"], "windows": {
+                w: {k: v for k, v in row.items() if k != "span_s"}
+                for w, row in out["slo"]["windows"].items()}}
+        return out
+
+    order = [ref] + [i for i in range(pair.n) if i != ref]
+    for _ in range(4):
+        time.sleep(0.6)
+        got = blocks(fetch())
+        want = blocks(tower.merged_status({f"h{i}": pair.health(i)
+                                           for i in order}))
+        bad = [k for k in _ROLLUP_BLOCKS if got[k] != want[k]]
+        if not bad:
+            return got
+    raise AssertionError(f"control (b): {what}: the {bad} blocks differ "
+                         f"from the merge of the members' /healthz")
+
+
+def _tool(name: str, *args) -> str:
+    repo, env = child_env()
+    r = subprocess.run([sys.executable, "-m",
+                        f"ratelimiter_tpu_torch.tools.{name}", *args],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=120)
+    if r.returncode:
+        raise AssertionError(f"control (b): {name} {args}: {r.returncode} "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    return r.stdout
+
+
+def check_control_tower(pair, load, seed: int) -> dict:
+    """(b) The tower: ``load``'s mixed run over the members, then, once
+    the auditors have drained, ``/v1/fleet/status`` on every member
+    (every member reachable, one epoch) whose audit, consumer, SLO and
+    hierarchy blocks equal the port's ``merged_status`` over the members'
+    own /healthz read right after, as ``fleet_status`` gives them live
+    and ``--offline``; one traced frame to h0 with rows of h0 and h1:
+    ``/debug/trace?fleet=1`` (403 without the debug bearer) shows spans
+    of both under the client's trace id, every member aligned;
+    ``/debug/events?fleet=1`` merges the members' journals, sorted on
+    their aligned time."""
+    from ratelimiter_tpu_torch.observability import tracing
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64
+    from ratelimiter_tpu_torch.serving import Client
+
+    out = {"load": load.run(pair, "mixed", seed=seed, **CONTROL_LOAD)}
+    if out["load"]["forward_errors"]:
+        raise AssertionError(f"control (b): {out['load']}")
+    names = [f"h{i}" for i in range(pair.n)]
+    _stable_health(pair)
+    rollups = []
+    for i in range(pair.n):
+        rollups.append(None)
+
+        def fetch(i=i):
+            rollups[i] = http_call(pair.srv[i].http, "GET",
+                                   "/v1/fleet/status")[2]
+            return rollups[i]
+
+        _rollup_matches(pair, fetch, i, f"h{i}'s /v1/fleet/status")
+        st = rollups[i]
+        if st["reachable"] != pair.n or not st["epoch_converged"]:
+            raise AssertionError(f"control (b): h{i}'s rollup: {st}")
+    if not rollups[0].get("audit", {}).get("samples"):
+        raise AssertionError("control (b): the rollup's audit is empty")
+    base = f"http://127.0.0.1:{pair.srv[0].http}"
+    for mode in ((), ("--offline",)):
+        _rollup_matches(pair, lambda: json.loads(_tool(
+            "fleet_status", base, "--json", *mode)), 0,
+            f"fleet_status {' '.join(mode)}".strip())
+    out["status"] = {k: rollups[0].get(k) for k in
+                     ("members", "reachable", "epoch", "decisions_total")}
+    out["audit_samples"] = rollups[0]["audit"]["samples"]
+    _, out["status_p50_ms"], out["status_max_ms"] = _timed_get(
+        pair.srv[0].http, "/v1/fleet/status")
+    # One traced frame to h0, with rows of h0 and of h1.
+    fmap = pair.one_owner("control (b)")
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1 << 50, (1 << 50) + (1 << 20), 8192).astype(
+        np.uint64)
+    own = fmap.owner_of_hash(splitmix64(ids))
+    ids = np.concatenate([ids[own == 0][:64], ids[own == 1][:64]])
+    if ids.shape[0] < 128:
+        raise AssertionError("control (b): too few ids of h0 and h1")
+    trace_id = tracing.new_trace_id()
+    c = Client(port=pair.ports[0], timeout=60.0)
+    try:
+        c.allow_hashed(ids, trace_id=trace_id)
+    finally:
+        c.close()
+    if http_call(pair.srv[0].http, "GET", "/debug/trace?fleet=1")[0] != 403:
+        raise AssertionError("control (b): the fleet trace without the "
+                             "debug bearer was not refused")
+    merged, out["trace_p50_ms"], out["trace_max_ms"] = _timed_get(
+        pair.srv[0].http, "/debug/trace?fleet=1", CONTROL_DEBUG)
+    hosts = merged["otherData"]["hosts"]
+    spans = [e for e in merged["traceEvents"] if e.get("ph") == "X"]
+    mine = [e for e in spans
+            if e["args"].get("trace_id") == f"{trace_id:016x}"]
+    on = {e["args"]["host"] for e in mine}
+    if set(hosts) != set(names) or not all(
+            h["reachable"] and h["aligned"] for h in hosts.values()) or \
+            not {"h0", "h1"} <= on:
+        raise AssertionError(f"control (b): the stitched trace: hosts "
+                             f"{hosts}, the frame's spans on {on}")
+    out["stitched_spans"] = len(spans)
+    out["traced_frame_spans"] = len(mine)
+    out["traced_frame_stages"] = sorted({e["name"] for e in mine})
+    st, _, evs = http_call(pair.srv[0].http, "GET", "/debug/events?fleet=1",
+                           CONTROL_DEBUG)
+    ts = [e["ts"] for e in evs["events"]]
+    if st != 200 or {e["host"] for e in evs["events"]} != set(names) or \
+            ts != sorted(ts) or not all(
+                h["reachable"] and h["aligned"]
+                for h in evs["hosts"].values()) or \
+            not all("mono_aligned_ns" in e for e in evs["events"]):
+        raise AssertionError(f"control (b): the fleet's events: {st} "
+                             f"{evs.get('hosts')}")
+    out["fleet_events"] = len(evs["events"])
+    log(f"control (b): /v1/fleet/status p50 {out['status_p50_ms']:.2f} ms "
+        f"max {out['status_max_ms']:.2f} ms, /debug/trace?fleet=1 p50 "
+        f"{out['trace_p50_ms']:.2f} ms max {out['trace_max_ms']:.2f} ms, "
+        f"{out['stitched_spans']} spans stitched, the traced frame's "
+        f"{out['traced_frame_spans']} on {sorted(on)}")
+    return out
+
+
+def run_control(torch, seed: int = 0, device: str = "cuda") -> dict:
+    """Phase control: (a) in process, then the three member binaries:
+    (c) the rebalance on members that have decided nothing else, then
+    (b) the tower under load. Raises on any failure; returns (a)'s runs'
+    launch counts (for the kernel rows) and the readings."""
+    import dataclasses
+    import os
+    import tempfile
+
+    t = time.perf_counter()
+    hh = dataclasses.replace(config3_hh(), sketch=dataclasses.replace(
+        config3_hh().sketch, hh_slots=64))
+    win = check_control_inprocess(torch, "windowed CU hh_slots=64", hh,
+                                  seed + 131, device=device)
+    tb = check_control_inprocess(torch, "TB-c2", config2_bucket(),
+                                 seed + 133, device=device,
+                                 advance=C2_ADVANCE)
+    out = {"in_process": {k: {kk: vv for kk, vv in v.items()
+                              if kk != "counts"}
+                          for k, v in (("windowed", win), ("TB-c2", tb))}}
+    log(f"control (a) done at {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        load = FleetLoad(tmp, n=3)
+        try:
+            pair = FleetPair(os.path.join(tmp, "m"), config3(), device,
+                             native=CONTROL_NATIVE, buckets=CONTROL_BUCKETS,
+                             http_ports=True, flags=CONTROL_FLAGS)
+            try:
+                out["boot_s"] = pair.boot_s
+                out["rebalance"] = check_control_rebalance(pair, seed + 135)
+                log(f"control (c) done at {time.perf_counter() - t:.1f} s")
+                out["tower"] = check_control_tower(pair, load, seed + 137)
+                log(f"control (b) done at {time.perf_counter() - t:.1f} s")
+            finally:
+                pair.close()
+        finally:
+            load.close()
+    out["wall_s"] = time.perf_counter() - t
+    return {"windowed": [win], "bucket": [tb], "out": out}
+
+
 def row_launches(name: str, windowed, bucket) -> int:
     """A kernel row's launches over the main paths' runs, the door's,
     phase 5's and the evaluation path's (each counted from 0 just before
@@ -11903,6 +12816,13 @@ def main(argv=None) -> int:
                          "on it: forwarding, kill -9 failover, "
                          "migration, the handoff and slice chaos; one "
                          "JSON line)")
+    ap.add_argument("--control", action="store_true",
+                    help="only build, then run phase control (the "
+                         "fleet's control plane: the rebalance in "
+                         "process on the card, three member binaries "
+                         "on it: the operator's rebalance under a "
+                         "driver, the tower's rollup, stitched trace "
+                         "and merged events; one JSON line)")
     ap.add_argument("--dense", action="store_true",
                     help="only build, then run this slice's parts: the "
                          "dense step's rows, the dense and exact paths, "
@@ -11928,12 +12848,13 @@ def main(argv=None) -> int:
     full = not (args.sweep or args.admit_sweep or args.rows or args.paths
                 or args.dense or args.dense_paths or args.observe
                 or args.gateway or args.door or args.native
-                or args.grpc or args.mesh or args.dcn or args.fleet)
+                or args.grpc or args.mesh or args.dcn or args.fleet
+                or args.control)
     # The native door and the load generator build with g++ beside the
     # nvcc builds.
     host_build = None
     if (full or args.native or args.grpc or args.mesh or args.dcn
-            or args.fleet):
+            or args.fleet or args.control):
         from concurrent.futures import ThreadPoolExecutor
 
         from ratelimiter_tpu_torch import native
@@ -12031,6 +12952,14 @@ def main(argv=None) -> int:
         out = stamp("phase fleet", run_fleet(torch, args.seed))
         check_no_children()
         print(json.dumps({"card": card, "fleet": out["out"], "counts": {
+            k: v[0]["counts"] for k, v in out.items() if k != "out"}},
+            default=lambda o: repr(o)))
+        print(card)
+        return 0
+    if args.control:
+        out = stamp("phase control", run_control(torch, args.seed))
+        check_no_children()
+        print(json.dumps({"card": card, "control": out["out"], "counts": {
             k: v[0]["counts"] for k, v in out.items() if k != "out"}},
             default=lambda o: repr(o)))
         print(card)
@@ -12216,6 +13145,9 @@ def main(argv=None) -> int:
     mesh = stamp("phase mesh", run_mesh(torch, args.seed))
     dcn_phase = stamp("phase dcn", run_dcn(torch, args.seed))
     fleet_phase = stamp("phase fleet", run_fleet(torch, args.seed))
+    control = stamp("phase control", run_control(torch, args.seed))
+    log(json.dumps({"card": card, "control": control["out"]},
+                   default=lambda o: repr(o)))
     live = stamp("live updates", check_live_updates(torch, args.seed))
     watch = stamp("watchdog", check_watchdog(torch))
     durable = stamp("durable door", check_durable_door(
@@ -12249,12 +13181,13 @@ def main(argv=None) -> int:
                      grpc_phase["windowed asyncio"],
                      grpc_phase["windowed native"], grpc_phase["leases"],
                      *mesh["windowed"], *dcn_phase["windowed"],
-                     *fleet_phase["windowed"])
+                     *fleet_phase["windowed"], *control["windowed"])
     bucket_runs = (tb_c2, tb_zipf, tb_tn, door_tb, live["bucket"],
                    *ev_bucket, above["tenants TB-c2"], gateway["TB-c2"],
                    native_door["TB-c2"], grpc_phase["TB-c2 asyncio"],
                    grpc_phase["TB-c2 native"], *mesh["bucket"],
-                   *dcn_phase["bucket"], *fleet_phase["bucket"])
+                   *dcn_phase["bucket"], *fleet_phase["bucket"],
+                   *control["bucket"])
     for name in rows:
         if name.startswith(("dense_step", "dense_front")):
             rows[name]["launches"] = sum(
@@ -12271,11 +13204,16 @@ def main(argv=None) -> int:
                 name, mesh["windowed"], mesh["bucket"])
     rows["route_bins"]["launches"] = mesh["route_bins"]
     rows["route_bins"]["mesh_launches"] = mesh["route_bins"]
-    # Phase fleet's share: both in-process hosts' launches.
+    # Phase fleet's share: both in-process hosts' launches (phase
+    # control's, its three in-process members', below).
     for name in rows:
         if name in KERNEL_ROWS and name != "route_bins":
             rows[name]["fleet_launches"] = row_launches(
                 name, fleet_phase["windowed"], fleet_phase["bucket"])
+    for name in rows:
+        # Phase control drives no mesh or dense path: 0 for those rows.
+        rows[name]["control_launches"] = row_launches(
+            name, control["windowed"], control["bucket"])
     # The side table's update ran as the backs' tail on every path.
     rows["hh_update"]["fused_launches"] = row_launches(
         "hh_update [fused]", windowed_runs, bucket_runs)
@@ -12296,6 +13234,7 @@ def main(argv=None) -> int:
     paths["mesh"] = _mesh_summary(mesh)
     paths["dcn"] = dcn_phase["out"]
     paths["fleet"] = fleet_phase["out"]
+    paths["control"] = control["out"]
     paths["door_dense"] = door_dense
     paths["door_exact"] = door_exact
     paths["dense_durable"] = dense_durable

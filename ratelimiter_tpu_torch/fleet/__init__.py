@@ -17,18 +17,22 @@ them is one limiter:
   newest snapshot and WAL suffix, on the serving limiter's device),
   live migration, departure and rejoin give-back;
 * ``fleet/handoff.py``: standby units restored from a peer's snapshot
-  directory before ownership flips.
+  directory before ownership flips;
+* :class:`~ratelimiter_tpu_torch.fleet.tower.ControlTower`: the
+  fleet-wide rollup (``/v1/fleet/status``), trace stitching and event
+  merge over the members' HTTP gateways (``fleet/tower.py``).
 
 Every member's own rows, forwarded rows and an adopted range decide on
 sketch limiters on the member's device. Client-side routing lives in
-``serving/client.py`` (``FleetClient`` / ``AsyncFleetClient``). The
-control tower and the load-aware planner are not ported yet.
+``serving/client.py`` (``FleetClient`` / ``AsyncFleetClient``); the
+load-aware planner and rebalancer in ``placement/``.
 """
 
 from ratelimiter_tpu_torch.fleet.config import FleetHost, FleetMap, affine_map
 from ratelimiter_tpu_torch.fleet.forwarder import FleetCore, FleetForwarder
 from ratelimiter_tpu_torch.fleet.handoff import build_standby
 from ratelimiter_tpu_torch.fleet.membership import FleetMembership
+from ratelimiter_tpu_torch.fleet.tower import ControlTower
 
 __all__ = [
     "FleetHost",
@@ -37,5 +41,6 @@ __all__ = [
     "FleetCore",
     "FleetForwarder",
     "FleetMembership",
+    "ControlTower",
     "build_standby",
 ]

@@ -137,8 +137,20 @@ ranges back when it returns. ``--http-migrate-token`` opens POST
 before the door drains. ``--chaos-scenario`` (``--chaos-slice``,
 ``--chaos-after``, ``--chaos-seconds``, ``--chaos-seed``) arms the chaos
 harness in the serving process (test and bench only). The JAX binary's
-flags, defaults and refusals; the control tower and the rebalancer are
-not ported yet.
+flags, defaults and refusals.
+
+The fleet's control plane, with ``--http-port`` on a member whose map
+declares each member's ``"http"`` port: ``GET /v1/fleet/status`` merges
+every member's /healthz (``fleet/tower.py``), ``/debug/trace?fleet=1``
+stitches the members' span rings on the membership's clock offsets and
+``/debug/events?fleet=1`` merges their journals (both behind the debug
+token, which is passed through to the peers). ``--rebalance`` runs the
+placement controller (``placement/``) every ``--rebalance-interval``
+seconds: it gathers every member's load, plans with the
+``--rebalance-*`` knobs and moves the ranges this member donates through
+the migration handoff; ``--http-rebalance-token`` opens GET/POST
+/v1/fleet/rebalance (status, dry-run, apply, abort). The JAX binary's
+flags, defaults, refusals and warnings.
 """
 
 from __future__ import annotations
@@ -492,6 +504,41 @@ def build_parser() -> argparse.ArgumentParser:
                          "wire frame (capped at 32768 — the coalesced "
                          "REPLY costs ~24 B/row against the 1 MiB wire "
                          "bound)")
+    # Load-aware placement (placement/): the fleet rebalancing brain.
+    ap.add_argument("--rebalance", action="store_true",
+                    help="run the placement rebalancer: a background "
+                         "loop that merges every member's per-bucket "
+                         "decision load, plans bounded range moves "
+                         "toward max/mean balance (hysteresis + "
+                         "min-residency cooldown, so ranges never "
+                         "flap), and executes its OWN donated moves "
+                         "through the migration handoff — paced "
+                         "AIMD-style and vetoed by SLO burn / "
+                         "false-deny bounds. Needs --fleet-config; "
+                         "every member should run it (each executes "
+                         "only the moves it donates)")
+    ap.add_argument("--rebalance-interval", type=float, default=10.0,
+                    help="seconds between rebalance planning cycles "
+                         "(vetoes and failed moves back the effective "
+                         "interval off multiplicatively)")
+    ap.add_argument("--rebalance-max-moves", type=int, default=2,
+                    help="range moves budgeted per planning cycle")
+    ap.add_argument("--rebalance-trigger", type=float, default=1.4,
+                    help="plan only when fleet max/mean decision-load "
+                         "imbalance reaches this ratio (hysteresis "
+                         "upper band)")
+    ap.add_argument("--rebalance-target", type=float, default=1.15,
+                    help="plan down toward this imbalance ratio "
+                         "(hysteresis lower band; must be below the "
+                         "trigger or the fleet flaps)")
+    ap.add_argument("--rebalance-min-residency", type=float,
+                    default=60.0,
+                    help="seconds a moved bucket is frozen before it "
+                         "may move again (flap prevention)")
+    ap.add_argument("--rebalance-seed", type=int, default=0,
+                    help="planner seed, salted into every plan id "
+                         "(plans are deterministic: same load view -> "
+                         "same plan)")
     ap.add_argument("--grpc-port", type=int, default=None,
                     help="also serve the gRPC contract "
                          "(api/proto/ratelimiter.proto) on this port "
@@ -584,6 +631,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "migration) on the HTTP gateway, gated by this "
                          "bearer token. No token, no endpoint — an "
                          "ownership-move lever is never open")
+    ap.add_argument("--http-rebalance-token", default=None,
+                    help="enable GET/POST /v1/fleet/rebalance (the "
+                         "placement rebalancer's operator surface: "
+                         "status / dry-run / apply / abort) on the HTTP "
+                         "gateway, gated by this bearer token. No "
+                         "token, no endpoint — same posture as "
+                         "/v1/fleet/migrate")
     ap.add_argument("--debug-trace", action="store_true",
                     help="expose GET /debug/trace (Chrome-trace dump of "
                          "the flight recorder's recent spans), "
@@ -666,6 +720,13 @@ def build_config(args: argparse.Namespace) -> Config:
         raise SystemExit("--tenant/--assign need --tenants > 0")
     if args.mesh_devices is not None and args.backend != "mesh":
         raise SystemExit("--mesh-devices needs --backend mesh")
+    if args.rebalance and not args.fleet_config:
+        raise SystemExit("--rebalance needs --fleet-config (the "
+                         "placement brain moves fleet ranges)")
+    if args.rebalance and args.rebalance_target >= args.rebalance_trigger:
+        raise SystemExit("--rebalance-target must be below "
+                         "--rebalance-trigger (the hysteresis band "
+                         "prevents flapping)")
     if args.quarantine and args.backend != "mesh":
         raise SystemExit("--quarantine needs --backend mesh (failure "
                          "domains are per device slice)")
@@ -1230,6 +1291,7 @@ def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
                 **(persist.status() if persist is not None else {})}
 
     reset, policy_set, policy_delete = levers
+    control = make_control_plane(args, fleet, health, auditor, slo_tracker)
     return HttpGateway(
         decide, reset,
         host=args.host, port=args.http_port,
@@ -1253,7 +1315,7 @@ def make_gateway(args: argparse.Namespace, limiter, server, *, decide,
         enable_tenants=bool(args.http_tenants or args.http_tenants_token),
         tenants_token=args.http_tenants_token,
         fleet_migrate=make_fleet_migrate(args, fleet),
-        migrate_token=args.http_migrate_token)
+        migrate_token=args.http_migrate_token, **control)
 
 
 # ------------------------------------------------------------- the fleet
@@ -1364,7 +1426,10 @@ def setup_fleet(args: argparse.Namespace, cfg: Config, limiter, persist):
                     "forwarded frames block the single dispatch "
                     "executor; use --inflight >= 2 for mis-routed "
                     "traffic")
-    return SimpleNamespace(core=core, membership=membership, device=device)
+    # ``rebalance``: the placement controller, built with the gateway
+    # (make_control_plane) when this member runs one.
+    return SimpleNamespace(core=core, membership=membership, device=device,
+                           rebalance=None)
 
 
 def _fleet_health(fleet) -> dict:
@@ -1380,10 +1445,118 @@ def _fleet_health(fleet) -> dict:
 
 
 def _placement_health(fleet) -> dict:
-    """The /healthz placement block: this member's load slab."""
+    """The /healthz placement block: this member's load slab, and the
+    controller's status as ``rebalance`` when the rebalancer runs here."""
     if fleet is None or fleet.core.load_slab is None:
         return {}
-    return {"placement": fleet.core.load_slab.snapshot()}
+    blk = fleet.core.load_slab.snapshot()
+    if fleet.rebalance is not None:
+        blk["rebalance"] = fleet.rebalance.status()
+    return {"placement": blk}
+
+
+def _make_tower(args: argparse.Namespace, fleet, health):
+    """The fleet's control tower: rollup, trace and event fan-out over
+    the peers' declared HTTP gateways, this member's own payloads from
+    ``health`` and the process's recorder and journal. None off a fleet
+    or without a local gateway."""
+    if fleet is None or args.http_port is None:
+        return None
+    from ratelimiter_tpu_torch.fleet.tower import ControlTower
+
+    me = fleet.core.map.host(args.fleet_self)
+    if me.http != args.http_port:
+        logging.getLogger("ratelimiter_tpu_torch.fleet").warning(
+            "fleet map entry %r declares http=%s but this server "
+            "serves HTTP on %s — peers' fleet rollups/trace "
+            "stitching will miss this member until the map's "
+            "\"http\" field matches", args.fleet_self, me.http,
+            args.http_port)
+    return ControlTower(fleet.core, fleet.membership, self_health=health)
+
+
+def _make_rebalance(args: argparse.Namespace, fleet, tower, auditor,
+                    slo_tracker):
+    """The placement controller and its gateway hook, or (None, None):
+    it exists on a fleet member whose operator asked for it (the
+    ``--rebalance`` loop, or ``--http-rebalance-token`` alone for a
+    manual dry-run/apply surface). Peers' load comes through the tower's
+    /healthz fetch; the observatory's SLO burn and false-deny bound veto
+    its moves. Sets ``fleet.rebalance``."""
+    if fleet is None or fleet.core.load_slab is None:
+        return None, None
+    if not (args.rebalance or args.http_rebalance_token):
+        return None, None
+    from ratelimiter_tpu_torch.observability import metrics
+    from ratelimiter_tpu_torch.placement import (
+        PlannerKnobs,
+        RebalanceController,
+    )
+
+    if tower is None and len(fleet.core.map.hosts) > 1:
+        logging.getLogger("ratelimiter_tpu_torch.placement").warning(
+            "rebalance on a multi-member fleet without --http-port: "
+            "peers' load blocks are unreachable, so every cycle "
+            "skips on load-gap (wire an HTTP gateway and declare "
+            "\"http\" ports in the fleet map)")
+    ctl = RebalanceController(
+        fleet.core, fleet.membership, fleet.core.load_slab,
+        interval=args.rebalance_interval,
+        knobs=PlannerKnobs(
+            max_moves=args.rebalance_max_moves,
+            trigger_ratio=args.rebalance_trigger,
+            target_ratio=args.rebalance_target,
+            min_residency_s=args.rebalance_min_residency),
+        seed=args.rebalance_seed,
+        fetch_peer_health=((lambda: tower._fetch_all("/healthz", None))
+                           if tower is not None else None),
+        slo_status=slo_tracker.status if slo_tracker is not None else None,
+        audit_status=auditor.status if auditor is not None else None,
+        registry=metrics.DEFAULT)
+    fleet.rebalance = ctl
+
+    def hook(action: str) -> dict:
+        if action == "status":
+            return {"ok": True, "auto": bool(args.rebalance),
+                    **ctl.status()}
+        if action == "dry-run":
+            return ctl.dry_run()
+        if action == "apply":
+            return ctl.apply()
+        if action == "abort":
+            return ctl.abort()
+        return {"ok": False, "error": f"unknown action {action!r}"}
+
+    return ctl, hook
+
+
+def make_control_plane(args: argparse.Namespace, fleet, health, auditor,
+                       slo_tracker) -> dict:
+    """The gateway's fleet hooks, as the JAX binary wires them on either
+    door: the tower's ``fleet_status``/``fleet_trace``/``fleet_events``
+    and the placement controller's ``fleet_rebalance`` with its token.
+    Every hook is None off a fleet; the controller starts once serving
+    does (``--rebalance``) and stops before the departure."""
+    tower = _make_tower(args, fleet, health)
+    _, rebalance = _make_rebalance(args, fleet, tower, auditor,
+                                   slo_tracker)
+    return {"fleet_status": tower.fleet_status if tower else None,
+            "fleet_trace": tower.fleet_trace if tower else None,
+            "fleet_events": tower.fleet_events if tower else None,
+            "fleet_rebalance": rebalance,
+            "rebalance_token": args.http_rebalance_token}
+
+
+def _start_rebalance(args: argparse.Namespace, fleet) -> None:
+    if fleet is not None and fleet.rebalance is not None and args.rebalance:
+        fleet.rebalance.start()
+
+
+def _stop_rebalance(fleet) -> None:
+    # Before the departure: a mid-shutdown plan must not race the
+    # departure handoff for the same ranges.
+    if fleet is not None and fleet.rebalance is not None:
+        fleet.rebalance.stop()
 
 
 def make_fleet_migrate(args: argparse.Namespace, fleet):
@@ -1724,6 +1897,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
           flush=True)
     if fleet is not None:
         fleet.membership.start()
+    _start_rebalance(args, fleet)
     if start_chaos is not None:
         start_chaos()
     if ready is not None:
@@ -1737,6 +1911,7 @@ async def serve(args: argparse.Namespace, *, make_limiter=None,
     try:
         await stop.wait()
     finally:
+        _stop_rebalance(fleet)
         if controller is not None:
             # Before the departure: a tick against a closing limiter
             # would race the teardown.
@@ -1924,7 +2099,9 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
                                 or args.http_tenants_token),
             tenants_token=args.http_tenants_token,
             fleet_migrate=make_fleet_migrate(args, fleet),
-            migrate_token=args.http_migrate_token)
+            migrate_token=args.http_migrate_token,
+            **make_control_plane(args, fleet, health, auditor,
+                                 slo_tracker))
         gateway.start()
     grpc_srv = None
     if args.grpc_port is not None:
@@ -1956,6 +2133,7 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
           flush=True)
     if fleet is not None:
         fleet.membership.start()
+    _start_rebalance(args, fleet)
     if start_chaos is not None:
         start_chaos()
     if ready is not None:
@@ -1969,6 +2147,7 @@ async def serve_native(args: argparse.Namespace, cfg: Config, limiter,
     try:
         await stop.wait()
     finally:
+        _stop_rebalance(fleet)
         if controller is not None:
             controller.stop()
         await _depart(args, fleet)

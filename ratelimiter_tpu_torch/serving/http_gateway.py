@@ -5,10 +5,11 @@ body and token gate is the JAX gateway's; ``/debug/profile`` captures
 with ``torch.profiler`` (a Chrome trace of the CPU and, with a card, its
 kernels) where the JAX gateway uses ``jax.profiler``. ``POST
 /v1/fleet/migrate`` moves ranges through the fleet membership when the
-binary wires its hook and ``--http-migrate-token``; the placement and
-tower routes (``/v1/fleet/rebalance``, ``/v1/fleet/status`` and
-``?fleet=1`` on the debug routes) answer as the JAX gateway does when
-no hook is wired: the port has no control tower yet (ROADMAP A13d).
+binary wires its hook and ``--http-migrate-token``; ``/v1/fleet/status``
+and ``?fleet=1`` on the debug routes answer through the fleet's control
+tower (``fleet/tower.py``) and ``/v1/fleet/rebalance`` through the
+placement controller (``placement/executor.py``) when the binary wires
+their hooks, and as the JAX gateway does without them.
 Unlike the JAX gateway, its connections set TCP_NODELAY (ROADMAP C12),
 and it listens with a backlog of ``LISTEN_BACKLOG`` where the JAX
 gateway keeps socketserver's 5 (ROADMAP C13: a burst of connects past 5
@@ -162,7 +163,12 @@ class HttpGateway:
                  enable_tenants: bool = False,
                  tenants_token: Optional[str] = None,
                  fleet_migrate: Optional[Callable] = None,
-                 migrate_token: Optional[str] = None):
+                 migrate_token: Optional[str] = None,
+                 fleet_status: Optional[Callable[[], dict]] = None,
+                 fleet_trace: Optional[Callable] = None,
+                 fleet_events: Optional[Callable] = None,
+                 fleet_rebalance: Optional[Callable] = None,
+                 rebalance_token: Optional[str] = None):
         gateway = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -385,24 +391,54 @@ class HttpGateway:
                 out = gateway.fleet_migrate(ranges, to, wait)
                 self._send(200 if out.get("ok") else 504, out)
 
-            def _handle_rebalance(self) -> None:
-                """``/v1/fleet/rebalance``: the JAX gateway exposes it
-                only when the embedding wired the placement controller
-                and its bearer token; the port has no planner yet
-                (ROADMAP A13d), so it answers the unwired 403."""
-                self._send(403, {"error": "rebalancing is not "
-                                 "exposed on this gateway (needs "
-                                 "--http-rebalance-token on a "
-                                 "fleet member)"})
+            def _handle_rebalance(self, q) -> None:
+                """The placement controller's operator surface: GET
+                /v1/fleet/rebalance (status) and POST
+                /v1/fleet/rebalance?action=dry-run|apply|abort. An
+                ownership-move lever like /v1/fleet/migrate, so it only
+                exists when the embedding wired both the controller
+                hook and a bearer token (--http-rebalance-token)."""
+                if gateway.fleet_rebalance is None or \
+                        gateway.rebalance_token is None:
+                    self._send(403, {"error": "rebalancing is not "
+                                     "exposed on this gateway (needs "
+                                     "--http-rebalance-token on a "
+                                     "fleet member)"})
+                    return
+                if not self._bearer_ok(gateway.rebalance_token):
+                    self._send(403, {"error": "bad rebalance token"})
+                    return
+                if self.command == "GET":
+                    self._send(200, gateway.fleet_rebalance("status"))
+                    return
+                if self.command != "POST":
+                    self._send(405, {"error": "GET or POST only"})
+                    return
+                action = q.get("action", [None])[0]
+                if action not in ("dry-run", "apply", "abort"):
+                    self._send(400, {"error": "action must be one of "
+                                     "dry-run|apply|abort"})
+                    return
+                out = gateway.fleet_rebalance(action)
+                self._send(200 if out.get("ok") else 409, out)
+
+            def _bearer_value(self) -> Optional[str]:
+                """The caller's bearer token, passed through to the
+                peers of a fleet fan-out (debug tokens are assumed
+                fleet-uniform, so the tower forwards the same header
+                and never stores one)."""
+                auth = self.headers.get("Authorization", "")
+                return auth[7:] if auth.startswith("Bearer ") else None
 
             def _handle_debug_trace(self, q) -> None:
                 """Flight-recorder dump as Perfetto/Chrome-trace JSON
                 (ADR-014). A trace exposes keys' traffic timing and
                 thread structure, so the trust boundary is the same as
                 /v1/policy: disabled unless the embedding opted in,
-                bearer token in the header only. ``?fleet=1`` needs a
-                fleet member, which the port does not have: 400, as
-                the JAX gateway answers without its fleet hook."""
+                bearer token in the header only. ``?fleet=1`` on a
+                fleet member answers one offset-aligned timeline over
+                every member's span rings, the caller's bearer passed
+                through to the peers; 400 without the tower's hook."""
                 if not gateway.enable_debug:
                     self._send(403, {"error": "debug endpoints are "
                                      "disabled on this gateway"})
@@ -411,10 +447,15 @@ class HttpGateway:
                     self._send(403, {"error": "bad debug token"})
                     return
                 if q.get("fleet", ["0"])[0] not in ("", "0", "false"):
-                    self._send(400, {"error": "fleet trace "
-                                     "stitching needs a fleet "
-                                     "member (--fleet-config) with "
-                                     "http ports in the map"})
+                    if gateway.fleet_trace is None:
+                        self._send(400, {"error": "fleet trace "
+                                         "stitching needs a fleet "
+                                         "member (--fleet-config) with "
+                                         "http ports in the map"})
+                        return
+                    payload = gateway.fleet_trace(self._bearer_value())
+                    payload["enabled"] = True
+                    self._send(200, payload)
                     return
                 rec = tracing.RECORDER
                 if rec is None:
@@ -429,9 +470,10 @@ class HttpGateway:
 
             def _handle_debug_events(self, q) -> None:
                 """Control-plane event journal (ADR-021): cursor-
-                paginated (``?after=SEQ&limit=N[&category=C]``) and
-                tail form (``?tail=N``); the fleet merge (``?fleet=1``)
-                answers 400 as on /debug/trace. Same trust boundary as
+                paginated (``?after=SEQ&limit=N[&category=C]``), tail
+                form (``?tail=N``), and the fleet merge
+                (``?fleet=1``, aligned on the membership clock offsets;
+                400 without the tower's hook). Same trust boundary as
                 /debug/trace: events name tenants, ranges, and
                 controller decisions."""
                 if not gateway.enable_debug:
@@ -453,10 +495,15 @@ class HttpGateway:
                                      "be integers"})
                     return
                 if q.get("fleet", ["0"])[0] not in ("", "0", "false"):
-                    self._send(400, {"error": "fleet event merge "
-                                     "needs a fleet member "
-                                     "(--fleet-config) with http "
-                                     "ports in the map"})
+                    if gateway.fleet_events is None:
+                        self._send(400, {"error": "fleet event merge "
+                                         "needs a fleet member "
+                                         "(--fleet-config) with http "
+                                         "ports in the map"})
+                        return
+                    self._send(200, gateway.fleet_events(
+                        limit=(tail or limit), category=category,
+                        bearer=self._bearer_value()))
                     return
                 j = ev.JOURNAL
                 if j is None:
@@ -668,7 +715,7 @@ class HttpGateway:
                     elif url.path == "/v1/fleet/migrate":
                         self._handle_migrate(q)
                     elif url.path == "/v1/fleet/rebalance":
-                        self._handle_rebalance()
+                        self._handle_rebalance(q)
                     elif (url.path == "/v1/snapshot"
                           and self.command == "POST"):
                         # Durability trigger: bearer-gated like reset
@@ -697,13 +744,17 @@ class HttpGateway:
                     elif url.path == "/debug/events":
                         self._handle_debug_events(q)
                     elif url.path == "/v1/fleet/status":
-                        # The fleet rollup (ADR-021) needs a fleet
-                        # member: 404, as the JAX gateway answers
-                        # without one.
-                        self._send(404, {"error": "not a fleet "
-                                         "member (--fleet-config "
-                                         "with http ports in the "
-                                         "map)"})
+                        # Read-only fleet rollup (ADR-021): merged
+                        # audit/consumer/SLO/hierarchy blocks over every
+                        # member's /healthz, the exposure of /healthz
+                        # itself (no mutation lever).
+                        if gateway.fleet_status is None:
+                            self._send(404, {"error": "not a fleet "
+                                             "member (--fleet-config "
+                                             "with http ports in the "
+                                             "map)"})
+                        else:
+                            self._send(200, gateway.fleet_status())
                     elif url.path == "/healthz":
                         self._send(200, gateway.health())
                     elif url.path == "/metrics":
@@ -777,6 +828,15 @@ class HttpGateway:
         # Both required: _handle_migrate refuses otherwise.
         self.fleet_migrate = fleet_migrate
         self.migrate_token = migrate_token
+        # The control tower's rollup, trace-stitch and event fan-out
+        # callables, wired only on fleet members.
+        self.fleet_status = fleet_status
+        self.fleet_trace = fleet_trace
+        self.fleet_events = fleet_events
+        # The placement controller: hook and token both required —
+        # _handle_rebalance refuses otherwise.
+        self.fleet_rebalance = fleet_rebalance
+        self.rebalance_token = rebalance_token
         self._profile_lock = threading.Lock()
         self._decide_trace = _accepts_trace(decide)
         self._decide_deadline = _accepts_kw(decide, "deadline")

@@ -101,6 +101,29 @@ def _recv(sock: socket.socket) -> bytes:
     return buf
 
 
+#: Seconds the JAX door's shutdown may take before its test goes on.
+REFERENCE_SHUTDOWN_S = 30.0
+
+
+def _shutdown_reference(door) -> None:
+    """The JAX door's shutdown on a thread of its own (it releases the
+    GIL): the JAX door's lost wake-up (ROADMAP.md §C; its ``server.cpp``
+    is not edited) can leave it joining its responder forever, which
+    held a whole xdist worker until the run's time limit. Past
+    ``REFERENCE_SHUTDOWN_S`` the test goes on with a warning, the
+    reference door's threads left behind; the port's door is shut down
+    on the test's own thread as before."""
+    t = threading.Thread(target=door.shutdown, daemon=True,
+                         name="jax-door-shutdown")
+    t.start()
+    t.join(REFERENCE_SHUTDOWN_S)
+    if t.is_alive():
+        import warnings
+
+        warnings.warn(f"the JAX native door's shutdown did not return in "
+                      f"{REFERENCE_SHUTDOWN_S} s (its lost wake-up)")
+
+
 @contextlib.contextmanager
 def _doors(kind: str, shards: int = 1, **kw):
     """Both packages' native doors over fresh limiters, each shard under
@@ -123,7 +146,7 @@ def _doors(kind: str, shards: int = 1, **kw):
     try:
         yield (jdoor, jlim), (tdoor, tlim)
     finally:
-        jdoor.shutdown()
+        _shutdown_reference(jdoor)
         tdoor.shutdown()
         jlim.close()
         tlim.close()

@@ -522,7 +522,9 @@ for name in ("checkpoint", "observability.decorators",
              "tools.rebucket", "fleet", "fleet.config", "fleet.lanes",
              "fleet.forwarder", "fleet.handoff", "fleet.membership",
              "chaos", "chaos.injector", "placement",
-             "placement.accounting"):
+             "placement.accounting", "fleet.tower", "placement.planner",
+             "placement.executor", "tools.fleet_status",
+             "tools.fleet_trace"):
     assert pkg.__name__ + "." + name in names, name
 print(*names, file=sys.stderr)
 # The gRPC message classes build from the committed descriptor alone.
@@ -547,6 +549,9 @@ print(len(names), bad)
     assert "ratelimiter_tpu_torch.fleet.membership" in out.stderr
     assert "ratelimiter_tpu_torch.chaos.injector" in out.stderr
     assert "ratelimiter_tpu_torch.placement.accounting" in out.stderr
+    for name in ("fleet.tower", "placement.planner", "placement.executor",
+                 "tools.fleet_status", "tools.fleet_trace"):
+        assert f"ratelimiter_tpu_torch.{name}" in out.stderr
 
 
 @pytest.mark.parametrize("argv", [["--controller"], ["--tenant", "a=5"],
@@ -819,3 +824,61 @@ def test_old_geometry_flags_still_parse():
     new = parse_args(["--sketch-depth", "2", "--sketch-width", "1024"])
     assert (old.sketch_depth, old.sketch_width) == (2, 1024)
     assert vars(old) == vars(new)
+
+
+#: The port binary's own flags: the card (--device), the dense
+#: backend's capacity and the bare CU switch, and the geometry flags'
+#: older aliases.
+PORT_ONLY_FLAGS = {"--device", "--dense-capacity", "--no-conservative-update",
+                   "--depth", "--width"}
+#: The JAX binary's own: the Pallas/jnp kernel choice and its prewarm.
+JAX_ONLY_FLAGS = {"--kernels", "--no-prewarm"}
+
+
+def test_binary_has_every_flag_of_the_jax_binary():
+    """The port's ``build_parser()`` takes every option string of the JAX
+    binary's but ``--kernels`` and ``--no-prewarm`` (and adds only its
+    own five), each shared flag with the JAX default."""
+    from ratelimiter_tpu.serving.__main__ import build_parser as jax_parser
+    from ratelimiter_tpu_torch.serving.__main__ import build_parser
+
+    def options(parser):
+        return {o: a for a in parser._actions for o in a.option_strings}
+
+    port, jax = options(build_parser()), options(jax_parser())
+    assert set(jax) - JAX_ONLY_FLAGS == set(port) - PORT_ONLY_FLAGS
+    assert len(set(jax)) == 112
+    for opt in set(jax) & set(port):
+        assert port[opt].default == jax[opt].default, opt
+        assert port[opt].dest == jax[opt].dest, opt
+    for opt, default in (("--rebalance-interval", 10.0),
+                         ("--rebalance-max-moves", 2),
+                         ("--rebalance-trigger", 1.4),
+                         ("--rebalance-target", 1.15),
+                         ("--rebalance-min-residency", 60.0),
+                         ("--rebalance-seed", 0), ("--rebalance", False),
+                         ("--http-rebalance-token", None)):
+        assert port[opt].default == default, opt
+
+
+@pytest.mark.parametrize("argv,words", [
+    (["--rebalance"], "--rebalance needs --fleet-config (the placement "
+                      "brain moves fleet ranges)"),
+    (["--rebalance", "--fleet-config", "fleet.json", "--fleet-self", "h0",
+      "--rebalance-target", "1.4"],
+     "--rebalance-target must be below --rebalance-trigger (the "
+     "hysteresis band prevents flapping)")], ids=["no-fleet", "band"])
+def test_rebalance_refusals_in_the_jax_words(argv, words):
+    """The JAX binary's two refusals (ratelimiter_tpu/serving/__main__.py
+    :1086-1091), word for word; a target below the trigger, and the
+    flags without ``--rebalance``, parse."""
+    from ratelimiter_tpu_torch.serving.__main__ import (
+        build_config,
+        parse_args,
+    )
+
+    with pytest.raises(SystemExit) as ei:
+        build_config(parse_args(argv))
+    assert str(ei.value) == words
+    build_config(parse_args(argv[:-1] + ["1.3"] if "--rebalance-target"
+                            in argv else ["--rebalance-target", "2.0"]))
