@@ -43,7 +43,14 @@ Phases (each raises on failure; the script exits non-zero):
    keys sharing h1 but not h2, B = 0, B = ``ADMIT_CAPACITY`` and the next
    pad above it, where the wrappers
    run the composed back (plain admission on the card, then the
-   standalone ``add_update`` kernel) and the launch counts must show it;
+   standalone ``add_update`` kernel) and the launch counts must show it,
+   and on the cluster admission's adversarial batches (one key with 60%
+   of the batch, keys of one owner block for 3/4 of it, distinct keys,
+   B = 1, 128, 129, 257 and 4097; the bucket's wrapping retry on three
+   of them at four numerators), then, under the profiler, the kernel and
+   grid each ``window_admit`` and ``bucket_admit`` launch ran on each
+   batch (the cluster build on ``ADMIT_CLUSTER`` blocks above
+   ``ADMIT_CLUSTER_BATCH`` requests, the one-block build at and below);
    the heavy-hitter side table's kernels (the side-table builds of
    ``window_front``, ``window_admit`` and ``add_back``, and
    ``hh_update``) at config-3 shapes with 256 slots (the observatory
@@ -446,16 +453,20 @@ batches, printing the results as one JSON line before the card's line.
 
 ``--admit-sweep`` builds, then times the admission routine alone
 (``csrc/admit_bench.cu``) at the block shapes and sort digit widths of
-``ADMIT_SWEEP`` and beside its first design, each held bit-equal to
-``segment.admit`` first, printing the results as one JSON line before the
-card's line.
+``ADMIT_SWEEP`` and beside its first design, and the cluster routine
+(``csrc/admit_cluster.cuh``) at every batch, thread count and cluster
+size of ``CLUSTER_SWEEP`` with its per-block requests and the clock
+after each of its steps, each held bit-equal to ``segment.admit`` first,
+printing the results as one JSON line before the card's line.
 
 ``--cascade`` builds, then runs phase 2's cascade part alone and prints
 its results as one JSON line before the card's line; ``--rows`` runs
 the rest of phase 2 alone (the kernel rows, ``hh_update`` and the
 side-table forms),
-through wrappers an earlier checkout has too, so a copy of this script
-in the parent's checkout times the parent's builds in the same call.
+through wrappers an earlier checkout has too (one with the cluster
+admission: the back batches take ``sketch_cuda.owners_of`` and
+``admit_cluster``), so a copy of this script in the parent's checkout
+times the parent's builds in the same call.
 
 ``--door`` builds, then times the config-3 door under the binary's default
 stack three times (``time_door``) and prints the readings as one JSON
@@ -1335,35 +1346,64 @@ def check_bucket_kernels(torch, seed: int) -> dict:
 
 #: The step's admission fixpoint rounds (Config.max_batch_admission_iters).
 ITERS = 4
+#: The back batches on which ``check_backs`` also holds the bucket's
+#: wrapping retry, at each (rate_num, rate_den) of WRAPPING_RATES: a
+#: product deficit * rate_den past 2^63, and numerators the kernel's
+#: divider takes each way (1, a power of two, the largest).
+WRAPPING_RETRY = ("config3", "hot key", "B=4097")
+WRAPPING_RATES = ((3, (1 << 62) + 11), (1, (1 << 62) + 11), (1 << 40, 7),
+                  ((1 << 63) - 1, 5))
 
 
-def back_batches(rng) -> dict:
-    """The admission launches' batches: the config-3 batch (4096 Zipf
-    ids), 4096 requests all for one key (one segment of 4096, the skewed
+def back_batches(rng, seed: int) -> dict:
+    """The backs' batches as uint64 ids: config 3's 4096 Zipf ids, the same
+    4096 requests on one key (the admission fixpoint's and the scatter's
     extreme), the config-3 ids with h1 cut to 6 bits (``check_backs``:
     keys that share h1 but not h2, so admission's groups are not the
     scatter's keys), none, ``ADMIT_CAPACITY`` Zipf ids and the limiter's
-    next pad above it."""
+    next pad above it, drawn from ``rng``; and the cluster admission's
+    adversarial batches (csrc/admit_cluster.cuh), drawn from a generator
+    of their own (``seed``) so that the batches before them stay as
+    earlier checkouts drew them: one key holding 60% of the config-3
+    batch, keys whose owner block is one block at every cluster size for
+    3/4 of it (``sketch_cuda.owners_of`` of their h1), all keys distinct,
+    B = 1, 257 and 4097 (not multiples of any cluster size), and B = 128
+    and 129 (the small-batch rule's edge, ``ADMIT_CLUSTER_BATCH``)."""
     from ratelimiter_tpu_torch.algorithms.sketch import _pad_size
+    from ratelimiter_tpu_torch.ops import hashing
     from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 
     ids = zipf_ids(rng, BATCH)
-    return {"config3": ids, "one key": np.full(BATCH, ids[0]),
-            "shared h1": ids, "empty": ids[:0],
-            "capacity": zipf_ids(rng, sc.ADMIT_CAPACITY),
-            "above capacity": zipf_ids(rng, _pad_size(sc.ADMIT_CAPACITY + 1))}
+    out = {"config3": ids, "one key": np.full(BATCH, ids[0]),
+           "shared h1": ids, "empty": ids[:0],
+           "capacity": zipf_ids(rng, sc.ADMIT_CAPACITY),
+           "above capacity": zipf_ids(rng, _pad_size(sc.ADMIT_CAPACITY + 1))}
+    own = np.random.default_rng(seed)
+    hot = ids.copy()
+    hot[own.random(BATCH) < 0.6] = ids[0]
+    pool = np.arange(1, 64 * BATCH, dtype=np.uint64) + np.uint64(N_KEYS)
+    h1, _ = hashing.split_hash(hashing.splitmix64(pool), 0x5bd1e995)
+    same = pool[sc.owners_of(h1, 16) == 0][:BATCH // 2]
+    owner = zipf_ids(own, BATCH)
+    pick = own.random(BATCH) < 0.75
+    owner[pick] = same[own.integers(0, len(same), size=int(pick.sum()))]
+    return {**out, "hot key": hot, "owner bits": owner,
+            "distinct": own.permutation(N_KEYS)[:BATCH].astype(np.uint64),
+            "B=1": ids[:1], "B=257": zipf_ids(own, 257),
+            "B=4097": zipf_ids(own, BATCH + 1), "B=128": zipf_ids(own, 128),
+            "B=129": zipf_ids(own, 129)}
 
 
 def back_row(torch, name: str, source: str, err: float, batches: dict,
              nbytes: int, ops: int) -> dict:
-    """A back's row: timed on the config-3 batch (``batches[name]`` maps
-    each batch to its (kernel, plain) callables), and every other batch
-    timed beside it."""
-    kern, plain = batches["config3"]
+    """A back's row: timed on the config-3 batch (``batches`` maps each
+    batch to its (kernel, plain) callables and its size), and every other
+    batch timed beside it."""
+    kern, plain, _ = batches["config3"]
     row = kernel_row(name, source, err, kern, plain, None, nbytes, ops,
                      torch)
     row["batches"] = {}
-    for label, (k, p) in batches.items():
+    for label, (k, p, _) in batches.items():
         ms = row["ms"] if label == "config3" else device_ms(k, torch)
         plain_ms = (row["plain_ms"] if label == "config3"
                     else device_ms(p, torch))
@@ -1412,7 +1452,7 @@ def check_backs(torch, seed: int) -> dict:
     err = {"add_back": 0.0, "window_admit": 0.0, "bucket_admit": 0.0}
     timed = {name: {} for name in err}
     info = {}
-    for label, ids in back_batches(rng).items():
+    for label, ids in back_batches(rng, seed + 6).items():
         B = len(ids)
         h1, h2 = device_keys(torch, ids)
         if label == "shared h1":
@@ -1442,10 +1482,23 @@ def check_backs(torch, seed: int) -> dict:
                 bc.bucket_admit_plain(h1, units, b_avail, ITERS, rate_num,
                                       rate_den)):
             hold_equal(torch, err, "bucket_admit", a, b)
+        if label in WRAPPING_RETRY:
+            # The bucket's retry whose deficit * rate_den wraps int64, on
+            # units past 2^24, and the divider's numerators.
+            big = units * 7 + (n > 2).to(torch.int64)
+            for num, den in WRAPPING_RATES:
+                for a, b in zip(
+                        bc.bucket_admit(h1, big, b_avail, ITERS, num, den),
+                        bc.bucket_admit_plain(h1, big, b_avail, ITERS, num,
+                                              den)):
+                    hold_equal(torch, err, "bucket_admit", a, b)
         counts = {**sc.launch_counts(), "bucket admit": bc.launch_counts()[
             "admit"]}
         want_counts = {"add_update": 1, "add_back": int(fused),
-                       "admit": int(fused), "bucket admit": int(fused)}
+                       "admit": int(fused),
+                       "bucket admit": int(fused) * (
+                           1 + len(WRAPPING_RATES) * (
+                               label in WRAPPING_RETRY))}
         if any(counts[k] != v for k, v in want_counts.items()):
             raise AssertionError(f"backs at B={B}: launch counts {counts}, "
                                  f"expected {want_counts}")
@@ -1456,11 +1509,13 @@ def check_backs(torch, seed: int) -> dict:
         log(f"kernels: add_back, window_admit and bucket_admit bit-equal to "
             f"plain on the {label} batch (B={B}, {info[label]['form']} "
             f"form, {info[label]['allowed']} allowed, "
-            f"{info[label]['denied']} denied; launches {counts})")
+            f"{info[label]['denied']} denied"
+            f"{'; wrapping retry held' if label in WRAPPING_RETRY else ''}"
+            f"; launches {counts})")
         for name, pair in back_calls(sc, bc, totals.clone(), cur.clone(),
                                      h1, h2, n, n_f, avail, est, units,
                                      b_avail, rate_num, rate_den).items():
-            timed[name][label] = pair
+            timed[name][label] = (*pair, B)
         if label == "config3":
             # Cells the admitted amounts reach (the scatter's data-
             # dependent bytes): both slabs read and written there.
@@ -1492,7 +1547,83 @@ def check_backs(torch, seed: int) -> dict:
         row["batch_info"] = info
         row["moved_bytes"] = row["bytes"] + B * again[name]
     rows["add_back"]["changed_cells"] = changed
+    shapes = admission_shapes(torch, sc, timed)
+    for name in ("window_admit", "bucket_admit"):
+        rows[name]["batch_info"] = {
+            label: {**info[label], **shapes[label][name]}
+            for label in info}
     return rows
+
+
+def admission_shapes(torch, sc, timed: dict) -> dict:
+    """The kernel each admission launch ran on each back batch, as the
+    profiler's trace shows it: ``window_admit`` and ``bucket_admit`` called
+    once a batch (after the timings, which the profiler would slow)
+    under ``torch.profiler``; each launch's kernel and grid read from the
+    trace. Above ``sketch_cuda.ADMIT_CLUSTER_BATCH`` requests a launch
+    must run the cluster build (``<family>_admit_cluster_kernel``) on
+    ``ADMIT_CLUSTER`` blocks, at and below it the one-block build
+    (``<family>_admit_kernel``) on one; a batch above ``ADMIT_CAPACITY``
+    (the plain version on the card) must launch neither. Returns
+    {batch: {back: {"kernel": name, "blocks": n}}}."""
+    import os
+    import re
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    names = ("window_admit", "bucket_admit")
+    labels = list(timed["window_admit"])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for label in labels:
+            for name in names:
+                timed[name][label][0]()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    finally:
+        os.unlink(path)
+    pattern = re.compile(r"\b(window|bucket)_admit(_cluster)?_kernel\b")
+    launched = []
+    for e in sorted((e for e in events if e.get("ph") == "X"
+                     and e.get("cat") == "kernel"), key=lambda e: e["ts"]):
+        m = pattern.search(e.get("name", ""))
+        if m is None:
+            continue
+        grid = e.get("args", {}).get("grid")
+        if grid is None:
+            raise AssertionError(f"admission shapes: the trace gives no "
+                                 f"grid for {e['name'][:80]}")
+        launched.append((m.group(0), int(np.prod(grid))))
+    out, at = {}, 0
+    for label in labels:
+        B = int(timed["window_admit"][label][2])
+        out[label] = {}
+        for name in names:
+            if B > sc.ADMIT_CAPACITY:
+                out[label][name] = {"kernel": None, "blocks": 0}
+                continue
+            cluster = sc.admit_cluster(B)
+            want = (f"{name}{'_cluster' if cluster > 1 else ''}_kernel",
+                    cluster)
+            got = launched[at] if at < len(launched) else None
+            at += 1
+            if got != want:
+                raise AssertionError(f"admission shapes: {name} on the "
+                                     f"{label} batch (B={B}) ran {got}, "
+                                     f"expected {want}")
+            out[label][name] = {"kernel": got[0], "blocks": got[1]}
+        log(f"kernels: on the {label} batch (B={B}) the trace shows "
+            + "; ".join(f"{name} {v['kernel']} on {v['blocks']} block(s)"
+                        for name, v in out[label].items()))
+    if at != len(launched):
+        raise AssertionError(f"admission shapes: {len(launched)} admission "
+                             f"kernels in the trace, {at} expected")
+    return out
 
 
 def side_batches(rng, K: int) -> dict:
@@ -2722,13 +2853,36 @@ ADMIT_SWEEP = (
     + [(0, t, i, 4, q) for q in (0, 1) for t, i in ((512, 8), (1024, 8))]
     + [(1, 1024, 4, 4, 0), (1, 512, 8, 4, 0)])
 
+#: The cluster routine's sweep (``--admit-sweep``, csrc/admit_cluster.cuh
+#: through csrc/admit_bench.cu): (batch, threads a block, cluster size);
+#: a block holds 16 requests a thread, 16 blocks need the card's
+#: non-portable cluster size. The one-block routine's rows at the
+#: same batches are ADMIT_SWEEP's shapes of that capacity.
+CLUSTER_SWEEP = [(B, t, c) for B in (256, 1024, 4096, 8192)
+                 for t in (256, 512) if B <= 16 * t
+                 for c in (2, 4, 8, 16)]
+#: The small-batch rule's batches (``--admit-sweep``): at each, the
+#: one-block routine at the step entries' shape for it against their
+#: cluster (sketch_cuda.ADMIT_CLUSTER_BATCH is the largest batch that
+#: keeps the block).
+SMALL_BATCHES = (1, 32, 64, 128, 192, 256, 320, 384, 512, 768, 1024)
+#: The cluster routine's steps as csrc/admit_bench.cu marks them (the
+#: global clock after each, thread 0 of each block).
+CLUSTER_STEPS = ("rank", "move", "compact", "group", "sort", "admit",
+                 "write")
+
 
 def admit_sweep(torch, seed: int) -> list:
     """The admission routine alone (csrc/admit_bench.cu) at every block
     shape and digit width of ``ADMIT_SWEEP``, at B = the shape's capacity,
-    on Zipf ids, on one key and on distinct keys, from the fronts'
-    outputs as ``check_backs`` makes them: held bit-equal to
-    ``segment.admit`` on the card (allowed and seen), then timed."""
+    and the cluster routine at every (batch, threads, cluster) of
+    ``CLUSTER_SWEEP``, on Zipf ids, on one key and on distinct keys, from
+    the fronts' outputs as ``check_backs`` makes them: held bit-equal to
+    ``segment.admit`` on the card (allowed and seen; a cluster's per-block
+    counts to ``sketch_cuda.owners_of``), then timed; and at each batch
+    of ``SMALL_BATCHES`` the one-block launch beside the step entries'
+    cluster. A cluster the card refuses is recorded with its error
+    code."""
     import ctypes
 
     from ratelimiter_tpu_torch.ops import _build
@@ -2740,6 +2894,9 @@ def admit_sweep(torch, seed: int) -> list:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rl_admit_bench.argtypes = [I, I, I, I, I, P, P, P, P, P, I, I, P]
     lib.rl_admit_bench.restype = ctypes.c_int
+    lib.rl_admit_cluster_bench.argtypes = [I, I, I, P, P, P, P, P, P, P, I,
+                                           I, P]
+    lib.rl_admit_cluster_bench.restype = ctypes.c_int
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 9)
     totals, boundary, _, _ = window_state(torch, rng)
@@ -2747,53 +2904,160 @@ def admit_sweep(torch, seed: int) -> list:
     debt = torch.from_numpy(rng.integers(0, 100_000_000, size=(
         DEPTH, WIDTH)).astype(np.int64)).to(dev)
     batches = {}
-    for B in sorted({t * i for _, t, i, _, _ in ADMIT_SWEEP}):
-        zipf = zipf_ids(rng, B)
+
+    def draw(B: int, gen) -> None:
+        zipf = zipf_ids(gen, B)
         for label, ids in (("zipf", zipf), ("one key", np.full(B, zipf[0])),
                            ("distinct", np.arange(B, dtype=np.uint64))):
             h1, h2 = device_keys(torch, ids)
-            n = torch.from_numpy(rng.integers(0, 4, size=B).astype(
+            n = torch.from_numpy(gen.integers(0, 4, size=B).astype(
                 np.int32)).to(dev)
             _, _, _, _, avail, n_f = sc.window_front(
                 totals, (h1, h2), n, boundary=valid, limit=4 * LIMIT)
             _, _, _, b_avail, units = bc.bucket_front(debt, 0, (h1, h2), n,
                                                       limit=LIMIT)
             batches[B, label] = (h1, (n_f, avail), (units, b_avail))
+
+    for B in sorted({t * i for _, t, i, _, _ in ADMIT_SWEEP}):
+        draw(B, rng)
+    # The small-batch rule's batches from a generator of their own, so
+    # that the shapes' batches above stay as earlier checkouts drew them.
+    small = np.random.default_rng(seed + 10)
+    for B in SMALL_BATCHES:
+        if (B, "zipf") not in batches:
+            draw(B, small)
+
+    def block_row(design, threads, items, bits, int64, B, label) -> dict:
+        h1, *quantities = batches[B, label]
+        q, avail = quantities[int64]
+        seen = torch.empty_like(q)
+        allowed = torch.empty(B, dtype=torch.bool, device=dev)
+
+        def call():
+            err = lib.rl_admit_bench(
+                design, threads, items, bits, int64, h1.data_ptr(),
+                q.data_ptr(), avail.data_ptr(), seen.data_ptr(),
+                allowed.data_ptr(), B, ITERS,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"admit_bench: CUDA error {err}")
+
+        call()
+        want_allowed, want_seen, _ = admit(h1, q, avail, ITERS)
+        torch.cuda.synchronize()
+        if not (torch.equal(allowed, want_allowed)
+                and torch.equal(seen, want_seen)):
+            raise AssertionError(f"admit_bench design {design} "
+                                 f"{threads}x{items} bits {bits} "
+                                 f"int64 {int64} B={B} on {label} keys "
+                                 f"differs from segment.admit")
+        row = {"design": design, "threads": threads, "items": items,
+               "bits": bits, "int64": int64, "batch": B, "keys": label,
+               "ms": device_ms(call, torch)}
+        log(f"admit sweep: design {design} {threads}x{items} bits "
+            f"{bits} {'int64' if int64 else 'f32'} B={B} {label}: "
+            f"{row['ms'] * 1e3:.2f} us")
+        return row
+
     out = []
     for design, threads, items, bits, int64 in ADMIT_SWEEP:
-        B = threads * items
         for label in ("zipf", "one key", "distinct"):
-            h1, *quantities = batches[B, label]
-            q, avail = quantities[int64]
-            seen = torch.empty_like(q)
-            allowed = torch.empty(B, dtype=torch.bool, device=dev)
-
-            def call():
-                err = lib.rl_admit_bench(
-                    design, threads, items, bits, int64, h1.data_ptr(),
-                    q.data_ptr(), avail.data_ptr(), seen.data_ptr(),
-                    allowed.data_ptr(), B, ITERS,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"admit_bench: CUDA error {err}")
-
-            call()
-            want_allowed, want_seen, _ = admit(h1, q, avail, ITERS)
-            torch.cuda.synchronize()
-            if not (torch.equal(allowed, want_allowed)
-                    and torch.equal(seen, want_seen)):
-                raise AssertionError(f"admit_bench design {design} "
-                                     f"{threads}x{items} bits {bits} "
-                                     f"int64 {int64} on {label} keys "
-                                     f"differs from segment.admit")
-            row = {"design": design, "threads": threads, "items": items,
-                   "bits": bits, "int64": int64, "batch": B, "keys": label,
-                   "ms": device_ms(call, torch)}
-            out.append(row)
-            log(f"admit sweep: design {design} {threads}x{items} bits "
-                f"{bits} {'int64' if int64 else 'f32'} B={B} {label}: "
-                f"{row['ms'] * 1e3:.2f} us")
+            out.append(block_row(design, threads, items, bits, int64,
+                                 threads * items, label))
+    for B, threads, cluster in CLUSTER_SWEEP:
+        for int64 in (0, 1):
+            for label in ("zipf", "one key", "distinct"):
+                out.append(cluster_sweep_row(torch, lib, batches, B,
+                                             threads, cluster, int64, label))
+    # The small-batch rule: at each batch, the one-block launch at the
+    # shape the step entries take for it (admit.cuh's launch_with) beside
+    # the step entries' cluster (ADMIT_CLUSTER blocks of 256 threads).
+    for B in SMALL_BATCHES:
+        threads = 64 if B <= 256 else 256
+        for int64 in (0, 1):
+            for label in ("zipf", "one key", "distinct"):
+                block = block_row(0, threads, 4, 5, int64, B, label)
+                cluster = cluster_sweep_row(torch, lib, batches, B, 256,
+                                            sc.ADMIT_CLUSTER, int64, label)
+                out.append({**block, "design": "small batch",
+                            "cluster_ms": cluster.get("ms"),
+                            "cluster_refused": cluster.get("refused")})
+                log(f"admit sweep: small batch B={B} "
+                    f"{'int64' if int64 else 'f32'} {label}: one block "
+                    f"{block['ms'] * 1e3:.2f} us, cluster of "
+                    f"{sc.ADMIT_CLUSTER} "
+                    + (f"{cluster['ms'] * 1e3:.2f} us" if "ms" in cluster
+                       else f"refused ({cluster['refused']})"))
     return out
+
+
+def cluster_sweep_row(torch, lib, batches: dict, B: int, threads: int,
+                      cluster: int, int64: int, label: str) -> dict:
+    """One cluster row of ``admit_sweep``: held to ``segment.admit`` and
+    its blocks' counts to ``sketch_cuda.owners_of``, then timed; a
+    refused launch is recorded, not raised."""
+    from ratelimiter_tpu_torch.ops import sketch_cuda as sc
+    from ratelimiter_tpu_torch.ops.segment import admit
+
+    dev = torch.device("cuda")
+    h1, *quantities = batches[B, label]
+    q, avail = quantities[int64]
+    seen = torch.empty_like(q)
+    allowed = torch.empty(B, dtype=torch.bool, device=dev)
+    counts = torch.empty(cluster, dtype=torch.int32, device=dev)
+    marks = torch.zeros((cluster, len(CLUSTER_STEPS) + 1), dtype=torch.int64,
+                        device=dev)
+    row = {"design": "cluster", "threads": threads, "cluster": cluster,
+           "int64": int64, "batch": B, "keys": label}
+
+    def call(marked=False):
+        return lib.rl_admit_cluster_bench(
+            threads, cluster, int64, h1.data_ptr(), q.data_ptr(),
+            avail.data_ptr(), seen.data_ptr(), allowed.data_ptr(),
+            counts.data_ptr(), marks.data_ptr() if marked else None, B,
+            ITERS, torch.cuda.current_stream().cuda_stream)
+
+    err = call()
+    if err:
+        row["refused"] = err
+        log(f"admit sweep: cluster {cluster} x {threads} "
+            f"{'int64' if int64 else 'f32'} B={B} {label}: refused "
+            f"(CUDA error {err})")
+        return row
+    want_allowed, want_seen, _ = admit(h1, q, avail, ITERS)
+    torch.cuda.synchronize()
+    want_counts = np.bincount(sc.owners_of(h1.cpu().numpy(), cluster),
+                              minlength=cluster)
+    got_counts = counts.cpu().numpy()
+    if not (torch.equal(allowed, want_allowed)
+            and torch.equal(seen, want_seen)
+            and np.array_equal(got_counts, want_counts)):
+        raise AssertionError(f"admit_bench cluster {cluster} x {threads} "
+                             f"int64 {int64} B={B} on {label} keys differs "
+                             f"from segment.admit (block counts "
+                             f"{got_counts.tolist()}, owners "
+                             f"{want_counts.tolist()})")
+
+    def timed():
+        if call():
+            raise RuntimeError("admit_cluster_bench: launch failed")
+
+    row.update(ms=device_ms(timed, torch), block_counts=got_counts.tolist())
+    # One marked run: the fullest block's steps (ns), and the span from
+    # the first block's start to the last block's last mark.
+    call(marked=True)
+    clock = marks.cpu().numpy()
+    b = int(np.argmax(got_counts))
+    row["steps_ns"] = {name: int(clock[b, i + 1] - clock[b, i])
+                       for i, name in enumerate(CLUSTER_STEPS)
+                       if clock[b, i + 1] and clock[b, i]}
+    row["span_ns"] = int(clock.max() - clock[:, 0].min())
+    log(f"admit sweep: cluster {cluster} x {threads} "
+        f"{'int64' if int64 else 'f32'} B={B} {label}: "
+        f"{row['ms'] * 1e3:.2f} us, per-block requests max "
+        f"{int(got_counts.max())} min {int(got_counts.min())}; fullest "
+        f"block's steps (ns) {row['steps_ns']}, span {row['span_ns']} ns")
+    return row
 
 
 # --------------------------------------------------------------- phase 3
@@ -6615,8 +6879,7 @@ def check_capture(*, seed: int = 0, batches: int = 16,
                                  f"{batches} batches")
         host[op] = torch_ops_in(ranges, cpu_ops)
     names = " ".join(dev_ops)
-    for kern in (("window_front_kernel", "window_admit_kernel",
-                  "cu_update_kernel") if device == "cuda" else ()):
+    for kern in (CAPTURE_KERNELS if device == "cuda" else ()):
         if kern not in names:
             raise AssertionError(f"capture: no {kern} in the trace's "
                                  f"device ops")
@@ -7411,11 +7674,10 @@ def check_gateway(torch, cfg, label: str, *, device: str = "cuda",
         out["traced_spans"] = sorted(spans)
         if prof is not None:
             kern = ("bucket_front_kernel", "bucket_admit_kernel",
-                    "bucket_update_kernel") if bucket else (
-                "window_front_kernel", "window_admit_kernel",
-                "cu_update_kernel")
+                    "bucket_update_kernel") if bucket else PROFILE_KERNELS
             names = " ".join(prof["names"])
-            missing = [k for k in kern if k not in names]
+            missing = [k for k in kern if not (named(k, names) if bucket
+                                               else k in names)]
             if missing:
                 raise AssertionError(f"{name}: /debug/profile's trace "
                                      f"lacks {missing}")
@@ -7778,9 +8040,28 @@ def gateway_readings(seed: int = 0, rounds: int = 3,
     return out
 
 
-#: What a /debug/profile capture of windowed CU must name.
+#: What a /debug/profile capture of windowed CU must name: the side
+#: table's build of the admission (the gateway's cell) and the binary's
+#: one request at a time both run the one-block build.
 PROFILE_KERNELS = ("window_front_kernel", "window_admit_kernel",
                    "cu_update_kernel")
+#: What a capture of config-3 CU batches must name: 4096 requests, above
+#: ``sketch_cuda.ADMIT_CLUSTER_BATCH``, run the admission's cluster build.
+CAPTURE_KERNELS = ("window_front_kernel", "window_admit_cluster_kernel",
+                   "cu_update_kernel")
+
+
+def named(kern: str, names: str) -> bool:
+    """Whether a trace's kernel ``names`` hold ``kern``, where the
+    traffic decides the batch size (the bucket's gateway cell: binary
+    frames and single /v1/allow requests): an admission kernel
+    (``<family>_admit_kernel``) is held by its one-block build or its
+    cluster build (``<family>_admit_cluster_kernel``, which the C entries
+    launch above ``sketch_cuda.ADMIT_CLUSTER_BATCH`` requests)."""
+    if kern in names:
+        return True
+    return kern.endswith("_admit_kernel") and kern.replace(
+        "_admit_kernel", "_admit_cluster_kernel") in names
 
 
 def check_binary_profile(device: str = "cuda") -> dict:
@@ -12760,7 +13041,7 @@ def main(argv=None) -> int:
                     help="only build, then hold and time phase 2's kernel "
                          "rows without the cascade (one JSON line; "
                          "public wrappers only, so it runs on an earlier "
-                         "checkout too)")
+                         "checkout with the cluster admission too)")
     ap.add_argument("--cascade", action="store_true",
                     help="only build, then hold and time the cascade's "
                          "kernels (phase 2's cascade part, one JSON line)")

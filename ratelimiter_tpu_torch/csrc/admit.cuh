@@ -346,20 +346,14 @@ __device__ __forceinline__ void group(typename S::Storage& tmp, Key key,
   __syncthreads();
 }
 
-template <class S, class Q, class Key, class Load>
-__device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
-                                         Load load, int B, int iters,
-                                         Sorted<Q, S::kItems>& s) {
+// Step 3 over the thread's sorted items ``s`` (operands, heads and tails
+// in place, every mask bit set): on return s.allowed is the final mask and
+// cons[k] item k's consumption under it, so that seen = avail - cons.
+template <class S, class Q>
+__device__ __forceinline__ void fixpoint(typename S::Storage& tmp,
+                                         Sorted<Q, S::kItems>& s, int iters,
+                                         Q (&cons)[S::kItems]) {
   constexpr int kItems = S::kItems;
-  group<S>(tmp, key, load, B, s.idx, s.head, s.tail);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = s.idx[k];
-    const bool valid = i < B;
-    s.n[k] = valid ? tmp.u.in.n[i] : Q(0);
-    s.avail[k] = valid ? tmp.u.in.avail[i] : Q(0);
-    s.allowed[k] = true;
-  }
   // Rounds 0 .. iters-1: the fixpoint; round iters: the safety
   // intersection (a subset of the last mask, checked against that mask's
   // own consumption); round iters+1: the consumption under the final mask.
@@ -367,7 +361,6 @@ __device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
   // block) has found a fixed point M with cons = cons(M): every later
   // round would give M again, the intersection M & M, and the final
   // consumption cons, so seen follows at once, with the same bits.
-  Q cons[kItems];
   bool fixed = false;
   for (int round = 0; round < iters && !fixed; ++round) {
     exclusive<S>(tmp, s, cons);
@@ -387,6 +380,24 @@ __device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
       s.allowed[k] = s.allowed[k] && add(cons[k], s.n[k]) <= s.avail[k];
     exclusive<S>(tmp, s, cons);
   }
+}
+
+template <class S, class Q, class Key, class Load>
+__device__ __forceinline__ void admit_by(typename S::Storage& tmp, Key key,
+                                         Load load, int B, int iters,
+                                         Sorted<Q, S::kItems>& s) {
+  constexpr int kItems = S::kItems;
+  group<S>(tmp, key, load, B, s.idx, s.head, s.tail);
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    const int i = s.idx[k];
+    const bool valid = i < B;
+    s.n[k] = valid ? tmp.u.in.n[i] : Q(0);
+    s.avail[k] = valid ? tmp.u.in.avail[i] : Q(0);
+    s.allowed[k] = true;
+  }
+  Q cons[kItems];
+  fixpoint<S>(tmp, s, iters, cons);
   // The results in batch order: the union's last use (the operands) is
   // over for every thread since the last scan's barrier.
 #pragma unroll

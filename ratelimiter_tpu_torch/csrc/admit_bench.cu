@@ -1,20 +1,24 @@
 // The admission routine of admit.cuh alone, for measurement: at block
 // shapes and sort digit widths beside the ones the step kernels take, and
 // beside the routine's first design, which sorted the 64-bit keys
-// themselves. It backs admit.cuh's shapes, kRadixBits and capacity
-// (``python3 chip_smoke.py --admit-sweep`` builds, checks and times it;
-// PERF.md). No path of the limiter calls it.
+// themselves; and the cluster routine of admit_cluster.cuh alone, at
+// every cluster size and thread count. It backs admit.cuh's shapes,
+// kRadixBits and capacity, and the cluster size and small-batch rule of
+// the wrappers (``python3 chip_smoke.py --admit-sweep`` builds, checks
+// and times it; PERF.md). No path of the limiter calls it.
 //
 // Interface: plain C, loaded with ctypes, like the step kernels' sources.
 // rl_admit_bench launches one block over the batch and writes, in batch
-// order, allowed and seen (the routine's results); it returns the
-// launch's cudaError_t, or cudaErrorInvalidValue for a combination this
-// file does not build.
+// order, allowed and seen (the routine's results); rl_admit_cluster_bench
+// launches one cluster and writes the same, plus the requests each block
+// admitted. Each returns the launch's cudaError_t, or
+// cudaErrorInvalidValue for a combination this file does not build.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "admit.cuh"
+#include "admit_cluster.cuh"
 
 namespace {
 
@@ -203,6 +207,73 @@ int routine(int threads, int items, int bits, const Args& a,
   return cudaErrorInvalidValue;
 }
 
+// The cluster routine as the step kernels run it, its epilogue writing
+// seen and allowed at each request's batch index; thread 0 of each block
+// writes the requests the block admitted to counts[rank].
+template <class Q>
+struct BenchResults {
+  Q* seen;
+  bool* allowed;
+  using Operands = int;  // nothing to read
+  __device__ __forceinline__ int load(int) const { return 0; }
+  __device__ __forceinline__ void write(int i, int, bool ok, Q s) const {
+    seen[i] = s;
+    allowed[i] = ok;
+  }
+};
+
+struct ClusterArgs {
+  const int64_t* h1;
+  const void* n;
+  const void* avail;
+  void* seen;
+  bool* allowed;
+  int* counts;
+  long long* marks;  // nullptr: none
+  int B, iters;
+};
+
+// The global clock (ns) at each step of the routine, by thread 0 of each
+// block: marks[rank * kMarks + step].
+constexpr int kMarks = 8;
+
+struct ClockMarks {
+  long long* marks;
+  int rank;
+  __device__ __forceinline__ void operator()(int step) const {
+    if (marks != nullptr && threadIdx.x == 0) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      marks[rank * kMarks + step] = static_cast<long long>(t);
+    }
+  }
+};
+
+template <int kThreads, class Q>
+__global__ void __launch_bounds__(kThreads, 1)
+    cluster_kernel(const ClusterArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& st = *reinterpret_cast<rl_admit_cluster::Storage<kThreads, Q>*>(smem);
+  const int rank = cooperative_groups::this_cluster().block_rank();
+  const int m = rl_admit_cluster::admit<kThreads, Q>(
+      st, a.h1, static_cast<const Q*>(a.n), static_cast<const Q*>(a.avail),
+      a.B, a.iters, BenchResults<Q>{static_cast<Q*>(a.seen), a.allowed},
+      ClockMarks{a.marks, rank});
+  if (threadIdx.x == 0) a.counts[rank] = m;
+}
+
+template <class Q>
+int cluster_routine(int threads, int cluster, const ClusterArgs& a,
+                    cudaStream_t s) {
+  if (threads == 256)
+    return rl_admit_cluster::launch<256, Q>(&cluster_kernel<256, Q>, a,
+                                            cluster, s);
+  if (threads == 512)
+    return rl_admit_cluster::launch<512, Q>(&cluster_kernel<512, Q>, a,
+                                            cluster, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -233,6 +304,22 @@ int rl_admit_bench(int design, int threads, int items, int bits, int int64,
       return run_key_sort<KeySort<512, 8>>(a, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The cluster routine (quantity int64 when int64 != 0, else f32) on one
+// cluster of ``cluster`` blocks of ``threads`` (256 or 512) threads;
+// counts: int32[cluster]; marks: int64[cluster * kMarks] or nullptr
+// (the global clock after each step, ClockMarks).
+int rl_admit_cluster_bench(int threads, int cluster, int int64,
+                           const void* h1, const void* n, const void* avail,
+                           void* seen, void* allowed, void* counts,
+                           void* marks, int B, int iters, void* stream) {
+  const ClusterArgs a{static_cast<const int64_t*>(h1), n, avail, seen,
+                      static_cast<bool*>(allowed), static_cast<int*>(counts),
+                      static_cast<long long*>(marks), B, iters};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return int64 ? cluster_routine<long long>(threads, cluster, a, s)
+               : cluster_routine<float>(threads, cluster, a, s);
 }
 
 }  // extern "C"

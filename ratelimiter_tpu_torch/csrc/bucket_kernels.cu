@@ -32,10 +32,14 @@
 // them all). The wrappers, their plain PyTorch versions and the tile
 // choice are in ratelimiter_tpu_torch/ops/bucket_cuda.py.
 //
-// bucket_admit: ONE block holds the whole batch and runs the admission
+// bucket_admit: without the cascade (the main path's), ONE cluster of
+// blocks partitions the batch's keys over its blocks through distributed
+// shared memory and each block admits the keys it owns
+// (admit_cluster.cuh; one block at and below the entry's small-batch
+// size); with it, ONE block holds the whole batch and runs the admission
 // routine of admit.cuh in int64 (group ids through a shared-memory hash
 // table, a block radix sort of the ids, then iters + 2 segmented block
-// scans), then writes in batch order allowed, consumed, remaining =
+// scans). Either then writes in batch order allowed, consumed, remaining =
 // floor((seen - used) / 10^6) and retry_us = where(allowed, 0,
 // -floor(-deficit * rate_den / rate_num)) with deficit = max(n_units -
 // seen, 0) (ratelimiter_tpu_torch/ops/bucket_kernels.py; the JAX package's
@@ -44,7 +48,7 @@
 // torch's int64 does: the kernel multiplies and subtracts in uint64_t. Its
 // bound is ~0.2 MB at B=4096 (~0.06 us), far below one launch: the design
 // replaces the ~90 launches of the plain admission and epilogue with one,
-// on one SM.
+// on one SM (or a cluster's few).
 //
 // With the hierarchy cascade (tenants > 0), bucket_admit runs a
 // compile-time variant (kCasc): cascade.cuh's routine in the same block
@@ -74,6 +78,7 @@
 #include <stdint.h>
 
 #include "admit.cuh"
+#include "admit_cluster.cuh"
 #include "cascade.cuh"
 #include "front.cuh"
 #include "tile_owner.cuh"
@@ -242,6 +247,36 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
+// Division by a divisor fixed for a launch (the rate's numerator) as a
+// multiply: libdivide's branch-free unsigned scheme (ridiculousfish's
+// libdivide, ``libdivide_u64_branchfree``), exact for every 64-bit
+// dividend; shift < 0 (d == 1) divides by itself. The host wrapper
+// computes magic and shift once a launch (ops/bucket_cuda.py,
+// ``divider``, checked against exact floor division on the CPU): a 64-bit
+// division on the card is a long dependent sequence, and one block may
+// hold a hot key's thousands of denied requests.
+struct Divider {
+  unsigned long long magic;
+  int shift;
+};
+
+__device__ __forceinline__ unsigned long long udiv(unsigned long long n,
+                                                   const Divider& v) {
+  if (v.shift < 0) return n;
+  const unsigned long long q = __umul64hi(v.magic, n);
+  return (((n - q) >> 1) + q) >> v.shift;
+}
+
+// floor(a / d), as torch's int64 floor division: for a < 0,
+// -((-a - 1) / d) - 1, with -a - 1 taken as ~a (no overflow at INT64_MIN).
+__device__ __forceinline__ long long floor_div(long long a,
+                                              const Divider& v) {
+  if (a >= 0)
+    return static_cast<long long>(udiv(static_cast<unsigned long long>(a), v));
+  const unsigned long long u = ~static_cast<unsigned long long>(a);
+  return -static_cast<long long>(udiv(u, v)) - 1;
+}
+
 struct BucketAdmit {
   const int64_t* h1;
   const long long* n_units;
@@ -250,10 +285,39 @@ struct BucketAdmit {
   long long* consumed;
   long long* remaining;
   long long* retry_us;
-  long long rate_num;  // > 0
   long long rate_den;  // > 0
+  Divider by_num;      // the rate's numerator (> 0)
   int B, iters;
 };
+
+// Request i's results from its verdict ``ok``, ``seen`` and n_units
+// ``n``: allowed, consumed, remaining and retry_us; with the cascade
+// (kCasc), a row the key scope admits (no deficit) but the cascade denied
+// retries at ``casc_retry``, when the tenant/global window resets.
+template <bool kCasc>
+__device__ __forceinline__ void write_results(const BucketAdmit& a, int i,
+                                              bool ok, long long seen,
+                                              long long n,
+                                              long long casc_retry) {
+  const long long used = ok ? n : 0;
+  a.allowed[i] = ok;
+  a.consumed[i] = used;
+  a.remaining[i] = floor_div(rl_admit::sub(seen, used), kMicros);
+  // An admitted request retries at 0; only a denied one pays the division.
+  long long retry = 0;
+  if (!ok) {
+    long long deficit = rl_admit::sub(n, seen);
+    deficit = deficit > 0 ? deficit : 0;
+    // -((-deficit * rate_den) // rate_num), wrapping as torch's int64.
+    const long long prod = static_cast<long long>(
+        (0ull - static_cast<unsigned long long>(deficit)) *
+        static_cast<unsigned long long>(a.rate_den));
+    const long long q = floor_div(prod, a.by_num);
+    retry = static_cast<long long>(0ull - static_cast<unsigned long long>(q));
+    if constexpr (kCasc) retry = deficit <= 0 ? casc_retry : retry;
+  }
+  a.retry_us[i] = retry;
+}
 
 template <class S, bool kCasc>
 __global__ void __launch_bounds__(S::kThreads, 1)
@@ -276,27 +340,37 @@ __global__ void __launch_bounds__(S::kThreads, 1)
   }
   // In batch order: coalesced reads and writes.
   for (int i = threadIdx.x; i < a.B; i += S::kThreads) {
-    const bool ok = tmp.u.out.allowed[i];
-    const long long seen = tmp.u.out.seen[i];
-    const long long n = __ldg(a.n_units + i);
-    const long long used = ok ? n : 0;
-    a.allowed[i] = ok;
-    a.consumed[i] = used;
-    a.remaining[i] = floor_div(rl_admit::sub(seen, used), kMicros);
-    long long deficit = rl_admit::sub(n, seen);
-    deficit = deficit > 0 ? deficit : 0;
-    // -((-deficit * rate_den) // rate_num), wrapping as torch's int64.
-    const long long prod = static_cast<long long>(
-        (0ull - static_cast<unsigned long long>(deficit)) *
-        static_cast<unsigned long long>(a.rate_den));
-    const long long q = floor_div(prod, a.rate_num);
-    long long retry = static_cast<long long>(
-        0ull - static_cast<unsigned long long>(q));
-    // A row the key scope admits (no deficit) but the cascade denied
-    // retries when the tenant/global window resets.
-    if constexpr (kCasc) retry = deficit <= 0 ? a.casc.retry_us : retry;
-    a.retry_us[i] = ok ? 0 : retry;
+    long long casc_retry = 0;
+    if constexpr (kCasc) casc_retry = a.casc.retry_us;
+    write_results<kCasc>(a, i, tmp.u.out.allowed[i], tmp.u.out.seen[i],
+                         __ldg(a.n_units + i), casc_retry);
   }
+}
+
+// The bucket's admission across a thread-block cluster (rl_bucket_admit
+// without the cascade, above the one-block size rule; admit_cluster.cuh):
+// bucket_admit_kernel<S, false>'s results, written from each key's owner
+// block.
+struct BucketAdmitResults {
+  BucketAdmit a;
+  using Operands = long long;  // n_units
+  __device__ __forceinline__ long long load(int i) const {
+    return __ldg(a.n_units + i);
+  }
+  __device__ __forceinline__ void write(int i, long long n, bool ok,
+                                        long long seen) const {
+    write_results<false>(a, i, ok, seen, n, 0);
+  }
+};
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
+    bucket_admit_cluster_kernel(const BucketAdmit a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using St = rl_admit_cluster::Storage<kThreads, long long>;
+  auto& st = *reinterpret_cast<St*>(smem);
+  rl_admit_cluster::admit<kThreads, long long>(
+      st, a.h1, a.n_units, a.avail, a.B, a.iters, BucketAdmitResults{a});
 }
 
 // front.cuh's launch() picks the table mode and the depth build.
@@ -314,6 +388,13 @@ struct BucketAdmitKernel {
   using Q = long long;
   template <class S>
   static auto fn() { return &bucket_admit_kernel<S, kCasc>; }
+};
+
+// admit_cluster.cuh's launch_sized() picks the thread count.
+struct BucketAdmitClusterKernel {
+  using Q = long long;
+  template <int kThreads>
+  static auto fn() { return &bucket_admit_cluster_kernel<kThreads>; }
 };
 
 }  // namespace
@@ -367,17 +448,20 @@ int rl_bucket_update(void* debt, void* acc, long long decay, const void* h1,
 }
 
 // One launch of one block (admit.cuh's shape for B, up to kMaxCapacity
-// keys; one block at B = 0 too). rate_num and rate_den > 0. limit ==
+// keys; one block at B = 0 too); without the cascade, above
+// rl_admit_cluster::kClusterBatch requests, one cluster
+// (admit_cluster.cuh) instead. The rate's numerator comes as its
+// Divider (num_magic, num_shift in [-1, 63]); rate_den > 0. limit ==
 // nullptr: no cascade (h2, n and the cascade's operands unused).
 int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
                     void* allowed, void* consumed, void* remaining,
-                    void* retry_us, long long rate_num, long long rate_den,
-                    int B, int iters, const void* h2, const void* n,
-                    const void* map_key, const void* map_tid, int P,
-                    const void* limit, const void* weight, int T,
-                    void* tn_counts, int rolled, long long cascade_retry_us,
-                    void* stream) {
-  if (rate_num < 1 || rate_den < 1)
+                    void* retry_us, unsigned long long num_magic,
+                    int num_shift, long long rate_den, int B, int iters,
+                    const void* h2, const void* n, const void* map_key,
+                    const void* map_tid, int P, const void* limit,
+                    const void* weight, int T, void* tn_counts, int rolled,
+                    long long cascade_retry_us, void* stream) {
+  if (num_shift < -1 || num_shift > 63 || rate_den < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   rl_cascade::With<BucketAdmit> a;
   a.h1 = static_cast<const int64_t*>(h1);
@@ -387,8 +471,8 @@ int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
   a.consumed = static_cast<long long*>(consumed);
   a.remaining = static_cast<long long*>(remaining);
   a.retry_us = static_cast<long long*>(retry_us);
-  a.rate_num = rate_num;
   a.rate_den = rate_den;
+  a.by_num = Divider{num_magic, num_shift};
   a.B = B;
   a.iters = iters;
   a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
@@ -397,6 +481,9 @@ int rl_bucket_admit(const void* h1, const void* n_units, const void* avail,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (limit == nullptr) {
     const BucketAdmit& b = a;
+    if (rl_admit_cluster::uses_cluster(B))
+      return rl_admit_cluster::launch_sized<BucketAdmitClusterKernel>(
+          b, rl_admit_cluster::kCluster, s);
     return rl_admit::launch<BucketAdmitKernel<false>>(b, s);
   }
   if (!rl_cascade::valid(a.casc))

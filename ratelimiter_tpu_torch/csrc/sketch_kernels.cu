@@ -46,8 +46,13 @@
 // rows in row order and writes est, avail and n_f. It needs ~0.25 MB at
 // B=4096, d=4 (bound ~0.07 us at 3.35 TB/s), so it is launch-bound, and
 // its design is about the launches it saves: the estimate alone used to
-// be one of ~50 launches that fed admission. add_back and window_admit:
-// ONE block holds the whole batch and runs the admission routine
+// be one of ~50 launches that fed admission. window_admit without the
+// side table and the cascade (the main path's): ONE cluster of blocks
+// partitions the batch's keys over its blocks through distributed
+// shared memory, each block admits the keys it owns and each writes its
+// share's results (admit_cluster.cuh; one block at and below the
+// entry's small-batch size). add_back and the other window_admit
+// builds: ONE block holds the whole batch and runs the admission routine
 // (admit.cuh: keys to group ids through a shared-memory hash table, a
 // block radix sort of the ids, then iters + 2 segmented block scans),
 // then an epilogue in batch order (coalesced) that writes the results;
@@ -57,7 +62,8 @@
 // order gives the reference's histogram; at 4096 keys over 65536 columns
 // a shared-memory histogram would not help). Their bound is ~0.2 MB at
 // B=4096 (~0.06 us), far below one launch: the design replaces the ~85
-// launches of the plain admission and epilogue with one, on one SM.
+// launches of the plain admission and epilogue with one, on one SM (or,
+// for window_admit's cluster, a few).
 // add_update: one thread per (key, row) with atomics. cu_update: one
 // launch in which each block owns a tile of T cells of one row
 // (tile_owner.cuh): it bulk-copies its totals, cur and boundary tiles into
@@ -88,6 +94,7 @@
 #include <stdint.h>
 
 #include "admit.cuh"
+#include "admit_cluster.cuh"
 #include "cascade.cuh"
 #include "front.cuh"
 #include "hh.cuh"
@@ -657,6 +664,43 @@ __global__ void __launch_bounds__(S::kThreads, 1)
   }
 }
 
+// The CU step's admission across a thread-block cluster (rl_window_admit
+// without the side table and the cascade, above the one-block size rule;
+// admit_cluster.cuh): window_admit_kernel<S, false, false>'s results,
+// written from each key's owner block.
+struct WindowAdmitResults {
+  const float* est;
+  const float* n_f;
+  const float* avail;
+  float* target;
+  bool* allowed;
+  int32_t* remaining;
+  struct Operands {
+    float est, n_f, avail;
+  };
+  __device__ __forceinline__ Operands load(int i) const {
+    return {__ldg(est + i), __ldg(n_f + i), __ldg(avail + i)};
+  }
+  __device__ __forceinline__ void write(int i, const Operands& x, bool ok,
+                                        float seen) const {
+    allowed[i] = ok;
+    remaining[i] = remaining_of(seen, ok ? x.n_f : 0.0f);
+    target[i] = ok ? post_batch(x.est, x.avail, seen, x.n_f) : 0.0f;
+  }
+};
+
+template <int kThreads>
+__global__ void __launch_bounds__(kThreads, 1)
+    window_admit_cluster_kernel(const WindowAdmit a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& st =
+      *reinterpret_cast<rl_admit_cluster::Storage<kThreads, float>*>(smem);
+  rl_admit_cluster::admit<kThreads, float>(
+      st, a.h1, a.n_f, a.avail, a.B, a.iters,
+      WindowAdmitResults{a.est, a.n_f, a.avail, a.target, a.allowed,
+                         a.remaining});
+}
+
 // The side table's update alone (rl_hh_update), for the composed back
 // above the admission capacity: ONE block runs hh.cuh's routine on the
 // operands the composed back left in global memory. Pass B re-derives
@@ -728,6 +772,13 @@ struct WindowAdmitKernel {
   using Q = float;
   template <class S>
   static auto fn() { return &window_admit_kernel<S, kHH, kCasc>; }
+};
+
+// admit_cluster.cuh's launch_sized() picks the thread count.
+struct WindowAdmitClusterKernel {
+  using Q = float;
+  template <int kThreads>
+  static auto fn() { return &window_admit_cluster_kernel<kThreads>; }
 };
 
 // A back's launch: the kHH and kCasc builds picked from its operands
@@ -902,7 +953,10 @@ int rl_add_back(void* totals, void* cur, const void* h1, const void* h2,
 
 // mine == nullptr: no side table (target_pr unused). limit == nullptr:
 // no cascade (its operands unused; h2 and n unused without the tail
-// either). hh_owner == nullptr: no tail; else as rl_add_back's.
+// either). hh_owner == nullptr: no tail; else as rl_add_back's. With
+// neither the side table nor the cascade, a batch above
+// rl_admit_cluster::kClusterBatch requests launches one cluster
+// (admit_cluster.cuh) instead of one block.
 int rl_window_admit(const void* h1, const void* est, const void* n_f,
                     const void* avail, const void* mine, void* target,
                     void* allowed, void* remaining, void* target_pr, int B,
@@ -937,6 +991,12 @@ int rl_window_admit(const void* h1, const void* est, const void* n_f,
   a.hh = hh;
   a.casc = rl_cascade::make_args(h2, n, map_key, map_tid, P, limit, weight,
                                  T, counts, tn_cur, slab, frac, 0, 0);
+  if (mine == nullptr && hh.K == 0 && limit == nullptr &&
+      rl_admit_cluster::uses_cluster(B)) {
+    const WindowAdmit& b = a;
+    return rl_admit_cluster::launch_sized<WindowAdmitClusterKernel>(
+        b, rl_admit_cluster::kCluster, static_cast<cudaStream_t>(stream));
+  }
   return launch_back<WindowAdmitKernel, WindowAdmit>(
       a, mine != nullptr || hh.K != 0, static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,9 @@ function. ``bucket_front`` replaces ``bucket_estimate`` together with the
 step's ops around it (hashing, policy lookup, available quota, request
 units), and ``bucket_admit`` runs the step's in-batch admission, consumed,
 remaining and retry in one launch ahead of ``bucket_update`` (over the
-block-level routine of ``csrc/admit.cuh``; it replaces no TPU kernel):
+block-level routine of ``csrc/admit.cuh``, or without the cascade above
+``sketch_cuda.ADMIT_CLUSTER_BATCH`` requests the cluster routine of
+``csrc/admit_cluster.cuh``; it replaces no TPU kernel):
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -79,8 +81,8 @@ def _lib() -> ctypes.CDLL:
         lib.rl_bucket_update.argtypes = [P, P, L, P, P, P, I, I, I, I, I, I,
                                          P]
         C = [P, P, I, P, P, I, P]
-        lib.rl_bucket_admit.argtypes = [P, P, P, P, P, P, P, L, L, I, I, P,
-                                        P, *C, I, L, P]
+        lib.rl_bucket_admit.argtypes = [P, P, P, P, P, P, P, U, I, L, I, I,
+                                        P, P, *C, I, L, P]
         for fn in (lib.rl_bucket_front, lib.rl_bucket_update,
                    lib.rl_bucket_admit):
             fn.restype = ctypes.c_int
@@ -289,6 +291,25 @@ def bucket_update(debt: torch.Tensor, acc: torch.Tensor, decay: int,
     bucket_update.launches += 1
 
 
+def divider(d: int) -> tuple:
+    """The rate's numerator ``d`` (1 <= d < 2^63) as the kernel's
+    invariant multiply, ``(magic, shift)``: libdivide's branch-free
+    unsigned 64-bit scheme (``libdivide_u64_branchfree``), with which
+    floor(x / d) = (((x - q) >> 1) + q) >> shift for q = (magic * x) >>
+    64, exact for every x < 2^64; d = 1 gives shift -1, which the kernel
+    takes as x itself (``Divider`` in csrc/bucket_kernels.cu). Computed
+    once a launch, here on the host."""
+    d = int(d)
+    if not 0 < d < (1 << 63):
+        raise ValueError(f"divisor {d} must be a positive int64 value")
+    if d == 1:
+        return 0, -1
+    fl = d.bit_length() - 1
+    if d & (d - 1) == 0:
+        return 0, fl - 1
+    return ((1 << (65 + fl)) // d + 1) % (1 << 64), fl
+
+
 def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
                  avail: torch.Tensor, iters: int, rate_num: int,
                  rate_den: int, casc: Optional[Cascade] = None) -> tuple:
@@ -300,12 +321,19 @@ def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
 
     Bound on an H100: h1, n_units and avail in, the four outputs out,
     ~0.2 MB at B=4096: ~0.06 us at 3.35 TB/s, far below one launch.
-    Design: the windowed backs' block (csrc/admit.cuh) in int64, with an
-    epilogue that writes the four outputs in batch order
-    (floor divisions and wrapping products spelled as torch computes
-    them). It replaces the ~90 launches of the composed admission and
-    results with one. Above ``ADMIT_CAPACITY`` keys the plain version runs
-    on the card (with the plain cascade when ``casc`` is given).
+    Design: without the cascade (the main path), one cluster of
+    ``sketch_cuda.admit_cluster(B)`` blocks (csrc/admit_cluster.cuh), the
+    keys partitioned over them, each block admitting its own in int64
+    and writing their four outputs at their batch indices; at and below
+    ``ADMIT_CLUSTER_BATCH`` requests (and in the cascade build) the
+    windowed backs' block (csrc/admit.cuh) in int64, with an epilogue
+    that writes the four outputs in batch order (floor divisions and
+    wrapping products spelled as torch computes them, in both; the
+    retry's division by ``rate_num`` as ``divider``'s multiply). The C
+    entry picks the cluster or the block from B. It replaces the ~90
+    launches of the composed admission and results with one. Above
+    ``ADMIT_CAPACITY`` keys the plain version runs on the card (with the
+    plain cascade when ``casc`` is given).
 
     With the cascade's operands ``casc`` (the bucket's fixed-window scope
     counters), the cascade build runs csrc/cascade.cuh's routine in the
@@ -330,10 +358,11 @@ def bucket_admit(h1: torch.Tensor, n_units: torch.Tensor,
     allowed = torch.empty(B, dtype=torch.bool, device=dev)
     consumed, remaining, retry_us = torch.empty(
         (3, B), dtype=torch.int64, device=dev).unbind()
+    magic, shift = divider(rate_num)
     err = _lib().rl_bucket_admit(
         h1.data_ptr(), n_units.data_ptr(), avail.data_ptr(),
         allowed.data_ptr(), consumed.data_ptr(), remaining.data_ptr(),
-        retry_us.data_ptr(), rate_num, rate_den, B, iters,
+        retry_us.data_ptr(), magic, shift, rate_den, B, iters,
         *((None, None) if casc is None else (casc.h2.data_ptr(),
                                              casc.n.data_ptr())),
         *_cascade_args(casc)[:7],

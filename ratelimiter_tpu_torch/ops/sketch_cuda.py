@@ -11,7 +11,9 @@ launch one by one. The back of the step is one launch too: ``add_back``
 (the vanilla step: admission, the ``add_update`` scatter and remaining)
 and ``window_admit`` (the CU step's admission, targets and remaining,
 ahead of ``cu_update``), both over the block-level admission routine of
-``csrc/admit.cuh``:
+``csrc/admit.cuh``, ``window_admit`` without the side table and the
+cascade over the cluster routine of ``csrc/admit_cluster.cuh`` above
+``ADMIT_CLUSTER_BATCH`` requests:
 
 * a CUDA tensor launches the kernel (on the current stream, without
   synchronising) or raises — there is no fallback;
@@ -102,6 +104,29 @@ FRONT_THREADS = 128
 #: this size.
 ADMIT_CAPACITY = 8192
 
+#: Admission across a thread-block cluster (csrc/admit_cluster.cuh). The
+#: main path's builds of the two admission launches, ``window_admit`` and
+#: ``bucket_cuda.bucket_admit`` without the side table and the cascade,
+#: launch ONE cluster of ADMIT_CLUSTER blocks for a batch of more than
+#: ADMIT_CLUSTER_BATCH requests: the keys are partitioned over the blocks
+#: by bits of h1 (``owners_of``) and each block admits its own. At and
+#: below ADMIT_CLUSTER_BATCH they launch one block (csrc/admit.cuh). The
+#: C entries make this choice (``kCluster``, ``kClusterBatch`` and
+#: ``uses_cluster`` there); these mirror it for logs and checks
+#: (``admit_cluster``). It is a size rule between two hand kernels, not a
+#: fallback: a cluster the card refuses raises. Both numbers come from
+#: ``python3 chip_smoke.py --admit-sweep`` on an H100 (PERF.md): 16 blocks
+#: (the card's non-portable cluster size) beat 8 on Zipf and distinct
+#: keys at 4096 and 8192 requests; across batches of 1 to 1024 requests
+#: one block beat the cluster on Zipf, one-key and distinct batches up to
+#: 128 requests; above, the cluster won or came within 0.22 us on Zipf
+#: and distinct batches at every size measured (one key favours one
+#: block up to 1024).
+ADMIT_CLUSTER, ADMIT_CLUSTER_BATCH = 16, 128
+
+#: The owner block's multiplier (``kOwnerMix`` in csrc/admit_cluster.cuh).
+OWNER_MIX = 0xD6E8FEB86659FD93
+
 #: The side table's update keeps its per-slot scratch in shared memory
 #: (``kSharedSlots`` in csrc/hh.cuh: 26 bytes a slot, at most 106,496;
 #: each slot's owner, hh_cur and hh_totals read once) up to this many
@@ -155,6 +180,22 @@ def _lib() -> ctypes.CDLL:
 def build() -> None:
     """Compile (if needed) and load the kernels' library."""
     _lib()
+
+
+def admit_cluster(B: int) -> int:
+    """The blocks of the main path's admission launch for a batch of
+    ``B`` requests, as the C entries pick them: ADMIT_CLUSTER above
+    ADMIT_CLUSTER_BATCH, else 1 (one block)."""
+    return ADMIT_CLUSTER if B > ADMIT_CLUSTER_BATCH else 1
+
+
+def owners_of(h1: np.ndarray, cluster: int) -> np.ndarray:
+    """Each request's owner block in a cluster of ``cluster`` blocks (a
+    power of two), as csrc/admit_cluster.cuh's ``owner_of`` computes it:
+    the top log2(cluster) bits of h1 * OWNER_MIX modulo 2^64."""
+    bits = int(cluster).bit_length() - 1
+    x = np.asarray(h1).astype(np.uint64) * np.uint64(OWNER_MIX)
+    return (x >> np.uint64(64 - bits)).astype(np.int64)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -1052,11 +1093,17 @@ def window_admit(h1: torch.Tensor, est: torch.Tensor, n_f: torch.Tensor,
 
     Bound on an H100: h1, est, n_f and avail in, target, allowed and
     remaining out, ~0.1 MB at B=4096: ~0.03 us at 3.35 TB/s, far below
-    one launch. Design: ``add_back``'s block (csrc/admit.cuh) with an
-    epilogue that writes the three outputs in batch order. It
-    replaces the ~85 launches of the composed admission, targets and
-    remaining with one. Above ``ADMIT_CAPACITY`` keys the plain version
-    runs on the card (with the plain cascade when ``casc`` is given).
+    one launch. Design: without the side table and the cascade (the main
+    path), one cluster of ``admit_cluster(B)`` blocks
+    (csrc/admit_cluster.cuh): the keys partitioned over the blocks
+    through distributed shared memory, each block admitting its own and
+    writing their three outputs at their batch indices; at and below
+    ``ADMIT_CLUSTER_BATCH`` requests (and in the builds with either)
+    ``add_back``'s block (csrc/admit.cuh) with an epilogue that writes
+    the three outputs in batch order. It replaces the ~85 launches of
+    the composed admission, targets and remaining with one. Above
+    ``ADMIT_CAPACITY`` keys the plain version runs on the card (with the
+    plain cascade when ``casc`` is given).
 
     With the side table's ``mine``, a compile-time variant targets 0 for
     owned keys and also writes the promotion targets, returned fourth

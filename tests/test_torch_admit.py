@@ -17,7 +17,12 @@ under-admits against the greedy answer with one round), one key for the
 whole batch, all keys distinct, half the batch padding (n = 0), counts
 above 2^24 (rounded in f32) with a batch total past 2^24, int64 units past
 2^24, ``iters`` 1 and 4, and a retry whose ``deficit * rate_den`` wraps
-int64.
+int64. And the batches that stress the card's cluster admission
+(csrc/admit_cluster.cuh partitions the keys over a cluster's blocks by
+``sketch_cuda.owners_of``): one key holding 60% of the batch (more
+than a block's share), keys whose owner block agrees at every cluster
+size for 3/4 of it, and B = 1, 257 and 4097 (not multiples of a cluster
+size), for the backs and for the whole steps.
 """
 
 from __future__ import annotations
@@ -40,11 +45,15 @@ from ratelimiter_tpu_torch.ops import bucket_cuda as bc
 from ratelimiter_tpu_torch.ops import bucket_kernels as tbk
 from ratelimiter_tpu_torch.ops import sketch_cuda as sc
 from ratelimiter_tpu_torch.ops import sketch_kernels as tsk
+from ratelimiter_tpu_torch.ops.sketch_cuda import owners_of
 
 B = 4096
 D, W = 3, 128
 MICROS = 1_000_000
-CASES = ["mixed", "one key", "distinct", "padding", "past 2^24"]
+CASES = ["mixed", "one key", "distinct", "padding", "past 2^24",
+         "hot key", "owner bits", "B=1", "B=257", "B=4097"]
+#: The cluster admission's adversarial cases (the last five above).
+CLUSTER_CASES = CASES[5:]
 #: (rate_num, rate_den): config 3's refill, and one whose product with a
 #: deficit wraps int64.
 RATES = [(5, 3), (3, (1 << 62) + 11)]
@@ -99,24 +108,39 @@ def _greedy(h1, n, avail):
     return out
 
 
+def _size(name: str) -> int:
+    return int(name[2:]) if name.startswith("B=") else B
+
+
 def _case(name: str):
     """(h1 int64 in 0..2^32-1, h2, n int32, avail f32, est f32) for B
-    requests; avail is equal within a key, as the front gives it."""
+    requests (or the case's own size); avail is equal within a key, as the
+    front gives it."""
     rng = np.random.default_rng(CASES.index(name))
-    keys = rng.integers(0, 2 ** 32, size=B, dtype=np.int64)
-    n = rng.integers(0, 7, size=B).astype(np.int32)
+    nb = _size(name)
+    keys = rng.integers(0, 2 ** 32, size=max(nb, 64), dtype=np.int64)
+    n = rng.integers(0, 7, size=nb).astype(np.int32)
     if name == "one key":
-        h1 = np.full(B, keys[0])
-        n = rng.integers(0, 4, size=B).astype(np.int32)
+        h1 = np.full(nb, keys[0])
+        n = rng.integers(0, 4, size=nb).astype(np.int32)
     elif name == "distinct":
         h1 = np.unique(keys)
-        h1 = np.concatenate([h1, h1[:B - len(h1)] ^ (1 << 31)])
+        h1 = np.concatenate([h1, h1[:nb - len(h1)] ^ (1 << 31)])
     else:
-        h1 = keys[rng.integers(0, 40, size=B)]
-        # One key's leading requests: the fixpoint's first round denies
-        # all but the first (6 + 5 > 10), the greedy answer admits the 4.
-        h1[:4] = keys[41]
-        n[:4] = [6, 5, 4, 1]
+        h1 = keys[rng.integers(0, 40, size=nb)]
+        if nb >= 4:
+            # One key's leading requests: the fixpoint's first round
+            # denies all but the first (6 + 5 > 10), the greedy answer
+            # admits the 4.
+            h1[:4] = keys[41]
+            n[:4] = [6, 5, 4, 1]
+    if name == "hot key":
+        h1[rng.random(nb) < 0.6] = keys[42]
+    elif name == "owner bits":
+        same = keys[owners_of(keys, 16) == 0][:64]
+        pick = rng.random(nb) < 0.75
+        h1[pick] = same[rng.integers(0, len(same), size=int(pick.sum()))]
+        assert (owners_of(h1, 16) == 0).mean() > 0.7
     per_key = {k: rng.integers(0, 30) + rng.random() for k in np.unique(h1)}
     per_key[keys[41]] = 10.0
     if name == "one key":
@@ -130,8 +154,8 @@ def _case(name: str):
         avail[:] = np.float32((1 << 24) - 1)
         assert n.astype(np.int64).sum() >= 1 << 24
         assert n.astype(np.int64).sum() < 1 << 31
-    h2 = rng.integers(0, 2 ** 32, size=B) | 1
-    est = (rng.random(B) * 30).astype(np.float32)
+    h2 = rng.integers(0, 2 ** 32, size=nb) | 1
+    est = (rng.random(nb) * 30).astype(np.float32)
     return h1, h2, n, avail, est
 
 
@@ -174,7 +198,8 @@ def test_window_backs_plain_match_jax(case, iters):
                                 _t(avail), iters),
           [j_target, j_allowed, j_rem])
     allowed = np.asarray(j_allowed)
-    assert allowed.any() and not allowed.all()
+    if len(h1) > 1:
+        assert allowed.any() and not allowed.all()
     if case == "mixed" and iters == 1:
         # The case the safety intersection exists for: fewer admitted
         # than the sequential answer, never more.
@@ -196,6 +221,8 @@ def test_bucket_admit_plain_matches_jax(case, iters, rate):
     got = bc.bucket_admit_plain(_t(h1), _t(units), _t(b_avail), iters, *rate)
     _same(got, want[:4])
     denied = ~np.asarray(want[0])
+    if len(h1) == 1:
+        return
     assert denied.any() and not denied.all()
     assert (units > (1 << 24)).any()
     if rate[1] > 1 << 61:
@@ -294,3 +321,66 @@ def test_bucket_step_with_admit_matches_jax(iters):
         np.testing.assert_array_equal(tstate[k].numpy(),
                                       np.asarray(jstate[k]))
     assert (np.asarray(jout[2]) > 0).any()
+
+
+# ------------------------------------- whole steps on the cluster cases
+
+
+def _step_ids(case: str, seed: int, rng):
+    """Raw ids for a step on one of ``CLUSTER_CASES``: few keys with one
+    holding 60% ("hot key"), ids whose hashed h1 (the step's seed) has
+    one owner block at every cluster size for 3/4 of the batch ("owner
+    bits"), or B mixed ids ("B=<n>")."""
+    from ratelimiter_tpu_torch.ops import hashing
+
+    nb = 512 if case in ("hot key", "owner bits") else _size(case)
+    ids = rng.integers(1, 600, size=nb).astype(np.uint64)
+    if case == "hot key":
+        ids[rng.random(nb) < 0.6] = 7
+    elif case == "owner bits":
+        pool = np.arange(1, 4096, dtype=np.uint64)
+        h1, _ = hashing.split_hash(hashing.splitmix64(pool), seed)
+        same = pool[owners_of(h1.astype(np.int64), 16) == 0][:40]
+        pick = rng.random(nb) < 0.75
+        ids[pick] = same[rng.integers(0, len(same), size=int(pick.sum()))]
+    return ids
+
+
+@pytest.mark.parametrize("algo,iters", [("cu", 4), ("cu", 1),
+                                        ("vanilla", 4), ("bucket", 4),
+                                        ("bucket", 1)])
+@pytest.mark.parametrize("case", CLUSTER_CASES)
+def test_steps_on_cluster_cases_match_jax(case, algo, iters):
+    """Three raw-id steps of the rewired windowed (CU and vanilla) and
+    bucket steps on the cluster admission's adversarial batches against
+    the JAX steps, every output and the state bit for bit."""
+    rng = np.random.default_rng(CLUSTER_CASES.index(case) * 7 + iters)
+    if algo == "bucket":
+        jcfg, tcfg = _bucket_cfg(R, iters), _bucket_cfg(T, iters)
+        jstep = jbk.build_hashed_step(jcfg, premix=True)
+        tstep = tbk.build_hashed_step(tcfg, premix=True)
+        jstate, tstate = jbk.init_state(jcfg), tbk.init_state(tcfg, "cpu")
+        names, kw = ("debt", "acc", "rem", "last"), {}
+    else:
+        cu = algo == "cu"
+        jcfg, tcfg = _window_cfg(R, cu, iters), _window_cfg(T, cu, iters)
+        jstep = jsk.build_hashed_step(jcfg, premix=True)
+        tstep = tsk.build_hashed_step(tcfg, premix=True)
+        jstate, tstate, p = _window_states(jcfg, tcfg, rng)
+        names, kw = ("cur", "totals"), {"period": p}
+    now = T0_US
+    denied = 0
+    for _ in range(3):
+        ids = _step_ids(case, tcfg.sketch.seed, rng)
+        n = rng.integers(0, 4, size=len(ids)).astype(np.int32)
+        jstate, jout = jstep(jstate, jnp.asarray(ids), jnp.asarray(n),
+                             jnp.int64(now), None)
+        tout = tstep(tstate, _t(ids.view(np.int64)), _t(n), now, **kw)
+        _same(tout, jout)
+        denied += int((~np.asarray(jout[0])).sum())
+        now += int(rng.integers(1, 200_000))
+    for k in names:
+        np.testing.assert_array_equal(tstate[k].numpy(),
+                                      np.asarray(jstate[k]))
+    if _size(case) > 1:
+        assert denied > 0

@@ -152,6 +152,75 @@ def test_admit_keeps_units_f32_cannot_hold():
     assert (seen.astype(np.float32).astype(np.int64) != seen).any()
 
 
+# ------------------------------------------------------- the retry's divider
+
+U64 = (1 << 64) - 1
+
+
+def _udiv(x: int, magic: int, shift: int) -> int:
+    """csrc/bucket_kernels.cu's ``udiv`` on Python ints: x < 2^64 divided
+    through ``bucket_cuda.divider``'s (magic, shift), with the card's
+    64-bit unsigned arithmetic (``__umul64hi``, wrapping sums)."""
+    if shift < 0:
+        return x
+    q = (magic * x) >> 64
+    return ((((x - q) & U64) >> 1) + q & U64) >> shift
+
+
+def _floor_div(a: int, magic: int, shift: int) -> int:
+    """The kernel's signed ``floor_div`` through the divider: a >= 0
+    divides as unsigned, a < 0 as -(~a / d) - 1."""
+    if a >= 0:
+        return _udiv(a, magic, shift)
+    return -_udiv(~a, magic, shift) - 1
+
+
+@pytest.mark.parametrize("kind", ["small", "powers of two",
+                                  "next to powers of two", "large",
+                                  "random"])
+def test_divider_divides_exactly(kind):
+    """``bucket_cuda.divider`` (host code: the bucket kernels' retry
+    divides by the rate's numerator through it) against exact floor
+    division, unsigned over dividends up to 2^64 - 1 and signed as the
+    retry takes it, INT64_MIN included."""
+    rng = np.random.default_rng(["small", "powers of two",
+                                 "next to powers of two", "large",
+                                 "random"].index(kind))
+    if kind == "small":
+        ds = list(range(1, 130)) + [1_000_000, 999_999_937]
+    elif kind == "powers of two":
+        ds = [1 << k for k in range(63)]
+    elif kind == "next to powers of two":
+        ds = [d for k in range(2, 63) for d in ((1 << k) - 1, (1 << k) + 1)]
+    elif kind == "large":
+        ds = [(1 << 63) - 1, (1 << 63) - 2, (1 << 62) + 11, 3 << 61,
+              (1 << 40) + 12345]
+    else:
+        ds = [int(d) for d in rng.integers(2, 1 << 63, size=120)]
+    for d in ds:
+        magic, shift = bc.divider(d)
+        assert 0 <= magic <= U64 and -1 <= shift <= 63
+        xs = [0, 1, d - 1, d, d + 1, 2 * d - 1, 2 * d, U64, U64 - 1,
+              (1 << 63) - 1, 1 << 63] + [int(x) for x in rng.integers(
+                  0, 1 << 63, size=40, dtype=np.int64)] + [
+            int(x) + (1 << 63) for x in rng.integers(
+                0, 1 << 63, size=40, dtype=np.int64)]
+        for x in xs:
+            if 0 <= x <= U64:
+                assert _udiv(x, magic, shift) == x // d, (d, x)
+        for a in [-(1 << 63), -(1 << 63) + 1, -1, -d, -d - 1, -d + 1,
+                  (1 << 63) - 1] + [int(a) for a in rng.integers(
+                      -(1 << 63), (1 << 63) - 1, size=40, dtype=np.int64)]:
+            assert _floor_div(a, magic, shift) == a // d, (d, a)
+
+
+def test_divider_refuses_what_the_kernel_cannot_take():
+    """Numerators outside [1, 2^63) raise before anything launches."""
+    for d in (0, -1, 1 << 63):
+        with pytest.raises(ValueError, match="positive int64"):
+            bc.divider(d)
+
+
 # ----------------------------------------------------------------- gates
 
 

@@ -518,13 +518,30 @@ def _back_keys(rng, kind: str, B: int):
     """int64 (B,) h1 values: Zipf ids' low halves, one key for the whole
     batch, or "wide" values (the halves lane takes h1 from a caller) whose
     low 32 bits collide across different high bits, with the all-ones
-    value (the hash table's empty mark) among them."""
+    value (the hash table's empty mark) among them; and the cluster
+    admission's adversarial batches: one key holding 60% of the batch
+    ("hot"), keys whose owner block is one block at every cluster size
+    (``sketch_cuda.owners_of``) for 3/4 of the batch ("owner"), all keys
+    distinct."""
     if kind == "one key":
         return np.full(B, 0x1234567, dtype=np.int64)
     if kind == "wide":
         h = rng.integers(0, 16, size=B) + (rng.integers(0, 3, size=B) << 32)
         h[::7] = -1
         return h.astype(np.int64)
+    if kind == "hot":
+        h = (rng.zipf(1.1, size=B) % 1_000_003).astype(np.int64)
+        h[rng.random(B) < 0.6] = 0x7654321
+        return h
+    if kind == "owner":
+        pool = rng.integers(0, 2 ** 32, size=64 * B, dtype=np.int64)
+        same = pool[sc.owners_of(pool, 16) == 0][:B // 2]
+        h = rng.integers(0, 2 ** 32, size=B, dtype=np.int64)
+        pick = rng.random(B) < 0.75
+        h[pick] = same[rng.integers(0, len(same), size=int(pick.sum()))]
+        return h
+    if kind == "distinct":
+        return rng.choice(2 ** 32, size=B, replace=False).astype(np.int64)
     return (rng.zipf(1.1, size=B) % 1_000_003).astype(np.int64)
 
 
@@ -541,7 +558,9 @@ def _back_operands(rng, kind: str, B: int, dev):
 @pytest.mark.parametrize("B,kind", [
     (0, "zipf"), (1, "zipf"), (8, "zipf"), (4096, "zipf"), (4096, "one key"),
     (4096, "wide"), (sc.ADMIT_CAPACITY, "zipf"),
-    (2 * sc.ADMIT_CAPACITY, "zipf")])
+    (2 * sc.ADMIT_CAPACITY, "zipf"), (4096, "hot"), (4096, "owner"),
+    (4096, "distinct"), (257, "zipf"), (4097, "zipf"), (4097, "hot"),
+    (sc.ADMIT_CAPACITY, "one key"), (sc.ADMIT_CAPACITY, "owner")])
 @pytest.mark.parametrize("iters", [1, 4])
 def test_backs_bit_equal_to_plain(dev, B, kind, iters):
     """add_back, window_admit and bucket_admit against their plain versions
@@ -587,6 +606,28 @@ def test_bucket_admit_wrapping_retry_on_card(dev):
     units[::5] = 3 * ((1 << 24) + 1)
     avail = torch.from_numpy(rng.integers(0, 1 << 42, size=B)).to(dev)
     for num, den in ((7, 6), (3, (1 << 62) + 11), (1, 1)):
+        for iters in (1, 4):
+            assert _same(bc.bucket_admit(h1, units, avail, iters, num, den),
+                         bc.bucket_admit_plain(h1, units, avail, iters, num,
+                                               den))
+
+
+@pytest.mark.parametrize("B", [257, 4096, 4097])
+def test_bucket_admit_wrapping_retry_across_a_cluster(dev, B):
+    """The wrapping retry of ``test_bucket_admit_wrapping_retry_on_card``
+    on batches the cluster admission takes (a hot key among few), B not
+    a multiple of the cluster size; numerators of 1, a power of two and
+    past 2^62 (the kernel divides by a precomputed multiply)."""
+    assert sc.admit_cluster(B) > 1
+    rng = np.random.default_rng(B)
+    h1 = torch.from_numpy(rng.integers(0, 24, size=B)).to(dev)
+    h1[rng.random(B) < 0.6] = 5
+    units = torch.from_numpy(rng.integers(0, 1 << 41, size=B)).to(dev)
+    units[::5] = 3 * ((1 << 24) + 1)
+    avail = torch.from_numpy(rng.integers(0, 1 << 42, size=B)).to(dev)
+    for num, den in ((7, 6), (3, (1 << 62) + 11), (1, 1), (1 << 40, 7),
+                     ((1 << 62) + 11, 3), ((1 << 63) - 1, 5),
+                     (999_999_937, 1_000_003)):
         for iters in (1, 4):
             assert _same(bc.bucket_admit(h1, units, avail, iters, num, den),
                          bc.bucket_admit_plain(h1, units, avail, iters, num,

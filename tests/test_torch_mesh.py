@@ -25,6 +25,7 @@ import signal
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -495,6 +496,45 @@ def _replay_limiter():
     return SlicedMeshLimiter(cfg, device="cpu")
 
 
+def _window_index() -> int:
+    """The fixed hour-long window the wall clock is in (MESH_FLAGS)."""
+    return int(time.time() // 3600)
+
+
+def _mesh_round(c, rep, rng, native_slices: bool, base: int,
+                prefix: str) -> list:
+    """One round against the binary and the replay: a hashed frame of 64
+    ids (offset by ``base``) and 12 scalar keys (named from ``prefix``),
+    each answered by the binary, then by the replay. Returns every field
+    as (name, binary's, replay's)."""
+    from ratelimiter_tpu_torch.ops.hashing import splitmix64
+    from ratelimiter_tpu_torch.serving.native_server import fnv_shard
+
+    ids = rng.integers(0, 48, 64).astype(np.uint64) + np.uint64(base)
+    got = c.allow_hashed(ids)
+    if native_slices:
+        sh = (splitmix64(ids) % np.uint64(4)).astype(np.int64)
+        want_allowed = np.zeros(64, bool)
+        want_rem = np.zeros(64, np.int64)
+        for s in range(4):
+            m = sh == s
+            if m.any():
+                r = rep.slices[s].allow_hashed(splitmix64(ids[m]))
+                want_allowed[m], want_rem[m] = r.allowed, r.remaining
+    else:
+        r = rep.allow_ids(ids)
+        want_allowed, want_rem = r.allowed, r.remaining
+    fields = [("hashed allowed", got.allowed, want_allowed),
+              ("hashed remaining", got.remaining, want_rem)]
+    for k in [f"{prefix}{i}" for i in rng.integers(0, 20, 12)]:
+        g = c.allow(k)
+        w = (rep.slices[fnv_shard(k, 4)] if native_slices else rep).allow(k)
+        fields.append((f"{k} (allowed, remaining, reset_at)",
+                       (g.allowed, g.remaining, g.reset_at),
+                       (w.allowed, w.remaining, w.reset_at)))
+    return fields
+
+
 @pytest.mark.parametrize("door", [[], ["--native"],
                                   ["--router", "collective"],
                                   ["--native", "--router", "collective"]])
@@ -506,9 +546,15 @@ def test_doors_serve_the_mesh_against_a_replay(door):
     window: the decision time moves only the retry). The native door's
     host router mounts the slices as its shards, routed by its own
     shard router (FNV-1a / splitmix64), so its replay routes the same
-    way."""
+    way.
+
+    Both count on the wall clock, so a round during which a window
+    starts (the hour read before it and after it differ) may count some
+    requests in the old window on one side and the new one on the
+    other: that round is redone on keys neither side has seen, and
+    every later round stays on them, so that four rounds are held field
+    by field, each within one window on both sides."""
     from ratelimiter_tpu_torch.serving import Client
-    from ratelimiter_tpu_torch.serving.native_server import fnv_shard
 
     proc, port, line = _start(MESH_FLAGS + door)
     native_slices = door == ["--native"]
@@ -517,38 +563,41 @@ def test_doors_serve_the_mesh_against_a_replay(door):
     c = Client(port=port)
     rng = np.random.default_rng(6)
     try:
-        for _ in range(4):
-            ids = rng.integers(0, 48, 64).astype(np.uint64)
-            got = c.allow_hashed(ids)
-            if native_slices:
-                from ratelimiter_tpu_torch.ops.hashing import splitmix64
-
-                sh = (splitmix64(ids) % np.uint64(4)).astype(np.int64)
-                want_allowed = np.zeros(64, bool)
-                want_rem = np.zeros(64, np.int64)
-                for s in range(4):
-                    m = sh == s
-                    if m.any():
-                        r = rep.slices[s].allow_hashed(splitmix64(ids[m]))
-                        want_allowed[m], want_rem[m] = r.allowed, r.remaining
-            else:
-                r = rep.allow_ids(ids)
-                want_allowed, want_rem = r.allowed, r.remaining
-            np.testing.assert_array_equal(got.allowed, want_allowed)
-            np.testing.assert_array_equal(got.remaining, want_rem)
-            keys = [f"user{i}" for i in rng.integers(0, 20, 12)]
-            for k in keys:
-                g = c.allow(k)
-                if native_slices:
-                    w = rep.slices[fnv_shard(k, 4)].allow(k)
+        held, base, prefix = 0, 0, "user"
+        while held < 4:
+            window = _window_index()
+            fields = _mesh_round(c, rep, rng, native_slices, base, prefix)
+            if _window_index() != window:
+                base += 1 << 20
+                prefix = f"user-w{_window_index()}-"
+                continue
+            for name, got, want in fields:
+                if isinstance(got, tuple):
+                    assert got == want, name
                 else:
-                    w = rep.allow(k)
-                assert (g.allowed, g.remaining, g.reset_at) == (
-                    w.allowed, w.remaining, w.reset_at)
+                    np.testing.assert_array_equal(got, want, err_msg=name)
+            held += 1
     finally:
         c.close()
         _stop(proc)
         rep.close()
+
+
+def test_mesh_door_round_across_a_window_start_is_redone(monkeypatch):
+    """The replay test's second reading of the window differs once (a
+    window starting mid-round, as the wall clock gives it at the top of
+    the hour): that round is redone on fresh keys, and four rounds are
+    still held field by field."""
+    readings = []
+
+    def window_index():
+        readings.append(None)
+        return 0 if len(readings) < 2 else 1
+
+    monkeypatch.setattr(sys.modules[__name__], "_window_index", window_index)
+    test_doors_serve_the_mesh_against_a_replay([])
+    # 5 rounds, each read before and after, plus the fresh keys' name.
+    assert len(readings) == 11
 
 
 @pytest.mark.parametrize("door", [[], ["--native"]])
